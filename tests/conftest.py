@@ -43,6 +43,10 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running multi-process/integration test"
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the port's kernels); skips "
+        "without one"
+    )
 
 
 def pytest_sessionstart(session):

@@ -1,0 +1,68 @@
+"""The import boundary of the PyTorch port: ``tpuflow_torch`` and
+``chip_smoke.py`` import neither JAX, Flax nor the JAX package (the port
+runs where none of them is installed), and the package imports with JAX
+poisoned."""
+
+import ast
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tpuflow")
+
+
+def _port_sources():
+    root = os.path.join(REPO, "tpuflow_torch")
+    for d, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(d, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path, encoding="utf-8").read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0], node.lineno
+
+
+def test_no_jax_or_jax_package_imports():
+    sources = list(_port_sources())
+    assert len(sources) >= 12  # the package's modules and chip_smoke.py
+    bad = [
+        f"{os.path.relpath(p, REPO)}:{line}: {mod}"
+        for p in sources
+        for mod, line in _imported_roots(p)
+        if mod in FORBIDDEN
+    ]
+    assert not bad, "port imports JAX-side code:\n" + "\n".join(bad)
+
+
+def test_package_imports_with_jax_poisoned():
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'tpuflow'):\n"
+        "    sys.modules[m] = None\n"
+        "import tpuflow_torch\n"
+        "import tpuflow_torch.infer.serve, tpuflow_torch.infer.generate\n"
+        "import tpuflow_torch.infer.quant, tpuflow_torch.models.convert\n"
+        "import tpuflow_torch.ops.flash_attention\n"
+        "assert not any(k.split('.')[0] in ('jax', 'flax') and v is not None\n"
+        "               for k, v in sys.modules.items())\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
