@@ -66,6 +66,124 @@ def test_flash_kernel_bf16_and_rejects(cuda):
         fa.flash_attention(x, x, x)
 
 
+def _qkv_views(gen, B, T, D, dtype=torch.float32, H=3):
+    """Strided q/k/v views of one qkv tensor, as the model splits them."""
+    qkv = torch.randn(B, T, 3 * H * D, device="cuda", generator=gen)
+    return [x.reshape(B, T, H, D).to(dtype) for x in qkv.split(H * D, dim=-1)]
+
+
+# Backward tolerances (kernel vs plain version on the same inputs): f32
+# sums the same products in another order; bf16 also rounds P and dS to
+# bf16 at values that differ in the last f32 bits, and the outputs to bf16
+# (2^-8 relative): two bf16 ulps.
+BWD_TOL = {torch.float32: (2e-4, 1e-4), torch.bfloat16: (2e-2, 1.6e-2)}
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("T", [1, 77, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_lse_kernel_matches_plain(cuda, D, T, causal):
+    """The forward with lse: the same output bits as the no-lse launch,
+    and lse within f32 rounding of the plain version."""
+    from tpuflow_torch.ops import flash_attention as fa
+
+    q, k, v = _qkv_views(cuda, 2, T, D)
+    n = fa.launches_lse
+    out, lse = fa.flash_fwd_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches_lse == n + 1
+    assert lse.shape == (2 * 3, T) and lse.dtype == torch.float32
+    assert torch.equal(out, fa.flash_attention(q, k, v, causal=causal))
+    ref_out, ref_lse = fa.blockwise_attention_lse(q, k, v, causal=causal)
+    torch.testing.assert_close(out, ref_out, atol=1e-4, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("T", [1, 77, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_kernels_match_plain(cuda, dtype, D, T, causal):
+    """The dq and dk/dv kernels against their plain versions on the same
+    inputs (strided q/k/v, ragged T), and bit-equal on a second run."""
+    from tpuflow_torch.ops import flash_attention as fa
+
+    q, k, v = _qkv_views(cuda, 2, T, D, dtype)
+    do = torch.randn(q.shape, device="cuda", generator=cuda).to(dtype)
+    o, lse = fa.flash_fwd_lse(q, k, v, causal=causal)
+    n_dq, n_dkv = fa.launches_bwd_dq, fa.launches_bwd_dkv
+    dq, delta = fa.flash_bwd_dq(q, k, v, o, lse, do, causal=causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.launches_bwd_dq, fa.launches_bwd_dkv) == (n_dq + 1, n_dkv + 1)
+    assert dq.dtype == dk.dtype == dv.dtype == dtype
+    rdq, rdelta = fa.flash_bwd_dq_plain(q, k, v, o, lse, do, causal=causal)
+    rdk, rdv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, rdelta,
+                                      causal=causal)
+    torch.testing.assert_close(delta, rdelta, atol=1e-4, rtol=1e-5)
+    atol, rtol = BWD_TOL[dtype]
+    for got, want in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+    again = fa.flash_bwd(q, k, v, o, lse, do, causal=causal)
+    for x, y in zip(again, (dq, dk, dv)):
+        assert torch.equal(x, y)
+
+
+def test_flash_autograd_on_card_matches_xla(cuda):
+    """Gradients through the autograd Function (lse forward + fused pair)
+    against autograd through the einsum attention, with a random
+    cotangent; the no-grad path keeps the no-lse kernel."""
+    from tpuflow_torch.ops import flash_attention as fa
+    from tpuflow_torch.ops.attention import xla_attention
+
+    q, k, v = (x.detach().requires_grad_() for x in _qkv_views(cuda, 2, 130, 64))
+    do = torch.randn(q.shape, device="cuda", generator=cuda)
+    counts = (fa.launches, fa.launches_lse, fa.launches_bwd_dq,
+              fa.launches_bwd_dkv)
+    got = torch.autograd.grad(fa.flash_attention(q, k, v), (q, k, v), do)
+    assert (fa.launches, fa.launches_lse, fa.launches_bwd_dq,
+            fa.launches_bwd_dkv) == (counts[0], counts[1] + 1,
+                                     counts[2] + 1, counts[3] + 1)
+    want = torch.autograd.grad(xla_attention(q, k, v), (q, k, v), do)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=1e-4)
+    with torch.no_grad():
+        fa.flash_attention(q, k, v)
+    assert fa.launches == counts[0] + 1
+
+
+def test_flash_bwd_rejects(cuda):
+    from tpuflow_torch.ops import flash_attention as fa
+
+    q, k, v = _qkv_views(cuda, 1, 16, 64)
+    o, lse = fa.flash_fwd_lse(q, k, v)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_bwd_dq(q, k, v, o, lse[:, :8], o, causal=True)
+    with pytest.raises(ValueError, match="do"):
+        fa.flash_bwd_dq(q, k, v, o, lse, o.bfloat16(), causal=True)
+
+
+def test_train_gpt_on_the_card(cuda):
+    """A few steps of train_gpt on the test preset with the flash kernels:
+    finite falling losses; each step's forward (with lse) and fused
+    backward launch once per layer."""
+    from tpuflow_torch.ops import flash_attention as fa
+    from tpuflow_torch.train.gpt import GptTrainConfig, train_gpt
+
+    cfg = GptTrainConfig(preset="test", epochs=1, steps_per_epoch=6,
+                         seq_len=128, attn_impl="flash", data_axis=1,
+                         fsdp_axis=1, learning_rate=1e-3)
+    n = (fa.launches_lse, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+    res = train_gpt(cfg, log=lambda *a: None)
+    losses = res.step_losses
+    assert len(losses) == 6 and all(np.isfinite(losses))
+    assert losses[-1] < losses[0]
+    # The test preset remats nothing: one lse forward per layer per step.
+    assert (fa.launches_lse - n[0], fa.launches_bwd_dq - n[1],
+            fa.launches_bwd_dkv - n[2]) == (12, 12, 12)
+
+
 @pytest.mark.parametrize("M,K,N", [(1, 768, 2304), (8, 3072, 768),
                                    (37, 100, 50), (130, 256, 50257)])
 @pytest.mark.parametrize("contract_last", [False, True])

@@ -160,9 +160,11 @@ def test_deferred_modes_raise(pair):
     _, _, tm = pair
     with pytest.raises(NotImplementedError, match="MoE"):
         GPT2(GPT2Config.small_test(n_experts=2), device="cpu")
-    remat = GPT2(GPT2Config.small_test(remat=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="remat"):
-        remat(torch.zeros((1, 4), dtype=torch.long), train=True)
+    # Remat is ported (full and 'dots'); a jax.checkpoint_policies name
+    # without a counterpart raises at build.
+    with pytest.raises(NotImplementedError, match="remat_policy"):
+        GPT2(GPT2Config.small_test(remat=True, remat_policy="nothing_saveable"),
+             device="cpu")
     with pytest.raises(NotImplementedError, match="contiguous slot"):
         tm(torch.zeros((1, 1), dtype=torch.long), decode=True,
            slot_index=torch.zeros(1, dtype=torch.long))

@@ -1,12 +1,18 @@
-// Causal flash-attention forward for Hopper (sm_90a), forward only, no lse.
+// Causal flash-attention forward for Hopper (sm_90a), with or without the
+// row logsumexp.
 //
-// Replaces: tpuflow/ops/flash_attention.py::_flash_fwd (with_lse=False), the
-// Pallas kernels _fwd_kernel_nolse / _fwd_kernel. Same numerics contract:
+// Replaces: tpuflow/ops/flash_attention.py::_flash_fwd, both variants: the
+// Pallas kernels _fwd_kernel_nolse (with_lse=False, the serving path) and
+// _fwd_kernel (with_lse=True, the training forward). Same numerics contract:
 // scores (q.k) * 1/sqrt(D) in f32, causal mask value -1e30, f32 online
 // softmax (running max m, denominator l, accumulator acc), tiles strictly
 // above the diagonal skipped, output acc / max(l, 1e-30) written in the
 // input dtype. For bf16 inputs P is rounded to bf16 before P.V, as the TPU
-// kernel casts p to v's dtype before its second matrix product.
+// kernel casts p to v's dtype before its second matrix product. With a
+// non-null lse pointer the kernel also writes lse = m + log(max(l, 1e-30))
+// per row into a compact (B*H, Tq) f32 array (the TPU kernel broadcasts it
+// over 128 lanes only for Mosaic's tiling); with a null pointer it writes
+// nothing more, and the output is bit-identical either way.
 //
 // What bounds it on the H100: at the serving prefill shapes (T = 512..1024,
 // D = 64) the work is ~T^2*D*H*2 flops against ~4*T*H*D elements of traffic,
@@ -49,7 +55,8 @@ __device__ __forceinline__ float round_p(float p, __nv_bfloat16*) {
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H, int Tq,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int H, int Tq,
                  int Tk, int causal, float scale, long long sqb,
                  long long sqt, long long sqh, long long skb, long long skt,
                  long long skh, long long svb, long long svt, long long svh) {
@@ -189,10 +196,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DJ; ++j) store(ob + tx + 16 * j, acc[i][j] / l);
   }
+  // The softmax residual of the backward: lse[b*H + h][t].
+  if (lse != nullptr && tid < BQ && q0 + tid < Tq)
+    lse[(long long)bh * Tq + q0 + tid] =
+        m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B,
            int H, int Tq, int Tk, int causal, const long long* st,
            cudaStream_t stream) {
   size_t smem = sizeof(float) *
@@ -204,19 +216,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid((Tq + BQ - 1) / BQ, B * H);
   float scale = 1.0f / sqrtf((float)D);
   kern<<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, H, Tq, Tk, causal, scale,
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, H, Tq, Tk, causal,
+      scale,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int Tq, int Tk, int D, int causal, const long long* st,
-               cudaStream_t stream) {
+int dispatch_d(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int H, int Tq, int Tk, int D, int causal,
+               const long long* st, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, B, H, Tq, Tk, causal, st, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, Tq, Tk, causal, st, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, Tq, Tk, causal, st, stream);
+    case 32:
+      return launch<T, 32>(q, k, v, o, lse, B, H, Tq, Tk, causal, st, stream);
+    case 64:
+      return launch<T, 64>(q, k, v, o, lse, B, H, Tq, Tk, causal, st, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, o, lse, B, H, Tq, Tk, causal, st,
+                            stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -226,11 +243,12 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" {
 
 // q, k, v: (B, T, H, D) with unit stride over D and the given element
-// strides over (batch, seq, head); o: contiguous (B, Tq, H, D).
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 on success).
+// strides over (batch, seq, head); o: contiguous (B, Tq, H, D); lse: null,
+// or a contiguous (B*H, Tq) float32 array. dtype: 0 = float32,
+// 1 = bfloat16. Returns cudaGetLastError() after the launch (0 on success).
 int tpuflow_flash_fwd(const void* q, const void* k, const void* v, void* o,
-                      int B, int H, int Tq, int Tk, int D, int dtype,
+                      void* lse, int B, int H, int Tq, int Tk, int D,
+                      int dtype,
                       int causal, long long sqb, long long sqt, long long sqh,
                       long long skb, long long skt, long long skh,
                       long long svb, long long svt, long long svh,
@@ -238,10 +256,11 @@ int tpuflow_flash_fwd(const void* q, const void* k, const void* v, void* o,
   const long long st[9] = {sqb, sqt, sqh, skb, skt, skh, svb, svt, svh};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return dispatch_d<float>(q, k, v, o, B, H, Tq, Tk, D, causal, st, s);
+    return dispatch_d<float>(q, k, v, o, (float*)lse, B, H, Tq, Tk, D,
+                             causal, st, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, B, H, Tq, Tk, D, causal, st,
-                                     s);
+    return dispatch_d<__nv_bfloat16>(q, k, v, o, (float*)lse, B, H, Tq, Tk,
+                                     D, causal, st, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,1 +1,2 @@
-"""GPT-2 (``gpt2``) and the loader of JAX params (``convert``)."""
+"""GPT-2 (``gpt2``), the loader of JAX params (``convert``) and the
+training losses (``losses``)."""

@@ -18,19 +18,36 @@ The caches are explicit state objects that a decode call takes and returns;
 their tensors are updated IN PLACE (the counterpart of JAX's donated cache
 buffers). The JAX model's ``scan_layers`` becomes an ``nn.ModuleList``
 (``models/convert.py`` reads both JAX param layouts).
-Deferred, each raising: MoE, remat, and the contiguous slot-row cache.
+
+Training mode (``train=True``): dropout draws its masks from generators
+seeded by ``fold_in(rng, site)`` (the counterpart of the JAX model's
+``dropout`` rng stream), and with ``remat`` each block runs under
+``torch.utils.checkpoint`` (non-reentrant): ``remat_policy`` None saves
+only the block's input (the JAX ``full`` selector), ``'dots'`` saves every
+matrix product without batch dims plus the flash forward's outputs (the
+JAX ``dots_with_no_batch_dims_saveable`` + ``flash_out`` policy).
+Deferred, each raising: MoE and the contiguous slot-row cache.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from tpuflow_torch.device import resolve_device
+from tpuflow_torch.ops import flash_attention  # registers its custom op
 from tpuflow_torch.ops.attention import attention
 from tpuflow_torch.ops.int8_matmul import int8_matmul
 
@@ -48,9 +65,12 @@ class GPT2Config:
     ln_eps: float = 1e-5  # GPT-2's LayerNorm epsilon (HF-checkpoint parity)
     attn_impl: str = "xla"  # 'auto' | 'xla' | 'flash' | 'ring' | 'ulysses'
     dtype: torch.dtype = torch.float32  # activation dtype
-    # Training options of the JAX model, not ported yet: remat raises where
-    # it would act (a train=True forward), n_experts > 0 (MoE) at build.
+    # Rematerialize each block in the backward (a train=True forward):
+    # remat_policy None saves only block inputs, 'dots' also saves the
+    # matrix products and the flash outputs (see the module docstring).
     remat: bool = False
+    remat_policy: str | None = None
+    # MoE blocks are not ported: n_experts > 0 raises at build.
     n_experts: int = 0
     # Decode-path (KV-cache, non-prefill) compute dtype: f32 by default so
     # decode numerics do not depend on how many tokens one call carries.
@@ -180,6 +200,71 @@ def _masked_attention(q, k, v, valid):
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 
+def fold_in(seed: int, *data: int) -> int:
+    """A 63-bit seed derived from ``seed`` and the non-negative ints
+    ``data``: the counterpart of ``jax.random.fold_in`` (it gives other
+    numbers than JAX from the same inputs)."""
+    state = np.random.SeedSequence([seed, *data]).generate_state(2)
+    return (int(state[0]) << 31 | int(state[1])) & (2 ** 63 - 1)
+
+
+def _dropout(x, p: float, train: bool, rng: int | None, *site: int):
+    """Flax's dropout: keep with probability 1 - p, kept values scaled by
+    1 / (1 - p). The mask comes from a generator seeded by
+    ``fold_in(rng, *site)``, so a remat'd block's recompute draws the same
+    mask as its forward."""
+    if not train or p == 0.0:
+        return x
+    if rng is None:
+        raise ValueError("a train=True forward with dropout needs rng, "
+                         "an int seed")
+    g = torch.Generator(device=x.device).manual_seed(fold_in(rng, *site))
+    keep = torch.rand(x.shape, generator=g, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
+# Ops whose outputs the 'dots' remat policy saves: the matrix products
+# without batch dims (the Dense layers) and the flash forward with lse.
+_DOTS_SAVED = (
+    torch.ops.aten.mm.default,
+    torch.ops.aten.addmm.default,
+    torch.ops.tpuflow_torch.flash_fwd_lse.default,
+)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS_SAVED:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_REMAT_CONTEXT = {
+    None: noop_context_fn,
+    "dots": functools.partial(create_selective_checkpoint_contexts,
+                              _dots_policy),
+}
+
+
+def _remat(block, x, policy, **kw):
+    """``block(x, **kw)`` under non-reentrant activation checkpointing."""
+    return checkpoint(functools.partial(block, **kw), x, use_reentrant=False,
+                      context_fn=_REMAT_CONTEXT[policy])
+
+
+def _tied_head(x, wte, dt, rowwise: bool):
+    """The weight-tied LM head in the JAX op order: wte rounded to the
+    compute dtype ``dt`` first, then a product with an f32 accumulator and
+    f32 logits. Both operands are upcast to f32 exactly, so for bf16 this
+    is the bf16 x bf16 product with f32 accumulation that the JAX einsum's
+    ``preferred_element_type=f32`` asks for. ``rowwise`` (decode steps)
+    runs it one batch row at a time (see ``_rowwise``)."""
+    w = wte.to(dt).float()
+    x = x.float()
+    if rowwise:
+        return _rowwise(lambda r: F.linear(r, w), x)
+    return F.linear(x, w)
+
+
 def _rowwise(fn, *xs):
     """``fn`` applied to each batch row alone, results concatenated.
 
@@ -251,7 +336,7 @@ class Block(nn.Module):
     def forward(self, x, *, layer: int, train: bool = False,
                 decode: bool = False, pad_lens=None, prefill: bool = False,
                 cache=None, slot_index=None, page_table=None, quant=None,
-                int8_impl=None):
+                int8_impl=None, rng: int | None = None):
         cfg = self.config
         B, T, C = x.shape
         H, D = cfg.n_head, cfg.head_dim
@@ -282,12 +367,12 @@ class Block(nn.Module):
         else:
             a = attention(q, k, v, causal=True, impl=cfg.attn_impl)
         a = dense("c_proj", a.reshape(B, T, C))
-        x = x + F.dropout(a, cfg.dropout, train)
+        x = x + _dropout(a, cfg.dropout, train, rng, layer + 1, 0)
 
         h = _layer_norm(self.ln_2, x, dt)
         h = F.gelu(dense("mlp_fc", h), approximate="tanh")  # flax default
         h = dense("mlp_proj", h)
-        return x + F.dropout(h, cfg.dropout, train)
+        return x + _dropout(h, cfg.dropout, train, rng, layer + 1, 1)
 
     def _paged_attention(self, q, k, v, pad_lens, cache, layer, slot_index,
                          page_table):
@@ -375,7 +460,13 @@ class GPT2(nn.Module):
         if config.n_experts > 0:
             raise NotImplementedError(
                 "MoE blocks (n_experts > 0) are not ported yet: ROADMAP "
-                "Queue 1 item 17"
+                "Queue 1 item 14"
+            )
+        if config.remat_policy not in _REMAT_CONTEXT:
+            raise NotImplementedError(
+                f"remat_policy {config.remat_policy!r}: the port takes None "
+                "(full remat) or 'dots'; other jax.checkpoint_policies "
+                "names have no counterpart"
             )
         dev = resolve_device(device)
         self.config = config
@@ -437,7 +528,7 @@ class GPT2(nn.Module):
     def forward(self, tokens, *, train: bool = False, decode: bool = False,
                 cache=None, pad_lens=None, prefill: bool = False,
                 slot_index=None, page_table=None, quant=None,
-                int8_impl=None):
+                int8_impl=None, rng: int | None = None):
         """Logits (B, T, vocab) f32; in decode mode ``(logits, cache)``.
 
         ``decode=True`` runs against ``cache`` (a fresh ``KVCache`` when
@@ -449,13 +540,10 @@ class GPT2(nn.Module):
         dtype, while single-token steps run in ``decode_dtype``. ``quant``
         maps Dense names (``h.<i>.c_attn``, ...) and ``wte_q`` to
         ``QuantLeaf``s: those matmuls run the W8A8 int8 kernel.
+        ``train=True`` turns dropout on, drawing its masks from ``rng`` (an
+        int seed), and remats the blocks when the config asks for it.
         """
         cfg = self.config
-        if train and cfg.remat:
-            raise NotImplementedError(
-                "remat (activation checkpointing) is part of the training "
-                "slice, not ported yet"
-            )
         B, T = tokens.shape
         dev = self.wte.device
         ar = torch.arange(T, device=dev)
@@ -488,13 +576,18 @@ class GPT2(nn.Module):
             pe = self.wpe[:T]
         dt = cfg.compute_dtype(decode and not prefill)
         x = self.wte[tokens].to(dt) + pe.to(dt)
-        x = F.dropout(x, cfg.dropout, train)
+        x = _dropout(x, cfg.dropout, train, rng, 0)
         for i, block in enumerate(self.h):
-            x = block(
-                x, layer=i, train=train, decode=decode, pad_lens=pad_lens,
+            kw = dict(
+                layer=i, train=train, decode=decode, pad_lens=pad_lens,
                 prefill=prefill, cache=cache, slot_index=slot_index,
                 page_table=page_table, quant=quant, int8_impl=int8_impl,
+                rng=rng,
             )
+            if train and cfg.remat and torch.is_grad_enabled():
+                x = _remat(block, x, cfg.remat_policy, **kw)
+            else:
+                x = block(x, **kw)
         x = _layer_norm(self.ln_f, x, dt)
         head = (quant or {}).get("wte_q")
         if head is not None:
@@ -504,15 +597,9 @@ class GPT2(nn.Module):
                 out_dtype=torch.float32, impl=int8_impl,
             )
         else:
-            # Tied head; f32 logits (a bf16 x is upcast exactly, so this is
-            # the JAX einsum with an f32 accumulator). Decode steps run it
-            # row by row, like the Dense layers.
-            wte = self.wte.float()
-            logits = (
-                _rowwise(lambda r: F.linear(r, wte), x.float())
-                if decode and not prefill
-                else F.linear(x.float(), wte)
-            )
+            # Tied head, f32 logits; decode steps run it row by row, like
+            # the Dense layers.
+            logits = _tied_head(x, self.wte, dt, decode and not prefill)
         if not decode:
             return logits
         if isinstance(cache, KVCache):

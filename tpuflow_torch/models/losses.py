@@ -1,0 +1,20 @@
+"""Loss and metric functions (counterpart of ``tpuflow/models/losses.py``)."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def cross_entropy_loss(logits, labels):
+    """Mean softmax cross-entropy with integer labels over every position
+    (optax ``softmax_cross_entropy_with_integer_labels(...).mean()``);
+    the softmax runs in f32."""
+    V = logits.shape[-1]
+    return F.cross_entropy(logits.float().reshape(-1, V),
+                           labels.reshape(-1).long())
+
+
+def accuracy(logits, labels):
+    """Fraction of argmax predictions matching labels."""
+    return (logits.argmax(dim=-1) == labels).float().mean()

@@ -32,12 +32,22 @@ BUILD_DIR = os.path.join(
     "build", "tpuflow_torch",
 )
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# Each library's C entry point and its argtypes (pointers and the stream as
-# c_void_p: a plain int would be cut to 32 bits). Every entry returns
+# Each library's C entry points and their argtypes (pointers and the stream
+# as c_void_p: a plain int would be cut to 32 bits). Every entry returns
 # cudaGetLastError() as an int.
 KERNELS = {
-    "flash_fwd": ("tpuflow_flash_fwd", [_P] * 4 + [_I] * 7 + [_L] * 9 + [_P]),
-    "int8_matmul": ("tpuflow_int8_matmul", [_P] * 5 + [_I] * 4 + [_P]),
+    "flash_fwd": {
+        "tpuflow_flash_fwd": [_P] * 5 + [_I] * 7 + [_L] * 9 + [_P],
+    },
+    "flash_bwd": {
+        # Tensors, then B, H, Tq, Tk, D, dtype, causal, a pointer to the
+        # int64 strides, the stream.
+        "tpuflow_flash_bwd_dq": [_P] * 8 + [_I] * 7 + [_P, _P],
+        "tpuflow_flash_bwd_dkv": [_P] * 8 + [_I] * 7 + [_P, _P],
+    },
+    "int8_matmul": {
+        "tpuflow_int8_matmul": [_P] * 5 + [_I] * 4 + [_P],
+    },
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -102,17 +112,17 @@ def build_all(names=tuple(KERNELS)) -> float:
 
 def load(name: str) -> ctypes.CDLL:
     """The kernel library ``name``, built on first use, with its entry
-    point's argtypes set."""
+    points' argtypes set."""
     lib = _LIBS.get(name)
     if lib is None:
         _finish(name, _start(name))
         lib = ctypes.CDLL(library_path(name))
         lib.tpuflow_cuda_error_string.argtypes = [ctypes.c_int]
         lib.tpuflow_cuda_error_string.restype = ctypes.c_char_p
-        entry, argtypes = KERNELS[name]
-        fn = getattr(lib, entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for entry, argtypes in KERNELS[name].items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
 
@@ -123,3 +133,9 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.tpuflow_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def int64_array(values) -> ctypes.Array:
+    """A C array of int64 (strides for an entry point that takes a
+    pointer); the caller keeps it alive across the call."""
+    return (ctypes.c_longlong * len(values))(*values)

@@ -5,10 +5,12 @@ causal, impl)`` with q/k/v shaped (B, T, H, D):
 
 - ``"xla"``   — the plain einsum softmax attention (the name is kept so a
   reader finds its counterpart; here it is plain PyTorch on any device).
-- ``"flash"`` — the flash forward (``tpuflow_torch.ops.flash_attention``):
-  the hand-written CUDA kernel on the card, its plain version on the CPU.
+- ``"flash"`` — flash attention (``tpuflow_torch.ops.flash_attention``):
+  the hand-written CUDA kernels on the card (forward, and with a gradient
+  the forward with lse and the fused backward pair), their plain versions
+  on the CPU.
 - ``"ring"`` / ``"ulysses"`` — sequence parallelism, not ported yet
-  (ROADMAP Queue 1 item 17); they raise.
+  (ROADMAP Queue 1 item 14); they raise.
 - ``"auto"`` — flash on CUDA at T >= the threshold, else xla.
 """
 
@@ -74,7 +76,7 @@ def attention(q, k, v, *, causal: bool = True, impl: str = "xla",
     if impl in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attention impl {impl!r} (sequence parallelism) is not ported "
-            "yet: ROADMAP Queue 1 item 17"
+            "yet: ROADMAP Queue 1 item 14"
         )
     raise KeyError(
         f"unknown attention impl {impl!r}; use xla|flash|ring|ulysses"
