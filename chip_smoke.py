@@ -11,10 +11,11 @@ Phases, each fatal on failure (no phase catches an error and carries on):
 3. Kernel phase: each kernel against its plain PyTorch version on the card,
    at the main paths' shapes — the flash forward within a stated
    tolerance, the W8A8 int8 matmul bit for bit, the flash forward with lse
-   and the fused backward pair (dq, dk/dv) within stated tolerances and
-   bit-equal over two runs — with the kernel's, the plain version's and
-   one PyTorch library call's device times (profiler trace, L2 flushed
-   before every launch) and the least time the card could take.
+   and the fused and split backward pairs (dq, dk/dv) within stated
+   tolerances and bit-equal over two runs, the split pair bit-equal to the
+   fused one — with the kernel's, the plain version's and one PyTorch
+   library call's device times (profiler trace, L2 flushed before every
+   launch) and the least time the card could take.
 4. Serving slice on GPT-2 124M at full width, weights random from a seed:
    ``generate()`` on a 512-token dense prompt (its prefill must launch the
    flash kernel once per layer), then a paged ``ServeEngine`` answering
@@ -27,7 +28,17 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    (device busy share, top kernels), and one forward+backward with flash
    against the einsum attention (dropout off, TF32 off): loss and every
    gradient within stated tolerances.
-6. One JSON line with every kernel's numbers, the ``nvidia-smi`` line, and
+6. Split + checkpoint leg: the same ``train_gpt`` call with the split
+   backward and a checkpoint directory (saves at steps 8 and 16): its 16
+   losses bit-equal to step 5's, exact launch counts. Resume leg: the same
+   call on a copy of that directory without ``step_16``: an in-run resume
+   from step 8, its 8 losses bit-equal to the split leg's last 8 and a
+   ``step_16`` whose every shard crc32 equals the split leg's. Save and
+   restore seconds and GB/s (host disk of this machine). Then the same
+   state's save and restore taken apart outside training: crc32, writes
+   with fsync, reads. The directories live under ``build/`` and are
+   deleted at the end.
+7. One JSON line with every kernel's numbers, the ``nvidia-smi`` line, and
    as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when CUDA is absent or the package is not
@@ -39,8 +50,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -95,6 +108,8 @@ PARITY_GRAD_RTOL = 2e-5  # of each gradient tensor's max |value|
 # (K, N) of the four Dense layers of a GPT-2 124M block, and the head.
 DENSE_KN = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
 VOCAB = 50257
+# Rounds of the checkpoint IO phase (a save, writes, a restore, reads).
+CKPT_IO_REPS = 2
 # torch.profiler traces taken before a trace without the measured
 # function's kernels is fatal.
 TRACE_ATTEMPTS = 3
@@ -267,8 +282,9 @@ def _within(got, want, atol: float, rtol: float, what: str):
 
 
 def flash_bwd_phase(torch, timer):
-    """The forward with lse and the fused backward pair against their
-    plain versions, bit-equal over two runs, with their times."""
+    """The forward with lse, the fused and the split backward pairs against
+    their plain versions, bit-equal over two runs (the split pair also to
+    the fused one), with their times."""
     from tpuflow_torch.ops import flash_attention as fa
 
     F = torch.nn.functional
@@ -286,16 +302,23 @@ def flash_bwd_phase(torch, timer):
         dq, delta = fa.flash_bwd_dq(q, k, v, o, lse, do, causal=True)
         dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True)
         torch.cuda.synchronize()
+        tag = f"{name} {(B, T, H, D)}"
         again = fa.flash_bwd(q, k, v, o, lse, do, causal=True)
+        split = fa.flash_bwd_split(q, k, v, o, lse, do, causal=True)
+        split_again = fa.flash_bwd_split(q, k, v, o, lse, do, causal=True)
         torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv))):
-            raise AssertionError(f"flash backward {name} {(B, T, H, D)}: "
-                                 "two runs differ")
+        for what, got in (("fused, second run", again),
+                          ("split", split), ("split, second run",
+                                             split_again)):
+            for key, a, b in zip(("dq", "dk", "dv"), got, (dq, dk, dv)):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"flash backward {tag}: {what} {key} differs from "
+                        "the fused kernels' first run")
         ro, rlse = fa.blockwise_attention_lse(q, k, v, causal=True)
         rdq, rdelta = fa.flash_bwd_dq_plain(q, k, v, o, lse, do, causal=True)
         rdk, rdv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, rdelta,
                                           causal=True)
-        tag = f"{name} {(B, T, H, D)}"
         errs = {
             "out": _within(o, ro, *FLASH_TOL[name], f"flash lse fwd {tag}"),
             "lse": _within(lse, rlse, *LSE_TOL, f"lse {tag}"),
@@ -304,7 +327,14 @@ def flash_bwd_phase(torch, timer):
         for key, got, want in (("dq", dq, rdq), ("dk", dk, rdk),
                                ("dv", dv, rdv)):
             errs[key] = _within(got, want, *BWD_TOL[name], f"{key} {tag}")
-        del ro, rlse, rdq, rdelta, rdk, rdv, again
+        del ro, rlse, rdq, rdelta, rdk, rdv, again, split_again
+        sdq = fa.flash_bwd_dq_split_plain(q, k, v, o, lse, do, causal=True)
+        sdk, sdv = fa.flash_bwd_dkv_split_plain(q, k, v, o, lse, do,
+                                                causal=True)
+        for key, got, want in zip(("split dq", "split dk", "split dv"),
+                                  split, (sdq, sdk, sdv)):
+            errs[key] = _within(got, want, *BWD_TOL[name], f"{key} {tag}")
+        del sdq, sdk, sdv, split
 
         # Library yardstick: SDPA (B, H, T, D), forward with grad (its
         # lse kept for the backward), and its backward (dq, dk, dv at once).
@@ -340,23 +370,48 @@ def flash_bwd_phase(torch, timer):
                                            causal=True),
             sdpa_bwd,
         )
+        split_dq = _measure(
+            timer,
+            lambda: fa.flash_bwd_dq_split(q, k, v, o, lse, do, causal=True),
+            lambda: fa.flash_bwd_dq_split_plain(q, k, v, o, lse, do,
+                                                causal=True),
+            sdpa_bwd,
+        )
+        split_dkv = _measure(
+            timer,
+            lambda: fa.flash_bwd_dkv_split(q, k, v, o, lse, do, causal=True),
+            lambda: fa.flash_bwd_dkv_split_plain(q, k, v, o, lse, do,
+                                                 causal=True),
+            sdpa_bwd,
+        )
         del out_h, qh, kh, vh
         e = q.element_size()
         x = B * T * H * D * e       # one (B, T, H, D) array
         r = B * H * T * 4           # one (B*H, T) f32 row array
         prod = 2 * B * H * D * T * (T + 1) / 2  # one causal T x T x D product
+        # The row delta D = rowsum(dO o O), 2 D operations a row. The
+        # function needs it once per row; the split kernels' recomputation
+        # on every block visit is their own redundancy, not counted.
+        rowsums = 2 * B * T * H * D
         shape = [B, T, H, D]
-        for kern, times, nbytes, ops, err_keys, lib in (
+        lib = "sdpa backward (dq, dk, dv)"
+        for kern, times, nbytes, ops, err_keys, libname in (
             ("flash_fwd_lse", fwd, 4 * x + r, 2 * prod, ("out", "lse"),
              "sdpa forward"),
             # q, k, v, o, dO, lse in; dq, delta out; S, dP, dQ products
-            # plus the row delta.
+            # plus the row delta once per row.
             ("flash_bwd_dq", bwd_dq, 6 * x + 2 * r,
-             3 * prod + 2 * B * T * H * D, ("delta", "dq"),
-             "sdpa backward (dq, dk, dv)"),
+             3 * prod + rowsums, ("delta", "dq"), lib),
             # q, k, v, dO, lse, delta in; dk, dv out; S, dP, dV, dK.
             ("flash_bwd_dkv", bwd_dkv, 6 * x + 2 * r, 4 * prod,
-             ("dk", "dv"), "sdpa backward (dq, dk, dv)"),
+             ("dk", "dv"), lib),
+            # q, k, v, o, dO, lse in; dq out; S, dP, dQ and the row delta.
+            ("flash_bwd_dq_split", split_dq, 6 * x + r, 3 * prod + rowsums,
+             ("split dq",), lib),
+            # q, k, v, o (the O stream), dO, lse in; dk, dv out; S, dP, dV,
+            # dK and the row delta.
+            ("flash_bwd_dkv_split", split_dkv, 7 * x + r,
+             4 * prod + rowsums, ("split dk", "split dv"), lib),
         ):
             bound, by = _bound_ms(nbytes, ops, name)
             rows.append(dict(
@@ -364,7 +419,7 @@ def flash_bwd_phase(torch, timer):
                 max_abs_err=max(errs[k][0] for k in err_keys),
                 share_of_limit=max(errs[k][1] for k in err_keys),
                 errors={k: errs[k] for k in err_keys},
-                bound_ms=bound, bound_by=by, library=lib, **times,
+                bound_ms=bound, bound_by=by, library=libname, **times,
             ))
             _report(f"{kern} {tag}: max|err| "
                     + ", ".join(f"{k} {errs[k][0]:.3g} ({errs[k][1]:.3f})"
@@ -372,12 +427,14 @@ def flash_bwd_phase(torch, timer):
         # The pair as one function: q, k, v, o, dO, lse in, dq, dk, dv
         # out; five causal products (S, dP, dQ, dK, dV).
         pair_bound, pair_by = _bound_ms(9 * x + r, 5 * prod, name)
-        for row in rows[-2:]:
+        for row in rows[-4:]:
             row["pair_bound_ms"] = pair_bound
-        print(f"backward pair {tag}: kernels {bwd_dq['ms'] + bwd_dkv['ms']:.4f}"
-              f" ms, sdpa backward {bwd_dq['library_ms']:.4f} ms, bound "
-              f"{pair_bound:.4f} ms ({pair_by}, 5 causal products), "
-              "bit-equal over two runs")
+        print(f"backward pairs {tag}: fused "
+              f"{bwd_dq['ms'] + bwd_dkv['ms']:.4f} ms, split "
+              f"{split_dq['ms'] + split_dkv['ms']:.4f} ms, sdpa backward "
+              f"{bwd_dq['library_ms']:.4f} ms, bound {pair_bound:.4f} ms "
+              f"({pair_by}, 5 causal products); both bit-equal over two "
+              "runs, split bit-equal to fused")
     return rows
 
 
@@ -577,23 +634,19 @@ def train_phase(torch, smi):
     want = {"flash_fwd_lse": 2 * L * TRAIN_STEPS,
             "flash_bwd_dq": L * TRAIN_STEPS,
             "flash_bwd_dkv": L * TRAIN_STEPS,
-            "flash_fwd": L * n_val * TRAIN_EPOCHS}
+            "flash_bwd_dq_split": 0, "flash_bwd_dkv_split": 0,
+            "flash_fwd": L * n_val * TRAIN_EPOCHS, "int8_matmul": 0}
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = fa.launches_lse = 0
-    fa.launches_bwd_dq = fa.launches_bwd_dkv = im.launches = 0
+    _zero_counters(fa, im)
     t0 = time.monotonic()
     res = train_gpt(cfg, log=lambda m: print(f"  {m}"))
     torch.cuda.synchronize()
     wall_s = time.monotonic() - t0
-    got = {"flash_fwd_lse": fa.launches_lse,
-           "flash_bwd_dq": fa.launches_bwd_dq,
-           "flash_bwd_dkv": fa.launches_bwd_dkv,
-           "flash_fwd": fa.launches}
+    got = _counters(fa, im)
     peak = torch.cuda.max_memory_allocated()
-    print(f"train_gpt launches {got} (want {want}), int8 {im.launches}")
-    if got != want or im.launches:
-        raise AssertionError(f"train_gpt launches {got}, int8 "
-                             f"{im.launches}; want {want} and no int8")
+    print(f"train_gpt launches {got} (want {want})")
+    if got != want:
+        raise AssertionError(f"train_gpt launches {got}, want {want}")
     losses = res.step_losses
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
         raise AssertionError(f"train_gpt losses {losses}")
@@ -617,7 +670,205 @@ def train_phase(torch, smi):
           f"peak memory {peak / 2**30:.2f} GiB, wall {wall_s:.2f} s [{smi}]")
     out["profile"] = train_profile(torch, cfg, step_ms, smi)
     out["parity"] = step_parity(torch, cfg)
+    out["split_ckpt"], out["split_launches"] = split_ckpt_phase(
+        torch, smi, cfg, losses)
+    out["ckpt_io"] = ckpt_io_phase(torch, smi, cfg)
     return out, got
+
+
+def _zero_counters(fa, im) -> None:
+    fa.launches = fa.launches_lse = 0
+    fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
+    fa.launches_bwd_dq_split = fa.launches_bwd_dkv_split = 0
+    im.launches = 0
+
+
+def _counters(fa, im) -> dict:
+    return {"flash_fwd_lse": fa.launches_lse,
+            "flash_bwd_dq": fa.launches_bwd_dq,
+            "flash_bwd_dkv": fa.launches_bwd_dkv,
+            "flash_bwd_dq_split": fa.launches_bwd_dq_split,
+            "flash_bwd_dkv_split": fa.launches_bwd_dkv_split,
+            "flash_fwd": fa.launches, "int8_matmul": im.launches}
+
+
+def _shards(step_dir: str) -> list:
+    """(path, shape, dtype, file, crc32) of every shard of a step."""
+    with open(os.path.join(step_dir, "state", "manifest.json")) as fh:
+        leaves = json.load(fh)["leaves"]
+    return [(e["path"], e["shape"], e["dtype"], s["file"], s["crc32"])
+            for e in leaves for s in e["shards"]]
+
+
+def _io_line(what: str, recs: list) -> str:
+    return "; ".join(
+        f"{what} step {r['step']}: {r['bytes'] / 1e9:.3f} GB in "
+        f"{r['seconds']:.3f} s = {r['gbps']:.2f} GB/s"
+        + (f" (host copy {r['host_copy_s']:.3f} s)" if "host_copy_s" in r
+           else "") for r in recs)
+
+
+def split_ckpt_phase(torch, smi, cfg, fused_losses) -> tuple[dict, dict]:
+    """The split backward with per-epoch checkpoints, then an in-run resume
+    from a copy of its directory without the last step."""
+    from tpuflow_torch.data.lm import make_lm_loaders
+    from tpuflow_torch.ops import flash_attention as fa
+    from tpuflow_torch.ops import int8_matmul as im
+    from tpuflow_torch.train.gpt import train_gpt
+
+    L = cfg.model_config().n_layer
+    n_val = len(make_lm_loaders(cfg.batch_size, cfg.steps_per_epoch,
+                                cfg.seq_len, cfg.model_config().vocab_size)[1])
+    spe = TRAIN_STEPS_PER_EPOCH
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_",
+                            dir=os.path.join(REPO, "build"))
+    try:
+        # --- the split leg: 2 epochs, saves at steps 8 and 16.
+        split_dir = os.path.join(root, "split")
+        _zero_counters(fa, im)
+        t0 = time.monotonic()
+        res = train_gpt(cfg, ckpt_dir=split_dir, flash_bwd="split",
+                        log=lambda m: print(f"  {m}"))
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+        got = _counters(fa, im)
+        want = {"flash_fwd_lse": 2 * L * TRAIN_STEPS, "flash_bwd_dq": 0,
+                "flash_bwd_dkv": 0, "flash_bwd_dq_split": L * TRAIN_STEPS,
+                "flash_bwd_dkv_split": L * TRAIN_STEPS,
+                "flash_fwd": L * n_val * TRAIN_EPOCHS, "int8_matmul": 0}
+        print(f"split leg launches {got} (want {want})")
+        if got != want:
+            raise AssertionError(f"split leg launches {got}, want {want}")
+        if res.step_losses != fused_losses:
+            raise AssertionError(
+                f"split leg losses {res.step_losses} differ from the fused "
+                f"leg's {fused_losses}")
+        steps = set(os.listdir(split_dir))
+        if steps != {f"step_{spe}", f"step_{TRAIN_STEPS}"}:
+            raise AssertionError(f"split leg left {steps}")
+        last = os.path.join(split_dir, f"step_{TRAIN_STEPS}")
+        if res.checkpoint is None or res.checkpoint.path != last:
+            raise AssertionError(f"split leg handle {res.checkpoint}")
+        split_shards = _shards(last)
+        saves = res.checkpoint_io["saves"]
+        print(f"split leg: {TRAIN_STEPS} losses bit-equal to the fused "
+              f"leg's; {_io_line('save', saves)} [{smi}]")
+
+        # --- the resume leg: the directory without its last step.
+        resume_dir = os.path.join(root, "resume")
+        shutil.copytree(split_dir, resume_dir,
+                        ignore=shutil.ignore_patterns(f"step_{TRAIN_STEPS}"))
+        shutil.rmtree(split_dir)
+        logs = []
+        _zero_counters(fa, im)
+        t0 = time.monotonic()
+        res2 = train_gpt(cfg, ckpt_dir=resume_dir, flash_bwd="split",
+                         log=lambda m: (logs.append(m), print(f"  {m}")))
+        torch.cuda.synchronize()
+        resume_wall_s = time.monotonic() - t0
+        got2 = _counters(fa, im)
+        want2 = dict(want, flash_fwd_lse=2 * L * spe,
+                     flash_bwd_dq_split=L * spe, flash_bwd_dkv_split=L * spe,
+                     flash_fwd=L * n_val)
+        print(f"resume leg launches {got2} (want {want2})")
+        if got2 != want2:
+            raise AssertionError(f"resume leg launches {got2}, want {want2}")
+        if not any(f"in-run resume from step {spe} → epoch 1" in m
+                   for m in logs):
+            raise AssertionError(f"no in-run resume from step {spe}, epoch "
+                                 f"1 in the log: {logs}")
+        if res2.step_losses != res.step_losses[spe:]:
+            raise AssertionError(
+                f"resume leg losses {res2.step_losses} differ from the "
+                f"split leg's last {spe} {res.step_losses[spe:]}")
+        resumed = _shards(os.path.join(resume_dir, f"step_{TRAIN_STEPS}"))
+        if resumed != split_shards:
+            bad = [a for a, b in zip(resumed, split_shards) if a != b][:3]
+            raise AssertionError(f"resume leg step_{TRAIN_STEPS} differs "
+                                 f"from the split leg's: {bad}")
+        io2 = res2.checkpoint_io
+        print(f"resume leg: resumed at step {spe}, {spe} losses bit-equal "
+              f"to the split leg's last {spe}, step_{TRAIN_STEPS}: "
+              f"{len(resumed)} shard crc32s equal; "
+              f"{_io_line('restore', io2['restores'])}; "
+              f"{_io_line('save', io2['saves'])} (this machine's host "
+              f"disk) [{smi}]")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = dict(split=dict(wall_s=wall_s, launches=got,
+                          step_losses=res.step_losses, saves=saves,
+                          shards=len(split_shards)),
+               resume=dict(wall_s=resume_wall_s, launches=got2,
+                           step_losses=res2.step_losses,
+                           restores=io2["restores"], saves=io2["saves"]),
+               gpu=smi)
+    return out, got
+
+
+def ckpt_io_phase(torch, smi, cfg) -> dict:
+    """The pieces of a checkpoint save and restore of the state the split
+    leg saves, on this machine's host disk, outside training: the crc32 of
+    every leaf (the save computes them before the first write), the save's
+    file work (crc32, the leaf files written with fsync through its 4-file
+    pool, the manifest), the leaf writes alone, a restore (reads and crc32
+    checks, leaf after leaf, from the page cache the save left) and its
+    reads alone. ``CKPT_IO_REPS`` rounds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpuflow_torch.ckpt import raw
+    from tpuflow_torch.ckpt.tree import checkpoint_tree
+    from tpuflow_torch.train.gpt import init_state
+
+    state = init_state(cfg)
+    host = raw._gather_host(checkpoint_tree(
+        state, scan_layers=cfg.model_config().scan_layers))
+    del state
+    torch.cuda.empty_cache()
+    bufs = [raw._bytes(t) for _, t in host]
+    nbytes = sum(b.nbytes for b in bufs)
+    t0 = time.monotonic()
+    for b in bufs:
+        raw._crc32(b)
+    crc_s = time.monotonic() - t0
+    times = {k: [] for k in ("save_s", "write_s", "restore_s", "read_s")}
+    root = tempfile.mkdtemp(prefix="chip_smoke_io_",
+                            dir=os.path.join(REPO, "build"))
+    try:
+        for rep in range(CKPT_IO_REPS):
+            d = os.path.join(root, f"save{rep}")
+            os.makedirs(d)
+            t0 = time.monotonic()
+            raw._write_entries(d, host, raw.RetryPolicy())
+            times["save_s"].append(time.monotonic() - t0)
+            w = os.path.join(root, f"write{rep}")
+            os.makedirs(w)
+            paths = [os.path.join(w, f"leaf_{i:05d}.bin")
+                     for i in range(len(bufs))]
+            t0 = time.monotonic()
+            with ThreadPoolExecutor(max_workers=4) as ex:
+                for fut in [ex.submit(raw.write_file, p, b)
+                            for p, b in zip(paths, bufs)]:
+                    fut.result()
+            times["write_s"].append(time.monotonic() - t0)
+            t0 = time.monotonic()
+            got = raw.restore_raw(d)  # crc32-verified
+            times["restore_s"].append(time.monotonic() - t0)
+            del got
+            t0 = time.monotonic()
+            for p, b in zip(paths, bufs):
+                raw.read_file(p, b.nbytes)
+            times["read_s"].append(time.monotonic() - t0)
+            shutil.rmtree(d)
+            shutil.rmtree(w)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = dict(bytes=nbytes, leaves=len(bufs), crc32_s=crc_s, **times, gpu=smi)
+    print(f"checkpoint IO, {nbytes / 1e9:.3f} GB in {len(bufs)} leaves "
+          f"(this machine's host disk and page cache): crc32 {crc_s:.3f} s; "
+          + "; ".join(f"{k[:-2]} " + ", ".join(f"{t:.3f}" for t in v) + " s"
+                      for k, v in times.items()) + f" [{smi}]")
+    return out
 
 
 def train_profile(torch, cfg, step_ms: float, smi: str) -> dict:
@@ -786,11 +1037,17 @@ def main() -> int:
     ]
     # The training kernels at the training leg's shape (f32, 8 x 1024 x 12
     # x 64), with their launches in the train_gpt run.
+    # The split pair's launches come from the split leg's train_gpt run.
     replaces = {
         "flash_fwd_lse": "tpuflow/ops/flash_attention.py:180",
         "flash_bwd_dq": "tpuflow/ops/flash_attention.py:499",
         "flash_bwd_dkv": "tpuflow/ops/flash_attention.py:499",
+        "flash_bwd_dq_split": "tpuflow/ops/flash_attention.py:578",
+        "flash_bwd_dkv_split": "tpuflow/ops/flash_attention.py:578",
     }
+    launched = dict(train_n)
+    for kern in ("flash_bwd_dq_split", "flash_bwd_dkv_split"):
+        launched[kern] = tr["split_launches"][kern]
     for r in bwd_rows:
         if r["shape"] != list(TRAIN_SHAPE):
             continue
@@ -800,7 +1057,7 @@ def main() -> int:
             name=r["kernel"], route="cuda", source=src,
             replaces=replaces[r["kernel"]],
             shape="one training layer, f32 (8, 1024, 12, 64), causal",
-            launches=train_n[r["kernel"]], max_abs_err=r["max_abs_err"],
+            launches=launched[r["kernel"]], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             library=r["library"], call_ms=r["call_ms"],

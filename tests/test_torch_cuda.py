@@ -130,6 +130,66 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, D, T, causal):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("T", [1, 77, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_split_kernels_bit_equal_to_fused(cuda, dtype, D, T, causal):
+    """The split dq and dk/dv kernels (D recomputed per block visit, dk/dv
+    reading O) give the fused pair's bits, at every head_dim and a ragged
+    T, and stay within tolerance of their plain versions."""
+    from tpuflow_torch.ops import flash_attention as fa
+
+    q, k, v = _qkv_views(cuda, 2, T, D, dtype)
+    do = torch.randn(q.shape, device="cuda", generator=cuda).to(dtype)
+    o, lse = fa.flash_fwd_lse(q, k, v, causal=causal)
+    fused = fa.flash_bwd(q, k, v, o, lse, do, causal=causal)
+    n = (fa.launches_bwd_dq, fa.launches_bwd_dkv,
+         fa.launches_bwd_dq_split, fa.launches_bwd_dkv_split)
+    dq = fa.flash_bwd_dq_split(q, k, v, o, lse, do, causal=causal)
+    dk, dv = fa.flash_bwd_dkv_split(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.launches_bwd_dq, fa.launches_bwd_dkv, fa.launches_bwd_dq_split,
+            fa.launches_bwd_dkv_split) == (n[0], n[1], n[2] + 1, n[3] + 1)
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), fused):
+        assert got.dtype == dtype
+        assert torch.equal(got, want), name
+    rdq = fa.flash_bwd_dq_split_plain(q, k, v, o, lse, do, causal=causal)
+    rdk, rdv = fa.flash_bwd_dkv_split_plain(q, k, v, o, lse, do,
+                                            causal=causal)
+    atol, rtol = BWD_TOL[dtype]
+    for got, want in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+
+
+@pytest.mark.parametrize("bwd,launched", [
+    ("fused", (1, 1, 0, 0)), ("split", (0, 0, 1, 1)),
+    ("blockwise", None),
+])
+def test_flash_autograd_bwd_modes_on_card(cuda, bwd, launched):
+    """flash_attention(bwd=...) launches the named pair; fused and split
+    give the same bits. blockwise, the plain version, raises on the card."""
+    from tpuflow_torch.ops import flash_attention as fa
+
+    q, k, v = (x.detach().requires_grad_() for x in _qkv_views(cuda, 2, 130, 64))
+    do = torch.randn(q.shape, device="cuda", generator=cuda)
+    if launched is None:
+        with pytest.raises(ValueError, match="CPU reference"):
+            fa.flash_attention(q, k, v, bwd=bwd)
+        return
+    want = torch.autograd.grad(fa.flash_attention(q, k, v), (q, k, v), do)
+    n = (fa.launches_bwd_dq, fa.launches_bwd_dkv, fa.launches_bwd_dq_split,
+         fa.launches_bwd_dkv_split)
+    got = torch.autograd.grad(fa.flash_attention(q, k, v, bwd=bwd),
+                              (q, k, v), do)
+    assert tuple(a - b for a, b in zip(
+        (fa.launches_bwd_dq, fa.launches_bwd_dkv, fa.launches_bwd_dq_split,
+         fa.launches_bwd_dkv_split), n)) == launched
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 def test_flash_autograd_on_card_matches_xla(cuda):
     """Gradients through the autograd Function (lse forward + fused pair)
     against autograd through the einsum attention, with a random
@@ -182,6 +242,36 @@ def test_train_gpt_on_the_card(cuda):
     # The test preset remats nothing: one lse forward per layer per step.
     assert (fa.launches_lse - n[0], fa.launches_bwd_dq - n[1],
             fa.launches_bwd_dkv - n[2]) == (12, 12, 12)
+
+
+def test_train_gpt_split_checkpoint_resume_on_the_card(cuda, tmp_path):
+    """train_gpt with the split backward and a ckpt_dir, then an in-run
+    resume from a copy without the last step: the resumed steps' losses
+    and the final checkpoint's shards equal the uninterrupted run's."""
+    import json
+    import shutil
+
+    from tpuflow_torch.ops import flash_attention as fa
+    from tpuflow_torch.train.gpt import GptTrainConfig, train_gpt
+
+    cfg = GptTrainConfig(preset="test", epochs=2, steps_per_epoch=4,
+                         seq_len=128, attn_impl="flash", data_axis=1,
+                         fsdp_axis=1, learning_rate=1e-3)
+    n = (fa.launches_bwd_dq, fa.launches_bwd_dq_split)
+    full = train_gpt(cfg, ckpt_dir=str(tmp_path / "a"), flash_bwd="split",
+                     log=lambda *a: None)
+    assert (fa.launches_bwd_dq - n[0], fa.launches_bwd_dq_split - n[1]) == \
+        (0, 2 * 8)
+    shutil.copytree(tmp_path / "a", tmp_path / "b",
+                    ignore=shutil.ignore_patterns("step_8"))
+    logs = []
+    again = train_gpt(cfg, ckpt_dir=str(tmp_path / "b"), flash_bwd="split",
+                      log=logs.append)
+    assert any("in-run resume from step 4" in m for m in logs)
+    assert again.step_losses == full.step_losses[4:]
+    manifests = [json.load(open(tmp_path / d / "step_8" / "state" /
+                                "manifest.json")) for d in ("a", "b")]
+    assert manifests[0] == manifests[1]
 
 
 @pytest.mark.parametrize("M,K,N", [(1, 768, 2304), (8, 3072, 768),

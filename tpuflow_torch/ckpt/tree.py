@@ -1,0 +1,130 @@
+"""The port's training state as the JAX package's checkpoint tree.
+
+``tpuflow/train/gpt.py`` saves ``{"step", "params", "opt_state",
+["ema_params"]}`` with Flax params and optax state. This module lays a
+``train.step.TrainState`` out the same way, so a checkpoint written by
+either package restores into the other:
+
+- ``params``: ``params_to_jax``, the inverse of
+  ``models/convert.py::params_from_jax``. Dense kernels transpose back to
+  (in, out); with ``scan_layers`` (the ``gpt2`` and ``medium`` presets)
+  the blocks stack into ``h/block/...`` with a leading layer axis, else
+  they are ``h0`` .. ``h{L-1}``.
+- ``opt_state``: optax's tuple layout, tuple indices as keys. ``adamw`` is
+  ``chain(scale_by_adam, add_decayed_weights, scale_by_learning_rate)``:
+  ``0/{count, mu, nu}``, plus ``2/count`` when the learning rate is
+  scheduled. ``sgd`` is ``chain(trace, scale_by_learning_rate)``:
+  ``0/trace``, plus ``1/count`` when scheduled. With ``grad_clip`` the
+  whole chain sits under ``1`` (``clip_by_global_norm`` keeps no state).
+  Every count is the int32 number of updates.
+- ``step``: int32; ``ema_params`` like ``params``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpuflow_torch.models.convert import params_from_jax
+
+_DENSE = ("c_attn", "c_proj", "mlp_fc", "mlp_proj")
+_NORMS = ("ln_1", "ln_2")
+
+
+def _block(sd: dict, i: int) -> dict:
+    pre = f"h.{i}."
+    out = {n: {"scale": sd[f"{pre}{n}.weight"], "bias": sd[f"{pre}{n}.bias"]}
+           for n in _NORMS}
+    for n in _DENSE:
+        out[n] = {"kernel": sd[f"{pre}{n}.weight"].t(),
+                  "bias": sd[f"{pre}{n}.bias"]}
+    return out
+
+
+def params_to_jax(sd: dict, *, scan_layers: bool) -> dict:
+    """Port ``state_dict`` (name → tensor) → the Flax GPT-2 param tree."""
+    tree = {"wte": sd["wte"], "wpe": sd["wpe"],
+            "ln_f": {"scale": sd["ln_f.weight"], "bias": sd["ln_f.bias"]}}
+    n_layer = 0
+    while f"h.{n_layer}.ln_1.weight" in sd:
+        n_layer += 1
+    blocks = [_block(sd, i) for i in range(n_layer)]
+    if scan_layers:
+        tree["h"] = {"block": {
+            name: {leaf: torch.stack([b[name][leaf] for b in blocks])
+                   for leaf in sub}
+            for name, sub in blocks[0].items()
+        }}
+    else:
+        for i, b in enumerate(blocks):
+            tree[f"h{i}"] = b
+    return tree
+
+
+def _count(n: int) -> torch.Tensor:
+    return torch.tensor(n, dtype=torch.int32)
+
+
+def checkpoint_tree(state, *, scan_layers: bool, abstract: bool = False
+                    ) -> dict:
+    """``state`` as the JAX checkpoint tree: views of the live tensors, or
+    with ``abstract`` shape-and-dtype stand-ins on the ``meta`` device (a
+    restore template that allocates nothing)."""
+    names = [n for n, _ in state.model.named_parameters()]
+
+    def layout(tensors) -> dict:
+        if len(tensors) != len(names):
+            raise ValueError(f"{len(tensors)} tensors for {len(names)} "
+                             "parameters")
+        if abstract:
+            tensors = [torch.empty_like(t, device="meta") for t in tensors]
+        return params_to_jax(dict(zip(names, tensors)),
+                             scan_layers=scan_layers)
+
+    tx = state.tx
+    inner = {"0": {name: layout(ts) for name, ts in tx.slots().items()}}
+    if tx.kind == "adamw":
+        inner["0"]["count"] = _count(tx.count)
+    if tx.scheduled:
+        inner["2" if tx.kind == "adamw" else "1"] = {"count": _count(tx.count)}
+    tree = {
+        "step": _count(state.step),
+        "params": layout(state.params),
+        "opt_state": {"1": inner} if tx.grad_clip_norm is not None
+        else inner,
+    }
+    if state.ema_params is not None:
+        tree["ema_params"] = layout(state.ema_params)
+    return tree
+
+
+def _ordered(state, tree: dict) -> list[torch.Tensor]:
+    """A param-layout tree → its tensors in the port's parameter order."""
+    sd = params_from_jax(tree)
+    return [sd[n] for n, _ in state.model.named_parameters()]
+
+
+@torch.no_grad()
+def load_checkpoint_tree(state, tree: dict) -> None:
+    """Copy a restored checkpoint tree (either layout) into ``state`` in
+    place: params, optimizer slots and count, EMA weights and step."""
+    for p, src in zip(state.params, _ordered(state, tree["params"])):
+        p.copy_(src)
+    opt = tree["opt_state"]
+    inner = opt["1"] if state.tx.grad_clip_norm is not None else opt
+    slots = {name: _ordered(state, sub)
+             for name, sub in inner["0"].items() if name != "count"}
+    counts = [int(c["count"]) for c in (inner["0"], inner.get("1"),
+                                        inner.get("2"))
+              if isinstance(c, dict) and "count" in c]
+    count = counts[0] if counts else int(tree["step"])
+    if len(set(counts)) > 1:
+        raise ValueError(f"optimizer counts disagree: {counts}")
+    state.tx.load_slots(count, slots)
+    if "ema_params" in tree:
+        if state.ema_params is None:
+            raise ValueError("the checkpoint holds ema_params; seed them "
+                             "with with_ema(state) first")
+        for e, src in zip(state.ema_params,
+                          _ordered(state, tree["ema_params"])):
+            e.copy_(src)
+    state.step = int(tree["step"])

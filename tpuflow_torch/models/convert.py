@@ -1,8 +1,9 @@
 """Weights from the JAX package's GPT-2 params into the port's modules.
 
 ``params_from_jax(tree)`` takes the Flax param tree as nested mappings of
-numpy arrays (``jax.device_get(params)`` gives one) and returns a
-``state_dict`` for ``tpuflow_torch.models.gpt2.GPT2``. It reads both JAX
+numpy arrays (``jax.device_get(params)`` gives one) or of torch tensors (a
+restored checkpoint) and returns a ``state_dict`` for
+``tpuflow_torch.models.gpt2.GPT2``. It reads both JAX
 layouts: unrolled blocks (``h0`` .. ``h{L-1}``) and ``scan_layers``
 (``h/block/...`` with a leading layer axis). A Flax Dense kernel is
 (in, out); an ``nn.Linear`` weight is (out, in), so kernels transpose.
@@ -18,7 +19,13 @@ _NORMS = ("ln_1", "ln_2")
 
 
 def _t(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(device="cpu", dtype=torch.float32)
     return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _row(arr, i: int):
+    return arr[i] if isinstance(arr, torch.Tensor) else np.asarray(arr)[i]
 
 
 def _block(prefix: str, blk) -> dict[str, torch.Tensor]:
@@ -42,10 +49,10 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
     }
     if "h" in tree:  # scan_layers: one stacked block, leading layer axis
         stacked = tree["h"]["block"]
-        n_layer = np.shape(stacked["ln_1"]["scale"])[0]
+        n_layer = len(stacked["ln_1"]["scale"])
         for i in range(n_layer):
             layer = {
-                name: {leaf: np.asarray(arr)[i] for leaf, arr in sub.items()}
+                name: {leaf: _row(arr, i) for leaf, arr in sub.items()}
                 for name, sub in stacked.items()
             }
             sd.update(_block(f"h.{i}.", layer))

@@ -81,6 +81,13 @@ class GPT2Config:
     # and the serving engine then turn TF32 off on the card
     # (device.pin_f32_matmul_precision). None = the platform default.
     decode_precision: str | None = "highest"
+    # The JAX package's nn.scan over the blocks: here only the checkpoint
+    # layout (ckpt/tree.py stacks the blocks into h/block when set); the
+    # port always holds its blocks in a ModuleList.
+    scan_layers: bool = False
+    # The flash attention backward: 'fused' | 'split' | 'blockwise' (the
+    # JAX package's TPUFLOW_FLASH_BWD; 'blockwise' on the CPU only).
+    flash_bwd: str = "fused"
 
     def compute_dtype(self, decode: bool):
         """``decode_dtype`` on the KV-cache path, ``dtype`` otherwise."""
@@ -129,23 +136,24 @@ class GPT2Config:
         dtype=None,
     ) -> "GPT2Config":
         """The JAX package's preset table: ``test``, ``gpt2`` (124M),
-        ``medium`` (355M). The JAX presets' ``scan_layers`` has no
-        counterpart: the port always holds its blocks in a ModuleList."""
+        ``medium`` (355M), with its ``scan_layers`` (the checkpoint
+        layout; the port always holds its blocks in a ModuleList)."""
         extra = {} if dtype is None else {"dtype": dtype}
         if preset == "medium":
             return cls.medium(
-                attn_impl=attn_impl, remat=True, n_experts=n_experts,
-                **extra,
+                attn_impl=attn_impl, scan_layers=True, remat=True,
+                n_experts=n_experts, **extra,
             )
         if preset == "gpt2":
             return cls(
-                attn_impl=attn_impl, remat=True, n_experts=n_experts,
-                **extra,
+                attn_impl=attn_impl, scan_layers=True, remat=True,
+                n_experts=n_experts, **extra,
             )
         if preset == "test":
             return cls.small_test(
                 attn_impl=attn_impl,
                 n_ctx=max(128, seq_len),
+                scan_layers=stage_axis > 1,
                 n_layer=max(2, stage_axis),
                 n_experts=n_experts,
                 **extra,
@@ -365,7 +373,8 @@ class Block(nn.Module):
         elif pad_lens is not None:
             a = _left_pad_attention(q, k, v, pad_lens)
         else:
-            a = attention(q, k, v, causal=True, impl=cfg.attn_impl)
+            a = attention(q, k, v, causal=True, impl=cfg.attn_impl,
+                          flash_bwd=cfg.flash_bwd)
         a = dense("c_proj", a.reshape(B, T, C))
         x = x + _dropout(a, cfg.dropout, train, rng, layer + 1, 0)
 
@@ -451,11 +460,13 @@ class GPT2(nn.Module):
     Built from a seed with the Flax initialisers' distributions (normal(0.02)
     wte, normal(0.01) wpe, lecun-normal Dense kernels, zero biases, unit
     LayerNorm scales) on ``device`` (default ``cuda``; raises when CUDA is
-    absent). ``models/convert.py`` loads JAX params instead.
+    absent). ``models/convert.py`` loads JAX params instead. ``seed=None``
+    allocates the weights on ``device`` uninitialised, for a caller that
+    loads them (a checkpoint restore).
     """
 
-    def __init__(self, config: GPT2Config = GPT2Config(), *, seed: int = 0,
-                 device=None):
+    def __init__(self, config: GPT2Config = GPT2Config(), *,
+                 seed: int | None = 0, device=None):
         super().__init__()
         if config.n_experts > 0:
             raise NotImplementedError(
@@ -471,12 +482,17 @@ class GPT2(nn.Module):
         dev = resolve_device(device)
         self.config = config
         C = config.n_embd
-        self.wte = nn.Parameter(torch.empty(config.vocab_size, C))
-        self.wpe = nn.Parameter(torch.empty(config.n_ctx, C))
-        self.h = nn.ModuleList(Block(config) for _ in range(config.n_layer))
-        self.ln_f = nn.LayerNorm(C, eps=config.ln_eps)
-        self._init_weights(seed)
-        self.to(dev)
+        with torch.device("meta" if seed is None else "cpu"):
+            self.wte = nn.Parameter(torch.empty(config.vocab_size, C))
+            self.wpe = nn.Parameter(torch.empty(config.n_ctx, C))
+            self.h = nn.ModuleList(Block(config)
+                                   for _ in range(config.n_layer))
+            self.ln_f = nn.LayerNorm(C, eps=config.ln_eps)
+        if seed is None:
+            self.to_empty(device=dev)
+        else:
+            self._init_weights(seed)
+            self.to(dev)
 
     @torch.no_grad()
     def _init_weights(self, seed: int) -> None:

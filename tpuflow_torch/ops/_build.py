@@ -44,6 +44,8 @@ KERNELS = {
         # int64 strides, the stream.
         "tpuflow_flash_bwd_dq": [_P] * 8 + [_I] * 7 + [_P, _P],
         "tpuflow_flash_bwd_dkv": [_P] * 8 + [_I] * 7 + [_P, _P],
+        "tpuflow_flash_bwd_dq_split": [_P] * 7 + [_I] * 7 + [_P, _P],
+        "tpuflow_flash_bwd_dkv_split": [_P] * 8 + [_I] * 7 + [_P, _P],
     },
     "int8_matmul": {
         "tpuflow_int8_matmul": [_P] * 5 + [_I] * 4 + [_P],

@@ -7,8 +7,8 @@ causal, impl)`` with q/k/v shaped (B, T, H, D):
   reader finds its counterpart; here it is plain PyTorch on any device).
 - ``"flash"`` — flash attention (``tpuflow_torch.ops.flash_attention``):
   the hand-written CUDA kernels on the card (forward, and with a gradient
-  the forward with lse and the fused backward pair), their plain versions
-  on the CPU.
+  the forward with lse and the backward pair ``flash_bwd`` names: fused,
+  split or blockwise), their plain versions on the CPU.
 - ``"ring"`` / ``"ulysses"`` — sequence parallelism, not ported yet
   (ROADMAP Queue 1 item 14); they raise.
 - ``"auto"`` — flash on CUDA at T >= the threshold, else xla.
@@ -62,8 +62,10 @@ def resolve_attention_impl(
 
 
 def attention(q, k, v, *, causal: bool = True, impl: str = "xla",
-              needs_bwd: bool = True):
-    """Dispatch to the selected implementation (see module docstring)."""
+              needs_bwd: bool = True, flash_bwd: str = "fused"):
+    """Dispatch to the selected implementation (see module docstring).
+    ``flash_bwd`` picks the flash backward (the JAX package's
+    ``TPUFLOW_FLASH_BWD``)."""
     impl = resolve_attention_impl(
         impl, q.shape[1], needs_bwd=needs_bwd, backend=q.device.type
     )
@@ -72,7 +74,7 @@ def attention(q, k, v, *, causal: bool = True, impl: str = "xla",
     if impl == "flash":
         from tpuflow_torch.ops.flash_attention import flash_attention
 
-        return flash_attention(q, k, v, causal=causal)
+        return flash_attention(q, k, v, causal=causal, bwd=flash_bwd)
     if impl in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attention impl {impl!r} (sequence parallelism) is not ported "

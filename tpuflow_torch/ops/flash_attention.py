@@ -4,24 +4,31 @@ Counterpart of ``tpuflow/ops/flash_attention.py``. Every tier keeps the
 JAX numerics contract: scale 1/sqrt(D), causal mask -1e30, f32 online
 softmax, output / max(l, 1e-30), lse = m + log(max(l, 1e-30)).
 
-- ``flash_attention(q, k, v, *, causal)`` — the entry point. When a
+- ``flash_attention(q, k, v, *, causal, bwd)`` — the entry point. When a
   gradient is needed (grad mode on and an input requires grad) it runs
   ``_Flash``, a ``torch.autograd.Function``: the forward writes the output
   and a compact (B*H, Tq) f32 lse and saves ``(q, k, v, o, lse)`` (the
-  residual of the JAX ``_flash_vjp_fwd``); the backward runs the fused pair
-  (``flash_bwd``). Otherwise it takes the no-lse forward, as the JAX primal
-  does, so serving never pays for the lse.
+  residual of the JAX ``_flash_vjp_fwd``); the backward runs the pair that
+  ``bwd`` names — ``"fused"`` (``flash_bwd``, the default), ``"split"``
+  (``flash_bwd_split``) or ``"blockwise"`` (autograd through the plain
+  ``blockwise_attention``, no backward kernel; a CPU reference only, CUDA
+  tensors raise) — the choice the JAX package takes from
+  ``TPUFLOW_FLASH_BWD``. Otherwise it takes the no-lse forward,
+  as the JAX primal does, so serving never pays for the lse.
 - Kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), each counted in
   its own module-level counter, launched for CUDA tensors (or the call
   raises): the forward without lse (``launches``), with lse
-  (``launches_lse``), the dq kernel (``launches_bwd_dq``: dq and the row
-  delta D = rowsum(dO o O)) and the dk/dv kernel (``launches_bwd_dkv``:
-  reads q, dO, lse and D, never O).
+  (``launches_lse``), the fused dq kernel (``launches_bwd_dq``: dq and the
+  row delta D = rowsum(dO o O)), the fused dk/dv kernel
+  (``launches_bwd_dkv``: reads q, dO, lse and D, never O), and the split
+  pair (``launches_bwd_dq_split``, ``launches_bwd_dkv_split``: both read O
+  and recompute D on every block visit; the same bits as the fused pair).
 - Plain versions, which CPU tensors take and the card holds the kernels
   against: ``blockwise_attention``, ``blockwise_attention_lse``,
   ``flash_bwd_dq_plain`` and ``flash_bwd_dkv_plain`` (``flash_bwd_plain``
-  runs both). For bf16 they round P and dS to the input dtype before the
-  products that take them, as the kernels do.
+  runs both), ``flash_bwd_dq_split_plain`` and
+  ``flash_bwd_dkv_split_plain``. For bf16 they round P and dS to the input
+  dtype before the products that take them, as the kernels do.
 
 The forward with lse is registered as the custom op
 ``tpuflow_torch::flash_fwd_lse`` so that a selective-checkpoint policy sees
@@ -48,6 +55,9 @@ launches = 0           # forward, no lse
 launches_lse = 0       # forward with lse
 launches_bwd_dq = 0    # backward: dq and the row delta
 launches_bwd_dkv = 0   # backward: dk and dv
+launches_bwd_dq_split = 0   # split backward: dq, D per k-block visit
+launches_bwd_dkv_split = 0  # split backward: dk and dv, D per q-block visit
+BWD_MODES = ("fused", "split", "blockwise")
 
 
 def _scale(D: int, device) -> torch.Tensor:
@@ -132,41 +142,37 @@ def _probs(qh, kh, lse_h, scale, causal: bool, k0: int):
     return torch.exp(s - lse_h[..., None])
 
 
-def flash_bwd_dq_plain(q, k, v, o, lse, do, *, causal: bool,
-                       block_k: int = 512):
-    """The dq kernel's plain version: ``(dq, delta)``. D = rowsum(dO o O)
-    once per row (``row_delta``), then dQ = sum over key chunks of
-    dS K, dS = P o (dP - D) * scale, rounded to k's dtype before the
-    product."""
+def _dq_chunks(q, k, v, lse, do, delta_of, causal: bool, block_k: int):
+    """dQ = sum over key chunks of dS K, dS = P o (dP - D) * scale rounded
+    to k's dtype before the product; ``delta_of()`` gives D, (B*H, Tq)
+    f32, for each chunk."""
     B, Tq, H, D = q.shape
     scale = _scale(D, q.device)
-    delta = row_delta(o, do)
     qh, gh = _heads(q), _heads(do)
     lse_h = lse.view(B, H, Tq)
-    delta_h = delta.view(B, H, Tq)
     dq = torch.zeros((B, H, Tq, D), dtype=torch.float32, device=q.device)
     for k0 in range(0, k.shape[1], block_k):
+        delta_h = delta_of().view(B, H, Tq)
         kh = _heads(k[:, k0:k0 + block_k])
         vh = _heads(v[:, k0:k0 + block_k])
         p = _probs(qh, kh, lse_h, scale, causal, k0)
         dp = torch.einsum("bhqd,bhkd->bhqk", gh, vh)
         ds = p * (dp - delta_h[..., None]) * scale
         dq += torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(), kh)
-    return dq.transpose(1, 2).to(q.dtype), delta
+    return dq.transpose(1, 2).to(q.dtype)
 
 
-def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, causal: bool,
-                        block_k: int = 512):
-    """The dk/dv kernel's plain version: ``(dk, dv)`` from q, k, v, dO, lse
-    and D (never O). dV = P^T dO with P rounded to dO's dtype;
-    dK = dS^T Q with dS rounded to q's dtype."""
+def _dkv_chunks(q, k, v, lse, do, delta_of, causal: bool, block_k: int):
+    """(dK, dV) chunk by chunk of keys: dV = P^T dO with P rounded to dO's
+    dtype, dK = dS^T Q with dS rounded to q's dtype; ``delta_of()`` gives
+    D for each chunk."""
     B, Tq, H, D = q.shape
     scale = _scale(D, q.device)
     qh, gh = _heads(q), _heads(do)
     lse_h = lse.view(B, H, Tq)
-    delta_h = delta.view(B, H, Tq)
     dks, dvs = [], []
     for k0 in range(0, k.shape[1], block_k):
+        delta_h = delta_of().view(B, H, Tq)
         kh = _heads(k[:, k0:k0 + block_k])
         vh = _heads(v[:, k0:k0 + block_k])
         p = _probs(qh, kh, lse_h, scale, causal, k0)
@@ -181,11 +187,44 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, causal: bool,
     return dk, dv
 
 
+def flash_bwd_dq_plain(q, k, v, o, lse, do, *, causal: bool,
+                       block_k: int = 512):
+    """The fused dq kernel's plain version: ``(dq, delta)``, with
+    D = rowsum(dO o O) computed once per row (``row_delta``)."""
+    delta = row_delta(o, do)
+    return _dq_chunks(q, k, v, lse, do, lambda: delta, causal,
+                      block_k), delta
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, causal: bool,
+                        block_k: int = 512):
+    """The fused dk/dv kernel's plain version: ``(dk, dv)`` from q, k, v,
+    dO, lse and D (never O)."""
+    return _dkv_chunks(q, k, v, lse, do, lambda: delta, causal, block_k)
+
+
 def flash_bwd_plain(q, k, v, o, lse, do, *, causal: bool):
     """The fused pair's plain version: ``(dq, dk, dv)``."""
     dq, delta = flash_bwd_dq_plain(q, k, v, o, lse, do, causal=causal)
     dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=causal)
     return dq, dk, dv
+
+
+def flash_bwd_dq_split_plain(q, k, v, o, lse, do, *, causal: bool,
+                             block_k: int = 512):
+    """The split dq kernel's plain version: ``dq``, with D recomputed from
+    O and dO for every key chunk (the same value each time, so the fused
+    version's dq bit for bit)."""
+    return _dq_chunks(q, k, v, lse, do, lambda: row_delta(o, do), causal,
+                      block_k)
+
+
+def flash_bwd_dkv_split_plain(q, k, v, o, lse, do, *, causal: bool,
+                              block_k: int = 512):
+    """The split dk/dv kernel's plain version: ``(dk, dv)`` from q, k, v,
+    O, dO and lse, D recomputed for every key chunk."""
+    return _dkv_chunks(q, k, v, lse, do, lambda: row_delta(o, do), causal,
+                       block_k)
 
 
 # ------------------------------------------------------------ dispatch
@@ -224,14 +263,47 @@ def flash_bwd(q, k, v, o, lse, do, *, causal: bool):
     return dq, dk, dv
 
 
+def flash_bwd_dq_split(q, k, v, o, lse, do, *, causal: bool):
+    """``dq``: the split dq kernel on CUDA, its plain version on CPU."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_split_plain(q, k, v, o, lse, do, causal=causal)
+    return _flash_bwd_dq_split_cuda(q, k, v, o, lse, do, causal)
+
+
+def flash_bwd_dkv_split(q, k, v, o, lse, do, *, causal: bool):
+    """``(dk, dv)``: the split dk/dv kernel on CUDA, its plain version on
+    CPU."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_split_plain(q, k, v, o, lse, do, causal=causal)
+    return _flash_bwd_dkv_split_cuda(q, k, v, o, lse, do, causal)
+
+
+def flash_bwd_split(q, k, v, o, lse, do, *, causal: bool):
+    """The split backward pair: ``(dq, dk, dv)``, the fused pair's bits."""
+    dq = flash_bwd_dq_split(q, k, v, o, lse, do, causal=causal)
+    dk, dv = flash_bwd_dkv_split(q, k, v, o, lse, do, causal=causal)
+    return dq, dk, dv
+
+
+def _blockwise_bwd(q, k, v, do, causal: bool):
+    """Gradients by autograd through the plain ``blockwise_attention``
+    (the JAX ``blockwise`` backward): no backward kernel runs."""
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = blockwise_attention(*xs, causal=causal)
+        return torch.autograd.grad(out, xs, do)
+
+
 class _Flash(torch.autograd.Function):
-    """Flash attention with the fused backward; saves (q, k, v, o, lse)."""
+    """Flash attention; saves (q, k, v, o, lse) and runs the backward that
+    ``bwd`` names."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
+    def forward(ctx, q, k, v, causal, bwd):
         o, lse = torch.ops.tpuflow_torch.flash_fwd_lse(q, k, v, causal)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
+        ctx.bwd = bwd
         return o
 
     @staticmethod
@@ -240,23 +312,36 @@ class _Flash(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         # The kernels need unit stride over D; a summed loss hands in an
         # expanded (stride 0) cotangent.
-        dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(),
-                               causal=ctx.causal)
-        return dq, dk, dv, None
+        do = do.contiguous()
+        if ctx.bwd == "blockwise":
+            dq, dk, dv = _blockwise_bwd(q, k, v, do, ctx.causal)
+        else:
+            pair = flash_bwd_split if ctx.bwd == "split" else flash_bwd
+            dq, dk, dv = pair(q, k, v, o, lse, do, causal=ctx.causal)
+        return dq, dk, dv, None, None
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
+def flash_attention(q, k, v, *, causal: bool = True, bwd: str = "fused"):
     """Flash attention. q,k,v: (B,T,H,D) → (B,T,H,D).
 
-    Differentiable (``_Flash``) when a gradient is needed; else the no-lse
-    forward. CPU tensors take the plain versions. CUDA tensors launch the
-    kernels (f32 or bf16, D in {32, 64, 128}, any T; ragged tails are
-    masked in the kernels) or raise.
+    Differentiable (``_Flash``) when a gradient is needed, with the
+    backward ``bwd`` names (``fused``, ``split`` or ``blockwise``); else
+    the no-lse forward. CPU tensors take the plain versions. CUDA tensors
+    launch the kernels (f32 or bf16, D in {32, 64, 128}, any T; ragged
+    tails are masked in the kernels) or raise; ``blockwise``, which runs
+    no backward kernel, takes CPU tensors only.
     """
+    if bwd not in BWD_MODES:
+        raise ValueError(f"unknown flash backward {bwd!r}; use "
+                         f"{'|'.join(BWD_MODES)}")
+    if bwd == "blockwise" and q.device.type != "cpu":
+        raise ValueError(
+            "flash backward 'blockwise' is the plain version, a CPU "
+            f"reference; on {q.device} use 'fused' or 'split'")
     if torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad
     ):
-        return _Flash.apply(q, k, v, causal)
+        return _Flash.apply(q, k, v, causal, bwd)
     if q.device.type == "cpu":
         return blockwise_attention(q, k, v, causal=causal)
     return _flash_fwd_cuda(q, k, v, causal, with_lse=False)
@@ -387,4 +472,49 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool):
     )
     _build.check(lib, rc, "flash_bwd_dkv launch")
     launches_bwd_dkv += 1
+    return dk, dv
+
+
+def _flash_bwd_dq_split_cuda(q, k, v, o, lse, do, causal: bool):
+    global launches_bwd_dq_split
+    what = "flash_bwd_dq_split"
+    _check_qkv(q, k, v, what)
+    _check_like(o, q, "o", what)
+    _check_like(do, q, "do", what)
+    _check_rows(lse, q, "lse", what)
+    B, Tq, H, D = q.shape
+    dq = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
+    strides = _strides(q, k, v, o, do)
+    lib = _build.load("flash_bwd")
+    rc = lib.tpuflow_flash_bwd_dq_split(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+        B, H, Tq, k.shape[1], D, _DTYPES[q.dtype], int(causal), strides,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, rc, "flash_bwd_dq_split launch")
+    launches_bwd_dq_split += 1
+    return dq
+
+
+def _flash_bwd_dkv_split_cuda(q, k, v, o, lse, do, causal: bool):
+    global launches_bwd_dkv_split
+    what = "flash_bwd_dkv_split"
+    _check_qkv(q, k, v, what)
+    _check_like(o, q, "o", what)
+    _check_like(do, q, "do", what)
+    _check_rows(lse, q, "lse", what)
+    B, Tk, H, D = k.shape
+    dk = torch.empty((B, Tk, H, D), dtype=k.dtype, device=k.device)
+    dv = torch.empty((B, Tk, H, D), dtype=v.dtype, device=v.device)
+    strides = _strides(q, k, v, o, do)
+    lib = _build.load("flash_bwd")
+    rc = lib.tpuflow_flash_bwd_dkv_split(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, H, q.shape[1], Tk, D, _DTYPES[q.dtype], int(causal), strides,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, rc, "flash_bwd_dkv_split launch")
+    launches_bwd_dkv_split += 1
     return dk, dv

@@ -4,11 +4,14 @@
 recipe (``_run_fsdp_generation``): the epoch loop over the seeded LM
 loaders, per-epoch held-out validation with perplexity, tokens/s that
 exclude the cold first step, the loss and metrics histories, and the
-optional greedy sample through the port's ``generate``. What the JAX leg
-does beyond one device raises ``NotImplementedError`` naming the ROADMAP
-item: mesh axes whose product exceeds one device (FSDP and friends), the
-pipeline and MoE legs, checkpointing and resume, the health monitor,
-preemption and elastic re-form. Nothing is silently ignored.
+optional greedy sample through the port's ``generate``. With a
+``ckpt_dir`` it checkpoints as the JAX leg does: a save of the full state
+at every epoch end (the JAX checkpoint tree, ``ckpt/tree.py``), an in-run
+resume from the newest committed step, and a resume from a handle. What
+the JAX leg does beyond one device raises ``NotImplementedError`` naming
+the ROADMAP item: mesh axes whose product exceeds one device (FSDP and
+friends), the pipeline and MoE legs, the health monitor, preemption and
+elastic re-form. Nothing is silently ignored.
 """
 
 from __future__ import annotations
@@ -20,9 +23,12 @@ from typing import Any
 
 import torch
 
+from tpuflow_torch.ckpt import CheckpointManager, restore_from_handle
+from tpuflow_torch.ckpt.tree import checkpoint_tree, load_checkpoint_tree
 from tpuflow_torch.data.lm import make_lm_loaders
 from tpuflow_torch.device import resolve_device
 from tpuflow_torch.models.gpt2 import GPT2, GPT2Config
+from tpuflow_torch.ops.flash_attention import BWD_MODES
 from tpuflow_torch.train.optim import ROADMAP_TRAINING, make_optimizer
 from tpuflow_torch.train.step import (
     TrainState,
@@ -199,7 +205,8 @@ class GptTrainConfig:
 
 @dataclasses.dataclass
 class GptTrainResult:
-    checkpoint: Any                  # always None: checkpointing not ported
+    checkpoint: Any                  # the newest step's handle; None without
+                                     # a ckpt_dir
     loss_history: list[float]        # per-epoch mean train loss
     metrics_history: list[dict]      # per epoch: losses, ppl, tokens/s
     sample: list[int] | None = None  # greedy tokens when sample_tokens > 0
@@ -207,14 +214,17 @@ class GptTrainResult:
     # step ends in a synchronizing read of its loss).
     step_losses: list[float] = dataclasses.field(default_factory=list)
     step_s: list[float] = dataclasses.field(default_factory=list)
+    # With a ckpt_dir: the manager's save and restore records (step,
+    # bytes, seconds, GB/s).
+    checkpoint_io: dict | None = None
 
 
 def _deferred(what: str):
     return NotImplementedError(f"{what} is not ported yet: {ROADMAP_TRAINING}")
 
 
-def _check_supported(cfg: GptTrainConfig, ckpt_dir, resume_checkpoint,
-                     health: bool, preemption: bool, elastic: bool) -> None:
+def _check_supported(cfg: GptTrainConfig, ckpt_dir, health: bool,
+                     preemption: bool, elastic: bool) -> None:
     """Raise for every option of the JAX recipe the port does not run."""
     axes = {
         "data_axis": cfg.data_axis, "fsdp_axis": cfg.fsdp_axis,
@@ -232,11 +242,9 @@ def _check_supported(cfg: GptTrainConfig, ckpt_dir, resume_checkpoint,
         raise _deferred(f"pipeline parallelism (stage_axis={cfg.stage_axis})")
     if cfg.experts > 0:
         raise _deferred(f"MoE blocks (experts={cfg.experts})")
-    if ckpt_dir is not None or resume_checkpoint is not None:
-        raise _deferred("checkpointing and resume (ckpt_dir, "
-                        "resume_checkpoint)")
-    if cfg.ckpt_dtype:
-        raise _deferred(f"checkpointing (ckpt_dtype={cfg.ckpt_dtype!r})")
+    if cfg.ckpt_dtype and ckpt_dir is None:
+        raise ValueError(f"ckpt_dtype={cfg.ckpt_dtype!r} casts checkpoints, "
+                         "but no ckpt_dir was given to save them in")
     if health:
         raise _deferred("the training-health monitor (health=True)")
     if preemption:
@@ -245,16 +253,20 @@ def _check_supported(cfg: GptTrainConfig, ckpt_dir, resume_checkpoint,
         raise _deferred("elastic mesh re-form (elastic=True)")
 
 
-def _init_model(model_cfg: GPT2Config, device) -> GPT2:
-    """The model at step 0: random weights from seed 0."""
-    return GPT2(model_cfg, seed=0, device=device)
+def _init_model(model_cfg: GPT2Config, device, seed: int | None = 0) -> GPT2:
+    """The model at step 0: random weights from ``seed`` (None: left
+    uninitialised, for a restore to fill)."""
+    return GPT2(model_cfg, seed=seed, device=device)
 
 
 def init_state(cfg: GptTrainConfig, model_cfg: GPT2Config | None = None,
-               device=None) -> TrainState:
-    """Model, optimizer and (with ``ema_decay``) EMA weights at step 0."""
+               device=None, *, materialize: bool = True) -> TrainState:
+    """Model, optimizer and (with ``ema_decay``) EMA weights at step 0.
+    ``materialize=False`` skips the random weights (a restore overwrites
+    them); the optimizer's moments are zeros on the device either way."""
     model_cfg = model_cfg or cfg.model_config()
-    model = _init_model(model_cfg, resolve_device(device))
+    model = _init_model(model_cfg, resolve_device(device),
+                        seed=0 if materialize else None)
     state = TrainState(model=model, tx=cfg.optimizer(model.parameters()))
     if cfg.ema_decay > 0.0:
         state = with_ema(state)
@@ -268,35 +280,103 @@ def train_gpt(
     log=print,
     *,
     device=None,
+    flash_bwd: str = "fused",
     health: bool = False,
     preemption: bool = False,
     elastic: bool = False,
 ) -> GptTrainResult:
     """Run the configured GPT training leg end to end on one device
-    (``cuda`` unless ``device`` says otherwise). ``ckpt_dir``,
-    ``resume_checkpoint``, ``health``, ``preemption`` and ``elastic`` name
-    features of the JAX leg that are not ported; setting any raises."""
+    (``cuda`` unless ``device`` says otherwise).
+
+    ``ckpt_dir``: a ``CheckpointManager(max_to_keep=2,
+    save_dtype=cfg.ckpt_dtype)`` there saves the full state at every epoch
+    end (metrics ``val_loss``/``train_loss``/``ppl``, the loader cursor as
+    ``data_state``), and a directory that already holds committed steps
+    resumes from the newest (state, histories, start epoch). None trains
+    without checkpoints. ``resume_checkpoint``: a ``Checkpoint`` handle to
+    restore the full state from; it wins over the in-run resume.
+    ``flash_bwd``: the flash attention backward, ``fused`` | ``split`` |
+    ``blockwise`` (the JAX package's ``TPUFLOW_FLASH_BWD``; ``blockwise``,
+    the plain version, on the CPU only). ``health``,
+    ``preemption`` and ``elastic`` name features of the JAX leg that are
+    not ported; setting any raises."""
     cfg.validate()
-    _check_supported(cfg, ckpt_dir, resume_checkpoint, health, preemption,
-                     elastic)
-    model_cfg = cfg.model_config()
+    _check_supported(cfg, ckpt_dir, health, preemption, elastic)
+    if flash_bwd not in BWD_MODES:
+        raise ValueError(f"unknown flash_bwd {flash_bwd!r}; use "
+                         f"{'|'.join(BWD_MODES)}")
+    model_cfg = dataclasses.replace(cfg.model_config(), flash_bwd=flash_bwd)
     dev = resolve_device(device)
     loader, val_loader = make_lm_loaders(
         cfg.batch_size, cfg.steps_per_epoch, cfg.seq_len,
         model_cfg.vocab_size, dataset=cfg.dataset, text_path=cfg.text_path,
     )
     log(f"[gpt] device {dev}, preset {cfg.preset}, remat "
-        f"{active_remat_policy(model_cfg)}, attn {model_cfg.attn_impl}")
-    state = init_state(cfg, model_cfg, dev)
+        f"{active_remat_policy(model_cfg)}, attn {model_cfg.attn_impl}"
+        f" (flash backward {flash_bwd})")
+    mgr = None
+    resume_step = None
+    if ckpt_dir is not None:
+        mgr = CheckpointManager(ckpt_dir, max_to_keep=2,
+                                save_dtype=cfg.ckpt_dtype or None)
+        # In-run resume: a previous attempt of this run left committed
+        # steps; an explicit handle (a cross-run resume) wins.
+        if resume_checkpoint is None:
+            resume_step = mgr.latest_step()
+    resuming = resume_checkpoint is not None or resume_step is not None
+    state = init_state(cfg, model_cfg, dev, materialize=not resuming)
+    scan = model_cfg.scan_layers
+    if resuming:
+        t0 = time.monotonic()
+        tmpl = checkpoint_tree(state, scan_layers=scan, abstract=True)
+        if resume_checkpoint is not None:
+            restored = restore_from_handle(resume_checkpoint,
+                                           abstract_state=tmpl)
+        else:
+            # crc-verified; a corrupt newest step falls back to the one
+            # before it, and the cursor below is read from the step that
+            # was restored.
+            restored = mgr.restore(resume_step, abstract_state=tmpl)
+            resume_step = mgr.restores[-1]["step"]
+        load_checkpoint_tree(state, restored)
+        del restored
+        log(f"[gpt] full state restored"
+            f"{' (in-run resume)' if resume_step is not None else ''}: "
+            f"{time.monotonic() - t0:.1f}s")
     train_step = make_train_step(
         accum_steps=cfg.accum_steps, ema_decay=cfg.ema_decay or None
     )
     eval_step = make_eval_step()
     rng = 1
     history, epoch_records, step_losses, step_s = [], [], [], []
+    start_epoch = skip = 0
+    if resume_step is not None:
+        # Continuous histories across the resume, as the restored step
+        # recorded them (drain-only saves carry no metrics and are
+        # skipped).
+        meta = mgr.restore_metadata(resume_step)
+        for m in meta.get("metrics_history", []):
+            if "train_loss" in m:
+                history.append(m["train_loss"])
+                epoch_records.append({
+                    "epoch": len(epoch_records),
+                    "train_loss": m.get("train_loss"),
+                    "val_loss": m.get("val_loss"), "ppl": m.get("ppl"),
+                    "tokens_per_s": None,
+                })
+        start_epoch, skip = _resume_cursor(
+            meta.get("data_state"),
+            state.step, cfg.steps_per_epoch, cfg.epochs, loader.seed,
+        )
+        log(f"[gpt] in-run resume from step {state.step} → epoch "
+            f"{start_epoch}"
+            + (f" (replaying from batch {skip})" if skip else ""))
     cold = True
-    for epoch in range(cfg.epochs):
+    for epoch in range(start_epoch, cfg.epochs):
         loader.set_epoch(epoch)
+        if skip:
+            loader.skip_batches(skip)
+            skip = 0
         t_epoch = time.monotonic()
         losses, n_tokens = [], 0
         for batch in loader:
@@ -329,10 +409,26 @@ def train_gpt(
         rate = f" ({tok_s:.0f} tok/s)" if tok_s else ""
         log(f"[gpt] epoch {epoch}: loss={epoch_loss:.4f} "
             f"val_loss={val_loss:.4f} ppl={ppl:.2f}{rate}")
+        if mgr is not None:
+            mgr.save(
+                state.step, checkpoint_tree(state, scan_layers=scan),
+                metrics={"val_loss": val_loss, "train_loss": epoch_loss,
+                         "ppl": ppl},
+                # Epoch boundary: a resume starts at the next epoch's head.
+                data_state={"epoch": epoch + 1, "batch_index": 0,
+                            "seed": loader.seed},
+            )
+    checkpoint = None
+    if mgr is not None:
+        mgr.wait_until_finished()
+        checkpoint = mgr.checkpoint()
+        mgr.close()
     result = GptTrainResult(
-        checkpoint=None, loss_history=history,
+        checkpoint=checkpoint, loss_history=history,
         metrics_history=epoch_records, step_losses=step_losses,
         step_s=step_s,
+        checkpoint_io=({"saves": mgr.saves, "restores": mgr.restores}
+                       if mgr is not None else None),
     )
     if cfg.sample_tokens > 0:
         result.sample = _sample_greedy(cfg, state.model, log)

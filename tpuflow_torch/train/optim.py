@@ -78,7 +78,9 @@ def global_norm(tensors) -> torch.Tensor:
 class Optimizer:
     """AdamW or SGD-with-momentum over a fixed list of parameters, with
     optional global-norm clipping and a schedule (see the module
-    docstring). ``count`` is the number of updates made.
+    docstring). ``count`` is the number of updates made; ``scheduled`` is
+    True when the learning rate depends on it (a schedule other than
+    constant, or warmup), where optax keeps a second step count.
 
     Written out rather than built on ``torch.optim.AdamW``: that class
     computes the bias corrections in float64, optax in float32, and the
@@ -89,7 +91,8 @@ class Optimizer:
 
     def __init__(self, params, *, kind: str, schedule: Callable[[int], float],
                  weight_decay: float = 1e-4, momentum: float = 0.9,
-                 grad_clip_norm: float | None = None):
+                 grad_clip_norm: float | None = None,
+                 scheduled: bool = False):
         if kind not in ("adamw", "sgd"):
             raise ValueError(f"unknown optimizer {kind!r}")
         self.params = list(params)
@@ -98,12 +101,36 @@ class Optimizer:
         self.weight_decay = weight_decay
         self.momentum = momentum
         self.grad_clip_norm = grad_clip_norm
+        self.scheduled = scheduled
         self.count = 0
         zeros = lambda: [torch.zeros_like(p) for p in self.params]  # noqa: E731
         if kind == "adamw":
             self.mu, self.nu = zeros(), zeros()
         else:
             self.trace = zeros()
+
+    def slots(self) -> dict[str, list[torch.Tensor]]:
+        """The per-parameter state, named as optax names it: ``mu`` and
+        ``nu`` (adamw) or ``trace`` (sgd), each in parameter order."""
+        if self.kind == "adamw":
+            return {"mu": self.mu, "nu": self.nu}
+        return {"trace": self.trace}
+
+    @torch.no_grad()
+    def load_slots(self, count: int, slots: dict) -> None:
+        """Set ``count`` and copy ``slots`` (as ``slots()`` returns them,
+        tensors on any device) into the state in place."""
+        mine = self.slots()
+        if set(slots) != set(mine):
+            raise ValueError(f"optimizer slots {sorted(slots)}, this "
+                             f"{self.kind} optimizer has {sorted(mine)}")
+        for name, dst in mine.items():
+            if len(slots[name]) != len(dst):
+                raise ValueError(f"{name}: {len(slots[name])} tensors for "
+                                 f"{len(dst)} parameters")
+            for d, s in zip(dst, slots[name]):
+                d.copy_(s)
+        self.count = int(count)
 
     @torch.no_grad()
     def update(self, grads) -> list[torch.Tensor]:
@@ -178,6 +205,7 @@ def make_optimizer(
     return Optimizer(
         params, kind=optimizer, schedule=sched, weight_decay=weight_decay,
         momentum=momentum, grad_clip_norm=grad_clip_norm,
+        scheduled=not (schedule == "constant" and warmup_steps == 0),
     )
 
 
