@@ -15,7 +15,10 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    tolerances and bit-equal over two runs, the split pair bit-equal to the
    fused one — with the kernel's, the plain version's and one PyTorch
    library call's device times (profiler trace, L2 flushed before every
-   launch) and the least time the card could take.
+   launch), the least time the card could take and the kernel's share of
+   it. The backward phase runs f32 and bf16 at both prefill shapes and at
+   the training shape; the int8 phase also counts the kernels one call
+   launches at M = 8.
 4. Serving slice on GPT-2 124M at full width, weights random from a seed:
    ``generate()`` on a 512-token dense prompt (its prefill must launch the
    flash kernel once per layer), then a paged ``ServeEngine`` answering
@@ -38,8 +41,11 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    state's save and restore taken apart outside training: crc32, writes
    with fsync, reads. The directories live under ``build/`` and are
    deleted at the end.
-7. One JSON line with every kernel's numbers, the ``nvidia-smi`` line, and
-   as the last line ``{"ok": true, "device": {...}}``.
+7. One JSON line with every kernel's numbers (the int8 matmul both as one
+   decode step at M = 8 and as the same 49 products at M = 512, the flash
+   forward with lse in f32 and bf16; the training legs run f32, so the
+   bf16 variant's measured count there is 0), the ``nvidia-smi`` line,
+   and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when CUDA is absent or the package is not
 beside this script. Details go to ``chiprun_out/chip_smoke.json``.
@@ -213,9 +219,11 @@ def _measure(timer, kernel, plain, library) -> dict:
 
 
 def _report(head: str, r: dict) -> None:
+    r["bound_share"] = r["bound_ms"] / r["ms"]
     print(f"{head}; device ms: kernel {r['ms']:.4f}, plain "
           f"{r['plain_ms']:.4f}, {r['library']} {r['library_ms']:.4f}, "
-          f"bound {r['bound_ms']:.4f} ({r['bound_by']}); call ms: kernel "
+          f"bound {r['bound_ms']:.4f} ({r['bound_by']}; the kernel at "
+          f"{r['bound_share']:.1%} of it); call ms: kernel "
           f"{r['call_ms']:.4f}, plain {r['plain_call_ms']:.4f}, library "
           f"{r['library_call_ms']:.4f}")
 
@@ -290,7 +298,7 @@ def flash_bwd_phase(torch, timer):
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(3)
     cases = [(dt, shp) for dt in ("float32", "bfloat16")
-             for shp in FLASH_SHAPES] + [("float32", TRAIN_SHAPE)]
+             for shp in FLASH_SHAPES + (TRAIN_SHAPE,)]
     rows = []
     for name, (B, T, H, D) in cases:
         dt = getattr(torch, name)
@@ -489,6 +497,16 @@ def int8_phase(torch, timer):
             **times,
         ))
         _report(f"int8 {(M, K, N)} contract_last={cl}: bit-equal", rows[-1])
+        if M == DECODE_M and (K, N) == DENSE_KN[0]:
+            # Kernels one call launches (scale pass, product; a memset of
+            # the split-K scratch would show here).
+            names = [e["name"] for e in kernel_trace(
+                torch, lambda: im.int8_matmul(x, w, ws, w_contract_last=cl))]
+            rows[-1]["kernels_per_call"] = names
+            print(f"int8 kernels per call at M = {M} ({K} x {N}): "
+                  f"{len(names)}: {', '.join(n[:40] for n in names)}")
+            if len(names) > 2:
+                raise AssertionError(f"an int8 call launched {names}")
     return rows
 
 
@@ -552,6 +570,7 @@ def slice_phase(torch, smi):
     prompts = [rng.integers(0, cfg.vocab_size, size=L) for L in ENGINE_LENS]
     flags = [i % 2 == 1 for i in range(len(prompts))]
     fa.launches = im.launches = 0
+    im.tile_launches.update(decode=0, prefill=0)
     t0 = time.monotonic()
     reqs = [
         eng.submit(p, max_new_tokens=NEW_TOKENS, quantize=q)
@@ -560,10 +579,12 @@ def slice_phase(torch, smi):
     eng.run_until_idle()
     torch.cuda.synchronize()
     eng_s = time.monotonic() - t0
-    int8_launches, eng_flash = im.launches, fa.launches
-    if int8_launches == 0:
-        raise AssertionError("the engine's int8 requests never launched the "
-                             "int8 kernel")
+    int8_launches, eng_flash = dict(im.tile_launches), fa.launches
+    if im.launches != sum(int8_launches.values()) or \
+            0 in int8_launches.values():
+        raise AssertionError(f"the engine's int8 requests launched the int8 "
+                             f"kernel {int8_launches} times by tile (total "
+                             f"{im.launches}): each tile must run")
     n_tok = sum(len(r.tokens) for r in reqs)
     reqs_out = []
     for p, q, r in zip(prompts, flags, reqs):
@@ -585,7 +606,8 @@ def slice_phase(torch, smi):
         flash_launches=eng_flash, gpu=smi,
     )
     print(f"engine: {len(reqs)} requests ({sum(flags)} int8), {n_tok} tokens "
-          f"in {eng_s:.3f} s = {n_tok / eng_s:.1f} tokens/s, int8 launches "
+          f"in {eng_s:.3f} s = {n_tok / eng_s:.1f} tokens/s, int8 launches by "
+          f"tile "
           f"{int8_launches} [{smi}]")
     res["engine_profile"] = engine_profile(torch, model, prompts, flags,
                                            eng_s)
@@ -635,7 +657,8 @@ def train_phase(torch, smi):
             "flash_bwd_dq": L * TRAIN_STEPS,
             "flash_bwd_dkv": L * TRAIN_STEPS,
             "flash_bwd_dq_split": 0, "flash_bwd_dkv_split": 0,
-            "flash_fwd": L * n_val * TRAIN_EPOCHS, "int8_matmul": 0}
+            "flash_fwd": L * n_val * TRAIN_EPOCHS, "int8_matmul": 0,
+            "flash_fwd_lse_bf16": 0}
     torch.cuda.reset_peak_memory_stats()
     _zero_counters(fa, im)
     t0 = time.monotonic()
@@ -677,10 +700,11 @@ def train_phase(torch, smi):
 
 
 def _zero_counters(fa, im) -> None:
-    fa.launches = fa.launches_lse = 0
+    fa.launches = fa.launches_lse = fa.launches_lse_bf16 = 0
     fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
     fa.launches_bwd_dq_split = fa.launches_bwd_dkv_split = 0
     im.launches = 0
+    im.tile_launches.update(decode=0, prefill=0)
 
 
 def _counters(fa, im) -> dict:
@@ -689,7 +713,8 @@ def _counters(fa, im) -> dict:
             "flash_bwd_dkv": fa.launches_bwd_dkv,
             "flash_bwd_dq_split": fa.launches_bwd_dq_split,
             "flash_bwd_dkv_split": fa.launches_bwd_dkv_split,
-            "flash_fwd": fa.launches, "int8_matmul": im.launches}
+            "flash_fwd": fa.launches, "int8_matmul": im.launches,
+            "flash_fwd_lse_bf16": fa.launches_lse_bf16}
 
 
 def _shards(step_dir: str) -> list:
@@ -736,7 +761,8 @@ def split_ckpt_phase(torch, smi, cfg, fused_losses) -> tuple[dict, dict]:
         want = {"flash_fwd_lse": 2 * L * TRAIN_STEPS, "flash_bwd_dq": 0,
                 "flash_bwd_dkv": 0, "flash_bwd_dq_split": L * TRAIN_STEPS,
                 "flash_bwd_dkv_split": L * TRAIN_STEPS,
-                "flash_fwd": L * n_val * TRAIN_EPOCHS, "int8_matmul": 0}
+                "flash_fwd": L * n_val * TRAIN_EPOCHS, "int8_matmul": 0,
+                "flash_fwd_lse_bf16": 0}
         print(f"split leg launches {got} (want {want})")
         if got != want:
             raise AssertionError(f"split leg launches {got}, want {want}")
@@ -1010,21 +1036,13 @@ def main() -> int:
 
     # One JSON entry per kernel. flash: one launch at the generate() leg's
     # shape (f32, 1 x 512 x 12 x 64). int8: the 49 launches of one int8
-    # decode step (4 Dense layers x 12 blocks at M = 8, plus the LM head).
+    # decode step (4 Dense layers x 12 blocks at M = 8, plus the LM head),
+    # and the same 49 at M = 512 on the prefill tile; their launches are
+    # the engine run's, by tile.
     f = next(r for r in flash_rows
              if r["dtype"] == "float32" and r["shape"][1] == GEN_PROMPT)
     per_step = {(k, n): 12 for k, n in DENSE_KN}
     per_step[(768, VOCAB)] = 1
-    step = [r for r in int8_rows if r["shape"][0] == DECODE_M]
-
-    def step_sum(key):
-        return sum(per_step[tuple(r["shape"][1:])] * r[key] for r in step)
-
-    step_bytes = sum(per_step[tuple(r["shape"][1:])] * r["nbytes"]
-                     for r in step)
-    step_ops = sum(per_step[tuple(r["shape"][1:])] * 2 * np.prod(r["shape"])
-                   for r in step)
-    step_bound, step_by = _bound_ms(step_bytes, step_ops, "int8")
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="tpuflow_torch/csrc/flash_fwd.cu",
@@ -1051,26 +1069,52 @@ def main() -> int:
     for r in bwd_rows:
         if r["shape"] != list(TRAIN_SHAPE):
             continue
+        bf16 = r["dtype"] == "bfloat16"
+        if bf16 and r["kernel"] != "flash_fwd_lse":
+            continue  # the bf16 backward pair: kernel phase rows only
         src = ("tpuflow_torch/csrc/flash_fwd.cu" if r["kernel"] ==
                "flash_fwd_lse" else "tpuflow_torch/csrc/flash_bwd.cu")
-        kernels.append(dict(
-            name=r["kernel"], route="cuda", source=src,
+        name = r["kernel"] + ("_bf16" if bf16 else "")
+        entry = dict(
+            name=name, route="cuda", source=src,
             replaces=replaces[r["kernel"]],
-            shape="one training layer, f32 (8, 1024, 12, 64), causal",
-            launches=launched[r["kernel"]], max_abs_err=r["max_abs_err"],
+            shape=f"one training layer, {r['dtype']} (8, 1024, 12, 64), "
+                  "causal" + ("; kernel phase only: the training leg runs "
+                              "f32, so this variant's count there is 0"
+                              if bf16 else ""),
+            launches=launched[name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             library=r["library"], call_ms=r["call_ms"],
-        ))
+        )
+        kernels.append(entry)
+
+    def int8_entry(name, m_rows, launches, shape):
+        rows = [r for r in int8_rows if r["shape"][0] == m_rows]
+
+        def step_sum(key):
+            return sum(per_step[tuple(r["shape"][1:])] * r[key]
+                       for r in rows)
+
+        nbytes = sum(per_step[tuple(r["shape"][1:])] * r["nbytes"]
+                     for r in rows)
+        ops = sum(per_step[tuple(r["shape"][1:])] * 2 * np.prod(r["shape"])
+                  for r in rows)
+        bound, by = _bound_ms(nbytes, ops, "int8")
+        return dict(name=name, route="cuda",
+                    source="tpuflow_torch/csrc/int8_matmul.cu",
+                    replaces="tpuflow/ops/int8_matmul.py:229", shape=shape,
+                    launches=launches, max_abs_err=0.0, ms=step_sum("ms"),
+                    plain_ms=step_sum("plain_ms"), bound_ms=bound,
+                    bound_by=by, library_ms=step_sum("library_ms"),
+                    library=", ".join(sorted({r["library"] for r in rows})),
+                    call_ms=step_sum("call_ms"))
+
     kernels += [
-        dict(name="int8_matmul", route="cuda",
-             source="tpuflow_torch/csrc/int8_matmul.cu",
-             replaces="tpuflow/ops/int8_matmul.py:229",
-             shape="one int8 decode step at M=8: 48 Dense + LM head",
-             launches=int8_n, max_abs_err=0.0, ms=step_sum("ms"),
-             plain_ms=step_sum("plain_ms"), bound_ms=step_bound,
-             bound_by=step_by, library_ms=step_sum("library_ms"),
-             call_ms=step_sum("call_ms")),
+        int8_entry("int8_matmul", DECODE_M, int8_n["decode"],
+                   "one int8 decode step at M=8: 48 Dense + LM head"),
+        int8_entry("int8_matmul_prefill", PREFILL_M, int8_n["prefill"],
+                   "49 calls at M=512: 48 Dense + LM head (prefill tile)"),
     ]
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as fh:

@@ -27,23 +27,58 @@ def cuda():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+def _flash_views(gen, B, Tq, Tk, H, D, dtype):
+    """q/k/v as strided views of one fused qkv tensor (the model's split),
+    q cut to Tq rows and k, v to Tk."""
+    qkv = torch.randn(B, max(Tq, Tk), 3 * H * D, device="cuda",
+                      generator=gen).to(dtype)
+    q, k, v = (x.reshape(B, -1, H, D) for x in qkv.split(H * D, dim=-1))
+    return q[:, :Tq], k[:, :Tk], v[:, :Tk]
+
+
+def _int8_case(gen, M, K, N, contract_last):
+    x = torch.randn(M, K, device="cuda", generator=gen) * 3
+    x[M // 2] = 0.0  # a zero row: scale 1/127, every product 0
+    shape = (N, K) if contract_last else (K, N)
+    w = torch.randint(-127, 128, shape, device="cuda", generator=gen,
+                      dtype=torch.int32).to(torch.int8)
+    ws = torch.rand(N, device="cuda", generator=gen) * 1e-2
+    return x, w, ws
+
+
+_FLASH_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (4e-3, 8e-3)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [32, 64, 128])
-@pytest.mark.parametrize("T", [1, 77, 256])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 77, 200, 256, 1024])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_kernel_matches_plain(cuda, D, T, causal):
-    """Every head_dim the kernel takes, ragged T (masked in the kernel),
-    both mask modes, and strided q/k/v views of one qkv tensor."""
+def test_flash_kernel_matches_plain(cuda, dtype, D, T, causal):
+    """Every head_dim the kernel takes, the bf16 tensor-core and f32
+    CUDA-core paths, ragged T (masked in the kernel), both mask modes, and
+    strided q/k/v views of one qkv tensor: within the stated tolerances,
+    the lse launch's output bit for bit the no-lse launch's, and a second
+    run bit-equal."""
     from tpuflow_torch.ops import flash_attention as fa
 
-    qkv = torch.randn(2, T, 3 * 3 * D, device="cuda", generator=cuda)
-    q, k, v = (x.reshape(2, T, 3, D) for x in qkv.split(3 * D, dim=-1))
+    q, k, v = _flash_views(cuda, 2, T, T, 3, D, dtype)
     n = fa.launches
     out = fa.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert fa.launches == n + 1
-    ref = fa.blockwise_attention(q, k, v, causal=causal)
-    # f32, same products summed in another order.
-    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    o_lse, lse = fa.flash_fwd_lse(q, k, v, causal=causal)
+    again = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype
+    assert torch.equal(out, o_lse) and torch.equal(out, again)
+    ref, ref_lse = fa.blockwise_attention_lse(q, k, v, causal=causal)
+    # f32: the same products summed in another order. bf16: both round P
+    # to bf16 at the running max of their own key tiles, and the output to
+    # bf16: two bf16 ulps, as in chip_smoke.py.
+    atol, rtol = _FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=1e-6)
 
 
 def test_flash_kernel_bf16_and_rejects(cuda):
@@ -274,25 +309,37 @@ def test_train_gpt_split_checkpoint_resume_on_the_card(cuda, tmp_path):
     assert manifests[0] == manifests[1]
 
 
-@pytest.mark.parametrize("M,K,N", [(1, 768, 2304), (8, 3072, 768),
-                                   (37, 100, 50), (130, 256, 50257)])
+_INT8_SHAPES = [(M, K, N) for M in (1, 7, 8, 9, 16, 17, 64, 512)
+                for K in (100, 768, 3072) for N in (50, 768, 50257)]
+
+
+# The grid, the shapes the tile code paths part on, the parent design's
+# cases, and the main path's Dense widths (N = 2304 and 3072) at decode,
+# prefill and M = 1.
+_INT8_MAIN = [(1, 768, 2304), (8, 768, 2304), (8, 768, 3072),
+              (512, 768, 3072), (37, 100, 50), (130, 256, 50257)]
+
+
+@pytest.mark.parametrize("M,K,N", _INT8_SHAPES + _INT8_MAIN)
 @pytest.mark.parametrize("contract_last", [False, True])
 def test_int8_kernel_bit_equal_to_plain(cuda, M, K, N, contract_last):
+    """Decode (M <= 16) and prefill tiles, split K or not, both layouts,
+    ragged K and N (masked staging), a zero row: bit-equal to the plain
+    version, and to a second run (the split-K atomics sum in any order)."""
     from tpuflow_torch.ops import int8_matmul as im
 
-    x = torch.randn(M, K, device="cuda", generator=cuda) * 3
-    x[0] = 0.0  # a zero row: scale 1/127, every product 0
-    shape = (N, K) if contract_last else (K, N)
-    w = torch.randint(-127, 128, shape, device="cuda", generator=cuda,
-                      dtype=torch.int32).to(torch.int8)
-    ws = torch.rand(N, device="cuda", generator=cuda) * 1e-2
-    n = im.launches
+    x, w, ws = _int8_case(cuda, M, K, N, contract_last)
+    n, n_tile = im.launches, dict(im.tile_launches)
     out = im.int8_matmul(x, w, ws, w_contract_last=contract_last)
+    again = im.int8_matmul(x, w, ws, w_contract_last=contract_last)
     torch.cuda.synchronize()
-    assert im.launches == n + 1
+    tile = im._int8_plan(M, K, N, im._sm_count(x.device.index))["tile"]
+    assert im.launches == n + 2
+    assert im.tile_launches[tile] == n_tile[tile] + 2
     ref = im._plain_int8_matmul(x, w, ws, w_contract_last=contract_last,
                                 out_dtype=torch.float32)
     assert torch.equal(out, ref)
+    assert torch.equal(again, out)
 
 
 def test_engine_on_the_card_matches_solo(cuda):
@@ -318,3 +365,108 @@ def test_engine_on_the_card_matches_solo(cuda):
         solo = generate(eng._qmodel if q else model, p[None], max_new_tokens=7,
                         temperature=0.0)[0].cpu().numpy()
         np.testing.assert_array_equal(r.result(), solo)
+
+
+@pytest.mark.parametrize("M,K,N,contract_last", [
+    (8, 768, 2304, False), (8, 3072, 768, False), (8, 768, 50257, True),
+    (512, 768, 768, False), (512, 768, 3072, False)])
+def test_int8_call_launches_at_most_two_kernels(cuda, M, K, N,
+                                                contract_last):
+    """The row scale pass and the product: no memset, no PyTorch op."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuflow_torch.ops import int8_matmul as im
+
+    x, w, ws = _int8_case(cuda, M, K, N, contract_last)
+    im.int8_matmul(x, w, ws, w_contract_last=contract_last)  # scratch made
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        im.int8_matmul(x, w, ws, w_contract_last=contract_last)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert 1 <= len(kernels) <= 2, [e.name for e in kernels]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Tq,Tk,causal", [(100, 37, True), (37, 100, False),
+                                          (65, 200, True), (200, 65, False)])
+def test_flash_fwd_redesign_tq_ne_tk(cuda, dtype, Tq, Tk, causal):
+    from tpuflow_torch.ops import flash_attention as fa
+
+    q, k, v = _flash_views(cuda, 2, Tq, Tk, 3, 64, dtype)
+    out, lse = fa.flash_fwd_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.blockwise_attention_lse(q, k, v, causal=causal)
+    atol, rtol = _FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_row_bits_independent_of_batch_and_length(cuda, dtype):
+    """A row's bits depend on its q and the keys at or before it only: a
+    shorter causal sequence and a batch of one (other q tile plans) give
+    the same bits for the rows they share."""
+    from tpuflow_torch.ops import flash_attention as fa
+
+    q, k, v = _flash_views(cuda, 8, 1024, 1024, 12, 64, dtype)
+    full = fa.flash_attention(q, k, v, causal=True)
+    one = fa.flash_attention(q[:1], k[:1], v[:1], causal=True)
+    short = fa.flash_attention(q[:1, :300], k[:1, :300], v[:1, :300],
+                               causal=True)
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    assert fa._flash_bq(8, 12, 1024, sms) != fa._flash_bq(1, 12, 300, sms)
+    assert torch.equal(one, full[:1])
+    assert torch.equal(short, full[:1, :300])
+
+
+_SMEM_MAX = 232448  # dynamic shared memory one block may take on the H100
+
+
+def _smem_limit():
+    props = torch.cuda.get_device_properties(0)
+    return min(_SMEM_MAX, getattr(props, "shared_memory_per_block_optin",
+                                  _SMEM_MAX))
+
+
+@pytest.mark.parametrize("dtype", [0, 1])  # float32, bfloat16
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("bq", [32, 64])
+def test_flash_fwd_smem_within_the_card(cuda, dtype, D, bq):
+    """The shared memory the C entry launches each (dtype, D, q tile) with
+    fits one block, and the launch at it runs and agrees."""
+    from tpuflow_torch.ops import _build
+    from tpuflow_torch.ops import flash_attention as fa
+
+    assert 0 < _build.load("flash_fwd").tpuflow_flash_fwd_smem(
+        dtype, D, bq) <= _smem_limit()
+    # A grid that takes this q tile height: B*H*ceil(T/64) SMs or more.
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    B = 1 if bq == 32 else -(-sms // 2)
+    torch_dtype = (torch.float32, torch.bfloat16)[dtype]
+    q, k, v = _flash_views(cuda, B, 128, 128, 1, D, torch_dtype)
+    assert fa._flash_bq(B, 1, 128, sms) == bq
+    out = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    atol, rtol = _FLASH_TOL[torch_dtype]
+    torch.testing.assert_close(
+        out.float(), fa.blockwise_attention(q, k, v, causal=True).float(),
+        atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("M", [1, 8, 9, 16, 17, 512, 1023])
+@pytest.mark.parametrize("K,N", [(768, 2304), (768, 768), (768, 3072),
+                                 (3072, 768), (768, 50257), (3072, 50257)])
+def test_int8_smem_within_the_card(cuda, M, K, N):
+    """The shared memory the C entry launches each plan of the main paths'
+    shapes with fits one block."""
+    from tpuflow_torch.ops import _build
+    from tpuflow_torch.ops import int8_matmul as im
+
+    plan = im._int8_plan(M, K, N, im._sm_count(0))
+    smem = _build.load("int8_matmul").tpuflow_int8_smem(
+        0 if plan["tile"] == "decode" else 1, M, plan["cps"], plan["stages"])
+    assert 0 < smem <= _smem_limit()

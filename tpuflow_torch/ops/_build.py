@@ -33,11 +33,15 @@ BUILD_DIR = os.path.join(
 )
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # Each library's C entry points and their argtypes (pointers and the stream
-# as c_void_p: a plain int would be cut to 32 bits). Every entry returns
-# cudaGetLastError() as an int.
+# as c_void_p: a plain int would be cut to 32 bits). Every launch entry
+# returns cudaGetLastError() as an int; a ``_smem`` entry returns bytes.
 KERNELS = {
     "flash_fwd": {
-        "tpuflow_flash_fwd": [_P] * 5 + [_I] * 7 + [_L] * 9 + [_P],
+        # q, k, v, o, lse; B, H, Tq, Tk, D, dtype, causal, bq; the nine
+        # strides; the stream.
+        "tpuflow_flash_fwd": [_P] * 5 + [_I] * 8 + [_L] * 9 + [_P],
+        # dtype, D, bq -> the block's dynamic shared memory bytes.
+        "tpuflow_flash_fwd_smem": [_I] * 3,
     },
     "flash_bwd": {
         # Tensors, then B, H, Tq, Tk, D, dtype, causal, a pointer to the
@@ -48,7 +52,11 @@ KERNELS = {
         "tpuflow_flash_bwd_dkv_split": [_P] * 8 + [_I] * 7 + [_P, _P],
     },
     "int8_matmul": {
-        "tpuflow_int8_matmul": [_P] * 5 + [_I] * 4 + [_P],
+        # x, w, ws, s, out, scratch, counters; M, K, N, w_contract_last,
+        # ws_stride, tile, splits, cps, stages; the stream.
+        "tpuflow_int8_matmul": [_P] * 7 + [_I] * 9 + [_P],
+        # tile, M, cps, stages -> the block's dynamic shared memory bytes.
+        "tpuflow_int8_smem": [_I] * 4,
     },
 }
 NVCC_FLAGS = (

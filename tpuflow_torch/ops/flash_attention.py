@@ -53,6 +53,7 @@ _HEAD_DIMS = (32, 64, 128)
 # show the path went through the kernels.
 launches = 0           # forward, no lse
 launches_lse = 0       # forward with lse
+launches_lse_bf16 = 0  # of those, on bf16 inputs (the tensor-core variant)
 launches_bwd_dq = 0    # backward: dq and the row delta
 launches_bwd_dkv = 0   # backward: dk and dv
 launches_bwd_dq_split = 0   # split backward: dq, D per k-block visit
@@ -403,19 +404,33 @@ def _strides(*xs):
     )
 
 
+def _flash_bq(B: int, H: int, Tq: int, sms: int) -> int:
+    """The forward kernel's q tile height on a card of ``sms`` streaming
+    multiprocessors: 64 where the grid of B*H x ceil(Tq/64) blocks gives
+    every SM one, else 32. It changes no output bit: the key tiles are
+    anchored at key 0 and each row's arithmetic does not depend on it.
+    The kernel derives the grid and shared memory from it, and runs the
+    causal q tiles longest first."""
+    return 64 if B * H * -(-Tq // 64) >= sms else 32
+
+
 def _flash_fwd_cuda(q, k, v, causal: bool, *, with_lse: bool):
-    global launches, launches_lse
+    global launches, launches_lse, launches_lse_bf16
     _check_qkv(q, k, v, "flash_attention")
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     out = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B * H, Tq), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    if B * H * Tq == 0:
+        return (out, lse) if with_lse else out
+    bq = _flash_bq(B, H, Tq, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
     lib = _build.load("flash_fwd")
     rc = lib.tpuflow_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
-        B, H, Tq, Tk, D, _DTYPES[q.dtype], int(causal),
+        B, H, Tq, Tk, D, _DTYPES[q.dtype], int(causal), bq,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
@@ -424,6 +439,8 @@ def _flash_fwd_cuda(q, k, v, causal: bool, *, with_lse: bool):
     _build.check(lib, rc, "flash_fwd launch")
     if with_lse:
         launches_lse += 1
+        if q.dtype == torch.bfloat16:
+            launches_lse_bf16 += 1
         return out, lse
     launches += 1
     return out
