@@ -30,7 +30,10 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    of times the code implies. Then two steps under the profiler
    (device busy share, top kernels), and one forward+backward with flash
    against the einsum attention (dropout off, TF32 off): loss and every
-   gradient within stated tolerances.
+   gradient within stated tolerances. Then the bf16 leg: the same call
+   with ``dtype="bfloat16"`` for one epoch of 8 steps, the flash kernels
+   on their tensor-core variants: every loss finite, exact launch counts
+   (the bf16 ones included), its step ms and tokens/s.
 6. Split + checkpoint leg: the same ``train_gpt`` call with the split
    backward and a checkpoint directory (saves at steps 8 and 16): its 16
    losses bit-equal to step 5's, exact launch counts. Resume leg: the same
@@ -42,10 +45,11 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    with fsync, reads. The directories live under ``build/`` and are
    deleted at the end.
 7. One JSON line with every kernel's numbers (the int8 matmul both as one
-   decode step at M = 8 and as the same 49 products at M = 512, the flash
-   forward with lse in f32 and bf16; the training legs run f32, so the
-   bf16 variant's measured count there is 0), the ``nvidia-smi`` line,
-   and as the last line ``{"ok": true, "device": {...}}``.
+   decode step at M = 8 and as the same 49 products at M = 512; the
+   training kernels in f32 and bf16, their launches from the f32 legs and
+   the bf16 leg, which runs the fused pair, so the bf16 split variants'
+   count there is 0), the ``nvidia-smi`` line, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when CUDA is absent or the package is not
 beside this script. Details go to ``chiprun_out/chip_smoke.json``.
@@ -114,6 +118,12 @@ PARITY_GRAD_RTOL = 2e-5  # of each gradient tensor's max |value|
 # (K, N) of the four Dense layers of a GPT-2 124M block, and the head.
 DENSE_KN = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
 VOCAB = 50257
+# The launch counters chip_smoke reads (``_counters``), one per kernel and
+# variant.
+LAUNCH_COUNTERS = (
+    "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_split",
+    "flash_bwd_dkv_split", "flash_fwd", "int8_matmul", "flash_fwd_lse_bf16",
+    "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")
 # Rounds of the checkpoint IO phase (a save, writes, a restore, reads).
 CKPT_IO_REPS = 2
 # torch.profiler traces taken before a trace without the measured
@@ -653,12 +663,10 @@ def train_phase(torch, smi):
     # Full remat: each step runs every block's forward (lse) once in the
     # forward pass and once more when the backward recomputes it, and the
     # fused pair once; validation runs the no-lse forward per layer.
-    want = {"flash_fwd_lse": 2 * L * TRAIN_STEPS,
-            "flash_bwd_dq": L * TRAIN_STEPS,
-            "flash_bwd_dkv": L * TRAIN_STEPS,
-            "flash_bwd_dq_split": 0, "flash_bwd_dkv_split": 0,
-            "flash_fwd": L * n_val * TRAIN_EPOCHS, "int8_matmul": 0,
-            "flash_fwd_lse_bf16": 0}
+    want = _launches(flash_fwd_lse=2 * L * TRAIN_STEPS,
+                     flash_bwd_dq=L * TRAIN_STEPS,
+                     flash_bwd_dkv=L * TRAIN_STEPS,
+                     flash_fwd=L * n_val * TRAIN_EPOCHS)
     torch.cuda.reset_peak_memory_stats()
     _zero_counters(fa, im)
     t0 = time.monotonic()
@@ -693,16 +701,69 @@ def train_phase(torch, smi):
           f"peak memory {peak / 2**30:.2f} GiB, wall {wall_s:.2f} s [{smi}]")
     out["profile"] = train_profile(torch, cfg, step_ms, smi)
     out["parity"] = step_parity(torch, cfg)
+    out["bf16"] = bf16_phase(torch, smi, cfg)
     out["split_ckpt"], out["split_launches"] = split_ckpt_phase(
         torch, smi, cfg, losses)
     out["ckpt_io"] = ckpt_io_phase(torch, smi, cfg)
     return out, got
 
 
+def bf16_phase(torch, smi, cfg) -> dict:
+    """The bf16 recipe's leg: the same ``train_gpt`` call with
+    ``dtype="bfloat16"`` for one epoch of 8 steps, so the flash forward
+    with lse and the backward pair run their tensor-core (bf16) variants
+    on the main path. Every loss finite, every launch count exact."""
+    from tpuflow_torch.data.lm import make_lm_loaders
+    from tpuflow_torch.ops import flash_attention as fa
+    from tpuflow_torch.ops import int8_matmul as im
+    from tpuflow_torch.train.gpt import train_gpt
+
+    bcfg = dataclasses.replace(cfg, dtype="bfloat16", epochs=1)
+    L = cfg.model_config().n_layer
+    spe = bcfg.steps_per_epoch
+    n_val = len(make_lm_loaders(cfg.batch_size, spe, cfg.seq_len,
+                                cfg.model_config().vocab_size)[1])
+    # Full remat: two forwards with lse a layer and step, one fused pair;
+    # all of them bf16.
+    want = _launches(flash_fwd_lse=2 * L * spe, flash_bwd_dq=L * spe,
+                     flash_bwd_dkv=L * spe, flash_fwd=L * n_val,
+                     flash_fwd_lse_bf16=2 * L * spe,
+                     flash_bwd_dq_bf16=L * spe, flash_bwd_dkv_bf16=L * spe)
+    _zero_counters(fa, im)
+    t0 = time.monotonic()
+    res = train_gpt(bcfg, log=lambda m: print(f"  {m}"))
+    torch.cuda.synchronize()
+    wall_s = time.monotonic() - t0
+    got = _counters(fa, im)
+    print(f"bf16 leg launches {got} (want {want})")
+    if got != want:
+        raise AssertionError(f"bf16 leg launches {got}, want {want}")
+    losses = res.step_losses
+    if len(losses) != spe or not all(np.isfinite(losses)):
+        raise AssertionError(f"bf16 leg losses {losses}")
+    step_ms = float(np.median(res.step_s[1:])) * 1e3
+    tok_s = res.metrics_history[-1]["tokens_per_s"]
+    print(f"bf16 leg: GPT-2 124M, {spe} steps of 8 x 1024, full remat, "
+          f"dtype bfloat16, flash: step losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; step {step_ms:.1f} ms "
+          f"(median after the cold step), {tok_s} tokens/s, wall "
+          f"{wall_s:.2f} s [{smi}]")
+    return dict(wall_s=wall_s, step_losses=losses, step_s=res.step_s,
+                step_ms_median=step_ms, tokens_per_s=tok_s, launches=got,
+                gpu=smi)
+
+
+def _launches(**counts) -> dict:
+    """The launch counts a leg must read from ``_counters``: ``counts``,
+    and 0 for every other counter."""
+    return {k: counts.pop(k, 0) for k in LAUNCH_COUNTERS} | counts
+
+
 def _zero_counters(fa, im) -> None:
     fa.launches = fa.launches_lse = fa.launches_lse_bf16 = 0
     fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
     fa.launches_bwd_dq_split = fa.launches_bwd_dkv_split = 0
+    fa.launches_bwd_dq_bf16 = fa.launches_bwd_dkv_bf16 = 0
     im.launches = 0
     im.tile_launches.update(decode=0, prefill=0)
 
@@ -714,7 +775,9 @@ def _counters(fa, im) -> dict:
             "flash_bwd_dq_split": fa.launches_bwd_dq_split,
             "flash_bwd_dkv_split": fa.launches_bwd_dkv_split,
             "flash_fwd": fa.launches, "int8_matmul": im.launches,
-            "flash_fwd_lse_bf16": fa.launches_lse_bf16}
+            "flash_fwd_lse_bf16": fa.launches_lse_bf16,
+            "flash_bwd_dq_bf16": fa.launches_bwd_dq_bf16,
+            "flash_bwd_dkv_bf16": fa.launches_bwd_dkv_bf16}
 
 
 def _shards(step_dir: str) -> list:
@@ -758,11 +821,10 @@ def split_ckpt_phase(torch, smi, cfg, fused_losses) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         wall_s = time.monotonic() - t0
         got = _counters(fa, im)
-        want = {"flash_fwd_lse": 2 * L * TRAIN_STEPS, "flash_bwd_dq": 0,
-                "flash_bwd_dkv": 0, "flash_bwd_dq_split": L * TRAIN_STEPS,
-                "flash_bwd_dkv_split": L * TRAIN_STEPS,
-                "flash_fwd": L * n_val * TRAIN_EPOCHS, "int8_matmul": 0,
-                "flash_fwd_lse_bf16": 0}
+        want = _launches(flash_fwd_lse=2 * L * TRAIN_STEPS,
+                         flash_bwd_dq_split=L * TRAIN_STEPS,
+                         flash_bwd_dkv_split=L * TRAIN_STEPS,
+                         flash_fwd=L * n_val * TRAIN_EPOCHS)
         print(f"split leg launches {got} (want {want})")
         if got != want:
             raise AssertionError(f"split leg launches {got}, want {want}")
@@ -1053,9 +1115,10 @@ def main() -> int:
              bound_by=f["bound_by"], library_ms=f["library_ms"],
              call_ms=f["call_ms"]),
     ]
-    # The training kernels at the training leg's shape (f32, 8 x 1024 x 12
-    # x 64), with their launches in the train_gpt run.
-    # The split pair's launches come from the split leg's train_gpt run.
+    # The training kernels at the training leg's shape (8 x 1024 x 12 x
+    # 64), with their launches in the train_gpt runs: f32 from the fused
+    # leg (the split pair from the split leg), bf16 from the bf16 leg,
+    # which runs the fused pair (its split variants' count there is 0).
     replaces = {
         "flash_fwd_lse": "tpuflow/ops/flash_attention.py:180",
         "flash_bwd_dq": "tpuflow/ops/flash_attention.py:499",
@@ -1066,12 +1129,13 @@ def main() -> int:
     launched = dict(train_n)
     for kern in ("flash_bwd_dq_split", "flash_bwd_dkv_split"):
         launched[kern] = tr["split_launches"][kern]
+    bf16_n = tr["bf16"]["launches"]
+    for kern in replaces:
+        launched[kern + "_bf16"] = bf16_n[kern]
     for r in bwd_rows:
         if r["shape"] != list(TRAIN_SHAPE):
             continue
         bf16 = r["dtype"] == "bfloat16"
-        if bf16 and r["kernel"] != "flash_fwd_lse":
-            continue  # the bf16 backward pair: kernel phase rows only
         src = ("tpuflow_torch/csrc/flash_fwd.cu" if r["kernel"] ==
                "flash_fwd_lse" else "tpuflow_torch/csrc/flash_bwd.cu")
         name = r["kernel"] + ("_bf16" if bf16 else "")
@@ -1079,9 +1143,8 @@ def main() -> int:
             name=name, route="cuda", source=src,
             replaces=replaces[r["kernel"]],
             shape=f"one training layer, {r['dtype']} (8, 1024, 12, 64), "
-                  "causal" + ("; kernel phase only: the training leg runs "
-                              "f32, so this variant's count there is 0"
-                              if bf16 else ""),
+                  "causal" + ("; launches from the bf16 leg" if bf16
+                              else ""),
             launches=launched[name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],

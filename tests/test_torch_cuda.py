@@ -380,11 +380,17 @@ def test_int8_call_launches_at_most_two_kernels(cuda, M, K, N,
     x, w, ws = _int8_case(cuda, M, K, N, contract_last)
     im.int8_matmul(x, w, ws, w_contract_last=contract_last)  # scratch made
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        im.int8_matmul(x, w, ws, w_contract_last=contract_last)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    # torch.profiler on the H100 now and then returns a trace without the
+    # call's kernels (chip_smoke.py retakes such traces too): up to three
+    # traces are taken until one records the call.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            im.int8_matmul(x, w, ws, w_contract_last=contract_last)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
     assert 1 <= len(kernels) <= 2, [e.name for e in kernels]
 
 
@@ -470,3 +476,131 @@ def test_int8_smem_within_the_card(cuda, M, K, N):
     smem = _build.load("int8_matmul").tpuflow_int8_smem(
         0 if plan["tile"] == "decode" else 1, M, plan["cps"], plan["stages"])
     assert 0 < smem <= _smem_limit()
+
+
+@pytest.mark.parametrize("dtype", [0, 1])  # float32, bfloat16
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("grid", ["small", "half", "full"])
+def test_flash_bwd_smem_within_the_card(cuda, dtype, D, grid):
+    """The shared memory the C entries launch the dq and dk/dv kernels
+    (fused and split) with fits one block for every plan of this dtype and
+    D (batches of 1, SMs/2 and SMs at T = 128, one head: each row height
+    the plan takes), and the launches at it run and agree with the plain
+    versions, split bit-equal to fused."""
+    from tpuflow_torch.ops import _build
+    from tpuflow_torch.ops import flash_attention as fa
+
+    torch_dtype = (torch.float32, torch.bfloat16)[dtype]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    B = {"small": 1, "half": -(-sms // 2), "full": sms}[grid]
+    plan = fa._flash_bwd_plan(B, 1, 128, 128, D, torch_dtype, sms)
+    lib = _build.load("flash_bwd")
+    for kernel, key in ((0, "dq_rows"), (1, "dkv_rows")):
+        for split in (0, 1):
+            smem = lib.tpuflow_flash_bwd_smem(kernel, split, dtype, D,
+                                              plan[key])
+            assert 0 < smem <= _smem_limit()
+    q, k, v = _flash_views(cuda, B, 128, 128, 1, D, torch_dtype)
+    do = torch.randn(q.shape, device="cuda", generator=cuda).to(torch_dtype)
+    o, lse = fa.flash_fwd_lse(q, k, v, causal=True)
+    fused = fa.flash_bwd(q, k, v, o, lse, do, causal=True)
+    split = fa.flash_bwd_split(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    want = fa.flash_bwd_plain(q, k, v, o, lse, do, causal=True)
+    atol, rtol = BWD_TOL[torch_dtype]
+    for a, b, c in zip(fused, split, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.float(), c.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_bits_independent_of_plan(cuda, dtype):
+    """dq, dk and dv bits do not depend on the launch plan: a batch of one
+    (64-row blocks) against the batch of eight (128 rows in f32, 64 in
+    bf16; so bf16 also takes 32-row blocks at T = 300), and a
+    300-token causal sequence against the 1024-token one on the rows they
+    share (dq of rows < 300; dk, dv of keys < 300 with dO zero from row
+    300 on, which adds exact zeros)."""
+    from tpuflow_torch.ops import flash_attention as fa
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {tuple(fa._flash_bwd_plan(b, 12, t, t, 64, dtype, sms).values())
+             for b, t in ((8, 1024), (1, 1024), (1, 300))}
+    assert len(plans) >= 2
+    q, k, v = _flash_views(cuda, 8, 1024, 1024, 12, 64, dtype)
+    do = torch.randn(q.shape, device="cuda", generator=cuda).to(dtype)
+    do[:1, 300:] = 0
+    o, lse = fa.flash_fwd_lse(q, k, v, causal=True)
+    full = fa.flash_bwd(q, k, v, o, lse, do, causal=True)
+    o1, lse1 = fa.flash_fwd_lse(q[:1], k[:1], v[:1], causal=True)
+    one = fa.flash_bwd(q[:1], k[:1], v[:1], o1, lse1, do[:1], causal=True)
+    s = (q[:1, :300], k[:1, :300], v[:1, :300])
+    os_, lses = fa.flash_fwd_lse(*s, causal=True)
+    short = fa.flash_bwd(*s, os_, lses, do[:1, :300].contiguous(),
+                         causal=True)
+    split = fa.flash_bwd_split(*s, os_, lses, do[:1, :300].contiguous(),
+                               causal=True)
+    torch.cuda.synchronize()
+    for name, a, b, c, d in zip(("dq", "dk", "dv"), full, one, short, split):
+        assert torch.equal(b, a[:1]), name
+        assert torch.equal(c, a[:1, :300]), name
+        assert torch.equal(d, c), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Tq,Tk,causal", [(100, 37, True), (37, 100, False),
+                                          (65, 200, True), (200, 65, False),
+                                          (37, 100, True)])
+def test_flash_bwd_tq_ne_tk(cuda, dtype, D, Tq, Tk, causal):
+    """Tq != Tk, ragged, masked in the kernels: the fused pair within the
+    backward tolerance of its plain version, the split pair bit-equal."""
+    from tpuflow_torch.ops import flash_attention as fa
+
+    q, k, v = _flash_views(cuda, 2, Tq, Tk, 3, D, dtype)
+    do = torch.randn(q.shape, device="cuda", generator=cuda).to(dtype)
+    o, lse = fa.flash_fwd_lse(q, k, v, causal=causal)
+    got = fa.flash_bwd(q, k, v, o, lse, do, causal=causal)
+    split = fa.flash_bwd_split(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    want = fa.flash_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    atol, rtol = BWD_TOL[dtype]
+    for a, b, c in zip(got, split, want):
+        assert a.shape == c.shape and torch.equal(a, b)
+        torch.testing.assert_close(a.float(), c.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_bf16_counters(cuda, dtype):
+    """launches_bwd_dq_bf16 / launches_bwd_dkv_bf16 count the bf16
+    launches of either pair, and nothing else."""
+    from tpuflow_torch.ops import flash_attention as fa
+
+    q, k, v = _qkv_views(cuda, 1, 64, 64, dtype)
+    do = torch.randn(q.shape, device="cuda", generator=cuda).to(dtype)
+    o, lse = fa.flash_fwd_lse(q, k, v)
+    n = (fa.launches_bwd_dq_bf16, fa.launches_bwd_dkv_bf16)
+    fa.flash_bwd(q, k, v, o, lse, do, causal=True)
+    fa.flash_bwd_split(q, k, v, o, lse, do, causal=True)
+    bf16 = int(dtype == torch.bfloat16)
+    assert (fa.launches_bwd_dq_bf16 - n[0],
+            fa.launches_bwd_dkv_bf16 - n[1]) == (2 * bf16, 2 * bf16)
+
+
+def test_train_gpt_bf16_on_the_card(cuda):
+    """train_gpt with dtype='bfloat16' on the test preset: finite losses,
+    and the forward with lse and the backward pair launched once per layer
+    and step on the tensor-core (bf16) variants."""
+    from tpuflow_torch.ops import flash_attention as fa
+    from tpuflow_torch.train.gpt import GptTrainConfig, train_gpt
+
+    cfg = GptTrainConfig(preset="test", epochs=1, steps_per_epoch=4,
+                         seq_len=128, attn_impl="flash", data_axis=1,
+                         fsdp_axis=1, learning_rate=1e-3, dtype="bfloat16")
+    n = (fa.launches_lse_bf16, fa.launches_bwd_dq_bf16,
+         fa.launches_bwd_dkv_bf16)
+    res = train_gpt(cfg, log=lambda *a: None)
+    assert len(res.step_losses) == 4 and all(np.isfinite(res.step_losses))
+    L = cfg.model_config().n_layer
+    assert (fa.launches_lse_bf16 - n[0], fa.launches_bwd_dq_bf16 - n[1],
+            fa.launches_bwd_dkv_bf16 - n[2]) == (4 * L, 4 * L, 4 * L)

@@ -1,7 +1,8 @@
-"""The launch plans of the port's int8 matmul and flash forward kernels.
+"""The launch plans of the port's int8 matmul and flash kernels.
 
 Pure Python: a plan holds the decisions the CUDA entry points are handed
-(the int8 tile, split of K and ring depth; the flash q tile height), so
+(the int8 tile, split of K and ring depth; the flash forward's q tile
+height; the flash backward's rows a dq and a dk/dv block own), so
 these tests hold them on the CPU, where no kernel runs, against the way the
 kernels walk them: the pieces of K each split covers, the grids, and the
 order of the q tiles. The shared memory each launch takes is the C entry's
@@ -9,6 +10,7 @@ own and is held to the card's limit by ``tests/test_torch_cuda.py``.
 """
 
 import pytest
+import torch
 
 from tpuflow_torch.ops import flash_attention as fa
 from tpuflow_torch.ops import int8_matmul as im
@@ -113,3 +115,75 @@ def test_flash_plan_smaller_q_tile_for_small_grids(sms):
     assert fa._flash_bq(1, 12, 512, sms) == 32
     assert 12 * (512 // 32) >= sms
     assert fa._flash_bq(8, 12, 1024, sms) == 64
+
+
+# The backward's shapes: the main paths' (prefill 1 x 512 and 1 x 1024,
+# training 8 x 1024) and ragged ones, Tq != Tk included.
+BWD_SHAPES = [(1, 512, 512), (1, 1024, 1024), (8, 1024, 1024), (1, 1, 1),
+              (2, 63, 63), (2, 65, 65), (2, 200, 200), (2, 100, 37),
+              (2, 37, 100), (3, 1000, 1000)]
+
+
+def _bwd_tiles(T, rows, reverse):
+    """The tiles of ``rows`` rows a backward grid runs, in launch order."""
+    n = -(-T // rows)
+    return [n - 1 - y if reverse else y for y in range(n)], n
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("B,Tq,Tk", BWD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_plan_covers_every_row_and_key_once(B, Tq, Tk, D, dtype,
+                                                      causal, sms):
+    """The dq grid (q tiles in reverse under the causal mask) covers every
+    q row once, the dk/dv grid (key tiles ascending) every key once, both
+    within the card's grid limits, and under the causal mask each runs its
+    longest tiles first: a dq tile walks the keys up to its last row, a
+    dk/dv tile the q rows from its first key on."""
+    H = 12
+    plan = fa._flash_bwd_plan(B, H, Tq, Tk, D, getattr(torch, dtype), sms)
+    assert set(plan) == {"dq_rows", "dkv_rows"}
+    for key, T, reverse in (("dq_rows", Tq, causal), ("dkv_rows", Tk, False)):
+        rows = plan[key]
+        assert rows in ((32, 64, 128) if dtype == "float32" and D <= 64
+                        else (32, 64))
+        order, n = _bwd_tiles(T, rows, reverse)
+        covered = [t * rows + r for t in order for r in range(rows)]
+        assert sorted(r for r in covered if r < T) == list(range(T))
+        assert len(covered) - T < rows
+        assert all(1 <= g <= lim for g, lim in zip((B * H, n, 1), GRID_MAX))
+        if causal and key == "dq_rows":
+            walks = [min(Tk, (t + 1) * rows) for t in order]
+            assert walks == sorted(walks, reverse=True)
+        if causal and key == "dkv_rows":
+            walks = [max(0, Tq - t * rows) for t in order]
+            assert walks == sorted(walks, reverse=True)
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_plan_fills_the_card(dtype, sms):
+    """Every SM gets a block at the main paths' shapes: 1 x 512 x 12 heads
+    (96 blocks of 64 rows) takes 32 rows (192 blocks), 1 x 1024 takes 64
+    (192 blocks), and the training shape, 8 x 1024, the tallest tile: 128
+    rows in f32 (768 blocks of 8 warps), 64 in bf16."""
+    def plan(B, T):
+        return fa._flash_bwd_plan(B, 12, T, T, 64, dtype, sms)
+
+    assert plan(1, 512) == {"dq_rows": 32, "dkv_rows": 32}
+    assert plan(1, 1024) == {"dq_rows": 64, "dkv_rows": 64}
+    tall = 128 if dtype == torch.float32 else 64
+    assert plan(8, 1024) == {"dq_rows": tall, "dkv_rows": tall}
+    for B, T in ((1, 512), (1, 1024), (8, 1024)):
+        rows = plan(B, T)["dq_rows"]
+        assert B * 12 * -(-T // rows) >= sms
+
+
+def test_flash_bwd_plan_is_pure():
+    args = (8, 12, 1024, 1024, 64, torch.bfloat16, 132)
+    assert fa._flash_bwd_plan(*args) == fa._flash_bwd_plan(*args)
+    # f32 at D = 128: 128 rows would not fit a block's shared memory.
+    assert fa._flash_bwd_plan(8, 12, 1024, 1024, 128, torch.float32,
+                              132) == {"dq_rows": 64, "dkv_rows": 64}

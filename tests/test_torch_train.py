@@ -30,6 +30,9 @@ import pytest
 import torch
 
 from torch_parity import jax_and_port_gpt2
+from tpuflow.models.gpt2 import GPT2 as JGPT2
+from tpuflow.models.gpt2 import GPT2Config as JConfig
+from tpuflow.models.losses import cross_entropy_loss as j_cross_entropy_loss
 from tpuflow.train import gpt as jgpt
 from tpuflow.train.optim import make_optimizer as j_make_optimizer
 from tpuflow.train.step import TrainState as JTrainState
@@ -284,8 +287,6 @@ def test_train_gpt_matches_jax_train_gpt(tmp_path, monkeypatch):
         str(tmp_path / "ckpt"), log=lambda m: None,
     )
     jcfg = jgpt.GptTrainConfig(**kw).model_config()
-    from tpuflow.models.gpt2 import GPT2 as JGPT2
-
     init = JGPT2(jcfg).init(jax.random.PRNGKey(0),
                             jnp.zeros((1, 8), jnp.int32))["params"]
 
@@ -305,3 +306,44 @@ def test_train_gpt_matches_jax_train_gpt(tmp_path, monkeypatch):
         [r["val_loss"] for r in tres.metrics_history],
         [r["val_loss"] for r in jres.metrics_history], atol=1e-4, rtol=0,
     )
+
+
+def test_bf16_flash_step_matches_jax():
+    """One bf16 forward+backward of a 2-layer GPT-2 with flash attention,
+    from the same weights and batch: the port's kernels' plain versions
+    against the JAX Pallas kernels in interpret mode (the path
+    ``GptTrainConfig(dtype="bfloat16")`` trains on). Every activation and
+    product rounds to bf16 on both sides, at other places in the two
+    frameworks (XLA fuses and rounds its own way), so the limits are
+    bf16-scale, about twice to ten times the readings (loss 1e-4 apart,
+    the worst gradient, a bias of the MLP, 2.9e-2 of its max |g|): loss
+    atol 1e-3, every gradient tensor within 5e-2 of its own max |g|."""
+    kw = dict(n_ctx=64, dropout=0.0, attn_impl="flash")
+    jm = JGPT2(JConfig.small_test(dtype=jnp.bfloat16, **kw))
+    params = jax.jit(jm.init)(jax.random.PRNGKey(0),
+                              jnp.zeros((1, 8), jnp.int32))["params"]
+    tm = GPT2(GPT2Config.small_test(dtype=torch.bfloat16, **kw),
+              device="cpu")
+    tm.load_state_dict(params_from_jax(jax.device_get(params)))
+    b = _batches(1)[0]
+
+    def jloss(p):
+        logits = jm.apply({"params": p}, jnp.asarray(b["x"]), train=True,
+                          rngs={"dropout": jax.random.PRNGKey(1)})
+        return j_cross_entropy_loss(logits, jnp.asarray(b["y"]))
+
+    jl, jg = jax.value_and_grad(jloss)(params)
+    n = (tfa.launches_bwd_dq_bf16, tfa.launches_bwd_dkv_bf16)
+    tl = cross_entropy_loss(tm(torch.from_numpy(b["x"]), train=True, rng=1),
+                            torch.from_numpy(b["y"]))
+    tl.backward()
+    # The CPU takes the plain versions: no kernel launch is counted.
+    assert (tfa.launches_bwd_dq_bf16, tfa.launches_bwd_dkv_bf16) == n
+    np.testing.assert_allclose(tl.item(), float(jl), atol=1e-3, rtol=0)
+    want = params_from_jax(jax.device_get(jg))
+    worst = 0.0
+    for name, p in tm.named_parameters():
+        g, w = p.grad.float(), want[name].float()
+        assert torch.isfinite(g).all(), name
+        worst = max(worst, float((g - w).abs().max() / w.abs().max()))
+    assert worst <= 5e-2

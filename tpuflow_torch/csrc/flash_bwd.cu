@@ -12,34 +12,75 @@
 //   P  = exp(S - lse),  S = (Q K^T) * 1/sqrt(D), causal mask value -1e30,
 //   dP = dO V^T,  D = rowsum(dO o O),  dS = P o (dP - D) * 1/sqrt(D),
 //   dQ = dS K,  dK = dS^T Q,  dV = P^T dO.
-// For bf16 inputs P is rounded to dO's dtype before P^T dO and dS to the
-// input dtype before dS K and dS^T Q, as the TPU kernels cast them; every
-// product sums in f32 and the gradients are written in the input dtype.
+// S and dP are input-dtype products summed in f32. For bf16 inputs P is
+// rounded to dO's dtype before P^T dO and dS to the input dtype before
+// dS K and dS^T Q, as the TPU kernels cast them; the gradients are written
+// in the input dtype.
 //
 // What bounds it on the H100: at the training shape (B*H = 96, T = 1024,
-// D = 64) each pair does five causal T x T x D products (S and dP twice,
-// once per kernel, then dQ, dK, dV) against ~10 (B*H, T, D) arrays of
-// traffic, so it is bound by operations. This first version runs the
-// products on the f32 CUDA cores, not the tensor cores.
+// D = 64) each pair does five causal T x T x D products (S and dP in both
+// kernels, then dQ, dK, dV) against ~10 (B*H, T, D) arrays of traffic: it
+// is bound by operations, on the tensor cores for bf16 and on the f32 CUDA
+// cores for f32 (no TF32: the f32 contract is IEEE products).
 //
-// Design. The TPU walks a sequential grid axis and carries dq (or dk, dv)
-// in scratch across it; here each block owns one output tile and loops:
-// - dq kernel: one block per (64-row q tile, batch*head). It loops over the
-//   k tiles up to the causal bound (the TPU kernel's block skip becomes the
-//   loop bound), accumulating dq in registers. Fused: D is computed once
-//   for the tile's rows and written to a compact (B*H, Tq) f32 delta array.
-//   Split: O stays in shared memory and D is recomputed on every k tile.
-// - dk/dv kernel: one block per (64-row k tile, batch*head). It loops over
-//   the q tiles from the causal start, accumulating dk and dv in registers.
-//   Fused: it reads q, dO, lse and delta (never O). Split: it reads q, dO,
-//   lse and O, and recomputes D on every q tile.
-// The split kernels are the fused kernels' code with the SPLIT template
-// flag set: D comes from one helper (row_delta) at all three sites and P
-// and dS from another (p_and_ds), so the two pairs give the same bits.
-// Each output tile has one owner and no atomics are used, so the result is
-// deterministic: two runs give the same bits. Ragged T is masked in the
-// kernels (p = 0 for rows or keys past the sequence, zero-filled tiles).
-// Tensor cores (mma.sync / wgmma) and TMA are later work.
+// Grid. The TPU walks a sequential grid axis and carries dq (or dk, dv) in
+// scratch across it; here each block owns one output tile and loops:
+// - dq: a block per (batch*head, q tile of `rows` rows), the q tiles in
+//   reverse under the causal mask (the longest run first). It streams the
+//   64-key tiles (32 for bf16 at D = 128) up to the causal bound.
+// - dk/dv: a block per (batch*head, key tile of `rows` rows), the key tiles
+//   ascending (key tile 0 sees every q row: the longest first). It streams
+//   the 64-row q tiles (32 for bf16 at D = 128) from the causal start, with
+//   their lse and D rows (fused) or their O tile (split).
+// `rows` is the launch plan's (ops/flash_attention.py::_flash_bwd_plan):
+// 32 or 64 (bf16: 16 a warp), or 128 (f32 at D <= 64: 8 a lane pair, 8
+// warps); the C entries derive grid and shared memory from it and refuse
+// other values.
+// The streamed tiles come by 16-byte cp.async (4-byte for the lse and D
+// rows) into a two-stage ring: the next tile loads while this one
+// computes, one barrier per tile (split dk/dv adds one after it computes
+// the tile's D). Ragged Tq, Tk and Tq != Tk are masked in the kernels;
+// rows or strides that are not 16-byte aligned are staged by plain loads.
+//
+// bf16 (bwd_dq_mma, bwd_dkv_mma): FlashAttention-2 on mma.sync m16n8k16
+// bf16 -> f32, each warp owning 16 rows of the block's tile.
+// - dq: Q and dO are A fragments in registers for the whole key loop;
+//   S = Q K^T and dP = dO V^T take K and V by ldmatrix.x4; P and dS are
+//   computed on the accumulator fragments, and dS, rounded to bf16 in
+//   registers, is the A operand of dQ += dS K with K by ldmatrix.x4.trans.
+// - dk/dv: K and V are A fragments; S^T = K Q^T and dP^T = V dO^T take Q
+//   and dO by ldmatrix.x4; P^T and dS^T, rounded to bf16 in registers, are
+//   the A operands of dV += P^T dO and dK += dS^T Q, dO and Q by .trans. A
+//   lane's lse and D columns come from the stage's rows in shared memory.
+// No S, P or dS tile goes through shared memory. At D = 128 the A
+// fragments are read from shared memory per use instead of held, and the
+// streamed tiles are 32 rows, to stay within 255 registers.
+//
+// f32 (bwd_dq_fma, bwd_dkv_fma): IEEE f32 FMAs on the CUDA cores, the
+// forward's tiling: a pair of lanes per 8 rows x 8 columns of S and dP,
+// each lane over one half of d (halves added by a shuffle), rows
+// interleaved and columns strided by 8 so that float4 reads hit distinct
+// banks. Every word a product loop loads from shared memory feeds 8 FMAs.
+// P and dS go through a warp-private buffer (a __syncwarp, no block
+// barrier; dk/dv writes dS^T over P^T once dV has taken it) to the
+// products that take them, where each lane of a pair takes one half of the
+// reduction for 8 rows x D/8 columns and the halves are added at the end.
+// The f32 blocks are shared-memory bound to one an SM (~177 KB at 128
+// rows), so the plan gives them 8 warps where the grid allows; a lane sits
+// at ~254 registers.
+//
+// Bits. Split = fused: the split kernels are the fused kernels' code with
+// the SPLIT flag set; D comes from one helper (pair_delta, a fixed order)
+// at all three sites, P and dS from two others (prob, dscore) of _rn
+// intrinsics never contracted into FMAs, so both pairs give the same bits.
+// A dq block visits its q tile once, so split dq computes D once as fused
+// dq does, without writing it; split dk/dv recomputes it for every q tile
+// from the O tile it streams. Each output tile has one owner and no
+// atomics are used: two runs give the same bits. The bits do not depend on
+// the plan: the streamed tiles are anchored at row 0 and their height is
+// fixed by dtype and D, every output element sums its products in the
+// same order whatever `rows` is, and tiles that are wholly masked (skipped
+// per block or per warp) add exact zeros.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -47,48 +88,140 @@
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int THREADS = 128;
+constexpr int STAGES = 2;  // ring depth of the streamed tiles
+constexpr int FBK = 64;    // f32: keys (dq) or q rows (dk/dv) a tile
+constexpr int FPS = FBK + 8;  // f32: P / dS buffer row stride (banks)
 constexpr float NEG_INF = -1e30f;
 
+using bf16 = __nv_bfloat16;
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
 }
-// A value rounded to the input dtype before a product (identity for f32).
-__device__ __forceinline__ float round_to(float x, float*) { return x; }
-__device__ __forceinline__ float round_to(float x, __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// D = rowsum(dO o O) of one row in f32, d ascending, one FMA per element.
-// Every kernel that computes D calls this, so the fused value (computed
-// once, stored in f32) and the split value (recomputed per visit) are the
-// same bits.
-template <int D>
-__device__ __forceinline__ float row_delta(const float* g, const float* o) {
+// rows x D elements of (seq-strided) global memory, rows t0.., into shared
+// memory with row stride RS elements; rows >= T_len are zero.
+template <typename T, int D, int RS>
+__device__ __forceinline__ void load_rows(T* dst, const T* src,
+                                          long long st, int t0, int T_len,
+                                          int rows, bool aligned) {
+  constexpr int E = 16 / sizeof(T);  // elements per 16-byte chunk
+  constexpr int CPR = D / E;
+  for (int i = threadIdx.x; i < rows * CPR; i += blockDim.x) {
+    const int r = i / CPR, ch = i % CPR, t = t0 + r;
+    T* d = dst + r * RS + ch * E;
+    const bool ok = t < T_len;
+    if (aligned) {
+      cp_async16(d, ok ? src + t * st + ch * E : src, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        d[e] = ok ? src[t * st + ch * E + e] : T(0.f);
+    }
+  }
+}
+
+// n f32 entries of a (B*H, Tq) row array from row t0 on (0 past Tq).
+__device__ __forceinline__ void load_row_vals(float* dst, const float* src,
+                                              int t0, int T_len, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const bool ok = t0 + i < T_len;
+    cp_async4(dst + i, ok ? src + t0 + i : src, ok ? 4 : 0);
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// D = rowsum(dO o O) of one row in f32 by a pair of adjacent lanes (lane
+// bit 0 = `half`): each sums its half of d in ascending order, one FMA per
+// element, and both return lower + upper (a + b == b + a). Every kernel
+// that computes D calls this, so the fused value (computed once, stored in
+// f32) and the split value (recomputed per visit) are the same bits. All
+// 32 lanes of the warp must call it. VEC: both rows are 16-byte aligned
+// (shared-memory tiles) and are read 16 bytes at a time; the FMAs are the
+// same.
+template <int D, bool VEC = true, typename T>
+__device__ __forceinline__ float pair_delta(const T* g, const T* o,
+                                            int half) {
+  constexpr int E = VEC ? 16 / sizeof(T) : 1;  // elements a load
   float s = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) s = fmaf(g[d], o[d], s);
-  return s;
+  const int d0 = half * (D / 2);
+#pragma unroll
+  for (int d = d0; d < d0 + D / 2; d += E) {
+    alignas(16) T gv[E];
+    alignas(16) T ov[E];
+    if constexpr (VEC) {
+      *reinterpret_cast<uint4*>(gv) = *reinterpret_cast<const uint4*>(g + d);
+      *reinterpret_cast<uint4*>(ov) = *reinterpret_cast<const uint4*>(o + d);
+    } else {
+      gv[0] = g[d];
+      ov[0] = o[d];
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) s = fmaf(to_f32(gv[e]), to_f32(ov[e]), s);
+  }
+  const float other = __shfl_xor_sync(0xffffffffu, s, 1);
+  return half == 0 ? s + other : other + s;
 }
 
-// P = exp(S * scale - lse) (0 where masked or out of range) and
-// dS = P (dP - D) scale, each operation rounded on its own (the _rn
+// P = exp(S * scale - lse), 0 where out of range; S masked to -1e30.
+// dS = P (dP - D) scale. Each operation rounded on its own (the _rn
 // intrinsics are never contracted into an FMA), so every kernel gets the
 // same bits from the same inputs.
-__device__ __forceinline__ void p_and_ds(float s, float dp, float lse,
-                                         float delta, float scale,
-                                         bool masked, bool in_range,
-                                         float* p, float* ds) {
-  float x = masked ? NEG_INF : __fmul_rn(s, scale);
-  *p = in_range ? expf(__fsub_rn(x, lse)) : 0.f;
-  *ds = __fmul_rn(__fmul_rn(*p, __fsub_rn(dp, delta)), scale);
+__device__ __forceinline__ float prob(float s, float lse, float scale,
+                                      bool masked, bool in_range) {
+  const float x = masked ? NEG_INF : __fmul_rn(s, scale);
+  return in_range ? expf(__fsub_rn(x, lse)) : 0.f;
+}
+__device__ __forceinline__ float dscore(float p, float dp, float delta,
+                                        float scale) {
+  return __fmul_rn(__fmul_rn(p, __fsub_rn(dp, delta)), scale);
 }
 
 // Element strides over (batch, seq, head) of one (B, T, H, D) tensor with
@@ -97,484 +230,871 @@ struct Strides {
   long long b, t, h;
 };
 
-// Strides of q, k, v, O and dO (O unused by the fused dk/dv kernel).
-struct BwdStrides {
-  Strides q, k, v, o, g;
+struct Args {
+  const void *q, *k, *v, *o, *g;  // o: dq kernels and split dk/dv only
+  const float* lse;               // (B*H, Tq)
+  const float* delta_in;          // fused dk/dv: (B*H, Tq)
+  float* delta_out;               // fused dq: (B*H, Tq)
+  void *dq, *dk, *dv;             // contiguous (B, T, H, D)
+  int H, Tq, Tk, causal, aligned;
+  float scale;
+  Strides sq, sk, sv, so, sg;
 };
 
+template <typename T>
+__device__ __forceinline__ const T* head(const void* p, const Strides& s,
+                                         int b, int h) {
+  return (const T*)p + b * s.b + h * s.h;
+}
+
+// bf16 tile heights: keys a dq tile, q rows a dk/dv tile.
+__host__ __device__ constexpr int mma_tile(int D) { return D == 128 ? 32 : 64; }
+
+// Whether the split dk/dv ring stages O: all but f32 at D = 128, whose
+// stage would not fit the block's shared memory twice; that kernel reads
+// O's rows from global memory when it computes D.
 template <typename T, int D, bool SPLIT>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ g, const float* __restrict__ lse,
-                    T* __restrict__ dq, float* __restrict__ delta, int H,
-                    int Tq, int Tk, int causal, float scale, BwdStrides st) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                    // [BQ][D]
-  float* Gs = Qs + BQ * D;             // [BQ][D]      dO
-  float* Ks = Gs + BQ * D;             // [BK][D + 1]  (fused: O before the loop)
-  float* Vs = Ks + BK * (D + 1);       // [BK][D + 1]
-  float* dS = Vs + BK * (D + 1);       // [BQ][BK + 1]
-  float* lse_s = dS + BQ * (BK + 1);   // [BQ]
-  float* dl_s = lse_s + BQ;            // [BQ] row delta D
-  // O for the whole loop (split), or the k buffer until the loop (fused).
-  float* Os = SPLIT ? dl_s + BQ : Ks;  // [BQ][D + 1]
+__host__ __device__ constexpr bool o_staged() {
+  return SPLIT && (sizeof(T) == 2 || D < 128);
+}
 
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BQ;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const T* qb = q + b * st.q.b + h * st.q.h;
-  const T* kb = k + b * st.k.b + h * st.k.h;
-  const T* vb = v + b * st.v.b + h * st.v.h;
-  const T* ob = o + b * st.o.b + h * st.o.h;
-  const T* gb = g + b * st.g.b + h * st.g.h;
+// One streamed q tile of the dk/dv kernels: Q, dO, O (if staged), lse, D.
+template <typename T>
+struct QStage {
+  T *q, *g, *o;
+  float *lse, *dl;
+};
+template <typename T>
+__host__ __device__ constexpr int qstage_bytes(int BQ, int RS, bool ost) {
+  return (int)sizeof(T) * (ost ? 3 : 2) * BQ * RS + 8 * BQ;
+}
+template <typename T, bool OST>
+__device__ __forceinline__ QStage<T> qstage(uint8_t* base, int BQ, int RS) {
+  QStage<T> s;
+  s.q = reinterpret_cast<T*>(base);
+  s.g = s.q + BQ * RS;
+  s.o = s.g + BQ * RS;
+  s.lse = reinterpret_cast<float*>(s.g + (OST ? 2 : 1) * BQ * RS);
+  s.dl = s.lse + BQ;
+  return s;
+}
+template <typename T, int D, int RS, bool SPLIT, bool OST>
+__device__ __forceinline__ void load_qstage(const QStage<T>& s, const Args& a,
+                                            const T* qb, const T* gb,
+                                            const T* ob, int bh, int q0,
+                                            int BQ) {
+  load_rows<T, D, RS>(s.q, qb, a.sq.t, q0, a.Tq, BQ, a.aligned);
+  load_rows<T, D, RS>(s.g, gb, a.sg.t, q0, a.Tq, BQ, a.aligned);
+  if (OST) load_rows<T, D, RS>(s.o, ob, a.so.t, q0, a.Tq, BQ, a.aligned);
+  const long long r0 = (long long)bh * a.Tq;
+  load_row_vals(s.lse, a.lse + r0, q0, a.Tq, BQ);
+  if (!SPLIT) load_row_vals(s.dl, a.delta_in + r0, q0, a.Tq, BQ);
+}
 
-  // q, dO and O for this tile.
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    int r = i / D, d = i % D;
-    int t = q0 + r;
-    bool ok = t < Tq;
-    Qs[i] = ok ? to_f32(qb[t * st.q.t + d]) : 0.f;
-    Gs[i] = ok ? to_f32(gb[t * st.g.t + d]) : 0.f;
-    Os[r * (D + 1) + d] = ok ? to_f32(ob[t * st.o.t + d]) : 0.f;
+// Split dk/dv: the stage's D rows from its dO tile and O (the staged tile,
+// or else O's rows in global memory; a row past Tq takes its zero dO row
+// in O's place), two lanes a row; a warp takes whole rows or none.
+template <int D, bool OST, typename T>
+__device__ __forceinline__ void stage_delta(const QStage<T>& s, int BQ,
+                                            int RS, const T* ob,
+                                            long long ost, int q0, int Tq) {
+  for (int r = threadIdx.x >> 1; r < BQ; r += blockDim.x >> 1) {
+    const T* g = s.g + r * RS;
+    const T* o = OST ? s.o + r * RS : q0 + r < Tq ? ob + (q0 + r) * ost : g;
+    const float d = pair_delta<D, OST>(g, o, threadIdx.x & 1);
+    if ((threadIdx.x & 1) == 0) s.dl[r] = d;
   }
+}
+
+// ----------------------------------------------------------- bf16, dq
+template <int D, bool SPLIT>
+__global__ void __launch_bounds__(128)
+bwd_dq_mma(const Args a) {
+  constexpr int RS = D + 8;  // +16 bytes a row: ldmatrix rows hit all banks
+  constexpr int BK = mma_tile(D);
+  constexpr bool AREG = D <= 64;  // Q, dO fragments held in registers
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int BQ = blockDim.x / 2;  // 16 rows a warp
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Gs = Qs + BQ * RS;
+  bf16* ring = Gs + BQ * RS;  // [STAGES][K, V][BK][RS]
+  bf16* Os = ring + 2 * BK * RS;  // slot 1, free until tile 1 is loaded
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int qt = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ, w0 = warp * 16;
+  const bf16* kb = head<bf16>(a.k, a.sk, b, h);
+  const bf16* vb = head<bf16>(a.v, a.sv, b, h);
+  const bool al = a.aligned;
+
+  const int k_end = a.causal ? min(a.Tk, q0 + BQ) : a.Tk;
+  const int n_kt = (k_end + BK - 1) / BK;
+  load_rows<bf16, D, RS>(Qs, head<bf16>(a.q, a.sq, b, h), a.sq.t, q0, a.Tq,
+                         BQ, al);
+  load_rows<bf16, D, RS>(Gs, head<bf16>(a.g, a.sg, b, h), a.sg.t, q0, a.Tq,
+                         BQ, al);
+  load_rows<bf16, D, RS>(Os, head<bf16>(a.o, a.so, b, h), a.so.t, q0, a.Tq,
+                         BQ, al);
+  if (n_kt > 0) {
+    load_rows<bf16, D, RS>(ring, kb, a.sk.t, 0, a.Tk, BK, al);
+    load_rows<bf16, D, RS>(ring + BK * RS, vb, a.sv.t, 0, a.Tk, BK, al);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
   __syncthreads();
-  if (tid < BQ) {
-    int t = q0 + tid;
-    lse_s[tid] = t < Tq ? lse[(long long)bh * Tq + t] : 0.f;
-    if (!SPLIT) {
-      // Fused: D once per row, kept for the loop and written for dk/dv.
-      float s = row_delta<D>(Gs + tid * D, Os + tid * (D + 1));
-      dl_s[tid] = s;
-      if (t < Tq) delta[(long long)bh * Tq + t] = s;
+
+  // D of the warp's rows (two lanes a row), and of the lane's rows g, g+8.
+  const int drow = q0 + w0 + (lane >> 1);
+  const float dl = pair_delta<D>(Gs + (w0 + (lane >> 1)) * RS,
+                                 Os + (w0 + (lane >> 1)) * RS, lane & 1);
+  if (!SPLIT && (lane & 1) == 0 && drow < a.Tq)
+    a.delta_out[(long long)bh * a.Tq + drow] = dl;
+  float dr[2], lr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    dr[r] = __shfl_sync(0xffffffffu, dl, 2 * (g + 8 * r));
+    const int row = q0 + w0 + g + 8 * r;
+    lr[r] = row < a.Tq ? a.lse[(long long)bh * a.Tq + row] : 0.f;
+  }
+  uint32_t qf[AREG ? D / 16 : 1][4], gf[AREG ? D / 16 : 1][4];
+  if constexpr (AREG) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int off = (w0 + (lane & 15)) * RS + kk * 16 + (lane >> 4) * 8;
+      ldsm_x4(qf[kk], Qs + off);
+      ldsm_x4(gf[kk], Gs + off);
     }
   }
-
-  // Thread tile: rows ty*8 .. ty*8+7; score columns tx*4 .. tx*4+3 and
-  // dq columns tx + 16*j, j < D/16.
-  const int ty = tid / 16, tx = tid % 16;
-  constexpr int DJ = D / 16;
-  float acc[8][DJ];
+  float acc[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  const int row_last = q0 + w0 + 15;
 
-  // Causal: k tiles starting past this q tile's last row hold no key any
-  // row may see (the TPU kernel's ik*block_k <= iq*block_q + block_q - 1).
-  const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // O, or the previous tile's K / V / dS / D, consumed
-    for (int i = tid; i < BK * D; i += THREADS) {
-      int r = i / D, d = i % D;
-      int t = k0 + r;
-      bool ok = t < Tk;
-      Ks[r * (D + 1) + d] = ok ? to_f32(kb[t * st.k.t + d]) : 0.f;
-      Vs[r * (D + 1) + d] = ok ? to_f32(vb[t * st.v.t + d]) : 0.f;
+  for (int j = 0; j < n_kt; ++j) {
+    cp_async_wait_all();  // tile j has landed
+    __syncthreads();      // ... for every thread; slot (j+1)%2 is free
+    if (j + 1 < n_kt) {
+      bf16* nx = ring + ((j + 1) % STAGES) * 2 * BK * RS;
+      load_rows<bf16, D, RS>(nx, kb, a.sk.t, (j + 1) * BK, a.Tk, BK, al);
+      load_rows<bf16, D, RS>(nx + BK * RS, vb, a.sv.t, (j + 1) * BK, a.Tk,
+                             BK, al);
     }
-    if (SPLIT && tid < BQ) {
-      // Split: D recomputed on every k-tile visit (the TPU's _row_delta).
-      dl_s[tid] = row_delta<D>(Gs + tid * D, Os + tid * (D + 1));
-    }
-    __syncthreads();
+    cp_async_commit();
+    const int k0 = j * BK;
+    if (a.causal && k0 > row_last) continue;  // adds exact zeros: skipped
+    const bf16* Kt = ring + (j % STAGES) * 2 * BK * RS;
+    const bf16* Vt = Kt + BK * RS;
 
-    // S = Q K^T and dP = dO V^T for the thread's 8 x 4 tile.
-    float s[8][4], dp[8][4];
+    float s[BK / 8][4], dp[BK / 8][4];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float kv[4], vv[4];
+      for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = Ks[(tx * 4 + j) * (D + 1) + d];
-        vv[j] = Vs[(tx * 4 + j) * (D + 1) + d];
-      }
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t aq[4], ag[4];
+      if constexpr (AREG) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float qv = Qs[(ty * 8 + i) * D + d];
-        float gv = Gs[(ty * 8 + i) * D + d];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv, kv[j], s[i][j]);
-          dp[i][j] = fmaf(gv, vv[j], dp[i][j]);
+        for (int e = 0; e < 4; ++e) {
+          aq[e] = qf[kk][e];
+          ag[e] = gf[kk][e];
         }
+      } else {
+        const int off = (w0 + (lane & 15)) * RS + kk * 16 + (lane >> 4) * 8;
+        ldsm_x4(aq, Qs + off);
+        ldsm_x4(ag, Gs + off);
+      }
+#pragma unroll
+      for (int np = 0; np < BK / 16; ++np) {
+        const int off = (16 * np + (lane & 7) + ((lane >> 4) << 3)) * RS +
+                        kk * 16 + ((lane >> 3) & 1) * 8;
+        uint32_t r[4];
+        ldsm_x4(r, Kt + off);
+        mma_bf16(s[2 * np], aq, r[0], r[1]);
+        mma_bf16(s[2 * np + 1], aq, r[2], r[3]);
+        ldsm_x4(r, Vt + off);
+        mma_bf16(dp[2 * np], ag, r[0], r[1]);
+        mma_bf16(dp[2 * np + 1], ag, r[2], r[3]);
       }
     }
-    // P and dS, dS rounded to k's dtype.
+    // Tiles wholly below the warp's diagonal and inside Tk need no mask.
+    const bool mask = (a.causal && k0 + BK - 1 > q0 + w0) || k0 + BK > a.Tk;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      int r = ty * 8 + i;
-      int qp = q0 + r;
+    for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        int kp = k0 + tx * 4 + j;
-        float p, ds;
-        p_and_ds(s[i][j], dp[i][j], lse_s[r], dl_s[r], scale,
-                 causal && qp < kp, qp < Tq && kp < Tk, &p, &ds);
-        dS[r * (BK + 1) + tx * 4 + j] = round_to(ds, (T*)nullptr);
+      for (int c = 0; c < 4; ++c) {
+        const int row = q0 + w0 + g + 8 * (c >> 1);
+        const int key = k0 + 8 * n + 2 * t + (c & 1);
+        const float p = prob(s[n][c], lr[c >> 1], a.scale,
+                             mask && a.causal && row < key,
+                             !mask || key < a.Tk);
+        s[n][c] = dscore(p, dp[n][c], dr[c >> 1], a.scale);
       }
-    }
-    __syncthreads();
-
-    // dq += dS K.
-    for (int kk = 0; kk < BK; ++kk) {
-      float kv[DJ];
+    // dQ += dS K: dS (bf16) as the A operand, K by ldmatrix.trans.
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) kv[j] = Ks[kk * (D + 1) + tx + 16 * j];
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float w = dS[(ty * 8 + i) * (BK + 1) + kk];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(w, kv[j], acc[i][j]);
+      for (int dd = 0; dd < D / 16; ++dd) {
+        uint32_t r[4];
+        ldsm_x4_t(r, Kt + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * RS +
+                         dd * 16 + (lane >> 4) * 8);
+        mma_bf16(acc[2 * dd], pa, r[0], r[1]);
+        mma_bf16(acc[2 * dd + 1], pa, r[2], r[3]);
       }
     }
   }
+  cp_async_wait_all();  // no copy outlives the block
 
-  // dq: contiguous (B, Tq, H, D) in the input dtype.
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    int t = q0 + ty * 8 + i;
-    if (t >= Tq) continue;
-    T* out = dq + (((long long)b * Tq + t) * H + h) * D;
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + w0 + g + 8 * r;
+    if (row >= a.Tq) continue;
+    bf16* out = (bf16*)a.dq + (((long long)b * a.Tq + row) * a.H + h) * D;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) store(out + tx + 16 * j, acc[i][j]);
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<uint32_t*>(out + 8 * i + 2 * t) =
+          pack_bf16(acc[i][2 * r], acc[i][2 * r + 1]);
   }
 }
 
-template <typename T, int D, bool SPLIT>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ o,
-                     const T* __restrict__ g, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int H, int Tq, int Tk, int causal,
-                     float scale, BwdStrides st) {
-  extern __shared__ float smem[];
-  float* Ks = smem;                    // [BK][D]
-  float* Vs = Ks + BK * D;             // [BK][D]
-  float* Qs = Vs + BK * D;             // [BQ][D + 1]
-  float* Gs = Qs + BQ * (D + 1);       // [BQ][D + 1]  dO
-  float* Pt = Gs + BQ * (D + 1);       // [BK][BQ + 1] P^T, dO's dtype
-  float* dSt = Pt + BK * (BQ + 1);     // [BK][BQ + 1] dS^T, q's dtype
-  float* lse_s = dSt + BK * (BQ + 1);  // [BQ]
-  float* dl_s = lse_s + BQ;            // [BQ]
-  // Split: the q tile's O, staged in the P^T / dS^T buffers until D is
-  // computed (they are written only after that).
-  float* Os = Pt;                      // [BQ][D + 1]
-  static_assert(BQ * (D + 1) <= 2 * BK * (BQ + 1), "O tile must fit");
+// -------------------------------------------------------- bf16, dk/dv
+template <int D, bool SPLIT>
+__global__ void __launch_bounds__(128)
+bwd_dkv_mma(const Args a) {
+  constexpr int RS = D + 8;
+  constexpr int BQ = mma_tile(D);
+  constexpr bool AREG = D <= 64;  // K, V fragments held in registers
+  constexpr bool OST = o_staged<bf16, D, SPLIT>();
+  constexpr int SB = qstage_bytes<bf16>(BQ, RS, OST);
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int BKV = blockDim.x / 2;  // 16 key rows a warp
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + BKV * RS;
+  uint8_t* ring = reinterpret_cast<uint8_t*>(Vs + BKV * RS);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int k0 = blockIdx.y * BKV, kw0 = k0 + warp * 16;
+  const bf16* qb = head<bf16>(a.q, a.sq, b, h);
+  const bf16* gb = head<bf16>(a.g, a.sg, b, h);
+  const bf16* ob = SPLIT ? head<bf16>(a.o, a.so, b, h) : nullptr;
 
-  const int tid = threadIdx.x;
-  const int k0 = blockIdx.x * BK;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const T* qb = q + b * st.q.b + h * st.q.h;
-  const T* kb = k + b * st.k.b + h * st.k.h;
-  const T* vb = v + b * st.v.b + h * st.v.h;
-  const T* ob = o + b * st.o.b + h * st.o.h;
-  const T* gb = g + b * st.g.b + h * st.g.h;
+  // Causal: a q tile whose last row precedes this key tile sees none of it.
+  const int q_begin = a.causal ? (k0 / BQ) * BQ : 0;
+  const int n_qt = a.Tq > q_begin ? (a.Tq - q_begin + BQ - 1) / BQ : 0;
+  load_rows<bf16, D, RS>(Ks, head<bf16>(a.k, a.sk, b, h), a.sk.t, k0, a.Tk,
+                         BKV, a.aligned);
+  load_rows<bf16, D, RS>(Vs, head<bf16>(a.v, a.sv, b, h), a.sv.t, k0, a.Tk,
+                         BKV, a.aligned);
+  if (n_qt > 0)
+    load_qstage<bf16, D, RS, SPLIT, OST>(qstage<bf16, OST>(ring, BQ, RS), a,
+                                         qb, gb, ob, bh, q_begin, BQ);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
 
-  for (int i = tid; i < BK * D; i += THREADS) {
-    int r = i / D, d = i % D;
-    int t = k0 + r;
-    bool ok = t < Tk;
-    Ks[i] = ok ? to_f32(kb[t * st.k.t + d]) : 0.f;
-    Vs[i] = ok ? to_f32(vb[t * st.v.t + d]) : 0.f;
+  uint32_t kf[AREG ? D / 16 : 1][4], vf[AREG ? D / 16 : 1][4];
+  if constexpr (AREG) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int off = (warp * 16 + (lane & 15)) * RS + kk * 16 + (lane >> 4) * 8;
+      ldsm_x4(kf[kk], Ks + off);
+      ldsm_x4(vf[kk], Vs + off);
+    }
   }
-
-  // Thread tile: key rows ty*8 .. ty*8+7; query columns tx*4 .. tx*4+3 of
-  // the transposed scores, and dk/dv columns tx + 16*j, j < D/16.
-  const int ty = tid / 16, tx = tid % 16;
-  constexpr int DJ = D / 16;
-  float ak[8][DJ], av[8][DJ];
+  float ak[D / 8][4], av[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < D / 8; ++i)
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) ak[i][j] = av[i][j] = 0.f;
+    for (int c = 0; c < 4; ++c) ak[i][c] = av[i][c] = 0.f;
 
-  // Causal: a q tile whose last row precedes this k tile sees none of it.
-  const int q_begin = causal ? (k0 / BQ) * BQ : 0;
-  for (int q0 = q_begin; q0 < Tq; q0 += BQ) {
-    __syncthreads();  // the previous tile's Q / dO / P^T / dS^T consumed
-    for (int i = tid; i < BQ * D; i += THREADS) {
-      int r = i / D, d = i % D;
-      int t = q0 + r;
-      bool ok = t < Tq;
-      Qs[r * (D + 1) + d] = ok ? to_f32(qb[t * st.q.t + d]) : 0.f;
-      Gs[r * (D + 1) + d] = ok ? to_f32(gb[t * st.g.t + d]) : 0.f;
-      if (SPLIT) Os[r * (D + 1) + d] = ok ? to_f32(ob[t * st.o.t + d]) : 0.f;
-    }
-    if (tid < BQ) {
-      int t = q0 + tid;
-      bool ok = t < Tq;
-      lse_s[tid] = ok ? lse[(long long)bh * Tq + t] : 0.f;
-      if (!SPLIT) dl_s[tid] = ok ? delta[(long long)bh * Tq + t] : 0.f;
-    }
-    __syncthreads();
+  for (int j = 0; j < n_qt; ++j) {
+    cp_async_wait_all();  // tile j has landed
+    __syncthreads();      // ... for every thread; slot (j+1)%2 is free
+    if (j + 1 < n_qt)
+      load_qstage<bf16, D, RS, SPLIT, OST>(
+          qstage<bf16, OST>(ring + ((j + 1) % STAGES) * SB, BQ, RS), a, qb,
+          gb, ob, bh, q_begin + (j + 1) * BQ, BQ);
+    cp_async_commit();
+    const int q0 = q_begin + j * BQ;
+    const QStage<bf16> st = qstage<bf16, OST>(ring + (j % STAGES) * SB, BQ, RS);
     if (SPLIT) {
-      // Split: D recomputed on every q-tile visit from O and dO.
-      if (tid < BQ)
-        dl_s[tid] = row_delta<D>(Gs + tid * (D + 1), Os + tid * (D + 1));
-      __syncthreads();  // D written, O read: P^T / dS^T may be overwritten
+      stage_delta<D, OST>(st, BQ, RS, ob, a.so.t, q0, a.Tq);
+      __syncthreads();  // the tile's D rows are written
     }
+    // All of the tile's rows before the warp's first key, or no key of the
+    // warp inside Tk: exact zeros, skipped.
+    if ((a.causal && q0 + BQ - 1 < kw0) || kw0 >= a.Tk) continue;
 
-    // S^T = K Q^T and dP^T = V dO^T for the thread's 8 x 4 tile.
-    float s[8][4], dp[8][4];
+    float s[BQ / 8][4], dp[BQ / 8][4];
+#pragma unroll
+    for (int n = 0; n < BQ / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t ak_[4], av_[4];
+      if constexpr (AREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ak_[e] = kf[kk][e];
+          av_[e] = vf[kk][e];
+        }
+      } else {
+        const int off = (warp * 16 + (lane & 15)) * RS + kk * 16 + (lane >> 4) * 8;
+        ldsm_x4(ak_, Ks + off);
+        ldsm_x4(av_, Vs + off);
+      }
+#pragma unroll
+      for (int np = 0; np < BQ / 16; ++np) {
+        const int off = (16 * np + (lane & 7) + ((lane >> 4) << 3)) * RS +
+                        kk * 16 + ((lane >> 3) & 1) * 8;
+        uint32_t r[4];
+        ldsm_x4(r, st.q + off);
+        mma_bf16(s[2 * np], ak_, r[0], r[1]);
+        mma_bf16(s[2 * np + 1], ak_, r[2], r[3]);
+        ldsm_x4(r, st.g + off);
+        mma_bf16(dp[2 * np], av_, r[0], r[1]);
+        mma_bf16(dp[2 * np + 1], av_, r[2], r[3]);
+      }
+    }
+    // P^T into s, dS^T into dp. Tiles wholly at or below the diagonal for
+    // every key of the warp and inside Tq and Tk need no mask.
+    const bool mask = (a.causal && q0 < kw0 + 15) || q0 + BQ > a.Tq ||
+                      kw0 + 16 > a.Tk;
+#pragma unroll
+    for (int n = 0; n < BQ / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int key = kw0 + g + 8 * (c >> 1);
+        const int col = 8 * n + 2 * t + (c & 1), row = q0 + col;
+        const float p = prob(s[n][c], st.lse[col], a.scale,
+                             mask && a.causal && row < key,
+                             !mask || (row < a.Tq && key < a.Tk));
+        s[n][c] = p;
+        dp[n][c] = dscore(p, dp[n][c], st.dl[col], a.scale);
+      }
+    // dV += P^T dO and dK += dS^T Q: P^T, dS^T (bf16) as the A operands,
+    // dO and Q by ldmatrix.trans.
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      uint32_t pa[4], sa[4];
+      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      sa[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
+      sa[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
+      sa[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+      sa[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+#pragma unroll
+      for (int dd = 0; dd < D / 16; ++dd) {
+        const int off = (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * RS +
+                        dd * 16 + (lane >> 4) * 8;
+        uint32_t r[4];
+        ldsm_x4_t(r, st.g + off);
+        mma_bf16(av[2 * dd], pa, r[0], r[1]);
+        mma_bf16(av[2 * dd + 1], pa, r[2], r[3]);
+        ldsm_x4_t(r, st.q + off);
+        mma_bf16(ak[2 * dd], sa, r[0], r[1]);
+        mma_bf16(ak[2 * dd + 1], sa, r[2], r[3]);
+      }
+    }
+  }
+  cp_async_wait_all();  // no copy outlives the block
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = kw0 + g + 8 * r;
+    if (key >= a.Tk) continue;
+    const long long off = (((long long)b * a.Tk + key) * a.H + h) * D;
+    bf16* ok = (bf16*)a.dk + off;
+    bf16* ov = (bf16*)a.dv + off;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      *reinterpret_cast<uint32_t*>(ok + 8 * i + 2 * t) =
+          pack_bf16(ak[i][2 * r], ak[i][2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(ov + 8 * i + 2 * t) =
+          pack_bf16(av[i][2 * r], av[i][2 * r + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- f32
+// s[i][c] = A[ty + R*i] . B[tx + 8c] over d: each lane of a pair sums its
+// half of d in ascending order (four FMAs a float4), then the halves are
+// added, lower + upper (both lanes get the same bits). Each float4 loaded
+// feeds 8 x 4 FMAs. Every lane of the warp must call it.
+template <int D, int RS>
+__device__ __forceinline__ void pair_dots(float (&s)[8][8], const float* A,
+                                          const float* B, int ty, int R,
+                                          int tx, int hf) {
+  constexpr int DH = D / 2;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) s[i][c] = 0.f;
+#pragma unroll 2
+  for (int d = hf * DH; d < hf * DH + DH; d += 4) {
+    float4 av[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
+      av[i] = *reinterpret_cast<const float4*>(A + (ty + R * i) * RS + d);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[4], gv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qv[j] = Qs[(tx * 4 + j) * (D + 1) + d];
-        gv[j] = Gs[(tx * 4 + j) * (D + 1) + d];
-      }
+    for (int c = 0; c < 8; ++c) {
+      const float4 bv =
+          *reinterpret_cast<const float4*>(B + (tx + 8 * c) * RS + d);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        float kv = Ks[(ty * 8 + i) * D + d];
-        float vv = Vs[(ty * 8 + i) * D + d];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[j], kv, s[i][j]);
-          dp[i][j] = fmaf(gv[j], vv, dp[i][j]);
-        }
+        float x = fmaf(av[i].x, bv.x, s[i][c]);
+        x = fmaf(av[i].y, bv.y, x);
+        x = fmaf(av[i].z, bv.z, x);
+        s[i][c] = fmaf(av[i].w, bv.w, x);
       }
     }
+  }
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      int kp = k0 + ty * 8 + i;
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        int c = tx * 4 + j;
-        int qp = q0 + c;
-        float p, ds;
-        p_and_ds(s[i][j], dp[i][j], lse_s[c], dl_s[c], scale,
-                 causal && qp < kp, qp < Tq && kp < Tk, &p, &ds);
-        Pt[(ty * 8 + i) * (BQ + 1) + c] = round_to(p, (T*)nullptr);
-        dSt[(ty * 8 + i) * (BQ + 1) + c] = round_to(ds, (T*)nullptr);
-      }
-    }
-    __syncthreads();
+    for (int c = 0; c < 8; ++c)
+      s[i][c] += __shfl_xor_sync(0xffffffffu, s[i][c], 8);
+}
 
-    // dv += P^T dO, dk += dS^T Q.
-    for (int c = 0; c < BQ; ++c) {
-      float gv[DJ], qv[DJ];
+// acc[i][.] += sum over the 32 rows u of this lane's half (32hf ..) of a
+// 64-wide tile, in order, of W[ty + R*i][u] X[u][4tx + 32qc .. +3]: W a
+// warp-private P / dS buffer, X a tile in shared memory. Each word loaded
+// feeds 8 FMAs.
+template <int D, int RS>
+__device__ __forceinline__ void half_products(float (&acc)[8][D / 8],
+                                              const float* W, const float* X,
+                                              int ty, int R, int tx, int hf) {
+  constexpr int NC = D / 32;
+#pragma unroll 2
+  for (int u0 = 32 * hf; u0 < 32 * hf + 32; u0 += 4) {
+    float4 wv[8];
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        gv[j] = Gs[c * (D + 1) + tx + 16 * j];
-        qv[j] = Qs[c * (D + 1) + tx + 16 * j];
-      }
+    for (int i = 0; i < 8; ++i)
+      wv[i] = *reinterpret_cast<const float4*>(W + (ty + R * i) * FPS + u0);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float pw = Pt[(ty * 8 + i) * (BQ + 1) + c];
-        float sw = dSt[(ty * 8 + i) * (BQ + 1) + c];
+    for (int u = 0; u < 4; ++u) {
 #pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          av[i][j] = fmaf(pw, gv[j], av[i][j]);
-          ak[i][j] = fmaf(sw, qv[j], ak[i][j]);
+      for (int qc = 0; qc < NC; ++qc) {
+        const float4 xv = *reinterpret_cast<const float4*>(
+            X + (u0 + u) * RS + 4 * tx + 32 * qc);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float w = u == 0 ? wv[i].x
+                        : u == 1 ? wv[i].y
+                        : u == 2 ? wv[i].z : wv[i].w;
+          acc[i][4 * qc] = fmaf(w, xv.x, acc[i][4 * qc]);
+          acc[i][4 * qc + 1] = fmaf(w, xv.y, acc[i][4 * qc + 1]);
+          acc[i][4 * qc + 2] = fmaf(w, xv.z, acc[i][4 * qc + 2]);
+          acc[i][4 * qc + 3] = fmaf(w, xv.w, acc[i][4 * qc + 3]);
         }
       }
     }
   }
+}
 
-  // dk, dv: contiguous (B, Tk, H, D) in the input dtype.
+// The halves of acc added (lower + upper) and the lane's own rows
+// (i / 4 == hf) of 8 rows x D/8 columns written to a contiguous
+// (B, T, H, D) f32 gradient.
+template <int D>
+__device__ __forceinline__ void store_rows(float (&acc)[8][D / 8], float* out,
+                                           int b, int h, int H, int T,
+                                           int r0, int R, int ty, int tx,
+                                           int hf) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    int t = k0 + ty * 8 + i;
-    if (t >= Tk) continue;
-    long long off = (((long long)b * Tk + t) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      store(dk + off + tx + 16 * j, ak[i][j]);
-      store(dv + off + tx + 16 * j, av[i][j]);
+    for (int c = 0; c < D / 8; ++c)
+      acc[i][c] += __shfl_xor_sync(0xffffffffu, acc[i][c], 8);
+    const int row = r0 + ty + R * i;
+    if (row >= T || (i >> 2) != hf) continue;
+    float* o = out + (((long long)b * T + row) * H + h) * D;
+#pragma unroll
+    for (int qc = 0; qc < D / 32; ++qc)
+      *reinterpret_cast<float4*>(o + 4 * tx + 32 * qc) =
+          make_float4(acc[i][4 * qc], acc[i][4 * qc + 1], acc[i][4 * qc + 2],
+                      acc[i][4 * qc + 3]);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void zero_acc(float (&acc)[8][D / 8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) acc[i][c] = 0.f;
+}
+
+// Lane bits of the f32 kernels: tx (0-2) picks the columns tx + 8c of S or
+// S^T, hf (3) the half of d in S and dP and of the reduction in the
+// products that take P and dS, ty (4 and up) the rows ty + R*i. The warp
+// holds rows ty = 2w, 2w+1 (16 rows): its P and dS buffer rows are its own.
+
+// ------------------------------------------------------------ f32, dq
+template <int D, bool SPLIT>
+__global__ void __launch_bounds__(256)
+bwd_dq_fma(const Args a) {
+  constexpr int RS = D + 4;  // float4 rows land on distinct banks
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int BQ = blockDim.x / 2, R = BQ / 8;
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Gs = Qs + BQ * RS;
+  float* ring = Gs + BQ * RS;                 // [STAGES][K, V][FBK][RS]
+  float* Os = ring + 2 * FBK * RS;            // slot 1, free until tile 1
+  float* dSb = ring + STAGES * 2 * FBK * RS;  // [BQ][FPS]: P, then dS
+  float* lse_s = dSb + BQ * FPS;              // [BQ]
+  float* dl_s = lse_s + BQ;                   // [BQ] row delta D
+  const int tid = threadIdx.x, tx = tid & 7, hf = (tid >> 3) & 1;
+  const int ty = tid >> 4;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int qt = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
+  const float* kb = head<float>(a.k, a.sk, b, h);
+  const float* vb = head<float>(a.v, a.sv, b, h);
+  const bool al = a.aligned;
+
+  const int k_end = a.causal ? min(a.Tk, q0 + BQ) : a.Tk;
+  const int n_kt = (k_end + FBK - 1) / FBK;
+  load_rows<float, D, RS>(Qs, head<float>(a.q, a.sq, b, h), a.sq.t, q0,
+                          a.Tq, BQ, al);
+  load_rows<float, D, RS>(Gs, head<float>(a.g, a.sg, b, h), a.sg.t, q0,
+                          a.Tq, BQ, al);
+  load_rows<float, D, RS>(Os, head<float>(a.o, a.so, b, h), a.so.t, q0,
+                          a.Tq, BQ, al);
+  if (n_kt > 0) {
+    load_rows<float, D, RS>(ring, kb, a.sk.t, 0, a.Tk, FBK, al);
+    load_rows<float, D, RS>(ring + FBK * RS, vb, a.sv.t, 0, a.Tk, FBK, al);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  {
+    // D and lse of the block's rows, two lanes a row (read after the first
+    // tile's barrier).
+    const int r = tid >> 1, row = q0 + r;
+    const float d = pair_delta<D>(Gs + r * RS, Os + r * RS, tid & 1);
+    if ((tid & 1) == 0) {
+      dl_s[r] = d;
+      lse_s[r] = row < a.Tq ? a.lse[(long long)bh * a.Tq + row] : 0.f;
+      if (!SPLIT && row < a.Tq) a.delta_out[(long long)bh * a.Tq + row] = d;
     }
   }
-}
+  float acc[8][D / 8];  // dS K over this lane's half of every key tile
+  zero_acc<D>(acc);
 
-// Strides of the tensors named by `order` (indices into q, k, v, o, g)
-// from the entry point's flat (batch, seq, head) triples; the others 0.
-BwdStrides bwd_strides(const long long* st, const int* order, int n) {
-  Strides s[5] = {};
-  for (int i = 0; i < n; ++i)
-    s[order[i]] = Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
-  return BwdStrides{s[0], s[1], s[2], s[3], s[4]};
-}
-
-template <typename T, int D, bool SPLIT>
-int launch_dq(const void* q, const void* k, const void* v, const void* o,
-              const void* g, const float* lse, void* dq, float* delta, int B,
-              int H, int Tq, int Tk, int causal, const BwdStrides& s,
-              cudaStream_t stream) {
-  size_t smem = sizeof(float) * (2 * BQ * D + 2 * BK * (D + 1) +
-                                 BQ * (BK + 1) + 2 * BQ +
-                                 (SPLIT ? BQ * (D + 1) : 0));
-  auto kern = flash_bwd_dq_kernel<T, D, SPLIT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Tq + BQ - 1) / BQ, B * H);
-  kern<<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)g, lse,
-      (T*)dq, delta, H, Tq, Tk, causal, 1.0f / sqrtf((float)D), s);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int D, bool SPLIT>
-int launch_dkv(const void* q, const void* k, const void* v, const void* o,
-               const void* g, const float* lse, const float* delta, void* dk,
-               void* dv, int B, int H, int Tq, int Tk, int causal,
-               const BwdStrides& s, cudaStream_t stream) {
-  size_t smem = sizeof(float) * (2 * BK * D + 2 * BQ * (D + 1) +
-                                 2 * BK * (BQ + 1) + 2 * BQ);
-  auto kern = flash_bwd_dkv_kernel<T, D, SPLIT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Tk + BK - 1) / BK, B * H);
-  kern<<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)g, lse,
-      delta, (T*)dk, (T*)dv, H, Tq, Tk, causal, 1.0f / sqrtf((float)D), s);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, bool SPLIT>
-int dq_d(const void* q, const void* k, const void* v, const void* o,
-         const void* g, const float* lse, void* dq, float* delta, int B,
-         int H, int Tq, int Tk, int D, int causal, const BwdStrides& st,
-         cudaStream_t s) {
-  switch (D) {
-    case 32:
-      return launch_dq<T, 32, SPLIT>(q, k, v, o, g, lse, dq, delta, B, H, Tq,
-                                     Tk, causal, st, s);
-    case 64:
-      return launch_dq<T, 64, SPLIT>(q, k, v, o, g, lse, dq, delta, B, H, Tq,
-                                     Tk, causal, st, s);
-    case 128:
-      return launch_dq<T, 128, SPLIT>(q, k, v, o, g, lse, dq, delta, B, H,
-                                      Tq, Tk, causal, st, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+  for (int j = 0; j < n_kt; ++j) {
+    cp_async_wait_all();  // tile j has landed
+    __syncthreads();      // ... for every thread; slot (j+1)%2, dSb free
+    if (j + 1 < n_kt) {
+      float* nx = ring + ((j + 1) % STAGES) * 2 * FBK * RS;
+      load_rows<float, D, RS>(nx, kb, a.sk.t, (j + 1) * FBK, a.Tk, FBK, al);
+      load_rows<float, D, RS>(nx + FBK * RS, vb, a.sv.t, (j + 1) * FBK,
+                              a.Tk, FBK, al);
+    }
+    cp_async_commit();
+    const int k0 = j * FBK;
+    const float* Kt = ring + (j % STAGES) * 2 * FBK * RS;
+    const float* Vt = Kt + FBK * RS;
+    // Tiles wholly below the block's diagonal and inside Tk need no mask.
+    const bool mask = (a.causal && k0 + FBK - 1 > q0) || k0 + FBK > a.Tk;
+    float s[8][8];
+    pair_dots<D, RS>(s, Qs, Kt, ty, R, tx, hf);  // S = Q K^T
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = ty + R * i, row = q0 + r;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int key = k0 + tx + 8 * c;
+        if ((i >> 2) == hf)
+          dSb[r * FPS + tx + 8 * c] =
+              prob(s[i][c], lse_s[r], a.scale, mask && a.causal && row < key,
+                   !mask || key < a.Tk);
+      }
+    }
+    pair_dots<D, RS>(s, Gs, Vt, ty, R, tx, hf);  // dP = dO V^T
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = ty + R * i;
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        if ((i >> 2) == hf) {
+          float* e = dSb + r * FPS + tx + 8 * c;
+          *e = dscore(*e, s[i][c], dl_s[r], a.scale);
+        }
+    }
+    __syncwarp();  // the warp's dS rows are written
+    half_products<D, RS>(acc, dSb, Kt, ty, R, tx, hf);  // dQ += dS K
   }
+  cp_async_wait_all();  // no copy outlives the block
+  store_rows<D>(acc, (float*)a.dq, b, h, a.H, a.Tq, q0, R, ty, tx, hf);
 }
 
-template <typename T, bool SPLIT>
-int dkv_d(const void* q, const void* k, const void* v, const void* o,
-          const void* g, const float* lse, const float* delta, void* dk,
-          void* dv, int B, int H, int Tq, int Tk, int D, int causal,
-          const BwdStrides& st, cudaStream_t s) {
-  switch (D) {
-    case 32:
-      return launch_dkv<T, 32, SPLIT>(q, k, v, o, g, lse, delta, dk, dv, B,
-                                      H, Tq, Tk, causal, st, s);
-    case 64:
-      return launch_dkv<T, 64, SPLIT>(q, k, v, o, g, lse, delta, dk, dv, B,
-                                      H, Tq, Tk, causal, st, s);
-    case 128:
-      return launch_dkv<T, 128, SPLIT>(q, k, v, o, g, lse, delta, dk, dv, B,
-                                       H, Tq, Tk, causal, st, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+// --------------------------------------------------------- f32, dk/dv
+template <int D, bool SPLIT>
+__global__ void __launch_bounds__(256)
+bwd_dkv_fma(const Args a) {
+  constexpr int RS = D + 4;
+  constexpr int BQ = FBK;
+  constexpr bool OST = o_staged<float, D, SPLIT>();
+  constexpr int SB = qstage_bytes<float>(BQ, RS, OST);
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int BKV = blockDim.x / 2, R = BKV / 8;
+  float* Ks = reinterpret_cast<float*>(smem);
+  float* Vs = Ks + BKV * RS;
+  uint8_t* ring = reinterpret_cast<uint8_t*>(Vs + BKV * RS);
+  // [BKV][FPS]: P^T for dV, then dS^T in its place for dK.
+  float* Pt = reinterpret_cast<float*>(ring + STAGES * SB);
+  const int tid = threadIdx.x, tx = tid & 7, hf = (tid >> 3) & 1;
+  const int ty = tid >> 4;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int k0 = blockIdx.y * BKV;
+  const float* qb = head<float>(a.q, a.sq, b, h);
+  const float* gb = head<float>(a.g, a.sg, b, h);
+  const float* ob = SPLIT ? head<float>(a.o, a.so, b, h) : nullptr;
+
+  // Causal: a q tile whose last row precedes this key tile sees none of it.
+  const int q_begin = a.causal ? (k0 / BQ) * BQ : 0;
+  const int n_qt = a.Tq > q_begin ? (a.Tq - q_begin + BQ - 1) / BQ : 0;
+  load_rows<float, D, RS>(Ks, head<float>(a.k, a.sk, b, h), a.sk.t, k0,
+                          a.Tk, BKV, a.aligned);
+  load_rows<float, D, RS>(Vs, head<float>(a.v, a.sv, b, h), a.sv.t, k0,
+                          a.Tk, BKV, a.aligned);
+  if (n_qt > 0)
+    load_qstage<float, D, RS, SPLIT, OST>(qstage<float, OST>(ring, BQ, RS),
+                                          a, qb, gb, ob, bh, q_begin, BQ);
+  cp_async_commit();
+  // P^T dO and dS^T Q over this lane's half of every q tile.
+  float av[8][D / 8], ak[8][D / 8];
+  zero_acc<D>(av);
+  zero_acc<D>(ak);
+
+  for (int j = 0; j < n_qt; ++j) {
+    cp_async_wait_all();  // tile j (and K, V) has landed
+    __syncthreads();      // ... for every thread; slot (j+1)%2, Pt free
+    if (j + 1 < n_qt)
+      load_qstage<float, D, RS, SPLIT, OST>(
+          qstage<float, OST>(ring + ((j + 1) % STAGES) * SB, BQ, RS), a, qb,
+          gb, ob, bh, q_begin + (j + 1) * BQ, BQ);
+    cp_async_commit();
+    const int q0 = q_begin + j * BQ;
+    const QStage<float> st =
+        qstage<float, OST>(ring + (j % STAGES) * SB, BQ, RS);
+    if (SPLIT) {
+      stage_delta<D, OST>(st, BQ, RS, ob, a.so.t, q0, a.Tq);
+      __syncthreads();  // the tile's D rows are written
+    }
+    const bool mask = (a.causal && q0 < k0 + BKV - 1) || q0 + BQ > a.Tq ||
+                      k0 + BKV > a.Tk;
+    float s[8][8];
+    pair_dots<D, RS>(s, Ks, st.q, ty, R, tx, hf);  // S^T = K Q^T
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = ty + R * i, key = k0 + r;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int col = tx + 8 * c, row = q0 + col;
+        if ((i >> 2) == hf)
+          Pt[r * FPS + col] =
+              prob(s[i][c], st.lse[col], a.scale,
+                   mask && a.causal && row < key,
+                   !mask || (row < a.Tq && key < a.Tk));
+      }
+    }
+    __syncwarp();  // the warp's P^T rows are written
+    half_products<D, RS>(av, Pt, st.g, ty, R, tx, hf);  // dV += P^T dO
+    pair_dots<D, RS>(s, Vs, st.g, ty, R, tx, hf);       // dP^T = V dO^T
+    __syncwarp();  // the warp's P^T rows are read by dV's products
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = ty + R * i;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int col = tx + 8 * c;
+        if ((i >> 2) == hf) {
+          float* e = Pt + r * FPS + col;
+          *e = dscore(*e, s[i][c], st.dl[col], a.scale);
+        }
+      }
+    }
+    __syncwarp();  // the warp's dS^T rows are written
+    half_products<D, RS>(ak, Pt, st.q, ty, R, tx, hf);  // dK += dS^T Q
   }
+  cp_async_wait_all();  // no copy outlives the block
+  store_rows<D>(ak, (float*)a.dk, b, h, a.H, a.Tk, k0, R, ty, tx, hf);
+  store_rows<D>(av, (float*)a.dv, b, h, a.H, a.Tk, k0, R, ty, tx, hf);
+}
+
+// ------------------------------------------------------------- launch
+// Dynamic shared memory of one block, from the plan's `rows` (q rows of a
+// dq block, key rows of a dk/dv block) at the kernels' padded strides. A
+// size above the card's per-block limit fails the launch
+// (cudaFuncSetAttribute), so no plan can overrun it.
+int dq_smem(int dtype, int D, int rows) {
+  if (dtype == 1)  // Q, dO; the K/V ring (O in slot 1)
+    return 2 * (D + 8) * (2 * rows + 2 * STAGES * mma_tile(D));
+  // Q, dO; the K/V ring (O in slot 1); P / dS rows; lse and D rows
+  return 4 * ((D + 4) * (2 * rows + 2 * STAGES * FBK) + rows * FPS +
+              2 * rows);
+}
+int dkv_smem(int dtype, int D, int rows, int split) {
+  if (dtype == 1) {  // K, V; the q-tile ring
+    const int RS = D + 8, BQ = mma_tile(D);
+    return 2 * 2 * rows * RS + STAGES * qstage_bytes<bf16>(BQ, RS, split);
+  }
+  const int RS = D + 4;  // K, V; the q-tile ring; P^T / dS^T rows
+  return 4 * 2 * rows * RS +
+         STAGES * qstage_bytes<float>(FBK, RS, split && D < 128) +
+         4 * rows * FPS;
+}
+
+using Kernel = void (*)(const Args);
+
+template <int D, bool SPLIT>
+Kernel pick(bool dq, int dtype) {
+  if (dq) return dtype == 1 ? bwd_dq_mma<D, SPLIT> : bwd_dq_fma<D, SPLIT>;
+  return dtype == 1 ? bwd_dkv_mma<D, SPLIT> : bwd_dkv_fma<D, SPLIT>;
 }
 
 template <bool SPLIT>
-int dq_entry(const void* q, const void* k, const void* v, const void* o,
-             const void* g, const void* lse, void* dq, void* delta, int B,
-             int H, int Tq, int Tk, int D, int dtype, int causal,
-             const void* strides, void* stream) {
-  const int order[5] = {0, 1, 2, 3, 4};  // q, k, v, o, g
-  BwdStrides st = bwd_strides((const long long*)strides, order, 5);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dq_d<float, SPLIT>(q, k, v, o, g, (const float*)lse, dq,
-                              (float*)delta, B, H, Tq, Tk, D, causal, st, s);
-  if (dtype == 1)
-    return dq_d<__nv_bfloat16, SPLIT>(q, k, v, o, g, (const float*)lse, dq,
-                                      (float*)delta, B, H, Tq, Tk, D, causal,
-                                      st, s);
-  return (int)cudaErrorInvalidValue;
+Kernel pick_d(bool dq, int dtype, int D) {
+  switch (D) {
+    case 32: return pick<32, SPLIT>(dq, dtype);
+    case 64: return pick<64, SPLIT>(dq, dtype);
+    case 128: return pick<128, SPLIT>(dq, dtype);
+    default: return nullptr;
+  }
 }
 
-template <bool SPLIT>
-int dkv_entry(const void* q, const void* k, const void* v, const void* o,
-              const void* g, const void* lse, const void* delta, void* dk,
-              void* dv, int B, int H, int Tq, int Tk, int D, int dtype,
-              int causal, const BwdStrides& st, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dkv_d<float, SPLIT>(q, k, v, o, g, (const float*)lse,
-                               (const float*)delta, dk, dv, B, H, Tq, Tk, D,
-                               causal, st, s);
-  if (dtype == 1)
-    return dkv_d<__nv_bfloat16, SPLIT>(q, k, v, o, g, (const float*)lse,
-                                       (const float*)delta, dk, dv, B, H, Tq,
-                                       Tk, D, causal, st, s);
-  return (int)cudaErrorInvalidValue;
+// tensors: q, k, v, o, g (nullptr where the kernel takes none); `strides`
+// holds (batch, seq, head) of each non-null tensor in that order.
+int launch(bool dq, bool split, const void* const* tensors,
+           const long long* strides, const void* lse, const void* delta,
+           void* out0, void* out1, int B, int H, int Tq, int Tk, int D,
+           int dtype, int causal, int rows, void* stream) {
+  // 16 rows a warp in bf16 (at most 4 warps), 8 a lane pair in f32 (at
+  // most 8 warps).
+  if ((dtype != 0 && dtype != 1) ||
+      (rows != 32 && rows != 64 && !(dtype == 0 && rows == 128)))
+    return (int)cudaErrorInvalidValue;
+  const Kernel kern = split ? pick_d<true>(dq, dtype, D)
+                            : pick_d<false>(dq, dtype, D);
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
+  const int esz = dtype == 1 ? 2 : 4;
+  Args a{};
+  Strides* st[5] = {&a.sq, &a.sk, &a.sv, &a.so, &a.sg};
+  bool aligned = true;
+  for (int i = 0, n = 0; i < 5; ++i) {
+    if (tensors[i] == nullptr) continue;
+    const long long* s = strides + 3 * n++;
+    *st[i] = Strides{s[0], s[1], s[2]};
+    aligned = aligned && (uintptr_t)tensors[i] % 16 == 0 &&
+              (s[0] * esz) % 16 == 0 && (s[1] * esz) % 16 == 0 &&
+              (s[2] * esz) % 16 == 0;
+  }
+  a.q = tensors[0];
+  a.k = tensors[1];
+  a.v = tensors[2];
+  a.o = tensors[3];
+  a.g = tensors[4];
+  a.lse = (const float*)lse;
+  if (dq) {
+    a.dq = out0;
+    a.delta_out = (float*)delta;
+  } else {
+    a.dk = out0;
+    a.dv = out1;
+    a.delta_in = (const float*)delta;
+  }
+  a.H = H;
+  a.Tq = Tq;
+  a.Tk = Tk;
+  a.causal = causal;
+  a.aligned = aligned;
+  a.scale = 1.0f / sqrtf((float)D);
+  const int smem = dq ? dq_smem(dtype, D, rows)
+                      : dkv_smem(dtype, D, rows, split);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, ((dq ? Tq : Tk) + rows - 1) / rows);
+  kern<<<grid, 2 * rows, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Fused dq. q, k, v, o, g (= dO): (B, T, H, D) with unit stride over D;
-// `strides` holds 15 element strides, (batch, seq, head) of q, k, v, o, g
-// in turn. lse: contiguous (B*H, Tq) f32. Writes dq, contiguous
-// (B, Tq, H, D) in the input dtype, and delta = rowsum(dO o O), contiguous
-// (B*H, Tq) f32. dtype: 0 = float32, 1 = bfloat16. Returns
-// cudaGetLastError() after the launch (0 on success).
+// Every entry: tensors (B, T, H, D) with unit stride over D; `strides`
+// points to int64 element strides, (batch, seq, head) of each input
+// tensor in the order named; lse (and delta) contiguous (B*H, Tq) f32;
+// gradients written contiguous (B, T, H, D) in the input dtype. dtype:
+// 0 = float32, 1 = bfloat16. rows (32 or 64): the launch plan's q rows a
+// dq block or key rows a dk/dv block owns (ops/flash_attention.py::
+// _flash_bwd_plan). Returns cudaGetLastError() after the launch (0 on
+// success).
+
+// Fused dq: strides of q, k, v, o, g (= dO). Writes dq and
+// delta = rowsum(dO o O).
 int tpuflow_flash_bwd_dq(const void* q, const void* k, const void* v,
                          const void* o, const void* g, const void* lse,
                          void* dq, void* delta, int B, int H, int Tq, int Tk,
-                         int D, int dtype, int causal, const void* strides,
-                         void* stream) {
-  return dq_entry<false>(q, k, v, o, g, lse, dq, delta, B, H, Tq, Tk, D,
-                         dtype, causal, strides, stream);
+                         int D, int dtype, int causal, int rows,
+                         const void* strides, void* stream) {
+  const void* t[5] = {q, k, v, o, g};
+  return launch(true, false, t, (const long long*)strides, lse, delta, dq,
+                nullptr, B, H, Tq, Tk, D, dtype, causal, rows, stream);
 }
 
-// Fused dk/dv. q, k, v, g (= dO): (B, T, H, D) with unit stride over D;
-// `strides` holds 12 element strides, (batch, seq, head) of q, k, v, g in
-// turn. lse and delta: contiguous (B*H, Tq) f32. Writes dk and dv,
-// contiguous (B, Tk, H, D) in the input dtype. Returns cudaGetLastError().
+// Fused dk/dv: strides of q, k, v, g (= dO); reads lse and delta, never O.
 int tpuflow_flash_bwd_dkv(const void* q, const void* k, const void* v,
                           const void* g, const void* lse, const void* delta,
                           void* dk, void* dv, int B, int H, int Tq, int Tk,
-                          int D, int dtype, int causal, const void* strides,
-                          void* stream) {
-  const int order[4] = {0, 1, 2, 4};  // q, k, v, g
-  BwdStrides st = bwd_strides((const long long*)strides, order, 4);
-  return dkv_entry<false>(q, k, v, nullptr, g, lse, delta, dk, dv, B, H, Tq,
-                          Tk, D, dtype, causal, st, stream);
+                          int D, int dtype, int causal, int rows,
+                          const void* strides, void* stream) {
+  const void* t[5] = {q, k, v, nullptr, g};
+  return launch(false, false, t, (const long long*)strides, lse, delta, dk,
+                dv, B, H, Tq, Tk, D, dtype, causal, rows, stream);
 }
 
-// Split dq: as tpuflow_flash_bwd_dq, with D recomputed on every k tile and
-// no delta written.
+// Split dq: as tpuflow_flash_bwd_dq, no delta written.
 int tpuflow_flash_bwd_dq_split(const void* q, const void* k, const void* v,
                                const void* o, const void* g, const void* lse,
                                void* dq, int B, int H, int Tq, int Tk, int D,
-                               int dtype, int causal, const void* strides,
-                               void* stream) {
-  return dq_entry<true>(q, k, v, o, g, lse, dq, nullptr, B, H, Tq, Tk, D,
-                        dtype, causal, strides, stream);
+                               int dtype, int causal, int rows,
+                               const void* strides, void* stream) {
+  const void* t[5] = {q, k, v, o, g};
+  return launch(true, true, t, (const long long*)strides, lse, nullptr, dq,
+                nullptr, B, H, Tq, Tk, D, dtype, causal, rows, stream);
 }
 
-// Split dk/dv: q, k, v, o, g (= dO): (B, T, H, D) with unit stride over D;
-// `strides` holds 15 element strides, (batch, seq, head) of q, k, v, o, g
-// in turn. lse: contiguous (B*H, Tq) f32; D is recomputed from O and dO on
-// every q tile. Writes dk and dv, contiguous (B, Tk, H, D) in the input
-// dtype. Returns cudaGetLastError().
+// Split dk/dv: strides of q, k, v, o, g (= dO); D recomputed from O and dO
+// on every q tile.
 int tpuflow_flash_bwd_dkv_split(const void* q, const void* k, const void* v,
                                 const void* o, const void* g, const void* lse,
                                 void* dk, void* dv, int B, int H, int Tq,
                                 int Tk, int D, int dtype, int causal,
-                                const void* strides, void* stream) {
-  const int order[5] = {0, 1, 2, 3, 4};  // q, k, v, o, g
-  BwdStrides st = bwd_strides((const long long*)strides, order, 5);
-  return dkv_entry<true>(q, k, v, o, g, lse, nullptr, dk, dv, B, H, Tq, Tk,
-                         D, dtype, causal, st, stream);
+                                int rows, const void* strides, void* stream) {
+  const void* t[5] = {q, k, v, o, g};
+  return launch(false, true, t, (const long long*)strides, lse, nullptr, dk,
+                dv, B, H, Tq, Tk, D, dtype, causal, rows, stream);
+}
+
+// The dynamic shared memory bytes a launch takes: kernel 0 = dq, 1 = dk/dv
+// (the card tests hold it to the per-block limit).
+int tpuflow_flash_bwd_smem(int kernel, int split, int dtype, int D,
+                           int rows) {
+  return kernel == 0 ? dq_smem(dtype, D, rows)
+                     : dkv_smem(dtype, D, rows, split);
 }
 
 const char* tpuflow_cuda_error_string(int err) {

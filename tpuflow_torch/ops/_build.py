@@ -44,12 +44,15 @@ KERNELS = {
         "tpuflow_flash_fwd_smem": [_I] * 3,
     },
     "flash_bwd": {
-        # Tensors, then B, H, Tq, Tk, D, dtype, causal, a pointer to the
-        # int64 strides, the stream.
-        "tpuflow_flash_bwd_dq": [_P] * 8 + [_I] * 7 + [_P, _P],
-        "tpuflow_flash_bwd_dkv": [_P] * 8 + [_I] * 7 + [_P, _P],
-        "tpuflow_flash_bwd_dq_split": [_P] * 7 + [_I] * 7 + [_P, _P],
-        "tpuflow_flash_bwd_dkv_split": [_P] * 8 + [_I] * 7 + [_P, _P],
+        # Tensors, then B, H, Tq, Tk, D, dtype, causal, rows (the plan's),
+        # a pointer to the int64 strides, the stream.
+        "tpuflow_flash_bwd_dq": [_P] * 8 + [_I] * 8 + [_P, _P],
+        "tpuflow_flash_bwd_dkv": [_P] * 8 + [_I] * 8 + [_P, _P],
+        "tpuflow_flash_bwd_dq_split": [_P] * 7 + [_I] * 8 + [_P, _P],
+        "tpuflow_flash_bwd_dkv_split": [_P] * 8 + [_I] * 8 + [_P, _P],
+        # kernel (0 dq, 1 dk/dv), split, dtype, D, rows -> the block's
+        # dynamic shared memory bytes.
+        "tpuflow_flash_bwd_smem": [_I] * 5,
     },
     "int8_matmul": {
         # x, w, ws, s, out, scratch, counters; M, K, N, w_contract_last,

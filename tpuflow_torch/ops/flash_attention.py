@@ -23,6 +23,9 @@ softmax, output / max(l, 1e-30), lse = m + log(max(l, 1e-30)).
   (``launches_bwd_dkv``: reads q, dO, lse and D, never O), and the split
   pair (``launches_bwd_dq_split``, ``launches_bwd_dkv_split``: both read O
   and recompute D on every block visit; the same bits as the fused pair).
+  ``launches_bwd_dq_bf16`` and ``launches_bwd_dkv_bf16`` count the bf16
+  launches of either pair (the tensor-core variants). Each backward launch
+  takes its tile heights from ``_flash_bwd_plan``.
 - Plain versions, which CPU tensors take and the card holds the kernels
   against: ``blockwise_attention``, ``blockwise_attention_lse``,
   ``flash_bwd_dq_plain`` and ``flash_bwd_dkv_plain`` (``flash_bwd_plain``
@@ -56,8 +59,10 @@ launches_lse = 0       # forward with lse
 launches_lse_bf16 = 0  # of those, on bf16 inputs (the tensor-core variant)
 launches_bwd_dq = 0    # backward: dq and the row delta
 launches_bwd_dkv = 0   # backward: dk and dv
-launches_bwd_dq_split = 0   # split backward: dq, D per k-block visit
+launches_bwd_dq_split = 0   # split backward: dq, D recomputed from O
 launches_bwd_dkv_split = 0  # split backward: dk and dv, D per q-block visit
+launches_bwd_dq_bf16 = 0    # dq launches of either pair on bf16 inputs
+launches_bwd_dkv_bf16 = 0   # dk/dv launches of either pair on bf16 inputs
 BWD_MODES = ("fused", "split", "blockwise")
 
 
@@ -414,6 +419,35 @@ def _flash_bq(B: int, H: int, Tq: int, sms: int) -> int:
     return 64 if B * H * -(-Tq // 64) >= sms else 32
 
 
+def _flash_bwd_plan(B: int, H: int, Tq: int, Tk: int, D: int, dtype,
+                    sms: int) -> dict:
+    """The backward kernels' launch plan on a card of ``sms`` streaming
+    multiprocessors: ``dq_rows``, the q rows a dq block owns, and
+    ``dkv_rows``, the key rows a dk/dv block owns. bf16 blocks hold 16
+    rows a warp (32 or 64 rows); f32 blocks 8 rows a lane pair (32, 64, or
+    128 at D <= 64: 8 warps, where the f32 kernels' shared memory allows
+    one block an SM). Each takes the tallest tile whose grid of B*H x
+    ceil(T/rows) blocks still gives every SM one, else 32 (1 x 512 x 12
+    heads: 96 blocks of 64 would leave SMs idle). No output bit depends on
+    it: the streamed tiles' height is fixed by ``dtype`` and ``D``, and
+    every element sums its products in the same order. The C entries
+    derive grid and shared memory from it, and run the causal tiles
+    longest first (dq tiles in reverse, dk/dv ascending)."""
+    tall = (128, 64) if dtype == torch.float32 and D <= 64 else (64,)
+
+    def rows(T: int) -> int:
+        return next((r for r in tall if B * H * -(-T // r) >= sms), 32)
+
+    return {"dq_rows": rows(Tq), "dkv_rows": rows(Tk)}
+
+
+def _bwd_rows(q, Tk: int, key: str) -> int:
+    B, Tq, H, D = q.shape
+    return _flash_bwd_plan(B, H, Tq, Tk, D, q.dtype, torch.cuda.
+                           get_device_properties(q.device)
+                           .multi_processor_count)[key]
+
+
 def _flash_fwd_cuda(q, k, v, causal: bool, *, with_lse: bool):
     global launches, launches_lse, launches_lse_bf16
     _check_qkv(q, k, v, "flash_attention")
@@ -447,7 +481,7 @@ def _flash_fwd_cuda(q, k, v, causal: bool, *, with_lse: bool):
 
 
 def _flash_bwd_dq_cuda(q, k, v, o, lse, do, causal: bool):
-    global launches_bwd_dq
+    global launches_bwd_dq, launches_bwd_dq_bf16
     what = "flash_bwd_dq"
     _check_qkv(q, k, v, what)
     _check_like(o, q, "o", what)
@@ -461,16 +495,18 @@ def _flash_bwd_dq_cuda(q, k, v, o, lse, do, causal: bool):
     rc = lib.tpuflow_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
-        B, H, Tq, k.shape[1], D, _DTYPES[q.dtype], int(causal), strides,
+        B, H, Tq, k.shape[1], D, _DTYPES[q.dtype], int(causal),
+        _bwd_rows(q, k.shape[1], "dq_rows"), strides,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, "flash_bwd_dq launch")
     launches_bwd_dq += 1
+    launches_bwd_dq_bf16 += q.dtype == torch.bfloat16
     return dq, delta
 
 
 def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool):
-    global launches_bwd_dkv
+    global launches_bwd_dkv, launches_bwd_dkv_bf16
     what = "flash_bwd_dkv"
     _check_qkv(q, k, v, what)
     _check_like(do, q, "do", what)
@@ -484,16 +520,18 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool):
     rc = lib.tpuflow_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, H, q.shape[1], Tk, D, _DTYPES[q.dtype], int(causal), strides,
+        B, H, q.shape[1], Tk, D, _DTYPES[q.dtype], int(causal),
+        _bwd_rows(q, Tk, "dkv_rows"), strides,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, "flash_bwd_dkv launch")
     launches_bwd_dkv += 1
+    launches_bwd_dkv_bf16 += q.dtype == torch.bfloat16
     return dk, dv
 
 
 def _flash_bwd_dq_split_cuda(q, k, v, o, lse, do, causal: bool):
-    global launches_bwd_dq_split
+    global launches_bwd_dq_split, launches_bwd_dq_bf16
     what = "flash_bwd_dq_split"
     _check_qkv(q, k, v, what)
     _check_like(o, q, "o", what)
@@ -506,16 +544,18 @@ def _flash_bwd_dq_split_cuda(q, k, v, o, lse, do, causal: bool):
     rc = lib.tpuflow_flash_bwd_dq_split(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
-        B, H, Tq, k.shape[1], D, _DTYPES[q.dtype], int(causal), strides,
+        B, H, Tq, k.shape[1], D, _DTYPES[q.dtype], int(causal),
+        _bwd_rows(q, k.shape[1], "dq_rows"), strides,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, "flash_bwd_dq_split launch")
     launches_bwd_dq_split += 1
+    launches_bwd_dq_bf16 += q.dtype == torch.bfloat16
     return dq
 
 
 def _flash_bwd_dkv_split_cuda(q, k, v, o, lse, do, causal: bool):
-    global launches_bwd_dkv_split
+    global launches_bwd_dkv_split, launches_bwd_dkv_bf16
     what = "flash_bwd_dkv_split"
     _check_qkv(q, k, v, what)
     _check_like(o, q, "o", what)
@@ -529,9 +569,11 @@ def _flash_bwd_dkv_split_cuda(q, k, v, o, lse, do, causal: bool):
     rc = lib.tpuflow_flash_bwd_dkv_split(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, H, q.shape[1], Tk, D, _DTYPES[q.dtype], int(causal), strides,
+        B, H, q.shape[1], Tk, D, _DTYPES[q.dtype], int(causal),
+        _bwd_rows(q, Tk, "dkv_rows"), strides,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, "flash_bwd_dkv_split launch")
     launches_bwd_dkv_split += 1
+    launches_bwd_dkv_bf16 += q.dtype == torch.bfloat16
     return dk, dv
