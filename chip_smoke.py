@@ -18,7 +18,11 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    launch), the least time the card could take and the kernel's share of
    it. The backward phase runs f32 and bf16 at both prefill shapes and at
    the training shape; the int8 phase also counts the kernels one call
-   launches at M = 8.
+   launches at M = 8. The head-dim phase runs the forward with lse and
+   both backward pairs at D = 96 (zero-padded to the 128 kernels) and
+   D = 256, f32 and bf16, at (1, 1024, 12, D), against the plain versions
+   at the true D, the split pair bit-equal to the fused one, each time
+   beside the D = 64 kernels'.
 4. Serving slice on GPT-2 124M at full width, weights random from a seed:
    ``generate()`` on a 512-token dense prompt (its prefill must launch the
    flash kernel once per layer), then a paged ``ServeEngine`` answering
@@ -44,7 +48,21 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    state's save and restore taken apart outside training: crc32, writes
    with fsync, reads. The directories live under ``build/`` and are
    deleted at the end.
-7. One JSON line with every kernel's numbers (the int8 matmul both as one
+7. The README main path: ``train_fashion_mnist`` (the FashionMNIST MLP at
+   784 -> 512 -> 512 -> 10, 3 epochs at batch 32, lr 1e-3, on the
+   full-size synthetic set, per-epoch checkpoints): every val_loss
+   finite, the third below the first, the best accuracy above a floor,
+   the retained steps the manager's policy; a warm start from its
+   checkpoint whose first val_loss is below the cold run's first; an
+   in-run resume from a copy of its storage without the newest step that
+   trains the last epoch only, with bit-equal metrics and shard crc32s;
+   ``TorchPredictor`` + ``map_batches`` over the 10,000 test rows at
+   batch 512, its misclassified count against the best epoch's accuracy.
+   No kernel of the port runs on it (every counter must read 0). Then
+   its numbers: step ms and samples/s, the epoch's wall, the device's
+   busy share and kernels a step under the profiler, the checkpoint's
+   save and restore seconds, eval rows/s.
+8. One JSON line with every kernel's numbers (the int8 matmul both as one
    decode step at M = 8 and as the same 49 products at M = 512; the
    training kernels in f32 and bf16, their launches from the f32 legs and
    the bf16 leg, which runs the fused pair, so the bf16 split variants'
@@ -129,6 +147,30 @@ CKPT_IO_REPS = 2
 # torch.profiler traces taken before a trace without the measured
 # function's kernels is fatal.
 TRACE_ATTEMPTS = 3
+# Head dims the kernels are not instantiated at (96, run zero-padded at
+# 128) and the widest instantiation (256), at one prefill layer's shape.
+HEAD_DIM_SHAPES = ((1, 1024, 12, 96), (1, 1024, 12, 256))
+# The README main path as flows/train_flow.py:45-48 runs it: 3 epochs at
+# global batch 32 and lr 1e-3, on the full-size synthetic FashionMNIST
+# (60,000 rows: 1875 steps an epoch); the eval at flows/eval_flow.py:61's
+# batch of 512 over the 10,000 test rows.
+MLP_EPOCHS, MLP_BATCH, MLP_LR = 3, 32, 1e-3
+EVAL_BATCH = 512
+# The best epoch's accuracy must reach this. The same call on the CPU
+# (scripts of this repo: train_fashion_mnist(device="cpu"), 3 epochs)
+# read 1.0000 after every epoch (val_loss 0.0026, 0.0008, ...): the
+# synthetic classes are separable. 0.99 leaves room for the card's other
+# dropout masks and summation order, and still fails a model that did not
+# learn (chance is 0.1).
+MLP_ACCURACY_FLOOR = 0.99
+# Rows by which the predictor's misclassified count (batch 512) may differ
+# from the count the best epoch's accuracy implies (the eval step at batch
+# 32): the two products run at different M, so a row whose top two logits
+# are within rounding may flip.
+EVAL_ROWS_TOL = 5
+MLP_TIMED_WARMUP = 20   # steps before the step-time median
+MLP_PROFILED_STEPS = 50
+MLP_INLINE_STEPS = 300  # steps timed with the batches converted inline
 DECODE_M = 8      # the engine's slots
 PREFILL_M = 512   # the widest prefill bucket the slice phase uses
 GEN_PROMPT = 512
@@ -1073,6 +1115,283 @@ def engine_profile(torch, model, prompts, flags, wall_s: float) -> dict:
     return out
 
 
+def head_dim_phase(torch, timer, bwd_rows):
+    """The flash forward with lse and both backward pairs at a padded head
+    dim (96, run at the 128 instantiation) and at 256, f32 and bf16,
+    causal: against their plain versions at the true D with the backward
+    phase's tolerances, the split pair bit-equal to the fused one, and
+    their device ms (the wrappers' padding copies included) beside the
+    D = 64 kernels' at (1, 1024, 12, 64)."""
+    from tpuflow_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for name in ("float32", "bfloat16"):
+        dt = getattr(torch, name)
+        d64 = {r["kernel"]: r["ms"] for r in bwd_rows
+               if r["dtype"] == name and r["shape"] == [1, 1024, 12, 64]}
+        for B, T, H, D in HEAD_DIM_SHAPES:
+            q, k, v, do = (
+                torch.randn(B, T, H, D, device="cuda", generator=g).to(dt)
+                for _ in range(4)
+            )
+            tag = f"{name} {(B, T, H, D)}"
+            o, lse = fa.flash_fwd_lse(q, k, v, causal=True)
+            dq, delta = fa.flash_bwd_dq(q, k, v, o, lse, do, causal=True)
+            dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True)
+            split = fa.flash_bwd_split(q, k, v, o, lse, do, causal=True)
+            torch.cuda.synchronize()
+            for key, a, b in zip(("dq", "dk", "dv"), split, (dq, dk, dv)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"head dim {tag}: split {key} "
+                                         "differs from the fused pair's")
+            ro, rlse = fa.blockwise_attention_lse(q, k, v, causal=True)
+            rdq, rdelta = fa.flash_bwd_dq_plain(q, k, v, o, lse, do,
+                                                causal=True)
+            rdk, rdv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, rdelta,
+                                              causal=True)
+            errs = {
+                "out": _within(o, ro, *FLASH_TOL[name], f"out {tag}"),
+                "lse": _within(lse, rlse, *LSE_TOL, f"lse {tag}"),
+                "delta": _within(delta, rdelta, *DELTA_TOL, f"delta {tag}"),
+            }
+            for key, got, want in (("dq", dq, rdq), ("dk", dk, rdk),
+                                   ("dv", dv, rdv)):
+                errs[key] = _within(got, want, *BWD_TOL[name],
+                                    f"{key} {tag}")
+            del ro, rlse, rdq, rdelta, rdk, rdv, split
+            ms = {kern: timer(fn)[0] for kern, fn in (
+                ("flash_fwd_lse",
+                 lambda: fa.flash_fwd_lse(q, k, v, causal=True)),
+                ("flash_bwd_dq",
+                 lambda: fa.flash_bwd_dq(q, k, v, o, lse, do, causal=True)),
+                ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(
+                    q, k, v, do, lse, delta, causal=True)),
+                ("flash_bwd_dq_split", lambda: fa.flash_bwd_dq_split(
+                    q, k, v, o, lse, do, causal=True)),
+                ("flash_bwd_dkv_split", lambda: fa.flash_bwd_dkv_split(
+                    q, k, v, o, lse, do, causal=True)),
+            )}
+            rows.append(dict(shape=[B, T, H, D], dtype=name,
+                             kernel_dim=fa._kernel_dim(D), errors=errs,
+                             ms=ms, d64_ms=d64))
+            print(f"head dim {D} (kernel {fa._kernel_dim(D)}) {tag}: "
+                  "max|err| " + ", ".join(f"{k} {e[0]:.3g} ({e[1]:.3f})"
+                                          for k, e in errs.items())
+                  + "; device ms (D = 64 beside): " + ", ".join(
+                      f"{k} {ms[k]:.4f} ({d64[k]:.4f})" for k in ms))
+    return rows
+
+
+def mlp_timing(torch, smi) -> dict:
+    """The MLP's training loop as ``train_func_per_worker`` runs it (the
+    train step, a dispatch window of 2) with a host stamp per step: one
+    epoch with the batches prefetched to the card on a background thread
+    (depth 2, as the main path runs), then ``MLP_INLINE_STEPS`` steps with
+    the batches converted inline (depth 0) to show what the thread costs.
+    Each gives the step ms (median after ``MLP_TIMED_WARMUP`` steps) and
+    samples/s; the epoch its training wall. Then ``MLP_PROFILED_STEPS``
+    prefetched steps under torch.profiler: the device's busy share of
+    their wall, the kernels a step launches, and the host ops that take
+    the most CPU time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuflow_torch.data.loader import get_dataloaders, prefetch_to_device
+    from tpuflow_torch.models import NeuralNetwork
+    from tpuflow_torch.train.step import (
+        DispatchWindow,
+        create_train_state,
+        make_train_step,
+    )
+
+    train, _ = get_dataloaders(MLP_BATCH)
+    state = create_train_state(NeuralNetwork().cuda(), MLP_LR)
+    step = make_train_step()
+
+    def run(n: int, depth: int = 2) -> list[float]:
+        window = DispatchWindow(2)
+        stamps = [time.monotonic()]
+        for _, placed in zip(range(n), prefetch_to_device(
+                train, "cuda", depth=depth, keys=("x", "y"))):
+            _, metrics = step(state, placed, 1)
+            for matured in window.push(metrics["loss"]):
+                float(matured)
+            stamps.append(time.monotonic())
+        for matured in window.drain():
+            float(matured)
+        torch.cuda.synchronize()
+        stamps.append(time.monotonic())
+        return stamps
+
+    def median_ms(stamps):
+        return float(np.median(np.diff(stamps[1 + MLP_TIMED_WARMUP:-1]))) * 1e3
+
+    stamps = run(len(train))
+    step_ms = median_ms(stamps)
+    epoch_s = stamps[-1] - stamps[0]
+    inline_ms = median_ms(run(MLP_INLINE_STEPS, depth=0))
+    walls = []
+    kernels = kernel_trace(torch, lambda: walls.append(
+        run(MLP_PROFILED_STEPS)))
+    prof_wall = walls[-1][-1] - walls[-1][0]
+    busy = _busy(kernels) / 1e6
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run(MLP_PROFILED_STEPS)
+    host_ops = [(e.key, e.self_cpu_time_total / 1e3 / MLP_PROFILED_STEPS,
+                 e.count / MLP_PROFILED_STEPS)
+                for e in sorted(prof.key_averages(),
+                                key=lambda e: -e.self_cpu_time_total)[:10]]
+    out = dict(step_ms_median=step_ms, samples_per_s=MLP_BATCH / step_ms * 1e3,
+               epoch_train_s=epoch_s, steps=len(train),
+               inline_step_ms_median=inline_ms,
+               inline_samples_per_s=MLP_BATCH / inline_ms * 1e3,
+               profiled_steps=MLP_PROFILED_STEPS,
+               kernels_per_step=len(kernels) / MLP_PROFILED_STEPS,
+               device_busy_s=busy, profiled_wall_s=prof_wall,
+               device_busy_share=busy / prof_wall,
+               top_kernels_ms=_top(kernels),
+               top_host_ops_ms_per_step=host_ops, gpu=smi)
+    print(f"MLP step: {step_ms:.4f} ms (median after {MLP_TIMED_WARMUP} "
+          f"steps), {out['samples_per_s']:.0f} samples/s, epoch of "
+          f"{len(train)} steps {epoch_s:.2f} s (training only); batches "
+          f"converted inline instead: {inline_ms:.4f} ms, "
+          f"{out['inline_samples_per_s']:.0f} samples/s; under the "
+          f"profiler {MLP_PROFILED_STEPS} steps: "
+          f"{out['kernels_per_step']:.1f} kernels a step, device busy "
+          f"{busy:.4f} s = {out['device_busy_share']:.1%} of "
+          f"{prof_wall:.3f} s; host ms a step by op: " + ", ".join(
+              f"{k} {ms:.3f} (x{n:.0f})" for k, ms, n in host_ops[:6])
+          + f" [{smi}]")
+    return out
+
+
+def main_path_phase(torch, smi) -> dict:
+    """The README main path on the card through the port's entry points:
+    ``train_fashion_mnist`` (3 epochs, per-epoch checkpoints), a warm
+    start from its checkpoint, an in-run resume from a copy of its storage
+    without the newest step, and ``TorchPredictor`` + ``map_batches`` over
+    the 10,000 test rows; then its numbers (``mlp_timing``, the
+    checkpoint's save and restore seconds, eval rows/s). The MLP's three
+    dense layers are torch.matmul products, as the JAX package leaves them
+    to XLA: the path launches no kernel of the port, and the counters must
+    read 0. Its directories live under ``build/`` and are deleted."""
+    from tpuflow_torch.ckpt import CheckpointManager
+    from tpuflow_torch.flows import my_torch_module as m
+    from tpuflow_torch.ops import flash_attention as fa
+    from tpuflow_torch.ops import int8_matmul as im
+
+    call = dict(epochs=MLP_EPOCHS, global_batch_size=MLP_BATCH, lr=MLP_LR)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_mlp_",
+                            dir=os.path.join(REPO, "build"))
+    try:
+        run = os.path.join(root, "run")
+        _zero_counters(fa, im)
+        t0 = time.monotonic()
+        res = m.train_fashion_mnist(checkpoint_storage_path=run, **call)
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+        got = _counters(fa, im)
+        if got != _launches():
+            raise AssertionError(f"the MLP path launched {got}: it runs no "
+                                 "kernel of the port")
+        hist = res.metrics_history
+        val = [h["val_loss"] for h in hist]
+        if len(hist) != MLP_EPOCHS or not all(np.isfinite(val)):
+            raise AssertionError(f"main path history {hist}")
+        if not val[2] < val[0]:
+            raise AssertionError(f"main path val_loss did not fall: {val}")
+        best = res.best_checkpoint.metadata["metrics"]
+        if not best["accuracy"] >= MLP_ACCURACY_FLOOR:
+            raise AssertionError(f"best accuracy {best['accuracy']} below "
+                                 f"the floor {MLP_ACCURACY_FLOOR}")
+        ckdir = os.path.join(run, "checkpoints")
+        best_step = int(res.best_checkpoint.path.rsplit("_", 1)[1])
+        kept = sorted(int(d.split("_")[1]) for d in os.listdir(ckdir))
+        want_kept = sorted({MLP_EPOCHS - 1, MLP_EPOCHS, best_step})
+        if kept != want_kept:
+            raise AssertionError(f"retained steps {kept}, want {want_kept} "
+                                 "(num_to_keep=2 plus the best)")
+        print(f"main path: train_fashion_mnist {MLP_EPOCHS} epochs at batch "
+              f"{MLP_BATCH}, lr {MLP_LR}: val_loss "
+              f"{', '.join(f'{x:.6f}' for x in val)}; accuracy "
+              f"{', '.join(str(h['accuracy']) for h in hist)}; retained "
+              f"steps {kept} (best {best_step}); wall {wall_s:.2f} s; "
+              f"launches {got} [{smi}]")
+
+        # --- warm start: weights only, one epoch.
+        warm = m.train_fashion_mnist(
+            checkpoint=res.checkpoint, **dict(call, epochs=1),
+            checkpoint_storage_path=os.path.join(root, "warm"))
+        warm_val = warm.metrics_history[0]["val_loss"]
+        if not warm_val < val[0]:
+            raise AssertionError(f"warm start val_loss {warm_val} not below "
+                                 f"the cold run's first {val[0]}")
+        print(f"warm start from step {MLP_EPOCHS}: first val_loss "
+              f"{warm_val:.6f} < the cold run's first {val[0]:.6f}")
+
+        # --- in-run resume: the storage without its newest step.
+        resume = os.path.join(root, "resume")
+        shutil.copytree(run, resume, ignore=shutil.ignore_patterns(
+            f"step_{MLP_EPOCHS}"))
+        with open(os.path.join(resume, "metrics.jsonl")) as fh:
+            n_lines = len(fh.readlines())
+        again = m.train_fashion_mnist(checkpoint_storage_path=resume, **call)
+        with open(os.path.join(resume, "metrics.jsonl")) as fh:
+            new_steps = [json.loads(x)["step"]
+                         for x in fh.readlines()[n_lines:]]
+        if new_steps != [MLP_EPOCHS]:
+            raise AssertionError(f"the resumed run reported steps "
+                                 f"{new_steps}, want [{MLP_EPOCHS}] only")
+        if again.metrics != res.metrics:
+            raise AssertionError(f"resumed epoch {MLP_EPOCHS} metrics "
+                                 f"{again.metrics} != {res.metrics}")
+        a = _shards(os.path.join(ckdir, f"step_{MLP_EPOCHS}"))
+        b = _shards(os.path.join(resume, "checkpoints", f"step_{MLP_EPOCHS}"))
+        if a != b:
+            raise AssertionError(f"resumed step_{MLP_EPOCHS} shards differ: "
+                                 f"{[x for x, y in zip(a, b) if x != y][:3]}")
+        print(f"in-run resume from step {MLP_EPOCHS - 1}: epoch {MLP_EPOCHS} "
+              f"only, its metrics bit-equal, step_{MLP_EPOCHS}: {len(a)} "
+              "shard crc32s equal")
+
+        # --- the checkpoint's save and restore seconds.
+        mgr = CheckpointManager(ckdir)
+        state = mgr.restore(MLP_EPOCHS)
+        io = CheckpointManager(os.path.join(root, "io"), async_save=False)
+        io.save(MLP_EPOCHS, state)
+        restore, save = mgr.restores[-1], io.saves[-1]
+        print(f"checkpoint of the MLP state: {_io_line('save', [save])}; "
+              f"{_io_line('restore', [restore])} (this machine's host disk) "
+              f"[{smi}]")
+
+        # --- batch eval over the test rows.
+        rows = m.get_dataloaders(EVAL_BATCH, as_rows=True)
+        predictor = m.TorchPredictor(res.best_checkpoint)
+        t0 = time.monotonic()
+        outs = m.map_batches(rows, predictor, batch_size=EVAL_BATCH)
+        eval_s = time.monotonic() - t0
+        mis = sum(int(o["predicted_values"]) != r["labels"]
+                  for o, r in zip(outs, rows))
+        implied = round((1.0 - best["accuracy"]) * len(rows))
+        if len(outs) != len(rows) or abs(mis - implied) > EVAL_ROWS_TOL:
+            raise AssertionError(
+                f"{mis}/{len(rows)} misclassified; the best epoch's accuracy "
+                f"{best['accuracy']} implies {implied} (+-{EVAL_ROWS_TOL})")
+        print(f"eval: {mis}/{len(rows)} misclassified at batch {EVAL_BATCH} "
+              f"(the best epoch's accuracy {best['accuracy']} implies "
+              f"{implied}; allowed +-{EVAL_ROWS_TOL}); "
+              f"{len(rows) / eval_s:.0f} rows/s [{smi}]")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(wall_s=wall_s, metrics_history=hist, launches=got,
+                retained=kept, best_step=best_step, warm_val_loss=warm_val,
+                resume_steps=new_steps, resume_shards=len(a), save=save,
+                restore=restore, misclassified=mis, implied=implied,
+                eval_rows_per_s=len(rows) / eval_s,
+                timing=mlp_timing(torch, smi), gpu=smi)
+
+
 def main() -> int:
     import torch
 
@@ -1092,9 +1411,11 @@ def main() -> int:
     flash_rows = flash_phase(torch, timer)
     int8_rows = int8_phase(torch, timer)
     bwd_rows = flash_bwd_phase(torch, timer)
+    head_rows = head_dim_phase(torch, timer, bwd_rows)
     del timer
     sl, flash_n, int8_n = slice_phase(torch, smi)
     tr, train_n = train_phase(torch, smi)
+    main_path = main_path_phase(torch, smi)
 
     # One JSON entry per kernel. flash: one launch at the generate() leg's
     # shape (f32, 1 x 512 x 12 x 64). int8: the 49 launches of one int8
@@ -1182,8 +1503,9 @@ def main() -> int:
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(dict(gpu=smi, build_s=build_s, flash=flash_rows,
-                       int8=int8_rows, flash_bwd=bwd_rows, slice=sl,
-                       train=tr, kernels=kernels), fh,
+                       int8=int8_rows, flash_bwd=bwd_rows,
+                       head_dims=head_rows, slice=sl, train=tr,
+                       main_path=main_path, kernels=kernels), fh,
                   indent=1, default=float)
     print(json.dumps({"kernels": kernels}, default=float))
     print(smi)

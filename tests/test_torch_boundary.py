@@ -23,8 +23,8 @@ def _port_sources():
 
 # Every package of the port, with its count of Python modules: a module
 # dropped or left out of the scan fails the count.
-PACKAGES = {"": 2, "ckpt": 5, "data": 4, "infer": 4, "models": 4, "ops": 5,
-            "train": 4}
+PACKAGES = {"": 2, "ckpt": 5, "data": 4, "dist": 2, "flows": 2, "infer": 5,
+            "models": 5, "ops": 5, "train": 5}
 
 
 def _imported_roots(path):
@@ -73,6 +73,7 @@ def test_package_imports_with_jax_poisoned():
         "import tpuflow_torch.train.optim, tpuflow_torch.data.lm\n"
         "import tpuflow_torch.models.losses, tpuflow_torch.ckpt.tree\n"
         "import tpuflow_torch.ckpt.manager, tpuflow_torch.ckpt.raw\n"
+        "import tpuflow_torch.flows.my_torch_module, tpuflow_torch.dist\n"
         "assert not any(k.split('.')[0] in ('jax', 'flax') and v is not None\n"
         "               for k, v in sys.modules.items())\n"
         "print('ok')\n"

@@ -93,8 +93,8 @@ def test_flash_kernel_bf16_and_rejects(cuda):
     # the output to bf16: two bf16 ulps, as in chip_smoke.py.
     torch.testing.assert_close(out.float(), ref.float(), atol=4e-3,
                                rtol=8e-3)
-    with pytest.raises(ValueError, match="head_dim"):
-        x = torch.zeros(1, 8, 2, 48, device="cuda")
+    with pytest.raises(ValueError, match="head_dim up to 256"):
+        x = torch.zeros(1, 8, 2, 264, device="cuda")
         fa.flash_attention(x, x, x)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         x = torch.zeros(1, 8, 2, 64, device="cuda", dtype=torch.float16)
@@ -604,3 +604,139 @@ def test_train_gpt_bf16_on_the_card(cuda):
     L = cfg.model_config().n_layer
     assert (fa.launches_lse_bf16 - n[0], fa.launches_bwd_dq_bf16 - n[1],
             fa.launches_bwd_dkv_bf16 - n[2]) == (4 * L, 4 * L, 4 * L)
+
+
+# Head dims the kernels are not instantiated at run zero-padded to the next
+# of 32, 64, 128 (16, 48 and 96 here); 256 runs its own instantiation,
+# which splits the output columns over grid.z.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 48, 96, 256])
+@pytest.mark.parametrize("T", [1, 77, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_head_dims_padded_and_256_match_plain(cuda, dtype, D, T,
+                                                    causal):
+    """Forward (no lse and with lse) and both backward pairs at a padded or
+    the 256-wide head dim, strided q/k/v views, against the plain versions
+    at the true D within the existing tolerances; split bit-equal to fused;
+    one launch counted per call."""
+    from tpuflow_torch.ops import flash_attention as fa
+
+    q, k, v = _flash_views(cuda, 2, T, T, 3, D, dtype)
+    do = torch.randn(q.shape, device="cuda", generator=cuda).to(dtype)
+    n = (fa.launches, fa.launches_lse, fa.launches_bwd_dq,
+         fa.launches_bwd_dkv)
+    out = fa.flash_attention(q, k, v, causal=causal)
+    o, lse = fa.flash_fwd_lse(q, k, v, causal=causal)
+    dq, delta = fa.flash_bwd_dq(q, k, v, o, lse, do, causal=causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal)
+    split = fa.flash_bwd_split(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.launches_lse, fa.launches_bwd_dq,
+            fa.launches_bwd_dkv) == (n[0] + 1, n[1] + 1, n[2] + 1, n[3] + 1)
+    assert out.shape == o.shape == q.shape and torch.equal(out, o)
+    ref, ref_lse = fa.blockwise_attention_lse(q, k, v, causal=causal)
+    atol, rtol = _FLASH_TOL[dtype]
+    torch.testing.assert_close(o.float(), ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=1e-6)
+    rdq, rdelta = fa.flash_bwd_dq_plain(q, k, v, o, lse, do, causal=causal)
+    rdk, rdv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, rdelta,
+                                      causal=causal)
+    torch.testing.assert_close(delta, rdelta, atol=1e-4, rtol=1e-5)
+    atol, rtol = BWD_TOL[dtype]
+    for name, got, want, sp in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                   (rdq, rdk, rdv), split):
+        assert got.shape == q.shape and got.dtype == dtype, name
+        assert torch.equal(got, sp), name
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [0, 1])  # float32, bfloat16
+@pytest.mark.parametrize("grid", ["small", "full"])
+def test_flash_d256_smem_within_the_card(cuda, dtype, grid):
+    """At D = 256 every launch the plans make fits one block's shared
+    memory: the forward's 32-row q tile, the backward's rows (32 in f32,
+    32 or 64 in bf16) for the fused and split kernels; the launches run,
+    and a 64-row forward tile, which would not fit, is never planned."""
+    from tpuflow_torch.ops import _build
+    from tpuflow_torch.ops import flash_attention as fa
+
+    torch_dtype = (torch.float32, torch.bfloat16)[dtype]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    B = {"small": 1, "full": sms}[grid]
+    assert fa._flash_bq(B, 1, 128, sms, 256) == 32
+    assert 0 < _build.load("flash_fwd").tpuflow_flash_fwd_smem(
+        dtype, 256, 32) <= _smem_limit()
+    plan = fa._flash_bwd_plan(B, 1, 128, 128, 256, torch_dtype, sms)
+    lib = _build.load("flash_bwd")
+    for kernel, key in ((0, "dq_rows"), (1, "dkv_rows")):
+        for split in (0, 1):
+            assert 0 < lib.tpuflow_flash_bwd_smem(
+                kernel, split, dtype, 256, plan[key]) <= _smem_limit()
+    q, k, v = _flash_views(cuda, B, 128, 128, 1, 256, torch_dtype)
+    do = torch.randn(q.shape, device="cuda", generator=cuda).to(torch_dtype)
+    o, lse = fa.flash_fwd_lse(q, k, v, causal=True)
+    fused = fa.flash_bwd(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    want = fa.flash_bwd_plain(q, k, v, o, lse, do, causal=True)
+    atol, rtol = BWD_TOL[torch_dtype]
+    for a, c in zip(fused, want):
+        torch.testing.assert_close(a.float(), c.float(), atol=atol, rtol=rtol)
+
+
+def test_flash_head_dim_not_multiple_of_8_takes_blockwise(cuda):
+    """D % 8 != 0 takes blockwise_attention on the card too (the
+    reference's dispatch): no kernel launches, gradients by autograd."""
+    from tpuflow_torch.ops import flash_attention as fa
+
+    q, k, v = (torch.randn(1, 40, 2, 20, device="cuda", generator=cuda)
+               .requires_grad_() for _ in range(3))
+    n = (fa.launches, fa.launches_lse, fa.launches_bwd_dq)
+    out = fa.flash_attention(q, k, v, causal=True)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.launches_lse, fa.launches_bwd_dq) == n
+    assert q.grad is not None and torch.isfinite(q.grad).all()
+
+
+def test_prefetch_to_device_on_the_card(cuda):
+    """The prefetcher's batches on the card equal the loader's, in order,
+    copied from pinned memory on its side stream."""
+    from tpuflow_torch.data.loader import get_dataloaders, prefetch_to_device
+
+    train, _ = get_dataloaders(32, n_train=256, n_test=10)
+    got = list(prefetch_to_device(train, "cuda", keys=("x", "y")))
+    want = list(train)
+    assert len(got) == len(want) == 8
+    for g, w in zip(got, want):
+        assert g["x"].is_cuda and sorted(g) == ["x", "y"]
+        np.testing.assert_array_equal(g["x"].cpu().numpy(), w["x"])
+        np.testing.assert_array_equal(g["y"].cpu().numpy(), w["y"])
+
+
+def test_train_fashion_mnist_on_the_card_predicts_like_the_cpu(cuda,
+                                                              tmp_path):
+    """A small train_fashion_mnist on the card (2 epochs, 2,000 rows): the
+    loss falls, and the predictor's argmax over the 1,000 test rows on the
+    card equals the CPU predictor's on the same weights except for at
+    most 3 rows (f32 products with TF32 off, rounded in another order),
+    the logits within 1e-4 of the largest |logit|."""
+    from tpuflow_torch.flows import my_torch_module as m
+
+    sizes = dict(n_train=2000, n_test=1000)
+    res = m.train_fashion_mnist(epochs=2, checkpoint_storage_path=str(
+        tmp_path / "run"), **sizes)
+    val = [h["val_loss"] for h in res.metrics_history]
+    assert all(np.isfinite(val)) and val[1] < val[0]
+    rows = m.get_dataloaders(512, as_rows=True, **sizes)
+    on_card = m.map_batches(rows, m.TorchPredictor(res.best_checkpoint),
+                            batch_size=512)
+    on_cpu = m.map_batches(rows, m.TorchPredictor(res.best_checkpoint,
+                                                  device="cpu"),
+                           batch_size=512)
+    flips = sum(int(a["predicted_values"]) != int(b["predicted_values"])
+                for a, b in zip(on_card, on_cpu))
+    assert flips <= 3
+    a = np.stack([o["logits"] for o in on_card])
+    b = np.stack([o["logits"] for o in on_cpu])
+    np.testing.assert_allclose(a, b, rtol=0, atol=1e-4 * np.abs(b).max())

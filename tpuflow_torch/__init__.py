@@ -15,6 +15,12 @@ The training slice: ``train.gpt`` (``train_gpt``, one device),
 with schedules and clipping), ``models.losses``, the ``data`` loaders,
 and GPT-2's training modes (remat, seeded dropout) over the flash
 forward with lse and the fused backward kernels.
+
+The main path: ``flows.my_torch_module`` (``train_fashion_mnist`` →
+``train.trainer.Trainer.fit`` with per-epoch checkpoints, warm start and
+in-run resume; ``TorchPredictor`` + ``infer.engine.map_batches``) over
+``models.mlp``, the FashionMNIST ``data`` and ``dist`` (one process per
+card, gradients averaged over the ``data`` axis).
 """
 
 from tpuflow_torch.device import resolve_device

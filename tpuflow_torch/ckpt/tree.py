@@ -1,15 +1,16 @@
 """The port's training state as the JAX package's checkpoint tree.
 
-``tpuflow/train/gpt.py`` saves ``{"step", "params", "opt_state",
-["ema_params"]}`` with Flax params and optax state. This module lays a
-``train.step.TrainState`` out the same way, so a checkpoint written by
-either package restores into the other:
+``tpuflow/train/gpt.py`` and ``flows/my_tpu_module.py::_state_tree`` save
+``{"step", "params", "opt_state", ["ema_params"]}`` with Flax params and
+optax state. This module lays a ``train.step.TrainState`` out the same
+way, so a checkpoint written by either package restores into the other:
 
-- ``params``: ``params_to_jax``, the inverse of
+- ``params``: for GPT-2, ``params_to_jax``, the inverse of
   ``models/convert.py::params_from_jax``. Dense kernels transpose back to
   (in, out); with ``scan_layers`` (the ``gpt2`` and ``medium`` presets)
   the blocks stack into ``h/block/...`` with a leading layer axis, else
-  they are ``h0`` .. ``h{L-1}``.
+  they are ``h0`` .. ``h{L-1}``. For the MLP (``models/mlp.py``),
+  ``dense{1,2,3}/{kernel, bias}`` (``convert.mlp_params_to_jax``).
 - ``opt_state``: optax's tuple layout, tuple indices as keys. ``adamw`` is
   ``chain(scale_by_adam, add_decayed_weights, scale_by_learning_rate)``:
   ``0/{count, mu, nu}``, plus ``2/count`` when the learning rate is
@@ -24,7 +25,12 @@ from __future__ import annotations
 
 import torch
 
-from tpuflow_torch.models.convert import params_from_jax
+from tpuflow_torch.models.convert import (
+    mlp_params_from_jax,
+    mlp_params_to_jax,
+    params_from_jax,
+)
+from tpuflow_torch.models.mlp import NeuralNetwork
 
 _DENSE = ("c_attn", "c_proj", "mlp_fc", "mlp_proj")
 _NORMS = ("ln_1", "ln_2")
@@ -64,11 +70,18 @@ def _count(n: int) -> torch.Tensor:
     return torch.tensor(n, dtype=torch.int32)
 
 
-def checkpoint_tree(state, *, scan_layers: bool, abstract: bool = False
-                    ) -> dict:
+def _to_jax(model, sd: dict, scan_layers: bool) -> dict:
+    if isinstance(model, NeuralNetwork):
+        return mlp_params_to_jax(sd)
+    return params_to_jax(sd, scan_layers=scan_layers)
+
+
+def checkpoint_tree(state, *, scan_layers: bool = False,
+                    abstract: bool = False) -> dict:
     """``state`` as the JAX checkpoint tree: views of the live tensors, or
     with ``abstract`` shape-and-dtype stand-ins on the ``meta`` device (a
-    restore template that allocates nothing)."""
+    restore template that allocates nothing). ``scan_layers`` picks
+    GPT-2's stacked block layout; the MLP has one layout."""
     names = [n for n, _ in state.model.named_parameters()]
 
     def layout(tensors) -> dict:
@@ -77,8 +90,7 @@ def checkpoint_tree(state, *, scan_layers: bool, abstract: bool = False
                              "parameters")
         if abstract:
             tensors = [torch.empty_like(t, device="meta") for t in tensors]
-        return params_to_jax(dict(zip(names, tensors)),
-                             scan_layers=scan_layers)
+        return _to_jax(state.model, dict(zip(names, tensors)), scan_layers)
 
     tx = state.tx
     inner = {"0": {name: layout(ts) for name, ts in tx.slots().items()}}
@@ -97,21 +109,32 @@ def checkpoint_tree(state, *, scan_layers: bool, abstract: bool = False
     return tree
 
 
-def _ordered(state, tree: dict) -> list[torch.Tensor]:
-    """A param-layout tree → its tensors in the port's parameter order."""
-    sd = params_from_jax(tree)
-    return [sd[n] for n, _ in state.model.named_parameters()]
+def _ordered(model, tree: dict) -> list[torch.Tensor]:
+    """A param-layout tree → its tensors in ``model``'s parameter order."""
+    if isinstance(model, NeuralNetwork):
+        sd = mlp_params_from_jax(tree)
+    else:
+        sd = params_from_jax(tree)
+    return [sd[n] for n, _ in model.named_parameters()]
+
+
+@torch.no_grad()
+def load_params(model, params: dict) -> None:
+    """Copy a restored ``params`` subtree (the JAX layout) into ``model``'s
+    parameters in place: a weights-only warm start (an optimizer over them
+    keeps its state)."""
+    for p, src in zip(model.parameters(), _ordered(model, params)):
+        p.copy_(src)
 
 
 @torch.no_grad()
 def load_checkpoint_tree(state, tree: dict) -> None:
     """Copy a restored checkpoint tree (either layout) into ``state`` in
     place: params, optimizer slots and count, EMA weights and step."""
-    for p, src in zip(state.params, _ordered(state, tree["params"])):
-        p.copy_(src)
+    load_params(state.model, tree["params"])
     opt = tree["opt_state"]
     inner = opt["1"] if state.tx.grad_clip_norm is not None else opt
-    slots = {name: _ordered(state, sub)
+    slots = {name: _ordered(state.model, sub)
              for name, sub in inner["0"].items() if name != "count"}
     counts = [int(c["count"]) for c in (inner["0"], inner.get("1"),
                                         inner.get("2"))
@@ -125,6 +148,6 @@ def load_checkpoint_tree(state, tree: dict) -> None:
             raise ValueError("the checkpoint holds ema_params; seed them "
                              "with with_ema(state) first")
         for e, src in zip(state.ema_params,
-                          _ordered(state, tree["ema_params"])):
+                          _ordered(state.model, tree["ema_params"])):
             e.copy_(src)
     state.step = int(tree["step"])

@@ -69,6 +69,18 @@
 // rows), so the plan gives them 8 warps where the grid allows; a lane sits
 // at ~254 registers.
 //
+// Head dims. D = 32, 64 and 128 are instantiated as they are; the wrapper
+// zero-pads any other D % 8 == 0 up to the next of 32, 64, 128, 256 (q, k,
+// v, O and dO) and passes the true scale 1/sqrt(D): zero columns add exact
+// zeros to every S, dP, D and gradient column. D = 256 keeps the D = 128
+// register layout by splitting the output columns: a block owns 128 of
+// them (grid.z = 2), computes S, dP and D over the full 256 and
+// accumulates dQ (or dK and dV) for its own columns only; the fused dq
+// kernel's delta row is written by column block 0 alone. The S and dP
+// work is done once a column block; nothing else changes. The streamed
+// tiles are 32 rows (bf16 as at D = 128; f32 too, whose 64-row ring would
+// not fit), and an f32 block owns 32 rows.
+//
 // Bits. Split = fused: the split kernels are the fused kernels' code with
 // the SPLIT flag set; D comes from one helper (pair_delta, a fixed order)
 // at all three sites, P and dS from two others (prob, dscore) of _rn
@@ -89,9 +101,14 @@
 namespace {
 
 constexpr int STAGES = 2;  // ring depth of the streamed tiles
-constexpr int FBK = 64;    // f32: keys (dq) or q rows (dk/dv) a tile
-constexpr int FPS = FBK + 8;  // f32: P / dS buffer row stride (banks)
 constexpr float NEG_INF = -1e30f;
+
+// f32: keys (dq) or q rows (dk/dv) a streamed tile; its P / dS buffer row
+// stride (+8: banks).
+__host__ __device__ constexpr int fma_tile(int D) { return D <= 128 ? 64 : 32; }
+__host__ __device__ constexpr int fma_ps(int D) { return fma_tile(D) + 8; }
+// The output columns a block owns (grid.z = D / out_cols(D)).
+__host__ __device__ constexpr int out_cols(int D) { return D <= 128 ? D : 128; }
 
 using bf16 = __nv_bfloat16;
 
@@ -237,7 +254,7 @@ struct Args {
   float* delta_out;               // fused dq: (B*H, Tq)
   void *dq, *dk, *dv;             // contiguous (B, T, H, D)
   int H, Tq, Tk, causal, aligned;
-  float scale;
+  float scale;  // 1/sqrt(D) of the caller's D, before any padding
   Strides sq, sk, sv, so, sg;
 };
 
@@ -248,7 +265,7 @@ __device__ __forceinline__ const T* head(const void* p, const Strides& s,
 }
 
 // bf16 tile heights: keys a dq tile, q rows a dk/dv tile.
-__host__ __device__ constexpr int mma_tile(int D) { return D == 128 ? 32 : 64; }
+__host__ __device__ constexpr int mma_tile(int D) { return D >= 128 ? 32 : 64; }
 
 // Whether the split dk/dv ring stages O: all but f32 at D = 128, whose
 // stage would not fit the block's shared memory twice; that kernel reads
@@ -312,6 +329,7 @@ __global__ void __launch_bounds__(128)
 bwd_dq_mma(const Args a) {
   constexpr int RS = D + 8;  // +16 bytes a row: ldmatrix rows hit all banks
   constexpr int BK = mma_tile(D);
+  constexpr int DV = out_cols(D);  // dq columns from col0 on
   constexpr bool AREG = D <= 64;  // Q, dO fragments held in registers
   extern __shared__ __align__(16) uint8_t smem[];
   const int BQ = blockDim.x / 2;  // 16 rows a warp
@@ -323,7 +341,7 @@ bwd_dq_mma(const Args a) {
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
   const int qt = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int q0 = qt * BQ, w0 = warp * 16;
+  const int q0 = qt * BQ, w0 = warp * 16, col0 = blockIdx.z * DV;
   const bf16* kb = head<bf16>(a.k, a.sk, b, h);
   const bf16* vb = head<bf16>(a.v, a.sv, b, h);
   const bool al = a.aligned;
@@ -348,7 +366,7 @@ bwd_dq_mma(const Args a) {
   const int drow = q0 + w0 + (lane >> 1);
   const float dl = pair_delta<D>(Gs + (w0 + (lane >> 1)) * RS,
                                  Os + (w0 + (lane >> 1)) * RS, lane & 1);
-  if (!SPLIT && (lane & 1) == 0 && drow < a.Tq)
+  if (!SPLIT && blockIdx.z == 0 && (lane & 1) == 0 && drow < a.Tq)
     a.delta_out[(long long)bh * a.Tq + drow] = dl;
   float dr[2], lr[2];
 #pragma unroll
@@ -366,9 +384,9 @@ bwd_dq_mma(const Args a) {
       ldsm_x4(gf[kk], Gs + off);
     }
   }
-  float acc[D / 8][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int i = 0; i < DV / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
   const int row_last = q0 + w0 + 15;
 
   for (int j = 0; j < n_kt; ++j) {
@@ -440,10 +458,10 @@ bwd_dq_mma(const Args a) {
       pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
       pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
+      for (int dd = 0; dd < DV / 16; ++dd) {
         uint32_t r[4];
         ldsm_x4_t(r, Kt + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * RS +
-                         dd * 16 + (lane >> 4) * 8);
+                         col0 + dd * 16 + (lane >> 4) * 8);
         mma_bf16(acc[2 * dd], pa, r[0], r[1]);
         mma_bf16(acc[2 * dd + 1], pa, r[2], r[3]);
       }
@@ -455,9 +473,10 @@ bwd_dq_mma(const Args a) {
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + w0 + g + 8 * r;
     if (row >= a.Tq) continue;
-    bf16* out = (bf16*)a.dq + (((long long)b * a.Tq + row) * a.H + h) * D;
+    bf16* out =
+        (bf16*)a.dq + (((long long)b * a.Tq + row) * a.H + h) * D + col0;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
+    for (int i = 0; i < DV / 8; ++i)
       *reinterpret_cast<uint32_t*>(out + 8 * i + 2 * t) =
           pack_bf16(acc[i][2 * r], acc[i][2 * r + 1]);
   }
@@ -469,6 +488,7 @@ __global__ void __launch_bounds__(128)
 bwd_dkv_mma(const Args a) {
   constexpr int RS = D + 8;
   constexpr int BQ = mma_tile(D);
+  constexpr int DV = out_cols(D);  // dk, dv columns from col0 on
   constexpr bool AREG = D <= 64;  // K, V fragments held in registers
   constexpr bool OST = o_staged<bf16, D, SPLIT>();
   constexpr int SB = qstage_bytes<bf16>(BQ, RS, OST);
@@ -481,6 +501,7 @@ bwd_dkv_mma(const Args a) {
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
   const int k0 = blockIdx.y * BKV, kw0 = k0 + warp * 16;
+  const int col0 = blockIdx.z * DV;
   const bf16* qb = head<bf16>(a.q, a.sq, b, h);
   const bf16* gb = head<bf16>(a.g, a.sg, b, h);
   const bf16* ob = SPLIT ? head<bf16>(a.o, a.so, b, h) : nullptr;
@@ -508,9 +529,9 @@ bwd_dkv_mma(const Args a) {
       ldsm_x4(vf[kk], Vs + off);
     }
   }
-  float ak[D / 8][4], av[D / 8][4];
+  float ak[DV / 8][4], av[DV / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
+  for (int i = 0; i < DV / 8; ++i)
 #pragma unroll
     for (int c = 0; c < 4; ++c) ak[i][c] = av[i][c] = 0.f;
 
@@ -594,9 +615,9 @@ bwd_dkv_mma(const Args a) {
       sa[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
       sa[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
 #pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
+      for (int dd = 0; dd < DV / 16; ++dd) {
         const int off = (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * RS +
-                        dd * 16 + (lane >> 4) * 8;
+                        col0 + dd * 16 + (lane >> 4) * 8;
         uint32_t r[4];
         ldsm_x4_t(r, st.g + off);
         mma_bf16(av[2 * dd], pa, r[0], r[1]);
@@ -613,11 +634,11 @@ bwd_dkv_mma(const Args a) {
   for (int r = 0; r < 2; ++r) {
     const int key = kw0 + g + 8 * r;
     if (key >= a.Tk) continue;
-    const long long off = (((long long)b * a.Tk + key) * a.H + h) * D;
+    const long long off = (((long long)b * a.Tk + key) * a.H + h) * D + col0;
     bf16* ok = (bf16*)a.dk + off;
     bf16* ov = (bf16*)a.dv + off;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
+    for (int i = 0; i < DV / 8; ++i) {
       *reinterpret_cast<uint32_t*>(ok + 8 * i + 2 * t) =
           pack_bf16(ak[i][2 * r], ak[i][2 * r + 1]);
       *reinterpret_cast<uint32_t*>(ov + 8 * i + 2 * t) =
@@ -627,19 +648,20 @@ bwd_dkv_mma(const Args a) {
 }
 
 // ---------------------------------------------------------------- f32
-// s[i][c] = A[ty + R*i] . B[tx + 8c] over d: each lane of a pair sums its
-// half of d in ascending order (four FMAs a float4), then the halves are
-// added, lower + upper (both lanes get the same bits). Each float4 loaded
-// feeds 8 x 4 FMAs. Every lane of the warp must call it.
-template <int D, int RS>
-__device__ __forceinline__ void pair_dots(float (&s)[8][8], const float* A,
+// s[i][c] = A[ty + R*i] . B[tx + 8c] over d (c < NS: a tile of 8 NS
+// columns): each lane of a pair sums its half of d in ascending order (four
+// FMAs a float4), then the halves are added, lower + upper (both lanes get
+// the same bits). Each float4 loaded feeds 8 x 4 FMAs. Every lane of the
+// warp must call it.
+template <int D, int RS, int NS>
+__device__ __forceinline__ void pair_dots(float (&s)[8][NS], const float* A,
                                           const float* B, int ty, int R,
                                           int tx, int hf) {
   constexpr int DH = D / 2;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) s[i][c] = 0.f;
+    for (int c = 0; c < NS; ++c) s[i][c] = 0.f;
 #pragma unroll 2
   for (int d = hf * DH; d < hf * DH + DH; d += 4) {
     float4 av[8];
@@ -647,7 +669,7 @@ __device__ __forceinline__ void pair_dots(float (&s)[8][8], const float* A,
     for (int i = 0; i < 8; ++i)
       av[i] = *reinterpret_cast<const float4*>(A + (ty + R * i) * RS + d);
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
+    for (int c = 0; c < NS; ++c) {
       const float4 bv =
           *reinterpret_cast<const float4*>(B + (tx + 8 * c) * RS + d);
 #pragma unroll
@@ -662,25 +684,25 @@ __device__ __forceinline__ void pair_dots(float (&s)[8][8], const float* A,
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int c = 0; c < 8; ++c)
+    for (int c = 0; c < NS; ++c)
       s[i][c] += __shfl_xor_sync(0xffffffffu, s[i][c], 8);
 }
 
-// acc[i][.] += sum over the 32 rows u of this lane's half (32hf ..) of a
-// 64-wide tile, in order, of W[ty + R*i][u] X[u][4tx + 32qc .. +3]: W a
-// warp-private P / dS buffer, X a tile in shared memory. Each word loaded
-// feeds 8 FMAs.
-template <int D, int RS>
-__device__ __forceinline__ void half_products(float (&acc)[8][D / 8],
+// acc[i][.] += sum over the KT/2 rows u of this lane's half of a KT-wide
+// tile, in order, of W[ty + R*i][u] X[u][4tx + 32qc .. +3] (DV columns of
+// X): W a warp-private P / dS buffer, X a tile in shared memory. Each word
+// loaded feeds 8 FMAs.
+template <int DV, int RS, int KT>
+__device__ __forceinline__ void half_products(float (&acc)[8][DV / 8],
                                               const float* W, const float* X,
                                               int ty, int R, int tx, int hf) {
-  constexpr int NC = D / 32;
+  constexpr int NC = DV / 32, KH = KT / 2, PS = KT + 8;
 #pragma unroll 2
-  for (int u0 = 32 * hf; u0 < 32 * hf + 32; u0 += 4) {
+  for (int u0 = KH * hf; u0 < KH * hf + KH; u0 += 4) {
     float4 wv[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
-      wv[i] = *reinterpret_cast<const float4*>(W + (ty + R * i) * FPS + u0);
+      wv[i] = *reinterpret_cast<const float4*>(W + (ty + R * i) * PS + u0);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
 #pragma unroll
@@ -703,23 +725,23 @@ __device__ __forceinline__ void half_products(float (&acc)[8][D / 8],
 }
 
 // The halves of acc added (lower + upper) and the lane's own rows
-// (i / 4 == hf) of 8 rows x D/8 columns written to a contiguous
-// (B, T, H, D) f32 gradient.
-template <int D>
-__device__ __forceinline__ void store_rows(float (&acc)[8][D / 8], float* out,
-                                           int b, int h, int H, int T,
-                                           int r0, int R, int ty, int tx,
-                                           int hf) {
+// (i / 4 == hf) of 8 rows x DV/8 columns written to columns col0.. of a
+// contiguous (B, T, H, D) f32 gradient.
+template <int D, int DV>
+__device__ __forceinline__ void store_rows(float (&acc)[8][DV / 8],
+                                           float* out, int b, int h, int H,
+                                           int T, int r0, int R, int ty,
+                                           int tx, int hf, int col0) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c)
+    for (int c = 0; c < DV / 8; ++c)
       acc[i][c] += __shfl_xor_sync(0xffffffffu, acc[i][c], 8);
     const int row = r0 + ty + R * i;
     if (row >= T || (i >> 2) != hf) continue;
-    float* o = out + (((long long)b * T + row) * H + h) * D;
+    float* o = out + (((long long)b * T + row) * H + h) * D + col0;
 #pragma unroll
-    for (int qc = 0; qc < D / 32; ++qc)
+    for (int qc = 0; qc < DV / 32; ++qc)
       *reinterpret_cast<float4*>(o + 4 * tx + 32 * qc) =
           make_float4(acc[i][4 * qc], acc[i][4 * qc + 1], acc[i][4 * qc + 2],
                       acc[i][4 * qc + 3]);
@@ -744,26 +766,28 @@ template <int D, bool SPLIT>
 __global__ void __launch_bounds__(256)
 bwd_dq_fma(const Args a) {
   constexpr int RS = D + 4;  // float4 rows land on distinct banks
+  constexpr int KT = fma_tile(D), PS = fma_ps(D), NS = KT / 8;
+  constexpr int DV = out_cols(D);  // dq columns from col0 on
   extern __shared__ __align__(16) uint8_t smem[];
   const int BQ = blockDim.x / 2, R = BQ / 8;
   float* Qs = reinterpret_cast<float*>(smem);
   float* Gs = Qs + BQ * RS;
-  float* ring = Gs + BQ * RS;                 // [STAGES][K, V][FBK][RS]
-  float* Os = ring + 2 * FBK * RS;            // slot 1, free until tile 1
-  float* dSb = ring + STAGES * 2 * FBK * RS;  // [BQ][FPS]: P, then dS
-  float* lse_s = dSb + BQ * FPS;              // [BQ]
+  float* ring = Gs + BQ * RS;                // [STAGES][K, V][KT][RS]
+  float* Os = ring + 2 * KT * RS;            // slot 1, free until tile 1
+  float* dSb = ring + STAGES * 2 * KT * RS;  // [BQ][PS]: P, then dS
+  float* lse_s = dSb + BQ * PS;              // [BQ]
   float* dl_s = lse_s + BQ;                   // [BQ] row delta D
   const int tid = threadIdx.x, tx = tid & 7, hf = (tid >> 3) & 1;
   const int ty = tid >> 4;
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
   const int qt = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int q0 = qt * BQ;
+  const int q0 = qt * BQ, col0 = blockIdx.z * DV;
   const float* kb = head<float>(a.k, a.sk, b, h);
   const float* vb = head<float>(a.v, a.sv, b, h);
   const bool al = a.aligned;
 
   const int k_end = a.causal ? min(a.Tk, q0 + BQ) : a.Tk;
-  const int n_kt = (k_end + FBK - 1) / FBK;
+  const int n_kt = (k_end + KT - 1) / KT;
   load_rows<float, D, RS>(Qs, head<float>(a.q, a.sq, b, h), a.sq.t, q0,
                           a.Tq, BQ, al);
   load_rows<float, D, RS>(Gs, head<float>(a.g, a.sg, b, h), a.sg.t, q0,
@@ -771,8 +795,8 @@ bwd_dq_fma(const Args a) {
   load_rows<float, D, RS>(Os, head<float>(a.o, a.so, b, h), a.so.t, q0,
                           a.Tq, BQ, al);
   if (n_kt > 0) {
-    load_rows<float, D, RS>(ring, kb, a.sk.t, 0, a.Tk, FBK, al);
-    load_rows<float, D, RS>(ring + FBK * RS, vb, a.sv.t, 0, a.Tk, FBK, al);
+    load_rows<float, D, RS>(ring, kb, a.sk.t, 0, a.Tk, KT, al);
+    load_rows<float, D, RS>(ring + KT * RS, vb, a.sv.t, 0, a.Tk, KT, al);
   }
   cp_async_commit();
   cp_async_wait_all();
@@ -785,57 +809,60 @@ bwd_dq_fma(const Args a) {
     if ((tid & 1) == 0) {
       dl_s[r] = d;
       lse_s[r] = row < a.Tq ? a.lse[(long long)bh * a.Tq + row] : 0.f;
-      if (!SPLIT && row < a.Tq) a.delta_out[(long long)bh * a.Tq + row] = d;
+      if (!SPLIT && blockIdx.z == 0 && row < a.Tq)
+        a.delta_out[(long long)bh * a.Tq + row] = d;
     }
   }
-  float acc[8][D / 8];  // dS K over this lane's half of every key tile
-  zero_acc<D>(acc);
+  float acc[8][DV / 8];  // dS K over this lane's half of every key tile
+  zero_acc<DV>(acc);
 
   for (int j = 0; j < n_kt; ++j) {
     cp_async_wait_all();  // tile j has landed
     __syncthreads();      // ... for every thread; slot (j+1)%2, dSb free
     if (j + 1 < n_kt) {
-      float* nx = ring + ((j + 1) % STAGES) * 2 * FBK * RS;
-      load_rows<float, D, RS>(nx, kb, a.sk.t, (j + 1) * FBK, a.Tk, FBK, al);
-      load_rows<float, D, RS>(nx + FBK * RS, vb, a.sv.t, (j + 1) * FBK,
-                              a.Tk, FBK, al);
+      float* nx = ring + ((j + 1) % STAGES) * 2 * KT * RS;
+      load_rows<float, D, RS>(nx, kb, a.sk.t, (j + 1) * KT, a.Tk, KT, al);
+      load_rows<float, D, RS>(nx + KT * RS, vb, a.sv.t, (j + 1) * KT, a.Tk,
+                              KT, al);
     }
     cp_async_commit();
-    const int k0 = j * FBK;
-    const float* Kt = ring + (j % STAGES) * 2 * FBK * RS;
-    const float* Vt = Kt + FBK * RS;
+    const int k0 = j * KT;
+    const float* Kt = ring + (j % STAGES) * 2 * KT * RS;
+    const float* Vt = Kt + KT * RS;
     // Tiles wholly below the block's diagonal and inside Tk need no mask.
-    const bool mask = (a.causal && k0 + FBK - 1 > q0) || k0 + FBK > a.Tk;
-    float s[8][8];
-    pair_dots<D, RS>(s, Qs, Kt, ty, R, tx, hf);  // S = Q K^T
+    const bool mask = (a.causal && k0 + KT - 1 > q0) || k0 + KT > a.Tk;
+    float s[8][NS];
+    pair_dots<D, RS, NS>(s, Qs, Kt, ty, R, tx, hf);  // S = Q K^T
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int r = ty + R * i, row = q0 + r;
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
+      for (int c = 0; c < NS; ++c) {
         const int key = k0 + tx + 8 * c;
         if ((i >> 2) == hf)
-          dSb[r * FPS + tx + 8 * c] =
+          dSb[r * PS + tx + 8 * c] =
               prob(s[i][c], lse_s[r], a.scale, mask && a.causal && row < key,
                    !mask || key < a.Tk);
       }
     }
-    pair_dots<D, RS>(s, Gs, Vt, ty, R, tx, hf);  // dP = dO V^T
+    pair_dots<D, RS, NS>(s, Gs, Vt, ty, R, tx, hf);  // dP = dO V^T
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int r = ty + R * i;
 #pragma unroll
-      for (int c = 0; c < 8; ++c)
+      for (int c = 0; c < NS; ++c)
         if ((i >> 2) == hf) {
-          float* e = dSb + r * FPS + tx + 8 * c;
+          float* e = dSb + r * PS + tx + 8 * c;
           *e = dscore(*e, s[i][c], dl_s[r], a.scale);
         }
     }
     __syncwarp();  // the warp's dS rows are written
-    half_products<D, RS>(acc, dSb, Kt, ty, R, tx, hf);  // dQ += dS K
+    // dQ += dS K over the block's columns of K.
+    half_products<DV, RS, KT>(acc, dSb, Kt + col0, ty, R, tx, hf);
   }
   cp_async_wait_all();  // no copy outlives the block
-  store_rows<D>(acc, (float*)a.dq, b, h, a.H, a.Tq, q0, R, ty, tx, hf);
+  store_rows<D, DV>(acc, (float*)a.dq, b, h, a.H, a.Tq, q0, R, ty, tx, hf,
+                    col0);
 }
 
 // --------------------------------------------------------- f32, dk/dv
@@ -843,7 +870,8 @@ template <int D, bool SPLIT>
 __global__ void __launch_bounds__(256)
 bwd_dkv_fma(const Args a) {
   constexpr int RS = D + 4;
-  constexpr int BQ = FBK;
+  constexpr int BQ = fma_tile(D), PS = fma_ps(D), NS = BQ / 8;
+  constexpr int DV = out_cols(D);  // dk, dv columns from col0 on
   constexpr bool OST = o_staged<float, D, SPLIT>();
   constexpr int SB = qstage_bytes<float>(BQ, RS, OST);
   extern __shared__ __align__(16) uint8_t smem[];
@@ -851,12 +879,12 @@ bwd_dkv_fma(const Args a) {
   float* Ks = reinterpret_cast<float*>(smem);
   float* Vs = Ks + BKV * RS;
   uint8_t* ring = reinterpret_cast<uint8_t*>(Vs + BKV * RS);
-  // [BKV][FPS]: P^T for dV, then dS^T in its place for dK.
+  // [BKV][PS]: P^T for dV, then dS^T in its place for dK.
   float* Pt = reinterpret_cast<float*>(ring + STAGES * SB);
   const int tid = threadIdx.x, tx = tid & 7, hf = (tid >> 3) & 1;
   const int ty = tid >> 4;
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
-  const int k0 = blockIdx.y * BKV;
+  const int k0 = blockIdx.y * BKV, col0 = blockIdx.z * DV;
   const float* qb = head<float>(a.q, a.sq, b, h);
   const float* gb = head<float>(a.g, a.sg, b, h);
   const float* ob = SPLIT ? head<float>(a.o, a.so, b, h) : nullptr;
@@ -873,9 +901,9 @@ bwd_dkv_fma(const Args a) {
                                           a, qb, gb, ob, bh, q_begin, BQ);
   cp_async_commit();
   // P^T dO and dS^T Q over this lane's half of every q tile.
-  float av[8][D / 8], ak[8][D / 8];
-  zero_acc<D>(av);
-  zero_acc<D>(ak);
+  float av[8][DV / 8], ak[8][DV / 8];
+  zero_acc<DV>(av);
+  zero_acc<DV>(ak);
 
   for (int j = 0; j < n_qt; ++j) {
     cp_async_wait_all();  // tile j (and K, V) has landed
@@ -894,43 +922,47 @@ bwd_dkv_fma(const Args a) {
     }
     const bool mask = (a.causal && q0 < k0 + BKV - 1) || q0 + BQ > a.Tq ||
                       k0 + BKV > a.Tk;
-    float s[8][8];
-    pair_dots<D, RS>(s, Ks, st.q, ty, R, tx, hf);  // S^T = K Q^T
+    float s[8][NS];
+    pair_dots<D, RS, NS>(s, Ks, st.q, ty, R, tx, hf);  // S^T = K Q^T
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int r = ty + R * i, key = k0 + r;
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
+      for (int c = 0; c < NS; ++c) {
         const int col = tx + 8 * c, row = q0 + col;
         if ((i >> 2) == hf)
-          Pt[r * FPS + col] =
+          Pt[r * PS + col] =
               prob(s[i][c], st.lse[col], a.scale,
                    mask && a.causal && row < key,
                    !mask || (row < a.Tq && key < a.Tk));
       }
     }
     __syncwarp();  // the warp's P^T rows are written
-    half_products<D, RS>(av, Pt, st.g, ty, R, tx, hf);  // dV += P^T dO
-    pair_dots<D, RS>(s, Vs, st.g, ty, R, tx, hf);       // dP^T = V dO^T
+    // dV += P^T dO over the block's columns of dO.
+    half_products<DV, RS, BQ>(av, Pt, st.g + col0, ty, R, tx, hf);
+    pair_dots<D, RS, NS>(s, Vs, st.g, ty, R, tx, hf);  // dP^T = V dO^T
     __syncwarp();  // the warp's P^T rows are read by dV's products
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int r = ty + R * i;
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
+      for (int c = 0; c < NS; ++c) {
         const int col = tx + 8 * c;
         if ((i >> 2) == hf) {
-          float* e = Pt + r * FPS + col;
+          float* e = Pt + r * PS + col;
           *e = dscore(*e, s[i][c], st.dl[col], a.scale);
         }
       }
     }
     __syncwarp();  // the warp's dS^T rows are written
-    half_products<D, RS>(ak, Pt, st.q, ty, R, tx, hf);  // dK += dS^T Q
+    // dK += dS^T Q over the block's columns of Q.
+    half_products<DV, RS, BQ>(ak, Pt, st.q + col0, ty, R, tx, hf);
   }
   cp_async_wait_all();  // no copy outlives the block
-  store_rows<D>(ak, (float*)a.dk, b, h, a.H, a.Tk, k0, R, ty, tx, hf);
-  store_rows<D>(av, (float*)a.dv, b, h, a.H, a.Tk, k0, R, ty, tx, hf);
+  store_rows<D, DV>(ak, (float*)a.dk, b, h, a.H, a.Tk, k0, R, ty, tx, hf,
+                    col0);
+  store_rows<D, DV>(av, (float*)a.dv, b, h, a.H, a.Tk, k0, R, ty, tx, hf,
+                    col0);
 }
 
 // ------------------------------------------------------------- launch
@@ -942,8 +974,8 @@ int dq_smem(int dtype, int D, int rows) {
   if (dtype == 1)  // Q, dO; the K/V ring (O in slot 1)
     return 2 * (D + 8) * (2 * rows + 2 * STAGES * mma_tile(D));
   // Q, dO; the K/V ring (O in slot 1); P / dS rows; lse and D rows
-  return 4 * ((D + 4) * (2 * rows + 2 * STAGES * FBK) + rows * FPS +
-              2 * rows);
+  return 4 * ((D + 4) * (2 * rows + 2 * STAGES * fma_tile(D)) +
+              rows * fma_ps(D) + 2 * rows);
 }
 int dkv_smem(int dtype, int D, int rows, int split) {
   if (dtype == 1) {  // K, V; the q-tile ring
@@ -952,8 +984,8 @@ int dkv_smem(int dtype, int D, int rows, int split) {
   }
   const int RS = D + 4;  // K, V; the q-tile ring; P^T / dS^T rows
   return 4 * 2 * rows * RS +
-         STAGES * qstage_bytes<float>(FBK, RS, split && D < 128) +
-         4 * rows * FPS;
+         STAGES * qstage_bytes<float>(fma_tile(D), RS, split && D < 128) +
+         4 * rows * fma_ps(D);
 }
 
 using Kernel = void (*)(const Args);
@@ -970,6 +1002,7 @@ Kernel pick_d(bool dq, int dtype, int D) {
     case 32: return pick<32, SPLIT>(dq, dtype);
     case 64: return pick<64, SPLIT>(dq, dtype);
     case 128: return pick<128, SPLIT>(dq, dtype);
+    case 256: return pick<256, SPLIT>(dq, dtype);
     default: return nullptr;
   }
 }
@@ -979,7 +1012,7 @@ Kernel pick_d(bool dq, int dtype, int D) {
 int launch(bool dq, bool split, const void* const* tensors,
            const long long* strides, const void* lse, const void* delta,
            void* out0, void* out1, int B, int H, int Tq, int Tk, int D,
-           int dtype, int causal, int rows, void* stream) {
+           int dtype, int causal, int rows, float scale, void* stream) {
   // 16 rows a warp in bf16 (at most 4 warps), 8 a lane pair in f32 (at
   // most 8 warps).
   if ((dtype != 0 && dtype != 1) ||
@@ -1019,13 +1052,13 @@ int launch(bool dq, bool split, const void* const* tensors,
   a.Tk = Tk;
   a.causal = causal;
   a.aligned = aligned;
-  a.scale = 1.0f / sqrtf((float)D);
+  a.scale = scale;
   const int smem = dq ? dq_smem(dtype, D, rows)
                       : dkv_smem(dtype, D, rows, split);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, ((dq ? Tq : Tk) + rows - 1) / rows);
+  const dim3 grid(B * H, ((dq ? Tq : Tk) + rows - 1) / rows, D / out_cols(D));
   kern<<<grid, 2 * rows, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -1037,10 +1070,12 @@ extern "C" {
 // Every entry: tensors (B, T, H, D) with unit stride over D; `strides`
 // points to int64 element strides, (batch, seq, head) of each input
 // tensor in the order named; lse (and delta) contiguous (B*H, Tq) f32;
-// gradients written contiguous (B, T, H, D) in the input dtype. dtype:
-// 0 = float32, 1 = bfloat16. rows (32 or 64): the launch plan's q rows a
-// dq block or key rows a dk/dv block owns (ops/flash_attention.py::
-// _flash_bwd_plan). Returns cudaGetLastError() after the launch (0 on
+// gradients written contiguous (B, T, H, D) in the input dtype. D: 32, 64,
+// 128 or 256 (the wrapper pads other head dims). dtype: 0 = float32,
+// 1 = bfloat16. rows (32, 64, or 128 in f32 at D <= 64): the launch plan's
+// q rows a dq block or key rows a dk/dv block owns
+// (ops/flash_attention.py::_flash_bwd_plan). scale: 1/sqrt of the head dim
+// before padding. Returns cudaGetLastError() after the launch (0 on
 // success).
 
 // Fused dq: strides of q, k, v, o, g (= dO). Writes dq and
@@ -1049,10 +1084,10 @@ int tpuflow_flash_bwd_dq(const void* q, const void* k, const void* v,
                          const void* o, const void* g, const void* lse,
                          void* dq, void* delta, int B, int H, int Tq, int Tk,
                          int D, int dtype, int causal, int rows,
-                         const void* strides, void* stream) {
+                         float scale, const void* strides, void* stream) {
   const void* t[5] = {q, k, v, o, g};
   return launch(true, false, t, (const long long*)strides, lse, delta, dq,
-                nullptr, B, H, Tq, Tk, D, dtype, causal, rows, stream);
+                nullptr, B, H, Tq, Tk, D, dtype, causal, rows, scale, stream);
 }
 
 // Fused dk/dv: strides of q, k, v, g (= dO); reads lse and delta, never O.
@@ -1060,10 +1095,10 @@ int tpuflow_flash_bwd_dkv(const void* q, const void* k, const void* v,
                           const void* g, const void* lse, const void* delta,
                           void* dk, void* dv, int B, int H, int Tq, int Tk,
                           int D, int dtype, int causal, int rows,
-                          const void* strides, void* stream) {
+                          float scale, const void* strides, void* stream) {
   const void* t[5] = {q, k, v, nullptr, g};
   return launch(false, false, t, (const long long*)strides, lse, delta, dk,
-                dv, B, H, Tq, Tk, D, dtype, causal, rows, stream);
+                dv, B, H, Tq, Tk, D, dtype, causal, rows, scale, stream);
 }
 
 // Split dq: as tpuflow_flash_bwd_dq, no delta written.
@@ -1071,10 +1106,11 @@ int tpuflow_flash_bwd_dq_split(const void* q, const void* k, const void* v,
                                const void* o, const void* g, const void* lse,
                                void* dq, int B, int H, int Tq, int Tk, int D,
                                int dtype, int causal, int rows,
-                               const void* strides, void* stream) {
+                               float scale, const void* strides,
+                               void* stream) {
   const void* t[5] = {q, k, v, o, g};
   return launch(true, true, t, (const long long*)strides, lse, nullptr, dq,
-                nullptr, B, H, Tq, Tk, D, dtype, causal, rows, stream);
+                nullptr, B, H, Tq, Tk, D, dtype, causal, rows, scale, stream);
 }
 
 // Split dk/dv: strides of q, k, v, o, g (= dO); D recomputed from O and dO
@@ -1083,10 +1119,11 @@ int tpuflow_flash_bwd_dkv_split(const void* q, const void* k, const void* v,
                                 const void* o, const void* g, const void* lse,
                                 void* dk, void* dv, int B, int H, int Tq,
                                 int Tk, int D, int dtype, int causal,
-                                int rows, const void* strides, void* stream) {
+                                int rows, float scale, const void* strides,
+                                void* stream) {
   const void* t[5] = {q, k, v, o, g};
   return launch(false, true, t, (const long long*)strides, lse, nullptr, dk,
-                dv, B, H, Tq, Tk, D, dtype, causal, rows, stream);
+                dv, B, H, Tq, Tk, D, dtype, causal, rows, scale, stream);
 }
 
 // The dynamic shared memory bytes a launch takes: kernel 0 = dq, 1 = dk/dv

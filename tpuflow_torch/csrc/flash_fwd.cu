@@ -48,6 +48,17 @@
 // half of the keys for 8 rows x D/8 columns and the halves are added at
 // the end.
 //
+// Head dims. D = 32, 64 and 128 are instantiated as they are; the wrapper
+// zero-pads any other D % 8 == 0 up to the next of 32, 64, 128, 256 and
+// passes the true scale 1/sqrt(D): zero columns add exact zeros to every
+// score and output column, so only the scale needs the true D. D = 256
+// keeps the D = 128 register layout by splitting the output columns: a
+// block owns DV of them (grid.z = D / DV; bf16 128, f32 64), computes the
+// scores over the full 256 and accumulates P.V for its own columns only,
+// with V staged at its DV columns; the lse row is written by column block
+// 0 alone. The S work is done once a column block; nothing else changes.
+// At D = 256 the q tile is 32 rows (64 would overrun shared memory).
+//
 // Both: K and V tiles come by 16-byte cp.async into a two-stage ring (the
 // next stage loads while this one computes; a bf16 stage holds a tile for
 // each warp group), one barrier per stage. The grid is
@@ -150,15 +161,18 @@ struct Args {
   void* o;
   float* lse;
   int H, Tq, Tk, causal, aligned;
-  float scale;
+  float scale;  // 1/sqrt(D) of the caller's D, before any padding
   long long sqb, sqt, sqh, skb, skt, skh, svb, svt, svh;
 };
 
-template <int D>
+// D: the score width; DV: the output columns a block owns (D, or 128 at
+// D = 256), from column DV * blockIdx.z on.
+template <int D, int DV>
 __global__ void __launch_bounds__(256)
 flash_fwd_mma(const Args a) {
   using bf16 = __nv_bfloat16;
   constexpr int RS = D + 8;  // +16 bytes a row: ldmatrix rows hit all banks
+  constexpr int RSV = DV + 8;  // V's rows: its DV columns only
   extern __shared__ __align__(16) uint8_t smem[];
   // Two warp groups, 16 rows a warp: group 0 takes the even key tiles,
   // group 1 the odd ones; a stage holds one tile for each.
@@ -166,16 +180,16 @@ flash_fwd_mma(const Args a) {
   const int BQ = blockDim.x / 4, WR = BQ / 16;
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + BQ * RS;      // [S][KT][RS]
-  bf16* Vs = Ks + S * KT * RS;  // [S][KT][RS]
+  bf16* Vs = Ks + S * KT * RS;  // [S][KT][RSV]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int grp = warp / WR, wr = warp % WR;
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
   const int qt = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int q0 = qt * BQ;
+  const int q0 = qt * BQ, col0 = blockIdx.z * DV;
   const bf16* qb = (const bf16*)a.q + b * a.sqb + h * a.sqh;
   const bf16* kb = (const bf16*)a.k + b * a.skb + h * a.skh;
-  const bf16* vb = (const bf16*)a.v + b * a.svb + h * a.svh;
+  const bf16* vb = (const bf16*)a.v + b * a.svb + h * a.svh + col0;
   const bool al = a.aligned;
 
   const int k_end = a.causal ? min(a.Tk, q0 + BQ) : a.Tk;
@@ -186,8 +200,8 @@ flash_fwd_mma(const Args a) {
     if (i < n_st) {
       load_rows<bf16, D, RS>(Ks + i * KT * RS, kb, a.skt, i * KT, a.Tk, KT,
                              al);
-      load_rows<bf16, D, RS>(Vs + i * KT * RS, vb, a.svt, i * KT, a.Tk, KT,
-                             al);
+      load_rows<bf16, DV, RSV>(Vs + i * KT * RSV, vb, a.svt, i * KT, a.Tk,
+                               KT, al);
     }
     cp_async_commit();
   }
@@ -195,9 +209,9 @@ flash_fwd_mma(const Args a) {
   const int w0 = wr * 16;              // this warp's first row in the tile
   const int row_last = q0 + w0 + 15;
   uint32_t qf[D / 16][4];
-  float o[D / 8][4];
+  float o[DV / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  for (int i = 0; i < DV / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
   float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
 
   for (int j = 0; j < n_st; ++j) {
@@ -207,8 +221,8 @@ flash_fwd_mma(const Args a) {
       const int jn = j + S - 1, slot = jn % S;
       load_rows<bf16, D, RS>(Ks + slot * KT * RS, kb, a.skt, jn * KT, a.Tk,
                              KT, al);
-      load_rows<bf16, D, RS>(Vs + slot * KT * RS, vb, a.svt, jn * KT, a.Tk,
-                             KT, al);
+      load_rows<bf16, DV, RSV>(Vs + slot * KT * RSV, vb, a.svt, jn * KT,
+                               a.Tk, KT, al);
     }
     cp_async_commit();
     if (j == 0) {
@@ -221,7 +235,7 @@ flash_fwd_mma(const Args a) {
     // Tiles past the diagonal or past Tk add exact zeros: skipped.
     if (!((a.causal && k0 > row_last) || k0 >= a.Tk)) {
       const bf16* Kt = Ks + ((j % S) * KT + grp * BK) * RS;
-      const bf16* Vt = Vs + ((j % S) * KT + grp * BK) * RS;
+      const bf16* Vt = Vs + ((j % S) * KT + grp * BK) * RSV;
       float s[8][4];
 #pragma unroll
       for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
@@ -280,7 +294,7 @@ flash_fwd_mma(const Args a) {
         l_r[r] = l_r[r] * corr + sum[r];  // this lane's columns
         m_r[r] = mx[r];
 #pragma unroll
-        for (int i = 0; i < D / 8; ++i) {
+        for (int i = 0; i < DV / 8; ++i) {
           o[i][2 * r] *= corr;
           o[i][2 * r + 1] *= corr;
         }
@@ -294,10 +308,10 @@ flash_fwd_mma(const Args a) {
         pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
         pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
-        for (int dp = 0; dp < D / 16; ++dp) {
+        for (int dp = 0; dp < DV / 16; ++dp) {
           uint32_t r[4];
           ldsm_x4_t(r, Vt + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                               RS + dp * 16 + (lane >> 4) * 8);
+                               RSV + dp * 16 + (lane >> 4) * 8);
           mma_bf16(o[2 * dp], pa, r[0], r[1]);
           mma_bf16(o[2 * dp + 1], pa, r[2], r[3]);
         }
@@ -311,7 +325,7 @@ flash_fwd_mma(const Args a) {
   // group that saw no key has mB = -1e30, l = o = 0, and adds exact zeros.
   cp_async_wait<0>();  // no copy outlives the block (n_st may be 0)
   __syncthreads();
-  constexpr int XW = 4 + D / 2;  // floats a lane hands over
+  constexpr int XW = 4 + DV / 2;  // floats a lane hands over
   float* xp = reinterpret_cast<float*>(Ks) + (wr * 32 + lane) * XW;
   if (grp == 1) {
 #pragma unroll
@@ -320,7 +334,7 @@ flash_fwd_mma(const Args a) {
       xp[2 + r] = l_r[r];
     }
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
+    for (int i = 0; i < DV / 8; ++i)
 #pragma unroll
       for (int c = 0; c < 4; ++c) xp[4 + 4 * i + c] = o[i][c];
   }
@@ -333,7 +347,7 @@ flash_fwd_mma(const Args a) {
     l_r[r] = l_r[r] * ca + xp[2 + r] * cb;
     m_r[r] = m;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
+    for (int i = 0; i < DV / 8; ++i) {
       o[i][2 * r] = o[i][2 * r] * ca + xp[4 + 4 * i + 2 * r] * cb;
       o[i][2 * r + 1] = o[i][2 * r + 1] * ca + xp[4 + 4 * i + 2 * r + 1] * cb;
     }
@@ -346,40 +360,44 @@ flash_fwd_mma(const Args a) {
     const int row = q0 + w0 + g + 8 * r;
     if (row >= a.Tq) continue;
     l = fmaxf(l, 1e-30f);
-    bf16* ob = (bf16*)a.o + (((long long)b * a.Tq + row) * a.H + h) * D;
+    bf16* ob =
+        (bf16*)a.o + (((long long)b * a.Tq + row) * a.H + h) * D + col0;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
+    for (int i = 0; i < DV / 8; ++i)
       *reinterpret_cast<uint32_t*>(ob + 8 * i + 2 * t) =
           pack_bf16(o[i][2 * r] / l, o[i][2 * r + 1] / l);
-    if (a.lse != nullptr && t == 0)
+    if (a.lse != nullptr && t == 0 && blockIdx.z == 0)
       a.lse[(long long)bh * a.Tq + row] = m_r[r] + logf(l);
   }
 }
 
-template <int D>
+// D: the score width; DV: the output columns a block owns (D, or 64 at
+// D = 256), from column DV * blockIdx.z on.
+template <int D, int DV>
 __global__ void __launch_bounds__(128)
 flash_fwd_fma(const Args a) {
   constexpr int RS = D + 4;   // float4 rows land on distinct banks
+  constexpr int RSV = DV + 4;  // V's rows: its DV columns only
   constexpr int PS = BK + 8;  // P rows of one warp on distinct banks
-  constexpr int NC = D / 32;  // float4 column groups per thread in P.V
+  constexpr int NC = DV / 32;  // float4 column groups per thread in P.V
   constexpr int DH = D / 2;
   extern __shared__ __align__(16) uint8_t smem[];
   const int BQ = blockDim.x / 2, R = BQ / 8;  // thread rows ty + R*i
   float* Qs = reinterpret_cast<float*>(smem);
   constexpr int S = STAGES;
-  float* Ks = Qs + BQ * RS;      // [S][BK][RS]
-  float* Vs = Ks + S * BK * RS;  // [S][BK][RS]
-  float* Ps = Vs + S * BK * RS;  // [BQ][PS]
+  float* Ks = Qs + BQ * RS;       // [S][BK][RS]
+  float* Vs = Ks + S * BK * RS;   // [S][BK][RSV]
+  float* Ps = Vs + S * BK * RSV;  // [BQ][PS]
   // Lane bits: tx (0-2) picks keys tx + 8c, h (3) the half of d in S and
   // of the keys in P.V, ty (4 and up) the rows ty + R*i.
   const int tid = threadIdx.x, tx = tid & 7, h = (tid >> 3) & 1;
   const int ty = tid >> 4;
   const int bh = blockIdx.x, b = bh / a.H, h_ = bh % a.H;
   const int qt = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int q0 = qt * BQ;
+  const int q0 = qt * BQ, col0 = blockIdx.z * DV;
   const float* qb = (const float*)a.q + b * a.sqb + h_ * a.sqh;
   const float* kb = (const float*)a.k + b * a.skb + h_ * a.skh;
-  const float* vb = (const float*)a.v + b * a.svb + h_ * a.svh;
+  const float* vb = (const float*)a.v + b * a.svb + h_ * a.svh + col0;
   const bool al = a.aligned;
 
   const int k_end = a.causal ? min(a.Tk, q0 + BQ) : a.Tk;
@@ -389,8 +407,8 @@ flash_fwd_fma(const Args a) {
     if (i < n_kt) {
       load_rows<float, D, RS>(Ks + i * BK * RS, kb, a.skt, i * BK, a.Tk, BK,
                               al);
-      load_rows<float, D, RS>(Vs + i * BK * RS, vb, a.svt, i * BK, a.Tk, BK,
-                              al);
+      load_rows<float, DV, RSV>(Vs + i * BK * RSV, vb, a.svt, i * BK, a.Tk,
+                                BK, al);
     }
     cp_async_commit();
   }
@@ -416,13 +434,13 @@ flash_fwd_fma(const Args a) {
       const int jn = j + S - 1, slot = jn % S;
       load_rows<float, D, RS>(Ks + slot * BK * RS, kb, a.skt, jn * BK, a.Tk,
                               BK, al);
-      load_rows<float, D, RS>(Vs + slot * BK * RS, vb, a.svt, jn * BK, a.Tk,
-                              BK, al);
+      load_rows<float, DV, RSV>(Vs + slot * BK * RSV, vb, a.svt, jn * BK,
+                                a.Tk, BK, al);
     }
     cp_async_commit();
     const int k0 = j * BK;
     const float* Kt = Ks + (j % S) * BK * RS;
-    const float* Vt = Vs + (j % S) * BK * RS;
+    const float* Vt = Vs + (j % S) * BK * RSV;
 
     // S = Q K^T: f32 FMAs in d order over this lane's half of d, then the
     // two halves added (lower + upper; a + b == b + a, so both lanes of
@@ -500,7 +518,7 @@ flash_fwd_fma(const Args a) {
 #pragma unroll
         for (int qc = 0; qc < NC; ++qc) {
           const float4 vv = *reinterpret_cast<const float4*>(
-              Vt + (kk + u) * RS + 4 * tx + 32 * qc);
+              Vt + (kk + u) * RSV + 4 * tx + 32 * qc);
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
             const float p = u == 0 ? pv[i].x
@@ -529,24 +547,37 @@ flash_fwd_fma(const Args a) {
     const int row = q0 + ty + R * i;
     if (row >= a.Tq || (i >> 2) != h) continue;
     l = fmaxf(l, 1e-30f);
-    float* ob = (float*)a.o + (((long long)b * a.Tq + row) * a.H + h_) * D;
+    float* ob =
+        (float*)a.o + (((long long)b * a.Tq + row) * a.H + h_) * D + col0;
 #pragma unroll
     for (int qc = 0; qc < NC; ++qc)
       *reinterpret_cast<float4*>(ob + 4 * tx + 32 * qc) =
           make_float4(acc[i][4 * qc] / l, acc[i][4 * qc + 1] / l,
                       acc[i][4 * qc + 2] / l, acc[i][4 * qc + 3] / l);
-    if (a.lse != nullptr && tx == 0)
+    if (a.lse != nullptr && tx == 0 && blockIdx.z == 0)
       a.lse[(long long)bh * a.Tq + row] = m_r[i] + logf(l);
   }
 }
 
+// The output columns a block owns: all of D up to 128; at D = 256, 128 in
+// bf16 and 64 in f32 (whose K ring at full width leaves no room for more
+// of V).
+constexpr int out_cols(int dtype, int D) {
+  return D <= 128 ? D : dtype == 1 ? 128 : 64;
+}
+
 // Dynamic shared memory of one block: Q, the K/V ring (a bf16 stage holds
-// a key tile for each warp group) and f32's P rows, at the kernels' padded
-// row strides. A size above the card's per-block limit fails the launch
-// (cudaFuncSetAttribute), so no q tile height can overrun it.
+// a key tile for each warp group; V at the block's DV columns) and f32's P
+// rows, at the kernels' padded row strides. A size above the card's
+// per-block limit fails the launch (cudaFuncSetAttribute), so no q tile
+// height can overrun it.
 int smem_bytes(int dtype, int D, int bq) {
-  if (dtype == 1) return 2 * (bq + 2 * STAGES * 2 * BK) * (D + 8);
-  return 4 * ((bq + 2 * STAGES * BK) * (D + 4) + bq * (BK + 8));
+  const int DV = out_cols(dtype, D);
+  if (dtype == 1)
+    return 2 * ((bq + STAGES * 2 * BK) * (D + 8) +
+                STAGES * 2 * BK * (DV + 8));
+  return 4 * ((bq + STAGES * BK) * (D + 4) + STAGES * BK * (DV + 4) +
+              bq * (BK + 8));
 }
 
 template <int D>
@@ -554,20 +585,22 @@ int launch(int dtype, const Args& a, int B, int bq, cudaStream_t stream) {
   if (bq != 32 && bq != 64) return (int)cudaErrorInvalidValue;
   const int smem = smem_bytes(dtype, D, bq);
   const int n_qt = (a.Tq + bq - 1) / bq;
-  dim3 grid(B * a.H, n_qt);
+  dim3 grid(B * a.H, n_qt, D / out_cols(dtype, D));
   cudaError_t err;
   if (dtype == 1) {
-    err = cudaFuncSetAttribute(flash_fwd_mma<D>,
+    const auto kern = flash_fwd_mma<D, out_cols(1, D)>;
+    err = cudaFuncSetAttribute(kern,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return (int)err;
-    flash_fwd_mma<D><<<grid, 4 * bq, smem, stream>>>(a);
+    kern<<<grid, 4 * bq, smem, stream>>>(a);
   } else {
-    err = cudaFuncSetAttribute(flash_fwd_fma<D>,
+    const auto kern = flash_fwd_fma<D, out_cols(0, D)>;
+    err = cudaFuncSetAttribute(kern,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return (int)err;
-    flash_fwd_fma<D><<<grid, 2 * bq, smem, stream>>>(a);
+    kern<<<grid, 2 * bq, smem, stream>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -578,13 +611,15 @@ extern "C" {
 
 // q, k, v: (B, T, H, D) with unit stride over D and the given element
 // strides over (batch, seq, head); o: contiguous (B, Tq, H, D); lse: null,
-// or a contiguous (B*H, Tq) float32 array. dtype: 0 = float32,
-// 1 = bfloat16. bq, the q tile height (32 or 64), is the launch plan's
-// (ops/flash_attention.py::_flash_bq). Returns cudaGetLastError() after
-// the launch (0 on success).
+// or a contiguous (B*H, Tq) float32 array. D: 32, 64, 128 or 256 (the
+// wrapper pads other head dims). dtype: 0 = float32, 1 = bfloat16. bq,
+// the q tile height (32 or 64; 32 at D = 256), is the launch plan's
+// (ops/flash_attention.py::_flash_bq). scale: 1/sqrt of the head dim
+// before padding. Returns cudaGetLastError() after the launch (0 on
+// success).
 int tpuflow_flash_fwd(const void* q, const void* k, const void* v, void* o,
                       void* lse, int B, int H, int Tq, int Tk, int D,
-                      int dtype, int causal, int bq,
+                      int dtype, int causal, int bq, float scale,
                       long long sqb, long long sqt, long long sqh,
                       long long skb, long long skt, long long skh,
                       long long svb, long long svt, long long svh,
@@ -598,12 +633,13 @@ int tpuflow_flash_fwd(const void* q, const void* k, const void* v, void* o,
   };
   Args a{q, k, v, o, (float*)lse, H, Tq, Tk, causal,
          al(q, sqb, sqt, sqh) && al(k, skb, skt, skh) && al(v, svb, svt, svh),
-         1.0f / sqrtf((float)D), sqb, sqt, sqh, skb, skt, skh, svb, svt, svh};
+         scale, sqb, sqt, sqh, skb, skt, skh, svb, svt, svh};
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
     case 32: return launch<32>(dtype, a, B, bq, s);
     case 64: return launch<64>(dtype, a, B, bq, s);
     case 128: return launch<128>(dtype, a, B, bq, s);
+    case 256: return launch<256>(dtype, a, B, bq, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

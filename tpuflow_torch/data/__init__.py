@@ -1,3 +1,3 @@
-"""The port's own copies of the data plumbing the GPT training slice needs
-(``datasets``, ``loader``, ``lm``): numpy only, identical batches to the
-JAX package's loaders."""
+"""The port's own copies of the data plumbing the training slices need
+(``datasets``, ``loader``, ``lm``): identical arrays and batches to the
+JAX package's loaders, and the prefetcher onto the card."""

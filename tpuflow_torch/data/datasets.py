@@ -1,21 +1,83 @@
-"""Dataset containers and the synthetic LM corpus.
+"""Dataset containers, FashionMNIST/MNIST and the synthetic LM corpus.
 
-The port's copy of the parts of ``tpuflow/data/datasets.py`` that the GPT
-training slice reads: ``Split``, ``Dataset`` and ``_load_synthetic_lm``
-(the ``lm_synth`` corpus), byte for byte the same arrays from the same
-seed. The image datasets and ``lm_text`` are not ported.
+The port's copy of the parts of ``tpuflow/data/datasets.py`` that the
+training slices read, byte for byte the same arrays from the same seed:
+
+- ``Split``, ``Dataset``, ``dataset_info``, ``get_labels_map``;
+- FashionMNIST and MNIST (``load_dataset``): the four IDX files
+  (``*-ubyte`` or ``*-ubyte.gz``) under ``data_dir`` when they are all
+  there, normalised as the reference does; otherwise the deterministic
+  synthetic stand-in at the real size (seed 20; ``n_train`` 60,000 and
+  ``n_test`` 10,000 by default: arguments where the JAX package reads
+  ``TPUFLOW_SYNTH_*_N``), marked ``synthetic=True``;
+- ``_load_synthetic_lm`` (the ``lm_synth`` corpus).
+
+Not ported: the download branch, the npz cache and its FileLock (every
+load decodes or generates afresh, and nothing is written, ``data_dir``
+included), CIFAR-10, the synthetic ImageNet and ``lm_text``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gzip
+import os
+import struct
 
 import numpy as np
+
+FASHION_MNIST_CLASSES = [
+    "T-shirt/top",
+    "Trouser",
+    "Pullover",
+    "Dress",
+    "Coat",
+    "Sandal",
+    "Shirt",
+    "Sneaker",
+    "Bag",
+    "Ankle boot",
+]
+
+# Per-dataset spec: sample shape and class count, read by loaders and by
+# consumers sizing a model before touching rows.
+_DATASET_SPECS = {
+    "fashion_mnist": {"shape": (28, 28), "num_classes": 10},
+    "mnist": {"shape": (28, 28), "num_classes": 10},
+    "cifar10": {"shape": (32, 32, 3), "num_classes": 10},
+    "imagenet_synth": {"shape": (224, 224, 3), "num_classes": 1000},
+}
+
+
+def dataset_info(name: str) -> dict:
+    """Registry metadata without materializing the data: sample shape and
+    class count."""
+    if name not in _DATASET_SPECS:
+        raise KeyError(
+            f"no registry metadata for dataset {name!r}; known: "
+            f"{sorted(_DATASET_SPECS)}"
+        )
+    return _DATASET_SPECS[name]
+
+
+def get_labels_map(dataset: str = "fashion_mnist") -> dict[int, str]:
+    """class-id → human name."""
+    if dataset in ("fashion_mnist", "mnist"):
+        return dict(enumerate(FASHION_MNIST_CLASSES))
+    if dataset == "cifar10":
+        return dict(enumerate([
+            "airplane", "automobile", "bird", "cat", "deer", "dog", "frog",
+            "horse", "ship", "truck",
+        ]))
+    if dataset == "imagenet_synth":
+        return {i: f"class_{i}" for i in range(1000)}
+    raise KeyError(dataset)
 
 
 @dataclasses.dataclass
 class Split:
-    """One split: model inputs (``images``) and targets (``labels``)."""
+    """One split: model inputs (``images``: normalized float32 images, or
+    token ids) and targets (``labels``: int32)."""
 
     images: np.ndarray
     labels: np.ndarray
@@ -59,3 +121,102 @@ def _load_synthetic_lm(
         num_classes=vocab_size,
         synthetic=True,
     )
+
+
+def _read_idx(path: str) -> np.ndarray:
+    """Decode an IDX file (the FashionMNIST/MNIST wire format)."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        data = f.read()
+    zero, dtype_code, ndim = struct.unpack(">HBB", data[:4])
+    if zero != 0:
+        raise ValueError(f"{path}: bad IDX magic")
+    dims = struct.unpack(f">{ndim}I", data[4: 4 + 4 * ndim])
+    dtype = {0x08: np.uint8, 0x0B: np.int16, 0x0C: np.int32,
+             0x0D: np.float32}[dtype_code]
+    return np.frombuffer(data[4 + 4 * ndim:], dtype=dtype).reshape(dims)
+
+
+def _find(data_dir: str, names: list[str]) -> str | None:
+    for n in names:
+        for cand in (os.path.join(data_dir, n),
+                     os.path.join(data_dir, n + ".gz")):
+            if os.path.exists(cand):
+                return cand
+    return None
+
+
+def _normalize(images_u8: np.ndarray) -> np.ndarray:
+    """uint8 [0,255] → float32: /255, then Normalize((0.5,), (0.5,))."""
+    return ((images_u8.astype(np.float32) / 255.0) - 0.5) / 0.5
+
+
+def _synth_classification(
+    seed: int, n_train: int, n_test: int, shape: tuple, num_classes: int
+) -> tuple[Split, Split]:
+    """Deterministic learnable stand-in: each class is a fixed smooth
+    template + per-sample noise."""
+    rng = np.random.default_rng(seed)
+    templates = rng.normal(scale=1.0, size=(num_classes, *shape)).astype(
+        np.float32)
+    for axis in range(len(shape))[:2]:
+        templates = (
+            templates + np.roll(templates, 1, axis=axis + 1)
+            + np.roll(templates, -1, axis=axis + 1)
+        ) / 3.0
+
+    def make(n: int, split_seed: int) -> Split:
+        r = np.random.default_rng(split_seed)
+        labels = r.integers(0, num_classes, size=n).astype(np.int32)
+        noise = r.normal(scale=1.0, size=(n, *shape)).astype(np.float32)
+        images = 0.8 * templates[labels] + noise * 0.6
+        return Split(images.astype(np.float32), labels)
+
+    return make(n_train, seed + 1), make(n_test, seed + 2)
+
+
+_IDX_FILES = {
+    "train_images": "train-images-idx3-ubyte",
+    "train_labels": "train-labels-idx1-ubyte",
+    "test_images": "t10k-images-idx3-ubyte",
+    "test_labels": "t10k-labels-idx1-ubyte",
+}
+
+
+def _load_fashion_mnist(data_dir: str | None, name: str, *,
+                        n_train: int = 60_000, n_test: int = 10_000
+                        ) -> Dataset:
+    """The IDX files under ``data_dir`` when all four are there, else the
+    synthetic stand-in of ``n_train`` and ``n_test`` rows."""
+    files = {k: _find(data_dir, [v]) if data_dir else None
+             for k, v in _IDX_FILES.items()}
+    if all(files.values()):
+        train = Split(
+            _normalize(_read_idx(files["train_images"])),
+            _read_idx(files["train_labels"]).astype(np.int32),
+        )
+        test = Split(
+            _normalize(_read_idx(files["test_images"])),
+            _read_idx(files["test_labels"]).astype(np.int32),
+        )
+        return Dataset(name, train, test, 10, synthetic=False)
+    train, test = _synth_classification(
+        seed=20, n_train=n_train, n_test=n_test, shape=(28, 28),
+        num_classes=10,
+    )
+    return Dataset(name, train, test, 10, synthetic=True)
+
+
+def load_dataset(name: str = "fashion_mnist", *, data_dir: str | None = None,
+                 n_train: int = 60_000, n_test: int = 10_000) -> Dataset:
+    """Load (or synthesize) ``fashion_mnist`` or ``mnist``: the IDX files
+    under ``data_dir`` (None: look nowhere), else the synthetic stand-in
+    of ``n_train`` / ``n_test`` rows. No cache is read or written."""
+    if name in ("fashion_mnist", "mnist"):
+        return _load_fashion_mnist(data_dir, name, n_train=n_train,
+                                   n_test=n_test)
+    if name in ("cifar10", "imagenet_synth", "lm_text"):
+        raise NotImplementedError(
+            f"dataset {name!r} is not ported yet: ROADMAP Queue 1 item 11")
+    raise KeyError(f"unknown dataset {name!r}; available: fashion_mnist, "
+                   "mnist")

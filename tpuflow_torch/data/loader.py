@@ -1,21 +1,32 @@
-"""Sharded batch loader with a seeded per-epoch reshuffle.
+"""Sharded batch loader with a seeded per-epoch reshuffle, the loaders'
+entry point and the device prefetcher.
 
-The port's copy of ``tpuflow/data/loader.py::ShardedLoader``: the same
-permutation from ``(seed, epoch)``, the same shard striding, ``max_batches``
-cap, mid-epoch ``skip_batches`` and padded+masked validation tail, so both
-packages see the same batches. Rows are gathered with plain numpy indexing
-(the LM splits hold int32 tokens, which the JAX package's native float32
-gather never handles either).
+- ``ShardedLoader``: the port's copy of ``tpuflow/data/loader.py::
+  ShardedLoader``: the same permutation from ``(seed, epoch)``, the same
+  shard striding, ``max_batches`` cap, mid-epoch ``skip_batches`` and
+  padded+masked validation tail, so both packages see the same batches.
+  Rows are gathered with plain numpy indexing (the LM splits hold int32
+  tokens, which the JAX package's native float32 gather never handles
+  either).
+- ``get_dataloaders`` (``loader.py:323``): the shuffled, sharded train
+  loader and the unshuffled, padded val loader, both carrying
+  ``num_classes``; ``val_only``; ``as_rows`` (the test split as
+  ``{"features", "labels"}`` rows for ``infer.engine.map_batches``).
+- ``prefetch_to_device`` (``loader.py:199``): batches assembled and copied
+  to the card ahead of the consumer.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 from typing import Iterator
 
 import numpy as np
+import torch
 
-from tpuflow_torch.data.datasets import Split
+from tpuflow_torch.data.datasets import Split, load_dataset
 
 
 @dataclasses.dataclass
@@ -121,3 +132,111 @@ class ShardedLoader:
                 "y": self.split.labels[idx],
                 "mask": np.ones(tail, np.float32),
             }
+
+
+def get_dataloaders(
+    batch_size: int,
+    *,
+    dataset: str = "fashion_mnist",
+    val_only: bool = False,
+    as_rows: bool = False,
+    data_dir: str | None = None,
+    seed: int = 0,
+    shard_index: int = 0,
+    num_shards: int = 1,
+    n_train: int = 60_000,
+    n_test: int = 10_000,
+):
+    """(train, val) ShardedLoaders, the val loader alone (``val_only``), or
+    with ``as_rows`` the test split as a list of ``{"features", "labels"}``
+    rows. The train loader is shuffled from ``seed`` and takes shard
+    ``shard_index`` of ``num_shards``; the val loader is unshuffled, whole,
+    and pads its tail with a mask. ``n_train``/``n_test``: the synthetic
+    stand-in's sizes (``datasets.load_dataset``)."""
+    ds = load_dataset(dataset, data_dir=data_dir, n_train=n_train,
+                      n_test=n_test)
+    if as_rows:
+        return [
+            {"features": ds.test.images[i], "labels": int(ds.test.labels[i])}
+            for i in range(len(ds.test))
+        ]
+    val = ShardedLoader(ds.test, batch_size, shuffle=False, pad_tail=True,
+                        drop_last=False)
+    val.num_classes = ds.num_classes
+    if val_only:
+        return val
+    train = ShardedLoader(ds.train, batch_size, shuffle=True, seed=seed,
+                          shard_index=shard_index, num_shards=num_shards)
+    train.num_classes = ds.num_classes
+    return train, val
+
+
+def _to_device(batch: dict, device: torch.device, stream) -> dict:
+    """Host arrays → tensors on ``device``: pinned host copies, then
+    ``non_blocking`` copies enqueued on ``stream``."""
+    with torch.cuda.stream(stream):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                .to(device, non_blocking=True) for k, v in batch.items()}
+
+
+def prefetch_to_device(loader, device, *, depth: int = 2, keys=None):
+    """Iterate ``loader``'s batches as tensors on ``device``.
+
+    On the card a background thread assembles up to ``depth`` batches
+    ahead, stages each in pinned host memory and copies it with
+    ``non_blocking`` copies on a side CUDA stream; before a batch is used
+    the consumer's stream waits for the side stream (``wait_stream``) and
+    the tensors are marked as used on it (``record_stream``), so the
+    caching allocator does not hand their memory out early. On the CPU,
+    and with ``depth`` <= 0, batches are converted inline on the calling
+    thread. ``keys``: the batch entries to keep (e.g. ("x", "y"))."""
+    device = torch.device(device)
+
+    def pick(batch):
+        return batch if keys is None else {k: batch[k] for k in keys}
+
+    if device.type != "cuda" or depth <= 0:
+        for batch in loader:
+            yield {k: torch.as_tensor(v, device=device)
+                   for k, v in pick(batch).items()}
+        return
+    side = torch.cuda.Stream(device)
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    done = object()
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def work():
+        try:
+            for batch in loader:
+                if not put(_to_device(pick(batch), device, side)):
+                    return  # the consumer went away
+            put(done)
+        except BaseException as e:  # raised on the consuming thread
+            put(e)
+
+    thread = threading.Thread(target=work, daemon=True)
+    thread.start()
+    current = torch.cuda.current_stream(device)
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            current.wait_stream(side)
+            for t in item.values():
+                t.record_stream(current)
+            yield item
+    finally:
+        stop.set()
+        thread.join(timeout=1.0)

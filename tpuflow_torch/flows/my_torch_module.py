@@ -1,0 +1,269 @@
+"""The README main path: FashionMNIST training and batch prediction.
+
+Twin of ``flows/my_tpu_module.py`` on PyTorch and the port:
+
+- ``train_fashion_mnist`` / ``train_model`` (``:357``/``:290``): the
+  trainer entry points (per-worker batch = global // workers,
+  ``num_to_keep=2``);
+- ``train_func_per_worker`` (``:113-287``): the per-process epoch loop;
+  an in-run resume from the run's newest retained step comes before any
+  warm start; a warm start is weights only (the reference's quirk; the
+  SGD trace stays zero) unless ``resume="full"``; the loader reshuffles
+  per epoch only when the world has more than one worker, as the
+  reference does; each epoch ends in ``report(..., step=epoch + 1,
+  data_state=...)``;
+- ``set_weights_from_checkpoint`` (``:76``), ``build_model`` (``:84``);
+- ``TorchPredictor`` (twin of ``TpuPredictor``, ``:363``).
+
+Every run is on the card unless the caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import time
+
+from tpuflow_torch import dist
+from tpuflow_torch.ckpt import Checkpoint, restore_from_handle
+from tpuflow_torch.ckpt.tree import (
+    checkpoint_tree,
+    load_checkpoint_tree,
+    load_params,
+)
+from tpuflow_torch.data.datasets import get_labels_map
+from tpuflow_torch.device import resolve_device
+from tpuflow_torch.data.loader import get_dataloaders, prefetch_to_device
+from tpuflow_torch.infer.engine import BatchPredictor, map_batches
+from tpuflow_torch.models import NeuralNetwork, get_model
+from tpuflow_torch.train.step import (
+    DispatchWindow,
+    create_train_state,
+    make_eval_step,
+    make_train_step,
+    per_worker_batch_size,
+)
+from tpuflow_torch.train.trainer import (
+    CheckpointConfig,
+    Result,
+    RunConfig,
+    ScalingConfig,
+    Trainer,
+    get_context,
+)
+
+_TAG = "[my_torch_module]"
+# Steps in flight before the host waits for the oldest one's loss (the
+# JAX package's default dispatch depth).
+_DISPATCH_DEPTH = 2
+
+
+def _log(msg: str) -> None:
+    print(f"{_TAG} {msg}")
+
+
+def set_weights_from_checkpoint(state, checkpoint: Checkpoint):
+    """Warm-start only the model weights from a checkpoint handle; the
+    optimizer state stays as it is."""
+    load_params(state.model, restore_from_handle(checkpoint,
+                                                 weights_only=True))
+    return state
+
+
+def build_model(name: str = "mlp", *, num_classes: int | None = None,
+                **model_kwargs):
+    """The model a run of ``train_model`` trains (for consumers outside
+    the worker loop, such as an eval that rebuilds the producing run's
+    model)."""
+    return _build_model({"model": name, "num_classes": num_classes,
+                         "model_kwargs": model_kwargs or None})
+
+
+def _build_model(config: dict):
+    kwargs = dict(config.get("model_kwargs") or {})
+    kwargs.setdefault("num_classes", config.get("num_classes") or 10)
+    name = config.get("model", "mlp")
+    if name in ("mlp", "neural_network", "fashion_mnist_mlp"):
+        kwargs.setdefault("seed", config.get("seed", 0))
+    return get_model(name, **kwargs)
+
+
+def train_func_per_worker(config: dict) -> None:
+    """The per-process training loop (see the module docstring)."""
+    ctx = get_context()
+    lr = config.get("lr", 1e-3)
+    epochs = config.get("epochs", 3)
+    batch_size = config.get("batch_size_per_worker", 8)
+    seed = config.get("seed", 0)
+    world = ctx.get_world_size()
+    rank = ctx.get_world_rank()
+    nproc = dist.process_count()
+    train_loader, val_loader = get_dataloaders(
+        batch_size * world // nproc,
+        dataset=config.get("dataset", "fashion_mnist"),
+        data_dir=config.get("data_dir"),
+        seed=seed,
+        shard_index=dist.process_index(),
+        num_shards=nproc,
+        **config.get("data_sizes", {}),
+    )
+    _log(f"dataloaders ready (world={world}, rank={rank}, "
+         f"mesh={ctx.mesh.shape})")
+    if not config.get("num_classes"):
+        config = {**config,
+                  "num_classes": getattr(train_loader, "num_classes", 10)}
+    state = create_train_state(_build_model(config).to(ctx.device), lr)
+
+    mgr = ctx.checkpoint_manager
+    in_run_step = mgr.latest_step() if mgr is not None else None
+    start_epoch = 0
+    if in_run_step is not None:
+        # A retried run resumes the full state from its own newest
+        # retained step before it considers any warm start.
+        load_checkpoint_tree(state, mgr.restore(
+            in_run_step, abstract_state=checkpoint_tree(state,
+                                                        abstract=True)))
+        start_epoch = int(in_run_step)
+        _log(f"in-run resume: restored retained step {in_run_step}")
+    elif config.get("checkpoint") is not None:
+        ckpt = config["checkpoint"]
+        if isinstance(ckpt, dict):
+            ckpt = Checkpoint.from_json(ckpt)
+        if config.get("resume") == "full":
+            load_checkpoint_tree(state, restore_from_handle(
+                ckpt, abstract_state=checkpoint_tree(state, abstract=True)))
+            _log("full state restored from checkpoint (params+opt+step)")
+        else:
+            state = set_weights_from_checkpoint(state, ckpt)
+            _log("model weights warm-started from checkpoint")
+    # Every process starts from rank 0's parameters and optimizer state.
+    dist.replicate([*state.params, *state.tx.slots()["trace"]], ctx.mesh)
+
+    train_step = make_train_step(mesh=ctx.mesh)
+    eval_step = make_eval_step()
+    rng = seed + 1
+    start = time.monotonic()
+    window = DispatchWindow(_DISPATCH_DEPTH)
+    for epoch in range(start_epoch, epochs):
+        epoch_start = time.monotonic()
+        if world > 1:
+            # The reference reshuffles only when world > 1.
+            train_loader.set_epoch(epoch)
+        n_batches = 0
+        for placed in prefetch_to_device(train_loader, ctx.device,
+                                         keys=("x", "y")):
+            state, train_metrics = train_step(state, placed, rng)
+            dist.step_fence(train_metrics["loss"])
+            for matured in window.push(train_metrics["loss"]):
+                float(matured)
+            n_batches += 1
+        for matured in window.drain():
+            float(matured)
+
+        loss_sum = correct = count = 0.0
+        for batch in val_loader:
+            out = eval_step(state, dist.shard_batch(batch, ctx.mesh))
+            loss_sum += float(out["loss_sum"])
+            correct += float(out["num_correct"])
+            count += float(out["count"])
+        val_loss = loss_sum / max(count, 1.0)
+        accuracy = correct / max(count, 1.0)
+        _log(f"epoch {epoch}: val_loss={val_loss:.4f} "
+             f"accuracy={accuracy:.4f} ({n_batches} train batches, "
+             f"{time.monotonic() - epoch_start:.1f}s)")
+        ctx.report(
+            {"val_loss": val_loss, "accuracy": accuracy},
+            state=checkpoint_tree(state),
+            step=epoch + 1,
+            data_state={"epoch": epoch + 1, "batch_index": 0,
+                        "seed": int(train_loader.seed)},
+        )
+    _log(f"total training time: {time.monotonic() - start:.1f}s")
+
+
+def train_model(
+    num_workers: int | None = None,
+    *,
+    device: str | None = None,
+    model: str = "mlp",
+    model_kwargs: dict | None = None,
+    num_classes: int | None = None,
+    checkpoint_storage_path: str | None = None,
+    global_batch_size: int = 32,
+    lr: float = 1e-3,
+    epochs: int = 3,
+    num_to_keep: int = 2,
+    checkpoint: Checkpoint | dict | None = None,
+    resume: str = "weights",
+    dataset: str = "fashion_mnist",
+    data_dir: str | None = None,
+    seed: int = 0,
+    n_train: int = 60_000,
+    n_test: int = 10_000,
+) -> Result:
+    """The trainer entry point. ``num_workers``: data-parallel processes (None:
+    the processes of the world ``dist.initialize`` joins, else 1; each
+    process of a multi-process world calls this with its rendezvous
+    variables set). ``device``: None is ``cuda``. ``n_train``/``n_test``:
+    the synthetic FashionMNIST stand-in's sizes."""
+    dist.initialize(resolve_device(device))
+    workers = (num_workers if num_workers and num_workers > 0
+               else dist.process_count())
+    train_config = {
+        "lr": lr,
+        "epochs": epochs,
+        "batch_size_per_worker": per_worker_batch_size(global_batch_size,
+                                                       workers),
+        "checkpoint": checkpoint,
+        "resume": resume if resume in ("weights", "full") else "weights",
+        "dataset": dataset,
+        "data_dir": data_dir,
+        "data_sizes": {"n_train": n_train, "n_test": n_test},
+        "seed": seed,
+        "model": model,
+        "model_kwargs": model_kwargs,
+        "num_classes": num_classes,
+    }
+    trainer = Trainer(
+        train_func_per_worker,
+        train_loop_config=train_config,
+        scaling_config=ScalingConfig(num_workers=workers, device=device),
+        run_config=RunConfig(
+            storage_path=checkpoint_storage_path,
+            checkpoint_config=CheckpointConfig(num_to_keep=num_to_keep),
+        ),
+    )
+    return trainer.fit()
+
+
+def train_fashion_mnist(num_workers: int | None = None, **kw) -> Result:
+    """``train_model`` with the MLP."""
+    kw.setdefault("model", "mlp")
+    return train_model(num_workers, **kw)
+
+
+class TorchPredictor:
+    """Stateful batch predictor: loads the checkpoint's weights once into
+    ``model`` (default the MLP), then maps batches to logits + argmax."""
+
+    def __init__(self, checkpoint: Checkpoint | dict, *, model=None,
+                 device: str | None = None):
+        if isinstance(checkpoint, dict):
+            checkpoint = Checkpoint.from_json(checkpoint)
+        self._predictor = BatchPredictor.from_checkpoint(
+            checkpoint, model if model is not None else NeuralNetwork(),
+            device=device)
+
+    def __call__(self, batch: dict) -> dict:
+        return self._predictor(batch)
+
+
+__all__ = [
+    "TorchPredictor",
+    "build_model",
+    "get_dataloaders",
+    "get_labels_map",
+    "map_batches",
+    "set_weights_from_checkpoint",
+    "train_fashion_mnist",
+    "train_func_per_worker",
+    "train_model",
+]

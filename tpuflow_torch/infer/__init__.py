@@ -1,2 +1,3 @@
-"""Generation (``generate``), fused-native int8 (``quant``) and the paged
-continuous-batching engine (``serve``)."""
+"""Generation (``generate``), fused-native int8 (``quant``), the paged
+continuous-batching engine (``serve``) and batch prediction over rows
+(``engine``)."""

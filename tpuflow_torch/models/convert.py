@@ -1,4 +1,6 @@
-"""Weights from the JAX package's GPT-2 params into the port's modules.
+"""Weights between the JAX package's Flax param trees and the port's
+modules: GPT-2 (``params_from_jax``) and the MLP (``mlp_params_from_jax``,
+``mlp_params_to_jax``).
 
 ``params_from_jax(tree)`` takes the Flax param tree as nested mappings of
 numpy arrays (``jax.device_get(params)`` gives one) or of torch tensors (a
@@ -62,3 +64,25 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
             sd.update(_block(f"h.{i}.", tree[f"h{i}"]))
             i += 1
     return sd
+
+
+_MLP_DENSE = ("dense1", "dense2", "dense3")
+
+
+def mlp_params_from_jax(tree) -> dict[str, torch.Tensor]:
+    """Flax ``NeuralNetwork`` params (``dense{1,2,3}/{kernel (in, out),
+    bias}``, numpy arrays or tensors) → the port MLP's ``state_dict``
+    (float32, CPU)."""
+    sd = {}
+    for name in _MLP_DENSE:
+        sd[f"{name}.weight"] = _t(tree[name]["kernel"]).t().contiguous()
+        sd[f"{name}.bias"] = _t(tree[name]["bias"])
+    return sd
+
+
+def mlp_params_to_jax(sd: dict) -> dict:
+    """The inverse: the port MLP's ``state_dict`` (or any name → tensor
+    mapping of its parameters) → the Flax param tree, kernels as (in, out)
+    views."""
+    return {name: {"kernel": sd[f"{name}.weight"].t(),
+                   "bias": sd[f"{name}.bias"]} for name in _MLP_DENSE}

@@ -32,24 +32,25 @@ BUILD_DIR = os.path.join(
     "build", "tpuflow_torch",
 )
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F = ctypes.c_float
 # Each library's C entry points and their argtypes (pointers and the stream
 # as c_void_p: a plain int would be cut to 32 bits). Every launch entry
 # returns cudaGetLastError() as an int; a ``_smem`` entry returns bytes.
 KERNELS = {
     "flash_fwd": {
-        # q, k, v, o, lse; B, H, Tq, Tk, D, dtype, causal, bq; the nine
-        # strides; the stream.
-        "tpuflow_flash_fwd": [_P] * 5 + [_I] * 8 + [_L] * 9 + [_P],
+        # q, k, v, o, lse; B, H, Tq, Tk, D, dtype, causal, bq; the scale;
+        # the nine strides; the stream.
+        "tpuflow_flash_fwd": [_P] * 5 + [_I] * 8 + [_F] + [_L] * 9 + [_P],
         # dtype, D, bq -> the block's dynamic shared memory bytes.
         "tpuflow_flash_fwd_smem": [_I] * 3,
     },
     "flash_bwd": {
         # Tensors, then B, H, Tq, Tk, D, dtype, causal, rows (the plan's),
-        # a pointer to the int64 strides, the stream.
-        "tpuflow_flash_bwd_dq": [_P] * 8 + [_I] * 8 + [_P, _P],
-        "tpuflow_flash_bwd_dkv": [_P] * 8 + [_I] * 8 + [_P, _P],
-        "tpuflow_flash_bwd_dq_split": [_P] * 7 + [_I] * 8 + [_P, _P],
-        "tpuflow_flash_bwd_dkv_split": [_P] * 8 + [_I] * 8 + [_P, _P],
+        # the scale, a pointer to the int64 strides, the stream.
+        "tpuflow_flash_bwd_dq": [_P] * 8 + [_I] * 8 + [_F, _P, _P],
+        "tpuflow_flash_bwd_dkv": [_P] * 8 + [_I] * 8 + [_F, _P, _P],
+        "tpuflow_flash_bwd_dq_split": [_P] * 7 + [_I] * 8 + [_F, _P, _P],
+        "tpuflow_flash_bwd_dkv_split": [_P] * 8 + [_I] * 8 + [_F, _P, _P],
         # kernel (0 dq, 1 dk/dv), split, dtype, D, rows -> the block's
         # dynamic shared memory bytes.
         "tpuflow_flash_bwd_smem": [_I] * 5,

@@ -33,6 +33,14 @@ softmax, output / max(l, 1e-30), lse = m + log(max(l, 1e-30)).
   ``flash_bwd_dkv_split_plain``. For bf16 they round P and dS to the input
   dtype before the products that take them, as the kernels do.
 
+Head dims: the kernels are instantiated at D = 32, 64, 128 and 256. Any
+other D <= 256 is zero-padded up to the next of those (q, k, v, and in
+the backward O and dO; ``_padded``), run with the scale of the true D and
+cut back: zero columns add exact zeros to every score, product and row
+delta, so only the scale needs the true D. ``flash_attention`` routes a
+D that is not a multiple of 8 to ``blockwise_attention``, as the
+reference does; a D above 256 raises.
+
 The forward with lse is registered as the custom op
 ``tpuflow_torch::flash_fwd_lse`` so that a selective-checkpoint policy sees
 it as one op: the model's ``dots`` remat policy saves its outputs (the JAX
@@ -42,6 +50,7 @@ model's ``flash_out``) instead of re-running the kernel.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from tpuflow_torch.ops import _build
@@ -49,7 +58,8 @@ from tpuflow_torch.ops.attention import xla_attention
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+# The head dims the kernels are instantiated at; others are padded up.
+_HEAD_DIMS = (32, 64, 128, 256)
 
 # Kernel launches since the last reset, one counter per kernel:
 # chip_smoke.py zeroes them before a main path and reads them after, to
@@ -70,13 +80,49 @@ def _scale(D: int, device) -> torch.Tensor:
     return (1.0 / torch.sqrt(torch.tensor(D, dtype=torch.float32))).to(device)
 
 
-def _online_softmax(q, k, v, causal: bool, block_k: int):
+def _kernel_dim(D: int) -> int:
+    """The kernel instantiation head dim ``D`` runs at: the narrowest of
+    ``_HEAD_DIMS`` that holds it."""
+    for width in _HEAD_DIMS:
+        if D <= width:
+            return width
+    raise ValueError(
+        f"flash_attention kernels take head_dim up to {_HEAD_DIMS[-1]}, "
+        f"got {D}: a block's K/V stages at a wider head would not fit "
+        "Hopper's 227 KB of shared memory"
+    )
+
+
+def _padded(fn, *args, **kwargs):
+    """``fn(*args, scale_dim=D, **kwargs)`` at the kernel width of the
+    head dim D of ``args[0]``: every (B, T, H, D) tensor argument
+    zero-padded over D, and every (B, T, H, width) output cut back to D.
+    The zero columns add exact zeros; ``scale_dim`` keeps the scale at
+    1/sqrt(D)."""
+    D = args[0].shape[-1]
+    width = _kernel_dim(D)
+    if width == D:
+        return fn(*args, scale_dim=D, **kwargs)
+
+    def heads(x):
+        return isinstance(x, torch.Tensor) and x.dim() == 4
+
+    out = fn(*(F.pad(x, (0, width - D)) if heads(x) else x for x in args),
+             scale_dim=D, **kwargs)
+    if isinstance(out, tuple):
+        return tuple(x[..., :D].contiguous() if heads(x) else x
+                     for x in out)
+    return out[..., :D].contiguous()
+
+
+def _online_softmax(q, k, v, causal: bool, block_k: int, scale_dim=None):
     """The f32 online-softmax state ``(acc, m, l)`` after scanning KV in
     chunks of ``block_k`` (the last chunk may be shorter);
-    acc: (B, H, Tq, D), m and l: (B, H, Tq)."""
+    acc: (B, H, Tq, D), m and l: (B, H, Tq). The scores are scaled by
+    1/sqrt(``scale_dim``), by default the head dim."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
-    scale = _scale(D, q.device)
+    scale = _scale(scale_dim or D, q.device)
     q32 = q.float()
     q_pos = torch.arange(Tq, device=q.device)
     m = torch.full((B, H, Tq), _NEG_INF, dtype=torch.float32, device=q.device)
@@ -114,12 +160,13 @@ def blockwise_attention(q, k, v, *, causal: bool = True, block_k: int = 512):
 
 
 def blockwise_attention_lse(q, k, v, *, causal: bool = True,
-                            block_k: int = 512):
+                            block_k: int = 512, scale_dim=None):
     """``blockwise_attention`` plus the row logsumexp: ``(out, lse)`` with
     lse a compact (B*H, Tq) f32 array, row ``b*H + h``. Any Tk (a shorter
     last chunk). The plain version of the forward kernel with lse."""
     B, Tq, H, _ = q.shape
-    acc, m, l = _online_softmax(q, k, v, causal, min(block_k, k.shape[1]))
+    acc, m, l = _online_softmax(q, k, v, causal, min(block_k, k.shape[1]),
+                                scale_dim)
     l = torch.clamp(l, min=1e-30)
     out = (acc / l[..., None]).transpose(1, 2).to(q.dtype)
     return out, (m + torch.log(l)).reshape(B * H, Tq)
@@ -148,12 +195,13 @@ def _probs(qh, kh, lse_h, scale, causal: bool, k0: int):
     return torch.exp(s - lse_h[..., None])
 
 
-def _dq_chunks(q, k, v, lse, do, delta_of, causal: bool, block_k: int):
+def _dq_chunks(q, k, v, lse, do, delta_of, causal: bool, block_k: int,
+               scale_dim=None):
     """dQ = sum over key chunks of dS K, dS = P o (dP - D) * scale rounded
     to k's dtype before the product; ``delta_of()`` gives D, (B*H, Tq)
     f32, for each chunk."""
     B, Tq, H, D = q.shape
-    scale = _scale(D, q.device)
+    scale = _scale(scale_dim or D, q.device)
     qh, gh = _heads(q), _heads(do)
     lse_h = lse.view(B, H, Tq)
     dq = torch.zeros((B, H, Tq, D), dtype=torch.float32, device=q.device)
@@ -168,12 +216,13 @@ def _dq_chunks(q, k, v, lse, do, delta_of, causal: bool, block_k: int):
     return dq.transpose(1, 2).to(q.dtype)
 
 
-def _dkv_chunks(q, k, v, lse, do, delta_of, causal: bool, block_k: int):
+def _dkv_chunks(q, k, v, lse, do, delta_of, causal: bool, block_k: int,
+                scale_dim=None):
     """(dK, dV) chunk by chunk of keys: dV = P^T dO with P rounded to dO's
     dtype, dK = dS^T Q with dS rounded to q's dtype; ``delta_of()`` gives
     D for each chunk."""
     B, Tq, H, D = q.shape
-    scale = _scale(D, q.device)
+    scale = _scale(scale_dim or D, q.device)
     qh, gh = _heads(q), _heads(do)
     lse_h = lse.view(B, H, Tq)
     dks, dvs = [], []
@@ -194,19 +243,20 @@ def _dkv_chunks(q, k, v, lse, do, delta_of, causal: bool, block_k: int):
 
 
 def flash_bwd_dq_plain(q, k, v, o, lse, do, *, causal: bool,
-                       block_k: int = 512):
+                       block_k: int = 512, scale_dim=None):
     """The fused dq kernel's plain version: ``(dq, delta)``, with
     D = rowsum(dO o O) computed once per row (``row_delta``)."""
     delta = row_delta(o, do)
-    return _dq_chunks(q, k, v, lse, do, lambda: delta, causal,
-                      block_k), delta
+    return _dq_chunks(q, k, v, lse, do, lambda: delta, causal, block_k,
+                      scale_dim), delta
 
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, causal: bool,
-                        block_k: int = 512):
+                        block_k: int = 512, scale_dim=None):
     """The fused dk/dv kernel's plain version: ``(dk, dv)`` from q, k, v,
     dO, lse and D (never O)."""
-    return _dkv_chunks(q, k, v, lse, do, lambda: delta, causal, block_k)
+    return _dkv_chunks(q, k, v, lse, do, lambda: delta, causal, block_k,
+                       scale_dim)
 
 
 def flash_bwd_plain(q, k, v, o, lse, do, *, causal: bool):
@@ -217,20 +267,20 @@ def flash_bwd_plain(q, k, v, o, lse, do, *, causal: bool):
 
 
 def flash_bwd_dq_split_plain(q, k, v, o, lse, do, *, causal: bool,
-                             block_k: int = 512):
+                             block_k: int = 512, scale_dim=None):
     """The split dq kernel's plain version: ``dq``, with D recomputed from
     O and dO for every key chunk (the same value each time, so the fused
     version's dq bit for bit)."""
     return _dq_chunks(q, k, v, lse, do, lambda: row_delta(o, do), causal,
-                      block_k)
+                      block_k, scale_dim)
 
 
 def flash_bwd_dkv_split_plain(q, k, v, o, lse, do, *, causal: bool,
-                              block_k: int = 512):
+                              block_k: int = 512, scale_dim=None):
     """The split dk/dv kernel's plain version: ``(dk, dv)`` from q, k, v,
     O, dO and lse, D recomputed for every key chunk."""
     return _dkv_chunks(q, k, v, lse, do, lambda: row_delta(o, do), causal,
-                       block_k)
+                       block_k, scale_dim)
 
 
 # ------------------------------------------------------------ dispatch
@@ -239,7 +289,7 @@ def flash_fwd_lse(q, k, v, *, causal: bool = True):
     ``blockwise_attention_lse``; CUDA tensors launch the kernel or raise."""
     if q.device.type == "cpu":
         return blockwise_attention_lse(q, k, v, causal=causal)
-    return _flash_fwd_cuda(q, k, v, causal, with_lse=True)
+    return _padded(_flash_fwd_cuda, q, k, v, causal, with_lse=True)
 
 
 @torch.library.custom_op("tpuflow_torch::flash_fwd_lse", mutates_args=())
@@ -252,14 +302,14 @@ def flash_bwd_dq(q, k, v, o, lse, do, *, causal: bool):
     """``(dq, delta)``: the dq kernel on CUDA, its plain version on CPU."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, o, lse, do, causal=causal)
-    return _flash_bwd_dq_cuda(q, k, v, o, lse, do, causal)
+    return _padded(_flash_bwd_dq_cuda, q, k, v, o, lse, do, causal)
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool):
     """``(dk, dv)``: the dk/dv kernel on CUDA, its plain version on CPU."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=causal)
-    return _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal)
+    return _padded(_flash_bwd_dkv_cuda, q, k, v, do, lse, delta, causal)
 
 
 def flash_bwd(q, k, v, o, lse, do, *, causal: bool):
@@ -273,7 +323,7 @@ def flash_bwd_dq_split(q, k, v, o, lse, do, *, causal: bool):
     """``dq``: the split dq kernel on CUDA, its plain version on CPU."""
     if q.device.type == "cpu":
         return flash_bwd_dq_split_plain(q, k, v, o, lse, do, causal=causal)
-    return _flash_bwd_dq_split_cuda(q, k, v, o, lse, do, causal)
+    return _padded(_flash_bwd_dq_split_cuda, q, k, v, o, lse, do, causal)
 
 
 def flash_bwd_dkv_split(q, k, v, o, lse, do, *, causal: bool):
@@ -281,7 +331,7 @@ def flash_bwd_dkv_split(q, k, v, o, lse, do, *, causal: bool):
     CPU."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_split_plain(q, k, v, o, lse, do, causal=causal)
-    return _flash_bwd_dkv_split_cuda(q, k, v, o, lse, do, causal)
+    return _padded(_flash_bwd_dkv_split_cuda, q, k, v, o, lse, do, causal)
 
 
 def flash_bwd_split(q, k, v, o, lse, do, *, causal: bool):
@@ -333,9 +383,11 @@ def flash_attention(q, k, v, *, causal: bool = True, bwd: str = "fused"):
     Differentiable (``_Flash``) when a gradient is needed, with the
     backward ``bwd`` names (``fused``, ``split`` or ``blockwise``); else
     the no-lse forward. CPU tensors take the plain versions. CUDA tensors
-    launch the kernels (f32 or bf16, D in {32, 64, 128}, any T; ragged
-    tails are masked in the kernels) or raise; ``blockwise``, which runs
-    no backward kernel, takes CPU tensors only.
+    launch the kernels (f32 or bf16, any D % 8 == 0 up to 256, padded to
+    the kernel's width; any T, ragged tails masked in the kernels) or
+    raise; ``blockwise``, which runs no backward kernel, takes CPU tensors
+    only. A head dim that is not a multiple of 8 takes
+    ``blockwise_attention`` on any device, as in the reference.
     """
     if bwd not in BWD_MODES:
         raise ValueError(f"unknown flash backward {bwd!r}; use "
@@ -344,13 +396,17 @@ def flash_attention(q, k, v, *, causal: bool = True, bwd: str = "fused"):
         raise ValueError(
             "flash backward 'blockwise' is the plain version, a CPU "
             f"reference; on {q.device} use 'fused' or 'split'")
+    # The reference's own dispatch (tpuflow/ops/flash_attention.py:724):
+    # a head dim that is not a multiple of 8 takes blockwise attention.
+    if q.shape[-1] % 8:
+        return blockwise_attention(q, k, v, causal=causal)
     if torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad
     ):
         return _Flash.apply(q, k, v, causal, bwd)
     if q.device.type == "cpu":
         return blockwise_attention(q, k, v, causal=causal)
-    return _flash_fwd_cuda(q, k, v, causal, with_lse=False)
+    return _padded(_flash_fwd_cuda, q, k, v, causal, with_lse=False)
 
 
 # --------------------------------------------------------- CUDA wrappers
@@ -374,7 +430,8 @@ def _check_qkv(q, k, v, what: str):
         )
     if D not in _HEAD_DIMS:
         raise ValueError(
-            f"{what} kernel supports head_dim in {_HEAD_DIMS}, got {D}"
+            f"{what} kernel supports head_dim in {_HEAD_DIMS} (the wrappers "
+            f"pad other head dims up to 256), got {D}"
         )
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError(f"{what} kernel needs unit stride over D")
@@ -403,19 +460,28 @@ def _check_rows(x, q, name: str, what: str):
         )
 
 
+def _kernel_scale(scale_dim: int) -> float:
+    """1/sqrt(scale_dim) as the f32 value the plain versions use (IEEE
+    sqrt and division in f32), for the kernels' float argument."""
+    return float(_scale(scale_dim, "cpu"))
+
+
 def _strides(*xs):
     return _build.int64_array(
         [s for x in xs for s in (x.stride(0), x.stride(1), x.stride(2))]
     )
 
 
-def _flash_bq(B: int, H: int, Tq: int, sms: int) -> int:
+def _flash_bq(B: int, H: int, Tq: int, sms: int, D: int = 64) -> int:
     """The forward kernel's q tile height on a card of ``sms`` streaming
     multiprocessors: 64 where the grid of B*H x ceil(Tq/64) blocks gives
-    every SM one, else 32. It changes no output bit: the key tiles are
-    anchored at key 0 and each row's arithmetic does not depend on it.
-    The kernel derives the grid and shared memory from it, and runs the
-    causal q tiles longest first."""
+    every SM one, else 32; always 32 at the kernel head dim ``D`` = 256,
+    whose 64-row block would overrun shared memory. It changes no output
+    bit: the key tiles are anchored at key 0 and each row's arithmetic
+    does not depend on it. The kernel derives the grid and shared memory
+    from it, and runs the causal q tiles longest first."""
+    if D > 128:
+        return 32
     return 64 if B * H * -(-Tq // 64) >= sms else 32
 
 
@@ -426,14 +492,18 @@ def _flash_bwd_plan(B: int, H: int, Tq: int, Tk: int, D: int, dtype,
     ``dkv_rows``, the key rows a dk/dv block owns. bf16 blocks hold 16
     rows a warp (32 or 64 rows); f32 blocks 8 rows a lane pair (32, 64, or
     128 at D <= 64: 8 warps, where the f32 kernels' shared memory allows
-    one block an SM). Each takes the tallest tile whose grid of B*H x
+    one block an SM; 32 only at D = 256, whose full-width tiles leave no
+    room for more). Each takes the tallest tile whose grid of B*H x
     ceil(T/rows) blocks still gives every SM one, else 32 (1 x 512 x 12
     heads: 96 blocks of 64 would leave SMs idle). No output bit depends on
     it: the streamed tiles' height is fixed by ``dtype`` and ``D``, and
     every element sums its products in the same order. The C entries
     derive grid and shared memory from it, and run the causal tiles
     longest first (dq tiles in reverse, dk/dv ascending)."""
-    tall = (128, 64) if dtype == torch.float32 and D <= 64 else (64,)
+    if dtype != torch.float32:
+        tall = (64,)
+    else:
+        tall = (128, 64) if D <= 64 else (64,) if D <= 128 else ()
 
     def rows(T: int) -> int:
         return next((r for r in tall if B * H * -(-T // r) >= sms), 32)
@@ -448,7 +518,8 @@ def _bwd_rows(q, Tk: int, key: str) -> int:
                            .multi_processor_count)[key]
 
 
-def _flash_fwd_cuda(q, k, v, causal: bool, *, with_lse: bool):
+def _flash_fwd_cuda(q, k, v, causal: bool, *, with_lse: bool,
+                    scale_dim: int):
     global launches, launches_lse, launches_lse_bf16
     _check_qkv(q, k, v, "flash_attention")
     B, Tq, H, D = q.shape
@@ -459,13 +530,13 @@ def _flash_fwd_cuda(q, k, v, causal: bool, *, with_lse: bool):
     if B * H * Tq == 0:
         return (out, lse) if with_lse else out
     bq = _flash_bq(B, H, Tq, torch.cuda.get_device_properties(
-        q.device).multi_processor_count)
+        q.device).multi_processor_count, D)
     lib = _build.load("flash_fwd")
     rc = lib.tpuflow_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
         B, H, Tq, Tk, D, _DTYPES[q.dtype], int(causal), bq,
-        q.stride(0), q.stride(1), q.stride(2),
+        _kernel_scale(scale_dim), q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         torch.cuda.current_stream(q.device).cuda_stream,
@@ -480,7 +551,8 @@ def _flash_fwd_cuda(q, k, v, causal: bool, *, with_lse: bool):
     return out
 
 
-def _flash_bwd_dq_cuda(q, k, v, o, lse, do, causal: bool):
+def _flash_bwd_dq_cuda(q, k, v, o, lse, do, causal: bool, *,
+                       scale_dim: int):
     global launches_bwd_dq, launches_bwd_dq_bf16
     what = "flash_bwd_dq"
     _check_qkv(q, k, v, what)
@@ -496,7 +568,8 @@ def _flash_bwd_dq_cuda(q, k, v, o, lse, do, causal: bool):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
         B, H, Tq, k.shape[1], D, _DTYPES[q.dtype], int(causal),
-        _bwd_rows(q, k.shape[1], "dq_rows"), strides,
+        _bwd_rows(q, k.shape[1], "dq_rows"), _kernel_scale(scale_dim),
+        strides,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, "flash_bwd_dq launch")
@@ -505,7 +578,8 @@ def _flash_bwd_dq_cuda(q, k, v, o, lse, do, causal: bool):
     return dq, delta
 
 
-def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool):
+def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool, *,
+                        scale_dim: int):
     global launches_bwd_dkv, launches_bwd_dkv_bf16
     what = "flash_bwd_dkv"
     _check_qkv(q, k, v, what)
@@ -521,7 +595,7 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         B, H, q.shape[1], Tk, D, _DTYPES[q.dtype], int(causal),
-        _bwd_rows(q, Tk, "dkv_rows"), strides,
+        _bwd_rows(q, Tk, "dkv_rows"), _kernel_scale(scale_dim), strides,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, "flash_bwd_dkv launch")
@@ -530,7 +604,8 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool):
     return dk, dv
 
 
-def _flash_bwd_dq_split_cuda(q, k, v, o, lse, do, causal: bool):
+def _flash_bwd_dq_split_cuda(q, k, v, o, lse, do, causal: bool, *,
+                             scale_dim: int):
     global launches_bwd_dq_split, launches_bwd_dq_bf16
     what = "flash_bwd_dq_split"
     _check_qkv(q, k, v, what)
@@ -545,7 +620,8 @@ def _flash_bwd_dq_split_cuda(q, k, v, o, lse, do, causal: bool):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
         B, H, Tq, k.shape[1], D, _DTYPES[q.dtype], int(causal),
-        _bwd_rows(q, k.shape[1], "dq_rows"), strides,
+        _bwd_rows(q, k.shape[1], "dq_rows"), _kernel_scale(scale_dim),
+        strides,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, "flash_bwd_dq_split launch")
@@ -554,7 +630,8 @@ def _flash_bwd_dq_split_cuda(q, k, v, o, lse, do, causal: bool):
     return dq
 
 
-def _flash_bwd_dkv_split_cuda(q, k, v, o, lse, do, causal: bool):
+def _flash_bwd_dkv_split_cuda(q, k, v, o, lse, do, causal: bool, *,
+                              scale_dim: int):
     global launches_bwd_dkv_split, launches_bwd_dkv_bf16
     what = "flash_bwd_dkv_split"
     _check_qkv(q, k, v, what)
@@ -570,7 +647,7 @@ def _flash_bwd_dkv_split_cuda(q, k, v, o, lse, do, causal: bool):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         B, H, q.shape[1], Tk, D, _DTYPES[q.dtype], int(causal),
-        _bwd_rows(q, Tk, "dkv_rows"), strides,
+        _bwd_rows(q, Tk, "dkv_rows"), _kernel_scale(scale_dim), strides,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, "flash_bwd_dkv_split launch")

@@ -1,2 +1,3 @@
-"""GPT training on one device: the optimizer factory (``optim``), the
-train and eval steps (``step``) and the ``train_gpt`` recipe (``gpt``)."""
+"""Training: the optimizer factory (``optim``), the train and eval steps
+and the train state (``step``), the ``Trainer`` runtime (``trainer``) and
+the ``train_gpt`` recipe on one device (``gpt``)."""

@@ -7,20 +7,29 @@ i)``), gradients of equal microbatches summed then divided by
 ``accum_steps`` (so the step equals the full-batch step for mean losses),
 one optimizer update, optional EMA of the weights, and the same metrics
 (loss, accuracy and the health statistics). The state is updated in place
-(the counterpart of the JAX step's donated state) and returned.
+(the counterpart of the JAX step's donated state) and returned. The steps
+take GPT token batches (``x``, ``y``: (B, T)) and image batches (``x``
+(B, 28, 28) f32, ``y`` (B,)) alike; with a ``mesh`` of several processes
+the gradients are averaged over its ``data`` axis before the update.
+
+Also here: ``create_train_state`` (an ``nn.Module`` with SGD at momentum
+0.9, the MLP recipe) and ``DispatchWindow`` (the host-side bookkeeping of
+steps in flight).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Callable
 
 import numpy as np
 import torch
 
+from tpuflow_torch.dist.mesh import average_gradients
 from tpuflow_torch.models.gpt2 import fold_in
 from tpuflow_torch.models.losses import accuracy, cross_entropy_loss
-from tpuflow_torch.train.optim import Optimizer, health_stats
+from tpuflow_torch.train.optim import Optimizer, health_stats, make_optimizer
 
 
 @dataclasses.dataclass
@@ -37,6 +46,49 @@ class TrainState:
     @property
     def params(self) -> list[torch.Tensor]:
         return self.tx.params
+
+
+def create_train_state(model: torch.nn.Module, learning_rate: float, *,
+                       momentum: float = 0.9) -> TrainState:
+    """A fresh state for ``model`` (already on its device) with SGD at
+    ``momentum`` and a constant learning rate: the MLP recipe's
+    ``optax.sgd(lr, momentum=0.9)`` (``tpuflow/train/step.py:303``)."""
+    return TrainState(model=model, tx=make_optimizer(
+        model.parameters(), learning_rate, optimizer="sgd",
+        momentum=momentum))
+
+
+class DispatchWindow:
+    """Bounded dispatch-ahead bookkeeping for a step loop (a copy of the
+    JAX package's, pure host code): the loop ``push``es one entry per
+    dispatched step; once ``depth`` entries are pending, ``push`` returns
+    the oldest ones for the caller to settle (``float()`` of a loss on the
+    card waits for that step). ``drain()`` matures every pending entry;
+    ``clear()`` drops them unsettled."""
+
+    def __init__(self, depth: int = 1):
+        self.depth = max(1, int(depth))
+        self._pending: collections.deque = collections.deque()
+
+    def push(self, entry) -> list:
+        """Queue one step's entry; return the entries due for settling,
+        oldest first (depth 1: every entry at once)."""
+        self._pending.append(entry)
+        out = []
+        while len(self._pending) >= self.depth:
+            out.append(self._pending.popleft())
+        return out
+
+    def drain(self) -> list:
+        out = list(self._pending)
+        self._pending.clear()
+        return out
+
+    def clear(self) -> None:
+        self._pending.clear()
+
+    def __len__(self) -> int:
+        return len(self._pending)
 
 
 def with_ema(state: TrainState) -> TrainState:
@@ -66,11 +118,15 @@ def make_train_step(
     *,
     accum_steps: int = 1,
     ema_decay: float | None = None,
+    mesh=None,
 ) -> Callable:
     """Build ``train_step(state, batch, rng) -> (state, metrics)``.
 
-    ``batch`` holds ``x`` (B, T) token ids and ``y`` (B, T) targets (host
-    arrays or tensors); ``rng`` is an int seed. ``accum_steps > 1`` splits
+    ``batch`` holds ``x`` (B, T) token ids and ``y`` (B, T) targets, or
+    ``x`` (B, 28, 28) images and ``y`` (B,) labels (host arrays or
+    tensors); ``rng`` is an int seed. ``mesh`` (``dist.make_mesh``): the
+    gradients are averaged over its ``data`` axis before the update (one
+    process: untouched). ``accum_steps > 1`` splits
     the batch's rows into that many equal microbatches, runs forward and
     backward on each in turn (activation memory drops by that factor) and
     feeds the averaged gradients to one update. ``metrics`` holds 0-dim
@@ -115,7 +171,7 @@ def make_train_step(
                 lsum = lsum + l.detach()
                 asum = asum + accuracy(logits.detach(), y[rows])
             loss, acc = lsum / accum_steps, asum / accum_steps
-        grads = [p.grad for p in params]
+        grads = average_gradients([p.grad for p in params], mesh)
         if accum_steps > 1:
             # Equal microbatches: the mean of microbatch means IS the
             # full-batch mean, for the loss and its gradient alike.
