@@ -18,11 +18,13 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    launch), the least time the card could take and the kernel's share of
    it. The backward phase runs f32 and bf16 at both prefill shapes and at
    the training shape; the int8 phase also counts the kernels one call
-   launches at M = 8. The head-dim phase runs the forward with lse and
-   both backward pairs at D = 96 (zero-padded to the 128 kernels) and
-   D = 256, f32 and bf16, at (1, 1024, 12, D), against the plain versions
-   at the true D, the split pair bit-equal to the fused one, each time
-   beside the D = 64 kernels'.
+   launches at M = 8. The head-dim phase runs the forward without and
+   with lse and both backward pairs at D = 96 (zero-padded to the 128
+   kernels), D = 256 and D = 512 (the wide-head kernels), f32 and bf16,
+   at (1, 1024, 12, D),
+   against the plain versions at the true D, the split pair bit-equal to
+   the fused one, each time beside its bound and the D = 64 kernels'; at
+   D = 512 also beside the plain versions' and SDPA's times.
 4. Serving slice on GPT-2 124M at full width, weights random from a seed:
    ``generate()`` on a 512-token dense prompt (its prefill must launch the
    flash kernel once per layer), then a paged ``ServeEngine`` answering
@@ -62,11 +64,25 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    its numbers: step ms and samples/s, the epoch's wall, the device's
    busy share and kernels a step under the profiler, the checkpoint's
    save and restore seconds, eval rows/s.
-8. One JSON line with every kernel's numbers (the int8 matmul both as one
+8. The flow layer on the card through the flow CLIs' ``main(argv)``
+   (``flow_phase``): the README contract (``TorchTrain`` 2 epochs on the
+   full-size synthetic set, a ``--from-run`` warm start whose first
+   val_loss is below run 1's, a triggered ``TorchEval`` at batch 512 whose
+   count matches the best accuracy and whose card holds "Error analysis",
+   a pathspec eval, the "no checkpoint source" error; no kernel launches),
+   then ``TorchGptTrain`` at GPT-2 124M width on the flash kernels (exact
+   launch counts, a finite last loss) and the triggered ``TorchGptEval``
+   (a finite test loss, exact no-lse launches). Each flow's wall, the
+   wrapped call's wall and the flow layer's overhead, the GPT step ms
+   inside the flow, ``profile.json``'s device and peak bytes.
+9. One JSON line with every kernel's numbers (the int8 matmul both as one
    decode step at M = 8 and as the same 49 products at M = 512; the
    training kernels in f32 and bf16, their launches from the f32 legs and
    the bf16 leg, which runs the fused pair, so the bf16 split variants'
-   count there is 0), the ``nvidia-smi`` line, and as the last line
+   count there is 0; the wide-head kernels at D = 512, their launches the
+   wide-head runs the main paths' counters read; ``flow_launches``: the
+   flash kernels' launches in the flow phase), the ``nvidia-smi`` line,
+   and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when CUDA is absent or the package is not
@@ -75,6 +91,7 @@ beside this script. Details go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -136,20 +153,36 @@ PARITY_GRAD_RTOL = 2e-5  # of each gradient tensor's max |value|
 # (K, N) of the four Dense layers of a GPT-2 124M block, and the head.
 DENSE_KN = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
 VOCAB = 50257
+# The flash wrappers whose wide-head variants (D > 256) are counted apart
+# (``flash_attention.wide_launches``, by wrapper and dtype).
+WIDE_KERNELS = ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv",
+                "flash_bwd_dq_split", "flash_bwd_dkv_split")
 # The launch counters chip_smoke reads (``_counters``), one per kernel and
-# variant.
+# variant; "<kernel>[_bf16]_wide" are the wide-head launches.
 LAUNCH_COUNTERS = (
     "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_split",
     "flash_bwd_dkv_split", "flash_fwd", "int8_matmul", "flash_fwd_lse_bf16",
-    "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")
+    "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16",
+    *(f"{k}{dt}_wide" for k in WIDE_KERNELS for dt in ("", "_bf16")))
 # Rounds of the checkpoint IO phase (a save, writes, a restore, reads).
 CKPT_IO_REPS = 2
 # torch.profiler traces taken before a trace without the measured
 # function's kernels is fatal.
 TRACE_ATTEMPTS = 3
 # Head dims the kernels are not instantiated at (96, run zero-padded at
-# 128) and the widest instantiation (256), at one prefill layer's shape.
-HEAD_DIM_SHAPES = ((1, 1024, 12, 96), (1, 1024, 12, 256))
+# 128), the widest instantiation (256) and a wide head (512, the wide-head
+# kernels that contract over D in chunks), at one prefill layer's shape.
+HEAD_DIM_SHAPES = ((1, 1024, 12, 96), (1, 1024, 12, 256), (1, 1024, 12, 512))
+# The head dim whose rows also time the plain versions and SDPA, and enter
+# the kernels JSON line; each kernel's outputs in the head-dim phase's
+# errors (the split pair's equal the fused pair's bit for bit).
+WIDE_D = 512
+WIDE_ERR_KEYS = {
+    "flash_fwd": ("out_no_lse",), "flash_fwd_lse": ("out", "lse"),
+    "flash_bwd_dq": ("delta", "dq"),
+    "flash_bwd_dkv": ("dk", "dv"), "flash_bwd_dq_split": ("dq",),
+    "flash_bwd_dkv_split": ("dk", "dv"),
+}
 # The README main path as flows/train_flow.py:45-48 runs it: 3 epochs at
 # global batch 32 and lr 1e-3, on the full-size synthetic FashionMNIST
 # (60,000 rows: 1875 steps an epoch); the eval at flows/eval_flow.py:61's
@@ -176,6 +209,15 @@ PREFILL_M = 512   # the widest prefill bucket the slice phase uses
 GEN_PROMPT = 512
 NEW_TOKENS = 32
 ENGINE_LENS = (5, 300, 64, 17, 129, 250, 33, 200)
+# The flow phase: the GPT-2 train flow at 124M width (2 epochs of 4 steps
+# at 8 x 1024 on the flash kernels), then the triggered eval flow sampling
+# this many tokens three times.
+FLOW_GPT_ARGS = ("--preset", "gpt2", "--seq-len", "1024", "--batch-size",
+                 "8", "--epochs", "2", "--steps-per-epoch", "4",
+                 "--attn-impl", "flash", "--data-axis", "1", "--fsdp-axis",
+                 "1")
+FLOW_GPT_BATCH, FLOW_GPT_STEPS = 8, 8
+FLOW_SAMPLE_TOKENS = 16
 
 
 def _smi_line() -> str:
@@ -341,6 +383,35 @@ def _within(got, want, atol: float, rtol: float, what: str):
     return float(err.max()), share
 
 
+def _flash_work(B, T, H, D, esize) -> dict:
+    """(bytes, operations) the function of each flash kernel needs at a
+    causal (B, T, H, D) shape: each input read once, each output written
+    once, and the causal half of each T x T x D product."""
+    x = B * T * H * D * esize  # one (B, T, H, D) array
+    r = B * H * T * 4          # one (B*H, T) f32 row array
+    prod = 2 * B * H * D * T * (T + 1) / 2  # one causal T x T x D product
+    # The row delta D = rowsum(dO o O), 2 D operations a row. The function
+    # needs it once per row; the split kernels' recomputation on every
+    # block visit is their own redundancy, not counted.
+    rowsums = 2 * B * T * H * D
+    return {
+        # q, k, v in; o out; S and P.V.
+        "flash_fwd": (4 * x, 2 * prod),
+        # q, k, v in; o, lse out; S and P.V.
+        "flash_fwd_lse": (4 * x + r, 2 * prod),
+        # q, k, v, o, dO, lse in; dq, delta out; S, dP, dQ products plus
+        # the row delta once per row.
+        "flash_bwd_dq": (6 * x + 2 * r, 3 * prod + rowsums),
+        # q, k, v, dO, lse, delta in; dk, dv out; S, dP, dV, dK.
+        "flash_bwd_dkv": (6 * x + 2 * r, 4 * prod),
+        # q, k, v, o, dO, lse in; dq out; S, dP, dQ and the row delta.
+        "flash_bwd_dq_split": (6 * x + r, 3 * prod + rowsums),
+        # q, k, v, o (the O stream), dO, lse in; dk, dv out; S, dP, dV, dK
+        # and the row delta.
+        "flash_bwd_dkv_split": (7 * x + r, 4 * prod + rowsums),
+    }
+
+
 def flash_bwd_phase(torch, timer):
     """The forward with lse, the fused and the split backward pairs against
     their plain versions, bit-equal over two runs (the split pair also to
@@ -445,35 +516,21 @@ def flash_bwd_phase(torch, timer):
             sdpa_bwd,
         )
         del out_h, qh, kh, vh
-        e = q.element_size()
-        x = B * T * H * D * e       # one (B, T, H, D) array
-        r = B * H * T * 4           # one (B*H, T) f32 row array
-        prod = 2 * B * H * D * T * (T + 1) / 2  # one causal T x T x D product
-        # The row delta D = rowsum(dO o O), 2 D operations a row. The
-        # function needs it once per row; the split kernels' recomputation
-        # on every block visit is their own redundancy, not counted.
-        rowsums = 2 * B * T * H * D
         shape = [B, T, H, D]
         lib = "sdpa backward (dq, dk, dv)"
-        for kern, times, nbytes, ops, err_keys, libname in (
-            ("flash_fwd_lse", fwd, 4 * x + r, 2 * prod, ("out", "lse"),
-             "sdpa forward"),
-            # q, k, v, o, dO, lse in; dq, delta out; S, dP, dQ products
-            # plus the row delta once per row.
-            ("flash_bwd_dq", bwd_dq, 6 * x + 2 * r,
-             3 * prod + rowsums, ("delta", "dq"), lib),
-            # q, k, v, dO, lse, delta in; dk, dv out; S, dP, dV, dK.
-            ("flash_bwd_dkv", bwd_dkv, 6 * x + 2 * r, 4 * prod,
-             ("dk", "dv"), lib),
-            # q, k, v, o, dO, lse in; dq out; S, dP, dQ and the row delta.
-            ("flash_bwd_dq_split", split_dq, 6 * x + r, 3 * prod + rowsums,
-             ("split dq",), lib),
-            # q, k, v, o (the O stream), dO, lse in; dk, dv out; S, dP, dV,
-            # dK and the row delta.
-            ("flash_bwd_dkv_split", split_dkv, 7 * x + r,
-             4 * prod + rowsums, ("split dk", "split dv"), lib),
+        work = _flash_work(B, T, H, D, q.element_size())
+        x = B * T * H * D * q.element_size()
+        r = B * H * T * 4
+        prod = 2 * B * H * D * T * (T + 1) / 2
+        for kern, times, err_keys, libname in (
+            ("flash_fwd_lse", fwd, ("out", "lse"), "sdpa forward"),
+            ("flash_bwd_dq", bwd_dq, ("delta", "dq"), lib),
+            ("flash_bwd_dkv", bwd_dkv, ("dk", "dv"), lib),
+            ("flash_bwd_dq_split", split_dq, ("split dq",), lib),
+            ("flash_bwd_dkv_split", split_dkv, ("split dk", "split dv"),
+             lib),
         ):
-            bound, by = _bound_ms(nbytes, ops, name)
+            bound, by = _bound_ms(*work[kern], name)
             rows.append(dict(
                 kernel=kern, shape=shape, dtype=name,
                 max_abs_err=max(errs[k][0] for k in err_keys),
@@ -577,11 +634,12 @@ def slice_phase(torch, smi):
 
     # --- main path 1: generate() on a dense 512-token prompt.
     prompt = rng.integers(0, cfg.vocab_size, size=(1, GEN_PROMPT))
-    fa.launches = im.launches = 0
+    _zero_counters(fa, im)
     t0 = time.monotonic()
     out = generate(model, prompt, max_new_tokens=NEW_TOKENS, temperature=0.0)
     torch.cuda.synchronize()
     gen_s = time.monotonic() - t0
+    gen_n = _counters(fa, im)
     flash_launches = fa.launches
     if flash_launches != cfg.n_layer:
         raise AssertionError(
@@ -608,7 +666,7 @@ def slice_phase(torch, smi):
     del ref_model
     res["generate"] = dict(
         prompt_len=GEN_PROMPT, new_tokens=NEW_TOKENS, wall_s=gen_s,
-        flash_launches=flash_launches,
+        flash_launches=flash_launches, launches=gen_n,
         prefill_logit_max_abs_err_vs_xla=logit_err,
         tokens_equal_xla=bool((ref_toks == toks).all()),
     )
@@ -621,8 +679,7 @@ def slice_phase(torch, smi):
     eng = ServeEngine(model, max_slots=8, quant="fused_native")
     prompts = [rng.integers(0, cfg.vocab_size, size=L) for L in ENGINE_LENS]
     flags = [i % 2 == 1 for i in range(len(prompts))]
-    fa.launches = im.launches = 0
-    im.tile_launches.update(decode=0, prefill=0)
+    _zero_counters(fa, im)
     t0 = time.monotonic()
     reqs = [
         eng.submit(p, max_new_tokens=NEW_TOKENS, quantize=q)
@@ -632,6 +689,7 @@ def slice_phase(torch, smi):
     torch.cuda.synchronize()
     eng_s = time.monotonic() - t0
     int8_launches, eng_flash = dict(im.tile_launches), fa.launches
+    eng_n = _counters(fa, im)
     if im.launches != sum(int8_launches.values()) or \
             0 in int8_launches.values():
         raise AssertionError(f"the engine's int8 requests launched the int8 "
@@ -655,7 +713,7 @@ def slice_phase(torch, smi):
     res["engine"] = dict(
         requests=reqs_out, wall_s=eng_s, tokens=n_tok,
         tokens_per_s=n_tok / eng_s, int8_launches=int8_launches,
-        flash_launches=eng_flash, gpu=smi,
+        flash_launches=eng_flash, launches=eng_n, gpu=smi,
     )
     print(f"engine: {len(reqs)} requests ({sum(flags)} int8), {n_tok} tokens "
           f"in {eng_s:.3f} s = {n_tok / eng_s:.1f} tokens/s, int8 launches by "
@@ -806,6 +864,7 @@ def _zero_counters(fa, im) -> None:
     fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
     fa.launches_bwd_dq_split = fa.launches_bwd_dkv_split = 0
     fa.launches_bwd_dq_bf16 = fa.launches_bwd_dkv_bf16 = 0
+    fa.wide_launches.update(dict.fromkeys(fa.wide_launches, 0))
     im.launches = 0
     im.tile_launches.update(decode=0, prefill=0)
 
@@ -819,7 +878,8 @@ def _counters(fa, im) -> dict:
             "flash_fwd": fa.launches, "int8_matmul": im.launches,
             "flash_fwd_lse_bf16": fa.launches_lse_bf16,
             "flash_bwd_dq_bf16": fa.launches_bwd_dq_bf16,
-            "flash_bwd_dkv_bf16": fa.launches_bwd_dkv_bf16}
+            "flash_bwd_dkv_bf16": fa.launches_bwd_dkv_bf16} | {
+                f"{k}_wide": n for k, n in fa.wide_launches.items()}
 
 
 def _shards(step_dir: str) -> list:
@@ -1116,12 +1176,14 @@ def engine_profile(torch, model, prompts, flags, wall_s: float) -> dict:
 
 
 def head_dim_phase(torch, timer, bwd_rows):
-    """The flash forward with lse and both backward pairs at a padded head
-    dim (96, run at the 128 instantiation) and at 256, f32 and bf16,
-    causal: against their plain versions at the true D with the backward
-    phase's tolerances, the split pair bit-equal to the fused one, and
-    their device ms (the wrappers' padding copies included) beside the
-    D = 64 kernels' at (1, 1024, 12, 64)."""
+    """The flash forward without and with lse and both backward pairs at a
+    padded head dim (96, run at the 128 instantiation), at 256 and at 512
+    (the wide-head kernels), f32 and bf16, causal: against their plain
+    versions at the true D with the backward phase's tolerances, the split pair
+    bit-equal to the fused one, and their device ms (the wrappers' padding
+    copies included) beside their bound and the D = 64 kernels' at
+    (1, 1024, 12, 64). At D = 512 also the plain versions' and SDPA's
+    device ms."""
     from tpuflow_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -1136,6 +1198,7 @@ def head_dim_phase(torch, timer, bwd_rows):
                 for _ in range(4)
             )
             tag = f"{name} {(B, T, H, D)}"
+            o_no_lse = fa.flash_attention(q, k, v, causal=True)
             o, lse = fa.flash_fwd_lse(q, k, v, causal=True)
             dq, delta = fa.flash_bwd_dq(q, k, v, o, lse, do, causal=True)
             dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True)
@@ -1151,6 +1214,8 @@ def head_dim_phase(torch, timer, bwd_rows):
             rdk, rdv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, rdelta,
                                               causal=True)
             errs = {
+                "out_no_lse": _within(o_no_lse, ro, *FLASH_TOL[name],
+                                      f"out without lse {tag}"),
                 "out": _within(o, ro, *FLASH_TOL[name], f"out {tag}"),
                 "lse": _within(lse, rlse, *LSE_TOL, f"lse {tag}"),
                 "delta": _within(delta, rdelta, *DELTA_TOL, f"delta {tag}"),
@@ -1159,27 +1224,71 @@ def head_dim_phase(torch, timer, bwd_rows):
                                    ("dv", dv, rdv)):
                 errs[key] = _within(got, want, *BWD_TOL[name],
                                     f"{key} {tag}")
-            del ro, rlse, rdq, rdelta, rdk, rdv, split
-            ms = {kern: timer(fn)[0] for kern, fn in (
-                ("flash_fwd_lse",
-                 lambda: fa.flash_fwd_lse(q, k, v, causal=True)),
-                ("flash_bwd_dq",
-                 lambda: fa.flash_bwd_dq(q, k, v, o, lse, do, causal=True)),
-                ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(
-                    q, k, v, do, lse, delta, causal=True)),
-                ("flash_bwd_dq_split", lambda: fa.flash_bwd_dq_split(
-                    q, k, v, o, lse, do, causal=True)),
-                ("flash_bwd_dkv_split", lambda: fa.flash_bwd_dkv_split(
-                    q, k, v, o, lse, do, causal=True)),
-            )}
-            rows.append(dict(shape=[B, T, H, D], dtype=name,
-                             kernel_dim=fa._kernel_dim(D), errors=errs,
-                             ms=ms, d64_ms=d64))
+            del ro, rlse, rdq, rdelta, rdk, rdv, split, o_no_lse
+            calls = {
+                "flash_fwd": (
+                    lambda: fa.flash_attention(q, k, v, causal=True),
+                    lambda: fa.blockwise_attention(q, k, v, causal=True)),
+                "flash_fwd_lse": (
+                    lambda: fa.flash_fwd_lse(q, k, v, causal=True),
+                    lambda: fa.blockwise_attention_lse(q, k, v, causal=True)),
+                "flash_bwd_dq": (
+                    lambda: fa.flash_bwd_dq(q, k, v, o, lse, do, causal=True),
+                    lambda: fa.flash_bwd_dq_plain(q, k, v, o, lse, do,
+                                                  causal=True)),
+                "flash_bwd_dkv": (
+                    lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                             causal=True),
+                    lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                   causal=True)),
+                "flash_bwd_dq_split": (
+                    lambda: fa.flash_bwd_dq_split(q, k, v, o, lse, do,
+                                                  causal=True),
+                    lambda: fa.flash_bwd_dq_split_plain(q, k, v, o, lse, do,
+                                                        causal=True)),
+                "flash_bwd_dkv_split": (
+                    lambda: fa.flash_bwd_dkv_split(q, k, v, o, lse, do,
+                                                   causal=True),
+                    lambda: fa.flash_bwd_dkv_split_plain(q, k, v, o, lse, do,
+                                                         causal=True)),
+            }
+            work = _flash_work(B, T, H, D, q.element_size())
+            ms = {kern: timer(fn)[0] for kern, (fn, _) in calls.items()}
+            bound = {kern: _bound_ms(*work[kern], name) for kern in calls}
+            row = dict(shape=[B, T, H, D], dtype=name,
+                       kernel_dim=fa._kernel_dim(D), errors=errs, ms=ms,
+                       bound_ms={k: b[0] for k, b in bound.items()},
+                       bound_by={k: b[1] for k, b in bound.items()},
+                       d64_ms=d64)
+            if D == WIDE_D:
+                # One SDPA call of the same function: the forward, and the
+                # backward of all three gradients at once.
+                qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_()
+                              for x in (q, k, v))
+                sdpa = torch.nn.functional.scaled_dot_product_attention
+                out_h = sdpa(qh, kh, vh, is_causal=True)
+                do_h = do.transpose(1, 2)
+                fwd_lib = timer(lambda: sdpa(qh, kh, vh, is_causal=True))[0]
+                bwd_lib = timer(lambda: torch.autograd.grad(
+                    out_h, (qh, kh, vh), do_h, retain_graph=True))[0]
+                row["plain_ms"] = {kern: timer(plain, iters=3)[0]
+                                   for kern, (_, plain) in calls.items()}
+                row["library_ms"] = {kern: fwd_lib if kern.startswith(
+                    "flash_fwd") else bwd_lib for kern in calls}
+                del qh, kh, vh, out_h
+            rows.append(row)
             print(f"head dim {D} (kernel {fa._kernel_dim(D)}) {tag}: "
                   "max|err| " + ", ".join(f"{k} {e[0]:.3g} ({e[1]:.3f})"
                                           for k, e in errs.items())
-                  + "; device ms (D = 64 beside): " + ", ".join(
-                      f"{k} {ms[k]:.4f} ({d64[k]:.4f})" for k in ms))
+                  + "; device ms (bound, D = 64 beside): " + ", ".join(
+                      f"{k} {ms[k]:.4f} ({bound[k][0]:.4f} {bound[k][1]}"
+                      + (f", {d64[k]:.4f})" if k in d64 else ")")
+                      for k in ms))
+            if D == WIDE_D:
+                print(f"head dim {D} {tag}: plain ms " + ", ".join(
+                    f"{k} {row['plain_ms'][k]:.3f}" for k in ms)
+                    + f"; sdpa forward {row['library_ms']['flash_fwd_lse']:.4f}"
+                    f", sdpa backward {row['library_ms']['flash_bwd_dq']:.4f}")
     return rows
 
 
@@ -1392,6 +1501,212 @@ def main_path_phase(torch, smi) -> dict:
                 timing=mlp_timing(torch, smi), gpu=smi)
 
 
+class _Timed:
+    """While installed, every call of ``module.<attr>`` is timed (host
+    clock, ending in a synchronize): the wrapped call's wall inside a
+    flow, which the flow layer's own overhead is measured against."""
+
+    def __init__(self, torch, module, attr: str):
+        self.torch, self.module, self.attr = torch, module, attr
+        self.orig = getattr(module, attr)
+        self.seconds = 0.0
+
+    def __enter__(self):
+        def timed(*args, **kwargs):
+            t0 = time.monotonic()
+            try:
+                return self.orig(*args, **kwargs)
+            finally:
+                self.torch.cuda.synchronize()
+                self.seconds += time.monotonic() - t0
+
+        setattr(self.module, self.attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.orig)
+
+
+def flow_phase(torch, smi) -> dict:
+    """The flow layer on the card through the flow CLIs' ``main(argv)``,
+    into a home under ``build/`` (deleted at the end):
+
+    1. ``TorchTrain run --epochs 2`` (batch 32, lr 1e-3) on the full-size
+       synthetic FashionMNIST;
+    2. ``TorchTrain run --epochs 1 --from-run <1>``: its first val_loss
+       below run 1's first;
+    3. ``TorchEval run --triggered`` at batch 512: triggered by run 2, the
+       misclassified count within ``EVAL_ROWS_TOL`` of what run 2's best
+       accuracy implies, its card holding "Error analysis";
+    4. ``TorchEval run --checkpoint-run-pathspec <1>``;
+    5. ``TorchEval run`` without a source: the "no checkpoint source"
+       error. The MLP legs launch no kernel of the port.
+    6. ``TorchGptTrain`` at GPT-2 124M width (``FLOW_GPT_ARGS``): every
+       flash launch count what its steps imply, the last epoch's loss
+       finite;
+    7. ``TorchGptEval run --triggered --attn-impl flash``: a finite test
+       loss, and the no-lse forward launched once a layer for every
+       validation batch and every sample's prefill.
+
+    Each flow's wall, the wrapped call's wall (``train_model``,
+    ``map_batches``, ``train_gpt``, ``run_validation`` + ``generate``)
+    and the difference, the flow layer's own overhead; the GPT step ms
+    inside the flow; the train step's ``profile.json`` (device kind, peak
+    bytes). Counters are zeroed before leg 6 and before leg 7 and read
+    after each."""
+    from tpuflow_torch.data.lm import lm_test_loader
+    from tpuflow_torch.flow import Run, store
+    from tpuflow_torch.flows import eval_flow, gpt_eval_flow, gpt_flow
+    from tpuflow_torch.flows import my_torch_module as m
+    from tpuflow_torch.flows import train_flow
+    from tpuflow_torch.infer import generate as gen_mod
+    from tpuflow_torch.ops import flash_attention as fa
+    from tpuflow_torch.ops import int8_matmul as im
+    from tpuflow_torch.train import gpt as gpt_mod
+    from tpuflow_torch.train import step as step_mod
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    home = tempfile.mkdtemp(prefix="chip_smoke_flows_",
+                            dir=os.path.join(REPO, "build"))
+    legs = {}
+
+    def leg(name, entry, argv, wrapped):
+        with contextlib.ExitStack() as stack:
+            timers = [stack.enter_context(_Timed(torch, mod, attr))
+                      for mod, attr in wrapped]
+            t0 = time.monotonic()
+            pathspec = entry([*argv, "--home", home])
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        inner = sum(t.seconds for t in timers)
+        what = " + ".join(attr for _, attr in wrapped)
+        print(f"flow {name} ({pathspec}): wall {wall:.2f} s, {what} "
+              f"{inner:.2f} s, flow layer {wall - inner:.2f} s [{smi}]")
+        legs[name] = dict(pathspec=pathspec, wall_s=wall, wrapped=what,
+                          wrapped_s=inner, overhead_s=wall - inner)
+        return Run(pathspec)
+
+    try:
+        _zero_counters(fa, im)
+        r1 = leg("TorchTrain", train_flow.main, ["run", "--epochs", "2"],
+                 [(m, "train_model")])
+        r2 = leg("TorchTrain --from-run", train_flow.main,
+                 ["run", "--epochs", "1", "--from-run", r1.pathspec],
+                 [(m, "train_model")])
+        first1 = r1.data.result.metrics_history[0]["val_loss"]
+        first2 = r2.data.result.metrics_history[0]["val_loss"]
+        if not (r2.data.warm_started and first2 < first1):
+            raise AssertionError(f"warm-started first val_loss {first2} not "
+                                 f"below the cold run's {first1}")
+        e1 = leg("TorchEval --triggered", eval_flow.main,
+                 ["run", "--triggered", "--batch-size", str(EVAL_BATCH)],
+                 [(m, "map_batches")])
+        if e1.meta.get("triggered_by") != r2.pathspec:
+            raise AssertionError(f"eval triggered by "
+                                 f"{e1.meta.get('triggered_by')}, want "
+                                 f"{r2.pathspec}")
+        best = r2.data.result.best_checkpoint.metadata["metrics"]["accuracy"]
+        implied = round((1.0 - best) * e1.data.n_rows)
+        mis = e1.data.n_misclassified
+        if e1.data.n_rows != 10_000 or abs(mis - implied) > EVAL_ROWS_TOL:
+            raise AssertionError(
+                f"eval: {mis}/{e1.data.n_rows} misclassified; the best "
+                f"accuracy {best} implies {implied} (+-{EVAL_ROWS_TOL})")
+        card = os.path.join(store.task_dir("TorchEval", e1.run_id, "start",
+                                           0), "card.html")
+        with open(card) as fh:
+            if "Error analysis" not in fh.read():
+                raise AssertionError(f"{card} lacks 'Error analysis'")
+        e2 = leg("TorchEval --checkpoint-run-pathspec", eval_flow.main,
+                 ["run", "--checkpoint-run-pathspec", r1.pathspec],
+                 [(m, "map_batches")])
+        try:
+            eval_flow.main(["run", "--home", home])
+        except ValueError as err:
+            if "no checkpoint source" not in str(err):
+                raise
+        else:
+            raise AssertionError("an eval without a source did not raise")
+        mlp_n = _counters(fa, im)
+        if mlp_n != _launches():
+            raise AssertionError(f"the MLP flows launched {mlp_n}: they run "
+                                 "no kernel of the port")
+        print(f"flows, README contract: run 1 val_loss "
+              f"{', '.join(str(h['val_loss']) for h in r1.data.result.metrics_history)}"
+              f"; warm start first val_loss {first2} < {first1}; triggered "
+              f"eval {mis}/{e1.data.n_rows} misclassified (best accuracy "
+              f"{best} implies {implied}); pathspec eval "
+              f"{e2.data.n_misclassified}/{e2.data.n_rows}; no-source error "
+              "raised; kernel launches 0")
+
+        # --- the GPT-2 flows on the flash kernels.
+        _zero_counters(fa, im)
+        g1 = leg("TorchGptTrain", gpt_flow.main, ["run", *FLOW_GPT_ARGS],
+                 [(gpt_mod, "train_gpt")])
+        train_n = _counters(fa, im)
+        mc = g1.data.model_config
+        L, seq = mc["n_layer"], g1.data.seq_len_used
+        n_val = len(lm_test_loader(FLOW_GPT_BATCH,
+                                   g1.data.synthetic_size_used, seq,
+                                   mc["vocab_size"]))
+        # Full remat: two lse forwards a layer and step, one fused pair;
+        # the no-lse forward a layer and validation batch, each epoch.
+        want = _launches(flash_fwd_lse=2 * L * FLOW_GPT_STEPS,
+                         flash_bwd_dq=L * FLOW_GPT_STEPS,
+                         flash_bwd_dkv=L * FLOW_GPT_STEPS,
+                         flash_fwd=L * n_val * 2)
+        if train_n != want:
+            raise AssertionError(f"TorchGptTrain launched {train_n}, want "
+                                 f"{want}")
+        hist = g1.data.metrics_history
+        if not np.isfinite(g1.data.loss_history[-1]):
+            raise AssertionError(f"TorchGptTrain losses "
+                                 f"{g1.data.loss_history}")
+        tok_s = hist[-1]["tokens_per_s"]
+        step_ms = FLOW_GPT_BATCH * seq / tok_s * 1e3
+        with open(os.path.join(store.task_dir("TorchGptTrain", g1.run_id,
+                                              "train", 1),
+                               "profile.json")) as fh:
+            prof = json.load(fh)
+        peak = max((d["peak_bytes_in_use"] for smp in prof["samples"]
+                    for d in smp["devices"]), default=0)
+        kind = ", ".join(prof["device_kinds"]) or "no card"
+        print(f"flow TorchGptTrain: loss history {g1.data.loss_history}; "
+              f"step {step_ms:.1f} ms inside the flow ({tok_s} tokens/s, "
+              f"last epoch); launches {train_n}; profile.json: platform "
+              f"{prof['platform']}, {kind}, peak "
+              f"{peak / 2**30:.2f} GiB allocated [{smi}]")
+
+        _zero_counters(fa, im)
+        ge = leg("TorchGptEval --triggered", gpt_eval_flow.main,
+                 ["run", "--triggered", "--sample-tokens",
+                  str(FLOW_SAMPLE_TOKENS), "--attn-impl", "flash"],
+                 [(step_mod, "run_validation"), (gen_mod, "generate")])
+        eval_n = _counters(fa, im)
+        if ge.meta.get("triggered_by") != g1.pathspec:
+            raise AssertionError(f"GPT eval triggered by "
+                                 f"{ge.meta.get('triggered_by')}")
+        want = _launches(flash_fwd=L * (n_val + 3))
+        if eval_n != want:
+            raise AssertionError(f"TorchGptEval launched {eval_n}, want "
+                                 f"{want}")
+        test_loss = ge.data.test_loss
+        if not np.isfinite(test_loss):
+            raise AssertionError(f"TorchGptEval test loss {test_loss}")
+        print(f"flow TorchGptEval: test loss {test_loss:.4f}, ppl "
+              f"{ge.data.test_ppl:.2f}; greedy {ge.data.samples[0][1]!r}; "
+              f"launches {eval_n} [{smi}]")
+    finally:
+        shutil.rmtree(home, ignore_errors=True)
+    return dict(legs=legs, mlp_launches=mlp_n, gpt_train_launches=train_n,
+                gpt_eval_launches=eval_n, gpt_step_ms=step_ms,
+                gpt_tokens_per_s=tok_s, gpt_metrics=hist,
+                gpt_eval_test_loss=test_loss,
+                profile_device=kind,
+                profile_platform=prof["platform"], profile_peak_bytes=peak,
+                mlp_misclassified=mis, mlp_implied=implied, gpu=smi)
+
+
 def main() -> int:
     import torch
 
@@ -1416,6 +1731,7 @@ def main() -> int:
     sl, flash_n, int8_n = slice_phase(torch, smi)
     tr, train_n = train_phase(torch, smi)
     main_path = main_path_phase(torch, smi)
+    flows = flow_phase(torch, smi)
 
     # One JSON entry per kernel. flash: one launch at the generate() leg's
     # shape (f32, 1 x 512 x 12 x 64). int8: the 49 launches of one int8
@@ -1494,6 +1810,46 @@ def main() -> int:
                     library=", ".join(sorted({r["library"] for r in rows})),
                     call_ms=step_sum("call_ms"))
 
+    # The flash kernels' launches on this slice's path, the GPT-2 flows
+    # (f32; the train flow's, plus the eval flow's no-lse forwards).
+    flow_n = {k: flows["gpt_train_launches"][k]
+              + flows["gpt_eval_launches"][k]
+              for k in flows["gpt_train_launches"]}
+    # The wide-head kernels (D > 256) at D = 512, with their launches
+    # summed over every main path run above (the counters' "_wide" keys).
+    main_runs = [sl["generate"]["launches"], sl["engine"]["launches"],
+                 train_n, tr["bf16"]["launches"], tr["split_launches"],
+                 tr["split_ckpt"]["resume"]["launches"],
+                 main_path["launches"], flows["mlp_launches"],
+                 flows["gpt_train_launches"], flows["gpt_eval_launches"]]
+    replaces_wide = {"flash_fwd": replaces["flash_fwd_lse"], **replaces}
+    for r in head_rows:
+        if r["shape"][3] != WIDE_D:
+            continue
+        bf16 = r["dtype"] == "bfloat16"
+        for kern in WIDE_KERNELS:
+            errs = [r["errors"][k][0] for k in WIDE_ERR_KEYS[kern]]
+            counter = kern + ("_bf16" if bf16 else "") + "_wide"
+            kernels.append(dict(
+                name=f"{kern}_d{WIDE_D}" + ("_bf16" if bf16 else ""),
+                route="cuda",
+                source=("tpuflow_torch/csrc/flash_fwd.cu"
+                        if kern.startswith("flash_fwd")
+                        else "tpuflow_torch/csrc/flash_bwd.cu"),
+                replaces=replaces_wide[kern],
+                shape=f"wide head, {r['dtype']} {tuple(r['shape'])}, "
+                      "causal; launches: the main paths' wide-head runs",
+                launches=sum(run[counter] for run in main_runs),
+                flow_launches=flow_n[counter], max_abs_err=max(errs),
+                ms=r["ms"][kern],
+                plain_ms=r["plain_ms"][kern], bound_ms=r["bound_ms"][kern],
+                bound_by=r["bound_by"][kern],
+                library_ms=r["library_ms"][kern],
+                library=("sdpa forward" if kern.startswith("flash_fwd")
+                         else "sdpa backward (dq, dk, dv)")))
+    for entry in kernels:
+        if entry["name"] in flow_n:
+            entry["flow_launches"] = flow_n[entry["name"]]
     kernels += [
         int8_entry("int8_matmul", DECODE_M, int8_n["decode"],
                    "one int8 decode step at M=8: 48 Dense + LM head"),
@@ -1505,7 +1861,8 @@ def main() -> int:
         json.dump(dict(gpu=smi, build_s=build_s, flash=flash_rows,
                        int8=int8_rows, flash_bwd=bwd_rows,
                        head_dims=head_rows, slice=sl, train=tr,
-                       main_path=main_path, kernels=kernels), fh,
+                       main_path=main_path, flows=flows, kernels=kernels),
+                  fh,
                   indent=1, default=float)
     print(json.dumps({"kernels": kernels}, default=float))
     print(smi)

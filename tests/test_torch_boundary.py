@@ -23,8 +23,8 @@ def _port_sources():
 
 # Every package of the port, with its count of Python modules: a module
 # dropped or left out of the scan fails the count.
-PACKAGES = {"": 2, "ckpt": 5, "data": 4, "dist": 2, "flows": 2, "infer": 5,
-            "models": 5, "ops": 5, "train": 5}
+PACKAGES = {"": 2, "ckpt": 5, "data": 4, "dist": 2, "flow": 8, "flows": 6,
+            "infer": 5, "models": 5, "ops": 5, "train": 5, "utils": 3}
 
 
 def _imported_roots(path):
@@ -74,6 +74,12 @@ def test_package_imports_with_jax_poisoned():
         "import tpuflow_torch.models.losses, tpuflow_torch.ckpt.tree\n"
         "import tpuflow_torch.ckpt.manager, tpuflow_torch.ckpt.raw\n"
         "import tpuflow_torch.flows.my_torch_module, tpuflow_torch.dist\n"
+        "import tpuflow_torch.flow, tpuflow_torch.flow.runner\n"
+        "import tpuflow_torch.flow.gang_exec, tpuflow_torch.flow.store\n"
+        "import tpuflow_torch.utils.locking, tpuflow_torch.utils.preempt\n"
+        "import tpuflow_torch.flows.train_flow, tpuflow_torch.flows.eval_flow\n"
+        "import tpuflow_torch.flows.gpt_flow\n"
+        "import tpuflow_torch.flows.gpt_eval_flow\n"
         "assert not any(k.split('.')[0] in ('jax', 'flax') and v is not None\n"
         "               for k, v in sys.modules.items())\n"
         "print('ok')\n"

@@ -93,8 +93,8 @@ def test_flash_kernel_bf16_and_rejects(cuda):
     # the output to bf16: two bf16 ulps, as in chip_smoke.py.
     torch.testing.assert_close(out.float(), ref.float(), atol=4e-3,
                                rtol=8e-3)
-    with pytest.raises(ValueError, match="head_dim up to 256"):
-        x = torch.zeros(1, 8, 2, 264, device="cuda")
+    with pytest.raises(ValueError, match=f"head_dim up to {fa.MAX_HEAD_DIM}"):
+        x = torch.zeros(1, 1, 1, fa.MAX_HEAD_DIM + 8, device="cuda")
         fa.flash_attention(x, x, x)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         x = torch.zeros(1, 8, 2, 64, device="cuda", dtype=torch.float16)
@@ -608,9 +608,10 @@ def test_train_gpt_bf16_on_the_card(cuda):
 
 # Head dims the kernels are not instantiated at run zero-padded to the next
 # of 32, 64, 128 (16, 48 and 96 here); 256 runs its own instantiation,
-# which splits the output columns over grid.z.
+# which splits the output columns over grid.z; above 256 the wide-head
+# kernels contract over D in chunks (320 padded to 384, and 512).
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [16, 48, 96, 256])
+@pytest.mark.parametrize("D", [16, 48, 96, 256, 320, 512])
 @pytest.mark.parametrize("T", [1, 77, 256])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_head_dims_padded_and_256_match_plain(cuda, dtype, D, T,
@@ -618,13 +619,15 @@ def test_flash_head_dims_padded_and_256_match_plain(cuda, dtype, D, T,
     """Forward (no lse and with lse) and both backward pairs at a padded or
     the 256-wide head dim, strided q/k/v views, against the plain versions
     at the true D within the existing tolerances; split bit-equal to fused;
-    one launch counted per call."""
+    one launch counted per call, and in ``wide_launches`` by kernel and
+    dtype where D > 256."""
     from tpuflow_torch.ops import flash_attention as fa
 
     q, k, v = _flash_views(cuda, 2, T, T, 3, D, dtype)
     do = torch.randn(q.shape, device="cuda", generator=cuda).to(dtype)
     n = (fa.launches, fa.launches_lse, fa.launches_bwd_dq,
          fa.launches_bwd_dkv)
+    wide = dict(fa.wide_launches)
     out = fa.flash_attention(q, k, v, causal=causal)
     o, lse = fa.flash_fwd_lse(q, k, v, causal=causal)
     dq, delta = fa.flash_bwd_dq(q, k, v, o, lse, do, causal=causal)
@@ -633,6 +636,12 @@ def test_flash_head_dims_padded_and_256_match_plain(cuda, dtype, D, T,
     torch.cuda.synchronize()
     assert (fa.launches, fa.launches_lse, fa.launches_bwd_dq,
             fa.launches_bwd_dkv) == (n[0] + 1, n[1] + 1, n[2] + 1, n[3] + 1)
+    ran = {kern + ("_bf16" if dtype == torch.bfloat16 else "")
+           for kern in ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq",
+                        "flash_bwd_dkv", "flash_bwd_dq_split",
+                        "flash_bwd_dkv_split")} if D > 256 else set()
+    assert fa.wide_launches == {kern: c + (kern in ran)
+                                for kern, c in wide.items()}
     assert out.shape == o.shape == q.shape and torch.equal(out, o)
     ref, ref_lse = fa.blockwise_attention_lse(q, k, v, causal=causal)
     atol, rtol = _FLASH_TOL[dtype]
@@ -682,6 +691,27 @@ def test_flash_d256_smem_within_the_card(cuda, dtype, grid):
     atol, rtol = BWD_TOL[torch_dtype]
     for a, c in zip(fused, want):
         torch.testing.assert_close(a.float(), c.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [0, 1])  # float32, bfloat16
+def test_flash_wide_smem_within_the_card(cuda, dtype):
+    """Above D = 256 every launch is the wide-head kernels' 32-row block,
+    whose static shared memory fits under the default 48 KB."""
+    from tpuflow_torch.ops import _build
+    from tpuflow_torch.ops import flash_attention as fa
+
+    torch_dtype = (torch.float32, torch.bfloat16)[dtype]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert fa._flash_bq(1, 1, 128, sms, 512) == 32
+    assert fa._flash_bwd_plan(1, 1, 128, 128, 512, torch_dtype, sms) == {
+        "dq_rows": 32, "dkv_rows": 32}
+    assert 0 < _build.load("flash_fwd").tpuflow_flash_fwd_smem(
+        dtype, 512, 32) <= 48 * 1024
+    lib = _build.load("flash_bwd")
+    for kernel in (0, 1):
+        for split in (0, 1):
+            assert 0 < lib.tpuflow_flash_bwd_smem(kernel, split, dtype, 512,
+                                                  32) <= 48 * 1024
 
 
 def test_flash_head_dim_not_multiple_of_8_takes_blockwise(cuda):
@@ -740,3 +770,30 @@ def test_train_fashion_mnist_on_the_card_predicts_like_the_cpu(cuda,
     a = np.stack([o["logits"] for o in on_card])
     b = np.stack([o["logits"] for o in on_cpu])
     np.testing.assert_allclose(a, b, rtol=0, atol=1e-4 * np.abs(b).max())
+
+
+def test_torch_train_gang_over_nccl_on_two_cards(cuda, tmp_path):
+    """``TorchTrain`` with ``--num-parallel 2`` on the card: a 2-process
+    gang, one process a card, the process group over NCCL; the head's
+    result records the 2-wide data mesh and the loss falls. Skips below
+    two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: one gang member a card")
+    from tpuflow_torch.flow import Run, store
+    from tpuflow_torch.flows import train_flow
+
+    try:
+        pathspec = train_flow.main([
+            "run", "--epochs", "2", "--num-parallel", "2", "--n-train",
+            "2048", "--n-test", "512", "--home", str(tmp_path / "home")])
+        run = Run(pathspec)
+        assert run.successful
+        result = run.data.result
+        assert result.mesh_axes == {"data": 2}
+        val = [h["val_loss"] for h in result.metrics_history]
+        assert all(np.isfinite(val)) and val[1] < val[0]
+        # Only the head persisted artifacts.
+        assert store.load_artifacts("TorchTrain", run.run_id, "train",
+                                    2) == {}
+    finally:
+        store.set_home(None)

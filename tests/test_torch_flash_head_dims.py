@@ -2,7 +2,8 @@
 CPU through the plain versions.
 
 The CUDA wrappers zero-pad q, k, v (and O, dO) over D up to the next of
-32, 64, 128, 256, pass the scale of the true D and cut the outputs back
+32, 64, 128, 256 (above 256: the next multiple of 128, the wide-head
+kernels' width), pass the scale of the true D and cut the outputs back
 (``ops/flash_attention.py::_padded``). Here the same ``_padded`` runs the
 plain versions, which take the scale the same way (``scale_dim``), and
 the result must equal the unpadded plain version: forward with lse, the
@@ -77,8 +78,12 @@ def test_padding_matches_autograd_of_the_plain_forward():
 def test_kernel_widths_and_limit():
     assert [fa._kernel_dim(d) for d in (8, 32, 40, 64, 72, 128, 136, 256)] \
         == [32, 32, 64, 64, 128, 128, 256, 256]
-    with pytest.raises(ValueError, match="head_dim up to 256"):
-        fa._kernel_dim(264)
+    # Above 256 the wide-head kernels take multiples of 128.
+    assert [fa._kernel_dim(d) for d in (264, 320, 384, 512, 520)] \
+        == [384, 384, 384, 512, 640]
+    assert fa._kernel_dim(fa.MAX_HEAD_DIM) == fa.MAX_HEAD_DIM == 65535 * 128
+    with pytest.raises(ValueError, match=f"head_dim up to {fa.MAX_HEAD_DIM}"):
+        fa._kernel_dim(fa.MAX_HEAD_DIM + 8)
     # Kernel widths pass through unpadded: the same tensor objects.
     q, k, v, _ = _qkv(64, T=4)
     seen = []
@@ -117,8 +122,49 @@ def test_head_dim_not_multiple_of_8_takes_blockwise(D):
 
 
 def test_head_dim_above_256_raises_on_the_kernel_path():
-    """A CUDA tensor with D > 256 raises before any launch (checked here
-    through the padding rule the CUDA wrappers take first)."""
-    q = torch.zeros(1, 4, 1, 264)
-    with pytest.raises(ValueError, match="head_dim up to 256"):
+    """Only a head dim above the wide kernels' stated limit raises, before
+    any launch (checked here through the padding rule the CUDA wrappers
+    take first); 264 and 512 plan and pad."""
+    q = torch.zeros(1, 4, 1, fa.MAX_HEAD_DIM + 8)
+    with pytest.raises(ValueError, match=f"head_dim up to {fa.MAX_HEAD_DIM}"):
         fa._padded(fa.blockwise_attention_lse, q, q, q)
+    for D in (264, 512):
+        x = torch.zeros(1, 4, 1, D)
+        o, _ = fa._padded(fa.blockwise_attention_lse, x, x, x)
+        assert o.shape == x.shape
+
+
+@pytest.mark.parametrize("D,width", [(264, 384), (320, 384), (512, 512)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wide_head_dims_plan_pad_and_match_plain(D, width, causal):
+    """D > 256 runs the wide-head kernels: the plans take 32 rows, the
+    wrappers pad to a multiple of 128, and the padded plain versions give
+    the unpadded plain result (forward with lse, delta, all three
+    gradients, fused and split)."""
+    assert fa._kernel_dim(D) == width
+    assert fa._kernel_dim(width + 8) == width + 128  # padded: no kernel dim
+    assert fa._flash_bq(2, 2, 24, 132, width) == 32
+    for dt in (torch.float32, torch.bfloat16):
+        assert fa._flash_bwd_plan(8, 12, 1024, 1024, width, dt, 132) == {
+            "dq_rows": 32, "dkv_rows": 32}
+    q, k, v, do = _qkv(D, T=20, seed=D)
+    o, lse = fa.blockwise_attention_lse(q, k, v, causal=causal)
+    po, plse = fa._padded(fa.blockwise_attention_lse, q, k, v, causal=causal)
+    assert po.shape == o.shape
+    torch.testing.assert_close(po, o, **TOL)
+    torch.testing.assert_close(plse, lse, **TOL)
+    dq, delta = fa.flash_bwd_dq_plain(q, k, v, o, lse, do, causal=causal)
+    dk, dv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=causal)
+    pdq, pdelta = fa._padded(fa.flash_bwd_dq_plain, q, k, v, o, lse, do,
+                             causal=causal)
+    pdk, pdv = fa._padded(fa.flash_bwd_dkv_plain, q, k, v, do, lse, delta,
+                          causal=causal)
+    sdq = fa._padded(fa.flash_bwd_dq_split_plain, q, k, v, o, lse, do,
+                     causal=causal)
+    sdk, sdv = fa._padded(fa.flash_bwd_dkv_split_plain, q, k, v, o, lse, do,
+                          causal=causal)
+    torch.testing.assert_close(pdelta, delta, **TOL)
+    for got, want in ((pdq, dq), (pdk, dk), (pdv, dv), (sdq, dq), (sdk, dk),
+                      (sdv, dv)):
+        assert got.shape == q.shape
+        torch.testing.assert_close(got, want, **TOL)

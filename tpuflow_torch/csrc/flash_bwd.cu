@@ -79,7 +79,9 @@
 // kernel's delta row is written by column block 0 alone. The S and dP
 // work is done once a column block; nothing else changes. The streamed
 // tiles are 32 rows (bf16 as at D = 128; f32 too, whose 64-row ring would
-// not fit), and an f32 block owns 32 rows.
+// not fit), and an f32 block owns 32 rows. Above 256 a full-width tile no
+// longer fits: the wide-head kernels contract S and dP over D in 32-wide
+// chunks (see "wide heads" below).
 //
 // Bits. Split = fused: the split kernels are the fused kernels' code with
 // the SPLIT flag set; D comes from one helper (pair_delta, a fixed order)
@@ -965,6 +967,243 @@ bwd_dkv_fma(const Args a) {
                     col0);
 }
 
+// ------------------------------------------------------------ wide heads
+// D > 256, a multiple of WV (the wrapper pads other head dims up): a full
+// tile no longer fits shared memory, so S and dP are contracted over D in
+// chunks, S = sum_c Q_c K_c^T and dP = sum_c dO_c V_c^T, with one WC-wide
+// chunk of each operand staged at a time; D = rowsum(dO o O) is summed
+// over the whole row in global memory. A block owns WT rows (q rows for
+// dq, key rows for dk/dv) and WV output columns (grid.z = D / WV); the
+// streamed tiles are WT rows. One kernel for both dtypes: the tiles are
+// staged as f32, every product is an f32 FMA on the CUDA cores, and for
+// bf16 P and dS are rounded to bf16 before the products that take them.
+// Four lanes hold a row (lane bits 0-1 = `part`): each computes S and dP
+// for columns part + 4j of the streamed tile and the output columns
+// part + 4i. P and dS go through shared memory to the output products.
+// After the score chunks, the dk/dv kernel stages Q and dO at its columns
+// over the chunks' buffer. Bits: split = fused as for the narrow kernels
+// (wide_delta, prob and dscore are shared by all four). Limit: grid.z holds
+// at most 65535 column blocks (D <= 65535 * WV); the wrapper raises above
+// it.
+constexpr int WT = 32;   // rows a block and a streamed tile
+constexpr int WC = 32;   // d columns a chunk of the S and dP products
+constexpr int WV = 128;  // output columns a block
+constexpr int WIDE_MAX_Z = 65535;
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+// x rounded to T and back (identity for f32).
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+// rows x cols elements of a (seq-strided) tensor from row t0 and column c0
+// on, as f32 into shared memory with row stride RS; rows >= T_len are 0.
+template <typename T>
+__device__ __forceinline__ void stage_f32(float* dst, int RS, const T* src,
+                                          long long st, int t0, int T_len,
+                                          int c0, int rows, int cols) {
+  for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
+    const int r = i / cols, c = i % cols, t = t0 + r;
+    dst[r * RS + c] = t < T_len ? to_f32(src[t * st + c0 + c]) : 0.f;
+  }
+}
+
+// D = rowsum(dO o O) of one row (0 when !valid) by the 4 lanes that hold
+// it: each sums d = part, part + 4, ... in ascending order, one FMA each,
+// then two xor shuffles (a + b == b + a: all four get the same bits). The
+// three wide kernels that need D call it with the same lane mapping (row
+// r of a tile = lanes 4r .. 4r + 3), so fused and split see the same bits.
+template <typename T>
+__device__ __forceinline__ float wide_delta(const T* g, const T* o, int D,
+                                            int part, bool valid) {
+  float s = 0.f;
+  if (valid)
+    for (int d = part; d < D; d += 4) s = fmaf(to_f32(g[d]), to_f32(o[d]), s);
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  return s;
+}
+
+template <typename T, bool SPLIT>
+__global__ void __launch_bounds__(128)
+bwd_dq_wide(const Args a, int D) {
+  __shared__ float Qc[WT][WC + 1], Gc[WT][WC + 1];  // +1: rows on all banks
+  __shared__ float Kc[WT][WC + 1], Vc[WT][WC + 1];
+  __shared__ float Ss[WT][WT + 1];
+  __shared__ float Ks[WT][WV];
+  const int tid = threadIdx.x, r = tid >> 2, part = tid & 3;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int qt = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * WT, row = q0 + r, col0 = blockIdx.z * WV;
+  const T* qb = head<T>(a.q, a.sq, b, h);
+  const T* kb = head<T>(a.k, a.sk, b, h);
+  const T* vb = head<T>(a.v, a.sv, b, h);
+  const T* gb = head<T>(a.g, a.sg, b, h);
+  const T* ob = head<T>(a.o, a.so, b, h);
+  const bool valid = row < a.Tq;
+  const float delta = wide_delta(gb + (valid ? row * a.sg.t : 0),
+                                 ob + (valid ? row * a.so.t : 0), D, part,
+                                 valid);
+  const long long r0 = (long long)bh * a.Tq;
+  if (!SPLIT && valid && part == 0 && blockIdx.z == 0)
+    a.delta_out[r0 + row] = delta;
+  const float lse = valid ? a.lse[r0 + row] : 0.f;
+  const int k_end = a.causal ? min(a.Tk, q0 + WT) : a.Tk;
+
+  float acc[WV / 4];
+#pragma unroll
+  for (int i = 0; i < WV / 4; ++i) acc[i] = 0.f;
+  for (int k0 = 0; k0 < k_end; k0 += WT) {
+    float s[WT / 4], dp[WT / 4];
+#pragma unroll
+    for (int j = 0; j < WT / 4; ++j) s[j] = dp[j] = 0.f;
+    for (int c0 = 0; c0 < D; c0 += WC) {
+      __syncthreads();  // the previous chunk and K tile have been read
+      stage_f32(&Qc[0][0], WC + 1, qb, a.sq.t, q0, a.Tq, c0, WT, WC);
+      stage_f32(&Gc[0][0], WC + 1, gb, a.sg.t, q0, a.Tq, c0, WT, WC);
+      stage_f32(&Kc[0][0], WC + 1, kb, a.sk.t, k0, a.Tk, c0, WT, WC);
+      stage_f32(&Vc[0][0], WC + 1, vb, a.sv.t, k0, a.Tk, c0, WT, WC);
+      __syncthreads();
+#pragma unroll 4
+      for (int d = 0; d < WC; ++d) {
+        const float qv = Qc[r][d], gv = Gc[r][d];
+#pragma unroll
+        for (int j = 0; j < WT / 4; ++j) {
+          s[j] = fmaf(qv, Kc[part + 4 * j][d], s[j]);
+          dp[j] = fmaf(gv, Vc[part + 4 * j][d], dp[j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < WT / 4; ++j) {
+      const int key = k0 + part + 4 * j;
+      const float p = prob(s[j], lse, a.scale, a.causal && row < key,
+                           key < a.Tk);
+      Ss[r][part + 4 * j] = round_to<T>(dscore(p, dp[j], delta, a.scale));
+    }
+    stage_f32(&Ks[0][0], WV, kb, a.sk.t, k0, a.Tk, col0, WT, WV);
+    __syncthreads();  // dS and the K tile are written
+    for (int k = 0; k < WT; ++k) {
+      const float ds = Ss[r][k];
+#pragma unroll
+      for (int i = 0; i < WV / 4; ++i)
+        acc[i] = fmaf(ds, Ks[k][part + 4 * i], acc[i]);
+    }
+  }
+  if (!valid) return;
+  T* out = (T*)a.dq + (((long long)b * a.Tq + row) * a.H + h) * D + col0;
+#pragma unroll
+  for (int i = 0; i < WV / 4; ++i) out[part + 4 * i] = from_f32<T>(acc[i]);
+}
+
+template <typename T, bool SPLIT>
+__global__ void __launch_bounds__(128)
+bwd_dkv_wide(const Args a, int D) {
+  // The chunks' buffer, then Q and dO at the block's columns over it.
+  __shared__ float R[2 * WT * WV];
+  __shared__ float Pt[WT][WT + 1], Dt[WT][WT + 1];  // P^T, dS^T
+  __shared__ float Ls[WT], Dl[WT];                  // the q tile's lse, D
+  float(*Qc)[WC + 1] = reinterpret_cast<float(*)[WC + 1]>(R);
+  float(*Gc)[WC + 1] = Qc + WT;
+  float(*Kc)[WC + 1] = Gc + WT;
+  float(*Vc)[WC + 1] = Kc + WT;
+  float(*Qs)[WV] = reinterpret_cast<float(*)[WV]>(R);
+  float(*Gs)[WV] = Qs + WT;
+  const int tid = threadIdx.x, kr = tid >> 2, part = tid & 3;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int k0 = blockIdx.y * WT, key = k0 + kr, col0 = blockIdx.z * WV;
+  const T* qb = head<T>(a.q, a.sq, b, h);
+  const T* kb = head<T>(a.k, a.sk, b, h);
+  const T* vb = head<T>(a.v, a.sv, b, h);
+  const T* gb = head<T>(a.g, a.sg, b, h);
+  const T* ob = SPLIT ? head<T>(a.o, a.so, b, h) : nullptr;
+  const long long r0 = (long long)bh * a.Tq;
+
+  float ak[WV / 4], av[WV / 4];
+#pragma unroll
+  for (int i = 0; i < WV / 4; ++i) ak[i] = av[i] = 0.f;
+  // Under the causal mask no q row before key k0 sees this block's keys.
+  for (int q0 = a.causal ? k0 : 0; q0 < a.Tq; q0 += WT) {
+    __syncthreads();  // the previous tile's Q, dO, lse and D have been read
+    {
+      const int row = q0 + kr;  // lanes 4r .. 4r + 3 hold row r, as in dq
+      const bool valid = row < a.Tq;
+      float d = 0.f;
+      if (SPLIT)
+        d = wide_delta(gb + (valid ? row * a.sg.t : 0),
+                       ob + (valid ? row * a.so.t : 0), D, part, valid);
+      else if (valid)
+        d = a.delta_in[r0 + row];
+      if (part == 0) {
+        Dl[kr] = d;
+        Ls[kr] = valid ? a.lse[r0 + row] : 0.f;
+      }
+    }
+    float s[WT / 4], dp[WT / 4];
+#pragma unroll
+    for (int j = 0; j < WT / 4; ++j) s[j] = dp[j] = 0.f;
+    for (int c0 = 0; c0 < D; c0 += WC) {
+      __syncthreads();
+      stage_f32(&Qc[0][0], WC + 1, qb, a.sq.t, q0, a.Tq, c0, WT, WC);
+      stage_f32(&Gc[0][0], WC + 1, gb, a.sg.t, q0, a.Tq, c0, WT, WC);
+      stage_f32(&Kc[0][0], WC + 1, kb, a.sk.t, k0, a.Tk, c0, WT, WC);
+      stage_f32(&Vc[0][0], WC + 1, vb, a.sv.t, k0, a.Tk, c0, WT, WC);
+      __syncthreads();
+#pragma unroll 4
+      for (int d = 0; d < WC; ++d) {
+        const float kv = Kc[kr][d], vv = Vc[kr][d];
+#pragma unroll
+        for (int j = 0; j < WT / 4; ++j) {
+          s[j] = fmaf(Qc[part + 4 * j][d], kv, s[j]);
+          dp[j] = fmaf(Gc[part + 4 * j][d], vv, dp[j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < WT / 4; ++j) {
+      const int qr = part + 4 * j, row = q0 + qr;
+      const float p = prob(s[j], Ls[qr], a.scale, a.causal && row < key,
+                           row < a.Tq);
+      Pt[kr][qr] = round_to<T>(p);
+      Dt[kr][qr] = round_to<T>(dscore(p, dp[j], Dl[qr], a.scale));
+    }
+    __syncthreads();  // every chunk read: Q and dO go over the buffer
+    stage_f32(&Qs[0][0], WV, qb, a.sq.t, q0, a.Tq, col0, WT, WV);
+    stage_f32(&Gs[0][0], WV, gb, a.sg.t, q0, a.Tq, col0, WT, WV);
+    __syncthreads();
+    for (int qr = 0; qr < WT; ++qr) {
+      const float p = Pt[kr][qr], ds = Dt[kr][qr];
+#pragma unroll
+      for (int i = 0; i < WV / 4; ++i) {
+        av[i] = fmaf(p, Gs[qr][part + 4 * i], av[i]);
+        ak[i] = fmaf(ds, Qs[qr][part + 4 * i], ak[i]);
+      }
+    }
+  }
+  if (key >= a.Tk) return;
+  const long long off = (((long long)b * a.Tk + key) * a.H + h) * D + col0;
+  T* dk = (T*)a.dk + off;
+  T* dv = (T*)a.dv + off;
+#pragma unroll
+  for (int i = 0; i < WV / 4; ++i) {
+    dk[part + 4 * i] = from_f32<T>(ak[i]);
+    dv[part + 4 * i] = from_f32<T>(av[i]);
+  }
+}
+
+int wide_smem(bool dq) {
+  return dq ? 4 * (4 * WT * (WC + 1) + WT * (WT + 1) + WT * WV)
+            : 4 * (2 * WT * WV + 2 * WT * (WT + 1) + 2 * WT);
+}
+
 // ------------------------------------------------------------- launch
 // Dynamic shared memory of one block, from the plan's `rows` (q rows of a
 // dq block, key rows of a dk/dv block) at the kernels' padded strides. A
@@ -1007,6 +1246,18 @@ Kernel pick_d(bool dq, int dtype, int D) {
   }
 }
 
+using WideKernel = void (*)(const Args, int);
+
+template <typename T>
+WideKernel pick_wide_t(bool dq, bool split) {
+  if (dq) return split ? bwd_dq_wide<T, true> : bwd_dq_wide<T, false>;
+  return split ? bwd_dkv_wide<T, true> : bwd_dkv_wide<T, false>;
+}
+WideKernel pick_wide(bool dq, bool split, int dtype) {
+  return dtype == 1 ? pick_wide_t<bf16>(dq, split)
+                    : pick_wide_t<float>(dq, split);
+}
+
 // tensors: q, k, v, o, g (nullptr where the kernel takes none); `strides`
 // holds (batch, seq, head) of each non-null tensor in that order.
 int launch(bool dq, bool split, const void* const* tensors,
@@ -1018,9 +1269,11 @@ int launch(bool dq, bool split, const void* const* tensors,
   if ((dtype != 0 && dtype != 1) ||
       (rows != 32 && rows != 64 && !(dtype == 0 && rows == 128)))
     return (int)cudaErrorInvalidValue;
+  const bool wide = D > 256;
   const Kernel kern = split ? pick_d<true>(dq, dtype, D)
                             : pick_d<false>(dq, dtype, D);
-  if (kern == nullptr) return (int)cudaErrorInvalidValue;
+  if (wide ? rows != WT || D % WV || D / WV > WIDE_MAX_Z : kern == nullptr)
+    return (int)cudaErrorInvalidValue;
   const int esz = dtype == 1 ? 2 : 4;
   Args a{};
   Strides* st[5] = {&a.sq, &a.sk, &a.sv, &a.so, &a.sg};
@@ -1053,6 +1306,12 @@ int launch(bool dq, bool split, const void* const* tensors,
   a.causal = causal;
   a.aligned = aligned;
   a.scale = scale;
+  if (wide) {
+    const WideKernel wk = pick_wide(dq, split, dtype);
+    const dim3 grid(B * H, ((dq ? Tq : Tk) + WT - 1) / WT, D / WV);
+    wk<<<grid, 4 * WT, 0, (cudaStream_t)stream>>>(a, D);
+    return (int)cudaGetLastError();
+  }
   const int smem = dq ? dq_smem(dtype, D, rows)
                       : dkv_smem(dtype, D, rows, split);
   cudaError_t err = cudaFuncSetAttribute(
@@ -1071,8 +1330,9 @@ extern "C" {
 // points to int64 element strides, (batch, seq, head) of each input
 // tensor in the order named; lse (and delta) contiguous (B*H, Tq) f32;
 // gradients written contiguous (B, T, H, D) in the input dtype. D: 32, 64,
-// 128 or 256 (the wrapper pads other head dims). dtype: 0 = float32,
-// 1 = bfloat16. rows (32, 64, or 128 in f32 at D <= 64): the launch plan's
+// 128, 256 or a multiple of 128 above 256 (the wide-head kernels; the
+// wrapper pads other head dims). dtype: 0 = float32, 1 = bfloat16. rows
+// (32, 64, or 128 in f32 at D <= 64; 32 above 256): the launch plan's
 // q rows a dq block or key rows a dk/dv block owns
 // (ops/flash_attention.py::_flash_bwd_plan). scale: 1/sqrt of the head dim
 // before padding. Returns cudaGetLastError() after the launch (0 on
@@ -1130,6 +1390,7 @@ int tpuflow_flash_bwd_dkv_split(const void* q, const void* k, const void* v,
 // (the card tests hold it to the per-block limit).
 int tpuflow_flash_bwd_smem(int kernel, int split, int dtype, int D,
                            int rows) {
+  if (D > 256) return wide_smem(kernel == 0);  // static, any dtype
   return kernel == 0 ? dq_smem(dtype, D, rows)
                      : dkv_smem(dtype, D, rows, split);
 }

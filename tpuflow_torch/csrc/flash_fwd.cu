@@ -58,6 +58,8 @@
 // with V staged at its DV columns; the lse row is written by column block
 // 0 alone. The S work is done once a column block; nothing else changes.
 // At D = 256 the q tile is 32 rows (64 would overrun shared memory).
+// Above 256 a full-width K tile no longer fits: flash_fwd_wide contracts
+// the scores over D in 32-wide chunks (see "wide heads" below).
 //
 // Both: K and V tiles come by 16-byte cp.async into a two-stage ring (the
 // next stage loads while this one computes; a bf16 stage holds a tile for
@@ -559,6 +561,148 @@ flash_fwd_fma(const Args a) {
   }
 }
 
+// ------------------------------------------------------------ wide heads
+// D > 256, a multiple of WV (the wrapper pads other head dims up): a full
+// K tile no longer fits shared memory, so the scores are contracted over D
+// in chunks, S = sum_c Q_c K_c^T, with one WC-wide chunk of Q and K staged
+// at a time. A block owns WQ q rows and WV output columns (grid.z =
+// D / WV); it computes the scores over the whole D for every key tile and
+// accumulates P V for its own columns only, V staged at those columns; the
+// lse row is written by column block 0 alone. One kernel for both dtypes:
+// the tiles are staged as f32 and every product is an f32 FMA on the CUDA
+// cores; for bf16 P is rounded to bf16 before P.V, as everywhere else.
+// Four lanes hold a q row (lane bits 0-1 = `part`): each computes the
+// scores of keys part + 4j and the output columns part + 4i, and the row's
+// max and sum go by two xor shuffles. Limit: grid.z holds at most 65535
+// column blocks (D <= 65535 * WV); the wrapper raises above it.
+constexpr int WQ = 32;   // q rows a block
+constexpr int WK = 32;   // keys a tile
+constexpr int WC = 32;   // d columns a chunk of the score product
+constexpr int WV = 128;  // output columns a block
+constexpr int WIDE_MAX_Z = 65535;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+// x rounded to T and back (identity for f32).
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+// rows x cols elements of a (seq-strided) tensor from row t0 and column c0
+// on, as f32 into shared memory with row stride RS; rows >= T_len are 0.
+template <typename T>
+__device__ __forceinline__ void stage_f32(float* dst, int RS, const T* src,
+                                          long long st, int t0, int T_len,
+                                          int c0, int rows, int cols) {
+  for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
+    const int r = i / cols, c = i % cols, t = t0 + r;
+    dst[r * RS + c] = t < T_len ? to_f32(src[t * st + c0 + c]) : 0.f;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(128)
+flash_fwd_wide(const Args a, int D) {
+  __shared__ float Qc[WQ][WC + 1], Kc[WK][WC + 1];  // +1: rows on all banks
+  __shared__ float Ps[WQ][WK + 1];
+  __shared__ float Vs[WK][WV];
+  const int tid = threadIdx.x, r = tid >> 2, part = tid & 3;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int qt = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * WQ, row = q0 + r, col0 = blockIdx.z * WV;
+  const T* qb = (const T*)a.q + b * a.sqb + h * a.sqh;
+  const T* kb = (const T*)a.k + b * a.skb + h * a.skh;
+  const T* vb = (const T*)a.v + b * a.svb + h * a.svh;
+  const int k_end = a.causal ? min(a.Tk, q0 + WQ) : a.Tk;
+
+  float acc[WV / 4];
+#pragma unroll
+  for (int i = 0; i < WV / 4; ++i) acc[i] = 0.f;
+  float m = NEG_INF, l = 0.f;
+  for (int k0 = 0; k0 < k_end; k0 += WK) {
+    float s[WK / 4];
+#pragma unroll
+    for (int j = 0; j < WK / 4; ++j) s[j] = 0.f;
+    for (int c0 = 0; c0 < D; c0 += WC) {
+      __syncthreads();  // the previous chunk and V tile have been read
+      stage_f32(&Qc[0][0], WC + 1, qb, a.sqt, q0, a.Tq, c0, WQ, WC);
+      stage_f32(&Kc[0][0], WC + 1, kb, a.skt, k0, a.Tk, c0, WK, WC);
+      __syncthreads();
+#pragma unroll 8
+      for (int d = 0; d < WC; ++d) {
+        const float qv = Qc[r][d];
+#pragma unroll
+        for (int j = 0; j < WK / 4; ++j)
+          s[j] = fmaf(qv, Kc[part + 4 * j][d], s[j]);
+      }
+    }
+    float mx = m;
+#pragma unroll
+    for (int j = 0; j < WK / 4; ++j) {
+      s[j] = masked(s[j], a.scale, row, k0 + part + 4 * j, a.Tk, a.causal);
+      mx = fmaxf(mx, s[j]);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < WK / 4; ++j) {
+      const float p = prob(s[j], mx);
+      sum += p;
+      Ps[r][part + 4 * j] = round_to<T>(p);
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float corr = expf(m - mx);
+    l = l * corr + sum;
+    m = mx;
+#pragma unroll
+    for (int i = 0; i < WV / 4; ++i) acc[i] *= corr;
+    stage_f32(&Vs[0][0], WV, vb, a.svt, k0, a.Tk, col0, WK, WV);
+    __syncthreads();  // P and the V tile are written
+    for (int k = 0; k < WK; ++k) {
+      const float p = Ps[r][k];
+#pragma unroll
+      for (int i = 0; i < WV / 4; ++i)
+        acc[i] = fmaf(p, Vs[k][part + 4 * i], acc[i]);
+    }
+  }
+  if (row >= a.Tq) return;
+  l = fmaxf(l, 1e-30f);
+  T* ob = (T*)a.o + (((long long)b * a.Tq + row) * a.H + h) * D + col0;
+#pragma unroll
+  for (int i = 0; i < WV / 4; ++i) ob[part + 4 * i] = from_f32<T>(acc[i] / l);
+  if (a.lse != nullptr && part == 0 && blockIdx.z == 0)
+    a.lse[(long long)bh * a.Tq + row] = m + logf(l);
+}
+
+constexpr int wide_smem_bytes() {
+  return 4 * ((WQ + WK) * (WC + 1) + WQ * (WK + 1) + WK * WV);
+}
+
+int launch_wide(int dtype, const Args& a, int B, int D, int bq,
+                cudaStream_t stream) {
+  if (bq != WQ || D % WV || D / WV > WIDE_MAX_Z)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(B * a.H, (a.Tq + WQ - 1) / WQ, D / WV);
+  if (dtype == 1)
+    flash_fwd_wide<__nv_bfloat16><<<grid, 4 * WQ, 0, stream>>>(a, D);
+  else
+    flash_fwd_wide<float><<<grid, 4 * WQ, 0, stream>>>(a, D);
+  return (int)cudaGetLastError();
+}
+
 // The output columns a block owns: all of D up to 128; at D = 256, 128 in
 // bf16 and 64 in f32 (whose K ring at full width leaves no room for more
 // of V).
@@ -611,9 +755,10 @@ extern "C" {
 
 // q, k, v: (B, T, H, D) with unit stride over D and the given element
 // strides over (batch, seq, head); o: contiguous (B, Tq, H, D); lse: null,
-// or a contiguous (B*H, Tq) float32 array. D: 32, 64, 128 or 256 (the
-// wrapper pads other head dims). dtype: 0 = float32, 1 = bfloat16. bq,
-// the q tile height (32 or 64; 32 at D = 256), is the launch plan's
+// or a contiguous (B*H, Tq) float32 array. D: 32, 64, 128, 256 or a
+// multiple of 128 above 256 (the wide-head kernel; the wrapper pads other
+// head dims). dtype: 0 = float32, 1 = bfloat16. bq, the q tile height (32
+// or 64; 32 at D >= 256), is the launch plan's
 // (ops/flash_attention.py::_flash_bq). scale: 1/sqrt of the head dim
 // before padding. Returns cudaGetLastError() after the launch (0 on
 // success).
@@ -640,14 +785,17 @@ int tpuflow_flash_fwd(const void* q, const void* k, const void* v, void* o,
     case 64: return launch<64>(dtype, a, B, bq, s);
     case 128: return launch<128>(dtype, a, B, bq, s);
     case 256: return launch<256>(dtype, a, B, bq, s);
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      if (D > 256) return launch_wide(dtype, a, B, D, bq, s);
+      return (int)cudaErrorInvalidValue;
   }
 }
 
-// The dynamic shared memory bytes tpuflow_flash_fwd launches a block with
-// (the card tests hold it to the per-block limit).
+// The shared memory bytes tpuflow_flash_fwd launches a block with (dynamic;
+// static for the wide-head kernel above D = 256); the card tests hold it to
+// the per-block limit.
 int tpuflow_flash_fwd_smem(int dtype, int D, int bq) {
-  return smem_bytes(dtype, D, bq);
+  return D > 256 ? wide_smem_bytes() : smem_bytes(dtype, D, bq);
 }
 
 const char* tpuflow_cuda_error_string(int err) {

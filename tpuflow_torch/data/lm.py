@@ -26,6 +26,17 @@ def make_lm_loaders(
     ragged tail so every held-out window counts. Only ``lm_synth`` is
     ported: ``lm_text`` resolves its file through environment knobs the
     port does not take, and raises."""
+    check_dataset(dataset, text_path)
+    ds = _load_synthetic_lm(lm_corpus_size(batch_size, steps), seq_len, vocab)
+    train = ShardedLoader(
+        ds.train, batch_size=batch_size, shuffle=True, max_batches=steps
+    )
+    return train, _val_loader(ds, batch_size)
+
+
+def check_dataset(dataset: str, text_path: str | None = None) -> None:
+    """Raise unless ``dataset`` is one the port's loaders take:
+    ``lm_text`` is not ported yet, any other name is unknown."""
     if dataset == "lm_text":
         raise NotImplementedError(
             "dataset 'lm_text' is not ported yet: ROADMAP Queue 1 item 12 "
@@ -37,15 +48,26 @@ def make_lm_loaders(
         )
     if text_path is not None:
         raise ValueError("text_path applies to dataset 'lm_text' only")
-    ds = _load_synthetic_lm(lm_corpus_size(batch_size, steps), seq_len, vocab)
-    train = ShardedLoader(
-        ds.train, batch_size=batch_size, shuffle=True, max_batches=steps
-    )
-    val = ShardedLoader(
+
+
+def _val_loader(ds, batch_size: int) -> ShardedLoader:
+    return ShardedLoader(
         ds.test,
         batch_size=batch_size,
         shuffle=False,
         pad_tail=True,
         drop_last=False,
     )
-    return train, val
+
+
+def lm_test_loader(
+    batch_size: int,
+    synthetic_size: int,
+    seq_len: int,
+    vocab: int,
+) -> ShardedLoader:
+    """The held-out ``lm_synth`` loader a training run of
+    ``synthetic_size`` documents validated on (``make_lm_loaders``'s val
+    loader), for an eval flow that scores the run's checkpoint."""
+    return _val_loader(_load_synthetic_lm(synthetic_size, seq_len, vocab),
+                       batch_size)

@@ -1,0 +1,602 @@
+"""Flow execution engine and CLI.
+
+Counterpart of ``tpuflow/flow/runner.py``. Steps execute in transition
+order from ``start`` to ``end``; ``@retry`` reruns failures after a
+jittered exponential backoff, and a member's requeue exit reruns a step
+without spending its retries; gang steps (``num_parallel`` > 1 or
+``@gpu``) launch N processes that form one ``torch.distributed`` world
+(``flow/gang_exec.py``), only the head persisting artifacts, and a join
+step sees the members as inputs (members without artifacts raise
+``AttributeError``, which a tolerant join absorbs); a run that succeeds
+appends a trigger event that ``--triggered`` runs downstream consume.
+
+CLI (``main``): ``run`` / ``trigger`` / ``show``, parameters as
+``--name value``, ``--triggered``, and ``--home <dir>`` for the store's
+root. ``deploy`` waits for the flow layer's remainder and raises.
+
+A flow whose ``device`` parameter asks for ``cuda`` on a machine without
+a card raises before the run is created; nothing falls back to the CPU.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import inspect
+import json
+import os
+import pickle
+import random
+import signal
+import socket
+import subprocess
+import sys
+import threading
+import time
+import traceback
+from typing import Any
+
+import torch
+
+from tpuflow_torch.device import resolve_device
+from tpuflow_torch.flow import store
+from tpuflow_torch.flow.cards import CardBuffer
+from tpuflow_torch.flow.client import Run, default_namespace, get_namespace
+from tpuflow_torch.flow.spec import FlowSpec, _Trigger, current
+from tpuflow_torch.utils.preempt import REQUEUE_EXIT_CODE
+
+ROADMAP_DEPLOY = ("ROADMAP Queue 1 item 8b (the flow layer's remainder: "
+                  "flow/deploy.py, the elastic gang and heartbeats)")
+
+
+class StepFailed(Exception):
+    pass
+
+
+class StepPreempted(StepFailed):
+    """A gang member exited with the requeue code: the step reruns without
+    spending its ``@retry`` budget."""
+
+
+# Injectable time sources: tests pin the jitter and capture the sleeps.
+_sleep = time.sleep
+_random = random.random
+
+# Supervisor poll cadence: fail-fast reaction in tens of milliseconds.
+_GANG_POLL_S = 0.05
+# Seconds a gang member may take to start (interpreter, imports) before its
+# rendezvous timeout starts to count, in the supervisor's formation
+# deadline.
+FORMATION_SLACK_S = 60.0
+# Seconds between the SIGTERM and the SIGKILL a failed gang's survivors
+# get (each exits with the requeue code on the SIGTERM).
+KILL_GRACE_S = 5.0
+# Requeues a step may take before its run fails (a preemption storm).
+MAX_REQUEUES = 8
+
+
+def _backoff_delay(attempt: int, backoff_s: float,
+                   max_backoff_s: float) -> float:
+    """Exponential backoff with 0.5-1.0 jitter for retry ``attempt``
+    (1-based)."""
+    base = min(max_backoff_s, backoff_s * (2.0 ** (attempt - 1)))
+    return base * (0.5 + 0.5 * _random())
+
+
+class _GangInput:
+    """One gang member as a join step sees it: members other than the head
+    have no artifacts, and reading one raises ``AttributeError``."""
+
+    def __init__(self, artifacts: dict[str, Any] | None):
+        self._artifacts = artifacts or {}
+
+    def __getattr__(self, name: str):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        try:
+            return self._artifacts[name]
+        except KeyError:
+            raise AttributeError(
+                f"no artifact {name!r} on this gang member") from None
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _DeviceProfiler:
+    """Background sampler of each card's memory: every ``interval``
+    seconds ``torch.cuda.memory_allocated`` and ``max_memory_allocated``
+    per card. Writes ``profile.json`` with the platform (``gpu`` or
+    ``cpu``) and the cards' names."""
+
+    def __init__(self, interval: float, out_path: str, device: torch.device):
+        self.interval = interval
+        self.out_path = out_path
+        self.cuda = device.type == "cuda"
+        self.samples: list[dict] = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+
+    def _sample(self) -> None:
+        devices = []
+        if self.cuda:
+            for i in range(torch.cuda.device_count()):
+                devices.append({
+                    "id": i,
+                    "bytes_in_use": torch.cuda.memory_allocated(i),
+                    "peak_bytes_in_use": torch.cuda.max_memory_allocated(i),
+                })
+        self.samples.append({"ts": time.time(), "devices": devices})
+
+    def _loop(self):
+        while not self._stop.is_set():
+            self._sample()
+            self._stop.wait(self.interval)
+
+    def __enter__(self):
+        if self.cuda:
+            for i in range(torch.cuda.device_count()):
+                torch.cuda.reset_peak_memory_stats(i)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self._sample()  # the step's final peak
+        kinds = ([torch.cuda.get_device_name(i)
+                  for i in range(torch.cuda.device_count())]
+                 if self.cuda else [])
+        with open(self.out_path, "w") as f:
+            json.dump({"interval": self.interval,
+                       "platform": "gpu" if self.cuda else "cpu",
+                       "device_kinds": kinds, "samples": self.samples}, f)
+
+
+@contextlib.contextmanager
+def _step_trace(trace_dir: str, device: torch.device):
+    """A ``torch.profiler`` chrome trace of the step into
+    ``trace_dir/trace.json`` (CUDA activity too on the card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+
+
+class FlowRunner:
+    """Runs one flow class."""
+
+    def __init__(self, flow_cls: type[FlowSpec]):
+        self.flow_cls = flow_cls
+        self.flow_name = flow_cls.__name__
+
+    # ----------------------------------------------------------------- run
+    def run(self, params: dict[str, Any], *, triggered: bool = False,
+            run_id: int | None = None) -> str:
+        steps = self.flow_cls.steps()
+        if "start" not in steps or "end" not in steps:
+            raise ValueError("flow must define 'start' and 'end' steps")
+        # A flow asked for the card on a machine without one raises here,
+        # before any run exists.
+        self.device = resolve_device(params["device"]) if "device" in params \
+            else torch.device("cpu")
+        run_id = run_id if run_id is not None else store.new_run_id(
+            self.flow_name)
+        meta = {
+            "flow": self.flow_name,
+            "run_id": run_id,
+            "status": "running",
+            # A run is always produced under a concrete namespace: the
+            # global scope (None) reads only.
+            "namespace": get_namespace() or default_namespace(),
+            "params": {k: _jsonable(v) for k, v in params.items()},
+            "started": time.time(),
+            "steps": [],
+            "schedule": getattr(self.flow_cls, "__schedule__", None),
+            "trigger_on_finish": getattr(self.flow_cls,
+                                         "__trigger_on_finish__", None),
+        }
+        flow = self.flow_cls()
+        for name, value in params.items():
+            setattr(flow, name, value)
+        self._trigger_run = None
+        upstream = getattr(self.flow_cls, "__trigger_on_finish__", None)
+        if triggered and upstream:
+            events = [e for e in store.read_events(upstream)
+                      if e.get("status") == "success"]
+            if events:
+                self._trigger_run = Run(events[-1]["run"])
+                meta["triggered_by"] = events[-1]["run"]
+        store.write_run_meta(self.flow_name, run_id, meta)
+
+        pathspec = f"{self.flow_name}/{run_id}"
+        print(f"[tpuflow_torch] run {pathspec} starting")
+        step_name, task_counter = "start", 0
+        try:
+            while True:
+                fn = steps[step_name]
+                task_id = task_counter
+                gang = getattr(fn, "__gang__", None) or {}
+                num_parallel = 1
+                transition = getattr(flow, "_next", None)
+                if transition is not None and transition.target == step_name:
+                    num_parallel = transition.num_parallel
+                if gang.get("num_parallel"):
+                    num_parallel = max(num_parallel, gang["num_parallel"])
+                task_counter += num_parallel  # members own task_id..+N-1
+                object.__setattr__(flow, "_next", None)
+                gang_inputs = self._run_step(flow, fn, step_name, run_id,
+                                             task_id, num_parallel, gang)
+                meta["steps"].append({"step": step_name, "head_task": task_id,
+                                      "tasks": num_parallel})
+                store.write_run_meta(self.flow_name, run_id, meta)
+                if step_name == "end":
+                    break
+                transition = getattr(flow, "_next", None)
+                if transition is None:
+                    raise StepFailed(
+                        f"step {step_name!r} did not call self.next(...)")
+                # A join step (a second positional argument) gets the
+                # members as inputs.
+                if _takes_inputs(steps[transition.target]):
+                    object.__setattr__(flow, "_join_inputs", gang_inputs)
+                step_name = transition.target
+        except Exception as e:
+            meta.update(status="failed", error=repr(e), finished=time.time())
+            store.write_run_meta(self.flow_name, run_id, meta)
+            print(f"[tpuflow_torch] run {pathspec} FAILED: {e!r}")
+            raise
+        meta.update(status="success", finished=time.time())
+        store.write_run_meta(self.flow_name, run_id, meta)
+        store.append_event({"flow": self.flow_name, "run": pathspec,
+                            "status": "success"})
+        print(f"[tpuflow_torch] run {pathspec} succeeded")
+        return pathspec
+
+    def _run_step(self, flow, fn, step_name, run_id, task_id, num_parallel,
+                  gang) -> list[_GangInput]:
+        """One step with its retries and requeues; returns the inputs a
+        following join step sees."""
+        retries = getattr(fn, "__retry_times__", 0)
+        backoff_s = getattr(fn, "__retry_backoff_s__", 2.0)
+        max_backoff_s = getattr(fn, "__retry_max_backoff_s__", 60.0)
+        attempt = requeues = 0
+        while True:
+            try:
+                if num_parallel > 1:
+                    return self._exec_gang(
+                        flow, step_name, run_id, task_id, num_parallel,
+                        timeout=gang.get("timeout", 300.0),
+                        attempt=attempt + requeues)
+                self._exec_local(flow, fn, step_name, run_id, task_id,
+                                 attempt + requeues)
+                # A following join sees this task as a gang of one.
+                return [_GangInput(dict(flow._artifacts))]
+            except StepPreempted:
+                # Routine, not a failure: the rerun spends no retry. A cap
+                # bounds a preemption storm.
+                requeues += 1
+                if requeues > MAX_REQUEUES:
+                    raise
+                print(f"[tpuflow_torch] step {step_name} preempted (requeue "
+                      f"{requeues}/{MAX_REQUEUES}), relaunching without "
+                      "spending a retry")
+            except Exception:
+                attempt += 1
+                if attempt > retries:
+                    raise
+                delay = _backoff_delay(attempt, backoff_s, max_backoff_s)
+                print(f"[tpuflow_torch] step {step_name} failed (attempt "
+                      f"{attempt}/{retries}), retrying in {delay:.1f}s:\n"
+                      f"{traceback.format_exc(limit=3)}")
+                _sleep(delay)
+
+    # ----------------------------------------------------- single-task exec
+    def _set_current(self, step_name: str, run_id, task_id: int) -> None:
+        current.flow_name = self.flow_name
+        current.run_id = str(run_id)
+        current.step_name = step_name
+        current.task_id = task_id
+        current.gang_index, current.gang_size = 0, 1
+        current.trigger = (_Trigger(self._trigger_run)
+                           if self._trigger_run is not None else None)
+        current.tpu_storage_path = store.storage_dir(self.flow_name, run_id,
+                                                     step_name)
+        os.makedirs(current.tpu_storage_path, exist_ok=True)
+
+    def _exec_local(self, flow: FlowSpec, fn, step_name: str, run_id,
+                    task_id: int, attempt: int) -> None:
+        tdir = store.task_dir(self.flow_name, run_id, step_name, task_id)
+        os.makedirs(tdir, exist_ok=True)
+        self._set_current(step_name, run_id, task_id)
+        current.card = CardBuffer() if getattr(fn, "__card__", None) else None
+        profile_cfg = getattr(fn, "__device_profile__", None)
+        join_inputs = getattr(flow, "_join_inputs", None)
+        object.__setattr__(flow, "_join_inputs", None)
+        try:
+            with contextlib.ExitStack() as stack:
+                if profile_cfg:
+                    stack.enter_context(_DeviceProfiler(
+                        profile_cfg["interval"],
+                        os.path.join(tdir, "profile.json"), self.device))
+                    if profile_cfg.get("trace"):
+                        stack.enter_context(_step_trace(
+                            os.path.join(tdir, "trace"), self.device))
+                if _takes_inputs(fn):
+                    fn(flow, join_inputs or [])
+                else:
+                    fn(flow)
+            if current.card is not None:
+                with open(os.path.join(tdir, "card.html"), "w") as f:
+                    f.write(current.card.render_html(
+                        f"{self.flow_name}/{run_id}/{step_name}"))
+            store.save_artifacts(self.flow_name, run_id, step_name, task_id,
+                                 flow._artifacts, attempt)
+        finally:
+            current.card = None
+
+    # ------------------------------------------------------------ gang exec
+    def _exec_gang(self, flow: FlowSpec, step_name: str, run_id,
+                   task_id: int, num_parallel: int, *, timeout: float,
+                   attempt: int = 0) -> list[_GangInput]:
+        """Launch ``num_parallel`` processes running the step body as one
+        ``torch.distributed`` world (``flow/gang_exec.py``) and supervise
+        them (``_supervise_gang``). Each member gets the flow's artifacts,
+        the device, the formation timeout and the store's root through a
+        pickled state file, and its rank, the world size and the
+        rendezvous port through argv."""
+        tdir = store.task_dir(self.flow_name, run_id, step_name, task_id)
+        os.makedirs(tdir, exist_ok=True)
+        for name, value in flow._artifacts.items():
+            # The datastore's contract holds for the gang's pickle too.
+            store.reject_device_arrays(name, value)
+        state_path = os.path.join(tdir, "gang_state.pkl")
+        with open(state_path, "wb") as f:
+            pickle.dump({"artifacts": flow._artifacts,
+                         "device": str(self.device), "timeout": timeout,
+                         "home": store.home(), "attempt": attempt,
+                         "trigger": (self._trigger_run.pathspec
+                                     if self._trigger_run else None)}, f)
+        for i in range(num_parallel):
+            with contextlib.suppress(FileNotFoundError):
+                os.unlink(os.path.join(tdir, f"joined_{i}"))
+        port = _free_port()
+        pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = pkg_root + os.pathsep + env.get("PYTHONPATH", "")
+        procs: list[tuple[subprocess.Popen, Any]] = []
+        try:
+            for i in range(num_parallel):
+                cmd = [sys.executable, "-m", "tpuflow_torch.flow.gang_exec",
+                       self._flow_module(), self.flow_name, step_name,
+                       str(run_id), str(task_id), state_path, str(i),
+                       str(num_parallel), str(port)]
+                log = open(os.path.join(tdir, f"gang_{i}.log"), "w")
+                try:
+                    procs.append((subprocess.Popen(
+                        cmd, env=env, stdout=log, stderr=subprocess.STDOUT,
+                        cwd=os.getcwd()), log))
+                except BaseException:
+                    log.close()
+                    raise
+        except BaseException:
+            # A launch that fails midway leaks no member.
+            self._kill_survivors(procs, [None] * len(procs))
+            for _, log in procs:
+                log.close()
+            raise
+        failure = self._supervise_gang(procs, tdir, timeout=timeout)
+        if failure is not None:
+            kind, member, detail = failure
+            if kind == "preempt":
+                raise StepPreempted(
+                    f"gang step {step_name!r} preempted (member {member} "
+                    f"exited with requeue code {REQUEUE_EXIT_CODE})")
+            tails = [f"--- gang member {i} ---\n{self._log_tail(tdir, i)}"
+                     for i in range(num_parallel)]
+            raise StepFailed(f"gang step {step_name!r} failed ({detail}):\n"
+                             + "\n".join(tails))
+        head = store.load_artifacts(self.flow_name, run_id, step_name,
+                                    task_id)
+        for k, v in head.items():
+            setattr(flow, k, v)
+        next_path = os.path.join(tdir, "next.json")
+        if os.path.exists(next_path):
+            with open(next_path) as f:
+                flow.next(getattr(flow, json.load(f)["target"]))
+        return [_GangInput(head)] + [
+            _GangInput(store.load_artifacts(self.flow_name, run_id,
+                                            step_name, task_id + i))
+            for i in range(1, num_parallel)
+        ]
+
+    def _supervise_gang(self, procs: list, tdir: str, *, timeout: float):
+        """Poll every member until all exit 0 or one fails.
+
+        The first non-zero exit fails the step at once ("preempt" for the
+        requeue code, else "member_failed"), and the survivors are killed
+        (``_kill_survivors``). Formation deadline: every member writes
+        ``joined_<i>`` once its process group is up; if any has not
+        within ``timeout`` + ``FORMATION_SLACK_S`` of the launch, the step
+        fails ("formation"). A member stuck in its own rendezvous raises
+        after ``timeout`` by itself; the deadline also catches members
+        that never reach it. Returns None or ``(kind, member, detail)``."""
+        n = len(procs)
+        rcs: list[int | None] = [None] * n
+        failure = None
+        formed = False
+        deadline = time.monotonic() + timeout + FORMATION_SLACK_S
+        try:
+            while True:
+                for i, (p, log) in enumerate(procs):
+                    if rcs[i] is not None:
+                        continue
+                    rc = p.poll()
+                    if rc is None:
+                        continue
+                    rcs[i] = rc
+                    log.close()
+                    if rc != 0 and failure is None:
+                        failure = (
+                            ("preempt", i, "requeue")
+                            if rc == REQUEUE_EXIT_CODE
+                            else ("member_failed", i,
+                                  f"member {i} exited {rc}"))
+                if failure is not None or all(rc is not None for rc in rcs):
+                    break
+                if not formed:
+                    formed = all(os.path.exists(os.path.join(
+                        tdir, f"joined_{i}")) for i in range(n))
+                    if not formed and time.monotonic() > deadline:
+                        failure = (
+                            "formation", None,
+                            f"the gang did not form within its {timeout:.0f}"
+                            f" s timeout (+{FORMATION_SLACK_S:.0f} s to "
+                            "start)")
+                        break
+                time.sleep(_GANG_POLL_S)
+        finally:
+            if any(rc is None for rc in rcs):
+                self._kill_survivors(procs, rcs)
+            for _, log in procs:
+                log.close()  # idempotent
+        return failure
+
+    @staticmethod
+    def _log_tail(tdir: str, member: int, limit: int = 2000) -> str:
+        try:
+            with open(os.path.join(tdir, f"gang_{member}.log")) as f:
+                return f.read()[-limit:]
+        except OSError:
+            return ""
+
+    @staticmethod
+    def _kill_survivors(procs: list, rcs: list) -> None:
+        """SIGTERM every member still running (each exits with the requeue
+        code), then SIGKILL whichever is left after ``KILL_GRACE_S``."""
+        live = [i for i, rc in enumerate(rcs) if rc is None]
+        for i in live:
+            with contextlib.suppress(OSError):
+                procs[i][0].send_signal(signal.SIGTERM)
+        t_end = time.monotonic() + KILL_GRACE_S
+        while live and time.monotonic() < t_end:
+            live = [i for i in live if procs[i][0].poll() is None]
+            if live:
+                time.sleep(_GANG_POLL_S)
+        for i in live:
+            with contextlib.suppress(OSError):
+                procs[i][0].kill()
+        for i, rc in enumerate(rcs):
+            if rc is None:
+                try:
+                    rcs[i] = procs[i][0].wait(timeout=10)
+                except subprocess.TimeoutExpired:
+                    rcs[i] = -9
+
+    def _flow_module(self) -> str:
+        path = getattr(inspect.getmodule(self.flow_cls), "__file__", None)
+        if path is None:
+            raise RuntimeError("flow class must live in an importable file")
+        return os.path.abspath(path)
+
+
+def _takes_inputs(fn) -> bool:
+    params = list(inspect.signature(fn).parameters)
+    return len(params) >= 2 and params[1] not in ("args", "kwargs")
+
+
+def _jsonable(v):
+    try:
+        json.dumps(v)
+        return v
+    except (TypeError, ValueError):
+        return str(v)
+
+
+# --------------------------------------------------------------------- CLI
+def main(flow_cls: type[FlowSpec], argv: list[str] | None = None):
+    """``run`` / ``trigger`` (returns the run's pathspec), ``show``, or
+    ``deploy`` (raises). ``--home <dir>`` anywhere after the command roots
+    the store there (``store.set_home``) for this process."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] in ("-h", "--help", "show"):
+        _show(flow_cls)
+        return None
+    cmd, rest = argv[0], argv[1:]
+    if "--home" in rest:
+        i = rest.index("--home")
+        if i + 1 >= len(rest):
+            raise SystemExit("--home requires a directory")
+        store.set_home(rest[i + 1])
+        rest = rest[:i] + rest[i + 2:]
+    if cmd in ("run", "trigger"):
+        params, triggered = _parse_params(flow_cls, rest)
+        return FlowRunner(flow_cls).run(
+            params, triggered=triggered or cmd == "trigger")
+    if cmd == "deploy":
+        raise NotImplementedError(f"deploy is not ported yet: {ROADMAP_DEPLOY}")
+    raise SystemExit(f"unknown command {cmd!r}; use run|trigger|show")
+
+
+def _parse_params(flow_cls, rest: list[str]):
+    specs = flow_cls.parameters()
+    by_cli = {}
+    for attr, p in specs.items():
+        by_cli[p.name.replace("_", "-")] = (attr, p)
+        by_cli[p.name] = (attr, p)
+    params = {attr: p.default for attr, p in specs.items()}
+    triggered = False
+    i = 0
+    while i < len(rest):
+        arg = rest[i]
+        if arg == "--triggered":
+            triggered = True
+            i += 1
+            continue
+        if not arg.startswith("--"):
+            raise SystemExit(f"unexpected argument {arg!r}")
+        key = arg[2:]
+        if key not in by_cli:
+            raise SystemExit(
+                f"unknown parameter --{key}; known: "
+                + ", ".join(sorted(c for c in by_cli
+                                   if "-" in c or "_" not in c)))
+        if i + 1 >= len(rest):
+            raise SystemExit(f"--{key} requires a value")
+        attr, p = by_cli[key]
+        params[attr] = p.parse(rest[i + 1])
+        i += 2
+    missing = [p.name for a, p in specs.items()
+               if p.required and params[a] is None]
+    if missing:
+        raise SystemExit(f"missing required parameters: {missing}")
+    return params, triggered
+
+
+def _show(flow_cls) -> None:
+    print(f"Flow {flow_cls.__name__}")
+    doc = (flow_cls.__doc__ or "").strip()
+    if doc:
+        print(f"  {doc.splitlines()[0]}")
+    print("Steps:")
+    for name, fn in flow_cls.steps().items():
+        tags = []
+        if getattr(fn, "__retry_times__", 0):
+            tags.append(f"retry×{fn.__retry_times__}")
+        if getattr(fn, "__gang__", None):
+            tags.append("gang")
+        if getattr(fn, "__card__", None):
+            tags.append("card")
+        print(f"  {name}{(' [' + ', '.join(tags) + ']') if tags else ''}")
+    print("Parameters:")
+    for attr, p in flow_cls.parameters().items():
+        print(f"  --{p.name.replace('_', '-')} (default {p.default!r}) "
+              f"{p.help}")

@@ -24,8 +24,10 @@ softmax, output / max(l, 1e-30), lse = m + log(max(l, 1e-30)).
   pair (``launches_bwd_dq_split``, ``launches_bwd_dkv_split``: both read O
   and recompute D on every block visit; the same bits as the fused pair).
   ``launches_bwd_dq_bf16`` and ``launches_bwd_dkv_bf16`` count the bf16
-  launches of either pair (the tensor-core variants). Each backward launch
-  takes its tile heights from ``_flash_bwd_plan``.
+  launches of either pair (the tensor-core variants). ``wide_launches``
+  counts, by wrapper and dtype, the launches of the wide-head kernels
+  (D > 256) among them. Each backward launch takes its tile heights from
+  ``_flash_bwd_plan``.
 - Plain versions, which CPU tensors take and the card holds the kernels
   against: ``blockwise_attention``, ``blockwise_attention_lse``,
   ``flash_bwd_dq_plain`` and ``flash_bwd_dkv_plain`` (``flash_bwd_plain``
@@ -33,13 +35,17 @@ softmax, output / max(l, 1e-30), lse = m + log(max(l, 1e-30)).
   ``flash_bwd_dkv_split_plain``. For bf16 they round P and dS to the input
   dtype before the products that take them, as the kernels do.
 
-Head dims: the kernels are instantiated at D = 32, 64, 128 and 256. Any
-other D <= 256 is zero-padded up to the next of those (q, k, v, and in
+Head dims: the kernels are instantiated at D = 32, 64, 128 and 256, and
+above 256 the wide-head kernels take any multiple of 128 (they contract
+the scores over D in chunks, so no full-width tile has to fit shared
+memory). Any other D is zero-padded up to the next width (q, k, v, and in
 the backward O and dO; ``_padded``), run with the scale of the true D and
 cut back: zero columns add exact zeros to every score, product and row
 delta, so only the scale needs the true D. ``flash_attention`` routes a
 D that is not a multiple of 8 to ``blockwise_attention``, as the
-reference does; a D above 256 raises.
+reference does. The one limit left is the wide kernels' grid: at most
+65535 blocks of 128 output columns (``MAX_HEAD_DIM``); above it the
+wrappers raise.
 
 The forward with lse is registered as the custom op
 ``tpuflow_torch::flash_fwd_lse`` so that a selective-checkpoint policy sees
@@ -60,6 +66,10 @@ _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The head dims the kernels are instantiated at; others are padded up.
 _HEAD_DIMS = (32, 64, 128, 256)
+# Above 256 the wide-head kernels take multiples of this (a block's output
+# columns), up to the 65535 column blocks grid.z holds.
+_WIDE = 128
+MAX_HEAD_DIM = 65535 * _WIDE
 
 # Kernel launches since the last reset, one counter per kernel:
 # chip_smoke.py zeroes them before a main path and reads them after, to
@@ -73,6 +83,15 @@ launches_bwd_dq_split = 0   # split backward: dq, D recomputed from O
 launches_bwd_dkv_split = 0  # split backward: dk and dv, D per q-block visit
 launches_bwd_dq_bf16 = 0    # dq launches of either pair on bf16 inputs
 launches_bwd_dkv_bf16 = 0   # dk/dv launches of either pair on bf16 inputs
+# Of those, the launches that ran a wide-head kernel (D > 256), by wrapper
+# and dtype ("flash_bwd_dq", "flash_bwd_dq_bf16", ...).
+wide_launches = {
+    kernel + dtype: 0
+    for kernel in ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq",
+                   "flash_bwd_dkv", "flash_bwd_dq_split",
+                   "flash_bwd_dkv_split")
+    for dtype in ("", "_bf16")
+}
 BWD_MODES = ("fused", "split", "blockwise")
 
 
@@ -81,15 +100,18 @@ def _scale(D: int, device) -> torch.Tensor:
 
 
 def _kernel_dim(D: int) -> int:
-    """The kernel instantiation head dim ``D`` runs at: the narrowest of
-    ``_HEAD_DIMS`` that holds it."""
+    """The kernel head dim ``D`` runs at: the narrowest of ``_HEAD_DIMS``
+    that holds it, else (the wide-head kernels) D rounded up to a multiple
+    of 128, up to ``MAX_HEAD_DIM``."""
     for width in _HEAD_DIMS:
         if D <= width:
             return width
+    if D <= MAX_HEAD_DIM:
+        return -(-D // _WIDE) * _WIDE
     raise ValueError(
-        f"flash_attention kernels take head_dim up to {_HEAD_DIMS[-1]}, "
-        f"got {D}: a block's K/V stages at a wider head would not fit "
-        "Hopper's 227 KB of shared memory"
+        f"flash_attention kernels take head_dim up to {MAX_HEAD_DIM}, got "
+        f"{D}: the wide-head kernels' grid holds at most 65535 blocks of "
+        f"{_WIDE} output columns"
     )
 
 
@@ -383,8 +405,9 @@ def flash_attention(q, k, v, *, causal: bool = True, bwd: str = "fused"):
     Differentiable (``_Flash``) when a gradient is needed, with the
     backward ``bwd`` names (``fused``, ``split`` or ``blockwise``); else
     the no-lse forward. CPU tensors take the plain versions. CUDA tensors
-    launch the kernels (f32 or bf16, any D % 8 == 0 up to 256, padded to
-    the kernel's width; any T, ragged tails masked in the kernels) or
+    launch the kernels (f32 or bf16, any D % 8 == 0 up to
+    ``MAX_HEAD_DIM``, padded to the kernel's width; any T, ragged tails
+    masked in the kernels) or
     raise; ``blockwise``, which runs no backward kernel, takes CPU tensors
     only. A head dim that is not a multiple of 8 takes
     ``blockwise_attention`` on any device, as in the reference.
@@ -428,10 +451,11 @@ def _check_qkv(q, k, v, what: str):
             f"{what}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)} do not agree"
         )
-    if D not in _HEAD_DIMS:
+    if not (D <= MAX_HEAD_DIM and _kernel_dim(D) == D):
         raise ValueError(
-            f"{what} kernel supports head_dim in {_HEAD_DIMS} (the wrappers "
-            f"pad other head dims up to 256), got {D}"
+            f"{what} kernel supports head_dim in {_HEAD_DIMS} or a multiple "
+            f"of {_WIDE} above 256 up to {MAX_HEAD_DIM} (the wrappers pad "
+            f"other head dims), got {D}"
         )
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError(f"{what} kernel needs unit stride over D")
@@ -479,7 +503,8 @@ def _flash_bq(B: int, H: int, Tq: int, sms: int, D: int = 64) -> int:
     whose 64-row block would overrun shared memory. It changes no output
     bit: the key tiles are anchored at key 0 and each row's arithmetic
     does not depend on it. The kernel derives the grid and shared memory
-    from it, and runs the causal q tiles longest first."""
+    from it, and runs the causal q tiles longest first. The wide-head
+    kernel (D > 256) takes 32 rows only."""
     if D > 128:
         return 32
     return 64 if B * H * -(-Tq // 64) >= sms else 32
@@ -499,7 +524,10 @@ def _flash_bwd_plan(B: int, H: int, Tq: int, Tk: int, D: int, dtype,
     it: the streamed tiles' height is fixed by ``dtype`` and ``D``, and
     every element sums its products in the same order. The C entries
     derive grid and shared memory from it, and run the causal tiles
-    longest first (dq tiles in reverse, dk/dv ascending)."""
+    longest first (dq tiles in reverse, dk/dv ascending). The wide-head
+    kernels (D > 256) take 32 rows only."""
+    if D > 256:
+        return {"dq_rows": 32, "dkv_rows": 32}
     if dtype != torch.float32:
         tall = (64,)
     else:
@@ -516,6 +544,14 @@ def _bwd_rows(q, Tk: int, key: str) -> int:
     return _flash_bwd_plan(B, H, Tq, Tk, D, q.dtype, torch.cuda.
                            get_device_properties(q.device)
                            .multi_processor_count)[key]
+
+
+def _count_wide(kernel: str, q) -> None:
+    """One more launch in ``wide_launches`` when ``q``'s head dim runs the
+    wide-head variant of ``kernel``."""
+    if q.shape[-1] > 256:
+        wide_launches[kernel + ("_bf16" if q.dtype == torch.bfloat16
+                                else "")] += 1
 
 
 def _flash_fwd_cuda(q, k, v, causal: bool, *, with_lse: bool,
@@ -542,6 +578,7 @@ def _flash_fwd_cuda(q, k, v, causal: bool, *, with_lse: bool,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, "flash_fwd launch")
+    _count_wide("flash_fwd_lse" if with_lse else "flash_fwd", q)
     if with_lse:
         launches_lse += 1
         if q.dtype == torch.bfloat16:
@@ -574,6 +611,7 @@ def _flash_bwd_dq_cuda(q, k, v, o, lse, do, causal: bool, *,
     )
     _build.check(lib, rc, "flash_bwd_dq launch")
     launches_bwd_dq += 1
+    _count_wide("flash_bwd_dq", q)
     launches_bwd_dq_bf16 += q.dtype == torch.bfloat16
     return dq, delta
 
@@ -600,6 +638,7 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool, *,
     )
     _build.check(lib, rc, "flash_bwd_dkv launch")
     launches_bwd_dkv += 1
+    _count_wide("flash_bwd_dkv", q)
     launches_bwd_dkv_bf16 += q.dtype == torch.bfloat16
     return dk, dv
 
@@ -626,6 +665,7 @@ def _flash_bwd_dq_split_cuda(q, k, v, o, lse, do, causal: bool, *,
     )
     _build.check(lib, rc, "flash_bwd_dq_split launch")
     launches_bwd_dq_split += 1
+    _count_wide("flash_bwd_dq_split", q)
     launches_bwd_dq_bf16 += q.dtype == torch.bfloat16
     return dq
 
@@ -652,5 +692,6 @@ def _flash_bwd_dkv_split_cuda(q, k, v, o, lse, do, causal: bool, *,
     )
     _build.check(lib, rc, "flash_bwd_dkv_split launch")
     launches_bwd_dkv_split += 1
+    _count_wide("flash_bwd_dkv_split", q)
     launches_bwd_dkv_bf16 += q.dtype == torch.bfloat16
     return dk, dv
