@@ -87,6 +87,13 @@ Phases, each fatal on failure (no phase catches an error and carries on):
 
 Exits non-zero without a result when CUDA is absent or the package is not
 beside this script. Details go to ``chiprun_out/chip_smoke.json``.
+
+``python3 chip_smoke.py --wide-compare DIR`` runs nothing of the above: it
+times the 12 wide-head entries at (1, 1024, 12, 512) causal with the
+kernels of the checkout in DIR (for example the parent commit, unpacked
+by ``git archive``) and with this checkout's, in turns (DIR, this, this,
+DIR), each in a process of its own that builds its kernels, and writes
+them to ``chiprun_out/wide_compare.json``.
 """
 
 from __future__ import annotations
@@ -173,9 +180,9 @@ TRACE_ATTEMPTS = 3
 # 128), the widest instantiation (256) and a wide head (512, the wide-head
 # kernels that contract over D in chunks), at one prefill layer's shape.
 HEAD_DIM_SHAPES = ((1, 1024, 12, 96), (1, 1024, 12, 256), (1, 1024, 12, 512))
-# The head dim whose rows also time the plain versions and SDPA, and enter
-# the kernels JSON line; each kernel's outputs in the head-dim phase's
-# errors (the split pair's equal the fused pair's bit for bit).
+# The head dim whose rows enter the kernels JSON line; each kernel's
+# outputs in the head-dim phase's errors (the split pair's equal the fused
+# pair's bit for bit).
 WIDE_D = 512
 WIDE_ERR_KEYS = {
     "flash_fwd": ("out_no_lse",), "flash_fwd_lse": ("out", "lse"),
@@ -1181,9 +1188,8 @@ def head_dim_phase(torch, timer, bwd_rows):
     (the wide-head kernels), f32 and bf16, causal: against their plain
     versions at the true D with the backward phase's tolerances, the split pair
     bit-equal to the fused one, and their device ms (the wrappers' padding
-    copies included) beside their bound and the D = 64 kernels' at
-    (1, 1024, 12, 64). At D = 512 also the plain versions' and SDPA's
-    device ms."""
+    copies included) beside their bound, their share of it, the D = 64
+    kernels' at (1, 1024, 12, 64), the plain versions' and SDPA's."""
     from tpuflow_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -1260,36 +1266,105 @@ def head_dim_phase(torch, timer, bwd_rows):
                        bound_ms={k: b[0] for k, b in bound.items()},
                        bound_by={k: b[1] for k, b in bound.items()},
                        d64_ms=d64)
-            if D == WIDE_D:
-                # One SDPA call of the same function: the forward, and the
-                # backward of all three gradients at once.
-                qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_()
-                              for x in (q, k, v))
-                sdpa = torch.nn.functional.scaled_dot_product_attention
-                out_h = sdpa(qh, kh, vh, is_causal=True)
-                do_h = do.transpose(1, 2)
-                fwd_lib = timer(lambda: sdpa(qh, kh, vh, is_causal=True))[0]
-                bwd_lib = timer(lambda: torch.autograd.grad(
-                    out_h, (qh, kh, vh), do_h, retain_graph=True))[0]
-                row["plain_ms"] = {kern: timer(plain, iters=3)[0]
-                                   for kern, (_, plain) in calls.items()}
-                row["library_ms"] = {kern: fwd_lib if kern.startswith(
-                    "flash_fwd") else bwd_lib for kern in calls}
-                del qh, kh, vh, out_h
+            # One SDPA call of the same function: the forward, and the
+            # backward of all three gradients at once.
+            qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            out_h = sdpa(qh, kh, vh, is_causal=True)
+            do_h = do.transpose(1, 2)
+            fwd_lib = timer(lambda: sdpa(qh, kh, vh, is_causal=True))[0]
+            bwd_lib = timer(lambda: torch.autograd.grad(
+                out_h, (qh, kh, vh), do_h, retain_graph=True))[0]
+            row["plain_ms"] = {kern: timer(plain, iters=3)[0]
+                               for kern, (_, plain) in calls.items()}
+            row["library_ms"] = {kern: fwd_lib if kern.startswith(
+                "flash_fwd") else bwd_lib for kern in calls}
+            row["bound_share"] = {k: row["bound_ms"][k] / ms[k] for k in ms}
+            del qh, kh, vh, out_h
             rows.append(row)
             print(f"head dim {D} (kernel {fa._kernel_dim(D)}) {tag}: "
                   "max|err| " + ", ".join(f"{k} {e[0]:.3g} ({e[1]:.3f})"
                                           for k, e in errs.items())
-                  + "; device ms (bound, D = 64 beside): " + ", ".join(
-                      f"{k} {ms[k]:.4f} ({bound[k][0]:.4f} {bound[k][1]}"
+                  + "; device ms (bound, the kernel's share of it, D = 64 "
+                  "beside): " + ", ".join(
+                      f"{k} {ms[k]:.4f} ({bound[k][0]:.4f} {bound[k][1]}, "
+                      f"{row['bound_share'][k]:.1%}"
                       + (f", {d64[k]:.4f})" if k in d64 else ")")
                       for k in ms))
-            if D == WIDE_D:
-                print(f"head dim {D} {tag}: plain ms " + ", ".join(
-                    f"{k} {row['plain_ms'][k]:.3f}" for k in ms)
-                    + f"; sdpa forward {row['library_ms']['flash_fwd_lse']:.4f}"
-                    f", sdpa backward {row['library_ms']['flash_bwd_dq']:.4f}")
+            print(f"head dim {D} {tag}: plain ms " + ", ".join(
+                f"{k} {row['plain_ms'][k]:.4f}" for k in ms)
+                + f"; sdpa forward {row['library_ms']['flash_fwd_lse']:.4f}"
+                f", sdpa backward {row['library_ms']['flash_bwd_dq']:.4f}")
     return rows
+
+
+WIDE_SHAPE = (1, 1024, 12, 512)
+
+
+def wide_times(torch) -> dict:
+    """Device ms of the wide-head kernels' 12 entries (six wrappers, f32
+    and bf16) at WIDE_SHAPE causal, with whichever ``tpuflow_torch`` is
+    first on sys.path."""
+    from tpuflow_torch.ops import _build
+    from tpuflow_torch.ops import flash_attention as fa
+
+    _build.build_all(("flash_fwd", "flash_bwd"))
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for name in ("float32", "bfloat16"):
+        dt = getattr(torch, name)
+        q, k, v, do = (torch.randn(*WIDE_SHAPE, device="cuda", generator=g)
+                       .to(dt) for _ in range(4))
+        o, lse = fa.flash_fwd_lse(q, k, v, causal=True)
+        _, delta = fa.flash_bwd_dq(q, k, v, o, lse, do, causal=True)
+        calls = {
+            "flash_fwd": lambda: fa.flash_attention(q, k, v, causal=True),
+            "flash_fwd_lse": lambda: fa.flash_fwd_lse(q, k, v, causal=True),
+            "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, o, lse, do,
+                                                    causal=True),
+            "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse,
+                                                      delta, causal=True),
+            "flash_bwd_dq_split": lambda: fa.flash_bwd_dq_split(
+                q, k, v, o, lse, do, causal=True),
+            "flash_bwd_dkv_split": lambda: fa.flash_bwd_dkv_split(
+                q, k, v, o, lse, do, causal=True),
+        }
+        for kern, fn in calls.items():
+            out[kern + ("_bf16" if name == "bfloat16" else "")] = timer(fn)[0]
+    return out
+
+
+def wide_compare(other: str) -> int:
+    """The 12 wide-head entries with the kernels of checkout ``other`` and
+    of this one, in turns (other, this, this, other), one process each."""
+    smi = _smi_line()
+    print(f"gpu: {smi}")
+    runs = []
+    for label, root in (("other", other), ("this", REPO), ("this", REPO),
+                        ("other", other)):
+        res = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--wide-times",
+             root], capture_output=True, text=True, timeout=1200)
+        if res.returncode != 0:
+            print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
+            return 1
+        times = json.loads(res.stdout.strip().splitlines()[-1])
+        runs.append(dict(label=label, root=root, ms=times))
+        print(f"{label} ({root}): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in times.items()), flush=True)
+    for kern in runs[0]["ms"]:
+        o = [r["ms"][kern] for r in runs if r["label"] == "other"]
+        t = [r["ms"][kern] for r in runs if r["label"] == "this"]
+        print(f"{kern}: other {o[0]:.4f} / {o[1]:.4f} ms, this {t[0]:.4f} / "
+              f"{t[1]:.4f} ms, {min(o) / max(t):.1f}x faster at least")
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "wide_compare.json"),
+              "w") as fh:
+        json.dump(dict(gpu=smi, shape=WIDE_SHAPE, runs=runs), fh, indent=1)
+    print(smi)
+    return 0
 
 
 def mlp_timing(torch, smi) -> dict:
@@ -1714,6 +1789,12 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--wide-compare"]:
+        return wide_compare(os.path.abspath(sys.argv[2]))
+    if sys.argv[1:2] == ["--wide-times"]:
+        sys.path.insert(0, sys.argv[2])
+        print(json.dumps(wide_times(torch)))
+        return 0
     sys.path.insert(0, REPO)
     from tpuflow_torch.ops import _build
 

@@ -609,7 +609,7 @@ def test_train_gpt_bf16_on_the_card(cuda):
 # Head dims the kernels are not instantiated at run zero-padded to the next
 # of 32, 64, 128 (16, 48 and 96 here); 256 runs its own instantiation,
 # which splits the output columns over grid.z; above 256 the wide-head
-# kernels contract over D in chunks (320 padded to 384, and 512).
+# kernels (320 padded to 384, and 512).
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [16, 48, 96, 256, 320, 512])
 @pytest.mark.parametrize("T", [1, 77, 256])
@@ -694,24 +694,155 @@ def test_flash_d256_smem_within_the_card(cuda, dtype, grid):
 
 
 @pytest.mark.parametrize("dtype", [0, 1])  # float32, bfloat16
-def test_flash_wide_smem_within_the_card(cuda, dtype):
-    """Above D = 256 every launch is the wide-head kernels' 32-row block,
-    whose static shared memory fits under the default 48 KB."""
+@pytest.mark.parametrize("grid", ["small", "full"])
+def test_flash_wide_smem_within_the_card(cuda, dtype, grid):
+    """Above D = 256 every launch the plans make (32 rows; bf16 forward
+    and dq 64 or 32) takes dynamic shared memory within one
+    block's limit, the C entries refuse the heights no plan makes, and
+    the launches at the plan run and agree with the plain versions, split
+    bit-equal to fused."""
     from tpuflow_torch.ops import _build
     from tpuflow_torch.ops import flash_attention as fa
 
     torch_dtype = (torch.float32, torch.bfloat16)[dtype]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    assert fa._flash_bq(1, 1, 128, sms, 512) == 32
-    assert fa._flash_bwd_plan(1, 1, 128, 128, 512, torch_dtype, sms) == {
-        "dq_rows": 32, "dkv_rows": 32}
+    B = {"small": 1, "full": sms}[grid]
+    bq = fa._flash_bq(B, 1, 128, sms, 512, torch_dtype)
+    plan = fa._flash_bwd_plan(B, 1, 128, 128, 512, torch_dtype, sms)
+    want_rows = (32, 32, 32) if dtype == 0 else \
+        {"small": (32, 32, 32), "full": (64, 64, 32)}[grid]
+    assert (bq, plan["dq_rows"], plan["dkv_rows"]) == want_rows
     assert 0 < _build.load("flash_fwd").tpuflow_flash_fwd_smem(
-        dtype, 512, 32) <= 48 * 1024
+        dtype, 512, bq) <= _smem_limit()
     lib = _build.load("flash_bwd")
-    for kernel in (0, 1):
+    for kernel, key in ((0, "dq_rows"), (1, "dkv_rows")):
         for split in (0, 1):
-            assert 0 < lib.tpuflow_flash_bwd_smem(kernel, split, dtype, 512,
-                                                  32) <= 48 * 1024
+            assert 0 < lib.tpuflow_flash_bwd_smem(
+                kernel, split, dtype, 512, plan[key]) <= _smem_limit()
+    q, k, v = _flash_views(cuda, B, 128, 128, 1, 512, torch_dtype)
+    do = torch.randn(q.shape, device="cuda", generator=cuda).to(torch_dtype)
+    o, lse = fa.flash_fwd_lse(q, k, v, causal=True)
+    fused = fa.flash_bwd(q, k, v, o, lse, do, causal=True)
+    split = fa.flash_bwd_split(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.blockwise_attention_lse(q, k, v, causal=True)
+    atol, rtol = _FLASH_TOL[torch_dtype]
+    torch.testing.assert_close(o.float(), ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=1e-6)
+    want = fa.flash_bwd_plain(q, k, v, o, lse, do, causal=True)
+    atol, rtol = BWD_TOL[torch_dtype]
+    for a, b, c in zip(fused, split, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.float(), c.float(), atol=atol, rtol=rtol)
+    # A tile height no plan makes is refused, not run.
+    ptr = q.data_ptr()
+    assert lib.tpuflow_flash_bwd_dq(
+        ptr, ptr, ptr, ptr, ptr, lse.data_ptr(), ptr, lse.data_ptr(), 1, 1,
+        128, 128, 512, dtype, 1, 48, 1.0, fa._strides(q, k, v, o, do),
+        torch.cuda.current_stream().cuda_stream) != 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_wide_bits_independent_of_plan(cuda, dtype):
+    """At D = 512 the forward and both backward pairs give the same bits
+    for the rows they share whatever the plan, batch and sequence length:
+    a batch of eight against a batch of one (in bf16 other tile heights),
+    and a 300-token causal sequence against the 1024-token one (dq of
+    rows < 300; dk, dv of keys < 300 with dO zero from row 300 on, which
+    adds exact zeros); the split pair bit-equal to the fused one."""
+    from tpuflow_torch.ops import flash_attention as fa
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {(fa._flash_bq(b, 12, t, sms, 512, dtype),
+              *fa._flash_bwd_plan(b, 12, t, t, 512, dtype, sms).values())
+             for b, t in ((8, 1024), (1, 1024), (1, 300))}
+    assert len(plans) >= (2 if dtype == torch.bfloat16 else 1)
+    q, k, v = _flash_views(cuda, 8, 1024, 1024, 12, 512, dtype)
+    do = torch.randn(q.shape, device="cuda", generator=cuda).to(dtype)
+    do[:1, 300:] = 0
+    full = fa.flash_attention(q, k, v, causal=True)
+    one = fa.flash_attention(q[:1], k[:1], v[:1], causal=True)
+    s = (q[:1, :300], k[:1, :300], v[:1, :300])
+    short = fa.flash_attention(*s, causal=True)
+    o, lse = fa.flash_fwd_lse(q, k, v, causal=True)
+    g_full = fa.flash_bwd(q, k, v, o, lse, do, causal=True)
+    o1, lse1 = fa.flash_fwd_lse(q[:1], k[:1], v[:1], causal=True)
+    g_one = fa.flash_bwd(q[:1], k[:1], v[:1], o1, lse1, do[:1], causal=True)
+    os_, lses = fa.flash_fwd_lse(*s, causal=True)
+    g_short = fa.flash_bwd(*s, os_, lses, do[:1, :300].contiguous(),
+                           causal=True)
+    g_split = fa.flash_bwd_split(*s, os_, lses, do[:1, :300].contiguous(),
+                                 causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(one, full[:1]) and torch.equal(short, full[:1, :300])
+    assert torch.equal(o, full)
+    for name, a, b, c, d in zip(("dq", "dk", "dv"), g_full, g_one, g_short,
+                                g_split):
+        assert torch.equal(b, a[:1]), name
+        assert torch.equal(c, a[:1, :300]), name
+        assert torch.equal(d, c), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Tq,Tk,causal", [(100, 37, True), (37, 100, False),
+                                          (65, 200, True), (200, 65, False),
+                                          (37, 100, True)])
+def test_flash_wide_tq_ne_tk(cuda, dtype, Tq, Tk, causal):
+    """Tq != Tk at D = 512, ragged, masked in the wide kernels: the forward
+    and the fused pair within the tolerances of their plain versions, the
+    split pair bit-equal to the fused one."""
+    from tpuflow_torch.ops import flash_attention as fa
+
+    q, k, v = _flash_views(cuda, 2, Tq, Tk, 3, 512, dtype)
+    do = torch.randn(q.shape, device="cuda", generator=cuda).to(dtype)
+    o, lse = fa.flash_fwd_lse(q, k, v, causal=causal)
+    got = fa.flash_bwd(q, k, v, o, lse, do, causal=causal)
+    split = fa.flash_bwd_split(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.blockwise_attention_lse(q, k, v, causal=causal)
+    atol, rtol = _FLASH_TOL[dtype]
+    torch.testing.assert_close(o.float(), ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=1e-6)
+    want = fa.flash_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    atol, rtol = BWD_TOL[dtype]
+    for a, b, c in zip(got, split, want):
+        assert a.shape == c.shape and torch.equal(a, b)
+        torch.testing.assert_close(a.float(), c.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [640, 1024])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wide_above_the_column_cap(cuda, dtype, D, causal):
+    """Above 512 columns a block owns one 512-wide panel of the output
+    (grid.z = 2 here; 640's second panel is 128 wide) and sums the scores
+    over every panel: the forward (with and without lse) and both pairs
+    against their plain versions, split bit-equal to fused, the no-lse
+    output equal to the lse one."""
+    from tpuflow_torch.ops import flash_attention as fa
+
+    q, k, v = _flash_views(cuda, 2, 77, 77, 3, D, dtype)
+    do = torch.randn(q.shape, device="cuda", generator=cuda).to(dtype)
+    out = fa.flash_attention(q, k, v, causal=causal)
+    o, lse = fa.flash_fwd_lse(q, k, v, causal=causal)
+    dq, delta = fa.flash_bwd_dq(q, k, v, o, lse, do, causal=causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal)
+    split = fa.flash_bwd_split(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(out, o)
+    ref, ref_lse = fa.blockwise_attention_lse(q, k, v, causal=causal)
+    atol, rtol = _FLASH_TOL[dtype]
+    torch.testing.assert_close(o.float(), ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=1e-6)
+    rdq, rdelta = fa.flash_bwd_dq_plain(q, k, v, o, lse, do, causal=causal)
+    rdk, rdv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, rdelta,
+                                      causal=causal)
+    torch.testing.assert_close(delta, rdelta, atol=1e-4, rtol=1e-5)
+    atol, rtol = BWD_TOL[dtype]
+    for got, want, sp in zip((dq, dk, dv), (rdq, rdk, rdv), split):
+        assert torch.equal(got, sp)
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
 
 
 def test_flash_head_dim_not_multiple_of_8_takes_blockwise(cuda):

@@ -137,16 +137,19 @@ def test_head_dim_above_256_raises_on_the_kernel_path():
 @pytest.mark.parametrize("D,width", [(264, 384), (320, 384), (512, 512)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_wide_head_dims_plan_pad_and_match_plain(D, width, causal):
-    """D > 256 runs the wide-head kernels: the plans take 32 rows, the
-    wrappers pad to a multiple of 128, and the padded plain versions give
-    the unpadded plain result (forward with lse, delta, all three
-    gradients, fused and split)."""
+    """D > 256 runs the wide-head kernels: the plans take 32 rows in f32
+    and, where the grid fills the card, 64 q rows (forward, dq) and 32
+    keys (dk/dv) in bf16; the wrappers pad to a multiple of 128, and the
+    padded plain versions give the unpadded plain result (forward with
+    lse, delta, all three gradients, fused and split)."""
     assert fa._kernel_dim(D) == width
     assert fa._kernel_dim(width + 8) == width + 128  # padded: no kernel dim
     assert fa._flash_bq(2, 2, 24, 132, width) == 32
-    for dt in (torch.float32, torch.bfloat16):
-        assert fa._flash_bwd_plan(8, 12, 1024, 1024, width, dt, 132) == {
-            "dq_rows": 32, "dkv_rows": 32}
+    assert fa._flash_bq(8, 12, 1024, 132, width, torch.bfloat16) == 64
+    assert fa._flash_bwd_plan(8, 12, 1024, 1024, width, torch.float32,
+                              132) == {"dq_rows": 32, "dkv_rows": 32}
+    assert fa._flash_bwd_plan(8, 12, 1024, 1024, width, torch.bfloat16,
+                              132) == {"dq_rows": 64, "dkv_rows": 32}
     q, k, v, do = _qkv(D, T=20, seed=D)
     o, lse = fa.blockwise_attention_lse(q, k, v, causal=causal)
     po, plse = fa._padded(fa.blockwise_attention_lse, q, k, v, causal=causal)

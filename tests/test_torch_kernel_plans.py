@@ -187,3 +187,31 @@ def test_flash_bwd_plan_is_pure():
     # f32 at D = 128: 128 rows would not fit a block's shared memory.
     assert fa._flash_bwd_plan(8, 12, 1024, 1024, 128, torch.float32,
                               132) == {"dq_rows": 64, "dkv_rows": 64}
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("B,Tq,Tk", BWD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [384, 512, 640])
+def test_wide_plans_cover_every_row_and_key_once(B, Tq, Tk, D, dtype, sms):
+    """The wide-head kernels' plans (D > 256): f32 blocks of 32 rows; bf16
+    forward and dq 64 q rows where the grid of B*H x ceil(T/64) blocks
+    gives every SM one, else 32; dk/dv 32 keys. Every q row and key once,
+    within the grid limits; grid.z holds the 512-column panels."""
+    H = 12
+    dt = getattr(torch, dtype)
+    bq = fa._flash_bq(B, H, Tq, sms, D, dt)
+    plan = fa._flash_bwd_plan(B, H, Tq, Tk, D, dt, sms)
+    if dtype == "float32":
+        assert bq == 32 and plan == {"dq_rows": 32, "dkv_rows": 32}
+    else:
+        assert bq == plan["dq_rows"] == (
+            64 if B * H * -(-Tq // 64) >= sms else 32)
+        assert plan["dkv_rows"] == 32
+    for rows, T in ((bq, Tq), (plan["dq_rows"], Tq), (plan["dkv_rows"], Tk)):
+        order, n = _bwd_tiles(T, rows, False)
+        covered = [t * rows + r for t in order for r in range(rows)]
+        assert sorted(r for r in covered if r < T) == list(range(T))
+        assert len(covered) - T < rows
+        assert all(1 <= g <= lim for g, lim in
+                   zip((B * H, n, -(-D // 512)), GRID_MAX))

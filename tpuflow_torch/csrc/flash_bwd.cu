@@ -79,9 +79,9 @@
 // kernel's delta row is written by column block 0 alone. The S and dP
 // work is done once a column block; nothing else changes. The streamed
 // tiles are 32 rows (bf16 as at D = 128; f32 too, whose 64-row ring would
-// not fit), and an f32 block owns 32 rows. Above 256 a full-width tile no
-// longer fits: the wide-head kernels contract S and dP over D in 32-wide
-// chunks (see "wide heads" below).
+// not fit), and an f32 block owns 32 rows. Above 256 the wide-head kernels
+// take over (see "wide heads" below): a block keeps its own rows at 512
+// columns and computes S and dP once a tile.
 //
 // Bits. Split = fused: the split kernels are the fused kernels' code with
 // the SPLIT flag set; D comes from one helper (pair_delta, a fixed order)
@@ -968,27 +968,64 @@ bwd_dkv_fma(const Args a) {
 }
 
 // ------------------------------------------------------------ wide heads
-// D > 256, a multiple of WV (the wrapper pads other head dims up): a full
-// tile no longer fits shared memory, so S and dP are contracted over D in
-// chunks, S = sum_c Q_c K_c^T and dP = sum_c dO_c V_c^T, with one WC-wide
-// chunk of each operand staged at a time; D = rowsum(dO o O) is summed
-// over the whole row in global memory. A block owns WT rows (q rows for
-// dq, key rows for dk/dv) and WV output columns (grid.z = D / WV); the
-// streamed tiles are WT rows. One kernel for both dtypes: the tiles are
-// staged as f32, every product is an f32 FMA on the CUDA cores, and for
-// bf16 P and dS are rounded to bf16 before the products that take them.
-// Four lanes hold a row (lane bits 0-1 = `part`): each computes S and dP
-// for columns part + 4j of the streamed tile and the output columns
-// part + 4i. P and dS go through shared memory to the output products.
-// After the score chunks, the dk/dv kernel stages Q and dO at its columns
-// over the chunks' buffer. Bits: split = fused as for the narrow kernels
-// (wide_delta, prob and dscore are shared by all four). Limit: grid.z holds
-// at most 65535 column blocks (D <= 65535 * WV); the wrapper raises above
-// it.
-constexpr int WT = 32;   // rows a block and a streamed tile
-constexpr int WC = 32;   // d columns a chunk of the S and dP products
-constexpr int WV = 128;  // output columns a block
-constexpr int WIDE_MAX_Z = 65535;
+// D > 256, a multiple of 128 (the wrapper pads other head dims up):
+// bwd_dq_wide and bwd_dkv_wide, fused and split (the SPLIT flag, as for
+// the narrow kernels), both dtypes. They replace the same TPU kernels as
+// the narrow ones (_bwd_dq_fused_kernel, _bwd_dkv_fused_kernel,
+// _bwd_dq_kernel, _bwd_dkv_kernel).
+//
+// What bounds them on the H100 at (1, 1024, 12, 512) causal: the products
+// (dq: S, dP, dQ; dk/dv: S, dP, dV, dK) against ~6 (B, T, H, D) arrays of
+// traffic: operations in f32 (dq 0.289 ms, dk/dv 0.385 ms at 67
+// TFLOP/s); bytes in bf16 for dq (0.0226 ms), operations for dk/dv (0.0261
+// ms at 989 TFLOP/s).
+//
+// Design. A block owns a panel of WP = 512 gradient columns (grid.z =
+// ceil(D / WP)); at D <= WP that is every column, so S and dP are computed
+// once per (q tile, key tile). The block's own rows stay in shared memory
+// at full width for the whole loop (dq: Q and dO; dk/dv: K and V); the
+// other side streams in tiles of full width by 16-byte cp.async into a
+// two-stage ring (dq: K and V tiles of BK keys; dk/dv: Q and dO tiles of
+// BQS rows with their lse and D rows), the next tile loading while this
+// one computes (dynamic shared memory, 208-224 KB). Per tile: S and dP
+// (for dk/dv S^T and dP^T) into f32 tiles in shared memory; P and dS
+// elementwise (prob, dscore: the narrow kernels' helpers), rounded to the
+// input dtype and stored for the products that take them; then the
+// gradient products in registers.
+// bf16: every product on mma.sync m16n8k16 bf16 -> f32 with ldmatrix
+// fragments, laid out for shared-memory traffic: half the warps compute S
+// (S^T), half dP (dP^T), each over half of D (the halves added in a fixed
+// order); a gradient warp owns 32 rows x 128 columns (128 f32 registers a
+// lane), each B fragment feeding both 16-row halves. dq: 4 BQ threads, BQ
+// = 32 or 64, BK = 16, a score warp 32 rows x 16 keys. dk/dv: 256
+// threads, 32 keys, BQS = 32, a score warp 16 keys x 32 q rows; warps 0-3
+// own dV and warps 4-7 dK and run at once, so one block holds both for all
+// 512 columns (two accumulators of 32 x 512 need 128 registers a lane
+// over 256 threads; 64 keys would need 256). f32: IEEE FMAs on the CUDA
+// cores, 256 threads, 32 own rows (dq BK = 8, dk/dv BQS = 8): each warp
+// sums S or dP over a quarter of D (a lane 4 x 2 entries), the four
+// partial tiles added in a fixed order; a thread owns 8 rows x 8 columns
+// of each gradient, each float4 of the streamed tile feeding 32 FMAs; the
+// dk/dv kernels sit at 255 registers without spilling.
+// Above WP columns a block contracts S and dP over the 512-wide panels in
+// order (both sides staged one panel at a time, without the ring), then
+// stages the streamed tile at its own panel for the gradient products.
+// D = rowsum(dO o O) comes from one helper (wide_deltas) in all three
+// kernels that need it: split = fused bit for bit. The bits do not depend
+// on the plan: streamed tiles are anchored at key 0 (dq) or at the
+// 32-row boundary below the block's first key (dk/dv), every element sums
+// its products in 16-wide (bf16) or single (f32) steps in order, and
+// wholly masked entries add exact zeros.
+//
+// Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W), device ms at
+// (1, 1024, 12, 512) causal, f32 / bf16: dq 0.943-0.950 / 0.214-0.216,
+// dk/dv 1.099-1.107 / 0.223-0.226 (plain versions 1.42 and 1.67 / 1.57
+// and 1.87; SDPA's backward of all three 1.65 / 3.04); split dq as fused,
+// split dk/dv 1.256-1.266 / 0.318-0.325, the cost of reading O's rows for
+// D on every q tile. The kernels they replaced took 11.2-14.7 / 9.4-12.8
+// in the same call.
+constexpr int WP = 512;  // gradient columns a block owns; a score panel
+constexpr int WIDE_MAX_D = 65535 * 128;  // the wrappers' MAX_HEAD_DIM
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -998,210 +1035,740 @@ template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16_rn(x);
 }
-// x rounded to T and back (identity for f32).
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
 
-// rows x cols elements of a (seq-strided) tensor from row t0 and column c0
-// on, as f32 into shared memory with row stride RS; rows >= T_len are 0.
+// rows x WP elements into shared memory (row stride RS): rows t0.. and
+// columns c0 .. c0 + width - 1 of a seq-strided tensor; rows >= T_len and
+// columns >= width are zero.
 template <typename T>
-__device__ __forceinline__ void stage_f32(float* dst, int RS, const T* src,
-                                          long long st, int t0, int T_len,
-                                          int c0, int rows, int cols) {
-  for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
-    const int r = i / cols, c = i % cols, t = t0 + r;
-    dst[r * RS + c] = t < T_len ? to_f32(src[t * st + c0 + c]) : 0.f;
+__device__ __forceinline__ void load_panel(T* dst, int RS, const T* src,
+                                           long long st, int t0, int T_len,
+                                           int rows, int c0, int width,
+                                           bool aligned) {
+  constexpr int E = 16 / sizeof(T);
+  constexpr int CPR = WP / E;
+  for (int i = threadIdx.x; i < rows * CPR; i += blockDim.x) {
+    const int r = i / CPR, c = (i % CPR) * E, t = t0 + r;
+    T* d = dst + r * RS + c;
+    const bool ok = t < T_len && c < width;
+    if (aligned) {
+      cp_async16(d, ok ? src + t * st + c0 + c : src, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        d[e] = ok ? src[t * st + c0 + c + e] : T(0.f);
+    }
   }
 }
 
-// D = rowsum(dO o O) of one row (0 when !valid) by the 4 lanes that hold
-// it: each sums d = part, part + 4, ... in ascending order, one FMA each,
-// then two xor shuffles (a + b == b + a: all four get the same bits). The
-// three wide kernels that need D call it with the same lane mapping (row
-// r of a tile = lanes 4r .. 4r + 3), so fused and split see the same bits.
+// A warp's 16 x 8NT tile of A B^T over `width` (a multiple of 16): A's 16
+// rows and B's 8NT rows in shared memory (bf16, row stride RS), summed on
+// mma.sync in 16-wide steps of d in order.
+template <int NT>
+__device__ __forceinline__ void mma_scores(float (&c)[NT][4], const bf16* A,
+                                           const bf16* B, int RS, int width,
+                                           int lane) {
+#pragma unroll 2
+  for (int kk = 0; kk < width; kk += 16) {
+    uint32_t a[4];
+    ldsm_x4(a, A + (lane & 15) * RS + kk + (lane >> 4) * 8);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t r[4];
+      ldsm_x4(r, B + (16 * np + (lane & 7) + ((lane >> 4) << 3)) * RS + kk +
+                     ((lane >> 3) & 1) * 8);
+      mma_bf16(c[2 * np], a, r[0], r[1]);
+      mma_bf16(c[2 * np + 1], a, r[2], r[3]);
+    }
+  }
+}
+
+// acc[i][c] += A[RSTEP i] . B[CSTEP c] over d in [d0, d1) (f32, row
+// stride RS; A and B point at the lane's first rows), four FMAs a float4
+// in d order.
+template <int NR, int NC, int RSTEP, int CSTEP>
+__device__ __forceinline__ void fma_dots(float (&acc)[NR][NC], const float* A,
+                                         const float* B, int RS, int d0,
+                                         int d1) {
+#pragma unroll 2
+  for (int d = d0; d < d1; d += 4) {
+    float4 av[NR];
+#pragma unroll
+    for (int i = 0; i < NR; ++i)
+      av[i] = *reinterpret_cast<const float4*>(A + RSTEP * i * RS + d);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float4 bv =
+          *reinterpret_cast<const float4*>(B + CSTEP * c * RS + d);
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        float x = fmaf(av[i].x, bv.x, acc[i][c]);
+        x = fmaf(av[i].y, bv.y, x);
+        x = fmaf(av[i].z, bv.z, x);
+        acc[i][c] = fmaf(av[i].w, bv.w, x);
+      }
+    }
+  }
+}
+
+// acc[i][4j + e] += sum over u < NK, in order, of W[4i][u] X[u][256j + e]
+// (f32; W points at the lane's first row, row stride WS; X at its first
+// column, row stride RS): 8 rows 4 apart x columns 4cx .. +3 and 256 +
+// 4cx .. +3. Each float4 of X feeds 32 FMAs.
+template <int NK>
+__device__ __forceinline__ void fma_out(float (&acc)[8][8], const float* W,
+                                        int WS, const float* X, int RS) {
+#pragma unroll
+  for (int u0 = 0; u0 < NK; u0 += 4) {
+    float4 wv[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      wv[i] = *reinterpret_cast<const float4*>(W + 4 * i * WS + u0);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float4 x0 = *reinterpret_cast<const float4*>(X + (u0 + u) * RS);
+      const float4 x1 =
+          *reinterpret_cast<const float4*>(X + (u0 + u) * RS + 256);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float w = u == 0 ? wv[i].x
+                      : u == 1 ? wv[i].y
+                      : u == 2 ? wv[i].z : wv[i].w;
+        acc[i][0] = fmaf(w, x0.x, acc[i][0]);
+        acc[i][1] = fmaf(w, x0.y, acc[i][1]);
+        acc[i][2] = fmaf(w, x0.z, acc[i][2]);
+        acc[i][3] = fmaf(w, x0.w, acc[i][3]);
+        acc[i][4] = fmaf(w, x1.x, acc[i][4]);
+        acc[i][5] = fmaf(w, x1.y, acc[i][5]);
+        acc[i][6] = fmaf(w, x1.z, acc[i][6]);
+        acc[i][7] = fmaf(w, x1.w, acc[i][7]);
+      }
+    }
+  }
+}
+
+// D = rowsum(dO o O) in f32 of `rows` rows from row t0 on, into dl[] (0
+// past Tq); row r of dO at gs + r * gst, of O at os + r * ost. A warp takes R rows at a time, a row all 32 lanes: lane l sums
+// the 16-byte chunks l, l + 32, ... of the row in order, one FMA an
+// element in element order, then five xor shuffles (a + b == b + a: every
+// lane gets the same bits). The R rows' loads of O (a 512-wide panel) are
+// issued together, dO's where they are consumed; each from a staged tile
+// where the kernel has one, else from global memory (the same values).
+// 16-byte loads when aligned, else element by element: the same FMAs. Every wide kernel that computes D calls it: split = fused bit for
+// bit, whatever R.
+template <int R, typename T>
+__device__ __forceinline__ void wide_deltas(float* dl, const Args& a,
+                                            const T* gs, long long gst,
+                                            const T* os, long long ost,
+                                            int t0, int rows, int D) {
+  constexpr int E = 16 / sizeof(T), NCH = WP / (32 * E);
+  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  for (int r0 = (threadIdx.x >> 5) * R; r0 < rows; r0 += nw * R) {
+    float s[R];
+    bool valid[R];
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      s[u] = 0.f;
+      valid[u] = r0 + u < rows && t0 + r0 + u < a.Tq;
+    }
+    for (int p0 = 0; p0 < D; p0 += WP) {
+      alignas(16) T ov[R][NCH][E];
+#pragma unroll
+      for (int u = 0; u < R; ++u)
+#pragma unroll
+        for (int i = 0; i < NCH; ++i) {
+          const int c = p0 + (lane + 32 * i) * E;
+          if (!valid[u] || c >= D) continue;
+          const T* o = os + (r0 + u) * ost + c;
+          if (a.aligned) {
+            *reinterpret_cast<uint4*>(ov[u][i]) =
+                *reinterpret_cast<const uint4*>(o);
+          } else {
+#pragma unroll
+            for (int e = 0; e < E; ++e) ov[u][i][e] = o[e];
+          }
+        }
+#pragma unroll
+      for (int u = 0; u < R; ++u)
+#pragma unroll
+        for (int i = 0; i < NCH; ++i) {
+          const int c = p0 + (lane + 32 * i) * E;
+          if (!valid[u] || c >= D) continue;
+          const T* g = gs + (r0 + u) * gst + c;
+          alignas(16) T gv[E];
+          if (a.aligned) {
+            *reinterpret_cast<uint4*>(gv) = *reinterpret_cast<const uint4*>(g);
+          } else {
+#pragma unroll
+            for (int e = 0; e < E; ++e) gv[e] = g[e];
+          }
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            s[u] = fmaf(to_f32(gv[e]), to_f32(ov[u][i][e]), s[u]);
+        }
+    }
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+#pragma unroll
+      for (int m = 1; m < 32; m <<= 1)
+        s[u] += __shfl_xor_sync(0xffffffffu, s[u], m);
+      if (lane == 0 && r0 + u < rows) dl[r0 + u] = s[u];
+    }
+  }
+}
+
+// A warp's 32 x 8NT tile of A B^T over `width` (a multiple of 16): A's 32
+// rows (two halves of 16) and B's 8NT rows in shared memory (bf16, row
+// stride RS), each B fragment feeding both halves; 16-wide steps of d in
+// order.
+template <int NT>
+__device__ __forceinline__ void mma_scores2(float (&c)[2][NT][4],
+                                            const bf16* A, const bf16* B,
+                                            int RS, int width, int lane) {
+#pragma unroll 2
+  for (int kk = 0; kk < width; kk += 16) {
+    uint32_t a0[4], a1[4];
+    const bf16* Ak = A + (lane & 15) * RS + kk + (lane >> 4) * 8;
+    ldsm_x4(a0, Ak);
+    ldsm_x4(a1, Ak + 16 * RS);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t r[4];
+      ldsm_x4(r, B + (16 * np + (lane & 7) + ((lane >> 4) << 3)) * RS + kk +
+                     ((lane >> 3) & 1) * 8);
+      mma_bf16(c[0][2 * np], a0, r[0], r[1]);
+      mma_bf16(c[0][2 * np + 1], a0, r[2], r[3]);
+      mma_bf16(c[1][2 * np], a1, r[0], r[1]);
+      mma_bf16(c[1][2 * np + 1], a1, r[2], r[3]);
+    }
+  }
+}
+
+// c[hf] += W[16 hf ..] X for a warp's 32 rows x 8NT columns: W (32 x NK,
+// bf16, row stride WS) as A fragments, X (NK x columns, row stride RS) by
+// ldmatrix.trans, each B fragment feeding both 16-row halves; column pairs
+// of 16 at or past `valid` are skipped.
+template <int NT, int NK>
+__device__ __forceinline__ void mma_out2(float (&c)[2][NT][4], const bf16* W,
+                                         int WS, const bf16* X, int RS,
+                                         int valid, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < NK; kk += 16) {
+    uint32_t a0[4], a1[4];
+    ldsm_x4(a0, W + (lane & 15) * WS + kk + (lane >> 4) * 8);
+    ldsm_x4(a1, W + (16 + (lane & 15)) * WS + kk + (lane >> 4) * 8);
+#pragma unroll
+    for (int dp = 0; dp < NT / 2; ++dp) {
+      if (16 * dp < valid) {  // warp-uniform
+        uint32_t r[4];
+        ldsm_x4_t(r, X + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * RS +
+                         dp * 16 + (lane >> 4) * 8);
+        mma_bf16(c[0][2 * dp], a0, r[0], r[1]);
+        mma_bf16(c[0][2 * dp + 1], a0, r[2], r[3]);
+        mma_bf16(c[1][2 * dp], a1, r[0], r[1]);
+        mma_bf16(c[1][2 * dp + 1], a1, r[2], r[3]);
+      }
+    }
+  }
+}
+
+// bf16: a gradient warp owns 32 rows x 128 columns (the block's rows in
+// pairs of 16-row halves, columns in quarters of the 512-wide panel).
+__device__ __forceinline__ void zero_acc2(float (&c)[2][16][4]) {
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int n = 0; n < 16; ++n) c[hf][n][0] = c[hf][n][1] = c[hf][n][2] =
+        c[hf][n][3] = 0.f;
+}
+// Rows r0 + 16 hf + g (+8) and columns 128 cq + 8n + 2t of c into a
+// contiguous (B, T, H, D) bf16 gradient from column col0 on.
+__device__ __forceinline__ void store_acc2(const float (&c)[2][16][4],
+                                           bf16* out, int b, int h, int H,
+                                           int T, int D, int r0, int col0,
+                                           int own, int cq, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int hr = 0; hr < 4; ++hr) {
+    const int hf = hr >> 1, r = hr & 1, row = r0 + 16 * hf + g + 8 * r;
+    if (row >= T) continue;
+    bf16* orow = out + (((long long)b * T + row) * H + h) * D + col0;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      const int col = 128 * cq + 8 * n + 2 * t;
+      if (col < own)
+        *reinterpret_cast<uint32_t*>(orow + col) =
+            pack_bf16(c[hf][n][2 * r], c[hf][n][2 * r + 1]);
+    }
+  }
+}
+// f32: a thread owns 8 rows (r0 + oy + 4i) x 8 columns (4 ox + 256 j + e).
+__device__ __forceinline__ void store_acc8(const float (&c)[8][8], float* out,
+                                           int b, int h, int H, int T, int D,
+                                           int r0, int col0, int own, int oy,
+                                           int ox) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = r0 + oy + 4 * i;
+    if (row >= T) continue;
+    float* orow = out + (((long long)b * T + row) * H + h) * D + col0;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = 4 * ox + 256 * j;
+      if (col < own)
+        *reinterpret_cast<float4*>(orow + col) = make_float4(
+            c[i][4 * j], c[i][4 * j + 1], c[i][4 * j + 2], c[i][4 * j + 3]);
+    }
+  }
+}
+
+// Tile sizes by dtype (256 threads, 32 own rows; bf16 dq 32 or 64, 4 a
+// row). dq: BK keys a streamed tile; dk/dv: BQS q rows a streamed tile.
+// RS: the row stride (elements) of the staged tiles; SSQ, SS: of the f32
+// S and dP tiles of dq and of dk/dv (bf16, two d halves each); PSQ, PS: of
+// the dS (dq) and P^T, dS^T (dk/dv) tiles.
 template <typename T>
-__device__ __forceinline__ float wide_delta(const T* g, const T* o, int D,
-                                            int part, bool valid) {
-  float s = 0.f;
-  if (valid)
-    for (int d = part; d < D; d += 4) s = fmaf(to_f32(g[d]), to_f32(o[d]), s);
-  s += __shfl_xor_sync(0xffffffffu, s, 1);
-  s += __shfl_xor_sync(0xffffffffu, s, 2);
-  return s;
+struct WideBwd {
+  static constexpr int BK = 8, BQS = 8, RS = WP + 4;
+  static constexpr int SSQ = 0, SS = 0, PSQ = 12, PS = 12;
+};
+template <>
+struct WideBwd<bf16> {
+  static constexpr int BK = 16, BQS = 32, RS = WP + 8;
+  static constexpr int SSQ = 20, SS = 36, PSQ = 24, PS = 40;
+};
+
+// Shared memory: Q and dO; the K/V ring; S and dP over two d halves
+// (bf16) or their eight partial tiles (f32); dS; the rows' lse and D.
+template <typename T>
+__host__ __device__ constexpr int wide_dq_smem(int rows) {
+  using C = WideBwd<T>;
+  return (int)sizeof(T) * (2 * rows + 4 * C::BK) * C::RS +
+         4 * (sizeof(T) == 2 ? 4 * rows * C::SSQ : 8 * rows * C::BK) +
+         (int)sizeof(T) * rows * C::PSQ + 8 * rows;
+}
+// One streamed stage of dk/dv: Q, dO, lse and D rows.
+template <typename T>
+__host__ __device__ constexpr int wide_dkv_stage() {
+  using C = WideBwd<T>;
+  return (int)sizeof(T) * 2 * C::BQS * C::RS + 8 * C::BQS;
+}
+// K and V; two stages; S^T and dP^T over two d halves (bf16) or their
+// partials (f32); P^T and dS^T.
+template <typename T>
+__host__ __device__ constexpr int wide_dkv_smem(int rows) {
+  using C = WideBwd<T>;
+  return (int)sizeof(T) * 2 * rows * C::RS + 2 * wide_dkv_stage<T>() +
+         4 * (sizeof(T) == 2 ? 4 * rows * C::SS : 8 * rows * C::BQS) +
+         (int)sizeof(T) * 2 * rows * C::PS;
 }
 
 template <typename T, bool SPLIT>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(256, 1)
 bwd_dq_wide(const Args a, int D) {
-  __shared__ float Qc[WT][WC + 1], Gc[WT][WC + 1];  // +1: rows on all banks
-  __shared__ float Kc[WT][WC + 1], Vc[WT][WC + 1];
-  __shared__ float Ss[WT][WT + 1];
-  __shared__ float Ks[WT][WV];
-  const int tid = threadIdx.x, r = tid >> 2, part = tid & 3;
+  using C = WideBwd<T>;
+  constexpr bool BF = sizeof(T) == 2;
+  constexpr int BK = C::BK, RS = C::RS, PS = C::PSQ, SS = C::SSQ;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int BQ = BF ? blockDim.x / 4 : 32;
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* Gs = Qs + BQ * RS;
+  T* ring = Gs + BQ * RS;  // [2][K, V][BK][RS]
+  float* Sb = reinterpret_cast<float*>(ring + 4 * BK * RS);
+  T* dSs = reinterpret_cast<T*>(Sb + (BF ? 4 * BQ * SS : 8 * BQ * BK));
+  float* lse_s = reinterpret_cast<float*>(dSs + BQ * PS);
+  float* dl_s = lse_s + BQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
   const int qt = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int q0 = qt * WT, row = q0 + r, col0 = blockIdx.z * WV;
+  const int q0 = qt * BQ, col0 = blockIdx.z * WP;
+  const int n_pan = (D + WP - 1) / WP, own = min(WP, D - col0);
   const T* qb = head<T>(a.q, a.sq, b, h);
   const T* kb = head<T>(a.k, a.sk, b, h);
   const T* vb = head<T>(a.v, a.sv, b, h);
   const T* gb = head<T>(a.g, a.sg, b, h);
   const T* ob = head<T>(a.o, a.so, b, h);
-  const bool valid = row < a.Tq;
-  const float delta = wide_delta(gb + (valid ? row * a.sg.t : 0),
-                                 ob + (valid ? row * a.so.t : 0), D, part,
-                                 valid);
-  const long long r0 = (long long)bh * a.Tq;
-  if (!SPLIT && valid && part == 0 && blockIdx.z == 0)
-    a.delta_out[r0 + row] = delta;
-  const float lse = valid ? a.lse[r0 + row] : 0.f;
-  const int k_end = a.causal ? min(a.Tk, q0 + WT) : a.Tk;
+  const bool al = a.aligned;
+  const int k_end = a.causal ? min(a.Tk, q0 + BQ) : a.Tk;
+  const int n_kt = (k_end + BK - 1) / BK;
+  auto kslot = [&](int s) { return ring + 2 * s * BK * RS; };
+  auto vslot = [&](int s) { return ring + (2 * s + 1) * BK * RS; };
 
-  float acc[WV / 4];
+  // Half the warps compute S, half dP. bf16: a warp 32 rows (pair rp) x
+  // the BK keys over d half dh; dQ rows 32 rq, columns 128 cq. f32: d
+  // quarter warp & 3, a lane rows ry + 8i of keys kx + 4c; dQ rows oy +
+  // 4i, columns 4 ox (+256).
+  const int WPP = BF ? BQ / 16 : 4;  // warps a product
+  const bool is_dp = warp >= WPP;
+  const int wp = warp % WPP, dh = wp & 1, rp = wp >> 1;
+  const int rq = warp >> 2, cq = warp & 3;
+  const int kx = lane & 3, ry = lane >> 2, oy = tid >> 6, ox = tid & 63;
+  float sc[BF ? 1 : 4][2];                                // f32
+  float sb[BF ? 2 : 1][2][4];                             // bf16
+  float acc[BF ? 1 : 8][BF ? 1 : 8];                      // f32 dQ
+  float acc2[BF ? 2 : 1][BF ? 16 : 1][4];                 // bf16 dQ
+  if constexpr (BF) {
+    zero_acc2(acc2);
+  } else {
 #pragma unroll
-  for (int i = 0; i < WV / 4; ++i) acc[i] = 0.f;
-  for (int k0 = 0; k0 < k_end; k0 += WT) {
-    float s[WT / 4], dp[WT / 4];
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < WT / 4; ++j) s[j] = dp[j] = 0.f;
-    for (int c0 = 0; c0 < D; c0 += WC) {
-      __syncthreads();  // the previous chunk and K tile have been read
-      stage_f32(&Qc[0][0], WC + 1, qb, a.sq.t, q0, a.Tq, c0, WT, WC);
-      stage_f32(&Gc[0][0], WC + 1, gb, a.sg.t, q0, a.Tq, c0, WT, WC);
-      stage_f32(&Kc[0][0], WC + 1, kb, a.sk.t, k0, a.Tk, c0, WT, WC);
-      stage_f32(&Vc[0][0], WC + 1, vb, a.sv.t, k0, a.Tk, c0, WT, WC);
-      __syncthreads();
-#pragma unroll 4
-      for (int d = 0; d < WC; ++d) {
-        const float qv = Qc[r][d], gv = Gc[r][d];
+      for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+  }
+  // S or dP over one panel: the A side (Q or dO) and the B side (K or V).
+  auto scores_acc = [&](const T* Q, const T* G, const T* K, const T* V,
+                        int width) {
+    const T* A = is_dp ? G : Q;
+    const T* B_ = is_dp ? V : K;
+    if constexpr (BF) {
+      const int hw = width / 2;
+      mma_scores2<2>(sb, A + 32 * rp * RS + dh * hw, B_ + dh * hw, RS, hw,
+                     lane);
+    } else {
+      const int w4 = width / 4, d0 = (warp & 3) * w4;
+      fma_dots<4, 2, 8, 4>(sc, A + ry * RS, B_ + kx * RS, RS, d0, d0 + w4);
+    }
+  };
+  auto entry = [&](int which, int r, int k) {  // 0: S, 1: dP
+    if constexpr (BF) {
+      return Sb[(2 * which * BQ + r) * SS + k] +
+             Sb[((2 * which + 1) * BQ + r) * SS + k];
+    } else {
+      const float* p = Sb + 4 * which * BQ * BK + r * BK + k;
+      return ((p[0] + p[BQ * BK]) + p[2 * BQ * BK]) + p[3 * BQ * BK];
+    }
+  };
+
+  if (n_pan == 1) {
+    load_panel<T>(Qs, RS, qb, a.sq.t, q0, a.Tq, BQ, 0, D, al);
+    load_panel<T>(Gs, RS, gb, a.sg.t, q0, a.Tq, BQ, 0, D, al);
+    if (n_kt > 0) {
+      load_panel<T>(kslot(0), RS, kb, a.sk.t, 0, a.Tk, BK, 0, D, al);
+      load_panel<T>(vslot(0), RS, vb, a.sv.t, 0, a.Tk, BK, 0, D, al);
+    }
+    cp_async_commit();
+  }
+  // D and lse of the block's rows; dO from its staged rows when the block
+  // holds them whole.
+  if (n_pan == 1) {
+    cp_async_wait_all();
+    __syncthreads();
+    wide_deltas<BF ? 4 : 2, T>(dl_s, a, Gs, RS, ob + q0 * a.so.t, a.so.t,
+                               q0, BQ, D);
+  } else {
+    wide_deltas<BF ? 4 : 2, T>(dl_s, a, gb + q0 * a.sg.t, a.sg.t,
+                               ob + q0 * a.so.t, a.so.t, q0, BQ, D);
+  }
+  __syncthreads();
+  const long long r0 = (long long)bh * a.Tq;
+  for (int r = tid; r < BQ; r += blockDim.x) {
+    const int row = q0 + r;
+    lse_s[r] = row < a.Tq ? a.lse[r0 + row] : 0.f;
+    if (!SPLIT && blockIdx.z == 0 && row < a.Tq)
+      a.delta_out[r0 + row] = dl_s[r];
+  }
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int k0 = j * BK;
+    if constexpr (BF) {
 #pragma unroll
-        for (int j = 0; j < WT / 4; ++j) {
-          s[j] = fmaf(qv, Kc[part + 4 * j][d], s[j]);
-          dp[j] = fmaf(gv, Vc[part + 4 * j][d], dp[j]);
-        }
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) sb[hf][n][c] = 0.f;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[i][0] = sc[i][1] = 0.f;
+    }
+    const int slot = n_pan == 1 ? j & 1 : 0;
+    if (n_pan == 1) {
+      cp_async_wait_all();  // tile j has landed
+      __syncthreads();      // ... for every thread; the other slot is free
+      if (j + 1 < n_kt) {
+        load_panel<T>(kslot(slot ^ 1), RS, kb, a.sk.t, k0 + BK, a.Tk, BK, 0,
+                      D, al);
+        load_panel<T>(vslot(slot ^ 1), RS, vb, a.sv.t, k0 + BK, a.Tk, BK, 0,
+                      D, al);
+      }
+      cp_async_commit();
+      scores_acc(Qs, Gs, kslot(slot), vslot(slot), D);
+    } else {
+      for (int p = 0; p < n_pan; ++p) {
+        const int w = min(WP, D - p * WP);
+        __syncthreads();  // the previous panel or tile has been read
+        load_panel<T>(Qs, RS, qb + p * WP, a.sq.t, q0, a.Tq, BQ, 0, w, al);
+        load_panel<T>(Gs, RS, gb + p * WP, a.sg.t, q0, a.Tq, BQ, 0, w, al);
+        load_panel<T>(kslot(0), RS, kb + p * WP, a.sk.t, k0, a.Tk, BK, 0, w,
+                      al);
+        load_panel<T>(vslot(0), RS, vb + p * WP, a.sv.t, k0, a.Tk, BK, 0, w,
+                      al);
+        cp_async_commit();
+        cp_async_wait_all();
+        __syncthreads();
+        scores_acc(Qs, Gs, kslot(0), vslot(0), w);
       }
     }
+    if constexpr (BF) {
+      float* dst = Sb + ((is_dp ? 2 : 0) + dh) * BQ * SS;
 #pragma unroll
-    for (int j = 0; j < WT / 4; ++j) {
-      const int key = k0 + part + 4 * j;
-      const float p = prob(s[j], lse, a.scale, a.causal && row < key,
-                           key < a.Tk);
-      Ss[r][part + 4 * j] = round_to<T>(dscore(p, dp[j], delta, a.scale));
-    }
-    stage_f32(&Ks[0][0], WV, kb, a.sk.t, k0, a.Tk, col0, WT, WV);
-    __syncthreads();  // dS and the K tile are written
-    for (int k = 0; k < WT; ++k) {
-      const float ds = Ss[r][k];
+      for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
-      for (int i = 0; i < WV / 4; ++i)
-        acc[i] = fmaf(ds, Ks[k][part + 4 * i], acc[i]);
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            dst[(32 * rp + 16 * hf + g + 8 * (c >> 1)) * SS + 8 * n + 2 * t +
+                (c & 1)] = sb[hf][n][c];
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          Sb[(warp * BQ + ry + 8 * i) * BK + kx + 4 * c] = sc[i][c];
     }
+    __syncthreads();  // S and dP are stored; the panel tiles are read
+    if (n_pan > 1) {  // K at the block's own panel, for dQ
+      load_panel<T>(kslot(0), RS, kb + col0, a.sk.t, k0, a.Tk, BK, 0, own,
+                    al);
+      cp_async_commit();
+      cp_async_wait_all();
+    }
+    for (int e = tid; e < BQ * BK; e += blockDim.x) {
+      const int r = e / BK, k = e % BK, row = q0 + r, key = k0 + k;
+      const float p = prob(entry(0, r, k), lse_s[r], a.scale,
+                           a.causal && row < key, key < a.Tk);
+      dSs[r * PS + k] = from_f32<T>(dscore(p, entry(1, r, k), dl_s[r],
+                                           a.scale));
+    }
+    __syncthreads();  // dS is written
+    // dQ += dS K over the block's columns.
+    const T* Kt = kslot(slot);
+    if constexpr (BF)
+      mma_out2<16, BK>(acc2, dSs + 32 * rq * PS, PS, Kt + 128 * cq, RS,
+                       own - 128 * cq, lane);
+    else
+      fma_out<BK>(acc, dSs + oy * PS, PS, Kt + 4 * ox, RS);
   }
-  if (!valid) return;
-  T* out = (T*)a.dq + (((long long)b * a.Tq + row) * a.H + h) * D + col0;
-#pragma unroll
-  for (int i = 0; i < WV / 4; ++i) out[part + 4 * i] = from_f32<T>(acc[i]);
+  cp_async_wait_all();  // no copy outlives the block
+
+  if constexpr (BF)
+    store_acc2(acc2, (bf16*)a.dq, b, h, a.H, a.Tq, D, q0 + 32 * rq, col0,
+               own, cq, lane);
+  else
+    store_acc8(acc, (float*)a.dq, b, h, a.H, a.Tq, D, q0, col0, own, oy, ox);
 }
 
 template <typename T, bool SPLIT>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(256, 1)
 bwd_dkv_wide(const Args a, int D) {
-  // The chunks' buffer, then Q and dO at the block's columns over it.
-  __shared__ float R[2 * WT * WV];
-  __shared__ float Pt[WT][WT + 1], Dt[WT][WT + 1];  // P^T, dS^T
-  __shared__ float Ls[WT], Dl[WT];                  // the q tile's lse, D
-  float(*Qc)[WC + 1] = reinterpret_cast<float(*)[WC + 1]>(R);
-  float(*Gc)[WC + 1] = Qc + WT;
-  float(*Kc)[WC + 1] = Gc + WT;
-  float(*Vc)[WC + 1] = Kc + WT;
-  float(*Qs)[WV] = reinterpret_cast<float(*)[WV]>(R);
-  float(*Gs)[WV] = Qs + WT;
-  const int tid = threadIdx.x, kr = tid >> 2, part = tid & 3;
+  using C = WideBwd<T>;
+  constexpr bool BF = sizeof(T) == 2;
+  constexpr int BQS = C::BQS, RS = C::RS, PS = C::PS, SS = C::SS;
+  constexpr int SB = wide_dkv_stage<T>();
+  constexpr int BKV = 32;
+  extern __shared__ __align__(16) uint8_t smem[];
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = Ks + BKV * RS;
+  uint8_t* ring = reinterpret_cast<uint8_t*>(Vs + BKV * RS);
+  float* Sb = reinterpret_cast<float*>(ring + 2 * SB);
+  T* Pt = reinterpret_cast<T*>(Sb + (BF ? 4 * BKV * SS : 8 * BKV * BQS));
+  T* dSt = Pt + BKV * PS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
-  const int k0 = blockIdx.y * WT, key = k0 + kr, col0 = blockIdx.z * WV;
+  const int k0 = blockIdx.y * BKV, col0 = blockIdx.z * WP;
+  const int n_pan = (D + WP - 1) / WP, own = min(WP, D - col0);
   const T* qb = head<T>(a.q, a.sq, b, h);
   const T* kb = head<T>(a.k, a.sk, b, h);
   const T* vb = head<T>(a.v, a.sv, b, h);
   const T* gb = head<T>(a.g, a.sg, b, h);
   const T* ob = SPLIT ? head<T>(a.o, a.so, b, h) : nullptr;
+  const bool al = a.aligned;
   const long long r0 = (long long)bh * a.Tq;
+  // A stage: Q, dO [BQS][RS], then its lse and D rows.
+  auto sq = [&](int s) { return reinterpret_cast<T*>(ring + s * SB); };
+  auto sg = [&](int s) { return sq(s) + BQS * RS; };
+  auto slse = [&](int s) {
+    return reinterpret_cast<float*>(ring + s * SB + 2 * sizeof(T) * BQS * RS);
+  };
+  auto sdl = [&](int s) { return slse(s) + BQS; };
+  // Causal: q tiles are anchored at the BQS-row boundary at or below k0;
+  // one whose last row precedes this block's keys sees none of them.
+  const int q_begin = a.causal ? (k0 / BQS) * BQS : 0;
+  const int n_qt = a.Tq > q_begin ? (a.Tq - q_begin + BQS - 1) / BQS : 0;
+  // The stage's lse (and fused D) rows by cp.async.
+  auto load_rows_of = [&](int s, int q0) {
+    load_row_vals(slse(s), a.lse + r0, q0, a.Tq, BQS);
+    if (!SPLIT) load_row_vals(sdl(s), a.delta_in + r0, q0, a.Tq, BQS);
+  };
 
-  float ak[WV / 4], av[WV / 4];
+  // Warps 0-3 compute S^T and then own dV, warps 4-7 dP^T and dK. bf16:
+  // S^T or dP^T keys 16 kg x the BQS q rows over d half dh; dV or dK all
+  // 32 keys x columns 128 cq. f32: d quarter warp & 3, a lane keys ry + 8i
+  // of q rows kx + 4c; dV and dK keys oy + 4i, columns 4 ox (+256).
+  const bool second = warp >= 4;  // dP^T; dK
+  const int kg = (warp & 3) >> 1, dh = warp & 1, cq = warp & 3;
+  const int kx = lane & 3, ry = lane >> 2, oy = tid >> 6, ox = tid & 63;
+  float sc[BF ? 1 : 4][2];                          // f32
+  float sk[BF ? 4 : 1][4];                          // bf16
+  float acc[BF ? 1 : 8][BF ? 1 : 8];                // f32 dV
+  float acc2[BF ? 1 : 8][BF ? 1 : 8];               // f32 dK
+  float accb[BF ? 2 : 1][BF ? 16 : 1][4];           // bf16 dV or dK
+  if constexpr (BF) {
+    zero_acc2(accb);
+  } else {
 #pragma unroll
-  for (int i = 0; i < WV / 4; ++i) ak[i] = av[i] = 0.f;
-  // Under the causal mask no q row before key k0 sees this block's keys.
-  for (int q0 = a.causal ? k0 : 0; q0 < a.Tq; q0 += WT) {
-    __syncthreads();  // the previous tile's Q, dO, lse and D have been read
-    {
-      const int row = q0 + kr;  // lanes 4r .. 4r + 3 hold row r, as in dq
-      const bool valid = row < a.Tq;
-      float d = 0.f;
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[i][c] = acc2[i][c] = 0.f;
+  }
+  auto scores_acc = [&](const T* Q, const T* G, int width) {
+    const T* A = second ? Vs : Ks;
+    const T* B_ = second ? G : Q;
+    if constexpr (BF) {
+      const int hw = width / 2;
+      mma_scores<4>(sk, A + 16 * kg * RS + dh * hw, B_ + dh * hw, RS, hw,
+                    lane);
+    } else {
+      const int w4 = width / 4, d0 = (warp & 3) * w4;
+      fma_dots<4, 2, 8, 4>(sc, A + ry * RS, B_ + kx * RS, RS, d0, d0 + w4);
+    }
+  };
+  auto entry = [&](int which, int kr, int qc) {  // 0: S^T, 1: dP^T
+    if constexpr (BF) {
+      return Sb[(2 * which * BKV + kr) * SS + qc] +
+             Sb[((2 * which + 1) * BKV + kr) * SS + qc];
+    } else {
+      const float* p = Sb + 4 * which * BKV * BQS + kr * BQS + qc;
+      return ((p[0] + p[BKV * BQS]) + p[2 * BKV * BQS]) + p[3 * BKV * BQS];
+    }
+  };
+
+  if (n_pan == 1) {
+    load_panel<T>(Ks, RS, kb, a.sk.t, k0, a.Tk, BKV, 0, D, al);
+    load_panel<T>(Vs, RS, vb, a.sv.t, k0, a.Tk, BKV, 0, D, al);
+    if (n_qt > 0) {
+      load_panel<T>(sq(0), RS, qb, a.sq.t, q_begin, a.Tq, BQS, 0, D, al);
+      load_panel<T>(sg(0), RS, gb, a.sg.t, q_begin, a.Tq, BQS, 0, D, al);
+      load_rows_of(0, q_begin);
+    }
+    cp_async_commit();
+  }
+
+  for (int j = 0; j < n_qt; ++j) {
+    const int q0 = q_begin + j * BQS;
+    if constexpr (BF) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sk[n][c] = 0.f;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[i][0] = sc[i][1] = 0.f;
+    }
+    const int slot = n_pan == 1 ? j & 1 : 0;
+    if (n_pan == 1) {
+      cp_async_wait_all();  // tile j has landed
+      __syncthreads();      // ... for every thread; the other stage is free
+      if (j + 1 < n_qt) {
+        load_panel<T>(sq(slot ^ 1), RS, qb, a.sq.t, q0 + BQS, a.Tq, BQS, 0, D,
+                      al);
+        load_panel<T>(sg(slot ^ 1), RS, gb, a.sg.t, q0 + BQS, a.Tq, BQS, 0, D,
+                      al);
+        load_rows_of(slot ^ 1, q0 + BQS);
+      }
+      cp_async_commit();
+      // Split: this tile's D from its staged dO and O's rows, read after
+      // the next barrier.
       if (SPLIT)
-        d = wide_delta(gb + (valid ? row * a.sg.t : 0),
-                       ob + (valid ? row * a.so.t : 0), D, part, valid);
-      else if (valid)
-        d = a.delta_in[r0 + row];
-      if (part == 0) {
-        Dl[kr] = d;
-        Ls[kr] = valid ? a.lse[r0 + row] : 0.f;
+        wide_deltas<BF ? 4 : 1, T>(sdl(slot), a, sg(slot), RS,
+                                   ob + q0 * a.so.t, a.so.t, q0, BQS, D);
+      scores_acc(sq(slot), sg(slot), D);
+    } else {
+      __syncthreads();  // the previous tile has been read
+      load_rows_of(0, q0);
+      if (SPLIT)
+        wide_deltas<BF ? 4 : 1, T>(sdl(0), a, gb + q0 * a.sg.t, a.sg.t,
+                                   ob + q0 * a.so.t, a.so.t, q0, BQS, D);
+      for (int p = 0; p < n_pan; ++p) {
+        const int w = min(WP, D - p * WP);
+        if (p) __syncthreads();  // panel p-1 has been read
+        load_panel<T>(Ks, RS, kb + p * WP, a.sk.t, k0, a.Tk, BKV, 0, w, al);
+        load_panel<T>(Vs, RS, vb + p * WP, a.sv.t, k0, a.Tk, BKV, 0, w, al);
+        load_panel<T>(sq(0), RS, qb + p * WP, a.sq.t, q0, a.Tq, BQS, 0, w, al);
+        load_panel<T>(sg(0), RS, gb + p * WP, a.sg.t, q0, a.Tq, BQS, 0, w, al);
+        cp_async_commit();
+        cp_async_wait_all();
+        __syncthreads();
+        scores_acc(sq(0), sg(0), w);
       }
     }
-    float s[WT / 4], dp[WT / 4];
+    if constexpr (BF) {
+      float* dst = Sb + ((second ? 2 : 0) + dh) * BKV * SS;
 #pragma unroll
-    for (int j = 0; j < WT / 4; ++j) s[j] = dp[j] = 0.f;
-    for (int c0 = 0; c0 < D; c0 += WC) {
-      __syncthreads();
-      stage_f32(&Qc[0][0], WC + 1, qb, a.sq.t, q0, a.Tq, c0, WT, WC);
-      stage_f32(&Gc[0][0], WC + 1, gb, a.sg.t, q0, a.Tq, c0, WT, WC);
-      stage_f32(&Kc[0][0], WC + 1, kb, a.sk.t, k0, a.Tk, c0, WT, WC);
-      stage_f32(&Vc[0][0], WC + 1, vb, a.sv.t, k0, a.Tk, c0, WT, WC);
-      __syncthreads();
-#pragma unroll 4
-      for (int d = 0; d < WC; ++d) {
-        const float kv = Kc[kr][d], vv = Vc[kr][d];
+      for (int n = 0; n < 4; ++n)
 #pragma unroll
-        for (int j = 0; j < WT / 4; ++j) {
-          s[j] = fmaf(Qc[part + 4 * j][d], kv, s[j]);
-          dp[j] = fmaf(Gc[part + 4 * j][d], vv, dp[j]);
-        }
-      }
+        for (int c = 0; c < 4; ++c)
+          dst[(16 * kg + g + 8 * (c >> 1)) * SS + 8 * n + 2 * t + (c & 1)] =
+              sk[n][c];
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          Sb[(warp * BKV + ry + 8 * i) * BQS + kx + 4 * c] = sc[i][c];
     }
-#pragma unroll
-    for (int j = 0; j < WT / 4; ++j) {
-      const int qr = part + 4 * j, row = q0 + qr;
-      const float p = prob(s[j], Ls[qr], a.scale, a.causal && row < key,
-                           row < a.Tq);
-      Pt[kr][qr] = round_to<T>(p);
-      Dt[kr][qr] = round_to<T>(dscore(p, dp[j], Dl[qr], a.scale));
+    __syncthreads();  // S^T and dP^T are stored; the panel tiles are read
+    if (n_pan > 1) {  // Q and dO at the block's own panel, for dK and dV
+      load_panel<T>(sq(0), RS, qb + col0, a.sq.t, q0, a.Tq, BQS, 0, own, al);
+      load_panel<T>(sg(0), RS, gb + col0, a.sg.t, q0, a.Tq, BQS, 0, own, al);
+      cp_async_commit();
+      cp_async_wait_all();
     }
-    __syncthreads();  // every chunk read: Q and dO go over the buffer
-    stage_f32(&Qs[0][0], WV, qb, a.sq.t, q0, a.Tq, col0, WT, WV);
-    stage_f32(&Gs[0][0], WV, gb, a.sg.t, q0, a.Tq, col0, WT, WV);
-    __syncthreads();
-    for (int qr = 0; qr < WT; ++qr) {
-      const float p = Pt[kr][qr], ds = Dt[kr][qr];
-#pragma unroll
-      for (int i = 0; i < WV / 4; ++i) {
-        av[i] = fmaf(p, Gs[qr][part + 4 * i], av[i]);
-        ak[i] = fmaf(ds, Qs[qr][part + 4 * i], ak[i]);
-      }
+    const float* lse = slse(slot);
+    const float* dl = sdl(slot);
+    for (int e = tid; e < BKV * BQS; e += blockDim.x) {
+      const int kr = e / BQS, qc = e % BQS, key = k0 + kr, row = q0 + qc;
+      const float p = prob(entry(0, kr, qc), lse[qc], a.scale,
+                           a.causal && row < key, row < a.Tq && key < a.Tk);
+      Pt[kr * PS + qc] = from_f32<T>(p);
+      dSt[kr * PS + qc] =
+          from_f32<T>(dscore(p, entry(1, kr, qc), dl[qc], a.scale));
+    }
+    __syncthreads();  // P^T and dS^T are written
+    // dV += P^T dO and dK += dS^T Q over the block's columns.
+    const T* Qt = sq(slot);
+    const T* Gt = sg(slot);
+    if constexpr (BF) {
+      mma_out2<16, BQS>(accb, second ? dSt : Pt, PS,
+                        (second ? Qt : Gt) + 128 * cq, RS, own - 128 * cq,
+                        lane);
+    } else {
+      fma_out<BQS>(acc, Pt + oy * PS, PS, Gt + 4 * ox, RS);
+      fma_out<BQS>(acc2, dSt + oy * PS, PS, Qt + 4 * ox, RS);
     }
   }
-  if (key >= a.Tk) return;
-  const long long off = (((long long)b * a.Tk + key) * a.H + h) * D + col0;
-  T* dk = (T*)a.dk + off;
-  T* dv = (T*)a.dv + off;
-#pragma unroll
-  for (int i = 0; i < WV / 4; ++i) {
-    dk[part + 4 * i] = from_f32<T>(ak[i]);
-    dv[part + 4 * i] = from_f32<T>(av[i]);
+  cp_async_wait_all();  // no copy outlives the block
+
+  if constexpr (BF) {
+    store_acc2(accb, (bf16*)(second ? a.dk : a.dv), b, h, a.H, a.Tk, D, k0,
+               col0, own, cq, lane);
+  } else {
+    store_acc8(acc, (float*)a.dv, b, h, a.H, a.Tk, D, k0, col0, own, oy, ox);
+    store_acc8(acc2, (float*)a.dk, b, h, a.H, a.Tk, D, k0, col0, own, oy,
+               ox);
   }
 }
 
-int wide_smem(bool dq) {
-  return dq ? 4 * (4 * WT * (WC + 1) + WT * (WT + 1) + WT * WV)
-            : 4 * (2 * WT * WV + 2 * WT * (WT + 1) + 2 * WT);
+// The plans' row heights: dq bf16 32 or 64, f32 32; dk/dv 32.
+bool wide_rows_ok(bool dq, int dtype, int rows) {
+  return dq && dtype == 1 ? rows == 32 || rows == 64 : rows == 32;
+}
+
+int wide_smem(bool dq, int dtype, int rows) {
+  if (dq) return dtype == 1 ? wide_dq_smem<bf16>(rows)
+                            : wide_dq_smem<float>(rows);
+  return dtype == 1 ? wide_dkv_smem<bf16>(rows) : wide_dkv_smem<float>(rows);
 }
 
 // ------------------------------------------------------------- launch
@@ -1264,15 +1831,15 @@ int launch(bool dq, bool split, const void* const* tensors,
            const long long* strides, const void* lse, const void* delta,
            void* out0, void* out1, int B, int H, int Tq, int Tk, int D,
            int dtype, int causal, int rows, float scale, void* stream) {
-  // 16 rows a warp in bf16 (at most 4 warps), 8 a lane pair in f32 (at
-  // most 8 warps).
-  if ((dtype != 0 && dtype != 1) ||
-      (rows != 32 && rows != 64 && !(dtype == 0 && rows == 128)))
-    return (int)cudaErrorInvalidValue;
+  // Narrow: 16 rows a warp in bf16 (at most 4 warps), 8 a lane pair in
+  // f32 (at most 8 warps). Wide (D > 256): the plans' heights.
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   const bool wide = D > 256;
   const Kernel kern = split ? pick_d<true>(dq, dtype, D)
                             : pick_d<false>(dq, dtype, D);
-  if (wide ? rows != WT || D % WV || D / WV > WIDE_MAX_Z : kern == nullptr)
+  if (wide ? !wide_rows_ok(dq, dtype, rows) || D % 128 || D > WIDE_MAX_D
+           : kern == nullptr ||
+                 (rows != 32 && rows != 64 && !(dtype == 0 && rows == 128)))
     return (int)cudaErrorInvalidValue;
   const int esz = dtype == 1 ? 2 : 4;
   Args a{};
@@ -1308,8 +1875,16 @@ int launch(bool dq, bool split, const void* const* tensors,
   a.scale = scale;
   if (wide) {
     const WideKernel wk = pick_wide(dq, split, dtype);
-    const dim3 grid(B * H, ((dq ? Tq : Tk) + WT - 1) / WT, D / WV);
-    wk<<<grid, 4 * WT, 0, (cudaStream_t)stream>>>(a, D);
+    const int smem = wide_smem(dq, dtype, rows);
+    const cudaError_t err = cudaFuncSetAttribute(
+        wk, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    // bf16: a dq warp per 16 q rows of S and of dP, a dk/dv warp per 16
+    // keys of S^T, dP^T, dV and dK; f32: 8 warps.
+    const int threads = dtype == 0 ? 256 : (dq ? 4 : 8) * rows;
+    const dim3 grid(B * H, ((dq ? Tq : Tk) + rows - 1) / rows,
+                    (D + WP - 1) / WP);
+    wk<<<grid, threads, smem, (cudaStream_t)stream>>>(a, D);
     return (int)cudaGetLastError();
   }
   const int smem = dq ? dq_smem(dtype, D, rows)
@@ -1332,7 +1907,8 @@ extern "C" {
 // gradients written contiguous (B, T, H, D) in the input dtype. D: 32, 64,
 // 128, 256 or a multiple of 128 above 256 (the wide-head kernels; the
 // wrapper pads other head dims). dtype: 0 = float32, 1 = bfloat16. rows
-// (32, 64, or 128 in f32 at D <= 64; 32 above 256): the launch plan's
+// (32, 64, or 128 in f32 at D <= 64; above 256: 32, or 64 for bf16 dq):
+// the launch plan's
 // q rows a dq block or key rows a dk/dv block owns
 // (ops/flash_attention.py::_flash_bwd_plan). scale: 1/sqrt of the head dim
 // before padding. Returns cudaGetLastError() after the launch (0 on
@@ -1390,7 +1966,7 @@ int tpuflow_flash_bwd_dkv_split(const void* q, const void* k, const void* v,
 // (the card tests hold it to the per-block limit).
 int tpuflow_flash_bwd_smem(int kernel, int split, int dtype, int D,
                            int rows) {
-  if (D > 256) return wide_smem(kernel == 0);  // static, any dtype
+  if (D > 256) return wide_smem(kernel == 0, dtype, rows);
   return kernel == 0 ? dq_smem(dtype, D, rows)
                      : dkv_smem(dtype, D, rows, split);
 }

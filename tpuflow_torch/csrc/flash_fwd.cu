@@ -58,8 +58,8 @@
 // with V staged at its DV columns; the lse row is written by column block
 // 0 alone. The S work is done once a column block; nothing else changes.
 // At D = 256 the q tile is 32 rows (64 would overrun shared memory).
-// Above 256 a full-width K tile no longer fits: flash_fwd_wide contracts
-// the scores over D in 32-wide chunks (see "wide heads" below).
+// Above 256 flash_fwd_wide takes over (see "wide heads" below): a block
+// keeps Q at 512 columns and computes S once a tile.
 //
 // Both: K and V tiles come by 16-byte cp.async into a two-stage ring (the
 // next stage loads while this one computes; a bf16 stage holds a tile for
@@ -562,24 +562,53 @@ flash_fwd_fma(const Args a) {
 }
 
 // ------------------------------------------------------------ wide heads
-// D > 256, a multiple of WV (the wrapper pads other head dims up): a full
-// K tile no longer fits shared memory, so the scores are contracted over D
-// in chunks, S = sum_c Q_c K_c^T, with one WC-wide chunk of Q and K staged
-// at a time. A block owns WQ q rows and WV output columns (grid.z =
-// D / WV); it computes the scores over the whole D for every key tile and
-// accumulates P V for its own columns only, V staged at those columns; the
-// lse row is written by column block 0 alone. One kernel for both dtypes:
-// the tiles are staged as f32 and every product is an f32 FMA on the CUDA
-// cores; for bf16 P is rounded to bf16 before P.V, as everywhere else.
-// Four lanes hold a q row (lane bits 0-1 = `part`): each computes the
-// scores of keys part + 4j and the output columns part + 4i, and the row's
-// max and sum go by two xor shuffles. Limit: grid.z holds at most 65535
-// column blocks (D <= 65535 * WV); the wrapper raises above it.
-constexpr int WQ = 32;   // q rows a block
-constexpr int WK = 32;   // keys a tile
-constexpr int WC = 32;   // d columns a chunk of the score product
-constexpr int WV = 128;  // output columns a block
-constexpr int WIDE_MAX_Z = 65535;
+// D > 256, a multiple of 128 (the wrapper pads other head dims up):
+// flash_fwd_wide, one kernel for both variants (lse or not) and both
+// dtypes. It replaces the same TPU kernels as the narrow ones
+// (tpuflow/ops/flash_attention.py::_fwd_kernel_nolse, _fwd_kernel).
+//
+// What bounds it on the H100 at (1, 1024, 12, 512) causal: the S and P.V
+// products, 12.9 GFLOP against 50 MB of q, k, v and o: operations in f32
+// (0.1925 ms at 67 TFLOP/s), bytes in bf16 (0.0150 ms at 3.35 TB/s; the
+// tensor cores would take 0.0130).
+//
+// Design. A block owns BQ q rows and a panel of WP = 512 output columns
+// (grid.z = ceil(D / WP)); at D <= WP that is every column, so S is
+// computed once per (q tile, key tile). Q stays in shared memory at full
+// width for the whole key loop; K and V tiles of BK keys at full width
+// come by 16-byte cp.async into a two-stage ring (dynamic shared memory,
+// 214-217 KB), the next tile loading while this one computes. Per key
+// tile: S = Q K^T into a small f32 tile in shared memory; the online
+// softmax, TPR lanes a row (max and sum by xor shuffles), writes P
+// (rounded to the input dtype, as the TPU kernel casts it before P.V) and
+// the row's correction exp(m_old - m_new); then O = O * corr + P V in
+// registers over the block's columns.
+// bf16 (4 BQ threads, BQ = 32 or 64, BK = 32), both products on mma.sync
+// m16n8k16 bf16 -> f32 with ldmatrix fragments, laid out for shared-memory
+// traffic, the first bound the tiles met (it cost 13% over the layout of
+// 16 x 16 S tiles and 16 x 256 O tiles a warp): a warp sums S for 16 rows
+// x all BK keys over half of D (two halves added in a fixed order), and
+// owns 32 rows x 128 columns of O (128 f32 registers a lane), each V
+// fragment feeding both 16-row halves of P.
+// f32 (256 threads, BQ = 32, BK = 16): IEEE FMAs on the CUDA cores, no
+// TF32; each warp sums S over an eighth of D (a lane 4 rows x 4 keys, a
+// float4 of Q and one of K feed 16 FMAs), the eight partial tiles added in
+// a fixed order; a thread owns 8 rows x 8 columns of O and each float4 of
+// V feeds 32 FMAs. Neither kernel spills (f32 190 registers, bf16 226).
+// Above WP columns a block contracts S over the 512-wide panels in order
+// (Q and K staged one panel at a time, without the ring) and keeps P V for
+// its own panel. Key tiles are anchored at key 0 and a row's arithmetic
+// involves no other row, so the bits depend on neither the plan (BQ) nor
+// B, Tq or later keys; fully masked tiles add exact zeros.
+//
+// Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W), device ms at
+// (1, 1024, 12, 512) causal: f32 0.601-0.606 (bound 0.1925, plain version
+// 1.02, SDPA 0.557); bf16 0.139-0.145 (bound 0.0150, plain 1.12, SDPA
+// 0.159). The kernel it replaced (S redone per 128-column block, scalar
+// f32 FMAs for both dtypes) took 5.03-5.05 and 4.46-4.47 in the same
+// call.
+constexpr int WP = 512;  // output columns a block owns; a score panel
+constexpr int WIDE_MAX_D = 65535 * 128;  // the wrappers' MAX_HEAD_DIM
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -593,113 +622,428 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
-// x rounded to T and back (identity for f32).
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
 
-// rows x cols elements of a (seq-strided) tensor from row t0 and column c0
-// on, as f32 into shared memory with row stride RS; rows >= T_len are 0.
+// rows x WP elements into shared memory (row stride RS): rows t0.. and
+// columns c0 .. c0 + width - 1 of a seq-strided tensor; rows >= T_len and
+// columns >= width are zero.
 template <typename T>
-__device__ __forceinline__ void stage_f32(float* dst, int RS, const T* src,
-                                          long long st, int t0, int T_len,
-                                          int c0, int rows, int cols) {
-  for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
-    const int r = i / cols, c = i % cols, t = t0 + r;
-    dst[r * RS + c] = t < T_len ? to_f32(src[t * st + c0 + c]) : 0.f;
+__device__ __forceinline__ void load_panel(T* dst, int RS, const T* src,
+                                           long long st, int t0, int T_len,
+                                           int rows, int c0, int width,
+                                           bool aligned) {
+  constexpr int E = 16 / sizeof(T);
+  constexpr int CPR = WP / E;
+  for (int i = threadIdx.x; i < rows * CPR; i += blockDim.x) {
+    const int r = i / CPR, c = (i % CPR) * E, t = t0 + r;
+    T* d = dst + r * RS + c;
+    const bool ok = t < T_len && c < width;
+    if (aligned) {
+      cp_async16(d, ok ? src + t * st + c0 + c : src, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        d[e] = ok ? src[t * st + c0 + c + e] : T(0.f);
+    }
   }
 }
 
+// A warp's 16 x 8NT tile of A B^T over `width` (a multiple of 16): A's 16
+// rows and B's 8NT rows in shared memory (bf16, row stride RS), summed on
+// mma.sync in 16-wide steps of d in order.
+template <int NT>
+__device__ __forceinline__ void mma_scores(float (&c)[NT][4],
+                                           const __nv_bfloat16* A,
+                                           const __nv_bfloat16* B, int RS,
+                                           int width, int lane) {
+#pragma unroll 2
+  for (int kk = 0; kk < width; kk += 16) {
+    uint32_t a[4];
+    ldsm_x4(a, A + (lane & 15) * RS + kk + (lane >> 4) * 8);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t r[4];
+      ldsm_x4(r, B + (16 * np + (lane & 7) + ((lane >> 4) << 3)) * RS + kk +
+                     ((lane >> 3) & 1) * 8);
+      mma_bf16(c[2 * np], a, r[0], r[1]);
+      mma_bf16(c[2 * np + 1], a, r[2], r[3]);
+    }
+  }
+}
+
+// c[hf] += W[16 hf ..] X for a warp's 32 rows x 8NT columns: W (32 x NK,
+// bf16, row stride WS) as A fragments, X (NK x columns, row stride RS) by
+// ldmatrix.trans, each B fragment feeding both 16-row halves; column pairs
+// of 16 at or past `valid` are skipped.
+template <int NT, int NK>
+__device__ __forceinline__ void mma_out2(float (&c)[2][NT][4],
+                                         const __nv_bfloat16* W, int WS,
+                                         const __nv_bfloat16* X, int RS,
+                                         int valid, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < NK; kk += 16) {
+    uint32_t a0[4], a1[4];
+    ldsm_x4(a0, W + (lane & 15) * WS + kk + (lane >> 4) * 8);
+    ldsm_x4(a1, W + (16 + (lane & 15)) * WS + kk + (lane >> 4) * 8);
+#pragma unroll
+    for (int dp = 0; dp < NT / 2; ++dp) {
+      if (16 * dp < valid) {  // warp-uniform
+        uint32_t r[4];
+        ldsm_x4_t(r, X + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * RS +
+                         dp * 16 + (lane >> 4) * 8);
+        mma_bf16(c[0][2 * dp], a0, r[0], r[1]);
+        mma_bf16(c[0][2 * dp + 1], a0, r[2], r[3]);
+        mma_bf16(c[1][2 * dp], a1, r[0], r[1]);
+        mma_bf16(c[1][2 * dp + 1], a1, r[2], r[3]);
+      }
+    }
+  }
+}
+
+// acc[i][c] += A[RSTEP i] . B[CSTEP c] over d in [d0, d1) (f32, row
+// stride RS; A and B point at the lane's first rows), four FMAs a float4
+// in d order.
+template <int NR, int NC, int RSTEP, int CSTEP>
+__device__ __forceinline__ void fma_dots(float (&acc)[NR][NC], const float* A,
+                                         const float* B, int RS, int d0,
+                                         int d1) {
+#pragma unroll 2
+  for (int d = d0; d < d1; d += 4) {
+    float4 av[NR];
+#pragma unroll
+    for (int i = 0; i < NR; ++i)
+      av[i] = *reinterpret_cast<const float4*>(A + RSTEP * i * RS + d);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float4 bv =
+          *reinterpret_cast<const float4*>(B + CSTEP * c * RS + d);
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        float x = fmaf(av[i].x, bv.x, acc[i][c]);
+        x = fmaf(av[i].y, bv.y, x);
+        x = fmaf(av[i].z, bv.z, x);
+        acc[i][c] = fmaf(av[i].w, bv.w, x);
+      }
+    }
+  }
+}
+
+// acc[i][4j + e] += sum over u < NK, in order, of W[4i][u] X[u][256j + e]
+// (f32; W points at the lane's first row, row stride WS; X at its first
+// column, row stride RS): 8 rows 4 apart x columns 4cx .. +3 and 256 +
+// 4cx .. +3. Each float4 of X feeds 32 FMAs.
+template <int NK>
+__device__ __forceinline__ void fma_out(float (&acc)[8][8], const float* W,
+                                        int WS, const float* X, int RS) {
+#pragma unroll
+  for (int u0 = 0; u0 < NK; u0 += 4) {
+    float4 wv[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      wv[i] = *reinterpret_cast<const float4*>(W + 4 * i * WS + u0);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float4 x0 = *reinterpret_cast<const float4*>(X + (u0 + u) * RS);
+      const float4 x1 =
+          *reinterpret_cast<const float4*>(X + (u0 + u) * RS + 256);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float w = u == 0 ? wv[i].x
+                      : u == 1 ? wv[i].y
+                      : u == 2 ? wv[i].z : wv[i].w;
+        acc[i][0] = fmaf(w, x0.x, acc[i][0]);
+        acc[i][1] = fmaf(w, x0.y, acc[i][1]);
+        acc[i][2] = fmaf(w, x0.z, acc[i][2]);
+        acc[i][3] = fmaf(w, x0.w, acc[i][3]);
+        acc[i][4] = fmaf(w, x1.x, acc[i][4]);
+        acc[i][5] = fmaf(w, x1.y, acc[i][5]);
+        acc[i][6] = fmaf(w, x1.z, acc[i][6]);
+        acc[i][7] = fmaf(w, x1.w, acc[i][7]);
+      }
+    }
+  }
+}
+
+// Tile sizes by dtype: BK keys a tile, row strides (elements) of the
+// staged tiles (RS), of the f32 S tile (SS, bf16 only) and of P (PS).
 template <typename T>
-__global__ void __launch_bounds__(128)
+struct WideFwd {  // f32: 8 BQ threads, BQ = 32
+  static constexpr int BK = 16, RS = WP + 4, SS = 0, PS = BK + 4;
+  static constexpr int TPR = 8;  // softmax lanes a row
+};
+template <>
+struct WideFwd<__nv_bfloat16> {  // 4 BQ threads, BQ = 32 or 64
+  static constexpr int BK = 32, RS = WP + 8, SS = BK + 4, PS = BK + 8;
+  static constexpr int TPR = 4;
+};
+
+// The block's shared memory: Q, the K/V ring, S (bf16) or the eight
+// partial S tiles (f32), P, and the rows' correction and denominator.
+template <typename T>
+__host__ __device__ constexpr int wide_fwd_smem(int bq) {
+  using C = WideFwd<T>;
+  return (int)sizeof(T) * (bq + 4 * C::BK) * C::RS +
+         4 * (sizeof(T) == 2 ? 2 * bq * C::SS : 8 * bq * C::BK) +
+         (int)sizeof(T) * bq * C::PS + 8 * bq;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256, 1)
 flash_fwd_wide(const Args a, int D) {
-  __shared__ float Qc[WQ][WC + 1], Kc[WK][WC + 1];  // +1: rows on all banks
-  __shared__ float Ps[WQ][WK + 1];
-  __shared__ float Vs[WK][WV];
-  const int tid = threadIdx.x, r = tid >> 2, part = tid & 3;
+  using C = WideFwd<T>;
+  constexpr bool BF = sizeof(T) == 2;
+  constexpr int BK = C::BK, RS = C::RS, PS = C::PS, TPR = C::TPR;
+  constexpr int KPT = BK / TPR;  // softmax keys a lane
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int BQ = blockDim.x / (BF ? 4 : 8);
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* ring = Qs + BQ * RS;  // [2][K, V][BK][RS]
+  float* Sb = reinterpret_cast<float*>(ring + 4 * BK * RS);
+  T* Ps = reinterpret_cast<T*>(Sb + (BF ? 2 * BQ * C::SS : 8 * BQ * BK));
+  float* corr_s = reinterpret_cast<float*>(Ps + BQ * PS);
+  float* l_s = corr_s + BQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
   const int qt = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int q0 = qt * WQ, row = q0 + r, col0 = blockIdx.z * WV;
+  const int q0 = qt * BQ, col0 = blockIdx.z * WP;
+  const int n_pan = (D + WP - 1) / WP, own = min(WP, D - col0);
   const T* qb = (const T*)a.q + b * a.sqb + h * a.sqh;
   const T* kb = (const T*)a.k + b * a.skb + h * a.skh;
   const T* vb = (const T*)a.v + b * a.svb + h * a.svh;
-  const int k_end = a.causal ? min(a.Tk, q0 + WQ) : a.Tk;
+  const bool al = a.aligned;
+  const int k_end = a.causal ? min(a.Tk, q0 + BQ) : a.Tk;
+  const int n_kt = (k_end + BK - 1) / BK;
+  auto kslot = [&](int s) { return ring + 2 * s * BK * RS; };
+  auto vslot = [&](int s) { return ring + (2 * s + 1) * BK * RS; };
 
-  float acc[WV / 4];
+  // bf16 warps: S rows 16 rg over d half dh (all BK keys); O rows 32 rp,
+  // columns 128 cq.
+  const int WR = BQ / 16, rg = warp % WR, dh = warp / WR;
+  const int rp = warp >> 2, cq = warp & 3;
+  // f32 lanes: S rows ry + 8i of keys kx + 4c over d eighth `warp`; O rows
+  // oy + 4i, columns 4 ox (+ 256).
+  const int kx = lane & 3, ry = lane >> 2, oy = tid >> 6, ox = tid & 63;
+  float sc[4][4];
+  float o2[BF ? 2 : 1][BF ? 16 : 1][4];    // bf16 O
+  float o[BF ? 1 : 8][BF ? 1 : 8];         // f32 O
 #pragma unroll
-  for (int i = 0; i < WV / 4; ++i) acc[i] = 0.f;
-  float m = NEG_INF, l = 0.f;
-  for (int k0 = 0; k0 < k_end; k0 += WK) {
-    float s[WK / 4];
+  for (int i = 0; i < (BF ? 2 : 1); ++i)
 #pragma unroll
-    for (int j = 0; j < WK / 4; ++j) s[j] = 0.f;
-    for (int c0 = 0; c0 < D; c0 += WC) {
-      __syncthreads();  // the previous chunk and V tile have been read
-      stage_f32(&Qc[0][0], WC + 1, qb, a.sqt, q0, a.Tq, c0, WQ, WC);
-      stage_f32(&Kc[0][0], WC + 1, kb, a.skt, k0, a.Tk, c0, WK, WC);
-      __syncthreads();
-#pragma unroll 8
-      for (int d = 0; d < WC; ++d) {
-        const float qv = Qc[r][d];
+    for (int n = 0; n < (BF ? 16 : 1); ++n)
+      o2[i][n][0] = o2[i][n][1] = o2[i][n][2] = o2[i][n][3] = 0.f;
 #pragma unroll
-        for (int j = 0; j < WK / 4; ++j)
-          s[j] = fmaf(qv, Kc[part + 4 * j][d], s[j]);
+  for (int i = 0; i < (BF ? 1 : 8); ++i)
+#pragma unroll
+    for (int c = 0; c < (BF ? 1 : 8); ++c) o[i][c] = 0.f;
+  auto scores_acc = [&](const T* Qp, const T* Kp, int width) {
+    if constexpr (BF) {
+      const int hw = width / 2;
+      mma_scores<4>(sc, Qp + 16 * rg * RS + dh * hw, Kp + dh * hw, RS, hw,
+                    lane);
+    } else {
+      const int w8 = width / 8;
+      fma_dots<4, 4, 8, 4>(sc, Qp + ry * RS, Kp + kx * RS, RS, warp * w8,
+                           warp * w8 + w8);
+    }
+  };
+  // The S entry (row r, key k) of the tile, once the tile is stored.
+  auto score = [&](int r, int k) {
+    if constexpr (BF) {
+      return Sb[r * C::SS + k] + Sb[(BQ + r) * C::SS + k];
+    } else {
+      float s = Sb[r * BK + k];
+#pragma unroll
+      for (int w = 1; w < 8; ++w) s += Sb[(w * BQ + r) * BK + k];
+      return s;
+    }
+  };
+
+  const int srow = tid / TPR, part = tid % TPR;  // softmax: row, lane
+  float m_r = NEG_INF, l_r = 0.f;
+  if (n_pan == 1) {
+    load_panel<T>(Qs, RS, qb, a.sqt, q0, a.Tq, BQ, 0, D, al);
+    if (n_kt > 0) {
+      load_panel<T>(kslot(0), RS, kb, a.skt, 0, a.Tk, BK, 0, D, al);
+      load_panel<T>(vslot(0), RS, vb, a.svt, 0, a.Tk, BK, 0, D, al);
+    }
+    cp_async_commit();
+  }
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int k0 = j * BK;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = 0.f;
+    const int slot = n_pan == 1 ? j & 1 : 0;
+    if (n_pan == 1) {
+      cp_async_wait<0>();  // tile j has landed
+      __syncthreads();     // ... for every thread; the other slot is free
+      if (j + 1 < n_kt) {
+        load_panel<T>(kslot(slot ^ 1), RS, kb, a.skt, k0 + BK, a.Tk, BK, 0,
+                      D, al);
+        load_panel<T>(vslot(slot ^ 1), RS, vb, a.svt, k0 + BK, a.Tk, BK, 0,
+                      D, al);
+      }
+      cp_async_commit();
+      scores_acc(Qs, kslot(slot), D);
+    } else {
+      // Above WP columns: S over the panels in order, Q and K staged one
+      // panel at a time; V at the block's own panel.
+      __syncthreads();  // the previous tile's V, S and P have been read
+      load_panel<T>(vslot(0), RS, vb + col0, a.svt, k0, a.Tk, BK, 0, own,
+                    al);
+      for (int p = 0; p < n_pan; ++p) {
+        const int w = min(WP, D - p * WP);
+        if (p) __syncthreads();  // panel p-1 has been read
+        load_panel<T>(Qs, RS, qb + p * WP, a.sqt, q0, a.Tq, BQ, 0, w, al);
+        load_panel<T>(kslot(0), RS, kb + p * WP, a.skt, k0, a.Tk, BK, 0, w,
+                      al);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        scores_acc(Qs, kslot(0), w);
       }
     }
-    float mx = m;
+    if constexpr (BF) {
 #pragma unroll
-    for (int j = 0; j < WK / 4; ++j) {
-      s[j] = masked(s[j], a.scale, row, k0 + part + 4 * j, a.Tk, a.causal);
-      mx = fmaxf(mx, s[j]);
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          Sb[(dh * BQ + 16 * rg + g + 8 * (c >> 1)) * C::SS + 8 * n + 2 * t +
+             (c & 1)] = sc[n][c];
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          Sb[(warp * BQ + ry + 8 * i) * BK + kx + 4 * c] = sc[i][c];
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    float sum = 0.f;
+    __syncthreads();  // S is stored
+
+    // Online softmax of row srow over this lane's KPT keys.
+    {
+      const int row = q0 + srow;
+      float x[KPT];
+      float mx = m_r;
 #pragma unroll
-    for (int j = 0; j < WK / 4; ++j) {
-      const float p = prob(s[j], mx);
-      sum += p;
-      Ps[r][part + 4 * j] = round_to<T>(p);
+      for (int e = 0; e < KPT; ++e) {
+        const int k = part * KPT + e;
+        x[e] = masked(score(srow, k), a.scale, row, k0 + k, a.Tk, a.causal);
+        mx = fmaxf(mx, x[e]);
+      }
+#pragma unroll
+      for (int s = 1; s < TPR; s <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, s));
+      float sum = 0.f;
+#pragma unroll
+      for (int e = 0; e < KPT; ++e) {
+        const float p = prob(x[e], mx);
+        sum += p;
+        Ps[srow * PS + part * KPT + e] = from_f32<T>(p);
+      }
+#pragma unroll
+      for (int s = 1; s < TPR; s <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, s);
+      const float corr = expf(m_r - mx);
+      l_r = l_r * corr + sum;
+      m_r = mx;
+      if (part == 0) corr_s[srow] = corr;
     }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    const float corr = expf(m - mx);
-    l = l * corr + sum;
-    m = mx;
+    __syncthreads();  // P and the corrections are written
+
+    // O = O * corr + P V over the block's columns.
+    const T* Vt = vslot(slot);
+    if constexpr (BF) {
 #pragma unroll
-    for (int i = 0; i < WV / 4; ++i) acc[i] *= corr;
-    stage_f32(&Vs[0][0], WV, vb, a.svt, k0, a.Tk, col0, WK, WV);
-    __syncthreads();  // P and the V tile are written
-    for (int k = 0; k < WK; ++k) {
-      const float p = Ps[r][k];
+      for (int hf = 0; hf < 2; ++hf) {
+        const float c0 = corr_s[32 * rp + 16 * hf + g];
+        const float c1 = corr_s[32 * rp + 16 * hf + g + 8];
 #pragma unroll
-      for (int i = 0; i < WV / 4; ++i)
-        acc[i] = fmaf(p, Vs[k][part + 4 * i], acc[i]);
+        for (int n = 0; n < 16; ++n) {
+          o2[hf][n][0] *= c0;
+          o2[hf][n][1] *= c0;
+          o2[hf][n][2] *= c1;
+          o2[hf][n][3] *= c1;
+        }
+      }
+      mma_out2<16, BK>(o2, Ps + 32 * rp * PS, PS, Vt + 128 * cq, RS,
+                       own - 128 * cq, lane);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float c = corr_s[oy + 4 * i];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) o[i][e] *= c;
+      }
+      fma_out<BK>(o, Ps + oy * PS, PS, Vt + 4 * ox, RS);
     }
   }
-  if (row >= a.Tq) return;
-  l = fmaxf(l, 1e-30f);
-  T* ob = (T*)a.o + (((long long)b * a.Tq + row) * a.H + h) * D + col0;
+
+  cp_async_wait<0>();  // no copy outlives the block (n_kt may be 0)
+  __syncthreads();
+  if (part == 0) {
+    const float l = fmaxf(l_r, 1e-30f);
+    l_s[srow] = l;
+    if (a.lse != nullptr && blockIdx.z == 0 && q0 + srow < a.Tq)
+      a.lse[(long long)bh * a.Tq + q0 + srow] = m_r + logf(l);
+  }
+  __syncthreads();
+  T* ob = (T*)a.o + col0;
+  if constexpr (BF) {
 #pragma unroll
-  for (int i = 0; i < WV / 4; ++i) ob[part + 4 * i] = from_f32<T>(acc[i] / l);
-  if (a.lse != nullptr && part == 0 && blockIdx.z == 0)
-    a.lse[(long long)bh * a.Tq + row] = m + logf(l);
+    for (int hr = 0; hr < 4; ++hr) {
+      const int hf = hr >> 1, r = hr & 1;
+      const int lr = 32 * rp + 16 * hf + g + 8 * r, row = q0 + lr;
+      if (row >= a.Tq) continue;
+      const float l = l_s[lr];
+      T* orow = ob + (((long long)b * a.Tq + row) * a.H + h) * D;
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        const int col = 128 * cq + 8 * n + 2 * t;
+        if (col < own)
+          *reinterpret_cast<uint32_t*>(orow + col) =
+              pack_bf16(o2[hf][n][2 * r] / l, o2[hf][n][2 * r + 1] / l);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int lr = oy + 4 * i, row = q0 + lr;
+      if (row >= a.Tq) continue;
+      const float l = l_s[lr];
+      T* orow = ob + (((long long)b * a.Tq + row) * a.H + h) * D;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = 4 * ox + 256 * j;
+        if (col < own)
+          *reinterpret_cast<float4*>(orow + col) =
+              make_float4(o[i][4 * j] / l, o[i][4 * j + 1] / l,
+                          o[i][4 * j + 2] / l, o[i][4 * j + 3] / l);
+      }
+    }
+  }
 }
 
-constexpr int wide_smem_bytes() {
-  return 4 * ((WQ + WK) * (WC + 1) + WQ * (WK + 1) + WK * WV);
+// bq: the plan's q tile height (bf16 32 or 64, f32 32).
+int wide_smem_bytes(int dtype, int bq) {
+  return dtype == 1 ? wide_fwd_smem<__nv_bfloat16>(bq)
+                    : wide_fwd_smem<float>(bq);
 }
 
 int launch_wide(int dtype, const Args& a, int B, int D, int bq,
                 cudaStream_t stream) {
-  if (bq != WQ || D % WV || D / WV > WIDE_MAX_Z)
+  const int n_z = (D + WP - 1) / WP;
+  if ((dtype == 1 ? bq != 32 && bq != 64 : bq != 32) || D % 128 ||
+      D > WIDE_MAX_D)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(B * a.H, (a.Tq + WQ - 1) / WQ, D / WV);
-  if (dtype == 1)
-    flash_fwd_wide<__nv_bfloat16><<<grid, 4 * WQ, 0, stream>>>(a, D);
-  else
-    flash_fwd_wide<float><<<grid, 4 * WQ, 0, stream>>>(a, D);
+  const int smem = wide_smem_bytes(dtype, bq);
+  const dim3 grid(B * a.H, (a.Tq + bq - 1) / bq, n_z);
+  const auto kern = dtype == 1 ? flash_fwd_wide<__nv_bfloat16>
+                               : flash_fwd_wide<float>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, (dtype == 1 ? 4 : 8) * bq, smem, stream>>>(a, D);
   return (int)cudaGetLastError();
 }
 
@@ -758,7 +1102,7 @@ extern "C" {
 // or a contiguous (B*H, Tq) float32 array. D: 32, 64, 128, 256 or a
 // multiple of 128 above 256 (the wide-head kernel; the wrapper pads other
 // head dims). dtype: 0 = float32, 1 = bfloat16. bq, the q tile height (32
-// or 64; 32 at D >= 256), is the launch plan's
+// or 64; 32 at D = 256 and in f32 above it), is the launch plan's
 // (ops/flash_attention.py::_flash_bq). scale: 1/sqrt of the head dim
 // before padding. Returns cudaGetLastError() after the launch (0 on
 // success).
@@ -791,11 +1135,10 @@ int tpuflow_flash_fwd(const void* q, const void* k, const void* v, void* o,
   }
 }
 
-// The shared memory bytes tpuflow_flash_fwd launches a block with (dynamic;
-// static for the wide-head kernel above D = 256); the card tests hold it to
-// the per-block limit.
+// The dynamic shared memory bytes tpuflow_flash_fwd launches a block with;
+// the card tests hold it to the per-block limit.
 int tpuflow_flash_fwd_smem(int dtype, int D, int bq) {
-  return D > 256 ? wide_smem_bytes() : smem_bytes(dtype, D, bq);
+  return D > 256 ? wide_smem_bytes(dtype, bq) : smem_bytes(dtype, D, bq);
 }
 
 const char* tpuflow_cuda_error_string(int err) {

@@ -36,16 +36,16 @@ softmax, output / max(l, 1e-30), lse = m + log(max(l, 1e-30)).
   dtype before the products that take them, as the kernels do.
 
 Head dims: the kernels are instantiated at D = 32, 64, 128 and 256, and
-above 256 the wide-head kernels take any multiple of 128 (they contract
-the scores over D in chunks, so no full-width tile has to fit shared
-memory). Any other D is zero-padded up to the next width (q, k, v, and in
-the backward O and dO; ``_padded``), run with the scale of the true D and
-cut back: zero columns add exact zeros to every score, product and row
-delta, so only the scale needs the true D. ``flash_attention`` routes a
-D that is not a multiple of 8 to ``blockwise_attention``, as the
-reference does. The one limit left is the wide kernels' grid: at most
-65535 blocks of 128 output columns (``MAX_HEAD_DIM``); above it the
-wrappers raise.
+above 256 the wide-head kernels take any multiple of 128 (a block keeps
+512 columns of its own rows in shared memory and computes the scores once
+a tile; wider heads split their output columns over ``grid.z`` and sum
+the scores over 512-wide panels). Any other D is zero-padded up to the
+next width (q, k, v, and in the backward O and dO; ``_padded``), run with
+the scale of the true D and cut back: zero columns add exact zeros to
+every score, product and row delta, so only the scale needs the true D.
+``flash_attention`` routes a D that is not a multiple of 8 to
+``blockwise_attention``, as the reference does. The wrappers take head
+dims up to ``MAX_HEAD_DIM`` (65535 x 128) and raise above it.
 
 The forward with lse is registered as the custom op
 ``tpuflow_torch::flash_fwd_lse`` so that a selective-checkpoint policy sees
@@ -66,8 +66,8 @@ _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The head dims the kernels are instantiated at; others are padded up.
 _HEAD_DIMS = (32, 64, 128, 256)
-# Above 256 the wide-head kernels take multiples of this (a block's output
-# columns), up to the 65535 column blocks grid.z holds.
+# Above 256 the wide-head kernels take multiples of this, up to
+# MAX_HEAD_DIM.
 _WIDE = 128
 MAX_HEAD_DIM = 65535 * _WIDE
 
@@ -110,8 +110,8 @@ def _kernel_dim(D: int) -> int:
         return -(-D // _WIDE) * _WIDE
     raise ValueError(
         f"flash_attention kernels take head_dim up to {MAX_HEAD_DIM}, got "
-        f"{D}: the wide-head kernels' grid holds at most 65535 blocks of "
-        f"{_WIDE} output columns"
+        f"{D}: the wide-head kernels' C entries take multiples of {_WIDE} "
+        f"up to 65535 x {_WIDE}"
     )
 
 
@@ -496,16 +496,18 @@ def _strides(*xs):
     )
 
 
-def _flash_bq(B: int, H: int, Tq: int, sms: int, D: int = 64) -> int:
+def _flash_bq(B: int, H: int, Tq: int, sms: int, D: int = 64,
+              dtype=torch.float32) -> int:
     """The forward kernel's q tile height on a card of ``sms`` streaming
     multiprocessors: 64 where the grid of B*H x ceil(Tq/64) blocks gives
     every SM one, else 32; always 32 at the kernel head dim ``D`` = 256,
-    whose 64-row block would overrun shared memory. It changes no output
+    whose 64-row block would overrun shared memory. Above 256 (the
+    wide-head kernel) the same rule in bf16, and 32 in f32, whose 64-row Q
+    at 512 columns would not fit beside its K/V ring. It changes no output
     bit: the key tiles are anchored at key 0 and each row's arithmetic
     does not depend on it. The kernel derives the grid and shared memory
-    from it, and runs the causal q tiles longest first. The wide-head
-    kernel (D > 256) takes 32 rows only."""
-    if D > 128:
+    from it, and runs the causal q tiles longest first."""
+    if 128 < D <= 256 or (D > 256 and dtype == torch.float32):
         return 32
     return 64 if B * H * -(-Tq // 64) >= sms else 32
 
@@ -520,14 +522,20 @@ def _flash_bwd_plan(B: int, H: int, Tq: int, Tk: int, D: int, dtype,
     one block an SM; 32 only at D = 256, whose full-width tiles leave no
     room for more). Each takes the tallest tile whose grid of B*H x
     ceil(T/rows) blocks still gives every SM one, else 32 (1 x 512 x 12
-    heads: 96 blocks of 64 would leave SMs idle). No output bit depends on
-    it: the streamed tiles' height is fixed by ``dtype`` and ``D``, and
-    every element sums its products in the same order. The C entries
-    derive grid and shared memory from it, and run the causal tiles
-    longest first (dq tiles in reverse, dk/dv ascending). The wide-head
-    kernels (D > 256) take 32 rows only."""
+    heads: 96 blocks of 64 would leave SMs idle). Above 256 (the wide-head
+    kernels, whose blocks keep 512 columns of their own rows): 32 rows
+    each, but bf16 dq 64 by the same rule (a dk/dv block holds dK and dV
+    for all its columns in registers: 32 keys at most). No
+    output bit depends on it: the streamed tiles' height is fixed by
+    ``dtype`` and ``D``, and every element sums its products in the same
+    order. The C entries derive grid and shared memory from it, and run
+    the causal tiles longest first (dq tiles in reverse, dk/dv
+    ascending)."""
     if D > 256:
-        return {"dq_rows": 32, "dkv_rows": 32}
+        if dtype == torch.float32:
+            return {"dq_rows": 32, "dkv_rows": 32}
+        return {"dq_rows": 64 if B * H * -(-Tq // 64) >= sms else 32,
+                "dkv_rows": 32}
     if dtype != torch.float32:
         tall = (64,)
     else:
@@ -566,7 +574,7 @@ def _flash_fwd_cuda(q, k, v, causal: bool, *, with_lse: bool,
     if B * H * Tq == 0:
         return (out, lse) if with_lse else out
     bq = _flash_bq(B, H, Tq, torch.cuda.get_device_properties(
-        q.device).multi_processor_count, D)
+        q.device).multi_processor_count, D, q.dtype)
     lib = _build.load("flash_fwd")
     rc = lib.tpuflow_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
