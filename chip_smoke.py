@@ -25,6 +25,9 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    against the plain versions at the true D, the split pair bit-equal to
    the fused one, each time beside its bound and the D = 64 kernels'; at
    D = 512 also beside the plain versions' and SDPA's times.
+   Then the no-lse forward, the forward with lse and both backward pairs
+   at the ViT leg's attention shape (64, 197, 6, 64), not causal, f32 and
+   bf16, within the same tolerances.
 4. Serving slice on GPT-2 124M at full width, weights random from a seed:
    ``generate()`` on a 512-token dense prompt (its prefill must launch the
    flash kernel once per layer), then a paged ``ServeEngine`` answering
@@ -75,13 +78,28 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    (a finite test loss, exact no-lse launches). Each flow's wall, the
    wrapped call's wall and the flow layer's overhead, the GPT step ms
    inside the flow, ``profile.json``'s device and peak bytes.
-9. One JSON line with every kernel's numbers (the int8 matmul both as one
+9. The image phase: ResNet-18 / CIFAR-10 through the flows
+   (``resnet18_flow_leg``: ``TorchTrain --model resnet18 --dataset
+   cifar10`` 2 epochs on 10,000 synthetic train rows, a ``--from-run``
+   warm start below run 1's first val_loss, the triggered ``TorchEval``
+   over the 10,000 test rows and its card; no kernel launches); ResNet-50
+   / imagenet_synth at 224 x 224, 1000 classes, global batch 64 through
+   ``train_model`` (2 epochs, ``batch_stats`` in the checkpoint, a
+   bit-exact in-run resume of metrics and shard crc32s), then its step
+   ms, steps/s, images/s, peak memory and device busy share with cuDNN's
+   TF32 off and on; ViT-S/16 / imagenet_synth on the flash kernels (f32,
+   TF32 off): exact launch counts of the forward with lse and the fused
+   pair for the steps taken and of the no-lse forward in validation and
+   in the predictor, and one step's loss and gradients against
+   ``attn_impl="xla"`` within the GPT step-parity limits.
+10. One JSON line with every kernel's numbers (the int8 matmul both as one
    decode step at M = 8 and as the same 49 products at M = 512; the
    training kernels in f32 and bf16, their launches from the f32 legs and
    the bf16 leg, which runs the fused pair, so the bf16 split variants'
    count there is 0; the wide-head kernels at D = 512, their launches the
    wide-head runs the main paths' counters read; ``flow_launches``: the
-   flash kernels' launches in the flow phase), the ``nvidia-smi`` line,
+   flash kernels' launches in the flow phase; the ``_vit`` entries at the
+   ViT shape, f32, their launches the ViT leg's), the ``nvidia-smi`` line,
    and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -225,6 +243,24 @@ FLOW_GPT_ARGS = ("--preset", "gpt2", "--seq-len", "1024", "--batch-size",
                  "1")
 FLOW_GPT_BATCH, FLOW_GPT_STEPS = 8, 8
 FLOW_SAMPLE_TOKENS = 16
+# The image phase. ResNet-18 / CIFAR-10 (BASELINE config 1) through the
+# flows at width 64 and the train flow's batch 32 and lr 1e-3, the
+# synthetic train split cut from 50,000 to 10,000 rows to fit the time
+# limit (the 10,000 test rows whole).
+CIFAR_TRAIN_ROWS = 10_000
+# ResNet-50 / imagenet_synth (BASELINE config 2 on one card) through
+# train_model: 224 x 224 x 3, 1000 classes, global batch 64, 2 epochs of
+# the dataset's default 2,000 synthetic rows (31 steps each), its 200
+# test rows. Then the step timed apart: warm-up steps, timed steps and
+# profiled steps, with the batches prefetched as the main path does.
+R50_BATCH, R50_EPOCHS = 64, 2
+R50_TIMED_WARMUP, R50_TIMED_STEPS, R50_PROFILED_STEPS = 5, 20, 10
+# ViT-S/16 on imagenet_synth with attn_impl="flash" (f32, TF32 off): one
+# epoch of 4 steps at batch 64, 100 test rows (2 padded validation
+# batches, 2 predictor batches). Its attention: (64, 197, 6, 64), not
+# causal.
+VIT_BATCH, VIT_TRAIN_ROWS, VIT_TEST_ROWS = 64, 256, 100
+VIT_SHAPE = (64, 197, 6, 64)
 
 
 def _smi_line() -> str:
@@ -329,7 +365,9 @@ def _report(head: str, r: dict) -> None:
           f"{r['library_call_ms']:.4f}")
 
 
-def flash_phase(torch, timer):
+def flash_phase(torch, timer, shapes=FLASH_SHAPES, causal=True):
+    """The no-lse flash forward at ``shapes`` against its plain version
+    and SDPA, f32 and bf16."""
     from tpuflow_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -337,14 +375,14 @@ def flash_phase(torch, timer):
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[-1]
         atol, rtol = FLASH_TOL[name]
-        for B, T, H, D in FLASH_SHAPES:
+        for B, T, H, D in shapes:
             q, k, v = (
                 torch.randn(B, T, H, D, device="cuda", generator=g).to(dt)
                 for _ in range(3)
             )
-            out = fa.flash_attention(q, k, v, causal=True)
+            out = fa.flash_attention(q, k, v, causal=causal)
             torch.cuda.synchronize()
-            ref = fa.blockwise_attention(q, k, v, causal=True)
+            ref = fa.blockwise_attention(q, k, v, causal=causal)
             err = (out.float() - ref.float()).abs()
             # The largest error as a share of its limit (<= 1 passes).
             share = float((err / (atol + rtol * ref.float().abs())).max())
@@ -357,18 +395,20 @@ def flash_phase(torch, timer):
             qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
             times = _measure(
                 timer,
-                lambda: fa.flash_attention(q, k, v, causal=True),
-                lambda: fa.blockwise_attention(q, k, v, causal=True),
+                lambda: fa.flash_attention(q, k, v, causal=causal),
+                lambda: fa.blockwise_attention(q, k, v, causal=causal),
                 lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qh, kh, vh, is_causal=True
+                    qh, kh, vh, is_causal=causal
                 ),
             )
             esize = q.element_size()
             nbytes = 4 * B * T * H * D * esize  # q, k, v read; o written
-            ops = 4 * B * H * D * T * (T + 1) / 2  # causal half, 2 products
+            # Two products over the causal half (or the whole T x T).
+            ops = 4 * B * H * D * (T * (T + 1) / 2 if causal else T * T)
             bound, by = _bound_ms(nbytes, ops, name)
             rows.append(dict(
-                shape=[B, T, H, D], dtype=name, max_abs_err=max_err,
+                shape=[B, T, H, D], dtype=name, causal=causal,
+                max_abs_err=max_err,
                 share_of_limit=share, bound_ms=bound, bound_by=by,
                 library="sdpa", **times,
             ))
@@ -390,13 +430,15 @@ def _within(got, want, atol: float, rtol: float, what: str):
     return float(err.max()), share
 
 
-def _flash_work(B, T, H, D, esize) -> dict:
+def _flash_work(B, T, H, D, esize, causal=True) -> dict:
     """(bytes, operations) the function of each flash kernel needs at a
-    causal (B, T, H, D) shape: each input read once, each output written
-    once, and the causal half of each T x T x D product."""
+    (B, T, H, D) shape: each input read once, each output written once,
+    and the causal half (or, non-causal, the whole) of each T x T x D
+    product."""
     x = B * T * H * D * esize  # one (B, T, H, D) array
     r = B * H * T * 4          # one (B*H, T) f32 row array
-    prod = 2 * B * H * D * T * (T + 1) / 2  # one causal T x T x D product
+    # One T x T x D product: its causal half, or all of it.
+    prod = 2 * B * H * D * (T * (T + 1) / 2 if causal else T * T)
     # The row delta D = rowsum(dO o O), 2 D operations a row. The function
     # needs it once per row; the split kernels' recomputation on every
     # block visit is their own redundancy, not counted.
@@ -419,16 +461,16 @@ def _flash_work(B, T, H, D, esize) -> dict:
     }
 
 
-def flash_bwd_phase(torch, timer):
+def flash_bwd_phase(torch, timer, shapes=FLASH_SHAPES + (TRAIN_SHAPE,),
+                    causal=True):
     """The forward with lse, the fused and the split backward pairs against
-    their plain versions, bit-equal over two runs (the split pair also to
-    the fused one), with their times."""
+    their plain versions at ``shapes``, f32 and bf16, bit-equal over two
+    runs (the split pair also to the fused one), with their times."""
     from tpuflow_torch.ops import flash_attention as fa
 
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(3)
-    cases = [(dt, shp) for dt in ("float32", "bfloat16")
-             for shp in FLASH_SHAPES + (TRAIN_SHAPE,)]
+    cases = [(dt, shp) for dt in ("float32", "bfloat16") for shp in shapes]
     rows = []
     for name, (B, T, H, D) in cases:
         dt = getattr(torch, name)
@@ -436,14 +478,14 @@ def flash_bwd_phase(torch, timer):
             torch.randn(B, T, H, D, device="cuda", generator=g).to(dt)
             for _ in range(4)
         )
-        o, lse = fa.flash_fwd_lse(q, k, v, causal=True)
-        dq, delta = fa.flash_bwd_dq(q, k, v, o, lse, do, causal=True)
-        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True)
+        o, lse = fa.flash_fwd_lse(q, k, v, causal=causal)
+        dq, delta = fa.flash_bwd_dq(q, k, v, o, lse, do, causal=causal)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal)
         torch.cuda.synchronize()
         tag = f"{name} {(B, T, H, D)}"
-        again = fa.flash_bwd(q, k, v, o, lse, do, causal=True)
-        split = fa.flash_bwd_split(q, k, v, o, lse, do, causal=True)
-        split_again = fa.flash_bwd_split(q, k, v, o, lse, do, causal=True)
+        again = fa.flash_bwd(q, k, v, o, lse, do, causal=causal)
+        split = fa.flash_bwd_split(q, k, v, o, lse, do, causal=causal)
+        split_again = fa.flash_bwd_split(q, k, v, o, lse, do, causal=causal)
         torch.cuda.synchronize()
         for what, got in (("fused, second run", again),
                           ("split", split), ("split, second run",
@@ -453,10 +495,10 @@ def flash_bwd_phase(torch, timer):
                     raise AssertionError(
                         f"flash backward {tag}: {what} {key} differs from "
                         "the fused kernels' first run")
-        ro, rlse = fa.blockwise_attention_lse(q, k, v, causal=True)
-        rdq, rdelta = fa.flash_bwd_dq_plain(q, k, v, o, lse, do, causal=True)
+        ro, rlse = fa.blockwise_attention_lse(q, k, v, causal=causal)
+        rdq, rdelta = fa.flash_bwd_dq_plain(q, k, v, o, lse, do, causal=causal)
         rdk, rdv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, rdelta,
-                                          causal=True)
+                                          causal=causal)
         errs = {
             "out": _within(o, ro, *FLASH_TOL[name], f"flash lse fwd {tag}"),
             "lse": _within(lse, rlse, *LSE_TOL, f"lse {tag}"),
@@ -466,9 +508,9 @@ def flash_bwd_phase(torch, timer):
                                ("dv", dv, rdv)):
             errs[key] = _within(got, want, *BWD_TOL[name], f"{key} {tag}")
         del ro, rlse, rdq, rdelta, rdk, rdv, again, split_again
-        sdq = fa.flash_bwd_dq_split_plain(q, k, v, o, lse, do, causal=True)
+        sdq = fa.flash_bwd_dq_split_plain(q, k, v, o, lse, do, causal=causal)
         sdk, sdv = fa.flash_bwd_dkv_split_plain(q, k, v, o, lse, do,
-                                                causal=True)
+                                                causal=causal)
         for key, got, want in zip(("split dq", "split dk", "split dv"),
                                   split, (sdq, sdk, sdv)):
             errs[key] = _within(got, want, *BWD_TOL[name], f"{key} {tag}")
@@ -481,7 +523,7 @@ def flash_bwd_phase(torch, timer):
         doh = do.transpose(1, 2)
 
         def sdpa():
-            return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+            return F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
 
         out_h = sdpa()
 
@@ -491,44 +533,44 @@ def flash_bwd_phase(torch, timer):
 
         fwd = _measure(
             timer,
-            lambda: fa.flash_fwd_lse(q, k, v, causal=True),
-            lambda: fa.blockwise_attention_lse(q, k, v, causal=True),
+            lambda: fa.flash_fwd_lse(q, k, v, causal=causal),
+            lambda: fa.blockwise_attention_lse(q, k, v, causal=causal),
             sdpa,
         )
         bwd_dq = _measure(
             timer,
-            lambda: fa.flash_bwd_dq(q, k, v, o, lse, do, causal=True),
-            lambda: fa.flash_bwd_dq_plain(q, k, v, o, lse, do, causal=True),
+            lambda: fa.flash_bwd_dq(q, k, v, o, lse, do, causal=causal),
+            lambda: fa.flash_bwd_dq_plain(q, k, v, o, lse, do, causal=causal),
             sdpa_bwd,
         )
         bwd_dkv = _measure(
             timer,
-            lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True),
+            lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal),
             lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta,
-                                           causal=True),
+                                           causal=causal),
             sdpa_bwd,
         )
         split_dq = _measure(
             timer,
-            lambda: fa.flash_bwd_dq_split(q, k, v, o, lse, do, causal=True),
+            lambda: fa.flash_bwd_dq_split(q, k, v, o, lse, do, causal=causal),
             lambda: fa.flash_bwd_dq_split_plain(q, k, v, o, lse, do,
-                                                causal=True),
+                                                causal=causal),
             sdpa_bwd,
         )
         split_dkv = _measure(
             timer,
-            lambda: fa.flash_bwd_dkv_split(q, k, v, o, lse, do, causal=True),
+            lambda: fa.flash_bwd_dkv_split(q, k, v, o, lse, do, causal=causal),
             lambda: fa.flash_bwd_dkv_split_plain(q, k, v, o, lse, do,
-                                                 causal=True),
+                                                 causal=causal),
             sdpa_bwd,
         )
         del out_h, qh, kh, vh
         shape = [B, T, H, D]
         lib = "sdpa backward (dq, dk, dv)"
-        work = _flash_work(B, T, H, D, q.element_size())
+        work = _flash_work(B, T, H, D, q.element_size(), causal)
         x = B * T * H * D * q.element_size()
         r = B * H * T * 4
-        prod = 2 * B * H * D * T * (T + 1) / 2
+        prod = 2 * B * H * D * (T * (T + 1) / 2 if causal else T * T)
         for kern, times, err_keys, libname in (
             ("flash_fwd_lse", fwd, ("out", "lse"), "sdpa forward"),
             ("flash_bwd_dq", bwd_dq, ("delta", "dq"), lib),
@@ -539,7 +581,7 @@ def flash_bwd_phase(torch, timer):
         ):
             bound, by = _bound_ms(*work[kern], name)
             rows.append(dict(
-                kernel=kern, shape=shape, dtype=name,
+                kernel=kern, shape=shape, dtype=name, causal=causal,
                 max_abs_err=max(errs[k][0] for k in err_keys),
                 share_of_limit=max(errs[k][1] for k in err_keys),
                 errors={k: errs[k] for k in err_keys},
@@ -549,7 +591,7 @@ def flash_bwd_phase(torch, timer):
                     + ", ".join(f"{k} {errs[k][0]:.3g} ({errs[k][1]:.3f})"
                                 for k in err_keys), rows[-1])
         # The pair as one function: q, k, v, o, dO, lse in, dq, dk, dv
-        # out; five causal products (S, dP, dQ, dK, dV).
+        # out; five products (S, dP, dQ, dK, dV).
         pair_bound, pair_by = _bound_ms(9 * x + r, 5 * prod, name)
         for row in rows[-4:]:
             row["pair_bound_ms"] = pair_bound
@@ -557,8 +599,8 @@ def flash_bwd_phase(torch, timer):
               f"{bwd_dq['ms'] + bwd_dkv['ms']:.4f} ms, split "
               f"{split_dq['ms'] + split_dkv['ms']:.4f} ms, sdpa backward "
               f"{bwd_dq['library_ms']:.4f} ms, bound {pair_bound:.4f} ms "
-              f"({pair_by}, 5 causal products); both bit-equal over two "
-              "runs, split bit-equal to fused")
+              f"({pair_by}, 5 {'causal ' if causal else ''}products); both "
+              "bit-equal over two runs, split bit-equal to fused")
     return rows
 
 
@@ -1782,6 +1824,376 @@ def flow_phase(torch, smi) -> dict:
                 mlp_misclassified=mis, mlp_implied=implied, gpu=smi)
 
 
+def resnet18_flow_leg(torch, smi) -> dict:
+    """ResNet-18 / CIFAR-10 through the flow CLIs' ``main(argv)``, into a
+    home under ``build/`` (deleted at the end): ``TorchTrain --model
+    resnet18 --dataset cifar10`` for 2 epochs on ``CIFAR_TRAIN_ROWS``
+    rows, a ``--from-run`` warm start of 1 epoch whose first val_loss is
+    below run 1's, and the triggered ``TorchEval`` at batch 512 over the
+    10,000 test rows: triggered by run 2, its count within
+    ``EVAL_ROWS_TOL`` of what run 2's best accuracy implies, its card
+    holding "Error analysis". No kernel of the port runs."""
+    from tpuflow_torch.flow import Run, store
+    from tpuflow_torch.flows import eval_flow, train_flow
+    from tpuflow_torch.ops import flash_attention as fa
+    from tpuflow_torch.ops import int8_matmul as im
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    home = tempfile.mkdtemp(prefix="chip_smoke_resnet18_",
+                            dir=os.path.join(REPO, "build"))
+    args = ["--model", "resnet18", "--dataset", "cifar10", "--n-train",
+            str(CIFAR_TRAIN_ROWS), "--home", home]
+    walls = {}
+
+    def timed(name, entry, argv):
+        t0 = time.monotonic()
+        pathspec = entry(argv)
+        torch.cuda.synchronize()
+        walls[name] = time.monotonic() - t0
+        return Run(pathspec)
+
+    try:
+        _zero_counters(fa, im)
+        r1 = timed("train", train_flow.main, ["run", "--epochs", "2", *args])
+        r2 = timed("warm", train_flow.main, ["run", "--epochs", "1",
+                                             "--from-run", r1.pathspec,
+                                             *args])
+        e = timed("eval", eval_flow.main, ["run", "--triggered",
+                                           "--batch-size", str(EVAL_BATCH),
+                                           "--home", home])
+        got = _counters(fa, im)
+        if got != _launches():
+            raise AssertionError(f"the ResNet-18 flows launched {got}: they "
+                                 "run no kernel of the port")
+        h1 = [h["val_loss"] for h in r1.data.result.metrics_history]
+        first2 = r2.data.result.metrics_history[0]["val_loss"]
+        if not (len(h1) == 2 and all(np.isfinite(h1))):
+            raise AssertionError(f"ResNet-18 run 1 val_loss {h1}")
+        if not (r2.data.warm_started and first2 < h1[0]):
+            raise AssertionError(f"warm-started first val_loss {first2} not "
+                                 f"below the cold run's {h1[0]}")
+        if e.meta.get("triggered_by") != r2.pathspec:
+            raise AssertionError(f"eval triggered by "
+                                 f"{e.meta.get('triggered_by')}")
+        best = r2.data.result.best_checkpoint.metadata["metrics"]["accuracy"]
+        implied = round((1.0 - best) * e.data.n_rows)
+        mis = e.data.n_misclassified
+        if e.data.n_rows != 10_000 or abs(mis - implied) > EVAL_ROWS_TOL:
+            raise AssertionError(
+                f"ResNet-18 eval: {mis}/{e.data.n_rows} misclassified; the "
+                f"best accuracy {best} implies {implied} (+-{EVAL_ROWS_TOL})")
+        card = os.path.join(store.task_dir("TorchEval", e.run_id, "start",
+                                           0), "card.html")
+        with open(card) as fh:
+            if "Error analysis" not in fh.read():
+                raise AssertionError(f"{card} lacks 'Error analysis'")
+        steps = CIFAR_TRAIN_ROWS // 32
+        print(f"image: ResNet-18 / CIFAR-10 flows ({CIFAR_TRAIN_ROWS} "
+              f"synthetic train rows, batch 32): run 1 val_loss "
+              f"{', '.join(f'{x:.4f}' for x in h1)}, accuracy "
+              f"{r1.data.result.metrics_history[-1]['accuracy']}; warm start "
+              f"first val_loss {first2:.4f}; triggered eval {mis}/"
+              f"{e.data.n_rows} misclassified (best accuracy {best} implies "
+              f"{implied}); walls: train {walls['train']:.2f} s "
+              f"({2 * steps} steps), warm {walls['warm']:.2f} s, eval "
+              f"{walls['eval']:.2f} s; launches 0 [{smi}]")
+    finally:
+        shutil.rmtree(home, ignore_errors=True)
+    return dict(walls=walls, val_loss=h1, warm_first_val_loss=first2,
+                best_accuracy=best, misclassified=mis, implied=implied,
+                launches=got, train_rows=CIFAR_TRAIN_ROWS, gpu=smi)
+
+
+def _leaves(tree) -> list:
+    return [x for v in tree.values()
+            for x in (_leaves(v) if isinstance(v, dict) else [v])]
+
+
+def resnet50_leg(torch, smi) -> dict:
+    """ResNet-50 / imagenet_synth through ``train_model`` (``R50_EPOCHS``
+    epochs at global batch ``R50_BATCH``, cuDNN restricted to its
+    deterministic algorithms for this leg), then an in-run resume from a
+    copy of its storage without the newest step: every val_loss finite,
+    the checkpoint's ``batch_stats`` finite for each of its 53
+    BatchNorms, the resumed run training the last epoch only with
+    bit-equal metrics and shard crc32s. No kernel of the port runs. Then
+    ``resnet50_timing``."""
+    from tpuflow_torch.ckpt import restore_from_handle
+    from tpuflow_torch.flows import my_torch_module as m
+    from tpuflow_torch.ops import flash_attention as fa
+    from tpuflow_torch.ops import int8_matmul as im
+
+    call = dict(model="resnet50", dataset="imagenet_synth",
+                global_batch_size=R50_BATCH, epochs=R50_EPOCHS)
+    root = tempfile.mkdtemp(prefix="chip_smoke_resnet50_",
+                            dir=os.path.join(REPO, "build"))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        run = os.path.join(root, "run")
+        _zero_counters(fa, im)
+        t0 = time.monotonic()
+        res = m.train_model(checkpoint_storage_path=run, **call)
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+        got = _counters(fa, im)
+        if got != _launches():
+            raise AssertionError(f"the ResNet-50 path launched {got}")
+        val = [h["val_loss"] for h in res.metrics_history]
+        if len(val) != R50_EPOCHS or not all(np.isfinite(val)):
+            raise AssertionError(f"ResNet-50 history {res.metrics_history}")
+        leaves = _leaves(restore_from_handle(res.checkpoint,
+                                             subtree=("batch_stats",)))
+        if len(leaves) != 2 * 53 or not all(
+                bool(torch.isfinite(t).all()) for t in leaves):
+            raise AssertionError(f"ResNet-50 batch_stats: {len(leaves)} "
+                                 "leaves, want 106 finite")
+        print(f"image: ResNet-50 / imagenet_synth train_model {R50_EPOCHS} "
+              f"epochs at batch {R50_BATCH} (224 x 224, 1000 classes): "
+              f"val_loss {', '.join(f'{x:.4f}' for x in val)}; batch_stats "
+              f"{len(leaves)} finite leaves in the checkpoint; wall "
+              f"{wall_s:.2f} s; launches 0 [{smi}]")
+
+        resume = os.path.join(root, "resume")
+        shutil.copytree(run, resume, ignore=shutil.ignore_patterns(
+            f"step_{R50_EPOCHS}"))
+        with open(os.path.join(resume, "metrics.jsonl")) as fh:
+            n_lines = len(fh.readlines())
+        t0 = time.monotonic()
+        again = m.train_model(checkpoint_storage_path=resume, **call)
+        torch.cuda.synchronize()
+        resume_s = time.monotonic() - t0
+        with open(os.path.join(resume, "metrics.jsonl")) as fh:
+            new_steps = [json.loads(x)["step"]
+                         for x in fh.readlines()[n_lines:]]
+        if new_steps != [R50_EPOCHS]:
+            raise AssertionError(f"the resumed ResNet-50 run reported steps "
+                                 f"{new_steps}, want [{R50_EPOCHS}]")
+        if again.metrics != res.metrics:
+            raise AssertionError(f"resumed ResNet-50 metrics {again.metrics}"
+                                 f" != {res.metrics}")
+        step = f"step_{R50_EPOCHS}"
+        a = _shards(os.path.join(run, "checkpoints", step))
+        b = _shards(os.path.join(resume, "checkpoints", step))
+        if a != b:
+            raise AssertionError(f"resumed ResNet-50 {step} shards differ: "
+                                 f"{[x for x, y in zip(a, b) if x != y][:3]}")
+        print(f"image: ResNet-50 in-run resume from step {R50_EPOCHS - 1}: "
+              f"epoch {R50_EPOCHS} only, metrics bit-equal, {step}: "
+              f"{len(a)} shard crc32s equal; wall {resume_s:.2f} s [{smi}]")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(wall_s=wall_s, metrics_history=res.metrics_history,
+                launches=got, batch_stats_leaves=len(leaves),
+                resume_steps=new_steps, resume_shards=len(a),
+                resume_wall_s=resume_s, timing=resnet50_timing(torch, smi),
+                gpu=smi)
+
+
+def resnet50_timing(torch, smi) -> dict:
+    """The ResNet-50 train step (batch ``R50_BATCH``, 224 x 224) as
+    ``train_func_per_worker`` runs it, batches prefetched to the card,
+    cuDNN free to pick any algorithm: steps/s and images/s over the whole
+    window of ``R50_TIMED_STEPS`` steps after ``R50_TIMED_WARMUP``
+    (synchronized at both ends), the median step ms beside them, the peak
+    memory, and the device's busy share of ``R50_PROFILED_STEPS`` steps
+    under the profiler; with TF32 off (the process's setting here) and
+    again with cuDNN's TF32 on (PyTorch's default for convolutions)."""
+    from tpuflow_torch.data.loader import get_dataloaders, prefetch_to_device
+    from tpuflow_torch.flows import my_torch_module as m
+    from tpuflow_torch.train.step import (
+        DispatchWindow,
+        create_train_state,
+        make_train_step,
+    )
+
+    n = R50_TIMED_WARMUP + R50_TIMED_STEPS
+    train, _ = get_dataloaders(R50_BATCH, dataset="imagenet_synth",
+                               n_train=R50_BATCH * n, n_test=0)
+    model = m.build_model("resnet50", dataset="imagenet_synth",
+                          num_classes=1000).cuda()
+    state = create_train_state(model, 1e-3)
+    step = make_train_step()
+
+    def run(warmup: int, steps: int) -> list[float]:
+        """``warmup`` steps, then ``steps`` timed ones: the stamps at the
+        synchronized start of the timed steps, after each of them, and at
+        the synchronized end."""
+        window = DispatchWindow(2)
+        stamps = []
+        for i, placed in zip(range(warmup + steps), prefetch_to_device(
+                train, "cuda", keys=("x", "y"))):
+            if i == warmup:
+                for matured in window.drain():
+                    float(matured)
+                torch.cuda.synchronize()
+                stamps.append(time.monotonic())
+            _, metrics = step(state, placed, 1)
+            for matured in window.push(metrics["loss"]):
+                float(matured)
+            if i >= warmup:
+                stamps.append(time.monotonic())
+        for matured in window.drain():
+            float(matured)
+        torch.cuda.synchronize()
+        stamps.append(time.monotonic())
+        if len(stamps) != steps + 2:
+            raise AssertionError(f"{len(stamps) - 2} ResNet-50 steps timed,"
+                                 f" want {steps}")
+        return stamps
+
+    out = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    try:
+        for key, allow in (("tf32_off", False), ("tf32_on", True)):
+            torch.backends.cudnn.allow_tf32 = allow
+            torch.cuda.reset_peak_memory_stats()
+            stamps = run(R50_TIMED_WARMUP, R50_TIMED_STEPS)
+            timed_s = stamps[-1] - stamps[0]
+            ms = float(np.median(np.diff(stamps[:-1]))) * 1e3
+            walls = []
+            kernels = kernel_trace(torch, lambda: walls.append(
+                run(0, R50_PROFILED_STEPS)))
+            wall = walls[-1][-1] - walls[-1][0]
+            busy = _busy(kernels) / 1e6
+            out[key] = dict(
+                timed_wall_s=timed_s,
+                steps_per_s=R50_TIMED_STEPS / timed_s,
+                images_per_s=R50_BATCH * R50_TIMED_STEPS / timed_s,
+                step_ms_median=ms,
+                peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                kernels_per_step=len(kernels) / R50_PROFILED_STEPS,
+                device_busy_share=busy / wall, profiled_wall_s=wall,
+                top_kernels_ms=_top(kernels))
+            r = out[key]
+            print(f"image: ResNet-50 step, cuDNN TF32 "
+                  f"{'on' if allow else 'off'}: {R50_TIMED_STEPS} steps "
+                  f"after {R50_TIMED_WARMUP} in {timed_s:.4f} s: "
+                  f"{r['steps_per_s']:.3f} steps/s, "
+                  f"{r['images_per_s']:.1f} images/s (median step "
+                  f"{ms:.2f} ms), peak memory "
+                  f"{r['peak_memory_bytes'] / 2**30:.2f} GiB; under the "
+                  f"profiler {R50_PROFILED_STEPS} steps: "
+                  f"{r['kernels_per_step']:.0f} kernels a step, device busy "
+                  f"{r['device_busy_share']:.1%} of {wall:.3f} s; top "
+                  + ", ".join(f"{k[:40]} {v:.1f} ms" for k, v in
+                              r["top_kernels_ms"][:4]) + f" [{smi}]")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return out
+
+
+def vit_leg(torch, smi) -> dict:
+    """ViT-S/16 on imagenet_synth with ``attn_impl="flash"`` (f32, TF32
+    off) through ``train_model`` (1 epoch of ``VIT_TRAIN_ROWS`` rows at
+    batch ``VIT_BATCH``) and ``TorchPredictor`` + ``map_batches`` over the
+    ``VIT_TEST_ROWS`` test rows: each flash kernel launched exactly as
+    often as the steps imply (no remat: the forward with lse, dq and
+    dk/dv once a layer and step; the no-lse forward once a layer and
+    validation or predictor batch), finite val_loss and logits. Then one
+    step's loss and gradients against the same model on
+    ``attn_impl="xla"``."""
+    from tpuflow_torch.device import pin_f32_matmul_precision
+    from tpuflow_torch.flows import my_torch_module as m
+    from tpuflow_torch.ops import flash_attention as fa
+    from tpuflow_torch.ops import int8_matmul as im
+
+    pin_f32_matmul_precision()
+    L = 12
+    steps = VIT_TRAIN_ROWS // VIT_BATCH
+    n_val = -(-VIT_TEST_ROWS // VIT_BATCH)
+    kw = {"attn_impl": "flash"}
+    root = tempfile.mkdtemp(prefix="chip_smoke_vit_",
+                            dir=os.path.join(REPO, "build"))
+    try:
+        _zero_counters(fa, im)
+        t0 = time.monotonic()
+        res = m.train_model(model="vit_small", dataset="imagenet_synth",
+                            model_kwargs=kw, global_batch_size=VIT_BATCH,
+                            epochs=1, n_train=VIT_TRAIN_ROWS,
+                            n_test=VIT_TEST_ROWS,
+                            checkpoint_storage_path=os.path.join(root, "run"))
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+        train_n = _counters(fa, im)
+        want = _launches(flash_fwd_lse=L * steps, flash_bwd_dq=L * steps,
+                         flash_bwd_dkv=L * steps, flash_fwd=L * n_val)
+        print(f"ViT-S/16 train_model launches {train_n} (want {want})")
+        if train_n != want:
+            raise AssertionError(f"ViT train_model launched {train_n}, want "
+                                 f"{want}")
+        val = res.metrics["val_loss"]
+        if not np.isfinite(val):
+            raise AssertionError(f"ViT val_loss {val}")
+        rows = m.get_dataloaders(VIT_BATCH, dataset="imagenet_synth",
+                                 as_rows=True, n_train=0,
+                                 n_test=VIT_TEST_ROWS)
+        predictor = m.TorchPredictor(res.best_checkpoint, model=m.build_model(
+            "vit_small", dataset="imagenet_synth", num_classes=1000, **kw))
+        _zero_counters(fa, im)
+        outs = m.map_batches(rows, predictor, batch_size=VIT_BATCH)
+        torch.cuda.synchronize()
+        eval_n = _counters(fa, im)
+        want = _launches(flash_fwd=L * n_val)
+        if eval_n != want:
+            raise AssertionError(f"ViT predictor launched {eval_n}, want "
+                                 f"{want}")
+        logits = np.stack([o["logits"] for o in outs])
+        if logits.shape != (VIT_TEST_ROWS, 1000) or not np.isfinite(
+                logits).all():
+            raise AssertionError(f"ViT logits {logits.shape}")
+        print(f"image: ViT-S/16 / imagenet_synth, flash: {steps} steps at "
+              f"batch {VIT_BATCH} (T = 197, 6 heads of 64, not causal), "
+              f"val_loss {val:.4f}, wall {wall_s:.2f} s; predictor over "
+              f"{len(rows)} rows: {eval_n['flash_fwd']} no-lse launches, "
+              f"logits finite [{smi}]")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(wall_s=wall_s, val_loss=val, train_launches=train_n,
+                eval_launches=eval_n,
+                parity=vit_step_parity(torch, rows[:VIT_BATCH]), gpu=smi)
+
+
+def vit_step_parity(torch, rows) -> dict:
+    """One forward+backward of ViT-S/16 from the same seed and batch with
+    the flash kernels and with the einsum attention (dropout off, TF32
+    off): the loss within ``PARITY_LOSS_ATOL`` and every gradient within
+    ``PARITY_GRAD_RTOL`` of its max |g|."""
+    from tpuflow_torch.flows import my_torch_module as m
+    from tpuflow_torch.models.losses import cross_entropy_loss
+
+    x = torch.as_tensor(np.stack([r["features"] for r in rows]),
+                        device="cuda")
+    y = torch.as_tensor([r["labels"] for r in rows], device="cuda")
+    res = {}
+    for impl in ("flash", "xla"):
+        model = m.build_model("vit_small", dataset="imagenet_synth",
+                              num_classes=1000, attn_impl=impl).cuda()
+        loss = cross_entropy_loss(model(x, train=True, rng=1), y)
+        loss.backward()
+        res[impl] = (loss.item(), {n: p.grad for n, p in
+                                   model.named_parameters()})
+        del model
+    loss_err = abs(res["flash"][0] - res["xla"][0])
+    worst, worst_name = 0.0, None
+    for n, gx in res["xla"][1].items():
+        gf = res["flash"][1][n]
+        ratio = float((gf - gx).abs().max() / gx.abs().max().clamp_min(1e-30))
+        if ratio > worst:
+            worst, worst_name = ratio, n
+    print(f"image: ViT-S/16 step parity flash vs einsum: loss "
+          f"{res['flash'][0]:.6f} vs {res['xla'][0]:.6f} (|diff| "
+          f"{loss_err:.3g}, limit {PARITY_LOSS_ATOL}); worst gradient "
+          f"{worst_name} max|diff| = {worst:.3g} of its max|g| (limit "
+          f"{PARITY_GRAD_RTOL})")
+    if not (loss_err <= PARITY_LOSS_ATOL and worst <= PARITY_GRAD_RTOL):
+        raise AssertionError("ViT flash and einsum steps disagree")
+    return dict(loss_flash=res["flash"][0], loss_xla=res["xla"][0],
+                loss_abs_diff=loss_err, worst_grad=worst_name,
+                worst_grad_rel_diff=worst)
+
+
 def main() -> int:
     import torch
 
@@ -1808,11 +2220,15 @@ def main() -> int:
     int8_rows = int8_phase(torch, timer)
     bwd_rows = flash_bwd_phase(torch, timer)
     head_rows = head_dim_phase(torch, timer, bwd_rows)
+    vit_rows = flash_phase(torch, timer, (VIT_SHAPE,), causal=False)
+    vit_bwd_rows = flash_bwd_phase(torch, timer, (VIT_SHAPE,), causal=False)
     del timer
     sl, flash_n, int8_n = slice_phase(torch, smi)
     tr, train_n = train_phase(torch, smi)
     main_path = main_path_phase(torch, smi)
     flows = flow_phase(torch, smi)
+    image = dict(resnet18=resnet18_flow_leg(torch, smi),
+                 resnet50=resnet50_leg(torch, smi), vit=vit_leg(torch, smi))
 
     # One JSON entry per kernel. flash: one launch at the generate() leg's
     # shape (f32, 1 x 512 x 12 x 64). int8: the 49 launches of one int8
@@ -1902,7 +2318,9 @@ def main() -> int:
                  train_n, tr["bf16"]["launches"], tr["split_launches"],
                  tr["split_ckpt"]["resume"]["launches"],
                  main_path["launches"], flows["mlp_launches"],
-                 flows["gpt_train_launches"], flows["gpt_eval_launches"]]
+                 flows["gpt_train_launches"], flows["gpt_eval_launches"],
+                 image["resnet18"]["launches"], image["resnet50"]["launches"],
+                 image["vit"]["train_launches"], image["vit"]["eval_launches"]]
     replaces_wide = {"flash_fwd": replaces["flash_fwd_lse"], **replaces}
     for r in head_rows:
         if r["shape"][3] != WIDE_D:
@@ -1931,6 +2349,26 @@ def main() -> int:
     for entry in kernels:
         if entry["name"] in flow_n:
             entry["flow_launches"] = flow_n[entry["name"]]
+    # The flash kernels at the ViT leg's attention shape, not causal, f32
+    # (the leg's dtype), with the leg's launches: train_model's, plus the
+    # predictor's no-lse forwards.
+    vit_n = {k: image["vit"]["train_launches"][k]
+             + image["vit"]["eval_launches"][k] for k in LAUNCH_COUNTERS}
+    shape = f"ViT-S/16 attention, float32 {VIT_SHAPE}, not causal"
+    for r in [*vit_rows, *vit_bwd_rows]:
+        kern = r.get("kernel", "flash_fwd")
+        if r["dtype"] != "float32" or kern.endswith("_split"):
+            continue
+        kernels.append(dict(
+            name=f"{kern}_vit", route="cuda",
+            source=("tpuflow_torch/csrc/flash_fwd.cu"
+                    if kern.startswith("flash_fwd")
+                    else "tpuflow_torch/csrc/flash_bwd.cu"),
+            replaces=replaces_wide[kern], shape=shape, launches=vit_n[kern],
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            library=r["library"], call_ms=r["call_ms"]))
     kernels += [
         int8_entry("int8_matmul", DECODE_M, int8_n["decode"],
                    "one int8 decode step at M=8: 48 Dense + LM head"),
@@ -1942,7 +2380,9 @@ def main() -> int:
         json.dump(dict(gpu=smi, build_s=build_s, flash=flash_rows,
                        int8=int8_rows, flash_bwd=bwd_rows,
                        head_dims=head_rows, slice=sl, train=tr,
-                       main_path=main_path, flows=flows, kernels=kernels),
+                       main_path=main_path, flows=flows, image=image,
+                       vit_flash=vit_rows, vit_flash_bwd=vit_bwd_rows,
+                       kernels=kernels),
                   fh,
                   indent=1, default=float)
     print(json.dumps({"kernels": kernels}, default=float))

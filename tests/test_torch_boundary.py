@@ -24,7 +24,7 @@ def _port_sources():
 # Every package of the port, with its count of Python modules: a module
 # dropped or left out of the scan fails the count.
 PACKAGES = {"": 2, "ckpt": 5, "data": 4, "dist": 2, "flow": 8, "flows": 6,
-            "infer": 5, "models": 5, "ops": 5, "train": 5, "utils": 3}
+            "infer": 5, "models": 7, "ops": 5, "train": 5, "utils": 3}
 
 
 def _imported_roots(path):
@@ -68,6 +68,8 @@ def test_package_imports_with_jax_poisoned():
         "import tpuflow_torch\n"
         "import tpuflow_torch.infer.serve, tpuflow_torch.infer.generate\n"
         "import tpuflow_torch.infer.quant, tpuflow_torch.models.convert\n"
+        "import tpuflow_torch.models.resnet, tpuflow_torch.models.vit\n"
+        "import tpuflow_torch.data.datasets, tpuflow_torch.infer.engine\n"
         "import tpuflow_torch.ops.flash_attention\n"
         "import tpuflow_torch.train.gpt, tpuflow_torch.train.step\n"
         "import tpuflow_torch.train.optim, tpuflow_torch.data.lm\n"

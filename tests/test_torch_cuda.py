@@ -928,3 +928,87 @@ def test_torch_train_gang_over_nccl_on_two_cards(cuda, tmp_path):
                                     2) == {}
     finally:
         store.set_home(None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [65, 197])
+def test_flash_noncausal_vit_lengths_match_plain(cuda, dtype, T):
+    """The ViT's attention: non-causal at a ragged T (65 tokens of a
+    patch-4 32 x 32 image, 197 of a patch-16 224 x 224 one), 6 heads of
+    64, strided q/k/v views. The no-lse forward, the forward with lse and
+    the fused pair within the stated tolerances of their plain versions,
+    and one autograd call launching each kernel once."""
+    from tpuflow_torch.ops import flash_attention as fa
+
+    q, k, v = _flash_views(cuda, 4, T, T, 6, 64, dtype)
+    do = torch.randn(q.shape, device="cuda", generator=cuda).to(dtype)
+    out = fa.flash_attention(q, k, v, causal=False)
+    o, lse = fa.flash_fwd_lse(q, k, v, causal=False)
+    assert torch.equal(out, o)
+    ref, ref_lse = fa.blockwise_attention_lse(q, k, v, causal=False)
+    atol, rtol = _FLASH_TOL[dtype]
+    torch.testing.assert_close(o.float(), ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=1e-6)
+    dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, causal=False)
+    rdq, rdelta = fa.flash_bwd_dq_plain(q, k, v, o, lse, do, causal=False)
+    rdk, rdv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, rdelta, causal=False)
+    atol, rtol = BWD_TOL[dtype]
+    for got, want in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+    xs = [x.detach().requires_grad_() for x in (q, k, v)]
+    counts = (fa.launches_lse, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+    fa.flash_attention(*xs, causal=False).backward(do)
+    torch.cuda.synchronize()
+    assert (fa.launches_lse, fa.launches_bwd_dq, fa.launches_bwd_dkv) == (
+        counts[0] + 1, counts[1] + 1, counts[2] + 1)
+    for x, want in zip(xs, (dq, dk, dv)):
+        assert torch.equal(x.grad, want)
+
+
+def test_resnet_step_on_the_card_matches_the_cpu(cuda):
+    """One SGD-momentum step of a ResNet-18 (width 16, CIFAR stem) and of
+    a ResNet-50 (width 8, ImageNet stem on 64 x 64) on the card against
+    the same step on the CPU from the same weights (TF32 off): the loss
+    within 1e-5 relative, every parameter and BatchNorm running statistic
+    within atol 1e-5 (cuDNN and the CPU sum the convolutions in other
+    orders), and the eval logits within 1e-4 of the largest |logit|."""
+    from tpuflow_torch.ckpt.tree import running_stats
+    from tpuflow_torch.models import get_model
+    from tpuflow_torch.train.step import create_train_state, make_train_step
+
+    r = np.random.default_rng(0)
+    for name, kw, hw in (("resnet18", dict(width=16, small_inputs=True), 32),
+                         ("resnet50", dict(width=8), 64)):
+        x = r.standard_normal((16, hw, hw, 3)).astype(np.float32)
+        batch = {"x": x, "y": r.integers(0, 10, 16)}
+        states = {}
+        for dev in ("cpu", "cuda"):
+            model = get_model(name, seed=0, **kw).to(dev)
+            state = create_train_state(model, 0.05)
+            state, metrics = make_train_step()(state, batch, 0)
+            states[dev] = (state, float(metrics["loss"]))
+        (cpu, lc), (card, lg) = states["cpu"], states["cuda"]
+        assert lg == pytest.approx(lc, rel=1e-5)
+        for a, b in zip([*card.params, *running_stats(card.model).values()],
+                        [*cpu.params, *running_stats(cpu.model).values()]):
+            torch.testing.assert_close(a.detach().cpu(), b.detach(),
+                                       atol=1e-5, rtol=0)
+        with torch.no_grad():
+            a = card.model(torch.from_numpy(x).cuda()).cpu()
+            b = cpu.model(torch.from_numpy(x))
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+def test_batchnorm_statistics_are_global_over_nccl_on_two_cards(cuda):
+    """The BatchNorm statistics of a 2-process world over NCCL, one process
+    a card: equal on both ranks, and within atol 1e-5 of one process on the
+    whole batch (``tests/test_torch_dist.py``'s gloo test on the card;
+    cuDNN picks its convolution algorithms by batch size, TF32 off).
+    Skips below two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: one process a card")
+    import test_torch_dist
+
+    test_torch_dist._bn_global("cuda", atol=1e-5)

@@ -10,6 +10,12 @@ axis on virtual CPU devices.
   parameters on both ranks, bit for bit, and within atol 2e-6 of the
   one-process run over the same global batches (dropout off; 8 SGD steps
   whose gradients differ in the summation order only).
+- BatchNorm statistics are global over the data axis, the twin of
+  ``tests/test_train_step.py::test_batchnorm_stats_are_global``: two SGD
+  steps of a ResNet-18 (width 4, CIFAR stem) over a 16-row batch split
+  8 + 8 leave both ranks with the same running statistics and
+  parameters, bit for bit, within atol 1e-6 of one process stepping on
+  the whole batch (the same sums reduced in another order).
 
 The workers are spawned processes that import torch and the port only.
 The same epoch over NCCL, one process per card, runs where the machine
@@ -88,7 +94,10 @@ def _worker(rank, port, what, out, device="cpu"):
     try:
         dist.initialize(device, rank=rank, world_size=WORLD,
                         init_method=f"tcp://localhost:{port}", timeout_s=60)
-        if what == "grads":
+        if what == "bn":
+            out.put((rank, *_resnet_steps(dist.make_mesh(device), rank,
+                                          WORLD)))
+        elif what == "grads":
             mesh = dist.make_mesh("cpu")
             x, y = _batch()
             half = len(x) // WORLD
@@ -109,6 +118,30 @@ def _worker(rank, port, what, out, device="cpu"):
         raise
     finally:
         dist.shutdown()
+
+
+def _resnet_steps(mesh, rank=0, world=1):
+    """Two SGD steps of a small ResNet-18 on this process's rows of a
+    16-row CIFAR-shaped batch: (running statistics, parameters) as numpy,
+    in the module's order."""
+    from tpuflow_torch.ckpt.tree import running_stats
+    from tpuflow_torch.device import pin_f32_matmul_precision
+    from tpuflow_torch.models import get_model
+    from tpuflow_torch.train.step import create_train_state, make_train_step
+
+    if mesh.device.type == "cuda":
+        pin_f32_matmul_precision()  # no TF32 convolutions
+    model = get_model("resnet18", width=4, small_inputs=True, seed=0)
+    state = create_train_state(model.to(mesh.device), 0.05)
+    step = make_train_step(mesh=mesh)
+    r = np.random.default_rng(0)
+    rows = slice(rank * 16 // world, (rank + 1) * 16 // world)
+    for _ in range(2):
+        x = r.standard_normal((16, 32, 32, 3)).astype(np.float32)
+        y = r.integers(0, 10, 16)
+        step(state, {"x": x[rows], "y": y[rows]}, 0)
+    return ([t.cpu().numpy() for t in running_stats(model).values()],
+            [p.detach().cpu().numpy() for p in model.parameters()])
 
 
 def _spawn(what, device="cpu"):
@@ -145,6 +178,22 @@ def test_averaged_gradients_equal_the_full_batch_gradients():
             scale = float(w.abs().max())
             np.testing.assert_allclose(g, w.numpy(), rtol=0,
                                        atol=1e-6 * scale)
+
+
+def _bn_global(device, atol=1e-6):
+    results = _spawn("bn", device)
+    for a, b in zip(results[0][0] + results[0][1],
+                    results[1][0] + results[1][1]):
+        np.testing.assert_array_equal(a, b)
+    torch.set_num_threads(1)
+    stats, params = _resnet_steps(dist.make_mesh(device), world=1)
+    assert len(stats) == 2 * 20  # mean and var of 20 BatchNorms
+    for a, b in zip(results[0][0] + results[0][1], stats + params):
+        np.testing.assert_allclose(a, b, rtol=0, atol=atol)
+
+
+def test_batchnorm_statistics_are_global_over_two_processes():
+    _bn_global("cpu")
 
 
 def test_one_process_world_leaves_gradients_untouched():

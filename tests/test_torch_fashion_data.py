@@ -134,8 +134,10 @@ def test_registry_matches_jax():
         assert datasets.get_labels_map(name) == jdatasets.get_labels_map(name)
     with pytest.raises(KeyError):
         datasets.dataset_info("nope")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        datasets.load_dataset("cifar10")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        datasets.load_dataset("lm_text")
+    with pytest.raises(KeyError, match="unknown dataset"):
+        datasets.load_dataset("nope")
 
 
 def test_prefetch_to_device_on_the_cpu_is_the_loader():

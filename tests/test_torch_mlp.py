@@ -100,9 +100,20 @@ def test_registry_names():
         m = get_model(name, hidden_dim=32, num_classes=3)
         assert isinstance(m, NeuralNetwork)
         assert m(torch.zeros(2, 28, 28)).shape == (2, 3)
-    for name, item in (("resnet18", "item 11"), ("resnet50", "item 11"),
-                       ("vit_tiny", "item 14")):
-        with pytest.raises(NotImplementedError, match=item):
-            get_model(name)
+    from tpuflow_torch.models.resnet import BottleneckBlock, ResNet
+    from tpuflow_torch.models.vit import ViT
+
+    for name, block in (("resnet18", "BasicBlock_7"),
+                        ("resnet50", "BottleneckBlock_15")):
+        m = get_model(name, width=8)
+        assert isinstance(m, ResNet) and hasattr(m, block)
+    assert isinstance(m.BottleneckBlock_0, BottleneckBlock)
+    for name, (C, L, H, P) in (("vit", (192, 6, 3, 4)),
+                               ("vit_tiny", (192, 12, 3, 16)),
+                               ("vit_small", (384, 12, 6, 16))):
+        m = get_model(name, image_shape=(32, 32, 3))
+        assert isinstance(m, ViT)
+        assert (m.n_embd, len(m.blocks), m.block0.n_head, m.patch_size) == (
+            C, L, H, P)
     with pytest.raises(KeyError):
         get_model("nope")

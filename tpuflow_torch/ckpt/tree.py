@@ -1,16 +1,19 @@
 """The port's training state as the JAX package's checkpoint tree.
 
 ``tpuflow/train/gpt.py`` and ``flows/my_tpu_module.py::_state_tree`` save
-``{"step", "params", "opt_state", ["ema_params"]}`` with Flax params and
-optax state. This module lays a ``train.step.TrainState`` out the same
+``{"step", "params", "opt_state", ["batch_stats"], ["ema_params"]}`` with
+Flax params and optax state. This module lays a ``train.step.TrainState`` out the same
 way, so a checkpoint written by either package restores into the other:
 
 - ``params``: for GPT-2, ``params_to_jax``, the inverse of
   ``models/convert.py::params_from_jax``. Dense kernels transpose back to
   (in, out); with ``scan_layers`` (the ``gpt2`` and ``medium`` presets)
   the blocks stack into ``h/block/...`` with a leading layer axis, else
-  they are ``h0`` .. ``h{L-1}``. For the MLP (``models/mlp.py``),
-  ``dense{1,2,3}/{kernel, bias}`` (``convert.mlp_params_to_jax``).
+  they are ``h0`` .. ``h{L-1}``. For every other model (the MLP, ResNet,
+  ViT), the Flax module tree its names carry
+  (``convert.named_params_to_jax``).
+- ``batch_stats`` (ResNet): the running ``mean``/``var`` of each
+  ``models.resnet.BatchNorm``, present only when the model has one.
 - ``opt_state``: optax's tuple layout, tuple indices as keys. ``adamw`` is
   ``chain(scale_by_adam, add_decayed_weights, scale_by_learning_rate)``:
   ``0/{count, mu, nu}``, plus ``2/count`` when the learning rate is
@@ -26,11 +29,12 @@ from __future__ import annotations
 import torch
 
 from tpuflow_torch.models.convert import (
-    mlp_params_from_jax,
-    mlp_params_to_jax,
+    named_params_from_jax,
+    named_params_to_jax,
     params_from_jax,
 )
-from tpuflow_torch.models.mlp import NeuralNetwork
+from tpuflow_torch.models.gpt2 import GPT2
+from tpuflow_torch.models.resnet import BatchNorm
 
 _DENSE = ("c_attn", "c_proj", "mlp_fc", "mlp_proj")
 _NORMS = ("ln_1", "ln_2")
@@ -71,9 +75,23 @@ def _count(n: int) -> torch.Tensor:
 
 
 def _to_jax(model, sd: dict, scan_layers: bool) -> dict:
-    if isinstance(model, NeuralNetwork):
-        return mlp_params_to_jax(sd)
-    return params_to_jax(sd, scan_layers=scan_layers)
+    if isinstance(model, GPT2):
+        return params_to_jax(sd, scan_layers=scan_layers)
+    return named_params_to_jax(sd)
+
+
+def _from_jax(model, tree: dict) -> dict:
+    if isinstance(model, GPT2):
+        return params_from_jax(tree)
+    return named_params_from_jax(tree)
+
+
+def running_stats(model) -> dict:
+    """The running statistics of the model's ``BatchNorm`` modules, name →
+    buffer (empty without BatchNorm)."""
+    return {f"{m}.{n}" if m else n: b
+            for m, mod in model.named_modules() if isinstance(mod, BatchNorm)
+            for n, b in mod.named_buffers(recurse=False)}
 
 
 def checkpoint_tree(state, *, scan_layers: bool = False,
@@ -81,7 +99,7 @@ def checkpoint_tree(state, *, scan_layers: bool = False,
     """``state`` as the JAX checkpoint tree: views of the live tensors, or
     with ``abstract`` shape-and-dtype stand-ins on the ``meta`` device (a
     restore template that allocates nothing). ``scan_layers`` picks
-    GPT-2's stacked block layout; the MLP has one layout."""
+    GPT-2's stacked block layout; every other model has one layout."""
     names = [n for n, _ in state.model.named_parameters()]
 
     def layout(tensors) -> dict:
@@ -104,6 +122,12 @@ def checkpoint_tree(state, *, scan_layers: bool = False,
         "opt_state": {"1": inner} if tx.grad_clip_norm is not None
         else inner,
     }
+    stats = running_stats(state.model)
+    if stats:
+        if abstract:
+            stats = {n: torch.empty_like(t, device="meta")
+                     for n, t in stats.items()}
+        tree["batch_stats"] = named_params_to_jax(stats)
     if state.ema_params is not None:
         tree["ema_params"] = layout(state.ema_params)
     return tree
@@ -111,10 +135,7 @@ def checkpoint_tree(state, *, scan_layers: bool = False,
 
 def _ordered(model, tree: dict) -> list[torch.Tensor]:
     """A param-layout tree → its tensors in ``model``'s parameter order."""
-    if isinstance(model, NeuralNetwork):
-        sd = mlp_params_from_jax(tree)
-    else:
-        sd = params_from_jax(tree)
+    sd = _from_jax(model, tree)
     return [sd[n] for n, _ in model.named_parameters()]
 
 
@@ -128,10 +149,22 @@ def load_params(model, params: dict) -> None:
 
 
 @torch.no_grad()
+def load_batch_stats(model, batch_stats: dict) -> None:
+    """Copy a restored ``batch_stats`` subtree (the JAX layout) into
+    ``model``'s BatchNorm running statistics in place."""
+    src = named_params_from_jax(batch_stats)
+    for name, buf in running_stats(model).items():
+        buf.copy_(src[name])
+
+
+@torch.no_grad()
 def load_checkpoint_tree(state, tree: dict) -> None:
     """Copy a restored checkpoint tree (either layout) into ``state`` in
-    place: params, optimizer slots and count, EMA weights and step."""
+    place: params, BatchNorm statistics, optimizer slots and count, EMA
+    weights and step."""
     load_params(state.model, tree["params"])
+    if running_stats(state.model):
+        load_batch_stats(state.model, tree["batch_stats"])
     opt = tree["opt_state"]
     inner = opt["1"] if state.tx.grad_clip_norm is not None else opt
     slots = {name: _ordered(state.model, sub)

@@ -1,4 +1,4 @@
-"""Dataset containers, FashionMNIST/MNIST and the synthetic LM corpus.
+"""Dataset containers, the image datasets and the synthetic LM corpus.
 
 The port's copy of the parts of ``tpuflow/data/datasets.py`` that the
 training slices read, byte for byte the same arrays from the same seed:
@@ -7,14 +7,22 @@ training slices read, byte for byte the same arrays from the same seed:
 - FashionMNIST and MNIST (``load_dataset``): the four IDX files
   (``*-ubyte`` or ``*-ubyte.gz``) under ``data_dir`` when they are all
   there, normalised as the reference does; otherwise the deterministic
-  synthetic stand-in at the real size (seed 20; ``n_train`` 60,000 and
-  ``n_test`` 10,000 by default: arguments where the JAX package reads
-  ``TPUFLOW_SYNTH_*_N``), marked ``synthetic=True``;
+  synthetic stand-in (seed 20), marked ``synthetic=True``;
+- CIFAR-10 (``:355``): the ``cifar-10-batches-py`` pickles under
+  ``data_dir`` (NHWC, normalised), else the synthetic stand-in (seed 30,
+  32 x 32 x 3);
+- ``imagenet_synth`` (``:385``): synthetic only, seed 40, 224 x 224 x 3,
+  1000 classes;
 - ``_load_synthetic_lm`` (the ``lm_synth`` corpus).
+
+The synthetic sizes are the arguments ``n_train`` / ``n_test`` where the
+JAX package reads ``TPUFLOW_SYNTH_TRAIN_N`` / ``_TEST_N``; None takes the
+dataset's default, as the JAX package does without the knobs
+(``_SYNTH_SIZES``).
 
 Not ported: the download branch, the npz cache and its FileLock (every
 load decodes or generates afresh, and nothing is written, ``data_dir``
-included), CIFAR-10, the synthetic ImageNet and ``lm_text``.
+included) and ``lm_text``.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 import gzip
 import os
+import pickle
 import struct
 
 import numpy as np
@@ -183,9 +192,17 @@ _IDX_FILES = {
 }
 
 
-def _load_fashion_mnist(data_dir: str | None, name: str, *,
-                        n_train: int = 60_000, n_test: int = 10_000
-                        ) -> Dataset:
+# Synthetic (n_train, n_test) without arguments: the JAX loaders' knob
+# defaults (``datasets.py:346-347, 375-376``) and, for imagenet_synth, its
+# ``synthetic_size`` default of 2,000 with max(2_000 // 10, 100) test rows
+# (``:405-422``).
+_SYNTH_SIZES = {"fashion_mnist": (60_000, 10_000), "mnist": (60_000, 10_000),
+                "cifar10": (50_000, 10_000),
+                "imagenet_synth": (2_000, max(2_000 // 10, 100))}
+
+
+def _load_fashion_mnist(data_dir: str | None, name: str, *, n_train: int,
+                        n_test: int) -> Dataset:
     """The IDX files under ``data_dir`` when all four are there, else the
     synthetic stand-in of ``n_train`` and ``n_test`` rows."""
     files = {k: _find(data_dir, [v]) if data_dir else None
@@ -207,16 +224,71 @@ def _load_fashion_mnist(data_dir: str | None, name: str, *,
     return Dataset(name, train, test, 10, synthetic=True)
 
 
+def _load_cifar10(data_dir: str | None, *, n_train: int, n_test: int
+                  ) -> Dataset:
+    """The ``cifar-10-batches-py`` pickles under ``data_dir`` (five train
+    batches and ``test_batch``, rows of 3 x 32 x 32 uint8 turned NHWC)
+    when the directory is there, else the synthetic stand-in."""
+    batch_dir = os.path.join(data_dir, "cifar-10-batches-py") if data_dir \
+        else None
+    if batch_dir and os.path.isdir(batch_dir):
+        xs, ys = [], []
+        for i in range(1, 6):
+            with open(os.path.join(batch_dir, f"data_batch_{i}"), "rb") as f:
+                d = pickle.load(f, encoding="bytes")
+            xs.append(d[b"data"])
+            ys.extend(d[b"labels"])
+        train_x = np.concatenate(xs).reshape(-1, 3, 32, 32).transpose(
+            0, 2, 3, 1)
+        with open(os.path.join(batch_dir, "test_batch"), "rb") as f:
+            d = pickle.load(f, encoding="bytes")
+        test_x = d[b"data"].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+        return Dataset(
+            "cifar10",
+            Split(_normalize(train_x), np.asarray(ys, np.int32)),
+            Split(_normalize(test_x), np.asarray(d[b"labels"], np.int32)),
+            10,
+            synthetic=False,
+        )
+    spec = _DATASET_SPECS["cifar10"]
+    train, test = _synth_classification(
+        seed=30, n_train=n_train, n_test=n_test, shape=spec["shape"],
+        num_classes=spec["num_classes"],
+    )
+    return Dataset("cifar10", train, test, spec["num_classes"], synthetic=True)
+
+
+def _load_synthetic_imagenet(n_train: int, n_test: int) -> Dataset:
+    """ImageNet-shaped synthetic data (224 x 224 x 3, 1000 classes)."""
+    spec = _DATASET_SPECS["imagenet_synth"]
+    train, test = _synth_classification(
+        seed=40, n_train=n_train, n_test=n_test, shape=spec["shape"],
+        num_classes=spec["num_classes"],
+    )
+    return Dataset(
+        "imagenet_synth", train, test, spec["num_classes"], synthetic=True
+    )
+
+
 def load_dataset(name: str = "fashion_mnist", *, data_dir: str | None = None,
-                 n_train: int = 60_000, n_test: int = 10_000) -> Dataset:
-    """Load (or synthesize) ``fashion_mnist`` or ``mnist``: the IDX files
-    under ``data_dir`` (None: look nowhere), else the synthetic stand-in
-    of ``n_train`` / ``n_test`` rows. No cache is read or written."""
-    if name in ("fashion_mnist", "mnist"):
-        return _load_fashion_mnist(data_dir, name, n_train=n_train,
-                                   n_test=n_test)
-    if name in ("cifar10", "imagenet_synth", "lm_text"):
+                 n_train: int | None = None, n_test: int | None = None
+                 ) -> Dataset:
+    """Load (or synthesize) ``fashion_mnist``, ``mnist``, ``cifar10`` or
+    ``imagenet_synth``: the real files under ``data_dir`` (None: look
+    nowhere), else the synthetic stand-in of ``n_train`` / ``n_test`` rows
+    (None: the dataset's default, ``_SYNTH_SIZES``). No cache is read or
+    written."""
+    if name in _SYNTH_SIZES:
+        d_train, d_test = _SYNTH_SIZES[name]
+        sizes = dict(n_train=d_train if n_train is None else n_train,
+                     n_test=d_test if n_test is None else n_test)
+        if name == "imagenet_synth":
+            return _load_synthetic_imagenet(**sizes)
+        if name == "cifar10":
+            return _load_cifar10(data_dir, **sizes)
+        return _load_fashion_mnist(data_dir, name, **sizes)
+    if name == "lm_text":
         raise NotImplementedError(
-            f"dataset {name!r} is not ported yet: ROADMAP Queue 1 item 11")
+            f"dataset {name!r} is not ported yet: ROADMAP Queue 1 item 12")
     raise KeyError(f"unknown dataset {name!r}; available: fashion_mnist, "
-                   "mnist")
+                   "mnist, cifar10, imagenet_synth")

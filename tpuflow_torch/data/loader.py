@@ -144,15 +144,17 @@ def get_dataloaders(
     seed: int = 0,
     shard_index: int = 0,
     num_shards: int = 1,
-    n_train: int = 60_000,
-    n_test: int = 10_000,
+    n_train: int | None = None,
+    n_test: int | None = None,
 ):
     """(train, val) ShardedLoaders, the val loader alone (``val_only``), or
     with ``as_rows`` the test split as a list of ``{"features", "labels"}``
     rows. The train loader is shuffled from ``seed`` and takes shard
     ``shard_index`` of ``num_shards``; the val loader is unshuffled, whole,
-    and pads its tail with a mask. ``n_train``/``n_test``: the synthetic
-    stand-in's sizes (``datasets.load_dataset``)."""
+    and pads its tail with a mask. Batches hold ``x`` as the split stores
+    it: (B, 28, 28) for FashionMNIST, NHWC (B, H, W, 3) for ``cifar10`` and
+    ``imagenet_synth``. ``n_train``/``n_test``: the synthetic stand-in's
+    sizes (None: the dataset's default, ``datasets.load_dataset``)."""
     ds = load_dataset(dataset, data_dir=data_dir, n_train=n_train,
                       n_test=n_test)
     if as_rows:

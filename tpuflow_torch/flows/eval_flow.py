@@ -3,7 +3,10 @@
 Twin of ``flows/eval_flow.py`` (``TpuEval``) on the port: triggered when
 ``TorchTrain`` finishes, it resolves the training checkpoint (trigger,
 then task pathspec, then run pathspec, else the "no checkpoint source"
-error), runs ``TorchPredictor`` over ``map_batches`` on the test rows,
+error), rebuilds the producing run's ``model_used`` for its
+``dataset_used`` (``flows/eval_flow.py:108-135``; a ResNet restores its
+BatchNorm statistics with the weights), runs ``TorchPredictor`` over
+``map_batches`` on the test rows,
 joins labels and predictions in numpy (the JAX flow's dataframe), and
 renders the card: the misclassified count, then up to 50 sampled errors
 with the input image, the true and predicted labels and a bar chart of
@@ -59,7 +62,7 @@ class TorchEval(FlowSpec):
     n_test = Parameter(
         "n_test", default=0,
         help="rows of the synthetic test split (0: the producing run's, "
-        "else 10000)")
+        "else the dataset's default)")
 
     def _get_source(self):
         """Trigger run first, then the task pathspec, then the run
@@ -95,18 +98,19 @@ class TorchEval(FlowSpec):
         dataset = self.dataset or getattr(run.data, "dataset_used",
                                           "fashion_mnist")
         sizes = getattr(run.data, "data_sizes_used", None) or {}
-        n_test = int(self.n_test) or int(sizes.get("n_test", 10_000))
+        n_test = int(self.n_test) or sizes.get("n_test")
         self.dataset_used = dataset
-        print(f"[eval_flow] evaluating checkpoint {checkpoint.path} "
-              f"(model={model_name}, dataset={dataset}, {n_test} rows)")
         info = dataset_info(dataset)
         # The test split alone: the synthetic set draws it independently of
         # the train split's size.
         rows = m.get_dataloaders(int(self.batch_size), dataset=dataset,
                                  as_rows=True, n_train=0, n_test=n_test)
+        print(f"[eval_flow] evaluating checkpoint {checkpoint.path} "
+              f"(model={model_name}, dataset={dataset}, {len(rows)} rows)")
         predictor = m.TorchPredictor(
             checkpoint,
-            model=m.build_model(model_name, num_classes=info["num_classes"]),
+            model=m.build_model(model_name, dataset=dataset,
+                                num_classes=info["num_classes"]),
             device=self.device)
         outputs = m.map_batches(rows, predictor,
                                 batch_size=int(self.batch_size))

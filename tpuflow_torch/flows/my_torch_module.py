@@ -1,18 +1,27 @@
-"""The README main path: FashionMNIST training and batch prediction.
+"""The README main path: image-classifier training and batch prediction.
 
 Twin of ``flows/my_tpu_module.py`` on PyTorch and the port:
 
 - ``train_fashion_mnist`` / ``train_model`` (``:357``/``:290``): the
   trainer entry points (per-worker batch = global // workers,
-  ``num_to_keep=2``);
+  ``num_to_keep=2``) over the model zoo (``mlp``, ``resnet18``,
+  ``resnet50``, ``vit``, ``vit_tiny``, ``vit_small``) and the image
+  datasets (``fashion_mnist``, ``mnist``, ``cifar10``,
+  ``imagenet_synth``);
 - ``train_func_per_worker`` (``:113-287``): the per-process epoch loop;
   an in-run resume from the run's newest retained step comes before any
   warm start; a warm start is weights only (the reference's quirk; the
-  SGD trace stays zero) unless ``resume="full"``; the loader reshuffles
+  SGD trace stays zero and a ResNet's BatchNorm statistics start afresh,
+  as ``:76-81`` restores params only) unless ``resume="full"``; the
+  in-run resume and ``resume="full"`` restore ``batch_stats`` too; the
+  loader reshuffles
   per epoch only when the world has more than one worker, as the
   reference does; each epoch ends in ``report(..., step=epoch + 1,
   data_state=...)``;
-- ``set_weights_from_checkpoint`` (``:76``), ``build_model`` (``:84``);
+- ``set_weights_from_checkpoint`` (``:76``), ``build_model`` (``:84``):
+  a ResNet takes the CIFAR stem (``small_inputs``) unless the dataset is
+  ``imagenet_synth``; the image models' input channels (and a ViT's
+  image size) come from the dataset's registry entry;
 - ``TorchPredictor`` (twin of ``TpuPredictor``, ``:363``).
 
 Every run is on the card unless the caller passes ``device="cpu"``.
@@ -28,8 +37,9 @@ from tpuflow_torch.ckpt.tree import (
     checkpoint_tree,
     load_checkpoint_tree,
     load_params,
+    running_stats,
 )
-from tpuflow_torch.data.datasets import get_labels_map
+from tpuflow_torch.data.datasets import dataset_info, get_labels_map
 from tpuflow_torch.device import resolve_device
 from tpuflow_torch.data.loader import get_dataloaders, prefetch_to_device
 from tpuflow_torch.infer.engine import BatchPredictor, map_batches
@@ -68,21 +78,29 @@ def set_weights_from_checkpoint(state, checkpoint: Checkpoint):
     return state
 
 
-def build_model(name: str = "mlp", *, num_classes: int | None = None,
-                **model_kwargs):
-    """The model a run of ``train_model`` trains (for consumers outside
-    the worker loop, such as an eval that rebuilds the producing run's
-    model)."""
-    return _build_model({"model": name, "num_classes": num_classes,
+def build_model(name: str = "mlp", *, dataset: str = "fashion_mnist",
+                num_classes: int | None = None, **model_kwargs):
+    """The model a run of ``train_model`` trains on ``dataset`` (for
+    consumers outside the worker loop, such as an eval that rebuilds the
+    producing run's model)."""
+    return _build_model({"model": name, "dataset": dataset,
+                         "num_classes": num_classes,
                          "model_kwargs": model_kwargs or None})
 
 
 def _build_model(config: dict):
     kwargs = dict(config.get("model_kwargs") or {})
     kwargs.setdefault("num_classes", config.get("num_classes") or 10)
+    kwargs.setdefault("seed", config.get("seed", 0))
     name = config.get("model", "mlp")
-    if name in ("mlp", "neural_network", "fashion_mnist_mlp"):
-        kwargs.setdefault("seed", config.get("seed", 0))
+    dataset = config.get("dataset", "fashion_mnist")
+    shape = dataset_info(dataset)["shape"]
+    if name in ("resnet18", "resnet50"):
+        # CIFAR-sized inputs use the 3x3 stem unless told otherwise.
+        kwargs.setdefault("small_inputs", dataset != "imagenet_synth")
+        kwargs.setdefault("in_channels", shape[2] if len(shape) == 3 else 1)
+    elif name in ("vit", "vit_tiny", "vit_small"):
+        kwargs.setdefault("image_shape", shape)
     return get_model(name, **kwargs)
 
 
@@ -134,8 +152,10 @@ def train_func_per_worker(config: dict) -> None:
         else:
             state = set_weights_from_checkpoint(state, ckpt)
             _log("model weights warm-started from checkpoint")
-    # Every process starts from rank 0's parameters and optimizer state.
-    dist.replicate([*state.params, *state.tx.slots()["trace"]], ctx.mesh)
+    # Every process starts from rank 0's parameters, BatchNorm statistics
+    # and optimizer state.
+    dist.replicate([*state.params, *running_stats(state.model).values(),
+                    *state.tx.slots()["trace"]], ctx.mesh)
 
     train_step = make_train_step(mesh=ctx.mesh)
     eval_step = make_eval_step()
@@ -196,14 +216,15 @@ def train_model(
     dataset: str = "fashion_mnist",
     data_dir: str | None = None,
     seed: int = 0,
-    n_train: int = 60_000,
-    n_test: int = 10_000,
+    n_train: int | None = None,
+    n_test: int | None = None,
 ) -> Result:
     """The trainer entry point. ``num_workers``: data-parallel processes (None:
     the processes of the world ``dist.initialize`` joins, else 1; each
     process of a multi-process world calls this with its rendezvous
     variables set). ``device``: None is ``cuda``. ``n_train``/``n_test``:
-    the synthetic FashionMNIST stand-in's sizes."""
+    the synthetic stand-in's sizes (None: the dataset's default, as
+    ``datasets.load_dataset`` has them)."""
     dist.initialize(resolve_device(device))
     workers = (num_workers if num_workers and num_workers > 0
                else dist.process_count())
@@ -241,8 +262,9 @@ def train_fashion_mnist(num_workers: int | None = None, **kw) -> Result:
 
 
 class TorchPredictor:
-    """Stateful batch predictor: loads the checkpoint's weights once into
-    ``model`` (default the MLP), then maps batches to logits + argmax."""
+    """Stateful batch predictor: loads the checkpoint's weights (and a
+    BatchNorm model's running statistics) once into ``model`` (default the
+    MLP), then maps batches to logits + argmax."""
 
     def __init__(self, checkpoint: Checkpoint | dict, *, model=None,
                  device: str | None = None):

@@ -1,4 +1,4 @@
-"""Training flow: FashionMNIST training on the card, as a gang of one
+"""Training flow: image-classifier training on the card, as a gang of one
 process per card.
 
 Twin of ``flows/train_flow.py`` (``TpuTrain``) on the port: the 4-step DAG
@@ -10,7 +10,10 @@ profiling, checkpoints under ``current.tpu_storage_path``, and the
 tolerant join. The JAX package's ``TPUFLOW_N_PARALLEL`` is the
 ``num_parallel`` parameter here (default 1: NCCL takes one process per
 card); ``device`` (default ``cuda``) and the synthetic set's sizes
-(``n_train`` / ``n_test``) are parameters too.
+(``n_train`` / ``n_test``, 0 for the dataset's default) are parameters
+too. ``--model`` takes the JAX flow's list (``mlp``, ``resnet18``,
+``resnet50``, ``vit``, ``vit_tiny``, ``vit_small``), ``--dataset``
+``fashion_mnist``, ``mnist``, ``cifar10`` or ``imagenet_synth``.
 
 Run:      python -m tpuflow_torch.flows.train_flow run [--device cpu --home <dir>]
 Resume:   python -m tpuflow_torch.flows.train_flow run --from-run TorchTrain/<id>
@@ -33,8 +36,8 @@ from tpuflow_torch.flow import (
 
 @schedule(cron="*/5 * * * *")
 class TorchTrain(FlowSpec):
-    """Train an MLP on FashionMNIST with data-parallel workers, one a card,
-    and per-epoch checkpoints."""
+    """Train an image classifier (the MLP on FashionMNIST by default) with
+    data-parallel workers, one a card, and per-epoch checkpoints."""
 
     epochs = Parameter("epochs", default=3, help="number of training epochs")
     batch_size = Parameter(
@@ -49,15 +52,23 @@ class TorchTrain(FlowSpec):
         help="run pathspec Flow/run to warm-start the model from")
     dataset = Parameter("dataset", default="fashion_mnist",
                         help="dataset name")
-    model = Parameter("model", default="mlp", help="model name")
+    model = Parameter(
+        "model", default="mlp",
+        help="mlp | resnet18 | resnet50 | vit | vit_tiny | vit_small "
+        "(BASELINE configs 1-2 run the resnets through this same flow; "
+        "the vit_tiny/vit_small patch-16 presets need images patch-16 "
+        "divides, e.g. imagenet_synth; use 'vit' for the 28/32-pixel "
+        "datasets)")
     num_parallel = Parameter(
         "num_parallel", default=1,
         help="processes of the train step's gang (one a card under NCCL)")
     device = Parameter("device", default="cuda", help="cuda | cpu")
-    n_train = Parameter("n_train", default=60_000,
-                        help="rows of the synthetic train split")
-    n_test = Parameter("n_test", default=10_000,
-                       help="rows of the synthetic test split")
+    n_train = Parameter(
+        "n_train", default=0,
+        help="rows of the synthetic train split (0: the dataset's default)")
+    n_test = Parameter(
+        "n_test", default=0,
+        help="rows of the synthetic test split (0: the dataset's default)")
 
     @step
     def start(self):
@@ -86,8 +97,8 @@ class TorchTrain(FlowSpec):
         # dataset's test split.
         self.model_used = self.model
         self.dataset_used = self.dataset
-        self.data_sizes_used = {"n_train": int(self.n_train),
-                                "n_test": int(self.n_test)}
+        self.data_sizes_used = {"n_train": int(self.n_train) or None,
+                                "n_test": int(self.n_test) or None}
         self.result = my_torch_module.train_model(
             num_workers=None,  # every process of the gang's world
             device=self.device,
@@ -98,8 +109,7 @@ class TorchTrain(FlowSpec):
             epochs=int(self.epochs),
             checkpoint=checkpoint,
             dataset=self.dataset,
-            n_train=int(self.n_train),
-            n_test=int(self.n_test),
+            **self.data_sizes_used,
         )
         self.next(self.join)
 

@@ -3,16 +3,16 @@
 Counterpart of ``tpuflow/infer/engine.py:31-143`` and ``:459-524``:
 
 - ``BatchPredictor`` loads the weights once (``from_checkpoint``: the
-  ``params`` subtree of a checkpoint, weights only) and maps a batch to
+  ``params`` subtree of a checkpoint, and for a model with BatchNorm its
+  ``batch_stats`` subtree, whose absence is an error) and maps a batch to
   ``{"logits": f32, "predicted_values": argmax}`` with a no-grad forward
-  on its device.
+  on its device (BatchNorm on its running statistics).
 - ``map_batches`` feeds it fixed-size batches (the ragged tail padded by
   repeating its last row, the outputs trimmed) and returns one output row
   per input row, in order; a one-thread prefetch assembles batch N+1
   while batch N runs.
 
-Not here yet: BatchNorm running statistics (no ported model has them;
-ROADMAP Queue 1 item 11) and ``GenerationPredictor`` (item 13).
+Not here yet: ``GenerationPredictor`` (ROADMAP Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -24,7 +24,11 @@ import numpy as np
 import torch
 
 from tpuflow_torch.ckpt import Checkpoint, restore_from_handle
-from tpuflow_torch.ckpt.tree import load_params
+from tpuflow_torch.ckpt.tree import (
+    load_batch_stats,
+    load_params,
+    running_stats,
+)
 from tpuflow_torch.device import resolve_device
 
 
@@ -40,10 +44,23 @@ class BatchPredictor:
     def from_checkpoint(cls, checkpoint: Checkpoint, model: torch.nn.Module,
                         *, device=None) -> "BatchPredictor":
         """Load the checkpoint's ``params`` (the JAX layout, weights only)
-        into ``model`` once, then serve from it."""
+        into ``model`` once, then serve from it. A model with BatchNorm
+        also loads the ``batch_stats`` subtree; a checkpoint without one
+        raises ``KeyError``, since the running statistics are what
+        inference normalises by."""
         device = resolve_device(device)
         params = restore_from_handle(checkpoint, weights_only=True)
         load_params(model, params)
+        if running_stats(model):
+            try:
+                stats = restore_from_handle(checkpoint,
+                                            subtree=("batch_stats",))
+            except KeyError:
+                raise KeyError(
+                    "model has BatchNorm running statistics but checkpoint "
+                    f"{checkpoint.path} carries no batch_stats subtree: it "
+                    "cannot serve inference") from None
+            load_batch_stats(model, stats)
         return cls(model, device=device)
 
     @torch.no_grad()

@@ -1,6 +1,8 @@
 """Weights between the JAX package's Flax param trees and the port's
-modules: GPT-2 (``params_from_jax``) and the MLP (``mlp_params_from_jax``,
-``mlp_params_to_jax``).
+modules: GPT-2 (``params_from_jax``), and every other model, whose module
+tree carries the Flax names (``named_params_{to,from}_jax``; the MLP's and
+ViT's names are aliases of these, ``resnet_params_{from,to}_jax`` adds
+BatchNorm's ``batch_stats``).
 
 ``params_from_jax(tree)`` takes the Flax param tree as nested mappings of
 numpy arrays (``jax.device_get(params)`` gives one) or of torch tensors (a
@@ -12,6 +14,8 @@ layouts: unrolled blocks (``h0`` .. ``h{L-1}``) and ``scan_layers``
 """
 
 from __future__ import annotations
+
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -66,23 +70,74 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
     return sd
 
 
-_MLP_DENSE = ("dense1", "dense2", "dense3")
+def named_params_to_jax(sd: dict) -> dict:
+    """A name → tensor mapping of a module whose submodules carry the Flax
+    names → the Flax tree: a 4-D ``weight`` (a convolution, OIHW) becomes
+    ``kernel`` (HWIO), a 2-D one (``nn.Linear``, (out, in)) ``kernel``
+    (in, out), a 1-D one (a norm) ``scale``; every other leaf (``bias``,
+    ``cls``, ``pos_embed``, the norms' ``mean`` and ``var``) keeps its
+    name. The leaves are views."""
+    tree: dict = {}
+    for key, t in sd.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for name in path:
+            node = node.setdefault(name, {})
+        if leaf == "weight":
+            leaf, t = (("kernel", t.permute(2, 3, 1, 0)) if t.ndim == 4
+                       else ("kernel", t.t()) if t.ndim == 2
+                       else ("scale", t))
+        node[leaf] = t
+    return tree
 
 
-def mlp_params_from_jax(tree) -> dict[str, torch.Tensor]:
-    """Flax ``NeuralNetwork`` params (``dense{1,2,3}/{kernel (in, out),
-    bias}``, numpy arrays or tensors) → the port MLP's ``state_dict``
-    (float32, CPU)."""
+def named_params_from_jax(tree, prefix: str = ""
+                          ) -> dict[str, torch.Tensor]:
+    """The inverse of ``named_params_to_jax`` (numpy arrays or tensors in;
+    contiguous float32 CPU tensors out)."""
     sd = {}
-    for name in _MLP_DENSE:
-        sd[f"{name}.weight"] = _t(tree[name]["kernel"]).t().contiguous()
-        sd[f"{name}.bias"] = _t(tree[name]["bias"])
+    for key, v in tree.items():
+        if isinstance(v, Mapping):
+            sd.update(named_params_from_jax(v, f"{prefix}{key}."))
+            continue
+        t = _t(v)
+        if key == "kernel":
+            key, t = "weight", (t.permute(3, 2, 0, 1) if t.ndim == 4
+                                else t.t())
+        elif key == "scale":
+            key = "weight"
+        sd[f"{prefix}{key}"] = t.contiguous()
     return sd
 
 
-def mlp_params_to_jax(sd: dict) -> dict:
-    """The inverse: the port MLP's ``state_dict`` (or any name → tensor
-    mapping of its parameters) → the Flax param tree, kernels as (in, out)
-    views."""
-    return {name: {"kernel": sd[f"{name}.weight"].t(),
-                   "bias": sd[f"{name}.bias"]} for name in _MLP_DENSE}
+def _is_stat(key: str) -> bool:
+    return key.rsplit(".", 1)[-1] in ("mean", "var")
+
+
+def resnet_params_to_jax(sd: dict) -> tuple[dict, dict]:
+    """The port ResNet's ``state_dict`` (or any name → tensor mapping of its
+    parameters and BatchNorm buffers) → ``(params, batch_stats)``, the Flax
+    trees (``Conv_0/kernel`` HWIO, ``BatchNorm_0/{scale, bias}``,
+    ``BasicBlock_3/...``, ``Dense_0/{kernel, bias}``; ``batch_stats``:
+    ``BatchNorm_i/{mean, var}``), as views. ``batch_stats`` is empty when
+    ``sd`` holds no buffers."""
+    return (named_params_to_jax({k: v for k, v in sd.items()
+                                 if not _is_stat(k)}),
+            named_params_to_jax({k: v for k, v in sd.items() if _is_stat(k)}))
+
+
+def resnet_params_from_jax(params, batch_stats=None) -> dict[str, torch.Tensor]:
+    """The Flax ResNet ``params`` (and ``batch_stats``) trees, numpy arrays
+    or tensors → a ``state_dict`` for the port's ResNet (float32, CPU;
+    without ``batch_stats`` only the parameters)."""
+    sd = named_params_from_jax(params)
+    if batch_stats:
+        sd.update(named_params_from_jax(batch_stats))
+    return sd
+
+
+# The MLP's (``dense{1,2,3}/{kernel (in, out), bias}``) and ViT's
+# (``patch_embed/kernel`` HWIO, ``cls``, ``pos_embed``, ``block{i}/...``,
+# ``ln_f``, ``head``; no ``batch_stats``) Flax trees are the walker's.
+mlp_params_to_jax = vit_params_to_jax = named_params_to_jax
+mlp_params_from_jax = vit_params_from_jax = named_params_from_jax

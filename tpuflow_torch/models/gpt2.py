@@ -208,6 +208,20 @@ def _masked_attention(q, k, v, valid):
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 
+# Flax's truncated-normal variance scaling draws at +-2 std and divides the
+# std by this factor so the truncated distribution keeps the variance.
+_TRUNC_STD = 0.87962566103423978
+
+
+def variance_scaling_(w: torch.Tensor, fan_in: int, scale: float,
+                      g: torch.Generator) -> None:
+    """Flax ``variance_scaling(scale, "fan_in", "truncated_normal")`` into
+    ``w``, drawn from ``g``: ``lecun_normal`` at scale 1, ``he_normal`` at
+    2."""
+    std = math.sqrt(scale / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=g)
+
+
 def fold_in(seed: int, *data: int) -> int:
     """A 63-bit seed derived from ``seed`` and the non-negative ints
     ``data``: the counterpart of ``jax.random.fold_in`` (it gives other
@@ -501,12 +515,7 @@ class GPT2(nn.Module):
         self.wpe.normal_(0.0, 0.01, generator=g)
         for m in self.modules():
             if isinstance(m, nn.Linear):
-                # lecun_normal: truncated normal at +-2 std, variance
-                # 1/fan_in after truncation (flax variance_scaling).
-                std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
-                nn.init.trunc_normal_(
-                    m.weight, 0.0, std, -2 * std, 2 * std, generator=g
-                )
+                variance_scaling_(m.weight, m.in_features, 1.0, g)
                 m.bias.zero_()
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)

@@ -15,12 +15,11 @@ does.
 
 from __future__ import annotations
 
-import math
 
 import torch
 from torch import nn
 
-from tpuflow_torch.models.gpt2 import _dropout
+from tpuflow_torch.models.gpt2 import _dropout, variance_scaling_
 
 
 class NeuralNetwork(nn.Module):
@@ -47,9 +46,7 @@ class NeuralNetwork(nn.Module):
         same seed; the parity tests load one set of weights into both."""
         g = torch.Generator().manual_seed(seed)
         for m in (self.dense1, self.dense2, self.dense3):
-            std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
-            nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
-                                  generator=g)
+            variance_scaling_(m.weight, m.in_features, 1.0, g)
             m.bias.zero_()
 
     def forward(self, x, *, train: bool = False, rng: int | None = None):

@@ -9,8 +9,17 @@ one optimizer update, optional EMA of the weights, and the same metrics
 (loss, accuracy and the health statistics). The state is updated in place
 (the counterpart of the JAX step's donated state) and returned. The steps
 take GPT token batches (``x``, ``y``: (B, T)) and image batches (``x``
-(B, 28, 28) f32, ``y`` (B,)) alike; with a ``mesh`` of several processes
-the gradients are averaged over its ``data`` axis before the update.
+(B, H, W[, C]) f32, ``y`` (B,)) alike; with a ``mesh`` of several
+processes the gradients are averaged over its ``data`` axis before the
+update (one flat all-reduce).
+
+BatchNorm models (``models/resnet.py``) keep their running statistics as
+module buffers: every ``train=True`` forward moves them, so with
+``accum_steps > 1`` they move once per microbatch, as the JAX step's scan
+carries them (``tpuflow/train/step.py:431-530``); the eval step's
+``train=False`` forward normalises by them. They are not parameters, so
+the gradient bucket leaves them out; across processes they stay equal
+because the statistics are global (the forward all-reduces them).
 
 Also here: ``create_train_state`` (an ``nn.Module`` with SGD at momentum
 0.9, the MLP recipe) and ``DispatchWindow`` (the host-side bookkeeping of
@@ -123,7 +132,7 @@ def make_train_step(
     """Build ``train_step(state, batch, rng) -> (state, metrics)``.
 
     ``batch`` holds ``x`` (B, T) token ids and ``y`` (B, T) targets, or
-    ``x`` (B, 28, 28) images and ``y`` (B,) labels (host arrays or
+    ``x`` (B, H, W[, C]) images and ``y`` (B,) labels (host arrays or
     tensors); ``rng`` is an int seed. ``mesh`` (``dist.make_mesh``): the
     gradients are averaged over its ``data`` axis before the update (one
     process: untouched). ``accum_steps > 1`` splits
