@@ -32,7 +32,18 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    ``generate()`` on a 512-token dense prompt (its prefill must launch the
    flash kernel once per layer), then a paged ``ServeEngine`` answering
    fp and int8 requests, each held equal to a solo ``generate()``.
-5. Training slice: ``train_gpt`` trains GPT-2 124M (full remat, dropout
+5. Generation slice on the same model (``generation_phase``): beam search
+   (K = 1 equal to greedy; K = 4 prefilled once at width B, its scores
+   against ``sequence_logprob`` on the flash forward; the fused-native
+   model on both int8 tiles), ``speculative_generate`` at batch 1 and 4,
+   fp and fused-native, equal to ``generate()``, the engine's speculative
+   verify with fp and int8 requests mixed, each equal to its solo
+   ``generate()``, weight-only int8 against the fp model loaded with its
+   dequantized leaves (bytes, teacher-forced agreement, decode ms a token
+   of fp, weight-only and fused-native), and ``GenerationPredictor`` over
+   ragged rows (the engine route) and a speculative int8 dense batch.
+   Each leg's launches are read from zero; walls beside the card's name.
+6. Training slice: ``train_gpt`` trains GPT-2 124M (full remat, dropout
    0.1, AdamW, f32) for 2 epochs of 8 steps at batch 8 x 1024 with the
    flash kernels; every loss finite, the last below the first and the
    second epoch's mean below the first's, each kernel launched the number
@@ -43,9 +54,9 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    with ``dtype="bfloat16"`` for one epoch of 8 steps, the flash kernels
    on their tensor-core variants: every loss finite, exact launch counts
    (the bf16 ones included), its step ms and tokens/s.
-6. Split + checkpoint leg: the same ``train_gpt`` call with the split
+7. Split + checkpoint leg: the same ``train_gpt`` call with the split
    backward and a checkpoint directory (saves at steps 8 and 16): its 16
-   losses bit-equal to step 5's, exact launch counts. Resume leg: the same
+   losses bit-equal to step 6's, exact launch counts. Resume leg: the same
    call on a copy of that directory without ``step_16``: an in-run resume
    from step 8, its 8 losses bit-equal to the split leg's last 8 and a
    ``step_16`` whose every shard crc32 equals the split leg's. Save and
@@ -53,7 +64,7 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    state's save and restore taken apart outside training: crc32, writes
    with fsync, reads. The directories live under ``build/`` and are
    deleted at the end.
-7. The README main path: ``train_fashion_mnist`` (the FashionMNIST MLP at
+8. The README main path: ``train_fashion_mnist`` (the FashionMNIST MLP at
    784 -> 512 -> 512 -> 10, 3 epochs at batch 32, lr 1e-3, on the
    full-size synthetic set, per-epoch checkpoints): every val_loss
    finite, the third below the first, the best accuracy above a floor,
@@ -67,7 +78,7 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    its numbers: step ms and samples/s, the epoch's wall, the device's
    busy share and kernels a step under the profiler, the checkpoint's
    save and restore seconds, eval rows/s.
-8. The flow layer on the card through the flow CLIs' ``main(argv)``
+9. The flow layer on the card through the flow CLIs' ``main(argv)``
    (``flow_phase``): the README contract (``TorchTrain`` 2 epochs on the
    full-size synthetic set, a ``--from-run`` warm start whose first
    val_loss is below run 1's, a triggered ``TorchEval`` at batch 512 whose
@@ -75,10 +86,11 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    a pathspec eval, the "no checkpoint source" error; no kernel launches),
    then ``TorchGptTrain`` at GPT-2 124M width on the flash kernels (exact
    launch counts, a finite last loss) and the triggered ``TorchGptEval``
-   (a finite test loss, exact no-lse launches). Each flow's wall, the
+   with ``--beam-size 4`` (a finite test loss, the beam sample on its
+   card, exact no-lse launches). Each flow's wall, the
    wrapped call's wall and the flow layer's overhead, the GPT step ms
    inside the flow, ``profile.json``'s device and peak bytes.
-9. The image phase: ResNet-18 / CIFAR-10 through the flows
+10. The image phase: ResNet-18 / CIFAR-10 through the flows
    (``resnet18_flow_leg``: ``TorchTrain --model resnet18 --dataset
    cifar10`` 2 epochs on 10,000 synthetic train rows, a ``--from-run``
    warm start below run 1's first val_loss, the triggered ``TorchEval``
@@ -92,13 +104,14 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    pair for the steps taken and of the no-lse forward in validation and
    in the predictor, and one step's loss and gradients against
    ``attn_impl="xla"`` within the GPT step-parity limits.
-10. One JSON line with every kernel's numbers (the int8 matmul both as one
+11. One JSON line with every kernel's numbers (the int8 matmul both as one
    decode step at M = 8 and as the same 49 products at M = 512; the
    training kernels in f32 and bf16, their launches from the f32 legs and
    the bf16 leg, which runs the fused pair, so the bf16 split variants'
    count there is 0; the wide-head kernels at D = 512, their launches the
    wide-head runs the main paths' counters read; ``flow_launches``: the
-   flash kernels' launches in the flow phase; the ``_vit`` entries at the
+   flash kernels' launches in the flow phase; ``generation_launches``:
+   those of the generation phase; the ``_vit`` entries at the
    ViT shape, f32, their launches the ViT leg's), the ``nvidia-smi`` line,
    and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -118,6 +131,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
 import json
 import os
 import shutil
@@ -234,6 +248,16 @@ PREFILL_M = 512   # the widest prefill bucket the slice phase uses
 GEN_PROMPT = 512
 NEW_TOKENS = 32
 ENGINE_LENS = (5, 300, 64, 17, 129, 250, 33, 200)
+# The generation phase: beam width; speculative prompts repeat a 32-token
+# segment to 512 tokens, drafts of 4, 64 new tokens; weight-only decode
+# is timed after 128-token prompts. Beam scores against sequence_logprob
+# on the flash forward: the decode path and the dense forward sum the
+# same f32 products in other orders (~1e-5 at the logits), averaged over
+# 32 tokens.
+BEAM_K = 4
+BEAM_SCORE_ATOL = 1e-4
+SPEC_SEGMENT, SPEC_NEW, SPEC_K = 32, 64, 4
+WEIGHT_PROMPT = 128
 # The flow phase: the GPT-2 train flow at 124M width (2 epochs of 4 steps
 # at 8 x 1024 on the flash kernels), then the triggered eval flow sampling
 # this many tokens three times.
@@ -771,6 +795,361 @@ def slice_phase(torch, smi):
     res["engine_profile"] = engine_profile(torch, model, prompts, flags,
                                            eng_s)
     return res, flash_launches, int8_launches
+
+
+def _decode_ms(torch, model, prompt, steps: int = 16) -> float:
+    """Device-synchronized wall of one greedy decode step of ``model``
+    after a prefill of ``prompt``, averaged over ``steps`` steps (one
+    warm-up step first)."""
+    from tpuflow_torch.infer.generate import chunked_prefill
+
+    with torch.no_grad():
+        logits, cache = chunked_prefill(model, prompt, None)
+        for i in range(steps + 1):
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            tok = torch.argmax(logits[:, -1, :], dim=-1)
+            logits, cache = model(tok[:, None], decode=True, cache=cache)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def _chunk_cost(torch, model, prompt, width: int, reps: int = 8) -> dict:
+    """One decode call over a (B, ``width``) chunk after a prefill of
+    ``prompt``: its device-synchronized wall (the cache index reset before
+    each of ``reps`` calls) and the CUDA kernels it launches (profiler)."""
+    from tpuflow_torch.infer.generate import chunked_prefill
+
+    with torch.no_grad():
+        _, cache = chunked_prefill(model, prompt, None)
+        T = cache.index
+        chunk = prompt[:, :width]
+
+        def call():
+            cache.index = T
+            model(chunk, decode=True, cache=cache)
+
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / reps * 1e3
+        return dict(ms=ms, kernels=len(kernel_trace(torch, call)))
+
+
+def _split_cost(torch, model, prompt, width: int) -> dict:
+    """What running a multi-token decode chunk one (row, position) at a
+    time costs (``models/gpt2.py::_tokenwise``): the chunk split as the
+    model runs it, the same chunk split by rows only (the products at
+    M = width; timing only, its rounding is not decode's), and one
+    single-token step."""
+    from tpuflow_torch.models import gpt2
+
+    split = _chunk_cost(torch, model, prompt, width)
+    tokenwise, decode_attention = gpt2._tokenwise, gpt2._decode_attention
+    gpt2._tokenwise = gpt2._rowwise
+    gpt2._decode_attention = (
+        lambda q, k, v, valid: gpt2._rowwise(gpt2._masked_attention, q, k,
+                                             v, valid))
+    try:
+        rows_only = _chunk_cost(torch, model, prompt, width)
+    finally:
+        gpt2._tokenwise, gpt2._decode_attention = tokenwise, decode_attention
+    step = _chunk_cost(torch, model, prompt, 1)
+    return dict(batch=prompt.shape[0], width=width, split=split,
+                rows_only=rows_only, single_step=step)
+
+
+def _timed(torch, fn):
+    """``(fn(), device-synchronized wall seconds)``."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.monotonic() - t0
+
+
+def generation_phase(torch, smi) -> dict:
+    """The generation surface on GPT-2 124M (``from_preset("gpt2")``,
+    weights from seed 0, ``attn_impl`` auto, f32), each leg's launch
+    counts read from zero:
+
+    1. Beam search on a (2, 512) prompt, 32 new tokens: K = 1 equals
+       greedy ``generate()``; K = 4 prefills once at width 2 (12 flash
+       launches) and each row's best score is within ``BEAM_SCORE_ATOL``
+       of ``sequence_logprob(per_token=True)`` of its tokens (scored on
+       the flash forward); K = 4 on the fused-native model runs both int8
+       tiles.
+    2. ``speculative_generate(draft_len=4, ngram=3)`` on 512-token prompts
+       repeating a 32-token segment, batch 1 and 4, 64 new tokens, fp and
+       fused-native: tokens equal ``generate(temperature=0)``;
+       committed tokens per forward and the wall against generate()'s.
+    3. ``ServeEngine(speculative=4, quant="fused_native")`` on the
+       ``ENGINE_LENS`` traffic, half the requests speculative, fp and int8
+       mixed: each equals its solo ``generate()``; tokens/s with and
+       without speculation, the acceptance rate.
+    4. Weight-only int8: greedy tokens equal an fp GPT2 loaded with
+       ``dequantize_params`` of the same leaves; int8 bytes against fp;
+       ``teacher_forced_agreement`` against fp; decode ms per token at
+       batch 8 of fp, weight-only and fused-native (the card's numbers
+       behind ``quant_decision``).
+    5. ``GenerationPredictor`` through ``map_batches`` on 16 ragged prompts
+       (5-300 tokens) at batch 8: every row equals a per-row
+       ``generate()``, the second batch through the engine route; then
+       ``quantize="int8-native", speculative=True`` on a dense batch."""
+    from tpuflow_torch.infer import beam as beam_mod
+    from tpuflow_torch.infer.beam import beam_search
+    from tpuflow_torch.infer.engine import GenerationPredictor, map_batches
+    from tpuflow_torch.infer.generate import generate
+    from tpuflow_torch.infer.quant import (
+        dequantize_params,
+        quant_decision,
+        quantize_model,
+        quantized_nbytes,
+        teacher_forced_agreement,
+    )
+    from tpuflow_torch.infer.score import sequence_logprob
+    from tpuflow_torch.infer.serve import ServeEngine
+    from tpuflow_torch.infer.speculative import speculative_generate
+    from tpuflow_torch.models.convert import params_from_jax
+    from tpuflow_torch.models.gpt2 import GPT2, GPT2Config
+    from tpuflow_torch.ops import flash_attention as fa
+    from tpuflow_torch.ops import int8_matmul as im
+
+    cfg = GPT2Config.from_preset("gpt2")
+    model = GPT2(cfg, seed=0)
+    qmodel = quantize_model(model, mode="fused_native")
+    rng = np.random.default_rng(10)
+    res, launches, tiles = {"gpu": smi}, {}, {}
+
+    def counted(name, fn):
+        """``fn()`` with every counter read from zero; its wall."""
+        _zero_counters(fa, im)
+        out, wall = _timed(torch, fn)
+        launches[name] = _counters(fa, im)
+        tiles[name] = dict(im.tile_launches)
+        return out, wall
+
+    def solo(m, p, n, **kw):
+        return generate(m, np.asarray(p)[None], max_new_tokens=n,
+                        temperature=0.0, **kw)[0].cpu().numpy()
+
+    # --- 1. beam search.
+    prompt = rng.integers(0, cfg.vocab_size, size=(2, GEN_PROMPT))
+    greedy = generate(model, prompt, max_new_tokens=NEW_TOKENS,
+                      temperature=0.0).cpu().numpy()
+    best1, _ = beam_search(model, prompt, beam_size=1,
+                           max_new_tokens=NEW_TOKENS)
+    if not np.array_equal(best1.cpu().numpy(), greedy):
+        raise AssertionError("beam_search(K=1) differs from greedy "
+                             "generate()")
+    widths = []
+    prefill = beam_mod.chunked_prefill
+
+    def recording_prefill(m, p, *a, **kw):
+        widths.append(tuple(p.shape))
+        return prefill(m, p, *a, **kw)
+
+    beam_mod.chunked_prefill = recording_prefill
+    try:
+        (best, scores), beam_s = counted("beam", lambda: beam_search(
+            model, prompt, beam_size=BEAM_K, max_new_tokens=NEW_TOKENS))
+    finally:
+        beam_mod.chunked_prefill = prefill
+    if launches["beam"] != _launches(flash_fwd=cfg.n_layer):
+        raise AssertionError(f"beam K={BEAM_K} launched {launches['beam']}, "
+                             f"want {cfg.n_layer} flash forwards")
+    if widths != [(2, GEN_PROMPT)]:
+        raise AssertionError(f"beam prefill widths {widths}, want one at "
+                             f"width 2")
+    scorer = GPT2(dataclasses.replace(cfg, attn_impl="flash"), seed=None)
+    scorer.load_state_dict(model.state_dict())
+    full = np.concatenate([prompt, best.cpu().numpy()], axis=1)
+    mask = np.zeros(full.shape, np.float32)
+    mask[:, GEN_PROMPT:] = 1.0
+    lp, _ = counted("score", lambda: sequence_logprob(
+        scorer, full, mask=mask, per_token=True))
+    del scorer
+    if launches["score"] != _launches(flash_fwd=cfg.n_layer):
+        raise AssertionError(f"sequence_logprob launched "
+                             f"{launches['score']}")
+    score_err = float((lp - scores).abs().max())
+    if not score_err <= BEAM_SCORE_ATOL:
+        raise AssertionError(f"beam scores {scores} vs sequence_logprob "
+                             f"{lp}: {score_err}")
+    _, qbeam_s = counted("beam_int8", lambda: beam_search(
+        qmodel, prompt, beam_size=BEAM_K, max_new_tokens=NEW_TOKENS))
+    if not (tiles["beam_int8"]["decode"] and tiles["beam_int8"]["prefill"]):
+        raise AssertionError(f"fused-native beam int8 tiles "
+                             f"{tiles['beam_int8']}")
+    res["beam"] = dict(
+        k=BEAM_K, prompt=[2, GEN_PROMPT], new_tokens=NEW_TOKENS,
+        wall_s=beam_s, int8_wall_s=qbeam_s, scores=scores.tolist(),
+        score_max_abs_err_vs_sequence_logprob=score_err,
+        launches=launches["beam"], int8_tiles=tiles["beam_int8"],
+        score_launches=launches["score"])
+    print(f"beam K={BEAM_K}: 2 x {GEN_PROMPT}, {NEW_TOKENS} new tokens in "
+          f"{beam_s:.3f} s (fused-native {qbeam_s:.3f} s), K=1 equal to "
+          f"greedy, scores {[round(x, 5) for x in scores.tolist()]} within "
+          f"{score_err:.2g} of sequence_logprob, flash launches "
+          f"{launches['beam']['flash_fwd']} (prefill once at width 2), int8 "
+          f"tiles {tiles['beam_int8']} [{smi}]")
+
+    # --- 2. speculative decoding, solo.
+    res["speculative"] = []
+    for B in (1, 4):
+        segs = rng.integers(0, cfg.vocab_size, size=(B, SPEC_SEGMENT))
+        sp_prompt = np.tile(segs, (1, GEN_PROMPT // SPEC_SEGMENT))
+        for name, m in (("fp", model), ("fused_native", qmodel)):
+            want, gen_s = _timed(torch, lambda: generate(
+                m, sp_prompt, max_new_tokens=SPEC_NEW, temperature=0.0))
+            leg = f"spec_{name}_b{B}"
+            (got, stats), spec_s = counted(leg, lambda: speculative_generate(
+                m, sp_prompt, max_new_tokens=SPEC_NEW, draft_len=SPEC_K,
+                ngram=3, return_stats=True))
+            if not torch.equal(got, want):
+                raise AssertionError(f"speculative {name} batch {B} differs "
+                                     "from generate()")
+            rate = stats["n_committed"] / stats["n_forwards"]
+            res["speculative"].append(dict(
+                batch=B, model=name, wall_s=spec_s, generate_wall_s=gen_s,
+                launches=launches[leg], **stats))
+            print(f"speculative {name} batch {B}: {SPEC_NEW} tokens equal to "
+                  f"generate(); {stats['n_committed']} / "
+                  f"{stats['n_forwards']} forwards = {rate:.2f} tokens a "
+                  f"forward; {spec_s:.3f} s vs generate() {gen_s:.3f} s "
+                  f"[{smi}]")
+
+    # What the verify chunk's split costs at (4, K + 1).
+    sp_prompt = torch.as_tensor(sp_prompt, device=model.device)
+    cost = _split_cost(torch, model, sp_prompt, SPEC_K + 1)
+    res["verify_split_cost"] = cost
+    print(f"verify chunk (4, {SPEC_K + 1}), fp: split by (row, position) "
+          f"{cost['split']['ms']:.2f} ms, {cost['split']['kernels']} kernels; "
+          f"by rows only {cost['rows_only']['ms']:.2f} ms, "
+          f"{cost['rows_only']['kernels']} kernels; one single-token step "
+          f"{cost['single_step']['ms']:.2f} ms, "
+          f"{cost['single_step']['kernels']} kernels [{smi}]")
+
+    # --- 3. the engine with speculative verify, fp and int8 mixed.
+    prompts = [rng.integers(0, cfg.vocab_size, size=L) for L in ENGINE_LENS]
+    flags = [(i % 2 == 1, i % 4 < 2) for i in range(len(prompts))]
+    eng = ServeEngine(model, max_slots=8, speculative=SPEC_K,
+                      quant="fused_native")
+
+    def serve(spec_on):
+        reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS, quantize=q,
+                           speculative=sp and spec_on)
+                for p, (q, sp) in zip(prompts, flags)]
+        eng.run_until_idle()
+        return reqs
+
+    reqs, eng_s = counted("engine_spec", lambda: serve(True))
+    for p, (q, sp), r in zip(prompts, flags, reqs):
+        want = solo(eng._qmodel if q else model, p, NEW_TOKENS)
+        if not (r.done and np.array_equal(r.result(), want)):
+            raise AssertionError(f"engine request (len {p.size}, int8={q}, "
+                                 f"speculative={sp}) differs from solo "
+                                 "generate()")
+    n_tok = sum(len(r.tokens) for r in reqs)
+    plain, plain_s = counted("engine_plain", lambda: serve(False))
+    n_plain = sum(len(r.tokens) for r in plain)
+    res["engine"] = dict(
+        requests=len(reqs), speculative=sum(sp for _, sp in flags),
+        int8=sum(q for q, _ in flags), tokens=n_tok, wall_s=eng_s,
+        tokens_per_s=n_tok / eng_s, plain_wall_s=plain_s,
+        plain_tokens_per_s=n_plain / plain_s,
+        spec_accept_rate=eng.spec_accept_rate,
+        launches=launches["engine_spec"])
+    print(f"engine, speculative={SPEC_K} + fused_native: {len(reqs)} requests "
+          f"(half speculative, half int8) equal to solo generate(); "
+          f"{n_tok / eng_s:.1f} tokens/s ({eng_s:.3f} s), without "
+          f"speculation {n_plain / plain_s:.1f} tokens/s ({plain_s:.3f} s); "
+          f"accept rate {eng.spec_accept_rate:.3f} tokens a verify [{smi}]")
+
+    # --- 4. weight-only int8.
+    wmodel = quantize_model(model, mode="weight")
+    deq = GPT2(cfg, seed=None)
+    deq.load_state_dict(params_from_jax(dequantize_params(wmodel.leaves),
+                                        device=model.device))
+    wp = prompt[:1]
+    got, w_s = counted("weight_only", lambda: generate(
+        wmodel, wp, max_new_tokens=NEW_TOKENS, temperature=0.0))
+    want = generate(deq, wp, max_new_tokens=NEW_TOKENS, temperature=0.0)
+    if not torch.equal(got, want):
+        raise AssertionError("weight-only tokens differ from the fp model "
+                             "loaded with the dequantized leaves")
+    del deq
+    fp_bytes = sum(p.nbytes for p in model.parameters())
+    q_bytes = quantized_nbytes(wmodel.leaves)
+    ref = generate(model, wp, max_new_tokens=NEW_TOKENS, temperature=0.0)
+    toks = np.concatenate([wp, ref.cpu().numpy()], axis=1)
+    agree = teacher_forced_agreement(model, wmodel, toks, GEN_PROMPT)
+    dp = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                      size=(DECODE_M, WEIGHT_PROMPT)),
+                         device=model.device)
+    # Host-bound steps whose wall drifts within a call: two rounds, the
+    # second in reverse order, each model's mean of the two.
+    order = (("fp", model), ("weight_only", wmodel), ("fused_native", qmodel))
+    rounds = [{name: _decode_ms(torch, m, dp) for name, m in seq}
+              for seq in (order, order[::-1])]
+    ms = {name: (rounds[0][name] + rounds[1][name]) / 2 for name, _ in order}
+    decision = quant_decision(model)
+    res["weight_only"] = dict(
+        wall_s=w_s, fp_bytes=fp_bytes, int8_bytes=q_bytes,
+        teacher_forced_agreement=agree, decode_ms_per_token_b8=ms,
+        decode_ms_rounds=rounds,
+        decision=dataclasses.asdict(decision),
+        launches=launches["weight_only"])
+    print(f"weight-only int8: tokens equal the dequantized fp model's; "
+          f"{q_bytes / 2**20:.1f} MiB vs fp {fp_bytes / 2**20:.1f} MiB; "
+          f"teacher-forced agreement with fp {agree:.4f}; decode ms a token "
+          f"at batch {DECODE_M}, the mean of two rounds: "
+          + ", ".join(f"{name} {ms[name]:.2f} ({rounds[0][name]:.2f}, "
+                      f"{rounds[1][name]:.2f})" for name, _ in order)
+          + "; "
+          f"quant_decision apply={decision.apply} [{smi}]")
+
+    # --- 5. GenerationPredictor.
+    rows = [{"tokens": rng.integers(0, cfg.vocab_size, size=L)}
+            for L in rng.integers(5, 301, size=16)]
+    pred = GenerationPredictor(model, max_new_tokens=NEW_TOKENS)
+    out, pred_s = counted("predictor", lambda: map_batches(
+        rows, pred, batch_size=DECODE_M))
+    for r, o in zip(rows, out):
+        if not np.array_equal(o["generated"],
+                              solo(model, r["tokens"], NEW_TOKENS)):
+            raise AssertionError("GenerationPredictor row differs from its "
+                                 "per-row generate()")
+    if (pred.stats["generate_batches"], pred.stats["serve_batches"]) != (1, 1):
+        raise AssertionError(f"predictor routes {pred.stats}: want the "
+                             "second batch on the engine")
+    segs = rng.integers(0, cfg.vocab_size, size=(DECODE_M, SPEC_SEGMENT))
+    dense = np.tile(segs, (1, 4))
+    spred = GenerationPredictor(model, max_new_tokens=NEW_TOKENS,
+                                quantize="int8-native", speculative=True,
+                                draft_len=SPEC_K)
+    sout, spred_s = counted("predictor_spec", lambda: spred(
+        {"tokens": dense}))
+    want = generate(spred.model, dense, max_new_tokens=NEW_TOKENS,
+                    temperature=0.0).cpu().numpy()
+    if not (np.array_equal(sout["generated"], want)
+            and spred.stats["spec_batches"] == 1):
+        raise AssertionError(f"speculative int8 predictor {spred.stats} "
+                             "differs from generate()")
+    res["predictor"] = dict(
+        rows=len(rows), wall_s=pred_s, stats=pred.stats,
+        spec_int8_wall_s=spred_s, spec_int8_stats=spred.stats,
+        launches=launches["predictor"])
+    print(f"GenerationPredictor: 16 ragged rows at batch {DECODE_M} in "
+          f"{pred_s:.3f} s, routes {pred.stats}; int8-native speculative "
+          f"dense batch in {spred_s:.3f} s, {spred.stats}; every row equal "
+          f"to its generate() [{smi}]")
+    res["launches"], res["int8_tiles"] = launches, tiles
+    return res
 
 
 def _busy(kernels) -> float:
@@ -1661,12 +2040,14 @@ def flow_phase(torch, smi) -> dict:
     6. ``TorchGptTrain`` at GPT-2 124M width (``FLOW_GPT_ARGS``): every
        flash launch count what its steps imply, the last epoch's loss
        finite;
-    7. ``TorchGptEval run --triggered --attn-impl flash``: a finite test
-       loss, and the no-lse forward launched once a layer for every
-       validation batch and every sample's prefill.
+    7. ``TorchGptEval run --triggered --attn-impl flash --beam-size 4``:
+       a finite test loss, the beam sample on its card, and the no-lse
+       forward launched once a layer for every validation batch and every
+       sample's prefill, the beam's included.
 
     Each flow's wall, the wrapped call's wall (``train_model``,
-    ``map_batches``, ``train_gpt``, ``run_validation`` + ``generate``)
+    ``map_batches``, ``train_gpt``, ``run_validation`` + ``generate`` +
+    ``beam_search``)
     and the difference, the flow layer's own overhead; the GPT step ms
     inside the flow; the train step's ``profile.json`` (device kind, peak
     bytes). Counters are zeroed before leg 6 and before leg 7 and read
@@ -1676,12 +2057,14 @@ def flow_phase(torch, smi) -> dict:
     from tpuflow_torch.flows import eval_flow, gpt_eval_flow, gpt_flow
     from tpuflow_torch.flows import my_torch_module as m
     from tpuflow_torch.flows import train_flow
-    from tpuflow_torch.infer import generate as gen_mod
+    from tpuflow_torch.infer import beam as beam_mod
     from tpuflow_torch.ops import flash_attention as fa
     from tpuflow_torch.ops import int8_matmul as im
     from tpuflow_torch.train import gpt as gpt_mod
     from tpuflow_torch.train import step as step_mod
 
+    # The package exports the function under the module's name.
+    gen_mod = importlib.import_module("tpuflow_torch.infer.generate")
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     home = tempfile.mkdtemp(prefix="chip_smoke_flows_",
                             dir=os.path.join(REPO, "build"))
@@ -1797,22 +2180,32 @@ def flow_phase(torch, smi) -> dict:
         _zero_counters(fa, im)
         ge = leg("TorchGptEval --triggered", gpt_eval_flow.main,
                  ["run", "--triggered", "--sample-tokens",
-                  str(FLOW_SAMPLE_TOKENS), "--attn-impl", "flash"],
-                 [(step_mod, "run_validation"), (gen_mod, "generate")])
+                  str(FLOW_SAMPLE_TOKENS), "--attn-impl", "flash",
+                  "--beam-size", str(BEAM_K)],
+                 [(step_mod, "run_validation"), (gen_mod, "generate"),
+                  (beam_mod, "beam_search")])
         eval_n = _counters(fa, im)
         if ge.meta.get("triggered_by") != g1.pathspec:
             raise AssertionError(f"GPT eval triggered by "
                                  f"{ge.meta.get('triggered_by')}")
-        want = _launches(flash_fwd=L * (n_val + 3))
+        # A prefill a layer for each of the three samples and the beam.
+        want = _launches(flash_fwd=L * (n_val + 4))
         if eval_n != want:
             raise AssertionError(f"TorchGptEval launched {eval_n}, want "
                                  f"{want}")
+        beam_name, beam_text = ge.data.samples[-1]
+        with open(os.path.join(store.task_dir("TorchGptEval", ge.run_id,
+                                              "start", 0), "card.html")) as fh:
+            if not (beam_name.startswith(f"beam K={BEAM_K} (")
+                    and beam_name in fh.read()):
+                raise AssertionError(f"TorchGptEval's card lacks the beam "
+                                     f"sample ({ge.data.samples})")
         test_loss = ge.data.test_loss
         if not np.isfinite(test_loss):
             raise AssertionError(f"TorchGptEval test loss {test_loss}")
         print(f"flow TorchGptEval: test loss {test_loss:.4f}, ppl "
               f"{ge.data.test_ppl:.2f}; greedy {ge.data.samples[0][1]!r}; "
-              f"launches {eval_n} [{smi}]")
+              f"{beam_name} {beam_text!r}; launches {eval_n} [{smi}]")
     finally:
         shutil.rmtree(home, ignore_errors=True)
     return dict(legs=legs, mlp_launches=mlp_n, gpt_train_launches=train_n,
@@ -2224,6 +2617,7 @@ def main() -> int:
     vit_bwd_rows = flash_bwd_phase(torch, timer, (VIT_SHAPE,), causal=False)
     del timer
     sl, flash_n, int8_n = slice_phase(torch, smi)
+    gen = generation_phase(torch, smi)
     tr, train_n = train_phase(torch, smi)
     main_path = main_path_phase(torch, smi)
     flows = flow_phase(torch, smi)
@@ -2315,6 +2709,7 @@ def main() -> int:
     # The wide-head kernels (D > 256) at D = 512, with their launches
     # summed over every main path run above (the counters' "_wide" keys).
     main_runs = [sl["generate"]["launches"], sl["engine"]["launches"],
+                 *gen["launches"].values(),
                  train_n, tr["bf16"]["launches"], tr["split_launches"],
                  tr["split_ckpt"]["resume"]["launches"],
                  main_path["launches"], flows["mlp_launches"],
@@ -2349,6 +2744,13 @@ def main() -> int:
     for entry in kernels:
         if entry["name"] in flow_n:
             entry["flow_launches"] = flow_n[entry["name"]]
+    # The generation phase's launches (its legs summed; int8 by tile).
+    gen_n = {"flash_fwd": sum(n["flash_fwd"]
+                              for n in gen["launches"].values()),
+             "int8_matmul": sum(t["decode"]
+                                for t in gen["int8_tiles"].values()),
+             "int8_matmul_prefill": sum(t["prefill"]
+                                        for t in gen["int8_tiles"].values())}
     # The flash kernels at the ViT leg's attention shape, not causal, f32
     # (the leg's dtype), with the leg's launches: train_model's, plus the
     # predictor's no-lse forwards.
@@ -2375,11 +2777,15 @@ def main() -> int:
         int8_entry("int8_matmul_prefill", PREFILL_M, int8_n["prefill"],
                    "49 calls at M=512: 48 Dense + LM head (prefill tile)"),
     ]
+    for entry in kernels:
+        if entry["name"] in gen_n:
+            entry["generation_launches"] = gen_n[entry["name"]]
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(dict(gpu=smi, build_s=build_s, flash=flash_rows,
                        int8=int8_rows, flash_bwd=bwd_rows,
-                       head_dims=head_rows, slice=sl, train=tr,
+                       head_dims=head_rows, slice=sl, generation=gen,
+                       train=tr,
                        main_path=main_path, flows=flows, image=image,
                        vit_flash=vit_rows, vit_flash_bwd=vit_bwd_rows,
                        kernels=kernels),

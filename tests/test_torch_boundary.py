@@ -24,7 +24,7 @@ def _port_sources():
 # Every package of the port, with its count of Python modules: a module
 # dropped or left out of the scan fails the count.
 PACKAGES = {"": 2, "ckpt": 5, "data": 4, "dist": 2, "flow": 8, "flows": 6,
-            "infer": 5, "models": 7, "ops": 5, "train": 5, "utils": 3}
+            "infer": 8, "models": 7, "ops": 5, "train": 5, "utils": 3}
 
 
 def _imported_roots(path):
@@ -82,6 +82,8 @@ def test_package_imports_with_jax_poisoned():
         "import tpuflow_torch.flows.train_flow, tpuflow_torch.flows.eval_flow\n"
         "import tpuflow_torch.flows.gpt_flow\n"
         "import tpuflow_torch.flows.gpt_eval_flow\n"
+        "import tpuflow_torch.infer.beam, tpuflow_torch.infer.score\n"
+        "import tpuflow_torch.infer.speculative\n"
         "assert not any(k.split('.')[0] in ('jax', 'flax') and v is not None\n"
         "               for k, v in sys.modules.items())\n"
         "print('ok')\n"

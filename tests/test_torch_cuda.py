@@ -1012,3 +1012,74 @@ def test_batchnorm_statistics_are_global_over_nccl_on_two_cards(cuda):
     import test_torch_dist
 
     test_torch_dist._bn_global("cuda", atol=1e-5)
+
+
+def _gpt2_width(n_layer=2):
+    """GPT-2 124M's widths (768 wide, 12 heads of 64, vocab 50257) at a
+    cut depth, weights from seed 0, on the card."""
+    from tpuflow_torch.models.gpt2 import GPT2, GPT2Config
+
+    cfg = GPT2Config(n_layer=n_layer, dropout=0.0, attn_impl="auto")
+    return GPT2(cfg, seed=0)
+
+
+def test_quantized_leaves_on_the_card_bit_equal_to_the_cpu(cuda):
+    """Weight scales divide by a tensor: the card's quotients are the
+    CPU's (IEEE) ones, so every q and scale of both modes is bit-equal."""
+    from tpuflow_torch.infer.quant import (
+        QuantLeaf,
+        jax_layout_params,
+        quantize_model,
+        quantize_params,
+    )
+
+    model = _gpt2_width()
+    cpu = _gpt2_width().cpu()
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            elif isinstance(v, QuantLeaf):
+                yield prefix + k, v
+
+    on_card = dict(leaves(quantize_params(jax_layout_params(model))))
+    on_cpu = dict(leaves(quantize_params(jax_layout_params(cpu))))
+    fused = quantize_model(model, mode="fused_native").leaves
+    fused_cpu = quantize_model(cpu, mode="fused_native").leaves
+    on_card.update({f"fused/{k}": v for k, v in fused.items()})
+    on_cpu.update({f"fused/{k}": v for k, v in fused_cpu.items()})
+    assert on_card.keys() == on_cpu.keys() and len(on_card) > 10
+    for name, leaf in on_card.items():
+        assert leaf.q.is_cuda, name
+        assert torch.equal(leaf.q.cpu(), on_cpu[name].q), name
+        assert torch.equal(leaf.scale.cpu(), on_cpu[name].scale), name
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_speculative_and_engine_verify_equal_generate(cuda, int8):
+    """At 124M's widths on the card, batch 4: speculative decoding and the
+    engine's verify block give generate()'s tokens, fp and fused-native
+    (the verify chunk's fp products run one (row, position) at a time)."""
+    from tpuflow_torch.infer.generate import generate
+    from tpuflow_torch.infer.quant import quantize_model
+    from tpuflow_torch.infer.serve import ServeEngine
+    from tpuflow_torch.infer.speculative import speculative_generate
+
+    fp = _gpt2_width()
+    model = quantize_model(fp, mode="fused_native") if int8 else fp
+    rng = np.random.default_rng(0)
+    seg = rng.integers(0, 50257, size=16)
+    prompt = np.tile(seg, (4, 8))
+    prompt[1:, :16] = rng.integers(0, 50257, size=(3, 16))
+    want = generate(model, prompt, max_new_tokens=32,
+                    temperature=0.0).cpu().numpy()
+    got, stats = speculative_generate(model, prompt, max_new_tokens=32,
+                                      draft_len=4, return_stats=True)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert stats["n_forwards"] < 32  # the repeated segment drafts hit
+    eng = ServeEngine(fp, max_slots=4, speculative=4, quant="fused_native")
+    outs = eng.generate_many(list(prompt), max_new_tokens=32, quantize=int8)
+    for row, out in zip(want, outs):
+        np.testing.assert_array_equal(out, row)
+    assert eng.spec_accept_rate > 1.0

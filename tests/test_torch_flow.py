@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import one_torch_thread  # noqa: F401
 from tpuflow_torch.ckpt import Checkpoint
 from tpuflow_torch.flow import (
     FlowSpec,
@@ -251,6 +252,48 @@ def test_gpt_eval_of_an_lm_text_run_raises_not_ported(isolated_home):
     with pytest.raises(NotImplementedError, match="lm_text.*item 12"):
         gpt_eval_flow.main(["run", "--checkpoint-run-pathspec", pathspec,
                             "--device", "cpu", "--home", isolated_home])
+
+
+def test_gpt_eval_beam_sample_equals_jax_beam_search(isolated_home):
+    """``TorchGptEval --beam-size 2`` on a ``TorchGptTrain`` run: its card
+    holds the beam sample, whose tokens equal the JAX ``beam_search`` over
+    the same checkpoint's weights and whose score agrees within the
+    card's three decimals."""
+    import re
+
+    import jax
+    import jax.numpy as jnp
+
+    from tpuflow.infer.beam import beam_search as jbeam
+    from tpuflow.models.gpt2 import GPT2 as JGPT2
+    from tpuflow.models.gpt2 import GPT2Config as JConfig
+    from tpuflow_torch.ckpt import restore_from_handle
+    from tpuflow_torch.flows import gpt_eval_flow, gpt_flow
+
+    port = ["--device", "cpu", "--home", isolated_home]
+    train = gpt_flow.main([
+        "run", "--preset", "test", "--epochs", "1", "--steps-per-epoch",
+        "2", "--seq-len", "32", "--data-axis", "1", "--fsdp-axis", "1",
+        *port])
+    pathspec = gpt_eval_flow.main([
+        "run", "--checkpoint-run-pathspec", train, "--sample-tokens", "8",
+        "--beam-size", "2", *port])
+    run = Run(pathspec)
+    name, text = run.data.samples[-1]
+    m = re.fullmatch(r"beam K=2 \((-?[0-9.]+) nats/tok\)", name)
+    assert m, name
+    tr = Run(train).data
+    params = jax.tree_util.tree_map(
+        lambda t: t.numpy(),
+        restore_from_handle(tr.result_checkpoint, weights_only=True))
+    jm = JGPT2(JConfig(dropout=0.0, **tr.model_config))
+    toks, score = jbeam(jm, params, jnp.zeros((1, 4), jnp.int32),
+                        beam_size=2, max_new_tokens=8)
+    assert text == " ".join(str(int(t)) for t in np.asarray(toks)[0])
+    assert abs(float(m.group(1)) - float(score[0])) <= 5e-4 + 1e-5
+    card = open(os.path.join(isolated_home, "flows", pathspec, "start", "0",
+                             "card.html")).read()
+    assert name in card
 
 
 def test_deploy_raises_and_params_cli(isolated_home, capsys):

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import jax_and_port_gpt2
+from torch_parity import jax_and_port_gpt2, one_torch_thread  # noqa: F401
 from tpuflow.models.gpt2 import GPT2 as JGPT2
 from tpuflow_torch.models.convert import params_from_jax
 from tpuflow_torch.models.gpt2 import GPT2, GPT2Config, PagedKVCache
@@ -154,6 +154,50 @@ def test_paged_slot_decode_matches_jax(pair):
                 ours[1:].numpy(), np.asarray(jcache[f"h{i}"][theirs])[1:],
                 atol=ATOL, rtol=0,
             )
+
+
+@pytest.mark.parametrize("mode", ["dense", "padded", "int8", "paged"])
+def test_decode_chunk_bit_equal_to_single_token_steps(pair, mode):
+    """A (B, K+1) decode chunk (speculative decoding's verify forward) gives
+    logits bit-equal to K+1 single-token steps through the same cache:
+    every fp product of the chunk runs one (row, position) at a time, and
+    the int8 matmul's sums are exact at any width."""
+    from tpuflow_torch.infer.quant import quantize_model
+
+    _, _, tm = pair
+    model = quantize_model(tm, mode="fused_native") if mode == "int8" else tm
+    B, K = 3, 4
+    prompt = torch.from_numpy(_tokens((B, 9), 7)).long()
+    chunk = torch.from_numpy(_tokens((B, K + 1), 8)).long()
+    pads = torch.tensor([0, 2, 5]) if mode == "padded" else None
+    if mode == "paged":
+        table = torch.arange(1, B * 8 + 1).reshape(B, 8)
+
+        def run(toks):
+            cache = tm.init_paged_cache(B * 8 + 1, 8)
+            slot = torch.zeros(B, dtype=torch.long)
+            outs = []
+            for t in [prompt] + toks:
+                logits, cache = tm(t, decode=True, cache=cache,
+                                   slot_index=slot, page_table=table)
+                slot = slot + t.shape[1]
+                outs.append(logits)
+            return torch.cat(outs[1:], dim=1)
+    else:
+        def run(toks):
+            _, cache = model(prompt, decode=True, pad_lens=pads,
+                             prefill=True)
+            outs = []
+            for t in toks:
+                logits, cache = model(t, decode=True, cache=cache,
+                                      pad_lens=pads)
+                outs.append(logits)
+            return torch.cat(outs, dim=1)
+    with torch.no_grad():
+        whole = run([chunk])
+        steps = run([chunk[:, j:j + 1] for j in range(K + 1)])
+    assert whole.shape == (B, K + 1, 512)
+    assert torch.equal(whole, steps)
 
 
 def test_deferred_modes_raise(pair):

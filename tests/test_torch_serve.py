@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from torch_parity import jax_and_port_gpt2
+from torch_parity import jax_and_port_gpt2, one_torch_thread  # noqa: F401
 from tpuflow.infer import quant as jquant
 from tpuflow_torch.infer.generate import generate
 from tpuflow_torch.infer.serve import (
@@ -202,6 +202,73 @@ def test_mixed_fp_int8_exact_and_matches_jax(engine, pair):
     np.testing.assert_array_equal(reqs[1].result(), want_q)
 
 
+def test_speculative_and_weight_only_match_solo_and_jax_engine(pair):
+    """A weight-only, speculative-armed engine (drafts of 3): plain and
+    speculative requests on both numeric paths, one ending on eos, share
+    the pool. Each equals its solo generate() and the JAX engine's answer
+    to the same submissions."""
+    jm, params, tm = pair
+    rng = np.random.default_rng(31)
+    seg = rng.integers(0, 512, size=4).astype(np.int32)
+    prompts = [np.tile(seg, 4)[:L] for L in (5, 13, 16)] + _prompts(32, (7,))
+    flags = [(False, False), (True, True), (False, True), (True, False)]
+    # eos: the first token of prompt 2's solo continuation that is new at
+    # its index >= 2, so the request ends inside a block.
+    solo2 = _solo(tm, prompts[2], 9).tolist()
+    stop = next(i for i in range(2, 9) if solo2[i] not in solo2[:i])
+    eos = [None, None, solo2[stop], None]
+    kw = dict(max_slots=3, buckets=[8, 16], decode_block=4, page_size=8,
+              quant="weight_only", speculative=3)
+    eng = ServeEngine(tm, **kw)
+    jeng = jserve.ServeEngine(jm, params, **kw)
+    reqs, jreqs = [], []
+    for p, (q, sp), e in zip(prompts, flags, eos):
+        reqs.append(eng.submit(p, max_new_tokens=9, quantize=q,
+                               speculative=sp, eos_id=e))
+        jreqs.append(jeng.submit(p, max_new_tokens=9, quantize=q,
+                                 speculative=sp, eos_id=e))
+    eng.run_until_idle(max_iters=200)
+    jeng.run_until_idle(max_iters=200)
+    assert reqs[2].finish_reason == "eos"
+    assert len(reqs[2].tokens) == stop + 1
+    for p, (q, _), e, r, jr in zip(prompts, flags, eos, reqs, jreqs):
+        model = eng._qmodel if q else tm
+        want = _solo(model, p, 9, eos_id=e)[:len(r.tokens)]
+        np.testing.assert_array_equal(r.result(), want)
+        np.testing.assert_array_equal(r.result(), jr.result())
+    assert eng.spec_accept_rate == pytest.approx(jeng.spec_accept_rate)
+    assert eng.spec_accept_rate > 1.0  # the repeated segment drafts hit
+    assert eng.pool.allocated_pages == 0
+
+
+def test_speculative_fused_native_and_validation(pair):
+    """Speculative requests on the fused-native path equal their solo
+    generate(); submit(speculative=True) on an unarmed engine raises; a
+    speculative request reserves the draft's overshoot in pages."""
+    _, _, tm = pair
+    eng = ServeEngine(tm, max_slots=2, buckets=[8, 16], decode_block=4,
+                      page_size=8, quant="fused_native", speculative=True)
+    assert eng.spec_draft == 4
+    prompts = _prompts(33, (6, 11, 3))
+    outs = eng.generate_many(prompts, max_new_tokens=7, quantize=True)
+    for p, o in zip(prompts, outs):
+        np.testing.assert_array_equal(o, _solo(eng._qmodel, p, 7))
+    plain = ServeEngine(tm, max_slots=1, buckets=[8], page_size=8)
+    with pytest.raises(ValueError, match="spec-armed"):
+        plain.submit([1, 2], max_new_tokens=2, speculative=True)
+    with pytest.raises(ValueError, match="spec_ngram"):
+        ServeEngine(tm, speculative=2, spec_ngram=1)
+    with pytest.raises(ValueError, match="draft length must be >= 0"):
+        ServeEngine(tm, speculative=-1)
+    with pytest.raises(ValueError, match="already-quantized"):
+        ServeEngine(eng._qmodel, quant="weight_only")
+    r = eng.submit(np.arange(8), max_new_tokens=8)  # 16 + 4 columns
+    assert r.speculative and eng._pages_needed(r) == 3
+    r = eng.submit(np.arange(8), max_new_tokens=8, speculative=False)
+    assert eng._pages_needed(r) == 2
+    eng.run_until_idle(max_iters=100)
+
+
 def test_prefix_cache_reuse_eviction(pair):
     """Two requests sharing a 2-page prefix decode exactly while the second
     SHARES the first's prefix pages; after release the pages idle in the
@@ -267,8 +334,13 @@ def test_submit_validation_and_deferred_modes(engine, pair):
         plain.submit([1, 2], max_new_tokens=2, quantize=True)
     with pytest.raises(NotImplementedError, match="contiguous"):
         ServeEngine(tm, paged=False)
-    with pytest.raises(NotImplementedError, match="weight-only"):
-        ServeEngine(tm, quant="weight_only")
+    weight = ServeEngine(tm, max_slots=1, buckets=[8], page_size=8,
+                         quant="weight_only")
+    assert weight.quant_mode == "weight" and weight._qmodel.mode == "weight"
+    np.testing.assert_array_equal(
+        weight.generate_many([[5, 6, 7]], max_new_tokens=3,
+                             quantize=True)[0],
+        _solo(weight._qmodel, [5, 6, 7], 3))
     outs = plain.generate_many([[5, 6, 7], [8]], max_new_tokens=3)
     for p, o in zip(([5, 6, 7], [8]), outs):
         np.testing.assert_array_equal(o, _solo(tm, p, 3))

@@ -9,8 +9,8 @@ computes the test loss and perplexity over the same held-out split
 port's ``generate``, and renders the card: perplexity, samples, and the
 producer's training history. ``attn_impl`` (default ``xla``, the model's
 default as in the reference) set to ``flash`` runs the validation and the
-prefill on the flash forward kernel. Beam search (``--beam-size`` > 1)
-waits for ROADMAP Queue 1 item 13 and raises.
+prefill on the flash forward kernel. ``--beam-size K`` > 1 adds a width-K
+``beam_search`` sample with its length-normalized score.
 
 Run:        python -m tpuflow_torch.flows.gpt_eval_flow run --checkpoint-run-pathspec TorchGptTrain/<id>
 Triggered:  python -m tpuflow_torch.flows.gpt_eval_flow run --triggered
@@ -78,7 +78,8 @@ class TorchGptEval(FlowSpec):
         from tpuflow_torch.ckpt.tree import load_params
         from tpuflow_torch.data.lm import check_dataset, lm_test_loader
         from tpuflow_torch.device import resolve_device
-        from tpuflow_torch.infer.generate import generate
+        from tpuflow_torch.infer.beam import beam_search
+        from tpuflow_torch.infer.generate import generate, render_tokens
         from tpuflow_torch.models.gpt2 import GPT2, GPT2Config
         from tpuflow_torch.train.optim import make_optimizer
         from tpuflow_torch.train.step import (
@@ -87,10 +88,6 @@ class TorchGptEval(FlowSpec):
             run_validation,
         )
 
-        if int(self.beam_size) > 1:
-            raise NotImplementedError(
-                "beam search (--beam-size > 1) is not ported yet: ROADMAP "
-                "Queue 1 item 13")
         if self.weights not in ("raw", "ema"):
             raise ValueError(
                 f"--weights must be raw or ema, got {self.weights!r}")
@@ -129,13 +126,20 @@ class TorchGptEval(FlowSpec):
         def sample(temperature, **kw):
             toks = generate(model, prompt, max_new_tokens=n_new,
                             temperature=temperature, **kw)
-            return " ".join(str(int(t)) for t in toks[0].cpu())
+            return render_tokens(toks[0].cpu())
 
         self.samples = [("greedy", sample(0.0))] + [
             (f"T={t}", sample(t, top_k=40, generator=torch.Generator(
                 device=dev).manual_seed(0)))
             for t in (0.7, 1.0)
         ]
+        beam = int(self.beam_size)
+        if beam > 1:
+            toks, score = beam_search(model, prompt, beam_size=beam,
+                                      max_new_tokens=n_new)
+            self.samples.append((
+                f"beam K={beam} ({float(score[0]):.3f} nats/tok)",
+                render_tokens(toks[0].cpu())))
         for name, text in self.samples:
             print(f"[gpt_eval] sample ({name}): {text!r}")
 

@@ -204,3 +204,16 @@ def generate(
             done = done | (sampled == eos_id)
         out[:, i] = tok
     return out
+
+
+def render_tokens(ids, *, byte_level: bool = False) -> str:
+    """Human-readable rendering of generated token ids: byte-level corpora
+    decode to text (out-of-range ids show as the replacement character,
+    never silently dropped); token corpora print the ids."""
+    ids = [int(t) for t in ids]
+    if byte_level:
+        return "".join(
+            chr(t) if 0 <= t < 256 else "\N{REPLACEMENT CHARACTER}"
+            for t in ids
+        )
+    return " ".join(str(t) for t in ids)

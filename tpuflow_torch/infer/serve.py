@@ -17,15 +17,27 @@ Counterpart of the core of ``tpuflow/infer/serve.py``:
   block. Greedy only: every request's tokens equal a solo
   ``generate(temperature=0)`` of its prompt.
 - **Per-request int8.** ``quant='fused_native'`` builds the W8A8 view of
-  the same weights; ``submit(quantize=True)`` routes a request to it. The
-  fp and int8 groups share the one pool; each group's block runs with the
-  other group masked out of its live set (a masked row only writes its own
-  frozen frontier column, which its own group overwrites before reading).
+  the same weights (``'weight_only'`` the weight-only one);
+  ``submit(quantize=True)`` routes a request to it.
+- **Per-request speculative decode.** ``speculative=K`` arms a verify
+  block: each live slot drafts K tokens on the host (``ngram_draft`` over
+  its prompt and tokens so far), ONE (S, K+1) forward over the paged cache
+  verifies every slot's ``[cur, draft...]``, and each row commits its own
+  accepted prefix plus the bonus token, capped by its budget, the cache's
+  capacity and its first eos. Rows advance independently: the rejected
+  tail's k/v lies past the row's new frontier, masked until the row
+  overwrites it. ``submit(speculative=False)`` opts a request out.
+
+The groups — (fp, int8) x (plain, speculative) — share the one pool; each
+group's block runs with every other group masked out of its live set (a
+masked row only writes its own frozen frontier columns, which its own
+group overwrites before reading them).
 
 PyTorch runs eagerly, so the JAX engine's jit programs, warmup and
-never-recompile accounting have no counterpart here. Speculative verify,
-disaggregated roles and tiers, and the serving observatory are not ported
-yet (ROADMAP).
+never-recompile accounting have no counterpart here. Disaggregated roles
+and tiers, ``serve_forever`` and the serving observatory are not ported
+yet (ROADMAP). Where the JAX engine reads ``TPUFLOW_SERVE_*`` knobs, this
+one takes constructor arguments.
 """
 
 from __future__ import annotations
@@ -44,17 +56,36 @@ from tpuflow_torch.infer.generate import (
     normalize_prefill_chunk,
     prompt_lens_to_pad_lens,
 )
-from tpuflow_torch.infer.quant import canonical_mode, quantize_model
+from tpuflow_torch.infer.quant import (
+    QuantizedModel,
+    canonical_mode,
+    quantize_model,
+)
+from tpuflow_torch.infer.speculative import ngram_draft
 
 
 def resolve_serve_quant(quant=None) -> str | None:
     """Per-request-int8 mode from the ctor arg: None/False = disabled,
-    True = fused-native, else any quantization-mode spelling."""
+    True = fused-native, else any quantization-mode spelling
+    (``fused_native``/``mxu``/``weight_only``/``weight``)."""
     if quant is None or quant is False:
         return None
     if quant is True:
         return "mxu"
     return canonical_mode(quant)
+
+
+def resolve_spec_draft(speculative=None) -> int:
+    """Per-request speculative draft length from the ctor arg: None/False
+    = off (0), True = the default draft of 4, an int = the draft length."""
+    if speculative is None or speculative is False:
+        return 0
+    if speculative is True:
+        return 4
+    k = int(speculative)
+    if k < 0:
+        raise ValueError(f"speculative draft length must be >= 0, got {k}")
+    return k
 
 
 def resolve_page_size(n_ctx: int, page_size=None) -> int:
@@ -236,6 +267,7 @@ class ServeRequest:
     eos_id: int | None
     t_submit: float
     quantize: bool = False  # int8 numeric path (engine must be armed)
+    speculative: bool = False  # rides the verify block (engine armed)
     bucket: int | None = None
     t_admit: float | None = None
     t_first: float | None = None
@@ -274,8 +306,11 @@ class ServeRequest:
 class ServeEngine:
     """Request-level continuous-batching engine over one model, paged.
 
-    ``model`` is a ``GPT2`` (fp); ``quant='fused_native'`` arms the int8
-    path beside it. The engine runs on the model's device.
+    ``model`` is a ``GPT2`` (fp), or a ``QuantizedModel`` with ``quant``
+    unset; ``quant='fused_native'`` (or ``'weight_only'``) arms an int8
+    path beside the fp one, ``speculative=K`` the verify block with drafts
+    of K tokens from ``spec_ngram``-gram lookup. The engine runs on the
+    model's device.
     """
 
     def __init__(
@@ -292,6 +327,8 @@ class ServeEngine:
         page_size: int | None = None,
         n_pages: int | None = None,
         prefix_cache: bool = True,
+        speculative: int | bool | None = None,
+        spec_ngram: int = 3,
     ):
         if not paged:
             raise NotImplementedError(
@@ -305,7 +342,17 @@ class ServeEngine:
         self.quant_mode = resolve_serve_quant(quant)
         self._qmodel = None
         if self.quant_mode is not None:
+            if isinstance(model, QuantizedModel):
+                raise ValueError(
+                    "ServeEngine(quant=...) wants the raw fp model and owns "
+                    "both numeric paths; got an already-quantized model — "
+                    "drop the wrapper or drop the quant arg"
+                )
             self._qmodel = quantize_model(model, mode=self.quant_mode)
+        self.spec_draft = resolve_spec_draft(speculative)
+        self.spec_ngram = int(spec_ngram)
+        if self.spec_ngram < 2:
+            raise ValueError(f"spec_ngram must be >= 2, got {spec_ngram}")
         self.n_ctx = int(model.config.n_ctx)
         self.max_slots = int(max_slots)
         if self.max_slots < 1:
@@ -342,6 +389,9 @@ class ServeEngine:
         self._remaining = np.zeros((S,), np.int64)
         self._live = np.zeros((S,), bool)
         self._quant = np.zeros((S,), bool)  # slot rides the int8 path
+        self._spec = np.zeros((S,), bool)  # slot rides the verify block
+        self._spec_committed = 0
+        self._spec_forwards = 0
         self._eos = np.full((S,), -1, np.int64)
         self._next_id = 0
 
@@ -395,6 +445,49 @@ class ServeEngine:
             tok = emitted
         return torch.stack(toks, dim=1), tok, lengths, remaining, live
 
+    def _verify_fn(self, model, tok, draft, lengths, remaining, live, eos,
+                   page_table):
+        """The speculative verify block: ONE (S, K+1) forward over
+        ``[cur, draft...]`` per slot, then a PER-ROW commit — the accepted
+        draft prefix plus the model's bonus token at the first
+        disagreement, truncated by each row's eos / budget / capacity.
+        Returns (emitted (S, K+1), tok, lengths, remaining, live), the
+        decode block's layout: tokens per row = the remaining-budget
+        delta."""
+        K, n_ctx = self.spec_draft, self.n_ctx
+        S = tok.shape[0]
+        x = torch.cat([tok[:, None], draft], dim=1)  # (S, K+1)
+        logits, _ = model(
+            x, decode=True, cache=self._cache, slot_index=lengths,
+            page_table=page_table,
+        )
+        am = torch.argmax(logits, dim=-1)  # (S, K+1)
+        # am[:, j] = the model's token after (cur, d_0..d_{j-1});
+        # acceptance = leading agreement with the draft, per row.
+        a = torch.cumprod((am[:, :K] == draft).long(), dim=1).sum(dim=1)
+        j = torch.arange(K + 1, device=tok.device)
+        rows = torch.arange(S, device=tok.device)
+        w = torch.where(
+            j[None, :] < a[:, None], torch.nn.functional.pad(draft, (0, 1)),
+            am[rows[:, None], torch.minimum(j[None, :], a[:, None])],
+        )
+        # Commit count: acceptance + bonus, capped by budget and capacity
+        # (a live row holds remaining >= 1 and lengths < n_ctx, so c >= 1).
+        c = torch.minimum(torch.minimum(a + 1, remaining), n_ctx - lengths)
+        # eos: commit up to and INCLUDING the first eos in the window.
+        is_eos = w == eos[:, None]  # eos == -1 never matches a token
+        first_eos = torch.argmax(is_eos.int(), dim=1)
+        has_eos = (is_eos & (j[None, :] < c[:, None])).any(dim=1)
+        c = torch.where(has_eos, torch.minimum(c, first_eos + 1), c)
+        c = torch.where(live, c, 0)
+        emitted = torch.where(j[None, :] < c[:, None], w, self.pad_id)
+        new_tok = w[rows, torch.clamp(c - 1, min=0)]
+        tok = torch.where(c > 0, new_tok, tok)
+        lengths = lengths + c
+        remaining = remaining - c
+        live = live & ~has_eos & (remaining > 0) & (lengths < n_ctx)
+        return emitted, tok, lengths, remaining, live
+
     # ---------------------------------------------------------- scheduling
     def bucket_for(self, prompt_len: int, max_new_tokens: int) -> int:
         """Smallest bucket width holding the prompt, with the REAL prompt
@@ -409,16 +502,24 @@ class ServeEngine:
         )
 
     def _pages_needed(self, req: ServeRequest) -> int:
-        """Pages covering every logical column the request can touch."""
-        top = min(self.n_ctx, req.prompt.size + req.max_new_tokens)
+        """Pages covering every logical column the request can touch: prompt
+        + budget, plus the verify block's draft-length overshoot for a
+        speculative request (rejected-tail writes land in its own pages;
+        columns >= n_ctx route to the trash page)."""
+        slack = self.spec_draft if req.speculative else 0
+        top = min(self.n_ctx, req.prompt.size + req.max_new_tokens + slack)
         return -(-top // self.page_size)
 
     def submit(self, prompt, *, max_new_tokens: int,
                eos_id: int | None = None,
-               quantize: bool = False) -> ServeRequest:
+               quantize: bool = False,
+               speculative: bool | None = None) -> ServeRequest:
         """Enqueue one request; returns its live handle. Validation is eager:
         a request that can never fit fails here. ``quantize=True`` routes it
-        through the int8 path (needs ``quant=`` at construction)."""
+        through the int8 path (needs ``quant=`` at construction);
+        ``speculative`` through the verify block (None = the engine's
+        default: on when armed; True needs ``speculative=`` at
+        construction)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("prompt must have at least one token")
@@ -431,6 +532,13 @@ class ServeEngine:
                 "submit(quantize=True) needs a quant-armed engine: pass "
                 "ServeEngine(quant='fused_native')"
             )
+        if speculative and not self.spec_draft:
+            raise ValueError(
+                "submit(speculative=True) needs a spec-armed engine: pass "
+                "ServeEngine(speculative=K)"
+            )
+        spec = (bool(self.spec_draft) if speculative is None
+                else bool(speculative))
         req = ServeRequest(
             id=self._next_id,
             prompt=prompt,
@@ -438,6 +546,7 @@ class ServeEngine:
             eos_id=None if eos_id is None else int(eos_id),
             t_submit=time.monotonic(),
             quantize=bool(quantize),
+            speculative=spec,
             bucket=self.bucket_for(prompt.size, max_new_tokens),
         )
         if self._pages_needed(req) > self.pool.usable_pages:
@@ -507,6 +616,7 @@ class ServeEngine:
         self._remaining[slot] = req.max_new_tokens - 1
         self._live[slot] = True
         self._quant[slot] = req.quantize
+        self._spec[slot] = req.speculative
         self._eos[slot] = -1 if req.eos_id is None else req.eos_id
         return True
 
@@ -515,11 +625,12 @@ class ServeEngine:
         req.state = "done"
         req.finish_reason = reason
 
-    def _run_decode_block(self, quant: bool) -> None:
-        """One decode block over ONE numeric group's slots, every other
-        slot masked out of the live set; merge the group's state back,
-        harvest tokens, free exited slots."""
-        mask = self._live & (self._quant == quant)
+    def _run_decode_block(self, quant: bool, spec: bool = False) -> None:
+        """One decode (or speculative verify) block over ONE group's slots
+        — the groups partition the live set by (numeric path, speculative)
+        — every other slot masked out of the live set; merge the group's
+        state back, harvest tokens, free exited slots."""
+        mask = self._live & (self._quant == quant) & (self._spec == spec)
         if not mask.any():
             return
         dev = self.device
@@ -527,12 +638,29 @@ class ServeEngine:
         def t(a):
             return torch.as_tensor(a, device=dev)
 
+        model = self._qmodel if quant else self.model
         old_remaining = self._remaining.copy()
-        toks, tok, lengths, remaining, live = self._decode_fn(
-            self._qmodel if quant else self.model,
-            t(self._tok), t(self._lengths), t(self._remaining), t(mask),
-            t(self._eos), t(self._page_table),
-        )
+        if spec:
+            # Host-side prompt-lookup drafts per slot (a wrong draft only
+            # costs speed; the verify forward arbitrates).
+            drafts = np.zeros((self.max_slots, self.spec_draft), np.int64)
+            for s in np.nonzero(mask)[0]:
+                req = self._slots[s]
+                hist = np.concatenate(
+                    [req.prompt, np.asarray(req.tokens, np.int32)]
+                )
+                drafts[s] = ngram_draft(hist, self.spec_draft,
+                                        ngram=self.spec_ngram)
+            toks, tok, lengths, remaining, live = self._verify_fn(
+                model, t(self._tok), t(drafts), t(self._lengths),
+                t(self._remaining), t(mask), t(self._eos),
+                t(self._page_table),
+            )
+        else:
+            toks, tok, lengths, remaining, live = self._decode_fn(
+                model, t(self._tok), t(self._lengths), t(self._remaining),
+                t(mask), t(self._eos), t(self._page_table),
+            )
         # The one host sync of the block.
         toks = toks.cpu().numpy()
         self._tok = np.where(mask, tok.cpu().numpy(), self._tok)
@@ -541,6 +669,10 @@ class ServeEngine:
             mask, remaining.cpu().numpy(), self._remaining
         )
         self._live = np.where(mask, live.cpu().numpy(), self._live)
+        if spec:
+            self._spec_committed += int(
+                (old_remaining - self._remaining).sum())
+            self._spec_forwards += int(mask.sum())
         for s, req in enumerate(self._slots):
             if req is None or not mask[s]:
                 continue
@@ -557,16 +689,25 @@ class ServeEngine:
                 self._finish(req, reason)
                 self._slots[s] = None
                 self._quant[s] = False
+                self._spec[s] = False
                 self.pool.release(self._slot_pages[s])
                 self._slot_pages[s] = []
                 self._page_table[s, :] = 0
+
+    @property
+    def spec_accept_rate(self) -> float | None:
+        """Cumulative tokens committed per speculative verify, per row
+        (1.0 = speculation bought nothing; draft_len + 1 is the most)."""
+        if not self._spec_forwards:
+            return None
+        return self._spec_committed / self._spec_forwards
 
     @torch.no_grad()
     def step(self, admit: bool = True) -> bool:
         """One scheduler iteration: admit waiting requests into free slots
         (a blocked head-of-queue request applies backpressure), then run
-        one decode block per live group (fp, then int8). Returns False when
-        there was nothing to do."""
+        one block per live group — (fp, int8) x (plain, speculative).
+        Returns False when there was nothing to do."""
         did = False
         while admit and self._queue:
             slot = self._free_slot()
@@ -579,7 +720,8 @@ class ServeEngine:
         if self._live.any():
             did = True
             for quant in (False, True) if self.quant_mode else (False,):
-                self._run_decode_block(quant)
+                for spec in (False, True) if self.spec_draft else (False,):
+                    self._run_decode_block(quant, spec)
         return did
 
     def run_until_idle(self, max_iters: int | None = None) -> None:
@@ -595,13 +737,13 @@ class ServeEngine:
                 )
 
     def generate_many(self, prompts, *, max_new_tokens: int,
-                      eos_id: int | None = None,
-                      quantize: bool = False) -> list[np.ndarray]:
+                      eos_id: int | None = None, quantize: bool = False,
+                      speculative: bool | None = None) -> list[np.ndarray]:
         """Submit every prompt, run to completion, return each request's
         generated tokens in submit order."""
         reqs = [
             self.submit(p, max_new_tokens=max_new_tokens, eos_id=eos_id,
-                        quantize=quantize)
+                        quantize=quantize, speculative=speculative)
             for p in prompts
         ]
         self.run_until_idle()

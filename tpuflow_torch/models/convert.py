@@ -24,34 +24,36 @@ _DENSE = ("c_attn", "c_proj", "mlp_fc", "mlp_proj")
 _NORMS = ("ln_1", "ln_2")
 
 
-def _t(x) -> torch.Tensor:
+def _t(x, device="cpu") -> torch.Tensor:
     if isinstance(x, torch.Tensor):
-        return x.detach().to(device="cpu", dtype=torch.float32)
-    return torch.from_numpy(np.array(x, dtype=np.float32))
+        return x.detach().to(device=device, dtype=torch.float32)
+    return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
 
 
 def _row(arr, i: int):
     return arr[i] if isinstance(arr, torch.Tensor) else np.asarray(arr)[i]
 
 
-def _block(prefix: str, blk) -> dict[str, torch.Tensor]:
+def _block(prefix: str, blk, device) -> dict[str, torch.Tensor]:
     out = {}
     for name in _NORMS:
-        out[f"{prefix}{name}.weight"] = _t(blk[name]["scale"])
-        out[f"{prefix}{name}.bias"] = _t(blk[name]["bias"])
+        out[f"{prefix}{name}.weight"] = _t(blk[name]["scale"], device)
+        out[f"{prefix}{name}.bias"] = _t(blk[name]["bias"], device)
     for name in _DENSE:
-        out[f"{prefix}{name}.weight"] = _t(blk[name]["kernel"]).t().contiguous()
-        out[f"{prefix}{name}.bias"] = _t(blk[name]["bias"])
+        out[f"{prefix}{name}.weight"] = (
+            _t(blk[name]["kernel"], device).t().contiguous())
+        out[f"{prefix}{name}.bias"] = _t(blk[name]["bias"], device)
     return out
 
 
-def params_from_jax(tree) -> dict[str, torch.Tensor]:
-    """Flax GPT-2 param tree → port ``state_dict`` (float32, CPU)."""
+def params_from_jax(tree, *, device="cpu") -> dict[str, torch.Tensor]:
+    """Flax GPT-2 param tree → port ``state_dict`` (float32, on
+    ``device``)."""
     sd = {
-        "wte": _t(tree["wte"]),
-        "wpe": _t(tree["wpe"]),
-        "ln_f.weight": _t(tree["ln_f"]["scale"]),
-        "ln_f.bias": _t(tree["ln_f"]["bias"]),
+        "wte": _t(tree["wte"], device),
+        "wpe": _t(tree["wpe"], device),
+        "ln_f.weight": _t(tree["ln_f"]["scale"], device),
+        "ln_f.bias": _t(tree["ln_f"]["bias"], device),
     }
     if "h" in tree:  # scan_layers: one stacked block, leading layer axis
         stacked = tree["h"]["block"]
@@ -61,11 +63,11 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
                 name: {leaf: _row(arr, i) for leaf, arr in sub.items()}
                 for name, sub in stacked.items()
             }
-            sd.update(_block(f"h.{i}.", layer))
+            sd.update(_block(f"h.{i}.", layer, device))
     else:
         i = 0
         while f"h{i}" in tree:
-            sd.update(_block(f"h.{i}.", tree[f"h{i}"]))
+            sd.update(_block(f"h.{i}.", tree[f"h{i}"], device))
             i += 1
     return sd
 

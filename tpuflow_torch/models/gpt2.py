@@ -279,11 +279,11 @@ def _tied_head(x, wte, dt, rowwise: bool):
     f32 logits. Both operands are upcast to f32 exactly, so for bf16 this
     is the bf16 x bf16 product with f32 accumulation that the JAX einsum's
     ``preferred_element_type=f32`` asks for. ``rowwise`` (decode steps)
-    runs it one batch row at a time (see ``_rowwise``)."""
+    runs it one (row, position) at a time (see ``_tokenwise``)."""
     w = wte.to(dt).float()
     x = x.float()
     if rowwise:
-        return _rowwise(lambda r: F.linear(r, w), x)
+        return _tokenwise(lambda r: F.linear(r, w), x)
     return F.linear(x, w)
 
 
@@ -306,6 +306,40 @@ def _rowwise(fn, *xs):
     )
 
 
+def _tokenwise(fn, x):
+    """``fn`` (a product over the last axis) applied to each (row,
+    position) of ``x`` (B, T, C) alone, results in place.
+
+    A decode call with T > 1 (speculative decoding's verify chunk of K + 1
+    tokens) must round every product as the single-token steps of
+    ``generate()`` do, or the chunk's argmax can part from the token greedy
+    decoding emits: the same M-dependence ``_rowwise`` avoids across rows
+    holds across positions. Every product then has M = 1, as in a decode
+    step. The price is launches: B x T products a layer where one would
+    do (a (4, 5) chunk: 20 for each Dense layer and the head)."""
+    if x.shape[1] == 1:
+        return _rowwise(fn, x)
+    return torch.cat(
+        [_rowwise(fn, x[:, t:t + 1]) for t in range(x.shape[1])], dim=1
+    )
+
+
+def _decode_attention(q, k, v, valid):
+    """Masked attention of decode queries q (B, T, H, D) over whole caches
+    k, v (B, n_ctx, H, D), one (row, query) at a time: query t's mask
+    ``valid[:, :, t]`` hides every key past its position behind -1e30,
+    whose exponential is exactly 0, so each query computes the very
+    products of the single-token step at its position (see
+    ``_tokenwise``)."""
+    if q.shape[1] == 1:
+        return _rowwise(_masked_attention, q, k, v, valid)
+    return torch.cat(
+        [_rowwise(_masked_attention, q[:, t:t + 1], k, v,
+                  valid[:, :, t:t + 1])
+         for t in range(q.shape[1])], dim=1,
+    )
+
+
 def _left_pad_attention(q, k, v, pad_lens):
     """Causal attention over a LEFT-padded (B, T, H, D) batch: key columns
     ``< pad_lens[b]`` are masked out of row b."""
@@ -321,11 +355,12 @@ def _dense(linear: nn.Linear, x, dt, qleaf=None, int8_impl=None,
     """One Dense layer in compute dtype ``dt``; with a QuantLeaf, the W8A8
     int8 matmul plus the bias in f32, then cast to ``dt`` (the JAX
     interceptor's op order). ``rowwise`` (decode steps) runs the fp product
-    one batch row at a time (see ``_rowwise``)."""
+    one (row, position) at a time (see ``_tokenwise``); the int8 matmul
+    takes the whole call, its sums being exact."""
     if qleaf is None:
         w, b = linear.weight.to(dt), linear.bias.to(dt)
         if rowwise:
-            return _rowwise(lambda r: F.linear(r, w, b), x.to(dt))
+            return _tokenwise(lambda r: F.linear(r, w, b), x.to(dt))
         return F.linear(x.to(dt), w, b)
     out = int8_matmul(
         x, qleaf.q, qleaf.scale, out_dtype=torch.float32, impl=int8_impl
@@ -438,7 +473,7 @@ class Block(nn.Module):
             valid = valid & (
                 k_pos[None, None, None, :] >= pad_lens[:, None, None, None]
             )
-        return _rowwise(_masked_attention, q, k_all, v_all, valid)
+        return _decode_attention(q, k_all, v_all, valid)
 
     def _cached_attention(self, q, k, v, pad_lens, cache, layer):
         """Shared-index KV-cache attention: the T new k/v are written (in
@@ -465,7 +500,7 @@ class Block(nn.Module):
         valid = (k_pos <= q_pos)[None, None]
         if pad_lens is not None:
             valid = valid & (k_pos[None, None] >= pad_lens[:, None, None, None])
-        return _rowwise(_masked_attention, q, ck, cv, valid)
+        return _decode_attention(q, ck, cv, valid)
 
 
 class GPT2(nn.Module):
@@ -525,30 +560,33 @@ class GPT2(nn.Module):
     def device(self) -> torch.device:
         return self.wte.device
 
-    def init_cache(self, batch: int) -> KVCache:
-        """Zeroed shared-index cache for ``batch`` rows."""
+    def init_cache(self, batch: int, *, device=None) -> KVCache:
+        """Zeroed shared-index cache for ``batch`` rows, on ``device``
+        (None: the model's)."""
         cfg = self.config
         shape = (batch, cfg.n_ctx, cfg.n_head, cfg.head_dim)
-        return KVCache(*self._zeros(shape))
+        return KVCache(*self._zeros(shape, device))
 
-    def init_paged_cache(self, n_pages: int, page_size: int) -> PagedKVCache:
-        """Zeroed paged pool of ``n_pages`` pages of ``page_size`` tokens."""
+    def init_paged_cache(self, n_pages: int, page_size: int, *,
+                         device=None) -> PagedKVCache:
+        """Zeroed paged pool of ``n_pages`` pages of ``page_size`` tokens,
+        on ``device`` (None: the model's)."""
         cfg = self.config
         if page_size < 1 or cfg.n_ctx % page_size:
             raise ValueError(
                 f"page_size must divide n_ctx={cfg.n_ctx}, got {page_size}"
             )
         shape = (n_pages, page_size, cfg.n_head, cfg.head_dim)
-        return PagedKVCache(*self._zeros(shape))
+        return PagedKVCache(*self._zeros(shape, device))
 
-    def _zeros(self, shape):
+    def _zeros(self, shape, device=None):
         dt = self.config.kv_cache_dtype()
-        mk = [
-            [torch.zeros(shape, dtype=dt, device=self.device)
+        dev = self.device if device is None else device
+        return [
+            [torch.zeros(shape, dtype=dt, device=dev)
              for _ in range(self.config.n_layer)]
             for _ in range(2)
         ]
-        return mk
 
     def forward(self, tokens, *, train: bool = False, decode: bool = False,
                 cache=None, pad_lens=None, prefill: bool = False,
