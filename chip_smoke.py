@@ -59,11 +59,28 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    losses bit-equal to step 6's, exact launch counts. Resume leg: the same
    call on a copy of that directory without ``step_16``: an in-run resume
    from step 8, its 8 losses bit-equal to the split leg's last 8 and a
-   ``step_16`` whose every shard crc32 equals the split leg's. Save and
-   restore seconds and GB/s (host disk of this machine). Then the same
-   state's save and restore taken apart outside training: crc32, writes
-   with fsync, reads. The directories live under ``build/`` and are
-   deleted at the end.
+   ``step_16`` whose every shard crc32 equals the split leg's. Both legs
+   run with the manager's prewarms on, and the records say what they
+   did: every save drew from the pool each shard of 64 KiB or more where
+   the manager prewarms it (memory-backed storage) and none on a disk,
+   where it writes no warm files; the resume's restore took one
+   prewarmed, page-locked buffer a leaf and handed every leaf out
+   pinned, and the host allocator held less than the restored bytes
+   after it. Save and restore seconds and GB/s (host disk of this
+   machine). Then the same state's checkpoint taken
+   apart outside training (``ckpt_io_phase``): (a) the disk's own fsync
+   write rate at 1, 4 and 8 files at once, cold and warm reads and crc32
+   at 1 and 8 threads; (b) saves to fresh files, to a prewarmed pool and
+   three steady-state saves onto recycled files (every shard of 64 KiB or
+   more drawn from the pool; manifests and crc32s equal); (c) restores in
+   the parent's serial order, threaded cold and warm, into a prewarmed
+   arena, pageable and pinned (one buffer a leaf taken; pinned tensors),
+   and zero-copy, each bit-equal to the saved state; (d) the copy of the
+   restored state onto the card from pageable, pinned and mapped buffers;
+   (e) (b)-(d) on ``/dev/shm`` where it holds four copies of the state,
+   else one line saying why not. Each with the card's name and power
+   limit. The directories live under ``build/`` and are deleted at the
+   end.
 8. The README main path: ``train_fashion_mnist`` (the FashionMNIST MLP at
    784 -> 512 -> 512 -> 10, 3 epochs at batch 32, lr 1e-3, on the
    full-size synthetic set, per-epoch checkpoints): every val_loss
@@ -125,6 +142,13 @@ kernels of the checkout in DIR (for example the parent commit, unpacked
 by ``git archive``) and with this checkout's, in turns (DIR, this, this,
 DIR), each in a process of its own that builds its kernels, and writes
 them to ``chiprun_out/wide_compare.json``.
+
+``python3 chip_smoke.py --ckpt-ab [ORDER]`` runs only the split and resume
+legs, once for each letter of ORDER (default ``ABCCBA``): A as this
+checkout runs them, B with the checkpoint pool prewarmed whatever the
+storage (the JAX package's rule), C without the restore side (no restore
+prewarm, the restored tree laid out on the host), into
+``chiprun_out/ckpt_ab_<ORDER>.json``.
 """
 
 from __future__ import annotations
@@ -203,8 +227,11 @@ LAUNCH_COUNTERS = (
     "flash_bwd_dkv_split", "flash_fwd", "int8_matmul", "flash_fwd_lse_bf16",
     "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16",
     *(f"{k}{dt}_wide" for k in WIDE_KERNELS for dt in ("", "_bf16")))
-# Rounds of the checkpoint IO phase (a save, writes, a restore, reads).
+# Rounds of each part of the checkpoint IO phase, the widths its disk
+# ceiling writes at and the threads it reads and checksums with.
 CKPT_IO_REPS = 2
+CKPT_WRITE_WIDTHS = (1, 4, 8)
+CKPT_READ_THREADS = (1, 8)
 # torch.profiler traces taken before a trace without the measured
 # function's kernels is fatal.
 TRACE_ATTEMPTS = 3
@@ -1175,6 +1202,7 @@ def train_phase(torch, smi):
     """The training main path through train_gpt, then two profiled steps
     and the flash-vs-einsum step parity."""
     from tpuflow_torch.data.lm import make_lm_loaders
+    from tpuflow_torch.device import f32_matmul_precision
     from tpuflow_torch.ops import flash_attention as fa
     from tpuflow_torch.ops import int8_matmul as im
     from tpuflow_torch.train.gpt import GptTrainConfig, train_gpt
@@ -1228,7 +1256,8 @@ def train_phase(torch, smi):
           f"(median after the cold step), {tok_s} tokens/s (last epoch), "
           f"peak memory {peak / 2**30:.2f} GiB, wall {wall_s:.2f} s [{smi}]")
     out["profile"] = train_profile(torch, cfg, step_ms, smi)
-    out["parity"] = step_parity(torch, cfg)
+    with f32_matmul_precision():
+        out["parity"] = step_parity(torch, cfg)
     out["bf16"] = bf16_phase(torch, smi, cfg)
     out["split_ckpt"], out["split_launches"] = split_ckpt_phase(
         torch, smi, cfg, losses)
@@ -1326,6 +1355,35 @@ def _io_line(what: str, recs: list) -> str:
            else "") for r in recs)
 
 
+def _pool_rule(ckpt_dir: str, step_dir: str) -> tuple[int, bool]:
+    """The step's shards of 64 KiB or more, and whether the manager
+    prewarms its pool on ``ckpt_dir``'s storage (memory-backed only)."""
+    from tpuflow_torch.ckpt import raw
+
+    n_big = sum(raw._nbytes(shape, raw.torch_dtype(dtype))
+                >= raw._POOL_MIN_BYTES
+                for _, shape, dtype, _, _ in _shards(step_dir))
+    return n_big, raw._fs_is_memory_backed(ckpt_dir)
+
+
+def _check_recycled(leg: str, saves: list, n_big: int, warm: bool) -> None:
+    """A leg's saves drew every shard of 64 KiB or more from a prewarmed
+    pool (the first may race the background prewarm), or, on a disk (no
+    warm files, nothing retired yet), none."""
+    got = [r["recycled"] for r in saves]
+    ok = (all(n <= n_big for n in got) and got[1:] == [n_big] * len(got[1:])
+          if warm else got == [0] * len(got))
+    if not ok:
+        raise AssertionError(f"{leg}: its saves drew {got} files from the "
+                             f"pool, want {n_big if warm else 0} each")
+
+
+def _recycled_line(saves: list, n_big: int, warm: bool) -> str:
+    return (f"files drawn from the pool {[r['recycled'] for r in saves]} "
+            + (f"of {n_big} of 64 KiB or more" if warm else
+               "(a disk: no warm files)"))
+
+
 def split_ckpt_phase(torch, smi, cfg, fused_losses) -> tuple[dict, dict]:
     """The split backward with per-epoch checkpoints, then an in-run resume
     from a copy of its directory without the last step."""
@@ -1362,7 +1420,8 @@ def split_ckpt_phase(torch, smi, cfg, fused_losses) -> tuple[dict, dict]:
             raise AssertionError(
                 f"split leg losses {res.step_losses} differ from the fused "
                 f"leg's {fused_losses}")
-        steps = set(os.listdir(split_dir))
+        # Beside the steps, .recycle: the pool, where there is one.
+        steps = set(os.listdir(split_dir)) - {".recycle"}
         if steps != {f"step_{spe}", f"step_{TRAIN_STEPS}"}:
             raise AssertionError(f"split leg left {steps}")
         last = os.path.join(split_dir, f"step_{TRAIN_STEPS}")
@@ -1370,13 +1429,21 @@ def split_ckpt_phase(torch, smi, cfg, fused_losses) -> tuple[dict, dict]:
             raise AssertionError(f"split leg handle {res.checkpoint}")
         split_shards = _shards(last)
         saves = res.checkpoint_io["saves"]
+        n_big, warm = _pool_rule(split_dir, last)
+        _check_recycled("split leg", saves, n_big, warm)
+        pool_dir = os.path.join(split_dir, ".recycle")
+        if not warm and os.path.isdir(pool_dir) and os.listdir(pool_dir):
+            raise AssertionError(f"the manager wrote warm files on a disk: "
+                                 f"{os.listdir(pool_dir)}")
         print(f"split leg: {TRAIN_STEPS} losses bit-equal to the fused "
-              f"leg's; {_io_line('save', saves)} [{smi}]")
+              f"leg's; {_io_line('save', saves)}; "
+              f"{_recycled_line(saves, n_big, warm)} [{smi}]")
 
         # --- the resume leg: the directory without its last step.
         resume_dir = os.path.join(root, "resume")
         shutil.copytree(split_dir, resume_dir,
-                        ignore=shutil.ignore_patterns(f"step_{TRAIN_STEPS}"))
+                        ignore=shutil.ignore_patterns(f"step_{TRAIN_STEPS}",
+                                                      ".recycle"))
         shutil.rmtree(split_dir)
         logs = []
         _zero_counters(fa, im)
@@ -1406,12 +1473,28 @@ def split_ckpt_phase(torch, smi, cfg, fused_losses) -> tuple[dict, dict]:
             raise AssertionError(f"resume leg step_{TRAIN_STEPS} differs "
                                  f"from the split leg's: {bad}")
         io2 = res2.checkpoint_io
+        _check_recycled("resume leg", io2["saves"], n_big, warm)
+        (rec,) = io2["restores"]
+        n_leaves = len(resumed)  # one shard a leaf
+        if rec["arena_buffers"] != n_leaves or rec["pinned"] != n_leaves:
+            raise AssertionError(
+                f"the resume's restore took {rec['arena_buffers']} "
+                f"prewarmed buffers and handed out {rec['pinned']} pinned "
+                f"leaves, want {n_leaves} and {n_leaves}")
+        held = torch.cuda.host_memory_stats()["allocated_bytes.current"]
+        if held >= rec["bytes"]:
+            raise AssertionError(
+                f"the host allocator holds {held} pinned bytes after the "
+                f"resume, not fewer than the {rec['bytes']} restored")
         print(f"resume leg: resumed at step {spe}, {spe} losses bit-equal "
               f"to the split leg's last {spe}, step_{TRAIN_STEPS}: "
               f"{len(resumed)} shard crc32s equal; "
-              f"{_io_line('restore', io2['restores'])}; "
-              f"{_io_line('save', io2['saves'])} (this machine's host "
-              f"disk) [{smi}]")
+              f"{_io_line('restore', io2['restores'])} ({n_leaves} "
+              f"prewarmed buffers taken, {n_leaves} leaves pinned; "
+              f"{held / 1e6:.1f} MB pinned held after it); "
+              f"{_io_line('save', io2['saves'])}; "
+              f"{_recycled_line(io2['saves'], n_big, warm)} (this "
+              f"machine's host disk) [{smi}]")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     out = dict(split=dict(wall_s=wall_s, launches=got,
@@ -1424,15 +1507,277 @@ def split_ckpt_phase(torch, smi, cfg, fused_losses) -> tuple[dict, dict]:
     return out, got
 
 
-def ckpt_io_phase(torch, smi, cfg) -> dict:
-    """The pieces of a checkpoint save and restore of the state the split
-    leg saves, on this machine's host disk, outside training: the crc32 of
-    every leaf (the save computes them before the first write), the save's
-    file work (crc32, the leaf files written with fsync through its 4-file
-    pool, the manifest), the leaf writes alone, a restore (reads and crc32
-    checks, leaf after leaf, from the page cache the save left) and its
-    reads alone. ``CKPT_IO_REPS`` rounds."""
+def _fadvise_out(paths) -> None:
+    """Drop the files' clean pages from the page cache (no root needed:
+    every file here was fsynced), so the next read comes from the disk."""
+    for p in paths:
+        fd = os.open(p, os.O_RDONLY)
+        try:
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+
+
+def _bin_paths(d: str) -> list:
+    return sorted(os.path.join(d, f) for f in os.listdir(d)
+                  if f.endswith(".bin"))
+
+
+def _timed_reps(fn, before=None) -> list:
+    """``CKPT_IO_REPS`` wall times of ``fn()``, ``before()`` untimed ahead
+    of each."""
+    out = []
+    for _ in range(CKPT_IO_REPS):
+        if before is not None:
+            before()
+        t0 = time.monotonic()
+        fn()
+        out.append(time.monotonic() - t0)
+    return out
+
+
+def _fmt(nbytes: int, times: list) -> str:
+    """'min s (GB/s at the min)' of a list of wall times."""
+    return (", ".join(f"{t:.3f}" for t in times)
+            + f" s = {nbytes / min(times) / 1e9:.2f} GB/s")
+
+
+def _disk_ceiling(root: str, bufs: list, nbytes: int) -> dict:
+    """(a) The storage's own rates for the state's files: writes with fsync
+    at each width of ``CKPT_WRITE_WIDTHS``, cold (fadvise) and warm reads
+    into backed buffers and crc32 at each of ``CKPT_READ_THREADS``."""
     from concurrent.futures import ThreadPoolExecutor
+
+    from tpuflow_torch.ckpt import raw
+
+    d = os.path.join(root, "ceiling")
+    paths = [os.path.join(d, f"f{i:05d}.bin") for i in range(len(bufs))]
+
+    def write(width):
+        os.makedirs(d)
+        with ThreadPoolExecutor(width) as ex:
+            list(ex.map(raw.write_file, paths, bufs))
+
+    out = {"write_s": {}, "read_cold_s": {}, "read_warm_s": {},
+           "crc32_s": {}}
+    for w in CKPT_WRITE_WIDTHS:
+        out["write_s"][w] = _timed_reps(
+            lambda: write(w), before=lambda: shutil.rmtree(d, True))
+    dst = [raw.aligned_empty(b.nbytes) for b in bufs]
+    for b in dst:
+        b.fill(0)  # backed: the reads measure the storage, not page faults
+
+    def read(threads):
+        with ThreadPoolExecutor(threads) as ex:
+            list(ex.map(lambda p, b: raw.read_file(p, b.nbytes, out=b),
+                        paths, dst))
+
+    for t in CKPT_READ_THREADS:
+        out["read_cold_s"][t] = _timed_reps(
+            lambda: read(t), before=lambda: _fadvise_out(paths))
+        out["read_warm_s"][t] = _timed_reps(lambda: read(t))
+        with ThreadPoolExecutor(t) as ex:
+            out["crc32_s"][t] = _timed_reps(
+                lambda: list(ex.map(raw._crc32, bufs)))
+    shutil.rmtree(d)
+    for k, v in out.items():
+        print(f"  (a) {k[:-2]}: " + "; ".join(
+            f"{n} {'wide' if k == 'write_s' else 'threads'} "
+            + _fmt(nbytes, ts) for n, ts in v.items()))
+    return out
+
+
+def _save_legs(root: str, host: list, nbytes: int, crcs: list) -> dict:
+    """(b) Saves of ``host`` through ``_write_entries``: to fresh files;
+    onto a pool one ``prewarm`` filled; and three steady-state saves, each
+    drawing the files retention adopted from the one before. Every save's
+    manifest is the same bytes, its crc32s the serial ones, and every
+    shard of 64 KiB or more of a pooled save came from the pool."""
+    from tpuflow_torch.ckpt import raw
+
+    policy = raw.RetryPolicy()
+    sizes = [t.numel() * t.element_size() for _, t in host]
+    n_big = sum(s >= raw._POOL_MIN_BYTES for s in sizes)
+    manifests = set()
+
+    def save(d, pool=None):
+        os.makedirs(d)
+        taken = pool.taken if pool is not None else 0
+        t0 = time.monotonic()
+        raw._write_entries(d, host, policy, pool=pool)
+        dt = time.monotonic() - t0
+        if pool is not None and pool.taken - taken != n_big:
+            raise AssertionError(
+                f"a pooled save drew {pool.taken - taken} files from the "
+                f"pool, want all {n_big} shards of 64 KiB or more")
+        with open(os.path.join(d, "manifest.json"), "rb") as fh:
+            manifests.add(fh.read())
+        return dt
+
+    out = {"fresh_s": [], "prewarm_s": [], "prewarmed_s": [],
+           "steady_s": []}
+    for rep in range(CKPT_IO_REPS):
+        d = os.path.join(root, f"fresh{rep}")
+        out["fresh_s"].append(save(d))
+        shutil.rmtree(d)
+        pool = raw.RecyclePool(os.path.join(root, f"pool{rep}"))
+        t0 = time.monotonic()
+        pool.prewarm(sizes)
+        pool.prewarm_wait()
+        out["prewarm_s"].append(time.monotonic() - t0)
+        out["prewarmed_s"].append(save(d, pool))
+        shutil.rmtree(d)
+        pool.clear()
+    pool = raw.RecyclePool(os.path.join(root, "pool"))
+    prev = os.path.join(root, "steady0")
+    save(prev)
+    for i in range(1, 4):
+        pool.adopt_dir(prev)  # retention
+        prev = os.path.join(root, f"steady{i}")
+        out["steady_s"].append(save(prev, pool))
+    pool.clear()
+    got = [s["crc32"] for e in json.loads(manifests.pop())["leaves"]
+           for s in e["shards"]]
+    if manifests or got != crcs:
+        raise AssertionError("the saves' manifests differ, or their crc32s "
+                             "are not the serial ones")
+    for k in ("fresh_s", "prewarmed_s", "steady_s"):
+        print(f"  (b) save, {k[:-2]} files: {_fmt(nbytes, out[k])}")
+    print(f"  (b) pool prewarm (zero-filled files, no fsync): "
+          f"{_fmt(nbytes, out['prewarm_s'])}; {n_big} of {len(sizes)} "
+          f"shards drawn from the pool in every pooled save; manifests "
+          f"and crc32s equal across all {2 * CKPT_IO_REPS + 4} saves")
+    out["save_dir"] = prev
+    return out
+
+
+def _equal_to(torch, tree, host, what: str) -> list:
+    """The restored tree's tensors, each bit-equal to the saved one."""
+    from tpuflow_torch.ckpt import raw
+
+    got = raw.flatten(tree)
+    if [p for p, _ in got] != [p for p, _ in host] or not all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(got, host)):
+        raise AssertionError(f"{what}: restored tensors differ from the "
+                             "saved state")
+    return [t for _, t in got]
+
+
+def _restore_legs(torch, d: str, host: list, nbytes: int,
+                  disk: bool) -> dict:
+    """(c) Restores of the save in ``d``, each bit-equal to ``host``: the
+    parent's order (one thread, leaf after leaf), threaded (cold from the
+    disk and warm), threaded into a prewarmed arena (pageable and pinned),
+    and zero-copy; (d) the copy of the restored tensors onto the card from
+    pageable, pinned-arena and mapped buffers."""
+    from tpuflow_torch.ckpt import raw
+
+    paths = _bin_paths(d)
+    n_leaves = len(host)
+    out, kept = {}, {}
+    to_card = ("threaded_warm", "pinned_arena", "zero_copy")
+    # The pinned buffers a restore freed stay cached by PyTorch's host
+    # allocator: each pinned prewarm starts from an empty cache, as a
+    # process's first does.
+    empty_host_cache = getattr(torch._C, "_host_emptyCache", lambda: None)
+
+    def restore(key, fn, prewarm=None, cold=False, check=None):
+        times, warm_s = [], []
+        for rep in range(CKPT_IO_REPS):
+            if cold:
+                _fadvise_out(paths)
+            if key == "pinned_arena":
+                empty_host_cache()
+            if prewarm is not None:
+                t0 = time.monotonic()
+                prewarm()
+                warm_s.append(time.monotonic() - t0)
+            taken = raw._ARENA.taken
+            t0 = time.monotonic()
+            tree = fn()
+            times.append(time.monotonic() - t0)
+            tensors = _equal_to(torch, tree, host, key)
+            if check is not None:
+                check(tensors, raw._ARENA.taken - taken)
+            if key in to_card and rep == CKPT_IO_REPS - 1:
+                kept[key] = tensors
+            del tree, tensors
+        out[key + "_s"] = times
+        if warm_s:
+            out[key + "_prewarm_s"] = warm_s
+
+    def arena_check(pinned):
+        def check(tensors, taken):
+            if taken != n_leaves:
+                raise AssertionError(f"the prewarmed restore took {taken} "
+                                     f"arena buffers, want {n_leaves}")
+            if pinned and not all(t.is_pinned() for t in tensors):
+                raise AssertionError("a pinned-arena restore handed out "
+                                     "pageable tensors")
+        return check
+
+    sizes = raw.manifest_shard_sizes(d)
+    legs = [("serial", lambda: raw.restore_raw(d, io_threads=1), {}),
+            ("threaded_cold", lambda: raw.restore_raw(d), {"cold": True}),
+            ("threaded_warm", lambda: raw.restore_raw(d), {}),
+            ("arena", lambda: raw.restore_raw(d), {
+                "prewarm": lambda: raw._ARENA.prewarm(sizes,
+                                                      background=False),
+                "check": arena_check(False)}),
+            ("pinned_arena", lambda: raw.restore_raw(d), {
+                "prewarm": lambda: raw._ARENA.prewarm(
+                    sizes, background=False, pinned=True),
+                "check": arena_check(True)}),
+            ("zero_copy", lambda: raw.restore_raw(d, zero_copy=True), {})]
+    if not disk:  # memory-backed: nothing is cold
+        legs = [leg for leg in legs if leg[0] != "threaded_cold"]
+    for key, fn, kw in legs:
+        restore(key, fn, **kw)
+        line = f"  (c) restore, {key}: {_fmt(nbytes, out[key + '_s'])}"
+        if key + "_prewarm_s" in out:
+            line += (f" (its prewarm, foreground: "
+                     f"{_fmt(nbytes, out[key + '_prewarm_s'])})")
+        print(line)
+    print(f"  (c) every restore bit-equal to the saved state; the arena "
+          f"restores took {n_leaves} buffers each, the pinned ones pinned")
+    for key in to_card:
+        tensors = kept.pop(key)
+
+        def copy():
+            torch.cuda.synchronize()
+            on_card = [t.to("cuda", non_blocking=True) for t in tensors]
+            torch.cuda.synchronize()
+            del on_card
+
+        out[key + "_to_card_s"] = _timed_reps(copy)
+        print(f"  (d) copy onto the card from {key} buffers: "
+              f"{_fmt(nbytes, out[key + '_to_card_s'])}")
+        del tensors
+    for key, prewarm in (("threaded_warm", None),
+                         ("arena", "arena_prewarm_s"),
+                         ("pinned_arena", "pinned_arena_prewarm_s")):
+        card = out.get(key + "_to_card_s", out["threaded_warm_to_card_s"])
+        total = min(out[key + "_s"]) + min(card)
+        fg = total + (min(out[prewarm]) if prewarm else 0.0)
+        out[key + "_restore_and_copy_s"] = total
+        print(f"  (d) {key}: restore + copy onto the card {total:.3f} s; "
+              f"with its prewarm in the foreground {fg:.3f} s")
+    empty_host_cache()
+    return out
+
+
+def ckpt_io_phase(torch, smi, cfg) -> dict:
+    """The checkpoint of the state the split leg saves (GPT-2 124M params
+    and AdamW moments), outside training, ``CKPT_IO_REPS`` rounds of each:
+    (a) the disk's own write, read and crc32 rates; (b) saves through
+    ``_write_entries`` to fresh, prewarmed-pool and steady-state recycled
+    files; (c) restores in the parent's serial order, threaded cold and
+    warm, into a prewarmed arena (pageable and pinned) and zero-copy; (d)
+    the copy of restored state onto the card; (e) (b) and (c) again on
+    tmpfs where ``/dev/shm`` holds four copies of the state, else one line
+    saying why not. Everything on this machine's host disk under
+    ``build/``; every restore bit-equal to the saved state."""
+    import zlib
 
     from tpuflow_torch.ckpt import raw
     from tpuflow_torch.ckpt.tree import checkpoint_tree
@@ -1445,47 +1790,38 @@ def ckpt_io_phase(torch, smi, cfg) -> dict:
     torch.cuda.empty_cache()
     bufs = [raw._bytes(t) for _, t in host]
     nbytes = sum(b.nbytes for b in bufs)
-    t0 = time.monotonic()
-    for b in bufs:
-        raw._crc32(b)
-    crc_s = time.monotonic() - t0
-    times = {k: [] for k in ("save_s", "write_s", "restore_s", "read_s")}
-    root = tempfile.mkdtemp(prefix="chip_smoke_io_",
-                            dir=os.path.join(REPO, "build"))
+    crcs = [zlib.crc32(b) for b in bufs]
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    free = os.statvfs(build).f_bavail * os.statvfs(build).f_frsize
+    print(f"checkpoint IO, {nbytes / 1e9:.3f} GB in {len(bufs)} leaves, "
+          f"this machine's host disk ({free / 1e9:.0f} GB free under "
+          f"build/) [{smi}]")
+    out = dict(bytes=nbytes, leaves=len(bufs), gpu=smi)
+    root = tempfile.mkdtemp(prefix="chip_smoke_io_", dir=build)
     try:
-        for rep in range(CKPT_IO_REPS):
-            d = os.path.join(root, f"save{rep}")
-            os.makedirs(d)
-            t0 = time.monotonic()
-            raw._write_entries(d, host, raw.RetryPolicy())
-            times["save_s"].append(time.monotonic() - t0)
-            w = os.path.join(root, f"write{rep}")
-            os.makedirs(w)
-            paths = [os.path.join(w, f"leaf_{i:05d}.bin")
-                     for i in range(len(bufs))]
-            t0 = time.monotonic()
-            with ThreadPoolExecutor(max_workers=4) as ex:
-                for fut in [ex.submit(raw.write_file, p, b)
-                            for p, b in zip(paths, bufs)]:
-                    fut.result()
-            times["write_s"].append(time.monotonic() - t0)
-            t0 = time.monotonic()
-            got = raw.restore_raw(d)  # crc32-verified
-            times["restore_s"].append(time.monotonic() - t0)
-            del got
-            t0 = time.monotonic()
-            for p, b in zip(paths, bufs):
-                raw.read_file(p, b.nbytes)
-            times["read_s"].append(time.monotonic() - t0)
-            shutil.rmtree(d)
-            shutil.rmtree(w)
+        out["ceiling"] = _disk_ceiling(root, bufs, nbytes)
+        out["save"] = _save_legs(root, host, nbytes, crcs)
+        out["restore"] = _restore_legs(torch, out["save"].pop("save_dir"),
+                                       host, nbytes, disk=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    out = dict(bytes=nbytes, leaves=len(bufs), crc32_s=crc_s, **times, gpu=smi)
-    print(f"checkpoint IO, {nbytes / 1e9:.3f} GB in {len(bufs)} leaves "
-          f"(this machine's host disk and page cache): crc32 {crc_s:.3f} s; "
-          + "; ".join(f"{k[:-2]} " + ", ".join(f"{t:.3f}" for t in v) + " s"
-                      for k, v in times.items()) + f" [{smi}]")
+    shm = "/dev/shm"
+    room = (os.statvfs(shm).f_bavail * os.statvfs(shm).f_frsize
+            if os.path.isdir(shm) else 0)
+    if room < 4 * nbytes:
+        out["tmpfs"] = None
+        print(f"  (e) tmpfs leg not run: {shm} has {room / 1e9:.2f} GB "
+              f"free, under 4 x the state's {nbytes / 1e9:.3f} GB [{smi}]")
+    else:
+        print(f"  (e) tmpfs ({shm}, {room / 1e9:.0f} GB free) [{smi}]:")
+        root = tempfile.mkdtemp(prefix="chip_smoke_io_", dir=shm)
+        try:
+            save = _save_legs(root, host, nbytes, crcs)
+            out["tmpfs"] = dict(save=save, restore=_restore_legs(
+                torch, save.pop("save_dir"), host, nbytes, disk=False))
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
     return out
 
 
@@ -1535,11 +1871,9 @@ def step_parity(torch, cfg) -> dict:
     with the flash kernels and with the einsum attention (dropout off,
     TF32 off): the loss and every gradient."""
     from tpuflow_torch.data.lm import make_lm_loaders
-    from tpuflow_torch.device import pin_f32_matmul_precision
     from tpuflow_torch.models.gpt2 import GPT2
     from tpuflow_torch.models.losses import cross_entropy_loss
 
-    pin_f32_matmul_precision()
     base = dataclasses.replace(cfg.model_config(), dropout=0.0)
     loader, _ = make_lm_loaders(cfg.batch_size, cfg.steps_per_epoch,
                                 cfg.seq_len, base.vocab_size)
@@ -1788,6 +2122,103 @@ def wide_compare(other: str) -> int:
     return 0
 
 
+def ckpt_ab(torch, order: str = "ABCCBA") -> int:
+    """The split and resume legs' checkpoint wiring taken apart, one run
+    for each letter of ``order``: A as this checkout runs it; B with the
+    pool prewarmed on any storage, as the JAX package does (A prewarms it
+    only on memory-backed storage); C without the restore side (no
+    ``prewarm_restore``, the restored tree laid out on the host), as the
+    parent did after its serial read. Each run: the split leg's saves and
+    the files they drew from the pool, the resume leg's restore, the
+    layout of the restored tree onto the card and its save, the resumed
+    losses bit-equal to the split leg's."""
+    from tpuflow_torch.ckpt import manager as mgr_mod
+    from tpuflow_torch.ckpt import raw
+    from tpuflow_torch.ckpt import tree as tree_mod
+    from tpuflow_torch.ops import _build
+    from tpuflow_torch.train import gpt as gpt_mod
+
+    smi = _smi_line()
+    print(f"gpu: {smi}")
+    print(f"built in {_build.build_all():.2f} s")
+    cfg = gpt_mod.GptTrainConfig(
+        preset="gpt2", seq_len=1024, batch_size=8, epochs=TRAIN_EPOCHS,
+        steps_per_epoch=TRAIN_STEPS_PER_EPOCH, attn_impl="flash",
+        data_axis=1, fsdp_axis=1)
+    def prewarm_anywhere(self, state):
+        sizes = [mgr_mod._saved_nbytes(leaf, self.save_dtype)
+                 for _, leaf in raw.flatten(state)]
+        self._pool.prewarm(sizes * ((self.max_to_keep or 1)
+                                    + (2 if self.best_metric else 1)))
+
+    real = dict(prewarm=mgr_mod.CheckpointManager.prewarm,
+                prewarm_restore=mgr_mod.CheckpointManager.prewarm_restore,
+                from_jax=tree_mod._from_jax,
+                load=gpt_mod.load_checkpoint_tree)
+    load_s = []
+
+    def timed_load(state, tree):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        real["load"](state, tree)
+        torch.cuda.synchronize()
+        load_s.append(time.monotonic() - t0)
+
+    gpt_mod.load_checkpoint_tree = timed_load
+    root = tempfile.mkdtemp(prefix="chip_smoke_ab_",
+                            dir=os.path.join(REPO, "build"))
+    runs = []
+    try:
+        for name in order:
+            mgr_mod.CheckpointManager.prewarm = (
+                prewarm_anywhere if name == "B" else real["prewarm"])
+            mgr_mod.CheckpointManager.prewarm_restore = (
+                (lambda self, *a, **k: None) if name == "C"
+                else real["prewarm_restore"])
+            tree_mod._from_jax = (
+                (lambda m, t, d: real["from_jax"](m, t, "cpu"))
+                if name == "C" else real["from_jax"])
+            split = os.path.join(root, "split")
+            resume = os.path.join(root, "resume")
+            res = gpt_mod.train_gpt(cfg, ckpt_dir=split, flash_bwd="split",
+                                    log=lambda m: None)
+            shutil.copytree(split, resume, ignore=shutil.ignore_patterns(
+                f"step_{TRAIN_STEPS}", ".recycle"))
+            shutil.rmtree(split)
+            t0 = time.monotonic()
+            again = gpt_mod.train_gpt(cfg, ckpt_dir=resume,
+                                      flash_bwd="split", log=lambda m: None)
+            resume_s = time.monotonic() - t0
+            shutil.rmtree(resume)
+            if again.step_losses != res.step_losses[TRAIN_STEPS_PER_EPOCH:]:
+                raise AssertionError(f"{name}: resumed losses differ")
+            io, io2 = res.checkpoint_io, again.checkpoint_io
+            run = dict(variant=name, split_saves_s=[
+                           r["seconds"] for r in io["saves"]],
+                       recycled=[r["recycled"] for r in io["saves"]],
+                       host_copy_s=[r["host_copy_s"] for r in io["saves"]],
+                       restore_s=io2["restores"][0]["seconds"],
+                       load_s=load_s[-1],
+                       resume_save_s=io2["saves"][0]["seconds"],
+                       resume_wall_s=resume_s)
+            runs.append(run)
+            print(f"{name}: split leg saves " + ", ".join(
+                f"{t:.3f}" for t in run["split_saves_s"]) + " s (files "
+                f"from the pool {run['recycled']}); resume "
+                f"leg restore {run['restore_s']:.3f} s, layout onto the "
+                f"card {run['load_s']:.3f} s, save "
+                f"{run['resume_save_s']:.3f} s, wall {resume_s:.3f} s; "
+                f"losses bit-equal", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", f"ckpt_ab_{order}.json"),
+              "w") as fh:
+        json.dump(dict(gpu=smi, runs=runs), fh, indent=1)
+    print(smi)
+    return 0
+
+
 def mlp_timing(torch, smi) -> dict:
     """The MLP's training loop as ``train_func_per_worker`` runs it (the
     train step, a dispatch window of 2) with a host stamp per step: one
@@ -1912,7 +2343,8 @@ def main_path_phase(torch, smi) -> dict:
                                  f"the floor {MLP_ACCURACY_FLOOR}")
         ckdir = os.path.join(run, "checkpoints")
         best_step = int(res.best_checkpoint.path.rsplit("_", 1)[1])
-        kept = sorted(int(d.split("_")[1]) for d in os.listdir(ckdir))
+        kept = sorted(int(d.split("_")[1]) for d in os.listdir(ckdir)
+                      if d.startswith("step_"))  # not .recycle
         want_kept = sorted({MLP_EPOCHS - 1, MLP_EPOCHS, best_step})
         if kept != want_kept:
             raise AssertionError(f"retained steps {kept}, want {want_kept} "
@@ -1938,7 +2370,7 @@ def main_path_phase(torch, smi) -> dict:
         # --- in-run resume: the storage without its newest step.
         resume = os.path.join(root, "resume")
         shutil.copytree(run, resume, ignore=shutil.ignore_patterns(
-            f"step_{MLP_EPOCHS}"))
+            f"step_{MLP_EPOCHS}", ".recycle"))
         with open(os.path.join(resume, "metrics.jsonl")) as fh:
             n_lines = len(fh.readlines())
         again = m.train_fashion_mnist(checkpoint_storage_path=resume, **call)
@@ -2349,7 +2781,7 @@ def resnet50_leg(torch, smi) -> dict:
 
         resume = os.path.join(root, "resume")
         shutil.copytree(run, resume, ignore=shutil.ignore_patterns(
-            f"step_{R50_EPOCHS}"))
+            f"step_{R50_EPOCHS}", ".recycle"))
         with open(os.path.join(resume, "metrics.jsonl")) as fh:
             n_lines = len(fh.readlines())
         t0 = time.monotonic()
@@ -2391,8 +2823,8 @@ def resnet50_timing(torch, smi) -> dict:
     window of ``R50_TIMED_STEPS`` steps after ``R50_TIMED_WARMUP``
     (synchronized at both ends), the median step ms beside them, the peak
     memory, and the device's busy share of ``R50_PROFILED_STEPS`` steps
-    under the profiler; with TF32 off (the process's setting here) and
-    again with cuDNN's TF32 on (PyTorch's default for convolutions)."""
+    under the profiler; with cuDNN's TF32 off and again on (PyTorch's
+    default for convolutions)."""
     from tpuflow_torch.data.loader import get_dataloaders, prefetch_to_device
     from tpuflow_torch.flows import my_torch_module as m
     from tpuflow_torch.train.step import (
@@ -2487,12 +2919,10 @@ def vit_leg(torch, smi) -> dict:
     validation or predictor batch), finite val_loss and logits. Then one
     step's loss and gradients against the same model on
     ``attn_impl="xla"``."""
-    from tpuflow_torch.device import pin_f32_matmul_precision
     from tpuflow_torch.flows import my_torch_module as m
     from tpuflow_torch.ops import flash_attention as fa
     from tpuflow_torch.ops import int8_matmul as im
 
-    pin_f32_matmul_precision()
     L = 12
     steps = VIT_TRAIN_ROWS // VIT_BATCH
     n_val = -(-VIT_TEST_ROWS // VIT_BATCH)
@@ -2601,6 +3031,9 @@ def main() -> int:
         print(json.dumps(wide_times(torch)))
         return 0
     sys.path.insert(0, REPO)
+    if sys.argv[1:2] == ["--ckpt-ab"]:
+        return ckpt_ab(torch, *sys.argv[2:3])
+    from tpuflow_torch.device import f32_matmul_precision
     from tpuflow_torch.ops import _build
 
     smi = _smi_line()
@@ -2622,7 +3055,9 @@ def main() -> int:
     main_path = main_path_phase(torch, smi)
     flows = flow_phase(torch, smi)
     image = dict(resnet18=resnet18_flow_leg(torch, smi),
-                 resnet50=resnet50_leg(torch, smi), vit=vit_leg(torch, smi))
+                 resnet50=resnet50_leg(torch, smi))
+    with f32_matmul_precision():
+        image["vit"] = vit_leg(torch, smi)
 
     # One JSON entry per kernel. flash: one launch at the generate() leg's
     # shape (f32, 1 x 512 x 12 x 64). int8: the 49 launches of one int8

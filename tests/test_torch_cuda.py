@@ -21,10 +21,10 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
-    from tpuflow_torch.device import pin_f32_matmul_precision
+    from tpuflow_torch.device import f32_matmul_precision
 
-    pin_f32_matmul_precision()
-    return torch.Generator(device="cuda").manual_seed(0)
+    with f32_matmul_precision():
+        yield torch.Generator(device="cuda").manual_seed(0)
 
 
 def _flash_views(gen, B, Tq, Tk, H, D, dtype):
@@ -298,7 +298,7 @@ def test_train_gpt_split_checkpoint_resume_on_the_card(cuda, tmp_path):
     assert (fa.launches_bwd_dq - n[0], fa.launches_bwd_dq_split - n[1]) == \
         (0, 2 * 8)
     shutil.copytree(tmp_path / "a", tmp_path / "b",
-                    ignore=shutil.ignore_patterns("step_8"))
+                    ignore=shutil.ignore_patterns("step_8", ".recycle"))
     logs = []
     again = train_gpt(cfg, ckpt_dir=str(tmp_path / "b"), flash_bwd="split",
                       log=logs.append)
@@ -307,6 +307,32 @@ def test_train_gpt_split_checkpoint_resume_on_the_card(cuda, tmp_path):
     manifests = [json.load(open(tmp_path / d / "step_8" / "state" /
                                 "manifest.json")) for d in ("a", "b")]
     assert manifests[0] == manifests[1]
+
+
+def test_pinned_resume_hands_its_host_memory_back(cuda, tmp_path):
+    """An in-run resume on the card restores into page-locked buffers,
+    one a leaf and every leaf pinned; once the state is on the card that
+    memory goes back to the system: PyTorch's host allocator then holds
+    less than the restored bytes (it caches freed pinned blocks)."""
+    import shutil
+
+    from tpuflow_torch.ckpt import raw
+    from tpuflow_torch.train.gpt import GptTrainConfig, train_gpt
+
+    cfg = GptTrainConfig(preset="test", epochs=2, steps_per_epoch=2,
+                         seq_len=128, attn_impl="flash", data_axis=1,
+                         fsdp_axis=1, learning_rate=1e-3)
+    full = train_gpt(cfg, ckpt_dir=str(tmp_path / "a"), log=lambda *a: None)
+    shutil.copytree(tmp_path / "a", tmp_path / "b",
+                    ignore=shutil.ignore_patterns("step_4", ".recycle"))
+    again = train_gpt(cfg, ckpt_dir=str(tmp_path / "b"), log=lambda *a: None)
+    assert again.step_losses == full.step_losses[2:]
+    (rec,) = again.checkpoint_io["restores"]
+    n = len(raw.read_manifest(str(tmp_path / "b" / "step_2" / "state"))[
+        "leaves"])
+    assert rec["arena_buffers"] == n and rec["pinned"] == n, rec
+    held = torch.cuda.host_memory_stats()["allocated_bytes.current"]
+    assert held < rec["bytes"], (held, rec["bytes"])
 
 
 _INT8_SHAPES = [(M, K, N) for M in (1, 7, 8, 9, 16, 17, 64, 512)

@@ -125,21 +125,21 @@ def _resnet_steps(mesh, rank=0, world=1):
     16-row CIFAR-shaped batch: (running statistics, parameters) as numpy,
     in the module's order."""
     from tpuflow_torch.ckpt.tree import running_stats
-    from tpuflow_torch.device import pin_f32_matmul_precision
+    from tpuflow_torch.device import f32_matmul_precision
     from tpuflow_torch.models import get_model
     from tpuflow_torch.train.step import create_train_state, make_train_step
 
-    if mesh.device.type == "cuda":
-        pin_f32_matmul_precision()  # no TF32 convolutions
     model = get_model("resnet18", width=4, small_inputs=True, seed=0)
     state = create_train_state(model.to(mesh.device), 0.05)
     step = make_train_step(mesh=mesh)
     r = np.random.default_rng(0)
     rows = slice(rank * 16 // world, (rank + 1) * 16 // world)
-    for _ in range(2):
-        x = r.standard_normal((16, 32, 32, 3)).astype(np.float32)
-        y = r.integers(0, 10, 16)
-        step(state, {"x": x[rows], "y": y[rows]}, 0)
+    # No TF32 convolutions on the card.
+    with f32_matmul_precision(mesh.device.type == "cuda"):
+        for _ in range(2):
+            x = r.standard_normal((16, 32, 32, 3)).astype(np.float32)
+            y = r.integers(0, 10, 16)
+            step(state, {"x": x[rows], "y": y[rows]}, 0)
     return ([t.cpu().numpy() for t in running_stats(model).values()],
             [p.detach().cpu().numpy() for p in model.parameters()])
 
@@ -233,7 +233,7 @@ def test_two_process_epoch_over_nccl(monkeypatch):
     both sides)."""
     if torch.cuda.device_count() < WORLD:
         pytest.skip(f"needs {WORLD} CUDA devices: one process per card")
-    from tpuflow_torch.device import pin_f32_matmul_precision
+    from tpuflow_torch.device import f32_matmul_precision
 
-    pin_f32_matmul_precision()
-    _two_against_one(monkeypatch, "cuda")
+    with f32_matmul_precision():
+        _two_against_one(monkeypatch, "cuda")

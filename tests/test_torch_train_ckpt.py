@@ -52,18 +52,24 @@ def _shards(step_dir):
             for s in e["shards"]]
 
 
-def test_in_run_resume_is_bit_equal_to_the_uninterrupted_run(tmp_path):
+def test_in_run_resume_is_bit_equal_to_the_uninterrupted_run(
+        tmp_path, monkeypatch):
     """Two epochs with a ckpt_dir save steps 4 and 8 (res.checkpoint is the
     newest); the same call on a copy without step_8 resumes in-run from
     step 4 at epoch 1: its 4 losses, the histories and step_8's shards
-    equal the uninterrupted run's."""
+    equal the uninterrupted run's. Every prewarm is on: the storage is
+    taken for tmpfs (the pool's), and the restore takes one prewarmed
+    arena buffer a leaf."""
+    monkeypatch.setattr(raw, "_fs_is_memory_backed", lambda path: True)
     full, _ = _run(_cfg(), tmp_path / "a")
-    assert sorted(os.listdir(tmp_path / "a")) == ["step_4", "step_8"]
+    # Beside the steps, .recycle holds the pool train_gpt prewarmed.
+    assert sorted(os.listdir(tmp_path / "a")) == [".recycle", "step_4",
+                                                   "step_8"]
     assert full.checkpoint.path == str(tmp_path / "a" / "step_8")
     assert full.checkpoint.metadata["data_state"]["epoch"] == 2
     assert [s["step"] for s in full.checkpoint_io["saves"]] == [4, 8]
     shutil.copytree(tmp_path / "a", tmp_path / "b",
-                    ignore=shutil.ignore_patterns("step_8"))
+                    ignore=shutil.ignore_patterns("step_8", ".recycle"))
     again, logs = _run(_cfg(), tmp_path / "b")
     assert any("in-run resume from step 4 → epoch 1" in m for m in logs)
     assert again.step_losses == full.step_losses[STEPS:]
@@ -72,6 +78,8 @@ def test_in_run_resume_is_bit_equal_to_the_uninterrupted_run(tmp_path):
         [r["val_loss"] for r in full.metrics_history]
     assert _shards(again.checkpoint.path) == _shards(full.checkpoint.path)
     assert [r["step"] for r in again.checkpoint_io["restores"]] == [4]
+    assert again.checkpoint_io["restores"][0]["arena_buffers"] == len(
+        _shards(again.checkpoint.path))
     # A directory whose newest step is the last trains nothing more.
     done, _ = _run(_cfg(), tmp_path / "a")
     assert done.step_losses == [] and done.loss_history == full.loss_history
@@ -82,7 +90,8 @@ def test_in_run_resume_past_a_corrupt_newest_step(tmp_path):
     step before it, and the loader cursor and histories are that step's:
     the run replays the last epoch bit-equal to the uninterrupted run."""
     full, _ = _run(_cfg(), tmp_path / "a")
-    shutil.copytree(tmp_path / "a", tmp_path / "b")
+    shutil.copytree(tmp_path / "a", tmp_path / "b",
+                    ignore=shutil.ignore_patterns(".recycle"))
     state_dir = tmp_path / "b" / "step_8" / "state"
     shard = max((state_dir / f for f in os.listdir(state_dir)
                  if f.endswith(".bin")), key=os.path.getsize)
@@ -126,7 +135,7 @@ def test_ckpt_dtype_bfloat16_saves_bf16_and_resumes(tmp_path):
     assert dtypes == {"bfloat16", "<i4"}
     assert full.checkpoint.metadata["save_dtype"] == "bfloat16"
     shutil.copytree(tmp_path / "a", tmp_path / "b",
-                    ignore=shutil.ignore_patterns("step_8"))
+                    ignore=shutil.ignore_patterns("step_8", ".recycle"))
     again, logs = _run(cfg, tmp_path / "b")
     assert any("in-run resume from step 4" in m for m in logs)
     assert len(again.step_losses) == STEPS

@@ -240,7 +240,9 @@ def _run(tmp_path, name, **kw):
 def test_fit_retention_metrics_and_result_json(tmp_path):
     res = _run(tmp_path, "run", epochs=3)
     ckdir = tmp_path / "run" / "checkpoints"
-    kept = sorted(int(d.split("_")[1]) for d in os.listdir(ckdir))
+    # Retention recycles the steps it drops into .recycle.
+    kept = sorted(int(d.split("_")[1]) for d in os.listdir(ckdir)
+                  if d.startswith("step_"))
     best = int(res.best_checkpoint.path.rsplit("_", 1)[1])
     assert kept == sorted({2, 3, best})
     assert res.checkpoint.path.endswith("step_3")
@@ -263,7 +265,8 @@ def test_in_run_resume_is_bit_exact(tmp_path, capsys):
     resumes from step 2, trains epoch 3 only, and writes the uninterrupted
     run's step 3 bit for bit, with its metrics."""
     full = _run(tmp_path, "a", epochs=3)
-    shutil.copytree(tmp_path / "a", tmp_path / "b")
+    shutil.copytree(tmp_path / "a", tmp_path / "b",
+                    ignore=shutil.ignore_patterns(".recycle"))
     shutil.rmtree(tmp_path / "b" / "checkpoints" / "step_3")
     capsys.readouterr()
     again = _run(tmp_path, "b", epochs=3)

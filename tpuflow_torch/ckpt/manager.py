@@ -8,6 +8,7 @@ on-disk layout::
         state/          # tpuflow-raw-v2: manifest.json + one file per leaf
         metadata.json   # step, metrics, metrics_history, data_state, ...
       step_16/ ...
+      .recycle/         # retired shard files, r00000001.bin, ...
 
 - A save stages into ``step_K.tmp`` and becomes visible by one atomic
   rename after its payload and ``metadata.json`` are on disk; anything
@@ -25,10 +26,18 @@ on-disk layout::
   back up.
 - The metrics history is rebuilt from the newest step's metadata when a
   manager opens a directory (in-run resume).
+- Retired steps (retention, a step saved again, a killed writer's
+  leftovers) are adopted into ``.recycle`` (``raw.RecyclePool``), whose
+  files later saves overwrite in place; on memory-backed storage
+  ``prewarm`` creates them ahead of the first saves. ``prewarm_restore``
+  (and the module's ``prewarm_restore_handle``) backs a restore's destination buffers
+  ahead of it (``raw.RestoreArena``); ``restore(zero_copy=True)`` maps
+  the shard files instead of reading them.
 
-Not here yet (ROADMAP Queue 1 item 6): the node-local tier and its upload,
-``emergency_save``, the recycle pool and restore prewarm, the Orbax
-format, and the JAX package's ``obs`` events and fault-injection hooks.
+Not here yet (ROADMAP Queue 1 items 6b and 5): multi-process manifest
+fragments, the node-local tier and its upload, ``emergency_save``, the
+Orbax format, and the JAX package's ``obs`` events and fault-injection
+hooks.
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ _STATE_DIR = "state"
 _META_FILE = "metadata.json"
 _STEP_PREFIX = "step_"
 _STAGE_SUFFIX = ".tmp"
+_POOL_DIR = ".recycle"
 _SAVE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
@@ -76,6 +86,16 @@ def _downcast(tree, dtype_name: str):
     return raw.unflatten([(p, cast(x)) for p, x in raw.flatten(tree)])
 
 
+def _saved_nbytes(leaf: torch.Tensor, dtype_name: str | None) -> int:
+    """A leaf's shard bytes as ``save`` writes it (``_downcast``'s widths;
+    ``meta`` tensors count too)."""
+    size = leaf.element_size()
+    if dtype_name is not None and leaf.is_floating_point():
+        size = min(size, torch.empty(
+            (), dtype=_SAVE_DTYPES[dtype_name]).element_size())
+    return leaf.numel() * size
+
+
 class CheckpointManager:
     """Manage per-step checkpoints under one directory (see the module
     docstring). ``saves`` and ``restores`` hold one record per committed
@@ -100,6 +120,8 @@ class CheckpointManager:
         self._async = async_save
         self.policy = raw.RetryPolicy(io_retries, io_backoff_s)
         self._saver = raw.AsyncRawSaver(self.policy)
+        self._pool = raw.RecyclePool(
+            os.path.join(self.directory, _POOL_DIR), policy=self.policy)
         self._metrics_history: list[dict[str, Any]] = []
         # (step, cleanup) of the save in flight, consumed by
         # wait_until_finished when that save dies on a CheckpointIOError.
@@ -125,7 +147,7 @@ class CheckpointManager:
 
     # ------------------------------------------------------------ queries
     def _sweep_orphans(self) -> None:
-        """Delete staged ``step_K.tmp`` dirs and step dirs without
+        """Recycle staged ``step_K.tmp`` dirs and step dirs without
         ``metadata.json``: no save is in flight at construction."""
         for name in os.listdir(self.directory):
             path = os.path.join(self.directory, name)
@@ -133,7 +155,13 @@ class CheckpointManager:
                 continue
             if name.endswith(_STAGE_SUFFIX) or not os.path.exists(
                     os.path.join(path, _META_FILE)):
-                shutil.rmtree(path, ignore_errors=True)
+                self._pool.adopt_dir(path)
+
+    def _drop_step_dir(self, step_dir: str) -> None:
+        """Make a step dir invisible (its metadata first), then recycle its
+        shard files and delete the rest."""
+        if os.path.isdir(step_dir):
+            self._pool.adopt_dir(step_dir)
 
     def _step_dir(self, step: int) -> str:
         return os.path.join(self.directory, f"{_STEP_PREFIX}{step}")
@@ -199,12 +227,7 @@ class CheckpointManager:
         stage_dir = final_dir + _STAGE_SUFFIX
         # A step saved again first becomes invisible, then is replaced.
         for d in (final_dir, stage_dir):
-            if os.path.isdir(d):
-                try:
-                    os.unlink(os.path.join(d, _META_FILE))
-                except OSError:
-                    pass
-                shutil.rmtree(d, ignore_errors=True)
+            self._drop_step_dir(d)
         os.makedirs(stage_dir)
         metrics = {k: float(v) for k, v in (metrics or {}).items()}
         hist_entry = {"step": step, **metrics}
@@ -228,6 +251,7 @@ class CheckpointManager:
             shutil.rmtree(stage_dir, ignore_errors=True)
 
         self._pending_fail = (step, fail_cleanup)
+        taken = self._pool.taken
 
         def commit(nbytes: int) -> None:
             # Marker inside the staging dir, then one rename publishes the
@@ -244,11 +268,12 @@ class CheckpointManager:
             dur = time.monotonic() - t0
             self.saves.append({"step": step, "bytes": nbytes, "seconds": dur,
                                "gbps": nbytes / dur / 1e9 if dur else 0.0,
-                               "host_copy_s": self._saver.gather_s})
+                               "host_copy_s": self._saver.gather_s,
+                               "recycled": self._pool.taken - taken})
             self._retain()
 
         self._saver.save(os.path.join(stage_dir, _STATE_DIR), state,
-                         on_commit=commit)
+                         pool=self._pool, on_commit=commit)
         if not self._async:
             self.wait_until_finished()
         return Checkpoint(path=final_dir, metadata=meta)
@@ -264,11 +289,28 @@ class CheckpointManager:
             keep.add(best)
         for s in steps:
             if s not in keep:
-                try:
-                    os.unlink(os.path.join(self._step_dir(s), _META_FILE))
-                except OSError:
-                    pass
-                shutil.rmtree(self._step_dir(s), ignore_errors=True)
+                self._drop_step_dir(self._step_dir(s))
+
+    def prewarm(self, state) -> None:
+        """Create pool files, in the background, for the saves of
+        ``state`` (a tree of tensors, ``meta`` ones included): one a leaf
+        at the size ``save`` writes it, for ``max_to_keep`` steps plus the
+        best step plus one save in flight. Call once the state exists: the
+        first saves then overwrite warm files. Only on memory-backed
+        storage (tmpfs), where overwriting a file skips the zeroing of
+        fresh pages: on a disk the saves' fsync sets their pace, warm files
+        gained nothing there (PERF.md) and writing them costs the disk
+        several copies of the state. Best-effort: a prewarm that fails
+        leaves the saves to write fresh files."""
+        if not raw._fs_is_memory_backed(self.directory):
+            return
+        sizes = [_saved_nbytes(leaf, self.save_dtype)
+                 for _, leaf in raw.flatten(state)]
+        steps = (self.max_to_keep or 1) + (2 if self.best_metric else 1)
+        self._pool.prewarm(sizes * steps)
+
+    def prewarm_wait(self) -> None:
+        self._pool.prewarm_wait()
 
     def wait_until_finished(self) -> None:
         """Drain the save in flight. A save that died on a
@@ -288,6 +330,13 @@ class CheckpointManager:
 
     def close(self) -> None:
         self.wait_until_finished()
+        # A prewarm still writing into .recycle would race a caller that
+        # deletes the directory after close.
+        self._pool.cancel_prewarm()
+        # A prewarmed restore that never ran must not pin its buffers for
+        # the process's life. abandon, not clear: closing one manager never
+        # joins another's prewarm (the arena is process-wide).
+        raw._ARENA.abandon()
 
     # ------------------------------------------------------------ restore
     def _resolve_step(self, step: int | None, best: bool) -> int:
@@ -304,23 +353,50 @@ class CheckpointManager:
                 f"{self.directory}")
         return chosen
 
+    def prewarm_restore(self, step: int | None = None, *, best: bool = False,
+                        background: bool = True,
+                        pinned: bool = False) -> None:
+        """Back the destination buffers of a later ``restore`` of ``step``
+        (``raw.RestoreArena``; ``pinned``: page-locked, needs CUDA), on a
+        background thread unless ``background`` is off. Call as soon as
+        the step is known, before the work that precedes the restore. One
+        restore per prewarm. A restore that will cast (a ``save_dtype``
+        checkpoint into a wider template) takes none of the buffers: do
+        not prewarm it. No step to restore: nothing."""
+        try:
+            chosen = self._resolve_step(step, best)
+        except FileNotFoundError:
+            return
+        _prewarm_state_dir(os.path.join(self._step_dir(chosen), _STATE_DIR),
+                           background=background, pinned=pinned)
+
+    def prewarm_restore_wait(self) -> None:
+        prewarm_restore_wait()
+
     def restore(self, step: int | None = None, *, abstract_state=None,
-                weights_only: bool = False, best: bool = False):
+                weights_only: bool = False, best: bool = False,
+                zero_copy: bool = False):
         """The state saved at ``step`` (default the latest; ``best=True``
         the best), as a nested dict of CPU tensors cast to
         ``abstract_state``'s dtypes when given (see ``raw.restore_raw``);
-        ``weights_only`` reads only the ``params`` subtree. Shards are
+        ``weights_only`` reads only the ``params`` subtree; ``zero_copy``
+        maps the shard files (see ``raw.restore_raw``). Shards are
         crc-verified; a corrupt step falls back to the previous committed
-        one, and with none left the CorruptShardError propagates."""
+        one, and with none left the CorruptShardError propagates. The
+        record counts the buffers the restore took from the arena and the
+        leaves it hands out page-locked."""
         chosen = self._resolve_step(step, best)
         while True:
             state_dir = os.path.join(self._step_dir(chosen), _STATE_DIR)
             t0 = time.monotonic()
             try:
-                out = raw.restore_raw(
-                    state_dir, abstract_state,
-                    subtree=("params",) if weights_only else None,
-                    policy=self.policy)
+                with raw._RESTORE_LOCK:  # no other restore's takes counted
+                    taken = raw._ARENA.taken
+                    out = raw.restore_raw(
+                        state_dir, abstract_state,
+                        subtree=("params",) if weights_only else None,
+                        policy=self.policy, zero_copy=zero_copy)
+                    taken = raw._ARENA.taken - taken
             except raw.CorruptShardError as e:
                 prev = [s for s in self._all_steps() if s < chosen]
                 if not prev:
@@ -332,9 +408,11 @@ class CheckpointManager:
             dur = time.monotonic() - t0
             nbytes = raw.payload_bytes(
                 state_dir, ("params",) if weights_only else None)
-            self.restores.append({"step": chosen, "bytes": nbytes,
-                                  "seconds": dur,
-                                  "gbps": nbytes / dur / 1e9 if dur else 0.0})
+            self.restores.append({
+                "step": chosen, "bytes": nbytes, "seconds": dur,
+                "gbps": nbytes / dur / 1e9 if dur else 0.0,
+                "arena_buffers": taken,
+                "pinned": sum(t.is_pinned() for _, t in raw.flatten(out))})
             return out
 
     def verify_step(self, step: int | None = None, *, best: bool = False
@@ -361,13 +439,51 @@ class CheckpointManager:
                           metadata=self._read_meta(chosen) or {})
 
 
+def _prewarm_state_dir(state_dir: str, *,
+                       subtree: tuple[str, ...] | None = None,
+                       background: bool = True, pinned: bool = False) -> None:
+    """Back the restore arena for one state dir (nothing for a dir that
+    holds no raw checkpoint)."""
+    if raw.is_raw(state_dir):
+        raw._ARENA.prewarm(raw.manifest_shard_sizes(state_dir, subtree),
+                           background=background, pinned=pinned)
+
+
+def prewarm_restore_wait() -> None:
+    """Block until a background restore prewarm has backed its buffers
+    (call before the restore: a restore that starts first takes only
+    what has landed, and the rest would stay backed, unused, until the
+    next restore)."""
+    raw._ARENA.prewarm_wait()
+
+
+def prewarm_restore_handle(checkpoint: Checkpoint, *,
+                           weights_only: bool = False,
+                           pinned: bool = False) -> None:
+    """Back, in the background, the destination buffers of a later
+    ``restore_from_handle(checkpoint, weights_only=...)`` (``pinned``:
+    page-locked, needs CUDA). Call as soon as the handle is known.
+    ``weights_only`` must be the restore's, so only the ``params``
+    buffers are backed. Best-effort: a handle that cannot be read backs
+    nothing and leaves the restore to pay its own cost."""
+    try:
+        _prewarm_state_dir(os.path.join(checkpoint.path, _STATE_DIR),
+                           subtree=("params",) if weights_only else None,
+                           pinned=pinned)
+    except (OSError, ValueError, KeyError, AttributeError):
+        pass
+
+
 def restore_from_handle(checkpoint: Checkpoint, *, abstract_state=None,
                         weights_only: bool = False,
-                        subtree: tuple | None = None):
+                        subtree: tuple | None = None,
+                        zero_copy: bool = False):
     """Restore from a ``Checkpoint`` handle: the full state, or with
     ``weights_only`` the ``params`` subtree (``subtree`` names another,
     e.g. ``("ema_params",)``); ``abstract_state`` is then that subtree's
-    template. CPU tensors, as ``CheckpointManager.restore``."""
+    template. CPU tensors, as ``CheckpointManager.restore``; ``zero_copy``
+    maps the shard files (sound once no writer can recycle them: the
+    producing run finished)."""
     with checkpoint.as_directory() as path:
         if not os.path.exists(os.path.join(path, _META_FILE)):
             raise FileNotFoundError(
@@ -377,4 +493,5 @@ def restore_from_handle(checkpoint: Checkpoint, *, abstract_state=None,
         if weights_only or subtree is not None:
             subtree = tuple(subtree or ("params",))
         return raw.restore_raw(os.path.join(path, _STATE_DIR),
-                               abstract_state, subtree=subtree)
+                               abstract_state, subtree=subtree,
+                               zero_copy=zero_copy)

@@ -80,10 +80,10 @@ def _to_jax(model, sd: dict, scan_layers: bool) -> dict:
     return named_params_to_jax(sd)
 
 
-def _from_jax(model, tree: dict) -> dict:
+def _from_jax(model, tree: dict, device) -> dict:
     if isinstance(model, GPT2):
-        return params_from_jax(tree)
-    return named_params_from_jax(tree)
+        return params_from_jax(tree, device=device)
+    return named_params_from_jax(tree, device=device)
 
 
 def running_stats(model) -> dict:
@@ -134,8 +134,11 @@ def checkpoint_tree(state, *, scan_layers: bool = False,
 
 
 def _ordered(model, tree: dict) -> list[torch.Tensor]:
-    """A param-layout tree → its tensors in ``model``'s parameter order."""
-    sd = _from_jax(model, tree)
+    """A param-layout tree → its tensors in ``model``'s parameter order, on
+    its device: each leaf is copied there first (a DMA from page-locked
+    restore buffers), so the layout work (the Dense kernels' transposes,
+    the stacked blocks' rows) runs there and not on one host core."""
+    sd = _from_jax(model, tree, next(model.parameters()).device)
     return [sd[n] for n, _ in model.named_parameters()]
 
 
@@ -152,8 +155,10 @@ def load_params(model, params: dict) -> None:
 def load_batch_stats(model, batch_stats: dict) -> None:
     """Copy a restored ``batch_stats`` subtree (the JAX layout) into
     ``model``'s BatchNorm running statistics in place."""
-    src = named_params_from_jax(batch_stats)
-    for name, buf in running_stats(model).items():
+    stats = running_stats(model)
+    src = named_params_from_jax(batch_stats,
+                                device=next(iter(stats.values())).device)
+    for name, buf in stats.items():
         buf.copy_(src[name])
 
 

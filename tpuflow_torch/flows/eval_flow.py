@@ -66,20 +66,22 @@ class TorchEval(FlowSpec):
 
     def _get_source(self):
         """Trigger run first, then the task pathspec, then the run
-        pathspec, else raise. Returns ``(run, checkpoint)``: the producing
-        run carries the model and dataset artifacts."""
+        pathspec, else raise. Returns ``(run, checkpoint,
+        producer_finished)``: the producing run carries the model and
+        dataset artifacts, and once it has succeeded no process recycles
+        its checkpoint files, which licenses the zero-copy weight load."""
         if current.trigger is not None and current.trigger.run is not None:
             run = current.trigger.run
-            return run, run.data.result.best_checkpoint
+            return run, run.data.result.best_checkpoint, run.successful
         if self.eval_namespace:
             namespace(self.eval_namespace)
         if self.checkpoint_task_pathspec:
             task = Task(self.checkpoint_task_pathspec)
-            return (Run(f"{task.flow}/{task.run_id}"),
-                    task.data.result.best_checkpoint)
+            run = Run(f"{task.flow}/{task.run_id}")
+            return run, task.data.result.best_checkpoint, run.successful
         if self.checkpoint_run_pathspec:
             run = Run(self.checkpoint_run_pathspec)
-            return run, run.data.result.best_checkpoint
+            return run, run.data.result.best_checkpoint, run.successful
         raise ValueError(
             "no checkpoint source: run with --triggered after a TorchTrain "
             "run, or pass --checkpoint-run-pathspec / "
@@ -93,7 +95,7 @@ class TorchEval(FlowSpec):
         from tpuflow_torch.data.datasets import dataset_info
         from tpuflow_torch.flows import my_torch_module as m
 
-        run, checkpoint = self._get_source()
+        run, checkpoint, producer_finished = self._get_source()
         model_name = getattr(run.data, "model_used", "mlp")
         dataset = self.dataset or getattr(run.data, "dataset_used",
                                           "fashion_mnist")
@@ -111,7 +113,7 @@ class TorchEval(FlowSpec):
             checkpoint,
             model=m.build_model(model_name, dataset=dataset,
                                 num_classes=info["num_classes"]),
-            device=self.device)
+            device=self.device, zero_copy=producer_finished)
         outputs = m.map_batches(rows, predictor,
                                 batch_size=int(self.batch_size))
 

@@ -105,9 +105,12 @@ class TorchGptEval(FlowSpec):
         dev = resolve_device(self.device)
         cfg = GPT2Config(dropout=0.0, attn_impl=self.attn_impl, **mc)
         model = GPT2(cfg, seed=None, device=dev)
+        # Zero-copy (mapped) weights once the producing run has succeeded:
+        # no writer recycles its files any more.
         load_params(model, restore_from_handle(
             ckpt, weights_only=True,
-            subtree=("ema_params",) if self.weights == "ema" else None))
+            subtree=("ema_params",) if self.weights == "ema" else None,
+            zero_copy=run.successful))
         state = TrainState(model=model, tx=make_optimizer(
             list(model.parameters()), 0.0, optimizer="sgd"))
 

@@ -141,7 +141,9 @@ class TorchGptTrain(FlowSpec):
     @device_profile(interval=1)
     @step
     def train(self):
+        from tpuflow_torch.ckpt import prewarm_restore_handle
         from tpuflow_torch.data.lm import lm_corpus_size
+        from tpuflow_torch.device import resolve_device
         from tpuflow_torch.train.gpt import train_gpt
 
         cfg = self._train_config()
@@ -162,6 +164,12 @@ class TorchGptTrain(FlowSpec):
         self.seq_len_used = cfg.seq_len
         self.synthetic_size_used = lm_corpus_size(cfg.batch_size,
                                                   cfg.steps_per_epoch)
+        ckpt = self.resume_checkpoint
+        if ckpt is not None and not ckpt.metadata.get("save_dtype"):
+            # Back the restore's buffers while train_gpt builds the model
+            # (a save_dtype checkpoint is cast on restore and takes none).
+            prewarm_restore_handle(
+                ckpt, pinned=resolve_device(self.device).type == "cuda")
         result = train_gpt(
             cfg,
             ckpt_dir=os.path.join(current.tpu_storage_path, "checkpoints"),

@@ -22,7 +22,13 @@ Twin of ``flows/my_tpu_module.py`` on PyTorch and the port:
   a ResNet takes the CIFAR stem (``small_inputs``) unless the dataset is
   ``imagenet_synth``; the image models' input channels (and a ViT's
   image size) come from the dataset's registry entry;
-- ``TorchPredictor`` (twin of ``TpuPredictor``, ``:363``).
+- ``TorchPredictor`` (twin of ``TpuPredictor``, ``:363``), with
+  ``zero_copy`` for the checkpoint of a finished run.
+- The checkpoint machinery as the reference wires it (``:140-158``,
+  ``:220``): the resume source is resolved first and its restore's
+  buffers backed (page-locked on the card, handed back once the state
+  is there) while the model is built, and the manager's pool is
+  prewarmed once the state exists.
 
 Every run is on the card unless the caller passes ``device="cpu"``.
 """
@@ -32,7 +38,13 @@ from __future__ import annotations
 import time
 
 from tpuflow_torch import dist
-from tpuflow_torch.ckpt import Checkpoint, restore_from_handle
+from tpuflow_torch.ckpt import (
+    Checkpoint,
+    prewarm_restore_handle,
+    prewarm_restore_wait,
+    release_pinned,
+    restore_from_handle,
+)
 from tpuflow_torch.ckpt.tree import (
     checkpoint_tree,
     load_checkpoint_tree,
@@ -125,14 +137,29 @@ def train_func_per_worker(config: dict) -> None:
     )
     _log(f"dataloaders ready (world={world}, rank={rank}, "
          f"mesh={ctx.mesh.shape})")
+    # The resume source first: its restore's buffers are backed in the
+    # background while the model is built.
+    mgr = ctx.checkpoint_manager
+    in_run_step = mgr.latest_step() if mgr is not None else None
+    ckpt = config.get("checkpoint")
+    if isinstance(ckpt, dict):
+        ckpt = Checkpoint.from_json(ckpt)
+    pinned = ctx.device.type == "cuda"
+    if in_run_step is not None:
+        mgr.prewarm_restore(in_run_step, pinned=pinned)
+    elif ckpt is not None:
+        # A warm start reads the params only.
+        prewarm_restore_handle(ckpt, weights_only=config.get("resume")
+                               != "full", pinned=pinned)
     if not config.get("num_classes"):
         config = {**config,
                   "num_classes": getattr(train_loader, "num_classes", 10)}
     state = create_train_state(_build_model(config).to(ctx.device), lr)
 
-    mgr = ctx.checkpoint_manager
-    in_run_step = mgr.latest_step() if mgr is not None else None
     start_epoch = 0
+    restoring = in_run_step is not None or ckpt is not None
+    if restoring:
+        prewarm_restore_wait()  # a restore takes only the landed buffers
     if in_run_step is not None:
         # A retried run resumes the full state from its own newest
         # retained step before it considers any warm start.
@@ -141,10 +168,7 @@ def train_func_per_worker(config: dict) -> None:
                                                         abstract=True)))
         start_epoch = int(in_run_step)
         _log(f"in-run resume: restored retained step {in_run_step}")
-    elif config.get("checkpoint") is not None:
-        ckpt = config["checkpoint"]
-        if isinstance(ckpt, dict):
-            ckpt = Checkpoint.from_json(ckpt)
+    elif ckpt is not None:
         if config.get("resume") == "full":
             load_checkpoint_tree(state, restore_from_handle(
                 ckpt, abstract_state=checkpoint_tree(state, abstract=True)))
@@ -152,10 +176,14 @@ def train_func_per_worker(config: dict) -> None:
         else:
             state = set_weights_from_checkpoint(state, ckpt)
             _log("model weights warm-started from checkpoint")
+    if restoring and pinned:
+        release_pinned()  # the restored tree is on the card and dropped
     # Every process starts from rank 0's parameters, BatchNorm statistics
     # and optimizer state.
     dist.replicate([*state.params, *running_stats(state.model).values(),
                     *state.tx.slots()["trace"]], ctx.mesh)
+    # Pool files for the first saves, written while epoch 1 trains.
+    ctx.prewarm_checkpoints(checkpoint_tree(state, abstract=True))
 
     train_step = make_train_step(mesh=ctx.mesh)
     eval_step = make_eval_step()
@@ -267,12 +295,12 @@ class TorchPredictor:
     MLP), then maps batches to logits + argmax."""
 
     def __init__(self, checkpoint: Checkpoint | dict, *, model=None,
-                 device: str | None = None):
+                 device: str | None = None, zero_copy: bool = False):
         if isinstance(checkpoint, dict):
             checkpoint = Checkpoint.from_json(checkpoint)
         self._predictor = BatchPredictor.from_checkpoint(
             checkpoint, model if model is not None else NeuralNetwork(),
-            device=device)
+            device=device, zero_copy=zero_copy)
 
     def __call__(self, batch: dict) -> dict:
         return self._predictor(batch)

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from tpuflow_torch.device import pin_f32_matmul_precision
+from tpuflow_torch.device import f32_matmul_precision
 from tpuflow_torch.infer.generate import (
     check_cache_capacity,
     chunked_prefill,
@@ -71,84 +71,84 @@ def beam_search(
     prompts ride ``prompt_lens`` as in ``generate``; ``prefill_chunk``
     streams the prompt into the cache in fixed slices.
     """
-    if model.config.decode_precision == "highest":
-        pin_f32_matmul_precision()
-    dev = model.device
-    prompt = torch.as_tensor(prompt, device=dev).long()
-    B, T = prompt.shape
-    if beam_size < 1:
-        raise ValueError(f"beam_size must be >= 1, got {beam_size}")
-    if max_new_tokens < 1:
-        raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
-    if length_penalty < 0:
-        raise ValueError(
-            f"length_penalty must be >= 0, got {length_penalty} (negative "
-            "penalties would be silently neutralized by the norm clamp)"
+    with f32_matmul_precision(model.config.decode_precision == "highest"):
+        dev = model.device
+        prompt = torch.as_tensor(prompt, device=dev).long()
+        B, T = prompt.shape
+        if beam_size < 1:
+            raise ValueError(f"beam_size must be >= 1, got {beam_size}")
+        if max_new_tokens < 1:
+            raise ValueError(
+                f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        if length_penalty < 0:
+            raise ValueError(
+                f"length_penalty must be >= 0, got {length_penalty} (negative "
+                "penalties would be silently neutralized by the norm clamp)"
+            )
+        check_cache_capacity(model, T, max_new_tokens)
+        prefill_chunk = normalize_prefill_chunk(prefill_chunk, T)
+        pad_lens = prompt_lens_to_pad_lens(prompt_lens, B, T, device=dev)
+        K = beam_size
+
+        # Prefill once at width B, then tile the cache K-fold: K x cheaper
+        # than prefilling B*K identical prompts.
+        logits, cache = chunked_prefill(model, prompt, prefill_chunk,
+                                        pad_lens=pad_lens)
+        cache.k = [c.repeat_interleave(K, dim=0) for c in cache.k]
+        cache.v = [c.repeat_interleave(K, dim=0) for c in cache.v]
+        tiled_pad_lens = (
+            pad_lens.repeat_interleave(K, dim=0) if pad_lens is not None
+            else None
         )
-    check_cache_capacity(model, T, max_new_tokens)
-    prefill_chunk = normalize_prefill_chunk(prefill_chunk, T)
-    pad_lens = prompt_lens_to_pad_lens(prompt_lens, B, T, device=dev)
-    K = beam_size
+        logprobs = torch.log_softmax(logits[:, -1, :].float(), dim=-1)
+        V = logprobs.shape[-1]
+        # Step 0: the top-K first tokens seed the beams.
+        scores, tok0 = _top_k(logprobs, K)  # (B, K)
+        done = (tok0 == eos_id if eos_id is not None
+                else torch.zeros((B, K), dtype=torch.bool, device=dev))
+        lengths = torch.ones((B, K), dtype=torch.int64, device=dev)
+        frozen = torch.full((V,), _NEG, device=dev)
+        frozen[pad_id] = 0.0
+        rows = torch.arange(B, device=dev)[:, None] * K
+        tok, parents, tokens = tok0, [], []
+        for _ in range(max_new_tokens - 1):
+            logits, cache = model(tok.reshape(B * K)[:, None], decode=True,
+                                  cache=cache, pad_lens=tiled_pad_lens)
+            lp = torch.log_softmax(logits[:, -1, :].float(), dim=-1)
+            lp = lp.reshape(B, K, V)
+            if eos_id is not None:
+                # Finished beams extend ONLY with pad at zero cost: they keep
+                # their score and stay comparable against live beams.
+                lp = torch.where(done[..., None], frozen, lp)
+            total = scores[..., None] + lp  # (B, K, V)
+            scores, idx = _top_k(total.reshape(B, K * V), K)
+            parent, token = idx // V, idx % V
+            _gather_beams(cache, (rows + parent).reshape(-1))
+            done = torch.gather(done, 1, parent)
+            lengths = torch.gather(lengths, 1, parent) + (~done).long()
+            if eos_id is not None:
+                done = done | (token == eos_id)
+                token = torch.where(done & (token != eos_id), pad_id, token)
+            parents.append(parent)
+            tokens.append(token)
+            tok = token
 
-    # Prefill once at width B, then tile the cache K-fold: K x cheaper
-    # than prefilling B*K identical prompts.
-    logits, cache = chunked_prefill(model, prompt, prefill_chunk,
-                                    pad_lens=pad_lens)
-    cache.k = [c.repeat_interleave(K, dim=0) for c in cache.k]
-    cache.v = [c.repeat_interleave(K, dim=0) for c in cache.v]
-    tiled_pad_lens = (
-        pad_lens.repeat_interleave(K, dim=0) if pad_lens is not None
-        else None
-    )
-    logprobs = torch.log_softmax(logits[:, -1, :].float(), dim=-1)
-    V = logprobs.shape[-1]
-    # Step 0: the top-K first tokens seed the beams.
-    scores, tok0 = _top_k(logprobs, K)  # (B, K)
-    done = (tok0 == eos_id if eos_id is not None
-            else torch.zeros((B, K), dtype=torch.bool, device=dev))
-    lengths = torch.ones((B, K), dtype=torch.int64, device=dev)
-    frozen = torch.full((V,), _NEG, device=dev)
-    frozen[pad_id] = 0.0
-    rows = torch.arange(B, device=dev)[:, None] * K
-    tok, parents, tokens = tok0, [], []
-    for _ in range(max_new_tokens - 1):
-        logits, cache = model(tok.reshape(B * K)[:, None], decode=True,
-                              cache=cache, pad_lens=tiled_pad_lens)
-        lp = torch.log_softmax(logits[:, -1, :].float(), dim=-1)
-        lp = lp.reshape(B, K, V)
-        if eos_id is not None:
-            # Finished beams extend ONLY with pad at zero cost: they keep
-            # their score and stay comparable against live beams.
-            lp = torch.where(done[..., None], frozen, lp)
-        total = scores[..., None] + lp  # (B, K, V)
-        scores, idx = _top_k(total.reshape(B, K * V), K)
-        parent, token = idx // V, idx % V
-        _gather_beams(cache, (rows + parent).reshape(-1))
-        done = torch.gather(done, 1, parent)
-        lengths = torch.gather(lengths, 1, parent) + (~done).long()
-        if eos_id is not None:
-            done = done | (token == eos_id)
-            token = torch.where(done & (token != eos_id), pad_id, token)
-        parents.append(parent)
-        tokens.append(token)
-        tok = token
+        # Backtrack: follow each surviving beam's parent chain from the last
+        # step to the first, then prepend step 0.
+        beam_idx = torch.arange(K, device=dev).expand(B, K)
+        back = []
+        for parent, token in zip(reversed(parents), reversed(tokens)):
+            back.append(torch.gather(token, 1, beam_idx))
+            beam_idx = torch.gather(parent, 1, beam_idx)
+        first = torch.gather(tok0, 1, beam_idx)
+        seqs = torch.stack([first, *reversed(back)], dim=2).to(torch.int32)
 
-    # Backtrack: follow each surviving beam's parent chain from the last
-    # step to the first, then prepend step 0.
-    beam_idx = torch.arange(K, device=dev).expand(B, K)
-    back = []
-    for parent, token in zip(reversed(parents), reversed(tokens)):
-        back.append(torch.gather(token, 1, beam_idx))
-        beam_idx = torch.gather(parent, 1, beam_idx)
-    first = torch.gather(tok0, 1, beam_idx)
-    seqs = torch.stack([first, *reversed(back)], dim=2).to(torch.int32)
-
-    # Rank by length-normalized score (GNMT-style penalty; 1.0 = the mean
-    # token logprob over real tokens).
-    norm = lengths.float() ** length_penalty
-    ranked = scores / torch.clamp(norm, min=1.0)
-    best = torch.argmax(ranked, dim=1)
-    r = torch.arange(B, device=dev)
-    if return_all:
-        return seqs[r, best], ranked[r, best], seqs, ranked
-    return seqs[r, best], ranked[r, best]
+        # Rank by length-normalized score (GNMT-style penalty; 1.0 = the mean
+        # token logprob over real tokens).
+        norm = lengths.float() ** length_penalty
+        ranked = scores / torch.clamp(norm, min=1.0)
+        best = torch.argmax(ranked, dim=1)
+        r = torch.arange(B, device=dev)
+        if return_all:
+            return seqs[r, best], ranked[r, best], seqs, ranked
+        return seqs[r, best], ranked[r, best]

@@ -53,19 +53,24 @@ class BatchPredictor:
 
     @classmethod
     def from_checkpoint(cls, checkpoint: Checkpoint, model: torch.nn.Module,
-                        *, device=None) -> "BatchPredictor":
+                        *, device=None,
+                        zero_copy: bool = False) -> "BatchPredictor":
         """Load the checkpoint's ``params`` (the JAX layout, weights only)
         into ``model`` once, then serve from it. A model with BatchNorm
         also loads the ``batch_stats`` subtree; a checkpoint without one
         raises ``KeyError``, since the running statistics are what
-        inference normalises by."""
+        inference normalises by. ``zero_copy`` maps the shard files
+        instead of reading them: sound for a finished run's checkpoint,
+        which no writer recycles any more."""
         device = resolve_device(device)
-        params = restore_from_handle(checkpoint, weights_only=True)
+        params = restore_from_handle(checkpoint, weights_only=True,
+                                     zero_copy=zero_copy)
         load_params(model, params)
         if running_stats(model):
             try:
                 stats = restore_from_handle(checkpoint,
-                                            subtree=("batch_stats",))
+                                            subtree=("batch_stats",),
+                                            zero_copy=zero_copy)
             except KeyError:
                 raise KeyError(
                     "model has BatchNorm running statistics but checkpoint "

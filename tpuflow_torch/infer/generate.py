@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpuflow_torch.device import pin_f32_matmul_precision
+from tpuflow_torch.device import f32_matmul_precision
 
 _MASKED = -1e30
 
@@ -160,50 +160,50 @@ def generate(
     ``pad_ragged``). ``prefill_chunk`` streams the prompt into the cache
     in fixed-size slices.
     """
-    if model.config.decode_precision == "highest":
-        pin_f32_matmul_precision()
-    dev = model.device
-    prompt = torch.as_tensor(np.asarray(prompt), device=dev).long()
-    B, T = prompt.shape
-    if max_new_tokens < 1:
-        raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
-    if top_p is not None and not 0.0 < top_p <= 1.0:
-        raise ValueError(
-            f"top_p must be in (0, 1], got {top_p} (<= 0 would mask every "
-            "token)"
+    with f32_matmul_precision(model.config.decode_precision == "highest"):
+        dev = model.device
+        prompt = torch.as_tensor(np.asarray(prompt), device=dev).long()
+        B, T = prompt.shape
+        if max_new_tokens < 1:
+            raise ValueError(
+                f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        if top_p is not None and not 0.0 < top_p <= 1.0:
+            raise ValueError(
+                f"top_p must be in (0, 1], got {top_p} (<= 0 would mask every "
+                "token)"
+            )
+        check_cache_capacity(model, T, max_new_tokens)
+        prefill_chunk = normalize_prefill_chunk(prefill_chunk, T)
+        pad_lens = prompt_lens_to_pad_lens(prompt_lens, B, T, device=dev)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        kw = dict(
+            greedy=temperature == 0.0, top_k=top_k, use_top_p=top_p is not None
         )
-    check_cache_capacity(model, T, max_new_tokens)
-    prefill_chunk = normalize_prefill_chunk(prefill_chunk, T)
-    pad_lens = prompt_lens_to_pad_lens(prompt_lens, B, T, device=dev)
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
-    kw = dict(
-        greedy=temperature == 0.0, top_k=top_k, use_top_p=top_p is not None
-    )
-    logits, cache = chunked_prefill(
-        model, prompt, prefill_chunk, pad_lens=pad_lens
-    )
-    tok = _sample(logits[:, -1, :], generator, temperature, top_p, **kw)
-    done = (
-        tok == eos_id if eos_id is not None
-        else torch.zeros(B, dtype=torch.bool, device=dev)
-    )
-    out = torch.full((B, max_new_tokens), pad_id, dtype=torch.int32,
-                     device=dev)
-    out[:, 0] = tok
-    for i in range(1, max_new_tokens):
-        if eos_id is not None and bool(done.all()):
-            break  # every row finished: the rest stays pad_id
-        logits, cache = model(
-            tok[:, None], decode=True, cache=cache, pad_lens=pad_lens
+        logits, cache = chunked_prefill(
+            model, prompt, prefill_chunk, pad_lens=pad_lens
         )
-        sampled = _sample(logits[:, -1, :], generator, temperature, top_p,
-                          **kw)
-        tok = torch.where(done, torch.full_like(sampled, pad_id), sampled)
-        if eos_id is not None:
-            done = done | (sampled == eos_id)
-        out[:, i] = tok
-    return out
+        tok = _sample(logits[:, -1, :], generator, temperature, top_p, **kw)
+        done = (
+            tok == eos_id if eos_id is not None
+            else torch.zeros(B, dtype=torch.bool, device=dev)
+        )
+        out = torch.full((B, max_new_tokens), pad_id, dtype=torch.int32,
+                         device=dev)
+        out[:, 0] = tok
+        for i in range(1, max_new_tokens):
+            if eos_id is not None and bool(done.all()):
+                break  # every row finished: the rest stays pad_id
+            logits, cache = model(
+                tok[:, None], decode=True, cache=cache, pad_lens=pad_lens
+            )
+            sampled = _sample(logits[:, -1, :], generator, temperature, top_p,
+                              **kw)
+            tok = torch.where(done, torch.full_like(sampled, pad_id), sampled)
+            if eos_id is not None:
+                done = done | (sampled == eos_id)
+            out[:, i] = tok
+        return out
 
 
 def render_tokens(ids, *, byte_level: bool = False) -> str:

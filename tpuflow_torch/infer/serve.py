@@ -50,7 +50,7 @@ import time
 import numpy as np
 import torch
 
-from tpuflow_torch.device import pin_f32_matmul_precision
+from tpuflow_torch.device import f32_matmul_precision
 from tpuflow_torch.infer.generate import (
     chunked_prefill,
     normalize_prefill_chunk,
@@ -335,8 +335,6 @@ class ServeEngine:
                 "contiguous slot-row caches (the JAX engine's paged=False "
                 "regression reference) are not ported; the engine is paged"
             )
-        if model.config.decode_precision == "highest":
-            pin_f32_matmul_precision()
         self.model = model
         self.device = model.device
         self.quant_mode = resolve_serve_quant(quant)
@@ -707,21 +705,26 @@ class ServeEngine:
         """One scheduler iteration: admit waiting requests into free slots
         (a blocked head-of-queue request applies backpressure), then run
         one block per live group — (fp, int8) x (plain, speculative).
-        Returns False when there was nothing to do."""
+        Returns False when there was nothing to do. Its prefills, decode
+        and verify blocks run with true f32 products when the model's
+        ``decode_precision`` is ``'highest'``, as ``generate()`` does."""
         did = False
-        while admit and self._queue:
-            slot = self._free_slot()
-            if slot is None:
-                break
-            if not self._admit_one(self._queue[0], slot):
-                break  # page backpressure: stays queued, never dropped
-            self._queue.popleft()
-            did = True
-        if self._live.any():
-            did = True
-            for quant in (False, True) if self.quant_mode else (False,):
-                for spec in (False, True) if self.spec_draft else (False,):
-                    self._run_decode_block(quant, spec)
+        highest = self.model.config.decode_precision == "highest"
+        with f32_matmul_precision(highest):
+            while admit and self._queue:
+                slot = self._free_slot()
+                if slot is None:
+                    break
+                if not self._admit_one(self._queue[0], slot):
+                    break  # page backpressure: stays queued, never dropped
+                self._queue.popleft()
+                did = True
+            if self._live.any():
+                did = True
+                for quant in (False, True) if self.quant_mode else (False,):
+                    for spec in ((False, True) if self.spec_draft
+                                 else (False,)):
+                        self._run_decode_block(quant, spec)
         return did
 
     def run_until_idle(self, max_iters: int | None = None) -> None:

@@ -29,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpuflow_torch.device import pin_f32_matmul_precision
+from tpuflow_torch.device import f32_matmul_precision
 from tpuflow_torch.infer.generate import (
     after_first_true,
     check_cache_capacity,
@@ -132,82 +132,82 @@ def speculative_generate(
     clamped to the budget): realized acceptance is ``n_committed /
     n_forwards`` tokens per forward.
     """
-    if model.config.decode_precision == "highest":
-        pin_f32_matmul_precision()
-    dev = model.device
-    prompt = torch.as_tensor(prompt, device=dev).long()
-    B, T = prompt.shape
-    if max_new_tokens < 1:
-        raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
-    if draft_len < 1:
-        raise ValueError(f"draft_len must be >= 1, got {draft_len}")
-    if ngram < 2:
-        raise ValueError(f"ngram must be >= 2, got {ngram}")
-    if T < ngram - 1:
-        raise ValueError(
-            f"prompt length {T} is shorter than the {ngram - 1}-token "
-            "match key; use generate() for such prompts"
-        )
-    # The uniform advance can run the cache up to draft_len+1 past the
-    # budget before the loop notices: reserve that slack in n_ctx.
-    check_cache_capacity(model, T, max_new_tokens + draft_len + 1)
-    prefill_chunk = normalize_prefill_chunk(prefill_chunk, T)
-    K, G = draft_len, ngram - 1
-    L = max_new_tokens + K + 1  # output slack for the last overshoot write
+    with f32_matmul_precision(model.config.decode_precision == "highest"):
+        dev = model.device
+        prompt = torch.as_tensor(prompt, device=dev).long()
+        B, T = prompt.shape
+        if max_new_tokens < 1:
+            raise ValueError(
+                f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        if draft_len < 1:
+            raise ValueError(f"draft_len must be >= 1, got {draft_len}")
+        if ngram < 2:
+            raise ValueError(f"ngram must be >= 2, got {ngram}")
+        if T < ngram - 1:
+            raise ValueError(
+                f"prompt length {T} is shorter than the {ngram - 1}-token "
+                "match key; use generate() for such prompts"
+            )
+        # The uniform advance can run the cache up to draft_len+1 past the
+        # budget before the loop notices: reserve that slack in n_ctx.
+        check_cache_capacity(model, T, max_new_tokens + draft_len + 1)
+        prefill_chunk = normalize_prefill_chunk(prefill_chunk, T)
+        K, G = draft_len, ngram - 1
+        L = max_new_tokens + K + 1  # output slack for the last overshoot write
 
-    logits, cache = chunked_prefill(model, prompt, prefill_chunk)
-    cur = torch.argmax(logits[:, -1, :], dim=-1)
-    # One buffer serves drafting (the full history) and output (the slice
-    # past the prompt). cur lands at column T now, so the first draft's
-    # match key ends in the real first token.
-    hist = torch.cat(
-        [prompt, torch.full((B, L), pad_id, dtype=torch.long, device=dev)],
-        dim=1,
-    )
-    hist[:, T] = cur
-    done = (cur == eos_id if eos_id is not None
-            else torch.zeros(B, dtype=torch.bool, device=dev))
-    j = torch.arange(K + 1, device=dev)
-    rows = torch.arange(B, device=dev)[:, None]
-    n_out = n_fwd = 0
-    while n_out < max_new_tokens and not bool(done.all()):
-        d = draft_ladder(hist, T + n_out + 1, K=K, G=G)  # (B, K)
-        x = torch.cat([cur[:, None], d], dim=1)  # (B, K+1)
-        logits, cache = model(x, decode=True, cache=cache)
-        am = torch.argmax(logits, dim=-1)  # (B, K+1)
-        # am[:, j] = the model's token after (cur, d_0..d_{j-1}).
-        a_row = torch.cumprod((am[:, :K] == d).int(), dim=1).sum(dim=1)
-        a_row = torch.where(done, K, a_row)  # frozen rows never constrain
-        a = int(a_row.min())  # shared cache index: batch-uniform advance
-        # Committed window (a+1 valid): the accepted draft prefix, then
-        # the model's token at the disagreement.
-        window = torch.where(
-            j[None, :] < a, torch.nn.functional.pad(d, (0, 1)),
-            am[rows, j.clamp(max=a)[None, :]],
+        logits, cache = chunked_prefill(model, prompt, prefill_chunk)
+        cur = torch.argmax(logits[:, -1, :], dim=-1)
+        # One buffer serves drafting (the full history) and output (the slice
+        # past the prompt). cur lands at column T now, so the first draft's
+        # match key ends in the real first token.
+        hist = torch.cat(
+            [prompt, torch.full((B, L), pad_id, dtype=torch.long, device=dev)],
+            dim=1,
         )
+        hist[:, T] = cur
+        done = (cur == eos_id if eos_id is not None
+                else torch.zeros(B, dtype=torch.bool, device=dev))
+        j = torch.arange(K + 1, device=dev)
+        rows = torch.arange(B, device=dev)[:, None]
+        n_out = n_fwd = 0
+        while n_out < max_new_tokens and not bool(done.all()):
+            d = draft_ladder(hist, T + n_out + 1, K=K, G=G)  # (B, K)
+            x = torch.cat([cur[:, None], d], dim=1)  # (B, K+1)
+            logits, cache = model(x, decode=True, cache=cache)
+            am = torch.argmax(logits, dim=-1)  # (B, K+1)
+            # am[:, j] = the model's token after (cur, d_0..d_{j-1}).
+            a_row = torch.cumprod((am[:, :K] == d).int(), dim=1).sum(dim=1)
+            a_row = torch.where(done, K, a_row)  # frozen rows never constrain
+            a = int(a_row.min())  # shared cache index: batch-uniform advance
+            # Committed window (a+1 valid): the accepted draft prefix, then
+            # the model's token at the disagreement.
+            window = torch.where(
+                j[None, :] < a, torch.nn.functional.pad(d, (0, 1)),
+                am[rows, j.clamp(max=a)[None, :]],
+            )
+            if eos_id is not None:
+                is_eos = (window == eos_id) & (j[None, :] <= a)
+                window = torch.where(after_first_true(is_eos) | done[:, None],
+                                     pad_id, window)
+                done = done | (is_eos & ~done[:, None]).any(dim=1)
+            else:
+                window = torch.where(done[:, None], pad_id, window)
+            hist[:, T + n_out] = cur
+            hist[:, T + n_out + 1: T + n_out + K + 2] = window
+            cur = window[:, a]
+            # The cache index is always T + committed-count: the keys of cur
+            # and the accepted drafts stay, the rejected tail is rewound.
+            cache.index = T + n_out + a + 1
+            n_out += a + 1
+            n_fwd += 1
+        # If the loop never ran (or exited at the budget), the pending cur was
+        # never committed: flush it raw.
+        hist[:, T + min(n_out, L - 1)] = cur
+        out = hist[:, T:T + max_new_tokens]
         if eos_id is not None:
-            is_eos = (window == eos_id) & (j[None, :] <= a)
-            window = torch.where(after_first_true(is_eos) | done[:, None],
-                                 pad_id, window)
-            done = done | (is_eos & ~done[:, None]).any(dim=1)
-        else:
-            window = torch.where(done[:, None], pad_id, window)
-        hist[:, T + n_out] = cur
-        hist[:, T + n_out + 1: T + n_out + K + 2] = window
-        cur = window[:, a]
-        # The cache index is always T + committed-count: the keys of cur
-        # and the accepted drafts stay, the rejected tail is rewound.
-        cache.index = T + n_out + a + 1
-        n_out += a + 1
-        n_fwd += 1
-    # If the loop never ran (or exited at the budget), the pending cur was
-    # never committed: flush it raw.
-    hist[:, T + min(n_out, L - 1)] = cur
-    out = hist[:, T:T + max_new_tokens]
-    if eos_id is not None:
-        out = torch.where(after_first_true(out == eos_id), pad_id, out)
-    out = out.to(torch.int32)
-    if return_stats:
-        return out, {"n_forwards": n_fwd,
-                     "n_committed": min(n_out, max_new_tokens)}
-    return out
+            out = torch.where(after_first_true(out == eos_id), pad_id, out)
+        out = out.to(torch.int32)
+        if return_stats:
+            return out, {"n_forwards": n_fwd,
+                         "n_committed": min(n_out, max_new_tokens)}
+        return out

@@ -93,16 +93,17 @@ def named_params_to_jax(sd: dict) -> dict:
     return tree
 
 
-def named_params_from_jax(tree, prefix: str = ""
+def named_params_from_jax(tree, prefix: str = "", *, device="cpu"
                           ) -> dict[str, torch.Tensor]:
     """The inverse of ``named_params_to_jax`` (numpy arrays or tensors in;
-    contiguous float32 CPU tensors out)."""
+    contiguous float32 tensors on ``device`` out)."""
     sd = {}
     for key, v in tree.items():
         if isinstance(v, Mapping):
-            sd.update(named_params_from_jax(v, f"{prefix}{key}."))
+            sd.update(named_params_from_jax(v, f"{prefix}{key}.",
+                                            device=device))
             continue
-        t = _t(v)
+        t = _t(v, device)
         if key == "kernel":
             key, t = "weight", (t.permute(3, 2, 0, 1) if t.ndim == 4
                                 else t.t())

@@ -77,9 +77,10 @@ class GPT2Config:
     decode_dtype: torch.dtype | None = torch.float32
     # KV-cache storage dtype; None = the decode compute dtype.
     cache_dtype: torch.dtype | None = None
-    # 'highest' = true f32 matrix products on the decode path: generate()
-    # and the serving engine then turn TF32 off on the card
-    # (device.pin_f32_matmul_precision). None = the platform default.
+    # 'highest' = true f32 matrix products on the decode path: generate(),
+    # beam search, speculative decoding and the serving engine's steps
+    # turn TF32 off on the card for their own calls
+    # (device.f32_matmul_precision). None = the platform default.
     decode_precision: str | None = "highest"
     # The JAX package's nn.scan over the blocks: here only the checkpoint
     # layout (ckpt/tree.py stacks the blocks into h/block when set); the

@@ -23,7 +23,12 @@ from typing import Any
 
 import torch
 
-from tpuflow_torch.ckpt import CheckpointManager, restore_from_handle
+from tpuflow_torch.ckpt import (
+    CheckpointManager,
+    prewarm_restore_wait,
+    release_pinned,
+    restore_from_handle,
+)
 from tpuflow_torch.ckpt.tree import checkpoint_tree, load_checkpoint_tree
 from tpuflow_torch.data.lm import make_lm_loaders
 from tpuflow_torch.device import resolve_device
@@ -293,8 +298,14 @@ def train_gpt(
     end (metrics ``val_loss``/``train_loss``/``ppl``, the loader cursor as
     ``data_state``), and a directory that already holds committed steps
     resumes from the newest (state, histories, start epoch). None trains
-    without checkpoints. ``resume_checkpoint``: a ``Checkpoint`` handle to
-    restore the full state from; it wins over the in-run resume.
+    without checkpoints; the manager's pool is prewarmed for the saves
+    (on memory-backed storage), and an in-run resume's restore buffers
+    while the model is built (page-locked on the card, and handed back
+    once the state is on it).
+    ``resume_checkpoint``: a ``Checkpoint`` handle to restore the full
+    state from; it wins over the in-run resume. A caller that knows the
+    handle early backs its restore first (``prewarm_restore_handle``, as
+    ``TorchGptTrain`` does).
     ``flash_bwd``: the flash attention backward, ``fused`` | ``split`` |
     ``blockwise`` (the JAX package's ``TPUFLOW_FLASH_BWD``; ``blockwise``,
     the plain version, on the CPU only). ``health``,
@@ -323,12 +334,17 @@ def train_gpt(
         # steps; an explicit handle (a cross-run resume) wins.
         if resume_checkpoint is None:
             resume_step = mgr.latest_step()
+        if resume_step is not None and not cfg.ckpt_dtype:
+            # Back the restore's buffers while the model is built (a
+            # ckpt_dtype step is cast on restore and would take none).
+            mgr.prewarm_restore(resume_step, pinned=dev.type == "cuda")
     resuming = resume_checkpoint is not None or resume_step is not None
     state = init_state(cfg, model_cfg, dev, materialize=not resuming)
     scan = model_cfg.scan_layers
     if resuming:
         t0 = time.monotonic()
         tmpl = checkpoint_tree(state, scan_layers=scan, abstract=True)
+        prewarm_restore_wait()  # a restore takes only the landed buffers
         if resume_checkpoint is not None:
             restored = restore_from_handle(resume_checkpoint,
                                            abstract_state=tmpl)
@@ -340,9 +356,13 @@ def train_gpt(
             resume_step = mgr.restores[-1]["step"]
         load_checkpoint_tree(state, restored)
         del restored
+        release_pinned()
         log(f"[gpt] full state restored"
             f"{' (in-run resume)' if resume_step is not None else ''}: "
             f"{time.monotonic() - t0:.1f}s")
+    if mgr is not None:
+        # Pool files for the saves, written while the first epoch trains.
+        mgr.prewarm(checkpoint_tree(state, scan_layers=scan, abstract=True))
     train_step = make_train_step(
         accum_steps=cfg.accum_steps, ema_decay=cfg.ema_decay or None
     )

@@ -139,6 +139,14 @@ class TrainContext:
     def checkpoint_manager(self) -> CheckpointManager | None:
         return self._manager
 
+    def prewarm_checkpoints(self, state) -> None:
+        """Create the checkpoint pool's files for the saves of ``state``
+        (the checkpoint tree, ``meta`` tensors will do) in the background,
+        on the rank that saves: called once the state exists, the first
+        epoch's compute hides the work (``CheckpointManager.prewarm``)."""
+        if self._manager is not None and dist.process_index() == 0:
+            self._manager.prewarm(state)
+
     def report(self, metrics: dict[str, Any], *, state=None,
                step: int | None = None,
                data_state: dict[str, Any] | None = None) -> None:
