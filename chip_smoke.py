@@ -121,14 +121,35 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    pair for the steps taken and of the no-lse forward in validation and
    in the predictor, and one step's loss and gradients against
    ``attn_impl="xla"`` within the GPT step-parity limits.
-11. One JSON line with every kernel's numbers (the int8 matmul both as one
+11. The training recipes (``recipes_phase``), each leg GPT-2 124M at full
+   depth and width, 2 epochs of 4 steps at 8 x 1024, f32, flash, full
+   remat, its flash launches exact: (a) Lion and (b) Adafactor, each
+   learning (the last epoch's mean loss below the first step's) and
+   resumed in-run from its first epoch's checkpoint bit for bit (losses
+   and shard crc32s), (b) with the optimizer state's bytes against
+   AdamW's; (c) Switch MoE (8 experts, capacity 1.25, aux weight 1e-2,
+   AdamW) the same, the summed load-balance loss finite and above 0, its
+   checkpoint's size and rates; (d) ``lm_text`` on this checkout's
+   README.md: learning, the ``text_source`` sha256, a greedy byte-level
+   sample from "The "; (e) ``TorchGptTrain --optimizer adafactor
+   --experts 8 --dataset lm_text`` (2 x 2 steps) and the triggered
+   ``TorchGptEval`` rebuilding the MoE model, checking the corpus and
+   scoring it; (f) the 124M weights through ``params_to_hf_state_dict``
+   and ``hf_gpt2_to_params``: bit-equal, equal logits; (g) the flash
+   kernels against ``xla_attention`` at T 128-4096, (8, T, 12, 64),
+   causal, f32 and bf16, forward, forward+backward and backward alone
+   (medians of interleaved runs), the crossovers written to a tuning file that
+   ``resolve_attention_impl`` must read back exactly. Each leg's step
+   ms, tokens/s and wall beside the card's name and power limit.
+12. One JSON line with every kernel's numbers (the int8 matmul both as one
    decode step at M = 8 and as the same 49 products at M = 512; the
    training kernels in f32 and bf16, their launches from the f32 legs and
    the bf16 leg, which runs the fused pair, so the bf16 split variants'
    count there is 0; the wide-head kernels at D = 512, their launches the
    wide-head runs the main paths' counters read; ``flow_launches``: the
    flash kernels' launches in the flow phase; ``generation_launches``:
-   those of the generation phase; the ``_vit`` entries at the
+   those of the generation phase; ``recipe_launches``: those of phase 11;
+   the ``_vit`` entries at the
    ViT shape, f32, their launches the ViT leg's), the ``nvidia-smi`` line,
    and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -142,6 +163,9 @@ kernels of the checkout in DIR (for example the parent commit, unpacked
 by ``git archive``) and with this checkout's, in turns (DIR, this, this,
 DIR), each in a process of its own that builds its kernels, and writes
 them to ``chiprun_out/wide_compare.json``.
+
+``python3 chip_smoke.py --recipes`` builds the kernels and runs only
+phase 11, into ``chiprun_out/recipes.json``.
 
 ``python3 chip_smoke.py --ckpt-ab [ORDER]`` runs only the split and resume
 legs, once for each letter of ORDER (default ``ABCCBA``): A as this
@@ -312,6 +336,22 @@ R50_TIMED_WARMUP, R50_TIMED_STEPS, R50_PROFILED_STEPS = 5, 20, 10
 # causal.
 VIT_BATCH, VIT_TRAIN_ROWS, VIT_TEST_ROWS = 64, 256, 100
 VIT_SHAPE = (64, 197, 6, 64)
+# Phase 11, the training recipes: GPT-2 124M at 8 x 1024, 2 epochs of 4
+# steps each leg. Lion at AdamW's learning rate (its first updates are
+# the sign of the gradient, as Adam's are); Adafactor at 1e-2, its
+# updates scaled by each leaf's RMS (the embeddings' ~0.02: ~2e-4 an
+# element, AdamW's size). Switch-Base-8 (Fedus et al. 2021): 8 experts,
+# capacity 1.25, aux weight 1e-2. A 32-byte sample from "The ".
+RECIPE_EPOCHS, RECIPE_STEPS, RECIPE_SEQ = 2, 4, 1024
+LION_LR, ADAFACTOR_LR = 3e-4, 1e-2
+MOE_EXPERTS = 8
+RECIPE_SAMPLE = 32
+# The flash crossovers: (B, H, D), the sequence lengths and the
+# interleaved runs whose median each time is (single calls of ~0.2-2 ms
+# at the short lengths, whose walls move by tens of percent).
+CROSSOVER_BHD = (8, 12, 64)
+CROSSOVER_TS = (128, 256, 512, 1024, 2048, 4096)
+CROSSOVER_REPS = 11
 
 
 def _smi_line() -> str:
@@ -3017,6 +3057,454 @@ def vit_step_parity(torch, rows) -> dict:
                 worst_grad_rel_diff=worst)
 
 
+# --------------------------------------------------------------- phase 11
+def _recipe_cfg(**kw):
+    """The training recipes' GPT-2 124M call: full depth and width, 8 x
+    1024 tokens a step, f32, flash attention, full remat, random weights
+    from seed 0, ``RECIPE_EPOCHS`` epochs of ``RECIPE_STEPS`` steps."""
+    from tpuflow_torch.train.gpt import GptTrainConfig
+
+    return GptTrainConfig(**{
+        "preset": "gpt2", "seq_len": RECIPE_SEQ, "batch_size": 8,
+        "epochs": RECIPE_EPOCHS, "steps_per_epoch": RECIPE_STEPS,
+        "attn_impl": "flash", "data_axis": 1, "fsdp_axis": 1, **kw})
+
+
+def _recipe_want(cfg, steps: int, epochs: int, samples: int = 0) -> dict:
+    """The flash launches ``steps`` training steps of ``cfg`` imply (full
+    remat: two forwards with lse a layer and step, one fused pair), with
+    ``epochs`` validations over its held-out windows and ``samples``
+    prefills (the no-lse forward a layer each)."""
+    from tpuflow_torch.data.lm import make_lm_loaders
+
+    mc = cfg.model_config()
+    L = mc.n_layer
+    n_val = len(make_lm_loaders(cfg.batch_size, cfg.steps_per_epoch,
+                                cfg.seq_len, mc.vocab_size,
+                                dataset=cfg.dataset,
+                                text_path=cfg.text_path)[1])
+    return _launches(flash_fwd_lse=2 * L * steps, flash_bwd_dq=L * steps,
+                     flash_bwd_dkv=L * steps,
+                     flash_fwd=L * (n_val * epochs + samples))
+
+
+def _recipe_train(torch, name, cfg, smi, ckpt_dir=None, samples=0,
+                  steps=None, epochs=None):
+    """One ``train_gpt`` run of ``cfg``, its launches read from zero and
+    held to what its steps imply exactly; every loss finite. Returns the
+    result, its wall and peak memory, and prints its step ms, tokens/s
+    and wall."""
+    from tpuflow_torch.ops import flash_attention as fa
+    from tpuflow_torch.ops import int8_matmul as im
+    from tpuflow_torch.train.gpt import train_gpt
+
+    steps = cfg.epochs * cfg.steps_per_epoch if steps is None else steps
+    epochs = cfg.epochs if epochs is None else epochs
+    want = _recipe_want(cfg, steps, epochs, samples)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters(fa, im)
+    t0 = time.monotonic()
+    res = train_gpt(cfg, ckpt_dir=ckpt_dir, log=lambda m: print(f"  {m}"))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    got = _counters(fa, im)
+    if got != want:
+        raise AssertionError(f"{name}: launches {got}, want {want}")
+    losses = res.step_losses
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: step losses {losses}")
+    step_ms = float(np.median(res.step_s[1:])) * 1e3
+    tok_s = cfg.batch_size * cfg.seq_len / step_ms * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{name}: step losses {', '.join(f'{x:.4f}' for x in losses)}; "
+          f"launches exact ({got['flash_fwd_lse']} lse forwards, "
+          f"{got['flash_bwd_dq']} fused pairs, {got['flash_fwd']} no-lse "
+          f"forwards)")
+    print(f"{name}: step {step_ms:.1f} ms (median after the cold step)")
+    print(f"{name}: {tok_s:.0f} tokens/s")
+    print(f"{name}: wall {wall:.2f} s, peak memory {peak / 2**30:.2f} GiB "
+          f"[{smi}]")
+    return res, dict(wall_s=wall, step_ms=step_ms, tokens_per_s=tok_s,
+                     peak_memory_bytes=peak, step_losses=losses,
+                     launches=got, epochs=res.metrics_history)
+
+
+def _learned(name, res) -> None:
+    """The last epoch's mean loss below the first step's."""
+    if not res.loss_history[-1] < res.step_losses[0]:
+        raise AssertionError(
+            f"{name} did not learn: last epoch's mean "
+            f"{res.loss_history[-1]} not below the first step's "
+            f"{res.step_losses[0]}")
+
+
+def _recipe_leg(torch, name, cfg, smi, root) -> tuple:
+    """Train ``cfg`` with a checkpoint at each epoch's end; learning; then
+    an in-run resume from a copy of the directory without its last step,
+    whose losses must be the run's last epoch's bit for bit."""
+    d = os.path.join(root, name)
+    res, out = _recipe_train(torch, name, cfg, smi, ckpt_dir=d)
+    _learned(name, res)
+    last = f"step_{RECIPE_EPOCHS * RECIPE_STEPS}"
+    resume = d + "_resume"
+    shutil.copytree(d, resume,
+                    ignore=shutil.ignore_patterns(last, ".recycle"))
+    res2, out2 = _recipe_train(torch, f"{name} resume", cfg, smi,
+                               ckpt_dir=resume, steps=RECIPE_STEPS,
+                               epochs=1)
+    if res2.step_losses != res.step_losses[RECIPE_STEPS:]:
+        raise AssertionError(
+            f"{name}: the resume's losses {res2.step_losses} differ from the "
+            f"last epoch's {res.step_losses[RECIPE_STEPS:]}")
+    if _shards(os.path.join(resume, last)) != _shards(os.path.join(d, last)):
+        raise AssertionError(f"{name}: the resume's {last} differs from the "
+                             "run's")
+    io = dict(saves=res.checkpoint_io["saves"],
+              restores=res2.checkpoint_io["restores"])
+    print(f"{name}: resume from step {RECIPE_STEPS} reproduces the last "
+          f"epoch's {RECIPE_STEPS} losses bit for bit and its {last} shard "
+          f"crc32s; {_io_line('save', io['saves'])}; "
+          f"{_io_line('restore', io['restores'])} (this machine's host "
+          f"disk) [{smi}]")
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.rmtree(resume, ignore_errors=True)
+    out.update(resume=out2, checkpoint_io=io)
+    return res, out
+
+
+def _state_bytes(torch, cfg) -> dict:
+    """The optimizer state of ``cfg``'s model on the card: the bytes of
+    its tensors and what the allocator took for them."""
+    from tpuflow_torch.train.gpt import JaxLeaves, _init_model
+
+    mc = cfg.model_config()
+    model = _init_model(mc, torch.device("cuda"))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    tx = cfg.optimizer(model.parameters(), JaxLeaves(model, mc.scan_layers))
+    torch.cuda.synchronize()
+    took = torch.cuda.memory_allocated() - before
+    tensors = [t for ts in (*tx.slots().values(), *tx.leaf_slots().values())
+               for t in ts]
+    out = dict(bytes=sum(t.nbytes for t in tensors), allocated=took,
+               param_bytes=sum(p.nbytes for p in model.parameters()))
+    del tx, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _crossover(ts, flash_ms, xla_ms):
+    """The smallest T from which flash is faster at every measured T
+    (None: flash does not win at the largest)."""
+    best = None
+    for T in reversed(ts):
+        if flash_ms[T] < xla_ms[T]:
+            best = T
+        else:
+            break
+    return best
+
+
+def crossover_leg(torch, smi, root) -> dict:
+    """The flash kernels against ``xla_attention`` at (8, T, 12, 64),
+    causal, f32 and bf16, at every T of ``CROSSOVER_TS``: the forward,
+    the forward+backward, and the backward alone (``autograd.grad`` over a
+    retained graph), each the median of ``CROSSOVER_REPS`` interleaved
+    runs (flash, xla, xla, flash ...; CUDA events around one call). The
+    crossovers (the smallest T from which flash wins at every larger T,
+    the larger of the two dtypes') go to a tuning file in ``root``, and
+    ``resolve_attention_impl(tuning=that file)`` must pick flash exactly
+    from them."""
+    from tpuflow_torch.ops.attention import (
+        flash_min_seq,
+        resolve_attention_impl,
+        xla_attention,
+    )
+    from tpuflow_torch.ops.flash_attention import flash_attention
+
+    impls = {"flash": lambda q, k, v: flash_attention(q, k, v, causal=True),
+             "xla": lambda q, k, v: xla_attention(q, k, v, causal=True)}
+    B, H, D = CROSSOVER_BHD
+    g = torch.Generator(device="cuda").manual_seed(0)
+    table = {}
+
+    def timed(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b)
+
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        for T in CROSSOVER_TS:
+            q, k, v = (torch.randn((B, T, H, D), generator=g, device="cuda")
+                       .to(dtype).requires_grad_() for _ in range(3))
+            do = torch.randn((B, T, H, D), generator=g,
+                             device="cuda").to(dtype)
+
+            def fwd(name):
+                with torch.no_grad():
+                    impls[name](q, k, v)
+
+            def fwd_bwd(name):
+                torch.autograd.grad(impls[name](q, k, v), (q, k, v), do)
+
+            # The backward alone, over one graph an implementation.
+            graphs = {name: f(q, k, v) for name, f in impls.items()}
+
+            def bwd(name):
+                torch.autograd.grad(graphs[name], (q, k, v), do,
+                                    retain_graph=True)
+
+            row = {}
+            for path, run in (("fwd", fwd), ("fwd_bwd", fwd_bwd),
+                              ("bwd", bwd)):
+                for name in impls:  # warm-up
+                    run(name)
+                ms = {name: [] for name in impls}
+                for r in range(CROSSOVER_REPS):
+                    order = list(impls) if r % 2 == 0 else list(impls)[::-1]
+                    for name in order:
+                        ms[name].append(timed(lambda: run(name)))
+                row[path] = {name: float(np.median(v)) for name, v in
+                             ms.items()}
+            table[(dt, T)] = row
+            del q, k, v, do, graphs
+            print(f"crossover {dt} T={T}: fwd flash "
+                  f"{row['fwd']['flash']:.4f} ms, xla "
+                  f"{row['fwd']['xla']:.4f}; fwd+bwd flash "
+                  f"{row['fwd_bwd']['flash']:.4f}, xla "
+                  f"{row['fwd_bwd']['xla']:.4f}; bwd flash "
+                  f"{row['bwd']['flash']:.4f}, xla {row['bwd']['xla']:.4f} "
+                  f"(medians of {CROSSOVER_REPS}) [{smi}]")
+        torch.cuda.empty_cache()
+    found = {}
+    for path in ("fwd", "fwd_bwd", "bwd"):
+        per_dtype = {}
+        for dt in ("float32", "bfloat16"):
+            per_dtype[dt] = _crossover(
+                CROSSOVER_TS,
+                {T: table[(dt, T)][path]["flash"] for T in CROSSOVER_TS},
+                {T: table[(dt, T)][path]["xla"] for T in CROSSOVER_TS})
+        found[path] = per_dtype
+    # Flash from a T where it wins in both dtypes (None: in neither,
+    # within the grid).
+    both = {path: (None if None in v.values() else max(v.values()))
+            for path, v in found.items()}
+    tuning = {key: both[path] for key, path in (
+        ("flash_min_seq", "fwd_bwd"), ("flash_min_seq_fwd", "fwd"),
+        ("flash_min_seq_bwd", "bwd")) if both[path] is not None}
+    path = os.path.join(root, "flash_tuning.json")
+    with open(path, "w") as fh:
+        json.dump(tuning, fh)
+    for needs_bwd in (True, False):
+        start = flash_min_seq(needs_bwd=needs_bwd, tuning=path)
+        for T in CROSSOVER_TS:
+            got = resolve_attention_impl("auto", T, needs_bwd=needs_bwd,
+                                         backend="cuda", tuning=path)
+            if (got == "flash") != (T >= start):
+                raise AssertionError(
+                    f"resolve_attention_impl(tuning={tuning}) picks {got} at "
+                    f"T={T} (needs_bwd={needs_bwd}), want flash from {start}")
+    print(f"crossovers (flash wins from): {json.dumps(found)}; tuning file "
+          f"{json.dumps(tuning)}; resolve_attention_impl picks flash from "
+          f"{flash_min_seq(tuning=path)} (fwd+bwd) and "
+          f"{flash_min_seq(needs_bwd=False, tuning=path)} (fwd) [{smi}]")
+    return dict(shape=[B, "T", H, D], ts=list(CROSSOVER_TS),
+                reps=CROSSOVER_REPS,
+                table={f"{dt}/{T}": row for (dt, T), row in table.items()},
+                crossovers=found, tuning=tuning, gpu=smi)
+
+
+def recipes_phase(torch, smi) -> dict:
+    """Phase 11, the training recipes on GPT-2 124M at full depth and
+    width (``_recipe_cfg``), each leg's flash launches exact:
+
+    (a) Lion, (b) Adafactor, (c) Switch MoE (8 experts, capacity 1.25,
+        aux weight 1e-2, AdamW): learning, and an in-run resume from the
+        first epoch's checkpoint bit-equal to the second epoch; (b) also
+        the optimizer state's bytes against AdamW's, (c) the summed aux
+        finite and above 0, the checkpoint's size and its save and
+        restore rates;
+    (d) ``lm_text`` on this checkout's README.md: learning, the recorded
+        ``text_source`` hash, a greedy byte-level sample from "The ";
+    (e) ``TorchGptTrain --optimizer adafactor --experts 8 --dataset
+        lm_text --text-path README.md`` 2 x 2 steps, then the triggered
+        ``TorchGptEval``: the MoE model rebuilt, the corpus checked, a
+        finite perplexity;
+    (f) the 124M weights through ``params_to_hf_state_dict`` and
+        ``hf_gpt2_to_params``: bit-equal, equal logits;
+    (g) the flash crossovers (``crossover_leg``)."""
+    import hashlib
+
+    from tpuflow_torch.data.lm import text_source_record
+    from tpuflow_torch.flow import Run
+    from tpuflow_torch.flows import gpt_eval_flow, gpt_flow
+    from tpuflow_torch.infer.generate import render_tokens
+    from tpuflow_torch.models.gpt2 import GPT2, GPT2Config
+    from tpuflow_torch.models.import_hf import (
+        hf_gpt2_to_params,
+        params_to_hf_state_dict,
+    )
+    from tpuflow_torch.ops import flash_attention as fa
+    from tpuflow_torch.ops import int8_matmul as im
+    from tpuflow_torch.train import step as step_mod
+
+    t_phase = time.monotonic()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_recipes_",
+                            dir=os.path.join(REPO, "build"))
+    out = {"gpu": smi}
+    try:
+        # --- (a) Lion, (b) Adafactor.
+        for name, lr in (("lion", LION_LR), ("adafactor", ADAFACTOR_LR)):
+            _, out[name] = _recipe_leg(
+                torch, name, _recipe_cfg(optimizer_name=name,
+                                         learning_rate=lr), smi, root)
+        mine = _state_bytes(torch, _recipe_cfg(optimizer_name="adafactor"))
+        adamw = _state_bytes(torch, _recipe_cfg())
+        out["adafactor"]["state_bytes"] = mine
+        out["adafactor"]["adamw_state_bytes"] = adamw
+        print(f"adafactor state: {mine['bytes'] / 2**20:.2f} MiB "
+              f"({mine['allocated'] / 2**20:.2f} MiB allocated) against "
+              f"AdamW's {adamw['bytes'] / 2**20:.2f} MiB "
+              f"({adamw['allocated'] / 2**20:.2f} allocated) for "
+              f"{mine['param_bytes'] / 2**20:.1f} MiB of f32 parameters "
+              f"[{smi}]")
+
+        # --- (c) Switch MoE.
+        seen = []
+        real = step_mod.sum_sown_losses
+        step_mod.sum_sown_losses = lambda v: seen.append(real(v)) or seen[-1]
+        try:
+            cfg = _recipe_cfg(experts=MOE_EXPERTS)
+            res, out["moe"] = _recipe_leg(torch, "moe", cfg, smi, root)
+        finally:
+            step_mod.sum_sown_losses = real
+        aux = [float(a.detach()) for a in seen]
+        n_steps = RECIPE_EPOCHS * RECIPE_STEPS + RECIPE_STEPS
+        if len(aux) != n_steps or not all(np.isfinite(a) and a > 0
+                                          for a in aux):
+            raise AssertionError(f"moe: summed aux {aux} (want {n_steps} "
+                                 "finite values above 0)")
+        mc = cfg.model_config()
+        n_params = sum(p.numel() for p in GPT2(mc, seed=None,
+                                               device="meta").parameters())
+        saved = out["moe"]["checkpoint_io"]["saves"][-1]["bytes"]
+        out["moe"].update(aux=aux, params=n_params, checkpoint_bytes=saved)
+        print(f"moe: {n_params / 1e6:.1f}M parameters, the summed aux "
+              f"{', '.join(f'{a:.5f}' for a in aux)} (finite, above 0); "
+              f"checkpoint {saved / 1e9:.2f} GB [{smi}]")
+
+        # --- (d) lm_text on README.md.
+        text = os.path.join(REPO, "README.md")
+        cfg = _recipe_cfg(dataset="lm_text", text_path=text,
+                          sample_tokens=RECIPE_SAMPLE)
+        res, out["lm_text"] = _recipe_train(torch, "lm_text", cfg, smi,
+                                            samples=1)
+        _learned("lm_text", res)
+        rec = text_source_record(text)
+        with open(text, "rb") as fh:
+            sha = hashlib.sha256(fh.read()).hexdigest()
+        if rec["sha256"] != sha or rec["bytes"] != os.path.getsize(text):
+            raise AssertionError(f"text_source {rec}, sha256 {sha}")
+        if len(res.sample) != RECIPE_SAMPLE:
+            raise AssertionError(f"lm_text sample {res.sample}")
+        sample = render_tokens(res.sample, byte_level=True)
+        out["lm_text"].update(text_source=rec, sample=sample)
+        print(f"lm_text: README.md, {rec['bytes']} bytes, sha256 "
+              f"{rec['sha256'][:16]}...; greedy sample from 'The ': "
+              f"{sample!r} [{smi}]")
+
+        # --- (e) the flows.
+        home = os.path.join(root, "home")
+        argv = ["run", "--preset", "gpt2", "--seq-len", str(RECIPE_SEQ),
+                "--batch-size", "8", "--epochs", "2", "--steps-per-epoch",
+                "2", "--attn-impl", "flash", "--data-axis", "1",
+                "--fsdp-axis", "1", "--optimizer", "adafactor",
+                "--learning-rate", str(ADAFACTOR_LR), "--experts",
+                str(MOE_EXPERTS), "--dataset", "lm_text", "--text-path",
+                text, "--home", home]
+        fcfg = _recipe_cfg(optimizer_name="adafactor", experts=MOE_EXPERTS,
+                           dataset="lm_text", text_path=text, epochs=2,
+                           steps_per_epoch=2)
+        want = _recipe_want(fcfg, 4, 2)
+        _zero_counters(fa, im)
+        t0 = time.monotonic()
+        run = Run(gpt_flow.main(argv))
+        torch.cuda.synchronize()
+        train_wall = time.monotonic() - t0
+        got = _counters(fa, im)
+        if got != want:
+            raise AssertionError(f"TorchGptTrain launches {got}, want {want}")
+        if run.data.model_config["n_experts"] != MOE_EXPERTS or \
+                run.data.text_source["sha256"] != sha:
+            raise AssertionError(f"TorchGptTrain recorded "
+                                 f"{run.data.model_config}, "
+                                 f"{run.data.text_source}")
+        n_val = want["flash_fwd"] // (2 * mc.n_layer)
+        ewant = _launches(flash_fwd=mc.n_layer * (n_val + 3))
+        _zero_counters(fa, im)
+        t0 = time.monotonic()
+        ev = Run(gpt_eval_flow.main(["run", "--triggered", "--attn-impl",
+                                     "flash", "--sample-tokens", "16",
+                                     "--home", home]))
+        torch.cuda.synchronize()
+        eval_wall = time.monotonic() - t0
+        egot = _counters(fa, im)
+        if egot != ewant:
+            raise AssertionError(f"TorchGptEval launches {egot}, want "
+                                 f"{ewant}")
+        if ev.meta.get("triggered_by") != run.pathspec or \
+                not np.isfinite(ev.data.test_ppl):
+            raise AssertionError(f"TorchGptEval: {ev.meta}, ppl "
+                                 f"{ev.data.test_ppl}")
+        out["flows"] = dict(train_wall_s=train_wall, eval_wall_s=eval_wall,
+                            loss_history=run.data.loss_history,
+                            test_ppl=ev.data.test_ppl, samples=ev.data.samples,
+                            train_launches=got, eval_launches=egot)
+        print(f"flows: TorchGptTrain (adafactor, {MOE_EXPERTS} experts, "
+              f"lm_text) losses {run.data.loss_history}, wall "
+              f"{train_wall:.2f} s; TorchGptEval rebuilt the MoE model, "
+              f"the corpus hash checked, test ppl {ev.data.test_ppl:.2f}, "
+              f"greedy {ev.data.samples[0][1]!r}, wall {eval_wall:.2f} s; "
+              f"launches exact [{smi}]")
+
+        # --- (f) HF round trip.
+        mc = GPT2Config.from_preset("gpt2")
+        model = GPT2(mc, seed=0)
+        t0 = time.monotonic()
+        back = hf_gpt2_to_params(params_to_hf_state_dict(model, mc), mc)
+        hf_s = time.monotonic() - t0
+        sd = model.state_dict()
+        if back.keys() != sd.keys() or not all(
+                torch.equal(back[k], sd[k]) for k in sd):
+            raise AssertionError("the HF round trip changed the weights")
+        twin = GPT2(mc, seed=None)
+        twin.load_state_dict(back)
+        toks = torch.as_tensor(np.random.default_rng(0).integers(
+            0, mc.vocab_size, (2, 128)), device="cuda")
+        with torch.no_grad():
+            if not torch.equal(model(toks), twin(toks)):
+                raise AssertionError("the HF round trip's logits differ")
+        del model, twin, back, sd
+        out["hf"] = dict(round_trip_s=hf_s)
+        print(f"hf: 124M weights through params_to_hf_state_dict and "
+              f"hf_gpt2_to_params bit-equal, logits equal, {hf_s:.2f} s "
+              f"[{smi}]")
+
+        # --- (g) the flash crossovers.
+        out["crossover"] = crossover_leg(torch, smi, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["wall_s"] = time.monotonic() - t_phase
+    print(f"phase 11 (training recipes): wall {out['wall_s']:.1f} s [{smi}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3040,6 +3528,13 @@ def main() -> int:
     print(f"gpu: {smi}")
     build_s = _build.build_all()
     print(f"built {', '.join(_build.KERNELS)} in {build_s:.2f} s")
+    if sys.argv[1:2] == ["--recipes"]:
+        recipes = recipes_phase(torch, smi)
+        os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(REPO, "chiprun_out", "recipes.json"),
+                  "w") as fh:
+            json.dump(recipes, fh, indent=1, default=float)
+        return 0
 
     timer = Timer(torch)
     flash_rows = flash_phase(torch, timer)
@@ -3058,6 +3553,7 @@ def main() -> int:
                  resnet50=resnet50_leg(torch, smi))
     with f32_matmul_precision():
         image["vit"] = vit_leg(torch, smi)
+    recipes = recipes_phase(torch, smi)
 
     # One JSON entry per kernel. flash: one launch at the generate() leg's
     # shape (f32, 1 x 512 x 12 x 64). int8: the 49 launches of one int8
@@ -3215,6 +3711,19 @@ def main() -> int:
     for entry in kernels:
         if entry["name"] in gen_n:
             entry["generation_launches"] = gen_n[entry["name"]]
+    # The flash kernels' launches in phase 11, every training recipe's
+    # runs summed (its legs, resumes and flows; f32).
+    recipe_runs = [recipes[leg]["launches"] for leg in
+                   ("lion", "adafactor", "moe", "lm_text")]
+    recipe_runs += [recipes[leg]["resume"]["launches"]
+                    for leg in ("lion", "adafactor", "moe")]
+    recipe_runs += [recipes["flows"]["train_launches"],
+                    recipes["flows"]["eval_launches"]]
+    for entry in kernels:
+        if entry["name"] in ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq",
+                             "flash_bwd_dkv"):
+            entry["recipe_launches"] = sum(run[entry["name"]]
+                                           for run in recipe_runs)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(dict(gpu=smi, build_s=build_s, flash=flash_rows,
@@ -3222,6 +3731,7 @@ def main() -> int:
                        head_dims=head_rows, slice=sl, generation=gen,
                        train=tr,
                        main_path=main_path, flows=flows, image=image,
+                       recipes=recipes,
                        vit_flash=vit_rows, vit_flash_bwd=vit_bwd_rows,
                        kernels=kernels),
                   fh,

@@ -134,8 +134,11 @@ def test_registry_matches_jax():
         assert datasets.get_labels_map(name) == jdatasets.get_labels_map(name)
     with pytest.raises(KeyError):
         datasets.dataset_info("nope")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        datasets.load_dataset("lm_text")
+    # lm_text loads (its parity: tests/test_torch_lm_text.py): without a
+    # file, the synthetic byte-level stand-in.
+    text = datasets.load_dataset("lm_text")
+    assert (text.name, text.num_classes, text.synthetic) == ("lm_text", 256,
+                                                             True)
     with pytest.raises(KeyError, match="unknown dataset"):
         datasets.load_dataset("nope")
 

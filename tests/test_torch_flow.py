@@ -230,8 +230,10 @@ def test_tensor_artifact_rejected(isolated_home):
 
 
 def test_gpt_eval_of_an_lm_text_run_raises_not_ported(isolated_home):
-    """A GPT run on the byte-level corpus stops the eval flow with the
-    "not ported" error before its checkpoint is read."""
+    """lm_text is ported: a GPT run on the byte-level corpus that recorded
+    no text_source (the corpus the eval must check) stops the eval flow
+    before its checkpoint is read, as the JAX eval does; an unknown corpus
+    stops it the same way."""
     from tpuflow_torch.flows import gpt_eval_flow
 
     class LmTextRun(FlowSpec):
@@ -249,8 +251,27 @@ def test_gpt_eval_of_an_lm_text_run_raises_not_ported(isolated_home):
             pass
 
     pathspec = FlowRunner(LmTextRun).run({})
-    with pytest.raises(NotImplementedError, match="lm_text.*item 12"):
+    with pytest.raises(ValueError, match="recorded no text_source"):
         gpt_eval_flow.main(["run", "--checkpoint-run-pathspec", pathspec,
+                            "--device", "cpu", "--home", isolated_home])
+
+    class OtherRun(FlowSpec):
+        @step
+        def start(self):
+            self.result_checkpoint = None
+            self.model_config = {}
+            self.dataset_used = "lm_books"
+            self.seq_len_used = 32
+            self.synthetic_size_used = 8
+            self.next(self.end)
+
+        @step
+        def end(self):
+            pass
+
+    other = FlowRunner(OtherRun).run({})
+    with pytest.raises(ValueError, match="unknown dataset 'lm_books'"):
+        gpt_eval_flow.main(["run", "--checkpoint-run-pathspec", other,
                             "--device", "cpu", "--home", isolated_home])
 
 

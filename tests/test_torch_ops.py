@@ -101,16 +101,22 @@ def test_xla_attention_matches_jax(causal):
 
 def test_resolve_attention_impl_and_dispatch():
     r = tattn.resolve_attention_impl
-    assert r("auto", 512, needs_bwd=False, backend="cuda") == "flash"
-    assert r("auto", 511, needs_bwd=False, backend="cuda") == "xla"
-    assert r("auto", 1024, needs_bwd=True, backend="cuda") == "xla"
-    assert r("auto", 2048, needs_bwd=True, backend="cuda") == "flash"
+    # The shipped thresholds: the H100's crossovers (chip_smoke.py phase
+    # 11), flash from T = 128 forward and forward+backward.
+    assert r("auto", 128, needs_bwd=False, backend="cuda") == "flash"
+    assert r("auto", 127, needs_bwd=False, backend="cuda") == "xla"
+    assert r("auto", 127, needs_bwd=True, backend="cuda") == "xla"
+    assert r("auto", 128, needs_bwd=True, backend="cuda") == "flash"
+    assert r("auto", 543, needs_bwd=True, backend="cuda") == "flash"
     assert r("auto", 4096, needs_bwd=False, backend="cpu") == "xla"
     assert r("flash", 8, backend="cpu") == "flash"
-    # The JAX table picks the same way with cuda in the place of tpu.
-    for T in (256, 512, 2048):
+    # Under the JAX package's TPU thresholds as a tuning, the JAX table
+    # picks the same way with cuda in the place of tpu.
+    tpu = {"flash_min_seq": 2048, "flash_min_seq_fwd": 512}
+    for T in (256, 511, 512, 2047, 2048):
         for bwd in (True, False):
-            assert r("auto", T, needs_bwd=bwd, backend="cuda") == \
+            assert r("auto", T, needs_bwd=bwd, backend="cuda",
+                     tuning=tpu) == \
                 jattn.resolve_attention_impl("auto", T, needs_bwd=bwd,
                                              backend="tpu")
     q, k, v = _t(*_qkv((1, 8, 2, 16), 3))

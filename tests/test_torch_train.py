@@ -38,6 +38,7 @@ from tpuflow.train.optim import make_optimizer as j_make_optimizer
 from tpuflow.train.step import TrainState as JTrainState
 from tpuflow.train.step import make_train_step as j_make_train_step
 from tpuflow_torch.data.lm import make_lm_loaders
+from tpuflow_torch.infer.generate import render_tokens
 from tpuflow_torch.models import gpt2 as tgpt2
 from tpuflow_torch.models.convert import params_from_jax
 from tpuflow_torch.models.gpt2 import GPT2, GPT2Config
@@ -236,11 +237,7 @@ def test_gpt_train_config_matches_jax():
     ({"data_axis": 2, "fsdp_axis": 2}, "data_axis=2 x fsdp_axis=2"),
     ({"tensor_axis": 2}, "tensor_axis=2"),
     ({"stage_axis": 2}, "pipeline"),
-    ({"experts": 2}, "MoE"),
     ({"seq_axis": 2}, "seq_axis=2"),
-    ({"dataset": "lm_text"}, "lm_text"),
-    ({"optimizer_name": "lion"}, "lion"),
-    ({"optimizer_name": "adafactor"}, "adafactor"),
 ])
 def test_train_gpt_deferred_config_raises(kw, match):
     cfg = tgpt.GptTrainConfig(**{"data_axis": 1, "fsdp_axis": 1,
@@ -248,6 +245,29 @@ def test_train_gpt_deferred_config_raises(kw, match):
     with pytest.raises(NotImplementedError, match=match) as err:
         tgpt.train_gpt(cfg, log=lambda m: None, device="cpu")
     assert "ROADMAP" in str(err.value)
+
+
+@pytest.mark.parametrize("kw", [
+    {"experts": 2},
+    {"dataset": "lm_text", "sample_tokens": 5},
+    {"optimizer_name": "lion"},
+    {"optimizer_name": "adafactor", "learning_rate": 1e-2},
+], ids=["moe", "lm_text", "lion", "adafactor"])
+def test_train_gpt_runs_the_recipes(kw):
+    """The options that raised before this slice train: finite losses, the
+    epoch histories, and on lm_text a greedy sample of bytes rendered as
+    text from the prompt "The "."""
+    cfg = tgpt.GptTrainConfig(**{"data_axis": 1, "fsdp_axis": 1,
+                                 "steps_per_epoch": 2, "epochs": 2,
+                                 "seq_len": 32, **kw})
+    logs = []
+    res = tgpt.train_gpt(cfg, log=logs.append, device="cpu")
+    assert len(res.step_losses) == 4 and all(np.isfinite(res.step_losses))
+    assert len(res.metrics_history) == 2
+    if "sample_tokens" in kw:
+        assert len(res.sample) == 5
+        text = render_tokens(res.sample, byte_level=True)
+        assert any(f"greedy sample: {text!r}" in m for m in logs)
 
 
 @pytest.mark.parametrize("kw,match", [
@@ -290,7 +310,7 @@ def test_train_gpt_matches_jax_train_gpt(tmp_path, monkeypatch):
     init = JGPT2(jcfg).init(jax.random.PRNGKey(0),
                             jnp.zeros((1, 8), jnp.int32))["params"]
 
-    def from_jax(model_cfg, device):
+    def from_jax(model_cfg, device, seed=0):
         m = GPT2(model_cfg, seed=0, device=device)
         m.load_state_dict(params_from_jax(jax.device_get(init)))
         return m

@@ -83,7 +83,7 @@ def _downcast(tree, dtype_name: str):
             return leaf.to(target)
         return leaf
 
-    return raw.unflatten([(p, cast(x)) for p, x in raw.flatten(tree)])
+    return raw.map_leaves(cast, tree)
 
 
 def _saved_nbytes(leaf: torch.Tensor, dtype_name: str | None) -> int:

@@ -34,6 +34,7 @@ calls on the H100 machine's host disk (PERF.md), so the port has none.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import errno
 import json
@@ -168,13 +169,24 @@ def _check_shard_bytes(path: str, shard: dict, buf, nbytes: int) -> None:
 # ------------------------------------------------------------------ trees
 def flatten(tree, prefix: tuple[str, ...] = ()) -> list[tuple[list[str], Any]]:
     """``(path, leaf)`` pairs of a nested-dict tree in ``jax.tree_util``'s
-    order (sorted keys at every level)."""
+    order: a dict's keys sorted, an ``OrderedDict``'s in insertion order
+    (the port's form of a named tuple's fields, an optax state's, which
+    the JAX package's manifests list in field order)."""
     if isinstance(tree, dict):
         out = []
-        for key in sorted(tree):
+        ordered = isinstance(tree, collections.OrderedDict)
+        for key in tree if ordered else sorted(tree):
             out += flatten(tree[key], (*prefix, str(key)))
         return out
     return [(list(prefix), tree)]
+
+
+def map_leaves(fn, tree):
+    """``tree`` with every leaf replaced by ``fn(leaf)``, its nodes' types
+    (and so its flatten order) kept."""
+    if isinstance(tree, dict):
+        return type(tree)((k, map_leaves(fn, v)) for k, v in tree.items())
+    return fn(tree)
 
 
 def unflatten(pairs) -> dict:

@@ -14,20 +14,31 @@ way, so a checkpoint written by either package restores into the other:
   (``convert.named_params_to_jax``).
 - ``batch_stats`` (ResNet): the running ``mean``/``var`` of each
   ``models.resnet.BatchNorm``, present only when the model has one.
-- ``opt_state``: optax's tuple layout, tuple indices as keys. ``adamw`` is
-  ``chain(scale_by_adam, add_decayed_weights, scale_by_learning_rate)``:
-  ``0/{count, mu, nu}``, plus ``2/count`` when the learning rate is
-  scheduled. ``sgd`` is ``chain(trace, scale_by_learning_rate)``:
-  ``0/trace``, plus ``1/count`` when scheduled. With ``grad_clip`` the
-  whole chain sits under ``1`` (``clip_by_global_norm`` keeps no state).
-  Every count is the int32 number of updates.
+- ``opt_state``: optax's tuple layout, tuple indices as keys (a
+  transformation that keeps no state, ``EmptyState``, leaves no entry).
+  ``adamw`` is ``chain(scale_by_adam, add_decayed_weights,
+  scale_by_learning_rate)``: ``0/{count, mu, nu}``, plus ``2/count``
+  when the learning rate is scheduled. ``sgd`` is ``chain(trace,
+  scale_by_learning_rate)``: ``0/trace``, plus ``1/count`` when
+  scheduled. ``lion`` is ``chain(scale_by_lion, add_decayed_weights,
+  scale_by_learning_rate)``: ``0/{count, mu}``, plus ``2/count``.
+  ``adafactor`` is ``chain(scale_by_factored_rms, clip_by_block_rms,
+  scale_by_learning_rate, scale_by_param_block_rms,
+  [add_decayed_weights], scale)``: ``0/{count, v_row, v_col, v}`` (each
+  a param-shaped tree of per-leaf statistics, ``JaxLeaves``), plus
+  ``2/count``. With ``grad_clip`` the whole chain sits under ``1``
+  (``clip_by_global_norm`` keeps no state). Every count is the int32
+  number of updates.
 - ``step``: int32; ``ema_params`` like ``params``.
 """
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
+from tpuflow_torch.ckpt.raw import flatten, unflatten
 from tpuflow_torch.models.convert import (
     named_params_from_jax,
     named_params_to_jax,
@@ -35,39 +46,72 @@ from tpuflow_torch.models.convert import (
 )
 from tpuflow_torch.models.gpt2 import GPT2
 from tpuflow_torch.models.resnet import BatchNorm
-
-_DENSE = ("c_attn", "c_proj", "mlp_fc", "mlp_proj")
-_NORMS = ("ln_1", "ln_2")
-
-
-def _block(sd: dict, i: int) -> dict:
-    pre = f"h.{i}."
-    out = {n: {"scale": sd[f"{pre}{n}.weight"], "bias": sd[f"{pre}{n}.bias"]}
-           for n in _NORMS}
-    for n in _DENSE:
-        out[n] = {"kernel": sd[f"{pre}{n}.weight"].t(),
-                  "bias": sd[f"{pre}{n}.bias"]}
-    return out
+from tpuflow_torch.train.optim import Leaves
 
 
 def params_to_jax(sd: dict, *, scan_layers: bool) -> dict:
-    """Port ``state_dict`` (name → tensor) → the Flax GPT-2 param tree."""
-    tree = {"wte": sd["wte"], "wpe": sd["wpe"],
-            "ln_f": {"scale": sd["ln_f.weight"], "bias": sd["ln_f.bias"]}}
+    """Port ``state_dict`` (name → tensor) → the Flax GPT-2 param tree:
+    each block's leaves by the Flax names (``named_params_to_jax``), under
+    ``h{i}`` or, with ``scan_layers``, stacked under ``h/block``."""
+    tree = named_params_to_jax(
+        {k: v for k, v in sd.items() if not k.startswith("h.")})
     n_layer = 0
     while f"h.{n_layer}.ln_1.weight" in sd:
         n_layer += 1
-    blocks = [_block(sd, i) for i in range(n_layer)]
+    blocks = [named_params_to_jax({k[len(f"h.{i}."):]: v
+                                   for k, v in sd.items()
+                                   if k.startswith(f"h.{i}.")})
+              for i in range(n_layer)]
     if scan_layers:
-        tree["h"] = {"block": {
-            name: {leaf: torch.stack([b[name][leaf] for b in blocks])
-                   for leaf in sub}
-            for name, sub in blocks[0].items()
-        }}
+        tree["h"] = {"block": _stack(blocks)}
     else:
         for i, b in enumerate(blocks):
             tree[f"h{i}"] = b
     return tree
+
+
+def _stack(trees: list) -> dict:
+    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
+            else torch.stack([t[k] for t in trees])
+            for k, v in trees[0].items()}
+
+
+class JaxLeaves(Leaves):
+    """A model's parameters grouped into the leaves of its JAX param tree
+    (``optim.Leaves``): Dense kernels (in, out), and under ``scan_layers``
+    a name's tensors of every block stacked into one leaf. ``leaves``
+    returns them in the checkpoint's leaf order (``raw.flatten``);
+    ``tensors`` maps leaf-shaped tensors back to the parameter layout
+    (contiguous copies)."""
+
+    def __init__(self, model, scan_layers: bool):
+        self.model, self.scan_layers = model, scan_layers
+        self.names = [n for n, _ in model.named_parameters()]
+        self.paths = [path for path, _ in flatten(self._tree([
+            torch.empty_like(p, device="meta") for p in model.parameters()]))]
+
+    def _tree(self, tensors) -> dict:
+        return _to_jax(self.model, dict(zip(self.names, tensors)),
+                       self.scan_layers)
+
+    def leaves(self, tensors) -> list[torch.Tensor]:
+        return [t for _, t in flatten(self._tree(tensors))]
+
+    def tree(self, leaves) -> dict:
+        """Leaves in ``leaves``' order → the nested param tree."""
+        return unflatten(zip(self.paths, leaves))
+
+    def flat(self, tree: dict) -> list:
+        """A param-shaped tree → its leaves in ``leaves``' order."""
+        pairs = flatten(tree)
+        if [p for p, _ in pairs] != self.paths:
+            raise ValueError("the tree's leaves are not this model's")
+        return [t for _, t in pairs]
+
+    def tensors(self, leaves) -> list[torch.Tensor]:
+        leaves = list(leaves)
+        sd = _from_jax(self.model, self.tree(leaves), leaves[0].device)
+        return [sd[n] for n in self.names]
 
 
 def _count(n: int) -> torch.Tensor:
@@ -111,11 +155,18 @@ def checkpoint_tree(state, *, scan_layers: bool = False,
         return _to_jax(state.model, dict(zip(names, tensors)), scan_layers)
 
     tx = state.tx
-    inner = {"0": {name: layout(ts) for name, ts in tx.slots().items()}}
-    if tx.kind == "adamw":
-        inner["0"]["count"] = _count(tx.count)
+    # The first transformation's state: a named tuple, its fields in
+    # optax's order (the count first, where it keeps one).
+    first = collections.OrderedDict(
+        [] if tx.kind == "sgd" else [("count", _count(tx.count))])
+    first.update((name, layout(ts)) for name, ts in tx.slots().items())
+    for name, ts in tx.leaf_slots().items():
+        if abstract:
+            ts = [torch.empty_like(t, device="meta") for t in ts]
+        first[name] = tx.leaves.tree(ts)
+    inner = {"0": first}
     if tx.scheduled:
-        inner["2" if tx.kind == "adamw" else "1"] = {"count": _count(tx.count)}
+        inner["1" if tx.kind == "sgd" else "2"] = {"count": _count(tx.count)}
     tree = {
         "step": _count(state.step),
         "params": layout(state.params),
@@ -172,15 +223,19 @@ def load_checkpoint_tree(state, tree: dict) -> None:
         load_batch_stats(state.model, tree["batch_stats"])
     opt = tree["opt_state"]
     inner = opt["1"] if state.tx.grad_clip_norm is not None else opt
+    per_leaf = state.tx.leaf_slots()
     slots = {name: _ordered(state.model, sub)
-             for name, sub in inner["0"].items() if name != "count"}
+             for name, sub in inner["0"].items()
+             if name != "count" and name not in per_leaf}
+    leaf_slots = {name: state.tx.leaves.flat(inner["0"][name])
+                  for name in per_leaf if name in inner["0"]}
     counts = [int(c["count"]) for c in (inner["0"], inner.get("1"),
                                         inner.get("2"))
               if isinstance(c, dict) and "count" in c]
     count = counts[0] if counts else int(tree["step"])
     if len(set(counts)) > 1:
         raise ValueError(f"optimizer counts disagree: {counts}")
-    state.tx.load_slots(count, slots)
+    state.tx.load_slots(count, slots, leaf_slots)
     if "ema_params" in tree:
         if state.ema_params is None:
             raise ValueError("the checkpoint holds ema_params; seed them "

@@ -13,7 +13,10 @@ training slices read, byte for byte the same arrays from the same seed:
   32 x 32 x 3);
 - ``imagenet_synth`` (``:385``): synthetic only, seed 40, 224 x 224 x 3,
   1000 classes;
-- ``_load_synthetic_lm`` (the ``lm_synth`` corpus).
+- ``_load_synthetic_lm`` (the ``lm_synth`` corpus);
+- ``lm_text`` (``:216-284``): byte-level windows of ``seq_len + 1`` bytes
+  of a local text file, split 95/5, or the deterministic stand-in
+  (``resolve_text_path``, ``_load_text_lm``).
 
 The synthetic sizes are the arguments ``n_train`` / ``n_test`` where the
 JAX package reads ``TPUFLOW_SYNTH_TRAIN_N`` / ``_TEST_N``; None takes the
@@ -22,12 +25,14 @@ dataset's default, as the JAX package does without the knobs
 
 Not ported: the download branch, the npz cache and its FileLock (every
 load decodes or generates afresh, and nothing is written, ``data_dir``
-included) and ``lm_text``.
+included), and the ``TPUFLOW_TEXT_FILE`` step of the text file's
+resolution (the file is the ``text_path`` argument).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import gzip
 import os
 import pickle
@@ -129,6 +134,61 @@ def _load_synthetic_lm(
         make(max(n_docs // 8, 1), 2),
         num_classes=vocab_size,
         synthetic=True,
+    )
+
+
+def resolve_text_path(data_dir: str | None = None,
+                      text_path: str | None = None) -> str | None:
+    """The file ``lm_text`` trains on: ``text_path`` (which must exist: a
+    requested file never degrades to the stand-in), else the first
+    ``*.txt`` under ``data_dir`` (None: look nowhere), else None (the
+    synthetic stand-in)."""
+    if text_path:
+        if not os.path.exists(text_path):
+            raise FileNotFoundError(
+                f"lm_text: requested text file does not exist: {text_path}")
+        return text_path
+    if not data_dir:
+        return None
+    txts = sorted(glob.glob(os.path.join(data_dir, "*.txt")))
+    return txts[0] if txts else None
+
+
+def _load_text_lm(data_dir: str | None, seq_len: int,
+                  text_path: str | None = None) -> Dataset:
+    """Byte-level LM data (vocab 256): the resolved file's bytes in
+    non-overlapping windows of ``seq_len + 1``, split 95/5 in file order;
+    with no file, the ``lm_synth`` pattern over 95 symbols shifted into
+    the printable bytes (``synthetic=True``)."""
+    path = resolve_text_path(data_dir, text_path)
+    if path is None:
+        base = _load_synthetic_lm(512, seq_len, 95)
+        return Dataset(
+            "lm_text",
+            Split(base.train.images + 32, base.train.labels + 32),
+            Split(base.test.images + 32, base.test.labels + 32),
+            256,
+            synthetic=True,
+        )
+    with open(path, "rb") as f:
+        raw = np.frombuffer(f.read(), dtype=np.uint8)
+    n_win = len(raw) // (seq_len + 1)
+    if n_win < 4:
+        raise ValueError(
+            f"{path}: need at least {4 * (seq_len + 1)} bytes for "
+            f"seq_len={seq_len}, have {len(raw)}"
+        )
+    tokens = raw[: n_win * (seq_len + 1)].reshape(
+        n_win, seq_len + 1).astype(np.int32)
+    n_train = max(int(n_win * 0.95), 1)
+    if n_train == tokens.shape[0]:
+        n_train -= 1
+    return Dataset(
+        "lm_text",
+        Split(tokens[:n_train, :-1], tokens[:n_train, 1:]),
+        Split(tokens[n_train:, :-1], tokens[n_train:, 1:]),
+        256,
+        synthetic=False,
     )
 
 
@@ -271,13 +331,15 @@ def _load_synthetic_imagenet(n_train: int, n_test: int) -> Dataset:
 
 
 def load_dataset(name: str = "fashion_mnist", *, data_dir: str | None = None,
-                 n_train: int | None = None, n_test: int | None = None
+                 n_train: int | None = None, n_test: int | None = None,
+                 seq_len: int = 64, text_path: str | None = None
                  ) -> Dataset:
-    """Load (or synthesize) ``fashion_mnist``, ``mnist``, ``cifar10`` or
-    ``imagenet_synth``: the real files under ``data_dir`` (None: look
-    nowhere), else the synthetic stand-in of ``n_train`` / ``n_test`` rows
-    (None: the dataset's default, ``_SYNTH_SIZES``). No cache is read or
-    written."""
+    """Load (or synthesize) ``fashion_mnist``, ``mnist``, ``cifar10``,
+    ``imagenet_synth`` or ``lm_text``: the real files under ``data_dir``
+    (None: look nowhere), else the synthetic stand-in of ``n_train`` /
+    ``n_test`` rows (None: the dataset's default, ``_SYNTH_SIZES``).
+    ``seq_len`` and ``text_path`` apply to ``lm_text``
+    (``_load_text_lm``). No cache is read or written."""
     if name in _SYNTH_SIZES:
         d_train, d_test = _SYNTH_SIZES[name]
         sizes = dict(n_train=d_train if n_train is None else n_train,
@@ -288,7 +350,6 @@ def load_dataset(name: str = "fashion_mnist", *, data_dir: str | None = None,
             return _load_cifar10(data_dir, **sizes)
         return _load_fashion_mnist(data_dir, name, **sizes)
     if name == "lm_text":
-        raise NotImplementedError(
-            f"dataset {name!r} is not ported yet: ROADMAP Queue 1 item 12")
+        return _load_text_lm(data_dir, seq_len, text_path)
     raise KeyError(f"unknown dataset {name!r}; available: fashion_mnist, "
-                   "mnist, cifar10, imagenet_synth")
+                   "mnist, cifar10, imagenet_synth, lm_text")

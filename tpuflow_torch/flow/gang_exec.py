@@ -16,7 +16,7 @@ timeout, marks itself joined for the supervisor's formation deadline,
 runs the step body, and saves its artifacts: the head (rank 0) its own
 at ``task_id`` and the step's transition, the others none at
 ``task_id + rank``. A SIGTERM exits at once with the requeue code (the
-training loops' checkpoint drain is ROADMAP Queue 1 item 12).
+training loops' checkpoint drain is ROADMAP Queue 1 item 12c).
 """
 
 from __future__ import annotations

@@ -2,11 +2,13 @@
 
 Twin of ``flows/gpt_eval_flow.py`` (``TpuGptEval``) on the port: triggered
 when ``TorchGptTrain`` finishes, it reads the run's checkpoint handle and
-``model_config``, rebuilds the model, restores the weights
-(``restore_from_handle``; ``--weights ema`` for the averaged ones),
-computes the test loss and perplexity over the same held-out split
-(``run_validation``), samples greedily and at two temperatures through the
-port's ``generate``, and renders the card: perplexity, samples, and the
+``model_config``, rebuilds the model (MoE blocks included), restores the
+weights (``restore_from_handle``; ``--weights ema`` for the averaged
+ones), computes the test loss and perplexity over the same held-out split
+(``run_validation``; an ``lm_text`` run's corpus is the recorded file,
+checked against its recorded hash first), samples greedily and at two
+temperatures through the port's ``generate`` (byte-level text from "The "
+on ``lm_text``), and renders the card: perplexity, samples, and the
 producer's training history. ``attn_impl`` (default ``xla``, the model's
 default as in the reference) set to ``flash`` runs the validation and the
 prefill on the flash forward kernel. ``--beam-size K`` > 1 adds a width-K
@@ -76,7 +78,11 @@ class TorchGptEval(FlowSpec):
 
         from tpuflow_torch.ckpt import restore_from_handle
         from tpuflow_torch.ckpt.tree import load_params
-        from tpuflow_torch.data.lm import check_dataset, lm_test_loader
+        from tpuflow_torch.data.lm import (
+            check_dataset,
+            check_text_source,
+            lm_test_loader,
+        )
         from tpuflow_torch.device import resolve_device
         from tpuflow_torch.infer.beam import beam_search
         from tpuflow_torch.infer.generate import generate, render_tokens
@@ -97,9 +103,20 @@ class TorchGptEval(FlowSpec):
         dataset = run.data.dataset_used
         seq_len = int(run.data.seq_len_used)
         synthetic_size = int(run.data.synthetic_size_used)
-        # Only lm_synth is ported: lm_text raises its "not ported" error
-        # here, before the checkpoint is read.
+        # Never a silent fallback: an unknown corpus, or an lm_text file
+        # whose bytes changed since training, raises before the
+        # checkpoint is read.
         check_dataset(dataset)
+        text_path = None
+        if dataset == "lm_text":
+            try:
+                source = dict(run.data.text_source)
+            except AttributeError as e:
+                raise ValueError(
+                    "training run recorded no text_source artifact; "
+                    "re-train or score manually") from e
+            check_text_source(source)
+            text_path = source["path"]
         print(f"[gpt_eval] evaluating {ckpt.path} ({mc})")
 
         dev = resolve_device(self.device)
@@ -115,21 +132,27 @@ class TorchGptEval(FlowSpec):
             list(model.parameters()), 0.0, optimizer="sgd"))
 
         loader = lm_test_loader(int(self.batch_size), synthetic_size,
-                                seq_len, cfg.vocab_size)
+                                seq_len, cfg.vocab_size, dataset=dataset,
+                                text_path=text_path)
         self.test_loss = float(run_validation(state, loader,
                                               make_eval_step()))
         self.test_ppl = math.exp(min(self.test_loss, 30.0))
         print(f"[gpt_eval] test loss={self.test_loss:.4f} "
               f"ppl={self.test_ppl:.2f}")
 
-        # Samples: greedy and two temperatures from the lm_synth prompt.
-        prompt = torch.zeros((1, 4), dtype=torch.long)
+        # Samples: greedy and two temperatures, from "The " rendered as
+        # text on a byte-level corpus, from the lm_synth prompt as ids.
+        byte_level = dataset == "lm_text"
+        prompt = (torch.tensor([list(b"The ")]) if byte_level
+                  else torch.zeros((1, 4), dtype=torch.long))
         n_new = int(self.sample_tokens)
 
+        def render(toks):
+            return render_tokens(toks[0].cpu(), byte_level=byte_level)
+
         def sample(temperature, **kw):
-            toks = generate(model, prompt, max_new_tokens=n_new,
-                            temperature=temperature, **kw)
-            return render_tokens(toks[0].cpu())
+            return render(generate(model, prompt, max_new_tokens=n_new,
+                                   temperature=temperature, **kw))
 
         self.samples = [("greedy", sample(0.0))] + [
             (f"T={t}", sample(t, top_k=40, generator=torch.Generator(
@@ -142,7 +165,7 @@ class TorchGptEval(FlowSpec):
                                       max_new_tokens=n_new)
             self.samples.append((
                 f"beam K={beam} ({float(score[0]):.3f} nats/tok)",
-                render_tokens(toks[0].cpu())))
+                render(toks)))
         for name, text in self.samples:
             print(f"[gpt_eval] sample ({name}): {text!r}")
 

@@ -7,11 +7,13 @@ parameters bind onto ``tpuflow_torch.train.gpt.GptTrainConfig`` and
 storage and a full-state resume with ``--from-run``. The artifacts match
 the reference's: ``model_config``, ``dataset_used``, ``seq_len_used``,
 ``synthetic_size_used``, ``result_checkpoint``, ``loss_history``,
-``metrics_history`` (and ``sample``), and the ``end`` step's training
-curve card. Options ``train_gpt`` does not run yet (mesh axes above one
-device, pipeline, MoE, ``lm_text``) raise its ``NotImplementedError``
-(ROADMAP Queue 1 item 12). ``device`` (default ``cuda``) and
-``flash_bwd`` (the JAX package's ``TPUFLOW_FLASH_BWD``) are parameters.
+``metrics_history`` (and ``sample``), ``text_source`` on ``lm_text``
+(the corpus's path and sha256, which the eval flow checks), and the
+``end`` step's training curve card. Options ``train_gpt`` does not run
+yet (mesh axes above one device, pipeline) raise its
+``NotImplementedError`` naming the ROADMAP item. ``device`` (default
+``cuda``), ``flash_bwd`` (the JAX package's ``TPUFLOW_FLASH_BWD``) and
+``text_path`` (its ``TPUFLOW_TEXT_FILE``) are parameters.
 
 Run:    python -m tpuflow_torch.flows.gpt_flow run --preset test --data-axis 1 --fsdp-axis 1
 """
@@ -57,9 +59,12 @@ class TorchGptTrain(FlowSpec):
     attn_impl = Parameter(
         "attn_impl", default="auto",
         help="auto|xla|flash|ring|ulysses (auto = flash on the card at "
-        "T >= 2048, else xla)")
+        "T >= 128, else xla)")
     dataset = Parameter("dataset", default="lm_synth",
                         help="lm_synth | lm_text (byte-level)")
+    text_path = Parameter(
+        "text_path", default="",
+        help="the lm_text corpus file (empty = the synthetic stand-in)")
     from_run = Parameter("from_run", default="",
                          help="run pathspec to resume full state from")
     sample_tokens = Parameter("sample_tokens", default=0,
@@ -142,7 +147,7 @@ class TorchGptTrain(FlowSpec):
     @step
     def train(self):
         from tpuflow_torch.ckpt import prewarm_restore_handle
-        from tpuflow_torch.data.lm import lm_corpus_size
+        from tpuflow_torch.data.lm import lm_corpus_size, text_source_record
         from tpuflow_torch.device import resolve_device
         from tpuflow_torch.train.gpt import train_gpt
 
@@ -164,6 +169,11 @@ class TorchGptTrain(FlowSpec):
         self.seq_len_used = cfg.seq_len
         self.synthetic_size_used = lm_corpus_size(cfg.batch_size,
                                                   cfg.steps_per_epoch)
+        if cfg.dataset == "lm_text":
+            # The corpus's identity, which the eval flow checks before it
+            # scores: the file trained on and its content hash.
+            self.text_source = text_source_record(self.text_path or None)
+            cfg.text_path = self.text_source["path"]
         ckpt = self.resume_checkpoint
         if ckpt is not None and not ckpt.metadata.get("save_dtype"):
             # Back the restore's buffers while train_gpt builds the model

@@ -43,6 +43,7 @@ import torch.nn as nn
 
 from tpuflow_torch.ckpt.tree import params_to_jax
 from tpuflow_torch.models.convert import params_from_jax
+from tpuflow_torch.models.gpt2 import reject_moe
 from tpuflow_torch.ops.int8_matmul import quantize_rows
 
 
@@ -228,6 +229,7 @@ def quantize_model(model, *, min_size: int = 4096, mode: str = "fused_native",
     ``int8_impl`` do not apply); fused-native quantizes the Dense kernels
     and the LM head (``head=False`` keeps the head fp)."""
     mode = canonical_mode(mode)
+    reject_moe(model.config, "int8 quantization")
     if mode == "weight":
         with torch.no_grad():
             qparams = quantize_params(jax_layout_params(model),

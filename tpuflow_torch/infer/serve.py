@@ -62,6 +62,7 @@ from tpuflow_torch.infer.quant import (
     quantize_model,
 )
 from tpuflow_torch.infer.speculative import ngram_draft
+from tpuflow_torch.models.gpt2 import reject_moe
 
 
 def resolve_serve_quant(quant=None) -> str | None:
@@ -335,6 +336,7 @@ class ServeEngine:
                 "contiguous slot-row caches (the JAX engine's paged=False "
                 "regression reference) are not ported; the engine is paged"
             )
+        reject_moe(model.config, "the serving engine")
         self.model = model
         self.device = model.device
         self.quant_mode = resolve_serve_quant(quant)

@@ -36,6 +36,7 @@ from tpuflow_torch.infer.generate import (
     chunked_prefill,
     normalize_prefill_chunk,
 )
+from tpuflow_torch.models.gpt2 import reject_moe
 
 
 def ngram_draft(history, K: int, *, ngram: int = 3):
@@ -132,6 +133,7 @@ def speculative_generate(
     clamped to the budget): realized acceptance is ``n_committed /
     n_forwards`` tokens per forward.
     """
+    reject_moe(model.config, "speculative decoding")
     with f32_matmul_precision(model.config.decode_precision == "highest"):
         dev = model.device
         prompt = torch.as_tensor(prompt, device=dev).long()

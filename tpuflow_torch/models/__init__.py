@@ -1,7 +1,8 @@
-"""The model zoo (counterpart of ``tpuflow/models``): GPT-2 (``gpt2``), the
-FashionMNIST MLP (``mlp``), ResNet-18/50 (``resnet``), ViT (``vit``), the
-loaders of JAX params (``convert``) and the training losses
-(``losses``)."""
+"""The model zoo (counterpart of ``tpuflow/models``): GPT-2 (``gpt2``,
+with the Switch-MoE MLP of ``moe``), the FashionMNIST MLP (``mlp``),
+ResNet-18/50 (``resnet``), ViT (``vit``), the loaders of JAX params
+(``convert``), HuggingFace GPT-2 import and export (``import_hf``) and
+the training losses (``losses``)."""
 
 from tpuflow_torch.models.mlp import NeuralNetwork
 

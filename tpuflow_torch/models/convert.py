@@ -11,6 +11,8 @@ restored checkpoint) and returns a ``state_dict`` for
 layouts: unrolled blocks (``h0`` .. ``h{L-1}``) and ``scan_layers``
 (``h/block/...`` with a leading layer axis). A Flax Dense kernel is
 (in, out); an ``nn.Linear`` weight is (out, in), so kernels transpose.
+The port's module names are the Flax ones, so within a block the
+walker maps every leaf, the MoE block's included.
 """
 
 from __future__ import annotations
@@ -19,9 +21,6 @@ from collections.abc import Mapping
 
 import numpy as np
 import torch
-
-_DENSE = ("c_attn", "c_proj", "mlp_fc", "mlp_proj")
-_NORMS = ("ln_1", "ln_2")
 
 
 def _t(x, device="cpu") -> torch.Tensor:
@@ -34,42 +33,34 @@ def _row(arr, i: int):
     return arr[i] if isinstance(arr, torch.Tensor) else np.asarray(arr)[i]
 
 
-def _block(prefix: str, blk, device) -> dict[str, torch.Tensor]:
-    out = {}
-    for name in _NORMS:
-        out[f"{prefix}{name}.weight"] = _t(blk[name]["scale"], device)
-        out[f"{prefix}{name}.bias"] = _t(blk[name]["bias"], device)
-    for name in _DENSE:
-        out[f"{prefix}{name}.weight"] = (
-            _t(blk[name]["kernel"], device).t().contiguous())
-        out[f"{prefix}{name}.bias"] = _t(blk[name]["bias"], device)
-    return out
-
-
 def params_from_jax(tree, *, device="cpu") -> dict[str, torch.Tensor]:
     """Flax GPT-2 param tree → port ``state_dict`` (float32, on
-    ``device``)."""
-    sd = {
-        "wte": _t(tree["wte"], device),
-        "wpe": _t(tree["wpe"], device),
-        "ln_f.weight": _t(tree["ln_f"]["scale"], device),
-        "ln_f.bias": _t(tree["ln_f"]["bias"], device),
-    }
+    ``device``). A block's subtree maps by the Flax names
+    (``named_params_from_jax``): LayerNorms, Dense layers and, in an MoE
+    block, ``moe/{gate/{kernel, bias}, w1, b1, w2, b2}`` (the expert
+    weights as they are)."""
+    sd = named_params_from_jax(
+        {k: v for k, v in tree.items()
+         if k in ("wte", "wpe", "ln_f")}, device=device)
     if "h" in tree:  # scan_layers: one stacked block, leading layer axis
         stacked = tree["h"]["block"]
         n_layer = len(stacked["ln_1"]["scale"])
         for i in range(n_layer):
-            layer = {
-                name: {leaf: _row(arr, i) for leaf, arr in sub.items()}
-                for name, sub in stacked.items()
-            }
-            sd.update(_block(f"h.{i}.", layer, device))
+            sd.update(named_params_from_jax(
+                _map_leaves(stacked, lambda arr: _row(arr, i)), f"h.{i}.",
+                device=device))
     else:
         i = 0
         while f"h{i}" in tree:
-            sd.update(_block(f"h.{i}.", tree[f"h{i}"], device))
+            sd.update(named_params_from_jax(tree[f"h{i}"], f"h.{i}.",
+                                            device=device))
             i += 1
     return sd
+
+
+def _map_leaves(tree, fn):
+    return {k: _map_leaves(v, fn) if isinstance(v, Mapping) else fn(v)
+            for k, v in tree.items()}
 
 
 def named_params_to_jax(sd: dict) -> dict:

@@ -26,7 +26,13 @@ seeded by ``fold_in(rng, site)`` (the counterpart of the JAX model's
 only the block's input (the JAX ``full`` selector), ``'dots'`` saves every
 matrix product without batch dims plus the flash forward's outputs (the
 JAX ``dots_with_no_batch_dims_saveable`` + ``flash_out`` policy).
-Deferred, each raising: MoE and the contiguous slot-row cache.
+
+MoE (``n_experts > 0``): each block's MLP is a Switch-routed
+``models/moe.py::MoEMLP`` named ``moe``, and each block returns its
+load-balance loss with its output (never through a side list, which the
+remat recompute would fill twice); ``forward(..., losses=True)`` hands
+them to the train step. Deferred, raising: the contiguous slot-row
+cache.
 """
 
 from __future__ import annotations
@@ -47,11 +53,26 @@ from torch.utils.checkpoint import (
 )
 
 from tpuflow_torch.device import resolve_device
+from tpuflow_torch.models.moe import MoEMLP
 from tpuflow_torch.ops import flash_attention  # registers its custom op
-from tpuflow_torch.ops.attention import attention
+from tpuflow_torch.ops.attention import attention, resolve_attention_impl
 from tpuflow_torch.ops.int8_matmul import int8_matmul
 
 _MASKED = -1e30
+ROADMAP_SERVING = "ROADMAP Queue 1 item 13 (serving remainder)"
+
+
+def reject_moe(config, what: str) -> None:
+    """Raise for an MoE config on ``what``: the serving engine, speculative
+    verify and int8 quantization split or rewrite the decode calls (by
+    row, by token, by bucket), which changes the T that sets each
+    expert's capacity, so their answers could part from the JAX
+    package's. They are not ported for MoE."""
+    if config.n_experts > 0:
+        raise NotImplementedError(
+            f"{what} on an MoE model (n_experts={config.n_experts}) is not "
+            f"ported yet: {ROADMAP_SERVING}"
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,8 +91,12 @@ class GPT2Config:
     # matrix products and the flash outputs (see the module docstring).
     remat: bool = False
     remat_policy: str | None = None
-    # MoE blocks are not ported: n_experts > 0 raises at build.
+    # Mixture-of-Experts: n_experts > 0 replaces every block's MLP with a
+    # Switch-routed expert MLP (models/moe.py), capacity_factor sizing
+    # each expert's buffer and moe_aux_weight its load-balance loss.
     n_experts: int = 0
+    capacity_factor: float = 1.25
+    moe_aux_weight: float = 1e-2
     # Decode-path (KV-cache, non-prefill) compute dtype: f32 by default so
     # decode numerics do not depend on how many tokens one call carries.
     decode_dtype: torch.dtype | None = torch.float32
@@ -351,6 +376,25 @@ def _left_pad_attention(q, k, v, pad_lens):
     return _masked_attention(q, k, v, valid)
 
 
+def _padded_prefill_attention(q, k, v, pad_lens, impl: str):
+    """A fresh-cache prefill of LEFT-padded rows (the serving engine's
+    bucketed admission, ragged ``generate``): ``_left_pad_attention``,
+    except that a row whose real tokens the dispatch sends to flash takes
+    flash on exactly those tokens, as the same prompt unpadded does. The
+    engine's answer must equal a solo ``generate()`` of the prompt, whose
+    dense prefill runs the dispatch: the masked einsum sums the same
+    products as the einsum path but not as the flash kernel."""
+    out = _left_pad_attention(q, k, v, pad_lens)
+    T = q.shape[1]
+    for b, pad in enumerate(pad_lens.tolist()):
+        if resolve_attention_impl(impl, T - pad, needs_bwd=False,
+                                  backend=q.device.type) == "flash":
+            real = (slice(b, b + 1), slice(pad, None))
+            out[real] = attention(q[real], k[real], v[real], causal=True,
+                                  impl="flash", needs_bwd=False).to(out.dtype)
+    return out
+
+
 def _dense(linear: nn.Linear, x, dt, qleaf=None, int8_impl=None,
            rowwise: bool = False):
     """One Dense layer in compute dtype ``dt``; with a QuantLeaf, the W8A8
@@ -378,7 +422,9 @@ def _layer_norm(ln: nn.LayerNorm, x, dt):
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block with the JAX block's parameter names."""
+    """Pre-LN transformer block with the JAX block's parameter names. Its
+    forward returns ``(x, aux)``: aux the MoE load-balance loss of a
+    training-mode MoE block, else None."""
 
     def __init__(self, config: GPT2Config):
         super().__init__()
@@ -388,8 +434,12 @@ class Block(nn.Module):
         self.c_attn = nn.Linear(C, 3 * C)
         self.c_proj = nn.Linear(C, C)
         self.ln_2 = nn.LayerNorm(C, eps=config.ln_eps)
-        self.mlp_fc = nn.Linear(C, 4 * C)
-        self.mlp_proj = nn.Linear(4 * C, C)
+        if config.n_experts > 0:
+            self.moe = MoEMLP(C, 4 * C, config.n_experts,
+                              config.capacity_factor, config.moe_aux_weight)
+        else:
+            self.mlp_fc = nn.Linear(C, 4 * C)
+            self.mlp_proj = nn.Linear(4 * C, C)
 
     def forward(self, x, *, layer: int, train: bool = False,
                 decode: bool = False, pad_lens=None, prefill: bool = False,
@@ -429,9 +479,17 @@ class Block(nn.Module):
         x = x + _dropout(a, cfg.dropout, train, rng, layer + 1, 0)
 
         h = _layer_norm(self.ln_2, x, dt)
-        h = F.gelu(dense("mlp_fc", h), approximate="tanh")  # flax default
-        h = dense("mlp_proj", h)
-        return x + _dropout(h, cfg.dropout, train, rng, layer + 1, 1)
+        aux = None
+        if cfg.n_experts > 0:
+            # The whole call at once, as the JAX block routes it: its T
+            # sets each expert's capacity.
+            h, aux = self.moe(h, dt)
+            if decode:
+                aux = None
+        else:
+            h = F.gelu(dense("mlp_fc", h), approximate="tanh")  # flax default
+            h = dense("mlp_proj", h)
+        return x + _dropout(h, cfg.dropout, train, rng, layer + 1, 1), aux
 
     def _paged_attention(self, q, k, v, pad_lens, cache, layer, slot_index,
                          page_table):
@@ -481,9 +539,10 @@ class Block(nn.Module):
         place) at ``cache.index`` and q attends over the cache behind a
         mask. A fresh-cache multi-token call (``index == 0``) takes the
         exact T x T path instead — the pluggable dispatch when dense (the
-        flash kernel's entry on the serving path), the left-padded masked
-        form when ragged; chunked prefill at ``index > 0`` and single-token
-        decode run masked attention over the whole cache."""
+        flash kernel's entry on the serving path), the left-padded form
+        when ragged (``_padded_prefill_attention``); chunked prefill at
+        ``index > 0`` and single-token decode run masked attention over
+        the whole cache."""
         cfg = self.config
         B, T, H, D = q.shape
         ck, cv = cache.k[layer], cache.v[layer]
@@ -495,7 +554,8 @@ class Block(nn.Module):
                 return attention(
                     q, k, v, causal=True, impl=cfg.attn_impl, needs_bwd=False
                 ).to(q.dtype)
-            return _left_pad_attention(q, k, v, pad_lens)
+            return _padded_prefill_attention(q, k, v, pad_lens,
+                                             cfg.attn_impl)
         q_pos = start + torch.arange(T, device=q.device)[:, None]
         k_pos = torch.arange(cfg.n_ctx, device=q.device)[None, :]
         valid = (k_pos <= q_pos)[None, None]
@@ -518,11 +578,6 @@ class GPT2(nn.Module):
     def __init__(self, config: GPT2Config = GPT2Config(), *,
                  seed: int | None = 0, device=None):
         super().__init__()
-        if config.n_experts > 0:
-            raise NotImplementedError(
-                "MoE blocks (n_experts > 0) are not ported yet: ROADMAP "
-                "Queue 1 item 14"
-            )
         if config.remat_policy not in _REMAT_CONTEXT:
             raise NotImplementedError(
                 f"remat_policy {config.remat_policy!r}: the port takes None "
@@ -556,10 +611,18 @@ class GPT2(nn.Module):
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+            elif isinstance(m, MoEMLP):
+                m.init_experts(g)
 
     @property
     def device(self) -> torch.device:
         return self.wte.device
+
+    @property
+    def sows_losses(self) -> bool:
+        """True when a training forward has auxiliary losses (MoE): the
+        train step then asks for them (``forward(..., losses=True)``)."""
+        return self.config.n_experts > 0
 
     def init_cache(self, batch: int, *, device=None) -> KVCache:
         """Zeroed shared-index cache for ``batch`` rows, on ``device``
@@ -592,8 +655,12 @@ class GPT2(nn.Module):
     def forward(self, tokens, *, train: bool = False, decode: bool = False,
                 cache=None, pad_lens=None, prefill: bool = False,
                 slot_index=None, page_table=None, quant=None,
-                int8_impl=None, rng: int | None = None):
-        """Logits (B, T, vocab) f32; in decode mode ``(logits, cache)``.
+                int8_impl=None, rng: int | None = None,
+                losses: bool = False):
+        """Logits (B, T, vocab) f32; in decode mode ``(logits, cache)``;
+        with ``losses`` (not in decode mode) ``(logits, aux)``, aux the
+        list of the MoE blocks' load-balance losses in layer order (empty
+        for a dense model).
 
         ``decode=True`` runs against ``cache`` (a fresh ``KVCache`` when
         None): a ``KVCache`` continues from its shared index, a
@@ -641,6 +708,7 @@ class GPT2(nn.Module):
         dt = cfg.compute_dtype(decode and not prefill)
         x = self.wte[tokens].to(dt) + pe.to(dt)
         x = _dropout(x, cfg.dropout, train, rng, 0)
+        aux = []
         for i, block in enumerate(self.h):
             kw = dict(
                 layer=i, train=train, decode=decode, pad_lens=pad_lens,
@@ -649,9 +717,11 @@ class GPT2(nn.Module):
                 rng=rng,
             )
             if train and cfg.remat and torch.is_grad_enabled():
-                x = _remat(block, x, cfg.remat_policy, **kw)
+                x, a = _remat(block, x, cfg.remat_policy, **kw)
             else:
-                x = block(x, **kw)
+                x, a = block(x, **kw)
+            if a is not None:
+                aux.append(a)
         x = _layer_norm(self.ln_f, x, dt)
         head = (quant or {}).get("wte_q")
         if head is not None:
@@ -665,7 +735,7 @@ class GPT2(nn.Module):
             # the Dense layers.
             logits = _tied_head(x, self.wte, dt, decode and not prefill)
         if not decode:
-            return logits
+            return (logits, aux) if losses else logits
         if isinstance(cache, KVCache):
             cache.index += T
         return logits, cache

@@ -18,3 +18,13 @@ def cross_entropy_loss(logits, labels):
 def accuracy(logits, labels):
     """Fraction of argmax predictions matching labels."""
     return (logits.argmax(dim=-1) == labels).float().mean()
+
+
+def sum_sown_losses(values) -> torch.Tensor:
+    """The f32 scalar sum of the auxiliary losses a forward returned (the
+    MoE blocks' load-balance losses): 0 when there are none. The
+    counterpart of summing the JAX model's sown ``losses`` collection."""
+    total = torch.zeros((), dtype=torch.float32)
+    for v in values:
+        total = total.to(v.device) + v.float().sum()
+    return total

@@ -1,0 +1,104 @@
+"""Switch-style Mixture-of-Experts MLP (counterpart of
+``tpuflow/models/moe.py``).
+
+Top-1 routing written, as in the JAX package, as dense one-hot products
+with static shapes:
+
+- the router is a Dense layer in f32 whatever the block's dtype, a
+  softmax over the experts, and each token's expert the argmax (the first
+  index on ties);
+- each expert takes at most ``max(1, int(-(-T * capacity_factor // E)))``
+  tokens of a batch row, in the row's order (a cumsum over T); the tokens
+  past it are dropped and their MoE output is 0 (the residual carries
+  them);
+- the dispatch and combine tensors are (B, T, E, capacity), cast to the
+  block's dtype: the one-hot dispatch carries no gradient, the combine
+  weights carry the router's;
+- each expert is a tanh-GELU MLP, its weights raw parameters ``w1``
+  (E, C, F), ``b1`` (E, F), ``w2`` (E, F, C), ``b2`` (E, C), laid out as
+  the Flax ones (the router ``gate`` is an ``nn.Linear``, whose weight is
+  the transposed Flax kernel);
+- the Switch load-balance loss ``aux_weight * E * sum_e(frac_e *
+  mean_prob_e)``, returned beside the output (the JAX module sows it).
+
+The expert products are ``torch.einsum``: the JAX package writes them as
+XLA einsums, not as kernels of its own.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def capacity(T: int, capacity_factor: float, n_experts: int) -> int:
+    """Tokens an expert takes of a row of ``T``: the JAX expression, in
+    Python float floor division."""
+    return max(1, int(-(-T * capacity_factor // n_experts)))
+
+
+class MoEMLP(nn.Module):
+    """(B, T, C) → ((B, T, C), aux) through ``n_experts`` expert MLPs."""
+
+    def __init__(self, d_model: int, d_ff: int, n_experts: int,
+                 capacity_factor: float = 1.25, aux_weight: float = 1e-2):
+        super().__init__()
+        E = n_experts
+        self.n_experts = E
+        self.capacity_factor = capacity_factor
+        self.aux_weight = aux_weight
+        self.gate = nn.Linear(d_model, E)
+        self.w1 = nn.Parameter(torch.empty(E, d_model, d_ff))
+        self.b1 = nn.Parameter(torch.empty(E, d_ff))
+        self.w2 = nn.Parameter(torch.empty(E, d_ff, d_model))
+        self.b2 = nn.Parameter(torch.empty(E, d_model))
+
+    @torch.no_grad()
+    def init_experts(self, g: torch.Generator) -> None:
+        """The Flax initialisers of the expert weights: normal(0.02) for
+        ``w1``/``w2``, zero biases (the router is a Dense layer, set by
+        the model's Dense rule)."""
+        self.w1.normal_(0.0, 0.02, generator=g)
+        self.w2.normal_(0.0, 0.02, generator=g)
+        self.b1.zero_()
+        self.b2.zero_()
+
+    def route(self, x):
+        """The routing of ``x`` (B, T, C), in f32: the softmax
+        probabilities (B, T, E), each token's expert one-hot (B, T, E),
+        and the (B, T, E, cap) dispatch (0/1) and combine (dispatch x
+        probability) tensors."""
+        B, T, _ = x.shape
+        E = self.n_experts
+        cap = capacity(T, self.capacity_factor, E)
+        gate_logits = F.linear(x.float(), self.gate.weight.float(),
+                               self.gate.bias.float())
+        probs = torch.softmax(gate_logits, dim=-1)
+        onehot = F.one_hot(probs.argmax(-1), E).float()
+        # Position of each token inside its expert's buffer.
+        pos = (torch.cumsum(onehot, dim=1) - 1.0) * onehot
+        keep = onehot * (pos < cap)
+        # A position past the buffer is dropped by keep; clamp it first,
+        # as one_hot takes no index out of range.
+        pos_oh = (F.one_hot(pos.long().clamp(0, cap - 1), cap)
+                  * keep[..., None])
+        return probs, onehot, pos_oh, pos_oh * probs[..., None]
+
+    def forward(self, x, dtype=None):
+        """``x`` (B, T, C) in the block's dtype ``dtype`` (default: x's) →
+        (output (B, T, C) in that dtype, the f32 load-balance loss)."""
+        dt = x.dtype if dtype is None else dtype
+        E = self.n_experts
+        probs, onehot, pos_oh, combine = self.route(x)
+        frac = onehot.mean(dim=(0, 1))
+        mean_prob = probs.mean(dim=(0, 1))
+        aux = self.aux_weight * E * torch.sum(frac * mean_prob)
+        dispatch, combine = pos_oh.to(dt), combine.to(dt)
+        x = x.to(dt)
+        xin = torch.einsum("btec,btm->ebcm", dispatch, x)
+        h = F.gelu(torch.einsum("ebcm,emf->ebcf", xin, self.w1.to(dt))
+                   + self.b1.to(dt)[:, None, None, :], approximate="tanh")
+        out = (torch.einsum("ebcf,efm->ebcm", h, self.w2.to(dt))
+               + self.b2.to(dt)[:, None, None, :])
+        return torch.einsum("btec,ebcm->btm", combine, out), aux

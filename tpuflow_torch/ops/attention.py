@@ -11,19 +11,28 @@ causal, impl)`` with q/k/v shaped (B, T, H, D):
   split or blockwise), their plain versions on the CPU.
 - ``"ring"`` / ``"ulysses"`` — sequence parallelism, not ported yet
   (ROADMAP Queue 1 item 14); they raise.
-- ``"auto"`` — flash on CUDA at T >= the threshold, else xla.
+- ``"auto"`` — flash on CUDA at T >= the threshold, else xla: one
+  threshold for calls that will be differentiated, one for forwards
+  only. ``resolve_attention_impl(..., tuning=)`` takes others (a dict,
+  or the path of a JSON file, as ``chip_smoke.py`` writes one), as the
+  JAX package's ``flash_tuning.json`` does.
 """
 
 from __future__ import annotations
 
+import json
+import warnings
+
 import torch
 
-# Auto-dispatch thresholds. Both values were fitted on a TPU v5e by the JAX
-# package's bench (fwd+bwd wins from T >= 2048, forward only from
-# T >= 512); they say nothing about this card yet and stay until the port
-# measures its own crossover.
-_DEFAULT_FLASH_MIN_SEQ = 2048
-_DEFAULT_FLASH_MIN_SEQ_FWD = 512
+# Shipped auto-dispatch thresholds: the crossovers chip_smoke.py's phase
+# 11 measured on one NVIDIA H100 80GB HBM3 (700 W), the flash kernels
+# against xla_attention at (8, T, 12, 64), causal, f32 and bf16, T from
+# 128 to 4096 (PERF.md §6). Flash won at every T, forward and
+# forward+backward, in both dtypes: from the grid's first point, 128
+# (below it nothing was measured, and xla stays).
+_DEFAULT_FLASH_MIN_SEQ = 128
+_DEFAULT_FLASH_MIN_SEQ_FWD = 128
 
 
 def xla_attention(q, k, v, *, causal: bool = True):
@@ -43,20 +52,63 @@ def xla_attention(q, k, v, *, causal: bool = True):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def load_tuning(tuning) -> dict:
+    """A tuning as a dict: ``tuning`` itself, or the JSON object in the
+    file it names (a missing or unreadable file: none, {})."""
+    if tuning is None or isinstance(tuning, dict):
+        return tuning or {}
+    try:
+        with open(tuning) as f:
+            data = json.load(f)
+    except (OSError, ValueError):
+        return {}
+    return data if isinstance(data, dict) else {}
+
+
+def _tuning_entry(tuning: dict, key: str) -> int | None:
+    """One entry, validated: a positive int, else None (a malformed entry
+    is ignored with a warning, never dispatched on)."""
+    v = tuning.get(key)
+    if v is None:
+        return None
+    if isinstance(v, bool) or not isinstance(v, int) or v <= 0:
+        warnings.warn(f"flash tuning entry {key}={v!r} is not a positive "
+                      "integer; ignoring it", stacklevel=3)
+        return None
+    return v
+
+
+def flash_min_seq(*, needs_bwd: bool = True, tuning=None) -> int:
+    """The T from which ``auto`` picks flash on the card. Forward and
+    backward (``needs_bwd``): the largest valid ``flash_min_seq`` and
+    ``flash_min_seq_bwd`` of ``tuning`` (below the backward's own
+    crossover the backward loses, whatever the composition says); forward
+    only: ``flash_min_seq_fwd``. With no valid entry, the shipped
+    threshold."""
+    tuning = load_tuning(tuning)
+    keys = (("flash_min_seq", "flash_min_seq_bwd") if needs_bwd
+            else ("flash_min_seq_fwd",))
+    fitted = [v for v in (_tuning_entry(tuning, k) for k in keys)
+              if v is not None]
+    if fitted:
+        return max(fitted)
+    return _DEFAULT_FLASH_MIN_SEQ if needs_bwd else _DEFAULT_FLASH_MIN_SEQ_FWD
+
+
 def resolve_attention_impl(
     impl: str, seq_len: int, *, needs_bwd: bool = True,
-    backend: str = "cpu",
+    backend: str = "cpu", tuning=None,
 ) -> str:
     """Resolve ``impl='auto'`` for one (backend, seq_len, path): flash only
-    on ``cuda`` at ``seq_len`` >= the fwd+bwd threshold (``needs_bwd``) or
-    the forward-only threshold; xla everywhere else. Other impls pass
-    through unchanged."""
+    on ``cuda`` at ``seq_len`` >= ``flash_min_seq`` of the path
+    (``needs_bwd``: forward and backward, else forward only) under
+    ``tuning`` (a dict or a JSON file's path; None: the shipped
+    thresholds); xla everywhere else. Other impls pass through
+    unchanged."""
     if impl != "auto":
         return impl
-    threshold = (
-        _DEFAULT_FLASH_MIN_SEQ if needs_bwd else _DEFAULT_FLASH_MIN_SEQ_FWD
-    )
-    if backend == "cuda" and seq_len >= threshold:
+    if backend == "cuda" and seq_len >= flash_min_seq(needs_bwd=needs_bwd,
+                                                      tuning=tuning):
         return "flash"
     return "xla"
 

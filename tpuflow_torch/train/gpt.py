@@ -4,14 +4,17 @@
 recipe (``_run_fsdp_generation``): the epoch loop over the seeded LM
 loaders, per-epoch held-out validation with perplexity, tokens/s that
 exclude the cold first step, the loss and metrics histories, and the
-optional greedy sample through the port's ``generate``. With a
+optional greedy sample through the port's ``generate`` (byte-level
+text from the prompt "The " on ``lm_text``). The optimizers (AdamW, SGD,
+Lion, Adafactor), Switch-MoE blocks (``experts``) and both datasets
+(``lm_synth``, the byte-level ``lm_text``) run as in the JAX leg. With a
 ``ckpt_dir`` it checkpoints as the JAX leg does: a save of the full state
 at every epoch end (the JAX checkpoint tree, ``ckpt/tree.py``), an in-run
 resume from the newest committed step, and a resume from a handle. What
 the JAX leg does beyond one device raises ``NotImplementedError`` naming
 the ROADMAP item: mesh axes whose product exceeds one device (FSDP and
-friends), the pipeline and MoE legs, the health monitor, preemption and
-elastic re-form. Nothing is silently ignored.
+friends), the pipeline leg, the health monitor, preemption and elastic
+re-form. Nothing is silently ignored.
 """
 
 from __future__ import annotations
@@ -29,12 +32,16 @@ from tpuflow_torch.ckpt import (
     release_pinned,
     restore_from_handle,
 )
-from tpuflow_torch.ckpt.tree import checkpoint_tree, load_checkpoint_tree
+from tpuflow_torch.ckpt.tree import (
+    JaxLeaves,
+    checkpoint_tree,
+    load_checkpoint_tree,
+)
 from tpuflow_torch.data.lm import make_lm_loaders
 from tpuflow_torch.device import resolve_device
 from tpuflow_torch.models.gpt2 import GPT2, GPT2Config
 from tpuflow_torch.ops.flash_attention import BWD_MODES
-from tpuflow_torch.train.optim import ROADMAP_TRAINING, make_optimizer
+from tpuflow_torch.train.optim import make_optimizer
 from tpuflow_torch.train.step import (
     TrainState,
     make_eval_step,
@@ -42,6 +49,12 @@ from tpuflow_torch.train.step import (
     run_validation,
     with_ema,
 )
+
+# The ROADMAP Queue 1 items that will lift what still raises.
+ROADMAP_MULTI = "ROADMAP Queue 1 item 5 + 6b + 12b (multi-process training)"
+ROADMAP_PARALLEL = ("ROADMAP Queue 1 item 14 (tensor, sequence and pipeline "
+                    "parallelism)")
+ROADMAP_ROBUST = "ROADMAP Queue 1 item 12c + 8b (robustness of training)"
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
            "float32": torch.float32}
@@ -165,7 +178,10 @@ class GptTrainConfig:
             cfg = _apply_remat_selector(cfg, self.remat_policy)
         return cfg
 
-    def optimizer(self, params):
+    def optimizer(self, params, leaves=None):
+        """The optimizer over ``params``; ``leaves`` groups them into the
+        JAX param tree's leaves (``ckpt/tree.py::JaxLeaves``), which
+        Adafactor keeps its statistics for."""
         total = self.epochs * self.steps_per_epoch
         return make_optimizer(
             params,
@@ -177,6 +193,7 @@ class GptTrainConfig:
             decay_steps=self.decay_steps
             or max(total - self.warmup_steps, 1),
             schedule=self.lr_schedule,
+            leaves=leaves,
         )
 
     def validate(self) -> None:
@@ -224,8 +241,8 @@ class GptTrainResult:
     checkpoint_io: dict | None = None
 
 
-def _deferred(what: str):
-    return NotImplementedError(f"{what} is not ported yet: {ROADMAP_TRAINING}")
+def _deferred(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet: {item}")
 
 
 def _check_supported(cfg: GptTrainConfig, ckpt_dir, health: bool,
@@ -241,21 +258,22 @@ def _check_supported(cfg: GptTrainConfig, ckpt_dir, health: bool,
         desc = " x ".join(f"{k}={v}" for k, v in axes.items())
         raise _deferred(
             f"a mesh of {desc} = {n} devices (the port trains on one "
-            "device; set every axis to 1); multi-device training (FSDP2)"
-        )
+            "device; set every axis to 1); multi-device training (FSDP2)",
+            ROADMAP_MULTI)
     if cfg.stage_axis > 1:
-        raise _deferred(f"pipeline parallelism (stage_axis={cfg.stage_axis})")
-    if cfg.experts > 0:
-        raise _deferred(f"MoE blocks (experts={cfg.experts})")
+        raise _deferred(f"pipeline parallelism (stage_axis={cfg.stage_axis})",
+                        ROADMAP_PARALLEL)
     if cfg.ckpt_dtype and ckpt_dir is None:
         raise ValueError(f"ckpt_dtype={cfg.ckpt_dtype!r} casts checkpoints, "
                          "but no ckpt_dir was given to save them in")
     if health:
-        raise _deferred("the training-health monitor (health=True)")
+        raise _deferred("the training-health monitor (health=True)",
+                        ROADMAP_ROBUST)
     if preemption:
-        raise _deferred("preemption drain and requeue (preemption=True)")
+        raise _deferred("preemption drain and requeue (preemption=True)",
+                        ROADMAP_ROBUST)
     if elastic:
-        raise _deferred("elastic mesh re-form (elastic=True)")
+        raise _deferred("elastic mesh re-form (elastic=True)", ROADMAP_ROBUST)
 
 
 def _init_model(model_cfg: GPT2Config, device, seed: int | None = 0) -> GPT2:
@@ -272,7 +290,8 @@ def init_state(cfg: GptTrainConfig, model_cfg: GPT2Config | None = None,
     model_cfg = model_cfg or cfg.model_config()
     model = _init_model(model_cfg, resolve_device(device),
                         seed=0 if materialize else None)
-    state = TrainState(model=model, tx=cfg.optimizer(model.parameters()))
+    state = TrainState(model=model, tx=cfg.optimizer(
+        model.parameters(), JaxLeaves(model, model_cfg.scan_layers)))
     if cfg.ema_decay > 0.0:
         state = with_ema(state)
     return state
@@ -456,14 +475,17 @@ def train_gpt(
 
 
 def _sample_greedy(cfg: GptTrainConfig, model, log) -> list[int]:
-    """Greedy KV-cache decode of ``sample_tokens`` tokens from a 4-token
-    zero prompt (the lm_synth prompt of the JAX leg)."""
-    from tpuflow_torch.infer.generate import generate
+    """Greedy KV-cache decode of ``sample_tokens`` tokens, as the JAX leg
+    samples: from the prompt "The " rendered as text on the byte-level
+    ``lm_text``, from a 4-token zero prompt as ids on ``lm_synth``."""
+    from tpuflow_torch.infer.generate import generate, render_tokens
 
-    toks = generate(
-        model, torch.zeros((1, 4), dtype=torch.long),
-        max_new_tokens=cfg.sample_tokens, temperature=0.0,
-    )
+    byte_level = cfg.dataset == "lm_text"
+    prompt = (torch.tensor([list(b"The ")]) if byte_level
+              else torch.zeros((1, 4), dtype=torch.long))
+    toks = generate(model, prompt, max_new_tokens=cfg.sample_tokens,
+                    temperature=0.0)
     sample = [int(t) for t in toks[0]]
-    log(f"[gpt] greedy sample: {sample}")
+    log(f"[gpt] greedy sample: "
+        f"{render_tokens(sample, byte_level=byte_level)!r}")
     return sample

@@ -6,10 +6,21 @@ with optax's semantics and op order:
 
 1. global-norm clipping of the gradients (optional), before the update;
 2. ``adamw`` (optax defaults: b1 0.9, b2 0.999, eps 1e-8, eps_root 0,
-   bias-corrected moments, decoupled weight decay on every parameter) or
-   ``sgd`` (momentum trace g + momentum * trace, dampening 0);
+   bias-corrected moments, decoupled weight decay on every parameter),
+   ``sgd`` (momentum trace g + momentum * trace, dampening 0), ``lion``
+   (``optax.lion``: sign((1 - b1) g + b1 mu) with b1 0.9, then mu =
+   (1 - b2) g + b2 mu with b2 0.99, plus weight decay) or ``adafactor``
+   (``optax.adafactor``, see ``Optimizer._adafactor``);
 3. the learning rate of the schedule at the count of updates made so far
    (the first update reads the schedule at 0).
+
+Adafactor keeps its statistics per leaf of the JAX param tree: the
+factored second moments follow the leaf's shape (a Dense kernel is
+(in, out) there, and under ``scan_layers`` one leaf stacks a name's
+kernels of every layer), and its two block-RMS steps take one RMS over
+the whole leaf. ``Leaves`` maps the parameter list onto those leaves
+(``ckpt/tree.py::JaxLeaves`` for GPT-2); by default each parameter is
+its own leaf.
 
 ``Optimizer.update`` applies the step in place and returns the update
 tensors it added, which the train step's health statistics read, as the
@@ -24,9 +35,16 @@ from typing import Callable
 import numpy as np
 import torch
 
-ROADMAP_TRAINING = "ROADMAP Queue 1 item 12 (GPT-2 training remainder)"
+KINDS = ("adamw", "sgd", "lion", "adafactor")
 # optax.adamw's defaults.
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
+# optax.lion's defaults.
+_LION_B1, _LION_B2 = 0.9, 0.99
+# optax.adafactor's defaults: the second-moment decay exponent, the eps
+# added to g^2, the smallest dimension that is factored, the block-RMS
+# clip threshold and the floor of the parameter-scale RMS.
+_AF_DECAY, _AF_EPS, _AF_MIN_DIM = 0.8, 1e-30, 128
+_AF_CLIP, _AF_MIN_SCALE = 1.0, 1e-3
 
 
 def make_schedule(
@@ -75,12 +93,41 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+class Leaves:
+    """The default leaf grouping: each parameter is one leaf, as it is.
+    A grouping maps the parameter list (or a list of tensors like it) to
+    its leaves (``leaves``) and a list of leaf-shaped tensors back
+    (``tensors``)."""
+
+    def leaves(self, tensors) -> list[torch.Tensor]:
+        return list(tensors)
+
+    def tensors(self, leaves) -> list[torch.Tensor]:
+        return list(leaves)
+
+
+def _factored_dims(shape) -> tuple[int, int] | None:
+    """optax's ``_factored_dims``: the two largest axes of ``shape``
+    (by ``np.argsort``, so equal sizes keep their order), or None when the
+    leaf has fewer than two axes or the second largest is under 128."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < _AF_MIN_DIM:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _rms(x) -> torch.Tensor:
+    return torch.sqrt(torch.mean(x * x))
+
+
 class Optimizer:
-    """AdamW or SGD-with-momentum over a fixed list of parameters, with
-    optional global-norm clipping and a schedule (see the module
-    docstring). ``count`` is the number of updates made; ``scheduled`` is
-    True when the learning rate depends on it (a schedule other than
-    constant, or warmup), where optax keeps a second step count.
+    """AdamW, SGD with momentum, Lion or Adafactor over a fixed list of
+    parameters, with optional global-norm clipping and a schedule (see the
+    module docstring). ``count`` is the number of updates made;
+    ``scheduled`` is True when the learning rate depends on it (a schedule
+    other than constant, or warmup), where optax keeps a second step count.
 
     Written out rather than built on ``torch.optim.AdamW``: that class
     computes the bias corrections in float64, optax in float32, and the
@@ -92,8 +139,8 @@ class Optimizer:
     def __init__(self, params, *, kind: str, schedule: Callable[[int], float],
                  weight_decay: float = 1e-4, momentum: float = 0.9,
                  grad_clip_norm: float | None = None,
-                 scheduled: bool = False):
-        if kind not in ("adamw", "sgd"):
+                 scheduled: bool = False, leaves: Leaves | None = None):
+        if kind not in KINDS:
             raise ValueError(f"unknown optimizer {kind!r}")
         self.params = list(params)
         self.kind = kind
@@ -102,34 +149,84 @@ class Optimizer:
         self.momentum = momentum
         self.grad_clip_norm = grad_clip_norm
         self.scheduled = scheduled
+        self.leaves = leaves or Leaves()
         self.count = 0
         zeros = lambda: [torch.zeros_like(p) for p in self.params]  # noqa: E731
+        self.mu = self.nu = self.trace = None
+        self.v_row = self.v_col = self.v = None
         if kind == "adamw":
             self.mu, self.nu = zeros(), zeros()
-        else:
+        elif kind == "lion":
+            self.mu = zeros()
+        elif kind == "sgd":
             self.trace = zeros()
+        else:
+            self._init_factored()
+
+    def _init_factored(self) -> None:
+        """Adafactor's zero statistics, one of each a leaf as optax keeps
+        them: ``v_row`` and ``v_col`` the leaf's shape without its
+        column and without its row axis where it is factored, ``v`` its
+        whole shape where it is not, and a (1,) placeholder for the
+        unused ones."""
+        dev = self.params[0].device
+        self.v_row, self.v_col, self.v = [], [], []
+        for leaf in self.leaves.leaves(
+                [torch.empty_like(p, device="meta") for p in self.params]):
+            shape = tuple(leaf.shape)
+            dims = _factored_dims(shape)
+            one = (1,)
+            if dims is None:
+                row, col, full = one, one, shape
+            else:
+                d1, d0 = dims
+                row = tuple(np.delete(shape, d0))
+                col = tuple(np.delete(shape, d1))
+                full = one
+            for out, s in ((self.v_row, row), (self.v_col, col),
+                           (self.v, full)):
+                out.append(torch.zeros(s, dtype=leaf.dtype, device=dev))
 
     def slots(self) -> dict[str, list[torch.Tensor]]:
         """The per-parameter state, named as optax names it: ``mu`` and
-        ``nu`` (adamw) or ``trace`` (sgd), each in parameter order."""
+        ``nu`` (adamw), ``trace`` (sgd) or ``mu`` (lion), each in
+        parameter order; adafactor has none (``leaf_slots``)."""
         if self.kind == "adamw":
             return {"mu": self.mu, "nu": self.nu}
-        return {"trace": self.trace}
+        if self.kind == "lion":
+            return {"mu": self.mu}
+        if self.kind == "sgd":
+            return {"trace": self.trace}
+        return {}
+
+    def leaf_slots(self) -> dict[str, list[torch.Tensor]]:
+        """The per-leaf state (adafactor's ``v_row``, ``v_col`` and ``v``,
+        each in the order of ``leaves``' leaves); empty for the others."""
+        if self.kind != "adafactor":
+            return {}
+        return {"v_row": self.v_row, "v_col": self.v_col, "v": self.v}
 
     @torch.no_grad()
-    def load_slots(self, count: int, slots: dict) -> None:
-        """Set ``count`` and copy ``slots`` (as ``slots()`` returns them,
-        tensors on any device) into the state in place."""
-        mine = self.slots()
-        if set(slots) != set(mine):
-            raise ValueError(f"optimizer slots {sorted(slots)}, this "
-                             f"{self.kind} optimizer has {sorted(mine)}")
-        for name, dst in mine.items():
-            if len(slots[name]) != len(dst):
-                raise ValueError(f"{name}: {len(slots[name])} tensors for "
-                                 f"{len(dst)} parameters")
-            for d, s in zip(dst, slots[name]):
-                d.copy_(s)
+    def load_slots(self, count: int, slots: dict,
+                   leaf_slots: dict | None = None) -> None:
+        """Set ``count`` and copy ``slots`` and ``leaf_slots`` (as
+        ``slots()`` and ``leaf_slots()`` return them, tensors on any
+        device) into the state in place."""
+        leaf_slots = leaf_slots or {}
+        for given, mine, what in ((slots, self.slots(), "parameters"),
+                                  (leaf_slots, self.leaf_slots(), "leaves")):
+            if set(given) != set(mine):
+                raise ValueError(f"optimizer slots {sorted(given)}, this "
+                                 f"{self.kind} optimizer has {sorted(mine)}")
+            for name, dst in mine.items():
+                if len(given[name]) != len(dst):
+                    raise ValueError(f"{name}: {len(given[name])} tensors "
+                                     f"for {len(dst)} {what}")
+                for d, s in zip(dst, given[name]):
+                    if d.shape != s.shape:
+                        raise ValueError(f"{name}: a {tuple(s.shape)} tensor "
+                                         f"for a {tuple(d.shape)} slot")
+                    d.copy_(s)
         self.count = int(count)
 
     @torch.no_grad()
@@ -167,13 +264,63 @@ class Optimizer:
             torch._foreach_add_(
                 updates, torch._foreach_mul(self.params, self.weight_decay))
             torch._foreach_mul_(updates, -lr)
-        else:
+        elif self.kind == "lion":
+            b1, b2 = _LION_B1, _LION_B2
+            # u = sign((1 - b1) g + b1 mu);  mu = (1 - b2) g + b2 mu
+            updates = torch._foreach_mul(grads, 1 - b1)
+            torch._foreach_add_(updates, torch._foreach_mul(self.mu, b1))
+            torch._foreach_sign_(updates)
+            torch._foreach_mul_(self.mu, b2)
+            torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1 - b2))
+            # update = (u + wd p) -lr
+            torch._foreach_add_(
+                updates, torch._foreach_mul(self.params, self.weight_decay))
+            torch._foreach_mul_(updates, -lr)
+        elif self.kind == "sgd":
             # trace = g + momentum trace;  update = -lr trace
             torch._foreach_mul_(self.trace, self.momentum)
             torch._foreach_add_(self.trace, grads)
             updates = torch._foreach_mul(self.trace, -lr)
+        else:
+            updates = self._adafactor(grads, lr, self.count - 1)
         torch._foreach_add_(self.params, updates)
         return updates
+
+    def _adafactor(self, grads, lr: float, count: int) -> list[torch.Tensor]:
+        """optax.adafactor's chain on each leaf: the factored RMS scaling
+        (second moments decayed at 1 - (count + 1)^-0.8, in f32), the
+        block-RMS clip at 1, the learning rate, the parameter block's RMS
+        (at least 1e-3), the weight decay (after the learning rate: not
+        scaled by it; absent when 0), and the sign flip. Returns the
+        per-parameter updates."""
+        decay = np.float32(1) - np.float32(count + 1) ** np.float32(-_AF_DECAY)
+        keep, fresh = float(decay), float(np.float32(1) - decay)
+        wd = self.weight_decay
+        out = []
+        for g, p, v_row, v_col, v in zip(
+                self.leaves.leaves(grads), self.leaves.leaves(self.params),
+                self.v_row, self.v_col, self.v):
+            g2 = g * g + _AF_EPS
+            dims = _factored_dims(tuple(g.shape))
+            if dims is None:
+                v.copy_(v * keep + g2 * fresh)
+                u = g * v.pow(-0.5)
+            else:
+                d1, d0 = dims
+                v_row.copy_(v_row * keep + g2.mean(d0) * fresh)
+                v_col.copy_(v_col * keep + g2.mean(d1) * fresh)
+                row_mean = v_row.mean(d1 - 1 if d1 > d0 else d1,
+                                      keepdim=True)
+                row = (v_row / row_mean).pow(-0.5)
+                u = g * row.unsqueeze(d0) * v_col.pow(-0.5).unsqueeze(d1)
+            u = u / torch.clamp(_rms(u) / _AF_CLIP, min=1.0)
+            u = u * lr
+            rms = _rms(p)
+            u = u * torch.where(rms <= _AF_MIN_SCALE, _AF_MIN_SCALE, rms)
+            if wd:
+                u = u + wd * p
+            out.append(-u)
+        return self.leaves.tensors(out)
 
 
 def make_optimizer(
@@ -188,14 +335,12 @@ def make_optimizer(
     decay_steps: int = 0,
     schedule: str = "constant",
     final_scale: float = 0.1,
+    leaves: Leaves | None = None,
 ) -> Optimizer:
-    """'adamw' | 'sgd' over ``params`` with optional global-norm clipping
-    (before the update) and LR schedule; 'adafactor' and 'lion' are not
-    ported and raise."""
-    if optimizer in ("adafactor", "lion"):
-        raise NotImplementedError(
-            f"optimizer {optimizer!r} is not ported yet: {ROADMAP_TRAINING}"
-        )
+    """'adamw' | 'sgd' | 'lion' | 'adafactor' over ``params`` with
+    optional global-norm clipping (before the update) and LR schedule.
+    ``leaves`` groups the parameters into the leaves Adafactor keeps its
+    statistics for (default: each parameter its own leaf)."""
     if grad_clip_norm is not None and grad_clip_norm <= 0:
         raise ValueError(f"grad_clip_norm must be > 0, got {grad_clip_norm}")
     sched = make_schedule(
@@ -206,6 +351,7 @@ def make_optimizer(
         params, kind=optimizer, schedule=sched, weight_decay=weight_decay,
         momentum=momentum, grad_clip_norm=grad_clip_norm,
         scheduled=not (schedule == "constant" and warmup_steps == 0),
+        leaves=leaves,
     )
 
 

@@ -13,6 +13,11 @@ take GPT token batches (``x``, ``y``: (B, T)) and image batches (``x``
 processes the gradients are averaged over its ``data`` axis before the
 update (one flat all-reduce).
 
+A model that returns auxiliary losses (GPT-2 with MoE blocks:
+``sows_losses``) has their sum added to the task loss of each
+(micro)batch, as the JAX step adds the sown ``losses`` collection; the
+reported loss holds it too.
+
 BatchNorm models (``models/resnet.py``) keep their running statistics as
 module buffers: every ``train=True`` forward moves them, so with
 ``accum_steps > 1`` they move once per microbatch, as the JAX step's scan
@@ -37,7 +42,11 @@ import torch
 
 from tpuflow_torch.dist.mesh import average_gradients
 from tpuflow_torch.models.gpt2 import fold_in
-from tpuflow_torch.models.losses import accuracy, cross_entropy_loss
+from tpuflow_torch.models.losses import (
+    accuracy,
+    cross_entropy_loss,
+    sum_sown_losses,
+)
 from tpuflow_torch.train.optim import Optimizer, health_stats, make_optimizer
 
 
@@ -150,6 +159,15 @@ def make_train_step(
             "diverges the average)"
         )
 
+    def loss_of(model, x, y, rng):
+        """The (micro)batch's loss, with the model's auxiliary losses, and
+        its logits."""
+        if getattr(model, "sows_losses", False):
+            logits, aux = model(x, train=True, rng=rng, losses=True)
+            return loss_fn(logits, y) + sum_sown_losses(aux), logits
+        logits = model(x, train=True, rng=rng)
+        return loss_fn(logits, y), logits
+
     def train_step(state: TrainState, batch, rng: int):
         model, params = state.model, state.params
         batch = _place(batch, params[0].device)
@@ -158,8 +176,7 @@ def make_train_step(
         for p in params:
             p.grad = None
         if accum_steps == 1:
-            logits = model(x, train=True, rng=base)
-            loss = loss_fn(logits, y)
+            loss, logits = loss_of(model, x, y, base)
             loss.backward()
             loss = loss.detach()
             acc = accuracy(logits.detach(), y)
@@ -174,8 +191,8 @@ def make_train_step(
             lsum = asum = 0.0
             for i in range(accum_steps):
                 rows = slice(i * mb, (i + 1) * mb)
-                logits = model(x[rows], train=True, rng=fold_in(base, i))
-                l = loss_fn(logits, y[rows])
+                l, logits = loss_of(model, x[rows], y[rows],
+                                    fold_in(base, i))
                 l.backward()
                 lsum = lsum + l.detach()
                 asum = asum + accuracy(logits.detach(), y[rows])

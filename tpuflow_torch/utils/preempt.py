@@ -7,7 +7,7 @@ process exits with the *requeue* code, which the gang supervisor tells
 apart from a crash: the step reruns without spending its ``@retry``
 budget. The JAX package's training loops read the flag at the next step
 boundary and drain a final checkpoint before they exit; the port's loops
-do not yet (ROADMAP Queue 1 item 12), so a gang member exits with the
+do not yet (ROADMAP Queue 1 item 12c), so a gang member exits with the
 code as soon as the signal lands (``flow/gang_exec.py``).
 """
 
