@@ -141,7 +141,26 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    (medians of interleaved runs), the crossovers written to a tuning file that
    ``resolve_attention_impl`` must read back exactly. Each leg's step
    ms, tokens/s and wall beside the card's name and power limit.
-12. One JSON line with every kernel's numbers (the int8 matmul both as one
+12. GPT-2-medium FSDP (``fsdp_phase``): 24 layers, 1024 wide, 354.8M
+   parameters, trained by two ranks, each a process of its own, sharing
+   the one card over gloo (the mode the probe fixed, ``--gloo-probe``:
+   ``FSDP_BACKEND``), the state sharded over them by the JAX rule;
+   2 epochs of 4 steps at 8 x 1024, f32, flash, full remat, AdamW, a
+   checkpoint each epoch. (a) The flash kernels at a rank's attention
+   shape (4, 1024, 16, 64) against their plain versions with their
+   times; (b) learning, each rank's flash launches exact, the state
+   sharded (each rank about half the parameter and moment bytes), the
+   ranks' metrics bit-equal; step ms, tokens/s, each rank's peak memory,
+   the save GB/s a rank, and the collectives timed alone at a step's
+   volume; (c) the epoch-1 checkpoint's merged manifest on the JAX
+   rule's shards and every shard's crc32, an in-run resume at K = 2 bit
+   for bit (losses, the last step's crc32s), and at K' = 1, one process,
+   every leaf restored bit-equal and the epoch-2 losses within 1e-4
+   relative; (d) the first step's loss and gradients on one device
+   within the step-parity limits of the sharded step's; (e)
+   ``TorchGptTrain`` at 124M as a two-member gang on the card and
+   ``TorchGptEval`` from it at one process, its flash launches exact.
+13. One JSON line with every kernel's numbers (the int8 matmul both as one
    decode step at M = 8 and as the same 49 products at M = 512; the
    training kernels in f32 and bf16, their launches from the f32 legs and
    the bf16 leg, which runs the fused pair, so the bf16 split variants'
@@ -149,6 +168,7 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    wide-head runs the main paths' counters read; ``flow_launches``: the
    flash kernels' launches in the flow phase; ``generation_launches``:
    those of the generation phase; ``recipe_launches``: those of phase 11;
+   ``fsdp_launches``: those of phase 12's leg (b), both ranks';
    the ``_vit`` entries at the
    ViT shape, f32, their launches the ViT leg's), the ``nvidia-smi`` line,
    and as the last line
@@ -165,7 +185,10 @@ DIR), each in a process of its own that builds its kernels, and writes
 them to ``chiprun_out/wide_compare.json``.
 
 ``python3 chip_smoke.py --recipes`` builds the kernels and runs only
-phase 11, into ``chiprun_out/recipes.json``.
+phase 11, into ``chiprun_out/recipes.json``; ``--fsdp`` only phase 12,
+into ``chiprun_out/fsdp.json`` (its ranks are ``--fsdp-rank`` processes
+of this script). ``python3 chip_smoke.py --gloo-probe`` runs only the
+probe that fixed phase 12's mode (``gloo_probe_rank``).
 
 ``python3 chip_smoke.py --ckpt-ab [ORDER]`` runs only the split and resume
 legs, once for each letter of ORDER (default ``ABCCBA``): A as this
@@ -256,9 +279,11 @@ LAUNCH_COUNTERS = (
 CKPT_IO_REPS = 2
 CKPT_WRITE_WIDTHS = (1, 4, 8)
 CKPT_READ_THREADS = (1, 8)
-# torch.profiler traces taken before a trace without the measured
-# function's kernels is fatal.
+# torch.profiler traces taken before one that lacks the measured
+# function's kernels is given up on, and the calls a Timer trace runs
+# before the ones it keeps.
 TRACE_ATTEMPTS = 3
+TRACE_LEAD = 3
 # Head dims the kernels are not instantiated at (96, run zero-padded at
 # 128), the widest instantiation (256) and a wide head (512, the wide-head
 # kernels that contract over D in chunks), at one prefill layer's shape.
@@ -352,6 +377,29 @@ RECIPE_SAMPLE = 32
 CROSSOVER_BHD = (8, 12, 64)
 CROSSOVER_TS = (128, 256, 512, 1024, 2048, 4096)
 CROSSOVER_REPS = 11
+# Phase 12: GPT-2-medium (BASELINE config 5) trained by FSDP_WORLD ranks,
+# its state sharded over them, 2 epochs of 4 steps at 8 x 1024, f32,
+# flash, full remat, AdamW. The mode was fixed by a probe
+# (``--gloo-probe``, ``gloo_probe_rank``; PERF.md §6): gloo carries
+# all_gather_into_tensor and reduce_scatter_tensor on CUDA tensors
+# between two processes on one card (64 MB bit-equal to the host's) and
+# FSDP2 trains over it, while NCCL refuses two ranks of a communicator on
+# one device. So the ranks share card FSDP_CARD over gloo;
+# tests/test_torch_cuda.py runs the same leg over NCCL at one rank a card
+# where there are two cards.
+FSDP_WORLD, FSDP_BACKEND, FSDP_CARD = 2, "gloo", 0
+FSDP_EPOCHS, FSDP_STEPS_PER_EPOCH = 2, 4
+FSDP_STEPS = FSDP_EPOCHS * FSDP_STEPS_PER_EPOCH
+# One rank's attention: 8 / 2 rows of medium's 16 heads of 64 at 1024.
+FSDP_SHAPE = (4, 1024, 16, 64)
+FSDP_RESUME_RTOL = 1e-4  # K' = 1 against K = 2: other reduction orders
+FSDP_COLLECTIVE_REPS = 2
+# (e): the flows at 124M width as a two-member gang on the one card.
+FLOW_FSDP_ARGS = ("--preset", "gpt2", "--seq-len", "1024", "--batch-size",
+                  "8", "--epochs", "2", "--steps-per-epoch", "2",
+                  "--attn-impl", "flash", "--data-axis", "1", "--fsdp-axis",
+                  str(FSDP_WORLD), "--device", f"cuda:{FSDP_CARD}",
+                  "--dist-backend", FSDP_BACKEND)
 
 
 def _smi_line() -> str:
@@ -363,53 +411,89 @@ def _smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def kernel_trace(torch, run, keep=lambda e: True) -> list[dict]:
-    """The CUDA kernels ``run()`` launches that ``keep`` accepts, as
-    chrome-trace events (name, ts and dur in us) from ``torch.profiler``.
-    A trace that holds no such kernel (seen once on the H100 for a short
-    run) is taken again, up to ``TRACE_ATTEMPTS`` times in all; then the
-    device times cannot be read and this raises."""
-    import tempfile
-
+def _trace_once(torch, run) -> list[dict]:
+    """Every CUDA kernel ``run()`` launches, as chrome-trace events (name,
+    ts and dur in us) from one ``torch.profiler`` trace."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    return [e for e in events if e.get("cat") == "kernel"]
+
+
+def kernel_trace(torch, run, keep=lambda e: True,
+                 min_events: int = 1) -> list[dict]:
+    """The CUDA kernels ``run()`` launches that ``keep`` accepts. A trace
+    that holds fewer than ``min_events`` such kernels (the profiler drops
+    some: none, seen once on the H100 for a short run) is taken again, up
+    to ``TRACE_ATTEMPTS`` times in all; then this raises."""
     for attempt in range(TRACE_ATTEMPTS):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        with tempfile.TemporaryDirectory() as d:
-            path = os.path.join(d, "trace.json")
-            prof.export_chrome_trace(path)
-            with open(path) as fh:
-                events = json.load(fh)["traceEvents"]
-        every = [e for e in events if e.get("cat") == "kernel"]
+        every = _trace_once(torch, run)
         kernels = [e for e in every if keep(e)]
-        if kernels:
+        if len(kernels) >= min_events:
             return kernels
         print(f"torch.profiler trace {attempt + 1} of {TRACE_ATTEMPTS} holds "
-              f"{len(every)} CUDA kernels, none of the measured function's; "
-              "tracing again")
-    raise RuntimeError("torch.profiler recorded no CUDA kernel of the "
+              f"{len(every)} CUDA kernels, {len(kernels)} of the measured "
+              f"function's (want {min_events} or more); tracing again")
+    raise RuntimeError("torch.profiler recorded too few CUDA kernels of the "
                        "measured function: the device times cannot be read")
+
+
+def _is_flush(e: dict) -> bool:
+    return "bitwise_not" in e["name"]
+
+
+def call_device_ms(kernels: list[dict]) -> list[float]:
+    """The device ms of each call of a traced ``Timer`` loop that the
+    trace holds whole. A flush kernel opens every call and one closes the
+    loop, so the kernels between two recorded flushes are one call's. The
+    profiler drops events (whole calls at a short trace's start, seen on
+    the H100): a call that lost a kernel, and two calls that lost the
+    flush between them, differ in their kernel count from the most common
+    one, and are left out."""
+    calls, current = [], None
+    for e in sorted(kernels, key=lambda e: e["ts"]):
+        if _is_flush(e):
+            if current:
+                calls.append(current)
+            current = []
+        elif current is not None:
+            current.append(e["dur"])
+    if not calls:
+        return []
+    sizes = [len(c) for c in calls]
+    size = max(set(sizes), key=lambda n: (sizes.count(n), n))
+    return [sum(c) / 1e3 for c in calls if len(c) == size]
 
 
 class Timer:
     """Times of ``fn`` over ``iters`` calls, each after an L2 flush (the
     serving path meets its weights cold: a decode step streams ~124 MB
     between two visits of one layer). Returns ``(device_ms, call_ms)``:
-    the summed duration of the kernels one call launches (profiler trace;
-    the flush kernel excluded), and the CUDA-event time of one call, which
-    also holds the wrapper's host work while the device waits for it."""
+    the mean over the traced calls of the summed duration of the kernels
+    one call launches (profiler trace, ``call_device_ms``; the flush kernel
+    excluded), and the CUDA-event time of one call, which also holds the
+    wrapper's host work while the device waits for it. Where no trace of
+    ``TRACE_ATTEMPTS`` holds half the calls whole, the device ms is the
+    CUDA-event time, and ``event_timed`` counts such times."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
+        self.event_timed = 0
 
     def _calls(self, fn, iters):
         for _ in range(iters):
             self.flush.bitwise_not_()
             fn()
+        self.flush.bitwise_not_()
 
     def __call__(self, fn, iters: int = 20, warmup: int = 3):
         torch = self.torch
@@ -425,9 +509,21 @@ class Timer:
             b.record()
             b.synchronize()
             call += a.elapsed_time(b)
-        kernels = kernel_trace(torch, lambda: self._calls(fn, iters),
-                               keep=lambda e: "bitwise_not" not in e["name"])
-        return sum(e["dur"] for e in kernels) / 1e3 / iters, call / iters
+        call_ms = call / iters
+        # TRACE_LEAD calls more than are kept: a trace loses its first.
+        need = max(1, iters // 2)
+        for attempt in range(TRACE_ATTEMPTS):
+            ms = call_device_ms(_trace_once(
+                torch, lambda: self._calls(fn, TRACE_LEAD + iters)))
+            if len(ms) >= need:
+                return float(np.mean(ms[-iters:])), call_ms
+            print(f"torch.profiler trace {attempt + 1} of {TRACE_ATTEMPTS} "
+                  f"holds {len(ms)} whole calls of {TRACE_LEAD + iters} "
+                  f"(want {need} or more); tracing again")
+        self.event_timed += 1
+        print(f"torch.profiler held too few whole calls in {TRACE_ATTEMPTS} "
+              f"traces: the device ms is the CUDA-event time {call_ms:.4f}")
+        return call_ms, call_ms
 
 
 def _bound_ms(nbytes: float, ops: float, op_type: str):
@@ -456,14 +552,15 @@ def _report(head: str, r: dict) -> None:
           f"{r['library_call_ms']:.4f}")
 
 
-def flash_phase(torch, timer, shapes=FLASH_SHAPES, causal=True):
+def flash_phase(torch, timer, shapes=FLASH_SHAPES, causal=True,
+                dtypes=("float32", "bfloat16")):
     """The no-lse flash forward at ``shapes`` against its plain version
-    and SDPA, f32 and bf16."""
+    and SDPA, in ``dtypes``."""
     from tpuflow_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(1)
     rows = []
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in (getattr(torch, name) for name in dtypes):
         name = str(dt).split(".")[-1]
         atol, rtol = FLASH_TOL[name]
         for B, T, H, D in shapes:
@@ -553,15 +650,15 @@ def _flash_work(B, T, H, D, esize, causal=True) -> dict:
 
 
 def flash_bwd_phase(torch, timer, shapes=FLASH_SHAPES + (TRAIN_SHAPE,),
-                    causal=True):
+                    causal=True, dtypes=("float32", "bfloat16")):
     """The forward with lse, the fused and the split backward pairs against
-    their plain versions at ``shapes``, f32 and bf16, bit-equal over two
+    their plain versions at ``shapes``, in ``dtypes``, bit-equal over two
     runs (the split pair also to the fused one), with their times."""
     from tpuflow_torch.ops import flash_attention as fa
 
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(3)
-    cases = [(dt, shp) for dt in ("float32", "bfloat16") for shp in shapes]
+    cases = [(dt, shp) for dt in dtypes for shp in shapes]
     rows = []
     for name, (B, T, H, D) in cases:
         dt = getattr(torch, name)
@@ -1640,11 +1737,13 @@ def _save_legs(root: str, host: list, nbytes: int, crcs: list) -> dict:
     n_big = sum(s >= raw._POOL_MIN_BYTES for s in sizes)
     manifests = set()
 
+    entries = [(p, t.shape, t.dtype, [([0] * t.dim(), t)]) for p, t in host]
+
     def save(d, pool=None):
         os.makedirs(d)
         taken = pool.taken if pool is not None else 0
         t0 = time.monotonic()
-        raw._write_entries(d, host, policy, pool=pool)
+        raw._write_entries(d, entries, policy, pool=pool)
         dt = time.monotonic() - t0
         if pool is not None and pool.taken - taken != n_big:
             raise AssertionError(
@@ -1824,8 +1923,10 @@ def ckpt_io_phase(torch, smi, cfg) -> dict:
     from tpuflow_torch.train.gpt import init_state
 
     state = init_state(cfg)
-    host = raw._gather_host(checkpoint_tree(
-        state, scan_layers=cfg.model_config().scan_layers))
+    # (path, host copy) of each leaf (one process writes each leaf whole).
+    host = [(names, shards[0][1]) for names, _, _, shards in
+            raw._gather_host(checkpoint_tree(
+                state, scan_layers=cfg.model_config().scan_layers))]
     del state
     torch.cuda.empty_cache()
     bufs = [raw._bytes(t) for _, t in host]
@@ -3505,9 +3606,507 @@ def recipes_phase(torch, smi) -> dict:
     return out
 
 
+def _fsdp_cfg(**kw):
+    from tpuflow_torch.train.gpt import GptTrainConfig
+
+    return GptTrainConfig(
+        preset="medium", seq_len=1024, batch_size=8, epochs=FSDP_EPOCHS,
+        steps_per_epoch=FSDP_STEPS_PER_EPOCH, attn_impl="flash",
+        **{"data_axis": 1, "fsdp_axis": FSDP_WORLD, **kw})
+
+
+def _fsdp_want(cfg, steps: int, epochs: int) -> dict:
+    """Each rank's flash launches for ``steps`` steps and ``epochs``
+    validations of ``cfg`` under full remat."""
+    from tpuflow_torch.data.lm import make_lm_loaders
+
+    mc = cfg.model_config()
+    L = mc.n_layer
+    n_val = len(make_lm_loaders(cfg.batch_size, cfg.steps_per_epoch,
+                                cfg.seq_len, mc.vocab_size)[1])
+    return _launches(flash_fwd_lse=2 * L * steps, flash_bwd_dq=L * steps,
+                     flash_bwd_dkv=L * steps, flash_fwd=L * n_val * epochs)
+
+
+def _first_grads(torch, cfg, mesh=None):
+    """The first batch's loss and gradients of ``cfg``'s fresh model,
+    dropout off and TF32 off, with no update: on one device, or sharded
+    over ``mesh`` (the FSDP step's reductions; process 0 gets the
+    gathered gradients, the others None)."""
+    from tpuflow_torch import dist
+    from tpuflow_torch.data.lm import make_lm_loaders
+    from tpuflow_torch.device import f32_matmul_precision
+    from tpuflow_torch.models.losses import cross_entropy_loss
+    from tpuflow_torch.train.gpt import init_state
+
+    mc = dataclasses.replace(cfg.model_config(), dropout=0.0)
+    loader, _ = make_lm_loaders(cfg.batch_size, cfg.steps_per_epoch,
+                                cfg.seq_len, mc.vocab_size)
+    loader.set_epoch(0)
+    batch = next(iter(loader))
+    state = init_state(cfg, mc, f"cuda:{FSDP_CARD}" if mesh else "cuda",
+                       mesh=mesh)
+    if mesh is not None:
+        batch = dist.shard_batch(batch, mesh)
+    x, y = (torch.as_tensor(batch[k], device="cuda") for k in ("x", "y"))
+    with f32_matmul_precision():
+        loss = cross_entropy_loss(state.model(x, train=True, rng=1), y)
+        loss.backward()
+    torch.cuda.synchronize()
+    named = list(state.model.named_parameters())
+    if mesh is None:
+        return float(loss.detach()), {n: p.grad.cpu() for n, p in named}
+    # The parameters held whole average their gradients as the step does.
+    plan = state.plan
+    grads = plan.local_grads(state.model)
+    whole = [i for i, sh in enumerate(plan.sharded) if not sh]
+    for i, g in zip(whole, dist.average_gradients([grads[i] for i in whole],
+                                                  mesh)):
+        grads[i] = g
+    grads = {n: plan.full(n, g, mesh).cpu()
+             for n, g in zip(plan.names, grads)}
+    loss = float(dist.world_sum(loss.detach().reshape(1))[0]) / FSDP_WORLD
+    del state, named
+    torch.cuda.empty_cache()
+    return loss, grads if dist.process_index() == 0 else None
+
+
+def _collective_ms(torch, n: int) -> dict:
+    """The gloo collectives of one FSDP step at its volume, timed alone:
+    an all-gather of ``n`` f32 elements (a rank's half in, the whole
+    state out) and a reduce-scatter back, on the card."""
+    import torch.distributed as tdist
+
+    world = tdist.get_world_size()
+    full = torch.zeros(n - n % world, device="cuda")
+    part = torch.zeros(full.numel() // world, device="cuda")
+    out = {}
+    for name, fn in (("all_gather", lambda: tdist.all_gather_into_tensor(
+            full, part)), ("reduce_scatter",
+                           lambda: tdist.reduce_scatter_tensor(part, full))):
+        times = []
+        for _ in range(FSDP_COLLECTIVE_REPS):
+            tdist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.monotonic() - t0) * 1e3)
+        out[name + "_ms"] = float(np.median(times))
+    out["bytes"] = full.numel() * 4
+    return out
+
+
+def fsdp_rank(torch, rank: int, port: int, work: str) -> None:
+    """One rank of phase 12 (a process of its own, ``--fsdp-rank``): (b)
+    the FSDP leg, the collectives at its volume, (c) the in-run resume at
+    K = 2, (d) the first step's gradients; its records to
+    ``work/rank<r>.json``."""
+    import faulthandler
+
+    from tpuflow_torch import dist
+    from tpuflow_torch.ops import flash_attention as fa
+    from tpuflow_torch.ops import int8_matmul as im
+    from tpuflow_torch.parallel import has_sharded_leaf
+    from tpuflow_torch.train import gpt as gpt_mod
+
+    faulthandler.enable()
+    dist.initialize("cuda", rank=rank, world_size=FSDP_WORLD,
+                    init_method=f"tcp://localhost:{port}",
+                    backend=FSDP_BACKEND, device_index=FSDP_CARD)
+    cfg = _fsdp_cfg()
+    log = (lambda m: print(f"  {m}", flush=True)) if rank == 0 else (
+        lambda m: None)
+    states = []
+    real_init = gpt_mod.init_state
+
+    def keep(*a, **kw):
+        states.append(real_init(*a, **kw))
+        return states[-1]
+
+    gpt_mod.init_state = keep
+    ckpt = os.path.join(work, "ckpt")
+    # --- (b) the FSDP leg.
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters(fa, im)
+    t0 = time.monotonic()
+    res = gpt_mod.train_gpt(cfg, ckpt_dir=ckpt, log=log,
+                            device=f"cuda:{FSDP_CARD}")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = _counters(fa, im)
+    state = states[-1]
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    out = {"b": dict(
+        launches=launches, step_losses=res.step_losses,
+        loss_history=res.loss_history, epochs=res.metrics_history,
+        step_s=res.step_s, wall_s=wall, saves=res.checkpoint_io["saves"],
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        sharded=has_sharded_leaf(state.plan),
+        local_param_bytes=nbytes(state.params),
+        local_moment_bytes=nbytes(state.tx.mu + state.tx.nu),
+        state_param_bytes=sum(p.numel() * 4 for p in
+                              state.model.parameters()))}
+    n_params = sum(p.numel() for p in state.model.parameters())
+    del state, states[:]
+    torch.cuda.empty_cache()
+    out["collectives"] = _collective_ms(torch, n_params)
+    # --- (c) the in-run resume at K = 2: the directory without its last
+    # step.
+    resume = os.path.join(work, "resume2")
+    if rank == 0:
+        shutil.copytree(ckpt, resume, ignore=shutil.ignore_patterns(
+            ".recycle*", f"step_{FSDP_STEPS}"))
+    dist.barrier()
+    _zero_counters(fa, im)
+    res2 = gpt_mod.train_gpt(cfg, ckpt_dir=resume, log=log,
+                             device=f"cuda:{FSDP_CARD}")
+    torch.cuda.synchronize()
+    out["c"] = dict(launches=_counters(fa, im),
+                    step_losses=res2.step_losses,
+                    restores=res2.checkpoint_io["restores"])
+    states.clear()
+    gpt_mod.init_state = real_init
+    torch.cuda.empty_cache()
+    # --- (d) the first step's gradients, sharded.
+    mesh = dist.make_mesh(f"cuda:{FSDP_CARD}",
+                          {"data": 1, "fsdp": FSDP_WORLD})
+    loss, grads = _first_grads(torch, cfg, mesh)
+    out["d_loss"] = loss
+    if rank == 0:
+        torch.save(grads, os.path.join(work, "fsdp_grads.pt"))
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh, default=float)
+    dist.barrier()
+    dist.shutdown()
+
+
+def gloo_probe_rank(torch, rank: int, port: int) -> None:
+    """One rank of the probe that fixed phase 12's mode (``--gloo-probe``):
+    FSDP_WORLD processes on card FSDP_CARD over one gloo group move 64 MB
+    CUDA tensors by ``all_gather_into_tensor`` and ``reduce_scatter_tensor``
+    (held bit-equal to the same gather and sums on the host), then FSDP2
+    takes a step of a two-layer model over the group; prints one line."""
+    import torch.distributed as tdist
+    from torch.distributed.fsdp import fully_shard
+
+    from tpuflow_torch import dist
+
+    dist.initialize("cuda", rank=rank, world_size=FSDP_WORLD,
+                    init_method=f"tcp://localhost:{port}",
+                    backend=FSDP_BACKEND, device_index=FSDP_CARD)
+    n = (64 << 20) // 4
+    host = [torch.randn(FSDP_WORLD * n,
+                        generator=torch.Generator().manual_seed(r))
+            for r in range(FSDP_WORLD)]
+    full = torch.empty(FSDP_WORLD * n, device="cuda")
+    part = torch.empty(n, device="cuda")
+    out = {"rank": rank}
+    for name, fn, want in (
+            ("all_gather", lambda: tdist.all_gather_into_tensor(
+                full, host[rank][:n].cuda()),
+             lambda: torch.equal(full.cpu(), torch.cat(
+                 [h[:n] for h in host]))),
+            ("reduce_scatter", lambda: tdist.reduce_scatter_tensor(
+                part, host[rank].cuda()),
+             lambda: torch.equal(part.cpu(), sum(host)[rank * n:
+                                                       (rank + 1) * n]))):
+        torch.cuda.synchronize()
+        tdist.barrier()
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        out[name + "_s"] = time.monotonic() - t0
+        out[name + "_equal"] = bool(want())
+    model = torch.nn.Sequential(torch.nn.Linear(256, 512),
+                                torch.nn.Linear(512, 256)).cuda()
+    for layer in model:
+        fully_shard(layer)
+    fully_shard(model)
+    x = torch.randn(8, 256, device="cuda")
+    model(x).square().mean().backward()
+    torch.cuda.synchronize()
+    out["fsdp2_step"] = True
+    print(f"gloo probe {json.dumps(out)}", flush=True)
+    dist.shutdown()
+
+
+def gloo_probe() -> int:
+    """``--gloo-probe``: run FSDP_WORLD ``gloo_probe_rank`` processes."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--gloo-probe-rank", str(r), str(port)])
+             for r in range(FSDP_WORLD)]
+    rcs = [p.wait(timeout=300) for p in procs]
+    print(f"gloo probe ranks exited {rcs}")
+    return max(rcs)
+
+
+def _rule_layout(step_dir: str) -> list:
+    """The leaves of a checkpoint whose shards are not the JAX rule's at
+    FSDP_WORLD (``parallel.fsdp_dim``, the rule on the leaf's shape)."""
+    from tpuflow_torch.parallel import fsdp_dim
+
+    with open(os.path.join(step_dir, "state", "manifest.json")) as fh:
+        manifest = json.load(fh)
+    bad = []
+    for e in manifest["leaves"]:
+        shape = e["shape"]
+        d = fsdp_dim(shape, FSDP_WORLD)
+        want = {(tuple([0] * len(shape)), tuple(shape))}
+        if d is not None:
+            n = shape[d] // FSDP_WORLD
+            want = {(tuple(i * n if j == d else 0 for j in range(len(shape))),
+                     tuple(n if j == d else s for j, s in enumerate(shape)))
+                    for i in range(FSDP_WORLD)}
+        got = {(tuple(s["start"]), tuple(s["shape"])) for s in e["shards"]}
+        if got != want:
+            bad.append("/".join(e["path"]))
+    return bad
+
+
+def fsdp_kernel_rows(torch, timer) -> dict:
+    """Phase 12 (a): the flash kernels at one rank's attention shape, f32
+    (the leg's dtype), against their plain versions, with their times."""
+    return dict(kernels_fwd=flash_phase(torch, timer, (FSDP_SHAPE,),
+                                        dtypes=("float32",)),
+                kernels_bwd=flash_bwd_phase(torch, timer, (FSDP_SHAPE,),
+                                            dtypes=("float32",)))
+
+
+def fsdp_phase(torch, smi, kernel_rows: dict | None = None) -> dict:
+    """Phase 12: GPT-2-medium trained by FSDP_WORLD ranks on card
+    FSDP_CARD over gloo (see FSDP_BACKEND), each a process of its own:
+    (a) the flash kernels at one rank's attention shape against their
+    plain versions (``kernel_rows``: measured already); (b)
+    ``train_gpt`` for 2 epochs of 4 steps with a checkpoint each epoch:
+    it learns, each rank's flash launches are exact, the state is
+    sharded (each rank's parameter and moment bytes about half the
+    state's), the ranks' metrics are bit-equal; (c) the
+    epoch-1 checkpoint's merged manifest is the JAX rule's at the world,
+    every shard's crc32 checks, an in-run resume at K = 2 gives (b)'s
+    epoch-2 losses and last step's crc32s bit for bit, and at K' = 1 (one
+    process) every leaf restores bit-equal to the checkpoint and the
+    epoch-2 losses fall within FSDP_RESUME_RTOL of (b)'s; (d) the first
+    step's loss and gradients on one device within PARITY_LOSS_ATOL and
+    PARITY_GRAD_RTOL of (b)'s sharded step; (e) ``TorchGptTrain`` at 124M
+    as a two-member gang on the card, then ``TorchGptEval`` from it at one
+    process, its flash launches exact."""
+    import socket
+
+    from tpuflow_torch.ckpt import CheckpointManager, raw
+    from tpuflow_torch.ckpt.tree import checkpoint_tree, load_checkpoint_tree
+    from tpuflow_torch.flow import Run, store
+    from tpuflow_torch.flows import gpt_eval_flow, gpt_flow
+    from tpuflow_torch.ops import flash_attention as fa
+    from tpuflow_torch.ops import int8_matmul as im
+    from tpuflow_torch.train.gpt import init_state, train_gpt
+
+    t_phase = time.monotonic()
+    out = {"mode": f"{FSDP_WORLD} ranks on cuda:{FSDP_CARD} over "
+                   f"{FSDP_BACKEND}", "gpu": smi}
+    # --- (a) the kernels at one rank's attention shape (the whole run
+    # measures them with the other kernel phases, before a long run's
+    # profiler traces start dropping events).
+    if kernel_rows is None:
+        kernel_rows = fsdp_kernel_rows(torch, Timer(torch))
+        torch.cuda.empty_cache()
+    out.update(kernel_rows)
+    cfg = _fsdp_cfg()
+    work = tempfile.mkdtemp(prefix="chip_smoke_fsdp_",
+                            dir=os.path.join(REPO, "build"))
+    try:
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            port = sk.getsockname()[1]
+        t0 = time.monotonic()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--fsdp-rank", str(r), str(port), work])
+                 for r in range(FSDP_WORLD)]
+        try:
+            rcs = [p.wait(timeout=900) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(rcs):
+            raise AssertionError(f"phase 12 ranks exited {rcs}")
+        ranks_s = time.monotonic() - t0
+        ranks = []
+        for r in range(FSDP_WORLD):
+            with open(os.path.join(work, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        b = [r["b"] for r in ranks]
+        # (b) learning, launches, sharding, agreement.
+        want_b = _fsdp_want(cfg, FSDP_STEPS, FSDP_EPOCHS)
+        for r, rb in enumerate(b):
+            if rb["launches"] != want_b:
+                raise AssertionError(f"rank {r} launched {rb['launches']}, "
+                                     f"want {want_b}")
+            share = (rb["local_param_bytes"] / rb["state_param_bytes"],
+                     rb["local_moment_bytes"] / rb["state_param_bytes"] / 2)
+            if not rb["sharded"] or not all(0.45 < x < 0.55 for x in share):
+                raise AssertionError(f"rank {r} holds {share} of the "
+                                     "parameters and moments")
+            rb["share"] = share
+        def metrics(rb):  # tokens/s is each rank's own host clock
+            return rb["step_losses"], [(e["train_loss"], e["val_loss"],
+                                        e["ppl"]) for e in rb["epochs"]]
+
+        if any(metrics(rb) != metrics(b[0]) for rb in b[1:]):
+            raise AssertionError("the ranks' metrics differ: "
+                                 f"{[metrics(rb) for rb in b]}")
+        losses, hist = b[0]["step_losses"], b[0]["loss_history"]
+        if not (all(np.isfinite(losses)) and hist[-1] < losses[0]):
+            raise AssertionError(f"FSDP loss did not fall: steps {losses}")
+        step_ms = float(np.median(b[0]["step_s"][1:])) * 1e3
+        out.update(ranks=ranks, ranks_wall_s=ranks_s, step_ms=step_ms,
+                   tokens_per_s=b[0]["epochs"][-1]["tokens_per_s"])
+        coll = ranks[0]["collectives"]
+        print(f"fsdp (b): GPT-2 medium over {out['mode']}, "
+              f"{FSDP_EPOCHS} x {FSDP_STEPS_PER_EPOCH} steps of 8 x 1024, "
+              f"full remat, f32, flash, AdamW: step losses "
+              f"{', '.join(f'{x:.4f}' for x in losses)}; step {step_ms:.1f} "
+              f"ms (median after the cold step), {out['tokens_per_s']} "
+              f"tokens/s; per rank: parameters and moments "
+              f"{b[0]['share'][0]:.3f}/{b[0]['share'][1]:.3f} of the "
+              f"state's, peak memory "
+              f"{[round(rb['peak_memory_bytes'] / 2**30, 2) for rb in b]} "
+              f"GiB, launches {b[0]['launches']}; collectives alone at the "
+              f"step's volume ({coll['bytes'] / 1e9:.2f} GB): all-gather "
+              f"{coll['all_gather_ms']:.0f} ms, reduce-scatter "
+              f"{coll['reduce_scatter_ms']:.0f} ms [{smi}]")
+        for r, rb in enumerate(b):
+            print(f"fsdp (b) rank {r}: {_io_line('saves', rb['saves'])}")
+        # (c) the checkpoint, the resumes.
+        ckpt = os.path.join(work, "ckpt")
+        step_dir = os.path.join(ckpt, f"step_{FSDP_STEPS_PER_EPOCH}")
+        bad = _rule_layout(step_dir)
+        checked, corrupt = raw.verify_dir(os.path.join(step_dir, "state"))
+        if bad or corrupt or not checked:
+            raise AssertionError(f"epoch-1 checkpoint: leaves off the rule "
+                                 f"{bad[:5]}, corrupt shards {corrupt[:5]}")
+        for r, rank in enumerate(ranks):
+            c = rank["c"]
+            want_c = _fsdp_want(cfg, FSDP_STEPS_PER_EPOCH, 1)
+            if c["launches"] != want_c:
+                raise AssertionError(f"rank {r} resume launched "
+                                     f"{c['launches']}, want {want_c}")
+            if c["step_losses"] != losses[FSDP_STEPS_PER_EPOCH:]:
+                raise AssertionError(f"rank {r} K=2 resume losses "
+                                     f"{c['step_losses']}")
+            print(f"fsdp (c) rank {r}: "
+                  f"{_io_line('restores', c['restores'])}")
+        last = f"step_{FSDP_STEPS}"
+        if _shards(os.path.join(work, "resume2", last)) != _shards(
+                os.path.join(ckpt, last)):
+            raise AssertionError("the K=2 resume's last step differs")
+        resume1 = os.path.join(work, "resume1")
+        shutil.copytree(ckpt, resume1, ignore=shutil.ignore_patterns(
+            ".recycle*", last))
+        one = dict(data_axis=1, fsdp_axis=1)
+        state = init_state(_fsdp_cfg(**one), device="cuda",
+                           materialize=False)
+        mgr = CheckpointManager(resume1)
+        mc = cfg.model_config()
+        tmpl = checkpoint_tree(state, scan_layers=mc.scan_layers,
+                               abstract=True)
+        load_checkpoint_tree(state, mgr.restore(abstract_state=tmpl))
+        mgr.close()
+        full = raw.flatten(raw.restore_raw(os.path.join(step_dir, "state")))
+        got = raw.flatten(checkpoint_tree(state, scan_layers=mc.scan_layers))
+        if [p for p, _ in got] != [p for p, _ in full]:
+            raise AssertionError("K'=1 restore: the leaves differ")
+        for (path, a), (_, t) in zip(got, full):
+            if not torch.equal(a.detach().cpu(), t):
+                raise AssertionError(f"K'=1 restore: {'/'.join(path)}")
+        n_leaves = len(full)
+        del state, full, got
+        torch.cuda.empty_cache()
+        _zero_counters(fa, im)
+        res1 = train_gpt(_fsdp_cfg(**one), ckpt_dir=resume1,
+                         log=lambda m: print(f"  {m}"))
+        torch.cuda.synchronize()
+        k1 = res1.step_losses
+        rel = max(abs(a - b_) / abs(b_) for a, b_ in
+                  zip(k1, losses[FSDP_STEPS_PER_EPOCH:]))
+        if len(k1) != FSDP_STEPS_PER_EPOCH or not rel <= FSDP_RESUME_RTOL:
+            raise AssertionError(f"K'=1 resume losses {k1} against "
+                                 f"{losses[FSDP_STEPS_PER_EPOCH:]}")
+        out["resume1"] = dict(step_losses=k1, max_rel=rel, leaves=n_leaves,
+                              restores=res1.checkpoint_io["restores"],
+                              launches=_counters(fa, im))
+        print(f"fsdp (c): epoch-1 checkpoint on the rule at world "
+              f"{FSDP_WORLD}, {checked} shard crc32s checked; K=2 in-run "
+              f"resume bit for bit; K'=1: {n_leaves} leaves bit-equal, "
+              f"epoch-2 losses {', '.join(f'{x:.6f}' for x in k1)} (worst "
+              f"{rel:.2e} relative); "
+              f"{_io_line('restores', res1.checkpoint_io['restores'])} "
+              f"[{smi}]")
+        # (d) one device against the sharded first step.
+        loss1, g1 = _first_grads(torch, cfg)
+        gs = torch.load(os.path.join(work, "fsdp_grads.pt"))
+        loss_err = abs(loss1 - ranks[0]["d_loss"])
+        worst = max(float((g1[n] - gs[n]).abs().max()
+                          / g1[n].abs().max().clamp_min(1e-30)) for n in g1)
+        if not (loss_err <= PARITY_LOSS_ATOL and worst <= PARITY_GRAD_RTOL):
+            raise AssertionError(f"FSDP step against one device: loss "
+                                 f"{loss_err:.2e}, gradients {worst:.2e}")
+        out["parity"] = dict(loss_err=loss_err, grad_rel=worst)
+        print(f"fsdp (d): first step against one device: loss "
+              f"{loss_err:.2e} apart, every gradient within {worst:.2e} of "
+              f"its max |g| [{smi}]")
+        del g1, gs
+        torch.cuda.empty_cache()
+        # (e) the flows.
+        home = os.path.join(work, "home")
+        run = Run(gpt_flow.main(["run", *FLOW_FSDP_ARGS, "--home", home]))
+        meta = run.data.result_checkpoint.metadata
+        if meta.get("process_count") != FSDP_WORLD or not all(
+                np.isfinite(run.data.loss_history)):
+            raise AssertionError(f"TorchGptTrain gang: {meta}, "
+                                 f"{run.data.loss_history}")
+        _zero_counters(fa, im)
+        ge = Run(gpt_eval_flow.main(
+            ["run", "--triggered", "--sample-tokens",
+             str(FLOW_SAMPLE_TOKENS), "--attn-impl", "flash",
+             "--beam-size", str(BEAM_K), "--home", home]))
+        eval_n = _counters(fa, im)
+        mc2 = run.data.model_config
+        from tpuflow_torch.data.lm import lm_test_loader
+
+        n_val = len(lm_test_loader(8, run.data.synthetic_size_used,
+                                   run.data.seq_len_used, mc2["vocab_size"]))
+        want_e = _launches(flash_fwd=mc2["n_layer"] * (n_val + 4))
+        if ge.meta.get("triggered_by") != run.pathspec or eval_n != want_e:
+            raise AssertionError(f"TorchGptEval from the gang: launched "
+                                 f"{eval_n}, want {want_e}; triggered by "
+                                 f"{ge.meta.get('triggered_by')}")
+        out["flows"] = dict(train=run.pathspec, loss_history=
+                            run.data.loss_history, eval_launches=eval_n,
+                            test_loss=ge.data.test_loss)
+        print(f"fsdp (e): TorchGptTrain {' '.join(FLOW_FSDP_ARGS)}: loss "
+              f"history {run.data.loss_history}, checkpoint of "
+              f"{meta['process_count']} processes; TorchGptEval at one "
+              f"process: test loss {ge.data.test_loss:.4f}, launches "
+              f"{eval_n} [{smi}]")
+        store.set_home(None)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["wall_s"] = time.monotonic() - t_phase
+    print(f"phase 12 wall {out['wall_s']:.1f} s [{smi}]")
+    return out
+
+
 def main() -> int:
     import torch
 
+    t_start = time.monotonic()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
@@ -3521,6 +4120,14 @@ def main() -> int:
     sys.path.insert(0, REPO)
     if sys.argv[1:2] == ["--ckpt-ab"]:
         return ckpt_ab(torch, *sys.argv[2:3])
+    if sys.argv[1:2] == ["--fsdp-rank"]:
+        fsdp_rank(torch, int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
+    if sys.argv[1:2] == ["--gloo-probe-rank"]:
+        gloo_probe_rank(torch, int(sys.argv[2]), int(sys.argv[3]))
+        return 0
+    if sys.argv[1:2] == ["--gloo-probe"]:
+        return gloo_probe()
     from tpuflow_torch.device import f32_matmul_precision
     from tpuflow_torch.ops import _build
 
@@ -3535,6 +4142,21 @@ def main() -> int:
                   "w") as fh:
             json.dump(recipes, fh, indent=1, default=float)
         return 0
+    if sys.argv[1:2] == ["--fsdp"]:
+        fsdp = fsdp_phase(torch, smi)
+        os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(REPO, "chiprun_out", "fsdp.json"), "w") as fh:
+            json.dump(fsdp, fh, indent=1, default=float)
+        return 0
+
+    walls = {}
+    lap = [time.monotonic()]
+
+    def wall(name):
+        now = time.monotonic()
+        walls[name] = now - lap[0]
+        lap[0] = now
+        print(f"{name} wall {walls[name]:.1f} s")
 
     timer = Timer(torch)
     flash_rows = flash_phase(torch, timer)
@@ -3543,17 +4165,31 @@ def main() -> int:
     head_rows = head_dim_phase(torch, timer, bwd_rows)
     vit_rows = flash_phase(torch, timer, (VIT_SHAPE,), causal=False)
     vit_bwd_rows = flash_bwd_phase(torch, timer, (VIT_SHAPE,), causal=False)
+    fsdp_rows = fsdp_kernel_rows(torch, timer)
+    event_timed = timer.event_timed
+    print(f"kernel times read from CUDA events, the profiler having held "
+          f"too few whole calls: {event_timed}")
     del timer
+    wall("kernel phases")
     sl, flash_n, int8_n = slice_phase(torch, smi)
+    wall("slice phase")
     gen = generation_phase(torch, smi)
+    wall("generation phase")
     tr, train_n = train_phase(torch, smi)
+    wall("train phase")
     main_path = main_path_phase(torch, smi)
+    wall("main path phase")
     flows = flow_phase(torch, smi)
+    wall("flow phase")
     image = dict(resnet18=resnet18_flow_leg(torch, smi),
                  resnet50=resnet50_leg(torch, smi))
     with f32_matmul_precision():
         image["vit"] = vit_leg(torch, smi)
+    wall("image phase")
     recipes = recipes_phase(torch, smi)
+    wall("recipes phase")
+    fsdp = fsdp_phase(torch, smi, fsdp_rows)
+    wall("fsdp phase")
 
     # One JSON entry per kernel. flash: one launch at the generate() leg's
     # shape (f32, 1 x 512 x 12 x 64). int8: the 49 launches of one int8
@@ -3724,6 +4360,10 @@ def main() -> int:
                              "flash_bwd_dkv"):
             entry["recipe_launches"] = sum(run[entry["name"]]
                                            for run in recipe_runs)
+            # Phase 12's FSDP leg (b), its ranks' launches summed (each
+            # rank's count is checked exactly in the phase).
+            entry["fsdp_launches"] = sum(r["b"]["launches"][entry["name"]]
+                                         for r in fsdp["ranks"])
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(dict(gpu=smi, build_s=build_s, flash=flash_rows,
@@ -3731,11 +4371,13 @@ def main() -> int:
                        head_dims=head_rows, slice=sl, generation=gen,
                        train=tr,
                        main_path=main_path, flows=flows, image=image,
-                       recipes=recipes,
+                       recipes=recipes, fsdp=fsdp,
                        vit_flash=vit_rows, vit_flash_bwd=vit_bwd_rows,
+                       event_timed=event_timed, walls=walls,
                        kernels=kernels),
                   fh,
                   indent=1, default=float)
+    print(f"chip_smoke wall {time.monotonic() - t_start:.1f} s [{smi}]")
     print(json.dumps({"kernels": kernels}, default=float))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,18 @@
 """Flows the port's gang tests run as 2-process gloo gangs
-(``tests/test_torch_flow_gang.py``). A gang member loads this file by
-path, so it imports torch and the port only."""
+(``tests/test_torch_flow_gang.py``), and the worlds of spawned gloo
+processes the FSDP tests run (``spawn_world``, ``tests/test_torch_fsdp_*``).
+A gang member loads this file by path, and a spawned process imports it,
+so it imports torch and the port only."""
 
+import dataclasses
+import multiprocessing as mp
 import os
+import socket
 import sys
 import time
+import traceback
 
+import numpy as np
 import torch
 import torch.distributed as tdist
 
@@ -113,3 +120,174 @@ class RequeueFlow(FlowSpec):
     @step
     def end(self):
         pass
+
+
+# ----------------------------------------------------------------- FSDP
+WORLD_TIMEOUT_S = 240
+
+
+def spawn_world(world: int, task: str, **kwargs) -> list:
+    """Run ``task`` (a function of this module, ``kwargs`` its arguments)
+    in ``world`` spawned processes forming one gloo world on the CPU;
+    returns each rank's result, in rank order. A process that fails
+    raises here with its traceback."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=_world_member,
+                         args=(r, world, port, task, kwargs, out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        got = dict(out.get(timeout=WORLD_TIMEOUT_S) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+    errors = [v for v in got.values() if isinstance(v, str)]
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return [got[r] for r in range(world)]
+
+
+def _world_member(rank, world, port, task, kwargs, out):
+    torch.set_num_threads(1)
+    from tpuflow_torch import dist
+
+    try:
+        if world > 1:
+            dist.initialize("cpu", rank=rank, world_size=world,
+                            init_method=f"tcp://localhost:{port}",
+                            timeout_s=120)
+        out.put((rank, globals()[task](**kwargs)))
+    except BaseException:
+        out.put((rank, f"rank {rank}: {traceback.format_exc()}"))
+    finally:
+        dist.shutdown()
+
+
+def _jax_init(init_npz: str | None, dropout0: bool):
+    """Patch the port's ``train_gpt`` to start from the JAX init stored in
+    ``init_npz`` (flattened Flax params, '/'-joined paths) and, with
+    ``dropout0``, to train without dropout."""
+    from tpuflow_torch.ckpt.raw import unflatten
+    from tpuflow_torch.models.convert import params_from_jax
+    from tpuflow_torch.models.gpt2 import GPT2
+    from tpuflow_torch.train import gpt as tgpt
+
+    if dropout0:
+        real = tgpt.GptTrainConfig.model_config
+        tgpt.GptTrainConfig.model_config = (
+            lambda self: dataclasses.replace(real(self), dropout=0.0))
+    if init_npz is None:
+        return
+    with np.load(init_npz) as z:
+        tree = unflatten((k.split("/"), z[k]) for k in z.files)
+    sd = params_from_jax(tree)
+    real_init = tgpt._init_model
+
+    def init_model(model_cfg, device, seed=0):
+        if seed is None:
+            return real_init(model_cfg, device, seed)
+        m = GPT2(model_cfg, seed=None, device=device)
+        m.load_state_dict(sd)
+        return m
+
+    tgpt._init_model = init_model
+
+
+def fsdp_train(cfg: dict, ckpt_dir=None, init_npz=None, dropout0=True,
+               resume=None, comm_overlap=True, drop_last=False):
+    """``train_gpt`` on this world (``cfg``: ``GptTrainConfig`` fields);
+    ``resume``: a checkpoint directory to restore from (a handle).
+    Returns the losses, the validation losses, the checkpoint records and
+    whether the state was sharded."""
+    from tpuflow_torch.ckpt import Checkpoint
+    from tpuflow_torch.parallel import has_sharded_leaf
+    from tpuflow_torch.train import gpt as tgpt
+
+    _jax_init(init_npz, dropout0)
+    plans = []
+    real_state = tgpt.init_state
+
+    def init_state(*a, **kw):
+        state = real_state(*a, **kw)
+        plans.append(state.plan)
+        return state
+
+    tgpt.init_state = init_state
+    res = tgpt.train_gpt(
+        tgpt.GptTrainConfig(**cfg), ckpt_dir=ckpt_dir,
+        resume_checkpoint=(Checkpoint.from_directory(resume)
+                           if resume else None),
+        device="cpu", log=lambda m: None, comm_overlap=comm_overlap)
+    return {"step_losses": res.step_losses,
+            "loss_history": res.loss_history,
+            "val": [m["val_loss"] for m in res.metrics_history],
+            "sample": res.sample,
+            "io": res.checkpoint_io,
+            "sharded": plans[0] is not None and has_sharded_leaf(plans[0])}
+
+
+def fsdp_resave(cfg: dict, src: str, dst: str, step: int = 1):
+    """Restore the checkpoint directory ``src`` (a step) onto this world's
+    sharded state (``cfg``'s model and optimizer) and save it again into
+    the manager directory ``dst`` as ``step``; returns the bytes this
+    process read and wrote and its local parameter shapes."""
+    from tpuflow_torch import dist
+    from tpuflow_torch.ckpt import CheckpointManager, raw
+    from tpuflow_torch.ckpt.tree import checkpoint_tree, load_checkpoint_tree
+    from tpuflow_torch.train import gpt as tgpt
+
+    tcfg = tgpt.GptTrainConfig(**cfg)
+    mc = tcfg.model_config()
+    mesh = None
+    if dist.process_count() > 1:
+        mesh = dist.make_mesh("cpu", {"data": tcfg.data_axis,
+                                      "fsdp": tcfg.fsdp_axis})
+    state = tgpt.init_state(tcfg, mc, "cpu", materialize=False, mesh=mesh)
+    tmpl = checkpoint_tree(state, scan_layers=mc.scan_layers, abstract=True)
+    stats = {}
+    tree = raw.restore_raw(os.path.join(src, "state"), tmpl, stats=stats)
+    load_checkpoint_tree(state, tree)
+    mgr = CheckpointManager(dst, max_to_keep=None,
+                            multi_process=mesh is not None)
+    mgr.save(step, checkpoint_tree(state, scan_layers=mc.scan_layers))
+    mgr.wait_until_finished()
+    saves = list(mgr.saves)
+    mgr.close()
+    return {"read": stats["bytes"], "wrote": saves[0]["bytes"],
+            "local": [tuple(t.shape) for t in state.params]}
+
+
+def fsdp_local_shards(cfg: dict):
+    """A fresh sharded state of ``cfg`` on this world: each parameter's
+    local part (``ShardPlan.local``) and FSDP's placement of it."""
+    from tpuflow_torch import dist
+    from tpuflow_torch.train import gpt as tgpt
+
+    tcfg = tgpt.GptTrainConfig(**cfg)
+    mesh = dist.make_mesh("cpu", {"data": tcfg.data_axis,
+                                  "fsdp": tcfg.fsdp_axis})
+    state = tgpt.init_state(tcfg, device="cpu", mesh=mesh)
+    return {"index": mesh.index, "dims": state.plan.dims,
+            "local": {n: t.detach().numpy().copy() for n, t in
+                      zip(state.plan.names, state.params)},
+            "moments": [tuple(t.shape) for t in state.tx.mu]}
+
+
+def mesh_layout(axes=None, dcn=None, ici=None, rows: int = 8):
+    """This process's place on a named (or hybrid) mesh and the rows of a
+    global batch of ``rows`` rows that ``shard_batch`` hands it."""
+    from tpuflow_torch import dist
+
+    mesh = (dist.make_hybrid_mesh(dcn, ici, "cpu") if dcn is not None
+            else dist.make_mesh("cpu", axes))
+    got = dist.shard_batch({"x": np.arange(rows)}, mesh)
+    return {"index": mesh.index, "shape": mesh.shape,
+            "coords": list(mesh.device_mesh.get_coordinate()),
+            "rows": got["x"].tolist()}

@@ -34,14 +34,31 @@ on-disk layout::
   ahead of it (``raw.RestoreArena``); ``restore(zero_copy=True)`` maps
   the shard files instead of reading them.
 
-Not here yet (ROADMAP Queue 1 items 6b and 5): multi-process manifest
-fragments, the node-local tier and its upload, ``emergency_save``, the
-Orbax format, and the JAX package's ``obs`` events and fault-injection
-hooks.
+With ``multi_process`` every process of the ``torch.distributed`` world
+saves its own shards of a sharded state (``raw.Piece`` leaves) into the
+same staging directory, each with its manifest fragment, and the commit
+is collective, as the JAX package's multi-host save
+(``tpuflow/ckpt/manager.py:545-554``, ``:844-881``): two barriers around
+process 0's clean-up of a stale step; the files written on each
+process's thread; at the next drain (the next save, a query, a restore,
+``close``) every process's verdict gathered (1 written, 2 failed on a
+classified storage error, 0 failed otherwise), the commit aborted
+everywhere if any failed, else a barrier, process 0 merging the
+fragments, writing the metadata and renaming the step into place, and a
+second barrier before any process reads it. Retention is process 0's
+decision; each process recycles the shard files it wrote into its own
+pool (``.recycle.p<rank>``). Every process therefore sees the same
+committed steps. A data-parallel run whose process 0 alone saves a full
+replica keeps the default (``multi_process`` False).
+
+Not here yet: the node-local tier and its upload, ``emergency_save`` (ROADMAP
+Queue 1 item 12c + 8b), the Orbax format (item 12b-2), and the JAX
+package's ``obs`` events and fault-injection hooks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -49,6 +66,7 @@ import time
 from typing import Any
 
 import torch
+import torch.distributed as tdist
 
 from tpuflow_torch.ckpt import raw
 from tpuflow_torch.ckpt.handle import Checkpoint
@@ -78,6 +96,13 @@ def _downcast(tree, dtype_name: str):
     width = torch.empty((), dtype=target).element_size()
 
     def cast(leaf):
+        if isinstance(leaf, raw.Piece):
+            if leaf.data is None:
+                narrow = (leaf.dtype.is_floating_point and torch.empty(
+                    (), dtype=leaf.dtype).element_size() > width)
+                return raw.Piece(leaf.shape, leaf.start, None,
+                                 target if narrow else leaf.dtype)
+            return raw.Piece(leaf.shape, leaf.start, cast(leaf.data))
         if (isinstance(leaf, torch.Tensor) and leaf.is_floating_point()
                 and leaf.element_size() > width):
             return leaf.to(target)
@@ -86,9 +111,13 @@ def _downcast(tree, dtype_name: str):
     return raw.map_leaves(cast, tree)
 
 
-def _saved_nbytes(leaf: torch.Tensor, dtype_name: str | None) -> int:
+def _saved_nbytes(leaf, dtype_name: str | None) -> int:
     """A leaf's shard bytes as ``save`` writes it (``_downcast``'s widths;
-    ``meta`` tensors count too)."""
+    ``meta`` tensors count too; a ``raw.Piece``'s shard, 0 without one)."""
+    if isinstance(leaf, raw.Piece):
+        if leaf.data is None:
+            return 0
+        leaf = leaf.data
     size = leaf.element_size()
     if dtype_name is not None and leaf.is_floating_point():
         size = min(size, torch.empty(
@@ -101,12 +130,16 @@ class CheckpointManager:
     docstring). ``saves`` and ``restores`` hold one record per committed
     save / finished restore: step, payload bytes and wall seconds (a save
     from ``save()`` entry to its commit, and ``host_copy_s``, the part
-    ``save()`` blocks for)."""
+    ``save()`` blocks for). ``multi_process``: every process of the world
+    saves its shards and commits collectively (see the module docstring);
+    every process must then call the manager's methods at the same
+    points."""
 
     def __init__(self, directory: str, *, max_to_keep: int | None = 2,
                  best_metric: str = "val_loss", best_mode: str = "min",
                  async_save: bool = True, save_dtype: str | None = None,
-                 io_retries: int = 4, io_backoff_s: float = 0.05):
+                 io_retries: int = 4, io_backoff_s: float = 0.05,
+                 multi_process: bool = False):
         if save_dtype is not None and save_dtype not in _SAVE_DTYPES:
             raise ValueError(
                 f"save_dtype must be None, 'bfloat16' or 'float16', got "
@@ -120,15 +153,24 @@ class CheckpointManager:
         self._async = async_save
         self.policy = raw.RetryPolicy(io_retries, io_backoff_s)
         self._saver = raw.AsyncRawSaver(self.policy)
+        up = tdist.is_available() and tdist.is_initialized()
+        self.world = tdist.get_world_size() if up and multi_process else 1
+        self.rank = tdist.get_rank() if self.world > 1 else 0
+        pool_dir = _POOL_DIR + (f".p{self.rank:05d}" if self.world > 1
+                                else "")
         self._pool = raw.RecyclePool(
-            os.path.join(self.directory, _POOL_DIR), policy=self.policy)
+            os.path.join(self.directory, pool_dir), policy=self.policy)
         self._metrics_history: list[dict[str, Any]] = []
         # (step, cleanup) of the save in flight, consumed by
         # wait_until_finished when that save dies on a CheckpointIOError.
         self._pending_fail = None
+        # A multi-process save's commit, run at the next drain.
+        self._pending_commit = None
         self.saves: list[dict] = []
         self.restores: list[dict] = []
-        self._sweep_orphans()
+        if self.rank == 0:
+            self._sweep_orphans()
+        self._barrier()
         # The newest step's metadata embeds the whole history, including
         # steps retention has since deleted.
         steps = self._all_steps()
@@ -144,6 +186,10 @@ class CheckpointManager:
             if step not in seen and meta and "metrics" in meta:
                 self._metrics_history.append({"step": step, **meta["metrics"]})
         self._metrics_history.sort(key=lambda m: m.get("step", 0))
+
+    def _barrier(self) -> None:
+        if self.world > 1:
+            tdist.barrier()
 
     # ------------------------------------------------------------ queries
     def _sweep_orphans(self) -> None:
@@ -225,17 +271,21 @@ class CheckpointManager:
         t0 = time.monotonic()
         final_dir = self._step_dir(step)
         stage_dir = final_dir + _STAGE_SUFFIX
-        # A step saved again first becomes invisible, then is replaced.
-        for d in (final_dir, stage_dir):
-            self._drop_step_dir(d)
-        os.makedirs(stage_dir)
+        # A step saved again first becomes invisible, then is replaced:
+        # process 0's job, fenced so no process writes before it is done.
+        self._barrier()
+        if self.rank == 0:
+            for d in (final_dir, stage_dir):
+                self._drop_step_dir(d)
+        self._barrier()
+        os.makedirs(stage_dir, exist_ok=True)
         metrics = {k: float(v) for k, v in (metrics or {}).items()}
         hist_entry = {"step": step, **metrics}
         self._metrics_history.append(hist_entry)
         meta = {
             "step": step, "metrics": metrics,
             "metrics_history": list(self._metrics_history),
-            "process_count": 1, "device_count": 1,
+            "process_count": self.world, "device_count": self.world,
         }
         if data_state is not None:
             meta["data_state"] = dict(data_state)
@@ -248,48 +298,102 @@ class CheckpointManager:
             # existed.
             if hist_entry in self._metrics_history:
                 self._metrics_history.remove(hist_entry)
-            shutil.rmtree(stage_dir, ignore_errors=True)
+            if self.rank == 0:
+                shutil.rmtree(stage_dir, ignore_errors=True)
 
         self._pending_fail = (step, fail_cleanup)
         taken = self._pool.taken
+        state_dir = os.path.join(stage_dir, _STATE_DIR)
+        written: dict = {}
 
-        def commit(nbytes: int) -> None:
+        def record(nbytes: int) -> None:
+            # This process's shards are on disk.
+            dur = time.monotonic() - t0
+            written.update({"step": step, "bytes": nbytes, "seconds": dur,
+                            "gbps": nbytes / dur / 1e9 if dur else 0.0,
+                            "host_copy_s": self._saver.gather_s,
+                            "recycled": self._pool.taken - taken})
+
+        def commit() -> None:
             # Marker inside the staging dir, then one rename publishes the
             # payload and the metadata together; retention runs after.
-            marker = os.path.join(stage_dir, _META_FILE)
-            raw.retry_io(lambda: _atomic_write_json(marker, meta),
-                         op="write_meta", path=marker,
-                         retries=self.policy.retries,
-                         backoff_s=self.policy.backoff_s)
-            raw.retry_io(lambda: os.replace(stage_dir, final_dir),
-                         op="commit", path=final_dir,
-                         retries=self.policy.retries,
-                         backoff_s=self.policy.backoff_s)
-            dur = time.monotonic() - t0
-            self.saves.append({"step": step, "bytes": nbytes, "seconds": dur,
-                               "gbps": nbytes / dur / 1e9 if dur else 0.0,
-                               "host_copy_s": self._saver.gather_s,
-                               "recycled": self._pool.taken - taken})
-            self._retain()
+            if self.rank == 0:
+                if self.world > 1:
+                    raw.merge_manifests(state_dir, policy=self.policy)
+                marker = os.path.join(stage_dir, _META_FILE)
+                raw.retry_io(lambda: _atomic_write_json(marker, meta),
+                             op="write_meta", path=marker,
+                             retries=self.policy.retries,
+                             backoff_s=self.policy.backoff_s)
+                raw.retry_io(lambda: os.replace(stage_dir, final_dir),
+                             op="commit", path=final_dir,
+                             retries=self.policy.retries,
+                             backoff_s=self.policy.backoff_s)
+            self.saves.append(dict(written))
 
-        self._saver.save(os.path.join(stage_dir, _STATE_DIR), state,
-                         pool=self._pool, on_commit=commit)
+        if self.world > 1:
+            # The commit needs every process: it runs at the next drain,
+            # on the main thread (wait_until_finished).
+            self._saver.save(state_dir, state, pool=self._pool,
+                             on_commit=record, process_count=self.world,
+                             process_index=self.rank)
+            self._pending_commit = commit
+        else:
+            def commit_now(nbytes: int) -> None:
+                record(nbytes)
+                commit()
+                self._retain()
+
+            self._saver.save(state_dir, state, pool=self._pool,
+                             on_commit=commit_now)
         if not self._async:
             self.wait_until_finished()
         return Checkpoint(path=final_dir, metadata=meta)
 
     def _retain(self) -> None:
-        """Keep the newest ``max_to_keep`` steps plus the best step."""
+        """Keep the newest ``max_to_keep`` steps plus the best step. With
+        several processes (a collective): process 0 decides and makes the
+        doomed steps invisible, each process recycles the shard files its
+        manifest fragment lists, then process 0 deletes the rest."""
         if self.max_to_keep is None:
             return
-        steps = self._all_steps()
-        keep = set(steps[-self.max_to_keep:]) if self.max_to_keep else set()
-        best = self._best_step()
-        if best is not None:
-            keep.add(best)
-        for s in steps:
-            if s not in keep:
+        doomed = None
+        if self.rank == 0:
+            steps = self._all_steps()
+            keep = (set(steps[-self.max_to_keep:]) if self.max_to_keep
+                    else set())
+            best = self._best_step()
+            if best is not None:
+                keep.add(best)
+            doomed = [s for s in steps if s not in keep]
+        if self.world == 1:
+            for s in doomed:
                 self._drop_step_dir(self._step_dir(s))
+            return
+        box = [doomed]
+        tdist.broadcast_object_list(box, src=0)
+        doomed = box[0]
+        if not doomed:
+            return
+        if self.rank == 0:
+            for s in doomed:
+                with contextlib.suppress(OSError):
+                    os.unlink(os.path.join(self._step_dir(s), _META_FILE))
+        self._barrier()
+        for s in doomed:
+            state_dir = os.path.join(self._step_dir(s), _STATE_DIR)
+            frag = os.path.join(state_dir, f"manifest.p{self.rank:05d}.json")
+            try:
+                with open(frag) as f:
+                    leaves = json.load(f)["leaves"]
+            except (OSError, ValueError):
+                continue
+            self._pool.adopt_files(os.path.join(state_dir, sh["file"])
+                                   for e in leaves for sh in e["shards"])
+        self._barrier()
+        if self.rank == 0:
+            for s in doomed:
+                shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     def prewarm(self, state) -> None:
         """Create pool files, in the background, for the saves of
@@ -305,7 +409,8 @@ class CheckpointManager:
         if not raw._fs_is_memory_backed(self.directory):
             return
         sizes = [_saved_nbytes(leaf, self.save_dtype)
-                 for _, leaf in raw.flatten(state)]
+                 for _, leaf in raw.flatten(state)
+                 if self.rank == 0 or isinstance(leaf, raw.Piece)]
         steps = (self.max_to_keep or 1) + (2 if self.best_metric else 1)
         self._pool.prewarm(sizes * steps)
 
@@ -313,20 +418,48 @@ class CheckpointManager:
         self._pool.prewarm_wait()
 
     def wait_until_finished(self) -> None:
-        """Drain the save in flight. A save that died on a
+        """Drain the save in flight (and, with several processes, commit
+        it: see the module docstring). A save that died on a
         ``CheckpointIOError`` fails that step's save only (its staging is
         removed, its history entry dropped, a line printed); any other
         error propagates."""
+        pending, self._pending_commit = self._pending_commit, None
         pending_fail, self._pending_fail = self._pending_fail, None
+        err = None
         try:
             self._saver.wait()
-        except raw.CheckpointIOError as e:
+        except BaseException as e:  # judged below, with the peers' verdicts
+            err = e
+        soft = isinstance(err, raw.CheckpointIOError)
+        if pending is not None:
+            # Every process's verdict before the commit barrier, so one
+            # failed writer aborts the commit everywhere instead of its
+            # peers waiting in the barrier until the collective timeout.
+            codes = [None] * self.world
+            tdist.all_gather_object(
+                codes, 1 if err is None else (2 if soft else 0))
+            if 0 in codes:
+                if err is not None and not soft:
+                    raise err
+                raise RuntimeError("checkpoint shard write failed on a "
+                                   "peer process; commit aborted on all "
+                                   "processes")
+            if 2 not in codes:
+                self._barrier()
+                pending()
+                # No process reads the step before process 0 published it.
+                self._barrier()
+                self._retain()
+                return
+        if err is not None and not soft:
+            raise err
+        if err is not None or (pending is not None and 2 in codes):
             if pending_fail is not None:
                 pending_fail[1]()
             step = pending_fail[0] if pending_fail else None
             print(f"[tpuflow_torch] checkpoint save for step {step} failed "
                   f"after retries; training continues on the previous "
-                  f"committed step: {e}")
+                  f"committed step: {err or 'a peer process failed'}")
 
     def close(self) -> None:
         self.wait_until_finished()
@@ -354,18 +487,24 @@ class CheckpointManager:
         return chosen
 
     def prewarm_restore(self, step: int | None = None, *, best: bool = False,
-                        background: bool = True,
-                        pinned: bool = False) -> None:
+                        background: bool = True, pinned: bool = False,
+                        template=None) -> None:
         """Back the destination buffers of a later ``restore`` of ``step``
         (``raw.RestoreArena``; ``pinned``: page-locked, needs CUDA), on a
         background thread unless ``background`` is off. Call as soon as
         the step is known, before the work that precedes the restore. One
         restore per prewarm. A restore that will cast (a ``save_dtype``
         checkpoint into a wider template) takes none of the buffers: do
-        not prewarm it. No step to restore: nothing."""
+        not prewarm it. ``template``: the restore's, whose leaves (a
+        sharded state's regions) set the buffers' sizes. No step to
+        restore: nothing."""
         try:
             chosen = self._resolve_step(step, best)
         except FileNotFoundError:
+            return
+        if template is not None:
+            raw._ARENA.prewarm(region_sizes(template), background=background,
+                               pinned=pinned)
             return
         _prewarm_state_dir(os.path.join(self._step_dir(chosen), _STATE_DIR),
                            background=background, pinned=pinned)
@@ -389,25 +528,36 @@ class CheckpointManager:
         while True:
             state_dir = os.path.join(self._step_dir(chosen), _STATE_DIR)
             t0 = time.monotonic()
+            stats: dict = {}
+            corrupt = None
             try:
                 with raw._RESTORE_LOCK:  # no other restore's takes counted
                     taken = raw._ARENA.taken
                     out = raw.restore_raw(
                         state_dir, abstract_state,
                         subtree=("params",) if weights_only else None,
-                        policy=self.policy, zero_copy=zero_copy)
+                        policy=self.policy, zero_copy=zero_copy, stats=stats)
                     taken = raw._ARENA.taken - taken
             except raw.CorruptShardError as e:
+                corrupt = e
+            if self.world > 1:
+                # Each process read other files: fall back together.
+                flags = [None] * self.world
+                tdist.all_gather_object(flags, corrupt is not None)
+                if any(flags) and corrupt is None:
+                    corrupt = raw.CorruptShardError(
+                        f"step {chosen}: a peer process read a corrupt "
+                        "shard")
+            if corrupt is not None:
                 prev = [s for s in self._all_steps() if s < chosen]
                 if not prev:
-                    raise
+                    raise corrupt
                 print(f"[tpuflow_torch] checkpoint step {chosen} corrupt "
-                      f"({e}); falling back to step {prev[-1]}")
+                      f"({corrupt}); falling back to step {prev[-1]}")
                 chosen = prev[-1]
                 continue
             dur = time.monotonic() - t0
-            nbytes = raw.payload_bytes(
-                state_dir, ("params",) if weights_only else None)
+            nbytes = stats["bytes"]
             self.restores.append({
                 "step": chosen, "bytes": nbytes, "seconds": dur,
                 "gbps": nbytes / dur / 1e9 if dur else 0.0,
@@ -437,6 +587,16 @@ class CheckpointManager:
         chosen = self._resolve_step(step, best)
         return Checkpoint(path=self._step_dir(chosen),
                           metadata=self._read_meta(chosen) or {})
+
+
+def region_sizes(template) -> list[int]:
+    """The bytes of each buffer a restore into ``template`` takes from the
+    arena: a ``raw.Piece``'s region, a plain leaf whole."""
+    out = []
+    for _, leaf in raw.flatten(template):
+        t = leaf.data if isinstance(leaf, raw.Piece) else leaf
+        out.append(t.numel() * t.element_size())
+    return out
 
 
 def _prewarm_state_dir(state_dir: str, *,

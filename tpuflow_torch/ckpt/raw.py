@@ -16,8 +16,21 @@ shard's crc32 verified when it is read back. A JAX checkpoint of the same
 state therefore has the same manifest, leaf for leaf, and either package
 restores the other's.
 
-The port runs in one process and keeps each leaf whole: one shard per
-leaf, ``process_count`` 1. The speed machinery is the JAX package's:
+A process of a one-process run writes each leaf whole, as one shard,
+with ``process_count`` 1. With several processes (the port's FSDP, one
+process per card) each writes the shards it owns (``Piece``: a leaf's
+global shape, the start of the shard and its data; a leaf held whole by
+every process is written by process 0, the JAX package's replica 0) and
+its own ``manifest.p<rank>.json`` fragment listing them, with the world
+as ``process_count``; ``merge_manifests`` unions the fragments into
+``manifest.json`` once every process has written, polling briefly for
+fragments that storage has not shown yet and failing loudly when some
+never appear. A restore reads any layout onto any process count: a
+template ``Piece`` names the region this process holds, and only the
+shard files that overlap it are read (each whole, its crc32 checked)
+and their overlaps copied into place.
+
+The speed machinery is the JAX package's:
 - a save writes its files on a thread pool, each task computing its
   file's crc32; a ``RecyclePool`` hands retired shard files back to later
   saves, which overwrite them in place, and ``prewarm`` creates such
@@ -26,10 +39,9 @@ leaf, ``process_count`` 1. The speed machinery is the JAX package's:
   the task, into buffers a ``RestoreArena`` backed ahead of time (page
   locked on request, so the copy onto the card is a DMA), or maps the
   files (``zero_copy``), guarded against recycling by an inode registry.
-Not here yet (ROADMAP Queue 1 item 6b): multi-process manifest fragments
-and ``merge_manifests``. The JAX package writes and reads through a
-striped threaded C++ library; a copy of it was no faster than plain file
-calls on the H100 machine's host disk (PERF.md), so the port has none.
+The JAX package writes and reads through a striped threaded C++ library;
+a copy of it was no faster than plain file calls on the H100 machine's
+host disk (PERF.md), so the port has none.
 """
 
 from __future__ import annotations
@@ -64,6 +76,28 @@ _DTYPE_STR = {
     torch.bool: "|b1",
 }
 _STR_DTYPE = {v: k for k, v in _DTYPE_STR.items()}
+
+
+@dataclasses.dataclass
+class Piece:
+    """One process's part of a leaf that several processes share: the
+    leaf's global ``shape``, the ``start`` of the part and its ``data``.
+    In a save tree the part is the shard this process writes (``data``
+    None: it writes none of the leaf, ``dtype`` then names the leaf's); in
+    a restore template it is the region this process reads (``data`` a
+    tensor of the region's extent, ``meta`` will do), and the restore
+    returns that region as a tensor."""
+
+    shape: tuple
+    start: list
+    data: Any
+    dtype: Any = None
+
+    def __post_init__(self):
+        self.shape = tuple(int(n) for n in self.shape)
+        self.start = [int(n) for n in self.start]
+        if self.data is not None:
+            self.dtype = self.data.dtype
 
 
 class CorruptShardError(RuntimeError):
@@ -225,8 +259,22 @@ def _bytes(t: torch.Tensor) -> np.ndarray:
     return t.reshape(-1).view(torch.uint8).numpy()
 
 
-def _gather_host(tree) -> list[tuple[list[str], torch.Tensor]]:
-    return [(names, _to_host(leaf)) for names, leaf in flatten(tree)]
+def _gather_host(tree, owner: bool = True
+                 ) -> list[tuple[list[str], tuple, torch.dtype, list]]:
+    """(path, global shape, dtype, [(start, host copy)]) per leaf: a
+    ``Piece``'s one shard (none when it has no data), a plain tensor whole
+    when this process is the ``owner`` of the leaves every process
+    holds."""
+    out = []
+    for names, leaf in flatten(tree):
+        if isinstance(leaf, Piece):
+            shards = ([] if leaf.data is None
+                      else [(list(leaf.start), _to_host(leaf.data))])
+            out.append((names, leaf.shape, leaf.dtype, shards))
+        else:
+            shards = [([0] * leaf.dim(), _to_host(leaf))] if owner else []
+            out.append((names, tuple(leaf.shape), leaf.dtype, shards))
+    return out
 
 
 # ------------------------------------------------------------ file calls
@@ -383,28 +431,34 @@ class RecyclePool:
             os.unlink(os.path.join(step_dir, "metadata.json"))
         except OSError:
             pass
-        for root, _, names in os.walk(step_dir):
-            for name in names:
-                src = os.path.join(root, name)
-                # An aliased inode backs a live zero-copy restore: rmtree
-                # below unlinks it instead of pooling it.
-                if not name.endswith(".bin") or _is_aliased(src):
-                    continue
+        self.adopt_files(os.path.join(root, name)
+                         for root, _, names in os.walk(step_dir)
+                         for name in names if name.endswith(".bin"))
+        shutil.rmtree(step_dir, ignore_errors=True)
+
+    def adopt_files(self, paths) -> None:
+        """Rename each of ``paths`` of 64 KiB or more into the pool (a
+        multi-process save's retention: each process adopts the shard
+        files it wrote)."""
+        for src in paths:
+            # An aliased inode backs a live zero-copy restore: its step's
+            # deletion unlinks it instead of pooling it.
+            if _is_aliased(src):
+                continue
+            try:
+                size = os.path.getsize(src)
+            except OSError:
+                continue
+            if size < _POOL_MIN_BYTES:
+                continue
+            os.makedirs(self.directory, exist_ok=True)
+            with self._lock:
+                dst = self._next_path()
                 try:
-                    size = os.path.getsize(src)
+                    os.rename(src, dst)
                 except OSError:
                     continue
-                if size < _POOL_MIN_BYTES:
-                    continue
-                os.makedirs(self.directory, exist_ok=True)
-                with self._lock:
-                    dst = self._next_path()
-                    try:
-                        os.rename(src, dst)
-                    except OSError:
-                        continue
-                    self._files.setdefault(size, []).append(dst)
-        shutil.rmtree(step_dir, ignore_errors=True)
+                self._files.setdefault(size, []).append(dst)
 
     def take(self, nbytes: int) -> str | None:
         """Pop a pooled file of ``nbytes`` (else the smallest larger one;
@@ -743,48 +797,121 @@ def _fs_is_memory_backed(path: str) -> bool:
 
 def _write_entries(directory: str, host_leaves, policy: RetryPolicy, *,
                    pool: RecyclePool | None = None,
-                   workers: int | None = None) -> int:
-    """Write every leaf as one shard file plus the manifest; returns the
-    payload bytes. The files go through a thread pool of ``workers``
-    (default: 1 on tmpfs, where each write is a memcpy, else 4, so one
-    file's fsync overlaps the next file's copy; the JAX package's
-    ``TPUFLOW_WRITE_CONCURRENCY``), each task writing its file (over a
-    ``pool`` file where one fits) and computing its crc32. The manifest is
-    assembled after the tasks, in leaf order."""
-    manifest = {"format": FORMAT_NAME, "process_count": 1, "leaves": []}
-    jobs = []
-    for i, (names, t) in enumerate(host_leaves):
-        coord = "x".join("0" * t.dim()) or "0"
-        fname = f"leaf_{i:05d}_{coord}.bin"
-        jobs.append((fname, _bytes(t)))
-        manifest["leaves"].append({
-            "path": names, "shape": list(t.shape),
-            "dtype": dtype_str(t.dtype),
-            "shards": [{"file": fname, "start": [0] * t.dim(),
-                        "shape": list(t.shape), "crc32": None}],
-        })
+                   workers: int | None = None, process_count: int = 1,
+                   process_index: int = 0) -> int:
+    """Write this process's shards (``_gather_host``'s entries) and its
+    manifest; returns the payload bytes it wrote. The files go through a
+    thread pool of ``workers`` (default: 1 on tmpfs, where each write is a
+    memcpy, else 4, so one file's fsync overlaps the next file's copy; the
+    JAX package's ``TPUFLOW_WRITE_CONCURRENCY``), each task writing its
+    file (over a ``pool`` file where one fits) and computing its crc32.
+    The manifest is assembled after the tasks, in leaf order: with one
+    process the unified ``manifest.json``, with several this process's
+    fragment ``manifest.p<index>.json``, which ``merge_manifests`` joins
+    (the shards' start coordinates name their files, so no two processes
+    write one file)."""
+    manifest = {"format": FORMAT_NAME, "process_count": process_count,
+                "leaves": []}
+    jobs, records = [], []
+    for i, (names, shape, dtype, shards) in enumerate(host_leaves):
+        entry = {"path": names, "shape": list(shape),
+                 "dtype": dtype_str(dtype), "shards": []}
+        for start, t in shards:
+            fname = f"leaf_{i:05d}_{'x'.join(map(str, start)) or '0'}.bin"
+            jobs.append((fname, _bytes(t)))
+            record = {"file": fname, "start": list(start),
+                      "shape": list(t.shape), "crc32": None}
+            entry["shards"].append(record)
+            records.append(record)
+        manifest["leaves"].append(entry)
     if workers is None:
         workers = 1 if _fs_is_memory_backed(directory) else 4
-    with ThreadPoolExecutor(max_workers=max(1, min(workers, len(jobs)))) as ex:
-        futures = [ex.submit(_write_one, directory, f, b, pool, policy)
-                   for f, b in jobs]
-        for entry, fut in zip(manifest["leaves"], futures):
-            entry["shards"][0]["crc32"] = fut.result()  # first error raises
-    unified = os.path.join(directory, MANIFEST)
+    if jobs:
+        with ThreadPoolExecutor(
+                max_workers=max(1, min(workers, len(jobs)))) as ex:
+            futures = [ex.submit(_write_one, directory, f, b, pool, policy)
+                       for f, b in jobs]
+            for record, fut in zip(records, futures):
+                record["crc32"] = fut.result()  # the first error raises
+    if process_count > 1:
+        path = os.path.join(directory, f"manifest.p{process_index:05d}.json")
 
-    def write_manifest():
-        with open(unified, "w") as f:
-            json.dump(manifest, f)
+        def write_manifest():
+            with open(path + ".tmp", "w") as f:
+                json.dump(manifest, f)
+            os.replace(path + ".tmp", path)
+    else:
+        path = os.path.join(directory, MANIFEST)
 
-    _retry(policy, write_manifest, "write_manifest", unified)
+        def write_manifest():
+            with open(path, "w") as f:
+                json.dump(manifest, f)
+
+    _retry(policy, write_manifest, "write_manifest", path)
     return sum(b.nbytes for _, b in jobs)
 
 
+def merge_manifests(directory: str, *, visibility_timeout_s: float = 10.0,
+                    policy: RetryPolicy = RetryPolicy()) -> None:
+    """Union the manifest fragments of a multi-process save into
+    ``manifest.json`` (process 0, after every process has written its
+    shards). The fragments agree on the leaves; their shard lists are
+    disjoint. Fewer fragments than the save's ``process_count`` would
+    leave regions of the restored leaves unwritten, but every writer has
+    reported success by then, so a shortfall is storage that has not
+    shown a file yet: poll for the full set for ``visibility_timeout_s``
+    before failing loudly (the JAX package's ``merge_manifests``)."""
+    deadline = time.monotonic() + visibility_timeout_s
+    while True:
+        names = sorted(n for n in os.listdir(directory)
+                       if n.startswith("manifest.p") and n.endswith(".json"))
+        expected = None
+        if names:
+            with open(os.path.join(directory, names[0])) as f:
+                expected = int(json.load(f).get("process_count",
+                                                len(names)))
+            if len(names) >= expected:
+                break
+        if time.monotonic() >= deadline:
+            if not names:
+                raise FileNotFoundError(
+                    f"no manifest fragments in {directory}")
+            raise FileNotFoundError(
+                f"{directory} has {len(names)} manifest fragments but the "
+                f"save ran on {expected} processes; the step is incomplete "
+                "on this storage (lagging sync or failed writer)")
+        time.sleep(0.05)
+    merged = None
+    for name in names:
+        with open(os.path.join(directory, name)) as f:
+            frag = json.load(f)
+        if merged is None:
+            merged = frag
+            continue
+        for entry, add in zip(merged["leaves"], frag["leaves"]):
+            entry["shards"].extend(add["shards"])
+    path = os.path.join(directory, MANIFEST)
+
+    def write_merged():
+        with open(path + ".tmp", "w") as f:
+            json.dump(merged, f)
+        os.replace(path + ".tmp", path)
+
+    _retry(policy, write_merged, "write_manifest", path)
+
+
 def save_raw(directory: str, tree, *, policy: RetryPolicy = RetryPolicy(),
-             pool: RecyclePool | None = None) -> int:
-    """Write ``tree`` synchronously; returns the payload bytes."""
+             pool: RecyclePool | None = None, process_count: int = 1,
+             process_index: int = 0) -> int:
+    """Write ``tree`` synchronously; returns the payload bytes this
+    process wrote. With ``process_count`` > 1 every process calls it on
+    its own tree (``Piece``s for the shared leaves) and process 0 then
+    calls ``merge_manifests``."""
     os.makedirs(directory, exist_ok=True)
-    return _write_entries(directory, _gather_host(tree), policy, pool=pool)
+    return _write_entries(directory,
+                          _gather_host(tree, owner=process_index == 0),
+                          policy, pool=pool, process_count=process_count,
+                          process_index=process_index)
 
 
 class AsyncRawSaver:
@@ -798,21 +925,26 @@ class AsyncRawSaver:
     def __init__(self, policy: RetryPolicy = RetryPolicy()):
         self.policy = policy
         self.gather_s = 0.0
+        self.nbytes = 0  # the last save's payload bytes, once written
         self._thread: threading.Thread | None = None
         self._error: list[BaseException] = []
 
     def save(self, directory: str, tree, *, pool: RecyclePool | None = None,
-             on_commit=None) -> None:
+             on_commit=None, process_count: int = 1,
+             process_index: int = 0) -> None:
         self.wait()
         os.makedirs(directory, exist_ok=True)
         t0 = time.monotonic()
-        host_leaves = _gather_host(tree)
+        host_leaves = _gather_host(tree, owner=process_index == 0)
         self.gather_s = time.monotonic() - t0
+        self.nbytes = 0
 
         def write():
             try:
-                nbytes = _write_entries(directory, host_leaves, self.policy,
-                                        pool=pool)
+                nbytes = _write_entries(
+                    directory, host_leaves, self.policy, pool=pool,
+                    process_count=process_count, process_index=process_index)
+                self.nbytes = nbytes
                 if on_commit is not None:
                     on_commit(nbytes)
             except BaseException as e:  # surfaced by the next wait()
@@ -957,15 +1089,27 @@ def _read_shard(directory: str, shard: dict, dtype: torch.dtype,
     return t.view(dtype).reshape(shard["shape"])
 
 
-def _read_into(full: torch.Tensor, directory: str, shard: dict,
-               policy: RetryPolicy, verify: bool) -> None:
-    """Copy one shard of a leaf saved in several shards into its place in
-    ``full``. The copy makes the data private, so the shard is mapped
-    without registration."""
-    idx = tuple(slice(s, s + n)
-                for s, n in zip(shard["start"], shard["shape"]))
-    full[idx] = _read_shard(directory, shard, full.dtype, policy, mmap=True,
-                            escapes=False, verify=verify)
+def _read_into(buf: torch.Tensor, origin, directory: str, shard: dict,
+               policy: RetryPolicy, verify: bool) -> int:
+    """Copy the part of one shard file that falls in ``buf`` (the region of
+    the leaf starting at ``origin``) into place; returns the file's bytes.
+    The whole file is read (mapped) so its crc32 can be checked; the copy
+    makes the data private, so the mapping needs no registration."""
+    src = _read_shard(directory, shard, buf.dtype, policy, mmap=True,
+                      escapes=False, verify=verify)
+    dst_idx, src_idx = [], []
+    for o, n, s0, sn in zip(origin, buf.shape, shard["start"],
+                            shard["shape"]):
+        lo, hi = max(o, s0), min(o + n, s0 + sn)
+        dst_idx.append(slice(lo - o, hi - o))
+        src_idx.append(slice(lo - s0, hi - s0))
+    buf[tuple(dst_idx)] = src[tuple(src_idx)]
+    return src.numel() * src.element_size()
+
+
+def _overlaps(origin, extent, shard: dict) -> bool:
+    return all(max(o, s0) < min(o + n, s0 + sn) for o, n, s0, sn in
+               zip(origin, extent, shard["start"], shard["shape"]))
 
 
 def _leaf_buffer(shape, dtype: torch.dtype) -> torch.Tensor:
@@ -1008,16 +1152,19 @@ def restore_raw(directory: str, template=None, *,
                 subtree: tuple[str, ...] | None = None,
                 policy: RetryPolicy = RetryPolicy(),
                 zero_copy: bool = False, io_threads: int | None = None,
-                verify: bool = True) -> dict:
+                verify: bool = True, stats: dict | None = None) -> dict:
     """Restore a raw checkpoint as a nested dict of CPU tensors.
 
     - ``subtree``: only the leaves under this path prefix, returned as
       that subtree (e.g. ``("params",)`` for a weights-only restore);
       KeyError when there is none.
     - ``template``: a nested dict with the same leaves (tensors, any
-      device, ``meta`` included); paths and shapes must match the
-      manifest's (ValueError otherwise) and each leaf is cast to the
-      template's dtype (a bfloat16 checkpoint restores into float32).
+      device, ``meta`` included, or ``Piece``s); paths and (global) shapes
+      must match the manifest's (ValueError otherwise) and each leaf is
+      cast to the template's dtype (a bfloat16 checkpoint restores into
+      float32). A ``Piece`` leaf restores only its region: the shard files
+      that overlap it are read, whatever the layout or process count that
+      wrote them, and its tensor comes back.
     - ``zero_copy``: map the shard files instead of reading them: the
       tensors alias the files' page-cache pages, paged in on first use.
       Sound in this process (each mapped inode is registered, and the
@@ -1030,6 +1177,8 @@ def restore_raw(directory: str, template=None, *,
     - ``verify``: check each shard's crc32 against the manifest (the JAX
       package's ``TPUFLOW_CKPT_VERIFY``); off, a zero-copy restore pages
       in nothing up front.
+    - ``stats``: when given, ``stats["bytes"]`` is set to the shard bytes
+      this restore read.
 
     One task a shard file, on a thread pool. A read that reaches the
     caller fills a prewarmed arena buffer where one of its size is backed
@@ -1039,13 +1188,14 @@ def restore_raw(directory: str, template=None, *,
     with _RESTORE_LOCK:
         try:
             return _restore(directory, template, subtree, policy, zero_copy,
-                            io_threads, verify)
+                            io_threads, verify,
+                            stats if stats is not None else {})
         finally:
             _ARENA.drop_present()
 
 
 def _restore(directory, template, subtree, policy, zero_copy, io_threads,
-             verify) -> dict:
+             verify, stats) -> dict:
     entries = _select(read_manifest(directory, policy)["leaves"], subtree)
     if subtree and not entries:
         raise KeyError(f"no leaves under {subtree} in {directory}")
@@ -1067,27 +1217,45 @@ def _restore(directory, template, subtree, policy, zero_copy, io_threads,
                 raise ValueError(
                     f"{'/'.join(names)}: checkpoint shape "
                     f"{tuple(e['shape'])}, template {tuple(tmpl.shape)}")
+    regions = []  # per entry: (origin, extent)
+    for i, e in enumerate(entries):
+        tmpl = want[i][1] if want is not None else None
+        if isinstance(tmpl, Piece):
+            regions.append((list(tmpl.start), list(tmpl.data.shape)))
+        else:
+            regions.append(([0] * len(e["shape"]), list(e["shape"])))
     n_tasks = sum(len(e["shards"]) for e in entries)
     budget = (max(min(os.cpu_count() or 1, 16), 4) if io_threads is None
               else max(1, io_threads))
-    leaves = []
+    leaves, nbytes = [], 0
     with ThreadPoolExecutor(max_workers=max(1, min(budget, n_tasks))) as ex:
         pending = []
-        for e in entries:
+        for e, (origin, extent) in zip(entries, regions):
             dtype = torch_dtype(e["dtype"])
-            shards = e["shards"]
-            if len(shards) == 1 and shards[0]["shape"] == e["shape"]:
+            shards = [s for s in e["shards"] if _overlaps(origin, extent, s)]
+            exact = [s for s in shards if s["start"] == origin
+                     and s["shape"] == extent]
+            if exact:
+                # The region is one saved shard (the layout it was saved
+                # with, or a leaf saved whole): read it directly.
                 pending.append((None, [ex.submit(
-                    _read_shard, directory, shards[0], dtype, policy,
+                    _read_shard, directory, exact[0], dtype, policy,
                     mmap=zero_copy, verify=verify)]))
-            else:  # saved in several shards (by a sharded JAX run)
-                full = _leaf_buffer(e["shape"], dtype)
-                pending.append((full, [
-                    ex.submit(_read_into, full, directory, s, policy, verify)
+            else:  # assembled from the shards that overlap it
+                buf = _leaf_buffer(extent, dtype)
+                pending.append((buf, [
+                    ex.submit(_read_into, buf, origin, directory, s, policy,
+                              verify)
                     for s in shards]))
-        for full, futures in pending:
+        for buf, futures in pending:
             got = [f.result() for f in futures]  # the first error raises
-            leaves.append(got[0] if full is None else full)
+            if buf is None:
+                leaves.append(got[0])
+                nbytes += got[0].numel() * got[0].element_size()
+            else:
+                leaves.append(buf)
+                nbytes += sum(got)
+    stats["bytes"] = nbytes
     if want is not None:
         leaves = [t.to(tmpl.dtype) for t, (_, tmpl) in zip(leaves, want)]
     pairs = list(zip(paths, leaves))

@@ -30,6 +30,13 @@ way, so a checkpoint written by either package restores into the other:
   (``clip_by_global_norm`` keeps no state). Every count is the int32
   number of updates.
 - ``step``: int32; ``ema_params`` like ``params``.
+
+A sharded state (``state.plan``, ``parallel/sharding.py::ShardPlan``)
+lays out its local parts the same way and wraps each params-layout leaf
+as a ``raw.Piece``: the shard the JAX rule gives this process, which the
+manager's multi-process save writes, or, as a restore template, the
+region of the leaf it holds. Loading copies each restored region back
+into the local shards.
 """
 
 from __future__ import annotations
@@ -145,6 +152,7 @@ def checkpoint_tree(state, *, scan_layers: bool = False,
     restore template that allocates nothing). ``scan_layers`` picks
     GPT-2's stacked block layout; every other model has one layout."""
     names = [n for n, _ in state.model.named_parameters()]
+    plan = getattr(state, "plan", None)
 
     def layout(tensors) -> dict:
         if len(tensors) != len(names):
@@ -152,7 +160,10 @@ def checkpoint_tree(state, *, scan_layers: bool = False,
                              "parameters")
         if abstract:
             tensors = [torch.empty_like(t, device="meta") for t in tensors]
-        return _to_jax(state.model, dict(zip(names, tensors)), scan_layers)
+        tree = _to_jax(state.model, dict(zip(names, tensors)), scan_layers)
+        if plan is None:
+            return tree
+        return plan.template(tree) if abstract else plan.pieces(tree)
 
     tx = state.tx
     # The first transformation's state: a named tuple, its fields in
@@ -194,11 +205,14 @@ def _ordered(model, tree: dict) -> list[torch.Tensor]:
 
 
 @torch.no_grad()
-def load_params(model, params: dict) -> None:
+def load_params(model, params: dict, dst=None) -> None:
     """Copy a restored ``params`` subtree (the JAX layout) into ``model``'s
     parameters in place: a weights-only warm start (an optimizer over them
-    keeps its state)."""
-    for p, src in zip(model.parameters(), _ordered(model, params)):
+    keeps its state). ``dst``: the tensors to fill instead, in parameter
+    order (a sharded model's local parts, whose regions ``params``
+    holds)."""
+    dst = list(model.parameters()) if dst is None else dst
+    for p, src in zip(dst, _ordered(model, params)):
         p.copy_(src)
 
 
@@ -217,8 +231,11 @@ def load_batch_stats(model, batch_stats: dict) -> None:
 def load_checkpoint_tree(state, tree: dict) -> None:
     """Copy a restored checkpoint tree (either layout) into ``state`` in
     place: params, BatchNorm statistics, optimizer slots and count, EMA
-    weights and step."""
-    load_params(state.model, tree["params"])
+    weights and step. For a sharded state each leaf holds this process's
+    region (a restore through ``checkpoint_tree(state, abstract=True)``)
+    and fills its local parts."""
+    load_params(state.model, tree["params"],
+                state.params if getattr(state, "plan", None) else None)
     if running_stats(state.model):
         load_batch_stats(state.model, tree["batch_stats"])
     opt = tree["opt_state"]

@@ -1,6 +1,6 @@
-"""Data-parallel runtime (counterpart of ``tpuflow/dist``): the process
-group, the ``data`` mesh, batch placement, gradient averaging and
-barriers (``mesh``)."""
+"""Multi-process runtime (counterpart of ``tpuflow/dist``): the process
+group, the ``data`` mesh and the named ``data`` x ``fsdp`` one, batch
+placement, gradient averaging and barriers (``mesh``)."""
 
 from tpuflow_torch.dist.mesh import (
     Mesh,
@@ -8,13 +8,16 @@ from tpuflow_torch.dist.mesh import (
     barrier,
     data_axis_size,
     initialize,
+    make_hybrid_mesh,
     make_mesh,
+    place_batch,
     process_count,
     process_index,
     replicate,
     shard_batch,
     shutdown,
     step_fence,
+    world_sum,
 )
 
 __all__ = [
@@ -23,11 +26,14 @@ __all__ = [
     "barrier",
     "data_axis_size",
     "initialize",
+    "make_hybrid_mesh",
     "make_mesh",
+    "place_batch",
     "process_count",
     "process_index",
     "replicate",
     "shard_batch",
     "shutdown",
     "step_fence",
+    "world_sum",
 ]

@@ -1,47 +1,64 @@
-"""Data-parallel runtime: process group, mesh, batch placement, barriers.
+"""Multi-process runtime: process group, mesh, batch placement, barriers.
 
-Counterpart of the part of ``tpuflow/dist/mesh.py`` that the main path
-calls. The JAX package runs one process per host over a device mesh and
-lets XLA emit the gradient all-reduce; the port runs one process per card
-(``torch.distributed``), each holding a full replica, and averages the
-gradients itself (``average_gradients``) before every update.
+Counterpart of the part of ``tpuflow/dist/mesh.py`` that the port's paths
+call. The JAX package runs one process per host over a device mesh and
+lets XLA emit the collectives; the port runs one process per card
+(``torch.distributed``). Data parallelism holds a full replica in each
+process and averages the gradients itself (``average_gradients``); FSDP
+(``tpuflow_torch/parallel``) shards the state over the ``data`` x
+``fsdp`` processes.
 
 - ``initialize`` (``mesh.py:401``): joins the process group named by
   torch's standard rendezvous variables (``RANK``, ``WORLD_SIZE``,
   ``MASTER_ADDR``, ``MASTER_PORT``) or by its arguments, with NCCL on
-  CUDA and gloo on the CPU; a world of one process starts nothing.
-- ``make_mesh`` (``:517``): a 1-D ``data`` mesh over the processes (a
-  ``DeviceMesh`` when a process group is up, none for one process).
+  CUDA and gloo on the CPU unless ``backend`` says otherwise; a world of
+  one process starts nothing.
+- ``make_mesh`` (``:517``): without ``axes`` the 1-D ``data`` mesh over
+  the processes (the data-parallel paths); with ``axes`` the named mesh
+  of the JAX package (``data``, ``fsdp``, ``tensor``, ``seq``,
+  ``expert``; unlisted ones are 1), whose product must be the world.
+  ``make_hybrid_mesh`` (``:568``) lays its DCN axes major.
 - ``process_index``/``process_count`` (``:507``/``:512``),
-  ``data_axis_size`` (``:676``), ``shard_batch`` (``:704``), ``replicate``
-  (``:770``), ``step_fence`` (``:810``) and ``barrier`` (``:820``).
+  ``data_axis_size`` (``:676``), ``shard_batch`` (``:704``: this
+  process's rows of the global batch), ``place_batch`` (a batch whose
+  rows the loader already picked), ``replicate`` (``:770``),
+  ``step_fence`` (``:810``) and ``barrier`` (``:820``).
 
-Not here yet (ROADMAP Queue 1 item 5): ``make_hybrid_mesh``, FSDP and the
-compile-cache functions.
+The compile-cache functions have no counterpart: PyTorch runs eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
+from collections.abc import Mapping
 
 import torch
 import torch.distributed as tdist
 
 AXIS_DATA = "data"
+AXIS_FSDP = "fsdp"
+# The JAX package's canonical axes (``tpuflow/dist/mesh.py``), in its order.
+AXES = (AXIS_DATA, AXIS_FSDP, "tensor", "seq", "expert")
 
 
 @dataclasses.dataclass
 class Mesh:
-    """The data-parallel world as this process sees it: ``shape`` maps the
-    one axis, ``data``, to the process count; ``device`` is this process's
-    device; ``device_mesh`` the torch ``DeviceMesh`` over the process group
-    (None for one process)."""
+    """The world as this process sees it: ``shape`` maps each axis to its
+    size; ``device`` is this process's device; ``device_mesh`` the torch
+    ``DeviceMesh`` over the process group (the ``data`` dim alone, or the
+    ``data`` x ``fsdp`` dims of a named mesh; None for one process).
+    ``fsdp_mesh`` is the 1-D mesh of those dims flattened, ``data`` major,
+    over which FSDP shards and the batch splits, and ``index`` this
+    process's place on it (None and 0 for one process)."""
 
     shape: dict[str, int]
     device: torch.device
     device_mesh: object | None = None
+    fsdp_mesh: object | None = None
+    index: int = 0
 
 
 def is_initialized() -> bool:
@@ -56,14 +73,18 @@ def _env_int(name: str) -> int | None:
 def initialize(device: str | torch.device = "cuda", *,
                rank: int | None = None, world_size: int | None = None,
                init_method: str | None = None,
-               timeout_s: float = 300.0) -> None:
+               timeout_s: float = 300.0, backend: str | None = None,
+               device_index: int | None = None) -> None:
     """Join the process group (no-op for a world of one, or when one is up).
 
     ``rank``/``world_size`` default to ``RANK``/``WORLD_SIZE``;
     ``init_method`` to ``tcp://MASTER_ADDR:MASTER_PORT``. Every process
     must join within ``timeout_s`` or the formation fails (the reference's
-    cluster-formation barrier). On CUDA each process takes card
-    ``LOCAL_RANK`` (default: its rank)."""
+    cluster-formation barrier). ``backend``: None is NCCL on CUDA and gloo
+    on the CPU; ``"gloo"`` on CUDA carries the collectives through the
+    host, which lets several processes share one card (NCCL refuses two
+    ranks of a communicator on one device). On CUDA each process takes
+    card ``device_index``, by default ``LOCAL_RANK`` (else its rank)."""
     if is_initialized():
         return
     world = world_size if world_size is not None else _env_int("WORLD_SIZE")
@@ -82,11 +103,14 @@ def initialize(device: str | torch.device = "cuda", *,
         init_method = f"tcp://{addr}:{port}"
     device = torch.device(device)
     if device.type == "cuda":
-        local = _env_int("LOCAL_RANK")
-        torch.cuda.set_device(local if local is not None else rank)
+        if device_index is None:
+            local = _env_int("LOCAL_RANK")
+            device_index = local if local is not None else rank
+        torch.cuda.set_device(device_index)
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
     tdist.init_process_group(
-        "nccl" if device.type == "cuda" else "gloo",
-        init_method=init_method, rank=rank, world_size=world,
+        backend, init_method=init_method, rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=timeout_s),
     )
 
@@ -116,26 +140,129 @@ def local_device(device: str | torch.device) -> torch.device:
     return device
 
 
-def make_mesh(device: str | torch.device = "cuda") -> Mesh:
-    """The 1-D ``data`` mesh over every process, this process on its
-    ``device``."""
+def make_mesh(device: str | torch.device = "cuda",
+              axes: Mapping[str, int] | None = None) -> Mesh:
+    """A mesh over every process, this process on its ``device``.
+
+    Without ``axes``: the 1-D ``data`` mesh of the data-parallel paths.
+    With ``axes``: the JAX package's named mesh (``tpuflow/dist/mesh.py``
+    ``make_mesh``): a size of -1 (at most one) is inferred, unlisted
+    canonical axes are 1, and the product must equal the world, else
+    ValueError naming both. Only ``data`` and ``fsdp`` may exceed 1 here
+    (``tensor``, ``seq`` and ``expert`` are ROADMAP Queue 1 item 14); the
+    process of rank r sits at (r // fsdp, r % fsdp)."""
     device = local_device(device)
     world = process_count()
-    device_mesh = None
-    if is_initialized():
-        from torch.distributed.device_mesh import init_device_mesh
+    if axes is None:
+        device_mesh = None
+        if is_initialized():
+            from torch.distributed.device_mesh import init_device_mesh
 
-        device_mesh = init_device_mesh(device.type, (world,),
-                                       mesh_dim_names=(AXIS_DATA,))
-    return Mesh({AXIS_DATA: world}, device, device_mesh)
+            device_mesh = init_device_mesh(device.type, (world,),
+                                           mesh_dim_names=(AXIS_DATA,))
+        return Mesh({AXIS_DATA: world}, device, device_mesh,
+                    device_mesh, process_index())
+    shape = _named_axes(axes, world)
+    return _named_mesh(device, shape, list(range(world)))
+
+
+def make_hybrid_mesh(dcn_axes: Mapping[str, int],
+                     ici_axes: Mapping[str, int],
+                     device: str | torch.device = "cuda") -> Mesh:
+    """The named mesh with the ``dcn_axes`` major (``tpuflow/dist/mesh.py``
+    ``make_hybrid_mesh``): ranks fill the ``ici_axes`` first, so a DCN
+    axis steps over whole groups of consecutive ranks (one group a host,
+    where a host holds consecutive ranks). An axis in both maps raises;
+    the sizes multiply to the world as in ``make_mesh``."""
+    device = local_device(device)
+    dcn_axes, ici_axes = dict(dcn_axes), dict(ici_axes)
+    overlap = set(dcn_axes) & set(ici_axes)
+    if overlap:
+        raise ValueError(
+            f"axes {sorted(overlap)} appear in both dcn and ici maps")
+    if any(v == -1 for v in (*dcn_axes.values(), *ici_axes.values())):
+        raise ValueError("-1 axis inference is not supported in hybrid "
+                         "meshes; specify every axis size explicitly")
+    world = process_count()
+    shape = _named_axes({**dcn_axes, **ici_axes}, world)
+    # Rank order: the DCN axes major, each map's axes in canonical order.
+    order = ([a for a in AXES if a in dcn_axes]
+             + [a for a in AXES if a not in dcn_axes])
+    grid = torch.arange(world).reshape([shape[a] for a in order])
+    grid = grid.permute([order.index(a) for a in AXES])
+    return _named_mesh(device, shape, grid.reshape(-1).tolist())
+
+
+def _named_axes(axes: Mapping[str, int], world: int) -> dict[str, int]:
+    axes = dict(axes)
+    unknown = [k for k in AXES if k not in axes]
+    extra = sorted(set(axes) - set(AXES))
+    if extra:
+        raise ValueError(f"unknown mesh axes {extra}; the axes are {AXES}")
+    inferred = [k for k, v in axes.items() if v == -1]
+    if len(inferred) > 1:
+        raise ValueError(f"at most one axis may be -1, got {inferred}")
+    known = math.prod(v for v in axes.values() if v != -1)
+    if inferred:
+        if world % known:
+            raise ValueError(f"{world} processes not divisible by {known}")
+        axes[inferred[0]] = world // known
+    model = {k: v for k, v in axes.items() if k not in AXES[:2] and v > 1}
+    if model:
+        raise NotImplementedError(
+            f"mesh axes {model} are not ported yet: ROADMAP Queue 1 item 14 "
+            "(tensor, sequence and pipeline parallelism)")
+    total = math.prod(axes.values())
+    if total != world:
+        raise ValueError(f"mesh {axes} wants {total} processes but the "
+                         f"world has {world}")
+    for name in unknown:
+        axes[name] = 1
+    return {k: axes[k] for k in AXES}
+
+
+def _named_mesh(device: torch.device, shape: dict[str, int],
+                ranks: list[int]) -> Mesh:
+    """The ``Mesh`` whose (data, fsdp) coordinate i (data major) is process
+    ``ranks[i]``."""
+    if not is_initialized():
+        return Mesh(shape, device)
+    from torch.distributed.device_mesh import DeviceMesh
+
+    grid = torch.tensor(ranks).reshape(shape[AXIS_DATA], shape[AXIS_FSDP])
+    device_mesh = DeviceMesh(device.type, grid,
+                             mesh_dim_names=(AXIS_DATA, AXIS_FSDP))
+    flat = device_mesh._flatten(f"{AXIS_DATA}_{AXIS_FSDP}")
+    return Mesh(shape, device, device_mesh, flat,
+                ranks.index(process_index()))
 
 
 def data_axis_size(mesh: Mesh) -> int:
-    """Number of data-parallel shards (the reference's world size)."""
-    return mesh.shape[AXIS_DATA]
+    """Number of data shards: the ``data`` x ``fsdp`` processes (the
+    reference's world size), over which the batch splits."""
+    return mesh.shape[AXIS_DATA] * mesh.shape.get(AXIS_FSDP, 1)
 
 
 def shard_batch(batch: dict, mesh: Mesh) -> dict:
+    """This process's rows of a global batch as tensors on its device: of
+    B rows over N data shards, shard i (``mesh.index``) takes rows
+    [i B / N, (i + 1) B / N), the JAX batch sharding over (``data``,
+    ``fsdp``), data major. A batch that N does not divide raises, as the
+    JAX multi-host path does."""
+    n = data_axis_size(mesh)
+    out = {}
+    for k, v in batch.items():
+        rows = len(v)
+        if rows % n:
+            raise ValueError(f"a batch of {rows} rows does not split over "
+                             f"{n} data shards")
+        per = rows // n
+        out[k] = torch.as_tensor(v[mesh.index * per:(mesh.index + 1) * per],
+                                 device=mesh.device)
+    return out
+
+
+def place_batch(batch: dict, mesh: Mesh) -> dict:
     """This process's rows of a batch (host arrays or tensors: the loader
     already handed this process its shard) as tensors on its device."""
     return {k: torch.as_tensor(v, device=mesh.device)
@@ -173,6 +300,21 @@ def average_gradients(grads: list[torch.Tensor], mesh: Mesh | None
     return out
 
 
+def world_sum(values: torch.Tensor) -> torch.Tensor:
+    """The sum over every process of each process's ``values`` (1-D), the
+    same bits everywhere: the vectors are all-gathered and summed in rank
+    order (an all-reduce may order its sums differently on each
+    process). One process: ``values`` itself."""
+    if not is_initialized() or process_count() == 1:
+        return values
+    out = [torch.empty_like(values) for _ in range(process_count())]
+    tdist.all_gather(out, values.contiguous())
+    total = out[0].clone()
+    for part in out[1:]:
+        total += part
+    return total
+
+
 def step_fence(x):
     """The JAX package blocks here on a multi-device CPU simulation whose
     collectives would otherwise time out; PyTorch runs the CPU eagerly and
@@ -184,7 +326,8 @@ def step_fence(x):
 def barrier(mesh: Mesh | None = None) -> None:
     """Block until every process reaches this point (a no-op for one)."""
     if is_initialized() and process_count() > 1:
-        if mesh is not None and mesh.device.type == "cuda":
+        if (mesh is not None and mesh.device.type == "cuda"
+                and tdist.get_backend() == "nccl"):
             tdist.barrier(device_ids=[mesh.device.index])
         else:
             tdist.barrier()

@@ -5,7 +5,7 @@ JAX package's ``@tpu``: a gang step of N processes that form one
 ``torch.distributed`` world, one process per card. The resource and
 environment records (``@kubernetes``, ``@pypi``) and the cron record
 (``@schedule``) are kept on the function or class as the JAX package keeps
-them; the port has no deployer yet (ROADMAP Queue 1 item 15).
+them; the port has no deployer yet (ROADMAP Queue 1 item 8b).
 """
 
 from __future__ import annotations
@@ -40,7 +40,8 @@ def gpu(
     """Gang step: the body runs as ``num_parallel`` processes (or the
     ``num_parallel`` of the transition into it) forming one
     ``torch.distributed`` world — NCCL on the card, one process per card;
-    gloo on the CPU. Process 0 is the head and only its artifacts persist;
+    gloo on the CPU (a flow's ``dist_backend`` parameter and a device with
+    a card index change that: see ``flow/gang_exec.py``). Process 0 is the head and only its artifacts persist;
     a join step sees the others as inputs without artifacts. Every member
     must join within ``all_hosts_started_timeout`` seconds or the step
     fails."""

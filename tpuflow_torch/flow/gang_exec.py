@@ -12,8 +12,12 @@ own rendezvous variables (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``MASTER_ADDR``, ``MASTER_PORT``), joins the process group
 (``dist.initialize``: NCCL on the card, one process per card; gloo on the
 CPU), which fails the member if the world has not formed within the
-timeout, marks itself joined for the supervisor's formation deadline,
-runs the step body, and saves its artifacts: the head (rank 0) its own
+timeout. A flow whose ``dist_backend`` parameter names a backend
+(``gloo``) forms the world over it, and a device with a card index
+(``cuda:0``) puts every member on that card: the two together run a gang
+of several processes on one card, which NCCL refuses. The member then
+marks itself joined for the supervisor's formation deadline, runs the
+step body, and saves its artifacts: the head (rank 0) its own
 at ``task_id`` and the step's transition, the others none at
 ``task_id + rank``. A SIGTERM exits at once with the requeue code (the
 training loops' checkpoint drain is ROADMAP Queue 1 item 12c).
@@ -64,8 +68,10 @@ def main(argv: list[str]) -> None:
     from tpuflow_torch.flow.client import Run
     from tpuflow_torch.flow.spec import _Trigger, current
 
-    dist.initialize(resolve_device(state["device"]),
-                    timeout_s=float(state["timeout"]))
+    device = resolve_device(state["device"])
+    dist.initialize(device, timeout_s=float(state["timeout"]),
+                    backend=state["artifacts"].get("dist_backend") or None,
+                    device_index=device.index)
     flow_name = flow_cls.__name__
     tdir = store.task_dir(flow_name, run_id, step_name, base_task)
     with open(os.path.join(tdir, f"joined_{rank}"), "w") as f:

@@ -2,20 +2,28 @@
 
 Twin of ``flows/gpt_flow.py`` (``TpuGptTrain``) on the port: the same
 parameters bind onto ``tpuflow_torch.train.gpt.GptTrainConfig`` and
-``train_gpt`` does the work on one card (the flash kernels with
-``--attn-impl flash``), with per-epoch checkpoints under the step's
-storage and a full-state resume with ``--from-run``. The artifacts match
+``train_gpt`` does the work (the flash kernels with ``--attn-impl
+flash``), with per-epoch checkpoints under the step's storage and a
+full-state resume with ``--from-run``. The JAX flow runs its ``data`` x
+``fsdp`` mesh in one process over many devices; the port runs one
+process per card, so the train step is a gang of ``data_axis`` x
+``fsdp_axis`` members (FSDP; the defaults, 2 x 2, take four cards) whose
+head carries the artifacts. ``--dist-backend gloo`` with a device that
+names a card (``--device cuda:0``) runs the gang's members on that one
+card. The artifacts match
 the reference's: ``model_config``, ``dataset_used``, ``seq_len_used``,
 ``synthetic_size_used``, ``result_checkpoint``, ``loss_history``,
 ``metrics_history`` (and ``sample``), ``text_source`` on ``lm_text``
 (the corpus's path and sha256, which the eval flow checks), and the
 ``end`` step's training curve card. Options ``train_gpt`` does not run
-yet (mesh axes above one device, pipeline) raise its
-``NotImplementedError`` naming the ROADMAP item. ``device`` (default
+yet (tensor, sequence, expert and pipeline axes; Adafactor and MoE on
+several processes) raise its ``NotImplementedError`` naming the ROADMAP
+item. ``device`` (default
 ``cuda``), ``flash_bwd`` (the JAX package's ``TPUFLOW_FLASH_BWD``) and
 ``text_path`` (its ``TPUFLOW_TEXT_FILE``) are parameters.
 
-Run:    python -m tpuflow_torch.flows.gpt_flow run --preset test --data-axis 1 --fsdp-axis 1
+Run:    python -m tpuflow_torch.flows.gpt_flow run --preset test
+        [--data-axis 1 --fsdp-axis 1]   (one process)
 """
 
 import os
@@ -27,6 +35,7 @@ from tpuflow_torch.flow import (
     card,
     current,
     device_profile,
+    gpu,
     retry,
     step,
     training_curve_card,
@@ -34,7 +43,8 @@ from tpuflow_torch.flow import (
 
 
 class TorchGptTrain(FlowSpec):
-    """Train GPT-2 on LM data on one card, checkpointing the full state."""
+    """Train GPT-2 on LM data on data_axis x fsdp_axis cards (one process
+    each, the state sharded over them), checkpointing the full state."""
 
     preset = Parameter("preset", default="test", help="test | gpt2 | medium")
     epochs = Parameter("epochs", default=2, help="epochs")
@@ -96,9 +106,15 @@ class TorchGptTrain(FlowSpec):
         help="full | dots | none (empty = the preset's default)")
     dtype = Parameter("dtype", default="",
                       help="activation dtype: bfloat16 | float16 | float32")
-    device = Parameter("device", default="cuda", help="cuda | cpu")
+    device = Parameter(
+        "device", default="cuda",
+        help="cuda | cpu | cuda:<i> (every gang member on card i)")
     flash_bwd = Parameter("flash_bwd", default="fused",
                           help="flash backward: fused | split | blockwise")
+    dist_backend = Parameter(
+        "dist_backend", default="",
+        help="the gang's torch.distributed backend (empty: nccl on the "
+        "card, gloo on the cpu; gloo lets members share a card)")
 
     def _train_config(self):
         from tpuflow_torch.train.gpt import GptTrainConfig
@@ -140,12 +156,15 @@ class TorchGptTrain(FlowSpec):
         if self.from_run:
             self.resume_checkpoint = Run(self.from_run).data.result_checkpoint
             print(f"[gpt_flow] resuming from {self.resume_checkpoint.path}")
-        self.next(self.train)
+        self.next(self.train,
+                  num_parallel=int(self.data_axis) * int(self.fsdp_axis))
 
     @retry(times=3)
+    @gpu(all_hosts_started_timeout=60 * 5)
     @device_profile(interval=1)
     @step
     def train(self):
+        from tpuflow_torch import dist
         from tpuflow_torch.ckpt import prewarm_restore_handle
         from tpuflow_torch.data.lm import lm_corpus_size, text_source_record
         from tpuflow_torch.device import resolve_device
@@ -175,9 +194,12 @@ class TorchGptTrain(FlowSpec):
             self.text_source = text_source_record(self.text_path or None)
             cfg.text_path = self.text_source["path"]
         ckpt = self.resume_checkpoint
-        if ckpt is not None and not ckpt.metadata.get("save_dtype"):
+        if (ckpt is not None and not ckpt.metadata.get("save_dtype")
+                and dist.process_count() == 1):
             # Back the restore's buffers while train_gpt builds the model
-            # (a save_dtype checkpoint is cast on restore and takes none).
+            # (a save_dtype checkpoint is cast on restore and takes none;
+            # a gang member restores only its region, whose buffers
+            # train_gpt backs from its template).
             prewarm_restore_handle(
                 ckpt, pinned=resolve_device(self.device).type == "cuda")
         result = train_gpt(

@@ -208,7 +208,7 @@ def train_func_per_worker(config: dict) -> None:
 
         loss_sum = correct = count = 0.0
         for batch in val_loader:
-            out = eval_step(state, dist.shard_batch(batch, ctx.mesh))
+            out = eval_step(state, dist.place_batch(batch, ctx.mesh))
             loss_sum += float(out["loss_sum"])
             correct += float(out["num_correct"])
             count += float(out["count"])

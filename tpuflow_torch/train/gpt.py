@@ -1,20 +1,30 @@
-"""GPT-family training on one device (counterpart of ``tpuflow/train/gpt.py``).
+"""GPT-family training (counterpart of ``tpuflow/train/gpt.py``).
 
-``train_gpt(cfg)`` runs the single-device leg of the JAX package's FSDP
-recipe (``_run_fsdp_generation``): the epoch loop over the seeded LM
-loaders, per-epoch held-out validation with perplexity, tokens/s that
-exclude the cold first step, the loss and metrics histories, and the
-optional greedy sample through the port's ``generate`` (byte-level
-text from the prompt "The " on ``lm_text``). The optimizers (AdamW, SGD,
-Lion, Adafactor), Switch-MoE blocks (``experts``) and both datasets
-(``lm_synth``, the byte-level ``lm_text``) run as in the JAX leg. With a
-``ckpt_dir`` it checkpoints as the JAX leg does: a save of the full state
-at every epoch end (the JAX checkpoint tree, ``ckpt/tree.py``), an in-run
-resume from the newest committed step, and a resume from a handle. What
-the JAX leg does beyond one device raises ``NotImplementedError`` naming
-the ROADMAP item: mesh axes whose product exceeds one device (FSDP and
-friends), the pipeline leg, the health monitor, preemption and elastic
-re-form. Nothing is silently ignored.
+``train_gpt(cfg)`` runs the JAX package's FSDP recipe
+(``_run_fsdp_generation``): the epoch loop over the seeded LM loaders,
+per-epoch held-out validation with perplexity, tokens/s that exclude the
+cold first step, the loss and metrics histories, and the optional greedy
+sample through the port's ``generate`` (byte-level text from the prompt
+"The " on ``lm_text``). The optimizers (AdamW, SGD, Lion, Adafactor),
+Switch-MoE blocks (``experts``) and both datasets (``lm_synth``, the
+byte-level ``lm_text``) run as in the JAX leg. With a ``ckpt_dir`` it
+checkpoints as the JAX leg does: a save of the full state at every epoch
+end (the JAX checkpoint tree, ``ckpt/tree.py``), an in-run resume from
+the newest committed step, and a resume from a handle.
+
+A mesh of ``data_axis`` x ``fsdp_axis`` > 1 runs on that many processes,
+one per card (each calls ``train_gpt`` with its rendezvous variables
+set, as the ``TorchGptTrain`` gang's members do): the state is sharded
+by the JAX rule over them (``parallel/sharding.py``: FSDP2), each
+process trains on its rows of the global batch, the metrics and the
+validation loss are the world's, the checkpoints are written shard by
+shard as manifest fragments (``CheckpointManager(multi_process=True)``)
+and restore at whatever world the resume runs. Process 0 alone logs and
+samples. What the JAX leg does beyond that raises
+``NotImplementedError`` naming the ROADMAP item: tensor, sequence,
+expert and pipeline axes, Adafactor and MoE blocks on several processes,
+the health monitor, preemption and elastic re-form. Nothing is silently
+ignored.
 """
 
 from __future__ import annotations
@@ -37,10 +47,12 @@ from tpuflow_torch.ckpt.tree import (
     checkpoint_tree,
     load_checkpoint_tree,
 )
+from tpuflow_torch import dist
 from tpuflow_torch.data.lm import make_lm_loaders
 from tpuflow_torch.device import resolve_device
 from tpuflow_torch.models.gpt2 import GPT2, GPT2Config
 from tpuflow_torch.ops.flash_attention import BWD_MODES
+from tpuflow_torch.parallel import ShardPlan, shard_model
 from tpuflow_torch.train.optim import make_optimizer
 from tpuflow_torch.train.step import (
     TrainState,
@@ -51,7 +63,8 @@ from tpuflow_torch.train.step import (
 )
 
 # The ROADMAP Queue 1 items that will lift what still raises.
-ROADMAP_MULTI = "ROADMAP Queue 1 item 5 + 6b + 12b (multi-process training)"
+ROADMAP_SHARDED_RECIPES = ("ROADMAP Queue 1 item 12b-2 (Adafactor and MoE "
+                           "under FSDP)")
 ROADMAP_PARALLEL = ("ROADMAP Queue 1 item 14 (tensor, sequence and pipeline "
                     "parallelism)")
 ROADMAP_ROBUST = "ROADMAP Queue 1 item 12c + 8b (robustness of training)"
@@ -114,8 +127,9 @@ def active_remat_policy(model_cfg: GPT2Config) -> str:
 @dataclasses.dataclass
 class GptTrainConfig:
     """Everything the GPT training recipe needs: the JAX package's fields
-    and defaults. The port trains on one device, so the default mesh axes
-    (data 2 x fsdp 2) raise; pass ``data_axis=1, fsdp_axis=1``."""
+    and defaults. The mesh's ``data_axis`` x ``fsdp_axis`` is the number
+    of processes that train (the default data 2 x fsdp 2 needs four);
+    ``data_axis=1, fsdp_axis=1`` trains in this one."""
 
     preset: str = "test"            # test | gpt2 | medium
     epochs: int = 2
@@ -247,22 +261,34 @@ def _deferred(what: str, item: str):
 
 def _check_supported(cfg: GptTrainConfig, ckpt_dir, health: bool,
                      preemption: bool, elastic: bool) -> None:
-    """Raise for every option of the JAX recipe the port does not run."""
+    """Raise for every option of the JAX recipe the port does not run, and
+    for a mesh the world does not fill."""
     axes = {
         "data_axis": cfg.data_axis, "fsdp_axis": cfg.fsdp_axis,
         "tensor_axis": cfg.tensor_axis, "seq_axis": cfg.seq_axis,
         "expert_axis": cfg.expert_axis,
     }
-    n = math.prod(axes.values())
-    if n > 1:
-        desc = " x ".join(f"{k}={v}" for k, v in axes.items())
-        raise _deferred(
-            f"a mesh of {desc} = {n} devices (the port trains on one "
-            "device; set every axis to 1); multi-device training (FSDP2)",
-            ROADMAP_MULTI)
+    desc = " x ".join(f"{k}={v}" for k, v in axes.items())
+    if cfg.tensor_axis * cfg.seq_axis * cfg.expert_axis > 1:
+        raise _deferred(f"a mesh of {desc} (tensor, sequence and expert "
+                        "parallelism)", ROADMAP_PARALLEL)
     if cfg.stage_axis > 1:
         raise _deferred(f"pipeline parallelism (stage_axis={cfg.stage_axis})",
                         ROADMAP_PARALLEL)
+    n, world = cfg.data_axis * cfg.fsdp_axis, dist.process_count()
+    if n != world:
+        raise ValueError(
+            f"a mesh of {desc} = {n} processes, but the world has {world}: "
+            "FSDP runs one process per card (start data_axis x fsdp_axis "
+            "processes with their rendezvous variables, or run the "
+            "TorchGptTrain gang)")
+    if world > 1 and cfg.optimizer_name == "adafactor":
+        raise _deferred(f"Adafactor on {world} processes (its factored "
+                        "statistics reduce across shards)",
+                        ROADMAP_SHARDED_RECIPES)
+    if world > 1 and cfg.experts:
+        raise _deferred(f"Switch-MoE blocks on {world} processes",
+                        ROADMAP_SHARDED_RECIPES)
     if cfg.ckpt_dtype and ckpt_dir is None:
         raise ValueError(f"ckpt_dtype={cfg.ckpt_dtype!r} casts checkpoints, "
                          "but no ckpt_dir was given to save them in")
@@ -283,18 +309,55 @@ def _init_model(model_cfg: GPT2Config, device, seed: int | None = 0) -> GPT2:
 
 
 def init_state(cfg: GptTrainConfig, model_cfg: GPT2Config | None = None,
-               device=None, *, materialize: bool = True) -> TrainState:
+               device=None, *, materialize: bool = True,
+               mesh=None) -> TrainState:
     """Model, optimizer and (with ``ema_decay``) EMA weights at step 0.
     ``materialize=False`` skips the random weights (a restore overwrites
-    them); the optimizer's moments are zeros on the device either way."""
+    them); the optimizer's moments are zeros on the device either way.
+
+    ``mesh`` (``dist.make_mesh`` with ``data`` x ``fsdp`` > 1): the state
+    born sharded (``tpuflow/parallel/sharding.py::create_sharded_state``).
+    Fresh, every process builds the same seed-0 model on its device and
+    ``shard_model`` keeps its shards of it; for a restore the model is
+    built on the ``meta`` device and only the local shards are allocated
+    (the JAX package shape-evaluates the init for the same reason). The
+    moments and the EMA weights are made from the local shards."""
     model_cfg = model_cfg or cfg.model_config()
-    model = _init_model(model_cfg, resolve_device(device),
-                        seed=0 if materialize else None)
-    state = TrainState(model=model, tx=cfg.optimizer(
-        model.parameters(), JaxLeaves(model, model_cfg.scan_layers)))
+    dev = resolve_device(device)
+    if mesh is None or dist.data_axis_size(mesh) == 1:
+        model = _init_model(model_cfg, dev, seed=0 if materialize else None)
+        state = TrainState(model=model, tx=cfg.optimizer(
+            model.parameters(), JaxLeaves(model, model_cfg.scan_layers)))
+    else:
+        model = _init_model(model_cfg, dev if materialize else "meta",
+                            seed=0 if materialize else None)
+        plan = ShardPlan(model, model_cfg.scan_layers,
+                         dist.data_axis_size(mesh), mesh.index)
+        shard_model(model, mesh, plan)
+        if not materialize:
+            model.to_empty(device=dev)
+        tx = cfg.optimizer(plan.local(model))
+        tx.sharded = plan.sharded
+        state = TrainState(model=model, tx=tx, plan=plan, mesh=mesh)
     if cfg.ema_decay > 0.0:
         state = with_ema(state)
     return state
+
+
+def full_model(state: TrainState):
+    """The whole model of a sharded state, on process 0 (a plain ``GPT2``
+    with the gathered weights; every process must call this, the others
+    get None); an unsharded state's own model."""
+    if state.plan is None:
+        return state.model
+    full = {name: state.plan.full(name, t, state.mesh)
+            for name, t in zip(state.plan.names, state.params)}
+    if dist.process_index() != 0:
+        return None
+    model = GPT2(state.model.config, seed=None,
+                 device=next(iter(full.values())).device)
+    model.load_state_dict(full)
+    return model
 
 
 def train_gpt(
@@ -308,9 +371,12 @@ def train_gpt(
     health: bool = False,
     preemption: bool = False,
     elastic: bool = False,
+    comm_overlap: bool = True,
 ) -> GptTrainResult:
-    """Run the configured GPT training leg end to end on one device
-    (``cuda`` unless ``device`` says otherwise).
+    """Run the configured GPT training leg end to end on this process's
+    device (``cuda`` unless ``device`` says otherwise; ``cuda:<i>`` puts
+    the process on card i), sharded over the world's processes when the
+    mesh has several (see the module docstring).
 
     ``ckpt_dir``: a ``CheckpointManager(max_to_keep=2,
     save_dtype=cfg.ckpt_dtype)`` there saves the full state at every epoch
@@ -329,7 +395,10 @@ def train_gpt(
     ``blockwise`` (the JAX package's ``TPUFLOW_FLASH_BWD``; ``blockwise``,
     the plain version, on the CPU only). ``health``,
     ``preemption`` and ``elastic`` name features of the JAX leg that are
-    not ported; setting any raises."""
+    not ported; setting any raises. ``comm_overlap``: on several
+    processes with ``accum_steps > 1``, reduce-scatter each microbatch's
+    gradients right after its backward (the JAX package's
+    ``TPUFLOW_COMM_OVERLAP``, on by default), else once after the last."""
     cfg.validate()
     _check_supported(cfg, ckpt_dir, health, preemption, elastic)
     if flash_bwd not in BWD_MODES:
@@ -337,6 +406,15 @@ def train_gpt(
                          f"{'|'.join(BWD_MODES)}")
     model_cfg = dataclasses.replace(cfg.model_config(), flash_bwd=flash_bwd)
     dev = resolve_device(device)
+    mesh = None
+    if dist.process_count() > 1:
+        mesh = dist.make_mesh(dev, {"data": cfg.data_axis,
+                                    "fsdp": cfg.fsdp_axis})
+        dev = mesh.device
+        if dist.process_index() != 0:
+            log = _quiet
+        log(f"[gpt] mesh {dict(mesh.shape)}, preset {cfg.preset}")
+    multi = mesh is not None
     loader, val_loader = make_lm_loaders(
         cfg.batch_size, cfg.steps_per_epoch, cfg.seq_len,
         model_cfg.vocab_size, dataset=cfg.dataset, text_path=cfg.text_path,
@@ -348,21 +426,27 @@ def train_gpt(
     resume_step = None
     if ckpt_dir is not None:
         mgr = CheckpointManager(ckpt_dir, max_to_keep=2,
-                                save_dtype=cfg.ckpt_dtype or None)
+                                save_dtype=cfg.ckpt_dtype or None,
+                                multi_process=multi)
         # In-run resume: a previous attempt of this run left committed
         # steps; an explicit handle (a cross-run resume) wins.
         if resume_checkpoint is None:
             resume_step = mgr.latest_step()
-        if resume_step is not None and not cfg.ckpt_dtype:
+        if resume_step is not None and not cfg.ckpt_dtype and not multi:
             # Back the restore's buffers while the model is built (a
             # ckpt_dtype step is cast on restore and would take none).
             mgr.prewarm_restore(resume_step, pinned=dev.type == "cuda")
     resuming = resume_checkpoint is not None or resume_step is not None
-    state = init_state(cfg, model_cfg, dev, materialize=not resuming)
+    state = init_state(cfg, model_cfg, dev, materialize=not resuming,
+                       mesh=mesh)
     scan = model_cfg.scan_layers
     if resuming:
         t0 = time.monotonic()
         tmpl = checkpoint_tree(state, scan_layers=scan, abstract=True)
+        if resume_step is not None and multi and not cfg.ckpt_dtype:
+            # Buffers for this process's regions, sized by the template.
+            mgr.prewarm_restore(resume_step, pinned=dev.type == "cuda",
+                                template=tmpl)
         prewarm_restore_wait()  # a restore takes only the landed buffers
         if resume_checkpoint is not None:
             restored = restore_from_handle(resume_checkpoint,
@@ -376,14 +460,15 @@ def train_gpt(
         load_checkpoint_tree(state, restored)
         del restored
         release_pinned()
-        log(f"[gpt] full state restored"
+        log(f"[gpt] {'sharded ' if multi else ''}full state restored"
             f"{' (in-run resume)' if resume_step is not None else ''}: "
             f"{time.monotonic() - t0:.1f}s")
     if mgr is not None:
         # Pool files for the saves, written while the first epoch trains.
         mgr.prewarm(checkpoint_tree(state, scan_layers=scan, abstract=True))
     train_step = make_train_step(
-        accum_steps=cfg.accum_steps, ema_decay=cfg.ema_decay or None
+        accum_steps=cfg.accum_steps, ema_decay=cfg.ema_decay or None,
+        mesh=mesh, comm_overlap=comm_overlap,
     )
     eval_step = make_eval_step()
     rng = 1
@@ -430,6 +515,7 @@ def train_gpt(
                 cold = False
                 t_epoch = time.monotonic()
             else:
+                # The global batch's tokens (every process loads it).
                 n_tokens += int(batch["y"].size)
         step_losses += losses
         epoch_s = time.monotonic() - t_epoch
@@ -470,8 +556,14 @@ def train_gpt(
                        if mgr is not None else None),
     )
     if cfg.sample_tokens > 0:
-        result.sample = _sample_greedy(cfg, state.model, log)
+        model = full_model(state)
+        if model is not None:
+            result.sample = _sample_greedy(cfg, model, log)
     return result
+
+
+def _quiet(*args, **kwargs) -> None:
+    """The log of every process but 0."""
 
 
 def _sample_greedy(cfg: GptTrainConfig, model, log) -> list[int]:

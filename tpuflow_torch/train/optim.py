@@ -35,6 +35,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from tpuflow_torch.dist.mesh import world_sum
+
 KINDS = ("adamw", "sgd", "lion", "adafactor")
 # optax.adamw's defaults.
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
@@ -87,10 +89,24 @@ def make_schedule(
     return warm
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
-    norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+def square_sums(tensors) -> torch.Tensor:
+    """Each tensor's sum of squares, f32, as one vector."""
+    norms = torch.stack(torch._foreach_norm([t.float() for t in tensors]))
+    return norms * norms
+
+
+def global_norm(tensors, sharded: list[bool] | None = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm).
+    ``sharded``: per tensor, True where it is this process's shard of a
+    tensor split over the world (FSDP); their square sums add over the
+    processes (one collective) before the root, the others count once."""
+    if sharded is None or not any(sharded):
+        norms = torch._foreach_norm([t.float() for t in tensors])
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sq = square_sums(tensors)
+    keep = torch.tensor(sharded, device=sq.device)
+    return torch.sqrt(world_sum(sq[keep].sum().reshape(1))[0]
+                      + sq[~keep].sum())
 
 
 class Leaves:
@@ -151,6 +167,10 @@ class Optimizer:
         self.scheduled = scheduled
         self.leaves = leaves or Leaves()
         self.count = 0
+        # Per parameter: a local shard of a parameter split over the world
+        # (set for a sharded state); the clip's norm then reduces over it.
+        self.sharded: list[bool] | None = None
+        self.last_grad_norm = None  # the last clip's (global) norm
         zeros = lambda: [torch.zeros_like(p) for p in self.params]  # noqa: E731
         self.mu = self.nu = self.trace = None
         self.v_row = self.v_col = self.v = None
@@ -235,7 +255,7 @@ class Optimizer:
         place. Returns the update tensors."""
         grads = list(grads)
         if self.grad_clip_norm is not None:
-            norm = global_norm(grads)
+            norm = self.last_grad_norm = global_norm(grads, self.sharded)
             keep = norm < self.grad_clip_norm
             grads = [torch.where(keep, g, g / norm * self.grad_clip_norm)
                      for g in grads]

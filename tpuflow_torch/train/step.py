@@ -13,6 +13,22 @@ take GPT token batches (``x``, ``y``: (B, T)) and image batches (``x``
 processes the gradients are averaged over its ``data`` axis before the
 update (one flat all-reduce).
 
+A sharded state (``state.plan``, ``parallel/sharding.py``: FSDP2 over the
+``data`` x ``fsdp`` processes) takes the JAX package's FSDP step
+(``make_train_step(grad_shardings=, comm_overlap=)``,
+``tpuflow/train/step.py:358-420``): each process runs its rows of the
+global batch (``dist.shard_batch``), its loss the mean over them. FSDP2
+reduce-scatters the gradients, averaged over the world, so each shard is
+the gradient of the global mean; with ``accum_steps > 1`` and
+``comm_overlap`` (the default) right after each microbatch's backward,
+the JAX overlap program, else once after the last (the sequential one:
+``set_requires_gradient_sync`` off for the others). The parameters held
+whole average their gradients with one all-reduce. The optimizer updates
+the local shards; its global-norm clip and the metrics reduce over the
+world (``_global_metrics``), so ``loss``, ``accuracy``, ``grad_norm``,
+``update_norm``, ``param_norm`` and ``nonfinite`` are the global values,
+bit-equal on every process.
+
 A model that returns auxiliary losses (GPT-2 with MoE blocks:
 ``sows_losses``) has their sum added to the task loss of each
 (micro)batch, as the JAX step adds the sown ``losses`` collection; the
@@ -40,26 +56,37 @@ from typing import Callable
 import numpy as np
 import torch
 
-from tpuflow_torch.dist.mesh import average_gradients
+import torch.distributed as tdist
+
+from tpuflow_torch.dist.mesh import average_gradients, shard_batch, world_sum
 from tpuflow_torch.models.gpt2 import fold_in
 from tpuflow_torch.models.losses import (
     accuracy,
     cross_entropy_loss,
     sum_sown_losses,
 )
-from tpuflow_torch.train.optim import Optimizer, health_stats, make_optimizer
+from tpuflow_torch.train.optim import (
+    Optimizer,
+    health_stats,
+    make_optimizer,
+    square_sums,
+)
 
 
 @dataclasses.dataclass
 class TrainState:
     """The model, its optimizer (which holds the parameter list, the
     moments and the LR schedule), the count of steps taken, and the EMA of
-    the parameters (None = EMA off)."""
+    the parameters (None = EMA off). A sharded state also carries its
+    ``plan`` (``parallel.ShardPlan``) and ``mesh`` (``dist.Mesh``); its
+    optimizer then holds the local shards (``plan.local``)."""
 
     model: torch.nn.Module
     tx: Optimizer
     step: int = 0
     ema_params: list[torch.Tensor] | None = None
+    plan: object | None = None
+    mesh: object | None = None
 
     @property
     def params(self) -> list[torch.Tensor]:
@@ -131,12 +158,51 @@ def _place(batch: dict, device) -> dict:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
+def _rows(state: TrainState, batch: dict) -> dict:
+    """This process's rows of the batch on its device: of the global batch
+    for a sharded state, all of it otherwise."""
+    if state.plan is not None:
+        return shard_batch(batch, state.mesh)
+    return _place(batch, state.params[0].device)
+
+
+def _global_metrics(state: TrainState, loss, acc, grads, updates,
+                    grad_norm=None) -> dict:
+    """The sharded step's metrics over the world with one collective: the
+    local loss and accuracy (means over this process's rows) and the
+    square sums of the sharded gradients, updates and parameters are
+    summed over the processes; the parameters held whole add their own
+    square sums once. ``grad_norm``: the clip's, already global."""
+    plan, params = state.plan, state.params
+    mask = plan.sharded
+    world = tdist.get_world_size()
+
+    def split(tensors):
+        sq = square_sums(tensors)
+        keep = torch.tensor(mask, device=sq.device)
+        return sq[keep].sum(), sq[~keep].sum()
+
+    parts = [split(t) for t in (grads, updates, params)]
+    local = torch.stack([loss.float(), acc.float(),
+                         *(sh for sh, _ in parts)])
+    total = world_sum(local)
+    g, u, p = (torch.sqrt(total[2 + i] + parts[i][1]) for i in range(3))
+    if grad_norm is not None:
+        g = grad_norm
+    loss, acc = total[0] / world, total[1] / world
+    finite = torch.isfinite(loss) & torch.isfinite(g) & torch.isfinite(u)
+    return {"loss": loss, "accuracy": acc, "grad_norm": g,
+            "update_norm": u, "param_norm": p,
+            "nonfinite": (~finite).float()}
+
+
 def make_train_step(
     loss_fn: Callable = cross_entropy_loss,
     *,
     accum_steps: int = 1,
     ema_decay: float | None = None,
     mesh=None,
+    comm_overlap: bool = True,
 ) -> Callable:
     """Build ``train_step(state, batch, rng) -> (state, metrics)``.
 
@@ -144,11 +210,13 @@ def make_train_step(
     ``x`` (B, H, W[, C]) images and ``y`` (B,) labels (host arrays or
     tensors); ``rng`` is an int seed. ``mesh`` (``dist.make_mesh``): the
     gradients are averaged over its ``data`` axis before the update (one
-    process: untouched). ``accum_steps > 1`` splits
+    process: untouched); a sharded state (``state.plan``) takes the FSDP
+    step below instead. ``accum_steps > 1`` splits
     the batch's rows into that many equal microbatches, runs forward and
     backward on each in turn (activation memory drops by that factor) and
-    feeds the averaged gradients to one update. ``metrics`` holds 0-dim
-    tensors (``loss``, ``accuracy``, ``grad_norm``, ``update_norm``,
+    feeds the averaged gradients to one update (``comm_overlap``: see the
+    module docstring; it changes nothing without a sharded state).
+    ``metrics`` holds 0-dim tensors (``loss``, ``accuracy``, ``grad_norm``, ``update_norm``,
     ``param_norm``, ``nonfinite``); reading one synchronizes.
     """
     if accum_steps < 1:
@@ -169,10 +237,12 @@ def make_train_step(
         return loss_fn(logits, y), logits
 
     def train_step(state: TrainState, batch, rng: int):
-        model, params = state.model, state.params
-        batch = _place(batch, params[0].device)
+        model, params, plan = state.model, state.params, state.plan
+        batch = _rows(state, batch)
         x, y = batch["x"], batch["y"]
         base = fold_in(rng, state.step)
+        if plan is not None:
+            model.zero_grad(set_to_none=True)
         for p in params:
             p.grad = None
         if accum_steps == 1:
@@ -190,6 +260,10 @@ def make_train_step(
             mb = n // accum_steps
             lsum = asum = 0.0
             for i in range(accum_steps):
+                if plan is not None and not comm_overlap:
+                    # The sequential program: one reduce-scatter, after
+                    # the last microbatch.
+                    model.set_requires_gradient_sync(i == accum_steps - 1)
                 rows = slice(i * mb, (i + 1) * mb)
                 l, logits = loss_of(model, x[rows], y[rows],
                                     fold_in(base, i))
@@ -197,7 +271,14 @@ def make_train_step(
                 lsum = lsum + l.detach()
                 asum = asum + accuracy(logits.detach(), y[rows])
             loss, acc = lsum / accum_steps, asum / accum_steps
-        grads = average_gradients([p.grad for p in params], mesh)
+        if plan is None:
+            grads = average_gradients([p.grad for p in params], mesh)
+        else:
+            grads = plan.local_grads(model)
+            whole = [i for i, sh in enumerate(plan.sharded) if not sh]
+            for i, g in zip(whole, average_gradients(
+                    [grads[i] for i in whole], state.mesh)):
+                grads[i] = g
         if accum_steps > 1:
             # Equal microbatches: the mean of microbatch means IS the
             # full-batch mean, for the loss and its gradient alike.
@@ -213,11 +294,16 @@ def make_train_step(
             with torch.no_grad():
                 for e, p in zip(state.ema_params, params):
                     e.copy_(e * ema_decay + (1.0 - ema_decay) * p)
-        metrics = {
-            "loss": loss,
-            "accuracy": acc,
-            **health_stats(loss, grads, updates, params),
-        }
+        if plan is None:
+            metrics = {
+                "loss": loss,
+                "accuracy": acc,
+                **health_stats(loss, grads, updates, params),
+            }
+        else:
+            metrics = _global_metrics(state, loss, acc, grads, updates,
+                                      state.tx.last_grad_norm)
+            model.zero_grad(set_to_none=True)
         for p in params:
             p.grad = None
         return state, metrics
@@ -233,7 +319,7 @@ def make_eval_step() -> Callable:
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch):
-        batch = _place(batch, state.params[0].device)
+        batch = _rows(state, batch)
         labels = batch["y"].long()
         logits = state.model(batch["x"], train=False).float()
         per_row = -torch.log_softmax(logits, dim=-1).gather(
@@ -255,7 +341,9 @@ def make_eval_step() -> Callable:
 def run_validation(state, loader, eval_step) -> float:
     """Mean per-token loss over a (possibly pad_tail) eval loader: each
     batch's per-row mask is broadcast to the label shape (padded rows of
-    an LM batch drop out whole) and the masked sums accumulate."""
+    an LM batch drop out whole) and the masked sums accumulate; a sharded
+    state's processes each sum their rows and the sums add over the
+    world."""
     tot = cnt = 0.0
     for b in loader:
         batch = {"x": b["x"], "y": b["y"]}
@@ -267,4 +355,11 @@ def run_validation(state, loader, eval_step) -> float:
         m = eval_step(state, batch)
         tot += float(m["loss_sum"])
         cnt += float(m["count"])
+    if getattr(state, "plan", None) is not None:
+        # A forward without a backward leaves the root's parameters
+        # gathered; the next training forward must gather them anew.
+        state.model.reshard()
+        tot, cnt = world_sum(torch.tensor([tot, cnt], dtype=torch.float64,
+                                          device=state.params[0].device)
+                             ).tolist()
     return tot / max(cnt, 1.0)
