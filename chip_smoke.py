@@ -145,7 +145,7 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    parameters, trained by two ranks, each a process of its own, sharing
    the one card over gloo (the mode the probe fixed, ``--gloo-probe``:
    ``FSDP_BACKEND``), the state sharded over them by the JAX rule;
-   2 epochs of 4 steps at 8 x 1024, f32, flash, full remat, AdamW, a
+   2 epochs of 2 steps at 8 x 1024, f32, flash, full remat, AdamW, a
    checkpoint each epoch. (a) The flash kernels at a rank's attention
    shape (4, 1024, 16, 64) against their plain versions with their
    times; (b) learning, each rank's flash launches exact, the state
@@ -160,7 +160,27 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    within the step-parity limits of the sharded step's; (e)
    ``TorchGptTrain`` at 124M as a two-member gang on the card and
    ``TorchGptEval`` from it at one process, its flash launches exact.
-13. One JSON line with every kernel's numbers (the int8 matmul both as one
+13. GPT-2 124M at full depth and width on the tensor and expert axes
+   (``tp_phase``): four ranks, each a process of its own, sharing the
+   card over gloo (the probe's mode; it also holds ``all_reduce``);
+   2 epochs of 2 steps at 8 x 1024, f32, flash, full remat, a checkpoint
+   each epoch. (a) data 1 x fsdp 2 x tensor 2, AdamW; (b) data 1 x fsdp 2
+   x expert 2, Switch MoE with 8 experts, Adafactor. The flash kernels at
+   each leg's attention shape a rank against their plain versions; each
+   leg learns, each rank's flash launches are exact, the ranks' metrics
+   bit-equal, the state sharded on the leg's axis (a: each rank 1/4 of
+   every leaf split over tensor and fsdp), the epoch-1 checkpoint on the
+   rule's regions with every crc32 checked, the in-run resume at four
+   ranks bit for bit, a restore at one process every leaf bit-equal, the
+   first step (its loss with the MoE's load-balance losses, its gradients
+   reduced by the train step's own reductions) on one device within the
+   step-parity limits; (a) also a restore at fsdp 2 (two ranks) every
+   leaf bit-equal, and the step saved as DCP and restored at one process
+   bit-equal to the raw restore; (b)
+   the summed load-balance loss finite, above 0 and bit-equal across
+   ranks. Step ms, tokens/s, peak memory, save and restore GB/s a rank,
+   the all-reduces of a step timed alone.
+14. One JSON line with every kernel's numbers (the int8 matmul both as one
    decode step at M = 8 and as the same 49 products at M = 512; the
    training kernels in f32 and bf16, their launches from the f32 legs and
    the bf16 leg, which runs the fused pair, so the bf16 split variants'
@@ -169,6 +189,7 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    flash kernels' launches in the flow phase; ``generation_launches``:
    those of the generation phase; ``recipe_launches``: those of phase 11;
    ``fsdp_launches``: those of phase 12's leg (b), both ranks';
+   ``tp_launches``: those of phase 13's two training legs, every rank's;
    the ``_vit`` entries at the
    ViT shape, f32, their launches the ViT leg's), the ``nvidia-smi`` line,
    and as the last line
@@ -187,8 +208,10 @@ them to ``chiprun_out/wide_compare.json``.
 ``python3 chip_smoke.py --recipes`` builds the kernels and runs only
 phase 11, into ``chiprun_out/recipes.json``; ``--fsdp`` only phase 12,
 into ``chiprun_out/fsdp.json`` (its ranks are ``--fsdp-rank`` processes
-of this script). ``python3 chip_smoke.py --gloo-probe`` runs only the
-probe that fixed phase 12's mode (``gloo_probe_rank``).
+of this script); ``--tp`` only phase 13, into ``chiprun_out/tp.json``
+(its ranks are ``--tp-rank`` and ``--tp-resave`` processes).
+``python3 chip_smoke.py --gloo-probe`` runs only the probe that fixed
+phases 12 and 13's mode (``gloo_probe_rank``).
 
 ``python3 chip_smoke.py --ckpt-ab [ORDER]`` runs only the split and resume
 legs, once for each letter of ORDER (default ``ABCCBA``): A as this
@@ -345,15 +368,16 @@ FLOW_GPT_BATCH, FLOW_GPT_STEPS = 8, 8
 FLOW_SAMPLE_TOKENS = 16
 # The image phase. ResNet-18 / CIFAR-10 (BASELINE config 1) through the
 # flows at width 64 and the train flow's batch 32 and lr 1e-3, the
-# synthetic train split cut from 50,000 to 10,000 rows to fit the time
-# limit (the 10,000 test rows whole).
-CIFAR_TRAIN_ROWS = 10_000
+# synthetic train split cut from 50,000 to 5,000 rows to fit the time
+# limit (10,000 until phase 13 came; the 10,000 test rows whole).
+CIFAR_TRAIN_ROWS = 5_000
 # ResNet-50 / imagenet_synth (BASELINE config 2 on one card) through
 # train_model: 224 x 224 x 3, 1000 classes, global batch 64, 2 epochs of
-# the dataset's default 2,000 synthetic rows (31 steps each), its 200
-# test rows. Then the step timed apart: warm-up steps, timed steps and
-# profiled steps, with the batches prefetched as the main path does.
-R50_BATCH, R50_EPOCHS = 64, 2
+# 1,024 synthetic rows (16 steps each; the dataset's default 2,000 until
+# phase 13 came, cut to fit the time limit), its 200 test rows. Then the
+# step timed apart: warm-up steps, timed steps and profiled steps, with
+# the batches prefetched as the main path does.
+R50_BATCH, R50_EPOCHS, R50_TRAIN_ROWS = 64, 2, 1024
 R50_TIMED_WARMUP, R50_TIMED_STEPS, R50_PROFILED_STEPS = 5, 20, 10
 # ViT-S/16 on imagenet_synth with attn_impl="flash" (f32, TF32 off): one
 # epoch of 4 steps at batch 64, 100 test rows (2 padded validation
@@ -378,8 +402,9 @@ CROSSOVER_BHD = (8, 12, 64)
 CROSSOVER_TS = (128, 256, 512, 1024, 2048, 4096)
 CROSSOVER_REPS = 11
 # Phase 12: GPT-2-medium (BASELINE config 5) trained by FSDP_WORLD ranks,
-# its state sharded over them, 2 epochs of 4 steps at 8 x 1024, f32,
-# flash, full remat, AdamW. The mode was fixed by a probe
+# its state sharded over them, 2 epochs of 2 steps at 8 x 1024 (4 until
+# phase 13 came, cut to fit the time limit), f32, flash, full remat,
+# AdamW. The mode was fixed by a probe
 # (``--gloo-probe``, ``gloo_probe_rank``; PERF.md §6): gloo carries
 # all_gather_into_tensor and reduce_scatter_tensor on CUDA tensors
 # between two processes on one card (64 MB bit-equal to the host's) and
@@ -388,7 +413,7 @@ CROSSOVER_REPS = 11
 # tests/test_torch_cuda.py runs the same leg over NCCL at one rank a card
 # where there are two cards.
 FSDP_WORLD, FSDP_BACKEND, FSDP_CARD = 2, "gloo", 0
-FSDP_EPOCHS, FSDP_STEPS_PER_EPOCH = 2, 4
+FSDP_EPOCHS, FSDP_STEPS_PER_EPOCH = 2, 2
 FSDP_STEPS = FSDP_EPOCHS * FSDP_STEPS_PER_EPOCH
 # One rank's attention: 8 / 2 rows of medium's 16 heads of 64 at 1024.
 FSDP_SHAPE = (4, 1024, 16, 64)
@@ -400,6 +425,33 @@ FLOW_FSDP_ARGS = ("--preset", "gpt2", "--seq-len", "1024", "--batch-size",
                   "--attn-impl", "flash", "--data-axis", "1", "--fsdp-axis",
                   str(FSDP_WORLD), "--device", f"cuda:{FSDP_CARD}",
                   "--dist-backend", FSDP_BACKEND)
+# Phase 13: GPT-2 124M at full width and depth on the tensor and expert
+# axes, TP_WORLD ranks sharing card TP_CARD over gloo (the mode the probe
+# fixed for phase 12; ``--gloo-probe`` also holds the all-reduce the
+# tensor and expert groups run to the host's sums), each a process of its
+# own: leg (a) data 1 x fsdp 2 x tensor 2 with AdamW, leg (b) data 1 x
+# fsdp 2 x expert 2, Switch MoE with MOE_EXPERTS experts and Adafactor.
+# 2 epochs of 2 steps at 8 x 1024, f32, flash, full remat (steps cut for
+# time), a checkpoint each epoch.
+TP_WORLD, TP_CARD = 4, 0
+TP_EPOCHS, TP_STEPS_PER_EPOCH = 2, 2
+TP_STEPS = TP_EPOCHS * TP_STEPS_PER_EPOCH
+TP_LEGS = {
+    "a": dict(data_axis=1, fsdp_axis=2, tensor_axis=2),
+    "b": dict(data_axis=1, fsdp_axis=2, expert_axis=2, experts=MOE_EXPERTS,
+              optimizer_name="adafactor"),
+}
+TP_AXIS = {"a": "tensor", "b": "expert"}
+# A rank's attention: 8 / 2 rows; (a) 12 / 2 heads of 64, (b) all 12.
+TP_SHAPES = {"a": (4, 1024, 6, 64), "b": (4, 1024, 12, 64)}
+# The all-reduces of one step on a leg's model group, each of one rank's
+# (4, 1024, 768) f32 activations: (a) the two row-parallel sums of a
+# block's forward, again in its remat recompute, and the two column
+# inputs' gradients in its backward; (b) the expert sum forward and
+# recomputed, and the expert input's gradient (the combine weights'
+# gradient, (4, 1024, 8, 160), adds 1.67 of these a block).
+TP_ALL_REDUCES = {"a": 6 * 12, "b": 3 * 12}
+TP_COLLECTIVE_REPS = 2
 
 
 def _smi_line() -> str:
@@ -2877,7 +2929,8 @@ def _leaves(tree) -> list:
 
 def resnet50_leg(torch, smi) -> dict:
     """ResNet-50 / imagenet_synth through ``train_model`` (``R50_EPOCHS``
-    epochs at global batch ``R50_BATCH``, cuDNN restricted to its
+    epochs of ``R50_TRAIN_ROWS`` rows at global batch ``R50_BATCH``,
+    cuDNN restricted to its
     deterministic algorithms for this leg), then an in-run resume from a
     copy of its storage without the newest step: every val_loss finite,
     the checkpoint's ``batch_stats`` finite for each of its 53
@@ -2890,7 +2943,8 @@ def resnet50_leg(torch, smi) -> dict:
     from tpuflow_torch.ops import int8_matmul as im
 
     call = dict(model="resnet50", dataset="imagenet_synth",
-                global_batch_size=R50_BATCH, epochs=R50_EPOCHS)
+                global_batch_size=R50_BATCH, epochs=R50_EPOCHS,
+                n_train=R50_TRAIN_ROWS)
     root = tempfile.mkdtemp(prefix="chip_smoke_resnet50_",
                             dir=os.path.join(REPO, "build"))
     deterministic = torch.backends.cudnn.deterministic
@@ -3629,46 +3683,72 @@ def _fsdp_want(cfg, steps: int, epochs: int) -> dict:
 
 
 def _first_grads(torch, cfg, mesh=None):
-    """The first batch's loss and gradients of ``cfg``'s fresh model,
-    dropout off and TF32 off, with no update: on one device, or sharded
-    over ``mesh`` (the FSDP step's reductions; process 0 gets the
-    gathered gradients, the others None)."""
+    """The first batch's loss (with a MoE model's load-balance losses)
+    and gradients of ``cfg``'s fresh model, dropout off and TF32 off, with
+    no update: on one device (the gradients on the card), or sharded over
+    ``mesh`` (the train step's reductions, ``train.step.
+    sharded_gradients``; process 0 gets the gathered gradients on the
+    host, the others None)."""
     from tpuflow_torch import dist
     from tpuflow_torch.data.lm import make_lm_loaders
     from tpuflow_torch.device import f32_matmul_precision
-    from tpuflow_torch.models.losses import cross_entropy_loss
+    from tpuflow_torch.models.losses import cross_entropy_loss, sum_sown_losses
     from tpuflow_torch.train.gpt import init_state
+    from tpuflow_torch.train.step import sharded_gradients
 
     mc = dataclasses.replace(cfg.model_config(), dropout=0.0)
     loader, _ = make_lm_loaders(cfg.batch_size, cfg.steps_per_epoch,
                                 cfg.seq_len, mc.vocab_size)
     loader.set_epoch(0)
     batch = next(iter(loader))
-    state = init_state(cfg, mc, f"cuda:{FSDP_CARD}" if mesh else "cuda",
+    state = init_state(cfg, mc, str(mesh.device) if mesh else "cuda",
                        mesh=mesh)
     if mesh is not None:
         batch = dist.shard_batch(batch, mesh)
     x, y = (torch.as_tensor(batch[k], device="cuda") for k in ("x", "y"))
     with f32_matmul_precision():
-        loss = cross_entropy_loss(state.model(x, train=True, rng=1), y)
+        if mc.n_experts:  # the train step's loss: with the MoE aux losses
+            logits, aux = state.model(x, train=True, rng=1, losses=True)
+            loss = cross_entropy_loss(logits, y) + sum_sown_losses(aux)
+        else:
+            loss = cross_entropy_loss(state.model(x, train=True, rng=1), y)
         loss.backward()
     torch.cuda.synchronize()
     named = list(state.model.named_parameters())
     if mesh is None:
         return float(loss.detach()), {n: p.grad.cpu() for n, p in named}
-    # The parameters held whole average their gradients as the step does.
+    # The gradients reduced as the train step reduces them.
     plan = state.plan
-    grads = plan.local_grads(state.model)
-    whole = [i for i, sh in enumerate(plan.sharded) if not sh]
-    for i, g in zip(whole, dist.average_gradients([grads[i] for i in whole],
-                                                  mesh)):
-        grads[i] = g
+    grads = sharded_gradients(state)
     grads = {n: plan.full(n, g, mesh).cpu()
              for n, g in zip(plan.names, grads)}
-    loss = float(dist.world_sum(loss.detach().reshape(1))[0]) / FSDP_WORLD
+    loss = float(dist.group_sum(loss.detach().reshape(1),
+                                mesh.fsdp_group)[0]) / plan.world
     del state, named
     torch.cuda.empty_cache()
     return loss, grads if dist.process_index() == 0 else None
+
+
+def _one_device_parity(torch, cfg, grads_path: str, d_loss: float,
+                       what: str) -> dict:
+    """The first step of ``cfg`` on one device against the sharded one's
+    (its loss ``d_loss``, the gradients its process 0 saved at
+    ``grads_path``), compared on the card: the loss within
+    PARITY_LOSS_ATOL, every gradient within PARITY_GRAD_RTOL of its max
+    |g|. Returns both errors and the check's seconds."""
+    t0 = time.monotonic()
+    loss1, g1 = _first_grads(torch, cfg)
+    gs = torch.load(grads_path, map_location="cpu")
+    loss_err = abs(loss1 - d_loss)
+    worst = max(float((g1[n] - gs[n].to(g1[n].device)).abs().max()
+                      / g1[n].abs().max().clamp_min(1e-30)) for n in g1)
+    del g1, gs
+    torch.cuda.empty_cache()
+    if not (loss_err <= PARITY_LOSS_ATOL and worst <= PARITY_GRAD_RTOL):
+        raise AssertionError(f"{what} step against one device: loss "
+                             f"{loss_err:.2e}, gradients {worst:.2e}")
+    return dict(loss_err=loss_err, grad_rel=worst,
+                seconds=time.monotonic() - t0)
 
 
 def _collective_ms(torch, n: int) -> dict:
@@ -3782,11 +3862,13 @@ def fsdp_rank(torch, rank: int, port: int, work: str) -> None:
 
 
 def gloo_probe_rank(torch, rank: int, port: int) -> None:
-    """One rank of the probe that fixed phase 12's mode (``--gloo-probe``):
-    FSDP_WORLD processes on card FSDP_CARD over one gloo group move 64 MB
-    CUDA tensors by ``all_gather_into_tensor`` and ``reduce_scatter_tensor``
-    (held bit-equal to the same gather and sums on the host), then FSDP2
-    takes a step of a two-layer model over the group; prints one line."""
+    """One rank of the probe that fixed phases 12 and 13's mode
+    (``--gloo-probe``): FSDP_WORLD processes on card FSDP_CARD over one
+    gloo group move 64 MB CUDA tensors by ``all_gather_into_tensor`` and
+    ``reduce_scatter_tensor`` (FSDP2's) and 128 MB by ``all_reduce`` (the
+    tensor and expert groups'), each held bit-equal to the same gather and
+    sums on the host, then FSDP2 takes a step of a two-layer model over
+    the group; prints one line."""
     import torch.distributed as tdist
     from torch.distributed.fsdp import fully_shard
 
@@ -3801,6 +3883,7 @@ def gloo_probe_rank(torch, rank: int, port: int) -> None:
             for r in range(FSDP_WORLD)]
     full = torch.empty(FSDP_WORLD * n, device="cuda")
     part = torch.empty(n, device="cuda")
+    red = host[rank].cuda()
     out = {"rank": rank}
     for name, fn, want in (
             ("all_gather", lambda: tdist.all_gather_into_tensor(
@@ -3810,7 +3893,9 @@ def gloo_probe_rank(torch, rank: int, port: int) -> None:
             ("reduce_scatter", lambda: tdist.reduce_scatter_tensor(
                 part, host[rank].cuda()),
              lambda: torch.equal(part.cpu(), sum(host)[rank * n:
-                                                       (rank + 1) * n]))):
+                                                       (rank + 1) * n])),
+            ("all_reduce", lambda: tdist.all_reduce(red),
+             lambda: torch.equal(red.cpu(), sum(host)))):
         torch.cuda.synchronize()
         tdist.barrier()
         t0 = time.monotonic()
@@ -3848,15 +3933,16 @@ def gloo_probe() -> int:
 
 def _rule_layout(step_dir: str) -> list:
     """The leaves of a checkpoint whose shards are not the JAX rule's at
-    FSDP_WORLD (``parallel.fsdp_dim``, the rule on the leaf's shape)."""
-    from tpuflow_torch.parallel import fsdp_dim
+    FSDP_WORLD (``parallel.leaf_spec``, the rule on the leaf's shape)."""
+    from tpuflow_torch.parallel import leaf_spec
 
     with open(os.path.join(step_dir, "state", "manifest.json")) as fh:
         manifest = json.load(fh)
     bad = []
     for e in manifest["leaves"]:
         shape = e["shape"]
-        d = fsdp_dim(shape, FSDP_WORLD)
+        spec = leaf_spec((), shape, {"fsdp": FSDP_WORLD})
+        d = spec.index("fsdp") if "fsdp" in spec else None
         want = {(tuple([0] * len(shape)), tuple(shape))}
         if d is not None:
             n = shape[d] // FSDP_WORLD
@@ -3883,7 +3969,7 @@ def fsdp_phase(torch, smi, kernel_rows: dict | None = None) -> dict:
     FSDP_CARD over gloo (see FSDP_BACKEND), each a process of its own:
     (a) the flash kernels at one rank's attention shape against their
     plain versions (``kernel_rows``: measured already); (b)
-    ``train_gpt`` for 2 epochs of 4 steps with a checkpoint each epoch:
+    ``train_gpt`` for 2 epochs of 2 steps with a checkpoint each epoch:
     it learns, each rank's flash launches are exact, the state is
     sharded (each rank's parameter and moment bytes about half the
     state's), the ranks' metrics are bit-equal; (c) the
@@ -4049,19 +4135,12 @@ def fsdp_phase(torch, smi, kernel_rows: dict | None = None) -> dict:
               f"{_io_line('restores', res1.checkpoint_io['restores'])} "
               f"[{smi}]")
         # (d) one device against the sharded first step.
-        loss1, g1 = _first_grads(torch, cfg)
-        gs = torch.load(os.path.join(work, "fsdp_grads.pt"))
-        loss_err = abs(loss1 - ranks[0]["d_loss"])
-        worst = max(float((g1[n] - gs[n]).abs().max()
-                          / g1[n].abs().max().clamp_min(1e-30)) for n in g1)
-        if not (loss_err <= PARITY_LOSS_ATOL and worst <= PARITY_GRAD_RTOL):
-            raise AssertionError(f"FSDP step against one device: loss "
-                                 f"{loss_err:.2e}, gradients {worst:.2e}")
-        out["parity"] = dict(loss_err=loss_err, grad_rel=worst)
+        out["parity"] = p = _one_device_parity(
+            torch, cfg, os.path.join(work, "fsdp_grads.pt"),
+            ranks[0]["d_loss"], "FSDP")
         print(f"fsdp (d): first step against one device: loss "
-              f"{loss_err:.2e} apart, every gradient within {worst:.2e} of "
-              f"its max |g| [{smi}]")
-        del g1, gs
+              f"{p['loss_err']:.2e} apart, every gradient within "
+              f"{p['grad_rel']:.2e} of its max |g| [{smi}]")
         torch.cuda.empty_cache()
         # (e) the flows.
         home = os.path.join(work, "home")
@@ -4103,6 +4182,462 @@ def fsdp_phase(torch, smi, kernel_rows: dict | None = None) -> dict:
     return out
 
 
+def _tp_cfg(leg: str, **kw):
+    """Phase 13's ``train_gpt`` call of leg ``leg``: GPT-2 124M at full
+    depth and width, 8 x 1024 tokens a step, f32, flash, full remat,
+    TP_EPOCHS epochs of TP_STEPS_PER_EPOCH steps, on the leg's mesh."""
+    from tpuflow_torch.train.gpt import GptTrainConfig
+
+    return GptTrainConfig(**{
+        "preset": "gpt2", "seq_len": 1024, "batch_size": 8,
+        "epochs": TP_EPOCHS, "steps_per_epoch": TP_STEPS_PER_EPOCH,
+        "attn_impl": "flash", **TP_LEGS[leg], **kw})
+
+
+def _tp_axes(cfg) -> dict:
+    return {"data": cfg.data_axis, "fsdp": cfg.fsdp_axis,
+            "tensor": cfg.tensor_axis, "expert": cfg.expert_axis}
+
+
+def _tp_collective_ms(torch, group, calls: int) -> dict:
+    """``calls`` gloo all-reduces of one rank's (4, 1024, 768) f32
+    activations on ``group``, on the card, timed alone: one step's
+    tensor- or expert-parallel volume."""
+    import torch.distributed as tdist
+
+    x = torch.ones(4 * 1024 * 768, device="cuda")
+    times = []
+    for _ in range(TP_COLLECTIVE_REPS):
+        tdist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(calls):
+            tdist.all_reduce(x, group=group)
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t0) * 1e3)
+    nbytes = calls * x.numel() * 4
+    ms = float(np.median(times))
+    return dict(all_reduce_ms=ms, calls=calls, bytes=nbytes,
+                gbps=nbytes / ms / 1e6)
+
+
+def tp_rank(torch, leg: str, rank: int, port: int, work: str) -> None:
+    """One rank of phase 13's leg ``leg`` (``--tp-rank``): the training leg
+    with a checkpoint each epoch; the all-reduces of a step alone; the
+    in-run resume at the same mesh from the directory without its last
+    step; the first step's gradients, sharded. Its records go to
+    ``work/rank<r>.json``."""
+    import faulthandler
+
+    from tpuflow_torch import dist
+    from tpuflow_torch.ops import flash_attention as fa
+    from tpuflow_torch.ops import int8_matmul as im
+    from tpuflow_torch.parallel import has_sharded_leaf
+    from tpuflow_torch.train import gpt as gpt_mod
+
+    faulthandler.enable()
+    dev = f"cuda:{TP_CARD}"
+    dist.initialize("cuda", rank=rank, world_size=TP_WORLD,
+                    init_method=f"tcp://localhost:{port}",
+                    backend=FSDP_BACKEND, device_index=TP_CARD)
+    cfg = _tp_cfg(leg)
+    log = (lambda m: print(f"  {m}", flush=True)) if rank == 0 else (
+        lambda m: None)
+    states = []
+    real_init = gpt_mod.init_state
+
+    def keep(*a, **kw):
+        states.append(real_init(*a, **kw))
+        return states[-1]
+
+    gpt_mod.init_state = keep
+    ckpt = os.path.join(work, "ckpt")
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters(fa, im)
+    t0 = time.monotonic()
+    res = gpt_mod.train_gpt(cfg, ckpt_dir=ckpt, log=log, device=dev)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = _counters(fa, im)
+    state = states[-1]
+    plan, mesh = state.plan, state.mesh
+    both = [i for i, n in enumerate(plan.names)
+            if plan.dims[n] is not None and plan.split[n]]
+    size = lambda shape: int(np.prod(shape))  # noqa: E731
+    tx = state.tx
+    opt = [t for ts in (*tx.slots().values(), *tx.leaf_slots().values())
+           for t in ts]
+    out = {"train": dict(
+        launches=launches, step_losses=res.step_losses,
+        loss_history=res.loss_history, epochs=res.metrics_history,
+        step_s=res.step_s, wall_s=wall, saves=res.checkpoint_io["saves"],
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        sharded=has_sharded_leaf(plan, axis=TP_AXIS[leg]),
+        split_share=(sum(state.params[i].numel() for i in both)
+                     / sum(size(plan.shapes[plan.names[i]]) for i in both)),
+        param_share=(sum(p.numel() for p in state.params)
+                     / sum(size(s) for s in plan.shapes.values())),
+        opt_bytes=sum(t.numel() * t.element_size() for t in opt),
+        param_bytes=sum(size(s) * 4 for s in plan.shapes.values()))}
+    if leg == "b":
+        # The summed load-balance loss of the first batch's forward on the
+        # trained state (the aux of the FSDP group's whole batch).
+        from tpuflow_torch.data.lm import make_lm_loaders
+
+        loader, _ = make_lm_loaders(cfg.batch_size, cfg.steps_per_epoch,
+                                    cfg.seq_len,
+                                    cfg.model_config().vocab_size)
+        loader.set_epoch(0)
+        x = dist.shard_batch(next(iter(loader)), mesh)["x"]
+        with torch.no_grad():
+            _, aux = state.model(x, train=True, rng=1, losses=True)
+        state.model.reshard()
+        out["train"]["aux"] = float(sum(a.float() for a in aux))
+    group = mesh.tensor_group if leg == "a" else mesh.expert_group
+    del state, states[:], tx, opt
+    torch.cuda.empty_cache()
+    out["collectives"] = _tp_collective_ms(torch, group, TP_ALL_REDUCES[leg])
+    # The in-run resume: the directory without its last step.
+    resume = os.path.join(work, "resume")
+    if rank == 0:
+        shutil.copytree(ckpt, resume, ignore=shutil.ignore_patterns(
+            ".recycle*", f"step_{TP_STEPS}"))
+    dist.barrier()
+    _zero_counters(fa, im)
+    res2 = gpt_mod.train_gpt(cfg, ckpt_dir=resume, log=log, device=dev)
+    torch.cuda.synchronize()
+    out["resume"] = dict(launches=_counters(fa, im),
+                         step_losses=res2.step_losses,
+                         restores=res2.checkpoint_io["restores"])
+    states.clear()
+    gpt_mod.init_state = real_init
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    loss, grads = _first_grads(torch, cfg, dist.make_mesh(dev,
+                                                          _tp_axes(cfg)))
+    out["d_loss"] = loss
+    if rank == 0:
+        torch.save(grads, os.path.join(work, "tp_grads.pt"))
+    del grads
+    out["d_s"] = time.monotonic() - t0
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh, default=float)
+    dist.barrier()
+    dist.shutdown()
+
+
+def tp_resave_rank(torch, leg: str, world: int, rank: int, port: int,
+                   src: str, dst: str, fmt: str) -> None:
+    """One rank of a restore of phase 13's step directory ``src`` (either
+    format) at ``world`` ranks (fsdp ``world``; leg (a)'s mesh at 4) on
+    card TP_CARD, saved again as step 1 in ``fmt`` into ``dst``
+    (``--tp-resave``); its save and restore records to
+    ``dst/rank<r>.json``."""
+    from tpuflow_torch import dist
+    from tpuflow_torch.ckpt import CheckpointManager, dcp, raw
+    from tpuflow_torch.ckpt.tree import checkpoint_tree, load_checkpoint_tree
+    from tpuflow_torch.train.gpt import init_state
+
+    dev = f"cuda:{TP_CARD}"
+    dist.initialize("cuda", rank=rank, world_size=world,
+                    init_method=f"tcp://localhost:{port}",
+                    backend=FSDP_BACKEND, device_index=TP_CARD)
+    cfg = _tp_cfg(leg) if world == TP_WORLD else _tp_cfg(
+        leg, data_axis=1, fsdp_axis=world, tensor_axis=1, expert_axis=1)
+    mc = cfg.model_config()
+    mesh = dist.make_mesh(dev, _tp_axes(cfg))
+    state = init_state(cfg, mc, dev, materialize=False, mesh=mesh)
+    tmpl = checkpoint_tree(state, scan_layers=mc.scan_layers, abstract=True)
+    state_dir = os.path.join(src, "state")
+    t0 = time.monotonic()
+    if dcp.is_dcp(state_dir):
+        tree, nbytes = dcp.load(state_dir, tmpl)
+    else:
+        stats = {}
+        tree = raw.restore_raw(state_dir, tmpl, stats=stats)
+        nbytes = stats["bytes"]
+    restore_s = time.monotonic() - t0
+    load_checkpoint_tree(state, tree)
+    del tree
+    mgr = CheckpointManager(dst, max_to_keep=None, multi_process=True,
+                            format=fmt)
+    mgr.save(1, checkpoint_tree(state, scan_layers=mc.scan_layers))
+    mgr.wait_until_finished()
+    saves = list(mgr.saves)
+    mgr.close()
+    with open(os.path.join(dst, f"rank{rank}.json"), "w") as fh:
+        json.dump(dict(saves=saves, restore=dict(
+            bytes=nbytes, seconds=restore_s,
+            gbps=nbytes / restore_s / 1e9)), fh, default=float)
+    dist.barrier()
+    dist.shutdown()
+
+
+def _spawn_ranks(args: list, world: int, what: str) -> float:
+    """Run ``world`` processes of this script with ``args`` (``{rank}`` and
+    ``{port}`` filled in) to their end; raises when one fails. Returns
+    the wall seconds."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    t0 = time.monotonic()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               *(a.format(rank=r, port=port) for a in args)])
+             for r in range(world)]
+    try:
+        rcs = [p.wait(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(rcs):
+        raise AssertionError(f"{what}: ranks exited {rcs}")
+    return time.monotonic() - t0
+
+
+def _tp_rule_layout(step_dir: str, axes: dict) -> list:
+    """The leaves of a checkpoint whose shards are not the regions the JAX
+    rule (``gpt2_tensor_rules`` on ``axes``) gives the mesh's processes."""
+    from tpuflow_torch.parallel import gpt2_tensor_rules, leaf_spec
+    from tpuflow_torch.parallel.sharding import region
+
+    shape = {a: axes.get(a, 1) for a in ("data", "fsdp", "tensor", "seq",
+                                         "expert")}
+    world = int(np.prod(list(shape.values())))
+    with open(os.path.join(step_dir, "state", "manifest.json")) as fh:
+        manifest = json.load(fh)
+    bad = []
+    for e in manifest["leaves"]:
+        spec = leaf_spec(e["path"], e["shape"], shape, gpt2_tensor_rules)
+        want = set()
+        for r in range(world):
+            c = dict(zip(shape, (int(i) for i in np.unravel_index(
+                r, list(shape.values())))))
+            start, extent = region(spec, e["shape"], c,
+                                   c["data"] * shape["fsdp"] + c["fsdp"],
+                                   shape)
+            want.add((tuple(start), tuple(extent)))
+        got = {(tuple(s["start"]), tuple(s["shape"])) for s in e["shards"]}
+        if got != want:
+            bad.append("/".join(e["path"]))
+    return bad
+
+
+def _equal_leaves(torch, got_tree, want_tree, what: str) -> int:
+    """Every leaf of ``got_tree`` bit-equal to ``want_tree``'s, the same
+    paths (by path: a restored tree's dicts flatten sorted, a state's
+    optimizer fields in optax's order); returns the count."""
+    from tpuflow_torch.ckpt import raw
+
+    got = {"/".join(p): t for p, t in raw.flatten(got_tree)}
+    want = {"/".join(p): t for p, t in raw.flatten(want_tree)}
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: the leaves differ")
+    for path, a in got.items():
+        if not torch.equal(a.detach().cpu(), want[path].detach().cpu()):
+            raise AssertionError(f"{what}: {path}")
+    return len(got)
+
+
+def _restore_one(torch, leg: str, step_dir: str):
+    """The state of ``step_dir`` restored at one process on the card, as
+    the JAX checkpoint tree of its tensors."""
+    from tpuflow_torch.ckpt import Checkpoint, restore_from_handle
+    from tpuflow_torch.ckpt.tree import checkpoint_tree, load_checkpoint_tree
+    from tpuflow_torch.train.gpt import init_state
+
+    cfg = _tp_cfg(leg, data_axis=1, fsdp_axis=1, tensor_axis=1,
+                  expert_axis=1)
+    mc = cfg.model_config()
+    state = init_state(cfg, mc, "cuda", materialize=False)
+    tmpl = checkpoint_tree(state, scan_layers=mc.scan_layers, abstract=True)
+    load_checkpoint_tree(state, restore_from_handle(
+        Checkpoint.from_directory(step_dir), abstract_state=tmpl))
+    return checkpoint_tree(state, scan_layers=mc.scan_layers)
+
+
+def tp_kernel_rows(torch, timer) -> dict:
+    """Phase 13's flash kernels at each leg's attention shape a rank, f32
+    (the legs' dtype), against their plain versions, with their times."""
+    shapes = tuple(TP_SHAPES.values())
+    return dict(kernels_fwd=flash_phase(torch, timer, shapes,
+                                        dtypes=("float32",)),
+                kernels_bwd=flash_bwd_phase(torch, timer, shapes,
+                                            dtypes=("float32",)))
+
+
+def tp_phase(torch, smi, kernel_rows: dict | None = None) -> dict:
+    """Phase 13: GPT-2 124M at full depth and width on the tensor and
+    expert axes, TP_WORLD ranks on card TP_CARD over gloo, each a process
+    of its own. (a) data 1 x fsdp 2 x tensor 2, AdamW; (b) data 1 x fsdp 2
+    x expert 2, Switch MoE with MOE_EXPERTS experts, Adafactor. Each leg:
+    learning; each rank's flash launches exact at its attention shape; the
+    ranks' metrics bit-equal; the state sharded on the leg's axis (a: each
+    rank 1/4 of every leaf split over tensor and fsdp); the epoch-1
+    checkpoint on the rule's regions with every crc32 checked; the in-run
+    resume at the mesh bit for bit; a restore at one process, every leaf
+    bit-equal; the first step on one device within the step-parity
+    limits. (a) also: a restore at fsdp 2 (two ranks), every leaf
+    bit-equal; the step saved as DCP at the mesh and restored at one
+    process bit-equal to the raw restore. (b) also: the MoE's summed load-balance
+    loss finite, > 0 and bit-equal across ranks; the Adafactor state's
+    bytes a rank. Each leg's step ms, tokens/s, peak memory a rank, save
+    and restore GB/s a rank and its all-reduces timed alone."""
+    t_phase = time.monotonic()
+    out = {"mode": f"{TP_WORLD} ranks on cuda:{TP_CARD} over "
+                   f"{FSDP_BACKEND}", "gpu": smi}
+    if kernel_rows is None:
+        kernel_rows = tp_kernel_rows(torch, Timer(torch))
+        torch.cuda.empty_cache()
+    out.update(kernel_rows)
+    for leg in ("a", "b"):
+        cfg = _tp_cfg(leg)
+        work = tempfile.mkdtemp(prefix=f"chip_smoke_tp_{leg}_",
+                                dir=os.path.join(REPO, "build"))
+        try:
+            out[leg] = _tp_leg(torch, smi, leg, cfg, work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    out["wall_s"] = time.monotonic() - t_phase
+    print(f"phase 13 wall {out['wall_s']:.1f} s [{smi}]")
+    return out
+
+
+def _tp_leg(torch, smi, leg: str, cfg, work: str) -> dict:
+    """Phase 13's leg ``leg`` and its checks (see ``tp_phase``)."""
+    from tpuflow_torch.ckpt import raw
+
+    axes = _tp_axes(cfg)
+    desc = " x ".join(f"{k} {v}" for k, v in axes.items())
+    ranks_s = _spawn_ranks(["--tp-rank", leg, "{rank}", "{port}", work],
+                           TP_WORLD, f"phase 13 ({leg})")
+    ranks = []
+    for r in range(TP_WORLD):
+        with open(os.path.join(work, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    tr = [r["train"] for r in ranks]
+    want = _fsdp_want(cfg, TP_STEPS, TP_EPOCHS)
+    for r, t in enumerate(tr):
+        if t["launches"] != want:
+            raise AssertionError(f"tp ({leg}) rank {r} launched "
+                                 f"{t['launches']}, want {want}")
+        if not t["sharded"] or (leg == "a" and t["split_share"] != 0.25):
+            raise AssertionError(f"tp ({leg}) rank {r}: sharded "
+                                 f"{t['sharded']}, {t['split_share']} of "
+                                 "the tensor- and fsdp-split leaves")
+
+    def metrics(t):
+        return t["step_losses"], [(e["train_loss"], e["val_loss"], e["ppl"])
+                                  for e in t["epochs"]], t.get("aux")
+
+    if any(metrics(t) != metrics(tr[0]) for t in tr[1:]):
+        raise AssertionError(f"tp ({leg}): the ranks' metrics differ: "
+                             f"{[metrics(t) for t in tr]}")
+    losses, hist = tr[0]["step_losses"], tr[0]["loss_history"]
+    if not (all(np.isfinite(losses)) and hist[-1] < losses[0]):
+        raise AssertionError(f"tp ({leg}): the loss did not fall: {losses}")
+    if leg == "b" and not (np.isfinite(tr[0]["aux"]) and tr[0]["aux"] > 0):
+        raise AssertionError(f"tp (b): load-balance loss {tr[0]['aux']}")
+    step_ms = float(np.median(tr[0]["step_s"][1:])) * 1e3
+    rec = dict(ranks=ranks, ranks_wall_s=ranks_s, step_ms=step_ms,
+               tokens_per_s=cfg.batch_size * cfg.seq_len / step_ms * 1e3)
+    coll = ranks[0]["collectives"]
+    print(f"tp ({leg}): GPT-2 124M on {desc} ({TP_WORLD} ranks on "
+          f"cuda:{TP_CARD} over {FSDP_BACKEND}), {cfg.optimizer_name}"
+          f"{', %d experts' % cfg.experts if cfg.experts else ''}, "
+          f"{TP_EPOCHS} x {TP_STEPS_PER_EPOCH} steps of 8 x 1024, f32, "
+          f"flash, full remat: step losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}"
+          + (f", summed aux {tr[0]['aux']:.6f}" if leg == "b" else "")
+          + f"; step {step_ms:.1f} ms (median after the cold step), "
+          f"{rec['tokens_per_s']:.0f} tokens/s; per rank: parameters "
+          f"{tr[0]['param_share']:.4f} of the model's, split leaves "
+          f"{tr[0]['split_share']:.4f}, optimizer state "
+          f"{tr[0]['opt_bytes'] / 2**20:.1f} MiB, peak memory "
+          f"{[round(t['peak_memory_bytes'] / 2**30, 2) for t in tr]} GiB, "
+          f"launches {tr[0]['launches']}; {coll['calls']} all-reduces of "
+          f"a step alone ({coll['bytes'] / 1e9:.3f} GB): "
+          f"{coll['all_reduce_ms']:.0f} ms, {coll['gbps']:.2f} GB/s "
+          f"[{smi}]")
+    for r, t in enumerate(tr):
+        print(f"tp ({leg}) rank {r}: {_io_line('saves', t['saves'])}")
+    # The epoch-1 checkpoint: the rule's regions, every crc32.
+    ckpt = os.path.join(work, "ckpt")
+    step_dir = os.path.join(ckpt, f"step_{TP_STEPS_PER_EPOCH}")
+    bad = _tp_rule_layout(step_dir, axes)
+    checked, corrupt = raw.verify_dir(os.path.join(step_dir, "state"))
+    if bad or corrupt or not checked:
+        raise AssertionError(f"tp ({leg}) epoch-1 checkpoint: leaves off "
+                             f"the rule {bad[:5]}, corrupt {corrupt[:5]}")
+    # The in-run resume at the mesh.
+    want_r = _fsdp_want(cfg, TP_STEPS_PER_EPOCH, 1)
+    for r, rank in enumerate(ranks):
+        res = rank["resume"]
+        if res["launches"] != want_r:
+            raise AssertionError(f"tp ({leg}) rank {r} resume launched "
+                                 f"{res['launches']}, want {want_r}")
+        if res["step_losses"] != losses[TP_STEPS_PER_EPOCH:]:
+            raise AssertionError(f"tp ({leg}) rank {r} resume losses "
+                                 f"{res['step_losses']}")
+    last = f"step_{TP_STEPS}"
+    if _shards(os.path.join(work, "resume", last)) != _shards(
+            os.path.join(ckpt, last)):
+        raise AssertionError(f"tp ({leg}): the resume's last step differs")
+    for r, rank in enumerate(ranks):
+        print(f"tp ({leg}) rank {r}: "
+              f"{_io_line('restores', rank['resume']['restores'])}")
+    # One process, every leaf.
+    whole = raw.restore_raw(os.path.join(step_dir, "state"))
+    t0 = time.monotonic()
+    n = _equal_leaves(torch, _restore_one(torch, leg, step_dir), whole,
+                      f"tp ({leg}) restore at one process")
+    rec["restore_one_s"] = time.monotonic() - t0
+    print(f"tp ({leg}): epoch-1 checkpoint on the rule's regions of "
+          f"{desc}, {checked} shard crc32s checked; in-run resume at "
+          f"{TP_WORLD} ranks bit for bit (losses, the last step's "
+          f"crc32s); at one process {n} leaves bit-equal [{smi}]")
+    if leg == "a":
+        # Two ranks at fsdp 2, every leaf; the step as DCP at the mesh,
+        # restored at one process, against the raw restore.
+        two = os.path.join(work, "two")
+        _spawn_ranks(["--tp-resave", leg, "2", "{rank}", "{port}", step_dir,
+                      two, "raw"], 2, "phase 13 (a) restore at fsdp 2")
+        n2 = _equal_leaves(torch, raw.restore_raw(os.path.join(
+            two, "step_1", "state")), whole, "tp (a) restore at fsdp 2")
+        rec["restore_two"] = [json.load(open(os.path.join(
+            two, f"rank{r}.json"))) for r in range(2)]
+        dcp_dir = os.path.join(work, "dcp")
+        _spawn_ranks(["--tp-resave", leg, str(TP_WORLD), "{rank}", "{port}",
+                      step_dir, dcp_dir, "dcp"], TP_WORLD,
+                     "phase 13 (a) DCP save")
+        rec["dcp"] = [json.load(open(os.path.join(
+            dcp_dir, f"rank{r}.json"))) for r in range(TP_WORLD)]
+        n3 = _equal_leaves(torch, _restore_one(torch, leg, os.path.join(
+            dcp_dir, "step_1")), whole, "tp (a) DCP restore at one process")
+        print(f"tp (a): restored at fsdp 2 (two ranks), {n2} leaves "
+              f"bit-equal ({_io_line('restore', [dict(step=1, **rec['restore_two'][0]['restore'])])}"
+              f"); saved as DCP by {TP_WORLD} ranks "
+              f"({_io_line('save', rec['dcp'][0]['saves'])} a rank) and "
+              f"restored at one process: {n3} leaves bit-equal to the raw "
+              f"restore [{smi}]")
+    del whole
+    # One device against the sharded first step (the loss with the MoE's
+    # load-balance losses; the gradients reduced by the train step's own
+    # ``sharded_gradients``).
+    rec["parity"] = p = _one_device_parity(
+        torch, cfg, os.path.join(work, "tp_grads.pt"), ranks[0]["d_loss"],
+        f"tp ({leg})")
+    print(f"tp ({leg}): first step against one device: loss "
+          f"{p['loss_err']:.2e} apart, every gradient within "
+          f"{p['grad_rel']:.2e} of its max |g| (the check {p['seconds']:.1f}"
+          f" s here, {ranks[0]['d_s']:.1f} s in the ranks) [{smi}]")
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -4128,6 +4663,15 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--gloo-probe"]:
         return gloo_probe()
+    if sys.argv[1:2] == ["--tp-rank"]:
+        tp_rank(torch, sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
+                sys.argv[5])
+        return 0
+    if sys.argv[1:2] == ["--tp-resave"]:
+        tp_resave_rank(torch, sys.argv[2], int(sys.argv[3]),
+                       int(sys.argv[4]), int(sys.argv[5]), sys.argv[6],
+                       sys.argv[7], sys.argv[8])
+        return 0
     from tpuflow_torch.device import f32_matmul_precision
     from tpuflow_torch.ops import _build
 
@@ -4148,6 +4692,12 @@ def main() -> int:
         with open(os.path.join(REPO, "chiprun_out", "fsdp.json"), "w") as fh:
             json.dump(fsdp, fh, indent=1, default=float)
         return 0
+    if sys.argv[1:2] == ["--tp"]:
+        tp = tp_phase(torch, smi)
+        os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(REPO, "chiprun_out", "tp.json"), "w") as fh:
+            json.dump(tp, fh, indent=1, default=float)
+        return 0
 
     walls = {}
     lap = [time.monotonic()]
@@ -4166,6 +4716,7 @@ def main() -> int:
     vit_rows = flash_phase(torch, timer, (VIT_SHAPE,), causal=False)
     vit_bwd_rows = flash_bwd_phase(torch, timer, (VIT_SHAPE,), causal=False)
     fsdp_rows = fsdp_kernel_rows(torch, timer)
+    tp_rows = tp_kernel_rows(torch, timer)
     event_timed = timer.event_timed
     print(f"kernel times read from CUDA events, the profiler having held "
           f"too few whole calls: {event_timed}")
@@ -4190,6 +4741,8 @@ def main() -> int:
     wall("recipes phase")
     fsdp = fsdp_phase(torch, smi, fsdp_rows)
     wall("fsdp phase")
+    tp = tp_phase(torch, smi, tp_rows)
+    wall("tp phase")
 
     # One JSON entry per kernel. flash: one launch at the generate() leg's
     # shape (f32, 1 x 512 x 12 x 64). int8: the 49 launches of one int8
@@ -4364,6 +4917,11 @@ def main() -> int:
             # rank's count is checked exactly in the phase).
             entry["fsdp_launches"] = sum(r["b"]["launches"][entry["name"]]
                                          for r in fsdp["ranks"])
+            # Phase 13's two training legs, every rank's launches summed
+            # (each rank's count is checked exactly in the phase).
+            entry["tp_launches"] = sum(
+                r["train"]["launches"][entry["name"]]
+                for leg in ("a", "b") for r in tp[leg]["ranks"])
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(dict(gpu=smi, build_s=build_s, flash=flash_rows,
@@ -4371,7 +4929,7 @@ def main() -> int:
                        head_dims=head_rows, slice=sl, generation=gen,
                        train=tr,
                        main_path=main_path, flows=flows, image=image,
-                       recipes=recipes, fsdp=fsdp,
+                       recipes=recipes, fsdp=fsdp, tp=tp,
                        vit_flash=vit_rows, vit_flash_bwd=vit_bwd_rows,
                        event_timed=event_timed, walls=walls,
                        kernels=kernels),

@@ -986,6 +986,37 @@ def test_gpt2_medium_fsdp_over_nccl_on_two_cards(cuda, tmp_path):
         store.set_home(None)
 
 
+def test_gpt2_tensor_parallel_over_nccl_on_two_cards(cuda, tmp_path):
+    """Phase 13's tensor leg at one process a card: ``TorchGptTrain`` at
+    GPT-2 124M (the flash kernels on 6 heads a card, full remat) over
+    ``tensor`` 2, a 2-member gang over NCCL whose blocks run
+    Megatron-style across the two cards; the loss falls, the checkpoint
+    is the two processes', and ``TorchGptEval`` restores it at one
+    process with a finite test loss. Skips below two cards (on one card
+    chip_smoke.py runs fsdp 2 x tensor 2 with four ranks sharing it over
+    gloo)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: one tensor rank a card")
+    from tpuflow_torch.flow import Run, store
+    from tpuflow_torch.flows import gpt_eval_flow, gpt_flow
+
+    home = str(tmp_path / "home")
+    try:
+        run = Run(gpt_flow.main([
+            "run", "--preset", "gpt2", "--seq-len", "1024",
+            "--batch-size", "8", "--epochs", "2", "--steps-per-epoch", "2",
+            "--attn-impl", "flash", "--data-axis", "1", "--fsdp-axis", "1",
+            "--tensor-axis", "2", "--home", home]))
+        hist = run.data.loss_history
+        assert all(np.isfinite(hist)) and hist[1] < hist[0]
+        assert run.data.result_checkpoint.metadata["process_count"] == 2
+        ev = Run(gpt_eval_flow.main(["run", "--triggered", "--attn-impl",
+                                     "flash", "--home", home]))
+        assert np.isfinite(ev.data.test_loss)
+    finally:
+        store.set_home(None)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T", [65, 197])
 def test_flash_noncausal_vit_lengths_match_plain(cuda, dtype, T):

@@ -35,8 +35,8 @@ from tpuflow_torch.ckpt.tree import params_to_jax
 from tpuflow_torch.models.gpt2 import GPT2
 from tpuflow_torch.parallel import (
     ShardPlan,
-    fsdp_dim,
     has_sharded_leaf,
+    leaf_spec,
     make_shardings,
 )
 from tpuflow_torch.train import gpt as tgpt
@@ -50,9 +50,14 @@ def _port_model(preset: str):
     return GPT2(cfg, seed=None, device="meta"), cfg.scan_layers
 
 
+def _fsdp(world: int) -> dist.Mesh:
+    """The mesh of an fsdp world of ``world`` as its process 0 sees it."""
+    return dist.Mesh({"data": 1, "fsdp": world}, torch.device("meta"))
+
+
 def _leaf_paths(preset: str) -> list[str]:
     model, scan = _port_model(preset)
-    return ["/".join(p) for p in ShardPlan(model, scan, 2).leaves]
+    return ["/".join(p) for p in ShardPlan(model, scan, _fsdp(2)).leaves]
 
 
 @functools.lru_cache(maxsize=None)
@@ -80,7 +85,7 @@ def _jax_dims(preset: str, world: int) -> dict:
 @functools.lru_cache(maxsize=None)
 def _port(preset: str, world: int):
     model, scan = _port_model(preset)
-    plan = ShardPlan(model, scan, world)
+    plan = ShardPlan(model, scan, _fsdp(world))
     local = {}
     for name, p in model.named_parameters():
         shape = list(p.shape)
@@ -135,14 +140,17 @@ def test_layer_axis_keeps_the_torch_parameters_whole():
 def test_make_shardings_and_has_sharded_leaf():
     tree = {"a": torch.empty(64, 128, device="meta"),
             "b": torch.empty(10, device="meta")}
-    assert make_shardings(tree, 2) == {"a": 1, "b": None}
-    assert fsdp_dim((128, 64), 2) == 0 and fsdp_dim((64, 64), 2) == 1
-    assert fsdp_dim((4096,), 1) is None and fsdp_dim((4095,), 2) is None
-    assert has_sharded_leaf(make_shardings(tree, 2))
-    assert not has_sharded_leaf(make_shardings(tree, 1))
+    two, one = {"fsdp": 2}, {"fsdp": 1}
+    assert make_shardings(tree, two) == {"a": (None, "fsdp"), "b": (None,)}
+    assert leaf_spec((), (128, 64), two) == ("fsdp", None)
+    assert leaf_spec((), (64, 64), two) == (None, "fsdp")
+    assert leaf_spec((), (4096,), one) == (None,)
+    assert leaf_spec((), (4095,), two) == (None,)
+    assert has_sharded_leaf(make_shardings(tree, two))
+    assert not has_sharded_leaf(make_shardings(tree, one))
     model, scan = _port_model("test")
-    assert has_sharded_leaf(ShardPlan(model, scan, 2))
-    assert not has_sharded_leaf(ShardPlan(model, scan, 1))
+    assert has_sharded_leaf(ShardPlan(model, scan, _fsdp(2)))
+    assert not has_sharded_leaf(ShardPlan(model, scan, _fsdp(1)))
 
 
 def test_fsdp2_places_the_rule_shards():
@@ -175,7 +183,10 @@ def test_named_mesh_of_one_process():
         dist.make_mesh("cpu", {"data": 2, "fsdp": 2})
     with pytest.raises(ValueError, match="unknown mesh axes"):
         dist.make_mesh("cpu", {"pipe": 1})
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 14b"):
+        dist.make_mesh("cpu", {"seq": 2})
+    with pytest.raises(ValueError, match="wants 2 processes but the world "
+                       "has 1"):
         dist.make_mesh("cpu", {"tensor": 2})
     with pytest.raises(ValueError, match="both dcn and ici"):
         dist.make_hybrid_mesh({"data": 1}, {"data": 1}, "cpu")

@@ -157,13 +157,15 @@ def test_world_smaller_than_the_mesh_raises():
 
 
 @pytest.mark.parametrize("extra", [
-    {"optimizer_name": "adafactor"}, {"experts": 2},
-], ids=["adafactor", "moe"])
+    {"seq_axis": 2, "fsdp_axis": 1}, {"attn_impl": "ulysses"},
+], ids=["seq", "ulysses"])
 def test_sharded_recipes_deferred(extra):
-    """Adafactor and Switch-MoE blocks on two processes raise, naming the
-    ROADMAP item, before any collective."""
+    """Adafactor and Switch-MoE blocks train on several processes now
+    (``tests/test_torch_tp_train.py``); what two processes still refuse
+    is sequence parallelism, which raises naming ROADMAP item 14b before
+    any collective."""
     cfg = {**BASE, "data_axis": 1, "fsdp_axis": 2, **extra}
-    with pytest.raises(RuntimeError, match="item 12b-2"):
+    with pytest.raises(RuntimeError, match="item 14b"):
         spawn_world(2, "fsdp_train", cfg=cfg)
 
 

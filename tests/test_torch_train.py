@@ -238,18 +238,21 @@ def test_gpt_train_config_matches_jax():
     ({"tensor_axis": 2}, "tensor_axis=2"),
     ({"stage_axis": 2}, "pipeline"),
     ({"seq_axis": 2}, "seq_axis=2"),
+    ({"attn_impl": "ring"}, "ring"),
+    ({"attn_impl": "ulysses"}, "ulysses"),
 ])
 def test_train_gpt_deferred_config_raises(kw, match):
-    """What the port does not run raises NotImplementedError naming its
-    ROADMAP item; a data x fsdp mesh runs on that many processes, so in
-    this one process it raises ValueError naming the mesh and the world."""
+    """What the port does not run (sequence and pipeline parallelism)
+    raises NotImplementedError naming ROADMAP item 14b; a data x fsdp x
+    tensor x expert mesh runs on that many processes, so in this one
+    process it raises ValueError naming the mesh and the world."""
     cfg = tgpt.GptTrainConfig(**{"data_axis": 1, "fsdp_axis": 1,
                                  "steps_per_epoch": 1, "epochs": 1, **kw})
     with pytest.raises((NotImplementedError, ValueError),
                        match=match) as err:
         tgpt.train_gpt(cfg, log=lambda m: None, device="cpu")
     if err.type is NotImplementedError:
-        assert "ROADMAP" in str(err.value)
+        assert "ROADMAP Queue 1 item 14b" in str(err.value)
     else:
         assert "the world has 1" in str(err.value)
 

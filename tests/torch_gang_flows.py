@@ -200,8 +200,14 @@ def _jax_init(init_npz: str | None, dropout0: bool):
     tgpt._init_model = init_model
 
 
+def _mesh_axes(cfg) -> dict:
+    return {"data": cfg.data_axis, "fsdp": cfg.fsdp_axis,
+            "tensor": cfg.tensor_axis, "expert": cfg.expert_axis}
+
+
 def fsdp_train(cfg: dict, ckpt_dir=None, init_npz=None, dropout0=True,
-               resume=None, comm_overlap=True, drop_last=False):
+               resume=None, comm_overlap=True, drop_last=False,
+               ckpt_format="raw"):
     """``train_gpt`` on this world (``cfg``: ``GptTrainConfig`` fields);
     ``resume``: a checkpoint directory to restore from (a handle).
     Returns the losses, the validation losses, the checkpoint records and
@@ -224,7 +230,8 @@ def fsdp_train(cfg: dict, ckpt_dir=None, init_npz=None, dropout0=True,
         tgpt.GptTrainConfig(**cfg), ckpt_dir=ckpt_dir,
         resume_checkpoint=(Checkpoint.from_directory(resume)
                            if resume else None),
-        device="cpu", log=lambda m: None, comm_overlap=comm_overlap)
+        device="cpu", log=lambda m: None, comm_overlap=comm_overlap,
+        ckpt_format=ckpt_format)
     return {"step_losses": res.step_losses,
             "loss_history": res.loss_history,
             "val": [m["val_loss"] for m in res.metrics_history],
@@ -233,13 +240,15 @@ def fsdp_train(cfg: dict, ckpt_dir=None, init_npz=None, dropout0=True,
             "sharded": plans[0] is not None and has_sharded_leaf(plans[0])}
 
 
-def fsdp_resave(cfg: dict, src: str, dst: str, step: int = 1):
-    """Restore the checkpoint directory ``src`` (a step) onto this world's
-    sharded state (``cfg``'s model and optimizer) and save it again into
-    the manager directory ``dst`` as ``step``; returns the bytes this
-    process read and wrote and its local parameter shapes."""
+def fsdp_resave(cfg: dict, src: str, dst: str, step: int = 1,
+                fmt: str = "raw"):
+    """Restore the checkpoint directory ``src`` (a step, either format)
+    onto this world's sharded state (``cfg``'s model and optimizer) and
+    save it again in ``fmt`` into the manager directory ``dst`` as
+    ``step``; returns the bytes this process read and wrote and its local
+    parameter shapes."""
     from tpuflow_torch import dist
-    from tpuflow_torch.ckpt import CheckpointManager, raw
+    from tpuflow_torch.ckpt import CheckpointManager, dcp, raw
     from tpuflow_torch.ckpt.tree import checkpoint_tree, load_checkpoint_tree
     from tpuflow_torch.train import gpt as tgpt
 
@@ -247,15 +256,18 @@ def fsdp_resave(cfg: dict, src: str, dst: str, step: int = 1):
     mc = tcfg.model_config()
     mesh = None
     if dist.process_count() > 1:
-        mesh = dist.make_mesh("cpu", {"data": tcfg.data_axis,
-                                      "fsdp": tcfg.fsdp_axis})
+        mesh = dist.make_mesh("cpu", _mesh_axes(tcfg))
     state = tgpt.init_state(tcfg, mc, "cpu", materialize=False, mesh=mesh)
     tmpl = checkpoint_tree(state, scan_layers=mc.scan_layers, abstract=True)
     stats = {}
-    tree = raw.restore_raw(os.path.join(src, "state"), tmpl, stats=stats)
+    if dcp.is_dcp(os.path.join(src, "state")):
+        tree, stats["bytes"] = dcp.load(os.path.join(src, "state"), tmpl)
+    else:
+        tree = raw.restore_raw(os.path.join(src, "state"), tmpl,
+                               stats=stats)
     load_checkpoint_tree(state, tree)
     mgr = CheckpointManager(dst, max_to_keep=None,
-                            multi_process=mesh is not None)
+                            multi_process=mesh is not None, format=fmt)
     mgr.save(step, checkpoint_tree(state, scan_layers=mc.scan_layers))
     mgr.wait_until_finished()
     saves = list(mgr.saves)
@@ -271,8 +283,7 @@ def fsdp_local_shards(cfg: dict):
     from tpuflow_torch.train import gpt as tgpt
 
     tcfg = tgpt.GptTrainConfig(**cfg)
-    mesh = dist.make_mesh("cpu", {"data": tcfg.data_axis,
-                                  "fsdp": tcfg.fsdp_axis})
+    mesh = dist.make_mesh("cpu", _mesh_axes(tcfg))
     state = tgpt.init_state(tcfg, device="cpu", mesh=mesh)
     return {"index": mesh.index, "dims": state.plan.dims,
             "local": {n: t.detach().numpy().copy() for n, t in
@@ -290,4 +301,36 @@ def mesh_layout(axes=None, dcn=None, ici=None, rows: int = 8):
     got = dist.shard_batch({"x": np.arange(rows)}, mesh)
     return {"index": mesh.index, "shape": mesh.shape,
             "coords": list(mesh.device_mesh.get_coordinate()),
-            "rows": got["x"].tolist()}
+            "all_coords": dict(mesh.coords), "rows": got["x"].tolist()}
+
+
+def moe_aux(cfg: dict, init_npz: str):
+    """The load-balance loss of layer 0's MoE ``test`` layer (weights from
+    the JAX init in ``init_npz``) on this process's rows of a seeded
+    global input, as a model sharded over the world computes it (its
+    means over the FSDP group), and the aux of the process's rows alone;
+    also the global input."""
+    import types
+
+    import torch.distributed as tdist
+
+    from tpuflow_torch.models.moe import MoEMLP
+    from tpuflow_torch.train import gpt as tgpt
+
+    mc = tgpt.GptTrainConfig(**cfg).model_config()
+    C = mc.n_embd
+    m = MoEMLP(C, 4 * C, mc.n_experts)
+    with np.load(init_npz) as z, torch.no_grad():
+        m.gate.weight.copy_(torch.from_numpy(z["h0/moe/gate/kernel"]).T)
+        m.gate.bias.copy_(torch.from_numpy(z["h0/moe/gate/bias"]))
+        for k in ("w1", "b1", "w2", "b2"):
+            getattr(m, k).copy_(torch.from_numpy(z[f"h0/moe/{k}"]))
+    x = np.random.default_rng(0).standard_normal(
+        (4, 16, C)).astype(np.float32)
+    rank, world = tdist.get_rank(), tdist.get_world_size()
+    rows = torch.from_numpy(x[rank * 4 // world:(rank + 1) * 4 // world])
+    own = float(m(rows)[1].detach())
+    m.tp = types.SimpleNamespace(fsdp_group=tdist.group.WORLD, t=1, e=1)
+    aux = m(rows.clone().requires_grad_())[1]
+    aux.backward()
+    return {"aux": float(aux.detach()), "own_aux": own, "want_input": x.tolist()}

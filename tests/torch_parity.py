@@ -84,7 +84,7 @@ else:
     from tpuflow import dist
     from tpuflow.ckpt.raw import restore_raw
     from tpuflow.models.gpt2 import GPT2
-    from tpuflow.parallel import create_sharded_state
+    from tpuflow.parallel import create_sharded_state, gpt2_tensor_rules
     from tpuflow.train import TrainState
 
     model = GPT2(cfg.model_config())
@@ -95,11 +95,16 @@ else:
         return TrainState.create(apply_fn=model.apply, params=params,
                                  tx=tx)
 
-    mesh = dist.make_mesh({"data": cfg.data_axis, "fsdp": cfg.fsdp_axis})
+    mesh = dist.make_mesh({"data": cfg.data_axis, "fsdp": cfg.fsdp_axis,
+                           "tensor": cfg.tensor_axis,
+                           "expert": cfg.expert_axis})
+    rules = (gpt2_tensor_rules if cfg.tensor_axis > 1 or cfg.expert_axis > 1
+             else None)
     born = args["mode"] == "init_save"
     with mesh:
         state, _ = create_sharded_state(init_fn, mesh,
                                         jax.random.PRNGKey(0),
+                                        tensor_rules=rules,
                                         materialize=born)
         tmpl = {"step": state.step, "params": state.params,
                 "opt_state": state.opt_state}
@@ -132,7 +137,9 @@ def run_jax(devices: int, mode: str, workdir: str, **args) -> dict:
     ``mode="restore"`` restores the checkpoint directory ``src`` onto the
     sharded state of ``cfg``'s mesh and writes its leaves to ``out_npz``;
     ``mode="init_save"`` saves the state born sharded on that mesh as
-    step 1 under ``ckpt_dir``.
+    step 1 under ``ckpt_dir``. The meshes take ``cfg``'s ``tensor_axis``
+    and ``expert_axis`` with ``gpt2_tensor_rules``, as the JAX recipe
+    does.
     ``workdir`` holds the JAX package's home and data directories."""
     out = os.path.join(workdir, f"jax_{mode}_{len(os.listdir(workdir))}.json")
     env = dict(os.environ, TPUFLOW_HOME=os.path.join(workdir, "home"),

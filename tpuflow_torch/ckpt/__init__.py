@@ -1,6 +1,6 @@
-"""Checkpoints: the raw format, the manager and the handle (counterpart of
-``tpuflow/ckpt``), plus ``tree``, which lays the port's training state out
-as the JAX checkpoint tree."""
+"""Checkpoints: the raw format, the DCP format (``dcp``), the manager and
+the handle (counterpart of ``tpuflow/ckpt``), plus ``tree``, which lays
+the port's training state out as the JAX checkpoint tree."""
 
 from tpuflow_torch.ckpt.handle import Checkpoint
 from tpuflow_torch.ckpt.manager import (

@@ -51,14 +51,22 @@ pool (``.recycle.p<rank>``). Every process therefore sees the same
 committed steps. A data-parallel run whose process 0 alone saves a full
 replica keeps the default (``multi_process`` False).
 
+``format="dcp"`` (the JAX package's ``orbax`` choice, ``ckpt/dcp.py``)
+writes each step's ``state`` with ``torch.distributed.checkpoint``
+instead, synchronously and committed at once; the step directories,
+metadata, metrics history and retention are the same, and a restore reads
+whichever format a step holds. A DCP step does not cross into the JAX
+package.
+
 Not here yet: the node-local tier and its upload, ``emergency_save`` (ROADMAP
-Queue 1 item 12c + 8b), the Orbax format (item 12b-2), and the JAX
-package's ``obs`` events and fault-injection hooks.
+Queue 1 item 12c + 8b), and the JAX package's ``obs`` events and
+fault-injection hooks.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -68,7 +76,7 @@ from typing import Any
 import torch
 import torch.distributed as tdist
 
-from tpuflow_torch.ckpt import raw
+from tpuflow_torch.ckpt import dcp, raw
 from tpuflow_torch.ckpt.handle import Checkpoint
 
 _STATE_DIR = "state"
@@ -77,6 +85,7 @@ _STEP_PREFIX = "step_"
 _STAGE_SUFFIX = ".tmp"
 _POOL_DIR = ".recycle"
 _SAVE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+FORMATS = ("raw", "dcp")
 
 
 def _atomic_write_json(path: str, obj) -> None:
@@ -100,9 +109,9 @@ def _downcast(tree, dtype_name: str):
             if leaf.data is None:
                 narrow = (leaf.dtype.is_floating_point and torch.empty(
                     (), dtype=leaf.dtype).element_size() > width)
-                return raw.Piece(leaf.shape, leaf.start, None,
-                                 target if narrow else leaf.dtype)
-            return raw.Piece(leaf.shape, leaf.start, cast(leaf.data))
+                return dataclasses.replace(
+                    leaf, dtype=target if narrow else leaf.dtype)
+            return dataclasses.replace(leaf, data=cast(leaf.data))
         if (isinstance(leaf, torch.Tensor) and leaf.is_floating_point()
                 and leaf.element_size() > width):
             return leaf.to(target)
@@ -115,7 +124,7 @@ def _saved_nbytes(leaf, dtype_name: str | None) -> int:
     """A leaf's shard bytes as ``save`` writes it (``_downcast``'s widths;
     ``meta`` tensors count too; a ``raw.Piece``'s shard, 0 without one)."""
     if isinstance(leaf, raw.Piece):
-        if leaf.data is None:
+        if leaf.data is None or not leaf.owner:
             return 0
         leaf = leaf.data
     size = leaf.element_size()
@@ -133,13 +142,18 @@ class CheckpointManager:
     ``save()`` blocks for). ``multi_process``: every process of the world
     saves its shards and commits collectively (see the module docstring);
     every process must then call the manager's methods at the same
-    points."""
+    points. ``format``: ``raw`` (``tpuflow-raw-v2``, which crosses into
+    the JAX package) or ``dcp`` (``torch.distributed.checkpoint``)."""
 
     def __init__(self, directory: str, *, max_to_keep: int | None = 2,
                  best_metric: str = "val_loss", best_mode: str = "min",
                  async_save: bool = True, save_dtype: str | None = None,
                  io_retries: int = 4, io_backoff_s: float = 0.05,
-                 multi_process: bool = False):
+                 multi_process: bool = False, format: str = "raw"):
+        if format not in FORMATS:
+            raise ValueError(f"format must be one of {FORMATS}, got "
+                             f"{format!r}")
+        self.format = format
         if save_dtype is not None and save_dtype not in _SAVE_DTYPES:
             raise ValueError(
                 f"save_dtype must be None, 'bfloat16' or 'float16', got "
@@ -205,8 +219,13 @@ class CheckpointManager:
 
     def _drop_step_dir(self, step_dir: str) -> None:
         """Make a step dir invisible (its metadata first), then recycle its
-        shard files and delete the rest."""
-        if os.path.isdir(step_dir):
+        shard files and delete the rest (a DCP step's files are deleted:
+        the pool serves raw saves)."""
+        if dcp.is_dcp(os.path.join(step_dir, _STATE_DIR)):
+            with contextlib.suppress(OSError):
+                os.unlink(os.path.join(step_dir, _META_FILE))
+            shutil.rmtree(step_dir, ignore_errors=True)
+        elif os.path.isdir(step_dir):
             self._pool.adopt_dir(step_dir)
 
     def _step_dir(self, step: int) -> str:
@@ -318,7 +337,7 @@ class CheckpointManager:
             # Marker inside the staging dir, then one rename publishes the
             # payload and the metadata together; retention runs after.
             if self.rank == 0:
-                if self.world > 1:
+                if self.world > 1 and self.format == "raw":
                     raw.merge_manifests(state_dir, policy=self.policy)
                 marker = os.path.join(stage_dir, _META_FILE)
                 raw.retry_io(lambda: _atomic_write_json(marker, meta),
@@ -331,7 +350,17 @@ class CheckpointManager:
                              backoff_s=self.policy.backoff_s)
             self.saves.append(dict(written))
 
-        if self.world > 1:
+        if self.format == "dcp":
+            # A collective write; committed at once, as one process would.
+            self._pending_fail = None
+            nbytes = dcp.save(state_dir, state)
+            record(nbytes)
+            del written["host_copy_s"]  # no host copy of its own
+            self._barrier()
+            commit()
+            self._barrier()
+            self._retain()
+        elif self.world > 1:
             # The commit needs every process: it runs at the next drain,
             # on the main thread (wait_until_finished).
             self._saver.save(state_dir, state, pool=self._pool,
@@ -406,7 +435,8 @@ class CheckpointManager:
         gained nothing there (PERF.md) and writing them costs the disk
         several copies of the state. Best-effort: a prewarm that fails
         leaves the saves to write fresh files."""
-        if not raw._fs_is_memory_backed(self.directory):
+        if self.format == "dcp" or not raw._fs_is_memory_backed(
+                self.directory):
             return
         sizes = [_saved_nbytes(leaf, self.save_dtype)
                  for _, leaf in raw.flatten(state)
@@ -502,6 +532,8 @@ class CheckpointManager:
             chosen = self._resolve_step(step, best)
         except FileNotFoundError:
             return
+        if dcp.is_dcp(os.path.join(self._step_dir(chosen), _STATE_DIR)):
+            return
         if template is not None:
             raw._ARENA.prewarm(region_sizes(template), background=background,
                                pinned=pinned)
@@ -523,11 +555,22 @@ class CheckpointManager:
         crc-verified; a corrupt step falls back to the previous committed
         one, and with none left the CorruptShardError propagates. The
         record counts the buffers the restore took from the arena and the
-        leaves it hands out page-locked."""
+        leaves it hands out page-locked. A DCP step is read by
+        ``torch.distributed.checkpoint`` (no checksums, no fallback)."""
         chosen = self._resolve_step(step, best)
         while True:
             state_dir = os.path.join(self._step_dir(chosen), _STATE_DIR)
             t0 = time.monotonic()
+            if dcp.is_dcp(state_dir):
+                out, nbytes = dcp.load(
+                    state_dir, abstract_state,
+                    ("params",) if weights_only else None)
+                dur = time.monotonic() - t0
+                self.restores.append({
+                    "step": chosen, "bytes": nbytes, "seconds": dur,
+                    "gbps": nbytes / dur / 1e9 if dur else 0.0,
+                    "arena_buffers": 0, "pinned": 0, "format": "dcp"})
+                return out
             stats: dict = {}
             corrupt = None
             try:
@@ -567,10 +610,14 @@ class CheckpointManager:
 
     def verify_step(self, step: int | None = None, *, best: bool = False
                     ) -> bool:
-        """Recompute one step's shard crc32s; True when all match."""
+        """Recompute one step's shard crc32s; True when all match (a DCP
+        step, which keeps none: ``dcp.verify``, its metadata read and its
+        files whole)."""
         chosen = self._resolve_step(step, best)
-        _, bad = raw.verify_dir(
-            os.path.join(self._step_dir(chosen), _STATE_DIR), self.policy)
+        state_dir = os.path.join(self._step_dir(chosen), _STATE_DIR)
+        if dcp.is_dcp(state_dir):
+            return dcp.verify(state_dir)
+        _, bad = raw.verify_dir(state_dir, self.policy)
         return not bad
 
     def restore_metadata(self, step: int | None = None, *,
@@ -652,6 +699,9 @@ def restore_from_handle(checkpoint: Checkpoint, *, abstract_state=None,
                 "before consuming the handle")
         if weights_only or subtree is not None:
             subtree = tuple(subtree or ("params",))
+        state_dir = os.path.join(path, _STATE_DIR)
+        if dcp.is_dcp(state_dir):
+            return dcp.load(state_dir, abstract_state, subtree)[0]
         return raw.restore_raw(os.path.join(path, _STATE_DIR),
                                abstract_state, subtree=subtree,
                                zero_copy=zero_copy)

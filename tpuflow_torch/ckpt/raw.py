@@ -82,16 +82,23 @@ _STR_DTYPE = {v: k for k, v in _DTYPE_STR.items()}
 class Piece:
     """One process's part of a leaf that several processes share: the
     leaf's global ``shape``, the ``start`` of the part and its ``data``.
-    In a save tree the part is the shard this process writes (``data``
-    None: it writes none of the leaf, ``dtype`` then names the leaf's); in
-    a restore template it is the region this process reads (``data`` a
-    tensor of the region's extent, ``meta`` will do), and the restore
-    returns that region as a tensor."""
+    In a save tree the part is the shard this process writes when it is
+    the ``owner`` (a replica of a region several processes hold writes
+    nothing; ``data`` None: it holds none of the leaf, ``dtype`` then
+    names the leaf's); in a restore template it is the region this
+    process reads (``data`` a tensor of the region's extent, ``meta`` will
+    do), and the restore returns that region as a tensor. ``spec`` (one
+    entry a dimension: None or the mesh axes that split it) and ``mesh``
+    (the torch ``DeviceMesh`` over every axis) let a ``torch.distributed
+    .checkpoint`` save or restore place the part (``ckpt/dcp.py``)."""
 
     shape: tuple
     start: list
     data: Any
     dtype: Any = None
+    spec: tuple | None = None
+    mesh: Any = None
+    owner: bool = True
 
     def __post_init__(self):
         self.shape = tuple(int(n) for n in self.shape)
@@ -262,13 +269,14 @@ def _bytes(t: torch.Tensor) -> np.ndarray:
 def _gather_host(tree, owner: bool = True
                  ) -> list[tuple[list[str], tuple, torch.dtype, list]]:
     """(path, global shape, dtype, [(start, host copy)]) per leaf: a
-    ``Piece``'s one shard (none when it has no data), a plain tensor whole
+    ``Piece``'s one shard (none when it has no data or another process
+    owns it), a plain tensor whole
     when this process is the ``owner`` of the leaves every process
     holds."""
     out = []
     for names, leaf in flatten(tree):
         if isinstance(leaf, Piece):
-            shards = ([] if leaf.data is None
+            shards = ([] if leaf.data is None or not leaf.owner
                       else [(list(leaf.start), _to_host(leaf.data))])
             out.append((names, leaf.shape, leaf.dtype, shards))
         else:

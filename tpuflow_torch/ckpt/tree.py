@@ -36,16 +36,22 @@ lays out its local parts the same way and wraps each params-layout leaf
 as a ``raw.Piece``: the shard the JAX rule gives this process, which the
 manager's multi-process save writes, or, as a restore template, the
 region of the leaf it holds. Loading copies each restored region back
-into the local shards.
+into the local shards. Adafactor's statistics are placed by the rule on
+their own shapes (a ``v_col`` may split where its ``v_row`` stays whole)
+while each process computes with the block its gradient gives it: a
+save assembles each statistic whole (one all-reduce of every process's
+blocks, each counted once) and writes the rule's block of it; a restore
+reads the statistics whole and keeps the computed blocks.
 """
 
 from __future__ import annotations
 
 import collections
+import math
 
 import torch
 
-from tpuflow_torch.ckpt.raw import flatten, unflatten
+from tpuflow_torch.ckpt.raw import Piece, flatten, unflatten
 from tpuflow_torch.models.convert import (
     named_params_from_jax,
     named_params_to_jax,
@@ -53,7 +59,7 @@ from tpuflow_torch.models.convert import (
 )
 from tpuflow_torch.models.gpt2 import GPT2
 from tpuflow_torch.models.resnet import BatchNorm
-from tpuflow_torch.train.optim import Leaves
+from tpuflow_torch.train.optim import Leaves, _factored_dims
 
 
 def params_to_jax(sd: dict, *, scan_layers: bool) -> dict:
@@ -89,13 +95,43 @@ class JaxLeaves(Leaves):
     a name's tensors of every block stacked into one leaf. ``leaves``
     returns them in the checkpoint's leaf order (``raw.flatten``);
     ``tensors`` maps leaf-shaped tensors back to the parameter layout
-    (contiguous copies)."""
+    (contiguous copies).
 
-    def __init__(self, model, scan_layers: bool):
+    With ``plan`` and ``mesh`` (a sharded state) the tensors are this
+    process's local parts, each leaf a block of the whole: ``shapes`` and
+    ``specs`` hold the whole leaves' shapes and the specs of the blocks
+    held (``ShardPlan.held_spec``), and ``reduce_sum`` all-reduces a
+    local sum over the groups that shard the summed dims."""
+
+    def __init__(self, model, scan_layers: bool, plan=None, mesh=None):
         self.model, self.scan_layers = model, scan_layers
         self.names = [n for n, _ in model.named_parameters()]
         self.paths = [path for path, _ in flatten(self._tree([
             torch.empty_like(p, device="meta") for p in model.parameters()]))]
+        self.plan, self.mesh = plan, mesh
+        if plan is not None:
+            self.shapes = [plan.leaves[tuple(p)][0] for p in self.paths]
+            self.specs = [plan.held_spec(tuple(p)) for p in self.paths]
+
+    def global_shapes(self, tensors) -> list[tuple]:
+        if self.plan is None:
+            return super().global_shapes(tensors)
+        return list(self.shapes)
+
+    def reduce_sum(self, i: int, x: torch.Tensor, dims) -> torch.Tensor:
+        out = x.sum(dims)
+        if self.plan is None:
+            return out
+        import torch.distributed as tdist
+
+        groups = []
+        for d in dims:
+            group = self.plan.group_of(self.specs[i][d], self.mesh)
+            if group is not None and group not in groups:
+                groups.append(group)
+        for group in groups:
+            tdist.all_reduce(out, group=group)
+        return out
 
     def _tree(self, tensors) -> dict:
         return _to_jax(self.model, dict(zip(self.names, tensors)),
@@ -171,10 +207,14 @@ def checkpoint_tree(state, *, scan_layers: bool = False,
     first = collections.OrderedDict(
         [] if tx.kind == "sgd" else [("count", _count(tx.count))])
     first.update((name, layout(ts)) for name, ts in tx.slots().items())
-    for name, ts in tx.leaf_slots().items():
-        if abstract:
-            ts = [torch.empty_like(t, device="meta") for t in ts]
-        first[name] = tx.leaves.tree(ts)
+    per_leaf = tx.leaf_slots()
+    if plan is not None and per_leaf:
+        first.update(_stat_pieces(state, per_leaf, abstract))
+    else:
+        for name, ts in per_leaf.items():
+            if abstract:
+                ts = [torch.empty_like(t, device="meta") for t in ts]
+            first[name] = tx.leaves.tree(ts)
     inner = {"0": first}
     if tx.scheduled:
         inner["1" if tx.kind == "sgd" else "2"] = {"count": _count(tx.count)}
@@ -193,6 +233,109 @@ def checkpoint_tree(state, *, scan_layers: bool = False,
     if state.ema_params is not None:
         tree["ema_params"] = layout(state.ema_params)
     return tree
+
+
+def _stat_layouts(leaves) -> dict:
+    """Per Adafactor statistic name, per leaf: (the statistic's whole
+    shape, the spec of the block this process computes). A factored leaf's
+    ``v_row`` lacks its largest dim d0 and ``v_col`` its second largest
+    d1 (the gradient's means over them); placeholders are (1,), whole."""
+    out = {"v_row": [], "v_col": [], "v": []}
+    for shape, spec in zip(leaves.shapes, leaves.specs):
+        dims = _factored_dims(tuple(shape))
+        one = ((1,), (None,))
+        drop = lambda xs, d: tuple(x for i, x in enumerate(xs) if i != d)  # noqa: E731
+        if dims is None:
+            row = col = one
+            full = (tuple(shape), tuple(spec))
+        else:
+            d1, d0 = dims
+            row = (drop(shape, d0), drop(spec, d0))
+            col = (drop(shape, d1), drop(spec, d1))
+            full = one
+        for name, layout in (("v_row", row), ("v_col", col), ("v", full)):
+            out[name].append(layout)
+    return out
+
+
+def _stat_pieces(state, stats: dict, abstract: bool) -> dict:
+    """The sharded Adafactor statistics as checkpoint trees of ``Piece``s:
+    each statistic whole as a restore template, or the block the rule
+    gives this process on the statistic's own shape (``leaf_spec`` with
+    the plan's tensor rules), assembled from every process's computed
+    blocks."""
+    import torch.distributed as tdist
+
+    from tpuflow_torch.parallel.sharding import leaf_spec, owner, region
+
+    tx, plan = state.tx, state.plan
+    leaves = tx.leaves
+    layouts = _stat_layouts(leaves)
+    coords, axes, fi = plan.coords, plan.axes, plan.fsdp_index
+    out = {}
+    if abstract:
+        for name, ts in stats.items():
+            out[name] = unflatten(
+                (path, Piece(shape, [0] * len(shape),
+                             torch.empty(shape, dtype=t.dtype,
+                                         device="meta"),
+                             spec=(None,) * len(shape),
+                             mesh=plan.device_mesh))
+                for path, t, (shape, _) in zip(leaves.paths, ts,
+                                               layouts[name]))
+        return out
+    # Every statistic whole: each process adds the blocks it owns into a
+    # zero buffer, one all-reduce sums them.
+    names = list(stats)
+    sizes = [math.prod(shape) for name in names
+             for shape, _ in layouts[name]]
+    ref = stats[names[0]][0]
+    flat = torch.zeros(sum(sizes), dtype=ref.dtype, device=ref.device)
+    offset = 0
+    views = {}
+    for name in names:
+        for path, t, (shape, spec) in zip(leaves.paths, stats[name],
+                                          layouts[name]):
+            whole = flat[offset:offset + math.prod(shape)].view(shape)
+            offset += whole.numel()
+            views[(name, tuple(path))] = whole
+            if owner(spec, coords):
+                start, extent = region(spec, shape, coords, fi, axes)
+                dst = whole
+                for d in range(len(shape)):
+                    dst = dst.narrow(d, start[d], extent[d])
+                dst.copy_(t)
+    if tdist.is_initialized() and tdist.get_world_size() > 1:
+        tdist.all_reduce(flat)
+    for name in names:
+        pairs = []
+        for path, (shape, _) in zip(leaves.paths, layouts[name]):
+            spec = leaf_spec(path, shape, axes, plan.tensor_rules)
+            start, extent = region(spec, shape, coords, fi, axes)
+            own = views[(name, tuple(path))]
+            for d in range(len(shape)):
+                own = own.narrow(d, start[d], extent[d])
+            pairs.append((path, Piece(shape, start, own, spec=spec,
+                                      mesh=plan.device_mesh,
+                                      owner=owner(spec, coords))))
+        out[name] = unflatten(pairs)
+    return out
+
+
+def _stat_blocks(state, name: str, whole: list) -> list:
+    """Restored whole statistics of ``name`` → the blocks this process
+    computes with."""
+    from tpuflow_torch.parallel.sharding import region
+
+    plan = state.plan
+    out = []
+    for t, (shape, spec) in zip(whole, _stat_layouts(state.tx.leaves)[name]):
+        start, extent = region(spec, shape, plan.coords, plan.fsdp_index,
+                               plan.axes)
+        for d in range(len(shape)):
+            t = t.narrow(d, start[d], extent[d])
+        out.append(t)
+    return out
 
 
 def _ordered(model, tree: dict) -> list[torch.Tensor]:
@@ -246,6 +389,9 @@ def load_checkpoint_tree(state, tree: dict) -> None:
              if name != "count" and name not in per_leaf}
     leaf_slots = {name: state.tx.leaves.flat(inner["0"][name])
                   for name in per_leaf if name in inner["0"]}
+    if getattr(state, "plan", None) is not None:
+        leaf_slots = {name: _stat_blocks(state, name, ts)
+                      for name, ts in leaf_slots.items()}
     counts = [int(c["count"]) for c in (inner["0"], inner.get("1"),
                                         inner.get("2"))
               if isinstance(c, dict) and "count" in c]

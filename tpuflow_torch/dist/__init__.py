@@ -1,12 +1,14 @@
 """Multi-process runtime (counterpart of ``tpuflow/dist``): the process
-group, the ``data`` mesh and the named ``data`` x ``fsdp`` one, batch
-placement, gradient averaging and barriers (``mesh``)."""
+group, the ``data`` mesh and the named ``data`` x ``fsdp`` x ``tensor``
+x ``expert`` one, batch placement, gradient averaging and barriers
+(``mesh``)."""
 
 from tpuflow_torch.dist.mesh import (
     Mesh,
     average_gradients,
     barrier,
     data_axis_size,
+    group_sum,
     initialize,
     make_hybrid_mesh,
     make_mesh,
@@ -25,6 +27,7 @@ __all__ = [
     "average_gradients",
     "barrier",
     "data_axis_size",
+    "group_sum",
     "initialize",
     "make_hybrid_mesh",
     "make_mesh",

@@ -6,7 +6,9 @@ lets XLA emit the collectives; the port runs one process per card
 (``torch.distributed``). Data parallelism holds a full replica in each
 process and averages the gradients itself (``average_gradients``); FSDP
 (``tpuflow_torch/parallel``) shards the state over the ``data`` x
-``fsdp`` processes.
+``fsdp`` processes, and the ``tensor`` and ``expert`` axes split the
+GPT-2 layers and expert stacks over their own groups
+(``parallel/tensor.py``).
 
 - ``initialize`` (``mesh.py:401``): joins the process group named by
   torch's standard rendezvous variables (``RANK``, ``WORLD_SIZE``,
@@ -17,12 +19,17 @@ process and averages the gradients itself (``average_gradients``); FSDP
   the processes (the data-parallel paths); with ``axes`` the named mesh
   of the JAX package (``data``, ``fsdp``, ``tensor``, ``seq``,
   ``expert``; unlisted ones are 1), whose product must be the world.
+  Ranks lie in the JAX device order, ``np.asarray(devices).reshape``
+  over the axes in that order, the last fastest: rank r sits at the
+  coordinate ``np.unravel_index(r, shape)``, so a port process and a JAX
+  device at the same coordinate own the same regions.
   ``make_hybrid_mesh`` (``:568``) lays its DCN axes major.
 - ``process_index``/``process_count`` (``:507``/``:512``),
   ``data_axis_size`` (``:676``), ``shard_batch`` (``:704``: this
   process's rows of the global batch), ``place_batch`` (a batch whose
   rows the loader already picked), ``replicate`` (``:770``),
-  ``step_fence`` (``:810``) and ``barrier`` (``:820``).
+  ``step_fence`` (``:810``) and ``barrier`` (``:820``); ``world_sum`` and
+  ``group_sum`` (sums that give every process the same bits).
 
 The compile-cache functions have no counterpart: PyTorch runs eagerly.
 """
@@ -40,8 +47,13 @@ import torch.distributed as tdist
 
 AXIS_DATA = "data"
 AXIS_FSDP = "fsdp"
+AXIS_TENSOR = "tensor"
+AXIS_SEQ = "seq"
+AXIS_EXPERT = "expert"
 # The JAX package's canonical axes (``tpuflow/dist/mesh.py``), in its order.
-AXES = (AXIS_DATA, AXIS_FSDP, "tensor", "seq", "expert")
+AXES = (AXIS_DATA, AXIS_FSDP, AXIS_TENSOR, AXIS_SEQ, AXIS_EXPERT)
+ROADMAP_SEQ = ("ROADMAP Queue 1 item 14b (sequence and pipeline "
+               "parallelism)")
 
 
 @dataclasses.dataclass
@@ -52,13 +64,45 @@ class Mesh:
     ``data`` x ``fsdp`` dims of a named mesh; None for one process).
     ``fsdp_mesh`` is the 1-D mesh of those dims flattened, ``data`` major,
     over which FSDP shards and the batch splits, and ``index`` this
-    process's place on it (None and 0 for one process)."""
+    process's place on it (None and 0 for one process); ``full_mesh`` the
+    ``DeviceMesh`` over every axis. ``coords`` is this
+    process's coordinate on every axis; ``tensor_group`` and
+    ``expert_group`` are the process groups of its ``tensor`` and
+    ``expert`` peers (the processes that differ from it on that axis
+    alone; None where the axis has size 1). Tensor and expert peers
+    share their ``index``: they take the same rows of a batch."""
 
     shape: dict[str, int]
     device: torch.device
     device_mesh: object | None = None
     fsdp_mesh: object | None = None
     index: int = 0
+    coords: dict[str, int] = dataclasses.field(default_factory=dict)
+    tensor_group: object | None = None
+    expert_group: object | None = None
+    full_mesh: object | None = None  # the DeviceMesh over every axis
+
+    def coord(self, axis: str) -> int:
+        return self.coords.get(axis, 0)
+
+    @property
+    def fsdp_group(self):
+        """The process group over which FSDP shards (None: one process)."""
+        return None if self.fsdp_mesh is None else self.fsdp_mesh.get_group()
+
+    @property
+    def fsdp_index(self) -> int:
+        """This process's place in the FSDP group, the block of a sharded
+        dimension it holds (FSDP2 places shards by group rank)."""
+        if self.fsdp_mesh is None:
+            return 0
+        return self.fsdp_mesh.get_local_rank()
+
+    @property
+    def model_parallel(self) -> bool:
+        """True when a ``tensor`` or ``expert`` axis exceeds 1."""
+        return (self.shape.get(AXIS_TENSOR, 1) > 1
+                or self.shape.get(AXIS_EXPERT, 1) > 1)
 
 
 def is_initialized() -> bool:
@@ -148,9 +192,9 @@ def make_mesh(device: str | torch.device = "cuda",
     With ``axes``: the JAX package's named mesh (``tpuflow/dist/mesh.py``
     ``make_mesh``): a size of -1 (at most one) is inferred, unlisted
     canonical axes are 1, and the product must equal the world, else
-    ValueError naming both. Only ``data`` and ``fsdp`` may exceed 1 here
-    (``tensor``, ``seq`` and ``expert`` are ROADMAP Queue 1 item 14); the
-    process of rank r sits at (r // fsdp, r % fsdp)."""
+    ValueError naming both. ``seq`` may not exceed 1 (ROADMAP Queue 1
+    item 14b); the process of rank r sits at
+    ``np.unravel_index(r, shape)``, the JAX device order."""
     device = local_device(device)
     world = process_count()
     if axes is None:
@@ -207,11 +251,10 @@ def _named_axes(axes: Mapping[str, int], world: int) -> dict[str, int]:
         if world % known:
             raise ValueError(f"{world} processes not divisible by {known}")
         axes[inferred[0]] = world // known
-    model = {k: v for k, v in axes.items() if k not in AXES[:2] and v > 1}
-    if model:
+    if axes.get(AXIS_SEQ, 1) > 1:
         raise NotImplementedError(
-            f"mesh axes {model} are not ported yet: ROADMAP Queue 1 item 14 "
-            "(tensor, sequence and pipeline parallelism)")
+            f"mesh axis seq={axes[AXIS_SEQ]} is not ported yet: "
+            f"{ROADMAP_SEQ}")
     total = math.prod(axes.values())
     if total != world:
         raise ValueError(f"mesh {axes} wants {total} processes but the "
@@ -223,18 +266,23 @@ def _named_axes(axes: Mapping[str, int], world: int) -> dict[str, int]:
 
 def _named_mesh(device: torch.device, shape: dict[str, int],
                 ranks: list[int]) -> Mesh:
-    """The ``Mesh`` whose (data, fsdp) coordinate i (data major) is process
-    ``ranks[i]``."""
+    """The ``Mesh`` whose coordinate i (over ``AXES``, the last axis
+    fastest) is process ``ranks[i]``. Every process builds the same
+    groups in the same order (group creation is collective)."""
     if not is_initialized():
-        return Mesh(shape, device)
+        return Mesh(shape, device, coords={a: 0 for a in AXES})
     from torch.distributed.device_mesh import DeviceMesh
 
-    grid = torch.tensor(ranks).reshape(shape[AXIS_DATA], shape[AXIS_FSDP])
-    device_mesh = DeviceMesh(device.type, grid,
-                             mesh_dim_names=(AXIS_DATA, AXIS_FSDP))
+    grid = torch.tensor(ranks).reshape([shape[a] for a in AXES])
+    full = DeviceMesh(device.type, grid, mesh_dim_names=AXES)
+    device_mesh = full[AXIS_DATA, AXIS_FSDP]
     flat = device_mesh._flatten(f"{AXIS_DATA}_{AXIS_FSDP}")
+    coords = dict(zip(AXES, (int(c) for c in full.get_coordinate())))
+    groups = {a: full[a].get_group() if shape[a] > 1 else None
+              for a in (AXIS_TENSOR, AXIS_EXPERT)}
     return Mesh(shape, device, device_mesh, flat,
-                ranks.index(process_index()))
+                coords[AXIS_DATA] * shape[AXIS_FSDP] + coords[AXIS_FSDP],
+                coords, groups[AXIS_TENSOR], groups[AXIS_EXPERT], full)
 
 
 def data_axis_size(mesh: Mesh) -> int:
@@ -247,8 +295,9 @@ def shard_batch(batch: dict, mesh: Mesh) -> dict:
     """This process's rows of a global batch as tensors on its device: of
     B rows over N data shards, shard i (``mesh.index``) takes rows
     [i B / N, (i + 1) B / N), the JAX batch sharding over (``data``,
-    ``fsdp``), data major. A batch that N does not divide raises, as the
-    JAX multi-host path does."""
+    ``fsdp``), data major. Tensor and expert peers take the same rows
+    (the JAX batch sharding is ``P(("data", "fsdp"), seq)``). A batch
+    that N does not divide raises, as the JAX multi-host path does."""
     n = data_axis_size(mesh)
     out = {}
     for k, v in batch.items():
@@ -286,12 +335,14 @@ def average_gradients(grads: list[torch.Tensor], mesh: Mesh | None
     """The gradients averaged over the ``data`` axis: one all-reduce over
     one flat bucket, then a division by the world size. Every process's
     loss is the mean over its equal share of the global batch, so the
-    average is the gradient of the global mean, as the JAX step's. With
-    one process (or no mesh) the gradients are returned untouched."""
-    if mesh is None or data_axis_size(mesh) == 1:
+    average is the gradient of the global mean, as the JAX step's. The
+    reduction runs over the ``data`` x ``fsdp`` group: tensor and expert
+    peers hold the same rows. With one process (or no mesh) the gradients
+    are returned untouched."""
+    if mesh is None or data_axis_size(mesh) == 1 or not grads:
         return grads
     flat = torch.cat([g.reshape(-1) for g in grads])
-    tdist.all_reduce(flat)
+    tdist.all_reduce(flat, group=mesh.fsdp_group)
     flat /= data_axis_size(mesh)
     out, offset = [], 0
     for g in grads:
@@ -305,10 +356,18 @@ def world_sum(values: torch.Tensor) -> torch.Tensor:
     same bits everywhere: the vectors are all-gathered and summed in rank
     order (an all-reduce may order its sums differently on each
     process). One process: ``values`` itself."""
-    if not is_initialized() or process_count() == 1:
+    return group_sum(values)
+
+
+def group_sum(values: torch.Tensor, group=None) -> torch.Tensor:
+    """``world_sum`` over the processes of ``group`` (None: the world)."""
+    if not is_initialized():
         return values
-    out = [torch.empty_like(values) for _ in range(process_count())]
-    tdist.all_gather(out, values.contiguous())
+    n = tdist.get_world_size(group)
+    if n == 1:
+        return values
+    out = [torch.empty_like(values) for _ in range(n)]
+    tdist.all_gather(out, values.contiguous(), group=group)
     total = out[0].clone()
     for part in out[1:]:
         total += part

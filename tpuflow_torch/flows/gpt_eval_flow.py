@@ -19,6 +19,7 @@ Triggered:  python -m tpuflow_torch.flows.gpt_eval_flow run --triggered
 """
 
 import math
+import os
 
 from tpuflow_torch.flow import (
     FlowSpec,
@@ -76,8 +77,8 @@ class TorchGptEval(FlowSpec):
     def start(self):
         import torch
 
-        from tpuflow_torch.ckpt import restore_from_handle
-        from tpuflow_torch.ckpt.tree import load_params
+        from tpuflow_torch.ckpt import dcp, restore_from_handle
+        from tpuflow_torch.ckpt.tree import load_params, params_to_jax
         from tpuflow_torch.data.lm import (
             check_dataset,
             check_text_source,
@@ -123,9 +124,16 @@ class TorchGptEval(FlowSpec):
         cfg = GPT2Config(dropout=0.0, attn_impl=self.attn_impl, **mc)
         model = GPT2(cfg, seed=None, device=dev)
         # Zero-copy (mapped) weights once the producing run has succeeded:
-        # no writer recycles its files any more.
+        # no writer recycles its files any more. A DCP checkpoint
+        # (``--ckpt-format dcp``) restores into the params' template.
+        tmpl = None
+        if dcp.is_dcp(os.path.join(ckpt.path, "state")):
+            tmpl = params_to_jax(
+                {n: torch.empty_like(p, device="meta")
+                 for n, p in model.named_parameters()},
+                scan_layers=cfg.scan_layers)
         load_params(model, restore_from_handle(
-            ckpt, weights_only=True,
+            ckpt, weights_only=True, abstract_state=tmpl,
             subtree=("ema_params",) if self.weights == "ema" else None,
             zero_copy=run.successful))
         state = TrainState(model=model, tx=make_optimizer(

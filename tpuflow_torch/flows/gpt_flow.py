@@ -7,8 +7,9 @@ flash``), with per-epoch checkpoints under the step's storage and a
 full-state resume with ``--from-run``. The JAX flow runs its ``data`` x
 ``fsdp`` mesh in one process over many devices; the port runs one
 process per card, so the train step is a gang of ``data_axis`` x
-``fsdp_axis`` members (FSDP; the defaults, 2 x 2, take four cards) whose
-head carries the artifacts. ``--dist-backend gloo`` with a device that
+``fsdp_axis`` x ``tensor_axis`` x ``expert_axis`` members (FSDP, with
+Megatron tensor and expert parallelism; the defaults, 2 x 2 x 1 x 1,
+take four cards) whose head carries the artifacts. ``--dist-backend gloo`` with a device that
 names a card (``--device cuda:0``) runs the gang's members on that one
 card. The artifacts match
 the reference's: ``model_config``, ``dataset_used``, ``seq_len_used``,
@@ -16,11 +17,12 @@ the reference's: ``model_config``, ``dataset_used``, ``seq_len_used``,
 ``metrics_history`` (and ``sample``), ``text_source`` on ``lm_text``
 (the corpus's path and sha256, which the eval flow checks), and the
 ``end`` step's training curve card. Options ``train_gpt`` does not run
-yet (tensor, sequence, expert and pipeline axes; Adafactor and MoE on
-several processes) raise its ``NotImplementedError`` naming the ROADMAP
-item. ``device`` (default
-``cuda``), ``flash_bwd`` (the JAX package's ``TPUFLOW_FLASH_BWD``) and
-``text_path`` (its ``TPUFLOW_TEXT_FILE``) are parameters.
+yet (sequence and pipeline parallelism) raise its ``NotImplementedError``
+naming the ROADMAP item. ``device`` (default ``cuda``), ``flash_bwd``
+(the JAX package's ``TPUFLOW_FLASH_BWD``), ``text_path`` (its
+``TPUFLOW_TEXT_FILE``) and ``ckpt_format`` (its ``TPUFLOW_CKPT_FORMAT``:
+``raw``, or ``dcp`` for ``torch.distributed.checkpoint`` as the JAX
+package's ``orbax``) are parameters.
 
 Run:    python -m tpuflow_torch.flows.gpt_flow run --preset test
         [--data-axis 1 --fsdp-axis 1]   (one process)
@@ -43,8 +45,9 @@ from tpuflow_torch.flow import (
 
 
 class TorchGptTrain(FlowSpec):
-    """Train GPT-2 on LM data on data_axis x fsdp_axis cards (one process
-    each, the state sharded over them), checkpointing the full state."""
+    """Train GPT-2 on LM data on data_axis x fsdp_axis x tensor_axis x
+    expert_axis cards (one process each, the state sharded over them),
+    checkpointing the full state."""
 
     preset = Parameter("preset", default="test", help="test | gpt2 | medium")
     epochs = Parameter("epochs", default=2, help="epochs")
@@ -111,6 +114,10 @@ class TorchGptTrain(FlowSpec):
         help="cuda | cpu | cuda:<i> (every gang member on card i)")
     flash_bwd = Parameter("flash_bwd", default="fused",
                           help="flash backward: fused | split | blockwise")
+    ckpt_format = Parameter(
+        "ckpt_format", default="raw",
+        help="checkpoint format: raw (crosses into the JAX package) | dcp "
+        "(torch.distributed.checkpoint)")
     dist_backend = Parameter(
         "dist_backend", default="",
         help="the gang's torch.distributed backend (empty: nccl on the "
@@ -157,7 +164,8 @@ class TorchGptTrain(FlowSpec):
             self.resume_checkpoint = Run(self.from_run).data.result_checkpoint
             print(f"[gpt_flow] resuming from {self.resume_checkpoint.path}")
         self.next(self.train,
-                  num_parallel=int(self.data_axis) * int(self.fsdp_axis))
+                  num_parallel=int(self.data_axis) * int(self.fsdp_axis)
+                  * int(self.tensor_axis) * int(self.expert_axis))
 
     @retry(times=3)
     @gpu(all_hosts_started_timeout=60 * 5)
@@ -208,6 +216,7 @@ class TorchGptTrain(FlowSpec):
             resume_checkpoint=self.resume_checkpoint,
             device=self.device,
             flash_bwd=self.flash_bwd,
+            ckpt_format=self.ckpt_format,
         )
         self.result_checkpoint = result.checkpoint
         self.loss_history = result.loss_history

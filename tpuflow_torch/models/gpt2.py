@@ -33,6 +33,11 @@ load-balance loss with its output (never through a side list, which the
 remat recompute would fill twice); ``forward(..., losses=True)`` hands
 them to the train step. Deferred, raising: the contiguous slot-row
 cache.
+
+Sharded over a mesh with a ``tensor`` axis (``parallel/tensor.py``, the
+model's ``tp``), a training or evaluation forward runs each block
+Megatron-style on the process's H / t heads and MLP columns; the decode
+paths run on a whole model only.
 """
 
 from __future__ import annotations
@@ -424,7 +429,10 @@ def _layer_norm(ln: nn.LayerNorm, x, dt):
 class Block(nn.Module):
     """Pre-LN transformer block with the JAX block's parameter names. Its
     forward returns ``(x, aux)``: aux the MoE load-balance loss of a
-    training-mode MoE block, else None."""
+    training-mode MoE block, else None. ``tp`` (``parallel.tensor``):
+    the block's place in a tensor-parallel model, None for a whole one."""
+
+    tp = None
 
     def __init__(self, config: GPT2Config):
         super().__init__()
@@ -445,21 +453,31 @@ class Block(nn.Module):
                 decode: bool = False, pad_lens=None, prefill: bool = False,
                 cache=None, slot_index=None, page_table=None, quant=None,
                 int8_impl=None, rng: int | None = None):
-        cfg = self.config
-        B, T, C = x.shape
-        H, D = cfg.n_head, cfg.head_dim
+        cfg, tp = self.config, self.tp
+        # On a tensor group of t processes the block runs H / t heads and
+        # 4C / t MLP columns (``TensorParallel.dense``).
+        t = 1 if tp is None else tp.t
+        if t > 1 and (decode or pad_lens is not None or quant):
+            raise NotImplementedError(
+                "a tensor-parallel block runs training and evaluation "
+                "forwards; decode on the gathered model "
+                "(train.gpt.full_model)")
+        B, T, _ = x.shape
+        H, D = cfg.n_head // t, cfg.head_dim
         step = decode and not prefill
         dt = cfg.compute_dtype(step)
         quant = quant or {}
         pre = f"h.{layer}."
 
         def dense(name, h):
+            if t > 1:
+                return tp.dense(name, getattr(self, name), h, dt)
             return _dense(getattr(self, name), h, dt, quant.get(pre + name),
                           int8_impl, rowwise=step)
 
         h = _layer_norm(self.ln_1, x, dt)
         qkv = dense("c_attn", h)
-        q, k, v = qkv.split(C, dim=-1)
+        q, k, v = qkv.split(H * D, dim=-1)
         q = q.reshape(B, T, H, D)
         k = k.reshape(B, T, H, D)
         v = v.reshape(B, T, H, D)
@@ -475,7 +493,7 @@ class Block(nn.Module):
         else:
             a = attention(q, k, v, causal=True, impl=cfg.attn_impl,
                           flash_bwd=cfg.flash_bwd)
-        a = dense("c_proj", a.reshape(B, T, C))
+        a = dense("c_proj", a.reshape(B, T, H * D))
         x = x + _dropout(a, cfg.dropout, train, rng, layer + 1, 0)
 
         h = _layer_norm(self.ln_2, x, dt)
@@ -572,8 +590,10 @@ class GPT2(nn.Module):
     LayerNorm scales) on ``device`` (default ``cuda``; raises when CUDA is
     absent). ``models/convert.py`` loads JAX params instead. ``seed=None``
     allocates the weights on ``device`` uninitialised, for a caller that
-    loads them (a checkpoint restore).
+    loads them (a checkpoint restore). ``tp``: see ``Block``.
     """
+
+    tp = None
 
     def __init__(self, config: GPT2Config = GPT2Config(), *,
                  seed: int | None = 0, device=None):
@@ -678,6 +698,12 @@ class GPT2(nn.Module):
         B, T = tokens.shape
         dev = self.wte.device
         ar = torch.arange(T, device=dev)
+        wte, wpe = self.wte, self.wpe
+        if self.tp is not None:
+            # A sharded model gathers the rule's blocks of the embeddings
+            # (their gradients, equal on every tensor peer, keep each
+            # process's block).
+            wte, wpe = self.tp.view("wte", wte), self.tp.view("wpe", wpe)
         if decode:
             if cache is None:
                 cache = self.init_cache(B)
@@ -689,7 +715,7 @@ class GPT2(nn.Module):
                 base = slot_index[:, None] + ar[None, :]
                 if pad_lens is not None:
                     base = base - pad_lens[:, None]
-                pe = self.wpe[torch.clamp(base, 0, cfg.n_ctx - 1)]
+                pe = wpe[torch.clamp(base, 0, cfg.n_ctx - 1)]
             elif slot_index is not None:
                 raise NotImplementedError(
                     "contiguous slot-row caches (the JAX engine's paged=False "
@@ -697,16 +723,16 @@ class GPT2(nn.Module):
                 )
             elif pad_lens is not None:
                 positions = cache.index + ar[None, :] - pad_lens[:, None]
-                pe = self.wpe[torch.clamp(positions, 0, cfg.n_ctx - 1)]
+                pe = wpe[torch.clamp(positions, 0, cfg.n_ctx - 1)]
             else:
-                pe = self.wpe[cache.index:cache.index + T]
+                pe = wpe[cache.index:cache.index + T]
         elif pad_lens is not None:
             positions = ar[None, :] - pad_lens[:, None]
-            pe = self.wpe[torch.clamp(positions, 0, cfg.n_ctx - 1)]
+            pe = wpe[torch.clamp(positions, 0, cfg.n_ctx - 1)]
         else:
-            pe = self.wpe[:T]
+            pe = wpe[:T]
         dt = cfg.compute_dtype(decode and not prefill)
-        x = self.wte[tokens].to(dt) + pe.to(dt)
+        x = wte[tokens].to(dt) + pe.to(dt)
         x = _dropout(x, cfg.dropout, train, rng, 0)
         aux = []
         for i, block in enumerate(self.h):
@@ -733,7 +759,7 @@ class GPT2(nn.Module):
         else:
             # Tied head, f32 logits; decode steps run it row by row, like
             # the Dense layers.
-            logits = _tied_head(x, self.wte, dt, decode and not prefill)
+            logits = _tied_head(x, wte, dt, decode and not prefill)
         if not decode:
             return (logits, aux) if losses else logits
         if isinstance(cache, KVCache):

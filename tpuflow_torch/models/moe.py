@@ -23,6 +23,14 @@ with static shapes:
 
 The expert products are ``torch.einsum``: the JAX package writes them as
 XLA einsums, not as kernels of its own.
+
+Sharded (``tp``, ``parallel/tensor.py``): each process of the expert group
+runs its E / e experts (their FFN dim split over ``tensor``), the partial
+outputs summed over the groups; the load-balance loss takes ``frac`` and
+``mean_prob`` over the FSDP group's whole batch before their product (the
+loss is not linear in a split of the batch: a mean of the processes'
+losses would differ from the JAX package's). The capacity counts a row's
+tokens, so a split of the batch leaves it as it is.
 """
 
 from __future__ import annotations
@@ -39,7 +47,10 @@ def capacity(T: int, capacity_factor: float, n_experts: int) -> int:
 
 
 class MoEMLP(nn.Module):
-    """(B, T, C) → ((B, T, C), aux) through ``n_experts`` expert MLPs."""
+    """(B, T, C) → ((B, T, C), aux) through ``n_experts`` expert MLPs.
+    ``tp``: the layer's place in a sharded model (None: whole)."""
+
+    tp = None
 
     def __init__(self, d_model: int, d_ff: int, n_experts: int,
                  capacity_factor: float = 1.25, aux_weight: float = 1e-2):
@@ -91,9 +102,23 @@ class MoEMLP(nn.Module):
         dt = x.dtype if dtype is None else dtype
         E = self.n_experts
         probs, onehot, pos_oh, combine = self.route(x)
-        frac = onehot.mean(dim=(0, 1))
-        mean_prob = probs.mean(dim=(0, 1))
+        tp = self.tp
+        if tp is None or tp.fsdp_group is None:
+            frac = onehot.mean(dim=(0, 1))
+            mean_prob = probs.mean(dim=(0, 1))
+        else:
+            from tpuflow_torch.parallel.tensor import all_reduce_sum
+
+            # The two means over the FSDP group's whole batch.
+            n = torch.full((1,), float(probs.shape[0] * probs.shape[1]),
+                           device=probs.device)
+            sums = all_reduce_sum(torch.cat(
+                [onehot.sum(dim=(0, 1)), probs.sum(dim=(0, 1)), n]),
+                tp.fsdp_group)
+            frac, mean_prob = sums[:E] / sums[-1], sums[E:2 * E] / sums[-1]
         aux = self.aux_weight * E * torch.sum(frac * mean_prob)
+        if tp is not None and (tp.t > 1 or tp.e > 1):
+            return self._sharded(x, dt, pos_oh, combine), aux
         dispatch, combine = pos_oh.to(dt), combine.to(dt)
         x = x.to(dt)
         xin = torch.einsum("btec,btm->ebcm", dispatch, x)
@@ -102,3 +127,27 @@ class MoEMLP(nn.Module):
         out = (torch.einsum("ebcf,efm->ebcm", h, self.w2.to(dt))
                + self.b2.to(dt)[:, None, None, :])
         return torch.einsum("btec,ebcm->btm", combine, out), aux
+
+    def _sharded(self, x, dt, pos_oh, combine):
+        """The output of this process's experts (E / e of them, their FFN
+        dim split over ``tensor``), summed over the tensor and expert
+        groups."""
+        tp = self.tp
+        n = self.n_experts // tp.e
+        lo = tp.expert_rank * n
+        dispatch = pos_oh[:, :, lo:lo + n].to(dt)
+        # Each expert peer's combine gradient covers its own experts.
+        combine = tp.copy_to(combine, "expert")[:, :, lo:lo + n].to(dt)
+        # The expert inputs' gradient is partial over both groups; the
+        # router's (from x directly) is the same on every peer.
+        src = tp.copy_to(tp.copy_to(x.to(dt), "expert"), "tensor")
+        xin = torch.einsum("btec,btm->ebcm", dispatch, src)
+        w1, b1 = tp.view("moe.w1", self.w1), tp.view("moe.b1", self.b1)
+        w2, b2 = tp.view("moe.w2", self.w2), tp.view("moe.b2", self.b2)
+        h = F.gelu(torch.einsum("ebcm,emf->ebcf", xin, w1.to(dt))
+                   + b1.to(dt)[:, None, None, :], approximate="tanh")
+        out = tp.reduce_from(torch.einsum("ebcf,efm->ebcm", h, w2.to(dt)),
+                             "tensor")
+        out = out + b2.to(dt)[:, None, None, :]
+        return tp.reduce_from(torch.einsum("btec,ebcm->btm", combine, out),
+                              "expert")

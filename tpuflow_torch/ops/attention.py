@@ -10,7 +10,7 @@ causal, impl)`` with q/k/v shaped (B, T, H, D):
   the forward with lse and the backward pair ``flash_bwd`` names: fused,
   split or blockwise), their plain versions on the CPU.
 - ``"ring"`` / ``"ulysses"`` — sequence parallelism, not ported yet
-  (ROADMAP Queue 1 item 14); they raise.
+  (ROADMAP Queue 1 item 14b); they raise.
 - ``"auto"`` — flash on CUDA at T >= the threshold, else xla: one
   threshold for calls that will be differentiated, one for forwards
   only. ``resolve_attention_impl(..., tuning=)`` takes others (a dict,
@@ -130,7 +130,7 @@ def attention(q, k, v, *, causal: bool = True, impl: str = "xla",
     if impl in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attention impl {impl!r} (sequence parallelism) is not ported "
-            "yet: ROADMAP Queue 1 item 14"
+            "yet: ROADMAP Queue 1 item 14b"
         )
     raise KeyError(
         f"unknown attention impl {impl!r}; use xla|flash|ring|ulysses"

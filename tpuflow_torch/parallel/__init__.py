@@ -1,19 +1,28 @@
-"""Parallelism layouts (counterpart of ``tpuflow/parallel``): FSDP over the
-``data`` x ``fsdp`` processes (``sharding``). Tensor, sequence and
-pipeline parallelism are ROADMAP Queue 1 item 14."""
+"""Parallelism layouts (counterpart of ``tpuflow/parallel``): the JAX
+sharding rule over the ``data`` x ``fsdp`` x ``tensor`` x ``expert``
+processes (``sharding``: FSDP2 and explicit tensor/expert blocks) and the
+Megatron computation on the ``tensor`` and ``expert`` groups
+(``tensor``). Sequence and pipeline parallelism are ROADMAP Queue 1 item
+14b."""
 
 from tpuflow_torch.parallel.sharding import (
     ShardPlan,
-    fsdp_dim,
+    gpt2_tensor_rules,
     has_sharded_leaf,
+    leaf_spec,
+    localize,
     make_shardings,
     shard_model,
 )
+from tpuflow_torch.parallel.tensor import TensorParallel
 
 __all__ = [
     "ShardPlan",
-    "fsdp_dim",
+    "TensorParallel",
+    "gpt2_tensor_rules",
     "has_sharded_leaf",
+    "leaf_spec",
+    "localize",
     "make_shardings",
     "shard_model",
 ]

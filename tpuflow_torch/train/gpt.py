@@ -12,17 +12,23 @@ checkpoints as the JAX leg does: a save of the full state at every epoch
 end (the JAX checkpoint tree, ``ckpt/tree.py``), an in-run resume from
 the newest committed step, and a resume from a handle.
 
-A mesh of ``data_axis`` x ``fsdp_axis`` > 1 runs on that many processes,
-one per card (each calls ``train_gpt`` with its rendezvous variables
-set, as the ``TorchGptTrain`` gang's members do): the state is sharded
-by the JAX rule over them (``parallel/sharding.py``: FSDP2), each
-process trains on its rows of the global batch, the metrics and the
-validation loss are the world's, the checkpoints are written shard by
-shard as manifest fragments (``CheckpointManager(multi_process=True)``)
-and restore at whatever world the resume runs. Process 0 alone logs and
-samples. What the JAX leg does beyond that raises
-``NotImplementedError`` naming the ROADMAP item: tensor, sequence,
-expert and pipeline axes, Adafactor and MoE blocks on several processes,
+A mesh of ``data_axis`` x ``fsdp_axis`` x ``tensor_axis`` x
+``expert_axis`` > 1 runs on that many processes, one per card (each
+calls ``train_gpt`` with its rendezvous variables set, as the
+``TorchGptTrain`` gang's members do), laid out in the JAX device order
+(``dist.make_mesh``): the state is sharded by the JAX rule over them
+(``parallel/sharding.py``: ``gpt2_tensor_rules`` on the ``tensor`` and
+``expert`` axes, then FSDP2 over ``data`` x ``fsdp``), the blocks run
+Megatron-style on the tensor group and the MoE experts on the expert
+group (``parallel/tensor.py``), each process trains on its rows of the
+global batch (its tensor and expert peers on the same rows), the metrics
+and the validation loss are the world's, the checkpoints are written
+shard by shard as manifest fragments
+(``CheckpointManager(multi_process=True)``, ``ckpt_format`` ``raw`` or
+``dcp``) and restore at whatever world the resume runs. Process 0 alone
+logs and samples. What the JAX leg does beyond that raises
+``NotImplementedError`` naming the ROADMAP item: sequence and pipeline
+axes (``seq_axis``, ``stage_axis``, the ``ring``/``ulysses`` attention),
 the health monitor, preemption and elastic re-form. Nothing is silently
 ignored.
 """
@@ -52,7 +58,13 @@ from tpuflow_torch.data.lm import make_lm_loaders
 from tpuflow_torch.device import resolve_device
 from tpuflow_torch.models.gpt2 import GPT2, GPT2Config
 from tpuflow_torch.ops.flash_attention import BWD_MODES
-from tpuflow_torch.parallel import ShardPlan, shard_model
+from tpuflow_torch.parallel import (
+    ShardPlan,
+    gpt2_tensor_rules,
+    localize,
+    shard_model,
+)
+from tpuflow_torch.parallel.tensor import TensorParallel, attach
 from tpuflow_torch.train.optim import make_optimizer
 from tpuflow_torch.train.step import (
     TrainState,
@@ -63,9 +75,7 @@ from tpuflow_torch.train.step import (
 )
 
 # The ROADMAP Queue 1 items that will lift what still raises.
-ROADMAP_SHARDED_RECIPES = ("ROADMAP Queue 1 item 12b-2 (Adafactor and MoE "
-                           "under FSDP)")
-ROADMAP_PARALLEL = ("ROADMAP Queue 1 item 14 (tensor, sequence and pipeline "
+ROADMAP_PARALLEL = ("ROADMAP Queue 1 item 14b (sequence and pipeline "
                     "parallelism)")
 ROADMAP_ROBUST = "ROADMAP Queue 1 item 12c + 8b (robustness of training)"
 
@@ -269,26 +279,25 @@ def _check_supported(cfg: GptTrainConfig, ckpt_dir, health: bool,
         "expert_axis": cfg.expert_axis,
     }
     desc = " x ".join(f"{k}={v}" for k, v in axes.items())
-    if cfg.tensor_axis * cfg.seq_axis * cfg.expert_axis > 1:
-        raise _deferred(f"a mesh of {desc} (tensor, sequence and expert "
-                        "parallelism)", ROADMAP_PARALLEL)
+    if cfg.seq_axis > 1:
+        raise _deferred(f"a mesh of {desc} (sequence parallelism)",
+                        ROADMAP_PARALLEL)
     if cfg.stage_axis > 1:
         raise _deferred(f"pipeline parallelism (stage_axis={cfg.stage_axis})",
                         ROADMAP_PARALLEL)
-    n, world = cfg.data_axis * cfg.fsdp_axis, dist.process_count()
+    if cfg.attn_impl in ("ring", "ulysses"):
+        raise _deferred(f"attn_impl={cfg.attn_impl!r} (sequence-parallel "
+                        "attention)", ROADMAP_PARALLEL)
+    n = cfg.data_axis * cfg.fsdp_axis * cfg.tensor_axis * cfg.expert_axis
+    world = dist.process_count()
     if n != world:
         raise ValueError(
             f"a mesh of {desc} = {n} processes, but the world has {world}: "
-            "FSDP runs one process per card (start data_axis x fsdp_axis "
-            "processes with their rendezvous variables, or run the "
-            "TorchGptTrain gang)")
-    if world > 1 and cfg.optimizer_name == "adafactor":
-        raise _deferred(f"Adafactor on {world} processes (its factored "
-                        "statistics reduce across shards)",
-                        ROADMAP_SHARDED_RECIPES)
-    if world > 1 and cfg.experts:
-        raise _deferred(f"Switch-MoE blocks on {world} processes",
-                        ROADMAP_SHARDED_RECIPES)
+            "the port runs one process per mesh coordinate (start "
+            "data_axis x fsdp_axis x tensor_axis x expert_axis processes "
+            "with their rendezvous variables, or run the TorchGptTrain "
+            "gang)")
+
     if cfg.ckpt_dtype and ckpt_dir is None:
         raise ValueError(f"ckpt_dtype={cfg.ckpt_dtype!r} casts checkpoints, "
                          "but no ckpt_dir was given to save them in")
@@ -315,29 +324,36 @@ def init_state(cfg: GptTrainConfig, model_cfg: GPT2Config | None = None,
     ``materialize=False`` skips the random weights (a restore overwrites
     them); the optimizer's moments are zeros on the device either way.
 
-    ``mesh`` (``dist.make_mesh`` with ``data`` x ``fsdp`` > 1): the state
-    born sharded (``tpuflow/parallel/sharding.py::create_sharded_state``).
-    Fresh, every process builds the same seed-0 model on its device and
-    ``shard_model`` keeps its shards of it; for a restore the model is
-    built on the ``meta`` device and only the local shards are allocated
-    (the JAX package shape-evaluates the init for the same reason). The
-    moments and the EMA weights are made from the local shards."""
+    ``mesh`` (``dist.make_mesh`` over several processes): the state born
+    sharded (``tpuflow/parallel/sharding.py::create_sharded_state``), by
+    ``gpt2_tensor_rules`` where the mesh has a ``tensor`` or ``expert``
+    axis (as the JAX recipe passes them). Fresh, every process builds the
+    same seed-0 model on its device, keeps its tensor and expert blocks
+    (``localize``) and ``shard_model`` its FSDP shards of them; for a
+    restore the model is built on the ``meta`` device and only the local
+    parts are allocated (the JAX package shape-evaluates the init for the
+    same reason). The moments and the EMA weights are made from the local
+    parts."""
     model_cfg = model_cfg or cfg.model_config()
     dev = resolve_device(device)
-    if mesh is None or dist.data_axis_size(mesh) == 1:
+    if mesh is None or math.prod(mesh.shape.values()) == 1:
         model = _init_model(model_cfg, dev, seed=0 if materialize else None)
         state = TrainState(model=model, tx=cfg.optimizer(
             model.parameters(), JaxLeaves(model, model_cfg.scan_layers)))
     else:
         model = _init_model(model_cfg, dev if materialize else "meta",
                             seed=0 if materialize else None)
-        plan = ShardPlan(model, model_cfg.scan_layers,
-                         dist.data_axis_size(mesh), mesh.index)
+        rules = gpt2_tensor_rules if mesh.model_parallel else None
+        plan = ShardPlan(model, model_cfg.scan_layers, mesh,
+                         tensor_rules=rules)
+        localize(model, plan)
+        attach(model, TensorParallel(mesh, plan, model_cfg))
+        leaves = JaxLeaves(model, model_cfg.scan_layers, plan, mesh)
         shard_model(model, mesh, plan)
         if not materialize:
             model.to_empty(device=dev)
-        tx = cfg.optimizer(plan.local(model))
-        tx.sharded = plan.sharded
+        tx = cfg.optimizer(plan.local(model), leaves)
+        tx.owned = plan.owned
         state = TrainState(model=model, tx=tx, plan=plan, mesh=mesh)
     if cfg.ema_decay > 0.0:
         state = with_ema(state)
@@ -346,8 +362,9 @@ def init_state(cfg: GptTrainConfig, model_cfg: GPT2Config | None = None,
 
 def full_model(state: TrainState):
     """The whole model of a sharded state, on process 0 (a plain ``GPT2``
-    with the gathered weights; every process must call this, the others
-    get None); an unsharded state's own model."""
+    with the weights gathered over the FSDP, tensor and expert groups;
+    every process must call this, the others get None); an unsharded
+    state's own model."""
     if state.plan is None:
         return state.model
     full = {name: state.plan.full(name, t, state.mesh)
@@ -372,6 +389,7 @@ def train_gpt(
     preemption: bool = False,
     elastic: bool = False,
     comm_overlap: bool = True,
+    ckpt_format: str = "raw",
 ) -> GptTrainResult:
     """Run the configured GPT training leg end to end on this process's
     device (``cuda`` unless ``device`` says otherwise; ``cuda:<i>`` puts
@@ -398,7 +416,10 @@ def train_gpt(
     not ported; setting any raises. ``comm_overlap``: on several
     processes with ``accum_steps > 1``, reduce-scatter each microbatch's
     gradients right after its backward (the JAX package's
-    ``TPUFLOW_COMM_OVERLAP``, on by default), else once after the last."""
+    ``TPUFLOW_COMM_OVERLAP``, on by default), else once after the last.
+    ``ckpt_format``: the saves' format, ``raw`` (crosses into the JAX
+    package) or ``dcp`` (``torch.distributed.checkpoint``; the JAX
+    package's ``TPUFLOW_CKPT_FORMAT=orbax``); a resume reads either."""
     cfg.validate()
     _check_supported(cfg, ckpt_dir, health, preemption, elastic)
     if flash_bwd not in BWD_MODES:
@@ -409,7 +430,9 @@ def train_gpt(
     mesh = None
     if dist.process_count() > 1:
         mesh = dist.make_mesh(dev, {"data": cfg.data_axis,
-                                    "fsdp": cfg.fsdp_axis})
+                                    "fsdp": cfg.fsdp_axis,
+                                    "tensor": cfg.tensor_axis,
+                                    "expert": cfg.expert_axis})
         dev = mesh.device
         if dist.process_index() != 0:
             log = _quiet
@@ -427,7 +450,7 @@ def train_gpt(
     if ckpt_dir is not None:
         mgr = CheckpointManager(ckpt_dir, max_to_keep=2,
                                 save_dtype=cfg.ckpt_dtype or None,
-                                multi_process=multi)
+                                multi_process=multi, format=ckpt_format)
         # In-run resume: a previous attempt of this run left committed
         # steps; an explicit handle (a cross-run resume) wins.
         if resume_checkpoint is None:

@@ -20,7 +20,11 @@ factored second moments follow the leaf's shape (a Dense kernel is
 kernels of every layer), and its two block-RMS steps take one RMS over
 the whole leaf. ``Leaves`` maps the parameter list onto those leaves
 (``ckpt/tree.py::JaxLeaves`` for GPT-2); by default each parameter is
-its own leaf.
+its own leaf. On a sharded state each process holds a block of a leaf:
+which dims to factor is decided on the leaf's global shape, and every
+mean and RMS is a local sum all-reduced over the groups that shard the
+dims it runs over (``Leaves.reduce_sum``), so each equals optax's on the
+whole leaf.
 
 ``Optimizer.update`` applies the step in place and returns the update
 tensors it added, which the train step's health statistics read, as the
@@ -95,18 +99,18 @@ def square_sums(tensors) -> torch.Tensor:
     return norms * norms
 
 
-def global_norm(tensors, sharded: list[bool] | None = None) -> torch.Tensor:
+def global_norm(tensors, owned: list[bool] | None = None) -> torch.Tensor:
     """sqrt of the sum of squares of every element (optax.global_norm).
-    ``sharded``: per tensor, True where it is this process's shard of a
-    tensor split over the world (FSDP); their square sums add over the
-    processes (one collective) before the root, the others count once."""
-    if sharded is None or not any(sharded):
+    ``owned`` (a sharded state, ``ShardPlan.owned``): per tensor, True
+    where this process counts its part; the owned square sums add over
+    the world (one collective), so every element of a parameter split
+    over some axes and replicated over others counts once."""
+    if owned is None:
         norms = torch._foreach_norm([t.float() for t in tensors])
         return torch.linalg.vector_norm(torch.stack(norms))
     sq = square_sums(tensors)
-    keep = torch.tensor(sharded, device=sq.device)
-    return torch.sqrt(world_sum(sq[keep].sum().reshape(1))[0]
-                      + sq[~keep].sum())
+    keep = torch.tensor(owned, device=sq.device)
+    return torch.sqrt(world_sum(sq[keep].sum().reshape(1))[0])
 
 
 class Leaves:
@@ -121,6 +125,15 @@ class Leaves:
     def tensors(self, leaves) -> list[torch.Tensor]:
         return list(leaves)
 
+    def global_shapes(self, tensors) -> list[tuple]:
+        """Each leaf's shape over every process (here: as held)."""
+        return [tuple(t.shape) for t in self.leaves(tensors)]
+
+    def reduce_sum(self, i: int, x: torch.Tensor, dims) -> torch.Tensor:
+        """``x`` (leaf ``i``'s layout) summed over ``dims`` across every
+        process that holds a block of them (here: locally)."""
+        return x.sum(dims)
+
 
 def _factored_dims(shape) -> tuple[int, int] | None:
     """optax's ``_factored_dims``: the two largest axes of ``shape``
@@ -132,10 +145,6 @@ def _factored_dims(shape) -> tuple[int, int] | None:
     if shape[order[-2]] < _AF_MIN_DIM:
         return None
     return int(order[-2]), int(order[-1])
-
-
-def _rms(x) -> torch.Tensor:
-    return torch.sqrt(torch.mean(x * x))
 
 
 class Optimizer:
@@ -167,9 +176,9 @@ class Optimizer:
         self.scheduled = scheduled
         self.leaves = leaves or Leaves()
         self.count = 0
-        # Per parameter: a local shard of a parameter split over the world
-        # (set for a sharded state); the clip's norm then reduces over it.
-        self.sharded: list[bool] | None = None
+        # Per parameter of a sharded state: this process counts its part
+        # in the clip's global norm (``ShardPlan.owned``).
+        self.owned: list[bool] | None = None
         self.last_grad_norm = None  # the last clip's (global) norm
         zeros = lambda: [torch.zeros_like(p) for p in self.params]  # noqa: E731
         self.mu = self.nu = self.trace = None
@@ -191,10 +200,13 @@ class Optimizer:
         unused ones."""
         dev = self.params[0].device
         self.v_row, self.v_col, self.v = [], [], []
-        for leaf in self.leaves.leaves(
-                [torch.empty_like(p, device="meta") for p in self.params]):
+        meta = [torch.empty_like(p, device="meta") for p in self.params]
+        for leaf, whole in zip(self.leaves.leaves(meta),
+                               self.leaves.global_shapes(meta)):
             shape = tuple(leaf.shape)
-            dims = _factored_dims(shape)
+            # Factored or not by the whole leaf's shape; the statistics
+            # have this process's block's.
+            dims = _factored_dims(tuple(whole))
             one = (1,)
             if dims is None:
                 row, col, full = one, one, shape
@@ -255,7 +267,7 @@ class Optimizer:
         place. Returns the update tensors."""
         grads = list(grads)
         if self.grad_clip_norm is not None:
-            norm = self.last_grad_norm = global_norm(grads, self.sharded)
+            norm = self.last_grad_norm = global_norm(grads, self.owned)
             keep = norm < self.grad_clip_norm
             grads = [torch.where(keep, g, g / norm * self.grad_clip_norm)
                      for g in grads]
@@ -312,35 +324,52 @@ class Optimizer:
         block-RMS clip at 1, the learning rate, the parameter block's RMS
         (at least 1e-3), the weight decay (after the learning rate: not
         scaled by it; absent when 0), and the sign flip. Returns the
-        per-parameter updates."""
+        per-parameter updates. On a sharded state each leaf is this
+        process's block: the factored dims come from the leaf's global
+        shape, and the row and column means, the row mean of ``v_row`` and
+        both block RMS values are sums over the processes that hold the
+        dims they run over (``Leaves.reduce_sum``) divided by the global
+        sizes."""
         decay = np.float32(1) - np.float32(count + 1) ** np.float32(-_AF_DECAY)
         keep, fresh = float(decay), float(np.float32(1) - decay)
         wd = self.weight_decay
+        leaves = self.leaves
+        g_leaves = leaves.leaves(grads)
+        shapes = leaves.global_shapes(grads)
         out = []
-        for g, p, v_row, v_col, v in zip(
-                self.leaves.leaves(grads), self.leaves.leaves(self.params),
-                self.v_row, self.v_col, self.v):
+        for i, (g, p, v_row, v_col, v) in enumerate(zip(
+                g_leaves, leaves.leaves(self.params), self.v_row, self.v_col,
+                self.v)):
+            shape = shapes[i]
+            every = tuple(range(len(shape)))
+            size = float(math.prod(shape))
             g2 = g * g + _AF_EPS
-            dims = _factored_dims(tuple(g.shape))
+            dims = _factored_dims(tuple(shape))
             if dims is None:
                 v.copy_(v * keep + g2 * fresh)
                 u = g * v.pow(-0.5)
             else:
                 d1, d0 = dims
-                v_row.copy_(v_row * keep + g2.mean(d0) * fresh)
-                v_col.copy_(v_col * keep + g2.mean(d1) * fresh)
-                row_mean = v_row.mean(d1 - 1 if d1 > d0 else d1,
-                                      keepdim=True)
-                row = (v_row / row_mean).pow(-0.5)
-                u = g * row.unsqueeze(d0) * v_col.pow(-0.5).unsqueeze(d1)
-            u = u / torch.clamp(_rms(u) / _AF_CLIP, min=1.0)
+                v_row.copy_(v_row * keep
+                            + leaves.reduce_sum(i, g2, (d0,)) / shape[d0]
+                            * fresh)
+                v_col.copy_(v_col * keep
+                            + leaves.reduce_sum(i, g2, (d1,)) / shape[d1]
+                            * fresh)
+                # v_row lacks dim d0: its dim for d1 shifts down past it.
+                row_sum = leaves.reduce_sum(i, v_row.unsqueeze(d0), (d1,))
+                row = (v_row.unsqueeze(d0)
+                       / (row_sum.unsqueeze(d1) / shape[d1])).pow(-0.5)
+                u = g * row * v_col.pow(-0.5).unsqueeze(d1)
+            rms_u = torch.sqrt(leaves.reduce_sum(i, u * u, every) / size)
+            u = u / torch.clamp(rms_u / _AF_CLIP, min=1.0)
             u = u * lr
-            rms = _rms(p)
+            rms = torch.sqrt(leaves.reduce_sum(i, p * p, every) / size)
             u = u * torch.where(rms <= _AF_MIN_SCALE, _AF_MIN_SCALE, rms)
             if wd:
                 u = u + wd * p
             out.append(-u)
-        return self.leaves.tensors(out)
+        return leaves.tensors(out)
 
 
 def make_optimizer(

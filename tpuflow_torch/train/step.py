@@ -23,9 +23,19 @@ the gradient of the global mean; with ``accum_steps > 1`` and
 ``comm_overlap`` (the default) right after each microbatch's backward,
 the JAX overlap program, else once after the last (the sequential one:
 ``set_requires_gradient_sync`` off for the others). The parameters held
-whole average their gradients with one all-reduce. The optimizer updates
-the local shards; its global-norm clip and the metrics reduce over the
-world (``_global_metrics``), so ``loss``, ``accuracy``, ``grad_norm``,
+whole average their gradients with one all-reduce over the same group.
+
+On a mesh with ``tensor`` or ``expert`` axes (``parallel/tensor.py``)
+the processes of a tensor or expert group take the same rows and compute
+their blocks of each layer; a parameter held whole but used in part by
+each (the ``c_attn`` and ``mlp_fc`` biases) sums its gradient over the
+group, and one used whole (the LayerNorms, the row-parallel biases)
+already has the same gradient on every peer and is left as it is. The
+optimizer updates the local parts; its global-norm clip and the metrics
+count each element once over the world (the parts whose process sits at
+coordinate 0 of the axes they are replicated over), and the loss and
+accuracy sum over the ``data`` x ``fsdp`` group only
+(``_global_metrics``), so ``loss``, ``accuracy``, ``grad_norm``,
 ``update_norm``, ``param_norm`` and ``nonfinite`` are the global values,
 bit-equal on every process.
 
@@ -56,9 +66,12 @@ from typing import Callable
 import numpy as np
 import torch
 
-import torch.distributed as tdist
-
-from tpuflow_torch.dist.mesh import average_gradients, shard_batch, world_sum
+from tpuflow_torch.dist.mesh import (
+    average_gradients,
+    group_sum,
+    shard_batch,
+    world_sum,
+)
 from tpuflow_torch.models.gpt2 import fold_in
 from tpuflow_torch.models.losses import (
     accuracy,
@@ -166,30 +179,48 @@ def _rows(state: TrainState, batch: dict) -> dict:
     return _place(batch, state.params[0].device)
 
 
+def sharded_gradients(state: TrainState) -> list[torch.Tensor]:
+    """A sharded state's gradients after its backward, each as
+    ``ShardPlan.local`` lays its parameter out: FSDP2's reduce-scatter
+    already averaged the sharded ones; those held whole are averaged over
+    the FSDP group, and those a tensor or expert group uses in parts are
+    summed over it (``TensorParallel.sum_gradients``)."""
+    plan, model = state.plan, state.model
+    grads = plan.local_grads(model)
+    whole = [i for i, sh in enumerate(plan.sharded) if not sh]
+    for i, g in zip(whole, average_gradients([grads[i] for i in whole],
+                                             state.mesh)):
+        grads[i] = g
+    tp = getattr(model, "tp", None)
+    if tp is not None:
+        tp.sum_gradients(plan.names, grads)
+    return grads
+
+
 def _global_metrics(state: TrainState, loss, acc, grads, updates,
                     grad_norm=None) -> dict:
     """The sharded step's metrics over the world with one collective: the
-    local loss and accuracy (means over this process's rows) and the
-    square sums of the sharded gradients, updates and parameters are
-    summed over the processes; the parameters held whole add their own
-    square sums once. ``grad_norm``: the clip's, already global."""
-    plan, params = state.plan, state.params
-    mask = plan.sharded
-    world = tdist.get_world_size()
+    local loss and accuracy (means over this process's rows, counted by
+    the process at tensor and expert coordinate 0 of each group of
+    peers) and the square sums of the gradients', updates' and
+    parameters' owned parts (``ShardPlan.owned``) are summed over the
+    processes. ``grad_norm``: the clip's, already global."""
+    plan, params, mesh = state.plan, state.params, state.mesh
+    mask = plan.owned
+    rows = plan.world
 
-    def split(tensors):
+    def owned(tensors):
         sq = square_sums(tensors)
-        keep = torch.tensor(mask, device=sq.device)
-        return sq[keep].sum(), sq[~keep].sum()
+        return sq[torch.tensor(mask, device=sq.device)].sum()
 
-    parts = [split(t) for t in (grads, updates, params)]
-    local = torch.stack([loss.float(), acc.float(),
-                         *(sh for sh, _ in parts)])
+    counts = float(mesh.coord("tensor") == 0 and mesh.coord("expert") == 0)
+    local = torch.stack([loss.float() * counts, acc.float() * counts,
+                         *(owned(t) for t in (grads, updates, params))])
     total = world_sum(local)
-    g, u, p = (torch.sqrt(total[2 + i] + parts[i][1]) for i in range(3))
+    g, u, p = (torch.sqrt(total[2 + i]) for i in range(3))
     if grad_norm is not None:
         g = grad_norm
-    loss, acc = total[0] / world, total[1] / world
+    loss, acc = total[0] / rows, total[1] / rows
     finite = torch.isfinite(loss) & torch.isfinite(g) & torch.isfinite(u)
     return {"loss": loss, "accuracy": acc, "grad_norm": g,
             "update_norm": u, "param_norm": p,
@@ -260,7 +291,8 @@ def make_train_step(
             mb = n // accum_steps
             lsum = asum = 0.0
             for i in range(accum_steps):
-                if plan is not None and not comm_overlap:
+                if (plan is not None and plan.world > 1
+                        and not comm_overlap):
                     # The sequential program: one reduce-scatter, after
                     # the last microbatch.
                     model.set_requires_gradient_sync(i == accum_steps - 1)
@@ -274,11 +306,7 @@ def make_train_step(
         if plan is None:
             grads = average_gradients([p.grad for p in params], mesh)
         else:
-            grads = plan.local_grads(model)
-            whole = [i for i, sh in enumerate(plan.sharded) if not sh]
-            for i, g in zip(whole, average_gradients(
-                    [grads[i] for i in whole], state.mesh)):
-                grads[i] = g
+            grads = sharded_gradients(state)
         if accum_steps > 1:
             # Equal microbatches: the mean of microbatch means IS the
             # full-batch mean, for the loss and its gradient alike.
@@ -343,7 +371,7 @@ def run_validation(state, loader, eval_step) -> float:
     batch's per-row mask is broadcast to the label shape (padded rows of
     an LM batch drop out whole) and the masked sums accumulate; a sharded
     state's processes each sum their rows and the sums add over the
-    world."""
+    ``data`` x ``fsdp`` group."""
     tot = cnt = 0.0
     for b in loader:
         batch = {"x": b["x"], "y": b["y"]}
@@ -355,11 +383,17 @@ def run_validation(state, loader, eval_step) -> float:
         m = eval_step(state, batch)
         tot += float(m["loss_sum"])
         cnt += float(m["count"])
-    if getattr(state, "plan", None) is not None:
-        # A forward without a backward leaves the root's parameters
-        # gathered; the next training forward must gather them anew.
-        state.model.reshard()
-        tot, cnt = world_sum(torch.tensor([tot, cnt], dtype=torch.float64,
-                                          device=state.params[0].device)
-                             ).tolist()
+    plan = getattr(state, "plan", None)
+    if plan is not None:
+        if plan.world > 1:
+            # A forward without a backward leaves the root's parameters
+            # gathered; the next training forward must gather them anew.
+            state.model.reshard()
+        # Tensor and expert peers hold the same rows: the sums add over
+        # the data x fsdp group alone.
+        if plan.world > 1:
+            tot, cnt = group_sum(
+                torch.tensor([tot, cnt], dtype=torch.float64,
+                             device=state.params[0].device),
+                state.mesh.fsdp_group).tolist()
     return tot / max(cnt, 1.0)
