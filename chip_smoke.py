@@ -141,8 +141,9 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    (medians of interleaved runs), the crossovers written to a tuning file that
    ``resolve_attention_impl`` must read back exactly. Each leg's step
    ms, tokens/s and wall beside the card's name and power limit.
-12. GPT-2-medium FSDP (``fsdp_phase``): 24 layers, 1024 wide, 354.8M
-   parameters, trained by two ranks, each a process of its own, sharing
+12. GPT-2-medium FSDP (``fsdp_phase``): 1024 wide, 16 heads, at 6 of
+   its 24 layers (a depth cut for the time limit, ``FSDP_LAYERS``),
+   trained by two ranks, each a process of its own, sharing
    the one card over gloo (the mode the probe fixed, ``--gloo-probe``:
    ``FSDP_BACKEND``), the state sharded over them by the JAX rule;
    2 epochs of 2 steps at 8 x 1024, f32, flash, full remat, AdamW, a
@@ -160,7 +161,8 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    within the step-parity limits of the sharded step's; (e)
    ``TorchGptTrain`` at 124M as a two-member gang on the card and
    ``TorchGptEval`` from it at one process, its flash launches exact.
-13. GPT-2 124M at full depth and width on the tensor and expert axes
+13. GPT-2 124M at full width, 3 of its 12 layers (a depth cut for the
+   time limit, ``TP_LAYERS``), on the tensor and expert axes
    (``tp_phase``): four ranks, each a process of its own, sharing the
    card over gloo (the probe's mode; it also holds ``all_reduce``);
    2 epochs of 2 steps at 8 x 1024, f32, flash, full remat, a checkpoint
@@ -180,7 +182,28 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    the summed load-balance loss finite, above 0 and bit-equal across
    ranks. Step ms, tokens/s, peak memory, save and restore GB/s a rank,
    the all-reduces of a step timed alone.
-14. One JSON line with every kernel's numbers (the int8 matmul both as one
+14. Sequence and pipeline parallelism (``seq_pipeline_phase``) on GPT-2
+   124M at full width and depth, 8 x 1024 tokens a step, f32, two ranks
+   sharing the card over gloo in each leg (their point-to-point shifts
+   staged through pinned host buffers, the mode ``--p2p-probe`` fixed):
+   the flash kernels at the phase's other rank shapes (a rank's 6 heads
+   after Ulysses's all-to-all, a pipeline microbatch of 2 rows) against
+   their plain versions with their times; (a) data 1 x seq 2, ring
+   attention, AdamW, 2 x 2 steps with a checkpoint each epoch: learning,
+   the ranks' losses bit-equal, no flash launch, the epoch-1 checkpoint
+   on the rule's regions with every crc32, the in-run resume bit for
+   bit, a restore at one process every leaf bit-equal, the first step
+   within step parity of one device, the ring's shift alone (GB/s, bits
+   equal); (b) the gathered flash path on the same mesh: one step within
+   step parity, the flash launches a rank exact, and
+   ``ulysses_attention(inner_impl="flash")`` at (8, 1024, 12, 64) against
+   the plain version forward and backward; (c) data 1 x stage 2, 4
+   microbatches, flash, AdamW, 2 x 2 steps: learning, exact launches,
+   each rank half of every ``h/block`` leaf, the checkpoint on the stage
+   rule, the in-run resume bit for bit, a restore at one process onto the
+   scan model every leaf bit-equal, the first step's loss within 1e-5 of
+   the one-device model's. Step ms, tokens/s and peak memory a leg.
+15. One JSON line with every kernel's numbers (the int8 matmul both as one
    decode step at M = 8 and as the same 49 products at M = 512; the
    training kernels in f32 and bf16, their launches from the f32 legs and
    the bf16 leg, which runs the fused pair, so the bf16 split variants'
@@ -190,6 +213,8 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    those of the generation phase; ``recipe_launches``: those of phase 11;
    ``fsdp_launches``: those of phase 12's leg (b), both ranks';
    ``tp_launches``: those of phase 13's two training legs, every rank's;
+   ``seq_launches``: those of phase 14's legs (a) and (b), every rank's;
+   ``pipeline_launches``: those of its leg (c), every rank's;
    the ``_vit`` entries at the
    ViT shape, f32, their launches the ViT leg's), the ``nvidia-smi`` line,
    and as the last line
@@ -209,9 +234,13 @@ them to ``chiprun_out/wide_compare.json``.
 phase 11, into ``chiprun_out/recipes.json``; ``--fsdp`` only phase 12,
 into ``chiprun_out/fsdp.json`` (its ranks are ``--fsdp-rank`` processes
 of this script); ``--tp`` only phase 13, into ``chiprun_out/tp.json``
-(its ranks are ``--tp-rank`` and ``--tp-resave`` processes).
-``python3 chip_smoke.py --gloo-probe`` runs only the probe that fixed
-phases 12 and 13's mode (``gloo_probe_rank``).
+(its ranks are ``--tp-rank`` and ``--tp-resave`` processes); ``--sp``
+only phase 14, into ``chiprun_out/sp.json`` (its ranks are ``--sp-rank``
+processes). ``python3 chip_smoke.py --gloo-probe`` runs only the probe
+that fixed phases 12 and 13's mode (``gloo_probe_rank``);
+``--p2p-probe`` the probe that fixed phase 14's (``p2p_probe_rank``:
+gloo's ``send``/``recv`` of CUDA tensors, its ``all_to_all_single`` on
+them, the port's staged shift and all-to-all).
 
 ``python3 chip_smoke.py --ckpt-ab [ORDER]`` runs only the split and resume
 legs, once for each letter of ORDER (default ``ABCCBA``): A as this
@@ -414,6 +443,9 @@ CROSSOVER_REPS = 11
 # where there are two cards.
 FSDP_WORLD, FSDP_BACKEND, FSDP_CARD = 2, "gloo", 0
 FSDP_EPOCHS, FSDP_STEPS_PER_EPOCH = 2, 2
+# Depth cut for the time limit when phase 14 came: 6 of medium's 24
+# layers (the width, 1024 and 16 heads, unchanged).
+FSDP_LAYERS = 6
 FSDP_STEPS = FSDP_EPOCHS * FSDP_STEPS_PER_EPOCH
 # One rank's attention: 8 / 2 rows of medium's 16 heads of 64 at 1024.
 FSDP_SHAPE = (4, 1024, 16, 64)
@@ -435,6 +467,9 @@ FLOW_FSDP_ARGS = ("--preset", "gpt2", "--seq-len", "1024", "--batch-size",
 # time), a checkpoint each epoch.
 TP_WORLD, TP_CARD = 4, 0
 TP_EPOCHS, TP_STEPS_PER_EPOCH = 2, 2
+# Depth cut for the time limit when phase 14 came: 3 of 124M's 12 layers
+# (the width, 768 and 12 heads, unchanged).
+TP_LAYERS = 3
 TP_STEPS = TP_EPOCHS * TP_STEPS_PER_EPOCH
 TP_LEGS = {
     "a": dict(data_axis=1, fsdp_axis=2, tensor_axis=2),
@@ -450,8 +485,30 @@ TP_SHAPES = {"a": (4, 1024, 6, 64), "b": (4, 1024, 12, 64)}
 # inputs' gradients in its backward; (b) the expert sum forward and
 # recomputed, and the expert input's gradient (the combine weights'
 # gradient, (4, 1024, 8, 160), adds 1.67 of these a block).
-TP_ALL_REDUCES = {"a": 6 * 12, "b": 3 * 12}
+TP_ALL_REDUCES = {"a": 6 * TP_LAYERS, "b": 3 * TP_LAYERS}
 TP_COLLECTIVE_REPS = 2
+# Phase 14: sequence and pipeline parallelism on GPT-2 124M at full width
+# and depth, SP_WORLD ranks sharing card SP_CARD over gloo (the probe's
+# mode; ``--p2p-probe`` holds the shift and the all-to-all), each a
+# process of its own, 2 epochs of 2 steps at 8 x 1024, f32, a checkpoint
+# each epoch: (a) data 1 x seq 2 with ring attention, (b) the gathered
+# flash path on the same mesh (one step), (c) data 1 x stage 2 with 4
+# microbatches on the flash kernels.
+SP_WORLD, SP_CARD = 2, 0
+SP_EPOCHS, SP_STEPS_PER_EPOCH = 2, 2
+SP_STEPS = SP_EPOCHS * SP_STEPS_PER_EPOCH
+SP_LEGS = {
+    "a": dict(data_axis=1, fsdp_axis=1, seq_axis=2, attn_impl="ring"),
+    "b": dict(data_axis=1, fsdp_axis=1, seq_axis=2, attn_impl="flash"),
+    "c": dict(data_axis=1, fsdp_axis=1, stage_axis=2, microbatches=4,
+              attn_impl="flash"),
+}
+# The flash kernels' other shapes in phase 14: a rank's 12 / 2 heads over
+# the whole 1024 tokens after Ulysses's all-to-all, and one pipeline
+# microbatch of 8 / 4 rows (the gathered path runs TRAIN_SHAPE).
+SP_SHAPES = {"ulysses": (8, 1024, 6, 64), "pipeline": (2, 1024, 12, 64)}
+ULYSSES_SHAPE = (8, 1024, 12, 64)
+SHIFT_REPS = 3
 
 
 def _smi_line() -> str:
@@ -3660,13 +3717,33 @@ def recipes_phase(torch, smi) -> dict:
     return out
 
 
+_CUT_CLASSES: dict = {}
+
+
+def _depth_cut(cfg, n_layer: int):
+    """``cfg`` (a ``GptTrainConfig``) whose model has ``n_layer`` blocks,
+    the preset's width unchanged: a depth cut for the time limit."""
+    from tpuflow_torch.train.gpt import GptTrainConfig
+
+    cls = _CUT_CLASSES.get(n_layer)
+    if cls is None:
+        def model_config(self):
+            return dataclasses.replace(GptTrainConfig.model_config(self),
+                                       n_layer=n_layer)
+
+        cls = _CUT_CLASSES[n_layer] = type(
+            f"GptTrainConfigL{n_layer}", (GptTrainConfig,),
+            {"model_config": model_config})
+    return cls(**dataclasses.asdict(cfg))
+
+
 def _fsdp_cfg(**kw):
     from tpuflow_torch.train.gpt import GptTrainConfig
 
-    return GptTrainConfig(
+    return _depth_cut(GptTrainConfig(
         preset="medium", seq_len=1024, batch_size=8, epochs=FSDP_EPOCHS,
         steps_per_epoch=FSDP_STEPS_PER_EPOCH, attn_impl="flash",
-        **{"data_axis": 1, "fsdp_axis": FSDP_WORLD, **kw})
+        **{"data_axis": 1, "fsdp_axis": FSDP_WORLD, **kw}), FSDP_LAYERS)
 
 
 def _fsdp_want(cfg, steps: int, epochs: int) -> dict:
@@ -3694,7 +3771,7 @@ def _first_grads(torch, cfg, mesh=None):
     from tpuflow_torch.device import f32_matmul_precision
     from tpuflow_torch.models.losses import cross_entropy_loss, sum_sown_losses
     from tpuflow_torch.train.gpt import init_state
-    from tpuflow_torch.train.step import sharded_gradients
+    from tpuflow_torch.train.step import batch_sum, sharded_gradients
 
     mc = dataclasses.replace(cfg.model_config(), dropout=0.0)
     loader, _ = make_lm_loaders(cfg.batch_size, cfg.steps_per_epoch,
@@ -3722,8 +3799,8 @@ def _first_grads(torch, cfg, mesh=None):
     grads = sharded_gradients(state)
     grads = {n: plan.full(n, g, mesh).cpu()
              for n, g in zip(plan.names, grads)}
-    loss = float(dist.group_sum(loss.detach().reshape(1),
-                                mesh.fsdp_group)[0]) / plan.world
+    loss = float(batch_sum(loss.detach().reshape(1), mesh)[0]) / (
+        plan.world * mesh.shape.get("seq", 1))
     del state, named
     torch.cuda.empty_cache()
     return loss, grads if dist.process_index() == 0 else None
@@ -4054,7 +4131,8 @@ def fsdp_phase(torch, smi, kernel_rows: dict | None = None) -> dict:
         out.update(ranks=ranks, ranks_wall_s=ranks_s, step_ms=step_ms,
                    tokens_per_s=b[0]["epochs"][-1]["tokens_per_s"])
         coll = ranks[0]["collectives"]
-        print(f"fsdp (b): GPT-2 medium over {out['mode']}, "
+        print(f"fsdp (b): GPT-2 medium ({FSDP_LAYERS} of its 24 layers) "
+              f"over {out['mode']}, "
               f"{FSDP_EPOCHS} x {FSDP_STEPS_PER_EPOCH} steps of 8 x 1024, "
               f"full remat, f32, flash, AdamW: step losses "
               f"{', '.join(f'{x:.4f}' for x in losses)}; step {step_ms:.1f} "
@@ -4184,14 +4262,15 @@ def fsdp_phase(torch, smi, kernel_rows: dict | None = None) -> dict:
 
 def _tp_cfg(leg: str, **kw):
     """Phase 13's ``train_gpt`` call of leg ``leg``: GPT-2 124M at full
-    depth and width, 8 x 1024 tokens a step, f32, flash, full remat,
-    TP_EPOCHS epochs of TP_STEPS_PER_EPOCH steps, on the leg's mesh."""
+    width, TP_LAYERS of its 12 layers, 8 x 1024 tokens a step, f32,
+    flash, full remat, TP_EPOCHS epochs of TP_STEPS_PER_EPOCH steps, on
+    the leg's mesh."""
     from tpuflow_torch.train.gpt import GptTrainConfig
 
-    return GptTrainConfig(**{
+    return _depth_cut(GptTrainConfig(**{
         "preset": "gpt2", "seq_len": 1024, "batch_size": 8,
         "epochs": TP_EPOCHS, "steps_per_epoch": TP_STEPS_PER_EPOCH,
-        "attn_impl": "flash", **TP_LEGS[leg], **kw})
+        "attn_impl": "flash", **TP_LEGS[leg], **kw}), TP_LAYERS)
 
 
 def _tp_axes(cfg) -> dict:
@@ -4400,12 +4479,13 @@ def _spawn_ranks(args: list, world: int, what: str) -> float:
 
 def _tp_rule_layout(step_dir: str, axes: dict) -> list:
     """The leaves of a checkpoint whose shards are not the regions the JAX
-    rule (``gpt2_tensor_rules`` on ``axes``) gives the mesh's processes."""
+    rule (``gpt2_tensor_rules`` on ``axes``; the pipeline rule on a
+    ``stage`` mesh) gives the mesh's processes."""
+    from tpuflow_torch.dist.mesh import axis_order
     from tpuflow_torch.parallel import gpt2_tensor_rules, leaf_spec
     from tpuflow_torch.parallel.sharding import region
 
-    shape = {a: axes.get(a, 1) for a in ("data", "fsdp", "tensor", "seq",
-                                         "expert")}
+    shape = {a: axes.get(a, 1) for a in axis_order(axes)}
     world = int(np.prod(list(shape.values())))
     with open(os.path.join(step_dir, "state", "manifest.json")) as fh:
         manifest = json.load(fh)
@@ -4545,7 +4625,8 @@ def _tp_leg(torch, smi, leg: str, cfg, work: str) -> dict:
     rec = dict(ranks=ranks, ranks_wall_s=ranks_s, step_ms=step_ms,
                tokens_per_s=cfg.batch_size * cfg.seq_len / step_ms * 1e3)
     coll = ranks[0]["collectives"]
-    print(f"tp ({leg}): GPT-2 124M on {desc} ({TP_WORLD} ranks on "
+    print(f"tp ({leg}): GPT-2 124M ({TP_LAYERS} of its 12 layers) on "
+          f"{desc} ({TP_WORLD} ranks on "
           f"cuda:{TP_CARD} over {FSDP_BACKEND}), {cfg.optimizer_name}"
           f"{', %d experts' % cfg.experts if cfg.experts else ''}, "
           f"{TP_EPOCHS} x {TP_STEPS_PER_EPOCH} steps of 8 x 1024, f32, "
@@ -4638,6 +4719,564 @@ def _tp_leg(torch, smi, leg: str, cfg, work: str) -> dict:
     return rec
 
 
+# --------------------------------------------------------------- phase 14
+def _sp_cfg(leg: str, **kw):
+    """Phase 14's ``train_gpt`` call of leg ``leg``: GPT-2 124M at full
+    depth and width, 8 x 1024 tokens a step, f32, SP_EPOCHS epochs of
+    SP_STEPS_PER_EPOCH steps, on the leg's mesh."""
+    from tpuflow_torch.train.gpt import GptTrainConfig
+
+    return GptTrainConfig(**{
+        "preset": "gpt2", "seq_len": 1024, "batch_size": 8,
+        "epochs": SP_EPOCHS, "steps_per_epoch": SP_STEPS_PER_EPOCH,
+        **SP_LEGS[leg], **kw})
+
+
+def _sp_init(torch, rank: int, port: int) -> str:
+    """Join phase 14's world of SP_WORLD ranks on card SP_CARD over gloo;
+    returns the device."""
+    from tpuflow_torch import dist
+
+    dist.initialize("cuda", rank=rank, world_size=SP_WORLD,
+                    init_method=f"tcp://localhost:{port}",
+                    backend=FSDP_BACKEND, device_index=SP_CARD)
+    return f"cuda:{SP_CARD}"
+
+
+def _sp_train(torch, gpt_mod, cfg, ckpt: str, dev: str, log) -> dict:
+    """One training run of ``cfg`` with a checkpoint each epoch into
+    ``ckpt``, its launches read from zero; the state it trained is
+    ``_sp_train.state``."""
+    from tpuflow_torch.ops import flash_attention as fa
+    from tpuflow_torch.ops import int8_matmul as im
+
+    states = []
+    real_init = gpt_mod.init_state
+
+    def keep(*a, **kw):
+        states.append(real_init(*a, **kw))
+        return states[-1]
+
+    gpt_mod.init_state = keep
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counters(fa, im)
+        t0 = time.monotonic()
+        res = gpt_mod.train_gpt(cfg, ckpt_dir=ckpt, log=log, device=dev)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        gpt_mod.init_state = real_init
+    _sp_train.state = states[-1]
+    return dict(launches=_counters(fa, im), step_losses=res.step_losses,
+                loss_history=res.loss_history, epochs=res.metrics_history,
+                step_s=res.step_s, wall_s=wall,
+                saves=res.checkpoint_io["saves"],
+                restores=res.checkpoint_io["restores"],
+                peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+
+def _sp_resume(torch, gpt_mod, cfg, ckpt: str, work: str, dev: str,
+               log) -> dict:
+    """The in-run resume: ``ckpt`` copied without its last step, trained
+    again to the end."""
+    from tpuflow_torch import dist
+
+    resume = os.path.join(work, os.path.basename(ckpt) + "_resume")
+    if dist.process_index() == 0:
+        shutil.copytree(ckpt, resume, ignore=shutil.ignore_patterns(
+            ".recycle*", f"step_{SP_STEPS}"))
+    dist.barrier()
+    out = _sp_train(torch, gpt_mod, cfg, resume, dev, log)
+    del _sp_train.state
+    return out
+
+
+def _shift_gbps(torch, seq) -> dict:
+    """The ring's shift alone: ``p2p.ppermute`` of one layer's stacked key
+    and value blocks, (2, 8, 512, 12, 64) f32, to the right neighbour on
+    the card, SHIFT_REPS times (the first to warm up); received bits equal
+    to the sender's."""
+    import torch.distributed as tdist
+
+    from tpuflow_torch.parallel.p2p import ppermute, ring_perm
+
+    g = torch.Generator(device="cuda").manual_seed(seq.rank)
+    x = torch.randn((2, 8, 512, 12, 64), generator=g, device="cuda")
+    want = torch.randn((2, 8, 512, 12, 64), device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(
+                           (seq.rank - 1) % seq.size))
+    times = []
+    for _ in range(SHIFT_REPS):
+        tdist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        y = ppermute(x, seq, ring_perm(seq.size))
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t0) * 1e3)
+    ms = float(np.median(times[1:]))
+    nbytes = x.numel() * 4
+    return dict(ms=ms, bytes=nbytes, gbps=nbytes / ms / 1e6,
+                equal=bool(torch.equal(y, want)))
+
+
+def _ulysses_check(torch, seq) -> dict:
+    """``ulysses_attention(inner_impl="flash")`` at ULYSSES_SHAPE, f32,
+    causal, on this rank's block of seeded q, k, v (the same whole tensors
+    on every rank), forward and backward; each rank's output and q, k, v
+    gradients gathered and held on rank 0 against the plain flash version
+    (``blockwise_attention`` under autograd) on the whole tensors. The
+    flash launches of the call are returned."""
+    from tpuflow_torch.ops import flash_attention as fa
+    from tpuflow_torch.ops import int8_matmul as im
+    from tpuflow_torch.parallel.p2p import gather
+    from tpuflow_torch.parallel.ulysses import ulysses_attention
+
+    B, T, H, D = ULYSSES_SHAPE
+    Tl = T // seq.size
+    g = torch.Generator(device="cuda").manual_seed(14)
+    q, k, v, do = (torch.randn((B, T, H, D), generator=g, device="cuda")
+                   for _ in range(4))
+    blk = slice(seq.rank * Tl, (seq.rank + 1) * Tl)
+    ql, kl, vl = (t[:, blk].clone().requires_grad_() for t in (q, k, v))
+    _zero_counters(fa, im)
+    out = ulysses_attention(ql, kl, vl, causal=True, seq=seq,
+                            inner_impl="flash")
+    out.backward(do[:, blk])
+    torch.cuda.synchronize()
+    launches = _counters(fa, im)
+    got = [gather(t.detach(), seq.group, 1)
+           for t in (out, ql.grad, kl.grad, vl.grad)]
+    rec = dict(launches=launches)
+    if seq.rank == 0:
+        qp, kp, vp = (t.clone().requires_grad_() for t in (q, k, v))
+        ref = fa.blockwise_attention(qp, kp, vp, causal=True)
+        ref.backward(do)
+        errs = {}
+        for name, a, b, (atol, rtol) in zip(
+                ("out", "dq", "dk", "dv"), got,
+                (ref, qp.grad, kp.grad, vp.grad),
+                (FLASH_TOL["float32"], *[BWD_TOL["float32"]] * 3)):
+            errs[name] = _within(a, b.detach(), atol, rtol,
+                                 f"ulysses (flash) {name}")[0]
+        rec["max_abs_err"] = errs
+    return rec
+
+
+def sp_rank(torch, rank: int, port: int, work: str) -> None:
+    """One rank of phase 14 (``--sp-rank``), its records to
+    ``work/rank<r>.json``: leg (a) (data 1 x seq 2, ring) trained with a
+    checkpoint each epoch, the ring's shift alone, the in-run resume, the
+    first step's gradients on the seq mesh; leg (b)'s first step on the
+    gathered flash path and the Ulysses check; then, in the same process
+    group on the pipeline mesh, leg (c) (data 1 x stage 2) trained, its
+    stage blocks' share and the in-run resume."""
+    import faulthandler
+
+    from tpuflow_torch import dist
+    from tpuflow_torch.ops import flash_attention as fa
+    from tpuflow_torch.ops import int8_matmul as im
+    from tpuflow_torch.parallel.p2p import AxisGroup
+    from tpuflow_torch.train import gpt as gpt_mod
+
+    faulthandler.enable()
+    dev = _sp_init(torch, rank, port)
+    log = (lambda m: print(f"  {m}", flush=True)) if rank == 0 else (
+        lambda m: None)
+    out = {}
+    cfg = _sp_cfg("a")
+    ckpt = os.path.join(work, "ckpt_a")
+    out["a"] = _sp_train(torch, gpt_mod, cfg, ckpt, dev, log)
+    mesh = _sp_train.state.mesh
+    del _sp_train.state
+    torch.cuda.empty_cache()
+    seq = AxisGroup.of(mesh, "seq")
+    out["shift"] = _shift_gbps(torch, seq)
+    out["a_resume"] = _sp_resume(torch, gpt_mod, cfg, ckpt, work, dev,
+                                 log)
+    torch.cuda.empty_cache()
+    loss, grads = _first_grads(torch, cfg, mesh)
+    out["a_d_loss"] = loss
+    if rank == 0:
+        torch.save(grads, os.path.join(work, "a_grads.pt"))
+    del grads
+    cfg_b = _sp_cfg("b")
+    _zero_counters(fa, im)
+    loss, grads = _first_grads(torch, cfg_b, mesh)
+    out["b"] = dict(launches=_counters(fa, im), d_loss=loss)
+    if rank == 0:
+        torch.save(grads, os.path.join(work, "b_grads.pt"))
+    del grads
+    torch.cuda.empty_cache()
+    out["ulysses"] = _ulysses_check(torch, seq)
+    # The pipeline mesh, in the same process group.
+    cfg = _sp_cfg("c")
+    out["c"] = _sp_train(torch, gpt_mod, cfg,
+                         os.path.join(work, "ckpt_c"), dev, log)
+    plan = _sp_train.state.plan
+    held = {"/".join(p): (len(_sp_train.state.model.h), plan.leaves[p][0])
+            for p in plan.leaves if p[0] == "h"}
+    out["c"]["block_share"] = sorted({n / shape[0]
+                                      for n, shape in held.values()})
+    out["c"]["stage_layers"] = len(_sp_train.state.model.h)
+    del _sp_train.state, plan
+    torch.cuda.empty_cache()
+    out["c_resume"] = _sp_resume(torch, gpt_mod, cfg,
+                                 os.path.join(work, "ckpt_c"), work,
+                                 dev, log)
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh, default=float)
+    dist.barrier()
+    dist.shutdown()
+
+
+def sp_kernel_rows(torch, timer) -> dict:
+    """Phase 14's flash kernels at its other attention shapes, f32 (the
+    legs' dtype), against their plain versions, with their times: a rank's
+    heads after Ulysses's all-to-all and a pipeline microbatch (the
+    gathered path runs the training shape, measured in phase 3)."""
+    shapes = tuple(SP_SHAPES.values())
+    return dict(kernels_fwd=flash_phase(torch, timer, shapes,
+                                        dtypes=("float32",)),
+                kernels_bwd=flash_bwd_phase(torch, timer, shapes,
+                                            dtypes=("float32",)))
+
+
+def _restore_at_one(torch, cfg, step_dir: str, scan: bool = False):
+    """The state of ``step_dir`` restored at one process on the card onto
+    ``cfg``'s model (``scan``: in the scan-layers layout, which the
+    ``gpt2`` preset has), as the JAX checkpoint tree of its tensors."""
+    from tpuflow_torch.ckpt import Checkpoint, restore_from_handle
+    from tpuflow_torch.ckpt.tree import checkpoint_tree, load_checkpoint_tree
+    from tpuflow_torch.train.gpt import init_state
+
+    mc = cfg.model_config()
+    if scan:
+        mc = dataclasses.replace(mc, scan_layers=True)
+    state = init_state(cfg, mc, "cuda", materialize=False)
+    tmpl = checkpoint_tree(state, scan_layers=mc.scan_layers, abstract=True)
+    load_checkpoint_tree(state, restore_from_handle(
+        Checkpoint.from_directory(step_dir), abstract_state=tmpl))
+    return checkpoint_tree(state, scan_layers=mc.scan_layers)
+
+
+def _one_device_loss(torch, cfg) -> float:
+    """The first batch's mean cross-entropy of ``cfg``'s fresh model on one
+    device, whole, dropout off (the pipeline's ``train=False`` blocks),
+    TF32 off."""
+    from tpuflow_torch.data.lm import make_lm_loaders
+    from tpuflow_torch.device import f32_matmul_precision
+    from tpuflow_torch.models.losses import cross_entropy_loss
+    from tpuflow_torch.train.gpt import init_state
+
+    mc = cfg.model_config()
+    loader, _ = make_lm_loaders(cfg.batch_size, cfg.steps_per_epoch,
+                                cfg.seq_len, mc.vocab_size)
+    loader.set_epoch(0)
+    batch = next(iter(loader))
+    state = init_state(cfg, mc, "cuda")
+    x, y = (torch.as_tensor(batch[k], device="cuda") for k in ("x", "y"))
+    with torch.no_grad(), f32_matmul_precision():
+        loss = float(cross_entropy_loss(state.model(x, train=False), y))
+    del state
+    torch.cuda.empty_cache()
+    return loss
+
+
+def _sp_check_leg(leg: str, cfg, ranks: list, want: dict) -> None:
+    """A training leg's common checks: each rank's launches exact, the
+    ranks' losses bit-equal, the loss falling."""
+    for r, t in enumerate(ranks):
+        if t["launches"] != want:
+            raise AssertionError(f"sp ({leg}) rank {r} launched "
+                                 f"{t['launches']}, want {want}")
+    losses = ranks[0]["step_losses"]
+    if any(t["step_losses"] != losses or t["loss_history"]
+           != ranks[0]["loss_history"] for t in ranks[1:]):
+        raise AssertionError(f"sp ({leg}): the ranks' losses differ: "
+                             f"{[t['step_losses'] for t in ranks]}")
+    hist = ranks[0]["loss_history"]
+    if not (all(np.isfinite(losses)) and hist[-1] < losses[0]):
+        raise AssertionError(f"sp ({leg}): the loss did not fall: {losses}")
+
+
+def _sp_resume_check(leg: str, work: str, ckpt: str, train: list,
+                     resumes: list, want: dict) -> None:
+    """The in-run resume: each rank's launches exact, its losses those of
+    the run's last epoch bit for bit, the last step's crc32s equal."""
+    for r, res in enumerate(resumes):
+        if res["launches"] != want:
+            raise AssertionError(f"sp ({leg}) rank {r} resume launched "
+                                 f"{res['launches']}, want {want}")
+        if res["step_losses"] != train[r]["step_losses"][SP_STEPS_PER_EPOCH:]:
+            raise AssertionError(f"sp ({leg}) rank {r} resume losses "
+                                 f"{res['step_losses']}")
+    last = f"step_{SP_STEPS}"
+    if _shards(os.path.join(work, os.path.basename(ckpt) + "_resume",
+                            last)) != _shards(os.path.join(ckpt, last)):
+        raise AssertionError(f"sp ({leg}): the resume's last step differs")
+
+
+def _sp_line(leg: str, what: str, cfg, t: dict, smi: str) -> dict:
+    step_ms = float(np.median(t["step_s"][1:])) * 1e3
+    rec = dict(step_ms=step_ms,
+               tokens_per_s=cfg.batch_size * cfg.seq_len / step_ms * 1e3)
+    print(f"sp ({leg}): GPT-2 124M on {what} ({SP_WORLD} ranks on "
+          f"cuda:{SP_CARD} over {FSDP_BACKEND}), {SP_EPOCHS} x "
+          f"{SP_STEPS_PER_EPOCH} steps of 8 x 1024, f32: step losses "
+          f"{', '.join(f'{x:.4f}' for x in t['step_losses'])}; step "
+          f"{step_ms:.1f} ms (median after the cold step), "
+          f"{rec['tokens_per_s']:.0f} tokens/s; flash launches a rank "
+          f"{ {k: v for k, v in t['launches'].items() if v} }; peak memory "
+          f"{t['peak_memory_bytes'] / 2**30:.2f} GiB [{smi}]")
+    return rec
+
+
+def seq_pipeline_phase(torch, smi, kernel_rows: dict | None = None) -> dict:
+    """Phase 14: sequence and pipeline parallelism on GPT-2 124M at full
+    width and depth, SP_WORLD ranks sharing card SP_CARD over gloo, each a
+    process of its own. (a) data 1 x seq 2, ring attention, AdamW, a
+    checkpoint each epoch: learning; the ranks' losses bit-equal; no flash
+    launch (the ring is plain products); the epoch-1 checkpoint on the
+    rule's regions (every leaf whole, written once) with every crc32
+    checked; the in-run resume bit for bit; a restore at one process every
+    leaf bit-equal; the first step on one device within the step-parity
+    limits; the ring's shift alone (GB/s, bits equal). (b) data 1 x seq 2,
+    ``attn_impl="flash"`` (the gathered path): one step within step parity
+    of one device, its flash launches a rank exact; ``ulysses_attention
+    (inner_impl="flash")`` at ULYSSES_SHAPE against the plain version,
+    forward and backward. (c) data 1 x stage 2, 4 microbatches, flash,
+    AdamW: learning, the ranks' losses bit-equal, each rank's flash
+    launches exact, each rank holding half of every ``h/block`` leaf, the
+    epoch-1 checkpoint on the stage rule with every crc32 checked, the
+    in-run resume bit for bit, a restore at one process onto the scan
+    model every leaf bit-equal, the first step's loss within
+    PARITY_LOSS_ATOL of the one-device model's."""
+    from tpuflow_torch.ckpt import raw
+    from tpuflow_torch.train.gpt import mesh_axes
+
+    t_phase = time.monotonic()
+    out = {"mode": f"{SP_WORLD} ranks on cuda:{SP_CARD} over "
+                   f"{FSDP_BACKEND}", "gpu": smi}
+    if kernel_rows is None:
+        kernel_rows = sp_kernel_rows(torch, Timer(torch))
+        torch.cuda.empty_cache()
+    out.update(kernel_rows)
+    work = tempfile.mkdtemp(prefix="chip_smoke_sp_",
+                            dir=os.path.join(REPO, "build"))
+    try:
+        procs_s = _spawn_ranks(["--sp-rank", "{rank}", "{port}", work],
+                               SP_WORLD, "phase 14")
+        ranks = [json.load(open(os.path.join(work, f"rank{r}.json")))
+                 for r in range(SP_WORLD)]
+        out["ranks"], out["ranks_wall_s"] = ranks, procs_s
+        ab = c = ranks
+        L = _sp_cfg("a").model_config().n_layer
+        # (a): the ring runs no kernel of the port.
+        cfg_a = _sp_cfg("a")
+        _sp_check_leg("a", cfg_a, [r["a"] for r in ab], _launches())
+        out["a"] = _sp_line("a", "data 1 x seq 2, ring", cfg_a, ab[0]["a"],
+                            smi)
+        shift = ab[0]["shift"]
+        if not all(r["shift"]["equal"] for r in ab):
+            raise AssertionError("sp (a): the shift's bits differ")
+        out["shift"] = shift
+        print(f"sp (a): the ring's shift alone, (2, 8, 512, 12, 64) f32 "
+              f"({shift['bytes'] / 2**20:.0f} MiB) to the right neighbour "
+              f"staged through pinned host buffers over gloo: "
+              f"{shift['ms']:.2f} ms, {shift['gbps']:.2f} GB/s (the host's "
+              f"path, not NVLink's) [{smi}]")
+        ckpt_a = os.path.join(work, "ckpt_a")
+        step_dir = os.path.join(ckpt_a, f"step_{SP_STEPS_PER_EPOCH}")
+        bad = _tp_rule_layout(step_dir, mesh_axes(cfg_a))
+        checked, corrupt = raw.verify_dir(os.path.join(step_dir, "state"))
+        if bad or corrupt or not checked:
+            raise AssertionError(f"sp (a) epoch-1 checkpoint: leaves off "
+                                 f"the rule {bad[:5]}, corrupt {corrupt[:5]}")
+        _sp_resume_check("a", work, ckpt_a, [r["a"] for r in ab],
+                         [r["a_resume"] for r in ab], _launches())
+        whole = raw.restore_raw(os.path.join(step_dir, "state"))
+        n = _equal_leaves(torch, _restore_at_one(
+            torch, _sp_cfg("a", seq_axis=1), step_dir), whole,
+            "sp (a) restore at one process")
+        del whole
+        p = out["a"]["parity"] = _one_device_parity(
+            torch, cfg_a, os.path.join(work, "a_grads.pt"),
+            ab[0]["a_d_loss"], "sp (a)")
+        print(f"sp (a): epoch-1 checkpoint on the rule's regions, {checked} "
+              f"shard crc32s checked; in-run resume at {SP_WORLD} ranks bit "
+              f"for bit; at one process {n} leaves bit-equal; first step "
+              f"against one device: loss {p['loss_err']:.2e} apart, every "
+              f"gradient within {p['grad_rel']:.2e} of its max |g| [{smi}]")
+        # (b): the gathered flash path, one step; Ulysses.
+        cfg_b = _sp_cfg("b")
+        want_b = _launches(flash_fwd_lse=2 * L, flash_bwd_dq=L,
+                           flash_bwd_dkv=L)
+        for r, rank in enumerate(ab):
+            if rank["b"]["launches"] != want_b:
+                raise AssertionError(f"sp (b) rank {r} launched "
+                                     f"{rank['b']['launches']}, want "
+                                     f"{want_b}")
+        p = _one_device_parity(torch, cfg_b, os.path.join(work, "b_grads.pt"),
+                               ab[0]["b"]["d_loss"], "sp (b)")
+        uly = ab[0]["ulysses"]
+        want_u = _launches(flash_fwd_lse=1, flash_bwd_dq=1, flash_bwd_dkv=1)
+        for r, rank in enumerate(ab):
+            if rank["ulysses"]["launches"] != want_u:
+                raise AssertionError(f"sp (b) rank {r} ulysses launched "
+                                     f"{rank['ulysses']['launches']}")
+        out["b"] = dict(parity=p, launches=ab[0]["b"]["launches"],
+                        ulysses=uly)
+        print(f"sp (b): data 1 x seq 2 on the gathered flash path: one step "
+              f"against one device: loss {p['loss_err']:.2e} apart, every "
+              f"gradient within {p['grad_rel']:.2e} of its max |g|; flash "
+              f"launches a rank {ab[0]['b']['launches']['flash_fwd_lse']} "
+              f"lse forwards, {ab[0]['b']['launches']['flash_bwd_dq']} dq, "
+              f"{ab[0]['b']['launches']['flash_bwd_dkv']} dk/dv (exact); "
+              f"ulysses_attention(inner_impl='flash') at {ULYSSES_SHAPE} "
+              f"against the plain version: max |err| "
+              f"{ {k: f'{v:.2e}' for k, v in uly['max_abs_err'].items()} } "
+              f"[{smi}]")
+        # (c): the pipeline.
+        cfg_c = _sp_cfg("c")
+        M = cfg_c.microbatches
+        per = L // 2 * M * SP_STEPS
+        want_c = _launches(flash_fwd_lse=per, flash_bwd_dq=per,
+                           flash_bwd_dkv=per)
+        _sp_check_leg("c", cfg_c, [r["c"] for r in c], want_c)
+        for r, rank in enumerate(c):
+            if rank["c"]["block_share"] != [0.5]:
+                raise AssertionError(f"sp (c) rank {r} holds "
+                                     f"{rank['c']['block_share']} of the "
+                                     "h/block leaves")
+        out["c"] = _sp_line("c", f"data 1 x stage 2, {M} microbatches, "
+                            "flash", cfg_c, c[0]["c"], smi)
+        ckpt_c = os.path.join(work, "ckpt_c")
+        step_dir = os.path.join(ckpt_c, f"step_{SP_STEPS_PER_EPOCH}")
+        bad = _tp_rule_layout(step_dir, mesh_axes(cfg_c))
+        checked, corrupt = raw.verify_dir(os.path.join(step_dir, "state"))
+        if bad or corrupt or not checked:
+            raise AssertionError(f"sp (c) epoch-1 checkpoint: leaves off "
+                                 f"the rule {bad[:5]}, corrupt {corrupt[:5]}")
+        per_r = L // 2 * M * SP_STEPS_PER_EPOCH
+        _sp_resume_check("c", work, ckpt_c, [r["c"] for r in c],
+                         [r["c_resume"] for r in c],
+                         _launches(flash_fwd_lse=per_r, flash_bwd_dq=per_r,
+                                   flash_bwd_dkv=per_r))
+        whole = raw.restore_raw(os.path.join(step_dir, "state"))
+        one = _sp_cfg("c", stage_axis=1, microbatches=2)
+        n = _equal_leaves(torch, _restore_at_one(torch, one, step_dir,
+                                                 scan=True),
+                          whole, "sp (c) restore at one process")
+        del whole
+        loss1 = _one_device_loss(torch, one)
+        err = abs(loss1 - c[0]["c"]["step_losses"][0])
+        if not err <= PARITY_LOSS_ATOL:
+            raise AssertionError(f"sp (c): first step's loss {err:.2e} off "
+                                 "the one-device model's")
+        out["c"]["loss_err"] = err
+        print(f"sp (c): each rank holds {c[0]['c']['stage_layers']} of {L} "
+              f"blocks (half of every h/block leaf); epoch-1 checkpoint on "
+              f"the stage rule, {checked} shard crc32s checked; in-run "
+              f"resume at {SP_WORLD} ranks bit for bit; at one process onto "
+              f"the scan model {n} leaves bit-equal; first step's loss "
+              f"{err:.2e} off the one-device model's [{smi}]")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.monotonic() - t_phase
+    print(f"phase 14 wall {out['wall_s']:.1f} s [{smi}]")
+    return out
+
+
+def p2p_probe_rank(torch, mode: str, rank: int, port: int) -> None:
+    """One rank of the probe of the collectives phase 14 needs
+    (``--p2p-probe``): 2 processes on card SP_CARD over one gloo group.
+    ``direct``: ``send``/``recv`` of a 64 MB CUDA tensor as it is;
+    ``all_to_all``: ``all_to_all_single`` of 64 MB CUDA tensors; ``staged``:
+    the port's shift (``p2p.ppermute``, through pinned host buffers) and
+    all-to-all (``p2p.all_to_all``). Each result held bit-equal to the
+    host's copy of what was sent; prints one line."""
+    import torch.distributed as tdist
+
+    from tpuflow_torch import dist
+    from tpuflow_torch.parallel.p2p import (
+        AxisGroup,
+        all_to_all,
+        ppermute,
+        ring_perm,
+    )
+
+    dist.initialize("cuda", rank=rank, world_size=2,
+                    init_method=f"tcp://localhost:{port}",
+                    backend=FSDP_BACKEND, device_index=SP_CARD)
+    n = (64 << 20) // 4
+    host = [torch.randn(n, generator=torch.Generator().manual_seed(r))
+            for r in range(2)]
+    x = host[rank].cuda()
+    out = {"mode": mode, "rank": rank}
+    torch.cuda.synchronize()
+    tdist.barrier()
+    t0 = time.monotonic()
+    if mode == "direct":
+        if rank == 0:
+            tdist.send(x, 1)
+            got, want = x, host[0]
+        else:
+            got = torch.empty_like(x)
+            tdist.recv(got, 0)
+            want = host[0]
+    elif mode == "all_to_all":
+        got = torch.empty_like(x)
+        tdist.all_to_all_single(got, x)
+        half = n // 2
+        want = torch.cat([host[0][rank * half:(rank + 1) * half],
+                          host[1][rank * half:(rank + 1) * half]])
+    else:
+        peers = AxisGroup(tdist.group.WORLD, rank, 2)
+        got = ppermute(x, peers, ring_perm(2))
+        want = host[1 - rank]
+        torch.cuda.synchronize()
+        out["shift_s"] = time.monotonic() - t0
+        out["shift_equal"] = bool(torch.equal(got.cpu(), want))
+        t0 = time.monotonic()
+        got = all_to_all(x.view(2, -1), peers, 0, 1)
+        half = n // 2
+        want = torch.cat([host[0][rank * half:(rank + 1) * half],
+                          host[1][rank * half:(rank + 1) * half]])
+        got = got.reshape(-1)
+    torch.cuda.synchronize()
+    out["s"] = time.monotonic() - t0
+    out["equal"] = bool(torch.equal(got.cpu(), want))
+    print(f"p2p probe {json.dumps(out)}", flush=True)
+    dist.shutdown()
+
+
+def p2p_probe() -> int:
+    """``--p2p-probe``: each mode of ``p2p_probe_rank`` in a pair of
+    processes of its own (a mode that crashes takes only its pair)."""
+    import socket
+
+    rcs = {}
+    for mode in ("direct", "all_to_all", "staged"):
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            port = sk.getsockname()[1]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--p2p-probe-rank", mode, str(r),
+                                   str(port)]) for r in range(2)]
+        try:
+            rcs[mode] = [p.wait(timeout=120) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    print(f"p2p probe ranks exited {rcs}")
+    return 0 if all(not any(v) for k, v in rcs.items()
+                    if k != "direct") else 1
+
+
 def main() -> int:
     import torch
 
@@ -4667,6 +5306,15 @@ def main() -> int:
         tp_rank(torch, sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
                 sys.argv[5])
         return 0
+    if sys.argv[1:2] == ["--sp-rank"]:
+        sp_rank(torch, int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
+    if sys.argv[1:2] == ["--p2p-probe-rank"]:
+        p2p_probe_rank(torch, sys.argv[2], int(sys.argv[3]),
+                       int(sys.argv[4]))
+        return 0
+    if sys.argv[1:2] == ["--p2p-probe"]:
+        return p2p_probe()
     if sys.argv[1:2] == ["--tp-resave"]:
         tp_resave_rank(torch, sys.argv[2], int(sys.argv[3]),
                        int(sys.argv[4]), int(sys.argv[5]), sys.argv[6],
@@ -4698,6 +5346,12 @@ def main() -> int:
         with open(os.path.join(REPO, "chiprun_out", "tp.json"), "w") as fh:
             json.dump(tp, fh, indent=1, default=float)
         return 0
+    if sys.argv[1:2] == ["--sp"]:
+        sp = seq_pipeline_phase(torch, smi)
+        os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(REPO, "chiprun_out", "sp.json"), "w") as fh:
+            json.dump(sp, fh, indent=1, default=float)
+        return 0
 
     walls = {}
     lap = [time.monotonic()]
@@ -4717,6 +5371,7 @@ def main() -> int:
     vit_bwd_rows = flash_bwd_phase(torch, timer, (VIT_SHAPE,), causal=False)
     fsdp_rows = fsdp_kernel_rows(torch, timer)
     tp_rows = tp_kernel_rows(torch, timer)
+    sp_rows = sp_kernel_rows(torch, timer)
     event_timed = timer.event_timed
     print(f"kernel times read from CUDA events, the profiler having held "
           f"too few whole calls: {event_timed}")
@@ -4743,6 +5398,8 @@ def main() -> int:
     wall("fsdp phase")
     tp = tp_phase(torch, smi, tp_rows)
     wall("tp phase")
+    sp = seq_pipeline_phase(torch, smi, sp_rows)
+    wall("seq and pipeline phase")
 
     # One JSON entry per kernel. flash: one launch at the generate() leg's
     # shape (f32, 1 x 512 x 12 x 64). int8: the 49 launches of one int8
@@ -4922,6 +5579,16 @@ def main() -> int:
             entry["tp_launches"] = sum(
                 r["train"]["launches"][entry["name"]]
                 for leg in ("a", "b") for r in tp[leg]["ranks"])
+            # Phase 14's sequence-parallel legs, every rank's launches
+            # summed: (a)'s training and resume (the ring launches none)
+            # and (b)'s step on the gathered flash path; and its pipeline
+            # leg (c), training and resume.
+            entry["seq_launches"] = sum(
+                r[k]["launches"][entry["name"]] for r in sp["ranks"]
+                for k in ("a", "a_resume", "b"))
+            entry["pipeline_launches"] = sum(
+                r[k]["launches"][entry["name"]] for r in sp["ranks"]
+                for k in ("c", "c_resume"))
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(dict(gpu=smi, build_s=build_s, flash=flash_rows,
@@ -4929,7 +5596,7 @@ def main() -> int:
                        head_dims=head_rows, slice=sl, generation=gen,
                        train=tr,
                        main_path=main_path, flows=flows, image=image,
-                       recipes=recipes, fsdp=fsdp, tp=tp,
+                       recipes=recipes, fsdp=fsdp, tp=tp, sp=sp,
                        vit_flash=vit_rows, vit_flash_bwd=vit_bwd_rows,
                        event_timed=event_timed, walls=walls,
                        kernels=kernels),

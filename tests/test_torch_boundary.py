@@ -24,7 +24,7 @@ def _port_sources():
 # Every package of the port, with its count of Python modules: a module
 # dropped or left out of the scan fails the count.
 PACKAGES = {"": 2, "ckpt": 6, "data": 4, "dist": 2, "flow": 8, "flows": 6,
-            "infer": 8, "models": 9, "ops": 5, "parallel": 3, "train": 5,
+            "infer": 8, "models": 9, "ops": 5, "parallel": 7, "train": 5,
             "utils": 3}
 
 
@@ -78,6 +78,9 @@ def test_package_imports_with_jax_poisoned():
         "import tpuflow_torch.ckpt.manager, tpuflow_torch.ckpt.raw\n"
         "import tpuflow_torch.flows.my_torch_module, tpuflow_torch.dist\n"
         "import tpuflow_torch.flow, tpuflow_torch.flow.runner\n"
+        "import tpuflow_torch.parallel.pipeline, tpuflow_torch.parallel.p2p\n"
+        "import tpuflow_torch.parallel.ring_attention\n"
+        "import tpuflow_torch.parallel.ulysses\n"
         "import tpuflow_torch.flow.gang_exec, tpuflow_torch.flow.store\n"
         "import tpuflow_torch.utils.locking, tpuflow_torch.utils.preempt\n"
         "import tpuflow_torch.flows.train_flow, tpuflow_torch.flows.eval_flow\n"

@@ -1017,6 +1017,67 @@ def test_gpt2_tensor_parallel_over_nccl_on_two_cards(cuda, tmp_path):
         store.set_home(None)
 
 
+@pytest.mark.parametrize("impl", ["ring", "ulysses"])
+def test_gpt2_sequence_parallel_over_nccl_on_two_cards(cuda, tmp_path,
+                                                       impl):
+    """Phase 14's sequence leg at one process a card: ``TorchGptTrain`` at
+    GPT-2 124M over ``seq`` 2 with ring (the key and value blocks shifted
+    by NCCL's point-to-point ops) or Ulysses (NCCL's all-to-all), a
+    2-member gang; the loss falls, the checkpoint is the two processes',
+    and ``TorchGptEval`` restores it at one process with a finite test
+    loss. Skips below two cards (on one card chip_smoke.py runs the ring
+    with both ranks sharing it over gloo)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: one seq rank a card")
+    from tpuflow_torch.flow import Run, store
+    from tpuflow_torch.flows import gpt_eval_flow, gpt_flow
+
+    home = str(tmp_path / "home")
+    try:
+        run = Run(gpt_flow.main([
+            "run", "--preset", "gpt2", "--seq-len", "1024",
+            "--batch-size", "8", "--epochs", "2", "--steps-per-epoch", "2",
+            "--attn-impl", impl, "--data-axis", "1", "--fsdp-axis", "1",
+            "--seq-axis", "2", "--home", home]))
+        hist = run.data.loss_history
+        assert all(np.isfinite(hist)) and hist[1] < hist[0]
+        assert run.data.result_checkpoint.metadata["process_count"] == 2
+        ev = Run(gpt_eval_flow.main(["run", "--triggered", "--attn-impl",
+                                     "flash", "--home", home]))
+        assert np.isfinite(ev.data.test_loss)
+    finally:
+        store.set_home(None)
+
+
+def test_gpt2_pipeline_over_nccl_on_two_cards(cuda, tmp_path):
+    """Phase 14's pipeline leg at one process a card: ``TorchGptTrain`` at
+    GPT-2 124M over ``stage`` 2 with 4 microbatches on the flash kernels,
+    the activations and their gradients shifted between the cards by
+    NCCL's point-to-point ops; the loss falls, the checkpoint is the two
+    stages', and ``TorchGptEval`` restores it at one process onto the
+    scan-layers model with a finite test loss. Skips below two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: one stage a card")
+    from tpuflow_torch.flow import Run, store
+    from tpuflow_torch.flows import gpt_eval_flow, gpt_flow
+
+    home = str(tmp_path / "home")
+    try:
+        run = Run(gpt_flow.main([
+            "run", "--preset", "gpt2", "--seq-len", "1024",
+            "--batch-size", "8", "--epochs", "2", "--steps-per-epoch", "2",
+            "--attn-impl", "flash", "--data-axis", "1", "--fsdp-axis", "1",
+            "--stage-axis", "2", "--microbatches", "4", "--home", home]))
+        hist = run.data.loss_history
+        assert all(np.isfinite(hist)) and hist[1] < hist[0]
+        assert run.data.result_checkpoint.metadata["process_count"] == 2
+        ev = Run(gpt_eval_flow.main(["run", "--triggered", "--attn-impl",
+                                     "flash", "--home", home]))
+        assert np.isfinite(ev.data.test_loss)
+    finally:
+        store.set_home(None)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T", [65, 197])
 def test_flash_noncausal_vit_lengths_match_plain(cuda, dtype, T):

@@ -183,7 +183,8 @@ def test_named_mesh_of_one_process():
         dist.make_mesh("cpu", {"data": 2, "fsdp": 2})
     with pytest.raises(ValueError, match="unknown mesh axes"):
         dist.make_mesh("cpu", {"pipe": 1})
-    with pytest.raises(NotImplementedError, match="item 14b"):
+    with pytest.raises(ValueError, match="wants 2 processes but the world "
+                       "has 1"):
         dist.make_mesh("cpu", {"seq": 2})
     with pytest.raises(ValueError, match="wants 2 processes but the world "
                        "has 1"):

@@ -201,10 +201,13 @@ def test_mesh_order_and_rows_are_jax_devices(axes):
 
 
 def test_seq_axis_names_item_14b():
-    """A ``seq`` axis above 1 still raises, naming the ROADMAP item."""
+    """ROADMAP item 14b is done: a ``seq`` axis above 1 is a mesh axis
+    like the others, so past the world it raises the world's ValueError
+    (``tests/test_torch_seq_*`` run it on several processes)."""
     from tpuflow_torch import dist
 
-    with pytest.raises(NotImplementedError, match="item 14b"):
+    with pytest.raises(ValueError, match="wants 2 processes but the world "
+                       "has 1"):
         dist.make_mesh("cpu", {"seq": 2})
 
 

@@ -242,19 +242,24 @@ def test_gpt_train_config_matches_jax():
     ({"attn_impl": "ulysses"}, "ulysses"),
 ])
 def test_train_gpt_deferred_config_raises(kw, match):
-    """What the port does not run (sequence and pipeline parallelism)
-    raises NotImplementedError naming ROADMAP item 14b; a data x fsdp x
-    tensor x expert mesh runs on that many processes, so in this one
-    process it raises ValueError naming the mesh and the world."""
+    """Nothing of the parallelism is deferred any more: a data x fsdp x
+    tensor x seq x expert mesh (data x stage in pipeline mode) runs on
+    that many processes, so in this one process it raises ValueError
+    naming the mesh and the world; ring and ulysses attention at one
+    process (a trivial seq axis) train on blockwise attention, the JAX
+    functions' fallback, and the log names the impl."""
     cfg = tgpt.GptTrainConfig(**{"data_axis": 1, "fsdp_axis": 1,
-                                 "steps_per_epoch": 1, "epochs": 1, **kw})
-    with pytest.raises((NotImplementedError, ValueError),
-                       match=match) as err:
+                                 "steps_per_epoch": 1, "epochs": 1,
+                                 "seq_len": 32, **kw})
+    if "attn_impl" in kw:
+        logs = []
+        res = tgpt.train_gpt(cfg, log=logs.append, device="cpu")
+        assert np.isfinite(res.step_losses).all()
+        assert any(f"attn {match}" in m for m in logs)
+        return
+    with pytest.raises(ValueError, match=match) as err:
         tgpt.train_gpt(cfg, log=lambda m: None, device="cpu")
-    if err.type is NotImplementedError:
-        assert "ROADMAP Queue 1 item 14b" in str(err.value)
-    else:
-        assert "the world has 1" in str(err.value)
+    assert "the world has 1" in str(err.value)
 
 
 @pytest.mark.parametrize("kw", [

@@ -201,8 +201,9 @@ def _jax_init(init_npz: str | None, dropout0: bool):
 
 
 def _mesh_axes(cfg) -> dict:
-    return {"data": cfg.data_axis, "fsdp": cfg.fsdp_axis,
-            "tensor": cfg.tensor_axis, "expert": cfg.expert_axis}
+    from tpuflow_torch.train.gpt import mesh_axes
+
+    return mesh_axes(cfg)
 
 
 def fsdp_train(cfg: dict, ckpt_dir=None, init_npz=None, dropout0=True,
@@ -234,19 +235,19 @@ def fsdp_train(cfg: dict, ckpt_dir=None, init_npz=None, dropout0=True,
         ckpt_format=ckpt_format)
     return {"step_losses": res.step_losses,
             "loss_history": res.loss_history,
-            "val": [m["val_loss"] for m in res.metrics_history],
+            "val": [m.get("val_loss") for m in res.metrics_history],
             "sample": res.sample,
             "io": res.checkpoint_io,
             "sharded": plans[0] is not None and has_sharded_leaf(plans[0])}
 
 
 def fsdp_resave(cfg: dict, src: str, dst: str, step: int = 1,
-                fmt: str = "raw"):
+                fmt: str = "raw", scan: bool = False):
     """Restore the checkpoint directory ``src`` (a step, either format)
-    onto this world's sharded state (``cfg``'s model and optimizer) and
-    save it again in ``fmt`` into the manager directory ``dst`` as
-    ``step``; returns the bytes this process read and wrote and its local
-    parameter shapes."""
+    onto this world's sharded state (``cfg``'s model and optimizer;
+    ``scan``: in the scan-layers layout) and save it again in ``fmt`` into
+    the manager directory ``dst`` as ``step``; returns the bytes this
+    process read and wrote and its local parameter shapes."""
     from tpuflow_torch import dist
     from tpuflow_torch.ckpt import CheckpointManager, dcp, raw
     from tpuflow_torch.ckpt.tree import checkpoint_tree, load_checkpoint_tree
@@ -254,6 +255,8 @@ def fsdp_resave(cfg: dict, src: str, dst: str, step: int = 1,
 
     tcfg = tgpt.GptTrainConfig(**cfg)
     mc = tcfg.model_config()
+    if scan:
+        mc = dataclasses.replace(mc, scan_layers=True)
     mesh = None
     if dist.process_count() > 1:
         mesh = dist.make_mesh("cpu", _mesh_axes(tcfg))
@@ -291,17 +294,22 @@ def fsdp_local_shards(cfg: dict):
             "moments": [tuple(t.shape) for t in state.tx.mu]}
 
 
-def mesh_layout(axes=None, dcn=None, ici=None, rows: int = 8):
+def mesh_layout(axes=None, dcn=None, ici=None, rows: int = 8,
+                cols: int = 0):
     """This process's place on a named (or hybrid) mesh and the rows of a
-    global batch of ``rows`` rows that ``shard_batch`` hands it."""
+    global batch of ``rows`` rows (of ``cols`` columns: a 2-D batch whose
+    sequence a ``seq`` axis splits) that ``shard_batch`` hands it."""
     from tpuflow_torch import dist
 
     mesh = (dist.make_hybrid_mesh(dcn, ici, "cpu") if dcn is not None
             else dist.make_mesh("cpu", axes))
-    got = dist.shard_batch({"x": np.arange(rows)}, mesh)
+    x = np.arange(rows * max(cols, 1)).reshape(rows, cols) if cols else (
+        np.arange(rows))
+    got = dist.shard_batch({"x": x}, mesh)
     return {"index": mesh.index, "shape": mesh.shape,
             "coords": list(mesh.device_mesh.get_coordinate()),
-            "all_coords": dict(mesh.coords), "rows": got["x"].tolist()}
+            "all_coords": dict(mesh.coords), "rows": got["x"].tolist(),
+            "groups": {a: mesh.group(a) is not None for a in mesh.shape}}
 
 
 def moe_aux(cfg: dict, init_npz: str):
@@ -334,3 +342,95 @@ def moe_aux(cfg: dict, init_npz: str):
     aux = m(rows.clone().requires_grad_())[1]
     aux.backward()
     return {"aux": float(aux.detach()), "own_aux": own, "want_input": x.tolist()}
+
+
+# ------------------------------------------------- sequence and pipeline
+def _qkv(shape, seed: int):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(4)]
+
+
+def seq_attention(B: int, T: int, H: int, D: int, h_ragged: int):
+    """This world's ``seq`` mesh (data 1 x seq <world>) runs ring,
+    Ulysses and the gathered xla attention on its block of seeded q, k, v
+    (B, T, H, D) (the same whole arrays on every rank), causal, with the
+    backward of a seeded cotangent; Ulysses again at ``h_ragged`` heads
+    (its fallback); and one ``ppermute`` around the ring with its
+    gradient. Returns each one's block of the output and of dq, dk, dv."""
+    from tpuflow_torch import dist
+    from tpuflow_torch.ops.attention import attention
+    from tpuflow_torch.parallel.p2p import AxisGroup, ppermute, ring_perm
+    from tpuflow_torch.parallel.ring_attention import ring_attention
+    from tpuflow_torch.parallel.ulysses import ulysses_attention
+
+    world = tdist.get_world_size()
+    mesh = dist.make_mesh("cpu", {"data": 1, "seq": world})
+    seq = AxisGroup.of(mesh, "seq")
+    blk = slice(seq.rank * T // world, (seq.rank + 1) * T // world)
+
+    def run(fn, heads):
+        q, k, v, do = (torch.from_numpy(a[:, blk].copy())
+                       for a in _qkv((B, T, heads, D), heads))
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        o = fn(q, k, v, causal=True, seq=seq)
+        o.backward(do)
+        return [t.detach().numpy() for t in (o, q.grad, k.grad, v.grad)]
+
+    out = {
+        "ring": run(ring_attention, H),
+        "ulysses": run(ulysses_attention, H),
+        "xla": run(lambda *a, **kw: attention(*a, impl="xla", **kw), H),
+        "ulysses_ragged": run(ulysses_attention, h_ragged),
+    }
+    x = torch.full((3,), float(seq.rank), requires_grad=True)
+    y = ppermute(x, seq, ring_perm(world))
+    (y * (seq.rank + 1)).sum().backward()
+    out["ppermute"] = [y.detach().numpy(), x.grad.numpy()]
+    return out
+
+
+def pipeline_loss(cfg: dict, init_npz: str, tokens: list):
+    """The pipeline loss of ``cfg``'s mesh (data x stage, its
+    microbatches) on the global batch ``tokens`` (B, T + 1), the model
+    from the JAX init in ``init_npz``, and its gradients summed as the
+    train step sums them; rank 0 returns the loss and the gradients of
+    the whole model (every stage's blocks gathered), as the JAX param
+    tree's leaves ('/'-joined paths)."""
+    from tpuflow_torch import dist
+    from tpuflow_torch.ckpt.raw import flatten, unflatten
+    from tpuflow_torch.ckpt.tree import params_to_jax
+    from tpuflow_torch.models.convert import params_from_jax
+    from tpuflow_torch.models.gpt2 import GPT2
+    from tpuflow_torch.parallel.p2p import gather
+    from tpuflow_torch.parallel.pipeline import (
+        gpt2_pipeline_loss,
+        keep_stage_blocks,
+    )
+    from tpuflow_torch.train import gpt as tgpt
+    from tpuflow_torch.train.step import pipeline_gradients
+
+    tcfg = tgpt.GptTrainConfig(**cfg)
+    mc = dataclasses.replace(tcfg.model_config(), dropout=0.0)
+    mesh = dist.make_mesh("cpu", tgpt.mesh_axes(tcfg))
+    with np.load(init_npz) as z:
+        tree = unflatten((k.split("/"), z[k]) for k in z.files)
+    model = GPT2(mc, seed=None, device="cpu")
+    model.load_state_dict(params_from_jax(tree))
+    keep_stage_blocks(model, mesh)
+    state = tgpt._init_pipeline_state(tcfg, mc, torch.device("cpu"), False,
+                                      mesh)
+    state.model.load_state_dict(model.state_dict())
+    batch = dist.shard_batch({"x": np.asarray(tokens)[:, :-1],
+                              "y": np.asarray(tokens)[:, 1:]}, mesh)
+    cell, loss = gpt2_pipeline_loss(
+        state.model, mesh=mesh,
+        n_microbatches=tcfg.microbatches)(batch["x"], batch["y"])
+    cell.backward()
+    grads = pipeline_gradients(state)
+    names = [n for n, _ in state.model.named_parameters()]
+    local = params_to_jax(dict(zip(names, grads)), scan_layers=True)
+    whole = {"/".join(p): (gather(g, mesh.stage_group, 0)
+                           if p[0] == "h" else g).numpy()
+             for p, g in flatten(local)}
+    return {"loss": float(loss), "cell": float(cell),
+            "grads": whole if dist.process_index() == 0 else None}

@@ -76,7 +76,7 @@ if args["mode"] == "train":
     res = jgpt.train_gpt(cfg, args["ckpt_dir"], resume_checkpoint=handle,
                          log=lambda m: None)
     out = {"loss_history": res.loss_history,
-           "val": [m["val_loss"] for m in res.metrics_history]}
+           "val": [m.get("val_loss") for m in res.metrics_history]}
 else:
     # "init_save": save the state born sharded (create_sharded_state);
     # "restore": restore a checkpoint onto this mesh's sharded template
@@ -87,7 +87,10 @@ else:
     from tpuflow.parallel import create_sharded_state, gpt2_tensor_rules
     from tpuflow.train import TrainState
 
-    model = GPT2(cfg.model_config())
+    mc = cfg.model_config()
+    if args.get("scan"):
+        mc = dataclasses.replace(mc, scan_layers=True)
+    model = GPT2(mc)
     tx = cfg.optimizer()
 
     def init_fn(rng):
@@ -95,19 +98,38 @@ else:
         return TrainState.create(apply_fn=model.apply, params=params,
                                  tx=tx)
 
-    mesh = dist.make_mesh({"data": cfg.data_axis, "fsdp": cfg.fsdp_axis,
-                           "tensor": cfg.tensor_axis,
-                           "expert": cfg.expert_axis})
-    rules = (gpt2_tensor_rules if cfg.tensor_axis > 1 or cfg.expert_axis > 1
-             else None)
     born = args["mode"] == "init_save"
-    with mesh:
-        state, _ = create_sharded_state(init_fn, mesh,
-                                        jax.random.PRNGKey(0),
-                                        tensor_rules=rules,
-                                        materialize=born)
-        tmpl = {"step": state.step, "params": state.params,
-                "opt_state": state.opt_state}
+    if cfg.stage_axis > 1:
+        # The pipeline leg's template (tpuflow/train/gpt.py:1038-1059).
+        from tpuflow.parallel import gpt2_pipeline_shardings
+
+        mesh = dist.make_mesh({"data": cfg.data_axis,
+                               "stage": cfg.stage_axis})
+        with mesh:
+            p_shapes = jax.eval_shape(
+                lambda r: model.init(r, jnp.zeros((1, 8), jnp.int32))[
+                    "params"], jax.random.PRNGKey(0))
+            o_shapes = jax.eval_shape(tx.init, p_shapes)
+            spec = lambda shapes: jax.tree_util.tree_map(  # noqa: E731
+                lambda s, sh: jax.ShapeDtypeStruct(s.shape, s.dtype,
+                                                   sharding=sh),
+                shapes, gpt2_pipeline_shardings(mesh, shapes))
+            tmpl = {"step": jax.ShapeDtypeStruct((), jnp.int32),
+                    "params": spec(p_shapes), "opt_state": spec(o_shapes)}
+    else:
+        mesh = dist.make_mesh({"data": cfg.data_axis, "fsdp": cfg.fsdp_axis,
+                               "tensor": cfg.tensor_axis,
+                               "seq": cfg.seq_axis,
+                               "expert": cfg.expert_axis})
+        rules = (gpt2_tensor_rules
+                 if cfg.tensor_axis > 1 or cfg.expert_axis > 1 else None)
+        with mesh:
+            state, _ = create_sharded_state(init_fn, mesh,
+                                            jax.random.PRNGKey(0),
+                                            tensor_rules=rules,
+                                            materialize=born)
+            tmpl = {"step": state.step, "params": state.params,
+                    "opt_state": state.opt_state}
     if born:
         from tpuflow.ckpt import CheckpointManager
         mgr = CheckpointManager(args["ckpt_dir"], max_to_keep=None)
@@ -123,8 +145,9 @@ else:
         np.savez(args["out_npz"], **{
             "/".join(_path_names(path)): np.asarray(jax.device_get(leaf))
             for path, leaf in flat})
-        out = {"specs": {"/".join(_path_names(path)): str(leaf.sharding.spec)
-                         for path, leaf in flat}}
+        out = {"specs": {"/".join(_path_names(path)): str(
+            getattr(getattr(leaf, "sharding", None), "spec", None))
+            for path, leaf in flat}}
 json.dump(out, open(args["out"], "w"))
 """
 
@@ -137,9 +160,11 @@ def run_jax(devices: int, mode: str, workdir: str, **args) -> dict:
     ``mode="restore"`` restores the checkpoint directory ``src`` onto the
     sharded state of ``cfg``'s mesh and writes its leaves to ``out_npz``;
     ``mode="init_save"`` saves the state born sharded on that mesh as
-    step 1 under ``ckpt_dir``. The meshes take ``cfg``'s ``tensor_axis``
-    and ``expert_axis`` with ``gpt2_tensor_rules``, as the JAX recipe
-    does.
+    step 1 under ``ckpt_dir``. The meshes take ``cfg``'s ``tensor_axis``,
+    ``seq_axis`` and ``expert_axis`` with ``gpt2_tensor_rules``, as the
+    JAX recipe does, or with ``stage_axis`` > 1 the pipeline leg's
+    ``data`` x ``stage`` mesh and ``gpt2_pipeline_shardings`` (restore
+    only); ``scan=True`` restores onto the scan-layers model.
     ``workdir`` holds the JAX package's home and data directories."""
     out = os.path.join(workdir, f"jax_{mode}_{len(os.listdir(workdir))}.json")
     env = dict(os.environ, TPUFLOW_HOME=os.path.join(workdir, "home"),

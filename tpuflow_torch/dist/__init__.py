@@ -1,7 +1,7 @@
 """Multi-process runtime (counterpart of ``tpuflow/dist``): the process
-group, the ``data`` mesh and the named ``data`` x ``fsdp`` x ``tensor``
-x ``expert`` one, batch placement, gradient averaging and barriers
-(``mesh``)."""
+group, the ``data`` mesh, the named ``data`` x ``fsdp`` x ``tensor`` x
+``seq`` x ``expert`` one and the pipeline's ``data`` x ``stage`` one,
+batch placement, gradient averaging and barriers (``mesh``)."""
 
 from tpuflow_torch.dist.mesh import (
     Mesh,

@@ -6,9 +6,11 @@ lets XLA emit the collectives; the port runs one process per card
 (``torch.distributed``). Data parallelism holds a full replica in each
 process and averages the gradients itself (``average_gradients``); FSDP
 (``tpuflow_torch/parallel``) shards the state over the ``data`` x
-``fsdp`` processes, and the ``tensor`` and ``expert`` axes split the
-GPT-2 layers and expert stacks over their own groups
-(``parallel/tensor.py``).
+``fsdp`` processes, the ``tensor`` and ``expert`` axes split the GPT-2
+layers and expert stacks over their own groups (``parallel/tensor.py``),
+the ``seq`` axis splits the sequence (``parallel/ring_attention.py``,
+``parallel/ulysses.py``) and the pipeline mesh's ``stage`` axis the
+layers (``parallel/pipeline.py``).
 
 - ``initialize`` (``mesh.py:401``): joins the process group named by
   torch's standard rendezvous variables (``RANK``, ``WORLD_SIZE``,
@@ -52,8 +54,11 @@ AXIS_SEQ = "seq"
 AXIS_EXPERT = "expert"
 # The JAX package's canonical axes (``tpuflow/dist/mesh.py``), in its order.
 AXES = (AXIS_DATA, AXIS_FSDP, AXIS_TENSOR, AXIS_SEQ, AXIS_EXPERT)
-ROADMAP_SEQ = ("ROADMAP Queue 1 item 14b (sequence and pipeline "
-               "parallelism)")
+# The pipeline mesh's axis (``tpuflow/parallel/pipeline.py``), not
+# canonical: it sits after ``data``, where JAX's pipeline leg names it.
+AXIS_STAGE = "stage"
+PIPELINE_AXES = (AXIS_DATA, AXIS_STAGE, AXIS_FSDP, AXIS_TENSOR, AXIS_SEQ,
+                 AXIS_EXPERT)
 
 
 @dataclasses.dataclass
@@ -66,11 +71,13 @@ class Mesh:
     over which FSDP shards and the batch splits, and ``index`` this
     process's place on it (None and 0 for one process); ``full_mesh`` the
     ``DeviceMesh`` over every axis. ``coords`` is this
-    process's coordinate on every axis; ``tensor_group`` and
-    ``expert_group`` are the process groups of its ``tensor`` and
-    ``expert`` peers (the processes that differ from it on that axis
-    alone; None where the axis has size 1). Tensor and expert peers
-    share their ``index``: they take the same rows of a batch."""
+    process's coordinate on every axis; ``groups`` maps an axis to the
+    process group of this process's peers on it (the processes that
+    differ from it on that axis alone; absent where the axis has size
+    1), ``tensor_group``, ``expert_group``, ``seq_group`` and
+    ``stage_group`` naming four. Tensor, expert, seq and stage peers
+    share their ``index``: they take the same rows of a batch (seq peers
+    each its block of the columns)."""
 
     shape: dict[str, int]
     device: torch.device
@@ -78,12 +85,32 @@ class Mesh:
     fsdp_mesh: object | None = None
     index: int = 0
     coords: dict[str, int] = dataclasses.field(default_factory=dict)
-    tensor_group: object | None = None
-    expert_group: object | None = None
+    groups: dict = dataclasses.field(default_factory=dict)
     full_mesh: object | None = None  # the DeviceMesh over every axis
 
     def coord(self, axis: str) -> int:
         return self.coords.get(axis, 0)
+
+    def group(self, axis: str):
+        """The process group of this process's peers on ``axis`` (None:
+        size 1, or no process group)."""
+        return self.groups.get(axis)
+
+    @property
+    def tensor_group(self):
+        return self.group(AXIS_TENSOR)
+
+    @property
+    def expert_group(self):
+        return self.group(AXIS_EXPERT)
+
+    @property
+    def seq_group(self):
+        return self.group(AXIS_SEQ)
+
+    @property
+    def stage_group(self):
+        return self.group(AXIS_STAGE)
 
     @property
     def fsdp_group(self):
@@ -192,9 +219,9 @@ def make_mesh(device: str | torch.device = "cuda",
     With ``axes``: the JAX package's named mesh (``tpuflow/dist/mesh.py``
     ``make_mesh``): a size of -1 (at most one) is inferred, unlisted
     canonical axes are 1, and the product must equal the world, else
-    ValueError naming both. ``seq`` may not exceed 1 (ROADMAP Queue 1
-    item 14b); the process of rank r sits at
-    ``np.unravel_index(r, shape)``, the JAX device order."""
+    ValueError naming both; the process of rank r sits at
+    ``np.unravel_index(r, shape)``, the JAX device order (a ``stage``
+    axis right after ``data``)."""
     device = local_device(device)
     world = process_count()
     if axes is None:
@@ -208,6 +235,13 @@ def make_mesh(device: str | torch.device = "cuda",
                     device_mesh, process_index())
     shape = _named_axes(axes, world)
     return _named_mesh(device, shape, list(range(world)))
+
+
+def axis_order(shape: Mapping[str, int]) -> tuple[str, ...]:
+    """The axes of a named mesh's ``shape`` in rank order, the last
+    fastest: the canonical ``AXES``, with ``stage`` after ``data`` on a
+    pipeline mesh."""
+    return PIPELINE_AXES if AXIS_STAGE in shape else AXES
 
 
 def make_hybrid_mesh(dcn_axes: Mapping[str, int],
@@ -229,20 +263,23 @@ def make_hybrid_mesh(dcn_axes: Mapping[str, int],
                          "meshes; specify every axis size explicitly")
     world = process_count()
     shape = _named_axes({**dcn_axes, **ici_axes}, world)
-    # Rank order: the DCN axes major, each map's axes in canonical order.
-    order = ([a for a in AXES if a in dcn_axes]
-             + [a for a in AXES if a not in dcn_axes])
+    # Rank order: the DCN axes major, each map's axes in the mesh's order.
+    axes = axis_order(shape)
+    order = ([a for a in axes if a in dcn_axes]
+             + [a for a in axes if a not in dcn_axes])
     grid = torch.arange(world).reshape([shape[a] for a in order])
-    grid = grid.permute([order.index(a) for a in AXES])
+    grid = grid.permute([order.index(a) for a in axes])
     return _named_mesh(device, shape, grid.reshape(-1).tolist())
 
 
 def _named_axes(axes: Mapping[str, int], world: int) -> dict[str, int]:
     axes = dict(axes)
-    unknown = [k for k in AXES if k not in axes]
-    extra = sorted(set(axes) - set(AXES))
+    order = axis_order(axes)
+    unknown = [k for k in order if k not in axes]
+    extra = sorted(set(axes) - set(order))
     if extra:
-        raise ValueError(f"unknown mesh axes {extra}; the axes are {AXES}")
+        raise ValueError(f"unknown mesh axes {extra}; the axes are {AXES} "
+                         f"(and {AXIS_STAGE!r} on a pipeline mesh)")
     inferred = [k for k, v in axes.items() if v == -1]
     if len(inferred) > 1:
         raise ValueError(f"at most one axis may be -1, got {inferred}")
@@ -251,38 +288,34 @@ def _named_axes(axes: Mapping[str, int], world: int) -> dict[str, int]:
         if world % known:
             raise ValueError(f"{world} processes not divisible by {known}")
         axes[inferred[0]] = world // known
-    if axes.get(AXIS_SEQ, 1) > 1:
-        raise NotImplementedError(
-            f"mesh axis seq={axes[AXIS_SEQ]} is not ported yet: "
-            f"{ROADMAP_SEQ}")
     total = math.prod(axes.values())
     if total != world:
         raise ValueError(f"mesh {axes} wants {total} processes but the "
                          f"world has {world}")
     for name in unknown:
         axes[name] = 1
-    return {k: axes[k] for k in AXES}
+    return {k: axes[k] for k in order}
 
 
 def _named_mesh(device: torch.device, shape: dict[str, int],
                 ranks: list[int]) -> Mesh:
-    """The ``Mesh`` whose coordinate i (over ``AXES``, the last axis
-    fastest) is process ``ranks[i]``. Every process builds the same
-    groups in the same order (group creation is collective)."""
+    """The ``Mesh`` whose coordinate i (over ``axis_order(shape)``, the
+    last axis fastest) is process ``ranks[i]``. Every process builds the
+    same groups in the same order (group creation is collective)."""
+    axes = tuple(shape)
     if not is_initialized():
-        return Mesh(shape, device, coords={a: 0 for a in AXES})
+        return Mesh(shape, device, coords={a: 0 for a in axes})
     from torch.distributed.device_mesh import DeviceMesh
 
-    grid = torch.tensor(ranks).reshape([shape[a] for a in AXES])
-    full = DeviceMesh(device.type, grid, mesh_dim_names=AXES)
+    grid = torch.tensor(ranks).reshape([shape[a] for a in axes])
+    full = DeviceMesh(device.type, grid, mesh_dim_names=axes)
     device_mesh = full[AXIS_DATA, AXIS_FSDP]
     flat = device_mesh._flatten(f"{AXIS_DATA}_{AXIS_FSDP}")
-    coords = dict(zip(AXES, (int(c) for c in full.get_coordinate())))
-    groups = {a: full[a].get_group() if shape[a] > 1 else None
-              for a in (AXIS_TENSOR, AXIS_EXPERT)}
+    coords = dict(zip(axes, (int(c) for c in full.get_coordinate())))
+    groups = {a: full[a].get_group() for a in axes if shape[a] > 1}
     return Mesh(shape, device, device_mesh, flat,
                 coords[AXIS_DATA] * shape[AXIS_FSDP] + coords[AXIS_FSDP],
-                coords, groups[AXIS_TENSOR], groups[AXIS_EXPERT], full)
+                coords, groups, full)
 
 
 def data_axis_size(mesh: Mesh) -> int:
@@ -295,10 +328,14 @@ def shard_batch(batch: dict, mesh: Mesh) -> dict:
     """This process's rows of a global batch as tensors on its device: of
     B rows over N data shards, shard i (``mesh.index``) takes rows
     [i B / N, (i + 1) B / N), the JAX batch sharding over (``data``,
-    ``fsdp``), data major. Tensor and expert peers take the same rows
-    (the JAX batch sharding is ``P(("data", "fsdp"), seq)``). A batch
-    that N does not divide raises, as the JAX multi-host path does."""
+    ``fsdp``), data major. Tensor, expert and stage peers take the same
+    rows; on a ``seq`` axis of s, the process at seq coordinate c keeps
+    columns [c T / s, (c + 1) T / s) of each 2-D entry (the JAX batch
+    sharding ``P(("data", "fsdp"), "seq")``). A batch that N does not
+    divide, or a sequence that s does not, raises, as the JAX placement
+    does."""
     n = data_axis_size(mesh)
+    s, c = mesh.shape.get(AXIS_SEQ, 1), mesh.coord(AXIS_SEQ)
     out = {}
     for k, v in batch.items():
         rows = len(v)
@@ -306,8 +343,14 @@ def shard_batch(batch: dict, mesh: Mesh) -> dict:
             raise ValueError(f"a batch of {rows} rows does not split over "
                              f"{n} data shards")
         per = rows // n
-        out[k] = torch.as_tensor(v[mesh.index * per:(mesh.index + 1) * per],
-                                 device=mesh.device)
+        part = v[mesh.index * per:(mesh.index + 1) * per]
+        if s > 1 and getattr(part, "ndim", 1) >= 2:
+            cols = part.shape[1]
+            if cols % s:
+                raise ValueError(f"a sequence of {cols} tokens does not "
+                                 f"split over seq={s}")
+            part = part[:, c * cols // s:(c + 1) * cols // s]
+        out[k] = torch.as_tensor(part, device=mesh.device)
     return out
 
 

@@ -7,9 +7,12 @@ flash``), with per-epoch checkpoints under the step's storage and a
 full-state resume with ``--from-run``. The JAX flow runs its ``data`` x
 ``fsdp`` mesh in one process over many devices; the port runs one
 process per card, so the train step is a gang of ``data_axis`` x
-``fsdp_axis`` x ``tensor_axis`` x ``expert_axis`` members (FSDP, with
-Megatron tensor and expert parallelism; the defaults, 2 x 2 x 1 x 1,
-take four cards) whose head carries the artifacts. ``--dist-backend gloo`` with a device that
+``fsdp_axis`` x ``tensor_axis`` x ``seq_axis`` x ``expert_axis`` members
+(FSDP, with Megatron tensor and expert parallelism and ring, Ulysses or
+gathered attention on ``seq``; the defaults, 2 x 2 x 1 x 1 x 1, take
+four cards), or of ``data_axis`` x ``stage_axis`` members in pipeline
+mode (``--stage-axis`` > 1, GPipe over ``--microbatches``), whose head
+carries the artifacts. ``--dist-backend gloo`` with a device that
 names a card (``--device cuda:0``) runs the gang's members on that one
 card. The artifacts match
 the reference's: ``model_config``, ``dataset_used``, ``seq_len_used``,
@@ -17,8 +20,8 @@ the reference's: ``model_config``, ``dataset_used``, ``seq_len_used``,
 ``metrics_history`` (and ``sample``), ``text_source`` on ``lm_text``
 (the corpus's path and sha256, which the eval flow checks), and the
 ``end`` step's training curve card. Options ``train_gpt`` does not run
-yet (sequence and pipeline parallelism) raise its ``NotImplementedError``
-naming the ROADMAP item. ``device`` (default ``cuda``), ``flash_bwd``
+yet raise its ``NotImplementedError`` naming the ROADMAP item.
+``device`` (default ``cuda``), ``flash_bwd``
 (the JAX package's ``TPUFLOW_FLASH_BWD``), ``text_path`` (its
 ``TPUFLOW_TEXT_FILE``) and ``ckpt_format`` (its ``TPUFLOW_CKPT_FORMAT``:
 ``raw``, or ``dcp`` for ``torch.distributed.checkpoint`` as the JAX
@@ -28,6 +31,7 @@ Run:    python -m tpuflow_torch.flows.gpt_flow run --preset test
         [--data-axis 1 --fsdp-axis 1]   (one process)
 """
 
+import math
 import os
 
 from tpuflow_torch.flow import (
@@ -46,8 +50,9 @@ from tpuflow_torch.flow import (
 
 class TorchGptTrain(FlowSpec):
     """Train GPT-2 on LM data on data_axis x fsdp_axis x tensor_axis x
-    expert_axis cards (one process each, the state sharded over them),
-    checkpointing the full state."""
+    seq_axis x expert_axis cards (data_axis x stage_axis in pipeline
+    mode; one process each, the state sharded over them), checkpointing
+    the full state."""
 
     preset = Parameter("preset", default="test", help="test | gpt2 | medium")
     epochs = Parameter("epochs", default=2, help="epochs")
@@ -163,9 +168,11 @@ class TorchGptTrain(FlowSpec):
         if self.from_run:
             self.resume_checkpoint = Run(self.from_run).data.result_checkpoint
             print(f"[gpt_flow] resuming from {self.resume_checkpoint.path}")
+        from tpuflow_torch.train.gpt import mesh_axes
+
         self.next(self.train,
-                  num_parallel=int(self.data_axis) * int(self.fsdp_axis)
-                  * int(self.tensor_axis) * int(self.expert_axis))
+                  num_parallel=math.prod(
+                      mesh_axes(self._train_config()).values()))
 
     @retry(times=3)
     @gpu(all_hosts_started_timeout=60 * 5)

@@ -37,7 +37,13 @@ cache.
 Sharded over a mesh with a ``tensor`` axis (``parallel/tensor.py``, the
 model's ``tp``), a training or evaluation forward runs each block
 Megatron-style on the process's H / t heads and MLP columns; the decode
-paths run on a whole model only.
+paths run on a whole model only. On a ``seq`` axis (``tp.seq``) the
+tokens a process holds are its block [c T, (c + 1) T) of a sequence of
+s T: their positions are those rows of ``wpe`` (the global length within
+``n_ctx``) and attention runs sequence-parallel (``ops.attention``'s
+``seq``). A sharded model's dropout draws each mask over the global
+batch and keeps the process's rows and columns, so the masks do not
+depend on how the batch is split.
 """
 
 from __future__ import annotations
@@ -261,18 +267,34 @@ def fold_in(seed: int, *data: int) -> int:
     return (int(state[0]) << 31 | int(state[1])) & (2 ** 63 - 1)
 
 
-def _dropout(x, p: float, train: bool, rng: int | None, *site: int):
+def _dropout(x, p: float, train: bool, rng: int | None, *site: int,
+             tp=None):
     """Flax's dropout: keep with probability 1 - p, kept values scaled by
     1 / (1 - p). The mask comes from a generator seeded by
     ``fold_in(rng, *site)``, so a remat'd block's recompute draws the same
-    mask as its forward."""
+    mask as its forward. ``tp`` (a sharded model's ``TensorParallel``):
+    ``x`` (B, T, C) is this process's block of the global batch, its
+    rows' data shard ``tp.rows`` = (i, n) and, on a ``seq`` axis, block c
+    of a sequence of s T; the mask is drawn for the whole (n B, s T, C)
+    batch and the block's rows and columns kept, so it does not depend on
+    how the batch is split (JAX draws it over the global array)."""
     if not train or p == 0.0:
         return x
     if rng is None:
         raise ValueError("a train=True forward with dropout needs rng, "
                          "an int seed")
     g = torch.Generator(device=x.device).manual_seed(fold_in(rng, *site))
-    keep = torch.rand(x.shape, generator=g, device=x.device) < 1.0 - p
+    shape, start = list(x.shape), [0, 0]
+    if tp is not None:
+        i, n = tp.rows
+        start[0], shape[0] = i * x.shape[0], n * x.shape[0]
+        if tp.seq is not None:
+            start[1] = tp.seq.rank * x.shape[1]
+            shape[1] = tp.seq.size * x.shape[1]
+    keep = torch.rand(shape, generator=g, device=x.device) < 1.0 - p
+    if shape != list(x.shape):
+        keep = keep[start[0]:start[0] + x.shape[0],
+                    start[1]:start[1] + x.shape[1]]
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
@@ -475,6 +497,7 @@ class Block(nn.Module):
             return _dense(getattr(self, name), h, dt, quant.get(pre + name),
                           int8_impl, rowwise=step)
 
+        seq = None if tp is None else tp.seq
         h = _layer_norm(self.ln_1, x, dt)
         qkv = dense("c_attn", h)
         q, k, v = qkv.split(H * D, dim=-1)
@@ -490,11 +513,23 @@ class Block(nn.Module):
                 a = self._cached_attention(q, k, v, pad_lens, cache, layer)
         elif pad_lens is not None:
             a = _left_pad_attention(q, k, v, pad_lens)
+        elif (seq is not None and cfg.attn_impl == "ulysses" and t > 1
+              and cfg.n_head % seq.size == 0 and H % seq.size):
+            # Ulysses splits the heads over seq: where the JAX test on all
+            # H heads passes but this process's H / t do not split, the
+            # heads are gathered over the tensor group first and this
+            # process's kept after.
+            from tpuflow_torch.parallel.p2p import all_gather
+
+            qa, ka, va = (all_gather(z, tp.tensor, dim=2) for z in (q, k, v))
+            a = attention(qa, ka, va, causal=True, impl=cfg.attn_impl,
+                          flash_bwd=cfg.flash_bwd, seq=seq)
+            a = a.narrow(2, tp.tensor_rank * H, H)
         else:
             a = attention(q, k, v, causal=True, impl=cfg.attn_impl,
-                          flash_bwd=cfg.flash_bwd)
+                          flash_bwd=cfg.flash_bwd, seq=seq)
         a = dense("c_proj", a.reshape(B, T, H * D))
-        x = x + _dropout(a, cfg.dropout, train, rng, layer + 1, 0)
+        x = x + _dropout(a, cfg.dropout, train, rng, layer + 1, 0, tp=tp)
 
         h = _layer_norm(self.ln_2, x, dt)
         aux = None
@@ -507,7 +542,8 @@ class Block(nn.Module):
         else:
             h = F.gelu(dense("mlp_fc", h), approximate="tanh")  # flax default
             h = dense("mlp_proj", h)
-        return x + _dropout(h, cfg.dropout, train, rng, layer + 1, 1), aux
+        return x + _dropout(h, cfg.dropout, train, rng, layer + 1, 1,
+                            tp=tp), aux
 
     def _paged_attention(self, q, k, v, pad_lens, cache, layer, slot_index,
                          page_table):
@@ -699,6 +735,12 @@ class GPT2(nn.Module):
         dev = self.wte.device
         ar = torch.arange(T, device=dev)
         wte, wpe = self.wte, self.wpe
+        seq = None if self.tp is None else self.tp.seq
+        if seq is not None and (decode or pad_lens is not None or quant):
+            raise NotImplementedError(
+                "a sequence-parallel model runs training and evaluation "
+                "forwards; decode on the gathered model "
+                "(train.gpt.full_model)")
         if self.tp is not None:
             # A sharded model gathers the rule's blocks of the embeddings
             # (their gradients, equal on every tensor peer, keep each
@@ -729,11 +771,17 @@ class GPT2(nn.Module):
         elif pad_lens is not None:
             positions = ar[None, :] - pad_lens[:, None]
             pe = wpe[torch.clamp(positions, 0, cfg.n_ctx - 1)]
+        elif seq is not None:
+            # Block c of the sequence: positions [c T, (c + 1) T).
+            if T * seq.size > cfg.n_ctx:
+                raise ValueError(f"a sequence of {T * seq.size} tokens "
+                                 f"exceeds n_ctx={cfg.n_ctx}")
+            pe = wpe[seq.rank * T:(seq.rank + 1) * T]
         else:
             pe = wpe[:T]
         dt = cfg.compute_dtype(decode and not prefill)
         x = wte[tokens].to(dt) + pe.to(dt)
-        x = _dropout(x, cfg.dropout, train, rng, 0)
+        x = _dropout(x, cfg.dropout, train, rng, 0, tp=self.tp)
         aux = []
         for i, block in enumerate(self.h):
             kw = dict(

@@ -31,6 +31,15 @@ outputs summed over the groups; the load-balance loss takes ``frac`` and
 loss is not linear in a split of the batch: a mean of the processes'
 losses would differ from the JAX package's). The capacity counts a row's
 tokens, so a split of the batch leaves it as it is.
+
+On a ``seq`` axis (``tp.seq``) each process holds block c of every row's
+sequence, and the JAX routing is over the whole row: the capacity is
+taken from the whole T, and a token's slot in its expert's buffer counts
+the row's tokens routed there before it, the preceding blocks' included
+(their per-row, per-expert counts all-gathered over the ``seq`` group
+and added to the block's cumsum). Each process then runs the experts on
+its own tokens' slots. The load-balance loss's means run over the
+``seq`` group too.
 """
 
 from __future__ import annotations
@@ -75,20 +84,28 @@ class MoEMLP(nn.Module):
         self.b1.zero_()
         self.b2.zero_()
 
-    def route(self, x):
+    def route(self, x, seq=None):
         """The routing of ``x`` (B, T, C), in f32: the softmax
         probabilities (B, T, E), each token's expert one-hot (B, T, E),
         and the (B, T, E, cap) dispatch (0/1) and combine (dispatch x
-        probability) tensors."""
+        probability) tensors. ``seq`` (a ``p2p.AxisGroup``): ``x`` is
+        block c of rows of s T tokens (see the module docstring)."""
         B, T, _ = x.shape
         E = self.n_experts
-        cap = capacity(T, self.capacity_factor, E)
+        cap = capacity(T if seq is None else T * seq.size,
+                       self.capacity_factor, E)
         gate_logits = F.linear(x.float(), self.gate.weight.float(),
                                self.gate.bias.float())
         probs = torch.softmax(gate_logits, dim=-1)
         onehot = F.one_hot(probs.argmax(-1), E).float()
         # Position of each token inside its expert's buffer.
-        pos = (torch.cumsum(onehot, dim=1) - 1.0) * onehot
+        seen = torch.cumsum(onehot, dim=1)
+        if seq is not None:
+            from tpuflow_torch.parallel.p2p import gather
+
+            counts = gather(onehot.sum(dim=1)[None], seq.group, 0)
+            seen = seen + counts[:seq.rank].sum(dim=0)[:, None, :]
+        pos = (seen - 1.0) * onehot
         keep = onehot * (pos < cap)
         # A position past the buffer is dropped by keep; clamp it first,
         # as one_hot takes no index out of range.
@@ -101,20 +118,26 @@ class MoEMLP(nn.Module):
         (output (B, T, C) in that dtype, the f32 load-balance loss)."""
         dt = x.dtype if dtype is None else dtype
         E = self.n_experts
-        probs, onehot, pos_oh, combine = self.route(x)
         tp = self.tp
-        if tp is None or tp.fsdp_group is None:
+        seq = getattr(tp, "seq", None)
+        probs, onehot, pos_oh, combine = self.route(x, seq)
+        groups = [g for g in (getattr(tp, "fsdp_group", None),
+                              None if seq is None else seq.group)
+                  if g is not None]
+        if not groups:
             frac = onehot.mean(dim=(0, 1))
             mean_prob = probs.mean(dim=(0, 1))
         else:
             from tpuflow_torch.parallel.tensor import all_reduce_sum
 
-            # The two means over the FSDP group's whole batch.
+            # The two means over the whole batch of the FSDP group and the
+            # seq group.
             n = torch.full((1,), float(probs.shape[0] * probs.shape[1]),
                            device=probs.device)
-            sums = all_reduce_sum(torch.cat(
-                [onehot.sum(dim=(0, 1)), probs.sum(dim=(0, 1)), n]),
-                tp.fsdp_group)
+            sums = torch.cat([onehot.sum(dim=(0, 1)), probs.sum(dim=(0, 1)),
+                              n])
+            for group in groups:
+                sums = all_reduce_sum(sums, group)
             frac, mean_prob = sums[:E] / sums[-1], sums[E:2 * E] / sums[-1]
         aux = self.aux_weight * E * torch.sum(frac * mean_prob)
         if tp is not None and (tp.t > 1 or tp.e > 1):

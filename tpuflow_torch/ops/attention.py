@@ -9,13 +9,23 @@ causal, impl)`` with q/k/v shaped (B, T, H, D):
   the hand-written CUDA kernels on the card (forward, and with a gradient
   the forward with lse and the backward pair ``flash_bwd`` names: fused,
   split or blockwise), their plain versions on the CPU.
-- ``"ring"`` / ``"ulysses"`` — sequence parallelism, not ported yet
-  (ROADMAP Queue 1 item 14b); they raise.
+- ``"ring"`` / ``"ulysses"`` — sequence parallelism over the ``seq``
+  axis (``parallel/ring_attention.py``, ``parallel/ulysses.py``; the
+  latter with ``xla`` inside, as the JAX dispatch calls it). Without a
+  ``seq`` group (or one of size 1) both are blockwise attention, the JAX
+  functions' fallback on a trivial axis.
 - ``"auto"`` — flash on CUDA at T >= the threshold, else xla: one
   threshold for calls that will be differentiated, one for forwards
   only. ``resolve_attention_impl(..., tuning=)`` takes others (a dict,
   or the path of a JSON file, as ``chip_smoke.py`` writes one), as the
   JAX package's ``flash_tuning.json`` does.
+
+Under a ``seq`` mesh (``seq``: this process's ``p2p.AxisGroup``, q, k, v
+its block (B, T / s, H, D) of the sequence) ``xla``, ``flash`` and
+``auto`` still see the whole sequence, as GSPMD makes the JAX step do:
+``gathered_attention`` all-gathers q, k and v over the group, runs the
+implementation on the whole T (``auto`` resolved at that T) and keeps
+this process's rows; the gradient is reduce-scattered back.
 """
 
 from __future__ import annotations
@@ -113,11 +123,46 @@ def resolve_attention_impl(
     return "xla"
 
 
+def gathered_attention(q, k, v, *, causal: bool = True, impl: str = "xla",
+                       seq=None, needs_bwd: bool = True,
+                       flash_bwd: str = "fused"):
+    """``impl`` (``xla``, ``flash``, ``auto`` or ``blockwise``) over the
+    whole sequence of a ``seq`` mesh: q, k and v gathered over ``seq``
+    (a ``p2p.AxisGroup``) along T, this process's block of the output's
+    rows kept."""
+    from tpuflow_torch.parallel.p2p import all_gather
+
+    Tl = q.shape[1]
+    qf, kf, vf = (all_gather(x, seq, dim=1) for x in (q, k, v))
+    if impl == "blockwise":
+        from tpuflow_torch.ops.flash_attention import blockwise_attention
+
+        out = blockwise_attention(qf, kf, vf, causal=causal)
+    else:
+        out = attention(qf, kf, vf, causal=causal, impl=impl,
+                        needs_bwd=needs_bwd, flash_bwd=flash_bwd)
+    return out.narrow(1, seq.rank * Tl, Tl)
+
+
 def attention(q, k, v, *, causal: bool = True, impl: str = "xla",
-              needs_bwd: bool = True, flash_bwd: str = "fused"):
+              needs_bwd: bool = True, flash_bwd: str = "fused", seq=None):
     """Dispatch to the selected implementation (see module docstring).
     ``flash_bwd`` picks the flash backward (the JAX package's
-    ``TPUFLOW_FLASH_BWD``)."""
+    ``TPUFLOW_FLASH_BWD``); ``seq`` (a ``p2p.AxisGroup``, None off a
+    ``seq`` mesh) the sequence's split."""
+    if seq is not None and seq.size > 1:
+        if impl == "ring":
+            from tpuflow_torch.parallel.ring_attention import ring_attention
+
+            return ring_attention(q, k, v, causal=causal, seq=seq)
+        if impl == "ulysses":
+            from tpuflow_torch.parallel.ulysses import ulysses_attention
+
+            return ulysses_attention(q, k, v, causal=causal, seq=seq)
+        if impl in ("xla", "flash", "auto"):
+            return gathered_attention(q, k, v, causal=causal, impl=impl,
+                                      seq=seq, needs_bwd=needs_bwd,
+                                      flash_bwd=flash_bwd)
     impl = resolve_attention_impl(
         impl, q.shape[1], needs_bwd=needs_bwd, backend=q.device.type
     )
@@ -128,10 +173,10 @@ def attention(q, k, v, *, causal: bool = True, impl: str = "xla",
 
         return flash_attention(q, k, v, causal=causal, bwd=flash_bwd)
     if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attention impl {impl!r} (sequence parallelism) is not ported "
-            "yet: ROADMAP Queue 1 item 14b"
-        )
+        # A trivial seq axis: the JAX functions' blockwise fallback.
+        from tpuflow_torch.ops.flash_attention import blockwise_attention
+
+        return blockwise_attention(q, k, v, causal=causal)
     raise KeyError(
         f"unknown attention impl {impl!r}; use xla|flash|ring|ulysses"
     )

@@ -37,6 +37,15 @@ JAX's ``("fsdp", "data")`` entry is fsdp major. The two differ on which
 process holds which block only when both axes exceed 1; the checkpoint
 pieces name their regions, so either side restores the other's.
 
+The JAX rule never names ``seq``: on a ``seq`` axis every leaf is
+replicated over it, its region written by the process at seq coordinate
+0. The pipeline mesh ``{"data": D, "stage": S}`` takes the JAX pipeline
+rule instead (``tpuflow/parallel/pipeline.py::gpt2_pipeline_shardings``,
+``pipeline_spec``): ``P("stage")`` on dim 0 (the layer axis) of every
+leaf under an ``h`` path, the parameters' and the optimizer state's
+alike, everything else replicated; each stage's model holds only its
+``n_layer / S`` blocks (``parallel/pipeline.py``), and no FSDP runs.
+
 The optimizer moments and the EMA weights are made from the local parts
 (``ShardPlan.local``), so they mirror their parameter's layout; the
 checkpoint tree of a sharded state is built from them too
@@ -57,7 +66,8 @@ from tpuflow_torch.ckpt.raw import Piece, flatten, map_leaves
 
 MIN_SHARD_ELEMS = 2**12
 _DATA, _FSDP, _TENSOR, _EXPERT = "data", "fsdp", "tensor", "expert"
-_AXES = (_DATA, _FSDP, _TENSOR, "seq", _EXPERT)
+_STAGE = "stage"
+_AXES = (_DATA, _FSDP, _TENSOR, "seq", _EXPERT, _STAGE)
 
 
 def gpt2_tensor_rules(names: tuple[str, ...], shape: tuple[int, ...]):
@@ -107,13 +117,26 @@ def entry_axes(entry) -> tuple[str, ...]:
     return entry if isinstance(entry, tuple) else (entry,)
 
 
+def pipeline_spec(names, shape) -> tuple:
+    """The JAX pipeline rule for one leaf: ``("stage", None, ...)`` under
+    an ``h`` path (the stacked blocks' layer axis), replicated
+    elsewhere."""
+    spec: list = [None] * len(shape)
+    if spec and "h" in tuple(names):
+        spec[0] = _STAGE
+    return tuple(spec)
+
+
 def leaf_spec(names, shape, axes: dict,
               tensor_rules: Callable | None = None,
               min_shard_elems: int = MIN_SHARD_ELEMS) -> tuple:
     """The JAX ``make_shardings`` rule for one leaf (path ``names``,
     ``shape``) on a mesh of ``axes`` (axis -> size): the spec, one entry a
-    dimension (see the module docstring)."""
+    dimension (see the module docstring); on a pipeline mesh (``stage``
+    above 1) the pipeline rule."""
     shape = tuple(int(n) for n in shape)
+    if axes.get(_STAGE, 1) > 1:
+        return pipeline_spec(names, shape)
     spec: list = [None] * len(shape)
     if not shape or math.prod(shape) < min_shard_elems:
         return tuple(spec)
@@ -232,14 +255,19 @@ class ShardPlan:
     def __init__(self, model, scan_layers: bool, mesh, *,
                  tensor_rules: Callable | None = None):
         self.axes = {a: mesh.shape.get(a, 1) for a in _AXES}
-        self.coords = {a: mesh.coord(a) for a in _AXES}
+        self.coords = {a: mesh.coord(a) if a in mesh.shape else 0
+                       for a in _AXES}
+        stages = self.axes[_STAGE]
+        if stages > 1 and not scan_layers:
+            raise ValueError("pipeline params require "
+                             "GPT2Config(scan_layers=True)")
         self.fsdp_index = mesh.fsdp_index
         self.device_mesh = mesh.full_mesh
         self.world = self.axes[_DATA] * self.axes[_FSDP]
         self.tensor_rules = tensor_rules
         self.scan_layers = scan_layers
         self.names, self.dims, self.split, self.leaves = [], {}, {}, {}
-        self.specs, self.shapes = {}, {}
+        self.specs, self.shapes, self.staged = {}, {}, set()
         per_leaf: dict[tuple, list] = {}
         for name, p in model.named_parameters():
             path, stacked, transposed = _jax_key(name, p.dim(), scan_layers)
@@ -252,8 +280,11 @@ class ShardPlan:
         for path, members in per_leaf.items():
             _, stacked, _, shape = members[0]
             if stacked:
-                shape = (len(members), *shape)
+                # A stage holds its n_layer / S blocks of the stack.
+                shape = (len(members) * stages, *shape)
             spec = leaf_spec(path, shape, self.axes, tensor_rules)
+            if spec and spec[0] == _STAGE:
+                self.staged.update(name for name, *_ in members)
             self.specs[path] = spec
             fdim = spec.index(entry) if entry in spec else None
             self.leaves[path] = (shape, fdim)
@@ -288,6 +319,8 @@ class ShardPlan:
             used = set(self.split[n])
             if self.dims[n] is not None:
                 used |= {_DATA, _FSDP}
+            if n in self.staged:
+                used.add(_STAGE)
             out.append(all(c == 0 for a, c in self.coords.items()
                            if a not in used))
         return out
@@ -329,9 +362,11 @@ class ShardPlan:
     def held_spec(self, path: tuple) -> tuple:
         """The spec of the block of leaf ``path`` this process holds: the
         rule's, but whole along a stacked leaf's layer axis (every process
-        holds the torch tensors of a layer whole)."""
+        holds the torch tensors of a layer whole), except on a pipeline
+        mesh, where a stage holds its layers alone."""
         spec = list(self.specs[path])
-        if self.scan_layers and path[0] == "h" and spec and spec[0]:
+        if (self.scan_layers and path[0] == "h" and spec and spec[0]
+                and spec[0] != _STAGE):
             spec[0] = None
         return tuple(spec)
 
@@ -342,7 +377,7 @@ class ShardPlan:
             return None
         if _FSDP in names or _DATA in names:
             return mesh.fsdp_group if self.world > 1 else None
-        return mesh.tensor_group if entry == _TENSOR else mesh.expert_group
+        return mesh.group(entry)
 
     # -------------------------------------------------------- checkpoint
     def _blocks(self, path: tuple) -> tuple:

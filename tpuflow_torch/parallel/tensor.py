@@ -44,6 +44,14 @@ tensor placement holds dim 0. Every collective here is a plain
 Every process of a tensor (expert) group takes the same rows, so the
 reduced activations are the same bits on each: gloo's all-reduce hands
 every member the same sums.
+
+On a ``seq`` axis the same object carries the sequence's split to the
+blocks (``seq``, a ``p2p.AxisGroup``; None where the axis is 1): the
+attention dispatch (``ops/attention.py``) runs ring, Ulysses or the
+gathered attention over it, the model offsets its positions, and the MoE
+routing counts the preceding blocks' tokens (``models/moe.py``). Under
+``tensor`` x ``seq`` each process runs the sequence-parallel attention on
+its H / t heads (heads are independent).
 """
 
 from __future__ import annotations
@@ -51,6 +59,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as tdist
 import torch.nn.functional as F
+
+from tpuflow_torch.parallel.p2p import AxisGroup
 
 _TENSOR, _EXPERT = "tensor", "expert"
 # How a GPT-2 block (and the root) uses each parameter over a model axis:
@@ -152,10 +162,11 @@ class TensorParallel:
     """One process's place in the model-parallel computation of a sharded
     GPT-2 (``mesh``, ``plan``: ``dist.Mesh`` and ``sharding.ShardPlan``):
     the tensor and expert sizes, ranks and groups, the FSDP group (for
-    the MoE loss), and for each parameter how the model reads it
-    (``view``) and over which groups the train step sums its gradient
-    (``grad_sum``). The model's blocks, its MoE layers and its root hold
-    it as ``tp`` (``attach``)."""
+    the MoE loss), the ``seq`` peers (``seq``), and for each parameter how
+    the model reads it (``view``) and over which groups the train step
+    sums its gradient (``grad_sum``), and its data shard of the batch
+    (``rows``). The model's blocks, its MoE layers and its root hold it
+    as ``tp`` (``attach``)."""
 
     def __init__(self, mesh, plan, config):
         self.t = mesh.shape.get(_TENSOR, 1)
@@ -165,6 +176,11 @@ class TensorParallel:
         self.groups = {_TENSOR: mesh.tensor_group, _EXPERT: mesh.expert_group}
         self.ranks = {_TENSOR: self.tensor_rank, _EXPERT: self.expert_rank}
         self.fsdp_group = mesh.fsdp_group if plan.world > 1 else None
+        self.seq = AxisGroup.of(mesh, "seq")
+        self.tensor = AxisGroup.of(mesh, _TENSOR)
+        # The process's rows of the global batch: data shard i of n
+        # (``dist.shard_batch``), for the dropout masks.
+        self.rows = (mesh.index, plan.world)
         C, H = config.n_embd, config.n_head
         if H % self.t or (4 * C) % self.t:
             raise ValueError(f"tensor={self.t} must divide the heads ({H}) "

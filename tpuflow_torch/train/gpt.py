@@ -13,24 +13,33 @@ end (the JAX checkpoint tree, ``ckpt/tree.py``), an in-run resume from
 the newest committed step, and a resume from a handle.
 
 A mesh of ``data_axis`` x ``fsdp_axis`` x ``tensor_axis`` x
-``expert_axis`` > 1 runs on that many processes, one per card (each
-calls ``train_gpt`` with its rendezvous variables set, as the
+``seq_axis`` x ``expert_axis`` > 1 runs on that many processes, one per
+card (each calls ``train_gpt`` with its rendezvous variables set, as the
 ``TorchGptTrain`` gang's members do), laid out in the JAX device order
 (``dist.make_mesh``): the state is sharded by the JAX rule over them
 (``parallel/sharding.py``: ``gpt2_tensor_rules`` on the ``tensor`` and
 ``expert`` axes, then FSDP2 over ``data`` x ``fsdp``), the blocks run
 Megatron-style on the tensor group and the MoE experts on the expert
-group (``parallel/tensor.py``), each process trains on its rows of the
-global batch (its tensor and expert peers on the same rows), the metrics
+group (``parallel/tensor.py``), the sequence over the seq group (ring,
+Ulysses or the gathered attention, ``attn_impl``), each process trains
+on its rows of the global batch (its tensor and expert peers on the same
+rows, its seq peers each on its block of their columns), the metrics
 and the validation loss are the world's, the checkpoints are written
 shard by shard as manifest fragments
 (``CheckpointManager(multi_process=True)``, ``ckpt_format`` ``raw`` or
 ``dcp``) and restore at whatever world the resume runs. Process 0 alone
-logs and samples. What the JAX leg does beyond that raises
-``NotImplementedError`` naming the ROADMAP item: sequence and pipeline
-axes (``seq_axis``, ``stage_axis``, the ``ring``/``ulysses`` attention),
-the health monitor, preemption and elastic re-form. Nothing is silently
-ignored.
+logs and samples.
+
+``stage_axis`` > 1 takes the JAX pipeline leg (``_train_pipeline``): a
+``data_axis`` x ``stage_axis`` mesh of processes, each stage holding its
+``n_layer / stage_axis`` blocks (``parallel/pipeline.py``), the GPipe
+schedule over ``microbatches`` with dropout off, per-epoch saves on the
+pipeline rule whose metric is the epoch's train loss (as ``val_loss``),
+the in-run resume, no validation, no EMA.
+
+What the JAX leg does beyond that raises ``NotImplementedError`` naming
+the ROADMAP item: the health monitor, preemption and elastic re-form.
+Nothing is silently ignored.
 """
 
 from __future__ import annotations
@@ -64,19 +73,19 @@ from tpuflow_torch.parallel import (
     localize,
     shard_model,
 )
+from tpuflow_torch.parallel.pipeline import keep_stage_blocks
 from tpuflow_torch.parallel.tensor import TensorParallel, attach
 from tpuflow_torch.train.optim import make_optimizer
 from tpuflow_torch.train.step import (
     TrainState,
     make_eval_step,
+    make_pipeline_step,
     make_train_step,
     run_validation,
     with_ema,
 )
 
-# The ROADMAP Queue 1 items that will lift what still raises.
-ROADMAP_PARALLEL = ("ROADMAP Queue 1 item 14b (sequence and pipeline "
-                    "parallelism)")
+# The ROADMAP Queue 1 item that will lift what still raises.
 ROADMAP_ROBUST = "ROADMAP Queue 1 item 12c + 8b (robustness of training)"
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
@@ -137,9 +146,11 @@ def active_remat_policy(model_cfg: GPT2Config) -> str:
 @dataclasses.dataclass
 class GptTrainConfig:
     """Everything the GPT training recipe needs: the JAX package's fields
-    and defaults. The mesh's ``data_axis`` x ``fsdp_axis`` is the number
-    of processes that train (the default data 2 x fsdp 2 needs four);
-    ``data_axis=1, fsdp_axis=1`` trains in this one."""
+    and defaults. The mesh's ``data_axis`` x ``fsdp_axis`` x
+    ``tensor_axis`` x ``seq_axis`` x ``expert_axis`` (``data_axis`` x
+    ``stage_axis`` in pipeline mode) is the number of processes that
+    train (the default data 2 x fsdp 2 needs four); ``data_axis=1,
+    fsdp_axis=1`` trains in this one."""
 
     preset: str = "test"            # test | gpt2 | medium
     epochs: int = 2
@@ -269,34 +280,39 @@ def _deferred(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet: {item}")
 
 
+def mesh_axes(cfg: GptTrainConfig) -> dict[str, int]:
+    """The named mesh ``train_gpt`` runs ``cfg`` on: ``data`` x ``stage``
+    in pipeline mode, else ``data`` x ``fsdp`` x ``tensor`` x ``seq`` x
+    ``expert``."""
+    if cfg.stage_axis > 1:
+        return {"data": cfg.data_axis, "stage": cfg.stage_axis}
+    return {"data": cfg.data_axis, "fsdp": cfg.fsdp_axis,
+            "tensor": cfg.tensor_axis, "seq": cfg.seq_axis,
+            "expert": cfg.expert_axis}
+
+
 def _check_supported(cfg: GptTrainConfig, ckpt_dir, health: bool,
                      preemption: bool, elastic: bool) -> None:
     """Raise for every option of the JAX recipe the port does not run, and
     for a mesh the world does not fill."""
-    axes = {
-        "data_axis": cfg.data_axis, "fsdp_axis": cfg.fsdp_axis,
-        "tensor_axis": cfg.tensor_axis, "seq_axis": cfg.seq_axis,
-        "expert_axis": cfg.expert_axis,
-    }
-    desc = " x ".join(f"{k}={v}" for k, v in axes.items())
-    if cfg.seq_axis > 1:
-        raise _deferred(f"a mesh of {desc} (sequence parallelism)",
-                        ROADMAP_PARALLEL)
+    if cfg.stage_axis > 1 and cfg.optimizer_name == "adafactor":
+        raise ValueError(
+            "adafactor in pipeline mode (stage_axis > 1): the JAX leg "
+            "places every optimizer leaf under an 'h' path on 'stage' "
+            "(gpt2_pipeline_shardings), and Adafactor's (1,) placeholders "
+            "do not split; use adamw, sgd or lion")
+    axes = mesh_axes(cfg)
+    desc = " x ".join(f"{k}_axis={v}" for k, v in axes.items())
     if cfg.stage_axis > 1:
-        raise _deferred(f"pipeline parallelism (stage_axis={cfg.stage_axis})",
-                        ROADMAP_PARALLEL)
-    if cfg.attn_impl in ("ring", "ulysses"):
-        raise _deferred(f"attn_impl={cfg.attn_impl!r} (sequence-parallel "
-                        "attention)", ROADMAP_PARALLEL)
-    n = cfg.data_axis * cfg.fsdp_axis * cfg.tensor_axis * cfg.expert_axis
+        desc += " (pipeline)"
+    n = math.prod(axes.values())
     world = dist.process_count()
     if n != world:
         raise ValueError(
             f"a mesh of {desc} = {n} processes, but the world has {world}: "
-            "the port runs one process per mesh coordinate (start "
-            "data_axis x fsdp_axis x tensor_axis x expert_axis processes "
-            "with their rendezvous variables, or run the TorchGptTrain "
-            "gang)")
+            "the port runs one process per mesh coordinate (start that many "
+            "processes with their rendezvous variables, or run the "
+            "TorchGptTrain gang)")
 
     if cfg.ckpt_dtype and ckpt_dir is None:
         raise ValueError(f"ckpt_dtype={cfg.ckpt_dtype!r} casts checkpoints, "
@@ -336,6 +352,8 @@ def init_state(cfg: GptTrainConfig, model_cfg: GPT2Config | None = None,
     parts."""
     model_cfg = model_cfg or cfg.model_config()
     dev = resolve_device(device)
+    if mesh is not None and mesh.shape.get("stage", 1) > 1:
+        return _init_pipeline_state(cfg, model_cfg, dev, materialize, mesh)
     if mesh is None or math.prod(mesh.shape.values()) == 1:
         model = _init_model(model_cfg, dev, seed=0 if materialize else None)
         state = TrainState(model=model, tx=cfg.optimizer(
@@ -358,6 +376,25 @@ def init_state(cfg: GptTrainConfig, model_cfg: GPT2Config | None = None,
     if cfg.ema_decay > 0.0:
         state = with_ema(state)
     return state
+
+
+def _init_pipeline_state(cfg: GptTrainConfig, model_cfg: GPT2Config, dev,
+                         materialize: bool, mesh) -> TrainState:
+    """The state of one stage of a pipeline mesh: the seed-0 model (or a
+    ``meta`` one for a restore) with this stage's blocks alone
+    (``keep_stage_blocks``), placed by the pipeline rule
+    (``ShardPlan`` on the ``stage`` mesh), the optimizer over its
+    parameters. No FSDP: ``data`` peers hold replicas."""
+    model = _init_model(model_cfg, dev if materialize else "meta",
+                        seed=0 if materialize else None)
+    keep_stage_blocks(model, mesh)
+    plan = ShardPlan(model, model_cfg.scan_layers, mesh)
+    leaves = JaxLeaves(model, model_cfg.scan_layers, plan, mesh)
+    if not materialize:
+        model.to_empty(device=dev)
+    tx = cfg.optimizer(plan.local(model), leaves)
+    tx.owned = plan.owned
+    return TrainState(model=model, tx=tx, plan=plan, mesh=mesh)
 
 
 def full_model(state: TrainState):
@@ -427,12 +464,15 @@ def train_gpt(
                          f"{'|'.join(BWD_MODES)}")
     model_cfg = dataclasses.replace(cfg.model_config(), flash_bwd=flash_bwd)
     dev = resolve_device(device)
+    if cfg.stage_axis > 1:
+        if cfg.fsdp_axis > 1:
+            log("[gpt] note: fsdp_axis does not apply in pipeline mode; "
+                "params shard by layer slice over 'stage' instead")
+        return _train_pipeline(cfg, model_cfg, dev, ckpt_dir,
+                               resume_checkpoint, log, ckpt_format)
     mesh = None
     if dist.process_count() > 1:
-        mesh = dist.make_mesh(dev, {"data": cfg.data_axis,
-                                    "fsdp": cfg.fsdp_axis,
-                                    "tensor": cfg.tensor_axis,
-                                    "expert": cfg.expert_axis})
+        mesh = dist.make_mesh(dev, mesh_axes(cfg))
         dev = mesh.device
         if dist.process_index() != 0:
             log = _quiet
@@ -583,6 +623,99 @@ def train_gpt(
         if model is not None:
             result.sample = _sample_greedy(cfg, model, log)
     return result
+
+
+def _train_pipeline(cfg: GptTrainConfig, model_cfg: GPT2Config, dev,
+                    ckpt_dir, resume_checkpoint, log, ckpt_format: str
+                    ) -> GptTrainResult:
+    """The JAX pipeline leg (``tpuflow/train/gpt.py::_train_pipeline``):
+    GPipe over a ``data`` x ``stage`` mesh of processes, the scan-stacked
+    blocks sharded by layer slice, per-epoch saves of the pipeline-sharded
+    state whose metric is the epoch's train loss (``val_loss``), the
+    in-run resume from the newest committed step, no validation, no EMA,
+    no sample."""
+    mesh = dist.make_mesh(dev, mesh_axes(cfg))
+    dev = mesh.device
+    if dist.process_index() != 0:
+        log = _quiet
+    log(f"[gpt] pipeline mesh {dict(mesh.shape)}, "
+        f"microbatches={cfg.microbatches}")
+    if cfg.sample_tokens > 0:
+        log("[gpt] note: sample_tokens does not apply in pipeline mode "
+            "(the JAX leg samples nothing)")
+    loader, _ = make_lm_loaders(
+        cfg.batch_size, cfg.steps_per_epoch, cfg.seq_len,
+        model_cfg.vocab_size, dataset=cfg.dataset, text_path=cfg.text_path,
+    )
+    mgr = resume_step = None
+    if ckpt_dir is not None:
+        mgr = CheckpointManager(ckpt_dir, max_to_keep=2,
+                                save_dtype=cfg.ckpt_dtype or None,
+                                multi_process=True, format=ckpt_format)
+        if resume_checkpoint is None:
+            resume_step = mgr.latest_step()
+    resuming = resume_checkpoint is not None or resume_step is not None
+    state = init_state(cfg, model_cfg, dev, materialize=not resuming,
+                       mesh=mesh)
+    if resuming:
+        tmpl = checkpoint_tree(state, scan_layers=True, abstract=True)
+        if resume_checkpoint is not None:
+            restored = restore_from_handle(resume_checkpoint,
+                                           abstract_state=tmpl)
+        else:
+            restored = mgr.restore(resume_step, abstract_state=tmpl)
+            resume_step = mgr.restores[-1]["step"]
+        load_checkpoint_tree(state, restored)
+        del restored
+        log("[gpt] pipeline-sharded state restored"
+            + (" (in-run resume)" if resume_step is not None else ""))
+    train_step = make_pipeline_step(cfg.microbatches)
+    history, step_losses, step_s = [], [], []
+    start_epoch = skip = 0
+    if resume_step is not None:
+        # Each committed epoch's train loss was its save metric.
+        meta = mgr.restore_metadata(resume_step)
+        history += [m["val_loss"] for m in meta.get("metrics_history", [])
+                    if "val_loss" in m]
+        start_epoch, skip = _resume_cursor(
+            meta.get("data_state"), state.step, cfg.steps_per_epoch,
+            cfg.epochs, loader.seed)
+        log(f"[gpt] pipeline in-run resume from step {state.step} → epoch "
+            f"{start_epoch}"
+            + (f" (replaying from batch {skip})" if skip else ""))
+    for epoch in range(start_epoch, cfg.epochs):
+        loader.set_epoch(epoch)
+        if skip:
+            loader.skip_batches(skip)
+            skip = 0
+        losses = []
+        for batch in loader:
+            t0 = time.monotonic()
+            state, metrics = train_step(state, batch)
+            losses.append(float(metrics["loss"]))  # the step's fence
+            step_s.append(time.monotonic() - t0)
+        step_losses += losses
+        epoch_loss = sum(losses) / len(losses)
+        history.append(epoch_loss)
+        log(f"[gpt] pipeline epoch {epoch}: loss={epoch_loss:.4f}")
+        if mgr is not None:
+            mgr.save(state.step, checkpoint_tree(state, scan_layers=True),
+                     metrics={"val_loss": epoch_loss},
+                     data_state={"epoch": epoch + 1, "batch_index": 0,
+                                 "seed": loader.seed})
+    checkpoint = None
+    if mgr is not None:
+        mgr.wait_until_finished()
+        checkpoint = mgr.checkpoint()
+        mgr.close()
+    return GptTrainResult(
+        checkpoint=checkpoint, loss_history=history,
+        metrics_history=[{"epoch": i, "train_loss": v}
+                         for i, v in enumerate(history)],
+        step_losses=step_losses, step_s=step_s,
+        checkpoint_io=({"saves": mgr.saves, "restores": mgr.restores}
+                       if mgr is not None else None),
+    )
 
 
 def _quiet(*args, **kwargs) -> None:

@@ -25,6 +25,14 @@ the JAX overlap program, else once after the last (the sequential one:
 ``set_requires_gradient_sync`` off for the others). The parameters held
 whole average their gradients with one all-reduce over the same group.
 
+On a ``seq`` axis each process of a seq group holds its block of the
+columns of the same rows (``dist.shard_batch``) and every parameter
+whole over the group (the JAX rule never names ``seq``): its loss is the
+mean over its T / s tokens, so the gradients, after the FSDP
+reductions, are averaged over the seq group (one all-reduce of one flat
+bucket) to the gradient of the global mean; the metrics and the
+validation sums add over the ``data`` x ``fsdp`` x ``seq`` processes.
+
 On a mesh with ``tensor`` or ``expert`` axes (``parallel/tensor.py``)
 the processes of a tensor or expert group take the same rows and compute
 their blocks of each layer; a parameter held whole but used in part by
@@ -34,7 +42,7 @@ already has the same gradient on every peer and is left as it is. The
 optimizer updates the local parts; its global-norm clip and the metrics
 count each element once over the world (the parts whose process sits at
 coordinate 0 of the axes they are replicated over), and the loss and
-accuracy sum over the ``data`` x ``fsdp`` group only
+accuracy sum over the ``data`` x ``fsdp`` (x ``seq``) processes only
 (``_global_metrics``), so ``loss``, ``accuracy``, ``grad_norm``,
 ``update_norm``, ``param_norm`` and ``nonfinite`` are the global values,
 bit-equal on every process.
@@ -52,6 +60,11 @@ carries them (``tpuflow/train/step.py:431-530``); the eval step's
 the gradient bucket leaves them out; across processes they stay equal
 because the statistics are global (the forward all-reduces them).
 
+A pipeline state (``train.gpt`` on a ``data`` x ``stage`` mesh) takes
+``make_pipeline_step``: the GPipe loss of ``parallel/pipeline.py``, its
+gradients summed over the processes that hold each parameter
+(``pipeline_gradients``).
+
 Also here: ``create_train_state`` (an ``nn.Module`` with SGD at momentum
 0.9, the MLP recipe) and ``DispatchWindow`` (the host-side bookkeeping of
 steps in flight).
@@ -65,9 +78,11 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from tpuflow_torch.dist.mesh import (
     average_gradients,
+    data_axis_size,
     group_sum,
     shard_batch,
     world_sum,
@@ -184,7 +199,8 @@ def sharded_gradients(state: TrainState) -> list[torch.Tensor]:
     ``ShardPlan.local`` lays its parameter out: FSDP2's reduce-scatter
     already averaged the sharded ones; those held whole are averaged over
     the FSDP group, and those a tensor or expert group uses in parts are
-    summed over it (``TensorParallel.sum_gradients``)."""
+    summed over it (``TensorParallel.sum_gradients``); on a ``seq`` axis
+    all are then averaged over the seq group (``_seq_average``)."""
     plan, model = state.plan, state.model
     grads = plan.local_grads(model)
     whole = [i for i, sh in enumerate(plan.sharded) if not sh]
@@ -194,7 +210,36 @@ def sharded_gradients(state: TrainState) -> list[torch.Tensor]:
     tp = getattr(model, "tp", None)
     if tp is not None:
         tp.sum_gradients(plan.names, grads)
+    _seq_average(grads, state.mesh)
     return grads
+
+
+@torch.no_grad()
+def _seq_average(grads: list[torch.Tensor], mesh) -> None:
+    """Average, in place, the gradients over the mesh's ``seq`` group (one
+    all-reduce of one flat bucket): each seq peer's loss is the mean over
+    its block of the tokens. A no-op without a seq axis."""
+    s = mesh.shape.get("seq", 1)
+    if s == 1 or not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    tdist.all_reduce(flat, group=mesh.seq_group)
+    flat /= s
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
+def batch_sum(values: torch.Tensor, mesh) -> torch.Tensor:
+    """``values`` summed over the processes that split the batch, the
+    ``data`` x ``fsdp`` group and then the ``seq`` group (the same bits
+    on each, ``group_sum``)."""
+    if data_axis_size(mesh) > 1:
+        values = group_sum(values, mesh.fsdp_group)
+    if mesh.shape.get("seq", 1) > 1:
+        values = group_sum(values, mesh.seq_group)
+    return values
 
 
 def _global_metrics(state: TrainState, loss, acc, grads, updates,
@@ -202,12 +247,13 @@ def _global_metrics(state: TrainState, loss, acc, grads, updates,
     """The sharded step's metrics over the world with one collective: the
     local loss and accuracy (means over this process's rows, counted by
     the process at tensor and expert coordinate 0 of each group of
-    peers) and the square sums of the gradients', updates' and
-    parameters' owned parts (``ShardPlan.owned``) are summed over the
-    processes. ``grad_norm``: the clip's, already global."""
+    peers; a mean over the data x fsdp x seq processes' shares) and the
+    square sums of the gradients', updates' and parameters' owned parts
+    (``ShardPlan.owned``) are summed over the processes. ``grad_norm``:
+    the clip's, already global."""
     plan, params, mesh = state.plan, state.params, state.mesh
     mask = plan.owned
-    rows = plan.world
+    rows = plan.world * mesh.shape.get("seq", 1)
 
     def owned(tensors):
         sq = square_sums(tensors)
@@ -339,6 +385,74 @@ def make_train_step(
     return train_step
 
 
+@torch.no_grad()
+def pipeline_gradients(state: TrainState) -> list[torch.Tensor]:
+    """A pipeline state's gradients after every process's ``cell``
+    backward (``parallel/pipeline.py``): each process's gradients are of
+    its own contribution, so they are summed. A stage's blocks over the
+    ``data`` group (their holders), ``wte``, ``wpe`` and ``ln_f`` over
+    the whole world: ``wte`` takes stage 0's embedding gradient and the
+    last stage's head gradient. A parameter this process did not use
+    (``wpe`` off stage 0) contributes zeros. One all-reduce of one flat
+    bucket a group."""
+    plan, mesh = state.plan, state.mesh
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad
+             for p in state.params]
+    staged = [n in plan.staged for n in plan.names]
+    for keep, group in ((True, mesh.group("data")), (False, None)):
+        idx = [i for i, st in enumerate(staged) if st == keep]
+        if not idx or (keep and group is None):
+            continue
+        flat = torch.cat([grads[i].reshape(-1) for i in idx])
+        tdist.all_reduce(flat, group=group)
+        offset = 0
+        for i in idx:
+            n = grads[i].numel()
+            grads[i] = flat[offset:offset + n].view_as(grads[i])
+            offset += n
+    return grads
+
+
+def make_pipeline_step(n_microbatches: int) -> Callable:
+    """Build ``train_step(state, batch) -> (state, metrics)`` for a
+    pipeline state (``train.gpt`` on a ``data`` x ``stage`` mesh): the
+    GPipe loss of ``parallel/pipeline.py`` over this process's rows of
+    the global batch (``dist.shard_batch``: its data shard's, the same on
+    every stage), its backward, the gradients summed
+    (``pipeline_gradients``), one optimizer update. ``metrics``: the loss
+    (the world's, bit-equal on every process) and the norms of the owned
+    parts of the gradients, updates and parameters summed over the world
+    (``grad_norm``, ``update_norm``, ``param_norm``, ``nonfinite``), the
+    JAX pipeline step's health statistics."""
+    from tpuflow_torch.parallel.pipeline import gpt2_pipeline_loss
+
+    def train_step(state: TrainState, batch, rng: int | None = None):
+        loss_fn = gpt2_pipeline_loss(state.model, mesh=state.mesh,
+                                     n_microbatches=n_microbatches)
+        batch = shard_batch(batch, state.mesh)
+        for p in state.params:
+            p.grad = None
+        cell, loss = loss_fn(batch["x"], batch["y"])
+        cell.backward()
+        grads = pipeline_gradients(state)
+        updates = state.tx.update(grads)
+        state.step += 1
+        mask = torch.tensor(state.plan.owned, device=loss.device)
+        norms = torch.sqrt(world_sum(torch.stack([
+            square_sums(t)[mask].sum()
+            for t in (grads, updates, state.params)])))
+        g, u, p = norms
+        if state.tx.last_grad_norm is not None:
+            g = state.tx.last_grad_norm
+        finite = torch.isfinite(loss) & torch.isfinite(g) & torch.isfinite(u)
+        for q in state.params:
+            q.grad = None
+        return state, {"loss": loss, "grad_norm": g, "update_norm": u,
+                       "param_norm": p, "nonfinite": (~finite).float()}
+
+    return train_step
+
+
 def make_eval_step() -> Callable:
     """Build ``eval_step(state, batch) -> {loss_sum, num_correct, count}``
     (0-dim tensors): token-level cross-entropy sums honouring a ``mask``
@@ -371,7 +485,7 @@ def run_validation(state, loader, eval_step) -> float:
     batch's per-row mask is broadcast to the label shape (padded rows of
     an LM batch drop out whole) and the masked sums accumulate; a sharded
     state's processes each sum their rows and the sums add over the
-    ``data`` x ``fsdp`` group."""
+    ``data`` x ``fsdp`` (x ``seq``) processes."""
     tot = cnt = 0.0
     for b in loader:
         batch = {"x": b["x"], "y": b["y"]}
@@ -390,10 +504,9 @@ def run_validation(state, loader, eval_step) -> float:
             # gathered; the next training forward must gather them anew.
             state.model.reshard()
         # Tensor and expert peers hold the same rows: the sums add over
-        # the data x fsdp group alone.
-        if plan.world > 1:
-            tot, cnt = group_sum(
-                torch.tensor([tot, cnt], dtype=torch.float64,
-                             device=state.params[0].device),
-                state.mesh.fsdp_group).tolist()
+        # the data x fsdp x seq processes alone.
+        tot, cnt = batch_sum(
+            torch.tensor([tot, cnt], dtype=torch.float64,
+                         device=state.params[0].device),
+            state.mesh).tolist()
     return tot / max(cnt, 1.0)
