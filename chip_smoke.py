@@ -163,8 +163,9 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    ``TorchGptEval`` from it at one process, its flash launches exact.
 13. GPT-2 124M at full width, 3 of its 12 layers (a depth cut for the
    time limit, ``TP_LAYERS``), on the tensor and expert axes
-   (``tp_phase``): four ranks, each a process of its own, sharing the
-   card over gloo (the probe's mode; it also holds ``all_reduce``);
+   (``tp_phase``): four ranks, each a process of its own that runs both
+   legs in turn, sharing the card over gloo (the probe's mode; it also
+   holds ``all_reduce``);
    2 epochs of 2 steps at 8 x 1024, f32, flash, full remat, a checkpoint
    each epoch. (a) data 1 x fsdp 2 x tensor 2, AdamW; (b) data 1 x fsdp 2
    x expert 2, Switch MoE with 8 experts, Adafactor. The flash kernels at
@@ -203,7 +204,23 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    rule, the in-run resume bit for bit, a restore at one process onto the
    scan model every leaf bit-equal, the first step's loss within 1e-5 of
    the one-device model's. Step ms, tokens/s and peak memory a leg.
-15. One JSON line with every kernel's numbers (the int8 matmul both as one
+15. Preemption (``preempt_phase``) on phase 6's ``train_gpt`` call (GPT-2
+   124M at full width and depth, 2 x 8 steps of 8 x 1024, f32, full
+   remat, dropout 0.1, AdamW, flash, the fused backward): (a) in this
+   process, the fault plan ``preempt:0@step5`` with a 30 s grace budget
+   drains step 5 by the full save on the persistent tier (the mid-epoch
+   cursor in its metadata) and raises ``Preempted``; the call again
+   restores step 5 and runs steps 6-16: the 5 + 11 losses bit-equal to
+   phase 6's, ``step_16``'s crc32s equal to phase 7's split leg's, the
+   flash launches exact over both calls; (b) a child process of this
+   script (``--preempt-child``) makes the same call with a node-local
+   tier and no grace; once its log reports step 3 it gets a real
+   SIGTERM, drains by ``emergency_save`` on the local tier and exits 75
+   with a local-only committed step k; a second child restores step k
+   from the local tier (its ``ckpt.restore_tier`` event) and finishes
+   with the same checks. The drain times (flag to ``Preempted``), the
+   saves' and restores' seconds and GB/s, the phase's wall.
+16. One JSON line with every kernel's numbers (the int8 matmul both as one
    decode step at M = 8 and as the same 49 products at M = 512; the
    training kernels in f32 and bf16, their launches from the f32 legs and
    the bf16 leg, which runs the fused pair, so the bf16 split variants'
@@ -215,6 +232,7 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    ``tp_launches``: those of phase 13's two training legs, every rank's;
    ``seq_launches``: those of phase 14's legs (a) and (b), every rank's;
    ``pipeline_launches``: those of its leg (c), every rank's;
+   ``preempt_launches``: those of phase 15's legs, both calls of each;
    the ``_vit`` entries at the
    ViT shape, f32, their launches the ViT leg's), the ``nvidia-smi`` line,
    and as the last line
@@ -234,8 +252,11 @@ them to ``chiprun_out/wide_compare.json``.
 phase 11, into ``chiprun_out/recipes.json``; ``--fsdp`` only phase 12,
 into ``chiprun_out/fsdp.json`` (its ranks are ``--fsdp-rank`` processes
 of this script); ``--tp`` only phase 13, into ``chiprun_out/tp.json``
-(its ranks are ``--tp-rank`` and ``--tp-resave`` processes); ``--sp``
+(its ranks are ``--tp-rank`` processes); ``--sp``
 only phase 14, into ``chiprun_out/sp.json`` (its ranks are ``--sp-rank``
+processes); ``--preempt`` only phase 15, after an uninterrupted run of
+phase 6's call that stands for phases 6 and 7, into
+``chiprun_out/preempt.json`` (its children are ``--preempt-child``
 processes). ``python3 chip_smoke.py --gloo-probe`` runs only the probe
 that fixed phases 12 and 13's mode (``gloo_probe_rank``);
 ``--p2p-probe`` the probe that fixed phase 14's (``p2p_probe_rank``:
@@ -266,6 +287,7 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+T_START = time.monotonic()
 
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory rate, and the
 # operation rates by input type — f32 outside the tensor cores, bf16 and
@@ -1444,6 +1466,19 @@ def _top(kernels, n: int = 8):
             sorted(by_name.items(), key=lambda kv: -kv[1])[:n]]
 
 
+def _train_cfg():
+    """The training slice's ``train_gpt`` call: GPT-2 124M at full width
+    and depth, TRAIN_EPOCHS x TRAIN_STEPS_PER_EPOCH steps of 8 x 1024,
+    flash (the preset's full remat, dropout 0.1, AdamW, f32)."""
+    from tpuflow_torch.train.gpt import GptTrainConfig
+
+    return GptTrainConfig(
+        preset="gpt2", seq_len=1024, batch_size=8, epochs=TRAIN_EPOCHS,
+        steps_per_epoch=TRAIN_STEPS_PER_EPOCH, attn_impl="flash",
+        data_axis=1, fsdp_axis=1,
+    )
+
+
 def train_phase(torch, smi):
     """The training main path through train_gpt, then two profiled steps
     and the flash-vs-einsum step parity."""
@@ -1451,13 +1486,9 @@ def train_phase(torch, smi):
     from tpuflow_torch.device import f32_matmul_precision
     from tpuflow_torch.ops import flash_attention as fa
     from tpuflow_torch.ops import int8_matmul as im
-    from tpuflow_torch.train.gpt import GptTrainConfig, train_gpt
+    from tpuflow_torch.train.gpt import train_gpt
 
-    cfg = GptTrainConfig(
-        preset="gpt2", seq_len=1024, batch_size=8, epochs=TRAIN_EPOCHS,
-        steps_per_epoch=TRAIN_STEPS_PER_EPOCH, attn_impl="flash",
-        data_axis=1, fsdp_axis=1,
-    )
+    cfg = _train_cfg()
     model_cfg = cfg.model_config()
     L = model_cfg.n_layer
     n_val = len(make_lm_loaders(cfg.batch_size, cfg.steps_per_epoch,
@@ -1745,7 +1776,8 @@ def split_ckpt_phase(torch, smi, cfg, fused_losses) -> tuple[dict, dict]:
         shutil.rmtree(root, ignore_errors=True)
     out = dict(split=dict(wall_s=wall_s, launches=got,
                           step_losses=res.step_losses, saves=saves,
-                          shards=len(split_shards)),
+                          shards=len(split_shards),
+                          step_shards=split_shards),
                resume=dict(wall_s=resume_wall_s, launches=got2,
                            step_losses=res2.step_losses,
                            restores=io2["restores"], saves=io2["saves"]),
@@ -3871,6 +3903,7 @@ def fsdp_rank(torch, rank: int, port: int, work: str) -> None:
     dist.initialize("cuda", rank=rank, world_size=FSDP_WORLD,
                     init_method=f"tcp://localhost:{port}",
                     backend=FSDP_BACKEND, device_index=FSDP_CARD)
+    _await_go(os.path.join(work, "go"))
     cfg = _fsdp_cfg()
     log = (lambda m: print(f"  {m}", flush=True)) if rank == 0 else (
         lambda m: None)
@@ -4041,7 +4074,17 @@ def fsdp_kernel_rows(torch, timer) -> dict:
                                             dtypes=("float32",)))
 
 
-def fsdp_phase(torch, smi, kernel_rows: dict | None = None) -> dict:
+def _fsdp_start() -> tuple:
+    """Phase 12's work directory and its ranks, started (they wait for
+    the go)."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_fsdp_",
+                            dir=os.path.join(REPO, "build"))
+    return work, _start_ranks(["--fsdp-rank", "{rank}", "{port}", work],
+                              FSDP_WORLD)
+
+
+def fsdp_phase(torch, smi, kernel_rows: dict | None = None,
+               started: tuple | None = None, ranks_done=None) -> dict:
     """Phase 12: GPT-2-medium trained by FSDP_WORLD ranks on card
     FSDP_CARD over gloo (see FSDP_BACKEND), each a process of its own:
     (a) the flash kernels at one rank's attention shape against their
@@ -4058,9 +4101,9 @@ def fsdp_phase(torch, smi, kernel_rows: dict | None = None) -> dict:
     step's loss and gradients on one device within PARITY_LOSS_ATOL and
     PARITY_GRAD_RTOL of (b)'s sharded step; (e) ``TorchGptTrain`` at 124M
     as a two-member gang on the card, then ``TorchGptEval`` from it at one
-    process, its flash launches exact."""
-    import socket
-
+    process, its flash launches exact. ``started``: ``_fsdp_start()``'s,
+    when the ranks were started ahead; ``ranks_done`` is called once they
+    have ended."""
     from tpuflow_torch.ckpt import CheckpointManager, raw
     from tpuflow_torch.ckpt.tree import checkpoint_tree, load_checkpoint_tree
     from tpuflow_torch.flow import Run, store
@@ -4080,26 +4123,11 @@ def fsdp_phase(torch, smi, kernel_rows: dict | None = None) -> dict:
         torch.cuda.empty_cache()
     out.update(kernel_rows)
     cfg = _fsdp_cfg()
-    work = tempfile.mkdtemp(prefix="chip_smoke_fsdp_",
-                            dir=os.path.join(REPO, "build"))
+    work, procs = started or _fsdp_start()
     try:
-        with socket.socket() as sk:
-            sk.bind(("localhost", 0))
-            port = sk.getsockname()[1]
-        t0 = time.monotonic()
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                                   "--fsdp-rank", str(r), str(port), work])
-                 for r in range(FSDP_WORLD)]
-        try:
-            rcs = [p.wait(timeout=900) for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        if any(rcs):
-            raise AssertionError(f"phase 12 ranks exited {rcs}")
-        ranks_s = time.monotonic() - t0
+        ranks_s = _finish_ranks(procs, os.path.join(work, "go"), "phase 12")
+        if ranks_done is not None:
+            ranks_done()
         ranks = []
         for r in range(FSDP_WORLD):
             with open(os.path.join(work, f"rank{r}.json")) as fh:
@@ -4300,25 +4328,55 @@ def _tp_collective_ms(torch, group, calls: int) -> dict:
                 gbps=nbytes / ms / 1e6)
 
 
-def tp_rank(torch, leg: str, rank: int, port: int, work: str) -> None:
-    """One rank of phase 13's leg ``leg`` (``--tp-rank``): the training leg
-    with a checkpoint each epoch; the all-reduces of a step alone; the
-    in-run resume at the same mesh from the directory without its last
-    step; the first step's gradients, sharded. Its records go to
-    ``work/rank<r>.json``."""
+def tp_rank(torch, rank: int, port: int, root: str) -> None:
+    """One rank of phase 13 (``--tp-rank``): both legs in one process
+    group, each into ``root/<leg>`` (``_tp_rank_leg``), and between them
+    leg (a)'s epoch-1 step restored and saved again as DCP at the same
+    mesh into ``root/a/dcp`` (``_tp_resave``); then ranks 0 and 1 form a
+    world of two (a file rendezvous under ``root``) and restore that step
+    at fsdp 2 into ``root/a/two``."""
     import faulthandler
 
+    from tpuflow_torch import dist
+
+    faulthandler.enable()
+    dist.initialize("cuda", rank=rank, world_size=TP_WORLD,
+                    init_method=f"tcp://localhost:{port}",
+                    backend=FSDP_BACKEND, device_index=TP_CARD)
+    _await_go(os.path.join(root, "go"))
+    for leg in ("a", "b"):
+        work = os.path.join(root, leg)
+        _tp_rank_leg(torch, leg, rank, work)
+        if leg == "a":
+            _tp_resave(torch, leg, TP_WORLD, rank, os.path.join(
+                work, "ckpt", f"step_{TP_STEPS_PER_EPOCH}"),
+                os.path.join(work, "dcp"), "dcp")
+        torch.cuda.empty_cache()
+    dist.barrier()
+    dist.shutdown()
+    if rank < 2:
+        dist.initialize("cuda", rank=rank, world_size=2,
+                        init_method=f"file://{os.path.join(root, 'two')}",
+                        backend=FSDP_BACKEND, device_index=TP_CARD)
+        _tp_resave(torch, "a", 2, rank, os.path.join(
+            root, "a", "ckpt", f"step_{TP_STEPS_PER_EPOCH}"),
+            os.path.join(root, "a", "two"), "raw")
+        dist.barrier()
+        dist.shutdown()
+
+
+def _tp_rank_leg(torch, leg: str, rank: int, work: str) -> None:
+    """Leg ``leg`` of a phase 13 rank: the training leg with a checkpoint
+    each epoch; the all-reduces of a step alone; the in-run resume at the
+    same mesh from the directory without its last step; the first step's
+    gradients, sharded. Its records go to ``work/rank<r>.json``."""
     from tpuflow_torch import dist
     from tpuflow_torch.ops import flash_attention as fa
     from tpuflow_torch.ops import int8_matmul as im
     from tpuflow_torch.parallel import has_sharded_leaf
     from tpuflow_torch.train import gpt as gpt_mod
 
-    faulthandler.enable()
     dev = f"cuda:{TP_CARD}"
-    dist.initialize("cuda", rank=rank, world_size=TP_WORLD,
-                    init_method=f"tcp://localhost:{port}",
-                    backend=FSDP_BACKEND, device_index=TP_CARD)
     cfg = _tp_cfg(leg)
     log = (lambda m: print(f"  {m}", flush=True)) if rank == 0 else (
         lambda m: None)
@@ -4402,25 +4460,20 @@ def tp_rank(torch, leg: str, rank: int, port: int, work: str) -> None:
     with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
         json.dump(out, fh, default=float)
     dist.barrier()
-    dist.shutdown()
 
 
-def tp_resave_rank(torch, leg: str, world: int, rank: int, port: int,
-                   src: str, dst: str, fmt: str) -> None:
-    """One rank of a restore of phase 13's step directory ``src`` (either
-    format) at ``world`` ranks (fsdp ``world``; leg (a)'s mesh at 4) on
-    card TP_CARD, saved again as step 1 in ``fmt`` into ``dst``
-    (``--tp-resave``); its save and restore records to
-    ``dst/rank<r>.json``."""
+def _tp_resave(torch, leg: str, world: int, rank: int, src: str, dst: str,
+               fmt: str) -> None:
+    """Restore phase 13's step directory ``src`` (either format) at
+    ``world`` ranks (fsdp ``world``; leg (a)'s mesh at 4) and save it
+    again as step 1 in ``fmt`` into ``dst``; this rank's save and restore
+    records to ``dst/rank<r>.json``."""
     from tpuflow_torch import dist
     from tpuflow_torch.ckpt import CheckpointManager, dcp, raw
     from tpuflow_torch.ckpt.tree import checkpoint_tree, load_checkpoint_tree
     from tpuflow_torch.train.gpt import init_state
 
     dev = f"cuda:{TP_CARD}"
-    dist.initialize("cuda", rank=rank, world_size=world,
-                    init_method=f"tcp://localhost:{port}",
-                    backend=FSDP_BACKEND, device_index=TP_CARD)
     cfg = _tp_cfg(leg) if world == TP_WORLD else _tp_cfg(
         leg, data_axis=1, fsdp_axis=world, tensor_axis=1, expert_axis=1)
     mc = cfg.model_config()
@@ -4448,23 +4501,52 @@ def tp_resave_rank(torch, leg: str, world: int, rank: int, port: int,
         json.dump(dict(saves=saves, restore=dict(
             bytes=nbytes, seconds=restore_s,
             gbps=nbytes / restore_s / 1e9)), fh, default=float)
-    dist.barrier()
-    dist.shutdown()
 
 
-def _spawn_ranks(args: list, world: int, what: str) -> float:
-    """Run ``world`` processes of this script with ``args`` (``{rank}`` and
-    ``{port}`` filled in) to their end; raises when one fails. Returns
-    the wall seconds."""
+# Processes started ahead of their phase (a phase's ranks while the one
+# before it checks its results), stopped at exit if a phase fails first.
+_AHEAD: list = []
+GO_TIMEOUT_S = 1200.0
+
+
+def _stop_ahead() -> None:
+    for p in _AHEAD:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _ahead(proc):
+    """Register ``proc``, started ahead of its phase, for ``_stop_ahead``."""
+    if not _AHEAD:
+        import atexit
+
+        atexit.register(_stop_ahead)
+    _AHEAD.append(proc)
+    return proc
+
+
+def _start_ranks(args: list, world: int) -> list:
+    """Start ``world`` processes of this script with ``args`` (``{rank}``
+    and ``{port}`` filled in). Each joins its world, then waits for its
+    work directory's ``go`` file (``_await_go``): their start (imports,
+    context, rendezvous) can overlap the work before their phase."""
     import socket
 
     with socket.socket() as sk:
         sk.bind(("localhost", 0))
         port = sk.getsockname()[1]
+    return [_ahead(subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__),
+         *(a.format(rank=r, port=port) for a in args)]))
+        for r in range(world)]
+
+
+def _finish_ranks(procs: list, go: str, what: str) -> float:
+    """Tell the ranks ``procs`` to go (the file ``go``) and wait for their
+    end; raises when one fails. Returns the seconds from the go."""
+    open(go, "w").close()
     t0 = time.monotonic()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               *(a.format(rank=r, port=port) for a in args)])
-             for r in range(world)]
     try:
         rcs = [p.wait(timeout=900) for p in procs]
     finally:
@@ -4475,6 +4557,15 @@ def _spawn_ranks(args: list, world: int, what: str) -> float:
     if any(rcs):
         raise AssertionError(f"{what}: ranks exited {rcs}")
     return time.monotonic() - t0
+
+
+def _await_go(go: str) -> None:
+    """A rank's wait for its parent's ``go`` file."""
+    deadline = time.monotonic() + GO_TIMEOUT_S
+    while not os.path.exists(go):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"no {go} within {GO_TIMEOUT_S:.0f} s")
+        time.sleep(0.02)
 
 
 def _tp_rule_layout(step_dir: str, axes: dict) -> list:
@@ -4549,11 +4640,24 @@ def tp_kernel_rows(torch, timer) -> dict:
                                             dtypes=("float32",)))
 
 
-def tp_phase(torch, smi, kernel_rows: dict | None = None) -> dict:
+def _tp_start() -> tuple:
+    """Phase 13's work directory and its ranks, started (they wait for
+    the go)."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_tp_",
+                            dir=os.path.join(REPO, "build"))
+    for leg in ("a", "b"):
+        os.makedirs(os.path.join(root, leg))
+    return root, _start_ranks(["--tp-rank", "{rank}", "{port}", root],
+                              TP_WORLD)
+
+
+def tp_phase(torch, smi, kernel_rows: dict | None = None,
+             started: tuple | None = None, ranks_done=None) -> dict:
     """Phase 13: GPT-2 124M at full depth and width on the tensor and
     expert axes, TP_WORLD ranks on card TP_CARD over gloo, each a process
-    of its own. (a) data 1 x fsdp 2 x tensor 2, AdamW; (b) data 1 x fsdp 2
-    x expert 2, Switch MoE with MOE_EXPERTS experts, Adafactor. Each leg:
+    of its own that runs both legs in turn (one process group). (a) data 1
+    x fsdp 2 x tensor 2, AdamW; (b) data 1 x fsdp 2 x expert 2, Switch MoE
+    with MOE_EXPERTS experts, Adafactor. Each leg:
     learning; each rank's flash launches exact at its attention shape; the
     ranks' metrics bit-equal; the state sharded on the leg's axis (a: each
     rank 1/4 of every leaf split over tensor and fsdp); the epoch-1
@@ -4565,7 +4669,9 @@ def tp_phase(torch, smi, kernel_rows: dict | None = None) -> dict:
     process bit-equal to the raw restore. (b) also: the MoE's summed load-balance
     loss finite, > 0 and bit-equal across ranks; the Adafactor state's
     bytes a rank. Each leg's step ms, tokens/s, peak memory a rank, save
-    and restore GB/s a rank and its all-reduces timed alone."""
+    and restore GB/s a rank and its all-reduces timed alone. ``started``:
+    ``_tp_start()``'s, when the ranks were started ahead; ``ranks_done``
+    is called once they have ended."""
     t_phase = time.monotonic()
     out = {"mode": f"{TP_WORLD} ranks on cuda:{TP_CARD} over "
                    f"{FSDP_BACKEND}", "gpu": smi}
@@ -4573,14 +4679,17 @@ def tp_phase(torch, smi, kernel_rows: dict | None = None) -> dict:
         kernel_rows = tp_kernel_rows(torch, Timer(torch))
         torch.cuda.empty_cache()
     out.update(kernel_rows)
-    for leg in ("a", "b"):
-        cfg = _tp_cfg(leg)
-        work = tempfile.mkdtemp(prefix=f"chip_smoke_tp_{leg}_",
-                                dir=os.path.join(REPO, "build"))
-        try:
-            out[leg] = _tp_leg(torch, smi, leg, cfg, work)
-        finally:
-            shutil.rmtree(work, ignore_errors=True)
+    root, procs = started or _tp_start()
+    try:
+        out["ranks_wall_s"] = _finish_ranks(
+            procs, os.path.join(root, "go"), "phase 13")
+        if ranks_done is not None:
+            ranks_done()
+        for leg in ("a", "b"):
+            out[leg] = _tp_leg(torch, smi, leg, _tp_cfg(leg),
+                               os.path.join(root, leg))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     out["wall_s"] = time.monotonic() - t_phase
     print(f"phase 13 wall {out['wall_s']:.1f} s [{smi}]")
     return out
@@ -4592,8 +4701,6 @@ def _tp_leg(torch, smi, leg: str, cfg, work: str) -> dict:
 
     axes = _tp_axes(cfg)
     desc = " x ".join(f"{k} {v}" for k, v in axes.items())
-    ranks_s = _spawn_ranks(["--tp-rank", leg, "{rank}", "{port}", work],
-                           TP_WORLD, f"phase 13 ({leg})")
     ranks = []
     for r in range(TP_WORLD):
         with open(os.path.join(work, f"rank{r}.json")) as fh:
@@ -4622,7 +4729,7 @@ def _tp_leg(torch, smi, leg: str, cfg, work: str) -> dict:
     if leg == "b" and not (np.isfinite(tr[0]["aux"]) and tr[0]["aux"] > 0):
         raise AssertionError(f"tp (b): load-balance loss {tr[0]['aux']}")
     step_ms = float(np.median(tr[0]["step_s"][1:])) * 1e3
-    rec = dict(ranks=ranks, ranks_wall_s=ranks_s, step_ms=step_ms,
+    rec = dict(ranks=ranks, step_ms=step_ms,
                tokens_per_s=cfg.batch_size * cfg.seq_len / step_ms * 1e3)
     coll = ranks[0]["collectives"]
     print(f"tp ({leg}): GPT-2 124M ({TP_LAYERS} of its 12 layers) on "
@@ -4682,18 +4789,14 @@ def _tp_leg(torch, smi, leg: str, cfg, work: str) -> dict:
           f"crc32s); at one process {n} leaves bit-equal [{smi}]")
     if leg == "a":
         # Two ranks at fsdp 2, every leaf; the step as DCP at the mesh,
-        # restored at one process, against the raw restore.
+        # restored at one process, against the raw restore (both ran in
+        # the ranks' processes, after leg (a)).
         two = os.path.join(work, "two")
-        _spawn_ranks(["--tp-resave", leg, "2", "{rank}", "{port}", step_dir,
-                      two, "raw"], 2, "phase 13 (a) restore at fsdp 2")
         n2 = _equal_leaves(torch, raw.restore_raw(os.path.join(
             two, "step_1", "state")), whole, "tp (a) restore at fsdp 2")
         rec["restore_two"] = [json.load(open(os.path.join(
             two, f"rank{r}.json"))) for r in range(2)]
         dcp_dir = os.path.join(work, "dcp")
-        _spawn_ranks(["--tp-resave", leg, str(TP_WORLD), "{rank}", "{port}",
-                      step_dir, dcp_dir, "dcp"], TP_WORLD,
-                     "phase 13 (a) DCP save")
         rec["dcp"] = [json.load(open(os.path.join(
             dcp_dir, f"rank{r}.json"))) for r in range(TP_WORLD)]
         n3 = _equal_leaves(torch, _restore_one(torch, leg, os.path.join(
@@ -4881,6 +4984,7 @@ def sp_rank(torch, rank: int, port: int, work: str) -> None:
 
     faulthandler.enable()
     dev = _sp_init(torch, rank, port)
+    _await_go(os.path.join(work, "go"))
     log = (lambda m: print(f"  {m}", flush=True)) if rank == 0 else (
         lambda m: None)
     out = {}
@@ -5032,7 +5136,18 @@ def _sp_line(leg: str, what: str, cfg, t: dict, smi: str) -> dict:
     return rec
 
 
-def seq_pipeline_phase(torch, smi, kernel_rows: dict | None = None) -> dict:
+def _sp_start() -> tuple:
+    """Phase 14's work directory and its ranks, started (they wait for
+    the go)."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_sp_",
+                            dir=os.path.join(REPO, "build"))
+    return work, _start_ranks(["--sp-rank", "{rank}", "{port}", work],
+                              SP_WORLD)
+
+
+def seq_pipeline_phase(torch, smi, kernel_rows: dict | None = None,
+                       started: tuple | None = None,
+                       ranks_done=None) -> dict:
     """Phase 14: sequence and pipeline parallelism on GPT-2 124M at full
     width and depth, SP_WORLD ranks sharing card SP_CARD over gloo, each a
     process of its own. (a) data 1 x seq 2, ring attention, AdamW, a
@@ -5051,7 +5166,9 @@ def seq_pipeline_phase(torch, smi, kernel_rows: dict | None = None) -> dict:
     epoch-1 checkpoint on the stage rule with every crc32 checked, the
     in-run resume bit for bit, a restore at one process onto the scan
     model every leaf bit-equal, the first step's loss within
-    PARITY_LOSS_ATOL of the one-device model's."""
+    PARITY_LOSS_ATOL of the one-device model's. ``started``:
+    ``_sp_start()``'s, when the ranks were started ahead; ``ranks_done``
+    is called once they have ended."""
     from tpuflow_torch.ckpt import raw
     from tpuflow_torch.train.gpt import mesh_axes
 
@@ -5062,11 +5179,12 @@ def seq_pipeline_phase(torch, smi, kernel_rows: dict | None = None) -> dict:
         kernel_rows = sp_kernel_rows(torch, Timer(torch))
         torch.cuda.empty_cache()
     out.update(kernel_rows)
-    work = tempfile.mkdtemp(prefix="chip_smoke_sp_",
-                            dir=os.path.join(REPO, "build"))
+    work, procs = started or _sp_start()
     try:
-        procs_s = _spawn_ranks(["--sp-rank", "{rank}", "{port}", work],
-                               SP_WORLD, "phase 14")
+        procs_s = _finish_ranks(procs, os.path.join(work, "go"),
+                                "phase 14")
+        if ranks_done is not None:
+            ranks_done()
         ranks = [json.load(open(os.path.join(work, f"rank{r}.json")))
                  for r in range(SP_WORLD)]
         out["ranks"], out["ranks_wall_s"] = ranks, procs_s
@@ -5189,6 +5307,418 @@ def seq_pipeline_phase(torch, smi, kernel_rows: dict | None = None) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 15
+PREEMPT_STEP = 5           # leg (a): the fault plan's preempt
+PREEMPT_SIGNAL_STEP = 3    # leg (b): SIGTERM once the child reports it
+PREEMPT_GRACE_S = 30.0     # leg (a)'s budget: the full save (leg (b): 0)
+PREEMPT_CHILD_TIMEOUT_S = 300.0
+
+
+def _recorded_losses(gpt_mod, echo: float | None = None):
+    """Patch ``train_gpt``'s train-step maker so that each step's loss is
+    kept (and with ``echo``, a monotonic time, printed as ``step <n> loss
+    <repr> (<s> s)``, the seconds since ``echo``), the steps of a call
+    that ends in ``Preempted`` included; returns the list and the
+    undo."""
+    real = gpt_mod.make_train_step
+    losses = []
+
+    def maker(*a, **kw):
+        step = real(*a, **kw)
+
+        def run(*args):
+            state, metrics = step(*args)
+            losses.append(float(metrics["loss"]))
+            if echo is not None:
+                print(f"step {state.step} loss {losses[-1]!r} "
+                      f"({time.monotonic() - echo:.2f} s)", flush=True)
+            return state, metrics
+
+        return run
+
+    gpt_mod.make_train_step = maker
+    return losses, lambda: setattr(gpt_mod, "make_train_step", real)
+
+
+def _tracked_managers(gpt_mod):
+    """Patch ``train_gpt``'s ``CheckpointManager`` with a subclass that
+    keeps each instance, so its save and restore records outlive a call
+    that raises; returns the list and the undo."""
+    real = gpt_mod.CheckpointManager
+    made = []
+
+    class Tracked(real):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    gpt_mod.CheckpointManager = Tracked
+    return made, lambda: setattr(gpt_mod, "CheckpointManager", real)
+
+
+def _preempt_want(cfg) -> dict:
+    """The flash launches of TRAIN_STEPS steps of ``cfg`` (full remat) and
+    its TRAIN_EPOCHS validations."""
+    from tpuflow_torch.data.lm import make_lm_loaders
+
+    mc = cfg.model_config()
+    L = mc.n_layer
+    n_val = len(make_lm_loaders(cfg.batch_size, cfg.steps_per_epoch,
+                                cfg.seq_len, mc.vocab_size)[1])
+    return _launches(flash_fwd_lse=2 * L * TRAIN_STEPS,
+                     flash_bwd_dq=L * TRAIN_STEPS,
+                     flash_bwd_dkv=L * TRAIN_STEPS,
+                     flash_fwd=L * n_val * TRAIN_EPOCHS)
+
+
+def _preempt_reference(torch, cfg, work: str, smi: str) -> tuple:
+    """``--preempt`` alone: the uninterrupted run phases 6 and 7 give the
+    whole script (its losses and its ``step_16``'s shards; split = fused
+    bit for bit, which phase 7 holds)."""
+    from tpuflow_torch.train.gpt import train_gpt
+
+    t0 = time.monotonic()
+    ref = os.path.join(work, "reference")
+    res = train_gpt(cfg, ckpt_dir=ref, log=lambda m: None)
+    shards = _shards(os.path.join(ref, f"step_{TRAIN_STEPS}"))
+    shutil.rmtree(ref)
+    print(f"preempt: the uninterrupted reference run, {TRAIN_STEPS} steps "
+          f"with its checkpoints: {time.monotonic() - t0:.1f} s [{smi}]")
+    return res.step_losses, shards
+
+
+def _preempt_leg_a(torch, cfg, work: str, fused: list, shards: list,
+                   smi: str) -> dict:
+    """Leg (a): ``train_gpt`` drained in this process by the fault plan at
+    PREEMPT_STEP with a PREEMPT_GRACE_S budget (the full save, on the
+    persistent tier), then called again."""
+    from tpuflow_torch.ops import flash_attention as fa
+    from tpuflow_torch.ops import int8_matmul as im
+    from tpuflow_torch.train import gpt as gpt_mod
+    from tpuflow_torch.utils import preempt
+
+    ck = os.path.join(work, "a")
+    losses, undo_losses = _recorded_losses(gpt_mod)
+    mgrs, undo_mgrs = _tracked_managers(gpt_mod)
+    _zero_counters(fa, im)
+    t0 = time.monotonic()
+    try:
+        try:
+            gpt_mod.train_gpt(cfg, ckpt_dir=ck, log=lambda m: None,
+                              faults=f"preempt:0@step{PREEMPT_STEP}",
+                              preempt_grace_s=PREEMPT_GRACE_S)
+            raise AssertionError("preempt (a): train_gpt was not preempted")
+        except preempt.Preempted:
+            drain_s = time.monotonic() - preempt._REQUESTED_AT
+        preempt.clear_preemption()
+        drained = losses[:]
+        save = mgrs[0].saves[-1]
+        meta = json.load(open(os.path.join(ck, f"step_{PREEMPT_STEP}",
+                                           "metadata.json")))
+        res = gpt_mod.train_gpt(cfg, ckpt_dir=ck, log=lambda m: None)
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+        got = _counters(fa, im)
+    finally:
+        undo_losses()
+        undo_mgrs()
+    cursor = {"epoch": 0, "batch_index": PREEMPT_STEP, "seed": 0}
+    if meta["data_state"] != cursor or meta["metrics"]:
+        raise AssertionError(f"preempt (a): step_{PREEMPT_STEP} holds "
+                             f"{meta['data_state']}, {meta['metrics']}")
+    if len(drained) != PREEMPT_STEP or losses != fused:
+        raise AssertionError(f"preempt (a): losses {drained} then "
+                             f"{losses[PREEMPT_STEP:]}, want phase 6's "
+                             f"{fused}")
+    if _shards(os.path.join(ck, f"step_{TRAIN_STEPS}")) != shards:
+        raise AssertionError(f"preempt (a): step_{TRAIN_STEPS} differs "
+                             "from phase 7's")
+    want = _preempt_want(cfg)
+    if got != want:
+        raise AssertionError(f"preempt (a) launches {got}, want {want}")
+    (restore,) = res.checkpoint_io["restores"]
+    if (restore["step"], restore["tier"]) != (PREEMPT_STEP, "persistent"):
+        raise AssertionError(f"preempt (a) restored {restore}")
+    print(f"preempt (a): drained at step {PREEMPT_STEP} by the fault plan "
+          f"(grace {PREEMPT_GRACE_S:.0f} s: the full save) in "
+          f"{drain_s:.3f} s from the flag to Preempted "
+          f"({_io_line('save', [save])}), requeued: "
+          f"{_io_line('restore', [restore])} (persistent tier, warm page "
+          f"cache); {PREEMPT_STEP} + {TRAIN_STEPS - PREEMPT_STEP} losses "
+          f"bit-equal to phase 6's, step_{TRAIN_STEPS}'s {len(shards)} "
+          f"shard crc32s equal to phase 7's, launches "
+          f"{ {n: v for n, v in got.items() if v} } (exact); wall "
+          f"{wall_s:.1f} s [{smi}]")
+    shutil.rmtree(ck)
+    return dict(drain_s=drain_s, save=save, restore=restore, launches=got,
+                step_losses=losses, wall_s=wall_s)
+
+
+class _Child:
+    """A ``--preempt-child`` process of this script (attempt ``attempt``
+    in ``work``), started ahead; its output lines read on a thread as they
+    come."""
+
+    def __init__(self, work: str, attempt: int):
+        import queue
+        import threading
+
+        self.name = f"child {attempt}"
+        self.proc = _ahead(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--preempt-child",
+             work, str(attempt)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            bufsize=1))
+        self._lines = queue.Queue()
+
+        def read():
+            for line in self.proc.stdout:
+                self._lines.put(line)
+            self._lines.put(None)
+
+        threading.Thread(target=read, daemon=True).start()
+
+    def lines(self, deadline: float):
+        """Its lines, each printed, until it ends; raises past
+        ``deadline``."""
+        import queue
+
+        while True:
+            try:
+                line = self._lines.get(
+                    timeout=max(deadline - time.monotonic(), 0.01))
+            except queue.Empty:
+                raise AssertionError(f"preempt: {self.name} ran past its "
+                                     f"deadline") from None
+            if line is None:
+                return
+            print(f"  [{self.name}] {line.rstrip()}")
+            yield line
+
+    def until(self, prefix: str, deadline: float) -> None:
+        """Read its lines up to one that starts with ``prefix``."""
+        for line in self.lines(deadline):
+            if line.startswith(prefix):
+                return
+        raise AssertionError(f"preempt: {self.name} ended (rc "
+                             f"{self.proc.wait()}) before {prefix!r}")
+
+
+def _preempt_start() -> tuple:
+    """Phase 15's work directory and leg (b)'s two children, started
+    (each makes its imports and context and warms up, then waits for its
+    go)."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_preempt_",
+                            dir=os.path.join(REPO, "build"))
+    wb = os.path.join(work, "b")
+    os.makedirs(wb)
+    return work, _Child(wb, 0), _Child(wb, 1)
+
+
+def _preempt_leg_b(torch, cfg, wb: str, children: tuple, fused: list,
+                   shards: list, smi: str) -> dict:
+    """Leg (b) in ``wb`` with ``children``, two ``--preempt-child``
+    processes started ahead and ready: the first, told to go, trains with
+    the local tier and no grace left; a real SIGTERM once it reports step
+    PREEMPT_SIGNAL_STEP drains it (``emergency_save``, exit 75); the
+    second, the requeue, told to go once the first has ended, resumes
+    from the local tier and finishes."""
+    import glob
+    import signal
+
+    child0, child1 = children
+    t0 = time.monotonic()
+    deadline = t0 + PREEMPT_CHILD_TIMEOUT_S
+    open(os.path.join(wb, "go0"), "w").close()
+    child0.until(f"step {PREEMPT_SIGNAL_STEP} ", deadline)
+    child0.proc.send_signal(signal.SIGTERM)
+    t_sig = time.monotonic()
+    for _ in child0.lines(deadline):
+        pass
+    rc0 = child0.proc.wait(timeout=30)
+    if rc0 != 75:
+        raise AssertionError(f"preempt (b): child 0 exited {rc0}, want 75")
+    try:
+        c0 = json.load(open(os.path.join(wb, "child0.json")))
+        k = c0["step"]
+        local = glob.glob(os.path.join(wb, "local", "*", f"step_{k}",
+                                       "metadata.json"))
+        if (k < PREEMPT_SIGNAL_STEP or len(local) != 1 or os.path.exists(
+                os.path.join(wb, "ck", f"step_{k}", "metadata.json"))):
+            raise AssertionError(f"preempt (b): drained at step {k}, local "
+                                 f"copies {local}, a persistent step_{k}: "
+                                 "want a local-only step")
+        open(os.path.join(wb, "go1"), "w").close()
+        for _ in child1.lines(deadline):
+            pass
+        rc1 = child1.proc.wait(timeout=30)
+        if rc1 != 0:
+            raise AssertionError(f"preempt (b): the requeue exited {rc1}")
+    finally:
+        if child1.proc.poll() is None:
+            child1.proc.kill()
+            child1.proc.wait()
+    wall_s = time.monotonic() - t0
+    c1 = json.load(open(os.path.join(wb, "child1.json")))
+    from tpuflow_torch.obs import read_events
+
+    events = [e for p in glob.glob(os.path.join(wb, "obs", "events.p*.jsonl"))
+              for e in read_events(p)]
+    served = [(e["tier"], e["step"]) for e in events
+              if e["name"] == "ckpt.restore_tier" and e.get("launch") == 1]
+    (em,) = [e for e in events if e["name"] == "ckpt.emergency_save"]
+    (restore,) = c1["restores"]
+    if served != [("local", k)] or (restore["tier"], restore["step"]) != (
+            "local", k) or (em["step"], em["tier"], em["ok"]) != (
+            k, "local", True):
+        raise AssertionError(f"preempt (b): the requeue restored {served}, "
+                             f"{restore}; emergency save {em}")
+    if c0["losses"] + c1["losses"] != fused:
+        raise AssertionError(f"preempt (b): losses {c0['losses']} then "
+                             f"{c1['losses']}, want phase 6's {fused}")
+    if c1["step"] != TRAIN_STEPS or _shards(os.path.join(
+            wb, "ck", f"step_{TRAIN_STEPS}")) != shards:
+        raise AssertionError(f"preempt (b): step_{TRAIN_STEPS} differs "
+                             "from phase 7's")
+    got = {n: c0["launches"][n] + c1["launches"][n] for n in c0["launches"]}
+    want = _preempt_want(cfg)
+    if got != want:
+        raise AssertionError(f"preempt (b) launches {got}, want {want}")
+    save = c0["save"]
+    print(f"preempt (b): SIGTERM {t_sig - t0:.1f} s into child 0 (after "
+          f"its step {PREEMPT_SIGNAL_STEP}), drained at step {k} with no "
+          f"grace left: emergency_save on the local tier in "
+          f"{c0['drain_s']:.3f} s from the flag to Preempted "
+          f"({_io_line('save', [save])}), exit 75, no persistent step_{k}; "
+          f"the requeue {_io_line('restore', [restore])} (local tier, warm "
+          f"page cache); {k} + {TRAIN_STEPS - k} losses bit-equal to phase "
+          f"6's, step_{TRAIN_STEPS}'s {len(shards)} shard crc32s equal to "
+          f"phase 7's, launches {({n: v for n, v in got.items() if v})} "
+          f"(exact); wall {wall_s:.1f} s [{smi}]")
+    return dict(step=k, signal_s=t_sig - t0, drain_s=c0["drain_s"],
+                save=save, restore=restore, launches=got,
+                child_launches=[c0["launches"], c1["launches"]],
+                step_losses=c0["losses"] + c1["losses"], wall_s=wall_s)
+
+
+def _warm_up(torch, gpt_mod) -> None:
+    """Pay a fresh process's first-use costs of the training slice's call
+    ahead of a child's go (unwarmed, a child's first step came 11.7 s
+    after its go on the card): one state of ``_train_cfg()`` and one step
+    on it, then dropped (the launch counters are zeroed after the go)."""
+    from tpuflow_torch.data.lm import make_lm_loaders
+
+    cfg = _train_cfg()
+    state = gpt_mod.init_state(cfg)
+    loader, _ = make_lm_loaders(cfg.batch_size, cfg.steps_per_epoch,
+                                cfg.seq_len, cfg.model_config().vocab_size)
+    loader.set_epoch(0)
+    gpt_mod.make_train_step()(state, next(iter(loader)), 1)
+    torch.cuda.synchronize()
+    del state
+
+
+def preempt_child(torch, work: str, attempt: int) -> int:
+    """One attempt of leg (b) (``--preempt-child``): the training slice's
+    ``train_gpt`` with the local tier under ``work`` and a grace budget of
+    0 s, its SIGTERM handler installed, each step's loss printed; the
+    requeue is ``attempt`` 1. Writes
+    ``work/child<attempt>.json``; exits 75 when drained. Each attempt
+    makes its imports and its context and warms up (``_warm_up``), then
+    waits for the parent's go (``work/go<attempt>``) before it trains."""
+    from tpuflow_torch import obs
+    from tpuflow_torch.ops import flash_attention as fa
+    from tpuflow_torch.ops import int8_matmul as im
+    from tpuflow_torch.train import gpt as gpt_mod
+    from tpuflow_torch.utils import preempt
+
+    preempt.install_sigterm_handler()
+    preempt.configure(attempt=attempt)
+    _warm_up(torch, gpt_mod)
+    print(f"ready {time.monotonic() - T_START:.2f} s after the start",
+          flush=True)
+    go = os.path.join(work, f"go{attempt}")
+    deadline = time.monotonic() + PREEMPT_CHILD_TIMEOUT_S
+    while not os.path.exists(go):
+        if time.monotonic() > deadline:
+            raise AssertionError("no go from the parent")
+        time.sleep(0.02)
+    t_go = time.monotonic()
+    obs.configure(os.path.join(work, "obs"), attempt=attempt)
+    losses, _ = _recorded_losses(gpt_mod, echo=t_go)
+    mgrs, _ = _tracked_managers(gpt_mod)
+    _zero_counters(fa, im)
+    out = {"attempt": attempt}
+    try:
+        res = gpt_mod.train_gpt(
+            _train_cfg(), ckpt_dir=os.path.join(work, "ck"),
+            log=lambda m: print(f"  {m} ({time.monotonic() - t_go:.2f} s)",
+                                flush=True), preempt_grace_s=0.0,
+            ckpt_local_dir=os.path.join(work, "local"))
+        out.update(preempted=False, step=res.checkpoint.metadata["step"],
+                   restores=res.checkpoint_io["restores"],
+                   saves=res.checkpoint_io["saves"])
+    except preempt.Preempted:
+        out.update(preempted=True, step=len(losses),
+                   drain_s=time.monotonic() - preempt._REQUESTED_AT,
+                   save=mgrs[0].saves[-1])
+    torch.cuda.synchronize()
+    out.update(losses=losses, launches=_counters(fa, im))
+    with open(os.path.join(work, f"child{attempt}.json"), "w") as fh:
+        json.dump(out, fh, default=float)
+    obs.configure(None)  # flush and close the event file
+    sys.stdout.flush()
+    return preempt.REQUEUE_EXIT_CODE if out["preempted"] else 0
+
+
+def preempt_phase(torch, smi, fused: list | None = None,
+                  shards: list | None = None,
+                  started: tuple | None = None) -> dict:
+    """Phase 15: preemption on the training slice's call (GPT-2 124M at
+    full width and depth, 2 x 8 steps of 8 x 1024, f32, full remat,
+    dropout 0.1, AdamW, flash, the fused backward). (a) Drained in this
+    process by the fault plan ``preempt:0@step5`` with a 30 s grace (the
+    full save, persistent tier), then requeued: the 5 + 11 losses
+    bit-equal to phase 6's (``fused``), ``step_16``'s crc32s equal to
+    phase 7's split leg's (``shards``), the flash launches exact. (b) A
+    real SIGTERM to a child process of this script once it reports step 3,
+    with the local tier and no grace: exit 75 and a local-only committed
+    step k (``emergency_save``); the requeued child restores step k from
+    the local tier (its ``ckpt.restore_tier`` event) and finishes with the
+    same checks. Records the drain times, the emergency save's and the
+    restores' seconds and GB/s and the phase's wall. Without ``fused`` and
+    ``shards`` (``--preempt``) an uninterrupted run gives them first.
+    ``started``: ``_preempt_start()``'s, when leg (b)'s children were
+    started ahead; else they start now. Leg (a) runs once both are ready
+    (their warm-ups done)."""
+    t_phase = time.monotonic()
+    cfg = _train_cfg()
+    work, *children = started or _preempt_start()
+    wb = os.path.join(work, "b")
+    try:
+        out = {"gpu": smi}
+        if fused is None:
+            fused, shards = _preempt_reference(torch, cfg, work, smi)
+        ready = time.monotonic() + PREEMPT_CHILD_TIMEOUT_S
+        for child in children:
+            child.until("ready ", ready)
+        out["a"] = _preempt_leg_a(torch, cfg, work, fused, shards, smi)
+        torch.cuda.empty_cache()
+        out["b"] = _preempt_leg_b(torch, cfg, wb, children, fused, shards,
+                                  smi)
+    finally:
+        for child in children:
+            if child.proc.poll() is None:
+                child.proc.kill()
+                child.proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = {n: out["a"]["launches"][n] + out["b"]["launches"][n]
+                       for n in out["a"]["launches"]}
+    out["wall_s"] = time.monotonic() - t_phase
+    print(f"phase 15 wall {out['wall_s']:.1f} s [{smi}]")
+    return out
+
+
 def p2p_probe_rank(torch, mode: str, rank: int, port: int) -> None:
     """One rank of the probe of the collectives phase 14 needs
     (``--p2p-probe``): 2 processes on card SP_CARD over one gloo group.
@@ -5303,8 +5833,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--gloo-probe"]:
         return gloo_probe()
     if sys.argv[1:2] == ["--tp-rank"]:
-        tp_rank(torch, sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
-                sys.argv[5])
+        tp_rank(torch, int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         return 0
     if sys.argv[1:2] == ["--sp-rank"]:
         sp_rank(torch, int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
@@ -5315,11 +5844,8 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--p2p-probe"]:
         return p2p_probe()
-    if sys.argv[1:2] == ["--tp-resave"]:
-        tp_resave_rank(torch, sys.argv[2], int(sys.argv[3]),
-                       int(sys.argv[4]), int(sys.argv[5]), sys.argv[6],
-                       sys.argv[7], sys.argv[8])
-        return 0
+    if sys.argv[1:2] == ["--preempt-child"]:
+        return preempt_child(torch, sys.argv[2], int(sys.argv[3]))
     from tpuflow_torch.device import f32_matmul_precision
     from tpuflow_torch.ops import _build
 
@@ -5351,6 +5877,13 @@ def main() -> int:
         os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
         with open(os.path.join(REPO, "chiprun_out", "sp.json"), "w") as fh:
             json.dump(sp, fh, indent=1, default=float)
+        return 0
+    if sys.argv[1:2] == ["--preempt"]:
+        pre = preempt_phase(torch, smi)
+        os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(REPO, "chiprun_out", "preempt.json"),
+                  "w") as fh:
+            json.dump(pre, fh, indent=1, default=float)
         return 0
 
     walls = {}
@@ -5392,14 +5925,26 @@ def main() -> int:
     with f32_matmul_precision():
         image["vit"] = vit_leg(torch, smi)
     wall("image phase")
+    # Phases 12-15 start their processes ahead: phase 12's before phase
+    # 11, each later one's while the phase before it checks its results
+    # (a phase's processes wait for its go; they idle until then).
+    ahead = {"fsdp": _fsdp_start()}
     recipes = recipes_phase(torch, smi)
     wall("recipes phase")
-    fsdp = fsdp_phase(torch, smi, fsdp_rows)
+    fsdp = fsdp_phase(torch, smi, fsdp_rows, started=ahead.pop("fsdp"),
+                      ranks_done=lambda: ahead.update(tp=_tp_start()))
     wall("fsdp phase")
-    tp = tp_phase(torch, smi, tp_rows)
+    tp = tp_phase(torch, smi, tp_rows, started=ahead.pop("tp"),
+                  ranks_done=lambda: ahead.update(sp=_sp_start()))
     wall("tp phase")
-    sp = seq_pipeline_phase(torch, smi, sp_rows)
+    sp = seq_pipeline_phase(
+        torch, smi, sp_rows, started=ahead.pop("sp"),
+        ranks_done=lambda: ahead.update(pre=_preempt_start()))
     wall("seq and pipeline phase")
+    pre = preempt_phase(torch, smi, tr["step_losses"],
+                        tr["split_ckpt"]["split"]["step_shards"],
+                        started=ahead.pop("pre"))
+    wall("preempt phase")
 
     # One JSON entry per kernel. flash: one launch at the generate() leg's
     # shape (f32, 1 x 512 x 12 x 64). int8: the 49 launches of one int8
@@ -5589,6 +6134,9 @@ def main() -> int:
             entry["pipeline_launches"] = sum(
                 r[k]["launches"][entry["name"]] for r in sp["ranks"]
                 for k in ("c", "c_resume"))
+            # Phase 15's two legs, drained and requeued (leg (b)'s two
+            # child processes summed).
+            entry["preempt_launches"] = pre["launches"][entry["name"]]
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(dict(gpu=smi, build_s=build_s, flash=flash_rows,
@@ -5597,6 +6145,7 @@ def main() -> int:
                        train=tr,
                        main_path=main_path, flows=flows, image=image,
                        recipes=recipes, fsdp=fsdp, tp=tp, sp=sp,
+                       preempt=pre,
                        vit_flash=vit_rows, vit_flash_bwd=vit_bwd_rows,
                        event_timed=event_timed, walls=walls,
                        kernels=kernels),

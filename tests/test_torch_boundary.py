@@ -1,7 +1,8 @@
 """The import boundary of the PyTorch port: ``tpuflow_torch`` and
 ``chip_smoke.py`` import neither JAX, Flax nor the JAX package (the port
-runs where none of them is installed), and the package imports with JAX
-poisoned."""
+runs where none of them is installed), read no ``TPUFLOW_*`` environment
+variable (the port takes arguments for the JAX package's knobs), and the
+package imports with JAX poisoned."""
 
 import ast
 import os
@@ -24,8 +25,8 @@ def _port_sources():
 # Every package of the port, with its count of Python modules: a module
 # dropped or left out of the scan fails the count.
 PACKAGES = {"": 2, "ckpt": 6, "data": 4, "dist": 2, "flow": 8, "flows": 6,
-            "infer": 8, "models": 9, "ops": 5, "parallel": 7, "train": 5,
-            "utils": 3}
+            "infer": 8, "models": 9, "obs": 5, "ops": 5, "parallel": 7,
+            "testing": 2, "train": 5, "utils": 3}
 
 
 def _imported_roots(path):
@@ -61,6 +62,41 @@ def test_no_jax_or_jax_package_imports():
     assert not bad, "port imports JAX-side code:\n" + "\n".join(bad)
 
 
+def _env_reads(src):
+    """``(line, name)`` of every read of a ``TPUFLOW_*`` environment
+    variable in the source ``src``: ``os.environ[...]``,
+    ``os.environ.get(...)`` and its kin, ``os.getenv(...)``."""
+    tree = ast.parse(src)
+
+    def knob(node):
+        return (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and node.value.startswith("TPUFLOW_"))
+
+    def environ(node):
+        return isinstance(node, ast.Attribute) and node.attr == "environ"
+
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Subscript) and environ(node.value)
+                and knob(node.slice)):
+            yield node.lineno, node.slice.value
+        elif (isinstance(node, ast.Call) and node.args and knob(node.args[0])
+              and isinstance(node.func, ast.Attribute)
+              and (node.func.attr == "getenv" or environ(node.func.value))):
+            yield node.lineno, node.args[0].value
+
+
+def test_no_tpuflow_env_reads():
+    bad = [f"{os.path.relpath(p, REPO)}:{line}: {name}"
+           for p in _port_sources()
+           for line, name in _env_reads(open(p, encoding="utf-8").read())]
+    assert not bad, "port reads JAX-package knobs:\n" + "\n".join(bad)
+    # The scan sees each form of such a read.
+    probe = ("import os\nos.environ.get('TPUFLOW_FAULT')\n"
+             "os.getenv('TPUFLOW_OBS_DIR')\nos.environ['TPUFLOW_ATTEMPT']\n")
+    assert [n for _, n in sorted(_env_reads(probe))] == [
+        "TPUFLOW_FAULT", "TPUFLOW_OBS_DIR", "TPUFLOW_ATTEMPT"]
+
+
 def test_package_imports_with_jax_poisoned():
     code = (
         "import sys\n"
@@ -89,6 +125,9 @@ def test_package_imports_with_jax_poisoned():
         "import tpuflow_torch.infer.beam, tpuflow_torch.infer.score\n"
         "import tpuflow_torch.infer.speculative\n"
         "import tpuflow_torch.models.moe, tpuflow_torch.models.import_hf\n"
+        "import tpuflow_torch.obs, tpuflow_torch.obs.recorder\n"
+        "import tpuflow_torch.obs.catalog, tpuflow_torch.obs.flight\n"
+        "import tpuflow_torch.obs.timeline, tpuflow_torch.testing.faults\n"
         "assert not any(k.split('.')[0] in ('jax', 'flax') and v is not None\n"
         "               for k, v in sys.modules.items())\n"
         "print('ok')\n"

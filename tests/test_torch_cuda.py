@@ -1231,3 +1231,110 @@ def test_speculative_and_engine_verify_equal_generate(cuda, int8):
     for row, out in zip(want, outs):
         np.testing.assert_array_equal(out, row)
     assert eng.spec_accept_rate > 1.0
+
+
+def _drained_and_resumed(tmp_path, cfg, plan, grace_s, local,
+                         between=lambda: None):
+    """``train_gpt`` preempted by the fault plan ``plan``, then requeued
+    (the flag cleared; ``between()`` runs before the requeue): the step
+    losses of both calls and the result."""
+    from tpuflow_torch.train import gpt as tgpt
+    from tpuflow_torch.utils.preempt import Preempted, clear_preemption
+
+    losses = []
+    real = tgpt.make_train_step
+
+    def recording(*a, **kw):
+        step = real(*a, **kw)
+
+        def run(*args):
+            state, metrics = step(*args)
+            losses.append(float(metrics["loss"]))
+            return state, metrics
+
+        return run
+
+    tgpt.make_train_step = recording
+    ck = str(tmp_path / "ck")
+    try:
+        with pytest.raises(Preempted):
+            tgpt.train_gpt(cfg, ck, log=lambda *a: None, faults=plan,
+                           preempt_grace_s=grace_s, ckpt_local_dir=local)
+        clear_preemption()
+        between()
+        res = tgpt.train_gpt(cfg, ck, log=lambda *a: None,
+                             ckpt_local_dir=local)
+    finally:
+        tgpt.make_train_step = real
+        clear_preemption()
+    return losses, res
+
+
+def test_emergency_save_on_the_card_restores_bit_equal(cuda, tmp_path):
+    """A drain with no grace left on ``cuda``: ``emergency_save`` commits
+    step 3 on the local tier alone, the requeued call restores it from
+    there onto the card, and every loss (the drained call's and the
+    resumed one's) is bit-equal to an uninterrupted run's."""
+    import glob
+    import json
+    import os
+
+    from tpuflow_torch import obs
+    from tpuflow_torch.train.gpt import GptTrainConfig, train_gpt
+
+    cfg = GptTrainConfig(preset="test", epochs=2, steps_per_epoch=4,
+                         seq_len=64, attn_impl="flash", data_axis=1,
+                         fsdp_axis=1)
+    drained = {}
+
+    def local_only():
+        drained["persistent"] = os.path.exists(tmp_path / "ck" / "step_3")
+        drained["local"] = [json.load(open(p))["data_state"] for p in
+                            glob.glob(str(tmp_path / "local" / "*" /
+                                          "step_3" / "metadata.json"))]
+
+    obs.configure(str(tmp_path / "obs"))
+    try:
+        losses, res = _drained_and_resumed(
+            tmp_path, cfg, "preempt:0@step3", 0.0, str(tmp_path / "local"),
+            local_only)
+        obs.flush()
+        events = [e for p in glob.glob(str(tmp_path / "obs" / "events.p*"))
+                  for e in obs.read_events(p)]
+    finally:
+        obs.configure(None)
+    assert drained == {"persistent": False, "local": [
+        {"epoch": 0, "batch_index": 3, "seed": 0}]}
+    assert ("ckpt.restore_tier", 3, "local") in [
+        (e["name"], e.get("step"), e.get("tier")) for e in events]
+    assert res.checkpoint.metadata["step"] == 8
+    whole = train_gpt(cfg, log=lambda *a: None)
+    assert losses == whole.step_losses
+
+
+def test_drained_and_resumed_run_launches_the_flash_kernels(cuda, tmp_path):
+    """A run drained at step 5 (a full save: grace to spare) and resumed
+    launches the flash kernels exactly as the code implies: the forward
+    with lse twice a layer and step (full remat), the fused pair once,
+    the validation's no-lse forward a layer and batch of each epoch run
+    to its end."""
+    from tpuflow_torch.data.lm import make_lm_loaders
+    from tpuflow_torch.ops import flash_attention as fa
+    from tpuflow_torch.train.gpt import GptTrainConfig
+
+    cfg = GptTrainConfig(preset="test", epochs=2, steps_per_epoch=4,
+                         seq_len=64, attn_impl="flash", data_axis=1,
+                         fsdp_axis=1, remat_policy="full")
+    L = cfg.model_config().n_layer
+    n_val = len(make_lm_loaders(cfg.batch_size, cfg.steps_per_epoch,
+                                cfg.seq_len, cfg.model_config().vocab_size)[1])
+    n = (fa.launches_lse, fa.launches_bwd_dq, fa.launches_bwd_dkv,
+         fa.launches)
+    losses, res = _drained_and_resumed(tmp_path, cfg, "preempt:0@step5",
+                                       30.0, None)
+    steps = cfg.epochs * cfg.steps_per_epoch
+    assert len(losses) == steps and res.checkpoint.metadata["step"] == steps
+    # Epoch 0 validates in the first call; epoch 1 in the resumed one.
+    assert (fa.launches_lse - n[0], fa.launches_bwd_dq - n[1],
+            fa.launches_bwd_dkv - n[2], fa.launches - n[3]) == (
+        2 * L * steps, L * steps, L * steps, L * n_val * cfg.epochs)

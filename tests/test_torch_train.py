@@ -22,6 +22,8 @@ mode and the port its kernels' plain versions. Tolerances:
 """
 
 import dataclasses
+import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +49,7 @@ from tpuflow_torch.ops import flash_attention as tfa
 from tpuflow_torch.train import gpt as tgpt
 from tpuflow_torch.train.optim import make_optimizer
 from tpuflow_torch.train.step import TrainState, make_train_step, with_ema
+from tpuflow_torch.utils.preempt import Preempted, clear_preemption
 
 
 def _batches(n, batch=4, seq=32, vocab=512):
@@ -285,19 +288,38 @@ def test_train_gpt_runs_the_recipes(kw):
         assert any(f"greedy sample: {text!r}" in m for m in logs)
 
 
-@pytest.mark.parametrize("kw,match", [
-    # Checkpointing runs; what still raises does so before the checkpoint
-    # directory or the handle is touched.
-    ({"ckpt_dir": "/nonexistent", "preemption": True}, "preemption"),
-    ({"resume_checkpoint": object(), "health": True}, "health"),
-    ({"health": True}, "health"),
-    ({"preemption": True}, "preemption"),
-    ({"elastic": True}, "elastic"),
-])
-def test_train_gpt_deferred_arguments_raise(kw, match):
-    cfg = tgpt.GptTrainConfig(data_axis=1, fsdp_axis=1)
-    with pytest.raises(NotImplementedError, match=match):
-        tgpt.train_gpt(cfg, log=lambda m: None, device="cpu", **kw)
+@pytest.mark.parametrize("kw,exc,match", [
+    # What still raises does so before the checkpoint directory or the
+    # handle is touched. Preemption is no longer deferred: the fault
+    # plan's preempt at step 1 drains there (committing step 1 when there
+    # is a checkpoint directory) and raises Preempted.
+    ({"ckpt_dir": "ck", "faults": "preempt:0@step1"}, Preempted,
+     "drained checkpoint at step 1"),
+    ({"resume_checkpoint": object(), "health": True}, NotImplementedError,
+     "health"),
+    ({"health": True}, NotImplementedError, "health"),
+    ({"faults": "preempt:0@step1"}, Preempted,
+     "drained checkpoint at step 1"),
+    ({"elastic": True}, NotImplementedError, "elastic"),
+], ids=["kw0-preemption", "kw1-health", "kw2-health", "kw3-preemption",
+        "kw4-elastic"])
+def test_train_gpt_deferred_arguments_raise(kw, exc, match, tmp_path):
+    cfg = tgpt.GptTrainConfig(data_axis=1, fsdp_axis=1, steps_per_epoch=2,
+                              seq_len=32)
+    if "ckpt_dir" in kw:
+        kw = dict(kw, ckpt_dir=str(tmp_path / kw["ckpt_dir"]))
+    try:
+        with pytest.raises(exc, match=match):
+            tgpt.train_gpt(cfg, log=lambda m: None, device="cpu", **kw)
+    finally:
+        clear_preemption()
+    if "ckpt_dir" in kw:
+        # The drain committed the step it stopped at, mid-epoch.
+        meta = json.load(open(os.path.join(kw["ckpt_dir"], "step_1",
+                                           "metadata.json")))
+        assert meta["data_state"] == {"epoch": 0, "batch_index": 1,
+                                      "seed": 0}
+        assert meta["metrics"] == {}
 
 
 @pytest.mark.slow

@@ -16,7 +16,14 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
-from tpuflow_torch.flow import FlowSpec, Parameter, current, gpu, step
+from tpuflow_torch.flow import (
+    FlowSpec,
+    Parameter,
+    current,
+    gpu,
+    retry,
+    step,
+)
 
 # A member of SlowJoinFlow with rank 1 (gang_exec's argv: <flow_file>
 # <class> <step> <run_id> <task_id> <state> <rank> <world> <port>) starts
@@ -115,6 +122,53 @@ class RequeueFlow(FlowSpec):
             os._exit(75)
         tdist.barrier()
         self.done = True
+        self.next(self.end)
+
+    @step
+    def end(self):
+        pass
+
+
+class DuraChaos(FlowSpec):
+    """Twin of the JAX suite's ``DuraChaos`` (``tests/test_faults.py``): a
+    gang of 2 whose ``Trainer`` loop reports steps 1-3, each saving the
+    state, resuming from ``latest_step()`` (restoring it) when a previous
+    attempt left one. No retries: a requeue must not need one."""
+
+    device = Parameter("device", default="cpu")
+
+    @step
+    def start(self):
+        self.next(self.train, num_parallel=2)
+
+    @retry(times=0)
+    @step
+    def train(self):
+        from tpuflow_torch.train.trainer import (
+            RunConfig,
+            ScalingConfig,
+            Trainer,
+            get_context,
+        )
+
+        def loop(cfg):
+            ctx = get_context()
+            start = ctx.latest_step()
+            self.resumed_from = start
+            if start:
+                restored = ctx.restore_latest()
+                assert float(restored["w"][0]) == float(start)
+            for stp in range(start + 1, 4):
+                ctx.report({"val_loss": 1.0 / stp},
+                           state={"w": torch.full((2,), float(stp))},
+                           step=stp)
+
+        result = Trainer(loop, scaling_config=ScalingConfig(device="cpu"),
+                         run_config=RunConfig(
+                             storage_path=os.path.join(
+                                 current.tpu_storage_path, "trainer"),
+                             ckpt_local_dir=current.ckpt_local_dir)).fit()
+        self.history_steps = [m["step"] for m in result.metrics_history]
         self.next(self.end)
 
     @step
@@ -434,3 +488,54 @@ def pipeline_loss(cfg: dict, init_npz: str, tokens: list):
              for p, g in flatten(local)}
     return {"loss": float(loss), "cell": float(cell),
             "grads": whole if dist.process_index() == 0 else None}
+
+
+# ------------------------------------------------------------ preemption
+def record_step_losses(tgpt, patch=setattr) -> list:
+    """Patch ``tgpt``'s train-step makers (through ``patch``, e.g. a
+    test's ``monkeypatch.setattr``) so that every step's loss is appended
+    to the returned list (as the loop reads it, after the step), the
+    steps of a call that ends in ``Preempted`` included."""
+    losses = []
+
+    def recording(make):
+        def maker(*a, **kw):
+            step = make(*a, **kw)
+
+            def run(*args):
+                state, metrics = step(*args)
+                losses.append(float(metrics["loss"]))
+                return state, metrics
+
+            return run
+
+        return maker
+
+    patch(tgpt, "make_train_step", recording(tgpt.make_train_step))
+    patch(tgpt, "make_pipeline_step", recording(tgpt.make_pipeline_step))
+    return losses
+
+
+def preempt_train(cfg: dict, ckpt_dir: str | None, local_dir=None,
+                  faults=None, grace_s=None):
+    """``train_gpt`` on this world (dropout off) with the fault plan
+    ``faults``, the grace budget ``grace_s`` and the node-local tier
+    ``local_dir``: whether it was preempted, every step's loss, and when
+    it ran to its end the final step and the epochs."""
+    from tpuflow_torch.train import gpt as tgpt
+    from tpuflow_torch.utils.preempt import Preempted, clear_preemption
+
+    _jax_init(None, True)
+    losses = record_step_losses(tgpt)
+    try:
+        res = tgpt.train_gpt(tgpt.GptTrainConfig(**cfg), ckpt_dir,
+                             device="cpu", log=lambda m: None, faults=faults,
+                             preempt_grace_s=grace_s,
+                             ckpt_local_dir=local_dir)
+    except Preempted:
+        clear_preemption()
+        return {"preempted": True, "step_losses": losses}
+    return {"preempted": False, "step_losses": losses,
+            "step": res.checkpoint.metadata["step"] if res.checkpoint
+            else None,
+            "epochs": [m["epoch"] for m in res.metrics_history]}

@@ -58,9 +58,25 @@ metadata, metrics history and retention are the same, and a restore reads
 whichever format a step holds. A DCP step does not cross into the JAX
 package.
 
-Not here yet: the node-local tier and its upload, ``emergency_save`` (ROADMAP
-Queue 1 item 12c + 8b), and the JAX package's ``obs`` events and
-fault-injection hooks.
+The node-local fast tier (``local_dir``, the JAX package's
+``TPUFLOW_CKPT_LOCAL_DIR``): a root on node-local storage under which
+each run keys a directory by ``sha1(abspath(directory))[:16]``, the JAX
+package's own key, so a requeued attempt of the same run on the same
+node finds its copies again. With it a save stages and commits in that
+directory, then uploads the committed step to ``directory`` (a copy into
+``step_K.tmp`` and one rename, through ``retry_io``, on the saver
+thread; a failed upload leaves the step durable locally, never fatal:
+the ``ckpt.upload`` span says ``ok=False``). The local tier keeps its
+newest ``local_keep`` steps. ``emergency_save`` commits synchronously
+on the fastest tier without the upload, for a closing preemption-grace
+window. The committed steps are the union of the tiers; a restore walks
+a ladder — the local copy, then the persistent one, then the previous
+committed step — recording ``ckpt.restore_tier`` for the tier that
+served and one ``ckpt.corrupt`` a rejected hop, and never returns
+corrupt weights. The manager records the JAX package's ``ckpt.*`` events
+(``obs``: ``ckpt.gc`` for the orphans a new manager reclaims,
+``ckpt.save_failed``, ``ckpt.emergency_save``) and runs the fault plan's
+``ckpt_partial_commit`` and ``upload_stall`` hooks.
 """
 
 from __future__ import annotations
@@ -73,11 +89,17 @@ import shutil
 import time
 from typing import Any
 
+import errno
+import hashlib
+
 import torch
 import torch.distributed as tdist
 
+from tpuflow_torch import obs
 from tpuflow_torch.ckpt import dcp, raw
 from tpuflow_torch.ckpt.handle import Checkpoint
+from tpuflow_torch.testing import faults
+from tpuflow_torch.utils.preempt import grace_remaining_s
 
 _STATE_DIR = "state"
 _META_FILE = "metadata.json"
@@ -86,6 +108,17 @@ _STAGE_SUFFIX = ".tmp"
 _POOL_DIR = ".recycle"
 _SAVE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 FORMATS = ("raw", "dcp")
+
+
+def local_tier_root(local_dir: str | None, directory: str) -> str | None:
+    """The node-local tier's directory for the run checkpointing into
+    ``directory``: ``local_dir`` keyed by a hash of ``directory``'s
+    absolute path (concurrent runs never collide; a requeued attempt of
+    the same run finds its copies). None: no local tier."""
+    if not local_dir:
+        return None
+    key = hashlib.sha1(os.path.abspath(directory).encode()).hexdigest()[:16]
+    return os.path.join(os.path.abspath(local_dir), key)
 
 
 def _atomic_write_json(path: str, obj) -> None:
@@ -139,17 +172,21 @@ class CheckpointManager:
     docstring). ``saves`` and ``restores`` hold one record per committed
     save / finished restore: step, payload bytes and wall seconds (a save
     from ``save()`` entry to its commit, and ``host_copy_s``, the part
-    ``save()`` blocks for). ``multi_process``: every process of the world
-    saves its shards and commits collectively (see the module docstring);
-    every process must then call the manager's methods at the same
-    points. ``format``: ``raw`` (``tpuflow-raw-v2``, which crosses into
-    the JAX package) or ``dcp`` (``torch.distributed.checkpoint``)."""
+    ``save()`` blocks for; a restore's ``tier``). ``multi_process``: every
+    process of the world saves its shards and commits collectively (see
+    the module docstring); every process must then call the manager's
+    methods at the same points. ``format``: ``raw`` (``tpuflow-raw-v2``,
+    which crosses into the JAX package) or ``dcp``
+    (``torch.distributed.checkpoint``). ``local_dir``: the node-local
+    tier's root (None: no local tier), which keeps its newest
+    ``local_keep`` steps (at least 1)."""
 
     def __init__(self, directory: str, *, max_to_keep: int | None = 2,
                  best_metric: str = "val_loss", best_mode: str = "min",
                  async_save: bool = True, save_dtype: str | None = None,
                  io_retries: int = 4, io_backoff_s: float = 0.05,
-                 multi_process: bool = False, format: str = "raw"):
+                 multi_process: bool = False, format: str = "raw",
+                 local_dir: str | None = None, local_keep: int = 2):
         if format not in FORMATS:
             raise ValueError(f"format must be one of {FORMATS}, got "
                              f"{format!r}")
@@ -165,6 +202,8 @@ class CheckpointManager:
         self.best_mode = best_mode
         self.save_dtype = save_dtype
         self._async = async_save
+        self.local_dir = local_tier_root(local_dir, self.directory)
+        self.local_keep = max(1, int(local_keep))
         self.policy = raw.RetryPolicy(io_retries, io_backoff_s)
         self._saver = raw.AsyncRawSaver(self.policy)
         up = tdist.is_available() and tdist.is_initialized()
@@ -182,7 +221,9 @@ class CheckpointManager:
         self._pending_commit = None
         self.saves: list[dict] = []
         self.restores: list[dict] = []
-        if self.rank == 0:
+        # The world's process 0 sweeps (a one-process manager on another
+        # rank of a world only reads the directory).
+        if (tdist.get_rank() if up else 0) == 0:
             self._sweep_orphans()
         self._barrier()
         # The newest step's metadata embeds the whole history, including
@@ -207,8 +248,12 @@ class CheckpointManager:
 
     # ------------------------------------------------------------ queries
     def _sweep_orphans(self) -> None:
-        """Recycle staged ``step_K.tmp`` dirs and step dirs without
-        ``metadata.json``: no save is in flight at construction."""
+        """Reclaim every leftover of a killed writer (``ckpt.gc``): staged
+        ``step_K.tmp`` dirs and step dirs without ``metadata.json`` (their
+        shard files recycled), and on the local tier its stale staging,
+        uncommitted dirs and the steps beyond its retention (deleted). No
+        save is in flight at construction."""
+        removed = []
         for name in os.listdir(self.directory):
             path = os.path.join(self.directory, name)
             if not name.startswith(_STEP_PREFIX) or not os.path.isdir(path):
@@ -216,11 +261,28 @@ class CheckpointManager:
             if name.endswith(_STAGE_SUFFIX) or not os.path.exists(
                     os.path.join(path, _META_FILE)):
                 self._pool.adopt_dir(path)
+                removed.append(name)
+        if self.local_dir and os.path.isdir(self.local_dir):
+            for name in sorted(os.listdir(self.local_dir)):
+                path = os.path.join(self.local_dir, name)
+                if not name.startswith(_STEP_PREFIX) or not os.path.isdir(
+                        path):
+                    continue
+                if name.endswith(_STAGE_SUFFIX) or not os.path.exists(
+                        os.path.join(path, _META_FILE)):
+                    shutil.rmtree(path, ignore_errors=True)
+                    removed.append(f"local:{name}")
+            for step in self._committed_in(self.local_dir)[:-self.local_keep]:
+                shutil.rmtree(self._local_step_dir(step), ignore_errors=True)
+                removed.append(f"local:{_STEP_PREFIX}{step}")
+        if removed:
+            obs.event("ckpt.gc", reclaimed=len(removed),
+                      dirs=sorted(removed)[:16])
 
     def _drop_step_dir(self, step_dir: str) -> None:
-        """Make a step dir invisible (its metadata first), then recycle its
-        shard files and delete the rest (a DCP step's files are deleted:
-        the pool serves raw saves)."""
+        """Make a persistent step dir invisible (its metadata first), then
+        recycle its shard files and delete the rest (a DCP step's files
+        are deleted: the pool serves raw saves)."""
         if dcp.is_dcp(os.path.join(step_dir, _STATE_DIR)):
             with contextlib.suppress(OSError):
                 os.unlink(os.path.join(step_dir, _META_FILE))
@@ -231,28 +293,65 @@ class CheckpointManager:
     def _step_dir(self, step: int) -> str:
         return os.path.join(self.directory, f"{_STEP_PREFIX}{step}")
 
-    def _committed(self, step: int) -> bool:
-        return os.path.exists(os.path.join(self._step_dir(step), _META_FILE))
+    def _local_step_dir(self, step: int) -> str | None:
+        if self.local_dir is None:
+            return None
+        return os.path.join(self.local_dir, f"{_STEP_PREFIX}{step}")
 
-    def _all_steps(self) -> list[int]:
+    def _restore_tiers(self, step: int) -> list[tuple[str, str]]:
+        """``(tier, step_dir)`` of every committed copy of ``step``, the
+        fastest first: the local copy, then the persistent one."""
+        out = []
+        local = self._local_step_dir(step)
+        if local is not None and os.path.exists(
+                os.path.join(local, _META_FILE)):
+            out.append(("local", local))
+        if os.path.exists(os.path.join(self._step_dir(step), _META_FILE)):
+            out.append(("persistent", self._step_dir(step)))
+        return out
+
+    def _committed_dir(self, step: int) -> str | None:
+        """The first committed copy of ``step`` (the local tier's first),
+        or None."""
+        tiers = self._restore_tiers(step)
+        return tiers[0][1] if tiers else None
+
+    @staticmethod
+    def _committed_in(root: str | None) -> list[int]:
+        """The committed steps under one tier's root, sorted."""
+        if root is None:
+            return []
+        try:
+            names = os.listdir(root)
+        except FileNotFoundError:
+            return []
         steps = []
-        for name in os.listdir(self.directory):
+        for name in names:
             if name.startswith(_STEP_PREFIX) and not name.endswith(
                     _STAGE_SUFFIX):
                 try:
                     step = int(name[len(_STEP_PREFIX):])
                 except ValueError:
                     continue
-                if self._committed(step):
+                if os.path.exists(os.path.join(root, name, _META_FILE)):
                     steps.append(step)
         return sorted(steps)
 
+    def _all_steps(self) -> list[int]:
+        """The committed steps over both tiers (an emergency save may be
+        on the local tier only; a requeued attempt still resumes from
+        it)."""
+        return sorted(set(self._committed_in(self.directory))
+                      | set(self._committed_in(self.local_dir)))
+
     def _read_meta(self, step: int) -> dict | None:
-        try:
-            with open(os.path.join(self._step_dir(step), _META_FILE)) as f:
-                return json.load(f)
-        except (OSError, json.JSONDecodeError):
-            return None
+        for _, step_dir in self._restore_tiers(step):
+            try:
+                with open(os.path.join(step_dir, _META_FILE)) as f:
+                    return json.load(f)
+            except (OSError, json.JSONDecodeError):
+                continue
+        return None
 
     def _best_step(self) -> int | None:
         best = None
@@ -281,21 +380,30 @@ class CheckpointManager:
 
     # --------------------------------------------------------------- save
     def save(self, step: int, state, metrics: dict | None = None, *,
-             data_state: dict | None = None) -> Checkpoint:
+             data_state: dict | None = None, _upload: bool = True
+             ) -> Checkpoint:
         """Save ``state`` (a nested dict of tensors) for ``step`` with
         ``metrics`` and the loader cursor ``data_state``. The host copy is
         made before this returns; the files are written on a thread (at
-        once when the manager is not asynchronous)."""
+        once when the manager is not asynchronous). With the local tier
+        the step commits there and then uploads (see the module
+        docstring)."""
         self.wait_until_finished()
         t0 = time.monotonic()
         final_dir = self._step_dir(step)
-        stage_dir = final_dir + _STAGE_SUFFIX
-        # A step saved again first becomes invisible, then is replaced:
-        # process 0's job, fenced so no process writes before it is done.
+        local_final = self._local_step_dir(step)
+        commit_root = local_final if local_final is not None else final_dir
+        stage_dir = commit_root + _STAGE_SUFFIX
+        # A step saved again first becomes invisible in every tier, then
+        # is replaced: process 0's job, fenced so no process writes before
+        # it is done.
         self._barrier()
         if self.rank == 0:
-            for d in (final_dir, stage_dir):
+            for d in (final_dir, final_dir + _STAGE_SUFFIX):
                 self._drop_step_dir(d)
+            if local_final is not None:
+                shutil.rmtree(local_final, ignore_errors=True)
+                shutil.rmtree(stage_dir, ignore_errors=True)
         self._barrier()
         os.makedirs(stage_dir, exist_ok=True)
         metrics = {k: float(v) for k, v in (metrics or {}).items()}
@@ -335,8 +443,13 @@ class CheckpointManager:
 
         def commit() -> None:
             # Marker inside the staging dir, then one rename publishes the
-            # payload and the metadata together; retention runs after.
+            # payload and the metadata together; the upload runs after it,
+            # retention after the commit. A fault plan's
+            # ``ckpt_partial_commit`` leaves the staging dir as a writer
+            # killed before the marker would.
             if self.rank == 0:
+                if faults.partial_commit():
+                    return
                 if self.world > 1 and self.format == "raw":
                     raw.merge_manifests(state_dir, policy=self.policy)
                 marker = os.path.join(stage_dir, _META_FILE)
@@ -344,12 +457,20 @@ class CheckpointManager:
                              op="write_meta", path=marker,
                              retries=self.policy.retries,
                              backoff_s=self.policy.backoff_s)
-                raw.retry_io(lambda: os.replace(stage_dir, final_dir),
-                             op="commit", path=final_dir,
+                raw.retry_io(lambda: os.replace(stage_dir, commit_root),
+                             op="commit", path=commit_root,
                              retries=self.policy.retries,
                              backoff_s=self.policy.backoff_s)
+                if local_final is not None:
+                    if _upload:
+                        self._upload_step(step, local_final, final_dir)
+                    self._local_retain()
             self.saves.append(dict(written))
 
+        # The pool's files live on the persistent filesystem: a save
+        # staging on the local tier writes fresh files (a rename across
+        # filesystems would strand the pool's file).
+        pool = self._pool if local_final is None else None
         if self.format == "dcp":
             # A collective write; committed at once, as one process would.
             self._pending_fail = None
@@ -363,7 +484,7 @@ class CheckpointManager:
         elif self.world > 1:
             # The commit needs every process: it runs at the next drain,
             # on the main thread (wait_until_finished).
-            self._saver.save(state_dir, state, pool=self._pool,
+            self._saver.save(state_dir, state, pool=pool,
                              on_commit=record, process_count=self.world,
                              process_index=self.rank)
             self._pending_commit = commit
@@ -373,17 +494,78 @@ class CheckpointManager:
                 commit()
                 self._retain()
 
-            self._saver.save(state_dir, state, pool=self._pool,
+            self._saver.save(state_dir, state, pool=pool,
                              on_commit=commit_now)
         if not self._async:
             self.wait_until_finished()
-        return Checkpoint(path=final_dir, metadata=meta)
+        if local_final is None:
+            return Checkpoint(path=final_dir, metadata=meta)
+        if _upload:
+            return Checkpoint(path=final_dir, metadata=meta,
+                              alt_paths=[local_final])
+        return Checkpoint(path=local_final, metadata=meta,
+                          alt_paths=[final_dir])
+
+    def _upload_step(self, step: int, src: str, dst: str) -> None:
+        """Copy a committed local step to the persistent directory: into
+        ``dst.tmp``, then one rename, through ``retry_io``. A failed upload
+        leaves the step durable locally: the ``ckpt.upload`` span says
+        ``ok=False``, and the save goes on."""
+        tmp = dst + _STAGE_SUFFIX
+
+        def copy() -> None:
+            faults.maybe_upload_stall()
+            shutil.rmtree(tmp, ignore_errors=True)
+            try:
+                shutil.copytree(src, tmp)
+            except shutil.Error as e:  # copytree's many-file error
+                raise OSError(errno.EIO, f"upload copy failed: {e}") from e
+            os.replace(tmp, dst)
+
+        nbytes = 0
+        with contextlib.suppress(OSError, ValueError, KeyError):
+            state_dir = os.path.join(src, _STATE_DIR)
+            if raw.is_raw(state_dir):
+                nbytes = sum(raw.manifest_shard_sizes(state_dir))
+        with obs.span("ckpt.upload", step=step, bytes=nbytes) as sp:
+            t0 = time.monotonic()
+            try:
+                raw.retry_io(copy, op="upload", path=dst,
+                             retries=self.policy.retries,
+                             backoff_s=self.policy.backoff_s)
+            except raw.CheckpointIOError as e:
+                sp.set(ok=False, error=str(e)[:300])
+                return
+            dur = time.monotonic() - t0
+            sp.set(ok=True, gbps=nbytes / dur / 1e9 if nbytes and dur
+                   else 0.0)
+
+    def emergency_save(self, step: int, state, metrics: dict | None = None,
+                       *, data_state: dict | None = None,
+                       grace_s: float | None = None) -> Checkpoint:
+        """The last checkpoint of a closing termination-grace window:
+        staged and committed synchronously on the fastest tier (the local
+        one when configured), without the upload; the requeued attempt
+        resumes from this step, and its next save uploads normally.
+        Records ``ckpt.emergency_save`` with the grace left of the budget
+        ``grace_s`` (the process's own when None)."""
+        ckpt = self.save(step, state, metrics or {}, data_state=data_state,
+                         _upload=False)
+        self.wait_until_finished()
+        grace = grace_remaining_s(grace_s)
+        obs.event("ckpt.emergency_save", step=step,
+                  tier="local" if self.local_dir else "persistent",
+                  ok=self._committed_dir(step) is not None,
+                  grace_s=round(grace, 3) if grace is not None else -1.0)
+        return ckpt
 
     def _retain(self) -> None:
-        """Keep the newest ``max_to_keep`` steps plus the best step. With
-        several processes (a collective): process 0 decides and makes the
-        doomed steps invisible, each process recycles the shard files its
-        manifest fragment lists, then process 0 deletes the rest."""
+        """Keep the newest ``max_to_keep`` steps (of both tiers) plus the
+        best step, deleting persistent steps only (the local tier keeps
+        its own count). With several processes (a collective): process 0
+        decides and makes the doomed steps invisible, each process
+        recycles the shard files its manifest fragment lists, then
+        process 0 deletes the rest."""
         if self.max_to_keep is None:
             return
         doomed = None
@@ -394,7 +576,8 @@ class CheckpointManager:
             best = self._best_step()
             if best is not None:
                 keep.add(best)
-            doomed = [s for s in steps if s not in keep]
+            doomed = [s for s in self._committed_in(self.directory)
+                      if s not in keep]
         if self.world == 1:
             for s in doomed:
                 self._drop_step_dir(self._step_dir(s))
@@ -424,6 +607,12 @@ class CheckpointManager:
             for s in doomed:
                 shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
+    def _local_retain(self) -> None:
+        """The local tier keeps its newest ``local_keep`` steps (plain
+        deletes: the pool lives on the persistent filesystem)."""
+        for s in self._committed_in(self.local_dir)[:-self.local_keep]:
+            shutil.rmtree(self._local_step_dir(s), ignore_errors=True)
+
     def prewarm(self, state) -> None:
         """Create pool files, in the background, for the saves of
         ``state`` (a tree of tensors, ``meta`` ones included): one a leaf
@@ -433,10 +622,11 @@ class CheckpointManager:
         storage (tmpfs), where overwriting a file skips the zeroing of
         fresh pages: on a disk the saves' fsync sets their pace, warm files
         gained nothing there (PERF.md) and writing them costs the disk
-        several copies of the state. Best-effort: a prewarm that fails
-        leaves the saves to write fresh files."""
-        if self.format == "dcp" or not raw._fs_is_memory_backed(
-                self.directory):
+        several copies of the state. Not with the local tier, whose saves
+        write fresh files. Best-effort: a prewarm that fails leaves the
+        saves to write fresh files."""
+        if (self.format == "dcp" or self.local_dir is not None
+                or not raw._fs_is_memory_backed(self.directory)):
             return
         sizes = [_saved_nbytes(leaf, self.save_dtype)
                  for _, leaf in raw.flatten(state)
@@ -451,8 +641,8 @@ class CheckpointManager:
         """Drain the save in flight (and, with several processes, commit
         it: see the module docstring). A save that died on a
         ``CheckpointIOError`` fails that step's save only (its staging is
-        removed, its history entry dropped, a line printed); any other
-        error propagates."""
+        removed, its history entry dropped, ``ckpt.save_failed``
+        recorded, a line printed); any other error propagates."""
         pending, self._pending_commit = self._pending_commit, None
         pending_fail, self._pending_fail = self._pending_fail, None
         err = None
@@ -487,6 +677,10 @@ class CheckpointManager:
             if pending_fail is not None:
                 pending_fail[1]()
             step = pending_fail[0] if pending_fail else None
+            obs.event("ckpt.save_failed",
+                      step=step if step is not None else -1,
+                      error=str(err)[:300] if err is not None
+                      else "a peer process failed")
             print(f"[tpuflow_torch] checkpoint save for step {step} failed "
                   f"after retries; training continues on the previous "
                   f"committed step: {err or 'a peer process failed'}")
@@ -510,7 +704,7 @@ class CheckpointManager:
                                                      else None)
         else:
             chosen = step
-        if chosen is None or not self._committed(chosen):
+        if chosen is None or self._committed_dir(chosen) is None:
             raise FileNotFoundError(
                 f"no checkpoint {'(best) ' if best else ''}found in "
                 f"{self.directory}")
@@ -532,14 +726,14 @@ class CheckpointManager:
             chosen = self._resolve_step(step, best)
         except FileNotFoundError:
             return
-        if dcp.is_dcp(os.path.join(self._step_dir(chosen), _STATE_DIR)):
+        state_dir = os.path.join(self._committed_dir(chosen), _STATE_DIR)
+        if dcp.is_dcp(state_dir):
             return
         if template is not None:
             raw._ARENA.prewarm(region_sizes(template), background=background,
                                pinned=pinned)
             return
-        _prewarm_state_dir(os.path.join(self._step_dir(chosen), _STATE_DIR),
-                           background=background, pinned=pinned)
+        _prewarm_state_dir(state_dir, background=background, pinned=pinned)
 
     def prewarm_restore_wait(self) -> None:
         prewarm_restore_wait()
@@ -552,69 +746,91 @@ class CheckpointManager:
         ``abstract_state``'s dtypes when given (see ``raw.restore_raw``);
         ``weights_only`` reads only the ``params`` subtree; ``zero_copy``
         maps the shard files (see ``raw.restore_raw``). Shards are
-        crc-verified; a corrupt step falls back to the previous committed
-        one, and with none left the CorruptShardError propagates. The
-        record counts the buffers the restore took from the arena and the
-        leaves it hands out page-locked. A DCP step is read by
-        ``torch.distributed.checkpoint`` (no checksums, no fallback)."""
+        crc-verified as they are read, down the ladder of the module
+        docstring: the step's local copy, its persistent copy, then the
+        previous committed step; with none left the CorruptShardError
+        propagates. The record names the tier and counts the buffers the
+        restore took from the arena and the leaves it hands out
+        page-locked. A DCP step is read by ``torch.distributed
+        .checkpoint`` (no checksums)."""
         chosen = self._resolve_step(step, best)
+        corrupt = None
         while True:
-            state_dir = os.path.join(self._step_dir(chosen), _STATE_DIR)
-            t0 = time.monotonic()
-            if dcp.is_dcp(state_dir):
-                out, nbytes = dcp.load(
-                    state_dir, abstract_state,
-                    ("params",) if weights_only else None)
-                dur = time.monotonic() - t0
-                self.restores.append({
-                    "step": chosen, "bytes": nbytes, "seconds": dur,
-                    "gbps": nbytes / dur / 1e9 if dur else 0.0,
-                    "arena_buffers": 0, "pinned": 0, "format": "dcp"})
-                return out
-            stats: dict = {}
-            corrupt = None
-            try:
-                with raw._RESTORE_LOCK:  # no other restore's takes counted
-                    taken = raw._ARENA.taken
-                    out = raw.restore_raw(
-                        state_dir, abstract_state,
-                        subtree=("params",) if weights_only else None,
-                        policy=self.policy, zero_copy=zero_copy, stats=stats)
-                    taken = raw._ARENA.taken - taken
-            except raw.CorruptShardError as e:
-                corrupt = e
-            if self.world > 1:
-                # Each process read other files: fall back together.
-                flags = [None] * self.world
-                tdist.all_gather_object(flags, corrupt is not None)
-                if any(flags) and corrupt is None:
-                    corrupt = raw.CorruptShardError(
-                        f"step {chosen}: a peer process read a corrupt "
-                        "shard")
-            if corrupt is not None:
-                prev = [s for s in self._all_steps() if s < chosen]
-                if not prev:
+            for tier, step_dir in self._restore_tiers(chosen):
+                out = self._restore_from(tier, step_dir, chosen,
+                                         abstract_state, weights_only,
+                                         zero_copy)
+                if not isinstance(out, raw.CorruptShardError):
+                    obs.event("ckpt.restore_tier", step=chosen, tier=tier)
+                    return out
+                corrupt = out
+                obs.event("ckpt.corrupt", step=chosen, tier=tier,
+                          error=str(out)[:300])
+                print(f"[tpuflow_torch] checkpoint step {chosen} corrupt on "
+                      f"the {tier} tier: {out}")
+            prev = [s for s in self._all_steps() if s < chosen]
+            if not prev:
+                if corrupt is not None:
                     raise corrupt
-                print(f"[tpuflow_torch] checkpoint step {chosen} corrupt "
-                      f"({corrupt}); falling back to step {prev[-1]}")
-                chosen = prev[-1]
-                continue
+                raise FileNotFoundError(
+                    f"no restorable copy of step {chosen} in "
+                    f"{self.directory}")
+            print(f"[tpuflow_torch] no valid copy of step {chosen}; falling "
+                  f"back to step {prev[-1]}")
+            chosen = prev[-1]
+
+    def _restore_from(self, tier: str, step_dir: str, step: int,
+                      abstract_state, weights_only: bool, zero_copy: bool):
+        """One rung of the ladder: the state read from ``step_dir``, or the
+        ``CorruptShardError`` that rejects it (with several processes,
+        when any process read a corrupt shard: they fall back together)."""
+        state_dir = os.path.join(step_dir, _STATE_DIR)
+        t0 = time.monotonic()
+        if dcp.is_dcp(state_dir):
+            out, nbytes = dcp.load(state_dir, abstract_state,
+                                   ("params",) if weights_only else None)
             dur = time.monotonic() - t0
-            nbytes = stats["bytes"]
             self.restores.append({
-                "step": chosen, "bytes": nbytes, "seconds": dur,
+                "step": step, "tier": tier, "bytes": nbytes, "seconds": dur,
                 "gbps": nbytes / dur / 1e9 if dur else 0.0,
-                "arena_buffers": taken,
-                "pinned": sum(t.is_pinned() for _, t in raw.flatten(out))})
+                "arena_buffers": 0, "pinned": 0, "format": "dcp"})
             return out
+        stats: dict = {}
+        corrupt = None
+        try:
+            with raw._RESTORE_LOCK:  # no other restore's takes counted
+                taken = raw._ARENA.taken
+                out = raw.restore_raw(
+                    state_dir, abstract_state,
+                    subtree=("params",) if weights_only else None,
+                    policy=self.policy, zero_copy=zero_copy, stats=stats)
+                taken = raw._ARENA.taken - taken
+        except raw.CorruptShardError as e:
+            corrupt = e
+        if self.world > 1:
+            flags = [None] * self.world
+            tdist.all_gather_object(flags, corrupt is not None)
+            if any(flags) and corrupt is None:
+                corrupt = raw.CorruptShardError(
+                    f"step {step}: a peer process read a corrupt shard")
+        if corrupt is not None:
+            return corrupt
+        dur = time.monotonic() - t0
+        nbytes = stats["bytes"]
+        self.restores.append({
+            "step": step, "tier": tier, "bytes": nbytes, "seconds": dur,
+            "gbps": nbytes / dur / 1e9 if dur else 0.0,
+            "arena_buffers": taken,
+            "pinned": sum(t.is_pinned() for _, t in raw.flatten(out))})
+        return out
 
     def verify_step(self, step: int | None = None, *, best: bool = False
                     ) -> bool:
-        """Recompute one step's shard crc32s; True when all match (a DCP
-        step, which keeps none: ``dcp.verify``, its metadata read and its
-        files whole)."""
+        """Recompute one step's shard crc32s on the tier a restore reads
+        first; True when all match (a DCP step, which keeps none:
+        ``dcp.verify``, its metadata read and its files whole)."""
         chosen = self._resolve_step(step, best)
-        state_dir = os.path.join(self._step_dir(chosen), _STATE_DIR)
+        state_dir = os.path.join(self._committed_dir(chosen), _STATE_DIR)
         if dcp.is_dcp(state_dir):
             return dcp.verify(state_dir)
         _, bad = raw.verify_dir(state_dir, self.policy)
@@ -630,10 +846,19 @@ class CheckpointManager:
 
     def checkpoint(self, step: int | None = None, *, best: bool = False
                    ) -> Checkpoint:
-        """A handle to a committed step (path and metadata, no tensors)."""
+        """A handle to a committed step (path and metadata, no tensors):
+        the persistent copy, with the local one as its alternate; the
+        local copy alone when the step is committed only there."""
         chosen = self._resolve_step(step, best)
-        return Checkpoint(path=self._step_dir(chosen),
-                          metadata=self._read_meta(chosen) or {})
+        meta = self._read_meta(chosen) or {}
+        pers = self._step_dir(chosen)
+        local = self._local_step_dir(chosen)
+        if local is None or not os.path.exists(
+                os.path.join(local, _META_FILE)):
+            return Checkpoint(path=pers, metadata=meta)
+        if os.path.exists(os.path.join(pers, _META_FILE)):
+            return Checkpoint(path=pers, metadata=meta, alt_paths=[local])
+        return Checkpoint(path=local, metadata=meta)
 
 
 def region_sizes(template) -> list[int]:

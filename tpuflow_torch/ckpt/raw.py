@@ -64,6 +64,9 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from tpuflow_torch import obs
+from tpuflow_torch.testing import faults
+
 MANIFEST = "manifest.json"
 FORMAT_NAME = "tpuflow-raw-v2"
 
@@ -158,14 +161,17 @@ def retry_io(fn: Callable[[], Any], *, op: str, path: str = "",
              sleep: Callable[[float], None] = time.sleep):
     """Run one storage operation, retrying transient ``OSError``s up to
     ``retries`` times with jittered exponential backoff from
-    ``backoff_s``. A permanent error or an exhausted budget raises
+    ``backoff_s``, one ``ckpt.io_retry`` event a retry. A permanent error
+    or an exhausted budget records ``ckpt.io_error`` and raises
     :class:`CheckpointIOError`; ENOENT and its kind re-raise unchanged;
     ``CorruptShardError`` is never retried. ``fn`` must be safe to re-run
-    from scratch."""
+    from scratch. An installed ``ckpt_io_flaky`` fault plan fails each
+    attempt first (``testing/faults.py::ckpt_io_fault``)."""
     attempt = 0
     while True:
         attempt += 1
         try:
+            faults.ckpt_io_fault(op, path)
             return fn()
         except CorruptShardError:
             raise
@@ -175,6 +181,11 @@ def retry_io(fn: Callable[[], Any], *, op: str, path: str = "",
             if e.errno in _STRUCTURAL_ERRNOS:
                 raise
             where = path or "<unknown>"
+            name = os.path.basename(path.rstrip(os.sep)) if path else ""
+            if not io_transient(e) or attempt > retries:
+                obs.event("ckpt.io_error", op=op, path=name, errno=e.errno,
+                          attempts=attempt, transient=io_transient(e),
+                          error=str(e)[:200])
             if not io_transient(e):
                 raise CheckpointIOError(
                     f"{op} {where}: permanent storage error: {e}") from e
@@ -182,7 +193,11 @@ def retry_io(fn: Callable[[], Any], *, op: str, path: str = "",
                 raise CheckpointIOError(
                     f"{op} {where}: transient storage error persisted "
                     f"through {attempt} attempts: {e}") from e
-            sleep(backoff_s * 2 ** (attempt - 1) * (0.5 + 0.5 * random.random()))
+            delay = backoff_s * 2 ** (attempt - 1) * (
+                0.5 + 0.5 * random.random())
+            obs.event("ckpt.io_retry", op=op, path=name, attempt=attempt,
+                      delay_s=round(delay, 4), error=str(e)[:200])
+            sleep(delay)
 
 
 def _retry(policy: RetryPolicy, fn, op: str, path: str):
@@ -780,6 +795,7 @@ def _write_one(directory: str, fname: str, buf: np.ndarray,
         write_file(dst, buf)
 
     _retry(policy, attempt, "write_shard", dst)
+    faults.corrupt_after_write(dst)
     return _crc32(buf)
 
 

@@ -7,7 +7,12 @@ starts each member as::
         <run_id> <task_id> <state_path> <rank> <world_size> <port>
 
 The pickled state holds the flow's artifacts, the device, the formation
-timeout, the store's root and the launch attempt. The member sets torch's
+timeout, the store's root, the launch attempt and the run's robustness
+settings (the JAX package passes them in its environment): the fault
+plan, installed as the member's rank; the grace budget and the attempt,
+installed in ``utils/preempt.py``; the obs directory, where the member
+records ``events.p<rank>.<pid>.jsonl`` with its launch stamped; and the
+node-local checkpoint tier, as ``current.ckpt_local_dir``. The member sets torch's
 own rendezvous variables (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``MASTER_ADDR``, ``MASTER_PORT``), joins the process group
 (``dist.initialize``: NCCL on the card, one process per card; gloo on the
@@ -19,8 +24,13 @@ of several processes on one card, which NCCL refuses. The member then
 marks itself joined for the supervisor's formation deadline, runs the
 step body, and saves its artifacts: the head (rank 0) its own
 at ``task_id`` and the step's transition, the others none at
-``task_id + rank``. A SIGTERM exits at once with the requeue code (the
-training loops' checkpoint drain is ROADMAP Queue 1 item 12c).
+``task_id + rank``.
+
+A SIGTERM only sets the preemption flag (and dumps the flight ring: a
+SIGKILL may follow the grace window); the training loops drain a
+checkpoint at their next step boundary and raise ``Preempted``, which
+the member turns into the requeue exit code after flushing its events.
+Any other failure dumps the flight ring with its stack and propagates.
 """
 
 from __future__ import annotations
@@ -32,13 +42,21 @@ import pickle
 import signal
 import sys
 
-from tpuflow_torch.utils.preempt import REQUEUE_EXIT_CODE, request_preemption
+from tpuflow_torch import obs
+from tpuflow_torch.testing import faults
+from tpuflow_torch.utils import preempt
+from tpuflow_torch.utils.preempt import (
+    REQUEUE_EXIT_CODE,
+    Preempted,
+    request_preemption,
+)
 
 
 def _on_sigterm(signum, frame):
+    # The flag first, then the flight ring: this may be the supervisor's
+    # kill, whose SIGKILL leaves no later chance. Neither raises.
     request_preemption(signum, frame)
-    sys.stdout.flush()
-    os._exit(REQUEUE_EXIT_CODE)
+    obs.dump_flight("sigterm")
 
 
 def main(argv: list[str]) -> None:
@@ -48,6 +66,10 @@ def main(argv: list[str]) -> None:
     signal.signal(signal.SIGTERM, _on_sigterm)
     with open(state_path, "rb") as f:
         state = pickle.load(f)
+    faults.install(state["faults"], rank=rank)
+    preempt.configure(grace_s=state["grace_s"], attempt=state["attempt"])
+    if state["obs_dir"]:
+        obs.configure(state["obs_dir"], proc=rank, attempt=state["attempt"])
 
     from tpuflow_torch.flow import store
 
@@ -69,6 +91,7 @@ def main(argv: list[str]) -> None:
     from tpuflow_torch.flow.spec import _Trigger, current
 
     device = resolve_device(state["device"])
+    faults.maybe_rendezvous_delay()
     dist.initialize(device, timeout_s=float(state["timeout"]),
                     backend=state["artifacts"].get("dist_backend") or None,
                     device_index=device.index)
@@ -89,9 +112,29 @@ def main(argv: list[str]) -> None:
     current.trigger = (_Trigger(Run(state["trigger"])) if state["trigger"]
                        else None)
     current.tpu_storage_path = store.storage_dir(flow_name, run_id, step_name)
+    current.ckpt_local_dir = state["ckpt_local_dir"]
     os.makedirs(current.tpu_storage_path, exist_ok=True)
 
-    flow_cls.steps()[step_name](flow)
+    try:
+        with obs.span("flow.gang_member", step=step_name, gang_index=rank,
+                      gang_size=world):
+            flow_cls.steps()[step_name](flow)
+    except Preempted as e:
+        # The loop committed its drain checkpoint. os._exit: a peer may be
+        # gone, and the shutdown barrier below would wait for it.
+        grace = preempt.grace_remaining_s()
+        spare = (f" with {grace:.1f}s grace to spare" if grace is not None
+                 else "")
+        print(f"[tpuflow_torch] gang member preempted, requeueing{spare}: "
+              f"{e}")
+        obs.flush()
+        sys.stdout.flush()
+        os._exit(REQUEUE_EXIT_CODE)
+    except BaseException as e:
+        obs.dump_flight("unhandled_exception", e)
+        obs.flush()
+        raise
+    obs.flush()
     store.save_artifacts(flow_name, run_id, step_name, base_task + rank,
                          flow._artifacts if rank == 0 else {},
                          state["attempt"])

@@ -16,6 +16,17 @@ root. ``deploy`` waits for the flow layer's remainder and raises.
 
 A flow whose ``device`` parameter asks for ``cuda`` on a machine without
 a card raises before the run is created; nothing falls back to the CPU.
+
+Telemetry and robustness, as the JAX runner's (which reads them from its
+environment): with ``obs`` (the default) the head records the run under
+``<run_dir>/obs`` (``flow.run``, a ``flow.step`` span an attempt, the
+supervisor's ``flow.preempt`` and ``flow.member_failed`` events), each
+gang member its own file there, and the run's end merges them into
+``<run_dir>/events.jsonl``. ``faults`` (a fault plan) is installed in
+every step, as rank 0 in process and as its rank in each member;
+``ckpt_local_dir`` (the node-local checkpoint tier) reaches the steps as
+``current.ckpt_local_dir``. A member's grace budget after a SIGTERM is
+the supervisor's ``KILL_GRACE_S``.
 """
 
 from __future__ import annotations
@@ -37,11 +48,13 @@ from typing import Any
 
 import torch
 
+from tpuflow_torch import obs
 from tpuflow_torch.device import resolve_device
 from tpuflow_torch.flow import store
 from tpuflow_torch.flow.cards import CardBuffer
 from tpuflow_torch.flow.client import Run, default_namespace, get_namespace
 from tpuflow_torch.flow.spec import FlowSpec, _Trigger, current
+from tpuflow_torch.testing import faults as faults_mod
 from tpuflow_torch.utils.preempt import REQUEUE_EXIT_CODE
 
 ROADMAP_DEPLOY = ("ROADMAP Queue 1 item 8b (the flow layer's remainder: "
@@ -68,7 +81,8 @@ _GANG_POLL_S = 0.05
 # deadline.
 FORMATION_SLACK_S = 60.0
 # Seconds between the SIGTERM and the SIGKILL a failed gang's survivors
-# get (each exits with the requeue code on the SIGTERM).
+# get (each drains at its next step boundary and exits with the requeue
+# code); also the grace budget the members are told.
 KILL_GRACE_S = 5.0
 # Requeues a step may take before its run fails (a preemption storm).
 MAX_REQUEUES = 8
@@ -171,11 +185,21 @@ def _step_trace(trace_dir: str, device: torch.device):
 
 
 class FlowRunner:
-    """Runs one flow class."""
+    """Runs one flow class. ``faults``: a fault plan for every step (the
+    JAX package's ``TPUFLOW_FAULT``); ``ckpt_local_dir``: the node-local
+    checkpoint tier (its ``TPUFLOW_CKPT_LOCAL_DIR``); ``obs``: record the
+    run's telemetry (its ``TPUFLOW_OBS``)."""
 
-    def __init__(self, flow_cls: type[FlowSpec]):
+    def __init__(self, flow_cls: type[FlowSpec], *,
+                 faults: str | None = None,
+                 ckpt_local_dir: str | None = None, obs: bool = True):
         self.flow_cls = flow_cls
         self.flow_name = flow_cls.__name__
+        faults_mod.parse(faults or "")  # a malformed plan raises here
+        self.faults = faults
+        self.ckpt_local_dir = ckpt_local_dir
+        self.obs = obs
+        self._obs_dir = None
 
     # ----------------------------------------------------------------- run
     def run(self, params: dict[str, Any], *, triggered: bool = False,
@@ -218,6 +242,15 @@ class FlowRunner:
 
         pathspec = f"{self.flow_name}/{run_id}"
         print(f"[tpuflow_torch] run {pathspec} starting")
+        rdir = store.run_dir(self.flow_name, run_id)
+        if self.obs:
+            # The head records here; each gang member writes its own file
+            # beside it; the run's end merges them.
+            self._obs_dir = os.path.join(rdir, "obs")
+            obs.configure(self._obs_dir, proc=0)
+        run_span = obs.span("flow.run", flow=self.flow_name,
+                            run=str(run_id))
+        run_span.__enter__()
         step_name, task_counter = "start", 0
         try:
             while True:
@@ -250,15 +283,30 @@ class FlowRunner:
                 step_name = transition.target
         except Exception as e:
             meta.update(status="failed", error=repr(e), finished=time.time())
+            run_span.set(status="failed")
+            run_span.__exit__(None, None, None)
+            self._finish_obs(rdir)
             store.write_run_meta(self.flow_name, run_id, meta)
             print(f"[tpuflow_torch] run {pathspec} FAILED: {e!r}")
             raise
         meta.update(status="success", finished=time.time())
+        run_span.set(status="success")
+        run_span.__exit__(None, None, None)
+        self._finish_obs(rdir)
         store.write_run_meta(self.flow_name, run_id, meta)
         store.append_event({"flow": self.flow_name, "run": pathspec,
                             "status": "success"})
         print(f"[tpuflow_torch] run {pathspec} succeeded")
         return pathspec
+
+    def _finish_obs(self, rdir: str) -> None:
+        """Close the head's recorder and merge the run's event files into
+        ``<rdir>/events.jsonl``. Telemetry never fails the run."""
+        if self._obs_dir is None:
+            return
+        obs.configure(None)
+        self._obs_dir = None
+        obs.merge_run_events(rdir)
 
     def _run_step(self, flow, fn, step_name, run_id, task_id, num_parallel,
                   gang) -> list[_GangInput]:
@@ -270,13 +318,15 @@ class FlowRunner:
         attempt = requeues = 0
         while True:
             try:
-                if num_parallel > 1:
-                    return self._exec_gang(
-                        flow, step_name, run_id, task_id, num_parallel,
-                        timeout=gang.get("timeout", 300.0),
-                        attempt=attempt + requeues)
-                self._exec_local(flow, fn, step_name, run_id, task_id,
-                                 attempt + requeues)
+                with obs.span("flow.step", step=step_name, task=task_id,
+                              attempt=attempt, num_parallel=num_parallel):
+                    if num_parallel > 1:
+                        return self._exec_gang(
+                            flow, step_name, run_id, task_id, num_parallel,
+                            timeout=gang.get("timeout", 300.0),
+                            attempt=attempt + requeues)
+                    self._exec_local(flow, fn, step_name, run_id, task_id,
+                                     attempt + requeues)
                 # A following join sees this task as a gang of one.
                 return [_GangInput(dict(flow._artifacts))]
             except StepPreempted:
@@ -309,6 +359,7 @@ class FlowRunner:
                            if self._trigger_run is not None else None)
         current.tpu_storage_path = store.storage_dir(self.flow_name, run_id,
                                                      step_name)
+        current.ckpt_local_dir = self.ckpt_local_dir
         os.makedirs(current.tpu_storage_path, exist_ok=True)
 
     def _exec_local(self, flow: FlowSpec, fn, step_name: str, run_id,
@@ -322,6 +373,7 @@ class FlowRunner:
         object.__setattr__(flow, "_join_inputs", None)
         try:
             with contextlib.ExitStack() as stack:
+                stack.enter_context(faults_mod.installing(self.faults))
                 if profile_cfg:
                     stack.enter_context(_DeviceProfiler(
                         profile_cfg["interval"],
@@ -351,7 +403,9 @@ class FlowRunner:
         them (``_supervise_gang``). Each member gets the flow's artifacts,
         the device, the formation timeout and the store's root through a
         pickled state file, and its rank, the world size and the
-        rendezvous port through argv."""
+        rendezvous port through argv, and the run's fault plan, grace
+        budget (``KILL_GRACE_S``), node-local checkpoint tier and obs
+        directory through the state."""
         tdir = store.task_dir(self.flow_name, run_id, step_name, task_id)
         os.makedirs(tdir, exist_ok=True)
         for name, value in flow._artifacts.items():
@@ -363,7 +417,10 @@ class FlowRunner:
                          "device": str(self.device), "timeout": timeout,
                          "home": store.home(), "attempt": attempt,
                          "trigger": (self._trigger_run.pathspec
-                                     if self._trigger_run else None)}, f)
+                                     if self._trigger_run else None),
+                         "faults": self.faults, "grace_s": KILL_GRACE_S,
+                         "ckpt_local_dir": self.ckpt_local_dir,
+                         "obs_dir": self._obs_dir}, f)
         for i in range(num_parallel):
             with contextlib.suppress(FileNotFoundError):
                 os.unlink(os.path.join(tdir, f"joined_{i}"))
@@ -393,7 +450,8 @@ class FlowRunner:
             for _, log in procs:
                 log.close()
             raise
-        failure = self._supervise_gang(procs, tdir, timeout=timeout)
+        failure = self._supervise_gang(procs, tdir, timeout=timeout,
+                                       step_name=step_name)
         if failure is not None:
             kind, member, detail = failure
             if kind == "preempt":
@@ -418,11 +476,14 @@ class FlowRunner:
             for i in range(1, num_parallel)
         ]
 
-    def _supervise_gang(self, procs: list, tdir: str, *, timeout: float):
+    def _supervise_gang(self, procs: list, tdir: str, *, timeout: float,
+                        step_name: str):
         """Poll every member until all exit 0 or one fails.
 
         The first non-zero exit fails the step at once ("preempt" for the
-        requeue code, else "member_failed"), and the survivors are killed
+        requeue code, recorded as ``flow.preempt``; else "member_failed",
+        recorded as ``flow.member_failed`` with the member's log tail and
+        flight dump), and the survivors are killed
         (``_kill_survivors``). Formation deadline: every member writes
         ``joined_<i>`` once its process group is up; if any has not
         within ``timeout`` + ``FORMATION_SLACK_S`` of the launch, the step
@@ -445,11 +506,14 @@ class FlowRunner:
                     rcs[i] = rc
                     log.close()
                     if rc != 0 and failure is None:
-                        failure = (
-                            ("preempt", i, "requeue")
-                            if rc == REQUEUE_EXIT_CODE
-                            else ("member_failed", i,
-                                  f"member {i} exited {rc}"))
+                        if rc == REQUEUE_EXIT_CODE:
+                            failure = ("preempt", i, "requeue")
+                            obs.event("flow.preempt", step=step_name,
+                                      member=i)
+                        else:
+                            failure = ("member_failed", i,
+                                       f"member {i} exited {rc}")
+                            self._member_failed(step_name, tdir, i, rc)
                 if failure is not None or all(rc is not None for rc in rcs):
                     break
                 if not formed:
@@ -469,6 +533,18 @@ class FlowRunner:
             for _, log in procs:
                 log.close()  # idempotent
         return failure
+
+    def _member_failed(self, step_name: str, tdir: str, member: int,
+                       rc: int) -> None:
+        """``flow.member_failed`` with the member's log tail and, when it
+        wrote one before dying, its flight dump."""
+        attrs = {"step": step_name, "member": member, "rc": rc,
+                 "log_tail": self._log_tail(tdir, member, limit=500)}
+        if self._obs_dir:
+            path = obs.flight_path(self._obs_dir, member)
+            if os.path.exists(path):
+                attrs["flight"] = path
+        obs.event("flow.member_failed", **attrs)
 
     @staticmethod
     def _log_tail(tdir: str, member: int, limit: int = 2000) -> str:

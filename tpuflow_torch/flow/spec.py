@@ -73,8 +73,9 @@ class _Trigger:
 
 class _Current:
     """Runtime context singleton: the run, step and task being executed,
-    the step's checkpoint area (``tpu_storage_path``), the trigger, the
-    card buffer and the gang member's index and size."""
+    the step's checkpoint area (``tpu_storage_path``) and the runner's
+    node-local checkpoint tier (``ckpt_local_dir``, None: none), the
+    trigger, the card buffer and the gang member's index and size."""
 
     def __init__(self):
         self.reset()
@@ -85,6 +86,7 @@ class _Current:
         self.step_name: str | None = None
         self.task_id: int | None = None
         self.tpu_storage_path: str | None = None
+        self.ckpt_local_dir: str | None = None
         self.trigger: _Trigger | None = None
         self.card = None  # CardBuffer when the step has @card
         self.gang_index: int = 0

@@ -25,7 +25,9 @@ yet raise its ``NotImplementedError`` naming the ROADMAP item.
 (the JAX package's ``TPUFLOW_FLASH_BWD``), ``text_path`` (its
 ``TPUFLOW_TEXT_FILE``) and ``ckpt_format`` (its ``TPUFLOW_CKPT_FORMAT``:
 ``raw``, or ``dcp`` for ``torch.distributed.checkpoint`` as the JAX
-package's ``orbax``) are parameters.
+package's ``orbax``) are parameters. The runner's node-local
+checkpoint tier (``FlowRunner(ckpt_local_dir=)``) reaches ``train_gpt``
+through ``current.ckpt_local_dir``.
 
 Run:    python -m tpuflow_torch.flows.gpt_flow run --preset test
         [--data-axis 1 --fsdp-axis 1]   (one process)
@@ -224,6 +226,7 @@ class TorchGptTrain(FlowSpec):
             device=self.device,
             flash_bwd=self.flash_bwd,
             ckpt_format=self.ckpt_format,
+            ckpt_local_dir=current.ckpt_local_dir,
         )
         self.result_checkpoint = result.checkpoint
         self.loss_history = result.loss_history

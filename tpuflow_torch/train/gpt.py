@@ -37,9 +37,21 @@ schedule over ``microbatches`` with dropout off, per-epoch saves on the
 pipeline rule whose metric is the epoch's train loss (as ``val_loss``),
 the in-run resume, no validation, no EMA.
 
+Both loops honour a preemption at every step boundary, as the JAX legs
+do: after each step the fault plan's ``step_boundary`` hook runs, and if
+the flag is up (a SIGTERM, or the plan's ``preempt``) the loop drains —
+it commits the current step with its mid-epoch loader cursor
+(``emergency_save`` on the fastest tier when the grace window is
+closing, else a full save), unless that step is already the newest
+committed one, and raises ``Preempted``. The requeued call restores it
+through the manager's tier ladder and replays the epoch's unconsumed
+tail. The JAX package's ``TPUFLOW_FAULT``, ``TPUFLOW_PREEMPT_GRACE_S``
+and ``TPUFLOW_CKPT_LOCAL_DIR`` are the arguments ``faults``,
+``preempt_grace_s`` and ``ckpt_local_dir``.
+
 What the JAX leg does beyond that raises ``NotImplementedError`` naming
-the ROADMAP item: the health monitor, preemption and elastic re-form.
-Nothing is silently ignored.
+the ROADMAP item: the health monitor and elastic re-form. Nothing is
+silently ignored.
 """
 
 from __future__ import annotations
@@ -75,12 +87,16 @@ from tpuflow_torch.parallel import (
 )
 from tpuflow_torch.parallel.pipeline import keep_stage_blocks
 from tpuflow_torch.parallel.tensor import TensorParallel, attach
+from tpuflow_torch.testing import faults as faults_mod
 from tpuflow_torch.train.optim import make_optimizer
 from tpuflow_torch.train.step import (
+    Preempted,
     TrainState,
+    emergency_save_advised,
     make_eval_step,
     make_pipeline_step,
     make_train_step,
+    preemption_requested,
     run_validation,
     with_ema,
 )
@@ -292,7 +308,7 @@ def mesh_axes(cfg: GptTrainConfig) -> dict[str, int]:
 
 
 def _check_supported(cfg: GptTrainConfig, ckpt_dir, health: bool,
-                     preemption: bool, elastic: bool) -> None:
+                     elastic: bool) -> None:
     """Raise for every option of the JAX recipe the port does not run, and
     for a mesh the world does not fill."""
     if cfg.stage_axis > 1 and cfg.optimizer_name == "adafactor":
@@ -319,9 +335,6 @@ def _check_supported(cfg: GptTrainConfig, ckpt_dir, health: bool,
                          "but no ckpt_dir was given to save them in")
     if health:
         raise _deferred("the training-health monitor (health=True)",
-                        ROADMAP_ROBUST)
-    if preemption:
-        raise _deferred("preemption drain and requeue (preemption=True)",
                         ROADMAP_ROBUST)
     if elastic:
         raise _deferred("elastic mesh re-form (elastic=True)", ROADMAP_ROBUST)
@@ -397,6 +410,30 @@ def _init_pipeline_state(cfg: GptTrainConfig, model_cfg: GPT2Config, dev,
     return TrainState(model=model, tx=tx, plan=plan, mesh=mesh)
 
 
+def _step_boundary(mgr, step: int, tree, data_state: dict,
+                   grace_s: float | None) -> None:
+    """The loops' step boundary (``tpuflow/train/gpt.py``'s
+    ``drain_preempt``): the fault plan's hook, then, with the preemption
+    flag up, the drain — commit ``step`` (``tree()``, its state, with the
+    loader cursor ``data_state``) unless it is already the newest
+    committed step, by ``emergency_save`` when the grace budget
+    ``grace_s`` is closing, else a full save; close the manager; raise
+    ``Preempted``. Without a manager there is nothing to commit."""
+    faults_mod.step_boundary(step)
+    if not preemption_requested():
+        return
+    if mgr is not None:
+        if mgr.latest_step() != step:
+            if emergency_save_advised(budget=grace_s):
+                mgr.emergency_save(step, tree(), data_state=data_state,
+                                   grace_s=grace_s)
+            else:
+                mgr.save(step, tree(), metrics={}, data_state=data_state)
+                mgr.wait_until_finished()
+        mgr.close()
+    raise Preempted(f"drained checkpoint at step {step}")
+
+
 def full_model(state: TrainState):
     """The whole model of a sharded state, on process 0 (a plain ``GPT2``
     with the weights gathered over the FSDP, tensor and expert groups;
@@ -423,10 +460,12 @@ def train_gpt(
     device=None,
     flash_bwd: str = "fused",
     health: bool = False,
-    preemption: bool = False,
     elastic: bool = False,
     comm_overlap: bool = True,
     ckpt_format: str = "raw",
+    faults: str | None = None,
+    preempt_grace_s: float | None = None,
+    ckpt_local_dir: str | None = None,
 ) -> GptTrainResult:
     """Run the configured GPT training leg end to end on this process's
     device (``cuda`` unless ``device`` says otherwise; ``cuda:<i>`` puts
@@ -448,9 +487,14 @@ def train_gpt(
     ``TorchGptTrain`` does).
     ``flash_bwd``: the flash attention backward, ``fused`` | ``split`` |
     ``blockwise`` (the JAX package's ``TPUFLOW_FLASH_BWD``; ``blockwise``,
-    the plain version, on the CPU only). ``health``,
-    ``preemption`` and ``elastic`` name features of the JAX leg that are
-    not ported; setting any raises. ``comm_overlap``: on several
+    the plain version, on the CPU only). ``health`` and ``elastic`` name
+    features of the JAX leg that are not ported; setting either raises.
+    ``faults``: a fault plan (``testing/faults.py``) installed for the
+    call as this process's rank (None: the process's own, if any).
+    ``preempt_grace_s``: the termination grace after a SIGTERM that
+    decides between the drain's emergency and full save (None: the
+    process's own, ``utils/preempt.py``). ``ckpt_local_dir``: the
+    manager's node-local tier (None: none). ``comm_overlap``: on several
     processes with ``accum_steps > 1``, reduce-scatter each microbatch's
     gradients right after its backward (the JAX package's
     ``TPUFLOW_COMM_OVERLAP``, on by default), else once after the last.
@@ -458,7 +502,18 @@ def train_gpt(
     package) or ``dcp`` (``torch.distributed.checkpoint``; the JAX
     package's ``TPUFLOW_CKPT_FORMAT=orbax``); a resume reads either."""
     cfg.validate()
-    _check_supported(cfg, ckpt_dir, health, preemption, elastic)
+    _check_supported(cfg, ckpt_dir, health, elastic)
+    with faults_mod.installing(faults, rank=dist.process_index()):
+        return _train_gpt(cfg, ckpt_dir, resume_checkpoint, log, device,
+                          flash_bwd, comm_overlap, ckpt_format,
+                          preempt_grace_s, ckpt_local_dir)
+
+
+def _train_gpt(cfg: GptTrainConfig, ckpt_dir, resume_checkpoint, log,
+               device, flash_bwd: str, comm_overlap: bool, ckpt_format: str,
+               grace_s: float | None, local_dir: str | None
+               ) -> GptTrainResult:
+    """``train_gpt``'s body, under its fault plan."""
     if flash_bwd not in BWD_MODES:
         raise ValueError(f"unknown flash_bwd {flash_bwd!r}; use "
                          f"{'|'.join(BWD_MODES)}")
@@ -469,7 +524,8 @@ def train_gpt(
             log("[gpt] note: fsdp_axis does not apply in pipeline mode; "
                 "params shard by layer slice over 'stage' instead")
         return _train_pipeline(cfg, model_cfg, dev, ckpt_dir,
-                               resume_checkpoint, log, ckpt_format)
+                               resume_checkpoint, log, ckpt_format, grace_s,
+                               local_dir)
     mesh = None
     if dist.process_count() > 1:
         mesh = dist.make_mesh(dev, mesh_axes(cfg))
@@ -490,7 +546,8 @@ def train_gpt(
     if ckpt_dir is not None:
         mgr = CheckpointManager(ckpt_dir, max_to_keep=2,
                                 save_dtype=cfg.ckpt_dtype or None,
-                                multi_process=multi, format=ckpt_format)
+                                multi_process=multi, format=ckpt_format,
+                                local_dir=local_dir)
         # In-run resume: a previous attempt of this run left committed
         # steps; an explicit handle (a cross-run resume) wins.
         if resume_checkpoint is None:
@@ -561,6 +618,7 @@ def train_gpt(
     cold = True
     for epoch in range(start_epoch, cfg.epochs):
         loader.set_epoch(epoch)
+        cursor = skip  # the epoch's batches consumed
         if skip:
             loader.skip_batches(skip)
             skip = 0
@@ -580,6 +638,11 @@ def train_gpt(
             else:
                 # The global batch's tokens (every process loads it).
                 n_tokens += int(batch["y"].size)
+            cursor += 1
+            _step_boundary(
+                mgr, state.step,
+                lambda: checkpoint_tree(state, scan_layers=scan),
+                loader.state_dict(cursor), grace_s)
         step_losses += losses
         epoch_s = time.monotonic() - t_epoch
         tok_s = n_tokens / max(epoch_s, 1e-9) if n_tokens else None
@@ -626,14 +689,15 @@ def train_gpt(
 
 
 def _train_pipeline(cfg: GptTrainConfig, model_cfg: GPT2Config, dev,
-                    ckpt_dir, resume_checkpoint, log, ckpt_format: str
+                    ckpt_dir, resume_checkpoint, log, ckpt_format: str,
+                    grace_s: float | None, local_dir: str | None
                     ) -> GptTrainResult:
     """The JAX pipeline leg (``tpuflow/train/gpt.py::_train_pipeline``):
     GPipe over a ``data`` x ``stage`` mesh of processes, the scan-stacked
     blocks sharded by layer slice, per-epoch saves of the pipeline-sharded
     state whose metric is the epoch's train loss (``val_loss``), the
-    in-run resume from the newest committed step, no validation, no EMA,
-    no sample."""
+    in-run resume from the newest committed step, the preemption drain at
+    every step boundary, no validation, no EMA, no sample."""
     mesh = dist.make_mesh(dev, mesh_axes(cfg))
     dev = mesh.device
     if dist.process_index() != 0:
@@ -651,7 +715,8 @@ def _train_pipeline(cfg: GptTrainConfig, model_cfg: GPT2Config, dev,
     if ckpt_dir is not None:
         mgr = CheckpointManager(ckpt_dir, max_to_keep=2,
                                 save_dtype=cfg.ckpt_dtype or None,
-                                multi_process=True, format=ckpt_format)
+                                multi_process=True, format=ckpt_format,
+                                local_dir=local_dir)
         if resume_checkpoint is None:
             resume_step = mgr.latest_step()
     resuming = resume_checkpoint is not None or resume_step is not None
@@ -685,6 +750,7 @@ def _train_pipeline(cfg: GptTrainConfig, model_cfg: GPT2Config, dev,
             + (f" (replaying from batch {skip})" if skip else ""))
     for epoch in range(start_epoch, cfg.epochs):
         loader.set_epoch(epoch)
+        cursor = skip
         if skip:
             loader.skip_batches(skip)
             skip = 0
@@ -694,6 +760,11 @@ def _train_pipeline(cfg: GptTrainConfig, model_cfg: GPT2Config, dev,
             state, metrics = train_step(state, batch)
             losses.append(float(metrics["loss"]))  # the step's fence
             step_s.append(time.monotonic() - t0)
+            cursor += 1
+            _step_boundary(
+                mgr, state.step,
+                lambda: checkpoint_tree(state, scan_layers=True),
+                loader.state_dict(cursor), grace_s)
         step_losses += losses
         epoch_loss = sum(losses) / len(losses)
         history.append(epoch_loss)

@@ -100,6 +100,21 @@ from tpuflow_torch.train.optim import (
     square_sums,
 )
 
+# The train layer's preemption surface: gang_exec installs the SIGTERM
+# handler; the loops check ``preemption_requested()`` at step boundaries,
+# drain and commit a final checkpoint, and raise ``Preempted``, which
+# gang_exec turns into REQUEUE_EXIT_CODE.
+from tpuflow_torch.utils.preempt import (  # noqa: F401  (re-exported API)
+    REQUEUE_EXIT_CODE,
+    Preempted,
+    clear_preemption,
+    emergency_save_advised,
+    grace_remaining_s,
+    install_sigterm_handler,
+    preemption_requested,
+    request_preemption,
+)
+
 
 @dataclasses.dataclass
 class TrainState:

@@ -9,9 +9,18 @@ metrics and saves its checkpoint through the ``CheckpointManager``
 carries the metrics, their history and checkpoint handles (paths and
 metadata, never tensors).
 
+``report`` is the loop's step boundary, as in the JAX package: it
+records a ``train.report`` event, runs the fault plan's
+``step_boundary`` hook, and with the preemption flag up waits for the
+save it just made (the drain checkpoint) and raises ``Preempted``. A
+requeued attempt resumes from ``latest_step()`` (``restore_latest``).
+``RunConfig(ckpt_local_dir=, faults=)`` take the
+node-local checkpoint tier and the fault plan (the JAX package's
+``TPUFLOW_CKPT_LOCAL_DIR`` and ``TPUFLOW_FAULT``).
+
 Left out, each with its ROADMAP Queue 1 item: the elastic mesh re-form
-(``membership``), the ``HealthMonitor``, goodput, heartbeats, the
-preemption drain and the ``obs`` events (items 12 and 15).
+(``membership``), the ``HealthMonitor``, goodput and heartbeats (items
+12c-2, 12c-3 and 15).
 """
 
 from __future__ import annotations
@@ -25,9 +34,15 @@ from typing import Any, Callable
 
 import torch
 
-from tpuflow_torch import dist
+from tpuflow_torch import dist, obs
 from tpuflow_torch.ckpt import Checkpoint, CheckpointManager
 from tpuflow_torch.device import resolve_device
+from tpuflow_torch.testing import faults as faults_mod
+from tpuflow_torch.utils.preempt import (
+    Preempted,
+    launch_attempt,
+    preemption_requested,
+)
 
 logger = logging.getLogger("tpuflow_torch.train")
 
@@ -57,12 +72,17 @@ class CheckpointConfig:
 @dataclasses.dataclass
 class RunConfig:
     """``storage_path``: the run's directory (checkpoints under
-    ``checkpoints/``, ``metrics.jsonl``); None saves nothing."""
+    ``checkpoints/``, ``metrics.jsonl``); None saves nothing.
+    ``ckpt_local_dir``: the checkpoints' node-local tier (None: none).
+    ``faults``: a fault plan (``testing/faults.py``) installed for the
+    run as this process's rank (None: the process's own, if any)."""
 
     storage_path: str | None = None
     checkpoint_config: CheckpointConfig = dataclasses.field(
         default_factory=CheckpointConfig
     )
+    ckpt_local_dir: str | None = None
+    faults: str | None = None
 
 
 @dataclasses.dataclass
@@ -123,6 +143,7 @@ class TrainContext:
                 max_to_keep=cc.num_to_keep,
                 best_metric=cc.best_metric,
                 best_mode=cc.best_mode,
+                local_dir=run_config.ckpt_local_dir,
             )
 
     @property
@@ -150,20 +171,30 @@ class TrainContext:
     def report(self, metrics: dict[str, Any], *, state=None,
                step: int | None = None,
                data_state: dict[str, Any] | None = None) -> None:
-        """Record one epoch's metrics (cast to floats); with ``state``, save
-        it as step ``step``'s checkpoint (asynchronous on one process;
-        committed before the barrier on several, so every rank sees it),
-        with the loader cursor ``data_state``; append ``metrics.jsonl`` on
-        rank 0; end at a barrier."""
+        """Record one epoch's metrics (cast to floats; a ``train.report``
+        event); with ``state``, save it as step ``step``'s checkpoint
+        (asynchronous on one process; committed before the barrier on
+        several, so every rank sees it, and on a retried or requeued
+        attempt), with the loader cursor ``data_state``; append
+        ``metrics.jsonl`` on rank 0; end at a barrier. Then the step
+        boundary: the fault plan's hook, and with the preemption flag up
+        the save just made is the drain checkpoint: wait for it and raise
+        ``Preempted``."""
         metrics = {k: (float(v) if hasattr(v, "__float__") else v)
                    for k, v in metrics.items()}
         self._reported.append(metrics)
         save_step = step if step is not None else len(self._reported)
+        obs.event("train.report", step=save_step,
+                  **{k: v for k, v in metrics.items()
+                     if isinstance(v, (int, float))})
         rank0 = dist.process_index() == 0
         if state is not None and self._manager is not None and rank0:
             self._manager.save(save_step, state, metrics=metrics,
                                data_state=data_state)
-            if dist.process_count() > 1:
+            if dist.process_count() > 1 or launch_attempt() > 0:
+                # A retried attempt commits each step before going on, so
+                # a crash that repeats at a later step cannot keep the
+                # resume point from moving.
                 self._manager.wait_until_finished()
         if self.run_config.storage_path and rank0:
             with open(os.path.join(self.run_config.storage_path,
@@ -172,6 +203,27 @@ class TrainContext:
                                     **metrics}) + "\n")
         logger.info("report[%d]: %s", len(self._reported), metrics)
         dist.barrier(self.mesh)
+        faults_mod.step_boundary(save_step)
+        if preemption_requested():
+            if self._manager is not None:
+                self._manager.wait_until_finished()
+            raise Preempted(
+                f"preempted; drained checkpoint at step {save_step}")
+
+    def latest_step(self) -> int:
+        """The newest committed checkpoint step, 0 when there is none: a
+        retried or requeued attempt resumes from ``latest_step() + 1``."""
+        if self._manager is None:
+            return 0
+        return self._manager.latest_step() or 0
+
+    def restore_latest(self, abstract_state=None):
+        """The newest committed checkpoint's state (crc-verified, the local
+        tier first, down the manager's fallback ladder); None when there
+        is none."""
+        if self._manager is None or self._manager.latest_step() is None:
+            return None
+        return self._manager.restore(abstract_state=abstract_state)
 
     def latest_metrics(self) -> dict[str, Any]:
         return self._reported[-1] if self._reported else {}
@@ -220,7 +272,9 @@ class Trainer:
         ctx = TrainContext(mesh, self.run_config)
         _ACTIVE_CONTEXT = ctx
         try:
-            self.train_loop_per_worker(dict(self.train_loop_config))
+            with faults_mod.installing(self.run_config.faults,
+                                       rank=dist.process_index()):
+                self.train_loop_per_worker(dict(self.train_loop_config))
         finally:
             _ACTIVE_CONTEXT = None
             if ctx.checkpoint_manager is not None:
@@ -238,11 +292,11 @@ class Trainer:
                 best = mgr.checkpoint(best=True)
             mgr.close()
             # After an in-run resume this run reported only its own epochs;
-            # the newest checkpoint's history holds them all.
-            if latest is not None:
-                history = latest.metadata.get("metrics_history", [])
-                if len(history) > len(metrics_history):
-                    metrics_history = [dict(m) for m in history]
+            # the manager's history (rebuilt from the newest committed
+            # step, plus this run's saves, a torn commit's too) holds them
+            # all.
+            if len(mgr._metrics_history) > len(metrics_history):
+                metrics_history = [dict(m) for m in mgr._metrics_history]
         return Result(
             metrics=ctx.latest_metrics(),
             metrics_history=metrics_history,
