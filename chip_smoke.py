@@ -47,7 +47,10 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    0.1, AdamW, f32) for 2 epochs of 8 steps at batch 8 x 1024 with the
    flash kernels; every loss finite, the last below the first and the
    second epoch's mean below the first's, each kernel launched the number
-   of times the code implies. Then two steps under the profiler
+   of times the code implies. Then the same call with ``health=False``
+   (no monitor; the fence's one host copy stays): its 16 losses bit-equal
+   to the first call's, and both calls' step ms side by side, the
+   monitor's cost. Then two steps under the profiler
    (device busy share, top kernels), and one forward+backward with flash
    against the einsum attention (dropout off, TF32 off): loss and every
    gradient within stated tolerances. Then the bf16 leg: the same call
@@ -159,7 +162,8 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    every leaf restored bit-equal and the epoch-2 losses within 1e-4
    relative; (d) the first step's loss and gradients on one device
    within the step-parity limits of the sharded step's; (e)
-   ``TorchGptTrain`` at 124M as a two-member gang on the card and
+   ``TorchGptTrain`` at 124M as a two-member gang on the card (each
+   member's ``heartbeat_<i>`` file holding its last trained step) and
    ``TorchGptEval`` from it at one process, its flash launches exact.
 13. GPT-2 124M at full width, 3 of its 12 layers (a depth cut for the
    time limit, ``TP_LAYERS``), on the tensor and expert axes
@@ -209,17 +213,27 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    remat, dropout 0.1, AdamW, flash, the fused backward): (a) in this
    process, the fault plan ``preempt:0@step5`` with a 30 s grace budget
    drains step 5 by the full save on the persistent tier (the mid-epoch
-   cursor in its metadata) and raises ``Preempted``; the call again
-   restores step 5 and runs steps 6-16: the 5 + 11 losses bit-equal to
-   phase 6's, ``step_16``'s crc32s equal to phase 7's split leg's, the
-   flash launches exact over both calls; (b) a child process of this
+   cursor in its metadata) and raises ``Preempted``; the call again,
+   with the obs recorder configured, ``nan_grad:0@step11`` and
+   ``profile=(13, 13)``, restores step 5 and runs steps 6-10, the NaN
+   step 11 (one ``health.anomaly``, nonfinite), the health rollback to
+   the verified epoch-0 save at step 8 (one ``health.rollback``) and the
+   replayed steps 9-16: the raw losses phase 6's steps 1-10, a NaN, then
+   its steps 9-16 bit for bit, the result's step losses phase 6's steps
+   6-16, ``step_16``'s crc32s equal to phase 7's split leg's, the
+   restores (5, persistent) then (8, persistent), the flash launches
+   exact over both calls (three discarded steps' worth beyond phase
+   6's), and step 13's profile trace holding the forward with lse and
+   the fused backward pair; (b) a child process of this
    script (``--preempt-child``) makes the same call with a node-local
    tier and no grace; once its log reports step 3 it gets a real
    SIGTERM, drains by ``emergency_save`` on the local tier and exits 75
    with a local-only committed step k; a second child restores step k
    from the local tier (its ``ckpt.restore_tier`` event) and finishes
-   with the same checks. The drain times (flag to ``Preempted``), the
-   saves' and restores' seconds and GB/s, the phase's wall.
+   with the same checks (no NaN). The drain times (flag to
+   ``Preempted``), the rollback's time (anomaly to rollback: the crc32
+   verify and the restore), the saves' and restores' seconds and GB/s,
+   the phase's wall.
 16. One JSON line with every kernel's numbers (the int8 matmul both as one
    decode step at M = 8 and as the same 49 products at M = 512; the
    training kernels in f32 and bf16, their launches from the f32 legs and
@@ -232,7 +246,8 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    ``tp_launches``: those of phase 13's two training legs, every rank's;
    ``seq_launches``: those of phase 14's legs (a) and (b), every rank's;
    ``pipeline_launches``: those of its leg (c), every rank's;
-   ``preempt_launches``: those of phase 15's legs, both calls of each;
+   ``preempt_launches``: those of phase 15's legs, both calls of each
+   (leg (a)'s three rolled-back steps included);
    the ``_vit`` entries at the
    ViT shape, f32, their launches the ViT leg's), the ``nvidia-smi`` line,
    and as the last line
@@ -1532,6 +1547,18 @@ def train_phase(torch, smi):
           f"{', '.join(f'{x:.4f}' for x in hist)}; step {step_ms:.1f} ms "
           f"(median after the cold step), {tok_s} tokens/s (last epoch), "
           f"peak memory {peak / 2**30:.2f} GiB, wall {wall_s:.2f} s [{smi}]")
+    # The monitor's cost: the same call without it (after the default
+    # one, so on a warm allocator), the same numerics.
+    off = train_gpt(cfg, health=False, log=lambda m: None)
+    torch.cuda.synchronize()
+    if off.step_losses != losses:
+        raise AssertionError(f"train_gpt(health=False) losses "
+                             f"{off.step_losses}, want {losses}")
+    off_ms = float(np.median(off.step_s[1:])) * 1e3
+    out["step_ms_median_health_off"] = off_ms
+    print(f"train_gpt step with the health monitor {step_ms:.2f} ms, "
+          f"without it (health=False, the next call) {off_ms:.2f} ms; "
+          f"losses bit-equal [{smi}]")
     out["profile"] = train_profile(torch, cfg, step_ms, smi)
     with f32_matmul_precision():
         out["parity"] = step_parity(torch, cfg)
@@ -4256,6 +4283,17 @@ def fsdp_phase(torch, smi, kernel_rows: dict | None = None,
                 np.isfinite(run.data.loss_history)):
             raise AssertionError(f"TorchGptTrain gang: {meta}, "
                                  f"{run.data.loss_history}")
+        # Each member stamped its heartbeat at every step's fence.
+        (head,) = [r["head_task"] for r in run.meta["steps"]
+                   if r["step"] == "train"]
+        tdir = store.task_dir("TorchGptTrain", run.run_id, "train", head)
+        beats = []
+        for i in range(FSDP_WORLD):
+            with open(os.path.join(tdir, f"heartbeat_{i}")) as fh:
+                beats.append(int(fh.read()))
+        if beats != [meta["step"]] * FSDP_WORLD:
+            raise AssertionError(f"TorchGptTrain gang heartbeats {beats}, "
+                                 f"want the last step {meta['step']} each")
         _zero_counters(fa, im)
         ge = Run(gpt_eval_flow.main(
             ["run", "--triggered", "--sample-tokens",
@@ -4274,10 +4312,11 @@ def fsdp_phase(torch, smi, kernel_rows: dict | None = None,
                                  f"{ge.meta.get('triggered_by')}")
         out["flows"] = dict(train=run.pathspec, loss_history=
                             run.data.loss_history, eval_launches=eval_n,
-                            test_loss=ge.data.test_loss)
+                            test_loss=ge.data.test_loss, heartbeats=beats)
         print(f"fsdp (e): TorchGptTrain {' '.join(FLOW_FSDP_ARGS)}: loss "
               f"history {run.data.loss_history}, checkpoint of "
-              f"{meta['process_count']} processes; TorchGptEval at one "
+              f"{meta['process_count']} processes, the members' heartbeats "
+              f"at step {beats}; TorchGptEval at one "
               f"process: test loss {ge.data.test_loss:.4f}, launches "
               f"{eval_n} [{smi}]")
         store.set_home(None)
@@ -5312,6 +5351,16 @@ PREEMPT_STEP = 5           # leg (a): the fault plan's preempt
 PREEMPT_SIGNAL_STEP = 3    # leg (b): SIGTERM once the child reports it
 PREEMPT_GRACE_S = 30.0     # leg (a)'s budget: the full save (leg (b): 0)
 PREEMPT_CHILD_TIMEOUT_S = 300.0
+# Leg (a)'s requeued call: a NaN poisoned before step NAN_STEP, which the
+# health monitor flags and rolls back to the epoch-0 save at step
+# ROLLBACK_STEP; the replayed step PROFILE_STEP is traced.
+NAN_STEP = 11
+ROLLBACK_STEP = TRAIN_STEPS_PER_EPOCH
+PROFILE_STEP = 13
+# The kernels the profiled training step must show (f32, D = 64): the
+# forward with lse and the fused backward pair.
+PROFILE_KERNELS = ("flash_fwd_fma<64, 64>", "bwd_dq_fma<64, false>",
+                   "bwd_dkv_fma<64, false>")
 
 
 def _recorded_losses(gpt_mod, echo: float | None = None):
@@ -5356,18 +5405,18 @@ def _tracked_managers(gpt_mod):
     return made, lambda: setattr(gpt_mod, "CheckpointManager", real)
 
 
-def _preempt_want(cfg) -> dict:
+def _preempt_want(cfg, replayed: int = 0) -> dict:
     """The flash launches of TRAIN_STEPS steps of ``cfg`` (full remat) and
-    its TRAIN_EPOCHS validations."""
+    ``replayed`` discarded ones, and its TRAIN_EPOCHS validations."""
     from tpuflow_torch.data.lm import make_lm_loaders
 
     mc = cfg.model_config()
     L = mc.n_layer
     n_val = len(make_lm_loaders(cfg.batch_size, cfg.steps_per_epoch,
                                 cfg.seq_len, mc.vocab_size)[1])
-    return _launches(flash_fwd_lse=2 * L * TRAIN_STEPS,
-                     flash_bwd_dq=L * TRAIN_STEPS,
-                     flash_bwd_dkv=L * TRAIN_STEPS,
+    steps = TRAIN_STEPS + replayed
+    return _launches(flash_fwd_lse=2 * L * steps, flash_bwd_dq=L * steps,
+                     flash_bwd_dkv=L * steps,
                      flash_fwd=L * n_val * TRAIN_EPOCHS)
 
 
@@ -5391,13 +5440,18 @@ def _preempt_leg_a(torch, cfg, work: str, fused: list, shards: list,
                    smi: str) -> dict:
     """Leg (a): ``train_gpt`` drained in this process by the fault plan at
     PREEMPT_STEP with a PREEMPT_GRACE_S budget (the full save, on the
-    persistent tier), then called again."""
+    persistent tier), then called again with the obs recorder configured,
+    the fault plan's NaN before step NAN_STEP and the profile window on
+    step PROFILE_STEP: the health monitor flags NAN_STEP and rolls back
+    to ROLLBACK_STEP, and the run replays from there."""
+    from tpuflow_torch import obs
     from tpuflow_torch.ops import flash_attention as fa
     from tpuflow_torch.ops import int8_matmul as im
     from tpuflow_torch.train import gpt as gpt_mod
     from tpuflow_torch.utils import preempt
 
     ck = os.path.join(work, "a")
+    obs_dir = os.path.join(work, "a_obs")
     losses, undo_losses = _recorded_losses(gpt_mod)
     mgrs, undo_mgrs = _tracked_managers(gpt_mod)
     _zero_counters(fa, im)
@@ -5415,7 +5469,13 @@ def _preempt_leg_a(torch, cfg, work: str, fused: list, shards: list,
         save = mgrs[0].saves[-1]
         meta = json.load(open(os.path.join(ck, f"step_{PREEMPT_STEP}",
                                            "metadata.json")))
-        res = gpt_mod.train_gpt(cfg, ckpt_dir=ck, log=lambda m: None)
+        obs.configure(obs_dir, proc=0)
+        try:
+            res = gpt_mod.train_gpt(cfg, ckpt_dir=ck, log=lambda m: None,
+                                    faults=f"nan_grad:0@step{NAN_STEP}",
+                                    profile=(PROFILE_STEP, PROFILE_STEP))
+        finally:
+            obs.configure(None)
         torch.cuda.synchronize()
         wall_s = time.monotonic() - t0
         got = _counters(fa, im)
@@ -5426,32 +5486,79 @@ def _preempt_leg_a(torch, cfg, work: str, fused: list, shards: list,
     if meta["data_state"] != cursor or meta["metrics"]:
         raise AssertionError(f"preempt (a): step_{PREEMPT_STEP} holds "
                              f"{meta['data_state']}, {meta['metrics']}")
-    if len(drained) != PREEMPT_STEP or losses != fused:
+    # Steps 1-10, the NaN step, then 9-16 replayed from the rollback.
+    want_raw = (fused[:NAN_STEP - 1] + [float("nan")]
+                + fused[ROLLBACK_STEP:])
+    nan_at = NAN_STEP - 1
+    if (len(drained) != PREEMPT_STEP or len(losses) != len(want_raw)
+            or not np.isnan(losses[nan_at])
+            or losses[:nan_at] + losses[nan_at + 1:]
+            != want_raw[:nan_at] + want_raw[nan_at + 1:]):
         raise AssertionError(f"preempt (a): losses {drained} then "
-                             f"{losses[PREEMPT_STEP:]}, want phase 6's "
-                             f"{fused}")
+                             f"{losses[PREEMPT_STEP:]}, want {want_raw} "
+                             f"(phase 6's {fused} around the NaN)")
+    if res.step_losses != fused[PREEMPT_STEP:]:
+        raise AssertionError(f"preempt (a): the result's step losses "
+                             f"{res.step_losses}, want phase 6's "
+                             f"{fused[PREEMPT_STEP:]}")
     if _shards(os.path.join(ck, f"step_{TRAIN_STEPS}")) != shards:
         raise AssertionError(f"preempt (a): step_{TRAIN_STEPS} differs "
                              "from phase 7's")
-    want = _preempt_want(cfg)
+    want = _preempt_want(cfg, replayed=NAN_STEP - ROLLBACK_STEP)
     if got != want:
         raise AssertionError(f"preempt (a) launches {got}, want {want}")
-    (restore,) = res.checkpoint_io["restores"]
-    if (restore["step"], restore["tier"]) != (PREEMPT_STEP, "persistent"):
-        raise AssertionError(f"preempt (a) restored {restore}")
+    restores = res.checkpoint_io["restores"]
+    if [(r["step"], r["tier"]) for r in restores] != [
+            (PREEMPT_STEP, "persistent"), (ROLLBACK_STEP, "persistent")]:
+        raise AssertionError(f"preempt (a) restored {restores}")
+    events = [e for p in sorted(os.listdir(obs_dir))
+              if p.startswith("events.p")
+              for e in obs.read_events(os.path.join(obs_dir, p))]
+    health = obs.health_summary(events)
+    an, rb = health["anomalies"], health["rollbacks"]
+    if ([(a["detector"], a["step"]) for a in an] != [("nonfinite", NAN_STEP)]
+            or [(r["step"], r["from_step"]) for r in rb]
+            != [(ROLLBACK_STEP, NAN_STEP)]
+            or health["nonfinite_steps"] != 1):
+        raise AssertionError(f"preempt (a): health events {health}")
+    (prof,) = health["profiles"]
+    traces = [os.path.join(prof["dir"], n) for n in os.listdir(prof["dir"])
+              if n.endswith(".json")]
+    if len(traces) != 1:
+        raise AssertionError(f"preempt (a): profile traces {traces}")
+    with open(traces[0]) as fh:
+        names = [e.get("name", "") for e in json.load(fh)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    seen = {k: sum(k.replace(" ", "") in n.replace(" ", "") for n in names)
+            for k in PROFILE_KERNELS}
+    if not all(seen.values()):
+        raise AssertionError(f"preempt (a): the profile of step "
+                             f"{PROFILE_STEP} holds {len(names)} kernels, "
+                             f"the flash ones {seen}")
+    ev_ts = {e["name"]: e["ts"] for e in events
+             if e["name"] in ("health.anomaly", "health.rollback")}
+    rollback_s = ev_ts["health.rollback"] - ev_ts["health.anomaly"]
     print(f"preempt (a): drained at step {PREEMPT_STEP} by the fault plan "
           f"(grace {PREEMPT_GRACE_S:.0f} s: the full save) in "
           f"{drain_s:.3f} s from the flag to Preempted "
           f"({_io_line('save', [save])}), requeued: "
-          f"{_io_line('restore', [restore])} (persistent tier, warm page "
-          f"cache); {PREEMPT_STEP} + {TRAIN_STEPS - PREEMPT_STEP} losses "
-          f"bit-equal to phase 6's, step_{TRAIN_STEPS}'s {len(shards)} "
-          f"shard crc32s equal to phase 7's, launches "
-          f"{ {n: v for n, v in got.items() if v} } (exact); wall "
-          f"{wall_s:.1f} s [{smi}]")
+          f"{_io_line('restore', restores[:1])} (persistent tier, warm page "
+          f"cache); the requeued call's NaN at step {NAN_STEP} flagged "
+          f"(nonfinite) and rolled back to step {ROLLBACK_STEP} in "
+          f"{rollback_s:.3f} s (crc32 verify + "
+          f"{_io_line('restore', restores[1:])}); {PREEMPT_STEP} + "
+          f"{NAN_STEP - PREEMPT_STEP} + {TRAIN_STEPS - ROLLBACK_STEP} "
+          f"losses bit-equal to phase 6's around the NaN, step_"
+          f"{TRAIN_STEPS}'s {len(shards)} shard crc32s equal to phase 7's, "
+          f"launches { {n: v for n, v in got.items() if v} } (exact); step "
+          f"{PROFILE_STEP} profiled: {len(names)} kernels, flash "
+          f"{list(seen.values())}; wall {wall_s:.1f} s [{smi}]")
     shutil.rmtree(ck)
-    return dict(drain_s=drain_s, save=save, restore=restore, launches=got,
-                step_losses=losses, wall_s=wall_s)
+    shutil.rmtree(obs_dir)
+    return dict(drain_s=drain_s, save=save, restore=restores[0],
+                rollback_restore=restores[1], rollback_s=rollback_s,
+                launches=got, step_losses=losses, wall_s=wall_s,
+                profile_kernels=seen)
 
 
 class _Child:
@@ -5678,9 +5785,11 @@ def preempt_phase(torch, smi, fused: list | None = None,
     full width and depth, 2 x 8 steps of 8 x 1024, f32, full remat,
     dropout 0.1, AdamW, flash, the fused backward). (a) Drained in this
     process by the fault plan ``preempt:0@step5`` with a 30 s grace (the
-    full save, persistent tier), then requeued: the 5 + 11 losses
-    bit-equal to phase 6's (``fused``), ``step_16``'s crc32s equal to
-    phase 7's split leg's (``shards``), the flash launches exact. (b) A
+    full save, persistent tier), then requeued with a NaN before step 11,
+    which the health monitor rolls back to step 8 (``_preempt_leg_a``):
+    the losses around the NaN bit-equal to phase 6's (``fused``),
+    ``step_16``'s crc32s equal to phase 7's split leg's (``shards``), the
+    flash launches exact, step 13 profiled. (b) A
     real SIGTERM to a child process of this script once it reports step 3,
     with the local tier and no grace: exit 75 and a local-only committed
     step k (``emergency_save``); the requeued child restores step k from

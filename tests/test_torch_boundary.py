@@ -25,8 +25,8 @@ def _port_sources():
 # Every package of the port, with its count of Python modules: a module
 # dropped or left out of the scan fails the count.
 PACKAGES = {"": 2, "ckpt": 6, "data": 4, "dist": 2, "flow": 8, "flows": 6,
-            "infer": 8, "models": 9, "obs": 5, "ops": 5, "parallel": 7,
-            "testing": 2, "train": 5, "utils": 3}
+            "infer": 8, "models": 9, "obs": 6, "ops": 5, "parallel": 7,
+            "testing": 2, "train": 5, "utils": 4}
 
 
 def _imported_roots(path):
@@ -128,6 +128,8 @@ def test_package_imports_with_jax_poisoned():
         "import tpuflow_torch.obs, tpuflow_torch.obs.recorder\n"
         "import tpuflow_torch.obs.catalog, tpuflow_torch.obs.flight\n"
         "import tpuflow_torch.obs.timeline, tpuflow_torch.testing.faults\n"
+        "import tpuflow_torch.obs.health, tpuflow_torch.utils.heartbeat\n"
+        "import tpuflow_torch.train.trainer, tpuflow_torch.flow.client\n"
         "assert not any(k.split('.')[0] in ('jax', 'flax') and v is not None\n"
         "               for k, v in sys.modules.items())\n"
         "print('ok')\n"

@@ -45,6 +45,7 @@ from tpuflow_torch.models import gpt2 as tgpt2
 from tpuflow_torch.models.convert import params_from_jax
 from tpuflow_torch.models.gpt2 import GPT2, GPT2Config
 from tpuflow_torch.models.losses import cross_entropy_loss
+from tpuflow_torch.obs.health import HealthConfig, TrainingDiverged
 from tpuflow_torch.ops import flash_attention as tfa
 from tpuflow_torch.train import gpt as tgpt
 from tpuflow_torch.train.optim import make_optimizer
@@ -292,15 +293,19 @@ def test_train_gpt_runs_the_recipes(kw):
     # What still raises does so before the checkpoint directory or the
     # handle is touched. Preemption is no longer deferred: the fault
     # plan's preempt at step 1 drains there (committing step 1 when there
-    # is a checkpoint directory) and raises Preempted.
+    # is a checkpoint directory) and raises Preempted. Neither is the
+    # health monitor (on by default): a NaN step with no checkpoint to
+    # roll back to, or with rollback off, halts with TrainingDiverged.
     ({"ckpt_dir": "ck", "faults": "preempt:0@step1"}, Preempted,
      "drained checkpoint at step 1"),
-    ({"resume_checkpoint": object(), "health": True}, NotImplementedError,
-     "health"),
-    ({"health": True}, NotImplementedError, "health"),
+    ({"faults": "nan_grad:0@step1"}, TrainingDiverged,
+     "nonfinite at step 1 .*no verified checkpoint to restore"),
+    ({"health": HealthConfig(rollback=False),
+      "faults": "nan_grad:0@step2"}, TrainingDiverged,
+     r"nonfinite at step 2 .*HealthConfig\(rollback=False\)"),
     ({"faults": "preempt:0@step1"}, Preempted,
      "drained checkpoint at step 1"),
-    ({"elastic": True}, NotImplementedError, "elastic"),
+    ({"elastic": True}, NotImplementedError, "elastic.*12c-3"),
 ], ids=["kw0-preemption", "kw1-health", "kw2-health", "kw3-preemption",
         "kw4-elastic"])
 def test_train_gpt_deferred_arguments_raise(kw, exc, match, tmp_path):

@@ -176,6 +176,35 @@ class DuraChaos(FlowSpec):
         pass
 
 
+class HeartbeatStall(FlowSpec):
+    """Twin of the JAX suite's ``HB`` flow
+    (``tests/test_faults.py::test_heartbeat_stall_detected_and_killed``):
+    each member stamps its heartbeat with a step every 0.2 s; under the
+    fault plan ``heartbeat_stall:1`` member 1 hangs inside its first
+    beat, and member 0 keeps stamping, so the supervisor must name
+    member 1 (the oldest stamp)."""
+
+    device = Parameter("device", default="cpu")
+
+    @step
+    def start(self):
+        self.next(self.work, num_parallel=2)
+
+    @gpu(all_hosts_started_timeout=120, heartbeat_timeout=2)
+    @step
+    def work(self):
+        from tpuflow_torch.utils.heartbeat import beat
+
+        for i in range(150):
+            beat(i + 1)
+            time.sleep(0.2)
+        self.next(self.end)
+
+    @step
+    def end(self):
+        pass
+
+
 # ----------------------------------------------------------------- FSDP
 WORLD_TIMEOUT_S = 240
 
@@ -539,3 +568,23 @@ def preempt_train(cfg: dict, ckpt_dir: str | None, local_dir=None,
             "step": res.checkpoint.metadata["step"] if res.checkpoint
             else None,
             "epochs": [m["epoch"] for m in res.metrics_history]}
+
+
+# ---------------------------------------------------------------- health
+def health_train(cfg: dict, ckpt_dir: str | None, faults=None):
+    """``train_gpt`` on this world (dropout off) with the fault plan
+    ``faults`` and the health monitor on: every step's loss as the loop
+    read it (a NaN step's too), the result's step losses and loss
+    history, its restores' (step, tier), and the final step."""
+    from tpuflow_torch.train import gpt as tgpt
+
+    _jax_init(None, True)
+    raw = record_step_losses(tgpt)
+    res = tgpt.train_gpt(tgpt.GptTrainConfig(**cfg), ckpt_dir, device="cpu",
+                         log=lambda m: None, faults=faults)
+    io = res.checkpoint_io or {"restores": []}
+    return {"raw": raw, "step_losses": res.step_losses,
+            "loss_history": res.loss_history,
+            "restores": [(r["step"], r["tier"]) for r in io["restores"]],
+            "step": res.checkpoint.metadata["step"] if res.checkpoint
+            else None}

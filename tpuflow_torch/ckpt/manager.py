@@ -378,6 +378,16 @@ class CheckpointManager:
         self.wait_until_finished()
         return self._best_step()
 
+    def rewind_history(self, step: int) -> None:
+        """Drop the metrics-history entries newer than ``step``: a health
+        rollback (``obs/health.py``) restores ``step`` and replays the
+        discarded trajectory, whose epochs save their steps again, so the
+        embedded ``metrics_history`` would otherwise hold duplicate (and
+        diverged) entries. The disk is untouched: newer step directories
+        go with the next saves' retention."""
+        self._metrics_history = [
+            m for m in self._metrics_history if m.get("step", 0) <= step]
+
     # --------------------------------------------------------------- save
     def save(self, step: int, state, metrics: dict | None = None, *,
              data_state: dict | None = None, _upload: bool = True

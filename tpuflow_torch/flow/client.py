@@ -2,10 +2,11 @@
 
 Counterpart of ``tpuflow/flow/client.py``: how a flow reads another run's
 artifacts (``Run(pathspec).data.result``, ``Task(pathspec).data...``) and
-resolves runs within a namespace. The JAX package's telemetry views
-(``Run.telemetry/health/goodput``) wait for the port's telemetry (ROADMAP
-Queue 1 item 15); ``Run.events`` here lists the run's records in the
-store's event log.
+resolves runs within a namespace. ``Run.health()`` is the run's
+training-health view (``obs.health_summary`` of its merged telemetry);
+the JAX package's other views (``Run.telemetry/goodput``) wait for the
+rest of the port's telemetry (ROADMAP Queue 1 item 15); ``Run.events``
+here lists the run's records in the store's event log.
 """
 
 from __future__ import annotations
@@ -166,6 +167,16 @@ class Run:
         when it succeeded)."""
         return [e for e in store.read_events(self.flow)
                 if e.get("run") == self.pathspec]
+
+    def health(self) -> dict:
+        """The run's training-health view (``obs.health_summary`` of the
+        run's merged telemetry, ``<run_dir>/events.jsonl``): its anomaly,
+        rollback and profile events, the last ``health.*`` gauges, the
+        nonfinite-step and dropped-event totals."""
+        from tpuflow_torch import obs
+
+        return obs.health_summary(obs.load_run_events(
+            store.run_dir(self.flow, self.run_id)))
 
 
 class Flow:

@@ -36,6 +36,7 @@ def retry(
 def gpu(
     num_parallel: int | None = None,
     all_hosts_started_timeout: float = 300.0,
+    heartbeat_timeout: float | None = None,
 ):
     """Gang step: the body runs as ``num_parallel`` processes (or the
     ``num_parallel`` of the transition into it) forming one
@@ -44,12 +45,20 @@ def gpu(
     a card index change that: see ``flow/gang_exec.py``). Process 0 is the head and only its artifacts persist;
     a join step sees the others as inputs without artifacts. Every member
     must join within ``all_hosts_started_timeout`` seconds or the step
-    fails."""
+    fails.
+
+    ``heartbeat_timeout``: a member whose heartbeat file (stamped at every
+    fenced train step and ``TrainContext.report``,
+    ``utils/heartbeat.py``) goes silent for this many seconds is judged
+    hung, and the gang is killed at once. None means 600 s (the JAX
+    package's ``TPUFLOW_STALL_TIMEOUT_S`` default). A member that never
+    stamps is never judged."""
 
     def wrap(fn: Callable) -> Callable:
         fn.__gang__ = {
             "num_parallel": num_parallel,
             "timeout": all_hosts_started_timeout,
+            "heartbeat_timeout": heartbeat_timeout,
         }
         return fn
 

@@ -11,8 +11,10 @@ timeout, the store's root, the launch attempt and the run's robustness
 settings (the JAX package passes them in its environment): the fault
 plan, installed as the member's rank; the grace budget and the attempt,
 installed in ``utils/preempt.py``; the obs directory, where the member
-records ``events.p<rank>.<pid>.jsonl`` with its launch stamped; and the
-node-local checkpoint tier, as ``current.ckpt_local_dir``. The member sets torch's
+records ``events.p<rank>.<pid>.jsonl`` with its launch stamped; the
+node-local checkpoint tier, as ``current.ckpt_local_dir``; and the
+member's heartbeat file, ``configure``d in ``utils/heartbeat.py`` (the
+member does not stamp it itself: its train loops and reports do). The member sets torch's
 own rendezvous variables (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``MASTER_ADDR``, ``MASTER_PORT``), joins the process group
 (``dist.initialize``: NCCL on the card, one process per card; gloo on the
@@ -44,7 +46,7 @@ import sys
 
 from tpuflow_torch import obs
 from tpuflow_torch.testing import faults
-from tpuflow_torch.utils import preempt
+from tpuflow_torch.utils import heartbeat, preempt
 from tpuflow_torch.utils.preempt import (
     REQUEUE_EXIT_CODE,
     Preempted,
@@ -70,6 +72,7 @@ def main(argv: list[str]) -> None:
     preempt.configure(grace_s=state["grace_s"], attempt=state["attempt"])
     if state["obs_dir"]:
         obs.configure(state["obs_dir"], proc=rank, attempt=state["attempt"])
+    heartbeat.configure(state["heartbeat_file"].format(rank=rank))
 
     from tpuflow_torch.flow import store
 

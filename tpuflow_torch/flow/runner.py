@@ -26,7 +26,11 @@ gang member its own file there, and the run's end merges them into
 every step, as rank 0 in process and as its rank in each member;
 ``ckpt_local_dir`` (the node-local checkpoint tier) reaches the steps as
 ``current.ckpt_local_dir``. A member's grace budget after a SIGTERM is
-the supervisor's ``KILL_GRACE_S``.
+the supervisor's ``KILL_GRACE_S``. Each gang member stamps its own
+heartbeat file (``heartbeat_<i>`` in the task directory, cleared before
+every launch); the supervisor kills a gang whose member's stamp is older
+than the step's ``@gpu(heartbeat_timeout=)`` (the JAX package's
+``TPUFLOW_STALL_TIMEOUT_S``) and records ``flow.heartbeat_stall``.
 """
 
 from __future__ import annotations
@@ -58,7 +62,7 @@ from tpuflow_torch.testing import faults as faults_mod
 from tpuflow_torch.utils.preempt import REQUEUE_EXIT_CODE
 
 ROADMAP_DEPLOY = ("ROADMAP Queue 1 item 8b (the flow layer's remainder: "
-                  "flow/deploy.py, the elastic gang and heartbeats)")
+                  "flow/deploy.py and the elastic gang)")
 
 
 class StepFailed(Exception):
@@ -86,6 +90,9 @@ FORMATION_SLACK_S = 60.0
 KILL_GRACE_S = 5.0
 # Requeues a step may take before its run fails (a preemption storm).
 MAX_REQUEUES = 8
+# Seconds a member's heartbeat may stay silent when the step's @gpu names
+# no heartbeat_timeout (the JAX package's default).
+HEARTBEAT_TIMEOUT_S = 600.0
 
 
 def _backoff_delay(attempt: int, backoff_s: float,
@@ -324,6 +331,7 @@ class FlowRunner:
                         return self._exec_gang(
                             flow, step_name, run_id, task_id, num_parallel,
                             timeout=gang.get("timeout", 300.0),
+                            stall_timeout=gang.get("heartbeat_timeout"),
                             attempt=attempt + requeues)
                     self._exec_local(flow, fn, step_name, run_id, task_id,
                                      attempt + requeues)
@@ -397,15 +405,18 @@ class FlowRunner:
     # ------------------------------------------------------------ gang exec
     def _exec_gang(self, flow: FlowSpec, step_name: str, run_id,
                    task_id: int, num_parallel: int, *, timeout: float,
+                   stall_timeout: float | None = None,
                    attempt: int = 0) -> list[_GangInput]:
         """Launch ``num_parallel`` processes running the step body as one
         ``torch.distributed`` world (``flow/gang_exec.py``) and supervise
-        them (``_supervise_gang``). Each member gets the flow's artifacts,
-        the device, the formation timeout and the store's root through a
-        pickled state file, and its rank, the world size and the
-        rendezvous port through argv, and the run's fault plan, grace
-        budget (``KILL_GRACE_S``), node-local checkpoint tier and obs
-        directory through the state."""
+        them (``_supervise_gang``, judging heartbeats by
+        ``stall_timeout``, None: ``HEARTBEAT_TIMEOUT_S``). Each member
+        gets the flow's artifacts, the device, the formation timeout and
+        the store's root through a pickled state file, and its rank, the
+        world size and the rendezvous port through argv, and the run's
+        fault plan, grace budget (``KILL_GRACE_S``), node-local checkpoint
+        tier, obs directory and its heartbeat file (``heartbeat_<rank>``
+        in the task directory) through the state."""
         tdir = store.task_dir(self.flow_name, run_id, step_name, task_id)
         os.makedirs(tdir, exist_ok=True)
         for name, value in flow._artifacts.items():
@@ -420,10 +431,14 @@ class FlowRunner:
                                      if self._trigger_run else None),
                          "faults": self.faults, "grace_s": KILL_GRACE_S,
                          "ckpt_local_dir": self.ckpt_local_dir,
-                         "obs_dir": self._obs_dir}, f)
+                         "obs_dir": self._obs_dir,
+                         "heartbeat_file": os.path.join(
+                             tdir, "heartbeat_{rank}")}, f)
         for i in range(num_parallel):
-            with contextlib.suppress(FileNotFoundError):
-                os.unlink(os.path.join(tdir, f"joined_{i}"))
+            # A previous launch's stamps would read as an instant stall.
+            for name in (f"joined_{i}", f"heartbeat_{i}"):
+                with contextlib.suppress(FileNotFoundError):
+                    os.unlink(os.path.join(tdir, name))
         port = _free_port()
         pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(
             os.path.abspath(__file__))))
@@ -450,8 +465,10 @@ class FlowRunner:
             for _, log in procs:
                 log.close()
             raise
-        failure = self._supervise_gang(procs, tdir, timeout=timeout,
-                                       step_name=step_name)
+        failure = self._supervise_gang(
+            procs, tdir, timeout=timeout, step_name=step_name,
+            stall_timeout=(HEARTBEAT_TIMEOUT_S if stall_timeout is None
+                           else stall_timeout))
         if failure is not None:
             kind, member, detail = failure
             if kind == "preempt":
@@ -477,7 +494,7 @@ class FlowRunner:
         ]
 
     def _supervise_gang(self, procs: list, tdir: str, *, timeout: float,
-                        step_name: str):
+                        step_name: str, stall_timeout: float = 0.0):
         """Poll every member until all exit 0 or one fails.
 
         The first non-zero exit fails the step at once ("preempt" for the
@@ -489,7 +506,14 @@ class FlowRunner:
         within ``timeout`` + ``FORMATION_SLACK_S`` of the launch, the step
         fails ("formation"). A member stuck in its own rendezvous raises
         after ``timeout`` by itself; the deadline also catches members
-        that never reach it. Returns None or ``(kind, member, detail)``."""
+        that never reach it. Heartbeats (``stall_timeout`` > 0): of the
+        running members that have stamped ``heartbeat_<i>``, one whose
+        stamp is older than ``stall_timeout`` seconds is stalled, the one
+        with the oldest stamp the culprit (its peers went silent later,
+        waiting for it in a collective): the step fails
+        ("heartbeat_stall", recorded as ``flow.heartbeat_stall`` with its
+        age, last step and log tail). A member that never stamped is not
+        judged. Returns None or ``(kind, member, detail)``."""
         n = len(procs)
         rcs: list[int | None] = [None] * n
         failure = None
@@ -526,6 +550,11 @@ class FlowRunner:
                             f" s timeout (+{FORMATION_SLACK_S:.0f} s to "
                             "start)")
                         break
+                if stall_timeout > 0:
+                    failure = self._stalled(tdir, rcs, stall_timeout,
+                                            step_name)
+                    if failure is not None:
+                        break
                 time.sleep(_GANG_POLL_S)
         finally:
             if any(rc is None for rc in rcs):
@@ -533,6 +562,48 @@ class FlowRunner:
             for _, log in procs:
                 log.close()  # idempotent
         return failure
+
+    def _stalled(self, tdir: str, rcs: list, stall_timeout: float,
+                 step_name: str):
+        """The heartbeat verdict of one poll (see ``_supervise_gang``):
+        None, or the ``heartbeat_stall`` failure of the member with the
+        oldest stamp past ``stall_timeout``."""
+        now = time.time()
+        stalled = []
+        for i, rc in enumerate(rcs):
+            if rc is not None:
+                continue
+            try:
+                age = now - os.path.getmtime(
+                    os.path.join(tdir, f"heartbeat_{i}"))
+            except OSError:
+                continue  # never stamped: not judged
+            if age > stall_timeout:
+                stalled.append((age, i))
+        if not stalled:
+            return None
+        age, culprit = max(stalled)
+        last_step = self._heartbeat_step(tdir, culprit)
+        at = f" at step {last_step}" if last_step is not None else ""
+        obs.event("flow.heartbeat_stall", step=step_name, member=culprit,
+                  age_s=round(age, 2),
+                  last_step=last_step if last_step is not None else -1,
+                  log_tail=self._log_tail(tdir, culprit, limit=500))
+        return ("heartbeat_stall", culprit,
+                f"member {culprit} heartbeat stalled {age:.1f}s "
+                f"(> {stall_timeout:.0f}s){at}")
+
+    @staticmethod
+    def _heartbeat_step(tdir: str, member: int) -> int | None:
+        """The last step the member stamped into its heartbeat file
+        (``utils/heartbeat.py``), or None for a step-less or absent
+        stamp."""
+        try:
+            with open(os.path.join(tdir, f"heartbeat_{member}")) as f:
+                raw = f.read().strip()
+            return int(raw) if raw else None
+        except (OSError, ValueError):
+            return None
 
     def _member_failed(self, step_name: str, tdir: str, member: int,
                        rc: int) -> None:

@@ -1,8 +1,10 @@
 """tpuflow_torch.obs — dependency-free telemetry (counterpart of
 ``tpuflow/obs``, its recorder core): spans, counters, gauges, histograms
 and events recorded as structured JSONL under a run's ``obs/``
-directory, the flight recorder's ring dumped on fatal paths, and the
-per-process files merged into one run timeline.
+directory, the flight recorder's ring dumped on fatal paths, the
+per-process files merged into one run timeline, and the training-health
+layer (``obs/health.py``: the monitor, rollback targets, the profile
+window, ``health_summary``).
 
 Usage (emitters)::
 
@@ -32,11 +34,18 @@ from tpuflow_torch.obs.recorder import (
     span,
     timed_iter,
 )
-from tpuflow_torch.obs.timeline import merge_run_events, read_events
+from tpuflow_torch.obs.timeline import (
+    load_run_events,
+    merge_run_events,
+    read_events,
+)
+
+# Last: the health layer emits through the functions bound above.
+from tpuflow_torch.obs.health import health_summary  # noqa: E402
 
 __all__ = [
     "CATALOG", "Recorder", "configure", "counter", "dump_flight", "enabled",
     "event", "flight_path", "flush", "gauge", "histogram", "is_registered",
-    "kind_of", "merge_run_events", "read_events", "recorder", "span",
-    "timed_iter",
+    "health_summary", "kind_of", "load_run_events", "merge_run_events",
+    "read_events", "recorder", "span", "timed_iter",
 ]

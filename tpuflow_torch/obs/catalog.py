@@ -23,8 +23,49 @@ CATALOG: dict[str, tuple[str, str]] = {
         "a gang member exited with the requeue code after a preemption "
         "drain; the step reruns without consuming the retry budget",
     ),
+    "flow.heartbeat_stall": (
+        "event",
+        "gang supervisor: a member's heartbeat went silent past the stall "
+        "timeout (member, age_s, last_step: heartbeats stamp the current "
+        "step, so the report says where the member stalled); the gang is "
+        "killed",
+    ),
     # --------------------------------------------------------------- train
     "train.report": ("event", "one TrainContext.report: step + metrics"),
+    # -------------------------------------------------------------- health
+    "health.loss": ("gauge", "per-step train loss (fenced host copy)"),
+    "health.grad_norm": (
+        "gauge",
+        "pre-clip global gradient norm of the fenced step (spikes predict "
+        "divergence; ~0 flags dead gradients)",
+    ),
+    "health.update_norm": (
+        "gauge",
+        "global norm of the applied parameter update (post-optimizer)",
+    ),
+    "health.param_norm": (
+        "gauge",
+        "global parameter norm after the step (drift/blowup evidence)",
+    ),
+    "health.nonfinite": (
+        "counter",
+        "steps whose on-device NaN/Inf flag fired (loss or grads)",
+    ),
+    "health.anomaly": (
+        "event",
+        "HealthMonitor detection: nonfinite streak, grad explosion, or "
+        "median+MAD loss spike (detector, step, detector detail)",
+    ),
+    "health.rollback": (
+        "event",
+        "divergence auto-rollback: restored the newest crc-verified "
+        "checkpoint step (from_step -> step, lr_scale when backed off)",
+    ),
+    "health.profile": (
+        "event",
+        "windowed torch.profiler capture committed (profile=(start, "
+        "stop)): step window + trace directory",
+    ),
     # ---------------------------------------------------------------- ckpt
     "ckpt.corrupt": (
         "event",

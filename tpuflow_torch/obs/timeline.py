@@ -1,7 +1,8 @@
 """Run-level assembly of the per-process event files (the part of
 ``tpuflow/obs/timeline.py`` the flow runner needs): ``merge_run_events``
 unions every ``<run_dir>/obs/events.p*.jsonl`` into one time-ordered
-``<run_dir>/events.jsonl``."""
+``<run_dir>/events.jsonl``; ``load_run_events`` reads a run's merged
+stream."""
 
 from __future__ import annotations
 
@@ -62,3 +63,12 @@ def merge_run_events(run_dir: str, *, out_name: str = MERGED_NAME
         except OSError:
             pass
     return events
+
+
+def load_run_events(run_dir: str) -> list[dict]:
+    """The run's merged event stream: ``events.jsonl`` once the runner
+    merged it, else merged now from the per-process files."""
+    path = os.path.join(run_dir, MERGED_NAME)
+    if os.path.exists(path):
+        return read_events(path)
+    return merge_run_events(run_dir)

@@ -24,8 +24,8 @@ Grammar (one spec per entry)::
                                  before step <k> (single-shot)
     loss_spike:<rank>@step<k>    scale params x1e3 before step <k>
                                  (single-shot)
-    heartbeat_stall:<rank>       member <rank> stops its heartbeats and
-                                 hangs (parsed only)
+    heartbeat_stall:<rank>       member <rank> hangs (3600 s) inside its
+                                 first heartbeat, after the stamp
     rendezvous_delay:<seconds>[@<rank>]
                                  sleep before joining the process group
                                  (all members, or just <rank>)
@@ -47,8 +47,9 @@ Grammar (one spec per entry)::
                                  serving chaos (parsed only)
 
 Hooks: ``maybe_rendezvous_delay`` (gang exec), ``step_boundary`` (the
-train loops and ``TrainContext.report``), ``grad_poison`` (unit-tested;
-the loops apply it with the health monitor), ``ckpt_io_fault``
+train loops and ``TrainContext.report``), ``grad_poison`` (the train
+loops, before a step), ``maybe_stall_heartbeat`` (``utils/heartbeat.py``,
+after a stamp), ``ckpt_io_fault``
 (``ckpt/raw.py::retry_io``), ``corrupt_after_write`` (the raw shard
 writer), ``partial_commit`` and ``maybe_upload_stall`` (the manager's
 commit and upload). With no plan installed every hook returns at once.
@@ -258,6 +259,16 @@ def grad_poison(step: int) -> float | None:
                   file=sys.stderr)
             return mult
     return None
+
+
+def maybe_stall_heartbeat() -> None:
+    """Heartbeat hook: a matching member hangs here and never stamps
+    again, a livelocked process the supervisor must reap."""
+    for f in matching("heartbeat_stall"):
+        if f.rank == _RANK:
+            print("[faults] heartbeat_stall: hanging", file=sys.stderr)
+            sys.stderr.flush()
+            time.sleep(3600.0)
 
 
 def maybe_rendezvous_delay() -> None:

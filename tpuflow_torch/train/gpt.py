@@ -49,13 +49,29 @@ tail. The JAX package's ``TPUFLOW_FAULT``, ``TPUFLOW_PREEMPT_GRACE_S``
 and ``TPUFLOW_CKPT_LOCAL_DIR`` are the arguments ``faults``,
 ``preempt_grace_s`` and ``ckpt_local_dir``.
 
+Both loops judge every step's numerics, as the JAX legs do
+(``obs/health.py``, on by default: ``health=True``): each step's fence
+reads the loss, the grad norm and the nonfinite flag in one host copy;
+a nonfinite step (or a loss spike, or a grad explosion when configured)
+rolls the run back to the newest crc-verified checkpoint (every process
+the same one) and replays from its loader cursor, bit for bit what the
+run would have computed from there, or halts with ``TrainingDiverged``
+when rollback is off, its budget is spent or nothing verified exists.
+The fault plan's ``nan_grad`` and ``loss_spike`` poison the parameters
+before their step; ``profile=(start, stop)`` traces those steps with
+``torch.profiler``; each fence stamps the process's gang heartbeat
+(``utils/heartbeat.py``); with the obs recorder configured each step
+records the ``health.*`` gauges. The JAX package's ``TPUFLOW_HEALTH*``
+and ``TPUFLOW_PROFILE`` are the arguments ``health`` (a ``HealthConfig``
+or a bool) and ``profile``.
+
 What the JAX leg does beyond that raises ``NotImplementedError`` naming
-the ROADMAP item: the health monitor and elastic re-form. Nothing is
-silently ignored.
+the ROADMAP item: elastic re-form. Nothing is silently ignored.
 """
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import math
 import time
@@ -74,10 +90,18 @@ from tpuflow_torch.ckpt.tree import (
     checkpoint_tree,
     load_checkpoint_tree,
 )
-from tpuflow_torch import dist
+from tpuflow_torch import dist, obs
 from tpuflow_torch.data.lm import make_lm_loaders
 from tpuflow_torch.device import resolve_device
 from tpuflow_torch.models.gpt2 import GPT2, GPT2Config
+from tpuflow_torch.obs.health import (
+    HealthConfig,
+    HealthMonitor,
+    ProfileWindow,
+    TrainingDiverged,
+    _RollbackSignal,
+    handle_anomaly,
+)
 from tpuflow_torch.ops.flash_attention import BWD_MODES
 from tpuflow_torch.parallel import (
     ShardPlan,
@@ -88,7 +112,7 @@ from tpuflow_torch.parallel import (
 from tpuflow_torch.parallel.pipeline import keep_stage_blocks
 from tpuflow_torch.parallel.tensor import TensorParallel, attach
 from tpuflow_torch.testing import faults as faults_mod
-from tpuflow_torch.train.optim import make_optimizer
+from tpuflow_torch.train.optim import make_optimizer, make_schedule
 from tpuflow_torch.train.step import (
     Preempted,
     TrainState,
@@ -100,9 +124,12 @@ from tpuflow_torch.train.step import (
     run_validation,
     with_ema,
 )
+from tpuflow_torch.utils import heartbeat
 
 # The ROADMAP Queue 1 item that will lift what still raises.
-ROADMAP_ROBUST = "ROADMAP Queue 1 item 12c + 8b (robustness of training)"
+ROADMAP_ELASTIC = "ROADMAP Queue 1 item 12c-3 (elastic gangs)"
+# The step metrics a fence reads, in one host copy.
+_FENCE_KEYS = ("loss", "grad_norm", "nonfinite", "update_norm", "param_norm")
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
            "float32": torch.float32}
@@ -229,23 +256,33 @@ class GptTrainConfig:
             cfg = _apply_remat_selector(cfg, self.remat_policy)
         return cfg
 
+    def _schedule_kw(self) -> dict:
+        total = self.epochs * self.steps_per_epoch
+        return dict(warmup_steps=self.warmup_steps,
+                    decay_steps=self.decay_steps
+                    or max(total - self.warmup_steps, 1),
+                    schedule=self.lr_schedule)
+
     def optimizer(self, params, leaves=None):
         """The optimizer over ``params``; ``leaves`` groups them into the
         JAX param tree's leaves (``ckpt/tree.py::JaxLeaves``), which
         Adafactor keeps its statistics for."""
-        total = self.epochs * self.steps_per_epoch
         return make_optimizer(
             params,
             self.learning_rate,
             optimizer=self.optimizer_name,
             weight_decay=self.weight_decay,
             grad_clip_norm=self.grad_clip or None,
-            warmup_steps=self.warmup_steps,
-            decay_steps=self.decay_steps
-            or max(total - self.warmup_steps, 1),
-            schedule=self.lr_schedule,
             leaves=leaves,
+            **self._schedule_kw(),
         )
+
+    def schedule(self, lr_scale: float = 1.0):
+        """The optimizer's learning-rate schedule with its peak scaled by
+        ``lr_scale`` (the JAX leg rebuilds its optimizer at
+        ``learning_rate * lr_scale`` after a backed-off rollback)."""
+        return make_schedule(self.learning_rate * lr_scale,
+                             **self._schedule_kw())
 
     def validate(self) -> None:
         """Reject incoherent knob combinations with actionable messages."""
@@ -307,8 +344,7 @@ def mesh_axes(cfg: GptTrainConfig) -> dict[str, int]:
             "expert": cfg.expert_axis}
 
 
-def _check_supported(cfg: GptTrainConfig, ckpt_dir, health: bool,
-                     elastic: bool) -> None:
+def _check_supported(cfg: GptTrainConfig, ckpt_dir, elastic: bool) -> None:
     """Raise for every option of the JAX recipe the port does not run, and
     for a mesh the world does not fill."""
     if cfg.stage_axis > 1 and cfg.optimizer_name == "adafactor":
@@ -333,11 +369,9 @@ def _check_supported(cfg: GptTrainConfig, ckpt_dir, health: bool,
     if cfg.ckpt_dtype and ckpt_dir is None:
         raise ValueError(f"ckpt_dtype={cfg.ckpt_dtype!r} casts checkpoints, "
                          "but no ckpt_dir was given to save them in")
-    if health:
-        raise _deferred("the training-health monitor (health=True)",
-                        ROADMAP_ROBUST)
     if elastic:
-        raise _deferred("elastic mesh re-form (elastic=True)", ROADMAP_ROBUST)
+        raise _deferred("elastic mesh re-form (elastic=True)",
+                        ROADMAP_ELASTIC)
 
 
 def _init_model(model_cfg: GPT2Config, device, seed: int | None = 0) -> GPT2:
@@ -434,6 +468,109 @@ def _step_boundary(mgr, step: int, tree, data_state: dict,
     raise Preempted(f"drained checkpoint at step {step}")
 
 
+class _Health:
+    """The loops' per-step health work (the JAX legs' ``settle`` and the
+    poison and profile hooks around it): ``before`` a step, the fault
+    plan's parameter poison and the profile window's start; ``fence``
+    after it, the one host copy of the step's scalars, the run's per-step
+    record (``steps``, ``step_losses``, ``step_s``), the heartbeat, the
+    ``health.*`` gauges and the monitor, raising ``_RollbackSignal`` with
+    the verified target (or ``TrainingDiverged``) when it flags the step;
+    ``after`` the step boundary's profile stop; ``recover`` from what
+    ``fence`` raised. ``lr_scale``: the product of the rollbacks'
+    backoffs."""
+
+    def __init__(self, health: HealthConfig | bool,
+                 profile: tuple[int, int] | None, dev):
+        self.monitor = HealthMonitor.of(health)
+        self.profile = ProfileWindow.make(profile, cuda=dev.type == "cuda")
+        self.lr_scale = 1.0
+        self.steps, self.step_losses, self.step_s = [], [], []
+
+    def before(self, state: TrainState) -> None:
+        step = state.step + 1
+        poison = faults_mod.grad_poison(step)
+        if poison is not None:
+            # The JAX leg's ``p * poison`` over its params; a sharded
+            # state's are this process's shards.
+            with torch.no_grad():
+                torch._foreach_mul_(state.params, poison)
+        if self.profile is not None:
+            self.profile.maybe_start(step)
+
+    def fence(self, step: int, metrics: dict, mgr, t0: float) -> float:
+        """Wait for step ``step`` (dispatched at ``t0``, a monotonic time),
+        record and judge it; returns its loss."""
+        loss, gn, nf, un, pn = torch.stack(
+            [metrics[k].detach().float() for k in _FENCE_KEYS]).tolist()
+        self.steps.append(step)
+        self.step_losses.append(loss)
+        self.step_s.append(time.monotonic() - t0)
+        nonfinite = bool(nf)
+        heartbeat.beat(step)
+        if obs.enabled():
+            obs.gauge("health.loss", loss)
+            obs.gauge("health.grad_norm", gn)
+            obs.gauge("health.update_norm", un)
+            obs.gauge("health.param_norm", pn)
+            if nonfinite:
+                obs.counter("health.nonfinite")
+        if self.monitor is not None:
+            anomaly = self.monitor.observe(step, loss, gn,
+                                           nonfinite=nonfinite)
+            if anomaly is not None:
+                target = handle_anomaly(self.monitor, anomaly, mgr)
+                raise _RollbackSignal(target, anomaly)
+        return loss
+
+    def after(self, step: int) -> None:
+        if self.profile is not None:
+            self.profile.maybe_stop(step)
+
+    def close(self) -> None:
+        if self.profile is not None:
+            self.profile.close()
+
+    def recover(self, exc: Exception, cfg: GptTrainConfig,
+                state: TrainState, mgr, scan: bool, seed: int,
+                log) -> tuple[int, int]:
+        """Handle what ``fence`` raised. ``TrainingDiverged`` waits for the
+        in-flight saves (only committed checkpoints stay behind a halted
+        run) and goes on up. ``_RollbackSignal``: restore its target into
+        ``state`` (params, moments, step and EMA: the replay is bit for
+        bit), drop the per-step record past it (no result holds a
+        discarded step), apply the learning-rate backoff, rewind the
+        manager's history and record ``health.rollback`` (from the step
+        the run had reached). Returns the cursor (start epoch, batches to
+        skip) of the restored step for a loader of shuffle seed ``seed``;
+        the caller cuts its per-epoch records to the start epoch."""
+        if not isinstance(exc, _RollbackSignal):
+            if mgr is not None:
+                mgr.wait_until_finished()
+            raise exc
+        from_step = state.step
+        if self.monitor.cfg.lr_backoff != 1.0:
+            self.lr_scale *= self.monitor.cfg.lr_backoff
+            state.tx.schedule = cfg.schedule(self.lr_scale)
+        tmpl = checkpoint_tree(state, scan_layers=scan, abstract=True)
+        restored = mgr.restore(exc.target, abstract_state=tmpl)
+        load_checkpoint_tree(state, restored)
+        del restored
+        keep = bisect.bisect_right(self.steps, state.step)
+        del self.steps[keep:], self.step_losses[keep:], self.step_s[keep:]
+        meta = mgr.restore_metadata(state.step)
+        cursor = _resume_cursor(meta.get("data_state"), state.step,
+                                cfg.steps_per_epoch, cfg.epochs, seed)
+        mgr.rewind_history(state.step)
+        obs.event("health.rollback", step=state.step, from_step=from_step,
+                  detector=exc.anomaly.kind, lr_scale=self.lr_scale,
+                  rollbacks=self.monitor.rollbacks)
+        log(f"[gpt] health rollback: {exc.anomaly.describe()} -> restored "
+            f"verified step {state.step} (epoch {cursor[0]}, lr_scale "
+            f"{self.lr_scale:g})")
+        return cursor
+
+
 def full_model(state: TrainState):
     """The whole model of a sharded state, on process 0 (a plain ``GPT2``
     with the weights gathered over the FSDP, tensor and expert groups;
@@ -459,7 +596,8 @@ def train_gpt(
     *,
     device=None,
     flash_bwd: str = "fused",
-    health: bool = False,
+    health: HealthConfig | bool = True,
+    profile: tuple[int, int] | None = None,
     elastic: bool = False,
     comm_overlap: bool = True,
     ckpt_format: str = "raw",
@@ -487,10 +625,15 @@ def train_gpt(
     ``TorchGptTrain`` does).
     ``flash_bwd``: the flash attention backward, ``fused`` | ``split`` |
     ``blockwise`` (the JAX package's ``TPUFLOW_FLASH_BWD``; ``blockwise``,
-    the plain version, on the CPU only). ``health`` and ``elastic`` name
-    features of the JAX leg that are not ported; setting either raises.
-    ``faults``: a fault plan (``testing/faults.py``) installed for the
-    call as this process's rank (None: the process's own, if any).
+    the plain version, on the CPU only). ``health``: the training-health
+    policy (``obs/health.py``; True the JAX defaults, False no monitor,
+    the JAX package's ``TPUFLOW_HEALTH*``). ``profile``: ``(start, stop)``,
+    the optimizer steps to trace with ``torch.profiler`` into the obs
+    recorder's ``profile/`` directory (its ``TPUFLOW_PROFILE``; None: no
+    trace). ``elastic`` names the JAX leg's elastic re-form, which is not
+    ported; setting it raises. ``faults``: a fault plan
+    (``testing/faults.py``) installed for the call as this process's rank
+    (None: the process's own, if any).
     ``preempt_grace_s``: the termination grace after a SIGTERM that
     decides between the drain's emergency and full save (None: the
     process's own, ``utils/preempt.py``). ``ckpt_local_dir``: the
@@ -502,16 +645,17 @@ def train_gpt(
     package) or ``dcp`` (``torch.distributed.checkpoint``; the JAX
     package's ``TPUFLOW_CKPT_FORMAT=orbax``); a resume reads either."""
     cfg.validate()
-    _check_supported(cfg, ckpt_dir, health, elastic)
+    _check_supported(cfg, ckpt_dir, elastic)
     with faults_mod.installing(faults, rank=dist.process_index()):
         return _train_gpt(cfg, ckpt_dir, resume_checkpoint, log, device,
                           flash_bwd, comm_overlap, ckpt_format,
-                          preempt_grace_s, ckpt_local_dir)
+                          preempt_grace_s, ckpt_local_dir, health, profile)
 
 
 def _train_gpt(cfg: GptTrainConfig, ckpt_dir, resume_checkpoint, log,
                device, flash_bwd: str, comm_overlap: bool, ckpt_format: str,
-               grace_s: float | None, local_dir: str | None
+               grace_s: float | None, local_dir: str | None,
+               health: HealthConfig | bool, profile
                ) -> GptTrainResult:
     """``train_gpt``'s body, under its fault plan."""
     if flash_bwd not in BWD_MODES:
@@ -519,13 +663,28 @@ def _train_gpt(cfg: GptTrainConfig, ckpt_dir, resume_checkpoint, log,
                          f"{'|'.join(BWD_MODES)}")
     model_cfg = dataclasses.replace(cfg.model_config(), flash_bwd=flash_bwd)
     dev = resolve_device(device)
-    if cfg.stage_axis > 1:
-        if cfg.fsdp_axis > 1:
-            log("[gpt] note: fsdp_axis does not apply in pipeline mode; "
-                "params shard by layer slice over 'stage' instead")
-        return _train_pipeline(cfg, model_cfg, dev, ckpt_dir,
-                               resume_checkpoint, log, ckpt_format, grace_s,
-                               local_dir)
+    hl = _Health(health, profile, dev)
+    try:
+        if cfg.stage_axis > 1:
+            if cfg.fsdp_axis > 1:
+                log("[gpt] note: fsdp_axis does not apply in pipeline mode; "
+                    "params shard by layer slice over 'stage' instead")
+            return _train_pipeline(cfg, model_cfg, dev, ckpt_dir,
+                                   resume_checkpoint, log, ckpt_format,
+                                   grace_s, local_dir, hl)
+        return _train_fsdp(cfg, model_cfg, dev, ckpt_dir, resume_checkpoint,
+                           log, comm_overlap, ckpt_format, grace_s,
+                           local_dir, hl)
+    finally:
+        hl.close()
+
+
+def _train_fsdp(cfg: GptTrainConfig, model_cfg: GPT2Config, dev, ckpt_dir,
+                resume_checkpoint, log, comm_overlap: bool, ckpt_format: str,
+                grace_s: float | None, local_dir: str | None, hl: _Health
+                ) -> GptTrainResult:
+    """The JAX FSDP leg (``_run_fsdp_generation``) on this process's
+    device, sharded over the world's processes when it has several."""
     mesh = None
     if dist.process_count() > 1:
         mesh = dist.make_mesh(dev, mesh_axes(cfg))
@@ -540,7 +699,7 @@ def _train_gpt(cfg: GptTrainConfig, ckpt_dir, resume_checkpoint, log,
     )
     log(f"[gpt] device {dev}, preset {cfg.preset}, remat "
         f"{active_remat_policy(model_cfg)}, attn {model_cfg.attn_impl}"
-        f" (flash backward {flash_bwd})")
+        f" (flash backward {model_cfg.flash_bwd})")
     mgr = None
     resume_step = None
     if ckpt_dir is not None:
@@ -592,7 +751,7 @@ def _train_gpt(cfg: GptTrainConfig, ckpt_dir, resume_checkpoint, log,
     )
     eval_step = make_eval_step()
     rng = 1
-    history, epoch_records, step_losses, step_s = [], [], [], []
+    history, epoch_records = [], []
     start_epoch = skip = 0
     if resume_step is not None:
         # Continuous histories across the resume, as the restored step
@@ -616,59 +775,69 @@ def _train_gpt(cfg: GptTrainConfig, ckpt_dir, resume_checkpoint, log,
             f"{start_epoch}"
             + (f" (replaying from batch {skip})" if skip else ""))
     cold = True
-    for epoch in range(start_epoch, cfg.epochs):
-        loader.set_epoch(epoch)
-        cursor = skip  # the epoch's batches consumed
-        if skip:
-            loader.skip_batches(skip)
-            skip = 0
-        t_epoch = time.monotonic()
-        losses, n_tokens = [], 0
-        for batch in loader:
-            t0 = time.monotonic()
-            state, metrics = train_step(state, batch, rng)
-            loss = float(metrics["loss"])  # the step's fence
-            step_s.append(time.monotonic() - t0)
-            losses.append(loss)
-            if cold:
-                # The first step pays the kernel builds and allocator
-                # warm-up: its tokens stay out of the rate.
-                cold = False
+    while True:
+        try:
+            for epoch in range(start_epoch, cfg.epochs):
+                loader.set_epoch(epoch)
+                cursor = skip  # the epoch's batches consumed
+                if skip:
+                    loader.skip_batches(skip)
+                    skip = 0
                 t_epoch = time.monotonic()
-            else:
-                # The global batch's tokens (every process loads it).
-                n_tokens += int(batch["y"].size)
-            cursor += 1
-            _step_boundary(
-                mgr, state.step,
-                lambda: checkpoint_tree(state, scan_layers=scan),
-                loader.state_dict(cursor), grace_s)
-        step_losses += losses
-        epoch_s = time.monotonic() - t_epoch
-        tok_s = n_tokens / max(epoch_s, 1e-9) if n_tokens else None
-        epoch_loss = sum(losses) / len(losses)
-        history.append(epoch_loss)
-        val_loss = run_validation(state, val_loader, eval_step)
-        ppl = math.exp(min(val_loss, 30.0))
-        epoch_records.append({
-            "epoch": epoch,
-            "train_loss": epoch_loss,
-            "val_loss": val_loss,
-            "ppl": ppl,
-            "tokens_per_s": round(tok_s, 1) if tok_s else None,
-        })
-        rate = f" ({tok_s:.0f} tok/s)" if tok_s else ""
-        log(f"[gpt] epoch {epoch}: loss={epoch_loss:.4f} "
-            f"val_loss={val_loss:.4f} ppl={ppl:.2f}{rate}")
-        if mgr is not None:
-            mgr.save(
-                state.step, checkpoint_tree(state, scan_layers=scan),
-                metrics={"val_loss": val_loss, "train_loss": epoch_loss,
-                         "ppl": ppl},
-                # Epoch boundary: a resume starts at the next epoch's head.
-                data_state={"epoch": epoch + 1, "batch_index": 0,
-                            "seed": loader.seed},
-            )
+                losses, n_tokens = [], 0
+                for batch in loader:
+                    hl.before(state)
+                    t0 = time.monotonic()
+                    state, metrics = train_step(state, batch, rng)
+                    losses.append(hl.fence(state.step, metrics, mgr, t0))
+                    if cold:
+                        # The first step pays the kernel builds and
+                        # allocator warm-up: its tokens stay out of the
+                        # rate.
+                        cold = False
+                        t_epoch = time.monotonic()
+                    else:
+                        # The global batch's tokens (every process loads
+                        # it).
+                        n_tokens += int(batch["y"].size)
+                    cursor += 1
+                    hl.after(state.step)
+                    _step_boundary(
+                        mgr, state.step,
+                        lambda: checkpoint_tree(state, scan_layers=scan),
+                        loader.state_dict(cursor), grace_s)
+                epoch_s = time.monotonic() - t_epoch
+                tok_s = n_tokens / max(epoch_s, 1e-9) if n_tokens else None
+                epoch_loss = sum(losses) / len(losses)
+                history.append(epoch_loss)
+                val_loss = run_validation(state, val_loader, eval_step)
+                ppl = math.exp(min(val_loss, 30.0))
+                epoch_records.append({
+                    "epoch": epoch,
+                    "train_loss": epoch_loss,
+                    "val_loss": val_loss,
+                    "ppl": ppl,
+                    "tokens_per_s": round(tok_s, 1) if tok_s else None,
+                })
+                rate = f" ({tok_s:.0f} tok/s)" if tok_s else ""
+                log(f"[gpt] epoch {epoch}: loss={epoch_loss:.4f} "
+                    f"val_loss={val_loss:.4f} ppl={ppl:.2f}{rate}")
+                if mgr is not None:
+                    mgr.save(
+                        state.step, checkpoint_tree(state, scan_layers=scan),
+                        metrics={"val_loss": val_loss,
+                                 "train_loss": epoch_loss, "ppl": ppl},
+                        # Epoch boundary: a resume starts at the next
+                        # epoch's head.
+                        data_state={"epoch": epoch + 1, "batch_index": 0,
+                                    "seed": loader.seed},
+                    )
+            break
+        except (TrainingDiverged, _RollbackSignal) as exc:
+            start_epoch, skip = hl.recover(exc, cfg, state, mgr, scan,
+                                           loader.seed, log)
+            history = history[:start_epoch]
+            epoch_records = epoch_records[:start_epoch]
     checkpoint = None
     if mgr is not None:
         mgr.wait_until_finished()
@@ -676,8 +845,8 @@ def _train_gpt(cfg: GptTrainConfig, ckpt_dir, resume_checkpoint, log,
         mgr.close()
     result = GptTrainResult(
         checkpoint=checkpoint, loss_history=history,
-        metrics_history=epoch_records, step_losses=step_losses,
-        step_s=step_s,
+        metrics_history=epoch_records, step_losses=hl.step_losses,
+        step_s=hl.step_s,
         checkpoint_io=({"saves": mgr.saves, "restores": mgr.restores}
                        if mgr is not None else None),
     )
@@ -690,14 +859,15 @@ def _train_gpt(cfg: GptTrainConfig, ckpt_dir, resume_checkpoint, log,
 
 def _train_pipeline(cfg: GptTrainConfig, model_cfg: GPT2Config, dev,
                     ckpt_dir, resume_checkpoint, log, ckpt_format: str,
-                    grace_s: float | None, local_dir: str | None
-                    ) -> GptTrainResult:
+                    grace_s: float | None, local_dir: str | None,
+                    hl: _Health) -> GptTrainResult:
     """The JAX pipeline leg (``tpuflow/train/gpt.py::_train_pipeline``):
     GPipe over a ``data`` x ``stage`` mesh of processes, the scan-stacked
     blocks sharded by layer slice, per-epoch saves of the pipeline-sharded
     state whose metric is the epoch's train loss (``val_loss``), the
-    in-run resume from the newest committed step, the preemption drain at
-    every step boundary, no validation, no EMA, no sample."""
+    in-run resume from the newest committed step, the health monitor's
+    rollback and the preemption drain at every step boundary, no
+    validation, no EMA, no sample."""
     mesh = dist.make_mesh(dev, mesh_axes(cfg))
     dev = mesh.device
     if dist.process_index() != 0:
@@ -735,7 +905,7 @@ def _train_pipeline(cfg: GptTrainConfig, model_cfg: GPT2Config, dev,
         log("[gpt] pipeline-sharded state restored"
             + (" (in-run resume)" if resume_step is not None else ""))
     train_step = make_pipeline_step(cfg.microbatches)
-    history, step_losses, step_s = [], [], []
+    history = []
     start_epoch = skip = 0
     if resume_step is not None:
         # Each committed epoch's train loss was its save metric.
@@ -748,32 +918,41 @@ def _train_pipeline(cfg: GptTrainConfig, model_cfg: GPT2Config, dev,
         log(f"[gpt] pipeline in-run resume from step {state.step} → epoch "
             f"{start_epoch}"
             + (f" (replaying from batch {skip})" if skip else ""))
-    for epoch in range(start_epoch, cfg.epochs):
-        loader.set_epoch(epoch)
-        cursor = skip
-        if skip:
-            loader.skip_batches(skip)
-            skip = 0
-        losses = []
-        for batch in loader:
-            t0 = time.monotonic()
-            state, metrics = train_step(state, batch)
-            losses.append(float(metrics["loss"]))  # the step's fence
-            step_s.append(time.monotonic() - t0)
-            cursor += 1
-            _step_boundary(
-                mgr, state.step,
-                lambda: checkpoint_tree(state, scan_layers=True),
-                loader.state_dict(cursor), grace_s)
-        step_losses += losses
-        epoch_loss = sum(losses) / len(losses)
-        history.append(epoch_loss)
-        log(f"[gpt] pipeline epoch {epoch}: loss={epoch_loss:.4f}")
-        if mgr is not None:
-            mgr.save(state.step, checkpoint_tree(state, scan_layers=True),
-                     metrics={"val_loss": epoch_loss},
-                     data_state={"epoch": epoch + 1, "batch_index": 0,
-                                 "seed": loader.seed})
+    while True:
+        try:
+            for epoch in range(start_epoch, cfg.epochs):
+                loader.set_epoch(epoch)
+                cursor = skip
+                if skip:
+                    loader.skip_batches(skip)
+                    skip = 0
+                losses = []
+                for batch in loader:
+                    hl.before(state)
+                    t0 = time.monotonic()
+                    state, metrics = train_step(state, batch)
+                    losses.append(hl.fence(state.step, metrics, mgr, t0))
+                    cursor += 1
+                    hl.after(state.step)
+                    _step_boundary(
+                        mgr, state.step,
+                        lambda: checkpoint_tree(state, scan_layers=True),
+                        loader.state_dict(cursor), grace_s)
+                epoch_loss = sum(losses) / len(losses)
+                history.append(epoch_loss)
+                log(f"[gpt] pipeline epoch {epoch}: loss={epoch_loss:.4f}")
+                if mgr is not None:
+                    mgr.save(state.step,
+                             checkpoint_tree(state, scan_layers=True),
+                             metrics={"val_loss": epoch_loss},
+                             data_state={"epoch": epoch + 1,
+                                         "batch_index": 0,
+                                         "seed": loader.seed})
+            break
+        except (TrainingDiverged, _RollbackSignal) as exc:
+            start_epoch, skip = hl.recover(exc, cfg, state, mgr, True,
+                                           loader.seed, log)
+            history = history[:start_epoch]
     checkpoint = None
     if mgr is not None:
         mgr.wait_until_finished()
@@ -783,7 +962,7 @@ def _train_pipeline(cfg: GptTrainConfig, model_cfg: GPT2Config, dev,
         checkpoint=checkpoint, loss_history=history,
         metrics_history=[{"epoch": i, "train_loss": v}
                          for i, v in enumerate(history)],
-        step_losses=step_losses, step_s=step_s,
+        step_losses=hl.step_losses, step_s=hl.step_s,
         checkpoint_io=({"saves": mgr.saves, "restores": mgr.restores}
                        if mgr is not None else None),
     )

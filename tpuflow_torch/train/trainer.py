@@ -10,17 +10,23 @@ carries the metrics, their history and checkpoint handles (paths and
 metadata, never tensors).
 
 ``report`` is the loop's step boundary, as in the JAX package: it
-records a ``train.report`` event, runs the fault plan's
-``step_boundary`` hook, and with the preemption flag up waits for the
-save it just made (the drain checkpoint) and raises ``Preempted``. A
-requeued attempt resumes from ``latest_step()`` (``restore_latest``).
-``RunConfig(ckpt_local_dir=, faults=)`` take the
-node-local checkpoint tier and the fault plan (the JAX package's
-``TPUFLOW_CKPT_LOCAL_DIR`` and ``TPUFLOW_FAULT``).
+records a ``train.report`` event; the ``HealthMonitor`` judges the
+reported loss (``loss``, ``train_loss`` or ``val_loss``, with
+``grad_norm`` when reported), and a diverged report skips its save,
+waits for the manager and raises ``TrainingDiverged`` (a custom loop
+owns its state, so the rollback is the gang retry's, from the clean
+newest committed step); after the save the member's gang heartbeat is
+stamped with the step, the fault plan's ``step_boundary`` hook runs, and
+with the preemption flag up it waits for the save it just made (the
+drain checkpoint) and raises ``Preempted``. A requeued attempt resumes
+from ``latest_step()`` (``restore_latest``).
+``RunConfig(ckpt_local_dir=, faults=, health=)`` take the node-local
+checkpoint tier, the fault plan and the health policy (the JAX
+package's ``TPUFLOW_CKPT_LOCAL_DIR``, ``TPUFLOW_FAULT`` and
+``TPUFLOW_HEALTH*``).
 
 Left out, each with its ROADMAP Queue 1 item: the elastic mesh re-form
-(``membership``), the ``HealthMonitor``, goodput and heartbeats (items
-12c-2, 12c-3 and 15).
+(``membership``, item 12c-3) and goodput (item 15).
 """
 
 from __future__ import annotations
@@ -37,7 +43,13 @@ import torch
 from tpuflow_torch import dist, obs
 from tpuflow_torch.ckpt import Checkpoint, CheckpointManager
 from tpuflow_torch.device import resolve_device
+from tpuflow_torch.obs.health import (
+    HealthConfig,
+    HealthMonitor,
+    TrainingDiverged,
+)
 from tpuflow_torch.testing import faults as faults_mod
+from tpuflow_torch.utils import heartbeat
 from tpuflow_torch.utils.preempt import (
     Preempted,
     launch_attempt,
@@ -75,7 +87,9 @@ class RunConfig:
     ``checkpoints/``, ``metrics.jsonl``); None saves nothing.
     ``ckpt_local_dir``: the checkpoints' node-local tier (None: none).
     ``faults``: a fault plan (``testing/faults.py``) installed for the
-    run as this process's rank (None: the process's own, if any)."""
+    run as this process's rank (None: the process's own, if any).
+    ``health``: the policy ``report`` judges the metrics by
+    (``obs/health.py``; True the defaults, False no monitor)."""
 
     storage_path: str | None = None
     checkpoint_config: CheckpointConfig = dataclasses.field(
@@ -83,6 +97,7 @@ class RunConfig:
     )
     ckpt_local_dir: str | None = None
     faults: str | None = None
+    health: HealthConfig | bool = True
 
 
 @dataclasses.dataclass
@@ -136,6 +151,7 @@ class TrainContext:
         self.run_config = run_config
         self._reported: list[dict[str, Any]] = []
         self._manager: CheckpointManager | None = None
+        self._health = HealthMonitor.of(run_config.health)
         if run_config.storage_path:
             cc = run_config.checkpoint_config
             self._manager = CheckpointManager(
@@ -172,14 +188,15 @@ class TrainContext:
                step: int | None = None,
                data_state: dict[str, Any] | None = None) -> None:
         """Record one epoch's metrics (cast to floats; a ``train.report``
-        event); with ``state``, save it as step ``step``'s checkpoint
-        (asynchronous on one process; committed before the barrier on
-        several, so every rank sees it, and on a retried or requeued
-        attempt), with the loader cursor ``data_state``; append
-        ``metrics.jsonl`` on rank 0; end at a barrier. Then the step
-        boundary: the fault plan's hook, and with the preemption flag up
-        the save just made is the drain checkpoint: wait for it and raise
-        ``Preempted``."""
+        event); a diverged report (the health monitor's verdict) saves
+        nothing and raises ``TrainingDiverged``; with ``state``, save it
+        as step ``step``'s checkpoint (asynchronous on one process;
+        committed before the barrier on several, so every rank sees it,
+        and on a retried or requeued attempt), with the loader cursor
+        ``data_state``; append ``metrics.jsonl`` on rank 0; end at a
+        barrier. Then the step boundary: the heartbeat, the fault plan's
+        hook, and with the preemption flag up the save just made is the
+        drain checkpoint: wait for it and raise ``Preempted``."""
         metrics = {k: (float(v) if hasattr(v, "__float__") else v)
                    for k, v in metrics.items()}
         self._reported.append(metrics)
@@ -187,6 +204,22 @@ class TrainContext:
         obs.event("train.report", step=save_step,
                   **{k: v for k, v in metrics.items()
                      if isinstance(v, (int, float))})
+        if self._health is not None:
+            loss = next((metrics[k] for k in ("loss", "train_loss",
+                                              "val_loss")
+                         if isinstance(metrics.get(k), float)), None)
+            if loss is not None:
+                gn = metrics.get("grad_norm")
+                anomaly = self._health.observe(
+                    save_step, loss, gn if isinstance(gn, float) else None)
+                if anomaly is not None:
+                    if self._manager is not None:
+                        self._manager.wait_until_finished()
+                    raise TrainingDiverged(
+                        anomaly,
+                        hint="report skipped the checkpoint save; the "
+                        "newest committed step is clean — a gang retry "
+                        "resumes from it")
         rank0 = dist.process_index() == 0
         if state is not None and self._manager is not None and rank0:
             self._manager.save(save_step, state, metrics=metrics,
@@ -203,6 +236,7 @@ class TrainContext:
                                     **metrics}) + "\n")
         logger.info("report[%d]: %s", len(self._reported), metrics)
         dist.barrier(self.mesh)
+        heartbeat.beat(save_step)
         faults_mod.step_boundary(save_step)
         if preemption_requested():
             if self._manager is not None:
