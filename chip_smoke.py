@@ -131,8 +131,9 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    resumed in-run from its first epoch's checkpoint bit for bit (losses
    and shard crc32s), (b) with the optimizer state's bytes against
    AdamW's; (c) Switch MoE (8 experts, capacity 1.25, aux weight 1e-2,
-   AdamW) the same, the summed load-balance loss finite and above 0, its
-   checkpoint's size and rates; (d) ``lm_text`` on this checkout's
+   AdamW; at 6 of the 12 layers, ``MOE_LAYERS``) the same, the summed
+   load-balance loss finite and above 0, its checkpoint's size and
+   rates; (d) ``lm_text`` on this checkout's
    README.md: learning, the ``text_source`` sha256, a greedy byte-level
    sample from "The "; (e) ``TorchGptTrain --optimizer adafactor
    --experts 8 --dataset lm_text`` (2 x 2 steps) and the triggered
@@ -144,7 +145,7 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    (medians of interleaved runs), the crossovers written to a tuning file that
    ``resolve_attention_impl`` must read back exactly. Each leg's step
    ms, tokens/s and wall beside the card's name and power limit.
-12. GPT-2-medium FSDP (``fsdp_phase``): 1024 wide, 16 heads, at 6 of
+12. GPT-2-medium FSDP (``fsdp_phase``): 1024 wide, 16 heads, at 3 of
    its 24 layers (a depth cut for the time limit, ``FSDP_LAYERS``),
    trained by two ranks, each a process of its own, sharing
    the one card over gloo (the mode the probe fixed, ``--gloo-probe``:
@@ -188,7 +189,8 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    ranks. Step ms, tokens/s, peak memory, save and restore GB/s a rank,
    the all-reduces of a step timed alone.
 14. Sequence and pipeline parallelism (``seq_pipeline_phase``) on GPT-2
-   124M at full width and depth, 8 x 1024 tokens a step, f32, two ranks
+   124M at full width and 6 of its 12 layers (``SP_LAYERS``, a depth cut
+   for the time limit), 8 x 1024 tokens a step, f32, two ranks
    sharing the card over gloo in each leg (their point-to-point shifts
    staged through pinned host buffers, the mode ``--p2p-probe`` fixed):
    the flash kernels at the phase's other rank shapes (a rank's 6 heads
@@ -234,7 +236,24 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    ``Preempted``), the rollback's time (anomaly to rollback: the crc32
    verify and the restore), the saves' and restores' seconds and GB/s,
    the phase's wall.
-16. One JSON line with every kernel's numbers (the int8 matmul both as one
+16. The elastic gang (``elastic_phase``): (a) the flash kernels at one
+   rank's attention shape in each world the phase forms, (4, 1024, 12,
+   64) at 3 members and (6, 1024, 12, 64) at 2, f32, against their plain
+   versions (measured with the other kernel phases); (b)
+   ``TorchGptTrain`` at GPT-2 124M
+   width cut to 3 of its 12 layers, a gang of 3 members sharing the card
+   over gloo under ``FlowRunner(elastic=True)`` (floor 2), 4 epochs of 10
+   steps of 12 x 1024, f32, flash, AdamW, dropout 0, a checkpoint each
+   epoch. Member 1 exits after step 12; the survivors shrink to 2,
+   restore epoch 0's checkpoint (written by 3, read by 2) and replay two
+   steps; the member is relaunched and the gang grows back to 3. One
+   launch, one ``flow.member_lost``, resizes shrink 3 -> 2 then grow 2 ->
+   3, no failure or stall event, every step once in the head's result,
+   every restored region bit-equal to the committed step, the ranks'
+   losses bit-equal in each generation, the replayed steps within 1e-4
+   relative of their first run, exact flash launches per member and
+   generation, learning. The re-form's seconds, step ms by generation.
+17. One JSON line with every kernel's numbers (the int8 matmul both as one
    decode step at M = 8 and as the same 49 products at M = 512; the
    training kernels in f32 and bf16, their launches from the f32 legs and
    the bf16 leg, which runs the fused pair, so the bf16 split variants'
@@ -247,7 +266,10 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    ``seq_launches``: those of phase 14's legs (a) and (b), every rank's;
    ``pipeline_launches``: those of its leg (c), every rank's;
    ``preempt_launches``: those of phase 15's legs, both calls of each
-   (leg (a)'s three rolled-back steps included);
+   (leg (a)'s three rolled-back steps included); ``elastic_launches``:
+   those of phase 16, every member's in every generation; the
+   ``_elastic_w3``/``_elastic_w2`` entries at phase 16's attention shape
+   a rank in each world, f32, their launches the members' at that world;
    the ``_vit`` entries at the
    ViT shape, f32, their launches the ViT leg's), the ``nvidia-smi`` line,
    and as the last line
@@ -272,8 +294,10 @@ only phase 14, into ``chiprun_out/sp.json`` (its ranks are ``--sp-rank``
 processes); ``--preempt`` only phase 15, after an uninterrupted run of
 phase 6's call that stands for phases 6 and 7, into
 ``chiprun_out/preempt.json`` (its children are ``--preempt-child``
-processes). ``python3 chip_smoke.py --gloo-probe`` runs only the probe
-that fixed phases 12 and 13's mode (``gloo_probe_rank``);
+processes); ``--elastic`` only phase 16, into
+``chiprun_out/elastic.json`` (its gang members load this file as their
+flow's module). ``python3 chip_smoke.py --gloo-probe`` runs only the
+probe that fixed phases 12 and 13's mode (``gloo_probe_rank``);
 ``--p2p-probe`` the probe that fixed phase 14's (``p2p_probe_rank``:
 gloo's ``send``/``recv`` of CUDA tensors, its ``all_to_all_single`` on
 them, the port's staged shift and all-to-all).
@@ -363,9 +387,10 @@ LAUNCH_COUNTERS = (
     "flash_bwd_dkv_split", "flash_fwd", "int8_matmul", "flash_fwd_lse_bf16",
     "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16",
     *(f"{k}{dt}_wide" for k in WIDE_KERNELS for dt in ("", "_bf16")))
-# Rounds of each part of the checkpoint IO phase, the widths its disk
-# ceiling writes at and the threads it reads and checksums with.
-CKPT_IO_REPS = 2
+# Rounds of each part of the checkpoint IO phase (1 since phase 16 came,
+# 2 before: the time limit), the widths its disk ceiling writes at and
+# the threads it reads and checksums with.
+CKPT_IO_REPS = 1
 CKPT_WRITE_WIDTHS = (1, 4, 8)
 CKPT_READ_THREADS = (1, 8)
 # torch.profiler traces taken before one that lacks the measured
@@ -460,6 +485,9 @@ VIT_SHAPE = (64, 197, 6, 64)
 RECIPE_EPOCHS, RECIPE_STEPS, RECIPE_SEQ = 2, 4, 1024
 LION_LR, ADAFACTOR_LR = 3e-4, 1e-2
 MOE_EXPERTS = 8
+# The MoE leg at 6 of 124M's 12 layers (cut for the time limit when phase
+# 16 came; the width and the 8 experts unchanged).
+MOE_LAYERS = 6
 RECIPE_SAMPLE = 32
 # The flash crossovers: (B, H, D), the sequence lengths and the
 # interleaved runs whose median each time is (single calls of ~0.2-2 ms
@@ -480,9 +508,9 @@ CROSSOVER_REPS = 11
 # where there are two cards.
 FSDP_WORLD, FSDP_BACKEND, FSDP_CARD = 2, "gloo", 0
 FSDP_EPOCHS, FSDP_STEPS_PER_EPOCH = 2, 2
-# Depth cut for the time limit when phase 14 came: 6 of medium's 24
-# layers (the width, 1024 and 16 heads, unchanged).
-FSDP_LAYERS = 6
+# Depth cut for the time limit: 6 of medium's 24 layers when phase 14
+# came, 3 when phase 16 came (the width, 1024 and 16 heads, unchanged).
+FSDP_LAYERS = 3
 FSDP_STEPS = FSDP_EPOCHS * FSDP_STEPS_PER_EPOCH
 # One rank's attention: 8 / 2 rows of medium's 16 heads of 64 at 1024.
 FSDP_SHAPE = (4, 1024, 16, 64)
@@ -524,14 +552,16 @@ TP_SHAPES = {"a": (4, 1024, 6, 64), "b": (4, 1024, 12, 64)}
 # gradient, (4, 1024, 8, 160), adds 1.67 of these a block).
 TP_ALL_REDUCES = {"a": 6 * TP_LAYERS, "b": 3 * TP_LAYERS}
 TP_COLLECTIVE_REPS = 2
-# Phase 14: sequence and pipeline parallelism on GPT-2 124M at full width
-# and depth, SP_WORLD ranks sharing card SP_CARD over gloo (the probe's
+# Phase 14: sequence and pipeline parallelism on GPT-2 124M at full width,
+# SP_LAYERS of its 12 layers (cut for the time limit when phase 16 came),
+# SP_WORLD ranks sharing card SP_CARD over gloo (the probe's
 # mode; ``--p2p-probe`` holds the shift and the all-to-all), each a
 # process of its own, 2 epochs of 2 steps at 8 x 1024, f32, a checkpoint
 # each epoch: (a) data 1 x seq 2 with ring attention, (b) the gathered
 # flash path on the same mesh (one step), (c) data 1 x stage 2 with 4
 # microbatches on the flash kernels.
 SP_WORLD, SP_CARD = 2, 0
+SP_LAYERS = 6
 SP_EPOCHS, SP_STEPS_PER_EPOCH = 2, 2
 SP_STEPS = SP_EPOCHS * SP_STEPS_PER_EPOCH
 SP_LEGS = {
@@ -3595,11 +3625,11 @@ def recipes_phase(torch, smi) -> dict:
     width (``_recipe_cfg``), each leg's flash launches exact:
 
     (a) Lion, (b) Adafactor, (c) Switch MoE (8 experts, capacity 1.25,
-        aux weight 1e-2, AdamW): learning, and an in-run resume from the
-        first epoch's checkpoint bit-equal to the second epoch; (b) also
-        the optimizer state's bytes against AdamW's, (c) the summed aux
-        finite and above 0, the checkpoint's size and its save and
-        restore rates;
+        aux weight 1e-2, AdamW; MOE_LAYERS of the 12 layers): learning,
+        and an in-run resume from the first epoch's checkpoint bit-equal
+        to the second epoch; (b) also the optimizer state's bytes against
+        AdamW's, (c) the summed aux finite and above 0, the checkpoint's
+        size and its save and restore rates;
     (d) ``lm_text`` on this checkout's README.md: learning, the recorded
         ``text_source`` hash, a greedy byte-level sample from "The ";
     (e) ``TorchGptTrain --optimizer adafactor --experts 8 --dataset
@@ -3651,7 +3681,7 @@ def recipes_phase(torch, smi) -> dict:
         real = step_mod.sum_sown_losses
         step_mod.sum_sown_losses = lambda v: seen.append(real(v)) or seen[-1]
         try:
-            cfg = _recipe_cfg(experts=MOE_EXPERTS)
+            cfg = _depth_cut(_recipe_cfg(experts=MOE_EXPERTS), MOE_LAYERS)
             res, out["moe"] = _recipe_leg(torch, "moe", cfg, smi, root)
         finally:
             step_mod.sum_sown_losses = real
@@ -3716,8 +3746,9 @@ def recipes_phase(torch, smi) -> dict:
             raise AssertionError(f"TorchGptTrain recorded "
                                  f"{run.data.model_config}, "
                                  f"{run.data.text_source}")
-        n_val = want["flash_fwd"] // (2 * mc.n_layer)
-        ewant = _launches(flash_fwd=mc.n_layer * (n_val + 3))
+        L = fcfg.model_config().n_layer  # the flow's model, full depth
+        n_val = want["flash_fwd"] // (2 * L)
+        ewant = _launches(flash_fwd=L * (n_val + 3))
         _zero_counters(fa, im)
         t0 = time.monotonic()
         ev = Run(gpt_eval_flow.main(["run", "--triggered", "--attn-impl",
@@ -4864,14 +4895,14 @@ def _tp_leg(torch, smi, leg: str, cfg, work: str) -> dict:
 # --------------------------------------------------------------- phase 14
 def _sp_cfg(leg: str, **kw):
     """Phase 14's ``train_gpt`` call of leg ``leg``: GPT-2 124M at full
-    depth and width, 8 x 1024 tokens a step, f32, SP_EPOCHS epochs of
-    SP_STEPS_PER_EPOCH steps, on the leg's mesh."""
+    width, SP_LAYERS of its layers, 8 x 1024 tokens a step, f32,
+    SP_EPOCHS epochs of SP_STEPS_PER_EPOCH steps, on the leg's mesh."""
     from tpuflow_torch.train.gpt import GptTrainConfig
 
-    return GptTrainConfig(**{
+    return _depth_cut(GptTrainConfig(**{
         "preset": "gpt2", "seq_len": 1024, "batch_size": 8,
         "epochs": SP_EPOCHS, "steps_per_epoch": SP_STEPS_PER_EPOCH,
-        **SP_LEGS[leg], **kw})
+        **SP_LEGS[leg], **kw}), SP_LAYERS)
 
 
 def _sp_init(torch, rank: int, port: int) -> str:
@@ -5915,6 +5946,415 @@ def p2p_probe() -> int:
     return 0 if all(not any(v) for k, v in rcs.items()
                     if k != "direct") else 1
 
+# Phase 16: the elastic gang. ``TorchGptTrain`` at GPT-2 124M width (768
+# wide, 12 heads of 64, vocab 50257) cut to ELASTIC_LAYERS of its 12
+# layers (phase 13's depth cut, for the time limit), a gang of
+# ELASTIC_WORLD members sharing card ELASTIC_CARD over gloo, data axis 3,
+# the global batch ELASTIC_BATCH x 1024 (divides by 3 and by 2), f32,
+# flash, the fused backward, AdamW, dropout 0, a checkpoint each epoch.
+# Member 1 dies after step ELASTIC_FAULT_STEP (the second of epoch 1), the
+# survivors shrink to 2, resume from epoch 0's checkpoint and replay two
+# steps; the supervisor
+# relaunches it (after a 1 s rejoin delay) and the gang grows back to 3.
+ELASTIC_WORLD, ELASTIC_CARD, ELASTIC_LAYERS = 3, 0, 3
+ELASTIC_BATCH = 12
+ELASTIC_EPOCHS, ELASTIC_STEPS_PER_EPOCH = 4, 10
+ELASTIC_FAULT_STEP = ELASTIC_STEPS_PER_EPOCH + 2
+ELASTIC_REPLAY_RTOL = 1e-4  # world 2 against world 3: reduction orders
+# One rank's attention shape in each world the phase forms: the global
+# batch over ELASTIC_WORLD members, and over the survivors of one loss.
+ELASTIC_SHAPES = tuple((ELASTIC_BATCH // w, 1024, 12, 64)
+                       for w in (ELASTIC_WORLD, ELASTIC_WORLD - 1))
+
+
+def elastic_kernel_rows(torch, timer) -> dict:
+    """Phase 16's flash kernels at one rank's attention shape in each of
+    its worlds (ELASTIC_SHAPES), f32 (the phase's dtype), against their
+    plain versions, with their times."""
+    return dict(kernels_fwd=flash_phase(torch, timer, ELASTIC_SHAPES,
+                                        dtypes=("float32",)),
+                kernels_bwd=flash_bwd_phase(torch, timer, ELASTIC_SHAPES,
+                                            dtypes=("float32",)))
+
+
+def _elastic_args(layers: int = ELASTIC_LAYERS, device: str | None = None,
+                  **kw) -> dict:
+    """The elastic flow's parameters: ``TorchGptTrain``'s defaults, the
+    phase's config, ``kw`` over them."""
+    flow = _elastic_flow()
+    args = {a: p.default for a, p in flow.parameters().items()}
+    args.update(preset="gpt2", seq_len=1024, batch_size=ELASTIC_BATCH,
+                epochs=ELASTIC_EPOCHS, steps_per_epoch=ELASTIC_STEPS_PER_EPOCH,
+                attn_impl="flash", data_axis=ELASTIC_WORLD, fsdp_axis=1,
+                device=device or f"cuda:{ELASTIC_CARD}", dist_backend="gloo",
+                layers=layers)
+    args.update(kw)
+    return args
+
+
+def _elastic_member(flow) -> None:
+    """Instrument this gang member's ``train_gpt`` (the elastic flow's
+    step body, before ``TorchGptTrain.train``): the model cut to
+    ``flow.layers`` blocks (0: the preset's) with dropout off; the
+    member's record (``tpuflow_torch/testing/elastic_record.py``: its
+    steps, validations, restores with every region's crc32s, re-forms
+    and result) in ``elastic.p<member>.jsonl`` in the step's storage,
+    each line with the launch counters so far; and with ``flow.go``, a
+    wait for that file once the training step is made (each generation
+    of the call, the first one's setup done ahead of the phase)."""
+    from tpuflow_torch.dist import membership
+    from tpuflow_torch.flow import current
+    from tpuflow_torch.ops import flash_attention as fa
+    from tpuflow_torch.ops import int8_matmul as im
+    from tpuflow_torch.testing.elastic_record import record_elastic
+    from tpuflow_torch.train import gpt as gpt_mod
+
+    layers = int(flow.layers)
+    real_cfg = gpt_mod.GptTrainConfig.model_config
+    gpt_mod.GptTrainConfig.model_config = lambda self: dataclasses.replace(
+        real_cfg(self), dropout=0.0, **({"n_layer": layers} if layers else {}))
+    record_elastic(
+        os.path.join(current.tpu_storage_path,
+                     f"elastic.p{membership.member_id()}.jsonl"),
+        os.path.join(current.tpu_storage_path, "checkpoints"),
+        extra=lambda: {"c": _counters(fa, im)})
+    if flow.go:
+        real_make = gpt_mod.make_train_step
+
+        def make(*a, **kw):
+            step = real_make(*a, **kw)
+            _await_go(flow.go)
+            return step
+
+        gpt_mod.make_train_step = make
+
+
+_ELASTIC_FLOW = []
+
+
+def _elastic_flow():
+    """The elastic phase's flow: ``TorchGptTrain`` as an elastic gang
+    (floor 2, no retries) whose members run ``_elastic_member`` first.
+    Defined on first use (this script imports the port only after its
+    CUDA check); a gang member, which loads this file by path, reaches it
+    through the module's ``__getattr__``."""
+    if not _ELASTIC_FLOW:
+        from tpuflow_torch.flow import Parameter, gpu, retry, step
+        from tpuflow_torch.flows.gpt_flow import TorchGptTrain
+
+        class ElasticGptTrain(TorchGptTrain):
+            layers = Parameter("layers", default=0,
+                               help="cut the model to this many blocks "
+                               "(0: the preset's)")
+            go = Parameter("go", default="",
+                           help="a file to wait for before the first "
+                           "step, the world formed and the state built")
+
+            @retry(times=0)
+            @gpu(all_hosts_started_timeout=300, min_members=2)
+            @step
+            def train(self):
+                _elastic_member(self)
+                TorchGptTrain.train(self)
+
+        ElasticGptTrain.__module__ = __name__
+        _ELASTIC_FLOW.append(ElasticGptTrain)
+    return _ELASTIC_FLOW[0]
+
+
+def __getattr__(name):
+    if name == "ElasticGptTrain":
+        return _elastic_flow()
+    raise AttributeError(name)
+
+
+def _elastic_lines(storage: str) -> dict:
+    out = {}
+    for m in range(ELASTIC_WORLD):
+        with open(os.path.join(storage, f"elastic.p{m}.jsonl")) as fh:
+            out[m] = [json.loads(x) for x in fh]
+    return out
+
+
+def _elastic_checks(lines: dict, want_of, epochs: int, spe: int) -> dict:
+    """Phase 16's per-member checks (see ``elastic_phase``); returns the
+    launches per member and generation and the replayed steps."""
+    gens: dict = {}
+    for m, recs in lines.items():
+        for r in recs:
+            gens.setdefault((m, r["gen"]), []).append(r)
+    launches, by_world, prev = {}, {}, {}
+    for (m, g) in sorted(gens):
+        recs = gens[(m, g)]
+        # A process's counters start at its start line (a relaunched
+        # member's too), else where its previous generation ended.
+        c0 = recs[0]["c"] if "start" in recs[0] else prev.get(m)
+        if c0 is None:
+            raise AssertionError(f"member {m}: no start line")
+        got = {k: recs[-1]["c"][k] - c0[k] for k in c0}
+        prev[m] = recs[-1]["c"]
+        steps = sum("loss" in r for r in recs)
+        vals = sum("validation" in r for r in recs)
+        want = want_of(steps, vals)
+        if got != want:
+            raise AssertionError(f"member {m} generation {g}: launched "
+                                 f"{got}, want {want} ({steps} steps, "
+                                 f"{vals} validations)")
+        launches[f"{m}/{g}"] = {k: v for k, v in got.items() if v}
+        at = by_world.setdefault(str(recs[-1]["world"]), {})
+        for k, v in got.items():
+            at[k] = at.get(k, 0) + v
+    # The ranks' losses bit-equal within each generation.
+    by_gen: dict = {}
+    for (m, g), recs in gens.items():
+        by_gen.setdefault(g, {})[m] = [(r["step"], r["loss"]) for r in recs
+                                       if "loss" in r]
+    for g, members in by_gen.items():
+        ref = next(iter(members.values()))
+        for m, got in members.items():
+            n = min(len(got), len(ref))  # a member dies mid-generation
+            if got[:n] != ref[:n]:
+                raise AssertionError(f"generation {g}: member {m}'s losses "
+                                     f"{got} differ from {ref}")
+    # Every restore across a world change bit-equal to the committed step.
+    regions = 0
+    for m, recs in lines.items():
+        for r in recs:
+            for p, start, shape, got, committed in r.get("regions", ()):
+                if got != committed:
+                    raise AssertionError(
+                        f"member {m} restored {p} at {start} {shape} with "
+                        f"crc32 {got}, the committed step holds {committed}")
+                regions += 1
+    # The steps the shrunk gang replays against their first run at 3.
+    first = dict(by_gen[0][0])
+    replay = [(s, loss, first[s]) for s, loss in by_gen[1][0] if s in first]
+    if not replay:
+        raise AssertionError("the shrunk gang replayed no step")
+    worst = max(abs(a - b) / abs(b) for _, a, b in replay)
+    if worst > ELASTIC_REPLAY_RTOL:
+        raise AssertionError(f"replayed steps {replay}: {worst:.2e} relative"
+                             f" > {ELASTIC_REPLAY_RTOL}")
+    # The head's result: every optimizer step once, every epoch once.
+    (res,) = [r for r in lines[0] if "result_steps" in r]
+    if (res["result_steps"], res["epochs"]) != (epochs * spe,
+                                                list(range(epochs))):
+        raise AssertionError(f"the head's result: {res}")
+    return dict(launches=launches, launches_by_world=by_world,
+                replay=replay, replay_rel=worst, regions=regions)
+
+
+def _median(xs):
+    return float(np.median(xs)) if xs else None
+
+
+def _elastic_start() -> tuple:
+    """Phase 16's work directory and its ``--elastic-child`` process,
+    started: it launches the gang, whose members form generation 0 and
+    build their state, then wait for the go before their first step."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_elastic_",
+                            dir=os.path.join(REPO, "build"))
+    return work, _ahead(subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--elastic-child", work]))
+
+
+def elastic_child(torch, work: str) -> int:
+    """``--elastic-child``: phase 16 with the gang waiting for
+    ``<work>/go``, its record into ``<work>/elastic.json``."""
+    out = elastic_phase(torch, _smi_line(),
+                        _elastic_args(go=os.path.join(work, "go")),
+                        work=work)
+    with open(os.path.join(work, "elastic.json"), "w") as fh:
+        json.dump(out, fh, default=float)
+    return 0
+
+
+def elastic_run(torch, smi, started: tuple) -> dict:
+    """Phase 16 from its started child (``_elastic_start``): the go, the
+    child's end, its record; the wall from the go."""
+    work, proc = started
+    try:
+        wall = _finish_ranks([proc], os.path.join(work, "go"), "elastic")
+        with open(os.path.join(work, "elastic.json")) as fh:
+            out = json.load(fh)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["wall_s"] = wall
+    print(f"phase 16 wall {wall:.1f} s from the go [{smi}]")
+    return out
+
+
+def elastic_phase(torch, smi, args: dict | None = None,
+                  want_launches=None, work: str | None = None) -> dict:
+    """Phase 16: ``TorchGptTrain`` as an elastic gang (``FlowRunner(
+    elastic=True)``, floor 2) of ELASTIC_WORLD members sharing the card
+    over gloo, under the fault plan ``member_exit:1@step<k>,
+    rejoin_delay:1.0@1`` (k = ELASTIC_FAULT_STEP, in epoch 1). Checks,
+    each fatal: the step succeeds in one launch; exactly one
+    ``flow.member_lost`` (member 1, 2 survivors); ``flow.gang_resize``
+    spans shrink 3 -> 2, then grow 2 -> 3; no ``flow.member_failed`` or
+    ``flow.heartbeat_stall``; the head's result holds every optimizer step
+    and epoch once; every restore bit-equal to the committed step (each
+    leaf's crc32 over the region a rank restored); the ranks' losses
+    bit-equal within each generation; the steps the shrunk gang replays
+    within ELASTIC_REPLAY_RTOL relative of their first run at world 3;
+    each member's flash launches exact in each generation; learning.
+    Records the re-form's seconds (the member's exit to the plan, the plan
+    to the formed generation, each member's teardown and rendezvous, the
+    restores' GB/s, the relaunch to the join), step ms in each generation
+    and the phase's wall. ``args``/``want_launches``: the flow's
+    parameters and the launch counts of (steps, validations) (a CPU
+    rehearsal passes its own)."""
+    from tpuflow_torch.data.lm import make_lm_loaders
+    from tpuflow_torch.flow import Run, store
+    from tpuflow_torch.flow import runner as runner_mod
+    from tpuflow_torch.flow.runner import FlowRunner
+    from tpuflow_torch.obs import read_events
+    from tpuflow_torch.train.gpt import GptTrainConfig
+
+    t_phase = time.monotonic()
+    args = args or _elastic_args()
+    L = int(args["layers"]) or 12
+    n_val = len(make_lm_loaders(args["batch_size"], args["steps_per_epoch"],
+                                args["seq_len"], GptTrainConfig(
+                                    preset=args["preset"]).model_config()
+                                .vocab_size)[1])
+    want_launches = want_launches or (lambda steps, vals: _launches(
+        flash_fwd_lse=2 * L * steps, flash_bwd_dq=L * steps,
+        flash_bwd_dkv=L * steps, flash_fwd=L * n_val * vals))
+    epochs, spe = int(args["epochs"]), int(args["steps_per_epoch"])
+    k = ELASTIC_FAULT_STEP - ELASTIC_STEPS_PER_EPOCH + spe
+    own = work is None
+    work = work or tempfile.mkdtemp(prefix="chip_smoke_elastic_",
+                                    dir=os.path.join(REPO, "build"))
+    popens = []
+    real_popen = subprocess.Popen
+
+    class _Recorded(real_popen):
+        def __init__(self, cmd, *a, **kw):
+            popens.append((time.time(), list(cmd)))
+            super().__init__(cmd, *a, **kw)
+
+    launches_of_gang = []
+    real_exec = FlowRunner._exec_gang
+
+    def exec_gang(self, *a, **kw):
+        launches_of_gang.append(kw.get("attempt"))
+        return real_exec(self, *a, **kw)
+
+    out = {"gpu": smi, "fault_step": k}
+    try:
+        store.set_home(os.path.join(work, "home"))
+        runner_mod.subprocess.Popen = _Recorded
+        FlowRunner._exec_gang = exec_gang
+        flow = _elastic_flow()
+        t_run = time.time()
+        run = Run(FlowRunner(flow, faults=f"member_exit:1@step{k},"
+                             "rejoin_delay:1.0@1", elastic=True).run(args))
+        t_end = time.time()
+        if args.get("go"):
+            t_run = os.path.getmtime(args["go"])  # the members' start
+        if not run.successful or launches_of_gang != [0]:
+            raise AssertionError(f"elastic gang: successful "
+                                 f"{run.successful}, launches "
+                                 f"{launches_of_gang}")
+        events = read_events(os.path.join(store.run_dir(
+            flow.__name__, run.run_id), "events.jsonl"))
+        named = lambda n: [e for e in events if e["name"] == n]  # noqa: E731
+        lost = named("flow.member_lost")
+        if [(e["member"], e["survivors"]) for e in lost] != [(1, 2)]:
+            raise AssertionError(f"flow.member_lost events {lost}")
+        resizes = sorted(named("flow.gang_resize"),
+                         key=lambda e: e["generation"])
+        kinds = [(e["reason"], e["from_members"], e["to_members"])
+                 for e in resizes]
+        if kinds != [("shrink", 3, 2), ("grow", 2, 3)]:
+            raise AssertionError(f"flow.gang_resize spans {kinds}")
+        bad = named("flow.member_failed") + named("flow.heartbeat_stall")
+        if bad:
+            raise AssertionError(f"failure events {bad}")
+        storage = store.storage_dir(flow.__name__, run.run_id, "train")
+        lines = _elastic_lines(storage)
+        checked = _elastic_checks(lines, want_launches, epochs, spe)
+        hist = run.data.loss_history
+        if not all(np.isfinite(hist)) or hist[-1] >= hist[0]:
+            raise AssertionError(f"no learning: epoch losses {hist}")
+        # The re-form's seconds.
+        exit_t = max(r["t"] for r in lines[1] if r["gen"] == 0)
+        relaunch = [t for t, cmd in popens if cmd[-1] == "rejoin"]
+        steps_ms = {}
+        for g in (0, 1, 2):
+            ts = [r["t"] for r in lines[0] if r["gen"] == g and "loss" in r]
+            steps_ms[g] = _median([1e3 * (b - a) for a, b in zip(ts, ts[1:])])
+        restores = [dict(member=m, gen=r["gen"], **r["restore"])
+                    for m, recs in lines.items() for r in recs
+                    if "restore" in r]
+        reforms = [dict(member=m, gen=r["reformed"], s=r["reform_s"])
+                   for m, recs in lines.items() for r in recs
+                   if "reformed" in r]
+        grow = resizes[1]
+        steps0 = [r["t"] for r in lines[0] if "loss" in r]
+        back = [r for r in lines[1] if r["gen"] == 2]
+        # Seconds from the run's start: where the phase's wall goes, and
+        # the slack the grow landed with.
+        out["timeline"] = {name: t - t_run for name, t in dict(
+            first_step=steps0[0], exit=exit_t,
+            shrink_formed=resizes[0]["ts"] + resizes[0]["dur_s"],
+            relaunch=relaunch[0] if relaunch else t_end,
+            rejoined_start=back[0]["t"] if back else t_end,
+            grow_plan=grow["ts"], grow_formed=grow["ts"] + grow["dur_s"],
+            rejoined_restored=next((r["t"] for r in back
+                                    if "restored" in r), t_end),
+            first_step_after_grow=min(r["t"] for r in lines[0]
+                                      if r["gen"] == 2 and "loss" in r),
+            last_step=steps0[-1], end=t_end).items()}
+        out.update(
+            loss_history=hist, launches=checked["launches"],
+            launches_by_world=checked["launches_by_world"],
+            replay=checked["replay"], replay_rel=checked["replay_rel"],
+            regions=checked["regions"], step_ms=steps_ms,
+            exit_to_plan_s=resizes[0]["ts"] - exit_t,
+            resize_s=[e["dur_s"] for e in resizes],
+            reform_s=reforms, restores=restores,
+            relaunch_to_join_s=(grow["ts"] + grow["dur_s"] - relaunch[0]
+                                if relaunch else None),
+            relaunch_to_request_s=(grow["ts"] - relaunch[0] if relaunch
+                                   else None),
+            grow_step=min(r["step"] for r in lines[0]
+                          if r["gen"] == 2 and "loss" in r))
+        totals = {}
+        for per in checked["launches"].values():
+            for name, n in per.items():
+                totals[name] = totals.get(name, 0) + n
+        out["launch_totals"] = totals
+        print(f"elastic: shrink 3 -> 2 after member 1's exit at step {k}: "
+              f"exit to plan {out['exit_to_plan_s']:.3f} s, plan to formed "
+              f"{out['resize_s'][0]:.3f} s; grow 2 -> 3 at step "
+              f"{out['grow_step']}: relaunch to join "
+              f"{out['relaunch_to_join_s']:.3f} s, plan to formed "
+              f"{out['resize_s'][1]:.3f} s; teardown and rendezvous "
+              + ", ".join(f"m{r['member']}/g{r['gen']} {r['s']:.3f}"
+                          for r in reforms) + " s; restores "
+              + ", ".join(f"m{r['member']}/g{r['gen']} step {r['step']} "
+                          f"{r['gbps']:.2f} GB/s" for r in restores)
+              + f"; step ms by generation {steps_ms}; timeline (s) "
+              + ", ".join(f"{n} {t:.1f}" for n, t in out["timeline"].items())
+              + f"; {checked['regions']} "
+              f"restored regions bit-equal; replayed steps within "
+              f"{checked['replay_rel']:.2e} relative; epoch losses {hist} "
+              f"[{smi}]")
+    finally:
+        runner_mod.subprocess.Popen = real_popen
+        FlowRunner._exec_gang = real_exec
+        store.set_home(None)
+        if own:
+            shutil.rmtree(work, ignore_errors=True)
+        else:
+            shutil.rmtree(os.path.join(work, "home"), ignore_errors=True)
+    out["wall_s"] = time.monotonic() - t_phase
+    print(f"phase 16 wall {out['wall_s']:.1f} s [{smi}]")
+    return out
+
 
 def main() -> int:
     import torch
@@ -5955,6 +6395,8 @@ def main() -> int:
         return p2p_probe()
     if sys.argv[1:2] == ["--preempt-child"]:
         return preempt_child(torch, sys.argv[2], int(sys.argv[3]))
+    if sys.argv[1:2] == ["--elastic-child"]:
+        return elastic_child(torch, sys.argv[2])
     from tpuflow_torch.device import f32_matmul_precision
     from tpuflow_torch.ops import _build
 
@@ -5987,6 +6429,13 @@ def main() -> int:
         with open(os.path.join(REPO, "chiprun_out", "sp.json"), "w") as fh:
             json.dump(sp, fh, indent=1, default=float)
         return 0
+    if sys.argv[1:2] == ["--elastic"]:
+        el = elastic_phase(torch, smi)
+        os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(REPO, "chiprun_out", "elastic.json"),
+                  "w") as fh:
+            json.dump(el, fh, indent=1, default=float)
+        return 0
     if sys.argv[1:2] == ["--preempt"]:
         pre = preempt_phase(torch, smi)
         os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
@@ -6014,6 +6463,7 @@ def main() -> int:
     fsdp_rows = fsdp_kernel_rows(torch, timer)
     tp_rows = tp_kernel_rows(torch, timer)
     sp_rows = sp_kernel_rows(torch, timer)
+    elastic_rows = elastic_kernel_rows(torch, timer)
     event_timed = timer.event_timed
     print(f"kernel times read from CUDA events, the profiler having held "
           f"too few whole calls: {event_timed}")
@@ -6050,10 +6500,16 @@ def main() -> int:
         torch, smi, sp_rows, started=ahead.pop("sp"),
         ranks_done=lambda: ahead.update(pre=_preempt_start()))
     wall("seq and pipeline phase")
+    # Phase 16's gang starts while phase 15 runs (its members wait for
+    # their go once their world is formed and their state built).
+    ahead["elastic"] = _elastic_start()
     pre = preempt_phase(torch, smi, tr["step_losses"],
                         tr["split_ckpt"]["split"]["step_shards"],
                         started=ahead.pop("pre"))
     wall("preempt phase")
+    elastic = elastic_run(torch, smi, ahead.pop("elastic"))
+    elastic.update(elastic_rows)
+    wall("elastic phase")
 
     # One JSON entry per kernel. flash: one launch at the generate() leg's
     # shape (f32, 1 x 512 x 12 x 64). int8: the 49 launches of one int8
@@ -6202,6 +6658,27 @@ def main() -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             library=r["library"], call_ms=r["call_ms"]))
+    # The flash kernels at phase 16's attention shape a rank in each of
+    # its worlds, f32, with the launches its members made at that world.
+    for r in [*elastic_rows["kernels_fwd"], *elastic_rows["kernels_bwd"]]:
+        kern = r.get("kernel", "flash_fwd")
+        if kern.endswith("_split"):
+            continue
+        B = r["shape"][0]
+        world = ELASTIC_BATCH // B
+        kernels.append(dict(
+            name=f"{kern}_elastic_w{world}", route="cuda",
+            source=("tpuflow_torch/csrc/flash_fwd.cu"
+                    if kern.startswith("flash_fwd")
+                    else "tpuflow_torch/csrc/flash_bwd.cu"),
+            replaces=replaces_wide[kern],
+            shape=f"phase 16 at world {world}, float32 {tuple(r['shape'])}"
+                  ", causal",
+            launches=elastic["launches_by_world"][str(world)].get(kern, 0),
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            library=r["library"], call_ms=r["call_ms"]))
     kernels += [
         int8_entry("int8_matmul", DECODE_M, int8_n["decode"],
                    "one int8 decode step at M=8: 48 Dense + LM head"),
@@ -6246,6 +6723,10 @@ def main() -> int:
             # Phase 15's two legs, drained and requeued (leg (b)'s two
             # child processes summed).
             entry["preempt_launches"] = pre["launches"][entry["name"]]
+            # Phase 16's elastic gang, every member's launches in every
+            # generation summed (each checked exactly in the phase).
+            entry["elastic_launches"] = elastic["launch_totals"].get(
+                entry["name"], 0)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(dict(gpu=smi, build_s=build_s, flash=flash_rows,
@@ -6254,7 +6735,7 @@ def main() -> int:
                        train=tr,
                        main_path=main_path, flows=flows, image=image,
                        recipes=recipes, fsdp=fsdp, tp=tp, sp=sp,
-                       preempt=pre,
+                       preempt=pre, elastic=elastic,
                        vit_flash=vit_rows, vit_flash_bwd=vit_bwd_rows,
                        event_timed=event_timed, walls=walls,
                        kernels=kernels),

@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import jax_and_port_gpt2
+from torch_parity import jax_and_port_gpt2, one_torch_thread  # noqa: F401
 from tpuflow.ckpt import CheckpointManager as JCheckpointManager
 from tpuflow.ckpt import raw as jraw
 from tpuflow.train.optim import make_optimizer as j_make_optimizer

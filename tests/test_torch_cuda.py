@@ -1149,6 +1149,58 @@ def test_resnet_step_on_the_card_matches_the_cpu(cuda):
                                    atol=1e-4 * float(b.abs().max()))
 
 
+def test_elastic_gang_on_two_cards_runs_over_gloo(cuda, tmp_path):
+    """An elastic gang one process a card:
+    ``tests/torch_gang_flows.py::ElasticGptSolo`` (``TorchGptTrain``, floor
+    1) at 2 members. Over NCCL (the card's default backend) the members
+    refuse to form the world (``dist/membership.py``: a survivor would
+    learn of a dead peer only at the watchdog's timeout) and the step
+    fails. Over gloo, ``member_lost:1@step3`` (in epoch 1): the survivor
+    shrinks to a generation of one process, restores epoch 0's checkpoint
+    written by 2 (every region bit-equal to the committed step), replays
+    step 3 within 1e-5 relative of its first run and finishes both
+    epochs. Skips below two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: one gang member a card")
+    import json
+    import os
+
+    import torch_gang_flows as gf
+    from tpuflow_torch.flow import Run, store
+    from tpuflow_torch.flow.runner import FlowRunner, StepFailed
+
+    store.set_home(str(tmp_path / "home"))
+    try:
+        params = {a: p.default
+                  for a, p in gf.ElasticGptSolo.parameters().items()}
+        params.update(device="cuda", preset="test", data_axis=2,
+                      fsdp_axis=1, batch_size=8, seq_len=64, epochs=2,
+                      steps_per_epoch=2, attn_impl="flash")
+        with pytest.raises(StepFailed):
+            FlowRunner(gf.ElasticGptSolo, elastic=True).run(
+                dict(params, dist_backend=""))
+        run = Run(FlowRunner(gf.ElasticGptSolo, faults="member_lost:1@step3",
+                             elastic=True).run(
+                                 dict(params, dist_backend="gloo")))
+        assert run.successful
+        assert [m["epoch"] for m in run.data.metrics_history] == [0, 1]
+        sd = store.storage_dir("ElasticGptSolo", run.run_id, "train")
+        with open(os.path.join(sd, "elastic.p0.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        first = {r["step"]: r["loss"] for r in recs
+                 if "loss" in r and r["gen"] == 0}
+        again = [(r["step"], r["loss"]) for r in recs
+                 if "loss" in r and r["gen"] == 1]
+        assert [s for s, _ in again] == [3, 4]
+        assert abs(again[0][1] - first[3]) <= 1e-5 * abs(first[3])
+        (restore,) = [r for r in recs if "restored" in r]
+        assert (restore["world"], restore["restored"]) == (1, 2)
+        assert all(got == committed
+                   for *_, got, committed in restore["regions"])
+    finally:
+        store.set_home(None)
+
+
 def test_batchnorm_statistics_are_global_over_nccl_on_two_cards(cuda):
     """The BatchNorm statistics of a 2-process world over NCCL, one process
     a card: equal on both ranks, and within atol 1e-5 of one process on the

@@ -26,6 +26,7 @@ import torch
 from tpuflow.ops import flash_attention as jfa
 from tpuflow_torch.ops import flash_attention as tfa
 from tpuflow_torch.ops.attention import xla_attention
+from torch_parity import one_torch_thread  # noqa: F401
 
 BLOCK = 16
 SHAPE = (2, 64, 2, 32)

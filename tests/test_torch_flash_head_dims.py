@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from tpuflow_torch.ops import flash_attention as fa
+from torch_parity import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-6, rtol=1e-6)
 

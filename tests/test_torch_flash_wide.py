@@ -33,6 +33,7 @@ import torch
 
 from tpuflow.ops import flash_attention as jfa
 from tpuflow_torch.ops import flash_attention as tfa
+from torch_parity import one_torch_thread  # noqa: F401
 
 BLOCK = 16
 OUT_TOL = {"float32": dict(atol=1e-5, rtol=0),

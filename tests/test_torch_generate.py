@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import jax_and_port_gpt2
+from torch_parity import jax_and_port_gpt2, one_torch_thread  # noqa: F401
 from tpuflow_torch.infer.generate import (
     after_first_true,
     filter_logits,

@@ -16,6 +16,7 @@ import torch
 from tpuflow.models.mlp import NeuralNetwork as JNeuralNetwork
 from tpuflow_torch.models import NeuralNetwork, get_model
 from tpuflow_torch.models.convert import mlp_params_from_jax, mlp_params_to_jax
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 def _jax_params(seed=0, hidden=512, classes=10):

@@ -24,6 +24,7 @@ from tpuflow.ops import flash_attention as jfa
 from tpuflow_torch.ops import attention as tattn
 from tpuflow_torch.ops import flash_attention as tfa
 from tpuflow_torch.ops import int8_matmul as tim
+from torch_parity import one_torch_thread  # noqa: F401
 
 # tpuflow.ops re-exports the functions `attention` and `int8_matmul` under
 # their modules' names.

@@ -39,6 +39,7 @@ from tpuflow_torch.utils import preempt as tpreempt
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_gang_flows as gf  # noqa: E402
+from torch_parity import one_torch_thread  # noqa: F401
 
 KW = dict(preset="test", epochs=2, steps_per_epoch=4, batch_size=8,
           seq_len=16)

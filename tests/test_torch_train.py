@@ -31,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import jax_and_port_gpt2
+from torch_parity import jax_and_port_gpt2, one_torch_thread  # noqa: F401
 from tpuflow.models.gpt2 import GPT2 as JGPT2
 from tpuflow.models.gpt2 import GPT2Config as JConfig
 from tpuflow.models.losses import cross_entropy_loss as j_cross_entropy_loss
@@ -296,6 +296,8 @@ def test_train_gpt_runs_the_recipes(kw):
     # is a checkpoint directory) and raises Preempted. Neither is the
     # health monitor (on by default): a NaN step with no checkpoint to
     # roll back to, or with rollback off, halts with TrainingDiverged.
+    # Nor the elastic re-form: elastic=True outside an elastic gang names
+    # the missing membership.
     ({"ckpt_dir": "ck", "faults": "preempt:0@step1"}, Preempted,
      "drained checkpoint at step 1"),
     ({"faults": "nan_grad:0@step1"}, TrainingDiverged,
@@ -305,7 +307,8 @@ def test_train_gpt_runs_the_recipes(kw):
      r"nonfinite at step 2 .*HealthConfig\(rollback=False\)"),
     ({"faults": "preempt:0@step1"}, Preempted,
      "drained checkpoint at step 1"),
-    ({"elastic": True}, NotImplementedError, "elastic.*12c-3"),
+    ({"elastic": True}, ValueError,
+     "elastic=True outside an elastic gang: .*no membership directory"),
 ], ids=["kw0-preemption", "kw1-health", "kw2-health", "kw3-preemption",
         "kw4-elastic"])
 def test_train_gpt_deferred_arguments_raise(kw, exc, match, tmp_path):

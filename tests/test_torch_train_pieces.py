@@ -20,7 +20,7 @@ import optax
 import pytest
 import torch
 
-from torch_parity import jax_and_port_gpt2
+from torch_parity import jax_and_port_gpt2, one_torch_thread  # noqa: F401
 from tpuflow.data.lm import make_lm_loaders as j_make_lm_loaders
 from tpuflow.models import losses as jlosses
 from tpuflow.train import optim as joptim

@@ -5,6 +5,7 @@ A gang member loads this file by path, and a spawned process imports it,
 so it imports torch and the port only."""
 
 import dataclasses
+import json
 import multiprocessing as mp
 import os
 import socket
@@ -24,6 +25,7 @@ from tpuflow_torch.flow import (
     retry,
     step,
 )
+from tpuflow_torch.flows.gpt_flow import TorchGptTrain
 
 # A member of SlowJoinFlow with rank 1 (gang_exec's argv: <flow_file>
 # <class> <step> <run_id> <task_id> <state> <rank> <world> <port>) starts
@@ -203,6 +205,109 @@ class HeartbeatStall(FlowSpec):
     @step
     def end(self):
         pass
+
+
+class Elastic(FlowSpec):
+    """Twin of the JAX suite's ``Elastic`` flow
+    (``tests/test_membership.py::_ELASTIC_FLOW``): a gang of 3 whose
+    ``Trainer`` loop reports steps 1-``total``, each saving a 12-element
+    state holding the step, resuming from ``latest_step()`` (its restore
+    checked bit-equal) in every generation; the members record their
+    loop's invocations, its resumes as (step, world) and the final
+    world."""
+
+    device = Parameter("device", default="cpu")
+    total = Parameter("total", default=8)
+    step_sleep = Parameter("step_sleep", default=0.1)
+
+    @step
+    def start(self):
+        self.next(self.train, num_parallel=3)
+
+    @retry(times=0)
+    @gpu(all_hosts_started_timeout=120, heartbeat_timeout=6, min_members=2)
+    @step
+    def train(self):
+        from tpuflow_torch.train.trainer import (
+            RunConfig,
+            ScalingConfig,
+            Trainer,
+            get_context,
+        )
+
+        info = {"invocations": 0, "resumes": []}
+
+        def loop(cfg):
+            ctx = get_context()
+            info["invocations"] += 1
+            start = ctx.latest_step()
+            info["resumes"].append([start, ctx.get_world_size()])
+            if start:
+                restored = ctx.restore_latest()
+                assert torch.equal(restored["w"],
+                                   torch.full((12,), float(start)))
+            for stp in range(start + 1, int(self.total) + 1):
+                ctx.report({"val_loss": 1.0 / stp},
+                           state={"w": torch.full((12,), float(stp))},
+                           step=stp)
+                time.sleep(float(self.step_sleep))
+
+        result = Trainer(loop, scaling_config=ScalingConfig(device="cpu"),
+                         run_config=RunConfig(storage_path=os.path.join(
+                             current.tpu_storage_path, "trainer"))).fit()
+        # Rank 0 saves, so the head's history holds the steps.
+        self.history_steps = [m.get("step") for m in result.metrics_history]
+        self.invocations = info["invocations"]
+        self.resumes = info["resumes"]
+        self.final_world = result.mesh_axes.get("data")
+        self.next(self.end)
+
+    @step
+    def end(self):
+        pass
+
+
+class ElasticFloor(Elastic):
+    """``Elastic`` with the floor at all three members: any loss falls
+    back to the classic verdict."""
+
+    @retry(times=0)
+    @gpu(all_hosts_started_timeout=120, heartbeat_timeout=6, min_members=3)
+    @step
+    def train(self):
+        Elastic.train(self)
+
+
+class ElasticGpt(TorchGptTrain):
+    """``TorchGptTrain`` as an elastic gang (floor 2, no retries), dropout
+    off, each member recording its steps and restores
+    (``tpuflow_torch/testing/elastic_record.py``) into
+    ``elastic.p<member>.jsonl`` in the step's storage."""
+
+    @retry(times=0)
+    @gpu(all_hosts_started_timeout=120, min_members=2)
+    @step
+    def train(self):
+        from tpuflow_torch.dist import membership
+        from tpuflow_torch.testing.elastic_record import record_elastic
+
+        _jax_init(None, True)
+        record_elastic(os.path.join(
+            current.tpu_storage_path,
+            f"elastic.p{membership.member_id()}.jsonl"),
+            os.path.join(current.tpu_storage_path, "checkpoints"))
+        TorchGptTrain.train(self)
+
+
+class ElasticGptSolo(ElasticGpt):
+    """``ElasticGpt`` with the floor at one member: a gang of 2 shrinks to
+    a generation of one process."""
+
+    @retry(times=0)
+    @gpu(all_hosts_started_timeout=120, min_members=1)
+    @step
+    def train(self):
+        ElasticGpt.train(self)
 
 
 # ----------------------------------------------------------------- FSDP

@@ -695,6 +695,34 @@ class CheckpointManager:
                   f"after retries; training continues on the previous "
                   f"committed step: {err or 'a peer process failed'}")
 
+    def abandon_pending(self) -> None:
+        """Drop a save that can no longer commit (``tpuflow/ckpt/manager.py
+        ::abandon_pending``): after an elastic gang lost a member, the dead
+        peer's shards never arrive and the commit's collectives would
+        raise on every survivor. Joins this process's own shard writes
+        only (no collective), drops the step's history entry and records
+        ``ckpt.save_failed``; the staging directory stays for the next
+        manager's startup sweep (deleting it here would race peers still
+        writing into it). The resume point is the last committed step. A
+        no-op when nothing is pending; the manager can then ``close``."""
+        pending, self._pending_commit = self._pending_commit, None
+        pending_fail, self._pending_fail = self._pending_fail, None
+        err = None
+        try:
+            self._saver.wait()
+        except BaseException as e:  # the save is abandoned either way
+            err = e
+        if pending is None and err is None:
+            return
+        step = pending_fail[0] if pending_fail is not None else None
+        if step is not None:
+            self._metrics_history = [m for m in self._metrics_history
+                                     if m.get("step") != step]
+        obs.event("ckpt.save_failed", step=step if step is not None else -1,
+                  error=(str(err)[:300] if err is not None else
+                         "abandoned: mesh re-form (staging left for the "
+                         "startup sweep)"))
+
     def close(self) -> None:
         self.wait_until_finished()
         # A prewarm still writing into .recycle would race a caller that

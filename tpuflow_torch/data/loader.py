@@ -3,8 +3,9 @@ entry point and the device prefetcher.
 
 - ``ShardedLoader``: the port's copy of ``tpuflow/data/loader.py::
   ShardedLoader``: the same permutation from ``(seed, epoch)``, the same
-  shard striding, ``max_batches`` cap, mid-epoch ``skip_batches`` and
-  padded+masked validation tail, so both packages see the same batches.
+  shard striding, ``max_batches`` cap, mid-epoch ``skip_batches``,
+  padded+masked validation tail and ``reshard`` to a resized world, so
+  both packages see the same batches.
   Rows are gathered with plain numpy indexing (the LM splits hold int32
   tokens, which the JAX package's native float32 gather never handles
   either).
@@ -63,6 +64,22 @@ class ShardedLoader:
         """Skip the first ``n`` batches of the NEXT iteration (one-shot):
         the mid-epoch resume of a restored run."""
         self._skip_next = max(int(n), 0)
+
+    def reshard(self, shard_index: int, num_shards: int) -> None:
+        """Re-key this loader to a resized data-parallel world (an elastic
+        gang's shrink or grow). Only the stride over the per-epoch
+        permutation changes: the permutation is a function of ``(seed,
+        epoch)``, so a cursor recorded by the old world, fed to
+        ``set_epoch`` + ``skip_batches``, resumes the epoch under the new
+        shard map (epoch and step accounting exact; the rows of the old
+        and new strides interleave differently)."""
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(
+                f"shard_index {shard_index} out of range for "
+                f"{num_shards} shards"
+            )
+        self.shard_index = shard_index
+        self.num_shards = num_shards
 
     def state_dict(self, batches_consumed: int) -> dict:
         """The loader cursor: pair with ``set_epoch`` + ``skip_batches``."""

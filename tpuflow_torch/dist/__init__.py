@@ -1,7 +1,8 @@
 """Multi-process runtime (counterpart of ``tpuflow/dist``): the process
 group, the ``data`` mesh, the named ``data`` x ``fsdp`` x ``tensor`` x
 ``seq`` x ``expert`` one and the pipeline's ``data`` x ``stage`` one,
-batch placement, gradient averaging and barriers (``mesh``)."""
+batch placement, gradient averaging and barriers (``mesh``); an elastic
+gang's membership generations (``membership``)."""
 
 from tpuflow_torch.dist.mesh import (
     Mesh,

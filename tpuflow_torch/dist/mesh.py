@@ -16,7 +16,10 @@ layers (``parallel/pipeline.py``).
   torch's standard rendezvous variables (``RANK``, ``WORLD_SIZE``,
   ``MASTER_ADDR``, ``MASTER_PORT``) or by its arguments, with NCCL on
   CUDA and gloo on the CPU unless ``backend`` says otherwise; a world of
-  one process starts nothing.
+  one process starts nothing. An elastic gang's generation passes its
+  plan's rank, world and coordinator (``dist/membership.py``), and
+  ``teardown`` abandons a world whose peers may be dead;
+  ``process_index``/``process_count`` then read the new world's.
 - ``make_mesh`` (``:517``): without ``axes`` the 1-D ``data`` mesh over
   the processes (the data-parallel paths); with ``axes`` the named mesh
   of the JAX package (``data``, ``fsdp``, ``tensor``, ``seq``,
@@ -155,7 +158,8 @@ def initialize(device: str | torch.device = "cuda", *,
     on the CPU; ``"gloo"`` on CUDA carries the collectives through the
     host, which lets several processes share one card (NCCL refuses two
     ranks of a communicator on one device). On CUDA each process takes
-    card ``device_index``, by default ``LOCAL_RANK`` (else its rank)."""
+    card ``device_index``, by default ``device``'s index, else
+    ``LOCAL_RANK``, else its rank."""
     if is_initialized():
         return
     world = world_size if world_size is not None else _env_int("WORLD_SIZE")
@@ -175,6 +179,8 @@ def initialize(device: str | torch.device = "cuda", *,
     device = torch.device(device)
     if device.type == "cuda":
         if device_index is None:
+            device_index = device.index
+        if device_index is None:
             local = _env_int("LOCAL_RANK")
             device_index = local if local is not None else rank
         torch.cuda.set_device(device_index)
@@ -190,6 +196,22 @@ def shutdown() -> None:
     """Leave the process group if one is up."""
     if is_initialized():
         tdist.destroy_process_group()
+
+
+def teardown() -> None:
+    """Abandon the process group without a collective (an elastic re-form:
+    peers may be dead). An elastic world is gloo's (``dist/membership.py``
+    refuses NCCL), whose destruction waits for no peer: a dead peer's
+    sockets are closed already. Then the ``DeviceMesh`` caches are
+    emptied, so no mesh or sub-group of the old world reaches the next
+    one (the ``Mesh`` objects built over it are the caller's to drop)."""
+    if is_initialized():
+        tdist.destroy_process_group()
+    from torch.distributed.device_mesh import _mesh_resources
+
+    for value in vars(_mesh_resources).values():
+        if isinstance(value, (dict, list)):
+            value.clear()
 
 
 def process_index() -> int:

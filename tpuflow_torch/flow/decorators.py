@@ -37,6 +37,7 @@ def gpu(
     num_parallel: int | None = None,
     all_hosts_started_timeout: float = 300.0,
     heartbeat_timeout: float | None = None,
+    min_members: int | None = None,
 ):
     """Gang step: the body runs as ``num_parallel`` processes (or the
     ``num_parallel`` of the transition into it) forming one
@@ -52,13 +53,20 @@ def gpu(
     ``utils/heartbeat.py``) goes silent for this many seconds is judged
     hung, and the gang is killed at once. None means 600 s (the JAX
     package's ``TPUFLOW_STALL_TIMEOUT_S`` default). A member that never
-    stamps is never judged."""
+    stamps is never judged.
+
+    ``min_members``: the elastic gang's floor (``FlowRunner(elastic=
+    True)``): a member loss shrinks the gang over the survivors while at
+    least this many remain; below it the supervisor falls back to the
+    requeue. None means 2 (the JAX package's ``TPUFLOW_GANG_MIN_MEMBERS``
+    default)."""
 
     def wrap(fn: Callable) -> Callable:
         fn.__gang__ = {
             "num_parallel": num_parallel,
             "timeout": all_hosts_started_timeout,
             "heartbeat_timeout": heartbeat_timeout,
+            "min_members": min_members,
         }
         return fn
 

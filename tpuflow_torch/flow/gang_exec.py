@@ -4,7 +4,7 @@ Counterpart of ``tpuflow/flow/gang_exec.py``. ``FlowRunner._exec_gang``
 starts each member as::
 
     python -m tpuflow_torch.flow.gang_exec <flow_file> <class> <step> \\
-        <run_id> <task_id> <state_path> <rank> <world_size> <port>
+        <run_id> <task_id> <state_path> <rank> <world_size> <port> [rejoin]
 
 The pickled state holds the flow's artifacts, the device, the formation
 timeout, the store's root, the launch attempt and the run's robustness
@@ -28,6 +28,19 @@ step body, and saves its artifacts: the head (rank 0) its own
 at ``task_id`` and the step's transition, the others none at
 ``task_id + rank``.
 
+In an elastic gang (the state names a membership directory) the member
+is ``membership.configure``d with its original rank, which keys its
+artifacts, heartbeat and telemetry across generations, and forms
+generation 0 through ``membership.elastic_initialize``. A relaunched
+member (``rejoin``) skips that rendezvous: it runs the fault plan's
+``rejoin_delay``, asks to join, waits for the supervisor's grow plan and
+enters that generation's world, which the survivors reach at their next
+step fence. ``current.gang_index``/``gang_size`` are the world's when
+the body starts and the generation's it ends in afterwards. After a
+re-form each member marks itself done and the generation's coordinator,
+which hosts the rendezvous store, waits for its peers' marks and leaves
+last.
+
 A SIGTERM only sets the preemption flag (and dumps the flight ring: a
 SIGKILL may follow the grace window); the training loops drain a
 checkpoint at their next step boundary and raise ``Preempted``, which
@@ -45,6 +58,7 @@ import signal
 import sys
 
 from tpuflow_torch import obs
+from tpuflow_torch.dist import membership
 from tpuflow_torch.testing import faults
 from tpuflow_torch.utils import heartbeat, preempt
 from tpuflow_torch.utils.preempt import (
@@ -62,8 +76,9 @@ def _on_sigterm(signum, frame):
 
 
 def main(argv: list[str]) -> None:
+    rejoin = argv[9:] == ["rejoin"]
     (flow_file, class_name, step_name, run_id, task_id, state_path, rank,
-     world, port) = argv
+     world, port) = argv[:9]
     rank, world, base_task = int(rank), int(world), int(task_id)
     signal.signal(signal.SIGTERM, _on_sigterm)
     with open(state_path, "rb") as f:
@@ -73,6 +88,7 @@ def main(argv: list[str]) -> None:
     if state["obs_dir"]:
         obs.configure(state["obs_dir"], proc=rank, attempt=state["attempt"])
     heartbeat.configure(state["heartbeat_file"].format(rank=rank))
+    membership.configure(state.get("membership_dir"), member=rank)
 
     from tpuflow_torch.flow import store
 
@@ -94,14 +110,28 @@ def main(argv: list[str]) -> None:
     from tpuflow_torch.flow.spec import _Trigger, current
 
     device = resolve_device(state["device"])
-    faults.maybe_rendezvous_delay()
-    dist.initialize(device, timeout_s=float(state["timeout"]),
-                    backend=state["artifacts"].get("dist_backend") or None,
-                    device_index=device.index)
+    timeout = float(state["timeout"])
+    backend = state["artifacts"].get("dist_backend") or None
     flow_name = flow_cls.__name__
     tdir = store.task_dir(flow_name, run_id, step_name, base_task)
-    with open(os.path.join(tdir, f"joined_{rank}"), "w") as f:
-        f.write(str(os.getpid()))
+    if rejoin:
+        faults.maybe_rejoin_delay()
+        membership.request_join(rank)
+        plan = membership.await_plan_including(rank, timeout_s=timeout)
+        membership.join_generation(plan, device=device, timeout_s=timeout,
+                                   backend=backend)
+    else:
+        faults.maybe_rendezvous_delay()
+        if membership.enabled():
+            membership.elastic_initialize(
+                membership.Generation(0, tuple(range(world)),
+                                      f"127.0.0.1:{port}"),
+                device=device, timeout_s=timeout, backend=backend)
+        else:
+            dist.initialize(device, timeout_s=timeout, backend=backend,
+                            device_index=device.index)
+        with open(os.path.join(tdir, f"joined_{rank}"), "w") as f:
+            f.write(str(os.getpid()))
 
     flow = flow_cls()
     for k, v in state["artifacts"].items():
@@ -138,6 +168,8 @@ def main(argv: list[str]) -> None:
         obs.flush()
         raise
     obs.flush()
+    current.gang_index = dist.process_index()
+    current.gang_size = dist.process_count()
     store.save_artifacts(flow_name, run_id, step_name, base_task + rank,
                          flow._artifacts if rank == 0 else {},
                          state["attempt"])
@@ -146,6 +178,11 @@ def main(argv: list[str]) -> None:
         with open(os.path.join(tdir, "next.json"), "w") as f:
             json.dump({"target": transition.target}, f)
     dist.barrier()
+    if membership.current_generation() > 0:
+        membership.mark_done(rank)
+        if membership.is_coordinator():
+            others = set(membership.current_plan().roster) - {rank}
+            membership.await_done(others, timeout_s=state["grace_s"])
     dist.shutdown()
 
 

@@ -31,6 +31,21 @@ heartbeat file (``heartbeat_<i>`` in the task directory, cleared before
 every launch); the supervisor kills a gang whose member's stamp is older
 than the step's ``@gpu(heartbeat_timeout=)`` (the JAX package's
 ``TPUFLOW_STALL_TIMEOUT_S``) and records ``flow.heartbeat_stall``.
+
+Elastic gangs (``FlowRunner(elastic=True)``, the JAX package's
+``TPUFLOW_ELASTIC=1``): each launch gets a membership directory
+(``dist/membership.py``), and a member's loss no longer fails the step.
+The supervisor records ``flow.member_lost`` and announces a shrink
+generation over the survivors, which re-form at their next step fence;
+a member that crashed (not a ``member_lost`` fault) is relaunched once
+the survivors have stamped a heartbeat in the new generation (or after
+``REJOIN_HOLD_S``), asks to join, and a grow generation re-adds it.
+Each formed generation records a ``flow.gang_resize`` span. The classic
+verdict stays when the coordinator (member 0) is lost, when the
+survivors fall below the step's ``@gpu(min_members=)`` (None: 2), when
+``max_resizes`` re-forms are spent, and when a re-form misses its
+``reform_timeout_s`` deadline (reported as ``member_failed``). The stall
+verdict is suspended while a re-form is in flight.
 """
 
 from __future__ import annotations
@@ -41,6 +56,7 @@ import json
 import os
 import pickle
 import random
+import shutil
 import signal
 import socket
 import subprocess
@@ -54,6 +70,7 @@ import torch
 
 from tpuflow_torch import obs
 from tpuflow_torch.device import resolve_device
+from tpuflow_torch.dist import membership
 from tpuflow_torch.flow import store
 from tpuflow_torch.flow.cards import CardBuffer
 from tpuflow_torch.flow.client import Run, default_namespace, get_namespace
@@ -62,7 +79,7 @@ from tpuflow_torch.testing import faults as faults_mod
 from tpuflow_torch.utils.preempt import REQUEUE_EXIT_CODE
 
 ROADMAP_DEPLOY = ("ROADMAP Queue 1 item 8b (the flow layer's remainder: "
-                  "flow/deploy.py and the elastic gang)")
+                  "flow/deploy.py)")
 
 
 class StepFailed(Exception):
@@ -93,6 +110,13 @@ MAX_REQUEUES = 8
 # Seconds a member's heartbeat may stay silent when the step's @gpu names
 # no heartbeat_timeout (the JAX package's default).
 HEARTBEAT_TIMEOUT_S = 600.0
+# An elastic gang's floor when the step's @gpu names no min_members (the
+# JAX package's TPUFLOW_GANG_MIN_MEMBERS default).
+MIN_MEMBERS = 2
+# The longest an elastic gang holds a relaunch for the survivors' first
+# heartbeat in their new generation (the JAX package's
+# TPUFLOW_REJOIN_HOLD_S).
+REJOIN_HOLD_S = 10.0
 
 
 def _backoff_delay(attempt: int, backoff_s: float,
@@ -195,17 +219,26 @@ class FlowRunner:
     """Runs one flow class. ``faults``: a fault plan for every step (the
     JAX package's ``TPUFLOW_FAULT``); ``ckpt_local_dir``: the node-local
     checkpoint tier (its ``TPUFLOW_CKPT_LOCAL_DIR``); ``obs``: record the
-    run's telemetry (its ``TPUFLOW_OBS``)."""
+    run's telemetry (its ``TPUFLOW_OBS``). ``elastic``: gang steps shrink
+    and grow on member loss instead of failing (its ``TPUFLOW_ELASTIC``;
+    see the module docstring), with ``reform_timeout_s`` for a re-form to
+    complete and ``max_resizes`` re-forms a launch (its
+    ``TPUFLOW_REFORM_TIMEOUT_S`` and ``TPUFLOW_MAX_RESIZES``)."""
 
     def __init__(self, flow_cls: type[FlowSpec], *,
                  faults: str | None = None,
-                 ckpt_local_dir: str | None = None, obs: bool = True):
+                 ckpt_local_dir: str | None = None, obs: bool = True,
+                 elastic: bool = False, reform_timeout_s: float = 120.0,
+                 max_resizes: int = 8):
         self.flow_cls = flow_cls
         self.flow_name = flow_cls.__name__
         faults_mod.parse(faults or "")  # a malformed plan raises here
         self.faults = faults
         self.ckpt_local_dir = ckpt_local_dir
         self.obs = obs
+        self.elastic = elastic
+        self.reform_timeout_s = float(reform_timeout_s)
+        self.max_resizes = int(max_resizes)
         self._obs_dir = None
 
     # ----------------------------------------------------------------- run
@@ -332,7 +365,8 @@ class FlowRunner:
                             flow, step_name, run_id, task_id, num_parallel,
                             timeout=gang.get("timeout", 300.0),
                             stall_timeout=gang.get("heartbeat_timeout"),
-                            attempt=attempt + requeues)
+                            attempt=attempt + requeues,
+                            min_members=gang.get("min_members"))
                     self._exec_local(flow, fn, step_name, run_id, task_id,
                                      attempt + requeues)
                 # A following join sees this task as a gang of one.
@@ -406,7 +440,8 @@ class FlowRunner:
     def _exec_gang(self, flow: FlowSpec, step_name: str, run_id,
                    task_id: int, num_parallel: int, *, timeout: float,
                    stall_timeout: float | None = None,
-                   attempt: int = 0) -> list[_GangInput]:
+                   attempt: int = 0,
+                   min_members: int | None = None) -> list[_GangInput]:
         """Launch ``num_parallel`` processes running the step body as one
         ``torch.distributed`` world (``flow/gang_exec.py``) and supervise
         them (``_supervise_gang``, judging heartbeats by
@@ -415,13 +450,22 @@ class FlowRunner:
         the store's root through a pickled state file, and its rank, the
         world size and the rendezvous port through argv, and the run's
         fault plan, grace budget (``KILL_GRACE_S``), node-local checkpoint
-        tier, obs directory and its heartbeat file (``heartbeat_<rank>``
-        in the task directory) through the state."""
+        tier, obs directory, its heartbeat file (``heartbeat_<rank>`` in
+        the task directory) and, in an elastic gang, the membership
+        directory (``membership`` in the task directory, emptied first)
+        through the state. ``min_members``: the elastic floor (None:
+        ``MIN_MEMBERS``)."""
         tdir = store.task_dir(self.flow_name, run_id, step_name, task_id)
         os.makedirs(tdir, exist_ok=True)
         for name, value in flow._artifacts.items():
             # The datastore's contract holds for the gang's pickle too.
             store.reject_device_arrays(name, value)
+        mdir = None
+        if self.elastic:
+            # A previous launch's plan must not reach this world.
+            mdir = os.path.join(tdir, "membership")
+            shutil.rmtree(mdir, ignore_errors=True)
+            os.makedirs(mdir)
         state_path = os.path.join(tdir, "gang_state.pkl")
         with open(state_path, "wb") as f:
             pickle.dump({"artifacts": flow._artifacts,
@@ -433,32 +477,44 @@ class FlowRunner:
                          "ckpt_local_dir": self.ckpt_local_dir,
                          "obs_dir": self._obs_dir,
                          "heartbeat_file": os.path.join(
-                             tdir, "heartbeat_{rank}")}, f)
+                             tdir, "heartbeat_{rank}"),
+                         "membership_dir": mdir}, f)
         for i in range(num_parallel):
-            # A previous launch's stamps would read as an instant stall.
-            for name in (f"joined_{i}", f"heartbeat_{i}"):
-                with contextlib.suppress(FileNotFoundError):
-                    os.unlink(os.path.join(tdir, name))
+            with contextlib.suppress(FileNotFoundError):
+                os.unlink(os.path.join(tdir, f"joined_{i}"))
         port = _free_port()
         pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(
             os.path.abspath(__file__))))
         env = dict(os.environ)
         env["PYTHONPATH"] = pkg_root + os.pathsep + env.get("PYTHONPATH", "")
+
+        def launch_member(i: int, rejoin: bool = False):
+            # A previous launch's stamp (or a lost member's last one)
+            # would read as an instant stall.
+            with contextlib.suppress(FileNotFoundError):
+                os.unlink(os.path.join(tdir, f"heartbeat_{i}"))
+            cmd = [sys.executable, "-m", "tpuflow_torch.flow.gang_exec",
+                   self._flow_module(), self.flow_name, step_name,
+                   str(run_id), str(task_id), state_path, str(i),
+                   str(num_parallel), str(port)]
+            if rejoin:
+                # Returning capacity skips the first rendezvous and asks
+                # for a place in the next (grow) generation.
+                cmd.append("rejoin")
+            log = open(os.path.join(tdir, f"gang_{i}.log"),
+                       "a" if rejoin else "w")
+            try:
+                return (subprocess.Popen(cmd, env=env, stdout=log,
+                                         stderr=subprocess.STDOUT,
+                                         cwd=os.getcwd()), log)
+            except BaseException:
+                log.close()
+                raise
+
         procs: list[tuple[subprocess.Popen, Any]] = []
         try:
             for i in range(num_parallel):
-                cmd = [sys.executable, "-m", "tpuflow_torch.flow.gang_exec",
-                       self._flow_module(), self.flow_name, step_name,
-                       str(run_id), str(task_id), state_path, str(i),
-                       str(num_parallel), str(port)]
-                log = open(os.path.join(tdir, f"gang_{i}.log"), "w")
-                try:
-                    procs.append((subprocess.Popen(
-                        cmd, env=env, stdout=log, stderr=subprocess.STDOUT,
-                        cwd=os.getcwd()), log))
-                except BaseException:
-                    log.close()
-                    raise
+                procs.append(launch_member(i))
         except BaseException:
             # A launch that fails midway leaks no member.
             self._kill_survivors(procs, [None] * len(procs))
@@ -468,7 +524,10 @@ class FlowRunner:
         failure = self._supervise_gang(
             procs, tdir, timeout=timeout, step_name=step_name,
             stall_timeout=(HEARTBEAT_TIMEOUT_S if stall_timeout is None
-                           else stall_timeout))
+                           else stall_timeout),
+            membership_dir=mdir,
+            launch_member=launch_member if self.elastic else None,
+            min_members=min_members)
         if failure is not None:
             kind, member, detail = failure
             if kind == "preempt":
@@ -494,7 +553,9 @@ class FlowRunner:
         ]
 
     def _supervise_gang(self, procs: list, tdir: str, *, timeout: float,
-                        step_name: str, stall_timeout: float = 0.0):
+                        step_name: str, stall_timeout: float = 0.0,
+                        membership_dir: str | None = None,
+                        launch_member=None, min_members: int | None = None):
         """Poll every member until all exit 0 or one fails.
 
         The first non-zero exit fails the step at once ("preempt" for the
@@ -513,12 +574,20 @@ class FlowRunner:
         waiting for it in a collective): the step fails
         ("heartbeat_stall", recorded as ``flow.heartbeat_stall`` with its
         age, last step and log tail). A member that never stamped is not
-        judged. Returns None or ``(kind, member, detail)``."""
+        judged.
+
+        Elastic (``membership_dir`` and ``launch_member`` given; the JAX
+        runner's elastic mode): see ``_Elastic``. Returns None or
+        ``(kind, member, detail)``."""
         n = len(procs)
         rcs: list[int | None] = [None] * n
         failure = None
         formed = False
         deadline = time.monotonic() + timeout + FORMATION_SLACK_S
+        el = None
+        if membership_dir is not None and launch_member is not None:
+            el = _Elastic(self, procs, rcs, tdir, step_name, membership_dir,
+                          launch_member, min_members or MIN_MEMBERS)
         try:
             while True:
                 for i, (p, log) in enumerate(procs):
@@ -529,16 +598,26 @@ class FlowRunner:
                         continue
                     rcs[i] = rc
                     log.close()
-                    if rc != 0 and failure is None:
-                        if rc == REQUEUE_EXIT_CODE:
-                            failure = ("preempt", i, "requeue")
-                            obs.event("flow.preempt", step=step_name,
-                                      member=i)
-                        else:
-                            failure = ("member_failed", i,
-                                       f"member {i} exited {rc}")
-                            self._member_failed(step_name, tdir, i, rc)
-                if failure is not None or all(rc is not None for rc in rcs):
+                    if rc == 0 or failure is not None:
+                        continue
+                    if el is not None:
+                        failure = el.exited(i, rc)
+                    elif rc == REQUEUE_EXIT_CODE:
+                        failure = ("preempt", i, "requeue")
+                        obs.event("flow.preempt", step=step_name, member=i)
+                    else:
+                        failure = ("member_failed", i,
+                                   f"member {i} exited {rc}")
+                        self._member_failed(step_name, tdir, i, rc)
+                if failure is not None:
+                    break
+                if el is not None:
+                    if el.finished():
+                        break
+                    failure = el.poll()
+                    if failure is not None:
+                        break
+                elif all(rc is not None for rc in rcs):
                     break
                 if not formed:
                     formed = all(os.path.exists(os.path.join(
@@ -550,28 +629,37 @@ class FlowRunner:
                             f" s timeout (+{FORMATION_SLACK_S:.0f} s to "
                             "start)")
                         break
-                if stall_timeout > 0:
-                    failure = self._stalled(tdir, rcs, stall_timeout,
-                                            step_name)
+                # Suspended while a re-form is in flight: the drain and
+                # the rendezvous stop step fences by design, and the
+                # re-form's deadline bounds that window.
+                if stall_timeout > 0 and (el is None or el.forming is None):
+                    failure = self._stalled(
+                        tdir, rcs, stall_timeout, step_name,
+                        judged=None if el is None else el.roster)
                     if failure is not None:
                         break
                 time.sleep(_GANG_POLL_S)
         finally:
+            # A failure, or success with a straggler (a relaunched member
+            # still waiting for a grow the finished gang never forms).
             if any(rc is None for rc in rcs):
                 self._kill_survivors(procs, rcs)
             for _, log in procs:
                 log.close()  # idempotent
+        if el is not None:
+            failure = el.verdict(failure)
         return failure
 
     def _stalled(self, tdir: str, rcs: list, stall_timeout: float,
-                 step_name: str):
+                 step_name: str, judged: set | None = None):
         """The heartbeat verdict of one poll (see ``_supervise_gang``):
         None, or the ``heartbeat_stall`` failure of the member with the
-        oldest stamp past ``stall_timeout``."""
+        oldest stamp past ``stall_timeout``. ``judged``: the members to
+        judge (None: all; an elastic gang's roster)."""
         now = time.time()
         stalled = []
         for i, rc in enumerate(rcs):
-            if rc is not None:
+            if rc is not None or (judged is not None and i not in judged):
                 continue
             try:
                 age = now - os.path.getmtime(
@@ -653,6 +741,180 @@ class FlowRunner:
         if path is None:
             raise RuntimeError("flow class must live in an importable file")
         return os.path.abspath(path)
+
+
+class _Elastic:
+    """An elastic gang's supervision state (the JAX runner's elastic
+    ``_supervise_gang``): the roster, the generation in flight, the
+    members waiting to be relaunched or to rejoin.
+
+    A non-zero exit of a roster member (``exited``) shrinks the gang when
+    the member is not the coordinator (member 0, whose process hosts
+    every generation's store), no re-form is in flight, the resize
+    budget is not spent and the survivors (members still running or
+    finished cleanly) number at least the floor: ``flow.member_lost``,
+    then a shrink plan. Else the classic verdict. A member that crashed
+    or was preempted is relaunched (``launch_member(i, rejoin=True)``)
+    once the formed generation's survivors have all stamped a heartbeat
+    again (or ``REJOIN_HOLD_S`` passed): a grow that arrives before the
+    shrunk gang banked progress would replay from scratch. A
+    ``member_lost`` fault is permanent capacity loss and is not
+    relaunched. ``poll`` watches the formation (every roster member's
+    ``gen_<g>.joined.<m>``; then ``flow.gang_resize`` is recorded and the
+    heartbeats cleared) and its deadline, relaunches, and turns a join
+    request into a grow plan. A member whose done mark exists is
+    forgiven a non-zero exit after its step body."""
+
+    def __init__(self, runner: FlowRunner, procs: list, rcs: list,
+                 tdir: str, step_name: str, mdir: str, launch_member,
+                 floor: int):
+        self.runner, self.procs, self.rcs = runner, procs, rcs
+        self.tdir, self.step_name, self.mdir = tdir, step_name, mdir
+        self.launch_member = launch_member
+        self.floor = int(floor)
+        self.roster: set[int] = set(range(len(procs)))
+        self.generation = self.resizes = 0
+        self.forming: dict | None = None
+        self.formed_at = time.monotonic()
+        self.pending_rejoin: list[int] = []
+        self.awaiting_join: set[int] = set()
+        # member_lost faults stay gone; a crash's capacity comes back.
+        self.suppressed = {f.rank for f in faults_mod.parse(
+            runner.faults or "") if f.kind == "member_lost"}
+
+    def _announce(self, reason: str, joining: int | None = None) -> None:
+        self.generation += 1
+        self.resizes += 1
+        timeout = self.runner.reform_timeout_s
+        plan = membership.Generation(
+            generation=self.generation, roster=tuple(sorted(self.roster)),
+            coordinator=f"127.0.0.1:{_free_port()}", reason=reason,
+            deadline=time.time() + timeout)
+        membership.announce(self.mdir, plan)
+        self.forming = {"plan": plan, "t0": time.monotonic(),
+                        "ts": time.time(),
+                        "from": len(self.roster)
+                        + (1 if reason == "shrink" else -1),
+                        "joining": joining}
+        print(f"[tpuflow_torch] gang {reason}: generation {self.generation}"
+              f" over members {sorted(self.roster)} (deadline "
+              f"{timeout:.0f}s)")
+
+    def exited(self, i: int, rc: int):
+        """Member ``i`` exited ``rc`` != 0: None (forgiven, counted out or
+        shrunk) or the classic failure."""
+        if i in self.awaiting_join:
+            # The relaunch died before it asked to join: the shrunk gang
+            # goes on without it.
+            self.awaiting_join.discard(i)
+            return None
+        if i in membership.done_members(self.mdir):
+            # Its step body finished (a crash in its exit path).
+            self.rcs[i] = 0
+            return None
+        if i not in self.roster:
+            return None
+        survivors = {j for j in self.roster
+                     if j != i and self.rcs[j] in (None, 0)}
+        if (i == 0 or self.forming is not None
+                or self.resizes >= self.runner.max_resizes
+                or len(survivors) < self.floor):
+            why = ("the coordinator" if i == 0 else "a re-form in flight"
+                   if self.forming is not None else "the resize budget"
+                   if self.resizes >= self.runner.max_resizes
+                   else f"below the floor of {self.floor}")
+            if rc == REQUEUE_EXIT_CODE:
+                obs.event("flow.preempt", step=self.step_name, member=i)
+                return ("preempt", i, "requeue")
+            self.runner._member_failed(self.step_name, self.tdir, i, rc)
+            return ("member_failed", i,
+                    f"member {i} exited {rc} (elastic fallback: {why})")
+        self.roster.discard(i)
+        attrs = {"step": self.step_name, "member": i, "rc": rc,
+                 "survivors": len(self.roster),
+                 "log_tail": self.runner._log_tail(self.tdir, i, limit=500)}
+        if self.runner._obs_dir:
+            path = obs.flight_path(self.runner._obs_dir, i)
+            if os.path.exists(path):
+                attrs["flight"] = path
+        obs.event("flow.member_lost", **attrs)
+        self._announce("shrink")
+        if i not in self.suppressed:
+            self.pending_rejoin.append(i)
+        return None
+
+    def poll(self):
+        """One supervisor poll of the re-form machinery: None or the
+        ``reform_timeout`` failure."""
+        if self.forming is not None:
+            plan = self.forming["plan"]
+            if self.roster <= membership.joined_members(self.mdir,
+                                                        plan.generation):
+                dur = time.monotonic() - self.forming["t0"]
+                rec = obs.recorder()
+                if rec is not None:
+                    rec.record("span", "flow.gang_resize",
+                               ts=self.forming["ts"], dur_s=dur,
+                               step=self.step_name,
+                               generation=plan.generation,
+                               reason=plan.reason,
+                               from_members=self.forming["from"],
+                               to_members=len(self.roster))
+                # A member's first fence in the new generation trails its
+                # restore: its stall clock starts at its next stamp.
+                for j in self.roster:
+                    with contextlib.suppress(OSError):
+                        os.unlink(os.path.join(self.tdir, f"heartbeat_{j}"))
+                print(f"[tpuflow_torch] gang generation {plan.generation} "
+                      f"formed ({plan.reason} -> {len(self.roster)} "
+                      f"members, {dur:.1f}s)")
+                self.forming = None
+                self.formed_at = time.monotonic()
+            elif time.time() > plan.deadline:
+                return ("reform_timeout", None,
+                        f"generation {plan.generation} ({plan.reason}) "
+                        f"missed its {self.runner.reform_timeout_s:.0f}s "
+                        "re-form deadline; falling back to the requeue")
+        if self.forming is None and self.pending_rejoin and (
+                all(os.path.exists(os.path.join(self.tdir, f"heartbeat_{j}"))
+                    for j in self.roster if self.rcs[j] is None)
+                or time.monotonic() - self.formed_at
+                > REJOIN_HOLD_S):
+            m = self.pending_rejoin.pop(0)
+            self.procs[m] = self.launch_member(m, rejoin=True)
+            self.rcs[m] = None
+            self.awaiting_join.add(m)
+        if self.forming is None and self.awaiting_join:
+            ready = membership.join_requests(self.mdir) & self.awaiting_join
+            if ready:
+                m = min(ready)
+                self.awaiting_join.discard(m)
+                membership.clear_join_request(self.mdir, m)
+                self.roster.add(m)
+                self._announce("grow", joining=m)
+        return None
+
+    def finished(self) -> bool:
+        """Every roster member exited cleanly and nothing is in flight, or
+        a generation is forming that no fence will see: every member it
+        keeps has finished the step body already (a joining member is a
+        straggler, reaped with the gang)."""
+        if self.forming is None:
+            return all(self.rcs[j] is not None for j in self.roster)
+        joining = self.forming["joining"]
+        return all(self.rcs[j] == 0 for j in self.roster if j != joining)
+
+    def verdict(self, failure):
+        """The step's verdict: a missed re-form deadline is reported as a
+        member failure, so ``@retry`` requeues the world as without
+        elasticity."""
+        if failure is None and self.resizes:
+            print(f"[tpuflow_torch] elastic gang step {self.step_name!r} "
+                  f"completed after {self.resizes} resize(s), final "
+                  f"generation {self.generation}")
+        if failure is not None and failure[0] == "reform_timeout":
+            return ("member_failed", failure[1], failure[2])
+        return failure
 
 
 def _takes_inputs(fn) -> bool:

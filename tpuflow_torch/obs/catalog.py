@@ -30,6 +30,19 @@ CATALOG: dict[str, tuple[str, str]] = {
         "step, so the report says where the member stalled); the gang is "
         "killed",
     ),
+    # Elastic gang: a member loss becomes a mesh resize at a step fence.
+    "flow.member_lost": (
+        "event",
+        "elastic supervisor: a gang member died (member, rc, log tail, "
+        "flight, survivor count) and the gang SHRINKS over the survivors "
+        "instead of failing the step (contrast flow.member_failed)",
+    ),
+    "flow.gang_resize": (
+        "span",
+        "one mesh re-form, announce -> every roster member joined the new "
+        "generation (generation, reason shrink|grow, from/to member "
+        "counts)",
+    ),
     # --------------------------------------------------------------- train
     "train.report": ("event", "one TrainContext.report: step + metrics"),
     # -------------------------------------------------------------- health
@@ -123,6 +136,12 @@ CATALOG: dict[str, tuple[str, str]] = {
         "bounded ring of recent events, the launch fingerprint and the "
         "faulting stack — referenced from the supervisor's "
         "flow.member_failed event",
+    ),
+    # ---------------------------------------------------------------- dist
+    "dist.mesh_generation": (
+        "gauge",
+        "the mesh generation this member formed (elastic gang: 0 at "
+        "launch, one more at every shrink or grow; members and reason)",
     ),
 }
 

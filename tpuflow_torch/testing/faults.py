@@ -11,11 +11,12 @@ Grammar (one spec per entry)::
     member_exit:<rank>@step<k>   die (os._exit(1)) on member <rank> at the
                                  end of train step/report <k>
     member_lost:<rank>@step<k>   like member_exit, but permanent capacity
-                                 loss (the elastic supervisor, not ported
-                                 yet, suppresses the relaunch)
+                                 loss: the elastic supervisor
+                                 (``flow/runner.py``) shrinks the gang and
+                                 does not relaunch the member
     rejoin_delay:<seconds>@<rank>
                                  a relaunched member sleeps before asking
-                                 to rejoin the elastic gang (parsed only)
+                                 to rejoin the elastic gang
     preempt:<rank>@step<k>       set the preemption flag on member <rank>
                                  at the end of step <k> (a simulated
                                  SIGTERM: the loop drains a checkpoint and
@@ -46,7 +47,8 @@ Grammar (one spec per entry)::
     replica_kill:<id>@<t>, replica_stall:<id>@<t>, prefill_kill:<id>@<t>
                                  serving chaos (parsed only)
 
-Hooks: ``maybe_rendezvous_delay`` (gang exec), ``step_boundary`` (the
+Hooks: ``maybe_rendezvous_delay`` and ``maybe_rejoin_delay`` (gang
+exec), ``step_boundary`` (the
 train loops and ``TrainContext.report``), ``grad_poison`` (the train
 loops, before a step), ``maybe_stall_heartbeat`` (``utils/heartbeat.py``,
 after a stamp), ``ckpt_io_fault``
@@ -275,6 +277,18 @@ def maybe_rendezvous_delay() -> None:
     """Gang-bootstrap hook: called before the process group forms."""
     for f in matching("rendezvous_delay"):
         if f.rank is None or f.rank == _RANK:
+            time.sleep(f.value or 0.0)
+
+
+def maybe_rejoin_delay() -> None:
+    """Elastic-rejoin hook (gang exec): a relaunched member sleeps before
+    it asks to join the next (grow) generation, so the grow fence races
+    the survivors' step fences."""
+    for f in matching("rejoin_delay"):
+        if f.rank == _RANK:
+            print(f"[faults] rejoin_delay: sleeping {f.value}s before the "
+                  "join request", file=sys.stderr)
+            sys.stderr.flush()
             time.sleep(f.value or 0.0)
 
 

@@ -65,8 +65,21 @@ records the ``health.*`` gauges. The JAX package's ``TPUFLOW_HEALTH*``
 and ``TPUFLOW_PROFILE`` are the arguments ``health`` (a ``HealthConfig``
 or a bool) and ``profile``.
 
-What the JAX leg does beyond that raises ``NotImplementedError`` naming
-the ROADMAP item: elastic re-form. Nothing is silently ignored.
+In an elastic gang (the process's ``dist/membership.py`` configured, as
+``FlowRunner(elastic=True)`` configures its members) the FSDP leg is a
+loop of mesh generations, as the JAX leg's: at every step boundary the
+members agree on a pending generation (``membership.fence``); at a grow
+they commit the current step with its loader cursor, after a loss they
+abandon the save that can no longer commit, and a collective that died
+with a peer is checked against the supervisor's plan. Then the world is
+torn down and formed again (``quiesce_and_reform``), and the next
+generation resumes from the newest committed step, resharded to its
+world: the ``data`` axis absorbs the resize, the model-parallel axes stay
+(a world they do not divide fails loudly). Every epoch's save commits
+before the next epoch (a loss then resumes from it), and the per-step
+record is cut back to the resumed step. The pipeline leg cannot absorb a
+lost stage: its fence commits at a grow, abandons after a loss, and
+raises ``Preempted`` (the requeue).
 """
 
 from __future__ import annotations
@@ -92,6 +105,7 @@ from tpuflow_torch.ckpt.tree import (
 )
 from tpuflow_torch import dist, obs
 from tpuflow_torch.data.lm import make_lm_loaders
+from tpuflow_torch.dist import membership
 from tpuflow_torch.device import resolve_device
 from tpuflow_torch.models.gpt2 import GPT2, GPT2Config
 from tpuflow_torch.obs.health import (
@@ -126,8 +140,6 @@ from tpuflow_torch.train.step import (
 )
 from tpuflow_torch.utils import heartbeat
 
-# The ROADMAP Queue 1 item that will lift what still raises.
-ROADMAP_ELASTIC = "ROADMAP Queue 1 item 12c-3 (elastic gangs)"
 # The step metrics a fence reads, in one host copy.
 _FENCE_KEYS = ("loss", "grad_norm", "nonfinite", "update_norm", "param_norm")
 
@@ -329,24 +341,29 @@ class GptTrainResult:
     checkpoint_io: dict | None = None
 
 
-def _deferred(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet: {item}")
-
-
 def mesh_axes(cfg: GptTrainConfig) -> dict[str, int]:
     """The named mesh ``train_gpt`` runs ``cfg`` on: ``data`` x ``stage``
     in pipeline mode, else ``data`` x ``fsdp`` x ``tensor`` x ``seq`` x
-    ``expert``."""
+    ``expert``. In a re-formed elastic generation of the FSDP leg the
+    ``data`` axis is the world over the fixed axes' product (the axes
+    as configured when that does not divide the world, which then fails
+    against it)."""
     if cfg.stage_axis > 1:
         return {"data": cfg.data_axis, "stage": cfg.stage_axis}
-    return {"data": cfg.data_axis, "fsdp": cfg.fsdp_axis,
+    axes = {"data": cfg.data_axis, "fsdp": cfg.fsdp_axis,
             "tensor": cfg.tensor_axis, "seq": cfg.seq_axis,
             "expert": cfg.expert_axis}
+    if membership.current_generation() > 0:
+        fixed = math.prod(v for k, v in axes.items() if k != "data")
+        if dist.process_count() % fixed == 0:
+            axes["data"] = dist.process_count() // fixed
+    return axes
 
 
 def _check_supported(cfg: GptTrainConfig, ckpt_dir, elastic: bool) -> None:
-    """Raise for every option of the JAX recipe the port does not run, and
-    for a mesh the world does not fill."""
+    """Raise for every option of the JAX recipe the port does not run, for
+    a mesh the world does not fill, for ``elastic`` outside an elastic
+    gang and for an elastic gang over NCCL."""
     if cfg.stage_axis > 1 and cfg.optimizer_name == "adafactor":
         raise ValueError(
             "adafactor in pipeline mode (stage_axis > 1): the JAX leg "
@@ -369,9 +386,16 @@ def _check_supported(cfg: GptTrainConfig, ckpt_dir, elastic: bool) -> None:
     if cfg.ckpt_dtype and ckpt_dir is None:
         raise ValueError(f"ckpt_dtype={cfg.ckpt_dtype!r} casts checkpoints, "
                          "but no ckpt_dir was given to save them in")
-    if elastic:
-        raise _deferred("elastic mesh re-form (elastic=True)",
-                        ROADMAP_ELASTIC)
+    if elastic and not membership.enabled():
+        raise ValueError(
+            "elastic=True outside an elastic gang: this process has no "
+            "membership directory (FlowRunner(elastic=True) configures its "
+            "gang members; elsewhere call dist.membership.configure(dir, "
+            "member=))")
+    if membership.enabled() and ckpt_dir is None:
+        raise ValueError("an elastic gang re-forms from its checkpoints: "
+                         "train_gpt needs a ckpt_dir")
+    membership.check_world()
 
 
 def _init_model(model_cfg: GPT2Config, device, seed: int | None = 0) -> GPT2:
@@ -468,6 +492,53 @@ def _step_boundary(mgr, step: int, tree, data_state: dict,
     raise Preempted(f"drained checkpoint at step {step}")
 
 
+def _reform_fence(mgr, step: int, tree, data_state: dict,
+                  pipeline: bool = False) -> None:
+    """An elastic loop's fence after the step boundary (the JAX legs'
+    ``drain_reform`` and ``drain_reform_fallback``): with a generation
+    pending on every process, hand the state to the checkpoint and unwind.
+    At a grow every member is alive, so ``step`` (``tree()``, with the
+    loader cursor ``data_state``) commits unless it is already the newest
+    committed step; after a loss the save in flight cannot commit and is
+    abandoned (the resume replays from the last committed step). Then the
+    manager closes and ``MeshReform`` unwinds to the generation loop, or,
+    for the pipeline (``pipeline``: a lost stage cannot be absorbed),
+    ``Preempted`` to the requeue."""
+    plan = membership.fence()
+    if plan is None:
+        return
+    if mgr is not None and plan.reason == "grow":
+        if mgr.latest_step() != step:
+            mgr.save(step, tree(), metrics={}, data_state=data_state)
+        mgr.wait_until_finished()
+    _unwind(plan, mgr, pipeline)
+
+
+def _member_lost(exc: Exception, mgr, pipeline: bool = False) -> None:
+    """A loop's error in an elastic gang: a collective that died with a
+    peer becomes ``MeshReform`` (the pipeline's ``Preempted``) once the
+    supervisor's plan is out, the save in flight abandoned and the
+    manager closed; any other error (no plan within ``REFORM_WAIT_S``)
+    goes on unchanged."""
+    plan = membership.reform_after_failure(exc)
+    if plan is None:
+        raise exc
+    _unwind(plan, mgr, pipeline, exc)
+
+
+def _unwind(plan, mgr, pipeline: bool, cause=None) -> None:
+    """Abandon what is still in flight (nothing after a grow's commit),
+    close the manager, and raise ``MeshReform`` (the pipeline:
+    ``Preempted``)."""
+    if mgr is not None:
+        mgr.abandon_pending()
+        mgr.close()
+    if pipeline:
+        raise Preempted(f"mesh re-form (generation {plan.generation}) "
+                        "requeues the pipeline leg") from cause
+    raise membership.MeshReform(plan) from cause
+
+
 class _Health:
     """The loops' per-step health work (the JAX legs' ``settle`` and the
     poison and profile hooks around it): ``before`` a step, the fault
@@ -527,6 +598,11 @@ class _Health:
         if self.profile is not None:
             self.profile.maybe_stop(step)
 
+    def cut(self, step: int) -> None:
+        """Drop the per-step record past ``step`` (a resume replays it)."""
+        keep = bisect.bisect_right(self.steps, step)
+        del self.steps[keep:], self.step_losses[keep:], self.step_s[keep:]
+
     def close(self) -> None:
         if self.profile is not None:
             self.profile.close()
@@ -556,8 +632,7 @@ class _Health:
         restored = mgr.restore(exc.target, abstract_state=tmpl)
         load_checkpoint_tree(state, restored)
         del restored
-        keep = bisect.bisect_right(self.steps, state.step)
-        del self.steps[keep:], self.step_losses[keep:], self.step_s[keep:]
+        self.cut(state.step)
         meta = mgr.restore_metadata(state.step)
         cursor = _resume_cursor(meta.get("data_state"), state.step,
                                 cfg.steps_per_epoch, cfg.epochs, seed)
@@ -630,8 +705,10 @@ def train_gpt(
     the JAX package's ``TPUFLOW_HEALTH*``). ``profile``: ``(start, stop)``,
     the optimizer steps to trace with ``torch.profiler`` into the obs
     recorder's ``profile/`` directory (its ``TPUFLOW_PROFILE``; None: no
-    trace). ``elastic`` names the JAX leg's elastic re-form, which is not
-    ported; setting it raises. ``faults``: a fault plan
+    trace). ``elastic``: assert that this process is in an elastic gang
+    (a ``ValueError`` names what is missing otherwise); the re-forms run
+    whenever the process's membership is configured, as in the JAX leg
+    (see the module docstring). ``faults``: a fault plan
     (``testing/faults.py``) installed for the call as this process's rank
     (None: the process's own, if any).
     ``preempt_grace_s``: the termination grace after a SIGTERM that
@@ -646,7 +723,9 @@ def train_gpt(
     package's ``TPUFLOW_CKPT_FORMAT=orbax``); a resume reads either."""
     cfg.validate()
     _check_supported(cfg, ckpt_dir, elastic)
-    with faults_mod.installing(faults, rank=dist.process_index()):
+    rank = (membership.member_id() if membership.enabled()
+            else dist.process_index())
+    with faults_mod.installing(faults, rank=rank):
         return _train_gpt(cfg, ckpt_dir, resume_checkpoint, log, device,
                           flash_bwd, comm_overlap, ckpt_format,
                           preempt_grace_s, ckpt_local_dir, health, profile)
@@ -683,15 +762,42 @@ def _train_fsdp(cfg: GptTrainConfig, model_cfg: GPT2Config, dev, ckpt_dir,
                 resume_checkpoint, log, comm_overlap: bool, ckpt_format: str,
                 grace_s: float | None, local_dir: str | None, hl: _Health
                 ) -> GptTrainResult:
-    """The JAX FSDP leg (``_run_fsdp_generation``) on this process's
-    device, sharded over the world's processes when it has several."""
+    """The JAX FSDP leg on this process's device, sharded over the world's
+    processes when it has several: one pass a mesh generation (one in
+    all, outside an elastic gang). A ``MeshReform`` has handed the state
+    to the checkpoint; the next generation forms and resumes from the
+    newest committed step (never a cross-run handle again)."""
+    while True:
+        try:
+            return _run_fsdp_generation(
+                cfg, model_cfg, dev, ckpt_dir, resume_checkpoint, log,
+                comm_overlap, ckpt_format, grace_s, local_dir, hl)
+        except membership.MeshReform as rf:
+            if membership.member_id() == 0:
+                log(f"[gpt] mesh re-form -> generation {rf.plan.generation}"
+                    f" ({rf.plan.reason}, {rf.plan.num_processes} members)")
+            plan = rf.plan
+        membership.quiesce_and_reform(plan)
+        resume_checkpoint = None
+
+
+def _run_fsdp_generation(cfg: GptTrainConfig, model_cfg: GPT2Config, dev,
+                         ckpt_dir, resume_checkpoint, log,
+                         comm_overlap: bool, ckpt_format: str,
+                         grace_s: float | None, local_dir: str | None,
+                         hl: _Health) -> GptTrainResult:
+    """One mesh generation of the FSDP leg (the JAX
+    ``_run_fsdp_generation``)."""
+    generation = membership.current_generation()
+    elastic = membership.enabled()
     mesh = None
     if dist.process_count() > 1:
         mesh = dist.make_mesh(dev, mesh_axes(cfg))
         dev = mesh.device
         if dist.process_index() != 0:
             log = _quiet
-        log(f"[gpt] mesh {dict(mesh.shape)}, preset {cfg.preset}")
+        log(f"[gpt] mesh {dict(mesh.shape)}, preset {cfg.preset}"
+            + (f", generation {generation}" if generation else ""))
     multi = mesh is not None
     loader, val_loader = make_lm_loaders(
         cfg.batch_size, cfg.steps_per_epoch, cfg.seq_len,
@@ -774,6 +880,8 @@ def _train_fsdp(cfg: GptTrainConfig, model_cfg: GPT2Config, dev, ckpt_dir,
         log(f"[gpt] in-run resume from step {state.step} → epoch "
             f"{start_epoch}"
             + (f" (replaying from batch {skip})" if skip else ""))
+    # An earlier generation's steps past the resumed one are replayed.
+    hl.cut(state.step)
     cold = True
     while True:
         try:
@@ -806,6 +914,11 @@ def _train_fsdp(cfg: GptTrainConfig, model_cfg: GPT2Config, dev, ckpt_dir,
                         mgr, state.step,
                         lambda: checkpoint_tree(state, scan_layers=scan),
                         loader.state_dict(cursor), grace_s)
+                    if elastic:
+                        _reform_fence(
+                            mgr, state.step,
+                            lambda: checkpoint_tree(state, scan_layers=scan),
+                            loader.state_dict(cursor))
                 epoch_s = time.monotonic() - t_epoch
                 tok_s = n_tokens / max(epoch_s, 1e-9) if n_tokens else None
                 epoch_loss = sum(losses) / len(losses)
@@ -832,12 +945,28 @@ def _train_fsdp(cfg: GptTrainConfig, model_cfg: GPT2Config, dev, ckpt_dir,
                         data_state={"epoch": epoch + 1, "batch_index": 0,
                                     "seed": loader.seed},
                     )
+                    if elastic:
+                        # A sharded save commits at the next drain, which
+                        # comes only with the next epoch's save: a loss
+                        # before it would strand this one and replay the
+                        # epoch (the JAX leg commits eagerly from
+                        # generation 1 on, for the same reason).
+                        mgr.wait_until_finished()
             break
         except (TrainingDiverged, _RollbackSignal) as exc:
             start_epoch, skip = hl.recover(exc, cfg, state, mgr, scan,
                                            loader.seed, log)
             history = history[:start_epoch]
             epoch_records = epoch_records[:start_epoch]
+        except (membership.MeshReform, Preempted):
+            raise
+        except Exception as exc:
+            # A collective died mid-epoch: in an elastic gang a dead
+            # peer's sockets close at once, and this is where a survivor
+            # first learns of it.
+            if not elastic:
+                raise
+            _member_lost(exc, mgr)
     checkpoint = None
     if mgr is not None:
         mgr.wait_until_finished()
@@ -866,8 +995,9 @@ def _train_pipeline(cfg: GptTrainConfig, model_cfg: GPT2Config, dev,
     blocks sharded by layer slice, per-epoch saves of the pipeline-sharded
     state whose metric is the epoch's train loss (``val_loss``), the
     in-run resume from the newest committed step, the health monitor's
-    rollback and the preemption drain at every step boundary, no
-    validation, no EMA, no sample."""
+    rollback, the preemption drain and (in an elastic gang) the re-form
+    fence's requeue at every step boundary, no validation, no EMA, no
+    sample."""
     mesh = dist.make_mesh(dev, mesh_axes(cfg))
     dev = mesh.device
     if dist.process_index() != 0:
@@ -905,6 +1035,7 @@ def _train_pipeline(cfg: GptTrainConfig, model_cfg: GPT2Config, dev,
         log("[gpt] pipeline-sharded state restored"
             + (" (in-run resume)" if resume_step is not None else ""))
     train_step = make_pipeline_step(cfg.microbatches)
+    elastic = membership.enabled()
     history = []
     start_epoch = skip = 0
     if resume_step is not None:
@@ -938,6 +1069,11 @@ def _train_pipeline(cfg: GptTrainConfig, model_cfg: GPT2Config, dev,
                         mgr, state.step,
                         lambda: checkpoint_tree(state, scan_layers=True),
                         loader.state_dict(cursor), grace_s)
+                    if elastic:
+                        _reform_fence(
+                            mgr, state.step,
+                            lambda: checkpoint_tree(state, scan_layers=True),
+                            loader.state_dict(cursor), pipeline=True)
                 epoch_loss = sum(losses) / len(losses)
                 history.append(epoch_loss)
                 log(f"[gpt] pipeline epoch {epoch}: loss={epoch_loss:.4f}")
@@ -948,11 +1084,20 @@ def _train_pipeline(cfg: GptTrainConfig, model_cfg: GPT2Config, dev,
                              data_state={"epoch": epoch + 1,
                                          "batch_index": 0,
                                          "seed": loader.seed})
+                    if elastic:
+                        # A re-form may strand a deferred commit.
+                        mgr.wait_until_finished()
             break
         except (TrainingDiverged, _RollbackSignal) as exc:
             start_epoch, skip = hl.recover(exc, cfg, state, mgr, True,
                                            loader.seed, log)
             history = history[:start_epoch]
+        except Preempted:
+            raise
+        except Exception as exc:
+            if not elastic:
+                raise
+            _member_lost(exc, mgr, pipeline=True)
     checkpoint = None
     if mgr is not None:
         mgr.wait_until_finished()

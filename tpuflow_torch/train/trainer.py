@@ -25,8 +25,22 @@ checkpoint tier, the fault plan and the health policy (the JAX
 package's ``TPUFLOW_CKPT_LOCAL_DIR``, ``TPUFLOW_FAULT`` and
 ``TPUFLOW_HEALTH*``).
 
-Left out, each with its ROADMAP Queue 1 item: the elastic mesh re-form
-(``membership``, item 12c-3) and goodput (item 15).
+In an elastic gang (``dist/membership.py``) ``report`` is the loop's
+step fence: a pending generation (``membership.fence``, on which the
+members agree) raises ``MeshReform`` before the report lands, and a
+report whose fence, barrier or save fails because a peer died raises it
+once the supervisor's plan names the survivors (without a plan the
+error goes on unchanged). The fence is a collective, so a step rank 0
+commits is one every member of the generation reached. ``fit`` then
+re-forms: at a grow it commits what is in flight (abandoning it if that
+fails), after a loss it abandons it, closes the manager, joins the next
+generation (``quiesce_and_reform``) and runs the loop body again on the
+new world, which resumes from ``latest_step()``; the metrics reported so
+far carry over, and a ``num_workers`` set for the first world is clamped
+to the new one. From generation 1 on every save commits before
+``report`` returns.
+
+Left out, with its ROADMAP Queue 1 item: goodput (item 15).
 """
 
 from __future__ import annotations
@@ -43,6 +57,7 @@ import torch
 from tpuflow_torch import dist, obs
 from tpuflow_torch.ckpt import Checkpoint, CheckpointManager
 from tpuflow_torch.device import resolve_device
+from tpuflow_torch.dist import membership
 from tpuflow_torch.obs.health import (
     HealthConfig,
     HealthMonitor,
@@ -192,11 +207,19 @@ class TrainContext:
         nothing and raises ``TrainingDiverged``; with ``state``, save it
         as step ``step``'s checkpoint (asynchronous on one process;
         committed before the barrier on several, so every rank sees it,
-        and on a retried or requeued attempt), with the loader cursor
-        ``data_state``; append ``metrics.jsonl`` on rank 0; end at a
-        barrier. Then the step boundary: the heartbeat, the fault plan's
-        hook, and with the preemption flag up the save just made is the
-        drain checkpoint: wait for it and raise ``Preempted``."""
+        and on a retried or requeued attempt or a re-formed generation),
+        with the loader cursor ``data_state``; append ``metrics.jsonl`` on
+        rank 0; end at a barrier. Then the step boundary: the heartbeat,
+        the fault plan's hook, and with the preemption flag up the save
+        just made is the drain checkpoint: wait for it and raise
+        ``Preempted``. In an elastic gang a pending generation raises
+        ``MeshReform`` first, and a failed barrier or save raises it once
+        the supervisor's plan is out (see the module docstring)."""
+        # Every member reached this step before rank 0 commits it: the
+        # fence is a collective in an elastic gang.
+        plan = self._reforming(membership.fence)
+        if plan is not None:
+            raise membership.MeshReform(plan)
         metrics = {k: (float(v) if hasattr(v, "__float__") else v)
                    for k, v in metrics.items()}
         self._reported.append(metrics)
@@ -220,14 +243,29 @@ class TrainContext:
                         hint="report skipped the checkpoint save; the "
                         "newest committed step is clean — a gang retry "
                         "resumes from it")
+        self._reforming(lambda: self._land(save_step, metrics, state,
+                                           data_state))
+        heartbeat.beat(save_step)
+        faults_mod.step_boundary(save_step)
+        if preemption_requested():
+            if self._manager is not None:
+                self._manager.wait_until_finished()
+            raise Preempted(
+                f"preempted; drained checkpoint at step {save_step}")
+
+    def _land(self, save_step: int, metrics: dict, state,
+              data_state) -> None:
+        """The report's save (rank 0), ``metrics.jsonl`` line and barrier."""
         rank0 = dist.process_index() == 0
         if state is not None and self._manager is not None and rank0:
             self._manager.save(save_step, state, metrics=metrics,
                                data_state=data_state)
-            if dist.process_count() > 1 or launch_attempt() > 0:
-                # A retried attempt commits each step before going on, so
-                # a crash that repeats at a later step cannot keep the
-                # resume point from moving.
+            if (dist.process_count() > 1 or launch_attempt() > 0
+                    or membership.current_generation() > 0):
+                # A retried attempt (or a re-formed generation, which may
+                # replay) commits each step before going on, so a crash
+                # that repeats at a later step cannot keep the resume
+                # point from moving.
                 self._manager.wait_until_finished()
         if self.run_config.storage_path and rank0:
             with open(os.path.join(self.run_config.storage_path,
@@ -236,13 +274,19 @@ class TrainContext:
                                     **metrics}) + "\n")
         logger.info("report[%d]: %s", len(self._reported), metrics)
         dist.barrier(self.mesh)
-        heartbeat.beat(save_step)
-        faults_mod.step_boundary(save_step)
-        if preemption_requested():
-            if self._manager is not None:
-                self._manager.wait_until_finished()
-            raise Preempted(
-                f"preempted; drained checkpoint at step {save_step}")
+
+    @staticmethod
+    def _reforming(fn):
+        """``fn()``; an error of a collective whose peer died (the
+        supervisor's plan appears within ``REFORM_WAIT_S``) becomes
+        ``MeshReform``, any other error goes on unchanged."""
+        try:
+            return fn()
+        except Exception as e:
+            plan = membership.reform_after_failure(e)
+            if plan is None:
+                raise
+            raise membership.MeshReform(plan) from e
 
     def latest_step(self) -> int:
         """The newest committed checkpoint step, 0 when there is none: a
@@ -291,8 +335,16 @@ class Trainer:
         sc = self.scaling_config
         device = resolve_device(sc.device)
         dist.initialize(device, timeout_s=sc.rendezvous_timeout_s)
+        membership.check_world()
         world = dist.process_count()
-        if sc.num_workers not in (None, -1, world):
+        n = sc.num_workers
+        if n not in (None, -1, world) and membership.current_generation():
+            # A re-formed elastic world: the one the caller asked for is
+            # gone, and the data axis absorbs the resize.
+            logger.info("elastic generation %d: num_workers %d -> %d",
+                        membership.current_generation(), n, world)
+            n = world
+        if n not in (None, -1, world):
             raise ValueError(
                 f"num_workers={sc.num_workers} but the world has {world} "
                 "process(es): the port runs one worker per process (start "
@@ -300,19 +352,56 @@ class Trainer:
         return dist.make_mesh(device)
 
     def fit(self) -> Result:
+        """Run the loop body to its end, once a mesh generation (see the
+        module docstring: an elastic gang re-enters it after each
+        re-form)."""
         global _ACTIVE_CONTEXT
         start = time.monotonic()
+        carry: list[dict[str, Any]] = []
+        reforms = 0
         mesh = self._build_mesh()
-        ctx = TrainContext(mesh, self.run_config)
-        _ACTIVE_CONTEXT = ctx
-        try:
-            with faults_mod.installing(self.run_config.faults,
-                                       rank=dist.process_index()):
-                self.train_loop_per_worker(dict(self.train_loop_config))
-        finally:
-            _ACTIVE_CONTEXT = None
-            if ctx.checkpoint_manager is not None:
-                ctx.checkpoint_manager.wait_until_finished()
+        rank = (membership.member_id() if membership.enabled()
+                else dist.process_index())
+        with faults_mod.installing(self.run_config.faults, rank=rank):
+            while True:
+                ctx = TrainContext(mesh, self.run_config)
+                ctx._reported = list(carry)
+                _ACTIVE_CONTEXT = ctx
+                plan = None
+                try:
+                    self.train_loop_per_worker(dict(self.train_loop_config))
+                except membership.MeshReform as rf:
+                    plan = rf.plan
+                except Exception as e:
+                    # The body's own collective died with a peer.
+                    plan = membership.reform_after_failure(e)
+                    if plan is None:
+                        raise
+                finally:
+                    _ACTIVE_CONTEXT = None
+                    if plan is None and ctx.checkpoint_manager is not None:
+                        ctx.checkpoint_manager.wait_until_finished()
+                if plan is None:
+                    break
+                mgr = ctx.checkpoint_manager
+                if mgr is not None:
+                    if plan.reason == "grow":
+                        # Everyone is alive at a grow: what is in flight
+                        # commits.
+                        try:
+                            mgr.wait_until_finished()
+                        except Exception:
+                            mgr.abandon_pending()
+                    else:
+                        mgr.abandon_pending()
+                    mgr.close()
+                carry = list(ctx._reported)
+                reforms += 1
+                logger.info("mesh re-form: generation %d (%s, %d members)",
+                            plan.generation, plan.reason,
+                            plan.num_processes)
+                membership.quiesce_and_reform(plan)
+                mesh = self._build_mesh()
         dist.barrier(mesh)
         logger.info("fit() finished in %.1fs (%d reports)",
                     time.monotonic() - start, len(ctx._reported))
@@ -328,8 +417,11 @@ class Trainer:
             # After an in-run resume this run reported only its own epochs;
             # the manager's history (rebuilt from the newest committed
             # step, plus this run's saves, a torn commit's too) holds them
-            # all.
-            if len(mgr._metrics_history) > len(metrics_history):
+            # all. After a re-form it is also the one without the steps
+            # the next generation replayed.
+            if mgr._metrics_history and (
+                    reforms or len(mgr._metrics_history)
+                    > len(metrics_history)):
                 metrics_history = [dict(m) for m in mgr._metrics_history]
         return Result(
             metrics=ctx.latest_metrics(),
