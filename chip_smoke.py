@@ -31,7 +31,17 @@ Phases, each fatal on failure (no phase catches an error and carries on):
 4. Serving slice on GPT-2 124M at full width, weights random from a seed:
    ``generate()`` on a 512-token dense prompt (its prefill must launch the
    flash kernel once per layer), then a paged ``ServeEngine`` answering
-   fp and int8 requests, each held equal to a solo ``generate()``.
+   fp and int8 requests, each held equal to a solo ``generate()``. Then
+   disaggregated serving (``disagg_leg``): a prefill-role and a
+   decode-role engine (8 slots, pages of 16) share a page-set store under
+   ``build/``; exact ships of three prompts of 200-600 tokens, fp and
+   int8, imported with no prefill and no flash launch on the decode
+   engine; a suffix resume; a torn set's fallback; three feed admissions
+   (the fp ship prompts again) whose pages promote from a host tier after
+   a churn prompt evicted them. Every request held to a solo ``generate()`` on its numeric path,
+   every part's flash and int8-tile launches to the counts the code
+   implies; ship, load and import seconds, MB/s, and a shipped
+   admission's TTFT beside a local one.
 5. Generation slice on the same model (``generation_phase``): beam search
    (K = 1 equal to greedy; K = 4 prefilled once at width B, its scores
    against ``sequence_logprob`` on the flash forward; the fused-native
@@ -260,7 +270,9 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    count there is 0; the wide-head kernels at D = 512, their launches the
    wide-head runs the main paths' counters read; ``flow_launches``: the
    flash kernels' launches in the flow phase; ``generation_launches``:
-   those of the generation phase; ``recipe_launches``: those of phase 11;
+   those of the generation phase; ``disagg_launches``: those of phase
+   4's disaggregated leg (the flash forward, the int8 tiles);
+   ``recipe_launches``: those of phase 11;
    ``fsdp_launches``: those of phase 12's leg (b), both ranks';
    ``tp_launches``: those of phase 13's two training legs, every rank's;
    ``seq_launches``: those of phase 14's legs (a) and (b), every rank's;
@@ -285,7 +297,8 @@ by ``git archive``) and with this checkout's, in turns (DIR, this, this,
 DIR), each in a process of its own that builds its kernels, and writes
 them to ``chiprun_out/wide_compare.json``.
 
-``python3 chip_smoke.py --recipes`` builds the kernels and runs only
+``python3 chip_smoke.py --slice`` builds the kernels and runs only phase
+4, into ``chiprun_out/slice.json``; ``--recipes`` only
 phase 11, into ``chiprun_out/recipes.json``; ``--fsdp`` only phase 12,
 into ``chiprun_out/fsdp.json`` (its ranks are ``--fsdp-rank`` processes
 of this script); ``--tp`` only phase 13, into ``chiprun_out/tp.json``
@@ -438,6 +451,23 @@ PREFILL_M = 512   # the widest prefill bucket the slice phase uses
 GEN_PROMPT = 512
 NEW_TOKENS = 32
 ENGINE_LENS = (5, 300, 64, 17, 129, 250, 33, 200)
+# Phase 4's disaggregated leg: a prefill and a decode engine (8 slots,
+# pages of 16) sharing a store under build/. Exact ships of three prompts
+# a numeric path, a suffix resume (a shipped base, the suffix prefilled),
+# a torn set's fallback (the first fp ship's set, torn after its import),
+# and feed admissions through a host tier: each fp ship prompt (full pages
+# + 1 token) is evicted by a churn prompt that needs the whole 40-page
+# pool, then re-admitted. The fp prompts' solo generate() serves the
+# exact import, the fallback and the feed; the int8 ships are the engine
+# requests' int8 prompts of DISAGG_INT8_MIN tokens or more (200, 250, 300),
+# held to the solo generate() the engine's check ran.
+DISAGG_PAGE = 16
+DISAGG_LENS = (209, 417, 593)       # fp: 13, 26, 37 full pages + 1 token
+DISAGG_INT8_MIN = 200
+DISAGG_SUFFIX = (320, 64)   # the shipped base, the suffix it is extended by
+FEED_CHURN = 630
+FEED_POOL = 41              # pages, the trash page included
+FEED_HOST_MB = 128.0
 # The generation phase: beam width; speculative prompts repeat a 32-token
 # segment to 512 tokens, drafts of 4, 64 new tokens; weight-only decode
 # is timed after 128-token prompts. Beam scores against sequence_logprob
@@ -1110,10 +1140,13 @@ def slice_phase(torch, smi):
                              f"{im.launches}): each tile must run")
     n_tok = sum(len(r.tokens) for r in reqs)
     reqs_out = []
+    int8_solos = []  # the disaggregated leg's int8 ships and their tokens
     for p, q, r in zip(prompts, flags, reqs):
         solo_model = eng._qmodel if q else model
         solo = generate(solo_model, p[None, :], max_new_tokens=NEW_TOKENS,
                         temperature=0.0)[0].cpu().numpy()
+        if q and p.size >= DISAGG_INT8_MIN:
+            int8_solos.append((p, solo))
         if not (r.done and np.array_equal(r.result(), solo)):
             raise AssertionError(
                 f"engine request (len {p.size}, int8={q}) differs from solo "
@@ -1134,7 +1167,235 @@ def slice_phase(torch, smi):
           f"{int8_launches} [{smi}]")
     res["engine_profile"] = engine_profile(torch, model, prompts, flags,
                                            eng_s)
+    del eng
+    res["disagg"] = disagg_leg(torch, model, rng, smi, int8_solos)
     return res, flash_launches, int8_launches
+
+
+def disagg_leg(torch, model, rng, smi, int8_solos) -> dict:
+    """Disaggregated serving on ``model``: a prefill-role engine ships page
+    sets, a decode-role engine imports them, every request's tokens equal
+    to a solo ``generate()`` on its numeric path. ``int8_solos``: the int8
+    prompts to ship, each with its solo ``generate()`` tokens on the
+    quantized model. Each part's launches are
+    read from zero and, on the card, held to the counts the code implies:
+    a ship is one prefill (flash once a layer; an int8 ship also one
+    prefill-tile call a product), an exact import none, a feed admission
+    none. Off the card (the model on the CPU) the wrappers launch nothing
+    and only the tokens are held."""
+    from tpuflow_torch.infer import kv_store
+    from tpuflow_torch.infer.generate import generate
+    from tpuflow_torch.infer.serve import ServeEngine
+    from tpuflow_torch.ops import flash_attention as fa
+    from tpuflow_torch.ops import int8_matmul as im
+
+    t_leg = time.monotonic()
+    cfg = model.config
+    on_card = model.device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    per_prefill = 4 * cfg.n_layer + 1  # int8 products a forward: + LM head
+    store = os.path.join(REPO, "build", "disagg_kv")
+    shutil.rmtree(store, ignore_errors=True)
+    kw = dict(max_slots=8, page_size=DISAGG_PAGE, quant="fused_native",
+              kv_store_dir=store)
+    pf = ServeEngine(model, role="prefill", **kw)
+    dc = ServeEngine(model, role="decode", **kw)
+    totals: dict = {}
+    walls: dict = {}
+
+    def window(what, want, fn):
+        """Run ``fn`` with every counter from 0; on the card, the flash
+        forward's and each int8 tile's launches must be ``want``."""
+        _zero_counters(fa, im)
+        t0 = time.monotonic()
+        out = fn()
+        sync()
+        walls[what] = walls.get(what, 0.0) + time.monotonic() - t0
+        got = dict(flash_fwd=fa.launches, **{
+            "int8_matmul" + ("" if t == "decode" else "_" + t): n
+            for t, n in im.tile_launches.items()})
+        if _counters(fa, im) != _launches(flash_fwd=fa.launches,
+                                          int8_matmul=im.launches):
+            raise AssertionError(f"disagg {what}: a kernel off this path "
+                                 f"launched: {_counters(fa, im)}")
+        if on_card and got != want:
+            raise AssertionError(f"disagg {what}: launches {got}, want "
+                                 f"{want}")
+        for k, n in got.items():
+            totals[k] = totals.get(k, 0) + n
+        return out
+
+    def want(flash=0, decode=0, prefill=0):
+        return dict(flash_fwd=flash, int8_matmul=decode,
+                    int8_matmul_prefill=prefill)
+
+    refs = {(True, p.tobytes()): solo for p, solo in int8_solos}
+
+    def held(what, r, quant, p):
+        """``r``'s tokens against the solo ``generate()`` of ``p`` on its
+        numeric path, run once a prompt and path."""
+        key = (quant, p.tobytes())
+        if key not in refs:
+            t0 = time.monotonic()
+            m = dc._qmodel if quant else model
+            refs[key] = generate(m, p[None, :], max_new_tokens=NEW_TOKENS,
+                                 temperature=0.0)[0].cpu().numpy()
+            walls["solo"] = walls.get("solo", 0.0) + time.monotonic() - t0
+        if not (r.done and np.array_equal(r.result(), refs[key])):
+            raise AssertionError(f"disagg {what} (len {p.size}) differs "
+                                 f"from solo generate(): {r.result()} vs "
+                                 f"{refs[key]}")
+
+    def admitted(r):
+        return next(t for t in r.trace if t["phase"] == "admitted")
+
+    # --- ships: three prompts a numeric path and a suffix's base.
+    vocab = cfg.vocab_size
+    ships = ([(rng.integers(0, vocab, size=L), False) for L in DISAGG_LENS]
+             + [(p, True) for p, _ in int8_solos])
+    base = rng.integers(0, vocab, size=DISAGG_SUFFIX[0])
+    rows = []
+
+    def ship_all():
+        for p, q in ships + [(base, False)]:
+            t0 = time.monotonic()
+            key = pf.ship(p, quantize=q)
+            ship_s = time.monotonic() - t0
+            blob = os.path.getsize(pf.kv_store._blob(key))
+            t0 = time.monotonic()
+            pset = pf.kv_store.load(key)
+            load_s = time.monotonic() - t0
+            rows.append(dict(prompt_len=int(p.size), int8=q, key=key,
+                             pages=pset.n_pages, blob_mb=blob / 1e6,
+                             ship_s=ship_s, load_s=load_s,
+                             ship_mb_s=blob / 1e6 / ship_s,
+                             load_mb_s=blob / 1e6 / load_s))
+
+    window("ships", want(flash=(len(ships) + 1) * cfg.n_layer,
+                         prefill=per_prefill * len(int8_solos)),
+           ship_all)
+    for r in rows[:len(ships)]:
+        print(f"  ship len {r['prompt_len']:4d} int8={r['int8']!s:5}: "
+              f"{r['pages']} pages, {r['blob_mb']:.2f} MB, ship "
+              f"{r['ship_s'] * 1e3:.1f} ms ({r['ship_mb_s']:.0f} MB/s), "
+              f"load {r['load_s'] * 1e3:.1f} ms ({r['load_mb_s']:.0f} "
+              f"MB/s) [{smi}]")
+
+    # --- exact imports: no prefill, no flash launch on the decode engine.
+    reqs = []
+
+    def imports():
+        (p0, q0), r0 = ships[0], rows[0]
+        t0 = time.monotonic()
+        reqs.append(dc.submit(p0, max_new_tokens=NEW_TOKENS, kv_key=r0["key"],
+                              quantize=q0))
+        r0["import_s"] = time.monotonic() - t0
+        dc.step()  # the shipped admission alone: its TTFT
+        for (p, q), r in zip(ships[1:], rows[1:]):
+            t0 = time.monotonic()
+            reqs.append(dc.submit(p, max_new_tokens=NEW_TOKENS,
+                                  kv_key=r["key"], quantize=q))
+            r["import_s"] = time.monotonic() - t0
+        dc.run_until_idle()
+
+    blocks = -(-(NEW_TOKENS - 1) // dc.decode_block)
+    window("imports", want(decode=per_prefill * dc.decode_block * blocks),
+           imports)
+    if dc._prefill_calls:
+        raise AssertionError(f"exact imports ran {dc._prefill_calls} "
+                             "prefills on the decode engine")
+    for (p, q), r, h in zip(ships, rows, reqs):
+        if h.kv_import is None or admitted(h).get("prefilled") != "ship":
+            raise AssertionError(f"the ship of len {p.size} int8={q} was "
+                                 f"not admitted as shipped: {h.trace}")
+        held("exact import", h, q, p)
+        r["ttft_s"] = h.ttft_s
+
+    # --- the first fp set torn, and a suffix resume: one prefill each,
+    # decoded together.
+    blob = pf.kv_store._blob(rows[0]["key"])
+    with open(blob, "r+b") as fh:  # one byte flipped
+        fh.seek(os.path.getsize(blob) // 2)
+        b = fh.read(1)
+        fh.seek(-1, 1)
+        fh.write(bytes([b[0] ^ 0xFF]))
+    torn = ships[0][0]
+    ext = np.concatenate([base, rng.integers(0, vocab,
+                                             size=DISAGG_SUFFIX[1])])
+    fall = {}
+
+    def fallbacks():
+        fall["torn"] = dc.submit(torn, max_new_tokens=NEW_TOKENS,
+                                 kv_key=rows[0]["key"])
+        fall["suffix"] = dc.submit(ext, max_new_tokens=NEW_TOKENS,
+                                   kv_key=rows[-1]["key"])
+        dc.run_until_idle()
+
+    window("fallbacks", want(flash=2 * cfg.n_layer), fallbacks)
+    hs, ht = fall["suffix"], fall["torn"]
+    if hs.kv_import is None or admitted(hs).get("shipped_pages") != \
+            DISAGG_SUFFIX[0] // DISAGG_PAGE:
+        raise AssertionError(f"the suffix resume imported no base pages: "
+                             f"{hs.trace}")
+    if ht.kv_import is not None or "kv_fallback" not in [
+            t["phase"] for t in ht.trace]:
+        raise AssertionError(f"the torn set did not fall back: {ht.trace}")
+    held("suffix resume", hs, False, ext)
+    held("torn fallback", ht, False, torn)
+    if dc._prefill_calls != 2:
+        raise AssertionError(f"suffix and torn ran {dc._prefill_calls} "
+                             "prefills, want 2")
+
+    # --- feed admissions through the host tier, under pool pressure: the
+    # fp ship prompts again, each evicted by a churn prompt, re-admitted.
+    fe = ServeEngine(model, max_slots=1, page_size=DISAGG_PAGE,
+                     n_pages=FEED_POOL, kv_host_mb=FEED_HOST_MB)
+    feeds = []
+    for hot, _ in ships[:len(DISAGG_LENS)]:
+        churn = rng.integers(0, vocab, size=FEED_CHURN)
+
+        def evict():
+            for p in (hot, churn):  # each ends at its admission
+                fe.submit(p, max_new_tokens=1)
+                fe.run_until_idle()
+
+        window("feed evictions", want(flash=2 * cfg.n_layer), evict)
+        if not all(fe.pool.tier.locate(d) == "host" for d in
+                   kv_store.chain_digests(hot, DISAGG_PAGE)):
+            raise AssertionError("the churn prompt left hot pages outside "
+                                 "the host tier")
+        calls = fe._prefill_calls
+
+        def readmit():
+            feeds.append(fe.submit(hot, max_new_tokens=NEW_TOKENS))
+            fe.run_until_idle()
+
+        window("feeds", want(), readmit)
+        h, adm = feeds[-1], admitted(feeds[-1])
+        if fe._prefill_calls != calls or (
+                adm.get("prefilled"), adm.get("promoted_pages")) != (
+                "feed", hot.size // DISAGG_PAGE):
+            raise AssertionError(f"the hot prompt was not fed: {h.trace}")
+        held("feed admission", h, False, hot)
+    shutil.rmtree(store, ignore_errors=True)
+    local_ttft = ht.ttft_s
+    wall_s = time.monotonic() - t_leg
+    parts = ", ".join(f"{k} {v:.2f}" for k, v in walls.items())
+    print(f"disagg: {wall_s:.1f} s ({parts}), {len(ships)} exact ships "
+          f"({len(int8_solos)} int8), imports {walls['imports']:.3f} "
+          f"s with 0 prefills; TTFT shipped {rows[0]['ttft_s'] * 1e3:.2f} "
+          f"ms (+ import {rows[0]['import_s'] * 1e3:.2f} ms) vs local "
+          f"{local_ttft * 1e3:.2f} ms, one prompt of {DISAGG_LENS[0]}; "
+          f"suffix resume and torn fallback exact; {len(feeds)} feed "
+          f"admissions exact, "
+          f"{[h.prompt.size // DISAGG_PAGE for h in feeds]} pages promoted; "
+          f"launches {totals} [{smi}]")
+    return dict(ships=rows, import_wall_s=walls["imports"],
+                ttft_shipped_s=rows[0]["ttft_s"],
+                import_s=rows[0]["import_s"], ttft_local_s=local_ttft,
+                feed_ttft_s=[h.ttft_s for h in feeds],
+                host_spills=fe.pool.tier.spills_host, launches=totals,
+                walls_s=walls, wall_s=wall_s, gpu=smi)
 
 
 def _decode_ms(torch, model, prompt, steps: int = 16) -> float:
@@ -6436,6 +6697,13 @@ def main() -> int:
                   "w") as fh:
             json.dump(el, fh, indent=1, default=float)
         return 0
+    if sys.argv[1:2] == ["--slice"]:
+        sl = slice_phase(torch, smi)[0]
+        os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(REPO, "chiprun_out", "slice.json"),
+                  "w") as fh:
+            json.dump(sl, fh, indent=1, default=float)
+        return 0
     if sys.argv[1:2] == ["--preempt"]:
         pre = preempt_phase(torch, smi)
         os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
@@ -6596,6 +6864,7 @@ def main() -> int:
     # The wide-head kernels (D > 256) at D = 512, with their launches
     # summed over every main path run above (the counters' "_wide" keys).
     main_runs = [sl["generate"]["launches"], sl["engine"]["launches"],
+                 _launches(flash_fwd=sl["disagg"]["launches"]["flash_fwd"]),
                  *gen["launches"].values(),
                  train_n, tr["bf16"]["launches"], tr["split_launches"],
                  tr["split_ckpt"]["resume"]["launches"],
@@ -6688,6 +6957,10 @@ def main() -> int:
     for entry in kernels:
         if entry["name"] in gen_n:
             entry["generation_launches"] = gen_n[entry["name"]]
+        # Phase 4's disaggregated leg: its ships, imports, fallbacks and
+        # feed admissions (the flash forward; the int8 matmul by tile).
+        if entry["name"] in sl["disagg"]["launches"]:
+            entry["disagg_launches"] = sl["disagg"]["launches"][entry["name"]]
     # The flash kernels' launches in phase 11, every training recipe's
     # runs summed (its legs, resumes and flows; f32).
     recipe_runs = [recipes[leg]["launches"] for leg in

@@ -25,7 +25,7 @@ def _port_sources():
 # Every package of the port, with its count of Python modules: a module
 # dropped or left out of the scan fails the count.
 PACKAGES = {"": 2, "ckpt": 6, "data": 4, "dist": 3, "flow": 8, "flows": 6,
-            "infer": 8, "models": 9, "obs": 6, "ops": 5, "parallel": 7,
+            "infer": 9, "models": 9, "obs": 6, "ops": 5, "parallel": 7,
             "testing": 3, "train": 5, "utils": 4}
 
 
@@ -124,6 +124,7 @@ def test_package_imports_with_jax_poisoned():
         "import tpuflow_torch.flows.gpt_eval_flow\n"
         "import tpuflow_torch.infer.beam, tpuflow_torch.infer.score\n"
         "import tpuflow_torch.infer.speculative\n"
+        "import tpuflow_torch.infer.kv_store\n"
         "import tpuflow_torch.models.moe, tpuflow_torch.models.import_hf\n"
         "import tpuflow_torch.obs, tpuflow_torch.obs.recorder\n"
         "import tpuflow_torch.obs.catalog, tpuflow_torch.obs.flight\n"

@@ -142,6 +142,29 @@ def test_unequal_requests_token_exact(engine, pair):
     assert engine.pool.allocated_pages == 0
 
 
+def test_request_done_at_admission_leaves_its_prefix_pages_written(pair):
+    """A request that ends at admission (a budget of one token, or eos
+    first) still writes its prompt pages: they are registered in the
+    prefix cache, and the next request with that prefix shares them.
+    (The JAX engine returns before its insert there, and the second
+    request below reads unwritten pages.)"""
+    _, _, tm = pair
+    eng = ServeEngine(tm, max_slots=2, buckets=[8, 16, 32], decode_block=4,
+                      page_size=8)
+    p = _prompts(0, (17,))[0]
+    want = _solo(tm, p, 6)
+    r1 = eng.submit(p, max_new_tokens=1)
+    eng.run_until_idle(max_iters=10)
+    assert r1.tokens == [int(want[0])]
+    r2 = eng.submit(p, max_new_tokens=6)
+    eng.run_until_idle(max_iters=50)
+    assert eng.pool.prefix_hits == 2  # both full pages shared
+    np.testing.assert_array_equal(r2.result(), want)
+    r3 = eng.submit(p, max_new_tokens=6, eos_id=int(want[0]))
+    eng.run_until_idle(max_iters=10)
+    assert r3.finish_reason == "eos" and r3.tokens == [int(want[0])]
+
+
 def test_interleaved_submission_mid_decode(engine, pair):
     _, _, tm = pair
     p1, p2, p3 = _prompts(2, (5, 12, 7))

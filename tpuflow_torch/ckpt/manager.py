@@ -121,16 +121,6 @@ def local_tier_root(local_dir: str | None, directory: str) -> str | None:
     return os.path.join(os.path.abspath(local_dir), key)
 
 
-def _atomic_write_json(path: str, obj) -> None:
-    """Stage at ``path.tmp``, fsync, publish with one ``os.replace``."""
-    tmp = path + _STAGE_SUFFIX
-    with open(tmp, "wb") as f:
-        f.write(json.dumps(obj).encode("utf-8"))
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
-
-
 def _downcast(tree, dtype_name: str):
     """Floating leaves wider than ``dtype_name`` cast down to it; integer
     and already-narrow leaves pass through."""
@@ -462,11 +452,16 @@ class CheckpointManager:
                     return
                 if self.world > 1 and self.format == "raw":
                     raw.merge_manifests(state_dir, policy=self.policy)
+                # The marker's stage-and-replace write is the one the
+                # KV-page store commits through: one idiom, no drift.
+                from tpuflow_torch.infer import kv_store
+
                 marker = os.path.join(stage_dir, _META_FILE)
-                raw.retry_io(lambda: _atomic_write_json(marker, meta),
-                             op="write_meta", path=marker,
-                             retries=self.policy.retries,
-                             backoff_s=self.policy.backoff_s)
+                raw.retry_io(
+                    lambda: kv_store.atomic_write_json(marker, meta),
+                    op="write_meta", path=marker,
+                    retries=self.policy.retries,
+                    backoff_s=self.policy.backoff_s)
                 raw.retry_io(lambda: os.replace(stage_dir, commit_root),
                              op="commit", path=commit_root,
                              retries=self.policy.retries,

@@ -33,24 +33,47 @@ group's block runs with every other group masked out of its live set (a
 masked row only writes its own frozen frontier columns, which its own
 group overwrites before reading them).
 
+- **Disaggregated prefill and decode.** A ``prefill``-role engine's
+  ``ship`` runs the admission prefill once and commits the request's KV
+  pages, their sha1 digest chain and the first greedy token to a
+  crash-safe store (``infer/kv_store.py``); a ``decode``-role engine's
+  ``submit(kv_key=)`` imports the set and admits the request already
+  prefilled. A prompt that extends a shipped one imports the covered pages
+  and prefills the rest; a torn, missing or mismatched set rides local
+  prefill (the ``kv_fallback`` trace phase), never an error.
+- **Tiered prefix cache.** With ``kv_host_mb`` / ``kv_disk_dir``, a prefix
+  page evicted from the pool spills to host DRAM, then to node-local disk,
+  and a later prompt with that prefix promotes it back instead of
+  recomputing it; the disk tier survives an engine restart.
+
+Admission has three modes: ``ship`` (an exact shipped set: its committed
+first token, no prefill), ``feed`` (restored and shared pages cover
+exactly the first ``L - 1`` prompt tokens: the decode block is fed
+``prompt[L - 1]`` at length ``L - 1``, writes it into a fresh private
+page and emits the first token) and ``prefill`` (the
+classic path, restored pages masked off its page write). Each request
+keeps a lifecycle trace (``ServeRequest.trace``), mirrored as
+``serve.trace`` events when an ``obs`` recorder is configured.
+
 PyTorch runs eagerly, so the JAX engine's jit programs, warmup and
-never-recompile accounting have no counterpart here. Disaggregated roles
-and tiers, ``serve_forever`` and the serving observatory are not ported
-yet (ROADMAP). Where the JAX engine reads ``TPUFLOW_SERVE_*`` knobs, this
-one takes constructor arguments.
+never-recompile accounting have no counterpart here. ``serve_forever``, the
+router and the rest of the serving observatory are not ported yet
+(ROADMAP). Where the JAX engine reads ``TPUFLOW_SERVE_*`` / ``TPUFLOW_KV_*``
+knobs, this one takes constructor arguments.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
-import hashlib
 import time
 
 import numpy as np
 import torch
 
+from tpuflow_torch import obs
 from tpuflow_torch.device import f32_matmul_precision
+from tpuflow_torch.infer import kv_store as _kvstore
 from tpuflow_torch.infer.generate import (
     chunked_prefill,
     normalize_prefill_chunk,
@@ -87,6 +110,20 @@ def resolve_spec_draft(speculative=None) -> int:
     if k < 0:
         raise ValueError(f"speculative draft length must be >= 0, got {k}")
     return k
+
+
+def resolve_serve_role(role=None) -> str:
+    """Serving phase this engine advertises: ``prefill`` takes ship hops,
+    ``decode`` takes admissions, ``both`` (None, the default) is classic
+    colocated serving. The role never gates the engine's behaviour (a
+    decode engine still prefills locally when a shipped set is torn); it
+    is placement advice for a router. A bad value raises."""
+    if role is None:
+        return "both"
+    r = str(role).strip().lower()
+    if r not in ("prefill", "decode", "both"):
+        raise ValueError(f"role must be prefill|decode|both, got {role!r}")
+    return r
 
 
 def resolve_page_size(n_ctx: int, page_size=None) -> int:
@@ -132,6 +169,16 @@ def resolve_buckets(n_ctx: int, buckets=None) -> list[int]:
     return out
 
 
+def _host_view(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in a dtype numpy holds: bfloat16 as its int16 bits."""
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def _device_view(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The inverse of :func:`_host_view` for a pool of ``dtype``."""
+    return t.view(dtype) if dtype == torch.bfloat16 else t
+
+
 class PagePool:
     """Host-side accounting for the paged KV cache: free-list allocation,
     shared-prefix refcounts, and LRU eviction of idle cached prefix pages.
@@ -144,10 +191,20 @@ class PagePool:
     pages are never written) and is keyed by the sha1 of the prompt prefix
     through that page. A matched page's refcount bumps instead of
     allocating; at release, refcount-0 cached pages go IDLE (still
-    matchable) and are only reclaimed LRU-first under pool pressure."""
+    matchable) and are only reclaimed LRU-first under pool pressure.
+
+    Tiered spill: with ``tier_cache`` (a ``kv_store.TierCache``) and a
+    ``page_reader`` (page id -> host bundle), an evicted prefix page's
+    content drops to host DRAM / node-local disk instead of being
+    forgotten, and ``acquire`` extends the digest-chain walk into the lower
+    tiers: matched lower-tier pages are freshly allocated here and reported
+    by :meth:`take_promotions`, so the engine restores their bytes instead
+    of recomputing them. Without a tier cache every path is the untiered
+    pool's."""
 
     def __init__(self, n_pages: int, page_size: int,
-                 prefix_cache: bool = True):
+                 prefix_cache: bool = True, tier_cache=None,
+                 page_reader=None):
         if n_pages < 2:
             raise ValueError(
                 f"n_pages must be >= 2 (page 0 is the reserved trash "
@@ -168,6 +225,10 @@ class PagePool:
         self.prefix_hits = 0
         self.prefix_lookups = 0
         self.evictions = 0
+        self.tier = tier_cache
+        self._page_reader = page_reader
+        self._pending_promote: list[tuple[int, bytes, str]] = []
+        self.tier_hits = 0
 
     @property
     def usable_pages(self) -> int:
@@ -188,12 +249,7 @@ class PagePool:
         """Chain keys for every FULLY-prompt-covered page, in order."""
         if not self.prefix_cache:
             return []
-        p = np.asarray(prompt, np.int32).reshape(-1)
-        ps = self.page_size
-        return [
-            hashlib.sha1(p[: (j + 1) * ps].tobytes()).digest()
-            for j in range(p.size // ps)
-        ]
+        return _kvstore.chain_digests(prompt, self.page_size)
 
     def match_len(self, digests: list[bytes]) -> int:
         """Longest cached prefix-page chain (no side effects)."""
@@ -215,7 +271,21 @@ class PagePool:
         Fresh full-prompt pages register in the prefix cache."""
         digests = self.prefix_digests(prompt)
         matched = min(self.match_len(digests), need)
+        self._pending_promote = []
+        if self.tier is not None:
+            # The chain walk goes on into the lower tiers, contiguously
+            # from where the pool's match broke: each hit gets a fresh
+            # page below (registered like any full-prompt page) whose
+            # bytes the engine restores from the tier.
+            j = matched
+            while j < min(len(digests), need):
+                tier = self.tier.locate(digests[j])
+                if tier is None:
+                    break
+                self._pending_promote.append((j, digests[j], tier))
+                j += 1
         if not self.can_fit(need, matched):
+            self._pending_promote = []
             return None
         self.prefix_lookups += len(digests[:need])
         self.prefix_hits += matched
@@ -235,6 +305,13 @@ class PagePool:
                 self._page_hash[pid] = digests[j]
         return ids, matched
 
+    def take_promotions(self) -> list[tuple[int, bytes, str]]:
+        """The last ``acquire``'s lower-tier matches as ``(page_index,
+        digest, tier)``, consumed by the engine, which fetches each bundle
+        and writes it back into the pool."""
+        out, self._pending_promote = self._pending_promote, []
+        return out
+
     def _alloc_one(self) -> int:
         if self._free:
             return self._free.pop()
@@ -242,6 +319,13 @@ class PagePool:
         d = self._page_hash.pop(pid)
         del self._hash_to_page[d]
         self.evictions += 1
+        if self.tier is not None and self._page_reader is not None:
+            # Spill instead of forget: the page's bytes drop a tier and
+            # stay findable through the tier cache's digest index.
+            tier = self.tier.spill(d, self._page_reader(pid))
+            if tier is not None:
+                obs.event("serve.tier_spill", page=pid, tier=tier)
+        obs.event("serve.page_evict", page=pid)
         return pid
 
     def release(self, page_ids) -> None:
@@ -276,6 +360,13 @@ class ServeRequest:
     tokens: list[int] = dataclasses.field(default_factory=list)
     state: str = "queued"  # queued | running | done
     finish_reason: str | None = None
+    # Lifecycle trace: one {"phase", "t", ...} dict a transition, mirrored
+    # as serve.trace events; the last backpressure reason while queued.
+    trace: list[dict] = dataclasses.field(default_factory=list)
+    queue_reason: str | None = None
+    # A validated KVPageSet loaded at submit (kv_key=): its pages restore
+    # at admission instead of being recomputed; None: local prefill.
+    kv_import: _kvstore.KVPageSet | None = None
 
     @property
     def done(self) -> bool:
@@ -312,6 +403,15 @@ class ServeEngine:
     path beside the fp one, ``speculative=K`` the verify block with drafts
     of K tokens from ``spec_ngram``-gram lookup. The engine runs on the
     model's device.
+
+    Disaggregated serving: ``role`` (``prefill`` | ``decode`` | ``both``)
+    is the phase it advertises, kept in ``self.role`` for a router; nothing
+    reads it until the router is ported. ``kv_store_dir`` is the shared
+    page-set store ``ship`` commits to and ``submit(kv_key=)`` imports
+    from; ``kv_host_mb`` and ``kv_disk_dir`` arm the tiered prefix cache
+    (host DRAM budget, node-local disk directory; a ``TierCache`` with its
+    default index bound and an unbounded disk). With none of them the
+    engine is the classic one.
     """
 
     def __init__(
@@ -330,6 +430,10 @@ class ServeEngine:
         prefix_cache: bool = True,
         speculative: int | bool | None = None,
         spec_ngram: int = 3,
+        role: str | None = None,
+        kv_store_dir: str | None = None,
+        kv_host_mb: float = 0.0,
+        kv_disk_dir: str | None = None,
     ):
         if not paged:
             raise NotImplementedError(
@@ -376,12 +480,38 @@ class ServeEngine:
             int(n_pages) if n_pages is not None
             else S * self.pages_per_slot + 1
         )
+        self.role = resolve_serve_role(role)
+        self.kv_store = (
+            _kvstore.KVStore(kv_store_dir) if kv_store_dir else None
+        )
+        self._prefill_calls = 0
+        tier = None
+        if prefix_cache and (kv_host_mb > 0 or kv_disk_dir):
+            tier = _kvstore.TierCache(
+                host_bytes=int(kv_host_mb * 2**20),
+                disk_dir=kv_disk_dir or None,
+            )
         self.pool = PagePool(
-            self.n_pages, self.page_size, prefix_cache=prefix_cache
+            self.n_pages, self.page_size, prefix_cache=prefix_cache,
+            tier_cache=tier,
+            page_reader=self._read_page_host if tier is not None else None,
         )
         self._page_table = np.zeros((S, self.pages_per_slot), np.int64)
         self._slot_pages: list[list[int]] = [[] for _ in range(S)]
         self._cache = model.init_paged_cache(self.n_pages, self.page_size)
+        # Page-leaf names, in the order of ``self._cache.k + .v``: the
+        # JAX engine's flattened cache paths, which page bundles, shipped
+        # sets and the tier store key on.
+        n_layer = model.config.n_layer
+        self._leaf_names = [
+            f"['h{i}']['cached_{kv}']"
+            for kv in ("key", "value") for i in range(n_layer)
+        ]
+        pool0 = self._cache.k[0]
+        self._page_host = (
+            (self.page_size, *pool0.shape[2:]),
+            _host_view(pool0[:0]).cpu().numpy().dtype,
+        )
         self._queue: collections.deque[ServeRequest] = collections.deque()
         self._slots: list[ServeRequest | None] = [None] * S
         self._tok = np.zeros((S,), np.int64)
@@ -401,25 +531,82 @@ class ServeEngine:
         logits, cache = chunked_prefill(model, prompt, chunk, pad_lens=pads)
         return int(torch.argmax(logits[0, -1])), cache
 
+    def _prefill_row(self, model, prompt: np.ndarray, W: int):
+        """The bucketed admission prefill of ``prompt`` LEFT-padded to
+        width ``W`` → (first greedy token, (1, n_ctx) row cache)."""
+        L = prompt.size
+        padded = np.full((1, W), self.pad_id, np.int64)
+        padded[0, W - L:] = prompt
+        pads = prompt_lens_to_pad_lens([L], 1, W, device=self.device)
+        chunk = normalize_prefill_chunk(self.prefill_chunk, W)
+        self._prefill_calls += 1
+        return self._prefill_fn(
+            model, torch.as_tensor(padded, device=self.device), pads,
+            chunk=chunk,
+        )
+
+    def _row_pages(self, row, pad: int, pool):
+        """One (1, n_ctx, H, D) prefill row leaf with its LEFT padding
+        stripped (roll by -pad: the real prompt kv moves to logical columns
+        [0, L), so cache content is pad-invariant — the property prefix
+        sharing and shipping rest on), as (pages_per_slot, page_size, H, D)
+        logical pages in ``pool``'s dtype."""
+        shifted = torch.roll(row[0], -pad, dims=0)  # (n_ctx, H, D)
+        return shifted.reshape(
+            self.pages_per_slot, self.page_size, *row.shape[2:]
+        ).to(pool.dtype)
+
     def _page_insert(self, row_cache, table_row, pad: int, write_mask):
-        """Paged admission insert, in place on the pool: strip the (1, n_ctx)
-        prefill row's LEFT padding (roll by -pad: the real prompt kv moves
-        to logical columns [0, L), so cache content is pad-invariant — the
-        property prefix sharing rests on) and copy its logical pages into
-        the pool pages ``table_row`` names where ``write_mask`` is set
-        (shared prefix pages and unneeded tail entries are skipped)."""
+        """Paged admission insert, in place on the pool: copy the prefill
+        row's pad-stripped logical pages into the pool pages ``table_row``
+        names where ``write_mask`` is set (shared prefix pages, restored
+        pages and unneeded tail entries are skipped)."""
         sel = np.nonzero(write_mask)[0]
         if sel.size == 0:
             return
         src = torch.as_tensor(sel, device=self.device)
         dst = torch.as_tensor(table_row[sel], device=self.device)
-        ps = self.page_size
         for pool, row in zip(
             self._cache.k + self._cache.v, row_cache.k + row_cache.v
         ):
-            shifted = torch.roll(row[0], -pad, dims=0)  # (n_ctx, H, D)
-            pages = shifted.reshape(self.pages_per_slot, ps, *row.shape[2:])
-            pool.index_copy_(0, dst, pages.index_select(0, src).to(pool.dtype))
+            pages = self._row_pages(row, pad, pool)
+            pool.index_copy_(0, dst, pages.index_select(0, src))
+
+    def _read_page_host(self, pid: int) -> dict[str, np.ndarray]:
+        """Pool page ``pid`` as a host bundle (leaf name -> (page_size, H,
+        D)): the spill unit. One gather of every leaf, one copy."""
+        leaves = self._cache.k + self._cache.v
+        host = _host_view(torch.stack([leaf[pid] for leaf in leaves]))
+        return dict(zip(self._leaf_names, host.cpu().numpy()))
+
+    def _leaves_ok(self, leaves, lead: tuple = ()) -> bool:
+        """Page leaves this pool can take: every leaf of the engine's model,
+        each ``lead`` + one page of the pool's geometry, in its host dtype
+        (a tier bundle: ``lead`` empty; a shipped set: its page count)."""
+        shape, dtype = self._page_host
+        return set(leaves) == set(self._leaf_names) and all(
+            a.shape == (*lead, *shape) and a.dtype == dtype
+            for a in leaves.values()
+        )
+
+    def _restore_pages(self, table_row, pages: dict[int, dict]) -> None:
+        """Scatter restored page bundles (logical page index -> bundle:
+        tier promotions, shipped pages) into the pool pages ``table_row``
+        names: one copy onto the card, one scatter a leaf."""
+        if not pages:
+            return
+        js = sorted(pages)
+        host = np.stack([
+            np.stack([pages[j][name] for j in js])
+            for name in self._leaf_names
+        ])  # (leaves, pages, page_size, H, D)
+        leaves = self._cache.k + self._cache.v
+        src = _device_view(
+            torch.from_numpy(host).to(self.device), leaves[0].dtype
+        )
+        dst = torch.as_tensor(table_row[js], device=self.device)
+        for pool, block in zip(leaves, src):
+            pool.index_copy_(0, dst, block)
 
     def _decode_fn(self, model, tok, lengths, remaining, live, eos,
                    page_table):
@@ -513,13 +700,17 @@ class ServeEngine:
     def submit(self, prompt, *, max_new_tokens: int,
                eos_id: int | None = None,
                quantize: bool = False,
-               speculative: bool | None = None) -> ServeRequest:
+               speculative: bool | None = None,
+               kv_key: str | None = None) -> ServeRequest:
         """Enqueue one request; returns its live handle. Validation is eager:
         a request that can never fit fails here. ``quantize=True`` routes it
         through the int8 path (needs ``quant=`` at construction);
         ``speculative`` through the verify block (None = the engine's
         default: on when armed; True needs ``speculative=`` at
-        construction)."""
+        construction). ``kv_key`` names a shipped page set in the engine's
+        KV store: a loadable matching set admits the request already
+        prefilled; a missing, torn or mismatched one rides local prefill
+        (the ``kv_fallback`` trace phase), never an error."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("prompt must have at least one token")
@@ -539,6 +730,16 @@ class ServeEngine:
             )
         spec = (bool(self.spec_draft) if speculative is None
                 else bool(speculative))
+        kv_import = None
+        if kv_key is not None and self.kv_store is not None:
+            with obs.span("serve.kv_import", key=kv_key) as sp:
+                pset = self.kv_store.load(kv_key)
+                if pset is not None and self._import_ok(
+                    pset, prompt, quantize
+                ):
+                    kv_import = pset
+                sp.set(ok=kv_import is not None,
+                       pages=0 if pset is None else pset.n_pages)
         req = ServeRequest(
             id=self._next_id,
             prompt=prompt,
@@ -556,9 +757,111 @@ class ServeEngine:
                 f"(n_pages={self.n_pages}, page_size={self.page_size}); "
                 "it could never admit"
             )
+        req.kv_import = kv_import
         self._next_id += 1
         self._queue.append(req)
+        self._trace(req, "submitted", prompt_len=int(prompt.size),
+                    max_new=req.max_new_tokens, bucket=req.bucket)
+        if kv_key is not None and kv_import is None:
+            # The shipped set was missing, torn or mismatched: the request
+            # proceeds as if it had never been shipped.
+            self._trace(req, "kv_fallback", key=kv_key)
         return req
+
+    # ------------------------------------------------ disaggregated serving
+    @torch.no_grad()
+    def prefill_export(self, prompt, *,
+                       quantize: bool = False) -> _kvstore.KVPageSet:
+        """Run the admission prefill of ``prompt`` and extract its KV pages
+        as a :class:`~tpuflow_torch.infer.kv_store.KVPageSet`: the
+        prefill-role half of a disaggregated pair. The row comes from the
+        same bucketed prefill an admission runs, pad-stripped as the page
+        insert strips it, so each page's bytes equal the pool page a local
+        admission writes. The set holds the partial tail page (private to
+        the request: decode writes land there) and the first greedy token,
+        so an exact import admits with no prefill."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size == 0:
+            raise ValueError("prompt must have at least one token")
+        if quantize and self.quant_mode is None:
+            raise ValueError(
+                "prefill_export(quantize=True) needs a quant-armed engine: "
+                "pass ServeEngine(quant='fused_native')"
+            )
+        L = int(prompt.size)
+        W = self.bucket_for(L, 1)
+        model = self._qmodel if quantize else self.model
+        highest = self.model.config.decode_precision == "highest"
+        with f32_matmul_precision(highest):
+            first, row_cache = self._prefill_row(model, prompt, W)
+        k_ship = -(-L // self.page_size)
+        leaves = self._cache.k + self._cache.v
+        rows = torch.stack([
+            self._row_pages(row, W - L, pool)[:k_ship]
+            for pool, row in zip(leaves, row_cache.k + row_cache.v)
+        ])  # (leaves, k_ship, page_size, H, D): one copy to the host
+        host = _host_view(rows).cpu().numpy()
+        return _kvstore.KVPageSet(
+            page_size=self.page_size,
+            n_tokens=L,
+            prompt=prompt,
+            digests=_kvstore.chain_digests(prompt, self.page_size),
+            pages=dict(zip(self._leaf_names, host)),
+            tok0=first,
+            meta={"quant": bool(quantize)},
+        )
+
+    def ship(self, prompt, *, quantize: bool = False) -> str:
+        """Prefill and commit: the prefill-role request path. Returns the
+        committed ``kv_key`` a decode engine's ``submit(kv_key=)`` takes."""
+        if self.kv_store is None:
+            raise ValueError(
+                "ship() needs a KV store: pass "
+                "ServeEngine(kv_store_dir=...)"
+            )
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        with obs.span("serve.kv_ship", prompt_len=int(prompt.size),
+                      quant=bool(quantize)) as sp:
+            pset = self.prefill_export(prompt, quantize=quantize)
+            key = self.kv_store.commit(pset)
+            sp.set(key=key, pages=pset.n_pages)
+        return key
+
+    def _import_ok(self, pset, prompt, quantize: bool) -> bool:
+        """A shipped set is usable when its geometry, leaves and numeric
+        path match this engine's and it covers this prompt: exactly (no
+        prefill) or as a digest-chain prefix (the covered pages import,
+        the rest prefills). Anything else rides local prefill."""
+        if pset.page_size != self.page_size or not pset.pages:
+            return False
+        if bool(pset.meta.get("quant")) != bool(quantize):
+            return False
+        if not self._leaves_ok(pset.pages, (pset.n_pages,)):
+            return False
+        if pset.n_tokens == prompt.size and np.array_equal(
+            np.asarray(pset.prompt, np.int32), prompt
+        ):
+            return True
+        mine = _kvstore.chain_digests(prompt, self.page_size)
+        return _kvstore.chain_match(pset.digests, mine) > 0
+
+    # ------------------------------------------------------ lifecycle trace
+    def _trace(self, req: ServeRequest, phase: str, **attrs) -> None:
+        """One lifecycle transition: appended to the request's trace and
+        mirrored as a serve.trace event."""
+        req.trace.append({"phase": phase, "t": time.monotonic(), **attrs})
+        obs.event("serve.trace", request=req.id, phase=phase, **attrs)
+
+    def _note_queued(self, req: ServeRequest, reason: str) -> None:
+        """Backpressure evidence: the queued phase once per reason change
+        (a request waiting many iterations writes one entry)."""
+        if req.queue_reason != reason:
+            req.queue_reason = reason
+            self._trace(req, "queued", reason=reason)
+
+    def _note_first_token(self, req: ServeRequest, now: float) -> None:
+        req.t_first = now
+        self._trace(req, "first_token", ttft_s=round(req.ttft_s, 6))
 
     @property
     def queue_depth(self) -> int:
@@ -577,43 +880,117 @@ class ServeEngine:
     def _admit_one(self, req: ServeRequest, slot: int) -> bool:
         """Admit ``req`` into ``slot``. Returns False (request untouched,
         left queued) when the page pool cannot fit it — token-budget
-        backpressure; pages are acquired before any device work."""
+        backpressure; pages are acquired before any device work.
+
+        Pages covered by an imported set or by lower-tier promotions are
+        RESTORED (their committed bytes scattered into the pool) instead of
+        recomputed. An exact shipped set admits on its committed first
+        token (``ship``); restored and shared pages covering the first
+        ``L - 1`` tokens feed ``prompt[L - 1]`` to the decode block at
+        length ``L - 1`` (``feed``) when that column opens a fresh private
+        page: the decode step's write (an M = 1 product, whose rounding may
+        differ from the prefill's) then never lands in a page that is
+        shared from the pool or restored and registered for sharing. Else
+        the classic prefill runs with the restored pages masked off its
+        write (``prefill``)."""
         got = self.pool.acquire(req.prompt, self._pages_needed(req))
         if got is None:
+            self._note_queued(req, "pages")
             return False
         page_ids, matched = got
-        req.t_admit = time.monotonic()
-        W, L = req.bucket, req.prompt.size
-        padded = np.full((1, W), self.pad_id, np.int64)
-        padded[0, W - L:] = req.prompt
-        pads = prompt_lens_to_pad_lens([L], 1, W, device=self.device)
-        chunk = normalize_prefill_chunk(self.prefill_chunk, W)
-        model = self._qmodel if req.quantize else self.model
-        first, row_cache = self._prefill_fn(
-            model, torch.as_tensor(padded, device=self.device), pads,
-            chunk=chunk,
-        )
-        req.t_first = time.monotonic()
-        req.tokens.append(first)
-        req.state = "running"
-        done = (req.eos_id is not None and first == req.eos_id) or (
-            req.max_new_tokens == 1
-        )
-        if done:
-            self.pool.release(page_ids)
-            self._finish(req, "eos" if req.max_new_tokens > 1 else "budget")
-            return True
+        promoted = self.pool.take_promotions()
+        now = time.monotonic()
+        req.t_admit = now
+        W, L, ps = req.bucket, req.prompt.size, self.page_size
+        pset = req.kv_import
+        # Restored pages (logical index -> bundle), contiguous from where
+        # the pool's match broke: tier promotions first, shipped pages
+        # extend the run. A failed fetch ends the run; every page past it
+        # rides the prefill write (never a gap).
+        restored: dict[int, dict[str, np.ndarray]] = {}
+        restore_src: dict[int, str] = {}
+        for j, digest, _tier in promoted:
+            if j != matched + len(restored):
+                break
+            got_b = self.pool.tier.fetch(digest)
+            if got_b is None or not self._leaves_ok(got_b[0]):
+                break
+            restored[j], restore_src[j] = got_b
+        exact = (pset is not None and pset.n_tokens == L
+                 and np.array_equal(pset.prompt, req.prompt))
+        if pset is not None:
+            k_full = _kvstore.chain_match(
+                pset.digests, self.pool.prefix_digests(req.prompt)
+            )
+            top = pset.n_pages if exact else min(k_full, pset.n_pages)
+            for j in range(matched + len(restored), min(top, len(page_ids))):
+                restored[j] = pset.page_bundle(j)
+                restore_src[j] = "ship"
+        covered = matched + len(restored)
+        if exact and pset.tok0 is not None and covered * ps >= L:
+            mode = "ship"
+        elif ((pset is not None or self.pool.tier is not None)
+              and covered >= 1 and L - 1 == covered * ps):
+            mode = "feed"
+        else:
+            mode = "prefill"
         table_row = np.zeros((self.pages_per_slot,), np.int64)
         table_row[: len(page_ids)] = page_ids
         write_mask = np.zeros((self.pages_per_slot,), bool)
         write_mask[matched: len(page_ids)] = True
-        self._page_insert(row_cache, table_row, W - L, write_mask)
+        for j in restored:
+            write_mask[j] = False  # restored bytes, not the prefill's
+        n_tier = sum(1 for src in restore_src.values() if src != "ship")
+        if n_tier:
+            n_host = sum(1 for src in restore_src.values() if src == "host")
+            self.pool.tier_hits += n_tier
+            obs.event("serve.tier_hit", request=req.id, host=n_host,
+                      disk=n_tier - n_host)
+        self._restore_pages(table_row, restored)
+        if n_tier:
+            obs.event("serve.tier_promote", request=req.id, pages=n_tier,
+                      prefill_skipped=mode != "prefill")
+        first: int | None = None
+        row_cache = None
+        if mode == "ship":
+            first = int(pset.tok0)
+        elif mode == "prefill":
+            model = self._qmodel if req.quantize else self.model
+            first, row_cache = self._prefill_row(model, req.prompt, W)
+        # feed: the first token comes out of the decode block.
+        req.state = "running"
+        extra = {}
+        if mode != "prefill" or restored:
+            extra = dict(prefilled=mode, shipped_pages=len(restored) - n_tier,
+                         promoted_pages=n_tier)
+        obs.event("serve.admit", request=req.id, slot=slot, bucket=W,
+                  prompt_len=int(L), queue_wait_s=round(now - req.t_submit, 6),
+                  pages=len(page_ids), shared_pages=matched)
+        self._trace(req, "admitted", slot=slot, bucket=W,
+                    queue_wait_s=round(now - req.t_submit, 6),
+                    pages=len(page_ids), shared_pages=matched, **extra)
+        if mode == "prefill":
+            # Written even when the request ends here: its fresh prompt
+            # pages are registered in the prefix cache, and a later prompt
+            # that matches them reads them.
+            self._page_insert(row_cache, table_row, W - L, write_mask)
+        if first is not None:
+            req.tokens.append(first)
+            self._note_first_token(req, time.monotonic())
+            if (req.eos_id is not None and first == req.eos_id) or (
+                req.max_new_tokens == 1
+            ):
+                self.pool.release(page_ids)
+                self._finish(req,
+                             "eos" if req.max_new_tokens > 1 else "budget")
+                return True
         self._page_table[slot] = table_row
         self._slot_pages[slot] = list(page_ids)
-        self._lengths[slot] = L  # pads stripped: logical columns [0, L)
+        # Pads stripped: logical columns [0, L) (feed: [0, L - 1)).
+        self._lengths[slot] = L if mode != "feed" else L - 1
         self._slots[slot] = req
-        self._tok[slot] = first
-        self._remaining[slot] = req.max_new_tokens - 1
+        self._tok[slot] = first if first is not None else req.prompt[L - 1]
+        self._remaining[slot] = req.max_new_tokens - (first is not None)
         self._live[slot] = True
         self._quant[slot] = req.quantize
         self._spec[slot] = req.speculative
@@ -624,6 +1001,7 @@ class ServeEngine:
         req.t_done = time.monotonic()
         req.state = "done"
         req.finish_reason = reason
+        self._trace(req, "complete", reason=reason, tokens=len(req.tokens))
 
     def _run_decode_block(self, quant: bool, spec: bool = False) -> None:
         """One decode (or speculative verify) block over ONE group's slots
@@ -673,11 +1051,15 @@ class ServeEngine:
             self._spec_committed += int(
                 (old_remaining - self._remaining).sum())
             self._spec_forwards += int(mask.sum())
+        now = time.monotonic()
         for s, req in enumerate(self._slots):
             if req is None or not mask[s]:
                 continue
             n = int(old_remaining[s] - self._remaining[s])
             req.tokens.extend(int(x) for x in toks[s, :n])
+            if req.t_first is None and n:
+                # A feed admission: its first token came out of this block.
+                self._note_first_token(req, now)
             if not self._live[s]:
                 last = req.tokens[-1] if req.tokens else None
                 if req.eos_id is not None and last == req.eos_id:
@@ -716,6 +1098,7 @@ class ServeEngine:
             while admit and self._queue:
                 slot = self._free_slot()
                 if slot is None:
+                    self._note_queued(self._queue[0], "slots")
                     break
                 if not self._admit_one(self._queue[0], slot):
                     break  # page backpressure: stays queued, never dropped

@@ -137,6 +137,54 @@ CATALOG: dict[str, tuple[str, str]] = {
         "faulting stack — referenced from the supervisor's "
         "flow.member_failed event",
     ),
+    # ----------------------------------------------------------- serve
+    "serve.admit": (
+        "event",
+        "a queued request entered a free slot (request, slot, bucket, "
+        "queue_wait_s)",
+    ),
+    "serve.trace": (
+        "event",
+        "one request-lifecycle transition (request, phase=submitted|"
+        "queued|kv_fallback|admitted|first_token|complete, plus the "
+        "phase's evidence: backpressure reason, bucket/pages, the "
+        "admission mode and its shipped/promoted pages, ttft_s, finish "
+        "reason)",
+    ),
+    "serve.page_evict": (
+        "event",
+        "pool pressure reclaimed an idle (refcount-0) prefix-cache page "
+        "LRU-first; its cached prefix must be recomputed on next use",
+    ),
+    "serve.kv_ship": (
+        "span",
+        "prefill-role export: chunked prefill + page extraction + the "
+        "atomic kv_store commit of one KVPageSet (prompt_len, pages, key) — "
+        "the prefill half of a disaggregated admission",
+    ),
+    "serve.kv_import": (
+        "span",
+        "decode-role import: load + validate a committed KVPageSet at "
+        "submit (ok=False = torn/missing/mismatched set → the request rides "
+        "local prefill; the fallback evidence the chaos tests assert)",
+    ),
+    "serve.tier_hit": (
+        "event",
+        "a prompt's prefix-digest chain matched pages in a lower tier "
+        "(host/disk counts); the pages promote back into the HBM pool "
+        "instead of being recomputed by prefill",
+    ),
+    "serve.tier_promote": (
+        "event",
+        "tier-hit pages were written back into the HBM pool for an "
+        "admission (pages, and whether prefill was skipped entirely)",
+    ),
+    "serve.tier_spill": (
+        "event",
+        "an evicted prefix page's content dropped to a lower tier "
+        "(tier=host|disk) instead of being forgotten — still findable "
+        "through the bounded digest→tier index",
+    ),
     # ---------------------------------------------------------------- dist
     "dist.mesh_generation": (
         "gauge",
