@@ -41,7 +41,20 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    a churn prompt evicted them. Every request held to a solo ``generate()`` on its numeric path,
    every part's flash and int8-tile launches to the counts the code
    implies; ship, load and import seconds, MB/s, and a shipped
-   admission's TTFT beside a local one.
+   admission's TTFT beside a local one. Then the serving replica
+   (``replica_leg``): ``serve_forever(http_port=0)`` on the main thread
+   over an engine of 8 slots, pages of 16 and a store under ``build/``;
+   client threads read ``generate_url`` off ``/status`` (the port's
+   fleet observatory over the registration) and send, through
+   ``http_forward``, the engine check's fp prompts, a replay of one id, a
+   ``{"phase": "prefill"}`` ship hop and a forward of its ``kv_key``;
+   then eight requests fill the slots, a ninth queues, and a real SIGTERM
+   drains the loop: the ninth answers 503 "drained", every 200 answer
+   equals its solo ``generate()``, ``/metrics`` parses with the
+   ``tpuflow_serve_*`` gauges, the ledger's buckets sum to the loop's
+   wall within 1%, and the flash launches are 12 per prefill whose
+   prompt takes the flash path (the ship hop's included; none for the
+   import). The SIGTERM handler and the preemption flag are put back.
 5. Generation slice on the same model (``generation_phase``): beam search
    (K = 1 equal to greedy; K = 4 prefilled once at width B, its scores
    against ``sequence_logprob`` on the flash forward; the fused-native
@@ -272,6 +285,8 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    flash kernels' launches in the flow phase; ``generation_launches``:
    those of the generation phase; ``disagg_launches``: those of phase
    4's disaggregated leg (the flash forward, the int8 tiles);
+   ``replica_launches``: those of phase 4's replica leg (the flash
+   forward);
    ``recipe_launches``: those of phase 11;
    ``fsdp_launches``: those of phase 12's leg (b), both ranks';
    ``tp_launches``: those of phase 13's two training legs, every rank's;
@@ -465,6 +480,10 @@ DISAGG_PAGE = 16
 DISAGG_LENS = (209, 417, 593)       # fp: 13, 26, 37 full pages + 1 token
 DISAGG_INT8_MIN = 200
 DISAGG_SUFFIX = (320, 64)   # the shipped base, the suffix it is extended by
+# Phase 4's replica leg: the requests that hold every slot of the engine
+# when the SIGTERM lands (the fp prompts, repeated), and the loop's bound.
+REPLICA_SLOTS = 8
+REPLICA_MAX_S = 120.0
 FEED_CHURN = 630
 FEED_POOL = 41              # pages, the trash page included
 FEED_HOST_MB = 128.0
@@ -1141,12 +1160,15 @@ def slice_phase(torch, smi):
     n_tok = sum(len(r.tokens) for r in reqs)
     reqs_out = []
     int8_solos = []  # the disaggregated leg's int8 ships and their tokens
+    fp_solos = []  # the replica leg's prompts and their tokens
     for p, q, r in zip(prompts, flags, reqs):
         solo_model = eng._qmodel if q else model
         solo = generate(solo_model, p[None, :], max_new_tokens=NEW_TOKENS,
                         temperature=0.0)[0].cpu().numpy()
         if q and p.size >= DISAGG_INT8_MIN:
             int8_solos.append((p, solo))
+        if not q:
+            fp_solos.append((p, solo))
         if not (r.done and np.array_equal(r.result(), solo)):
             raise AssertionError(
                 f"engine request (len {p.size}, int8={q}) differs from solo "
@@ -1169,6 +1191,7 @@ def slice_phase(torch, smi):
                                            eng_s)
     del eng
     res["disagg"] = disagg_leg(torch, model, rng, smi, int8_solos)
+    res["replica"] = replica_leg(torch, model, smi, fp_solos)
     return res, flash_launches, int8_launches
 
 
@@ -1396,6 +1419,249 @@ def disagg_leg(torch, model, rng, smi, int8_solos) -> dict:
                 feed_ttft_s=[h.ttft_s for h in feeds],
                 host_spills=fe.pool.tier.spills_host, launches=totals,
                 walls_s=walls, wall_s=wall_s, gpu=smi)
+
+
+def _metrics_lines(text: str) -> dict:
+    """A Prometheus text exposition parsed: sample name (labels kept) ->
+    value. Fails on a line that is neither a comment nor a sample."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, value = line.rsplit(" ", 1)
+        out[name] = float(value)
+    return out
+
+
+def replica_leg(torch, model, smi, fp_solos) -> dict:
+    """The serving replica on ``model``: ``serve_forever(http_port=0)`` on
+    the main thread, driven over HTTP by client threads, drained by a real
+    SIGTERM. ``fp_solos``: the engine check's fp prompts with their solo
+    ``generate()`` tokens, which every 200 answer must equal (no new solo
+    run). The flash launches are read from 0 around the loop and, on the
+    card, held to 12 per prefill whose prompt takes the flash path
+    (``resolve_attention_impl`` on its real length, as the model's padded
+    prefill dispatches), the ship hop's included; the import and the
+    drained request prefill nothing. Afterwards the SIGTERM handler and
+    the preemption flag are put back, the export stopped."""
+    import signal
+    import threading
+    import urllib.request
+
+    from tpuflow_torch import obs
+    from tpuflow_torch.infer import frontdoor
+    from tpuflow_torch.infer.serve import ServeEngine, serve_forever
+    from tpuflow_torch.obs import export, fleet
+    from tpuflow_torch.ops import flash_attention as fa
+    from tpuflow_torch.ops import int8_matmul as im
+    from tpuflow_torch.ops.attention import resolve_attention_impl
+    from tpuflow_torch.utils import heartbeat, preempt
+
+    cfg = model.config
+    on_card = model.device.type == "cuda"
+    root = os.path.join(REPO, "build", "replica")
+    shutil.rmtree(root, ignore_errors=True)
+    reg = os.path.join(root, "fleet")
+    os.makedirs(reg)
+    eng = ServeEngine(model, max_slots=REPLICA_SLOTS, page_size=DISAGG_PAGE,
+                      kv_store_dir=os.path.join(root, "kv"))
+    solo = {p.tobytes(): s.tolist() for p, s in fp_solos}
+    prompts = [p for p, _ in fp_solos]
+    ship_p = max(prompts, key=len)
+    answers: dict = {}
+    prefilled: list = []  # prompt lengths whose admission prefills
+    notes: dict = {}
+    errors: list = []
+
+    def send(row, rid, body, key=None):
+        try:
+            answers[key or rid] = (200, frontdoor.http_forward(
+                row, {"id": rid, **body}, 120.0))
+        except RuntimeError as e:
+            answers[key or rid] = (503 if "answered 503" in str(e) else 0,
+                                   str(e))
+
+    def wave(row, bodies):
+        threads = [threading.Thread(target=send, args=(row, rid, body))
+                   for rid, body in bodies.items()]
+        for t in threads:
+            t.start()
+        return threads
+
+    def until(cond, what, timeout=60.0):
+        deadline = time.monotonic() + timeout
+        while not cond():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"replica leg: {what} timed out")
+            time.sleep(0.002)
+
+    def client():
+        try:
+            observatory = fleet.FleetObservatory(reg, stale_s=30.0,
+                                                 poll_interval_s=0.05)
+            rows = []
+
+            def has_url():
+                rows[:] = [r for r in observatory.poll()["replicas"]
+                           if r.get("generate_url")]
+                return bool(rows)
+
+            until(has_url, "generate_url in /status")
+            row = rows[0]
+            notes["generate_url"] = row["generate_url"]
+            notes["status_url"] = row["url"]  # the export's
+            # Wave 1: the fp prompts at once; a replay; the ship hop and
+            # the forward of its key.
+            body = {p.tobytes(): {"prompt": p.tolist(),
+                                  "max_new_tokens": NEW_TOKENS}
+                    for p in prompts}
+            for t in wave(row, {f"fp-{i}": body[p.tobytes()]
+                                for i, p in enumerate(prompts)}):
+                t.join()
+            prefilled.extend(len(p) for p in prompts)
+            n_req = eng._next_id
+            send(row, "fp-0", {"prompt": [1]}, key="replay-fp-0")
+            notes["replay_resubmitted"] = eng._next_id != n_req
+            send(row, "ship-0", {"phase": "prefill",
+                                 "prompt": ship_p.tolist()})
+            prefilled.append(len(ship_p))
+            calls = eng._prefill_calls
+            key = answers["ship-0"][1]["kv_key"]
+            send(row, "import-0", {**body[ship_p.tobytes()], "kv_key": key})
+            notes["import_prefills"] = eng._prefill_calls - calls
+            # Wave 2: every slot held, one request queued, then SIGTERM.
+            held = [prompts[i % len(prompts)] for i in range(REPLICA_SLOTS)]
+            threads = wave(row, {f"drain-{i}": body[p.tobytes()]
+                                 for i, p in enumerate(held)})
+            until(lambda: eng.live_slots == REPLICA_SLOTS,
+                  "the slots filling")
+            prefilled.extend(len(p) for p in held)
+            threads += wave(row, {"queued-0": body[prompts[0].tobytes()]})
+            until(lambda: eng.queue_depth == 1, "the ninth request queueing")
+            notes["sigterm_live"] = eng.live_slots
+            os.kill(os.getpid(), signal.SIGTERM)
+            for t in threads:
+                t.join()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    old_handler = signal.getsignal(signal.SIGTERM)
+    preempt.clear_preemption()
+    heartbeat.configure(os.path.join(root, "heartbeat"))
+    export.stop()
+    obs.goodput_live().reset()
+    th = threading.Thread(target=client, name="replica-client")
+    _zero_counters(fa, im)
+    try:
+        th.start()
+        t0 = time.monotonic()
+        eng.ledger.reset()
+        serve_forever(eng, max_s=REPLICA_MAX_S, http_port=0,
+                      registration_dir=reg,
+                      should_stop=lambda: bool(errors))
+        loop_s = time.monotonic() - t0
+        ledger = eng.ledger.snapshot()
+        th.join(timeout=60.0)
+        # The export outlives the loop: its last scrape, the drained
+        # request still queued for the requeue.
+        with urllib.request.urlopen(notes["status_url"] + "/metrics",
+                                    timeout=10) as r:
+            metrics = _metrics_lines(r.read().decode())
+        if on_card:
+            torch.cuda.synchronize()
+        launches = _counters(fa, im)
+        drained_at = preempt.preemption_requested()
+    finally:
+        signal.signal(signal.SIGTERM, old_handler)
+        preempt.clear_preemption()
+        heartbeat.configure(None)
+        export.stop()
+        obs.goodput_live().reset()
+    if errors:
+        raise AssertionError(f"replica leg client failed: {errors[0]!r}")
+    if th.is_alive() or not drained_at:
+        raise AssertionError("replica leg: the loop ended without a drain")
+    if not os.path.exists(os.path.join(root, "heartbeat")):
+        raise AssertionError("replica leg: no heartbeat was stamped")
+    # The answers: 200 with the solo tokens, the replay from the cache,
+    # the queued request drained.
+    for rid, (code, payload) in sorted(answers.items()):
+        if rid == "ship-0":
+            if code != 200 or not payload.get("kv_key"):
+                raise AssertionError(f"ship hop answered {code} {payload}")
+            continue
+        if rid == "replay-fp-0":
+            continue  # held to fp-0's answer below
+        if rid == "queued-0":
+            if code != 503 or '"drained"' not in payload:
+                raise AssertionError(f"the queued request answered {code} "
+                                     f"{payload}, want 503 drained")
+            continue
+        if code != 200:
+            raise AssertionError(f"{rid} answered {code} {payload}")
+    fp_ids = [f"fp-{i}" for i in range(len(prompts))]
+    drain_ids = [f"drain-{i}" for i in range(REPLICA_SLOTS)]
+    for rid, p in [*zip(fp_ids, prompts),
+                   *zip(drain_ids, [prompts[i % len(prompts)]
+                                    for i in range(REPLICA_SLOTS)]),
+                   ("import-0", ship_p)]:
+        if answers[rid][1]["tokens"] != solo[p.tobytes()]:
+            raise AssertionError(f"{rid} (len {p.size}) differs from solo "
+                                 f"generate(): {answers[rid][1]['tokens']}")
+    if answers["replay-fp-0"] != answers["fp-0"] or notes[
+            "replay_resubmitted"]:
+        raise AssertionError("the replay of fp-0 was not the cached answer: "
+                             f"{answers['replay-fp-0']}")
+    if notes["import_prefills"]:
+        raise AssertionError(f"the kv_key forward ran "
+                             f"{notes['import_prefills']} prefills")
+    if notes["sigterm_live"] != REPLICA_SLOTS:
+        raise AssertionError("the SIGTERM landed with free slots")
+    for name in ("tpuflow_serve_requests_total", "tpuflow_serve_queue_depth",
+                 "tpuflow_serve_slot_occupancy",
+                 "tpuflow_serve_ttft_p50_seconds",
+                 "tpuflow_serve_itl_p99_seconds",
+                 "tpuflow_serve_idle_fraction",
+                 "tpuflow_serve_decode_fraction",
+                 "tpuflow_serve_prefill_fraction",
+                 "tpuflow_serve_pages_free",
+                 'tpuflow_serve_ttft_seconds_bucket{le="+Inf"}'):
+        if name not in metrics:
+            raise AssertionError(f"/metrics lacks {name}")
+    served = len(prompts) + 1 + REPLICA_SLOTS  # the import's included
+    got = (metrics["tpuflow_serve_queue_depth"],
+           metrics["tpuflow_serve_slot_occupancy"],
+           metrics["tpuflow_serve_requests_total"])
+    if got != (1, 0, served):
+        raise AssertionError(f"/metrics after the drain: (queue, occupancy, "
+                             f"requests) {got}, want (1, 0, {served})")
+    buckets = ledger["buckets"]
+    total = sum(buckets.values())
+    if abs(total - loop_s) > 0.01 * loop_s:
+        raise AssertionError(f"ledger buckets sum to {total:.4f} s, the "
+                             f"loop took {loop_s:.4f} s")
+    n_flash = sum(resolve_attention_impl(
+        cfg.attn_impl, n, needs_bwd=False,
+        backend=model.device.type) == "flash" for n in prefilled)
+    want = _launches(flash_fwd=cfg.n_layer * n_flash)
+    if on_card and launches != want:
+        raise AssertionError(f"replica leg launches {launches}, want {want}")
+    if eng._prefill_calls != len(prefilled):
+        raise AssertionError(f"the engine ran {eng._prefill_calls} "
+                             f"prefills, want {len(prefilled)}")
+    shutil.rmtree(root, ignore_errors=True)
+    parts = ", ".join(f"{b} {v:.3f}" for b, v in buckets.items())
+    print(f"replica: serve_forever {loop_s:.2f} s over HTTP "
+          f"({len(answers)} answers: {len(prompts)} fp, a replay, a ship "
+          f"hop and its import, {REPLICA_SLOTS} drained out, 1 queued -> "
+          f"503 drained); ledger {parts} (sum {total:.3f} s); TTFT p50 "
+          f"{metrics['tpuflow_serve_ttft_p50_seconds'] * 1e3:.1f} ms; flash "
+          f"launches {launches['flash_fwd']} = {cfg.n_layer} x {n_flash} "
+          f"prefills on the flash path [{smi}]")
+    return dict(loop_s=loop_s, ledger=ledger, answers=len(answers),
+                prefills=len(prefilled), flash_prefills=n_flash,
+                launches=launches, generate_url=notes["generate_url"],
+                metrics=metrics, gpu=smi)
 
 
 def _decode_ms(torch, model, prompt, steps: int = 16) -> float:
@@ -6865,6 +7131,7 @@ def main() -> int:
     # summed over every main path run above (the counters' "_wide" keys).
     main_runs = [sl["generate"]["launches"], sl["engine"]["launches"],
                  _launches(flash_fwd=sl["disagg"]["launches"]["flash_fwd"]),
+                 sl["replica"]["launches"],
                  *gen["launches"].values(),
                  train_n, tr["bf16"]["launches"], tr["split_launches"],
                  tr["split_ckpt"]["resume"]["launches"],
@@ -6961,6 +7228,10 @@ def main() -> int:
         # feed admissions (the flash forward; the int8 matmul by tile).
         if entry["name"] in sl["disagg"]["launches"]:
             entry["disagg_launches"] = sl["disagg"]["launches"][entry["name"]]
+        # Phase 4's replica leg: its requests over HTTP, the ship hop
+        # included (the flash forward).
+        if entry["name"] == "flash_fwd":
+            entry["replica_launches"] = sl["replica"]["launches"]["flash_fwd"]
     # The flash kernels' launches in phase 11, every training recipe's
     # runs summed (its legs, resumes and flows; f32).
     recipe_runs = [recipes[leg]["launches"] for leg in

@@ -25,7 +25,7 @@ def _port_sources():
 # Every package of the port, with its count of Python modules: a module
 # dropped or left out of the scan fails the count.
 PACKAGES = {"": 2, "ckpt": 6, "data": 4, "dist": 3, "flow": 8, "flows": 6,
-            "infer": 9, "models": 9, "obs": 6, "ops": 5, "parallel": 7,
+            "infer": 10, "models": 9, "obs": 10, "ops": 5, "parallel": 7,
             "testing": 3, "train": 5, "utils": 4}
 
 
@@ -131,6 +131,9 @@ def test_package_imports_with_jax_poisoned():
         "import tpuflow_torch.obs.timeline, tpuflow_torch.testing.faults\n"
         "import tpuflow_torch.obs.health, tpuflow_torch.utils.heartbeat\n"
         "import tpuflow_torch.train.trainer, tpuflow_torch.flow.client\n"
+        "import tpuflow_torch.infer.frontdoor, tpuflow_torch.obs.export\n"
+        "import tpuflow_torch.obs.serve_ledger, tpuflow_torch.obs.fleet\n"
+        "import tpuflow_torch.obs.goodput\n"
         "assert not any(k.split('.')[0] in ('jax', 'flax') and v is not None\n"
         "               for k, v in sys.modules.items())\n"
         "print('ok')\n"

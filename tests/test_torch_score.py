@@ -143,4 +143,4 @@ def test_render_tokens_matches_jax():
     jinfer = importlib.import_module("tpuflow.infer")
     tinfer = importlib.import_module("tpuflow_torch.infer")
     missing = set(jinfer.__all__) - set(tinfer.__all__)
-    assert missing == {"serve_forever"}
+    assert missing == set()

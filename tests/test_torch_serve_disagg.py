@@ -105,7 +105,7 @@ def test_ship_roundtrip_exact_with_no_decode_prefill(pair, ship_pair):
     adm = _admitted(h)
     assert adm["prefilled"] == "ship" and adm["shipped_pages"] == 2
     assert [t["phase"] for t in h.trace] == [
-        "submitted", "admitted", "first_token", "complete"]
+        "submitted", "admitted", "first_token", "tick", "tick", "complete"]
     # A local admission on the prefill engine: its pool pages hold the
     # shipped bytes in every column the prompt covers.
     pset = pf.kv_store.load(key)
@@ -331,7 +331,7 @@ def test_queued_trace_reasons(pair):
     b = eng.submit(_prompt(13, 6), max_new_tokens=6)
     eng.run_until_idle(max_iters=50)
     assert [t["phase"] for t in a.trace] == [
-        "submitted", "admitted", "first_token", "complete"]
+        "submitted", "admitted", "first_token", "tick", "tick", "complete"]
     queued = [t for t in b.trace if t["phase"] == "queued"]
     assert [t["reason"] for t in queued] == ["slots"]  # once, not a tick
     assert b.trace[-1]["reason"] == "budget"

@@ -1,7 +1,9 @@
 """Generation (``generate``, ``beam_search``, ``speculative_generate``),
 scoring (``sequence_logprob``, ``best_of_n``), int8 (``quant``: weight-only
-and fused-native), the paged continuous-batching engine (``serve``) and
-batch prediction over rows (``engine``)."""
+and fused-native), the paged continuous-batching engine and its long-lived
+loop (``serve``: ``ServeEngine``, ``serve_forever``), the replica's
+``/generate`` gateway (``frontdoor``) and batch prediction over rows
+(``engine``)."""
 
 from tpuflow_torch.infer.beam import beam_search
 from tpuflow_torch.infer.engine import (
@@ -21,7 +23,7 @@ from tpuflow_torch.infer.quant import (
     teacher_forced_agreement,
 )
 from tpuflow_torch.infer.score import best_of_n, sequence_logprob
-from tpuflow_torch.infer.serve import ServeEngine, ServeRequest
+from tpuflow_torch.infer.serve import ServeEngine, ServeRequest, serve_forever
 from tpuflow_torch.infer.speculative import speculative_generate
 
 __all__ = [
@@ -43,6 +45,7 @@ __all__ = [
     "quantize_params",
     "render_tokens",
     "sequence_logprob",
+    "serve_forever",
     "speculative_generate",
     "teacher_forced_agreement",
 ]

@@ -2,9 +2,13 @@
 ``tpuflow/obs``, its recorder core): spans, counters, gauges, histograms
 and events recorded as structured JSONL under a run's ``obs/``
 directory, the flight recorder's ring dumped on fatal paths, the
-per-process files merged into one run timeline, and the training-health
+per-process files merged into one run timeline, the training-health
 layer (``obs/health.py``: the monitor, rollback targets, the profile
-window, ``health_summary``).
+window, ``health_summary``), and the serving observatory: the engine-time
+ledger and access log (``obs/serve_ledger.py``), the fleet observatory
+(``obs/fleet.py``), the live goodput ledger (``obs/goodput.py``,
+``goodput_live()``) and its ``/metrics`` + ``/status`` export
+(``obs/export.py``, ``start_export``).
 
 Usage (emitters)::
 
@@ -40,12 +44,15 @@ from tpuflow_torch.obs.timeline import (
     read_events,
 )
 
-# Last: the health layer emits through the functions bound above.
+# Last: these layers emit through the functions bound above.
 from tpuflow_torch.obs.health import health_summary  # noqa: E402
+from tpuflow_torch.obs.goodput import live as goodput_live  # noqa: E402
+from tpuflow_torch.obs.export import start_export  # noqa: E402
 
 __all__ = [
     "CATALOG", "Recorder", "configure", "counter", "dump_flight", "enabled",
-    "event", "flight_path", "flush", "gauge", "histogram", "is_registered",
-    "health_summary", "kind_of", "load_run_events", "merge_run_events",
-    "read_events", "recorder", "span", "timed_iter",
+    "event", "flight_path", "flush", "gauge", "goodput_live", "histogram",
+    "is_registered", "health_summary", "kind_of", "load_run_events",
+    "merge_run_events", "read_events", "recorder", "span", "start_export",
+    "timed_iter",
 ]

@@ -185,6 +185,173 @@ CATALOG: dict[str, tuple[str, str]] = {
         "(tier=host|disk) instead of being forgotten — still findable "
         "through the bounded digest→tier index",
     ),
+    # ------------------------------------------------ serving observatory
+    "serve.prefill": (
+        "span",
+        "one admission: chunked prefill of a request's prompt at its "
+        "bucket width, fenced on the first generated token",
+    ),
+    "serve.decode": (
+        "span",
+        "one decode block of the persistent slot-based program "
+        "(decode_block tokens per live slot, one host sync)",
+    ),
+    "serve.quant_decode": (
+        "span",
+        "one decode block of the INT8 (fused-native W8A8) persistent "
+        "program over the quantize=True slots — runs beside serve.decode "
+        "when fp and int8 requests share the engine",
+    ),
+    "serve.complete": (
+        "event",
+        "a request finished (tokens, reason=eos|budget|capacity, "
+        "ttft_s, decode_tokens_per_s)",
+    ),
+    "serve.queue_depth": (
+        "gauge", "requests waiting for a free slot (sampled per iteration)"
+    ),
+    "serve.slot_occupancy": (
+        "gauge", "live fraction of the engine's fixed decode slots"
+    ),
+    "serve.ttft_s": (
+        "gauge",
+        "one request's submit → first-token latency (queue wait + "
+        "bucketed prefill)",
+    ),
+    "serve.tokens_per_s": (
+        "gauge",
+        "one completed request's post-first-token decode rate (its slot's "
+        "share of the batched decode program)",
+    ),
+    "serve.tokens": ("counter", "generated tokens served by the engine"),
+    "serve.requests": ("counter", "requests completed by the engine"),
+    "serve.quant_requests": (
+        "counter",
+        "completed requests that decoded through the int8 path (subset "
+        "of serve.requests)",
+    ),
+    "serve.pages_free": (
+        "gauge",
+        "KV pages allocatable right now (truly free + idle prefix-cache "
+        "pages reclaimable by eviction); admission blocks — queues, "
+        "never drops — when a request's page need exceeds this",
+    ),
+    "serve.prefix_hits": (
+        "gauge",
+        "cumulative prompt pages served from the shared-prefix cache "
+        "instead of being allocated + recomputed into a private copy "
+        "(refcounted page reuse across requests)",
+    ),
+    "serve.spec_accept_rate": (
+        "gauge",
+        "cumulative speculative tokens committed per per-row verify "
+        "(1.0 = speculation buys nothing; draft_len + 1 is the ceiling)",
+    ),
+    "serve.pages_host": (
+        "gauge",
+        "prefix pages currently held by the host-DRAM spill tier "
+        "(kv_host_mb budget, LRU)",
+    ),
+    "serve.pages_disk": (
+        "gauge",
+        "prefix pages findable in the node-local disk spill tier "
+        "(kv_disk_dir; survives engine restarts)",
+    ),
+    "serve.slo_violation": (
+        "event",
+        "a request violated a declared latency SLO (slo=ttft|itl, "
+        "value, limit_s, group; armed by the engine's slo_ttft_ms / "
+        "slo_itl_ms)",
+    ),
+    "serve.slo_violations": (
+        "counter",
+        "cumulative declared-SLO violations (TTFT + ITL) — the number "
+        "/metrics surface",
+    ),
+    "serve.idle_fraction": (
+        "gauge",
+        "engine-time ledger: fraction of serve wall spent in the idle "
+        "sleep (nothing queued, nothing live) — high idle with low "
+        "queue depth means the replica is over-provisioned",
+    ),
+    "serve.decode_fraction": (
+        "gauge",
+        "engine-time ledger: fraction of serve wall inside the decode "
+        "(+ verify) device dispatches — the bucket that earns tokens",
+    ),
+    "serve.prefill_fraction": (
+        "gauge",
+        "engine-time ledger: fraction of serve wall inside admission "
+        "prefill dispatches — high under churny short-request traffic",
+    ),
+    "serve.decode_utilization": (
+        "gauge",
+        "occupancy-weighted decode utilization: live rows / batch rows "
+        "summed over dispatched blocks (1.0 = every row of every block "
+        "earned its FLOPs; low values say raise arrival rate or shrink "
+        "slots)",
+    ),
+    "serve.masked_row_waste": (
+        "gauge",
+        "fraction of dispatched batch rows live engine-wide but masked "
+        "OUT of the dispatching group's program — what the "
+        "(fp,int8)x(spec,plain) partition costs on mixed traffic",
+    ),
+    # ---------------------------------------------------------------- fleet
+    "fleet.register": (
+        "event",
+        "this replica stamped its registration file into "
+        "the registration directory at export start (url, replica "
+        "id, path) — how a fleet observatory discovers it without a "
+        "static URL list",
+    ),
+    "fleet.poll": (
+        "span",
+        "one fleet poll sweep: discover replicas, poll every /status "
+        "with per-replica timeout/backoff, aggregate one fleet snapshot",
+    ),
+    "fleet.size": (
+        "gauge",
+        "replicas the fleet observatory currently tracks (carries "
+        "healthy= — the count with health score >= 0.5 and fresh "
+        "/status)",
+    ),
+    "fleet.qps": (
+        "gauge",
+        "fleet aggregate completed-requests/s, summed from per-replica "
+        "completion-counter deltas between successful polls",
+    ),
+    "fleet.replica_stale": (
+        "event",
+        "a replica aged past the observatory's stale_s without a successful "
+        "/status poll — unreachable, backing off, or answering "
+        "malformed/truncated JSON (replica, url, age_s, last error); "
+        "its health score pins to 0 until it answers again",
+    ),
+    # -------------------------------------------------------------- goodput
+    "goodput.productive_s": (
+        "gauge",
+        "cumulative settled train-step seconds this process banked so "
+        "far (the ledger's productive bucket)",
+    ),
+    "goodput.lost_s": (
+        "gauge",
+        "process wall seconds so far NOT spent in settled train steps "
+        "(compile, restore, waits, gaps — decomposed precisely by the "
+        "summarize-time goodput ledger)",
+    ),
+    "goodput.fraction": (
+        "gauge",
+        "productive fraction of this process's wall time so far "
+        "(goodput-so-far; the run-level number comes from the merged "
+        "ledger)",
+    ),
+    "obs.export": (
+        "event",
+        "the live metrics endpoint started serving /metrics (Prometheus "
+        "text) + /status (JSON) on gang member 0 "
+        "(start_export); carries the bound port",
+    ),
     # ---------------------------------------------------------------- dist
     "dist.mesh_generation": (
         "gauge",
