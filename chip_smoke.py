@@ -55,6 +55,19 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    wall within 1%, and the flash launches are 12 per prefill whose
    prompt takes the flash path (the ship hop's included; none for the
    import). The SIGTERM handler and the preemption flag are put back.
+   Then the fleet front (``router_leg``): two ``LocalReplica``s (8 slots,
+   pages of 16, one device lock) registered under ``build/``, a fleet
+   observatory and poller feeding a ``Router``, a ``FrontDoor`` with
+   tracing armed. The engine check's fp prompts at once and a repeat of
+   the longest (the affinity route); the prompts twice over with the
+   first replica seen decoding killed through the ``replica_kill`` fault
+   plan (its held requests reroute); once its row is stale, the
+   survivor's slots full, one request queued and the survivor drained
+   (that request: 503 naming ``drained``). Every 200 equals its solo
+   ``generate()``, a rerouted request's assembled trace holds the
+   router's queue, two forwards and the survivor's prefill and first
+   tick, and the flash launches are 12 a prefill on the flash path,
+   counted per replica; the leg's wall and TTFT p50 through the router.
 5. Generation slice on the same model (``generation_phase``): beam search
    (K = 1 equal to greedy; K = 4 prefilled once at width B, its scores
    against ``sequence_logprob`` on the flash forward; the fused-native
@@ -286,7 +299,8 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    those of the generation phase; ``disagg_launches``: those of phase
    4's disaggregated leg (the flash forward, the int8 tiles);
    ``replica_launches``: those of phase 4's replica leg (the flash
-   forward);
+   forward); ``router_launches``: those of its router leg, both replicas'
+   (the flash forward);
    ``recipe_launches``: those of phase 11;
    ``fsdp_launches``: those of phase 12's leg (b), both ranks';
    ``tp_launches``: those of phase 13's two training legs, every rank's;
@@ -484,6 +498,12 @@ DISAGG_SUFFIX = (320, 64)   # the shipped base, the suffix it is extended by
 # when the SIGTERM lands (the fp prompts, repeated), and the loop's bound.
 REPLICA_SLOTS = 8
 REPLICA_MAX_S = 120.0
+# Phase 4's router leg: two replicas behind the front door; the seconds
+# after which a dead replica's row reads stale, and the router's admission
+# queue bound (the drained request's 503 comes after it).
+ROUTER_REPLICAS = ("rt-0", "rt-1")
+ROUTER_STALE_S = 3.0
+ROUTER_QUEUE_S = 3.0
 FEED_CHURN = 630
 FEED_POOL = 41              # pages, the trash page included
 FEED_HOST_MB = 128.0
@@ -1187,11 +1207,10 @@ def slice_phase(torch, smi):
           f"in {eng_s:.3f} s = {n_tok / eng_s:.1f} tokens/s, int8 launches by "
           f"tile "
           f"{int8_launches} [{smi}]")
-    res["engine_profile"] = engine_profile(torch, model, prompts, flags,
-                                           eng_s)
     del eng
     res["disagg"] = disagg_leg(torch, model, rng, smi, int8_solos)
     res["replica"] = replica_leg(torch, model, smi, fp_solos)
+    res["router"] = router_leg(torch, model, smi, fp_solos)
     return res, flash_launches, int8_launches
 
 
@@ -1662,6 +1681,244 @@ def replica_leg(torch, model, smi, fp_solos) -> dict:
                 prefills=len(prefilled), flash_prefills=n_flash,
                 launches=launches, generate_url=notes["generate_url"],
                 metrics=metrics, gpu=smi)
+
+
+def router_leg(torch, model, smi, fp_solos) -> dict:
+    """The fleet front on ``model``: two ``LocalReplica``s (each an
+    engine of ``REPLICA_SLOTS`` slots, pages of ``DISAGG_PAGE``, one
+    device lock between them) registered under ``build/``, a fleet
+    observatory and its poller feeding a ``Router``, a ``FrontDoor`` in
+    front with tracing armed. ``fp_solos``: the engine check's fp prompts
+    with their solo ``generate()`` tokens, which every 200 answer must
+    equal (no new solo run).
+
+    Wave 1: the four prompts at once, then a repeat of the longest, which
+    must take the affinity route to the replica that served it. Wave 2:
+    the prompts twice over; the first replica seen decoding is killed
+    through the ``replica_kill`` fault plan, and its held requests must
+    reroute and answer 200. Drain: once the dead replica's row is stale,
+    the survivor's slots fill, one more request queues behind them and
+    the survivor drains: that request gets a 503 naming ``drained``. A
+    rerouted request's assembled trace holds the router's queue, two
+    forwards and the survivor's prefill and first tick. The flash
+    launches, read from 0 around the leg, are 12 a prefill on the flash
+    path, counted per replica (the rerouted request's second prefill
+    included); the launch check holds only on the card."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from tpuflow_torch.infer import frontdoor
+    from tpuflow_torch.infer.router import Router
+    from tpuflow_torch.infer.serve import ServeEngine
+    from tpuflow_torch.obs import fleet, trace
+    from tpuflow_torch.ops import flash_attention as fa
+    from tpuflow_torch.ops import int8_matmul as im
+    from tpuflow_torch.ops.attention import resolve_attention_impl
+    from tpuflow_torch.testing import faults
+    from tpuflow_torch.testing.chaos import LocalReplica, apply_replica_plan
+
+    cfg = model.config
+    on_card = model.device.type == "cuda"
+    root = os.path.join(REPO, "build", "router")
+    shutil.rmtree(root, ignore_errors=True)
+    reg, tdir = os.path.join(root, "fleet"), os.path.join(root, "trace")
+    os.makedirs(reg)
+    solo = {p.tobytes(): s.tolist() for p, s in fp_solos}
+    prompts = [p for p, _ in fp_solos]
+    long_p = max(prompts, key=len)
+    prefilled: dict = {}  # replica id -> prompt lengths it prefilled
+    lock = threading.Lock()
+    reps = {}
+    for rid in ROUTER_REPLICAS:
+        eng = ServeEngine(model, max_slots=REPLICA_SLOTS,
+                          page_size=DISAGG_PAGE)
+        prefilled[rid] = []
+
+        def recording(m, prompt, W, _row=eng._prefill_row,
+                      _seen=prefilled[rid]):
+            _seen.append(int(prompt.size))
+            return _row(m, prompt, W)
+
+        eng._prefill_row = recording
+        reps[rid] = LocalReplica(rid, eng, registration_dir=reg,
+                                 device_lock=lock, trace_dir=tdir)
+    observatory = fleet.FleetObservatory(
+        reg, timeout_s=2.0, stale_s=ROUTER_STALE_S, poll_interval_s=0.05)
+    poller = fleet.FleetPoller(observatory, interval_s=0.05)
+    router = Router(poller.snapshot, frontdoor.http_forward,
+                    page_size=DISAGG_PAGE, timeout_s=120.0, retries=3,
+                    backoff_s=0.05, queue_timeout_s=ROUTER_QUEUE_S,
+                    refresh_s=0.05)
+    door = frontdoor.FrontDoor(router, port=0, trace_dir=tdir)
+    answers: dict = {}
+    want: dict = {}
+
+    def send(rid, p):
+        want[rid] = p
+        req = urllib.request.Request(
+            door.url + "/generate", method="POST",
+            headers={"Content-Type": "application/json"},
+            data=json.dumps({"id": rid, "prompt": p.tolist(),
+                             "max_new_tokens": NEW_TOKENS}).encode())
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                answers[rid] = (r.status, json.loads(r.read()))
+        except urllib.error.HTTPError as e:
+            answers[rid] = (e.code, json.loads(e.read()))
+
+    def wave(bodies):
+        threads = [threading.Thread(target=send, args=(rid, p))
+                   for rid, p in bodies.items()]
+        for t in threads:
+            t.start()
+        return threads
+
+    def until(cond, what, timeout=60.0):
+        deadline = time.monotonic() + timeout
+        while not cond():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"router leg: {what} timed out")
+            time.sleep(0.002)
+
+    _zero_counters(fa, im)
+    t0 = time.monotonic()
+    try:
+        # Wave 1, then the repeat that must follow its prefix.
+        for t in wave({f"w1-{i}": p for i, p in enumerate(prompts)}):
+            t.join()
+        affine0 = router.stats()["router_affinity_hits"]
+        for t in wave({"w1-repeat": long_p}):
+            t.join()
+        affine = router.stats()["router_affinity_hits"] - affine0
+        # Wave 2: kill the first replica seen decoding a held request.
+        bodies = {f"w2-{i}": prompts[i % len(prompts)]
+                  for i in range(2 * len(prompts))}
+        threads = wave(bodies)
+        box = {}
+
+        def decoding():
+            for rid, rep in reps.items():
+                if rep.gateway._handles and rep.engine.live_slots:
+                    box["victim"] = rid
+                    return True
+            return False
+
+        until(decoding, "a replica decoding wave 2")
+        victim = box["victim"]
+        with faults.installing(f"replica_kill:{victim}@0.0"):
+            plan = faults.replica_plan()
+        apply_replica_plan(reps, plan).join(10.0)
+        for t in threads:
+            t.join()
+        survivor = next(r for r in reps if r != victim)
+        until(lambda: any(r["id"] == victim and r["stale"] for r in
+                          poller.snapshot().get("replicas", [])),
+              "the dead replica's row going stale", ROUTER_STALE_S + 30.0)
+        # Drain: the survivor's slots full, one queued, then the drain.
+        # The fill queues whole while the device lock holds the survivor's
+        # loop, so its next step admits all of it at once.
+        seng = reps[survivor].engine
+        with lock:
+            threads = wave({f"fill-{i}": prompts[i % len(prompts)]
+                            for i in range(REPLICA_SLOTS)})
+            until(lambda: seng.queue_depth == REPLICA_SLOTS,
+                  "the fill queueing")
+        until(lambda: seng.live_slots == REPLICA_SLOTS, "the slots filling")
+        threads += wave({"queued": prompts[0]})
+        until(lambda: seng.queue_depth == 1, "the ninth request queueing")
+        live_at_drain = seng.live_slots
+        reps[survivor].drain()
+        for t in threads:
+            t.join()
+        wall_s = time.monotonic() - t0
+        stats = router.stats()
+    finally:
+        door.close()
+        poller.close()
+        for rep in reps.values():
+            rep.close()
+    if on_card:
+        torch.cuda.synchronize()
+    launches = _counters(fa, im)
+    # Every answer: 200 with the solo tokens, but the queued one.
+    for rid, (code, body) in sorted(answers.items()):
+        if rid == "queued":
+            if code != 503 or "drained" not in body.get("error", ""):
+                raise AssertionError(f"the queued request answered {code} "
+                                     f"{body}, want 503 naming drained")
+            continue
+        if code != 200 or body["tokens"] != solo[want[rid].tobytes()]:
+            raise AssertionError(f"{rid} (len {want[rid].size}) answered "
+                                 f"{code} {body}, want the solo tokens")
+    if len(answers) != len(prompts) + 2 + len(bodies) + REPLICA_SLOTS:
+        raise AssertionError(f"router leg: {len(answers)} answers")
+    if affine < 1:
+        raise AssertionError("the repeat did not take the affinity route")
+    if stats["router_reroutes"] < 1 or stats["router_dropped"]:
+        raise AssertionError(f"router stats {stats}: want a reroute and no "
+                             "drop")
+    if live_at_drain != REPLICA_SLOTS:
+        raise AssertionError("the drain landed with free slots")
+    # The rerouted request's timeline: the router's queue, two forwards
+    # (the dead replica's failed, the survivor's), the survivor's spans.
+    spans = trace.read_spans(tdir)
+    by_req: dict = {}
+    for sp in spans:
+        by_req.setdefault(sp["request"], []).append(sp)
+    rerouted = sorted(
+        rid for rid, ss in by_req.items() if answers[rid][0] == 200
+        and any(s["name"] == "router.forward" and s.get("reroute")
+                for s in ss))
+    if not rerouted:
+        raise AssertionError("no answered request carries a reroute span")
+    a = trace.assemble(by_req[rerouted[0]])
+    fwds = [s for s in a["spans"] if s["name"] == "router.forward"]
+    serve = {s["name"]: s["writer"] for s in a["spans"]
+             if s["name"].startswith("serve.")}
+    if not (a["rerouted"] and len(fwds) == 2
+            and [f["replica"] for f in fwds] == [victim, survivor]
+            and any(s["name"] == "router.queue" for s in a["spans"])
+            and serve.get("serve.prefill") == survivor
+            and serve.get("serve.first_tick") == survivor):
+        raise AssertionError(f"the rerouted request's timeline: "
+                             f"{trace.format_timeline(a)}")
+    # TTFT as the critical path attributes it (router queue, failed
+    # forwards and backoff, replica queue, prefill, first decode tick),
+    # and the same less the first tick: to the first token.
+    done = [trace.assemble(ss) for rid, ss in by_req.items()
+            if answers[rid][0] == 200]
+    ttfts = sorted(x["ttft_s"] for x in done)
+    firsts = sorted(x["ttft_s"] - x["ttft_breakdown"]["first_tick_s"]
+                    for x in done)
+    ttft_p50, first_p50 = ttfts[len(ttfts) // 2], firsts[len(firsts) // 2]
+    n_flash = {rid: sum(resolve_attention_impl(
+        cfg.attn_impl, n, needs_bwd=False,
+        backend=model.device.type) == "flash" for n in lens)
+        for rid, lens in prefilled.items()}
+    want_n = _launches(flash_fwd=cfg.n_layer * sum(n_flash.values()))
+    if on_card and launches != want_n:
+        raise AssertionError(f"router leg launches {launches}, want {want_n}")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"router: {wall_s:.2f} s for {len(answers)} requests through the "
+          f"front door over 2 replicas ({victim} killed mid-decode, "
+          f"{survivor} drained with 1 queued -> 503 drained); TTFT p50 "
+          f"through the router {ttft_p50 * 1e3:.1f} ms (to the first token "
+          f"{first_p50 * 1e3:.1f} ms, the first decode tick left out); "
+          f"reroutes "
+          f"{stats['router_reroutes']}, affinity hits "
+          f"{stats['router_affinity_hits']}, retries "
+          f"{stats['router_retries']}, requests {stats['router_requests']}, "
+          f"rejected {stats['router_rejected']}, dropped "
+          f"{stats['router_dropped']}; rerouted {rerouted[0]}: "
+          f"{' -> '.join(f['replica'] for f in fwds)}; flash launches "
+          f"{launches['flash_fwd']} = {cfg.n_layer} x {n_flash} prefills on "
+          f"the flash path [{smi}]")
+    return dict(wall_s=wall_s, answers=len(answers), stats=stats,
+                victim=victim, survivor=survivor, ttft_p50_s=ttft_p50,
+                first_token_p50_s=first_p50, ttft_s=ttfts, rerouted=rerouted,
+                critical_path=a["critical_path"], prefills=prefilled,
+                flash_prefills=n_flash, launches=launches, gpu=smi)
 
 
 def _decode_ms(torch, model, prompt, steps: int = 16) -> float:
@@ -2770,37 +3027,6 @@ def step_parity(torch, cfg) -> dict:
     return dict(loss_flash=res["flash"][0], loss_xla=res["xla"][0],
                 loss_abs_diff=loss_err, worst_grad=worst_name,
                 worst_grad_rel_diff=worst)
-
-
-def engine_profile(torch, model, prompts, flags, wall_s: float) -> dict:
-    """The same traffic through a fresh engine under torch.profiler: the
-    device's busy time (union of kernel intervals), its share of the
-    unprofiled engine wall ``wall_s`` (the profiler slows the host, not
-    the kernels), and the kernels that take the most device time."""
-    from tpuflow_torch.infer.serve import ServeEngine
-
-    eng = ServeEngine(model, max_slots=8, quant="fused_native")
-
-    def run():
-        for p, q in zip(prompts, flags):
-            eng.submit(p, max_new_tokens=NEW_TOKENS, quantize=q)
-        eng.run_until_idle()
-
-    t0 = time.monotonic()
-    kernels = kernel_trace(torch, run)
-    wall_us = (time.monotonic() - t0) * 1e6
-    busy = _busy(kernels)
-    out = dict(
-        profiled_wall_s=wall_us / 1e6, kernel_launches=len(kernels),
-        device_busy_s=busy / 1e6,
-        device_busy_share_of_engine_wall=busy / 1e6 / wall_s,
-        top_kernels_ms=_top(kernels),
-    )
-    print(f"engine under the profiler: {len(kernels)} kernels, device busy "
-          f"{busy / 1e6:.3f} s = "
-          f"{out['device_busy_share_of_engine_wall']:.1%} of the unprofiled "
-          f"engine wall {wall_s:.3f} s")
-    return out
 
 
 def head_dim_phase(torch, timer, bwd_rows):
@@ -7131,7 +7357,7 @@ def main() -> int:
     # summed over every main path run above (the counters' "_wide" keys).
     main_runs = [sl["generate"]["launches"], sl["engine"]["launches"],
                  _launches(flash_fwd=sl["disagg"]["launches"]["flash_fwd"]),
-                 sl["replica"]["launches"],
+                 sl["replica"]["launches"], sl["router"]["launches"],
                  *gen["launches"].values(),
                  train_n, tr["bf16"]["launches"], tr["split_launches"],
                  tr["split_ckpt"]["resume"]["launches"],
@@ -7232,6 +7458,9 @@ def main() -> int:
         # included (the flash forward).
         if entry["name"] == "flash_fwd":
             entry["replica_launches"] = sl["replica"]["launches"]["flash_fwd"]
+            # Its router leg: both replicas' prefills, the rerouted
+            # requests' second prefills included.
+            entry["router_launches"] = sl["router"]["launches"]["flash_fwd"]
     # The flash kernels' launches in phase 11, every training recipe's
     # runs summed (its legs, resumes and flows; f32).
     recipe_runs = [recipes[leg]["launches"] for leg in

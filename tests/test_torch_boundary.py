@@ -25,8 +25,8 @@ def _port_sources():
 # Every package of the port, with its count of Python modules: a module
 # dropped or left out of the scan fails the count.
 PACKAGES = {"": 2, "ckpt": 6, "data": 4, "dist": 3, "flow": 8, "flows": 6,
-            "infer": 10, "models": 9, "obs": 10, "ops": 5, "parallel": 7,
-            "testing": 3, "train": 5, "utils": 4}
+            "infer": 11, "models": 9, "obs": 11, "ops": 5, "parallel": 7,
+            "testing": 4, "train": 5, "utils": 4}
 
 
 def _imported_roots(path):
@@ -133,7 +133,8 @@ def test_package_imports_with_jax_poisoned():
         "import tpuflow_torch.train.trainer, tpuflow_torch.flow.client\n"
         "import tpuflow_torch.infer.frontdoor, tpuflow_torch.obs.export\n"
         "import tpuflow_torch.obs.serve_ledger, tpuflow_torch.obs.fleet\n"
-        "import tpuflow_torch.obs.goodput\n"
+        "import tpuflow_torch.obs.goodput, tpuflow_torch.obs.trace\n"
+        "import tpuflow_torch.infer.router, tpuflow_torch.testing.chaos\n"
         "assert not any(k.split('.')[0] in ('jax', 'flax') and v is not None\n"
         "               for k, v in sys.modules.items())\n"
         "print('ok')\n"

@@ -72,11 +72,19 @@ keeps a lifecycle trace (``ServeRequest.trace``), mirrored as
   the ``/metrics`` + ``/status`` export, and drains on SIGTERM: no new
   admissions, the live slots finish, queued requests end ``drained``.
 
+- **Request tracing.** A request submitted with a propagated trace context
+  (``submit(trace=)``, from the gateway; ``obs/trace.py``) carries its
+  trace id on its lifecycle events, escalates the trace on an SLO breach,
+  pins it as its TTFT and ITL exemplars, and flushes its lifecycle as
+  spans when it completes or drains.
+
 PyTorch runs eagerly, so the JAX engine's jit programs, warmup and
-never-recompile accounting have no counterpart here. The router and the
-client-facing front door are not ported yet (ROADMAP). Where the JAX engine
-reads ``TPUFLOW_SERVE_*`` / ``TPUFLOW_KV_*`` / ``TPUFLOW_ROUTER_GATEWAY`` /
-``TPUFLOW_OBS_HTTP_*`` knobs, this one takes arguments.
+never-recompile accounting have no counterpart here. A fleet of these
+engines sits behind ``infer/router.py``'s ``Router`` and
+``infer/frontdoor.py``'s ``FrontDoor``. Where the JAX engine reads
+``TPUFLOW_SERVE_*`` / ``TPUFLOW_KV_*`` / ``TPUFLOW_ROUTER_GATEWAY`` /
+``TPUFLOW_OBS_HTTP_*`` / ``TPUFLOW_TRACE*`` knobs, this one takes
+arguments.
 """
 
 from __future__ import annotations
@@ -106,6 +114,7 @@ from tpuflow_torch.infer.quant import (
 from tpuflow_torch.infer.speculative import ngram_draft
 from tpuflow_torch.models.gpt2 import reject_moe
 from tpuflow_torch.obs import serve_ledger as _ledger
+from tpuflow_torch.obs import trace as _reqtrace
 
 
 def resolve_serve_quant(quant=None) -> str | None:
@@ -394,6 +403,10 @@ class ServeRequest:
     # A validated KVPageSet loaded at submit (kv_key=): its pages restore
     # at admission instead of being recomputed; None: local prefill.
     kv_import: _kvstore.KVPageSet | None = None
+    # The request's trace context (obs/trace.py::TraceContext) when it
+    # arrived through a front door, else None: the untraced path stays
+    # one ``is not None`` check.
+    trace_ctx: object = None
 
     @property
     def done(self) -> bool:
@@ -447,8 +460,9 @@ class ServeEngine:
     model's device.
 
     Disaggregated serving: ``role`` (``prefill`` | ``decode`` | ``both``)
-    is the phase it advertises, kept in ``self.role`` for a router; nothing
-    reads it until the router is ported. ``kv_store_dir`` is the shared
+    is the phase it advertises, kept in ``self.role`` and carried by the
+    replica's ``/status`` row, from which a router places ship hops on
+    ``prefill`` replicas and requests elsewhere. ``kv_store_dir`` is the shared
     page-set store ``ship`` commits to and ``submit(kv_key=)`` imports
     from; ``kv_host_mb`` and ``kv_disk_dir`` arm the tiered prefix cache
     (host DRAM budget, node-local disk directory; a ``TierCache`` with its
@@ -784,6 +798,7 @@ class ServeEngine:
                eos_id: int | None = None,
                quantize: bool = False,
                speculative: bool | None = None,
+               trace=None,
                kv_key: str | None = None) -> ServeRequest:
         """Enqueue one request; returns its live handle. Validation is eager:
         a request that can never fit fails here. ``quantize=True`` routes it
@@ -793,7 +808,10 @@ class ServeEngine:
         construction). ``kv_key`` names a shipped page set in the engine's
         KV store: a loadable matching set admits the request already
         prefilled; a missing, torn or mismatched one rides local prefill
-        (the ``kv_fallback`` trace phase), never an error."""
+        (the ``kv_fallback`` trace phase), never an error. ``trace`` is the
+        request's propagated trace context (``obs/trace.py``): its
+        lifecycle events carry the trace id, an SLO breach escalates it,
+        and its lifecycle spans flush when the request ends."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("prompt must have at least one token")
@@ -832,6 +850,7 @@ class ServeEngine:
             quantize=bool(quantize),
             speculative=spec,
             bucket=self.bucket_for(prompt.size, max_new_tokens),
+            trace_ctx=trace,
         )
         if self._pages_needed(req) > self.pool.usable_pages:
             raise ValueError(
@@ -931,9 +950,26 @@ class ServeEngine:
     # ------------------------------------------------------ lifecycle trace
     def _trace(self, req: ServeRequest, phase: str, **attrs) -> None:
         """One lifecycle transition: appended to the request's trace and
-        mirrored as a serve.trace event."""
+        mirrored as a serve.trace event; with a propagated context both
+        carry its ``trace_id`` (absent, never empty, without one)."""
+        if req.trace_ctx is not None:
+            attrs["trace_id"] = req.trace_ctx.trace_id
         req.trace.append({"phase": phase, "t": time.monotonic(), **attrs})
         obs.event("serve.trace", request=req.id, phase=phase, **attrs)
+
+    def _tid(self, req: ServeRequest) -> dict:
+        """``{"trace_id": ...}`` when a propagated context rides the
+        request, else ``{}``: spread into the serve.* lifecycle events so
+        the untraced shape is unchanged."""
+        ctx = req.trace_ctx
+        return {} if ctx is None else {"trace_id": ctx.trace_id}
+
+    def _exemplar(self, req: ServeRequest) -> str | None:
+        """The trace id a TTFT / ITL observation pins as its histogram
+        bucket's exemplar: only a recorded trace's, so a fleet p99
+        exemplar always resolves to spans on disk."""
+        ctx = req.trace_ctx
+        return ctx.trace_id if ctx is not None and ctx.recorded else None
 
     def _note_queued(self, req: ServeRequest, reason: str) -> None:
         """Backpressure evidence: the queued phase once per reason change
@@ -953,13 +989,19 @@ class ServeEngine:
         if self.ledger.check_ttft(req.ttft_s, group=req.group):
             self._slo_violation(req, "ttft", req.ttft_s,
                                 self.ledger.slo_ttft_s)
-        obs.goodput_live().note_serve_ttft(req.ttft_s)
+        obs.goodput_live().note_serve_ttft(req.ttft_s,
+                                           trace_id=self._exemplar(req))
 
     def _slo_violation(self, req: ServeRequest, kind: str, value: float,
                        limit_s: float) -> None:
         req.slo_violations += 1
+        if req.trace_ctx is not None:
+            # Tail sampling: an SLO breach force-records the trace even
+            # when the head sampler skipped it.
+            req.trace_ctx.escalate("slo")
         obs.event("serve.slo_violation", request=req.id, slo=kind,
-                  value=round(value, 6), limit_s=limit_s, group=req.group)
+                  value=round(value, 6), limit_s=limit_s, group=req.group,
+                  **self._tid(req))
         obs.counter("serve.slo_violations", 1)
 
     def _access_write(self, req: ServeRequest, terminal: str) -> None:
@@ -1010,6 +1052,9 @@ class ServeEngine:
             req.drained = True
             self._trace(req, "drained", reason="preempt_drain")
             self._access_write(req, "drained")
+            if req.trace_ctx is not None:
+                _reqtrace.flush_lifecycle(req.trace_ctx, req.trace,
+                                          engine_request=req.id)
             n += 1
         return n
 
@@ -1095,11 +1140,11 @@ class ServeEngine:
             n_host = sum(1 for src in restore_src.values() if src == "host")
             self.pool.tier_hits += n_tier
             obs.event("serve.tier_hit", request=req.id, host=n_host,
-                      disk=n_tier - n_host)
+                      disk=n_tier - n_host, **self._tid(req))
         self._restore_pages(table_row, restored)
         if n_tier:
             obs.event("serve.tier_promote", request=req.id, pages=n_tier,
-                      prefill_skipped=mode != "prefill")
+                      prefill_skipped=mode != "prefill", **self._tid(req))
         first: int | None = None
         row_cache = None
         if mode == "ship":
@@ -1123,7 +1168,7 @@ class ServeEngine:
                          promoted_pages=n_tier)
         obs.event("serve.admit", request=req.id, slot=slot, bucket=W,
                   prompt_len=int(L), queue_wait_s=round(now - req.t_submit, 6),
-                  pages=len(page_ids), shared_pages=matched)
+                  pages=len(page_ids), shared_pages=matched, **self._tid(req))
         self._trace(req, "admitted", slot=slot, bucket=W,
                     queue_wait_s=round(now - req.t_submit, 6),
                     pages=len(page_ids), shared_pages=matched, **extra)
@@ -1166,7 +1211,7 @@ class ServeEngine:
         obs.event("serve.complete", request=req.id, tokens=len(req.tokens),
                   reason=reason, ttft_s=round(req.ttft_s, 6),
                   decode_tokens_per_s=None if rate is None
-                  else round(rate, 2))
+                  else round(rate, 2), **self._tid(req))
         obs.counter("serve.requests", 1)
         if req.quantize:
             obs.counter("serve.quant_requests", 1)
@@ -1175,6 +1220,12 @@ class ServeEngine:
         self._trace(req, "complete", reason=reason, tokens=len(req.tokens),
                     slo_violations=req.slo_violations)
         self._access_write(req, "complete")
+        if req.trace_ctx is not None:
+            # The replica half of the cross-process timeline: the
+            # lifecycle phases as wall-clock spans, flushed under the
+            # propagated trace id.
+            _reqtrace.flush_lifecycle(req.trace_ctx, req.trace,
+                                      engine_request=req.id)
         obs.goodput_live().note_serve_complete(req.group)
 
     def _emit_state_gauges(self) -> None:
@@ -1329,7 +1380,7 @@ class ServeEngine:
                     itl = max(now - anchor, 0.0) / n
                     req.itl_s.append(itl)
                     self.ledger.note_itl(req.group, itl)
-                    led.note_serve_itl(itl)
+                    led.note_serve_itl(itl, trace_id=self._exemplar(req))
                 if req.t_first is None:
                     # A feed admission: its first token came out of this
                     # block, after the ITL anchor above (which must not
@@ -1440,6 +1491,8 @@ def serve_forever(
     http_host: str = "127.0.0.1",
     registration_dir: str | None = None,
     replica_id: str | None = None,
+    trace: bool = True,
+    trace_dir: str | None = None,
 ) -> None:
     """Long-lived serving loop on ``engine``'s card: it steps the engine
     under a lock, stamps the heartbeat every iteration (``utils/
@@ -1461,7 +1514,9 @@ def serve_forever(
     ``http_host``, sharing the step loop's lock, and advertises its URL as
     ``generate_url`` in ``/status``; the URL is retracted before the
     socket closes. While draining, new ``/generate`` requests answer 503
-    "draining" and the drained ones 503 "drained".
+    "draining" and the drained ones 503 "drained". ``trace`` and
+    ``trace_dir`` (``TPUFLOW_TRACE``, ``TPUFLOW_TRACE_DIR``) go to the
+    gateway, whose spans take ``replica_id`` as their writer.
 
     ``max_s`` bounds the loop; ``should_stop`` is an optional callable
     polled each iteration. The JAX loop's device program ledger
@@ -1480,7 +1535,9 @@ def serve_forever(
         from tpuflow_torch.infer.frontdoor import ReplicaGateway
 
         try:
-            gw = ReplicaGateway(engine, lock=step_lock, host=http_host)
+            gw = ReplicaGateway(engine, lock=step_lock, host=http_host,
+                                trace=trace, trace_dir=trace_dir,
+                                replica_id=replica_id)
         except OSError as e:
             print(f"[tpuflow] replica gateway failed to bind on {http_host} "
                   f"({e}); serving status-only")

@@ -328,6 +328,91 @@ CATALOG: dict[str, tuple[str, str]] = {
         "malformed/truncated JSON (replica, url, age_s, last error); "
         "its health score pins to 0 until it answers again",
     ),
+    # --------------------------------------------------------------- router
+    # The front door's admission and failover trail: a request's router
+    # events reconstruct its fleet journey without any replica's log.
+    "router.admit": (
+        "event",
+        "a request cleared fleet token-budget admission and was "
+        "dispatched (request id, replica, pages charged, queue wait s, "
+        "affinity hit)",
+    ),
+    "router.reject": (
+        "event",
+        "a request exhausted its retry budget or timed out in the "
+        "admission queue and returned 503: the router's only loss mode, "
+        "explicit, bounded and counted",
+    ),
+    "router.retry": (
+        "event",
+        "one forward attempt failed (timeout, refused, non-200) and the "
+        "request re-dispatched after backoff (request id, attempt, failed "
+        "replica, error)",
+    ),
+    "router.reroute": (
+        "event",
+        "a retry landed on a different replica than the failed one: the "
+        "replica died or stalled mid-request, the client still sees "
+        "exactly one answer",
+    ),
+    "router.drain": (
+        "event",
+        "a replica flipped serve_draining in its /status (SIGTERM "
+        "landed): no new admissions route there; its queued work "
+        "re-enters the pick loop",
+    ),
+    "router.replace": (
+        "event",
+        "the autoscale loop launched a kernel-built replacement or "
+        "requested scale-up (action, replica, reason: stale | occupancy "
+        "| slo_rate)",
+    ),
+    "router.ship": (
+        "event",
+        "disaggregated serving: a long prompt's KV pages were prefilled "
+        "on a prefill-role replica and committed; the decode forward "
+        "carries the returned kv_key (request id, prefill replica, key)",
+    ),
+    "router.ship_fallback": (
+        "event",
+        "the KV ship hop failed (no prefill capacity, dead replica "
+        "mid-ship, torn commit) and the request fell back to local "
+        "prefill on the decode replica: never an error, but counted",
+    ),
+    "router.queue_depth": (
+        "gauge",
+        "requests waiting in the front door's admission queue for fleet "
+        "token budget (backpressure queues here, never drops)",
+    ),
+    "router.budget_pages": (
+        "gauge",
+        "fleet token budget the admission gate sees: summed pages_free "
+        "over routable replicas minus pages charged to in-flight requests",
+    ),
+    # ---------------------------------------------------------------- trace
+    "trace.escalate": (
+        "event",
+        "tail-sampling override: a head-unsampled trace force-recorded by "
+        "an SLO breach, reroute, forward error or queue timeout (trace "
+        "id, request id, first reason)",
+    ),
+    "trace.flush": (
+        "event",
+        "one recorded trace context drained its span buffer to the "
+        "writer's trace JSONL (trace id, request id, span count, writer, "
+        "escalation reason if any)",
+    ),
+    "trace.spans": (
+        "counter",
+        "spans appended to this process's trace-<writer>.jsonl (one "
+        "O_APPEND write a flush)",
+    ),
+    "trace.dropped": (
+        "counter",
+        "spans discarded because no trace directory resolves (no "
+        "trace_dir and no recorder) or the append failed: tracing never "
+        "raises into the serving path",
+    ),
     # -------------------------------------------------------------- goodput
     "goodput.productive_s": (
         "gauge",

@@ -14,7 +14,11 @@ never served from a stale library. Fast math stays off: the int8 kernel
 is bit-exact only under IEEE division and rounding.
 
 Nothing here runs at import time; the CPU tests import every module and
-this machine may have no ``nvcc``.
+this machine may have no ``nvcc``. ``python <path>/_build.py`` builds
+every library and prints the seconds it took: the step a replacement
+replica runs before it takes traffic (``infer/router.py::launch_command``);
+the module imports nothing of the package, so it runs by path from any
+working directory.
 """
 
 from __future__ import annotations
@@ -153,3 +157,7 @@ def int64_array(values) -> ctypes.Array:
     """A C array of int64 (strides for an entry point that takes a
     pointer); the caller keeps it alive across the call."""
     return (ctypes.c_longlong * len(values))(*values)
+
+
+if __name__ == "__main__":
+    print(f"[build] kernels built in {build_all():.1f} s", flush=True)

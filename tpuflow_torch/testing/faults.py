@@ -45,7 +45,10 @@ Grammar (one spec per entry)::
     upload_stall[:<seconds>]     sleep in the local -> persistent upload
                                  of the fast checkpoint tier (default 5 s)
     replica_kill:<id>@<t>, replica_stall:<id>@<t>, prefill_kill:<id>@<t>
-                                 serving chaos (parsed only)
+                                 serving chaos: kill (or wedge) the fleet
+                                 replica <id> <t> seconds into a drive
+                                 (``replica_plan``, applied by
+                                 ``testing/chaos.py::apply_replica_plan``)
 
 Hooks: ``maybe_rendezvous_delay`` and ``maybe_rejoin_delay`` (gang
 exec), ``step_boundary`` (the
@@ -54,7 +57,8 @@ loops, before a step), ``maybe_stall_heartbeat`` (``utils/heartbeat.py``,
 after a stamp), ``ckpt_io_fault``
 (``ckpt/raw.py::retry_io``), ``corrupt_after_write`` (the raw shard
 writer), ``partial_commit`` and ``maybe_upload_stall`` (the manager's
-commit and upload). With no plan installed every hook returns at once.
+commit and upload); ``replica_plan`` (the serving-chaos harness). With no
+plan installed every hook returns at once.
 """
 
 from __future__ import annotations
@@ -360,3 +364,19 @@ def corrupt_after_write(path: str) -> None:
                 f.seek(size // 2)
                 f.write(bytes([byte[0] ^ 0xFF]))
         print(f"[faults] {kind} applied to {path}", file=sys.stderr)
+
+
+def replica_plan() -> list[tuple[str, str, float]]:
+    """Serving-chaos hook: the ``(kind, replica_id, at_s)`` schedule of
+    every installed ``replica_kill`` / ``replica_stall`` / ``prefill_kill``
+    spec, sorted by fire time. ``testing/chaos.py::apply_replica_plan``
+    applies it against in-process replicas."""
+    if _PLAN is None:
+        return []
+    plan = [
+        (f.kind, f.target or "", float(f.value or 0.0))
+        for f in _specs()
+        if f.kind in ("replica_kill", "replica_stall", "prefill_kill")
+    ]
+    plan.sort(key=lambda x: x[2])
+    return plan
