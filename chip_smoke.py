@@ -79,8 +79,21 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    of fp, weight-only and fused-native), and ``GenerationPredictor`` over
    ragged rows (the engine route) and a speculative int8 dense batch.
    Each leg's launches are read from zero; walls beside the card's name.
-6. Training slice: ``train_gpt`` trains GPT-2 124M (full remat, dropout
-   0.1, AdamW, f32) for 2 epochs of 8 steps at batch 8 x 1024 with the
+   Then MoE serving and the contiguous engine (``moe_serve_phase``): a
+   Switch-MoE GPT-2 at 124M's width (8 experts, capacity factor 1.25,
+   ``MOE_LAYERS`` blocks) in an 8-slot engine, each request equal to
+   itself alone in a 1-slot engine (the row rule); the same prompts with
+   fused-native int8 and speculative requests mixed, each equal to the
+   run with every int8 product through the plain version, the int8
+   launches exact by tile and at N = 8 (the router), the router's int8
+   matmul bit-equal to the plain version; the flash launches exact (one
+   a layer a prefill on the flash path); MoE against dense decode ms a
+   token; then on the dense 124M a contiguous (``paged=False``) and a
+   paged engine on the same submissions, tokens equal, each one's
+   residency and tokens/s.
+6. Training slice: ``train_gpt`` trains GPT-2 124M's width at 6 of its
+   12 blocks (``TRAIN_LAYERS``; full remat, dropout 0.1, AdamW, f32) for
+   2 epochs of 8 steps at batch 8 x 1024 with the
    flash kernels; every loss finite, the last below the first and the
    second epoch's mean below the first's, each kernel launched the number
    of times the code implies. Then the same call with ``health=False``
@@ -327,7 +340,10 @@ DIR), each in a process of its own that builds its kernels, and writes
 them to ``chiprun_out/wide_compare.json``.
 
 ``python3 chip_smoke.py --slice`` builds the kernels and runs only phase
-4, into ``chiprun_out/slice.json``; ``--recipes`` only
+4, into ``chiprun_out/slice.json``; ``--moe-serve`` only the int8
+kernel phase and phase 5's MoE serving and contiguous-engine leg, into
+``chiprun_out/moe_serve.json``;
+``--recipes`` only
 phase 11, into ``chiprun_out/recipes.json``; ``--fsdp`` only phase 12,
 into ``chiprun_out/fsdp.json`` (its ranks are ``--fsdp-rank`` processes
 of this script); ``--tp`` only phase 13, into ``chiprun_out/tp.json``
@@ -407,6 +423,9 @@ BWD_TOL = {"float32": (2e-4, 1e-4), "bfloat16": (2e-2, 1.6e-2)}
 TRAIN_EPOCHS = 2
 TRAIN_STEPS_PER_EPOCH = 8
 TRAIN_STEPS = TRAIN_EPOCHS * TRAIN_STEPS_PER_EPOCH
+# Its depth: 6 of 124M's 12 blocks, the width unchanged (cut for the time
+# limit when the MoE serving leg came; phases 6, 7 and 15 train it).
+TRAIN_LAYERS = 6
 # Flash vs einsum step parity (f32, TF32 off, dropout off): the two
 # attentions differ by summation order only. On the H100 the losses came
 # out bit-equal and the worst gradient tensor differed by 2.3e-6 of its
@@ -558,6 +577,12 @@ MOE_EXPERTS = 8
 # 16 came; the width and the 8 experts unchanged).
 MOE_LAYERS = 6
 RECIPE_SAMPLE = 32
+# The MoE serving leg (moe_serve_leg): ragged prompts, three of them on the
+# flash path (>= 128 tokens), 8 slots, drafts of 4 for its speculative
+# requests.
+MOE_SERVE_LENS = (5, 129, 64, 200, 17, 150, 33, 90)
+MOE_SLOTS = 8
+MOE_SPEC = 4
 # The flash crossovers: (B, H, D), the sequence lengths and the
 # interleaved runs whose median each time is (single calls of ~0.2-2 ms
 # at the short lengths, whose walls move by tens of percent).
@@ -1044,6 +1069,8 @@ def int8_phase(torch, timer):
     shapes = [(m, k, n, False) for m in (DECODE_M, PREFILL_M)
               for k, n in DENSE_KN]
     shapes += [(m, 768, VOCAB, True) for m in (DECODE_M, PREFILL_M)]
+    # The MoE router (N = the expert count) on both tiles.
+    shapes += [(m, 768, MOE_EXPERTS, False) for m in (DECODE_M, PREFILL_M)]
     rows = []
     for M, K, N, cl in shapes:
         x = torch.randn(M, K, device="cuda", generator=g)
@@ -1921,6 +1948,257 @@ def router_leg(torch, model, smi, fp_solos) -> dict:
                 flash_prefills=n_flash, launches=launches, gpu=smi)
 
 
+class _CallLog:
+    """``model`` (a GPT-2 or its ``QuantizedModel``) recording the (B, T)
+    of every call, every attribute passed through: the MoE leg's int8
+    launches are read against the calls the engine made."""
+
+    def __init__(self, model):
+        self._model, self.calls = model, []
+
+    def __call__(self, tokens, **kw):
+        self.calls.append(tuple(tokens.shape))
+        return self._model(tokens, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+
+@contextlib.contextmanager
+def _int8_plain(im):
+    """Every ``int8_matmul`` on the card through its plain version (the
+    reference run of the MoE leg): the kernel is not launched."""
+    real = im._cuda_int8_matmul
+    im._cuda_int8_matmul = (
+        lambda x2d, wq, ws, *, w_contract_last, out_dtype:
+        im._plain_int8_matmul(x2d, wq, ws, w_contract_last=w_contract_last,
+                              out_dtype=out_dtype))
+    try:
+        yield
+    finally:
+        im._cuda_int8_matmul = real
+
+
+def _serve(torch, eng, prompts, flags=None, residency=None):
+    """Submit ``prompts`` (``flags``: (int8, speculative) each), step the
+    engine to idle; returns (requests, device-synchronized wall s).
+    ``residency``: a list the engine's ``residency_efficiency`` is
+    appended to after every step that leaves a slot live."""
+    flags = flags or [(False, None)] * len(prompts)
+    sync = (torch.cuda.synchronize if eng.device.type == "cuda"
+            else lambda: None)
+    reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS, quantize=q,
+                       speculative=sp) for p, (q, sp) in zip(prompts, flags)]
+    sync()
+    t0 = time.monotonic()
+    for _ in range(10_000):
+        if not (eng.queue_depth or eng.live_slots):
+            break
+        eng.step()
+        r = eng.residency_efficiency()
+        if residency is not None and r is not None:
+            residency.append(r)
+    sync()
+    if eng.queue_depth or eng.live_slots:
+        raise AssertionError("the engine did not go idle")
+    return reqs, time.monotonic() - t0
+
+
+def moe_serve_leg(torch, moe, dense, smi) -> dict:
+    """MoE serving and the contiguous engine (``moe``: a Switch-MoE
+    GPT-2; ``dense``: the dense one; both at the leg's width, on one
+    device). (a) An 8-slot MoE engine (the default buckets, no chunk)
+    answers ragged greedy prompts, ``MOE_SERVE_LENS``: each request
+    equals itself alone in a 1-slot engine of the same buckets (the row
+    rule: capacity and slots are per row, a decode step keeps every token),
+    and the flash forward launches once a layer a prefill whose real
+    length takes the flash path. (b) A fused-native, speculative-armed
+    MoE engine answers the prompts with int8 and speculative requests
+    mixed: each equals the same engine's run with every int8 product
+    through the plain version; the int8 launches equal, by tile and by N,
+    the calls the engine made (the attention Dense layers, the router at
+    N = E and the head: 3 L + 1 a call), and the router's int8 matmul at
+    N = E is held bit-equal to the plain version on its leaf. (c) On the
+    dense model, a paged and a contiguous (``paged=False``) engine of 8
+    slots answer ``ENGINE_LENS`` in turns (paged, contiguous, contiguous,
+    paged): tokens equal, flash launches exact; each engine's residency
+    and tokens/s. On the CPU (a rehearsal) the launch
+    checks are skipped."""
+    from tpuflow_torch.infer.serve import ServeEngine
+    from tpuflow_torch.ops import flash_attention as fa
+    from tpuflow_torch.ops import int8_matmul as im
+    from tpuflow_torch.ops.attention import resolve_attention_impl
+
+    on_card = moe.device.type == "cuda"
+    cfg = moe.config
+    L, E = cfg.n_layer, cfg.n_experts
+    rng = np.random.default_rng(22)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n)
+               for n in MOE_SERVE_LENS]
+
+    def n_flash(model, lens):
+        return sum(resolve_attention_impl(
+            model.config.attn_impl, n, needs_bwd=False,
+            backend=model.device.type) == "flash" for n in lens)
+
+    def check(what, got, want):
+        print(f"{what} launches {got} (want {want})")
+        if on_card and got != want:
+            raise AssertionError(f"{what} launches {got}, want {want}")
+
+    def equal(what, reqs, want):
+        for r, w in zip(reqs, want):
+            if not (r.done and np.array_equal(r.result(), w)):
+                raise AssertionError(
+                    f"{what}: request of {r.prompt.size} tokens "
+                    f"{r.result()} != {w}")
+
+    res = dict(layers=L, experts=E, capacity_factor=cfg.capacity_factor,
+               prompt_lens=list(MOE_SERVE_LENS), new_tokens=NEW_TOKENS,
+               gpu=smi)
+    flash_moe = n_flash(moe, MOE_SERVE_LENS)
+
+    # (a) fp: 8 slots against each request alone.
+    eng = ServeEngine(moe, max_slots=MOE_SLOTS)
+    _zero_counters(fa, im)
+    reqs, wall = _serve(torch, eng, prompts)
+    got = _counters(fa, im)
+    check("moe engine (a)", got, _launches(flash_fwd=L * flash_moe))
+    alone = ServeEngine(moe, max_slots=1)
+    solo, solo_wall = _serve(torch, alone, prompts)
+    equal("moe engine, 8 slots against 1", reqs, [r.result() for r in solo])
+    n_tok = sum(len(r.tokens) for r in reqs)
+    res["fp"] = dict(wall_s=wall, tokens=n_tok, tokens_per_s=n_tok / wall,
+                     alone_wall_s=solo_wall, launches=got,
+                     flash_prefills=flash_moe)
+    print(f"moe engine (a): {L} layers x {E} experts, {len(prompts)} "
+          f"requests, {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} "
+          f"tokens/s on 8 slots; each equal to itself alone in a 1-slot "
+          f"engine ({solo_wall:.3f} s) [{smi}]")
+
+    # (b) fused-native int8 and speculative requests mixed.
+    flags = [(i % 2 == 1, i % 4 >= 2) for i in range(len(prompts))]
+    kw = dict(max_slots=MOE_SLOTS, quant="fused_native",
+              speculative=MOE_SPEC)
+    eng = ServeEngine(moe, **kw)
+    log = eng._qmodel = _CallLog(eng._qmodel)
+    _zero_counters(fa, im)
+    reqs, wall = _serve(torch, eng, prompts, flags)
+    got = _counters(fa, im)
+    tiles, by_n = dict(im.tile_launches), dict(im.n_launches)
+    int8_calls = {"decode": 0, "prefill": 0}
+    for B, T in log.calls:
+        int8_calls["decode" if B * T <= im.DECODE_MAX_M else "prefill"] += 1
+    want_tiles = {k: (3 * L + 1) * n for k, n in int8_calls.items()}
+    want_n = sum(int8_calls.values()) * L
+    check("moe engine (b)", got, _launches(
+        flash_fwd=L * flash_moe, int8_matmul=sum(want_tiles.values())))
+    check("moe engine (b) int8 by tile", tiles, want_tiles)
+    check("moe engine (b) router int8 (N = E)", by_n.get(E, 0), want_n)
+    plain_eng = ServeEngine(moe, **kw)
+    with _int8_plain(im):
+        im.launches = 0
+        plain, plain_wall = _serve(torch, plain_eng, prompts, flags)
+        if im.launches:
+            raise AssertionError(f"the plain run launched {im.launches}")
+    equal("moe engine (b), kernel against the plain version", reqs,
+          [r.result() for r in plain])
+    leaf = eng._qmodel.leaves["h.0.moe.gate"]
+    g = torch.Generator(device=moe.device).manual_seed(3)
+    for m in (MOE_SLOTS, MOE_SLOTS * (MOE_SPEC + 1), max(MOE_SERVE_LENS)):
+        x = torch.randn(m, cfg.n_embd, device=moe.device, generator=g)
+        out = im.int8_matmul(x, leaf.q, leaf.scale)
+        ref = im._plain_int8_matmul(x, leaf.q, leaf.scale.reshape(-1),
+                                    w_contract_last=False,
+                                    out_dtype=torch.float32)
+        if not torch.equal(out, ref):
+            raise AssertionError(f"the router's int8 matmul at ({m}, "
+                                 f"{cfg.n_embd}) x ({cfg.n_embd}, {E}) "
+                                 "differs from the plain version")
+    n_tok = sum(len(r.tokens) for r in reqs)
+    res["int8_spec"] = dict(
+        wall_s=wall, plain_wall_s=plain_wall, tokens=n_tok,
+        tokens_per_s=n_tok / wall, launches=got, int8_tiles=tiles,
+        int8_router_launches=by_n.get(E, 0), int8_calls=int8_calls,
+        spec_accept_rate=eng.spec_accept_rate,
+        router_shapes=[[m, cfg.n_embd, E] for m in
+                       (MOE_SLOTS, MOE_SLOTS * (MOE_SPEC + 1),
+                        max(MOE_SERVE_LENS))])
+    print(f"moe engine (b): {sum(q for q, _ in flags)} int8 and "
+          f"{sum(bool(sp) for _, sp in flags)} speculative requests (drafts "
+          f"of {MOE_SPEC}), {n_tok} tokens in {wall:.3f} s, acceptance "
+          f"{eng.spec_accept_rate}; each equal to the int8-plain run "
+          f"({plain_wall:.3f} s); int8 launches {tiles} by tile, "
+          f"{by_n.get(E, 0)} at N = {E} (the router), bit-equal to the "
+          f"plain version at M = 8, 40, {max(MOE_SERVE_LENS)} [{smi}]")
+
+    # MoE against dense: one decode step's ms, batch 1, after 64 tokens.
+    if on_card:
+        p64 = torch.as_tensor(prompts[2][None, :64], device=moe.device)
+        d = res["decode_ms"] = dict(
+            moe=_decode_ms(torch, moe, p64), dense=_decode_ms(torch, dense,
+                                                              p64),
+            moe_layers=L, dense_layers=dense.config.n_layer)
+        print(f"decode ms a token (batch 1, after 64 tokens): MoE "
+              f"{d['moe']:.2f} ({L} layers, {d['moe'] / L:.3f} a layer), "
+              f"dense {d['dense']:.2f} ({dense.config.n_layer} layers, "
+              f"{d['dense'] / dense.config.n_layer:.3f} a layer) [{smi}]")
+
+    # (c) contiguous against paged, on the dense model.
+    dprompts = [rng.integers(0, dense.config.vocab_size, size=n)
+                for n in ENGINE_LENS]
+    flash_dense = n_flash(dense, ENGINE_LENS)
+    runs, want = {}, None
+    # In turns (paged, contiguous, contiguous, paged): the host-bound
+    # walls of two runs drift apart by more than the engines differ.
+    for turn, paged in enumerate((True, False, False, True)):
+        eng = ServeEngine(dense, max_slots=MOE_SLOTS, paged=paged)
+        resid = []
+        _zero_counters(fa, im)
+        reqs, wall = _serve(torch, eng, dprompts, residency=resid)
+        got = _counters(fa, im)
+        name = "paged" if paged else "contiguous"
+        check(f"{name} engine, turn {turn}", got, _launches(
+            flash_fwd=dense.config.n_layer * flash_dense))
+        if want is None:
+            want = [r.result() for r in reqs]
+        equal(f"{name} engine, turn {turn}, against the first paged run",
+              reqs, want)
+        n_tok = sum(len(r.tokens) for r in reqs)
+        r = runs.setdefault(name, dict(
+            walls_s=[], tokens=n_tok, residency_first=resid[0],
+            residency_mean=float(np.mean(resid)), launches=got))
+        r["walls_s"].append(wall)
+    for name, r in runs.items():
+        r["tokens_per_s"] = r["tokens"] / float(np.mean(r["walls_s"]))
+        print(f"{name} engine: {len(dprompts)} requests on 8 slots, "
+              f"{r['tokens']} tokens in "
+              f"{', '.join(f'{w:.3f}' for w in r['walls_s'])} s (two "
+              f"turns) = {r['tokens_per_s']:.1f} tokens/s; residency "
+              f"{r['residency_first']:.4f} after the first step, "
+              f"{r['residency_mean']:.4f} mean over the live steps [{smi}]")
+    res["slots"] = runs
+    return res
+
+
+def moe_serve_phase(torch, smi) -> dict:
+    """The MoE serving and contiguous-engine leg at full width: GPT-2
+    124M's width (768, 12 heads) with ``MOE_EXPERTS`` experts, capacity
+    factor 1.25 and ``MOE_LAYERS`` blocks (the recipe's depth), and the
+    dense 124M, weights random from seeds."""
+    from tpuflow_torch.models.gpt2 import GPT2, GPT2Config
+
+    mcfg = dataclasses.replace(
+        GPT2Config.from_preset("gpt2", n_experts=MOE_EXPERTS),
+        n_layer=MOE_LAYERS)
+    moe = GPT2(mcfg, seed=0)
+    dense = GPT2(GPT2Config.from_preset("gpt2"), seed=0)
+    t0 = time.monotonic()
+    out = moe_serve_leg(torch, moe, dense, smi)
+    out["wall_s"] = time.monotonic() - t0
+    return out
+
+
 def _decode_ms(torch, model, prompt, steps: int = 16) -> float:
     """Device-synchronized wall of one greedy decode step of ``model``
     after a prefill of ``prompt``, averaged over ``steps`` steps (one
@@ -2296,16 +2574,16 @@ def _top(kernels, n: int = 8):
 
 
 def _train_cfg():
-    """The training slice's ``train_gpt`` call: GPT-2 124M at full width
-    and depth, TRAIN_EPOCHS x TRAIN_STEPS_PER_EPOCH steps of 8 x 1024,
-    flash (the preset's full remat, dropout 0.1, AdamW, f32)."""
+    """The training slice's ``train_gpt`` call: GPT-2 124M's width at
+    TRAIN_LAYERS blocks, TRAIN_EPOCHS x TRAIN_STEPS_PER_EPOCH steps of
+    8 x 1024, flash (the preset's full remat, dropout 0.1, AdamW, f32)."""
     from tpuflow_torch.train.gpt import GptTrainConfig
 
-    return GptTrainConfig(
+    return _depth_cut(GptTrainConfig(
         preset="gpt2", seq_len=1024, batch_size=8, epochs=TRAIN_EPOCHS,
         steps_per_epoch=TRAIN_STEPS_PER_EPOCH, attn_impl="flash",
         data_axis=1, fsdp_axis=1,
-    )
+    ), TRAIN_LAYERS)
 
 
 def train_phase(torch, smi):
@@ -2355,7 +2633,8 @@ def train_phase(torch, smi):
         epochs=res.metrics_history, tokens_per_s=tok_s,
         peak_memory_bytes=peak, launches=got, gpu=smi,
     )
-    print(f"train_gpt: GPT-2 124M, {TRAIN_EPOCHS} x {TRAIN_STEPS_PER_EPOCH} "
+    print(f"train_gpt: GPT-2 124M width, {L} layers, {TRAIN_EPOCHS} x "
+          f"{TRAIN_STEPS_PER_EPOCH} "
           f"steps of 8 x 1024, full remat, f32, flash: step losses "
           f"{', '.join(f'{x:.4f}' for x in losses)}; epoch means "
           f"{', '.join(f'{x:.4f}' for x in hist)}; step {step_ms:.1f} ms "
@@ -2418,7 +2697,8 @@ def bf16_phase(torch, smi, cfg) -> dict:
         raise AssertionError(f"bf16 leg losses {losses}")
     step_ms = float(np.median(res.step_s[1:])) * 1e3
     tok_s = res.metrics_history[-1]["tokens_per_s"]
-    print(f"bf16 leg: GPT-2 124M, {spe} steps of 8 x 1024, full remat, "
+    print(f"bf16 leg: GPT-2 124M width, {L} layers, {spe} steps of 8 x "
+          f"1024, full remat, "
           f"dtype bfloat16, flash: step losses "
           f"{', '.join(f'{x:.4f}' for x in losses)}; step {step_ms:.1f} ms "
           f"(median after the cold step), {tok_s} tokens/s, wall "
@@ -2442,6 +2722,7 @@ def _zero_counters(fa, im) -> None:
     fa.wide_launches.update(dict.fromkeys(fa.wide_launches, 0))
     im.launches = 0
     im.tile_launches.update(decode=0, prefill=0)
+    im.n_launches.clear()
 
 
 def _counters(fa, im) -> dict:
@@ -2888,8 +3169,8 @@ def _restore_legs(torch, d: str, host: list, nbytes: int,
 
 
 def ckpt_io_phase(torch, smi, cfg) -> dict:
-    """The checkpoint of the state the split leg saves (GPT-2 124M params
-    and AdamW moments), outside training, ``CKPT_IO_REPS`` rounds of each:
+    """The checkpoint of the state the split leg saves (the training
+    slice's params and AdamW moments), outside training, ``CKPT_IO_REPS`` rounds of each:
     (a) the disk's own write, read and crc32 rates; (b) saves through
     ``_write_entries`` to fresh, prewarmed-pool and steady-state recycled
     files; (c) restores in the parent's serial order, threaded cold and
@@ -6565,8 +6846,8 @@ def preempt_child(torch, work: str, attempt: int) -> int:
 def preempt_phase(torch, smi, fused: list | None = None,
                   shards: list | None = None,
                   started: tuple | None = None) -> dict:
-    """Phase 15: preemption on the training slice's call (GPT-2 124M at
-    full width and depth, 2 x 8 steps of 8 x 1024, f32, full remat,
+    """Phase 15: preemption on the training slice's call (GPT-2 124M's
+    width at TRAIN_LAYERS blocks, 2 x 8 steps of 8 x 1024, f32, full remat,
     dropout 0.1, AdamW, flash, the fused backward). (a) Drained in this
     process by the fault plan ``preempt:0@step5`` with a 30 s grace (the
     full save, persistent tier), then requeued with a NaN before step 11,
@@ -7196,6 +7477,14 @@ def main() -> int:
                   "w") as fh:
             json.dump(sl, fh, indent=1, default=float)
         return 0
+    if sys.argv[1:2] == ["--moe-serve"]:
+        ms = dict(int8=int8_phase(torch, Timer(torch)),
+                  moe_serve=moe_serve_phase(torch, smi))
+        os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(REPO, "chiprun_out", "moe_serve.json"),
+                  "w") as fh:
+            json.dump(ms, fh, indent=1, default=float)
+        return 0
     if sys.argv[1:2] == ["--preempt"]:
         pre = preempt_phase(torch, smi)
         os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
@@ -7233,6 +7522,8 @@ def main() -> int:
     wall("slice phase")
     gen = generation_phase(torch, smi)
     wall("generation phase")
+    moe_serve = moe_serve_phase(torch, smi)
+    wall("moe serve phase")
     tr, train_n = train_phase(torch, smi)
     wall("train phase")
     main_path = main_path_phase(torch, smi)
@@ -7328,7 +7619,8 @@ def main() -> int:
         kernels.append(entry)
 
     def int8_entry(name, m_rows, launches, shape):
-        rows = [r for r in int8_rows if r["shape"][0] == m_rows]
+        rows = [r for r in int8_rows if r["shape"][0] == m_rows
+                and tuple(r["shape"][1:]) in per_step]
 
         def step_sum(key):
             return sum(per_step[tuple(r["shape"][1:])] * r[key]
@@ -7359,6 +7651,9 @@ def main() -> int:
                  _launches(flash_fwd=sl["disagg"]["launches"]["flash_fwd"]),
                  sl["replica"]["launches"], sl["router"]["launches"],
                  *gen["launches"].values(),
+                 moe_serve["fp"]["launches"],
+                 moe_serve["int8_spec"]["launches"],
+                 *(r["launches"] for r in moe_serve["slots"].values()),
                  train_n, tr["bf16"]["launches"], tr["split_launches"],
                  tr["split_ckpt"]["resume"]["launches"],
                  main_path["launches"], flows["mlp_launches"],
@@ -7447,6 +7742,22 @@ def main() -> int:
         int8_entry("int8_matmul_prefill", PREFILL_M, int8_n["prefill"],
                    "49 calls at M=512: 48 Dense + LM head (prefill tile)"),
     ]
+    # The MoE router's int8 matmul, (8, 768) x (768, 8), with the MoE
+    # serving leg's launches at N = 8.
+    r = next(r for r in int8_rows
+             if r["shape"] == [DECODE_M, 768, MOE_EXPERTS])
+    kernels.append(dict(
+        name="int8_matmul_moe_router", route="cuda",
+        source="tpuflow_torch/csrc/int8_matmul.cu",
+        replaces="tpuflow/ops/int8_matmul.py:229",
+        shape=f"the MoE router at M={DECODE_M}: (8, 768) x (768, "
+              f"{MOE_EXPERTS}); launches: the MoE serving leg's at N = "
+              f"{MOE_EXPERTS}, both tiles",
+        launches=moe_serve["int8_spec"]["int8_router_launches"],
+        max_abs_err=0.0, ms=r["ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+        library_ms=r["library_ms"], library=r["library"],
+        call_ms=r["call_ms"]))
     for entry in kernels:
         if entry["name"] in gen_n:
             entry["generation_launches"] = gen_n[entry["name"]]
@@ -7454,6 +7765,18 @@ def main() -> int:
         # feed admissions (the flash forward; the int8 matmul by tile).
         if entry["name"] in sl["disagg"]["launches"]:
             entry["disagg_launches"] = sl["disagg"]["launches"][entry["name"]]
+        # The MoE serving leg's runs: (a), (b) and (c)'s four (the flash
+        # forward; the int8 matmul by tile).
+        if entry["name"] == "flash_fwd":
+            entry["moe_serve_launches"] = (
+                moe_serve["fp"]["launches"]["flash_fwd"]
+                + moe_serve["int8_spec"]["launches"]["flash_fwd"]
+                + sum(r["launches"]["flash_fwd"] * len(r["walls_s"])
+                      for r in moe_serve["slots"].values()))
+        elif entry["name"] in ("int8_matmul", "int8_matmul_prefill"):
+            entry["moe_serve_launches"] = moe_serve["int8_spec"][
+                "int8_tiles"]["decode" if entry["name"] == "int8_matmul"
+                              else "prefill"]
         # Phase 4's replica leg: its requests over HTTP, the ship hop
         # included (the flash forward).
         if entry["name"] == "flash_fwd":
@@ -7507,6 +7830,7 @@ def main() -> int:
                        head_dims=head_rows, slice=sl, generation=gen,
                        train=tr,
                        main_path=main_path, flows=flows, image=image,
+                       moe_serve=moe_serve,
                        recipes=recipes, fsdp=fsdp, tp=tp, sp=sp,
                        preempt=pre, elastic=elastic,
                        vit_flash=vit_rows, vit_flash_bwd=vit_bwd_rows,

@@ -210,9 +210,25 @@ def test_deferred_modes_raise(pair):
     with pytest.raises(NotImplementedError, match="remat_policy"):
         GPT2(GPT2Config.small_test(remat=True, remat_policy="nothing_saveable"),
              device="cpu")
-    with pytest.raises(NotImplementedError, match="contiguous slot"):
-        tm(torch.zeros((1, 1), dtype=torch.long), decode=True,
-           slot_index=torch.zeros(1, dtype=torch.long))
+    # Contiguous slot rows (the engine's paged=False cache) are ported:
+    # each row writes and reads at its own position, the shared index
+    # untouched, and each row's logits are those of the row decoded alone
+    # on a shared-index cache, bit for bit.
+    p = torch.as_tensor(np.random.default_rng(5).integers(0, 512, (2, 6)))
+    nxt = torch.as_tensor([[7], [9]])
+    with torch.no_grad():
+        solo = [tm(p[:1, :4], decode=True, prefill=True)[1],
+                tm(p[1:], decode=True, prefill=True)[1]]
+        rows = tm.init_cache(2)
+        for i, c in enumerate(solo):
+            for big, row in zip(rows.k + rows.v, c.k + c.v):
+                big[i] = row[0]
+        got, rows = tm(nxt, decode=True, cache=rows,
+                       slot_index=torch.as_tensor([4, 6]))
+        want = [tm(nxt[i:i + 1], decode=True, cache=c)[0]
+                for i, c in enumerate(solo)]
+    assert rows.index == 0
+    assert torch.equal(got, torch.cat(want))
 
 
 def test_config_and_seeded_init():

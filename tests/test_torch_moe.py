@@ -206,20 +206,34 @@ def test_moe_eval_forward_matches_jax():
 
 
 def test_serving_paths_raise_on_moe():
-    """The engine, speculative decoding and int8 quantization split or
-    rewrite decode calls, which moves each expert's capacity: on an MoE
-    model they raise, naming ROADMAP item 13."""
+    """The engine, speculative decoding and int8 quantization, which
+    raised on an MoE model, accept one (their parity with the JAX package:
+    tests/test_torch_moe_serve.py). The engine's row rule: each request of
+    a 3-slot engine, speculative and int8 ones among them, equals the same
+    request alone in a 1-slot engine; the fused-native leaves hold the
+    router's."""
     from tpuflow_torch.infer.quant import quantize_model
     from tpuflow_torch.infer.serve import ServeEngine
     from tpuflow_torch.infer.speculative import speculative_generate
 
     tm = GPT2(GPT2Config.small_test(n_ctx=64, n_experts=2), device="cpu")
-    prompt = np.zeros((1, 8), np.int64)
-    for call in (lambda: ServeEngine(tm),
-                 lambda: speculative_generate(tm, prompt, max_new_tokens=2),
-                 lambda: quantize_model(tm)):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            call()
+    rng = np.random.default_rng(7)
+    prompts = [np.tile(rng.integers(0, 512, 4), 3)[:L] for L in (12, 5, 9)]
+    flags = [(False, True), (True, False), (True, True)]
+    kw = dict(buckets=[8, 16], decode_block=4, page_size=8,
+              quant="fused_native", speculative=2)
+    eng = ServeEngine(tm, max_slots=3, **kw)
+    reqs = [eng.submit(p, max_new_tokens=6, quantize=q, speculative=sp)
+            for p, (q, sp) in zip(prompts, flags)]
+    eng.run_until_idle(max_iters=50)
+    for p, (q, sp), r in zip(prompts, flags, reqs):
+        alone = ServeEngine(tm, max_slots=1, **kw).generate_many(
+            [p], max_new_tokens=6, quantize=q, speculative=sp)[0]
+        np.testing.assert_array_equal(r.result(), alone)
+    toks = speculative_generate(tm, prompts[0][None], max_new_tokens=4,
+                                draft_len=2)
+    assert toks.shape == (1, 4)
+    assert "h.1.moe.gate" in quantize_model(tm, min_size=256).leaves
 
 
 def test_config_fields_match_jax():

@@ -355,8 +355,16 @@ def test_submit_validation_and_deferred_modes(engine, pair):
     plain = ServeEngine(tm, max_slots=1, buckets=[8], page_size=8)
     with pytest.raises(ValueError, match="quant-armed"):
         plain.submit([1, 2], max_new_tokens=2, quantize=True)
-    with pytest.raises(NotImplementedError, match="contiguous"):
-        ServeEngine(tm, paged=False)
+    # The contiguous engine (paged=False) refuses what the JAX one does:
+    # speculative decoding and KV export.
+    jm, params, _ = pair
+    for cls, args in ((ServeEngine, (tm,)),
+                      (jserve.ServeEngine, (jm, params))):
+        with pytest.raises(ValueError, match="needs the paged cache"):
+            cls(*args, paged=False, speculative=2)
+        rows = cls(*args, paged=False, max_slots=1, buckets=[8])
+        with pytest.raises(ValueError, match="KV export needs the paged"):
+            rows.prefill_export([1, 2])
     weight = ServeEngine(tm, max_slots=1, buckets=[8], page_size=8,
                          quant="weight_only")
     assert weight.quant_mode == "weight" and weight._qmodel.mode == "weight"

@@ -20,7 +20,10 @@ Counterpart of ``tpuflow/infer/quant.py``. Two modes, one wrapper:
   epilogue — one call of ``tpuflow_torch.ops.int8_matmul`` (the
   hand-written kernel on the card). No dequantized weight copy ever
   exists; the wrapper is a view over the same fp module plus the int8
-  leaves, keyed by Dense name (``h.<i>.c_attn``, ...) and ``wte_q``.
+  leaves, keyed by Dense name (``h.<i>.c_attn``, ...) and ``wte_q``. On
+  an MoE model the router (``h.<i>.moe.gate``) is such a Dense layer and
+  its leaf feeds ``MoEMLP``'s routing; the expert weights stay float, as
+  in the JAX package (its leaf set is the Dense ``kernel`` leaves).
 
 ``quantize_model(model, mode=...)`` returns a ``QuantizedModel``, called
 like the model, so ``generate``, ``beam_search``, ``speculative_generate``,
@@ -43,7 +46,6 @@ import torch.nn as nn
 
 from tpuflow_torch.ckpt.tree import params_to_jax
 from tpuflow_torch.models.convert import params_from_jax
-from tpuflow_torch.models.gpt2 import reject_moe
 from tpuflow_torch.ops.int8_matmul import quantize_rows
 
 
@@ -229,7 +231,6 @@ def quantize_model(model, *, min_size: int = 4096, mode: str = "fused_native",
     ``int8_impl`` do not apply); fused-native quantizes the Dense kernels
     and the LM head (``head=False`` keeps the head fp)."""
     mode = canonical_mode(mode)
-    reject_moe(model.config, "int8 quantization")
     if mode == "weight":
         with torch.no_grad():
             qparams = quantize_params(jax_layout_params(model),

@@ -1,4 +1,5 @@
-"""Continuous-batching serving engine over a paged KV cache.
+"""Continuous-batching serving engine over a paged KV cache (or, with
+``paged=False``, contiguous slot rows).
 
 Counterpart of the core of ``tpuflow/infer/serve.py``:
 
@@ -12,6 +13,15 @@ Counterpart of the core of ``tpuflow/infer/serve.py``:
   prefilled on a (1, W) row cache; the page insert strips the padding (roll
   by -pad) and copies the row's pages into the pool slots its table names,
   skipping shared prefix pages.
+- **Contiguous slot rows** (``paged=False``, the JAX engine's
+  ``TPUFLOW_SERVE_PAGED=0``): one (n_ctx) cache row a slot; the prefill
+  row is copied in whole, its bucket pads kept (the slot decodes at
+  length W with ``pad_lens`` W - L), so a request admits only when
+  ``W + max_new_tokens <= n_ctx``. No page pool, no prefix cache, no KV
+  export or import, no speculative decoding (the JAX engine refuses it:
+  a verify block's write clamps at the row's n_ctx edge). It is the
+  reference the paged engine's residency is measured against
+  (``residency_efficiency``).
 - **Decode blocks.** ``decode_block`` single-token steps over every slot at
   once, with per-slot eos / budget / capacity freezing, one host sync per
   block. Greedy only: every request's tokens equal a solo
@@ -19,6 +29,13 @@ Counterpart of the core of ``tpuflow/infer/serve.py``:
 - **Per-request int8.** ``quant='fused_native'`` builds the W8A8 view of
   the same weights (``'weight_only'`` the weight-only one);
   ``submit(quantize=True)`` routes a request to it.
+- **MoE models** run every path. Each call routes its own T (a bucket's
+  pads, a chunk, a prefix-cache suffix, a verify chunk), as the JAX
+  engine's calls do, so a request's tokens equal the JAX engine's for the
+  same submissions, and equal solo ``generate()`` only where the call
+  structure is the same (``models/moe.py``). A decode step keeps every
+  token and its products are per row, so a request's tokens do not depend
+  on the other slots.
 - **Per-request speculative decode.** ``speculative=K`` arms a verify
   block: each live slot drafts K tokens on the host (``ngram_draft`` over
   its prompt and tokens so far), ONE (S, K+1) forward over the paged cache
@@ -112,7 +129,6 @@ from tpuflow_torch.infer.quant import (
     quantize_model,
 )
 from tpuflow_torch.infer.speculative import ngram_draft
-from tpuflow_torch.models.gpt2 import reject_moe
 from tpuflow_torch.obs import serve_ledger as _ledger
 from tpuflow_torch.obs import trace as _reqtrace
 
@@ -451,7 +467,8 @@ class ServeRequest:
 
 
 class ServeEngine:
-    """Request-level continuous-batching engine over one model, paged.
+    """Request-level continuous-batching engine over one model, paged
+    (``paged=False``: contiguous slot rows, see the module docstring).
 
     ``model`` is a ``GPT2`` (fp), or a ``QuantizedModel`` with ``quant``
     unset; ``quant='fused_native'`` (or ``'weight_only'``) arms an int8
@@ -508,12 +525,7 @@ class ServeEngine:
         slo_itl_ms: float | None = None,
         access_log: bool = True,
     ):
-        if not paged:
-            raise NotImplementedError(
-                "contiguous slot-row caches (the JAX engine's paged=False "
-                "regression reference) are not ported; the engine is paged"
-            )
-        reject_moe(model.config, "the serving engine")
+        self.paged = bool(paged)
         self.model = model
         self.device = model.device
         self.quant_mode = resolve_serve_quant(quant)
@@ -530,6 +542,13 @@ class ServeEngine:
         self.spec_ngram = int(spec_ngram)
         if self.spec_ngram < 2:
             raise ValueError(f"spec_ngram must be >= 2, got {spec_ngram}")
+        if self.spec_draft and not self.paged:
+            raise ValueError(
+                "per-request speculative decode needs the paged cache "
+                "(the contiguous slot rows' block write clamps at the "
+                "n_ctx edge; paging routes overshoot to the trash page) "
+                "— drop paged=False"
+            )
         self.n_ctx = int(model.config.n_ctx)
         self.max_slots = int(max_slots)
         if self.max_slots < 1:
@@ -558,17 +577,45 @@ class ServeEngine:
         self._iters = 0
         self._last_gauges: tuple | None = None
         S = self.max_slots
+        self.role = resolve_serve_role(role)
+        self.kv_store = (
+            _kvstore.KVStore(kv_store_dir) if kv_store_dir else None
+        )
+        self._prefill_calls = 0
+        self.pool = None
+        if self.paged:
+            self._init_pages(page_size, n_pages, prefix_cache, kv_host_mb,
+                             kv_disk_dir)
+        else:
+            # One (n_ctx) row a slot; decode writes each slot's column.
+            self._cache = model.init_cache(S)
+        self._queue: collections.deque[ServeRequest] = collections.deque()
+        self._slots: list[ServeRequest | None] = [None] * S
+        self._tok = np.zeros((S,), np.int64)
+        self._lengths = np.zeros((S,), np.int64)
+        # Bucket pads kept at a contiguous row's head (0 when paged: the
+        # page insert strips them).
+        self._pads = np.zeros((S,), np.int64)
+        self._remaining = np.zeros((S,), np.int64)
+        self._live = np.zeros((S,), bool)
+        self._quant = np.zeros((S,), bool)  # slot rides the int8 path
+        self._spec = np.zeros((S,), bool)  # slot rides the verify block
+        self._spec_committed = 0
+        self._spec_forwards = 0
+        self._eos = np.full((S,), -1, np.int64)
+        self._next_id = 0
+
+    def _init_pages(self, page_size, n_pages, prefix_cache: bool,
+                    kv_host_mb: float, kv_disk_dir) -> None:
+        """The paged engine's pool: geometry, the host accounting (with
+        the spill tiers when armed), the page tables and the device pool."""
+        S = self.max_slots
         self.page_size = resolve_page_size(self.n_ctx, page_size)
         self.pages_per_slot = self.n_ctx // self.page_size
         self.n_pages = (
             int(n_pages) if n_pages is not None
             else S * self.pages_per_slot + 1
         )
-        self.role = resolve_serve_role(role)
-        self.kv_store = (
-            _kvstore.KVStore(kv_store_dir) if kv_store_dir else None
-        )
-        self._prefill_calls = 0
         tier = None
         if prefix_cache and (kv_host_mb > 0 or kv_disk_dir):
             tier = _kvstore.TierCache(
@@ -582,11 +629,12 @@ class ServeEngine:
         )
         self._page_table = np.zeros((S, self.pages_per_slot), np.int64)
         self._slot_pages: list[list[int]] = [[] for _ in range(S)]
-        self._cache = model.init_paged_cache(self.n_pages, self.page_size)
+        self._cache = self.model.init_paged_cache(self.n_pages,
+                                                  self.page_size)
         # Page-leaf names, in the order of ``self._cache.k + .v``: the
         # JAX engine's flattened cache paths, which page bundles, shipped
         # sets and the tier store key on.
-        n_layer = model.config.n_layer
+        n_layer = self.model.config.n_layer
         self._leaf_names = [
             f"['h{i}']['cached_{kv}']"
             for kv in ("key", "value") for i in range(n_layer)
@@ -596,18 +644,6 @@ class ServeEngine:
             (self.page_size, *pool0.shape[2:]),
             _host_view(pool0[:0]).cpu().numpy().dtype,
         )
-        self._queue: collections.deque[ServeRequest] = collections.deque()
-        self._slots: list[ServeRequest | None] = [None] * S
-        self._tok = np.zeros((S,), np.int64)
-        self._lengths = np.zeros((S,), np.int64)
-        self._remaining = np.zeros((S,), np.int64)
-        self._live = np.zeros((S,), bool)
-        self._quant = np.zeros((S,), bool)  # slot rides the int8 path
-        self._spec = np.zeros((S,), bool)  # slot rides the verify block
-        self._spec_committed = 0
-        self._spec_forwards = 0
-        self._eos = np.full((S,), -1, np.int64)
-        self._next_id = 0
 
     # --------------------------------------------------------- device work
     @contextlib.contextmanager
@@ -668,6 +704,13 @@ class ServeEngine:
             pages = self._row_pages(row, pad, pool)
             pool.index_copy_(0, dst, pages.index_select(0, src))
 
+    def _insert_row(self, row_cache, slot: int) -> None:
+        """Contiguous admission insert, in place: the (1, n_ctx) prefill
+        row, its bucket pads kept, copied into ``slot``'s cache row."""
+        for big, row in zip(self._cache.k + self._cache.v,
+                            row_cache.k + row_cache.v):
+            big[slot].copy_(row[0])
+
     def _read_page_host(self, pid: int) -> dict[str, np.ndarray]:
         """Pool page ``pid`` as a host bundle (leaf name -> (page_size, H,
         D)): the spill unit. One gather of every leaf, one copy."""
@@ -705,19 +748,21 @@ class ServeEngine:
             for pool, block in zip(leaves, src):
                 pool.index_copy_(0, dst, block)
 
-    def _decode_fn(self, model, tok, lengths, remaining, live, eos,
+    def _decode_fn(self, model, tok, lengths, pads, remaining, live, eos,
                    page_table):
         """``decode_block`` single-token steps over every slot, per-slot
         freezing inside the loop, no host sync until the block ends. Rows
         outside ``live`` keep rewriting their frozen frontier column (their
-        own page; dead slots: the trash page). Returns
+        own page or row; dead slots: the trash page, or their own row,
+        which the next admission overwrites). ``page_table`` None: the
+        contiguous rows, ``pads`` their bucket pads. Returns
         (tokens (S, block), tok, lengths, remaining, live)."""
         n_ctx = self.n_ctx
         toks = []
         for _ in range(self.decode_block):
             logits, _ = model(
                 tok[:, None], decode=True, cache=self._cache,
-                slot_index=lengths, page_table=page_table,
+                slot_index=lengths, page_table=page_table, pad_lens=pads,
             )
             nxt = torch.argmax(logits[:, -1, :], dim=-1)
             emitted = torch.where(live, nxt, torch.full_like(nxt, self.pad_id))
@@ -774,10 +819,13 @@ class ServeEngine:
 
     # ---------------------------------------------------------- scheduling
     def bucket_for(self, prompt_len: int, max_new_tokens: int) -> int:
-        """Smallest bucket width holding the prompt, with the REAL prompt
-        length checked against n_ctx (the page insert strips bucket pads)."""
+        """Smallest bucket width holding the prompt whose capacity check
+        passes: paged, the REAL prompt length against n_ctx (the page
+        insert strips bucket pads); contiguous rows keep the pads, so the
+        padded width."""
         for w in self.buckets:
-            if prompt_len <= w and prompt_len + max_new_tokens <= self.n_ctx:
+            used = prompt_len if self.paged else w
+            if prompt_len <= w and used + max_new_tokens <= self.n_ctx:
                 return w
         raise ValueError(
             f"no prefill bucket fits prompt_len={prompt_len} + "
@@ -832,7 +880,7 @@ class ServeEngine:
         spec = (bool(self.spec_draft) if speculative is None
                 else bool(speculative))
         kv_import = None
-        if kv_key is not None and self.kv_store is not None:
+        if kv_key is not None and self.kv_store is not None and self.paged:
             with obs.span("serve.kv_import", key=kv_key) as sp:
                 pset = self.kv_store.load(kv_key)
                 if pset is not None and self._import_ok(
@@ -852,7 +900,7 @@ class ServeEngine:
             bucket=self.bucket_for(prompt.size, max_new_tokens),
             trace_ctx=trace,
         )
-        if self._pages_needed(req) > self.pool.usable_pages:
+        if self.paged and self._pages_needed(req) > self.pool.usable_pages:
             raise ValueError(
                 f"request needs {self._pages_needed(req)} pages but the "
                 f"pool holds {self.pool.usable_pages} usable pages "
@@ -881,7 +929,10 @@ class ServeEngine:
         insert strips it, so each page's bytes equal the pool page a local
         admission writes. The set holds the partial tail page (private to
         the request: decode writes land there) and the first greedy token,
-        so an exact import admits with no prefill."""
+        so an exact import admits with no prefill. A contiguous engine
+        raises ``ValueError``, as the JAX one does."""
+        if not self.paged:
+            raise ValueError("KV export needs the paged engine (paged=True)")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("prompt must have at least one token")
@@ -1087,17 +1138,21 @@ class ServeEngine:
         differ from the prefill's) then never lands in a page that is
         shared from the pool or restored and registered for sharing. Else
         the classic prefill runs with the restored pages masked off its
-        write (``prefill``)."""
-        got = self.pool.acquire(req.prompt, self._pages_needed(req))
-        if got is None:
-            self._note_queued(req, "pages")
-            return False
-        page_ids, matched = got
-        promoted = self.pool.take_promotions()
+        write (``prefill``). A contiguous engine always prefills and
+        copies the padded row into the slot's row."""
+        page_ids, matched, promoted = None, 0, []
+        if self.paged:
+            got = self.pool.acquire(req.prompt, self._pages_needed(req))
+            if got is None:
+                self._note_queued(req, "pages")
+                return False
+            page_ids, matched = got
+            promoted = self.pool.take_promotions()
         now = time.monotonic()
         req.t_admit = now
-        W, L, ps = req.bucket, req.prompt.size, self.page_size
-        pset = req.kv_import
+        W, L = req.bucket, req.prompt.size
+        ps = self.page_size if self.paged else 0
+        pset = req.kv_import  # None on a contiguous engine (submit)
         # Restored pages (logical index -> bundle), contiguous from where
         # the pool's match broke: tier promotions first, shipped pages
         # extend the run. A failed fetch ends the run; every page past it
@@ -1124,17 +1179,19 @@ class ServeEngine:
         covered = matched + len(restored)
         if exact and pset.tok0 is not None and covered * ps >= L:
             mode = "ship"
-        elif ((pset is not None or self.pool.tier is not None)
-              and covered >= 1 and L - 1 == covered * ps):
+        elif ((pset is not None or getattr(self.pool, "tier", None)
+               is not None) and covered >= 1 and L - 1 == covered * ps):
             mode = "feed"
         else:
             mode = "prefill"
-        table_row = np.zeros((self.pages_per_slot,), np.int64)
-        table_row[: len(page_ids)] = page_ids
-        write_mask = np.zeros((self.pages_per_slot,), bool)
-        write_mask[matched: len(page_ids)] = True
-        for j in restored:
-            write_mask[j] = False  # restored bytes, not the prefill's
+        table_row = write_mask = None
+        if self.paged:
+            table_row = np.zeros((self.pages_per_slot,), np.int64)
+            table_row[: len(page_ids)] = page_ids
+            write_mask = np.zeros((self.pages_per_slot,), bool)
+            write_mask[matched: len(page_ids)] = True
+            for j in restored:
+                write_mask[j] = False  # restored bytes, not the prefill's
         n_tier = sum(1 for src in restore_src.values() if src != "ship")
         if n_tier:
             n_host = sum(1 for src in restore_src.values() if src == "host")
@@ -1166,13 +1223,14 @@ class ServeEngine:
         if mode != "prefill" or restored:
             extra = dict(prefilled=mode, shipped_pages=len(restored) - n_tier,
                          promoted_pages=n_tier)
+        n_pages = 0 if page_ids is None else len(page_ids)
         obs.event("serve.admit", request=req.id, slot=slot, bucket=W,
                   prompt_len=int(L), queue_wait_s=round(now - req.t_submit, 6),
-                  pages=len(page_ids), shared_pages=matched, **self._tid(req))
+                  pages=n_pages, shared_pages=matched, **self._tid(req))
         self._trace(req, "admitted", slot=slot, bucket=W,
                     queue_wait_s=round(now - req.t_submit, 6),
-                    pages=len(page_ids), shared_pages=matched, **extra)
-        if mode == "prefill":
+                    pages=n_pages, shared_pages=matched, **extra)
+        if mode == "prefill" and self.paged:
             # Written even when the request ends here: its fresh prompt
             # pages are registered in the prefix cache, and a later prompt
             # that matches them reads them.
@@ -1186,14 +1244,24 @@ class ServeEngine:
             if (req.eos_id is not None and first == req.eos_id) or (
                 req.max_new_tokens == 1
             ):
-                self.pool.release(page_ids)
+                if page_ids is not None:
+                    self.pool.release(page_ids)
                 self._finish(req,
                              "eos" if req.max_new_tokens > 1 else "budget")
                 return True
-        self._page_table[slot] = table_row
-        self._slot_pages[slot] = list(page_ids)
-        # Pads stripped: logical columns [0, L) (feed: [0, L - 1)).
-        self._lengths[slot] = L if mode != "feed" else L - 1
+        if self.paged:
+            self._page_table[slot] = table_row
+            self._slot_pages[slot] = list(page_ids)
+            # Pads stripped: logical columns [0, L) (feed: [0, L - 1)).
+            self._lengths[slot] = L if mode != "feed" else L - 1
+            self._pads[slot] = 0
+        else:
+            with self.ledger.bucket("insert"):
+                self._insert_row(row_cache, slot)
+            # The row keeps its bucket pads: columns [W - L, W) are the
+            # prompt's.
+            self._lengths[slot] = W
+            self._pads[slot] = W - L
         self._slots[slot] = req
         self._tok[slot] = first if first is not None else req.prompt[L - 1]
         self._remaining[slot] = req.max_new_tokens - (first is not None)
@@ -1232,12 +1300,13 @@ class ServeEngine:
         """Queue-depth, occupancy, page-pool and ledger gauges on change
         (plus a refresh every 64 iterations: a long idle server must not
         flood the event stream), and the live ledger's serving view."""
-        pool, tier = self.pool, self.pool.tier
+        pool = self.pool  # None on a contiguous engine: no page keys
+        tier = None if pool is None else pool.tier
         state = (
             len(self._queue),
             self.live_slots,
-            pool.free_pages,
-            pool.prefix_hits,
+            None if pool is None else pool.free_pages,
+            None if pool is None else pool.prefix_hits,
             None if tier is None else tier.pages_host,
             None if tier is None else tier.pages_disk,
         )
@@ -1247,8 +1316,9 @@ class ServeEngine:
             obs.gauge("serve.queue_depth", state[0])
             obs.gauge("serve.slot_occupancy",
                       round(state[1] / self.max_slots, 4))
-            obs.gauge("serve.pages_free", state[2])
-            obs.gauge("serve.prefix_hits", state[3])
+            if pool is not None:
+                obs.gauge("serve.pages_free", state[2])
+                obs.gauge("serve.prefix_hits", state[3])
             if tier is not None:
                 obs.gauge("serve.pages_host", state[4])
                 obs.gauge("serve.pages_disk", state[5])
@@ -1280,8 +1350,9 @@ class ServeEngine:
             slo_violations=self.ledger.slo_violations,
             slo_by_group=self.ledger.slo_by_group,
         )
-        led.note_serve_pages(pool.free_pages, pool.usable_pages)
-        led.note_serve_prefix(pool.prefix_hits, pool.prefix_lookups)
+        if pool is not None:
+            led.note_serve_pages(pool.free_pages, pool.usable_pages)
+            led.note_serve_prefix(pool.prefix_hits, pool.prefix_lookups)
         led.note_serve_role(self.role)
         if tier is not None:
             led.note_serve_tiers(tier.pages_host, tier.pages_disk,
@@ -1303,6 +1374,8 @@ class ServeEngine:
         def t(a):
             return torch.as_tensor(a, device=dev)
 
+        table = t(self._page_table) if self.paged else None
+        pads = None if self.paged else t(self._pads)
         model = self._qmodel if quant else self.model
         old_remaining = self._remaining.copy()
         group_live = int(mask.sum())
@@ -1329,14 +1402,12 @@ class ServeEngine:
                                             ngram=self.spec_ngram)
                 toks, tok, lengths, remaining, live = self._verify_fn(
                     model, t(self._tok), t(drafts), t(self._lengths),
-                    t(self._remaining), t(mask), t(self._eos),
-                    t(self._page_table),
+                    t(self._remaining), t(mask), t(self._eos), table,
                 )
             else:
                 toks, tok, lengths, remaining, live = self._decode_fn(
-                    model, t(self._tok), t(self._lengths),
-                    t(self._remaining), t(mask), t(self._eos),
-                    t(self._page_table),
+                    model, t(self._tok), t(self._lengths), pads,
+                    t(self._remaining), t(mask), t(self._eos), table,
                 )
             # The one host sync of the block.
             toks = toks.cpu().numpy()
@@ -1408,10 +1479,30 @@ class ServeEngine:
                 self._slots[s] = None
                 self._quant[s] = False
                 self._spec[s] = False
-                self.pool.release(self._slot_pages[s])
-                self._slot_pages[s] = []
-                self._page_table[s, :] = 0
+                if self.paged:
+                    self.pool.release(self._slot_pages[s])
+                    self._slot_pages[s] = []
+                    self._page_table[s, :] = 0
         return emitted
+
+    def residency_efficiency(self) -> float | None:
+        """KV residency: tokens resident (the live slots' committed cache
+        columns) over tokens allocated (their held pages x page_size; a
+        contiguous engine holds a whole n_ctx row a live slot). The
+        paged-vs-slot headline: short requests strand most of a
+        contiguous row but only their own pages. None when idle."""
+        live = np.nonzero(self._live)[0]
+        if live.size == 0:
+            return None
+        resident = int((self._lengths[live] - self._pads[live]).sum())
+        if self.paged:
+            allocated = sum(len(self._slot_pages[int(s)])
+                            for s in live) * self.page_size
+        else:
+            allocated = int(live.size) * self.n_ctx
+        if allocated <= 0:
+            return None
+        return resident / allocated
 
     @property
     def spec_accept_rate(self) -> float | None:

@@ -16,7 +16,11 @@ overwritten). The JAX ``while_loop`` becomes a Python loop.
 Exactness: the verify chunk's products round like single-token decode
 because the model runs every fp product of a multi-token decode call one
 (row, position) at a time (``models/gpt2.py::_tokenwise``), and the int8
-products are exact integer sums at any width.
+products are exact integer sums at any width. On an MoE model the chunk
+routes its K + 1 tokens together, so an expert's capacity can drop a
+token that a single-token step keeps: there the oracle is the JAX
+``speculative_generate`` (``models/moe.py``'s contract), not
+``generate()``.
 
 Batching: rows draft independently; the batch advances by the MINIMUM
 acceptance across live rows (the cache index is shared). The serving
@@ -36,7 +40,6 @@ from tpuflow_torch.infer.generate import (
     chunked_prefill,
     normalize_prefill_chunk,
 )
-from tpuflow_torch.models.gpt2 import reject_moe
 
 
 def ngram_draft(history, K: int, *, ngram: int = 3):
@@ -133,7 +136,6 @@ def speculative_generate(
     clamped to the budget): realized acceptance is ``n_committed /
     n_forwards`` tokens per forward.
     """
-    reject_moe(model.config, "speculative decoding")
     with f32_matmul_precision(model.config.decode_precision == "highest"):
         dev = model.device
         prompt = torch.as_tensor(prompt, device=dev).long()

@@ -12,7 +12,9 @@ decode-mode caches of the JAX model:
 - ``pad_lens`` for LEFT-padded ragged batches;
 - the paged slot mode (``PagedKVCache``: per layer one
   (n_pages, page_size, H, D) pool shared by every slot, page 0 the trash
-  page), the serving engine's cache.
+  page), the serving engine's cache;
+- the contiguous slot mode (a ``KVCache`` of one (n_ctx) row a slot with
+  per-row ``slot_index``), the engine's ``paged=False`` cache.
 
 The caches are explicit state objects that a decode call takes and returns;
 their tensors are updated IN PLACE (the counterpart of JAX's donated cache
@@ -31,8 +33,9 @@ MoE (``n_experts > 0``): each block's MLP is a Switch-routed
 ``models/moe.py::MoEMLP`` named ``moe``, and each block returns its
 load-balance loss with its output (never through a side list, which the
 remat recompute would fill twice); ``forward(..., losses=True)`` hands
-them to the train step. Deferred, raising: the contiguous slot-row
-cache.
+them to the train step. A decode call's MoE block routes the whole
+call and runs the router's and the experts' products one (row,
+position) at a time (``models/moe.py``: the serving exactness contract).
 
 Sharded over a mesh with a ``tensor`` axis (``parallel/tensor.py``, the
 model's ``tp``), a training or evaluation forward runs each block
@@ -70,20 +73,7 @@ from tpuflow_torch.ops.attention import attention, resolve_attention_impl
 from tpuflow_torch.ops.int8_matmul import int8_matmul
 
 _MASKED = -1e30
-ROADMAP_SERVING = "ROADMAP Queue 1 item 13 (serving remainder)"
-
-
-def reject_moe(config, what: str) -> None:
-    """Raise for an MoE config on ``what``: the serving engine, speculative
-    verify and int8 quantization split or rewrite the decode calls (by
-    row, by token, by bucket), which changes the T that sets each
-    expert's capacity, so their answers could part from the JAX
-    package's. They are not ported for MoE."""
-    if config.n_experts > 0:
-        raise NotImplementedError(
-            f"{what} on an MoE model (n_experts={config.n_experts}) is not "
-            f"ported yet: {ROADMAP_SERVING}"
-        )
+ROADMAP_SERVING = "ROADMAP Queue 1 item 13d (decode on a sharded model)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -483,7 +473,7 @@ class Block(nn.Module):
             raise NotImplementedError(
                 "a tensor-parallel block runs training and evaluation "
                 "forwards; decode on the gathered model "
-                "(train.gpt.full_model)")
+                f"(train.gpt.full_model); {ROADMAP_SERVING}")
         B, T, _ = x.shape
         H, D = cfg.n_head // t, cfg.head_dim
         step = decode and not prefill
@@ -509,6 +499,9 @@ class Block(nn.Module):
                 a = self._paged_attention(
                     q, k, v, pad_lens, cache, layer, slot_index, page_table
                 )
+            elif slot_index is not None:
+                a = self._slot_attention(q, k, v, pad_lens, cache, layer,
+                                         slot_index)
             else:
                 a = self._cached_attention(q, k, v, pad_lens, cache, layer)
         elif pad_lens is not None:
@@ -534,9 +527,12 @@ class Block(nn.Module):
         h = _layer_norm(self.ln_2, x, dt)
         aux = None
         if cfg.n_experts > 0:
-            # The whole call at once, as the JAX block routes it: its T
-            # sets each expert's capacity.
-            h, aux = self.moe(h, dt)
+            # Routed over the whole call, as the JAX block routes it: its
+            # T sets each expert's capacity. A decode step runs the
+            # products token by token (models/moe.py).
+            h, aux = self.moe(h, dt, step=step,
+                              gate_q=quant.get(pre + "moe.gate"),
+                              int8_impl=int8_impl)
             if decode:
                 aux = None
         else:
@@ -587,6 +583,33 @@ class Block(nn.Module):
                 k_pos[None, None, None, :] >= pad_lens[:, None, None, None]
             )
         return _decode_attention(q, k_all, v_all, valid)
+
+    def _slot_attention(self, q, k, v, pad_lens, cache, layer, slot_index):
+        """Contiguous slot-row attention (the engine's ``paged=False``
+        cache: one (n_ctx, H, D) row a slot). Row b's T new k/v land at
+        columns ``slot_index[b] + t``, the start clamped to ``n_ctx - T``
+        as the JAX ``dynamic_update_slice`` clamps it (only a frozen row
+        past its frontier writes there, into its own row); row b's
+        queries see columns ``[pad_lens[b], slot_index[b] + t]``."""
+        cfg = self.config
+        B, T, H, D = q.shape
+        ck, cv = cache.k[layer], cache.v[layer]
+        ar = torch.arange(T, device=q.device)
+        start = torch.clamp(slot_index, 0, cfg.n_ctx - T)
+        rows = torch.arange(B, device=q.device)[:, None].expand(B, T)
+        cols = start[:, None] + ar[None, :]
+        idx = (rows.reshape(-1), cols.reshape(-1))
+        # In place: the cache is the engine's persistent state.
+        ck.index_put_(idx, k.reshape(B * T, H, D).to(ck.dtype))
+        cv.index_put_(idx, v.reshape(B * T, H, D).to(cv.dtype))
+        q_pos = slot_index[:, None] + ar[None, :]
+        k_pos = torch.arange(cfg.n_ctx, device=q.device)
+        valid = k_pos[None, None, None, :] <= q_pos[:, None, :, None]
+        if pad_lens is not None:
+            valid = valid & (
+                k_pos[None, None, None, :] >= pad_lens[:, None, None, None]
+            )
+        return _decode_attention(q, ck, cv, valid)
 
     def _cached_attention(self, q, k, v, pad_lens, cache, layer):
         """Shared-index KV-cache attention: the T new k/v are written (in
@@ -719,8 +742,10 @@ class GPT2(nn.Module):
         for a dense model).
 
         ``decode=True`` runs against ``cache`` (a fresh ``KVCache`` when
-        None): a ``KVCache`` continues from its shared index, a
-        ``PagedKVCache`` needs ``slot_index`` (B,) per-row positions and
+        None): a ``KVCache`` continues from its shared index, or with
+        ``slot_index`` (B,) writes and reads each row at its own position
+        (contiguous slot rows; the shared index is neither read nor
+        advanced); a ``PagedKVCache`` needs ``slot_index`` and
         ``page_table`` (B, n_ctx / page_size). ``pad_lens`` (B,) marks
         LEFT-padded rows (positions shift down, pad keys are masked).
         ``prefill=True`` marks prompt ingestion: it keeps the training
@@ -740,7 +765,7 @@ class GPT2(nn.Module):
             raise NotImplementedError(
                 "a sequence-parallel model runs training and evaluation "
                 "forwards; decode on the gathered model "
-                "(train.gpt.full_model)")
+                f"(train.gpt.full_model); {ROADMAP_SERVING}")
         if self.tp is not None:
             # A sharded model gathers the rule's blocks of the embeddings
             # (their gradients, equal on every tensor peer, keep each
@@ -749,20 +774,16 @@ class GPT2(nn.Module):
         if decode:
             if cache is None:
                 cache = self.init_cache(B)
-            if isinstance(cache, PagedKVCache):
-                if slot_index is None or page_table is None:
-                    raise ValueError(
-                        "a PagedKVCache needs slot_index and page_table"
-                    )
+            if isinstance(cache, PagedKVCache) and (
+                    slot_index is None or page_table is None):
+                raise ValueError(
+                    "a PagedKVCache needs slot_index and page_table"
+                )
+            if slot_index is not None:
                 base = slot_index[:, None] + ar[None, :]
                 if pad_lens is not None:
                     base = base - pad_lens[:, None]
                 pe = wpe[torch.clamp(base, 0, cfg.n_ctx - 1)]
-            elif slot_index is not None:
-                raise NotImplementedError(
-                    "contiguous slot-row caches (the JAX engine's paged=False "
-                    "reference) are not ported; pass a PagedKVCache"
-                )
             elif pad_lens is not None:
                 positions = cache.index + ar[None, :] - pad_lens[:, None]
                 pe = wpe[torch.clamp(positions, 0, cfg.n_ctx - 1)]
@@ -810,6 +831,6 @@ class GPT2(nn.Module):
             logits = _tied_head(x, wte, dt, decode and not prefill)
         if not decode:
             return (logits, aux) if losses else logits
-        if isinstance(cache, KVCache):
+        if isinstance(cache, KVCache) and slot_index is None:
             cache.index += T
         return logits, cache

@@ -40,6 +40,32 @@ the row's tokens routed there before it, the preceding blocks' included
 and added to the block's cumsum). Each process then runs the experts on
 its own tokens' slots. The load-balance loss's means run over the
 ``seq`` group too.
+
+Serving (``forward(..., step=True)``: a decode step or a speculative
+verify chunk of the KV-cache path). The exactness contract:
+
+- an expert's capacity counts the T of ONE call, and a token's slot is a
+  cumsum over its row's T. So the serving engine's left-padded bucket of
+  width W (the pads come first and take slots), a chunked prefill, a
+  prefix-cache hit that prefills only the suffix and a verify chunk of
+  K + 1 tokens each route their own T, and may drop other tokens than a
+  solo ``generate()`` of the same prompt. The port runs every call as it
+  comes, as the JAX package does: its oracle is the JAX package under the
+  same call structure (the same engine submissions, the same
+  ``speculative_generate`` call), not solo ``generate()`` wherever T
+  differs;
+- a decode step has T = 1, so its capacity is 1 and every decode token is
+  kept; capacity and slots are per row. A request's tokens therefore do
+  not depend on which other requests share the engine, provided no
+  product depends on how many rows share the call: a step routes the
+  whole call (every routing op is per token or per row), then runs the
+  router's product and each token's expert one (row, position) at a time
+  (the dense layers' ``models/gpt2.py::_tokenwise`` rule), its expert's
+  weights gathered on the card, so every product has M = 1;
+- the fused-native int8 router (``gate_q``, the JAX interceptor's W8A8
+  Dense) runs the whole call through ``ops/int8_matmul.py``: its sums are
+  exact at any M. The expert weights stay float under int8, as in the JAX
+  package.
 """
 
 from __future__ import annotations
@@ -47,6 +73,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from tpuflow_torch.ops.int8_matmul import int8_matmul
 
 
 def capacity(T: int, capacity_factor: float, n_experts: int) -> int:
@@ -84,19 +112,35 @@ class MoEMLP(nn.Module):
         self.b1.zero_()
         self.b2.zero_()
 
-    def route(self, x, seq=None):
+    def gate_logits(self, x, *, step: bool = False, gate_q=None,
+                    int8_impl=None):
+        """The router's f32 logits (B, T, E) for ``x`` (B, T, C). ``gate_q``
+        (a ``QuantLeaf``): the W8A8 int8 matmul over the whole call plus
+        the f32 bias; else an f32 product, one (row, position) at a time
+        on a decode ``step``."""
+        b = self.gate.bias.float()
+        if gate_q is not None:
+            return int8_matmul(x.float(), gate_q.q, gate_q.scale,
+                               out_dtype=torch.float32, impl=int8_impl) + b
+        w = self.gate.weight.float()
+        if step:
+            from tpuflow_torch.models.gpt2 import _tokenwise
+
+            return _tokenwise(lambda r: F.linear(r, w, b), x.float())
+        return F.linear(x.float(), w, b)
+
+    def route(self, x, seq=None, **gate):
         """The routing of ``x`` (B, T, C), in f32: the softmax
         probabilities (B, T, E), each token's expert one-hot (B, T, E),
         and the (B, T, E, cap) dispatch (0/1) and combine (dispatch x
         probability) tensors. ``seq`` (a ``p2p.AxisGroup``): ``x`` is
-        block c of rows of s T tokens (see the module docstring)."""
+        block c of rows of s T tokens (see the module docstring);
+        ``gate``: ``gate_logits``'s keywords."""
         B, T, _ = x.shape
         E = self.n_experts
         cap = capacity(T if seq is None else T * seq.size,
                        self.capacity_factor, E)
-        gate_logits = F.linear(x.float(), self.gate.weight.float(),
-                               self.gate.bias.float())
-        probs = torch.softmax(gate_logits, dim=-1)
+        probs = torch.softmax(self.gate_logits(x, **gate), dim=-1)
         onehot = F.one_hot(probs.argmax(-1), E).float()
         # Position of each token inside its expert's buffer.
         seen = torch.cumsum(onehot, dim=1)
@@ -113,14 +157,20 @@ class MoEMLP(nn.Module):
                   * keep[..., None])
         return probs, onehot, pos_oh, pos_oh * probs[..., None]
 
-    def forward(self, x, dtype=None):
+    def forward(self, x, dtype=None, *, step: bool = False, gate_q=None,
+                int8_impl=None):
         """``x`` (B, T, C) in the block's dtype ``dtype`` (default: x's) →
-        (output (B, T, C) in that dtype, the f32 load-balance loss)."""
+        (output (B, T, C) in that dtype, the f32 load-balance loss).
+        ``step``: a decode call (see the module docstring); its loss is
+        None. ``gate_q``, ``int8_impl``: the fused-native int8 router."""
         dt = x.dtype if dtype is None else dtype
         E = self.n_experts
         tp = self.tp
         seq = getattr(tp, "seq", None)
-        probs, onehot, pos_oh, combine = self.route(x, seq)
+        probs, onehot, pos_oh, combine = self.route(
+            x, seq, step=step, gate_q=gate_q, int8_impl=int8_impl)
+        if step:
+            return self._tokenwise_experts(x, dt, onehot, combine), None
         groups = [g for g in (getattr(tp, "fsdp_group", None),
                               None if seq is None else seq.group)
                   if g is not None]
@@ -150,6 +200,31 @@ class MoEMLP(nn.Module):
         out = (torch.einsum("ebcf,efm->ebcm", h, self.w2.to(dt))
                + self.b2.to(dt)[:, None, None, :])
         return torch.einsum("btec,ebcm->btm", combine, out), aux
+
+    def _tokenwise_experts(self, x, dt, onehot, combine):
+        """The expert MLPs of a decode call, one (row, position) at a
+        time: each token through its own expert alone (the weights
+        gathered by the expert's index on the card, no host sync), scaled
+        by its combine weight, the router probability when the token was
+        kept and 0 when its expert was full. The einsum form's combine
+        sums one nonzero term, so this is that product."""
+        B, T, _ = x.shape
+        expert = onehot.argmax(dim=-1)
+        weight = combine.sum(dim=(2, 3)).to(dt)
+        w1, b1, w2, b2 = (p.to(dt) for p in (self.w1, self.b1, self.w2,
+                                              self.b2))
+        x = x.to(dt)
+        out = torch.empty_like(x)
+        for b in range(B):
+            for t in range(T):
+                e = expert[b, t:t + 1]
+                h = F.linear(x[b, t:t + 1], w1.index_select(0, e)[0].t(),
+                             b1.index_select(0, e)[0])
+                h = F.gelu(h, approximate="tanh")
+                o = F.linear(h, w2.index_select(0, e)[0].t(),
+                             b2.index_select(0, e)[0])
+                out[b, t] = weight[b, t] * o[0]
+        return out
 
     def _sharded(self, x, dt, pos_oh, combine):
         """The output of this process's experts (E / e of them, their FFN

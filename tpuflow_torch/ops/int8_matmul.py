@@ -28,10 +28,11 @@ import torch
 
 from tpuflow_torch.ops import _build
 
-# Kernel launches since the last reset (see ops/flash_attention.py), and
-# the same launches by the plan's tile.
+# Kernel launches since the last reset (see ops/flash_attention.py), the
+# same launches by the plan's tile, and by N (output channels).
 launches = 0
 tile_launches = {"decode": 0, "prefill": 0}
+n_launches: dict[int, int] = {}
 
 
 def row_scales(x):
@@ -172,6 +173,7 @@ def _cuda_int8_matmul(x2d, wq, w_scale_row, *, w_contract_last: bool,
     _build.check(lib, rc, "int8_matmul launch")
     launches += 1
     tile_launches[plan["tile"]] += 1
+    n_launches[n] = n_launches.get(n, 0) + 1
     return out if out_dtype == torch.float32 else out.to(out_dtype)
 
 
