@@ -54,7 +54,10 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    ``tpuflow_serve_*`` gauges, the ledger's buckets sum to the loop's
    wall within 1%, and the flash launches are 12 per prefill whose
    prompt takes the flash path (the ship hop's included; none for the
-   import). The SIGTERM handler and the preemption flag are put back.
+   import); ``/metrics`` carries ``tpuflow_hbm_used_bytes`` > 0 and the
+   engine's program ledger holds its prefill, decode and insert
+   signatures' first runs. The SIGTERM handler and the preemption flag
+   are put back.
    Then the fleet front (``router_leg``): two ``LocalReplica``s (8 slots,
    pages of 16, one device lock) registered under ``build/``, a fleet
    observatory and poller feeding a ``Router``, a ``FrontDoor`` with
@@ -96,10 +99,17 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    2 epochs of 8 steps at batch 8 x 1024 with the
    flash kernels; every loss finite, the last below the first and the
    second epoch's mean below the first's, each kernel launched the number
-   of times the code implies. Then the same call with ``health=False``
-   (no monitor; the fence's one host copy stays): its 16 losses bit-equal
-   to the first call's, and both calls' step ms side by side, the
-   monitor's cost. Then two steps under the profiler
+   of times the code implies. That call records its telemetry under
+   ``build/train_obs`` (``train_telemetry``): read back after the flush,
+   ``compute_goodput``'s buckets sum to its wall within 1e-6 relative,
+   every steady step is timed, one ``train.compile`` span, ``train.tokens``
+   the steady steps' tokens, ``summarize``'s step p50 within 5% of the
+   result's median step, the HBM snapshot's peak the allocator's peak of
+   the call, ``programs.json`` with the step and the kernel libraries;
+   its goodput fraction and rolling MFU printed. Then the same call with
+   ``health=False`` and the recorder off (no monitor, no telemetry; the
+   fence's one host copy stays): its 16 losses bit-equal to the first
+   call's, and both calls' step ms side by side. Then two steps under the profiler
    (device busy share, top kernels), and one forward+backward with flash
    against the einsum attention (dropout off, TF32 off): loss and every
    gradient within stated tolerances. Then the bf16 leg: the same call
@@ -156,9 +166,12 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    then ``TorchGptTrain`` at GPT-2 124M width on the flash kernels (exact
    launch counts, a finite last loss) and the triggered ``TorchGptEval``
    with ``--beam-size 4`` (a finite test loss, the beam sample on its
-   card, exact no-lse launches). Each flow's wall, the
-   wrapped call's wall and the flow layer's overhead, the GPT step ms
-   inside the flow, ``profile.json``'s device and peak bytes.
+   card, exact no-lse launches). ``TorchGptTrain``'s run has a
+   ``timeline.html`` with the train-step lanes, ``Run.goodput()``'s
+   fraction in (0, 1] with its buckets summing to its wall, and
+   ``Run.telemetry()``'s headline the one run.json carries. Each flow's
+   wall, the wrapped call's wall and the flow layer's overhead, the GPT
+   step ms inside the flow, ``profile.json``'s device and peak bytes.
 10. The image phase: ResNet-18 / CIFAR-10 through the flows
    (``resnet18_flow_leg``: ``TorchTrain --model resnet18 --dataset
    cifar10`` 2 epochs on 10,000 synthetic train rows, a ``--from-run``
@@ -206,7 +219,9 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    sharded (each rank about half the parameter and moment bytes), the
    ranks' metrics bit-equal; step ms, tokens/s, each rank's peak memory,
    the save GB/s a rank, and the collectives timed alone at a step's
-   volume; (c) the epoch-1 checkpoint's merged manifest on the JAX
+   volume; each rank records its telemetry, and rank 0's comm
+   attribution gauges are printed (a model over ranks sharing one card,
+   not a measurement, and no check); (c) the epoch-1 checkpoint's merged manifest on the JAX
    rule's shards and every shard's crc32, an in-run resume at K = 2 bit
    for bit (losses, the last step's crc32s), and at K' = 1, one process,
    every leaf restored bit-equal and the epoch-2 losses within 1e-4
@@ -275,7 +290,10 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    restores (5, persistent) then (8, persistent), the flash launches
    exact over both calls (three discarded steps' worth beyond phase
    6's), and step 13's profile trace holding the forward with lse and
-   the fused backward pair; (b) a child process of this
+   the fused backward pair; an armed ``AnomalyCapturer`` takes exactly
+   one capture, at the nonfinite step, its ``prof.capture`` event in the
+   stream and its trace's CUDA kernels holding the same flash kernels;
+   (b) a child process of this
    script (``--preempt-child``) makes the same call with a node-local
    tier and no grace; once its log reports step 3 it gets a real
    SIGTERM, drains by ``emergency_save`` on the local tier and exits 75
@@ -1674,6 +1692,15 @@ def replica_leg(torch, model, smi, fp_solos) -> dict:
                  'tpuflow_serve_ttft_seconds_bucket{le="+Inf"}'):
         if name not in metrics:
             raise AssertionError(f"/metrics lacks {name}")
+    # The device observatory: the card's memory on /metrics, the
+    # signatures' first runs in the engine's program ledger.
+    progs = {e["name"]: e for e in eng.programs.programs}
+    if on_card and not metrics.get("tpuflow_hbm_used_bytes", 0) > 0:
+        raise AssertionError("/metrics lacks tpuflow_hbm_used_bytes > 0")
+    if (not {"decode", "insert"} <= set(progs)
+            or not any(n.startswith("prefill@") for n in progs)
+            or on_card and "temp_bytes" not in progs["decode"]):
+        raise AssertionError(f"the engine's program ledger {progs}")
     served = len(prompts) + 1 + REPLICA_SLOTS  # the import's included
     got = (metrics["tpuflow_serve_queue_depth"],
            metrics["tpuflow_serve_slot_occupancy"],
@@ -1703,11 +1730,15 @@ def replica_leg(torch, model, smi, fp_solos) -> dict:
           f"503 drained); ledger {parts} (sum {total:.3f} s); TTFT p50 "
           f"{metrics['tpuflow_serve_ttft_p50_seconds'] * 1e3:.1f} ms; flash "
           f"launches {launches['flash_fwd']} = {cfg.n_layer} x {n_flash} "
-          f"prefills on the flash path [{smi}]")
+          f"prefills on the flash path; /metrics HBM used "
+          f"{metrics.get('tpuflow_hbm_used_bytes', 0) / 2**30:.3f} GiB; "
+          f"programs "
+          + ", ".join(f"{n} {e.get('compile_s')} s" for n, e in
+                      sorted(progs.items())) + f" [{smi}]")
     return dict(loop_s=loop_s, ledger=ledger, answers=len(answers),
                 prefills=len(prefilled), flash_prefills=n_flash,
                 launches=launches, generate_url=notes["generate_url"],
-                metrics=metrics, gpu=smi)
+                metrics=metrics, programs=list(progs.values()), gpu=smi)
 
 
 def router_leg(torch, model, smi, fp_solos) -> dict:
@@ -2607,14 +2638,28 @@ def train_phase(torch, smi):
                      flash_bwd_dq=L * TRAIN_STEPS,
                      flash_bwd_dkv=L * TRAIN_STEPS,
                      flash_fwd=L * n_val * TRAIN_EPOCHS)
+    # The first call records its telemetry (the run observatory) under
+    # build/; the health=False call below runs with the recorder off.
+    from tpuflow_torch import obs
+
+    rec_dir = os.path.join(REPO, "build", "train_obs")
+    shutil.rmtree(rec_dir, ignore_errors=True)
+    obs.configure(rec_dir, proc=0)
     torch.cuda.reset_peak_memory_stats()
     _zero_counters(fa, im)
     t0 = time.monotonic()
-    res = train_gpt(cfg, log=lambda m: print(f"  {m}"))
-    torch.cuda.synchronize()
-    wall_s = time.monotonic() - t0
+    try:
+        res = train_gpt(cfg, log=lambda m: print(f"  {m}"))
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+        snap = obs.hbm_snapshot()
+        peak = torch.cuda.max_memory_allocated()
+        live = obs.goodput_live().snapshot()
+        obs.flush()
+        events = obs.read_events(obs.recorder().path)
+    finally:
+        obs.configure(None)
     got = _counters(fa, im)
-    peak = torch.cuda.max_memory_allocated()
     print(f"train_gpt launches {got} (want {want})")
     if got != want:
         raise AssertionError(f"train_gpt launches {got}, want {want}")
@@ -2632,6 +2677,8 @@ def train_phase(torch, smi):
         step_losses=losses, step_s=res.step_s, step_ms_median=step_ms,
         epochs=res.metrics_history, tokens_per_s=tok_s,
         peak_memory_bytes=peak, launches=got, gpu=smi,
+        telemetry=train_telemetry(cfg, res, events, snap, peak, live,
+                                  rec_dir, smi),
     )
     print(f"train_gpt: GPT-2 124M width, {L} layers, {TRAIN_EPOCHS} x "
           f"{TRAIN_STEPS_PER_EPOCH} "
@@ -2640,18 +2687,18 @@ def train_phase(torch, smi):
           f"{', '.join(f'{x:.4f}' for x in hist)}; step {step_ms:.1f} ms "
           f"(median after the cold step), {tok_s} tokens/s (last epoch), "
           f"peak memory {peak / 2**30:.2f} GiB, wall {wall_s:.2f} s [{smi}]")
-    # The monitor's cost: the same call without it (after the default
-    # one, so on a warm allocator), the same numerics.
+    # The monitor's and the telemetry's cost: the same call without
+    # either (after the first, so on a warm allocator), the same numerics.
     off = train_gpt(cfg, health=False, log=lambda m: None)
     torch.cuda.synchronize()
     if off.step_losses != losses:
-        raise AssertionError(f"train_gpt(health=False) losses "
+        raise AssertionError(f"train_gpt(health=False, recorder off) losses "
                              f"{off.step_losses}, want {losses}")
     off_ms = float(np.median(off.step_s[1:])) * 1e3
     out["step_ms_median_health_off"] = off_ms
-    print(f"train_gpt step with the health monitor {step_ms:.2f} ms, "
-          f"without it (health=False, the next call) {off_ms:.2f} ms; "
-          f"losses bit-equal [{smi}]")
+    print(f"train_gpt step with the health monitor and the recorder "
+          f"{step_ms:.2f} ms, without either (health=False, recorder off, "
+          f"the next call) {off_ms:.2f} ms; losses bit-equal [{smi}]")
     out["profile"] = train_profile(torch, cfg, step_ms, smi)
     with f32_matmul_precision():
         out["parity"] = step_parity(torch, cfg)
@@ -2660,6 +2707,68 @@ def train_phase(torch, smi):
         torch, smi, cfg, losses)
     out["ckpt_io"] = ckpt_io_phase(torch, smi, cfg)
     return out, got
+
+
+def train_telemetry(cfg, res, events, snap, peak, live, rec_dir,
+                    smi) -> dict:
+    """The run observatory of phase 6's first ``train_gpt`` call, read
+    back from its recorder after the flush: the goodput buckets sum to
+    the wall (1e-6 relative), the steady steps are all timed, one
+    ``train.compile`` span, ``train.tokens`` the steady steps' tokens,
+    ``summarize``'s step p50 within 5% of the result's median step, the
+    HBM snapshot's peak the allocator's peak of the call, and the step's
+    program entry with the kernel libraries in ``programs.json``."""
+    from tpuflow_torch import obs
+    from tpuflow_torch.obs import device as obs_device
+
+    gp = obs.compute_goodput(events)
+    head = obs.summarize(events)["headline"]
+    total = sum(gp["buckets"].values())
+    if abs(total - gp["wall_s"]) > 1e-6 * gp["wall_s"]:
+        raise AssertionError(f"goodput buckets sum {total!r}, wall "
+                             f"{gp['wall_s']!r}")
+    steady = TRAIN_STEPS - 1
+    if gp["steps_timed"] != steady:
+        raise AssertionError(f"goodput steps_timed {gp['steps_timed']}, "
+                             f"want {steady}")
+    compiles = [e for e in events if e["kind"] == "span"
+                and e["name"] == "train.compile"]
+    tokens = sum(e["value"] for e in events if e["name"] == "train.tokens")
+    if len(compiles) != 1 or tokens != steady * cfg.batch_size * cfg.seq_len:
+        raise AssertionError(f"{len(compiles)} train.compile spans, "
+                             f"train.tokens {tokens}")
+    p50 = head["step_time_p50_s"]
+    med = float(np.median(res.step_s[1:]))
+    if abs(p50 - med) > 0.05 * med:
+        raise AssertionError(f"summarize step p50 {p50!r} s, the result's "
+                             f"median step {med!r} s")
+    if snap is None or snap.get("peak") != peak:
+        raise AssertionError(f"HBM snapshot {snap}, allocator peak {peak}")
+    hbm = [e["value"] for e in events if e["name"] == "device.hbm_peak"]
+    if not hbm or max(hbm) > peak:
+        raise AssertionError(f"device.hbm_peak gauges {hbm}, peak {peak}")
+    progs = {e["name"]: e for e in
+             (obs_device.load_programs(rec_dir) or
+              {"programs": []})["programs"]}
+    step = progs.get("train.step", {})
+    if ("peak_bytes" not in step or "kernel.flash_fwd" not in progs
+            or "kernel.flash_bwd" not in progs):
+        raise AssertionError(f"programs.json entries {sorted(progs)}: "
+                             f"train.step {step}")
+    out = dict(goodput=gp, headline=head, hbm=snap, live=live,
+               programs=list(progs.values()))
+    print(f"train_gpt telemetry: goodput {gp['fraction']:.4f} of "
+          f"{gp['wall_s']:.2f} s (buckets "
+          + ", ".join(f"{k} {v:.3f}" for k, v in gp["buckets"].items() if v)
+          + f"), step p50 {p50 * 1e3:.2f} ms against the result's "
+          f"{med * 1e3:.2f} ms, {tokens} tokens over {steady} steps; "
+          f"rolling MFU {live.get('mfu')} of the card's dense bf16 peak "
+          f"(an f32 run), {live.get('tokens_per_s')} tokens/s; HBM peak "
+          f"{peak / 2**30:.3f} GiB of {snap.get('limit', 0) / 2**30:.1f} "
+          f"GiB; train.step program: first run {step.get('compile_s')} s, "
+          f"{step.get('flops', 0):.3g} FLOPs, temp "
+          f"{step.get('temp_bytes', 0) / 2**30:.3f} GiB [{smi}]")
+    return out
 
 
 def bf16_phase(torch, smi, cfg) -> dict:
@@ -3828,6 +3937,37 @@ class _Timed:
         setattr(self.module, self.attr, self.orig)
 
 
+def _flow_telemetry(run, smi) -> dict:
+    """A GPT training run's observatory through the client: its
+    ``timeline.html`` with the train-step lanes, ``Run.goodput()``'s
+    fraction in (0, 1] with its buckets summing to its wall (1e-6
+    relative), ``Run.telemetry()``'s headline the one run.json carries."""
+    from tpuflow_torch.flow import store
+
+    with open(os.path.join(store.run_dir(run.flow, run.run_id),
+                           "timeline.html")) as fh:
+        html = fh.read()
+    lanes = {n: html.count(f"<td>{n}</td>") for n in
+             ("train.compile", "train.epoch", "train.validation")}
+    gp = run.goodput()
+    total = sum(gp["buckets"].values())
+    head = run.telemetry()["headline"]
+    if (not all(lanes.values()) or "Goodput</h2>" not in html
+            or not 0.0 < gp["fraction"] <= 1.0
+            or abs(total - gp["wall_s"]) > 1e-6 * gp["wall_s"]
+            or run.meta.get("telemetry") != head
+            or head.get("goodput_fraction") is None):
+        raise AssertionError(f"{run.pathspec} telemetry: lanes {lanes}, "
+                             f"goodput {gp}, headline {head}")
+    print(f"flow {run.pathspec}: timeline.html lanes {lanes}; goodput "
+          f"{gp['fraction']:.4f} of {gp['wall_s']:.2f} s ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in gp["buckets"].items() if v)
+          + f"); headline step p50 {head.get('step_time_p50_s', 0) * 1e3:.1f}"
+          f" ms, {head.get('tokens_per_s', 0):.0f} tokens/s, checkpoint "
+          f"{head.get('ckpt_save_gbps', 0):.2f} GB/s [{smi}]")
+    return dict(lanes=lanes, goodput=gp, headline=head)
+
+
 def flow_phase(torch, smi) -> dict:
     """The flow layer on the card through the flow CLIs' ``main(argv)``,
     into a home under ``build/`` (deleted at the end):
@@ -3981,6 +4121,7 @@ def flow_phase(torch, smi) -> dict:
               f"last epoch); launches {train_n}; profile.json: platform "
               f"{prof['platform']}, {kind}, peak "
               f"{peak / 2**30:.2f} GiB allocated [{smi}]")
+        legs["TorchGptTrain"]["telemetry"] = _flow_telemetry(g1, smi)
 
         _zero_counters(fa, im)
         ge = leg("TorchGptEval --triggered", gpt_eval_flow.main,
@@ -5008,14 +5149,26 @@ def fsdp_rank(torch, rank: int, port: int, work: str) -> None:
 
     gpt_mod.init_state = keep
     ckpt = os.path.join(work, "ckpt")
-    # --- (b) the FSDP leg.
+    # --- (b) the FSDP leg, each rank recording its telemetry (the comm
+    # attribution gauges among it).
+    from tpuflow_torch import obs
+
+    obs.configure(os.path.join(work, f"obs{rank}"), proc=rank)
     torch.cuda.reset_peak_memory_stats()
     _zero_counters(fa, im)
     t0 = time.monotonic()
-    res = gpt_mod.train_gpt(cfg, ckpt_dir=ckpt, log=log,
-                            device=f"cuda:{FSDP_CARD}")
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
+    try:
+        res = gpt_mod.train_gpt(cfg, ckpt_dir=ckpt, log=log,
+                                device=f"cuda:{FSDP_CARD}")
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        obs.flush()
+        comm = [(e["name"], e["value"])
+                for e in obs.read_events(obs.recorder().path)
+                if e["name"] in ("train.exposed_comm_s",
+                                 "train.comm_overlap_s")]
+    finally:
+        obs.configure(None)
     launches = _counters(fa, im)
     state = states[-1]
     nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
@@ -5023,6 +5176,7 @@ def fsdp_rank(torch, rank: int, port: int, work: str) -> None:
         launches=launches, step_losses=res.step_losses,
         loss_history=res.loss_history, epochs=res.metrics_history,
         step_s=res.step_s, wall_s=wall, saves=res.checkpoint_io["saves"],
+        comm_gauges=comm,
         peak_memory_bytes=torch.cuda.max_memory_allocated(),
         sharded=has_sharded_leaf(state.plan),
         local_param_bytes=nbytes(state.params),
@@ -5267,6 +5421,14 @@ def fsdp_phase(torch, smi, kernel_rows: dict | None = None,
               f"{coll['reduce_scatter_ms']:.0f} ms [{smi}]")
         for r, rb in enumerate(b):
             print(f"fsdp (b) rank {r}: {_io_line('saves', rb['saves'])}")
+        # Not a check: the roofline model's split of a rank's mean epoch
+        # step into compute at the card's dense bf16 peak and exposed
+        # communication over NVLink's figure, for ranks that share ONE
+        # card over gloo (neither is what runs here).
+        print(f"fsdp (b) comm attribution, a model over {FSDP_WORLD} "
+              f"ranks sharing one card, not a measurement: rank 0 "
+              + ", ".join(f"{n.split('.')[1]} {v:.4f} s"
+                          for n, v in b[0]["comm_gauges"]) + f" [{smi}]")
         # (c) the checkpoint, the resumes.
         ckpt = os.path.join(work, "ckpt")
         step_dir = os.path.join(ckpt, f"step_{FSDP_STEPS_PER_EPOCH}")
@@ -6506,10 +6668,14 @@ def _preempt_leg_a(torch, cfg, work: str, fused: list, shards: list,
     """Leg (a): ``train_gpt`` drained in this process by the fault plan at
     PREEMPT_STEP with a PREEMPT_GRACE_S budget (the full save, on the
     persistent tier), then called again with the obs recorder configured,
-    the fault plan's NaN before step NAN_STEP and the profile window on
-    step PROFILE_STEP: the health monitor flags NAN_STEP and rolls back
-    to ROLLBACK_STEP, and the run replays from there."""
+    the fault plan's NaN before step NAN_STEP, the profile window on step
+    PROFILE_STEP and an armed anomaly capturer: the health monitor flags
+    NAN_STEP and rolls back to ROLLBACK_STEP, and the run replays from
+    there; the nonfinite step triggers exactly one ``torch.profiler``
+    capture (the rollback and the next two steps), whose trace holds the
+    flash kernels' CUDA events."""
     from tpuflow_torch import obs
+    from tpuflow_torch.obs.profcap import AnomalyCapturer, CaptureConfig
     from tpuflow_torch.ops import flash_attention as fa
     from tpuflow_torch.ops import int8_matmul as im
     from tpuflow_torch.train import gpt as gpt_mod
@@ -6535,10 +6701,13 @@ def _preempt_leg_a(torch, cfg, work: str, fused: list, shards: list,
         meta = json.load(open(os.path.join(ck, f"step_{PREEMPT_STEP}",
                                            "metadata.json")))
         obs.configure(obs_dir, proc=0)
+        cap = AnomalyCapturer(os.path.join(obs_dir, "capture"),
+                              CaptureConfig(trace_steps=2))
         try:
             res = gpt_mod.train_gpt(cfg, ckpt_dir=ck, log=lambda m: None,
                                     faults=f"nan_grad:0@step{NAN_STEP}",
-                                    profile=(PROFILE_STEP, PROFILE_STEP))
+                                    profile=(PROFILE_STEP, PROFILE_STEP),
+                                    capture=cap)
         finally:
             obs.configure(None)
         torch.cuda.synchronize()
@@ -6603,6 +6772,7 @@ def _preempt_leg_a(torch, cfg, work: str, fused: list, shards: list,
     ev_ts = {e["name"]: e["ts"] for e in events
              if e["name"] in ("health.anomaly", "health.rollback")}
     rollback_s = ev_ts["health.rollback"] - ev_ts["health.anomaly"]
+    capture = _check_capture(cap, events)
     print(f"preempt (a): drained at step {PREEMPT_STEP} by the fault plan "
           f"(grace {PREEMPT_GRACE_S:.0f} s: the full save) in "
           f"{drain_s:.3f} s from the flag to Preempted "
@@ -6617,13 +6787,50 @@ def _preempt_leg_a(torch, cfg, work: str, fused: list, shards: list,
           f"{TRAIN_STEPS}'s {len(shards)} shard crc32s equal to phase 7's, "
           f"launches { {n: v for n, v in got.items() if v} } (exact); step "
           f"{PROFILE_STEP} profiled: {len(names)} kernels, flash "
-          f"{list(seen.values())}; wall {wall_s:.1f} s [{smi}]")
+          f"{list(seen.values())}; the nonfinite capture: "
+          f"{capture['dur_s']:.3f} s, {capture['kernels']} CUDA kernels, "
+          f"flash {list(capture['flash'].values())}, memory snapshot "
+          f"{capture['memory_kb']:.1f} KB; wall {wall_s:.1f} s [{smi}]")
     shutil.rmtree(ck)
     shutil.rmtree(obs_dir)
     return dict(drain_s=drain_s, save=save, restore=restores[0],
                 rollback_restore=restores[1], rollback_s=rollback_s,
                 launches=got, step_losses=losses, wall_s=wall_s,
-                profile_kernels=seen)
+                profile_kernels=seen, capture=capture)
+
+
+def _check_capture(cap, events) -> dict:
+    """Leg (a)'s anomaly capture: exactly one, triggered by the nonfinite
+    step, its ``prof.capture`` event in the stream, no tracer error, and
+    a chrome trace whose CUDA kernel events include the flash forward
+    with lse and the fused backward pair."""
+    evs = [e for e in events if e["name"] == "prof.capture"]
+    if (cap.captures != 1 or cap.tracer_errors or len(evs) != 1
+            or evs[0]["reason"] != "nonfinite" or cap.records != [
+                {k: v for k, v in evs[0].items()
+                 if k not in ("kind", "name", "ts", "proc", "pid")}]):
+        raise AssertionError(f"preempt (a): {cap.captures} captures, "
+                             f"{cap.tracer_errors} tracer errors, events "
+                             f"{evs}, records {cap.records}")
+    rec = cap.records[0]
+    traces = [os.path.join(rec["dir"], n) for n in os.listdir(rec["dir"])
+              if n.endswith(".json")]
+    if len(traces) != 1:
+        raise AssertionError(f"preempt (a): capture traces {traces}")
+    with open(traces[0]) as fh:
+        names = [e.get("name", "") for e in json.load(fh)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    flash = {k: sum(k.replace(" ", "") in n.replace(" ", "") for n in names)
+             for k in PROFILE_KERNELS}
+    if not names or not all(flash.values()):
+        raise AssertionError(f"preempt (a): the nonfinite capture holds "
+                             f"{len(names)} CUDA kernels, the flash ones "
+                             f"{flash}")
+    mem = rec["memory_profile"]
+    if mem is None or not os.path.exists(mem):
+        raise AssertionError(f"preempt (a): capture memory snapshot {mem}")
+    return dict(dur_s=rec["dur_s"], kernels=len(names), flash=flash,
+                memory_kb=os.path.getsize(mem) / 1e3)
 
 
 class _Child:

@@ -141,8 +141,7 @@ def test_steps_per_tier_match_jax(sides):
             mgr.save(step, state(step), metrics={"val_loss": 1.0 / step})
             seen.append(_tiers(mgr))
         mgr.close()
-        # The port's names (the JAX manager also records its ckpt.save and
-        # ckpt.restore spans, which wait for the port's observability).
+        # The port's names, the ckpt.save spans among them.
         ev = [(e["name"], e.get("step"), e.get("tier"), e.get("ok"))
               for e in events() if e["name"] in CATALOG]
         record[side] = (seen, ev, mgr)
@@ -154,8 +153,9 @@ def test_steps_per_tier_match_jax(sides):
         ([4], [3, 4], [3, 4]), ([4, 5], [4, 5], [4, 5])]
     assert record["port"][1] == record["jax"][1]
     assert [e[0] for e in record["port"][1]] == [
-        "ckpt.upload", "ckpt.upload", "ckpt.emergency_save",
-        "ckpt.upload", "ckpt.upload"]
+        "ckpt.save", "ckpt.upload", "ckpt.save", "ckpt.upload",
+        "ckpt.save", "ckpt.emergency_save", "ckpt.save", "ckpt.upload",
+        "ckpt.save", "ckpt.upload"]
     # The same bytes: the newest step's manifests agree leaf for leaf.
     jm, tm = (raw.read_manifest(os.path.join(record[s][2].directory,
                                              "step_5", "state"))

@@ -6,8 +6,10 @@ flight dump holds the same ring, and every name the port emits is in its
 catalog with the JAX catalog's kind."""
 
 import glob
+import importlib
 import json
 import os
+import threading
 
 import pytest
 
@@ -193,9 +195,61 @@ def test_port_catalog_names_and_kinds():
     for name, (kind, _) in TCATALOG.items():
         assert JCATALOG[name][0] == kind == tobs.kind_of(name), name
     assert tobs.is_registered("ckpt.emergency_save")
-    assert not tobs.is_registered("train.step_s")
+    assert tobs.is_registered("train.step_s")
+    assert not tobs.is_registered("alert.fired")  # ROADMAP item 15c
     # The names the slice's events are read under.
     assert {"ckpt.emergency_save", "ckpt.restore_tier", "ckpt.corrupt",
             "ckpt.io_retry", "ckpt.gc", "ckpt.upload", "ckpt.save_failed",
             "flow.preempt", "flow.member_failed", "flow.run", "flow.step",
             "flow.gang_member", "train.report"} <= set(TCATALOG)
+
+
+def test_flush_waits_for_the_batch_the_flush_thread_holds(tmp_path,
+                                                          monkeypatch):
+    """``flush()`` returns only once every batch taken before it is on
+    disk, in the order taken: here the flush thread takes the first five
+    events and is held inside its write (a patched ``open``) while five
+    more are recorded and ``flush()`` is called; the events on disk when
+    ``flush()`` returns must be all ten, in order."""
+    rec_mod = importlib.import_module("tpuflow_torch.obs.recorder")
+    held, release = threading.Event(), threading.Event()
+    real_open = open
+
+    def held_open(path, *args, **kwargs):
+        if (threading.current_thread().name == "tpuflow-torch-obs-flush"
+                and not held.is_set()):
+            held.set()
+            release.wait(10)
+        return real_open(path, *args, **kwargs)
+
+    monkeypatch.setattr(rec_mod, "open", held_open, raising=False)
+    rec = rec_mod.Recorder(str(tmp_path), flush_interval=0.01)
+
+    def steps_on_disk():
+        with real_open(rec.path) as f:
+            return [json.loads(line)["step"] for line in f]
+
+    seen, calling = [], threading.Event()
+
+    def flusher():
+        calling.set()
+        rec.flush()
+        seen.extend(steps_on_disk())
+
+    try:
+        for i in range(5):
+            rec.record("event", "train.report", step=i)
+        assert held.wait(10), "the flush thread never took a batch"
+        for i in range(5, 10):
+            rec.record("event", "train.report", step=i)
+        t = threading.Thread(target=flusher)
+        t.start()
+        assert calling.wait(10)
+        t.join(0.5)  # the parent's flush() returned here at once
+        release.set()
+        t.join(10)
+        assert seen == list(range(10))
+        assert steps_on_disk() == list(range(10))
+    finally:
+        release.set()
+        rec.close()

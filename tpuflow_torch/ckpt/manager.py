@@ -390,6 +390,7 @@ class CheckpointManager:
         docstring)."""
         self.wait_until_finished()
         t0 = time.monotonic()
+        ts0 = time.time()
         final_dir = self._step_dir(step)
         local_final = self._local_step_dir(step)
         commit_root = local_final if local_final is not None else final_dir
@@ -466,10 +467,19 @@ class CheckpointManager:
                              op="commit", path=commit_root,
                              retries=self.policy.retries,
                              backoff_s=self.policy.backoff_s)
-                if local_final is not None:
-                    if _upload:
-                        self._upload_step(step, local_final, final_dir)
-                    self._local_retain()
+            # One span from save() to the commit (the upload after it is
+            # its own), recorded off the training path: on the saver
+            # thread when asynchronous.
+            rec = obs.recorder()
+            if rec is not None:
+                dur = time.monotonic() - t0
+                rec.record("span", "ckpt.save", ts=ts0, dur_s=dur, step=step,
+                           bytes=written["bytes"],
+                           gbps=written["bytes"] / dur / 1e9 if dur else 0.0)
+            if self.rank == 0 and local_final is not None:
+                if _upload:
+                    self._upload_step(step, local_final, final_dir)
+                self._local_retain()
             self.saves.append(dict(written))
 
         # The pool's files live on the persistent filesystem: a save
@@ -819,6 +829,7 @@ class CheckpointManager:
         when any process read a corrupt shard: they fall back together)."""
         state_dir = os.path.join(step_dir, _STATE_DIR)
         t0 = time.monotonic()
+        ts0 = time.time()
         if dcp.is_dcp(state_dir):
             out, nbytes = dcp.load(state_dir, abstract_state,
                                    ("params",) if weights_only else None)
@@ -827,6 +838,7 @@ class CheckpointManager:
                 "step": step, "tier": tier, "bytes": nbytes, "seconds": dur,
                 "gbps": nbytes / dur / 1e9 if dur else 0.0,
                 "arena_buffers": 0, "pinned": 0, "format": "dcp"})
+            _restore_span(ts0, self.restores[-1])
             return out
         stats: dict = {}
         corrupt = None
@@ -855,6 +867,7 @@ class CheckpointManager:
             "gbps": nbytes / dur / 1e9 if dur else 0.0,
             "arena_buffers": taken,
             "pinned": sum(t.is_pinned() for _, t in raw.flatten(out))})
+        _restore_span(ts0, self.restores[-1])
         return out
 
     def verify_step(self, step: int | None = None, *, best: bool = False
@@ -937,6 +950,18 @@ def prewarm_restore_handle(checkpoint: Checkpoint, *,
                            pinned=pinned)
     except (OSError, ValueError, KeyError, AttributeError):
         pass
+
+
+def _restore_span(ts0: float, record: dict) -> None:
+    """One ``ckpt.restore`` span for a restore ``record`` (bytes this
+    process read; the GB/s a wall-clock lower bound)."""
+    rec = obs.recorder()
+    if rec is not None:
+        attrs = {"step": record["step"], "bytes": record["bytes"]}
+        if record["bytes"] and record["seconds"] > 0:
+            attrs["gbps"] = record["gbps"]
+        rec.record("span", "ckpt.restore", ts=ts0, dur_s=record["seconds"],
+                   **attrs)
 
 
 def restore_from_handle(checkpoint: Checkpoint, *, abstract_state=None,

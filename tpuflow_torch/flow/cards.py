@@ -276,3 +276,341 @@ def training_curve_card(buf, records: Sequence[dict]) -> None:
     buf.append(LineChart([r["epoch"] for r in records], series,
                          xlabel="epoch", ylabel="loss (nats/token)"))
     buf.append(metrics_table(records))
+
+
+# ------------------------------------------------------------ timeline
+class _GanttBar:
+    """One timeline bar: offset and width as percentages of the run span
+    (nested divs, so the bar scales with the column)."""
+
+    def __init__(self, left_pct: float, width_pct: float, color: str):
+        self.left_pct = left_pct
+        self.width_pct = width_pct
+        self.color = color
+
+    def _render(self) -> str:
+        return (
+            "<div style='position:relative;width:240px;height:12px;"
+            "background:#f1f0ec'>"
+            f"<div style='position:absolute;left:{self.left_pct:.2f}%;"
+            f"width:{max(self.width_pct, 0.5):.2f}%;height:12px;"
+            f"background:{self.color}'></div></div>"
+        )
+
+
+# Goodput bucket -> color of the stacked goodput bar: productive green,
+# lost time in the subsystem hues, the residual near the background.
+_GOODPUT_COLORS = (
+    ("step", "#2e9960"),
+    ("replay", "#c2b33a"),
+    ("compile", "#2a78d6"),
+    ("restore", "#9268d4"),
+    ("data_wait", "#eb6834"),
+    ("ckpt", "#8a8782"),
+    ("resize", "#d08a3a"),
+    ("requeue_gap", "#d05252"),
+    ("other", "#e5e4e0"),
+)
+
+
+class _GoodputBar:
+    """One 100%-stacked bar over the goodput buckets (hover a segment for
+    its bucket and seconds)."""
+
+    def __init__(self, goodput: dict):
+        self.goodput = goodput
+
+    def _render(self) -> str:
+        wall = max(float(self.goodput.get("wall_s", 0.0)), 1e-9)
+        buckets = self.goodput.get("buckets", {})
+        cells = []
+        for bucket, color in _GOODPUT_COLORS:
+            v = float(buckets.get(bucket, 0.0))
+            if v <= 0:
+                continue
+            cells.append(
+                f"<div title='{bucket}: {v:.3f}s' "
+                f"style='width:{100.0 * v / wall:.2f}%;"
+                f"background:{color};height:16px'></div>")
+        return ("<div style='display:flex;width:480px;height:16px;"
+                "background:#f1f0ec'>" + "".join(cells) + "</div>")
+
+
+# Span-name prefix -> bar color: one hue a subsystem.
+_TIMELINE_COLORS = {
+    "flow.": "#8a8782",
+    "train.": "#2a78d6",
+    "ckpt.": "#eb6834",
+    "data.": "#2e9960",
+    "infer.": "#9268d4",
+    "serve.": "#d08a3a",
+    "fleet.": "#3a9ec2",
+    "device.": "#c2b33a",
+}
+
+
+def _span_color(name: str) -> str:
+    for prefix, color in _TIMELINE_COLORS.items():
+        if name.startswith(prefix):
+            return color
+    return "#8a8782"
+
+
+def _events_named(events, name: str) -> list[dict]:
+    return [e for e in events
+            if e.get("kind") == "event" and e.get("name") == name]
+
+
+def _headline_section(buf, headline: dict) -> None:
+    def fmt(k, v):
+        if "bytes" in k:
+            return f"{v / 1e6:.1f} MB"
+        if "gbps" in k:
+            return f"{v:.2f} GB/s"
+        if k.endswith("_s"):
+            return f"{v:.4f} s"
+        if "rate" in k or "mfu" in k:
+            return f"{v:.3f}"
+        return f"{v:,.1f}" if isinstance(v, float) else str(v)
+
+    buf.append(Markdown("## Headline"))
+    buf.append(Table([[k, fmt(k, v)] for k, v in sorted(headline.items())],
+                     headers=["metric", "value"]))
+
+
+def _health_section(buf, health: dict) -> None:
+    buf.append(Markdown("## Training health"))
+    rows = []
+    for a in health.get("anomalies", []):
+        detail = ", ".join(f"{k}={v}" for k, v in sorted(a.items())
+                           if k not in ("ts", "proc", "detector", "step"))
+        rows.append(["anomaly", a.get("detector", "?"), a.get("step", ""),
+                     detail])
+    for r in health.get("rollbacks", []):
+        rows.append(["rollback", r.get("detector", "?"), r.get("step", ""),
+                     f"from step {r.get('from_step', '?')}, "
+                     f"lr_scale {r.get('lr_scale', 1.0)}"])
+    for p in health.get("profiles", []):
+        rows.append(["profile", "trace",
+                     f"{p.get('start_step', '?')}–{p.get('stop_step', '?')}",
+                     p.get("dir", "")])
+    buf.append(Table(rows, headers=["event", "kind", "step", "detail"]))
+    last = health.get("last") or {}
+    if last:
+        buf.append(Table([[k, f"{v:.6g}"] for k, v in sorted(last.items())
+                          if k != "step"],
+                         headers=["last gauge", "value"]))
+
+
+def _goodput_section(buf, goodput: dict) -> None:
+    wall = goodput["wall_s"]
+    buf.append(Markdown("## Goodput"))
+    buf.append(Markdown(
+        f"**{100.0 * goodput.get('fraction', 0.0):.1f}%** of "
+        f"{wall:.1f} s wall went to productive train steps."))
+    buf.append(_GoodputBar(goodput))
+    buf.append(Table(
+        [[bucket, f"{goodput['buckets'].get(bucket, 0.0):.3f}s",
+          f"{100.0 * goodput['buckets'].get(bucket, 0.0) / wall:.1f}%"]
+         for bucket, _c in _GOODPUT_COLORS
+         if goodput["buckets"].get(bucket)],
+        headers=["bucket", "seconds", "share"]))
+    attempts = goodput.get("attempts") or []
+    if len(attempts) > 1:
+        buf.append(Markdown("## Attempt lanes"))
+        buf.append(Table(
+            [[f"attempt {a['attempt']}",
+              " ".join(f"p{p}" for p in a.get("procs", [])),
+              f"+{a['start_s']:.3f}s", f"{a['dur_s']:.3f}s",
+              _GanttBar(100.0 * a["start_s"] / wall,
+                        100.0 * a["dur_s"] / wall, "#2a78d6")]
+             for a in attempts],
+            headers=["attempt", "procs", "start", "dur", ""]))
+
+
+def _serving_section(buf, counters: dict, gauges: dict) -> None:
+    rows = []
+    for name, label in (("serve.requests", "requests completed"),
+                        ("serve.tokens", "tokens served"),
+                        ("serve.slo_violations", "SLO violations")):
+        if counters.get(name):
+            rows.append([label, f"{counters[name]:,.0f}"])
+    for name, label, spec in (
+        ("serve.queue_depth", "queue depth (last/max)", "{:.0f}"),
+        ("serve.slot_occupancy", "slot occupancy (last/max)", "{:.2f}"),
+        ("serve.ttft_s", "TTFT s (last/max)", "{:.4f}"),
+        ("serve.idle_fraction", "ledger: idle fraction", "{:.3f}"),
+        ("serve.decode_fraction", "ledger: decode fraction", "{:.3f}"),
+        ("serve.prefill_fraction", "ledger: prefill fraction", "{:.3f}"),
+        ("serve.decode_utilization", "decode utilization", "{:.3f}"),
+        ("serve.masked_row_waste", "masked-row waste", "{:.3f}"),
+        ("serve.spec_accept_rate", "spec accept rate", "{:.3f}"),
+        ("serve.pages_free", "pages free (last)", "{:.0f}"),
+    ):
+        g = gauges.get(name)
+        if not g:
+            continue
+        val = spec.format(g.get("last", 0.0))
+        if "last/max" in label:
+            val += f" / {spec.format(g.get('max', 0.0))}"
+        rows.append([label, val])
+    buf.append(Markdown("## Serving"))
+    if rows:
+        buf.append(Table(rows, headers=["serving metric", "value"]))
+
+
+def _fleet_section(buf, gauges: dict, stale_events: list[dict]) -> None:
+    buf.append(Markdown("## Fleet"))
+    rows = []
+    g = gauges.get("fleet.size")
+    if g:
+        rows.append(["replicas tracked (last/max)",
+                     f"{g.get('last', 0.0):.0f} / {g.get('max', 0.0):.0f}"])
+    g = gauges.get("fleet.qps")
+    if g:
+        rows.append(["fleet QPS (last)", f"{g.get('last', 0.0):.3g}"])
+    if stale_events:
+        rows.append(["replica-stale events", f"{len(stale_events):,d}"])
+        culprits = sorted({str(e.get("replica")) for e in stale_events
+                           if e.get("replica")})
+        if culprits:
+            rows.append(["stale replicas", ", ".join(culprits[:8])])
+    if rows:
+        buf.append(Table(rows, headers=["fleet metric", "value"]))
+
+
+def _device_section(buf, gauges: dict, prog_events: list[dict],
+                    cap_events: list[dict],
+                    budget_events: list[dict]) -> None:
+    buf.append(Markdown("## Device"))
+    rows = []
+    for name, label in (("device.hbm_used", "HBM used (last/max)"),
+                        ("device.hbm_peak", "HBM peak (max)"),
+                        ("device.hbm_limit", "HBM limit")):
+        g = gauges.get(name)
+        if not g:
+            continue
+        val = f"{g.get('last', 0.0) / 2**30:.3f} GiB"
+        if "last/max" in label:
+            val += f" / {g.get('max', 0.0) / 2**30:.3f} GiB"
+        elif "(max)" in label:
+            val = f"{g.get('max', 0.0) / 2**30:.3f} GiB"
+        rows.append([label, val])
+    used_g = gauges.get("device.hbm_peak") or gauges.get("device.hbm_used")
+    limit_g = gauges.get("device.hbm_limit")
+    if used_g and limit_g and limit_g.get("last"):
+        rows.append(["HBM peak fraction",
+                     f"{used_g.get('max', 0.0) / limit_g['last']:.3f}"])
+    if prog_events:
+        programs = sorted({str(e.get("program")) for e in prog_events
+                           if e.get("program")})
+        rows.append(["compiled programs in ledger", f"{len(programs)}"])
+        rows.append(["programs", ", ".join(programs[:12])])
+    if budget_events:
+        b = budget_events[-1]
+        verdict = (f"{float(b.get('resident_bytes', 0.0)) / 2**30:.3f} GiB "
+                   "resident")
+        if b.get("resident_frac") is not None:
+            verdict += f" = {100.0 * float(b['resident_frac']):.1f}% of limit"
+        if b.get("over"):
+            verdict += " [OVER]"
+        rows.append(["static HBM budget", verdict])
+    if cap_events:
+        rows.append(["triggered captures", f"{len(cap_events):,d}"])
+        reasons = [str(e.get("reason")) for e in cap_events
+                   if e.get("reason")]
+        if reasons:
+            rows.append(["capture reasons", ", ".join(reasons[:8])])
+    if rows:
+        buf.append(Table(rows, headers=["device metric", "value"]))
+
+
+def _gantt_section(buf, spans: list[dict]) -> None:
+    t0 = min(e["ts"] for e in spans)
+    t1 = max(e["ts"] + e["dur_s"] for e in spans)
+    total = max(t1 - t0, 1e-9)
+    buf.append(Markdown("## Timeline"))
+    rows = []
+    # The run span covers everything: only the inner structure is drawn.
+    for e in sorted(spans, key=lambda e: e["ts"]):
+        if e["name"] == "flow.run":
+            continue
+        label = e["name"]
+        if e.get("step"):
+            label += f" [{e['step']}]"
+        detail = []
+        if e.get("bytes"):
+            detail.append(f"{float(e['bytes']) / 1e6:.1f} MB")
+        if e.get("gbps"):
+            detail.append(f"{float(e['gbps']):.2f} GB/s")
+        if e.get("tokens_per_s"):
+            detail.append(f"{float(e['tokens_per_s']):.0f} tok/s")
+        rows.append([label, f"p{e.get('proc', 0)}", f"+{e['ts'] - t0:.3f}s",
+                     f"{e['dur_s']:.3f}s", " ".join(detail),
+                     _GanttBar(100.0 * (e["ts"] - t0) / total,
+                               100.0 * e["dur_s"] / total,
+                               _span_color(e["name"]))])
+    buf.append(Table(rows,
+                     headers=["span", "proc", "start", "dur", "detail", ""]))
+
+
+def timeline_card(buf, events: Sequence[dict],
+                  summary: dict | None = None) -> None:
+    """The run-level telemetry card (the JAX ``timeline_card``): the
+    headline metrics, the training-health events, the goodput bar and its
+    buckets (with one lane a launch attempt), the serving, fleet and
+    device sections when the stream has them, a Gantt-style table of the
+    spans (one bar a span; ``train.compile``, ``train.epoch``,
+    ``train.validation``, ``ckpt.save`` ... in their subsystem's color),
+    then the span, counter and histogram aggregates. The flow runner
+    renders it into ``timeline.html`` at the run root. Appends into
+    ``buf``; callers wrap it, a card never fails the run. The JAX card's
+    Alerts section comes with the alert engine (ROADMAP item 15c)."""
+    from tpuflow_torch.obs.timeline import summarize
+
+    if not events:
+        return
+    if summary is None:
+        summary = summarize(events)
+    buf.append(Markdown("# Run timeline"))
+    if summary.get("headline"):
+        _headline_section(buf, summary["headline"])
+    health = summary.get("health") or {}
+    if (health.get("anomalies") or health.get("rollbacks")
+            or health.get("profiles")):
+        _health_section(buf, health)
+    goodput = summary.get("goodput") or {}
+    if goodput.get("wall_s") and goodput.get("steps_timed"):
+        _goodput_section(buf, goodput)
+    counters = summary.get("counters", {})
+    gauges = summary.get("gauges", {})
+    if counters.get("serve.requests") or "serve.queue_depth" in gauges:
+        _serving_section(buf, counters, gauges)
+    stale = _events_named(events, "fleet.replica_stale")
+    if "fleet.size" in gauges or stale:
+        _fleet_section(buf, gauges, stale)
+    progs = _events_named(events, "device.program")
+    caps = _events_named(events, "prof.capture")
+    if "device.hbm_used" in gauges or progs or caps:
+        _device_section(buf, gauges, progs, caps,
+                        _events_named(events, "device.hbm_budget"))
+    spans = [e for e in events
+             if e.get("kind") == "span" and e.get("dur_s", 0) > 0]
+    if spans:
+        _gantt_section(buf, spans)
+    agg = summary.get("spans", {})
+    if agg:
+        buf.append(Markdown("## Span aggregates"))
+        buf.append(Table(
+            [[n, s["count"], f"{s['total_s']:.3f}s", f"{s['mean_s']:.4f}s",
+              f"{s['max_s']:.4f}s"] for n, s in sorted(agg.items())],
+            headers=["span", "count", "total", "mean", "max"]))
+    hists = summary.get("histograms", {})
+    if counters or hists:
+        buf.append(Markdown("## Counters and histograms"))
+        rows = [[n, "counter", f"{v:,.0f}", "", ""]
+                for n, v in sorted(counters.items())]
+        rows += [[n, "histogram", h["count"], f"{h['p50']:.5f}",
+                  f"{h['max']:.5f}"] for n, h in sorted(hists.items())]
+        buf.append(Table(rows, headers=["name", "kind", "count/total", "p50",
+                                        "max"]))

@@ -2,11 +2,12 @@
 
 Counterpart of ``tpuflow/flow/client.py``: how a flow reads another run's
 artifacts (``Run(pathspec).data.result``, ``Task(pathspec).data...``) and
-resolves runs within a namespace. ``Run.health()`` is the run's
-training-health view (``obs.health_summary`` of its merged telemetry);
-the JAX package's other views (``Run.telemetry/goodput``) wait for the
-rest of the port's telemetry (ROADMAP Queue 1 item 15); ``Run.events``
-here lists the run's records in the store's event log.
+resolves runs within a namespace. A run's merged telemetry
+(``<run_dir>/events.jsonl``) reads as ``Run.telemetry()`` (``obs.
+summarize``: aggregates and the headline), ``Run.goodput()`` (``obs.
+compute_goodput``: the wall decomposed into buckets) and ``Run.health()``
+(``obs.health_summary``); ``Run.events`` here lists the run's records in
+the store's event log.
 """
 
 from __future__ import annotations
@@ -168,15 +169,40 @@ class Run:
         return [e for e in store.read_events(self.flow)
                 if e.get("run") == self.pathspec]
 
-    def health(self) -> dict:
-        """The run's training-health view (``obs.health_summary`` of the
-        run's merged telemetry, ``<run_dir>/events.jsonl``): its anomaly,
-        rollback and profile events, the last ``health.*`` gauges, the
-        nonfinite-step and dropped-event totals."""
+    def _telemetry_events(self) -> list[dict]:
+        """The run's merged telemetry (``events.jsonl``, else merged now
+        from the per-process files; empty with telemetry off)."""
         from tpuflow_torch import obs
 
-        return obs.health_summary(obs.load_run_events(
-            store.run_dir(self.flow, self.run_id)))
+        return obs.load_run_events(store.run_dir(self.flow, self.run_id))
+
+    def telemetry(self) -> dict:
+        """The run's telemetry summary (``obs.summarize``): span
+        aggregates, counters, histograms, the health view, the goodput
+        ledger, and the headline the timeline card shows (step time,
+        tokens/s, checkpoint GB/s, goodput fraction, HBM peak)."""
+        from tpuflow_torch import obs
+
+        return obs.summarize(self._telemetry_events())
+
+    def health(self) -> dict:
+        """The run's training-health view (``obs.health_summary`` of the
+        run's merged telemetry): its anomaly, rollback and profile events,
+        the last ``health.*`` gauges, the nonfinite-step and
+        dropped-event totals."""
+        from tpuflow_torch import obs
+
+        return obs.health_summary(self._telemetry_events())
+
+    def goodput(self) -> dict:
+        """The run's goodput ledger (``obs.compute_goodput`` of the merged
+        telemetry): the wall decomposed into productive step seconds and
+        the compile, restore, data-wait, checkpoint, replay, resize and
+        requeue-gap buckets, stitched across gang members and launch
+        attempts; ``fraction`` is the productive share."""
+        from tpuflow_torch import obs
+
+        return obs.compute_goodput(self._telemetry_events())
 
 
 class Flow:

@@ -325,28 +325,52 @@ class FlowRunner:
             meta.update(status="failed", error=repr(e), finished=time.time())
             run_span.set(status="failed")
             run_span.__exit__(None, None, None)
-            self._finish_obs(rdir)
+            self._finalize_obs(rdir, pathspec, meta)
             store.write_run_meta(self.flow_name, run_id, meta)
             print(f"[tpuflow_torch] run {pathspec} FAILED: {e!r}")
             raise
         meta.update(status="success", finished=time.time())
         run_span.set(status="success")
         run_span.__exit__(None, None, None)
-        self._finish_obs(rdir)
+        self._finalize_obs(rdir, pathspec, meta)
         store.write_run_meta(self.flow_name, run_id, meta)
         store.append_event({"flow": self.flow_name, "run": pathspec,
                             "status": "success"})
         print(f"[tpuflow_torch] run {pathspec} succeeded")
         return pathspec
 
-    def _finish_obs(self, rdir: str) -> None:
-        """Close the head's recorder and merge the run's event files into
-        ``<rdir>/events.jsonl``. Telemetry never fails the run."""
+    def _finalize_obs(self, rdir: str, pathspec: str, meta: dict) -> None:
+        """Close the head's recorder, merge the run's event files into
+        ``<rdir>/events.jsonl``, render the timeline card into
+        ``<rdir>/timeline.html``, and stamp the headline summary
+        (``meta["telemetry"]``, ``{}`` with telemetry off) and, when
+        anything happened, the training-health view (``meta["health"]``)
+        into run.json. Telemetry never fails the run."""
+        meta.setdefault("telemetry", {})
         if self._obs_dir is None:
             return
-        obs.configure(None)
         self._obs_dir = None
-        obs.merge_run_events(rdir)
+        try:
+            obs.configure(None)
+            events = obs.merge_run_events(rdir)
+            if not events:
+                return
+            summary = obs.summarize(events)
+            from tpuflow_torch.flow.cards import timeline_card
+
+            buf = CardBuffer()
+            timeline_card(buf, events, summary=summary)
+            with open(os.path.join(rdir, "timeline.html"), "w") as f:
+                f.write(buf.render_html(f"{pathspec} timeline"))
+            meta["telemetry"] = summary.get("headline", {})
+            health = summary.get("health") or {}
+            if (health.get("anomalies") or health.get("rollbacks")
+                    or health.get("profiles") or health.get("dropped_events")):
+                # Only when noteworthy: a clean run's run.json stays small.
+                meta["health"] = health
+        except Exception as e:
+            print(f"[tpuflow_torch] telemetry finalize failed (ignored): "
+                  f"{e!r}")
 
     def _run_step(self, flow, fn, step_name, run_id, task_id, num_parallel,
                   gang) -> list[_GangInput]:

@@ -83,6 +83,15 @@ keeps a lifecycle trace (``ServeRequest.trace``), mirrored as
   already pays (a prefill at its first token's readback, a decode block
   at its tokens' readback); ``insert`` holds the host side of the page
   copies, whose device time lands in the next synced bucket.
+- **Device observatory.** The engine polls the card's memory gauges on
+  its scheduler fence (``obs/device.py``; the first iteration and every
+  64th, throttled by ``hbm_poll_s``), records the first fenced run of
+  each signature (``prefill@<W>``, ``decode``, ``verify``, ``insert``,
+  ``restore``; ``_q`` the int8 path's) in its program ledger
+  (``ServeEngine.programs``, written as ``programs.json`` with the kernel
+  libraries and a budget check by ``collect_program_ledger``), and feeds
+  an anomaly capturer (``capture=``, ``obs/profcap.py``) its ITL
+  observations and SLO breaches.
 - **The long-lived loop.** ``serve_forever`` steps the engine under a
   lock it shares with the replica's ``/generate`` gateway
   (``infer/frontdoor.py``), stamps the heartbeat every iteration, starts
@@ -96,7 +105,8 @@ keeps a lifecycle trace (``ServeRequest.trace``), mirrored as
   spans when it completes or drains.
 
 PyTorch runs eagerly, so the JAX engine's jit programs, warmup and
-never-recompile accounting have no counterpart here. A fleet of these
+never-recompile accounting have no counterpart here (its AOT program
+ledger becomes the first-run ledger above). A fleet of these
 engines sits behind ``infer/router.py``'s ``Router`` and
 ``infer/frontdoor.py``'s ``FrontDoor``. Where the JAX engine reads
 ``TPUFLOW_SERVE_*`` / ``TPUFLOW_KV_*`` / ``TPUFLOW_ROUTER_GATEWAY`` /
@@ -129,6 +139,8 @@ from tpuflow_torch.infer.quant import (
     quantize_model,
 )
 from tpuflow_torch.infer.speculative import ngram_draft
+from tpuflow_torch.obs import device as _obs_device
+from tpuflow_torch.obs import profcap as _profcap
 from tpuflow_torch.obs import serve_ledger as _ledger
 from tpuflow_torch.obs import trace as _reqtrace
 
@@ -494,6 +506,13 @@ class ServeEngine:
     (``TPUFLOW_SERVE_ACCESS_LOG=0``), which otherwise writes beside the
     ``obs`` recorder's event files when one is configured.
 
+    Device observatory: ``capture`` arms the anomaly-triggered
+    ``torch.profiler`` capture (a ``CaptureConfig``, True for its
+    defaults, or a built ``AnomalyCapturer``; the JAX
+    ``TPUFLOW_PROF_*``), ``hbm_poll_s`` the memory gauges' cadence
+    (``TPUFLOW_DEVICE_POLL_S``; 0 off), ``device_ledger=False`` the
+    program ledger (``TPUFLOW_DEVICE_LEDGER=0``).
+
     The engine's methods set the per-thread state they need themselves
     (``torch.no_grad``, the model's card as the current device, the f32
     matmul precision scope), so ``submit``, ``ship`` and ``step`` may run
@@ -524,6 +543,9 @@ class ServeEngine:
         slo_ttft_ms: float | None = None,
         slo_itl_ms: float | None = None,
         access_log: bool = True,
+        capture=None,
+        hbm_poll_s: float = _obs_device.DEFAULT_POLL_S,
+        device_ledger: bool = True,
     ):
         self.paged = bool(paged)
         self.model = model
@@ -576,6 +598,14 @@ class ServeEngine:
         )
         self._iters = 0
         self._last_gauges: tuple | None = None
+        # Device observatory: the anomaly capturer (None: one ``is not
+        # None`` check a decode block), the memory poll's cadence, and the
+        # program ledger of the signatures' first fenced runs.
+        self._profcap = _profcap.make_capturer(capture)
+        self.hbm_poll_s = hbm_poll_s
+        self.device_ledger = bool(device_ledger)
+        self.programs = _obs_device.ProgramLedger(source="serve")
+        self._n_params = sum(p.numel() for p in model.parameters())
         S = self.max_slots
         self.role = resolve_serve_role(role)
         self.kv_store = (
@@ -657,6 +687,24 @@ class ServeEngine:
                 if self.device.type == "cuda" else contextlib.nullcontext())
         with torch.no_grad(), card, f32_matmul_precision(highest):
             yield
+
+    @contextlib.contextmanager
+    def _program(self, name: str, tokens: int = 0):
+        """The first fenced run of signature ``name`` (the block this wraps
+        ends at a host sync) becomes an entry of ``self.programs``: its
+        wall, 2 N FLOPs a token over ``tokens``, and on the card its
+        memory marks (``obs/device.py``). Later runs pass straight
+        through."""
+        if not self.device_ledger or name in self.programs:
+            yield
+            return
+        mark = _obs_device.allocated_bytes(self.device)
+        t0 = time.monotonic()
+        yield
+        self.programs.note_entry(_obs_device.program_entry(
+            name, run_s=time.monotonic() - t0,
+            flops=2.0 * self._n_params * tokens if tokens else None,
+            argument_bytes=mark, device=self.device, source="serve"))
 
     def _prefill_fn(self, model, prompt, pads, *, chunk):
         """(1, W) admission prefill → (first greedy token, row cache)."""
@@ -740,7 +788,7 @@ class ServeEngine:
             for name in self._leaf_names
         ])  # (leaves, pages, page_size, H, D)
         leaves = self._cache.k + self._cache.v
-        with self.ledger.bucket("insert"):
+        with self.ledger.bucket("insert"), self._program("restore"):
             src = _device_view(
                 torch.from_numpy(host).to(self.device), leaves[0].dtype
             )
@@ -947,7 +995,8 @@ class ServeEngine:
         k_ship = -(-L // self.page_size)
         leaves = self._cache.k + self._cache.v
         with self._on_device():
-            with self.ledger.bucket("prefill"):
+            with self.ledger.bucket("prefill"), self._program(
+                    f"prefill@{W}{'_q' if quantize else ''}", W):
                 first, row_cache = self._prefill_row(model, prompt, W)
             rows = torch.stack([
                 self._row_pages(row, W - L, pool)[:k_ship]
@@ -1054,6 +1103,9 @@ class ServeEngine:
                   value=round(value, 6), limit_s=limit_s, group=req.group,
                   **self._tid(req))
         obs.counter("serve.slo_violations", 1)
+        if self._profcap is not None:
+            # A declared-SLO breach: a direct capture trigger.
+            self._profcap.note_slo_breach(kind)
 
     def _access_write(self, req: ServeRequest, terminal: str) -> None:
         """One access-log line at the request's terminal transition
@@ -1213,7 +1265,8 @@ class ServeEngine:
                 "serve.prefill", request=req.id, bucket=W, prompt_len=int(L),
                 chunk=normalize_prefill_chunk(self.prefill_chunk, W),
                 quant=bool(req.quantize),
-            ):
+            ), self._program(f"prefill@{W}{'_q' if req.quantize else ''}",
+                             W):
                 first, row_cache = self._prefill_row(model, req.prompt, W)
         # feed: the first token comes out of the decode block.
         if first is not None:
@@ -1234,7 +1287,7 @@ class ServeEngine:
             # Written even when the request ends here: its fresh prompt
             # pages are registered in the prefix cache, and a later prompt
             # that matches them reads them.
-            with self.ledger.bucket("insert"):
+            with self.ledger.bucket("insert"), self._program("insert"):
                 self._page_insert(row_cache, table_row, W - L, write_mask)
         if first is not None:
             req.tokens.append(first)
@@ -1256,7 +1309,7 @@ class ServeEngine:
             self._lengths[slot] = L if mode != "feed" else L - 1
             self._pads[slot] = 0
         else:
-            with self.ledger.bucket("insert"):
+            with self.ledger.bucket("insert"), self._program("insert"):
                 self._insert_row(row_cache, slot)
             # The row keeps its bucket pads: columns [W - L, W) are the
             # prompt's.
@@ -1311,6 +1364,14 @@ class ServeEngine:
             None if tier is None else tier.pages_disk,
         )
         fr = self.ledger.fractions()
+        if self._iters % 64 == 1:
+            # The card's memory on the fence the loop already pays (read
+            # at the first iteration, then every 64th, throttled by
+            # hbm_poll_s), and the capture governor's wall deadline.
+            _obs_device.maybe_emit_hbm(force=self._iters == 1,
+                                       poll_s=self.hbm_poll_s)
+            if self._profcap is not None:
+                self._profcap.poll()
         if state != self._last_gauges or self._iters % 64 == 0:
             self._last_gauges = state
             obs.gauge("serve.queue_depth", state[0])
@@ -1387,7 +1448,10 @@ class ServeEngine:
             if quant
             else obs.span("serve.decode", slots=group_live, spec=spec)
         )
-        with self.ledger.bucket("verify" if spec else "decode"), span as sp:
+        kind = ("verify" if spec else "decode") + ("_q" if quant else "")
+        steps = self.spec_draft + 1 if spec else self.decode_block
+        with self.ledger.bucket("verify" if spec else "decode"), span as sp, \
+                self._program(kind, group_live * steps):
             if spec:
                 # Host-side prompt-lookup drafts per slot (a wrong draft
                 # only costs speed; the verify forward arbitrates).
@@ -1452,6 +1516,10 @@ class ServeEngine:
                     req.itl_s.append(itl)
                     self.ledger.note_itl(req.group, itl)
                     led.note_serve_itl(itl, trace_id=self._exemplar(req))
+                    if self._profcap is not None:
+                        # The ITL spike detector; the same call advances
+                        # a live capture's bound.
+                        self._profcap.observe_itl(itl)
                 if req.t_first is None:
                     # A feed admission: its first token came out of this
                     # block, after the ITL anchor above (which must not
@@ -1484,6 +1552,19 @@ class ServeEngine:
                     self._slot_pages[s] = []
                     self._page_table[s, :] = 0
         return emitted
+
+    def collect_program_ledger(self, path: str | None = None
+                               ) -> _obs_device.ProgramLedger:
+        """The engine's device ledger (the JAX engine's
+        ``collect_program_ledger``): the signatures run so far and the
+        kernel libraries loaded, a static budget check against the card,
+        written as ``programs.json`` (default: beside the recorder's event
+        files; nothing without one). Returns the ledger."""
+        for entry in _obs_device.kernel_entries():
+            self.programs.note_entry(entry)
+        self.programs.budget_check()
+        self.programs.write(path)
+        return self.programs
 
     def residency_efficiency(self) -> float | None:
         """KV residency: tokens resident (the live slots' committed cache
@@ -1610,9 +1691,12 @@ def serve_forever(
     gateway, whose spans take ``replica_id`` as their writer.
 
     ``max_s`` bounds the loop; ``should_stop`` is an optional callable
-    polled each iteration. The JAX loop's device program ledger
-    (``TPUFLOW_DEVICE_LEDGER``: XLA programs) and its run-registry entry
-    come with the run observatory (ROADMAP item 15).
+    polled each iteration. With a recorder configured and the engine's
+    ``device_ledger`` on, the loop writes the engine's device program
+    ledger (``collect_program_ledger``: the kernel libraries, the
+    signatures run so far and a budget check) as it starts, and again as
+    it ends with the signatures serving ran. The JAX loop's run-registry
+    entry comes with ROADMAP item 15c.
     """
     from tpuflow_torch.utils import heartbeat, preempt
 
@@ -1641,6 +1725,7 @@ def serve_forever(
                 url = (f"http://{socket.gethostname()}:"
                        f"{urlsplit(url).port}/generate")
             obs.goodput_live().note_serve_generate_url(url)
+    _serve_ledger(engine)
     preempt.install_sigterm_handler()
     deadline = None if max_s is None else time.monotonic() + max_s
     draining = False
@@ -1670,9 +1755,23 @@ def serve_forever(
                 with engine.ledger.bucket("idle"):
                     time.sleep(idle_sleep_s)
     finally:
+        _serve_ledger(engine)
         if gw is not None:
             # Retract the advertised URL before the socket dies, so a
             # fleet poll racing the shutdown never hands a router an
             # address that can only refuse.
             obs.goodput_live().note_serve_generate_url(None)
             gw.close()
+
+
+def _serve_ledger(engine: ServeEngine) -> None:
+    """``serve_forever``'s device program ledger, when a recorder is on
+    and the engine keeps one; never fails the loop."""
+    if obs.recorder() is None or not getattr(engine, "device_ledger",
+                                             False):
+        return
+    try:
+        engine.collect_program_ledger()
+    except Exception as e:
+        print(f"[tpuflow_torch] device program ledger failed (ignored): "
+              f"{e!r}")

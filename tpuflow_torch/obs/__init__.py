@@ -8,7 +8,13 @@ window, ``health_summary``), and the serving observatory: the engine-time
 ledger and access log (``obs/serve_ledger.py``), the fleet observatory
 (``obs/fleet.py``), the live goodput ledger (``obs/goodput.py``,
 ``goodput_live()``) and its ``/metrics`` + ``/status`` export
-(``obs/export.py``, ``start_export``).
+(``obs/export.py``, ``start_export``); the run observatory: the goodput
+ledger of a run's stream (``compute_goodput``) and its summary
+(``summarize``, ``obs/timeline.py``); and the device observatory: the
+card's memory gauges and the program ledger (``obs/device.py``:
+``hbm_snapshot``, ``maybe_emit_hbm``, ``ProgramLedger``,
+``device_summary``) and the anomaly-triggered ``torch.profiler``
+captures (``obs/profcap.py``: ``AnomalyCapturer``, ``CaptureConfig``).
 
 Usage (emitters)::
 
@@ -42,17 +48,36 @@ from tpuflow_torch.obs.timeline import (
     load_run_events,
     merge_run_events,
     read_events,
+    summarize,
 )
 
 # Last: these layers emit through the functions bound above.
 from tpuflow_torch.obs.health import health_summary  # noqa: E402
 from tpuflow_torch.obs.goodput import live as goodput_live  # noqa: E402
 from tpuflow_torch.obs.export import start_export  # noqa: E402
+from tpuflow_torch.obs.goodput import (  # noqa: E402
+    BUCKETS as GOODPUT_BUCKETS,
+    ProcessLedger,
+    compute_goodput,
+)
+from tpuflow_torch.obs.device import (  # noqa: E402
+    ProgramLedger,
+    device_summary,
+    hbm_snapshot,
+    maybe_emit_hbm,
+)
+from tpuflow_torch.obs.profcap import (  # noqa: E402
+    AnomalyCapturer,
+    CaptureConfig,
+)
 
 __all__ = [
-    "CATALOG", "Recorder", "configure", "counter", "dump_flight", "enabled",
-    "event", "flight_path", "flush", "gauge", "goodput_live", "histogram",
-    "is_registered", "health_summary", "kind_of", "load_run_events",
-    "merge_run_events", "read_events", "recorder", "span", "start_export",
+    "AnomalyCapturer", "CATALOG", "CaptureConfig", "GOODPUT_BUCKETS",
+    "ProcessLedger", "ProgramLedger", "Recorder", "compute_goodput",
+    "configure", "counter", "device_summary", "dump_flight", "enabled",
+    "event", "flight_path", "flush", "gauge", "goodput_live",
+    "hbm_snapshot", "histogram", "is_registered", "health_summary",
+    "kind_of", "load_run_events", "maybe_emit_hbm", "merge_run_events",
+    "read_events", "recorder", "span", "start_export", "summarize",
     "timed_iter",
 ]

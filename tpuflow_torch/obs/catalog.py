@@ -45,6 +45,38 @@ CATALOG: dict[str, tuple[str, str]] = {
     ),
     # --------------------------------------------------------------- train
     "train.report": ("event", "one TrainContext.report: step + metrics"),
+    "train.compile": (
+        "span",
+        "the cold first step, fenced: kernel builds, cuBLAS and allocator "
+        "warm-up (train/step.py::StepClock.compile_done)",
+    ),
+    "train.step_s": ("histogram", "steady-state per-step wall time, fenced"),
+    "train.tokens": ("counter", "steady-state tokens consumed by train steps"),
+    "train.epoch": ("span", "one training epoch (steady-state steps only)"),
+    "train.validation": ("span", "held-out validation pass"),
+    "train.remat_policy": (
+        "event",
+        "resolved remat selector for the leg (none|dots) plus whether the "
+        "gradient reduce-scatter overlaps the accumulation "
+        "(comm_overlap): the run's memory/recompute/overlap trade",
+    ),
+    "train.dispatch_depth": (
+        "gauge",
+        "how many steps may be in flight before the host settles the "
+        "oldest step's scalars (the port fences every step: 1)",
+    ),
+    "train.exposed_comm_s": (
+        "gauge",
+        "per-step seconds NOT at peak compute (mean epoch step wall - "
+        "6*N*tokens/peak): an UPPER bound on exposed communication "
+        "(train/step.py::comm_attribution; on a card of its table only)",
+    ),
+    "train.comm_overlap_s": (
+        "gauge",
+        "per-step seconds of FSDP collective time hidden behind compute "
+        "(comm roofline - exposed_comm_s, floored at 0): a LOWER bound "
+        "(train/step.py::comm_attribution; on a card of its table only)",
+    ),
     # -------------------------------------------------------------- health
     "health.loss": ("gauge", "per-step train loss (fenced host copy)"),
     "health.grad_norm": (
@@ -80,6 +112,8 @@ CATALOG: dict[str, tuple[str, str]] = {
         "stop)): step window + trace directory",
     ),
     # ---------------------------------------------------------------- ckpt
+    "ckpt.save": ("span", "checkpoint save, save() -> commit; bytes + gbps"),
+    "ckpt.restore": ("span", "checkpoint restore; bytes + gbps when known"),
     "ckpt.corrupt": (
         "event",
         "a shard failed crc32/truncation verification; restore fell back "
@@ -430,6 +464,42 @@ CATALOG: dict[str, tuple[str, str]] = {
         "productive fraction of this process's wall time so far "
         "(goodput-so-far; the run-level number comes from the merged "
         "ledger)",
+    ),
+    # --------------------------------------------------------------- device
+    "device.program": (
+        "event",
+        "one program's ledger entry (program, compile_s: its build or "
+        "first fenced run, flops, and on the card argument/peak/temp "
+        "bytes; absent keys where nothing reports); the same record lands "
+        "in the programs.json run artifact",
+    ),
+    "device.hbm_budget": (
+        "event",
+        "static memory budget verdict: recorded programs' temp+argument "
+        "bytes vs the card's capacity (over=True warns before an "
+        "out-of-memory error; ratio keys absent off the card)",
+    ),
+    "device.hbm_used": (
+        "gauge",
+        "the card allocator's bytes in use (memory_stats "
+        "allocated_bytes.all.current), polled at the fences the loops "
+        "already pay",
+    ),
+    "device.hbm_peak": (
+        "gauge",
+        "the card allocator's peak bytes (allocated_bytes.all.peak: "
+        "torch.cuda.max_memory_allocated)",
+    ),
+    "device.hbm_limit": (
+        "gauge",
+        "the card's capacity in bytes (torch.cuda.mem_get_info's total)",
+    ),
+    "prof.capture": (
+        "event",
+        "one anomaly-triggered bounded torch.profiler capture committed "
+        "(reason=step_time|itl|slo_ttft|slo_itl|nonfinite, trace dir, "
+        "device-memory snapshot path, governor counters): "
+        "obs/profcap.py",
     ),
     "obs.export": (
         "event",

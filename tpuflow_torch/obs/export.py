@@ -4,10 +4,11 @@
 One daemon-threaded HTTP server serves the process's live goodput ledger
 (``obs/goodput.py::live()``): step and token rates, rolling MFU, goodput
 so far and, on a serving replica, the engine's ``serve_*`` view, whose
-keys a fleet observatory of either package reads. ``/status`` adds the
-process id and the replica identity. ``/alerts`` answers 404: the alert
-engine comes with ROADMAP item 15 (the JAX server does the same without
-one).
+keys a fleet observatory of either package reads; the training legs
+(``train_gpt(http_port=)``) feed it through ``train/step.py::StepClock``.
+``/status`` adds the process id and the replica identity. ``/alerts``
+answers 404: the alert engine comes with ROADMAP item 15c (the JAX server
+does the same without one).
 
 The JAX package starts the server from ``TPUFLOW_OBS_HTTP_PORT`` and
 ``TPUFLOW_OBS_HTTP_HOST`` and registers the replica in
@@ -263,6 +264,11 @@ def start_export(
     print(
         f"[tpuflow] obs export serving /metrics + /status on {_SERVER.url}"
     )
+    return _SERVER
+
+
+def server() -> "MetricsServer | None":
+    """This process's export server, or None when none is serving."""
     return _SERVER
 
 

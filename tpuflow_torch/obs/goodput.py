@@ -1,20 +1,34 @@
-"""The live, in-process goodput ledger (counterpart of the
-``ProcessLedger`` half of ``tpuflow/obs/goodput.py``).
+"""Goodput: where did the run's wall-clock go? (counterpart of
+``tpuflow/obs/goodput.py``).
 
-``ProcessLedger`` / ``live()``: the incremental per-process view the live
-export endpoint (``obs/export.py``) serves: cumulative productive seconds,
-rolling step and token rates, rolling MFU from the model's FLOP estimate,
-goodput so far, the device-memory notes, and the serving engine's view
-(queue, slots, pages, TTFT/ITL percentiles and mergeable histograms, the
-engine-time ledger's fractions, SLO counts, the drain flag and the
-replica's ``/generate`` URL). Its snapshot carries the JAX ledger's keys
-and values for the same note sequence, so a fleet observatory of either
-package reads a port replica as it reads a JAX one.
+- ``compute_goodput(events)``: the authoritative, event-derived ledger of
+  a run. Wall time (first event to last) is decomposed into labeled
+  buckets by an interval sweep: every instant is charged to exactly one
+  bucket, so the buckets sum to the measured wall by construction
+  (residual time lands in ``other``, never vanishes). Bucket semantics,
+  highest sweep priority first: ``requeue_gap`` (between one launch
+  attempt's last event and the next's first; attempts are the recorder's
+  ``launch`` field), ``resize`` (``flow.gang_resize`` spans),
+  ``compile`` (``train.compile``: the cold first step, kernel builds and
+  allocator warm-up), ``restore`` (``ckpt.restore``), ``data_wait``
+  (``data.host_wait_s`` / ``data.batch_wait_s``, carved out of the step
+  containing them), ``replay`` (steps re-run after a
+  ``health.rollback``), ``step`` (``train.step_s`` fences: the productive
+  bucket), ``ckpt`` (the exposed part of ``ckpt.save`` /
+  ``ckpt.upload``), ``other``.
 
-The run-level ``compute_goodput`` (the buckets of a run's merged event
-stream) and the training loops' ``note_step`` / ``note_compile`` calls
-come with the run observatory (ROADMAP item 15); the methods exist now,
-and only the serving engine feeds this ledger.
+- ``ProcessLedger`` / ``live()``: the incremental per-process view the
+  live export endpoint (``obs/export.py``) serves, fed by the training
+  loops' ``StepClock`` (``train/step.py``: ``note_step`` /
+  ``note_compile`` at the fences they already pay) and the serving
+  engine: cumulative productive seconds, rolling step and token rates,
+  rolling MFU from the model's FLOP estimate against the card's peak,
+  goodput so far, the device-memory notes, and the serving engine's view
+  (queue, slots, pages, TTFT/ITL percentiles and mergeable histograms,
+  the engine-time ledger's fractions, SLO counts, the drain flag and the
+  replica's ``/generate`` URL). Its snapshot carries the JAX ledger's
+  keys and values for the same note sequence, so a fleet observatory of
+  either package reads a port replica as it reads a JAX one.
 """
 
 from __future__ import annotations
@@ -22,7 +36,7 @@ from __future__ import annotations
 import collections
 import importlib
 import time
-from typing import Any
+from typing import Any, Iterable
 
 from tpuflow_torch.obs import fleet as _fleet
 from tpuflow_torch.obs.serve_ledger import pctl as _pctl
@@ -30,6 +44,161 @@ from tpuflow_torch.obs.serve_ledger import pctl as _pctl
 # The recorder submodule, not the package's ``recorder()`` accessor that
 # shadows it once ``tpuflow_torch.obs`` is initialised.
 _rec = importlib.import_module("tpuflow_torch.obs.recorder")
+
+# Sweep priority, highest first: when labeled intervals overlap, each
+# instant of wall time is charged to the highest-priority label covering
+# it, so a data wait inside a step fence reduces the step bucket, while
+# an async checkpoint save hiding under compute charges nothing.
+_PRIORITY = (
+    "requeue_gap",
+    "resize",
+    "compile",
+    "restore",
+    "data_wait",
+    "replay",
+    "step",
+    "ckpt",
+)
+BUCKETS: tuple[str, ...] = _PRIORITY + ("other",)
+
+
+def _nonneg(ev: dict, key: str) -> float:
+    try:
+        return max(float(ev.get(key, 0.0) or 0.0), 0.0)
+    except (TypeError, ValueError):
+        return 0.0
+
+
+def compute_goodput(events: Iterable[dict]) -> dict[str, Any]:
+    """Fold a (merged) event stream into the per-run goodput ledger::
+
+        {"wall_s": float,          # first event -> last event
+         "fraction": float,        # buckets["step"] / wall_s
+         "buckets": {bucket: seconds, ...},   # sums exactly to wall_s
+         "attempts": [{"attempt", "start_s", "dur_s", "procs"}, ...],
+         "steps_timed": int}
+
+    Tolerant of partial streams (a still-running or crashed run): an
+    event without a usable timestamp is skipped, unknown names are
+    ignored, and an empty stream yields an all-zero ledger."""
+    evs = sorted(
+        (e for e in events if isinstance(e.get("ts"), (int, float))),
+        key=lambda e: (e.get("ts", 0.0), e.get("proc", 0)),
+    )
+    intervals: list[tuple[float, float, str]] = []
+    pending_replay: dict[int, int] = {}
+    lanes: dict[int, list] = {}  # attempt -> [start, end, procs]
+    steps_timed = 0
+    t_lo: float | None = None
+    t_hi: float | None = None
+    spans = {"flow.gang_resize": "resize", "train.compile": "compile",
+             "ckpt.restore": "restore", "ckpt.save": "ckpt",
+             "ckpt.upload": "ckpt"}
+
+    for ev in evs:
+        ts = float(ev["ts"])
+        kind = ev.get("kind")
+        name = ev.get("name")
+        try:
+            proc = int(ev.get("proc", 0) or 0)
+        except (TypeError, ValueError):
+            proc = 0
+        end = ts + _nonneg(ev, "dur_s")
+        t_lo = ts if t_lo is None else min(t_lo, ts)
+        t_hi = end if t_hi is None else max(t_hi, end)
+
+        launch = ev.get("launch")
+        if launch is not None:
+            try:
+                a = int(launch)
+            except (TypeError, ValueError):
+                a = None
+            if a is not None:
+                lane = lanes.setdefault(a, [ts, end, set()])
+                lane[0] = min(lane[0], ts)
+                lane[1] = max(lane[1], end)
+                lane[2].add(proc)
+
+        if kind == "histogram" and name == "train.step_s":
+            v = _nonneg(ev, "value")
+            label = "step"
+            if pending_replay.get(proc, 0) > 0:
+                pending_replay[proc] -= 1
+                label = "replay"
+            # Recorded at the fence: the interval it measures ends there.
+            intervals.append((ts - v, ts, label))
+            t_lo = min(t_lo, ts - v)
+            steps_timed += 1
+        elif kind == "span" and name in spans:
+            intervals.append((ts, end, spans[name]))
+        elif (name in ("data.host_wait_s", "data.batch_wait_s")
+              and kind in ("gauge", "histogram")):
+            v = _nonneg(ev, "value")
+            if v > 0.0:
+                intervals.append((ts - v, ts, "data_wait"))
+                t_lo = min(t_lo, ts - v)
+        elif kind == "event" and name == "health.rollback":
+            try:
+                replayed = (int(ev.get("from_step", 0) or 0)
+                            - int(ev.get("step", 0) or 0))
+            except (TypeError, ValueError):
+                replayed = 0
+            if replayed > 0:
+                pending_replay[proc] = pending_replay.get(proc, 0) + replayed
+
+    if t_lo is None or t_hi is None or t_hi <= t_lo:
+        return {"wall_s": 0.0, "fraction": 0.0,
+                "buckets": {b: 0.0 for b in BUCKETS}, "attempts": [],
+                "steps_timed": 0}
+
+    # Inter-attempt requeue gaps: uncovered wall between one attempt
+    # lane's envelope end and the next lane's start.
+    ordered = sorted(lanes.items(), key=lambda kv: kv[1][0])
+    attempts_out = [
+        {"attempt": a, "start_s": round(lane[0] - t_lo, 6),
+         "dur_s": round(lane[1] - lane[0], 6), "procs": sorted(lane[2])}
+        for a, lane in ordered
+    ]
+    for (_a0, l0), (_a1, l1) in zip(ordered, ordered[1:]):
+        if l1[0] > l0[1]:
+            intervals.append((l0[1], l1[0], "requeue_gap"))
+
+    # Priority sweep: charge each elementary segment of [t_lo, t_hi] to
+    # the highest-priority label active over it; uncovered time -> other.
+    marks: list[tuple[float, int, str]] = []
+    for s, e, label in intervals:
+        s, e = max(s, t_lo), min(e, t_hi)
+        if e > s:
+            marks.append((s, 0, label))
+            marks.append((e, 1, label))
+    marks.sort(key=lambda m: (m[0], m[1]))
+    buckets = {b: 0.0 for b in BUCKETS}
+    active = {label: 0 for label in _PRIORITY}
+    prev = t_lo
+    for t, closing, label in marks:
+        seg = t - prev
+        if seg > 0:
+            for b in _PRIORITY:
+                if active[b] > 0:
+                    buckets[b] += seg
+                    break
+            else:
+                buckets["other"] += seg
+            prev = t
+        active[label] += -1 if closing else 1
+    if t_hi > prev:
+        # No mark is open past the last close: the residual is other.
+        buckets["other"] += t_hi - prev
+
+    wall = t_hi - t_lo
+    return {
+        "wall_s": wall,
+        "fraction": buckets["step"] / wall if wall > 0 else 0.0,
+        "buckets": buckets,
+        "attempts": attempts_out,
+        "steps_timed": steps_timed,
+    }
+
 
 # Dense bf16 peak FLOP/s per card for the rolling-MFU gauge, matched in
 # order against ``torch.cuda.get_device_name(0)`` (lower-cased). A card
@@ -79,7 +248,7 @@ def _device_count() -> int:
 class ProcessLedger:
     """Incremental per-process goodput accounting, fed at fences a loop
     already pays (the serving engine's scheduler iterations; the training
-    loops' step fences with ROADMAP item 15). The live export endpoint
+    loops' ``StepClock`` fences). The live export endpoint
     serves ``snapshot()``; it exists so ``/metrics`` can answer mid-run
     without re-reading any file. Its TTFT/ITL histograms use
     ``fleet.DEFAULT_HIST_EDGES``, the JAX package's default edges, so a

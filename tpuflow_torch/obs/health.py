@@ -244,7 +244,7 @@ class ProfileWindow:
         self.out_dir = out_dir
         self.cuda = cuda
         self.path: str | None = None
-        self._prof = None
+        self._tracer = None
         self._active = False
         self._done = False
 
@@ -276,14 +276,10 @@ class ProfileWindow:
         if self._active or self._done or step < self.start:
             return
         try:
-            from torch.profiler import ProfilerActivity, profile
+            from tpuflow_torch.obs.profcap import TorchTracer
 
-            acts = [ProfilerActivity.CPU]
-            if self.cuda:
-                acts.append(ProfilerActivity.CUDA)
-            os.makedirs(self.out_dir, exist_ok=True)
-            self._prof = profile(activities=acts)
-            self._prof.start()
+            self._tracer = TorchTracer(cuda=self.cuda)
+            self._tracer.start(self.out_dir)
             self._active = True
         except Exception as e:
             self._done = True
@@ -296,14 +292,12 @@ class ProfileWindow:
         self._active = False
         self._done = True
         try:
-            self._prof.stop()
-            self.path = os.path.join(
-                self.out_dir,
+            self._tracer.stop(
                 f"trace_steps{self.start}-{self.stop}.pid{os.getpid()}.json")
-            self._prof.export_chrome_trace(self.path)
+            self.path = self._tracer.trace_path
         except Exception as e:
             print(f"[tpuflow_torch] profiler stop failed (ignored): {e!r}")
-        self._prof = None
+        self._tracer = None
         obs.event("health.profile", start_step=self.start,
                   stop_step=self.stop, dir=self.out_dir)
 

@@ -121,6 +121,10 @@ class Recorder:
         self._ring: collections.deque = collections.deque(
             maxlen=max(0, int(flight_ring)))
         self._lock = threading.Lock()
+        # Held from taking a batch until it is on disk: one drain at a
+        # time, so ``flush()`` waits for a batch the flush thread holds
+        # and batches reach the file in the order they were taken.
+        self._write_lock = threading.Lock()
         self._closed = False
         self._flush_interval = flush_interval
         self._wake = threading.Event()
@@ -167,19 +171,22 @@ class Recorder:
 
     # ------------------------------------------------------------- flush
     def _drain(self) -> None:
-        with self._lock:
-            buf, self._buf = self._buf, []
-        if not buf:
-            return
-        lines = "".join(json.dumps(ev, default=_jsonable) + "\n"
-                        for ev in buf)
-        try:
-            with open(self.path, "a") as f:
-                f.write(lines)
-        except OSError:
-            # Telemetry never fails the run; the batch is counted lost.
+        """Write every buffered event. Returns once each batch taken
+        before the call is on disk, the flush thread's included."""
+        with self._write_lock:
             with self._lock:
-                self.dropped += len(buf)
+                buf, self._buf = self._buf, []
+            if not buf:
+                return
+            lines = "".join(json.dumps(ev, default=_jsonable) + "\n"
+                            for ev in buf)
+            try:
+                with open(self.path, "a") as f:
+                    f.write(lines)
+            except OSError:
+                # Telemetry never fails the run; the batch is counted lost.
+                with self._lock:
+                    self.dropped += len(buf)
 
     def _flush_loop(self) -> None:
         while not self._closed:
@@ -198,14 +205,16 @@ class Recorder:
         self._drain()
         if self.dropped:
             # Written directly (the buffer is closed), best-effort.
-            try:
-                with open(self.path, "a") as f:
-                    f.write(json.dumps({
-                        "kind": "event", "name": "obs.dropped",
-                        "ts": time.time(), "proc": self.proc,
-                        "pid": os.getpid(), "value": self.dropped}) + "\n")
-            except OSError:
-                pass
+            with self._write_lock:
+                try:
+                    with open(self.path, "a") as f:
+                        f.write(json.dumps({
+                            "kind": "event", "name": "obs.dropped",
+                            "ts": time.time(), "proc": self.proc,
+                            "pid": os.getpid(),
+                            "value": self.dropped}) + "\n")
+                except OSError:
+                    pass
         self._thread.join(timeout=2)
 
 

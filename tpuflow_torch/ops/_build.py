@@ -73,6 +73,9 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# The seconds this process spent in nvcc for each library it built (the
+# device observatory's ``kernel.<name>`` program entries).
+BUILT: dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -105,17 +108,18 @@ def _start(name: str):
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
-    return proc, tmp, out
+    return proc, tmp, out, time.monotonic()
 
 
 def _finish(name: str, started) -> None:
     if started is None:
         return
-    proc, tmp, out = started
+    proc, tmp, out, t0 = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
     os.replace(tmp, out)  # atomic: a reader never sees a half-written .so
+    BUILT[name] = time.monotonic() - t0
 
 
 def build_all(names=tuple(KERNELS)) -> float:

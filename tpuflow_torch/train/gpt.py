@@ -65,6 +65,23 @@ records the ``health.*`` gauges. The JAX package's ``TPUFLOW_HEALTH*``
 and ``TPUFLOW_PROFILE`` are the arguments ``health`` (a ``HealthConfig``
 or a bool) and ``profile``.
 
+Run and device telemetry (the JAX legs' ``StepClock``): with the obs
+recorder configured each leg records the cold first step as one
+``train.compile`` span, each steady step's wall as ``train.step_s`` and
+its tokens as ``train.tokens``, the ``train.epoch`` and
+``train.validation`` spans, the goodput-so-far and memory gauges
+(``device.hbm_*`` on the card, every ``hbm_poll_s`` seconds), the comm
+attribution gauges at each epoch's end (FSDP leg, on a card of the
+table), and the step's program entry in ``programs.json``
+(``device_ledger``: its first fenced run, FLOP estimate and memory
+marks, with the kernel libraries built; the JAX package's
+``TPUFLOW_DEVICE_LEDGER``). ``http_port`` serves the live ``/metrics`` +
+``/status`` export from process 0 (``TPUFLOW_OBS_HTTP_PORT``), fed with
+the rolling step rate and MFU; ``capture`` arms the anomaly-triggered
+``torch.profiler`` capture (``obs/profcap.py``; ``TPUFLOW_PROF_*``). None
+of it touches a step's numerics: the losses are bit-equal with telemetry
+on and off.
+
 In an elastic gang (the process's ``dist/membership.py`` configured, as
 ``FlowRunner(elastic=True)`` configures its members) the FSDP leg is a
 loop of mesh generations, as the JAX leg's: at every step boundary the
@@ -108,6 +125,8 @@ from tpuflow_torch.data.lm import make_lm_loaders
 from tpuflow_torch.dist import membership
 from tpuflow_torch.device import resolve_device
 from tpuflow_torch.models.gpt2 import GPT2, GPT2Config
+from tpuflow_torch.obs import device as obs_device
+from tpuflow_torch.obs import goodput as obs_goodput
 from tpuflow_torch.obs.health import (
     HealthConfig,
     HealthMonitor,
@@ -115,6 +134,11 @@ from tpuflow_torch.obs.health import (
     TrainingDiverged,
     _RollbackSignal,
     handle_anomaly,
+)
+from tpuflow_torch.obs.profcap import (
+    AnomalyCapturer,
+    CaptureConfig,
+    make_capturer,
 )
 from tpuflow_torch.ops.flash_attention import BWD_MODES
 from tpuflow_torch.parallel import (
@@ -129,7 +153,10 @@ from tpuflow_torch.testing import faults as faults_mod
 from tpuflow_torch.train.optim import make_optimizer, make_schedule
 from tpuflow_torch.train.step import (
     Preempted,
+    StepClock,
     TrainState,
+    comm_attribution,
+    emit_comm_gauges,
     emergency_save_advised,
     make_eval_step,
     make_pipeline_step,
@@ -549,16 +576,47 @@ class _Health:
     the verified target (or ``TrainingDiverged``) when it flags the step;
     ``after`` the step boundary's profile stop; ``recover`` from what
     ``fence`` raised. ``lr_scale``: the product of the rollbacks'
-    backoffs."""
+    backoffs. ``begin`` starts a generation's ``StepClock`` (the
+    telemetry of the module docstring), which ``fence`` feeds: the
+    generation's first step is its cold one."""
 
     def __init__(self, health: HealthConfig | bool,
-                 profile: tuple[int, int] | None, dev):
+                 profile: tuple[int, int] | None, dev, *,
+                 capture: AnomalyCapturer | None = None,
+                 hbm_poll_s: float = obs_device.DEFAULT_POLL_S,
+                 device_ledger: bool = True):
         self.monitor = HealthMonitor.of(health)
         self.profile = ProfileWindow.make(profile, cuda=dev.type == "cuda")
+        self.capture = capture
+        self.hbm_poll_s = hbm_poll_s
+        self.device_ledger = device_ledger
         self.lr_scale = 1.0
         self.steps, self.step_losses, self.step_s = [], [], []
+        self.clock: StepClock | None = None
+        self.cold = True
+
+    def begin(self, state: TrainState, dev, program: str,
+              tokens_per_step: int, stages: int = 1, **compile_attrs) -> None:
+        """A generation's telemetry: its clock, the rolling-MFU feed (6 N
+        FLOPs a token, counted once while feeding) and the cold step's
+        program entry (``program``, FLOPs 6 N x ``tokens_per_step``)."""
+        self.clock = StepClock(capture=self.capture,
+                               hbm_poll_s=self.hbm_poll_s)
+        self.cold = True
+        self.dev = dev
+        self.program = program
+        self.compile_attrs = compile_attrs
+        self.flops_per_step = None
+        self.mark = None
+        self.n_params = None
+        if self.clock.feeding:
+            self.n_params = _n_params(state, stages)
+            obs_goodput.live().set_model_flops_per_token(6.0 * self.n_params)
+            self.flops_per_step = 6.0 * self.n_params * tokens_per_step
 
     def before(self, state: TrainState) -> None:
+        if self.cold and self.clock is not None and self.clock.recording:
+            self.mark = obs_device.allocated_bytes(self.dev)
         step = state.step + 1
         poison = faults_mod.grad_poison(step)
         if poison is not None:
@@ -569,9 +627,11 @@ class _Health:
         if self.profile is not None:
             self.profile.maybe_start(step)
 
-    def fence(self, step: int, metrics: dict, mgr, t0: float) -> float:
-        """Wait for step ``step`` (dispatched at ``t0``, a monotonic time),
-        record and judge it; returns its loss."""
+    def fence(self, step: int, metrics: dict, mgr, t0: float,
+              tokens: int = 0) -> float:
+        """Wait for step ``step`` (dispatched at ``t0``, a monotonic time,
+        ``tokens`` the global batch's), record and judge it; returns its
+        loss."""
         loss, gn, nf, un, pn = torch.stack(
             [metrics[k].detach().float() for k in _FENCE_KEYS]).tolist()
         self.steps.append(step)
@@ -579,13 +639,20 @@ class _Health:
         self.step_s.append(time.monotonic() - t0)
         nonfinite = bool(nf)
         heartbeat.beat(step)
-        if obs.enabled():
-            obs.gauge("health.loss", loss)
-            obs.gauge("health.grad_norm", gn)
-            obs.gauge("health.update_norm", un)
-            obs.gauge("health.param_norm", pn)
-            if nonfinite:
-                obs.counter("health.nonfinite")
+        clock = self.clock
+        if self.cold:
+            # The cold step's tokens stay out of the rates.
+            self.cold = False
+            run_s = clock.compile_done(**self.compile_attrs)
+            if run_s is not None:
+                obs_device.note_program(
+                    self.program, run_s=run_s, flops=self.flops_per_step,
+                    argument_bytes=self.mark, device=self.dev,
+                    ledger=self.device_ledger)
+        else:
+            clock.step_done(tokens=tokens, step=step)
+        clock.health_done(loss=loss, grad_norm=gn, update_norm=un,
+                          param_norm=pn, nonfinite=nonfinite)
         if self.monitor is not None:
             anomaly = self.monitor.observe(step, loss, gn,
                                            nonfinite=nonfinite)
@@ -606,6 +673,8 @@ class _Health:
     def close(self) -> None:
         if self.profile is not None:
             self.profile.close()
+        if self.capture is not None:
+            self.capture.close()
 
     def recover(self, exc: Exception, cfg: GptTrainConfig,
                 state: TrainState, mgr, scan: bool, seed: int,
@@ -646,6 +715,24 @@ class _Health:
         return cursor
 
 
+def _n_params(state: TrainState, stages: int = 1) -> int:
+    """The whole model's parameter count: the plan's global shapes of a
+    sharded state (a pipeline stage holds its blocks, ``h.*``, of
+    ``stages``), else the module's own."""
+    if state.plan is None:
+        return sum(p.numel() for p in state.model.parameters())
+    return sum(math.prod(shape) * (stages if name.startswith("h.") else 1)
+               for name, shape in state.plan.shapes.items())
+
+
+def _fsdp_world(mesh) -> int:
+    """The processes a step's gradients reduce over (``data`` x ``fsdp``,
+    the JAX leg's rule for its comm roofline)."""
+    if mesh is None:
+        return 1
+    return math.prod(int(mesh.shape.get(ax, 1)) for ax in ("fsdp", "data"))
+
+
 def full_model(state: TrainState):
     """The whole model of a sharded state, on process 0 (a plain ``GPT2``
     with the weights gathered over the FSDP, tensor and expert groups;
@@ -679,6 +766,11 @@ def train_gpt(
     faults: str | None = None,
     preempt_grace_s: float | None = None,
     ckpt_local_dir: str | None = None,
+    capture: CaptureConfig | AnomalyCapturer | bool | None = None,
+    hbm_poll_s: float = obs_device.DEFAULT_POLL_S,
+    device_ledger: bool = True,
+    http_port: int | None = None,
+    http_host: str = "127.0.0.1",
 ) -> GptTrainResult:
     """Run the configured GPT training leg end to end on this process's
     device (``cuda`` unless ``device`` says otherwise; ``cuda:<i>`` puts
@@ -720,21 +812,31 @@ def train_gpt(
     ``TPUFLOW_COMM_OVERLAP``, on by default), else once after the last.
     ``ckpt_format``: the saves' format, ``raw`` (crosses into the JAX
     package) or ``dcp`` (``torch.distributed.checkpoint``; the JAX
-    package's ``TPUFLOW_CKPT_FORMAT=orbax``); a resume reads either."""
+    package's ``TPUFLOW_CKPT_FORMAT=orbax``); a resume reads either.
+    ``capture``, ``hbm_poll_s``, ``device_ledger``, ``http_port`` and
+    ``http_host``: the run and device telemetry of the module docstring
+    (``capture``: a ``CaptureConfig``, True for its defaults, or a built
+    ``AnomalyCapturer``; None: no capture)."""
     cfg.validate()
     _check_supported(cfg, ckpt_dir, elastic)
     rank = (membership.member_id() if membership.enabled()
             else dist.process_index())
+    if http_port is not None:
+        obs.start_export(http_port, host=http_host,
+                         proc=dist.process_index())
+    hl_kw = dict(capture=make_capturer(capture), hbm_poll_s=hbm_poll_s,
+                 device_ledger=device_ledger)
     with faults_mod.installing(faults, rank=rank):
         return _train_gpt(cfg, ckpt_dir, resume_checkpoint, log, device,
                           flash_bwd, comm_overlap, ckpt_format,
-                          preempt_grace_s, ckpt_local_dir, health, profile)
+                          preempt_grace_s, ckpt_local_dir, health, profile,
+                          hl_kw)
 
 
 def _train_gpt(cfg: GptTrainConfig, ckpt_dir, resume_checkpoint, log,
                device, flash_bwd: str, comm_overlap: bool, ckpt_format: str,
                grace_s: float | None, local_dir: str | None,
-               health: HealthConfig | bool, profile
+               health: HealthConfig | bool, profile, hl_kw: dict
                ) -> GptTrainResult:
     """``train_gpt``'s body, under its fault plan."""
     if flash_bwd not in BWD_MODES:
@@ -742,7 +844,7 @@ def _train_gpt(cfg: GptTrainConfig, ckpt_dir, resume_checkpoint, log,
                          f"{'|'.join(BWD_MODES)}")
     model_cfg = dataclasses.replace(cfg.model_config(), flash_bwd=flash_bwd)
     dev = resolve_device(device)
-    hl = _Health(health, profile, dev)
+    hl = _Health(health, profile, dev, **hl_kw)
     try:
         if cfg.stage_axis > 1:
             if cfg.fsdp_axis > 1:
@@ -882,7 +984,12 @@ def _run_fsdp_generation(cfg: GptTrainConfig, model_cfg: GPT2Config, dev,
             + (f" (replaying from batch {skip})" if skip else ""))
     # An earlier generation's steps past the resumed one are replayed.
     hl.cut(state.step)
-    cold = True
+    per_step_tokens = cfg.batch_size * cfg.seq_len
+    hl.begin(state, dev, "train.step", per_step_tokens, preset=cfg.preset)
+    overlap = comm_overlap and cfg.accum_steps > 1
+    obs.gauge("train.dispatch_depth", 1.0)
+    obs.event("train.remat_policy", policy=active_remat_policy(model_cfg),
+              comm_overlap=bool(overlap), accum_steps=cfg.accum_steps)
     while True:
         try:
             for epoch in range(start_epoch, cfg.epochs):
@@ -892,22 +999,26 @@ def _run_fsdp_generation(cfg: GptTrainConfig, model_cfg: GPT2Config, dev,
                     loader.skip_batches(skip)
                     skip = 0
                 t_epoch = time.monotonic()
+                ts_epoch = time.time()
                 losses, n_tokens = [], 0
+                hl.clock.reset()
                 for batch in loader:
                     hl.before(state)
+                    cold = hl.cold
                     t0 = time.monotonic()
                     state, metrics = train_step(state, batch, rng)
-                    losses.append(hl.fence(state.step, metrics, mgr, t0))
+                    # The global batch's tokens (every process loads it).
+                    tokens = int(batch["y"].size)
+                    losses.append(hl.fence(state.step, metrics, mgr, t0,
+                                           tokens))
                     if cold:
                         # The first step pays the kernel builds and
                         # allocator warm-up: its tokens stay out of the
                         # rate.
-                        cold = False
                         t_epoch = time.monotonic()
+                        ts_epoch = time.time()
                     else:
-                        # The global batch's tokens (every process loads
-                        # it).
-                        n_tokens += int(batch["y"].size)
+                        n_tokens += tokens
                     cursor += 1
                     hl.after(state.step)
                     _step_boundary(
@@ -923,7 +1034,22 @@ def _run_fsdp_generation(cfg: GptTrainConfig, model_cfg: GPT2Config, dev,
                 tok_s = n_tokens / max(epoch_s, 1e-9) if n_tokens else None
                 epoch_loss = sum(losses) / len(losses)
                 history.append(epoch_loss)
-                val_loss = run_validation(state, val_loader, eval_step)
+                rec = obs.recorder()
+                if rec is not None:
+                    rec.record("span", "train.epoch", ts=ts_epoch,
+                               dur_s=epoch_s, epoch=epoch, loss=epoch_loss,
+                               tokens_per_s=round(tok_s, 1) if tok_s else None)
+                hl.clock.goodput_mark()
+                if n_tokens and hl.n_params:
+                    # The epoch's mean step against the compute and comm
+                    # rooflines (gauges only on a card of the tables).
+                    emit_comm_gauges(comm_attribution(
+                        epoch_s / max(n_tokens // per_step_tokens, 1),
+                        tokens=per_step_tokens, n_params=hl.n_params,
+                        accum_steps=cfg.accum_steps,
+                        fsdp_world=_fsdp_world(mesh), overlapped=overlap))
+                with obs.span("train.validation", epoch=epoch):
+                    val_loss = run_validation(state, val_loader, eval_step)
                 ppl = math.exp(min(val_loss, 30.0))
                 epoch_records.append({
                     "epoch": epoch,
@@ -1049,6 +1175,12 @@ def _train_pipeline(cfg: GptTrainConfig, model_cfg: GPT2Config, dev,
         log(f"[gpt] pipeline in-run resume from step {state.step} → epoch "
             f"{start_epoch}"
             + (f" (replaying from batch {skip})" if skip else ""))
+    hl.begin(state, dev, "train.pp_step", cfg.batch_size * cfg.seq_len,
+             stages=cfg.stage_axis, mode="pipeline")
+    obs.gauge("train.dispatch_depth", 1.0)
+    # The pipeline schedule microbatches itself.
+    obs.event("train.remat_policy", policy=active_remat_policy(model_cfg),
+              comm_overlap=False, accum_steps=1)
     while True:
         try:
             for epoch in range(start_epoch, cfg.epochs):
@@ -1058,11 +1190,13 @@ def _train_pipeline(cfg: GptTrainConfig, model_cfg: GPT2Config, dev,
                     loader.skip_batches(skip)
                     skip = 0
                 losses = []
+                hl.clock.reset()
                 for batch in loader:
                     hl.before(state)
                     t0 = time.monotonic()
                     state, metrics = train_step(state, batch)
-                    losses.append(hl.fence(state.step, metrics, mgr, t0))
+                    losses.append(hl.fence(state.step, metrics, mgr, t0,
+                                           int(batch["y"].size)))
                     cursor += 1
                     hl.after(state.step)
                     _step_boundary(
@@ -1076,6 +1210,7 @@ def _train_pipeline(cfg: GptTrainConfig, model_cfg: GPT2Config, dev,
                             loader.state_dict(cursor), pipeline=True)
                 epoch_loss = sum(losses) / len(losses)
                 history.append(epoch_loss)
+                hl.clock.goodput_mark()
                 log(f"[gpt] pipeline epoch {epoch}: loss={epoch_loss:.4f}")
                 if mgr is not None:
                     mgr.save(state.step,

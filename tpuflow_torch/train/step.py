@@ -66,20 +66,27 @@ gradients summed over the processes that hold each parameter
 (``pipeline_gradients``).
 
 Also here: ``create_train_state`` (an ``nn.Module`` with SGD at momentum
-0.9, the MLP recipe) and ``DispatchWindow`` (the host-side bookkeeping of
-steps in flight).
+0.9, the MLP recipe), ``DispatchWindow`` (the host-side bookkeeping of
+steps in flight), ``StepClock`` (the loops' per-step telemetry: the
+``train.compile`` span of the cold first step, a ``train.step_s``
+observation and ``train.tokens`` a steady step, the ``health.*`` gauges,
+the live goodput ledger, the memory gauges and the anomaly capturer's
+observations) and ``comm_attribution`` / ``emit_comm_gauges`` (a step's
+wall split into compute at the card's peak and exposed communication).
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 from typing import Callable
 
 import numpy as np
 import torch
 import torch.distributed as tdist
 
+from tpuflow_torch import obs
 from tpuflow_torch.dist.mesh import (
     average_gradients,
     data_axis_size,
@@ -88,6 +95,8 @@ from tpuflow_torch.dist.mesh import (
     world_sum,
 )
 from tpuflow_torch.models.gpt2 import fold_in
+from tpuflow_torch.obs import device as _device
+from tpuflow_torch.obs import goodput as _goodput
 from tpuflow_torch.models.losses import (
     accuracy,
     cross_entropy_loss,
@@ -525,3 +534,218 @@ def run_validation(state, loader, eval_step) -> float:
                          device=state.params[0].device),
             state.mesh).tolist()
     return tot / max(cnt, 1.0)
+
+
+class StepClock:
+    """Per-step wall-time telemetry for a fenced step loop (the JAX
+    ``StepClock``, ``tpuflow/train/step.py:137-278``).
+
+    The port's loops fence every step (the one host copy of its scalars),
+    so monotonic deltas between fences are per-step wall times: the cold
+    first step (kernel builds, cuBLAS and allocator warm-up) becomes one
+    ``train.compile`` span, each steady step a ``train.step_s``
+    observation and a ``train.tokens`` count. The clock also feeds the
+    live goodput ledger (``obs.goodput_live()``: rolling step and token
+    rates, MFU) when the recorder is on or a live export is serving, polls
+    the card's memory gauges (``obs/device.py``) every ``hbm_poll_s``
+    seconds on the 32-step cadence, and hands each step's wall and the
+    nonfinite flag to ``capture`` (an ``obs/profcap.py::AnomalyCapturer``,
+    or None). Disabled (no recorder, no export, no capturer) each method
+    is one attribute check."""
+
+    def __init__(self, *, capture=None,
+                 hbm_poll_s: float = _device.DEFAULT_POLL_S):
+        self._on = obs.enabled()
+        from tpuflow_torch.obs import export as _export
+
+        self._feed = self._on or _export.server() is not None
+        self._cap = capture
+        self.hbm_poll_s = hbm_poll_s
+        track = self._feed or capture is not None
+        self._last = time.monotonic() if track else 0.0
+        self._t0 = self._last
+        self._ts0 = time.time() if self._on else 0.0
+        self._steps = 0
+        if self._feed:
+            # One clock a train leg: /metrics reflects this leg.
+            _goodput.live().reset()
+
+    @property
+    def recording(self) -> bool:
+        """Whether this leg records telemetry (the recorder is on)."""
+        return self._on
+
+    @property
+    def feeding(self) -> bool:
+        """Whether this leg feeds the live goodput ledger."""
+        return self._feed
+
+    def reset(self) -> None:
+        """Restart the clock (an epoch's head)."""
+        if self._feed or self._cap is not None:
+            self._last = time.monotonic()
+
+    def compile_done(self, **attrs) -> float | None:
+        """The cold first step just fenced: record it as ``train.compile``.
+        Returns its wall seconds when recording (the device ledger's entry
+        for the step), else None."""
+        if not (self._feed or self._cap is not None):
+            return None
+        now = time.monotonic()
+        dur = now - self._t0
+        self._last = now
+        if self._feed:
+            _goodput.live().note_compile(dur)
+        if not self._on:
+            return None
+        rec = obs.recorder()
+        if rec is not None:
+            rec.record("span", "train.compile", ts=self._ts0, dur_s=dur,
+                       **attrs)
+        _goodput.emit_gauges()
+        # The first reading after the step's buffers landed.
+        _device.maybe_emit_hbm(force=True, poll_s=self.hbm_poll_s)
+        return dur
+
+    def step_done(self, tokens: int = 0, step: int | None = None) -> None:
+        """A steady step just fenced: record its wall time."""
+        cap = self._cap
+        if not self._feed:
+            if cap is not None:
+                now = time.monotonic()
+                cap.observe_step(now - self._last, step)
+                self._last = now
+            return
+        now = time.monotonic()
+        dur = now - self._last
+        self._last = now
+        if self._on:
+            obs.histogram("train.step_s", dur)
+            if tokens:
+                obs.counter("train.tokens", tokens)
+        _goodput.live().note_step(dur, tokens=tokens, step=step)
+        if cap is not None:
+            # The step-time spike detector; the same call advances a live
+            # capture's bound.
+            cap.observe_step(dur, step)
+        self._steps += 1
+        if self._on and self._steps % 32 == 0:
+            # Goodput-so-far and memory gauges on a cadence, so a run that
+            # dies mid-epoch still carries them.
+            _goodput.emit_gauges()
+            _device.maybe_emit_hbm(poll_s=self.hbm_poll_s)
+
+    def goodput_mark(self) -> None:
+        """Epoch fence: fresh goodput-so-far and memory gauges."""
+        if self._on:
+            _goodput.emit_gauges()
+            _device.maybe_emit_hbm(poll_s=self.hbm_poll_s)
+
+    def health_done(self, *, loss: float, grad_norm: float,
+                    update_norm: float, param_norm: float,
+                    nonfinite: bool) -> None:
+        """Record the fenced step's numerics (four floats the fence has
+        already copied to the host); a nonfinite step arms the capturer."""
+        if nonfinite and self._cap is not None:
+            self._cap.note_nonfinite()
+        if self._on:
+            obs.gauge("health.loss", loss)
+            obs.gauge("health.grad_norm", grad_norm)
+            obs.gauge("health.update_norm", update_norm)
+            obs.gauge("health.param_norm", param_norm)
+            if nonfinite:
+                obs.counter("health.nonfinite")
+        if self._feed:
+            _goodput.live().note_health(loss, grad_norm, nonfinite)
+
+
+# ---------------------------------------------- comm/compute attribution
+# Per-card NVLink bandwidth (GB/s, both directions summed), matched in
+# order against the lower-cased ``torch.cuda.get_device_name(0)``, from
+# NVIDIA's datasheets: H100 SXM5 900 GB/s; H100 NVL and H100 PCIe with
+# its NVLink bridge 600 GB/s; A100 SXM 600 GB/s. The denominator of an
+# attribution model, not a measurement.
+_LINK_GBPS = (
+    ("h100 pcie", 600.0),
+    ("h100 nvl", 600.0),
+    ("h100", 900.0),
+    ("a100", 600.0),
+)
+
+
+def _link_gbps() -> float | None:
+    """The local card's NVLink GB/s from ``_LINK_GBPS``; None off the
+    card or for a card off the table."""
+    try:
+        import torch
+
+        if not torch.cuda.is_available():
+            return None
+        name = torch.cuda.get_device_name(0).lower()
+    except Exception:
+        return None
+    return next((v for k, v in _LINK_GBPS if k in name), None)
+
+
+def _world() -> int:
+    return tdist.get_world_size() if tdist.is_initialized() else 1
+
+
+def comm_attribution(step_s: float, *, tokens: int, n_params: int,
+                     accum_steps: int = 1, fsdp_world: int = 1,
+                     overlapped: bool = True,
+                     peak_flops: float | None = None,
+                     link_gbps: float | None = None,
+                     devices: int | None = None) -> dict | None:
+    """A roofline attribution of one step's wall into compute and exposed
+    communication (the JAX function's model, stated as bounds, not a
+    device measurement):
+
+    - ``ideal_compute_s`` = 6 N FLOPs a token x tokens / (the card's bf16
+      peak x ``devices``, default the world's process count);
+    - ``exposed_comm_s`` = max(0, step_s - ideal_compute_s): an UPPER
+      bound on exposed communication (memory stalls charge here too);
+    - ``ideal_comm_s``: the FSDP step's collective volume over the
+      interconnect: two parameter all-gathers a microbatch and a gradient
+      reduce-scatter a microbatch when ``overlapped`` (once a step when
+      not), each 4 bytes x N x (w - 1) / w a device;
+    - ``comm_overlap_s`` = max(0, ideal_comm_s - exposed_comm_s): a LOWER
+      bound on the communication hidden behind compute.
+
+    ``peak_flops`` defaults to ``obs/goodput.py``'s table and
+    ``link_gbps`` to ``_LINK_GBPS`` (both by the card's name). Returns
+    None without a peak (on the CPU, or a card off the table): an
+    invented attribution would be noise. At ``fsdp_world`` <= 1 or
+    without a link figure the comm terms are 0."""
+    if peak_flops is None:
+        peak_flops = _goodput._peak_flops_per_device()
+    if peak_flops is None or step_s <= 0.0 or n_params <= 0:
+        return None
+    ndev = max(int(devices if devices is not None else _world()), 1)
+    ideal_compute_s = 6.0 * n_params * tokens / (peak_flops * ndev)
+    exposed = max(0.0, step_s - ideal_compute_s)
+    ideal_comm_s = 0.0
+    link = link_gbps if link_gbps is not None else _link_gbps()
+    if fsdp_world > 1 and link:
+        bytes_per_pass = 4.0 * n_params * (fsdp_world - 1) / fsdp_world
+        ag_passes = 2 * max(accum_steps, 1)
+        rs_passes = max(accum_steps, 1) if overlapped else 1
+        ideal_comm_s = (ag_passes + rs_passes) * bytes_per_pass / (
+            link * 1e9)
+    return {
+        "ideal_compute_s": ideal_compute_s,
+        "ideal_comm_s": ideal_comm_s,
+        "exposed_comm_s": exposed,
+        "comm_overlap_s": max(0.0, ideal_comm_s - exposed),
+        "overlapped": bool(overlapped),
+    }
+
+
+def emit_comm_gauges(att: dict | None) -> None:
+    """Publish a step's attribution as the ``train.exposed_comm_s`` and
+    ``train.comm_overlap_s`` gauges (nothing without one or with the
+    recorder off)."""
+    if att is None or not obs.enabled():
+        return
+    obs.gauge("train.exposed_comm_s", round(att["exposed_comm_s"], 6))
+    obs.gauge("train.comm_overlap_s", round(att["comm_overlap_s"], 6))

@@ -40,7 +40,9 @@ far carry over, and a ``num_workers`` set for the first world is clamped
 to the new one. From generation 1 on every save commits before
 ``report`` returns.
 
-Left out, with its ROADMAP Queue 1 item: goodput (item 15).
+Custom loops have no ``StepClock``: each report feeds the live goodput
+ledger (``obs.goodput_live()``: the step number and the last loss, the
+rates derived from the report fences) that a live export serves.
 """
 
 from __future__ import annotations
@@ -104,7 +106,10 @@ class RunConfig:
     ``faults``: a fault plan (``testing/faults.py``) installed for the
     run as this process's rank (None: the process's own, if any).
     ``health``: the policy ``report`` judges the metrics by
-    (``obs/health.py``; True the defaults, False no monitor)."""
+    (``obs/health.py``; True the defaults, False no monitor).
+    ``http_port`` / ``http_host``: the live ``/metrics`` + ``/status``
+    export ``fit`` starts on process 0 (the JAX package's
+    ``TPUFLOW_OBS_HTTP_PORT`` / ``_HOST``; None: no export)."""
 
     storage_path: str | None = None
     checkpoint_config: CheckpointConfig = dataclasses.field(
@@ -113,6 +118,8 @@ class RunConfig:
     ckpt_local_dir: str | None = None
     faults: str | None = None
     health: HealthConfig | bool = True
+    http_port: int | None = None
+    http_host: str = "127.0.0.1"
 
 
 @dataclasses.dataclass
@@ -227,6 +234,11 @@ class TrainContext:
         obs.event("train.report", step=save_step,
                   **{k: v for k, v in metrics.items()
                      if isinstance(v, (int, float))})
+        obs.goodput_live().note_report(
+            save_step, loss=next((metrics[k] for k in ("loss", "train_loss",
+                                                       "val_loss")
+                                  if isinstance(metrics.get(k), (int, float))),
+                                 None))
         if self._health is not None:
             loss = next((metrics[k] for k in ("loss", "train_loss",
                                               "val_loss")
@@ -356,6 +368,13 @@ class Trainer:
         module docstring: an elastic gang re-enters it after each
         re-form)."""
         global _ACTIVE_CONTEXT
+        # The live goodput ledger restarts for this fit; the reports feed
+        # it, and process 0 serves it when an export port is configured.
+        obs.goodput_live().reset()
+        if self.run_config.http_port is not None:
+            obs.start_export(self.run_config.http_port,
+                             host=self.run_config.http_host,
+                             proc=dist.process_index())
         start = time.monotonic()
         carry: list[dict[str, Any]] = []
         reforms = 0
