@@ -57,7 +57,20 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    import); ``/metrics`` carries ``tpuflow_hbm_used_bytes`` > 0 and the
    engine's program ledger holds its prefill, decode and insert
    signatures' first runs. The SIGTERM handler and the preemption flag
-   are put back.
+   are put back. The decision observatory on the same loop: the engine
+   declares a 1 ms TTFT SLO every request misses, the recorder writes
+   under ``build/replica``, and ``serve_forever(registry_path=,
+   alert_engine=)`` serves an ``AlertEngine`` with windows and a cooldown
+   fit to the leg. Four ``/alerts`` scrapes while requests flow list the
+   seven rules and show ``slo_burn_rate`` fired exactly once; the leg's
+   events hold its ``alert.fired`` and the timeline card its Alerts
+   section; after the drain the registry holds one ``serve`` record
+   (platform ``gpu``, the checkout's git commit where it has one, the
+   leg's request count, TTFT p50/p95/p99 equal to the final ``/status``
+   buckets'); ``serve-summary``, ``device-summary`` and ``trend`` exit 0
+   in process and ``python -m tpuflow_torch.obs trend`` as a process; a
+   ``watch.follow`` of the export prints its polls and the same rule's
+   FIRED line.
    Then the fleet front (``router_leg``): two ``LocalReplica``s (8 slots,
    pages of 16, one device lock) registered under ``build/``, a fleet
    observatory and poller feeding a ``Router``, a ``FrontDoor`` with
@@ -70,7 +83,9 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    ``generate()``, a rerouted request's assembled trace holds the
    router's queue, two forwards and the survivor's prefill and first
    tick, and the flash launches are 12 a prefill on the flash path,
-   counted per replica; the leg's wall and TTFT p50 through the router.
+   counted per replica; the leg's wall and TTFT p50 through the router;
+   ``python -m tpuflow_torch.obs trace`` (in process) on that request
+   prints ``[REROUTED]`` and both replicas.
 5. Generation slice on the same model (``generation_phase``): beam search
    (K = 1 equal to greedy; K = 4 prefilled once at width B, its scores
    against ``sequence_logprob`` on the flash forward; the fused-native
@@ -169,7 +184,10 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    card, exact no-lse launches). ``TorchGptTrain``'s run has a
    ``timeline.html`` with the train-step lanes, ``Run.goodput()``'s
    fraction in (0, 1] with its buckets summing to its wall, and
-   ``Run.telemetry()``'s headline the one run.json carries. Each flow's
+   ``Run.telemetry()``'s headline the one run.json carries. Both
+   ``TorchTrain`` runs and ``TorchGptTrain`` run with ``--registry``: one
+   ``train`` record each, its goodput fraction the run's live snapshot's;
+   ``compare`` of runs 1 and 2 and ``trend`` over the three exit 0. Each flow's
    wall, the wrapped call's wall and the flow layer's overhead, the GPT
    step ms inside the flow, ``profile.json``'s device and peak bytes.
 10. The image phase: ResNet-18 / CIFAR-10 through the flows
@@ -228,7 +246,8 @@ Phases, each fatal on failure (no phase catches an error and carries on):
    relative; (d) the first step's loss and gradients on one device
    within the step-parity limits of the sharded step's; (e)
    ``TorchGptTrain`` at 124M as a two-member gang on the card (each
-   member's ``heartbeat_<i>`` file holding its last trained step) and
+   member's ``heartbeat_<i>`` file holding its last trained step; with
+   ``--registry``, exactly one ``train`` record, member 0's) and
    ``TorchGptEval`` from it at one process, its flash launches exact.
 13. GPT-2 124M at full width, 3 of its 12 layers (a depth cut for the
    time limit, ``TP_LAYERS``), on the tensor and expert axes
@@ -535,6 +554,16 @@ DISAGG_SUFFIX = (320, 64)   # the shipped base, the suffix it is extended by
 # when the SIGTERM lands (the fp prompts, repeated), and the loop's bound.
 REPLICA_SLOTS = 8
 REPLICA_MAX_S = 120.0
+# Its decision checks: every request misses a 1 ms TTFT SLO (a prefill of
+# 124M takes longer), so the leg's alert engine, its windows and cooldown
+# fit to the leg, fires slo_burn_rate once the first requests complete
+# and holds it to the leg's end; a watch follows the export meanwhile,
+# from before wave 1 (whose requests complete ~3 s in on an H100, 32
+# tokens at ~70-85 ms an ITL) to about the loop's end.
+REPLICA_SLO_TTFT_MS = 1.0
+REPLICA_ALERT = {"fast_window_s": 30.0, "slow_window_s": 120.0,
+                 "cooldown_s": 600.0}
+REPLICA_WATCH_S, REPLICA_WATCH_EVERY = 8.0, 0.25
 # Phase 4's router leg: two replicas behind the front door; the seconds
 # after which a dead replica's row reads stale, and the router's admission
 # queue bound (the drained request's 503 comes after it).
@@ -1497,6 +1526,102 @@ def _metrics_lines(text: str) -> dict:
     return out
 
 
+def _obs_cli(argv: list) -> tuple[int, str]:
+    """``python -m tpuflow_torch.obs`` in this process: (exit code,
+    standard output)."""
+    import io
+
+    from tpuflow_torch.obs.__main__ import main as obs_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = obs_main(list(argv))
+    return rc, buf.getvalue()
+
+
+def _replica_decisions(root: str, reg_path: str, scrapes: list,
+                       status: dict, served: int, watch_text: str,
+                       on_card: bool, smi: str) -> dict:
+    """The replica leg's decision observatory, read after the drain: the
+    ``/alerts`` scrapes (the SLO burn fired once, the seven rules), its
+    ``alert.fired`` event and the timeline card's Alerts section, the one
+    ``serve`` registry record (its platform, git stamp, request count and
+    TTFT percentiles against the final ``/status`` buckets), the operator
+    CLI in process and as ``python -m``, and the watch's lines."""
+    from tpuflow_torch import obs
+    from tpuflow_torch.flow.cards import CardBuffer, timeline_card
+    from tpuflow_torch.obs import alerts, fleet, registry
+
+    rule = "slo_burn_rate"
+    fired = {(a["rule"], a["since"]) for b in scrapes for a in b["active"]}
+    if (len(scrapes) < 3 or len(fired) != 1 or next(iter(fired))[0] != rule
+            or scrapes[0]["active"]
+            or any([r["rule"] for r in b["rules"]]
+                   != [r.name for r in alerts.RULES] for b in scrapes)):
+        raise AssertionError(f"replica /alerts scrapes: {scrapes}")
+    alert = next(a for a in scrapes[-1]["active"] if a["rule"] == rule)
+    watch_fired = [ln for ln in watch_text.splitlines()
+                   if f"ALERT [page] {rule} FIRED:" in ln]
+    polls = [ln for ln in watch_text.splitlines() if " step=" in ln]
+    if len(watch_fired) != 1 or len(polls) < 3 or "deadline reached" not in (
+            watch_text):
+        raise AssertionError(f"the watch's lines:\n{watch_text}")
+    events = obs.load_run_events(root)
+    ev = [e for e in events if e.get("name") == "alert.fired"]
+    # One from the export's engine, one from the watch's.
+    if len(ev) != 2 or {e["rule"] for e in ev} != {rule}:
+        raise AssertionError(f"the leg's alert.fired events: {ev}")
+    buf = CardBuffer()
+    timeline_card(buf, events)
+    html = buf.render_html("replica")
+    if "Alerts</h2>" not in html or f"<td>{rule}</td>" not in html:
+        raise AssertionError("the replica's timeline card lacks its Alerts")
+    recs = registry.read_registry(reg_path)
+    commit = registry.git_stamp()[0]
+    if [r["kind"] for r in recs] != ["serve"]:
+        raise AssertionError(f"the replica's registry: {recs}")
+    rec, m = recs[0], recs[0]["metrics"]
+    pct = fleet.hist_percentiles(status["serve_ttft_hist"])
+    if (rec.get("platform") != ("gpu" if on_card else None)
+            or rec.get("git") != commit or m["serve_requests"] != served
+            or any(m[f"serve_ttft_{q}_s"] != pct[q]
+                   for q in ("p50", "p95", "p99"))):
+        raise AssertionError(f"the serve record {rec}; final /status "
+                             f"buckets {pct}, {served} requests")
+    cli = {}
+    for argv in (["serve-summary", root], ["device-summary", root],
+                 ["trend", f"--registry={reg_path}", "--json"]):
+        cli[argv[0]] = _obs_cli(argv)
+    rows = json.loads(cli["trend"][1])
+    sub = subprocess.run(
+        [sys.executable, "-m", "tpuflow_torch.obs", "trend",
+         f"--registry={reg_path}", "--json"], cwd=REPO, capture_output=True,
+        text=True, timeout=120)
+    if (any(rc for rc, _ in cli.values()) or sub.returncode
+            or not rows or {r["verdict"] for r in rows} != {"new"}
+            or json.loads(sub.stdout) != rows
+            # The access log holds the drained request too.
+            or f"requests: {served + 1}" not in cli["serve-summary"][1]):
+        raise AssertionError(f"the operator CLI: {cli}; python -m: "
+                             f"{sub.returncode} {sub.stderr[-2000:]}")
+    head = cli["serve-summary"][1].splitlines()
+    print(f"replica decisions: /alerts scraped {len(scrapes)} times, "
+          f"{rule} fired once ({alert['message']}); alert.fired events "
+          f"{len(ev)} (the export's engine and the watch's); the card's "
+          f"Alerts section; one serve record, platform "
+          f"{rec.get('platform')}, git "
+          f"{rec.get('git') or 'none (no git checkout)'}, requests "
+          f"{m['serve_requests']:.0f}, TTFT p50/p95/p99 "
+          f"{pct['p50']}/{pct['p95']}/{pct['p99']} s = the final buckets'; "
+          f"serve-summary, device-summary, trend ({len(rows)} rows, all "
+          f"new) exit 0, python -m trend exit 0; watch {len(polls)} polls: "
+          f"{watch_fired[0].split('] ', 1)[1]} [{smi}]")
+    print("replica serve-summary: " + " | ".join(head[:4]))
+    return dict(scrapes=len(scrapes), alert=alert, record=rec,
+                watch_polls=len(polls), watch_fired=watch_fired[0],
+                cli={k: rc for k, (rc, _) in cli.items()})
+
+
 def replica_leg(torch, model, smi, fp_solos) -> dict:
     """The serving replica on ``model``: ``serve_forever(http_port=0)`` on
     the main thread, driven over HTTP by client threads, drained by a real
@@ -1507,7 +1632,16 @@ def replica_leg(torch, model, smi, fp_solos) -> dict:
     (``resolve_attention_impl`` on its real length, as the model's padded
     prefill dispatches), the ship hop's included; the import and the
     drained request prefill nothing. Afterwards the SIGTERM handler and
-    the preemption flag are put back, the export stopped."""
+    the preemption flag are put back, the export stopped.
+
+    The decision observatory rides the same loop: the recorder writes the
+    leg's events, access log and program ledger under ``build/replica``;
+    the engine's TTFT SLO (``REPLICA_SLO_TTFT_MS``) is missed by every
+    request; the client scrapes ``/alerts`` (the leg's ``AlertEngine``)
+    four times while requests flow; a ``watch.follow`` polls the export
+    meanwhile; ``serve_forever`` appends its ``serve`` record to a
+    registry there (``_replica_decisions`` checks them all)."""
+    import io
     import signal
     import threading
     import urllib.request
@@ -1515,7 +1649,7 @@ def replica_leg(torch, model, smi, fp_solos) -> dict:
     from tpuflow_torch import obs
     from tpuflow_torch.infer import frontdoor
     from tpuflow_torch.infer.serve import ServeEngine, serve_forever
-    from tpuflow_torch.obs import export, fleet
+    from tpuflow_torch.obs import alerts, export, fleet, watch
     from tpuflow_torch.ops import flash_attention as fa
     from tpuflow_torch.ops import int8_matmul as im
     from tpuflow_torch.ops.attention import resolve_attention_impl
@@ -1528,7 +1662,12 @@ def replica_leg(torch, model, smi, fp_solos) -> dict:
     reg = os.path.join(root, "fleet")
     os.makedirs(reg)
     eng = ServeEngine(model, max_slots=REPLICA_SLOTS, page_size=DISAGG_PAGE,
-                      kv_store_dir=os.path.join(root, "kv"))
+                      kv_store_dir=os.path.join(root, "kv"),
+                      slo_ttft_ms=REPLICA_SLO_TTFT_MS)
+    reg_path = os.path.join(root, "registry.jsonl")
+    judge = alerts.AlertEngine(**REPLICA_ALERT)
+    scrapes: list = []
+    watch_out = io.StringIO()
     solo = {p.tobytes(): s.tolist() for p, s in fp_solos}
     prompts = [p for p, _ in fp_solos]
     ship_p = max(prompts, key=len)
@@ -1574,6 +1713,19 @@ def replica_leg(torch, model, smi, fp_solos) -> dict:
             row = rows[0]
             notes["generate_url"] = row["generate_url"]
             notes["status_url"] = row["url"]  # the export's
+
+            def scrape():
+                with urllib.request.urlopen(row["url"] + "/alerts",
+                                            timeout=10) as r:
+                    scrapes.append(json.loads(r.read()))
+
+            scrape()
+            notes["watch"] = threading.Thread(
+                target=watch.follow, name="replica-watch",
+                args=(row["url"], REPLICA_WATCH_EVERY, REPLICA_WATCH_S),
+                kwargs={"engine": alerts.AlertEngine(**REPLICA_ALERT),
+                        "out": watch_out})
+            notes["watch"].start()
             # Wave 1: the fp prompts at once; a replay; the ship hop and
             # the forward of its key.
             body = {p.tobytes(): {"prompt": p.tolist(),
@@ -1583,6 +1735,7 @@ def replica_leg(torch, model, smi, fp_solos) -> dict:
                                 for i, p in enumerate(prompts)}):
                 t.join()
             prefilled.extend(len(p) for p in prompts)
+            scrape()
             n_req = eng._next_id
             send(row, "fp-0", {"prompt": [1]}, key="replay-fp-0")
             notes["replay_resubmitted"] = eng._next_id != n_req
@@ -1593,6 +1746,7 @@ def replica_leg(torch, model, smi, fp_solos) -> dict:
             key = answers["ship-0"][1]["kv_key"]
             send(row, "import-0", {**body[ship_p.tobytes()], "kv_key": key})
             notes["import_prefills"] = eng._prefill_calls - calls
+            scrape()
             # Wave 2: every slot held, one request queued, then SIGTERM.
             held = [prompts[i % len(prompts)] for i in range(REPLICA_SLOTS)]
             threads = wave(row, {f"drain-{i}": body[p.tobytes()]
@@ -1602,6 +1756,7 @@ def replica_leg(torch, model, smi, fp_solos) -> dict:
             prefilled.extend(len(p) for p in held)
             threads += wave(row, {"queued-0": body[prompts[0].tobytes()]})
             until(lambda: eng.queue_depth == 1, "the ninth request queueing")
+            scrape()
             notes["sigterm_live"] = eng.live_slots
             os.kill(os.getpid(), signal.SIGTERM)
             for t in threads:
@@ -1614,6 +1769,7 @@ def replica_leg(torch, model, smi, fp_solos) -> dict:
     heartbeat.configure(os.path.join(root, "heartbeat"))
     export.stop()
     obs.goodput_live().reset()
+    obs.configure(os.path.join(root, "obs"))
     th = threading.Thread(target=client, name="replica-client")
     _zero_counters(fa, im)
     try:
@@ -1622,15 +1778,21 @@ def replica_leg(torch, model, smi, fp_solos) -> dict:
         eng.ledger.reset()
         serve_forever(eng, max_s=REPLICA_MAX_S, http_port=0,
                       registration_dir=reg,
-                      should_stop=lambda: bool(errors))
+                      should_stop=lambda: bool(errors),
+                      registry_path=reg_path, alert_engine=judge)
         loop_s = time.monotonic() - t0
         ledger = eng.ledger.snapshot()
         th.join(timeout=60.0)
-        # The export outlives the loop: its last scrape, the drained
+        # The export outlives the loop: its last scrapes, the drained
         # request still queued for the requeue.
         with urllib.request.urlopen(notes["status_url"] + "/metrics",
                                     timeout=10) as r:
             metrics = _metrics_lines(r.read().decode())
+        with urllib.request.urlopen(notes["status_url"] + "/status",
+                                    timeout=10) as r:
+            final_status = json.loads(r.read())
+        if "watch" in notes:
+            notes["watch"].join(timeout=REPLICA_WATCH_S + 30.0)
         if on_card:
             torch.cuda.synchronize()
         launches = _counters(fa, im)
@@ -1641,6 +1803,7 @@ def replica_leg(torch, model, smi, fp_solos) -> dict:
         heartbeat.configure(None)
         export.stop()
         obs.goodput_live().reset()
+        obs.configure(None)
     if errors:
         raise AssertionError(f"replica leg client failed: {errors[0]!r}")
     if th.is_alive() or not drained_at:
@@ -1722,6 +1885,9 @@ def replica_leg(torch, model, smi, fp_solos) -> dict:
     if eng._prefill_calls != len(prefilled):
         raise AssertionError(f"the engine ran {eng._prefill_calls} "
                              f"prefills, want {len(prefilled)}")
+    decisions = _replica_decisions(root, reg_path, scrapes, final_status,
+                                   served, watch_out.getvalue(), on_card,
+                                   smi)
     shutil.rmtree(root, ignore_errors=True)
     parts = ", ".join(f"{b} {v:.3f}" for b, v in buckets.items())
     print(f"replica: serve_forever {loop_s:.2f} s over HTTP "
@@ -1738,7 +1904,8 @@ def replica_leg(torch, model, smi, fp_solos) -> dict:
     return dict(loop_s=loop_s, ledger=ledger, answers=len(answers),
                 prefills=len(prefilled), flash_prefills=n_flash,
                 launches=launches, generate_url=notes["generate_url"],
-                metrics=metrics, programs=list(progs.values()), gpu=smi)
+                metrics=metrics, programs=list(progs.values()),
+                decisions=decisions, gpu=smi)
 
 
 def router_leg(torch, model, smi, fp_solos) -> dict:
@@ -1761,7 +1928,9 @@ def router_leg(torch, model, smi, fp_solos) -> dict:
     forwards and the survivor's prefill and first tick. The flash
     launches, read from 0 around the leg, are 12 a prefill on the flash
     path, counted per replica (the rerouted request's second prefill
-    included); the launch check holds only on the card."""
+    included); the launch check holds only on the card. ``python -m
+    tpuflow_torch.obs trace <id> <trace dir>`` (in process) prints that
+    request's timeline: ``[REROUTED]``, both replicas."""
     import threading
     import urllib.error
     import urllib.request
@@ -1941,6 +2110,11 @@ def router_leg(torch, model, smi, fp_solos) -> dict:
             and serve.get("serve.first_tick") == survivor):
         raise AssertionError(f"the rerouted request's timeline: "
                              f"{trace.format_timeline(a)}")
+    rc, cli_out = _obs_cli(["trace", str(rerouted[0]), tdir])
+    if rc or "[REROUTED]" not in cli_out or not all(
+            r in cli_out for r in (victim, survivor)):
+        raise AssertionError(f"obs trace {rerouted[0]} exited {rc}:\n"
+                             f"{cli_out}")
     # TTFT as the critical path attributes it (router queue, failed
     # forwards and backoff, replica queue, prefill, first decode tick),
     # and the same less the first tick: to the first token.
@@ -1969,7 +2143,8 @@ def router_leg(torch, model, smi, fp_solos) -> dict:
           f"{stats['router_retries']}, requests {stats['router_requests']}, "
           f"rejected {stats['router_rejected']}, dropped "
           f"{stats['router_dropped']}; rerouted {rerouted[0]}: "
-          f"{' -> '.join(f['replica'] for f in fwds)}; flash launches "
+          f"{' -> '.join(f['replica'] for f in fwds)} (obs trace exit 0: "
+          f"{cli_out.splitlines()[0]}); flash launches "
           f"{launches['flash_fwd']} = {cfg.n_layer} x {n_flash} prefills on "
           f"the flash path [{smi}]")
     return dict(wall_s=wall_s, answers=len(answers), stats=stats,
@@ -3937,6 +4112,45 @@ class _Timed:
         setattr(self.module, self.attr, self.orig)
 
 
+class _LiveSnapshots:
+    """While installed, every snapshot the run registry turns into a
+    record (``registry.snapshot_metrics``) is kept, in order: the live
+    ledger's snapshot at each in-process append."""
+
+    def __init__(self):
+        from tpuflow_torch.obs import registry
+
+        self.module, self.seen = registry, []
+        self.orig = registry.snapshot_metrics
+
+    def __enter__(self):
+        def keep(snap):
+            self.seen.append(dict(snap))
+            return self.orig(snap)
+
+        self.module.snapshot_metrics = keep
+        return self
+
+    def __exit__(self, *exc):
+        self.module.snapshot_metrics = self.orig
+
+
+def _new_train_record(reg_path: str, snaps: _LiveSnapshots, what: str
+                      ) -> dict:
+    """The one ``train`` record a flow run just appended: the registry
+    holds one record more than snapshots seen before, and its
+    ``goodput_fraction`` is the run's live snapshot's."""
+    from tpuflow_torch.obs import registry
+
+    recs = registry.read_registry(reg_path)
+    if (len(recs) != len(snaps.seen) or recs[-1]["kind"] != "train"
+            or recs[-1]["metrics"].get("goodput_fraction")
+            != snaps.seen[-1]["goodput_fraction"]):
+        raise AssertionError(f"{what}'s registry records {recs}, live "
+                             f"snapshots {snaps.seen}")
+    return recs[-1]
+
+
 def _flow_telemetry(run, smi) -> dict:
     """A GPT training run's observatory through the client: its
     ``timeline.html`` with the train-step lanes, ``Run.goodput()``'s
@@ -3996,7 +4210,12 @@ def flow_phase(torch, smi) -> dict:
     and the difference, the flow layer's own overhead; the GPT step ms
     inside the flow; the train step's ``profile.json`` (device kind, peak
     bytes). Counters are zeroed before leg 6 and before leg 7 and read
-    after each."""
+    after each.
+
+    Legs 1, 2 and 6 run with ``--registry <home>/registry.jsonl``: each
+    appends exactly one ``train`` record, its ``goodput_fraction`` the
+    run's live snapshot's; ``compare`` between runs 1 and 2 and ``trend``
+    over the three records exit 0."""
     from tpuflow_torch.data.lm import lm_test_loader
     from tpuflow_torch.flow import Run, store
     from tpuflow_torch.flows import eval_flow, gpt_eval_flow, gpt_flow
@@ -4014,6 +4233,9 @@ def flow_phase(torch, smi) -> dict:
     home = tempfile.mkdtemp(prefix="chip_smoke_flows_",
                             dir=os.path.join(REPO, "build"))
     legs = {}
+    reg_path = os.path.join(home, "registry.jsonl")
+    reg_args = ["--registry", reg_path]
+    snaps = _LiveSnapshots()
 
     def leg(name, entry, argv, wrapped):
         with contextlib.ExitStack() as stack:
@@ -4032,12 +4254,15 @@ def flow_phase(torch, smi) -> dict:
         return Run(pathspec)
 
     try:
+        snaps.__enter__()
         _zero_counters(fa, im)
-        r1 = leg("TorchTrain", train_flow.main, ["run", "--epochs", "2"],
-                 [(m, "train_model")])
+        r1 = leg("TorchTrain", train_flow.main,
+                 ["run", "--epochs", "2", *reg_args], [(m, "train_model")])
+        rec1 = _new_train_record(reg_path, snaps, "TorchTrain")
         r2 = leg("TorchTrain --from-run", train_flow.main,
-                 ["run", "--epochs", "1", "--from-run", r1.pathspec],
-                 [(m, "train_model")])
+                 ["run", "--epochs", "1", "--from-run", r1.pathspec,
+                  *reg_args], [(m, "train_model")])
+        rec2 = _new_train_record(reg_path, snaps, "TorchTrain --from-run")
         first1 = r1.data.result.metrics_history[0]["val_loss"]
         first2 = r2.data.result.metrics_history[0]["val_loss"]
         if not (r2.data.warm_started and first2 < first1):
@@ -4086,9 +4311,27 @@ def flow_phase(torch, smi) -> dict:
 
         # --- the GPT-2 flows on the flash kernels.
         _zero_counters(fa, im)
-        g1 = leg("TorchGptTrain", gpt_flow.main, ["run", *FLOW_GPT_ARGS],
-                 [(gpt_mod, "train_gpt")])
+        g1 = leg("TorchGptTrain", gpt_flow.main,
+                 ["run", *FLOW_GPT_ARGS, *reg_args], [(gpt_mod, "train_gpt")])
         train_n = _counters(fa, im)
+        rec3 = _new_train_record(reg_path, snaps, "TorchGptTrain")
+        snaps.__exit__()
+        cmp_rc, cmp_out = _obs_cli(["compare", rec1["run_id"],
+                                    rec2["run_id"], f"--registry={reg_path}"])
+        trend_rc, trend_out = _obs_cli(["trend", f"--registry={reg_path}"])
+        if cmp_rc or trend_rc or rec1["run_id"] == rec2["run_id"]:
+            raise AssertionError(f"obs compare exited {cmp_rc}:\n{cmp_out}"
+                                 f"\nobs trend exited {trend_rc}:\n"
+                                 f"{trend_out}")
+        print("flow registry: one train record a run, goodput_fraction "
+              "the live snapshot's: "
+              + ", ".join(f"{r['run_id']} "
+                          f"{r['metrics']['goodput_fraction']}"
+                          for r in (rec1, rec2, rec3))
+              + f"; compare runs 1 -> 2 and trend over 3 records exit 0 "
+              f"({trend_out.splitlines()[0]}) [{smi}]")
+        legs["registry"] = dict(records=[rec1, rec2, rec3],
+                                compare=cmp_out, trend=trend_out)
         mc = g1.data.model_config
         L, seq = mc["n_layer"], g1.data.seq_len_used
         n_val = len(lm_test_loader(FLOW_GPT_BATCH,
@@ -4153,6 +4396,7 @@ def flow_phase(torch, smi) -> dict:
               f"{ge.data.test_ppl:.2f}; greedy {ge.data.samples[0][1]!r}; "
               f"{beam_name} {beam_text!r}; launches {eval_n} [{smi}]")
     finally:
+        snaps.__exit__()
         shutil.rmtree(home, ignore_errors=True)
     return dict(legs=legs, mlp_launches=mlp_n, gpt_train_launches=train_n,
                 gpt_eval_launches=eval_n, gpt_step_ms=step_ms,
@@ -5346,14 +5590,17 @@ def fsdp_phase(torch, smi, kernel_rows: dict | None = None,
     epoch-2 losses fall within FSDP_RESUME_RTOL of (b)'s; (d) the first
     step's loss and gradients on one device within PARITY_LOSS_ATOL and
     PARITY_GRAD_RTOL of (b)'s sharded step; (e) ``TorchGptTrain`` at 124M
-    as a two-member gang on the card, then ``TorchGptEval`` from it at one
-    process, its flash launches exact. ``started``: ``_fsdp_start()``'s,
+    as a two-member gang on the card, ``--registry`` holding exactly one
+    ``train`` record after it, member 0's (the runner appends none), then
+    ``TorchGptEval`` from it at one process, its flash launches exact.
+    ``started``: ``_fsdp_start()``'s,
     when the ranks were started ahead; ``ranks_done`` is called once they
     have ended."""
     from tpuflow_torch.ckpt import CheckpointManager, raw
     from tpuflow_torch.ckpt.tree import checkpoint_tree, load_checkpoint_tree
     from tpuflow_torch.flow import Run, store
     from tpuflow_torch.flows import gpt_eval_flow, gpt_flow
+    from tpuflow_torch.obs import registry
     from tpuflow_torch.ops import flash_attention as fa
     from tpuflow_torch.ops import int8_matmul as im
     from tpuflow_torch.train.gpt import init_state, train_gpt
@@ -5502,9 +5749,16 @@ def fsdp_phase(torch, smi, kernel_rows: dict | None = None,
               f"{p['loss_err']:.2e} apart, every gradient within "
               f"{p['grad_rel']:.2e} of its max |g| [{smi}]")
         torch.cuda.empty_cache()
-        # (e) the flows.
+        # (e) the flows; the gang's run registry: member 0's one record.
         home = os.path.join(work, "home")
-        run = Run(gpt_flow.main(["run", *FLOW_FSDP_ARGS, "--home", home]))
+        reg_path = os.path.join(work, "registry.jsonl")
+        run = Run(gpt_flow.main(["run", *FLOW_FSDP_ARGS, "--home", home,
+                                 "--registry", reg_path]))
+        recs = registry.read_registry(reg_path)
+        if ([r["kind"] for r in recs] != ["train"]
+                or recs[0]["run_id"].endswith(f"-{os.getpid()}")):
+            raise AssertionError(f"the gang's registry records {recs}: want "
+                                 "one train record, by member 0")
         meta = run.data.result_checkpoint.metadata
         if meta.get("process_count") != FSDP_WORLD or not all(
                 np.isfinite(run.data.loss_history)):
@@ -5539,11 +5793,15 @@ def fsdp_phase(torch, smi, kernel_rows: dict | None = None,
                                  f"{ge.meta.get('triggered_by')}")
         out["flows"] = dict(train=run.pathspec, loss_history=
                             run.data.loss_history, eval_launches=eval_n,
-                            test_loss=ge.data.test_loss, heartbeats=beats)
+                            test_loss=ge.data.test_loss, heartbeats=beats,
+                            record=recs[0])
         print(f"fsdp (e): TorchGptTrain {' '.join(FLOW_FSDP_ARGS)}: loss "
               f"history {run.data.loss_history}, checkpoint of "
               f"{meta['process_count']} processes, the members' heartbeats "
-              f"at step {beats}; TorchGptEval at one "
+              f"at step {beats}; one train record {recs[0]['run_id']} "
+              f"(member 0's; goodput "
+              f"{recs[0]['metrics'].get('goodput_fraction')}); "
+              f"TorchGptEval at one "
               f"process: test loss {ge.data.test_loss:.4f}, launches "
               f"{eval_n} [{smi}]")
         store.set_home(None)

@@ -25,7 +25,7 @@ def _port_sources():
 # Every package of the port, with its count of Python modules: a module
 # dropped or left out of the scan fails the count.
 PACKAGES = {"": 2, "ckpt": 6, "data": 4, "dist": 3, "flow": 8, "flows": 6,
-            "infer": 11, "models": 9, "obs": 13, "ops": 5, "parallel": 7,
+            "infer": 11, "models": 9, "obs": 17, "ops": 5, "parallel": 7,
             "testing": 4, "train": 5, "utils": 4}
 
 
@@ -135,6 +135,8 @@ def test_package_imports_with_jax_poisoned():
         "import tpuflow_torch.obs.serve_ledger, tpuflow_torch.obs.fleet\n"
         "import tpuflow_torch.obs.goodput, tpuflow_torch.obs.trace\n"
         "import tpuflow_torch.infer.router, tpuflow_torch.testing.chaos\n"
+        "import tpuflow_torch.obs.registry, tpuflow_torch.obs.alerts\n"
+        "import tpuflow_torch.obs.__main__, tpuflow_torch.obs.watch\n"
         "assert not any(k.split('.')[0] in ('jax', 'flax') and v is not None\n"
         "               for k, v in sys.modules.items())\n"
         "print('ok')\n"

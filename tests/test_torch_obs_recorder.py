@@ -196,7 +196,8 @@ def test_port_catalog_names_and_kinds():
         assert JCATALOG[name][0] == kind == tobs.kind_of(name), name
     assert tobs.is_registered("ckpt.emergency_save")
     assert tobs.is_registered("train.step_s")
-    assert not tobs.is_registered("alert.fired")  # ROADMAP item 15c
+    assert tobs.is_registered("alert.fired")
+    assert tobs.kind_of("registry.append") == "event"
     # The names the slice's events are read under.
     assert {"ckpt.emergency_save", "ckpt.restore_tier", "ckpt.corrupt",
             "ckpt.io_retry", "ckpt.gc", "ckpt.upload", "ckpt.save_failed",

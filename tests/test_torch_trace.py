@@ -1,12 +1,13 @@
 """The port's request tracing (``tpuflow_torch/obs/trace.py``) held to the
 JAX package's (``tpuflow/obs/trace.py``).
 
-Each case of ``tests/test_trace.py`` but its CLI case (the ``python -m
-tpuflow.obs trace`` command is ROADMAP item 15c) runs once on each
-package and returns what it observed; the observations must be EQUAL
-(span ids minted at random replaced by their order of appearance). The
-JAX side takes ``TPUFLOW_TRACE*`` by ``monkeypatch.setenv``, the port
-its ``armed`` / ``sample`` / ``directory`` arguments.
+Each case of ``tests/test_trace.py`` runs once on each package and
+returns what it observed; the observations must be EQUAL (span ids minted
+at random replaced by their order of appearance). The JAX side takes
+``TPUFLOW_TRACE*`` by ``monkeypatch.setenv``, the port its ``armed`` /
+``sample`` / ``directory`` arguments; where the JAX ``python -m
+tpuflow.obs trace`` resolves ``TPUFLOW_TRACE_DIR``, ``python -m
+tpuflow_torch.obs trace`` is given the directory.
 
 Across the packages: span files the port writes are the JAX package's
 byte for byte; a port-written trail assembles with the JAX ``assemble``
@@ -15,7 +16,9 @@ and a JAX-written one with the port's, to equal timelines; a
 configured, both resolve spans to ``<recorder dir>/trace``.
 """
 
+import contextlib
 import importlib
+import io
 import json
 import os
 import time
@@ -332,6 +335,46 @@ def ledger_ttft_exemplar_rides_snapshot(P, tmp):
     return [hist, P.fleet.hist_exemplar(hist, 0.0)]
 
 
+@case
+def obs_trace_cli(P, tmp):
+    main = (importlib.import_module("tpuflow.obs.__main__") if P.jax else
+            importlib.import_module("tpuflow_torch.obs.__main__")).main
+    d = os.path.join(tmp, "trace")
+    os.makedirs(d)
+    spans = _reroute_spans()
+    for writer, keep in (("frontdoor", lambda w: w == "frontdoor"),
+                         ("reps", lambda w: w != "frontdoor")):
+        assert P.trace.write_spans(
+            [{k: v for k, v in sp.items() if k != "writer"}
+             for sp in spans if keep(sp["writer"])],
+            writer=writer, directory=d)
+
+    def run(argv):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(
+                err):
+            rc = main(argv)
+        return rc, out.getvalue().replace(tmp, "<tmp>"), err.getvalue()
+
+    got = [run(["trace", "req-3", d])[:2], run(["trace", "req-3", tmp])[:2],
+           run(["trace", "req-3", d, "--json"])[:2]]
+    assert "[REROUTED]" in got[0][1] and "reroute: rep-0 -> rep-1" in (
+        got[0][1])
+    assert json.loads(got[2][1])["rerouted"] is True
+    # The JAX CLI resolves TPUFLOW_TRACE_DIR; the port is given the dir.
+    if P.jax:
+        P.mp.setenv("TPUFLOW_TRACE_DIR", d)
+        got.append(run(["trace", "req-3"])[:2])
+    else:
+        got.append(run(["trace", "req-3", d])[:2])
+    rc, out, err = run(["trace", "nope", d])
+    assert rc == 1 and "no spans" in err
+    if P.jax:
+        P.mp.delenv("TPUFLOW_TRACE_DIR")
+    return got + [(rc, out), run(["trace", "req-3"])[:2],
+                  run(["trace"])[:2]]
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_trace_case_same_on_both_packages(name, pkgs, tmp_path):
     """One case of tests/test_trace.py on each package: EQUAL
@@ -345,13 +388,13 @@ def test_trace_case_same_on_both_packages(name, pkgs, tmp_path):
 
 
 def test_every_trace_case_is_ported():
-    """The JAX file's cases, one for one, less the CLI case."""
+    """The JAX file's cases, one for one."""
     src = open(os.path.join(os.path.dirname(__file__), "test_trace.py"),
                encoding="utf-8").read()
     jax_cases = {line[len("def test_"):].split("(")[0]
                  for line in src.splitlines() if line.startswith("def test_")}
     assert len(jax_cases) == 17
-    assert jax_cases - set(CASES) == {"obs_trace_cli"}
+    assert jax_cases - set(CASES) == set()
 
 
 # ------------------------------------------------- across the packages

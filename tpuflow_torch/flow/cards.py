@@ -525,6 +525,29 @@ def _device_section(buf, gauges: dict, prog_events: list[dict],
         buf.append(Table(rows, headers=["device metric", "value"]))
 
 
+def _alerts_section(buf, fired: list[dict], resolved: list[dict]) -> None:
+    """One row a fired alert: its severity, message, runbook anchor and
+    whether a resolve matched it before the run ended."""
+    buf.append(Markdown("## Alerts"))
+    resolved_count: dict[str, int] = {}
+    for e in resolved:
+        rule = str(e.get("rule"))
+        resolved_count[rule] = resolved_count.get(rule, 0) + 1
+    rows = []
+    for e in fired:
+        rule = str(e.get("rule"))
+        if resolved_count.get(rule, 0) > 0:
+            resolved_count[rule] -= 1
+            state = "resolved"
+        else:
+            state = "STILL ACTIVE at run end"
+        rows.append([rule, str(e.get("severity", "?")),
+                     str(e.get("message", ""))[:80], state,
+                     f"#{e.get('runbook', '')}"])
+    buf.append(Table(
+        rows, headers=["alert", "severity", "message", "state", "runbook"]))
+
+
 def _gantt_section(buf, spans: list[dict]) -> None:
     t0 = min(e["ts"] for e in spans)
     t1 = max(e["ts"] + e["dur_s"] for e in spans)
@@ -559,13 +582,13 @@ def timeline_card(buf, events: Sequence[dict],
     """The run-level telemetry card (the JAX ``timeline_card``): the
     headline metrics, the training-health events, the goodput bar and its
     buckets (with one lane a launch attempt), the serving, fleet and
-    device sections when the stream has them, a Gantt-style table of the
+    device sections when the stream has them, the Alerts section when an
+    alert fired or resolved during the run, a Gantt-style table of the
     spans (one bar a span; ``train.compile``, ``train.epoch``,
     ``train.validation``, ``ckpt.save`` ... in their subsystem's color),
     then the span, counter and histogram aggregates. The flow runner
     renders it into ``timeline.html`` at the run root. Appends into
-    ``buf``; callers wrap it, a card never fails the run. The JAX card's
-    Alerts section comes with the alert engine (ROADMAP item 15c)."""
+    ``buf``; callers wrap it, a card never fails the run."""
     from tpuflow_torch.obs.timeline import summarize
 
     if not events:
@@ -594,6 +617,10 @@ def timeline_card(buf, events: Sequence[dict],
     if "device.hbm_used" in gauges or progs or caps:
         _device_section(buf, gauges, progs, caps,
                         _events_named(events, "device.hbm_budget"))
+    fired = _events_named(events, "alert.fired")
+    resolved = _events_named(events, "alert.resolved")
+    if fired or resolved:
+        _alerts_section(buf, fired, resolved)
     spans = [e for e in events
              if e.get("kind") == "span" and e.get("dur_s", 0) > 0]
     if spans:

@@ -12,7 +12,9 @@ settings (the JAX package passes them in its environment): the fault
 plan, installed as the member's rank; the grace budget and the attempt,
 installed in ``utils/preempt.py``; the obs directory, where the member
 records ``events.p<rank>.<pid>.jsonl`` with its launch stamped; the
-node-local checkpoint tier, as ``current.ckpt_local_dir``; and the
+node-local checkpoint tier, as ``current.ckpt_local_dir``; the run
+registry, to which member 0 appends the leg's ``train`` record (the live
+goodput ledger's headline) before it saves its artifacts; and the
 member's heartbeat file, ``configure``d in ``utils/heartbeat.py`` (the
 member does not stamp it itself: its train loops and reports do). The member sets torch's
 own rendezvous variables (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
@@ -167,6 +169,10 @@ def main(argv: list[str]) -> None:
         obs.dump_flight("unhandled_exception", e)
         obs.flush()
         raise
+    if dist.process_index() == 0:
+        from tpuflow_torch.obs import registry
+
+        registry.maybe_append_live("train", path=state.get("registry_path"))
     obs.flush()
     current.gang_index = dist.process_index()
     current.gang_size = dist.process_count()

@@ -11,8 +11,16 @@ step sees the members as inputs (members without artifacts raise
 appends a trigger event that ``--triggered`` runs downstream consume.
 
 CLI (``main``): ``run`` / ``trigger`` / ``show``, parameters as
-``--name value``, ``--triggered``, and ``--home <dir>`` for the store's
-root. ``deploy`` waits for the flow layer's remainder and raises.
+``--name value``, ``--triggered``, ``--home <dir>`` for the store's root,
+and ``--registry <path>`` for the run registry. ``deploy`` waits for the
+flow layer's remainder and raises.
+
+Run registry (``FlowRunner(registry_path=)``, the JAX package's
+``TPUFLOW_REGISTRY_PATH``; None: off): a run that succeeds in process
+appends one ``train`` record of the live goodput ledger's headline
+(``obs/registry.py::maybe_append_live``) before its telemetry is
+finalised, while the recorder is still open; a run with a gang step
+appends none here, its member 0 did (``flow/gang_exec.py``).
 
 A flow whose ``device`` parameter asks for ``cuda`` on a machine without
 a card raises before the run is created; nothing falls back to the CPU.
@@ -223,13 +231,15 @@ class FlowRunner:
     and grow on member loss instead of failing (its ``TPUFLOW_ELASTIC``;
     see the module docstring), with ``reform_timeout_s`` for a re-form to
     complete and ``max_resizes`` re-forms a launch (its
-    ``TPUFLOW_REFORM_TIMEOUT_S`` and ``TPUFLOW_MAX_RESIZES``)."""
+    ``TPUFLOW_REFORM_TIMEOUT_S`` and ``TPUFLOW_MAX_RESIZES``).
+    ``registry_path``: the run registry a successful run appends its
+    ``train`` record to (its ``TPUFLOW_REGISTRY_PATH``; None: none)."""
 
     def __init__(self, flow_cls: type[FlowSpec], *,
                  faults: str | None = None,
                  ckpt_local_dir: str | None = None, obs: bool = True,
                  elastic: bool = False, reform_timeout_s: float = 120.0,
-                 max_resizes: int = 8):
+                 max_resizes: int = 8, registry_path: str | None = None):
         self.flow_cls = flow_cls
         self.flow_name = flow_cls.__name__
         faults_mod.parse(faults or "")  # a malformed plan raises here
@@ -239,6 +249,7 @@ class FlowRunner:
         self.elastic = elastic
         self.reform_timeout_s = float(reform_timeout_s)
         self.max_resizes = int(max_resizes)
+        self.registry_path = registry_path
         self._obs_dir = None
 
     # ----------------------------------------------------------------- run
@@ -292,6 +303,7 @@ class FlowRunner:
                             run=str(run_id))
         run_span.__enter__()
         step_name, task_counter = "start", 0
+        ran_gang = False
         try:
             while True:
                 fn = steps[step_name]
@@ -304,6 +316,7 @@ class FlowRunner:
                 if gang.get("num_parallel"):
                     num_parallel = max(num_parallel, gang["num_parallel"])
                 task_counter += num_parallel  # members own task_id..+N-1
+                ran_gang = ran_gang or num_parallel > 1
                 object.__setattr__(flow, "_next", None)
                 gang_inputs = self._run_step(flow, fn, step_name, run_id,
                                              task_id, num_parallel, gang)
@@ -332,6 +345,12 @@ class FlowRunner:
         meta.update(status="success", finished=time.time())
         run_span.set(status="success")
         run_span.__exit__(None, None, None)
+        if not ran_gang:
+            # While the recorder is open: the registry.append event lands
+            # in events.jsonl. A gang's member 0 already appended.
+            from tpuflow_torch.obs import registry
+
+            registry.maybe_append_live("train", path=self.registry_path)
         self._finalize_obs(rdir, pathspec, meta)
         store.write_run_meta(self.flow_name, run_id, meta)
         store.append_event({"flow": self.flow_name, "run": pathspec,
@@ -474,10 +493,10 @@ class FlowRunner:
         the store's root through a pickled state file, and its rank, the
         world size and the rendezvous port through argv, and the run's
         fault plan, grace budget (``KILL_GRACE_S``), node-local checkpoint
-        tier, obs directory, its heartbeat file (``heartbeat_<rank>`` in
-        the task directory) and, in an elastic gang, the membership
-        directory (``membership`` in the task directory, emptied first)
-        through the state. ``min_members``: the elastic floor (None:
+        tier, obs directory, run registry, its heartbeat file
+        (``heartbeat_<rank>`` in the task directory) and, in an elastic
+        gang, the membership directory (``membership`` in the task
+        directory, emptied first) through the state. ``min_members``: the elastic floor (None:
         ``MIN_MEMBERS``)."""
         tdir = store.task_dir(self.flow_name, run_id, step_name, task_id)
         os.makedirs(tdir, exist_ok=True)
@@ -500,6 +519,7 @@ class FlowRunner:
                          "faults": self.faults, "grace_s": KILL_GRACE_S,
                          "ckpt_local_dir": self.ckpt_local_dir,
                          "obs_dir": self._obs_dir,
+                         "registry_path": self.registry_path,
                          "heartbeat_file": os.path.join(
                              tdir, "heartbeat_{rank}"),
                          "membership_dir": mdir}, f)
@@ -958,25 +978,36 @@ def _jsonable(v):
 def main(flow_cls: type[FlowSpec], argv: list[str] | None = None):
     """``run`` / ``trigger`` (returns the run's pathspec), ``show``, or
     ``deploy`` (raises). ``--home <dir>`` anywhere after the command roots
-    the store there (``store.set_home``) for this process."""
+    the store there (``store.set_home``) for this process; ``--registry
+    <path>`` appends the run's ``train`` record to that run registry
+    (``FlowRunner(registry_path=)``)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help", "show"):
         _show(flow_cls)
         return None
     cmd, rest = argv[0], argv[1:]
-    if "--home" in rest:
-        i = rest.index("--home")
-        if i + 1 >= len(rest):
-            raise SystemExit("--home requires a directory")
-        store.set_home(rest[i + 1])
-        rest = rest[:i] + rest[i + 2:]
+    home, rest = _take_option(rest, "--home", "a directory")
+    if home is not None:
+        store.set_home(home)
+    registry_path, rest = _take_option(rest, "--registry", "a path")
     if cmd in ("run", "trigger"):
         params, triggered = _parse_params(flow_cls, rest)
-        return FlowRunner(flow_cls).run(
+        return FlowRunner(flow_cls, registry_path=registry_path).run(
             params, triggered=triggered or cmd == "trigger")
     if cmd == "deploy":
         raise NotImplementedError(f"deploy is not ported yet: {ROADMAP_DEPLOY}")
     raise SystemExit(f"unknown command {cmd!r}; use run|trigger|show")
+
+
+def _take_option(rest: list[str], flag: str,
+                 what: str) -> tuple[str | None, list[str]]:
+    """(the value after ``flag`` or None, ``rest`` without the pair)."""
+    if flag not in rest:
+        return None, rest
+    i = rest.index(flag)
+    if i + 1 >= len(rest):
+        raise SystemExit(f"{flag} requires {what}")
+    return rest[i + 1], rest[:i] + rest[i + 2:]
 
 
 def _parse_params(flow_cls, rest: list[str]):

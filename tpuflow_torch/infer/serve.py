@@ -1665,6 +1665,8 @@ def serve_forever(
     replica_id: str | None = None,
     trace: bool = True,
     trace_dir: str | None = None,
+    registry_path: str | None = None,
+    alert_engine=None,
 ) -> None:
     """Long-lived serving loop on ``engine``'s card: it steps the engine
     under a lock, stamps the heartbeat every iteration (``utils/
@@ -1677,10 +1679,12 @@ def serve_forever(
     something else requested.
 
     ``http_port`` (None: no export; 0: an ephemeral port) starts the
-    ``/metrics`` + ``/status`` export on ``http_host`` and registers the
-    replica in ``registration_dir`` under ``replica_id`` (the JAX
-    package's ``TPUFLOW_OBS_HTTP_PORT``, ``_HOST``,
-    ``TPUFLOW_FLEET_REGISTRATION_DIR`` and ``TPUFLOW_FLEET_REPLICA_ID``).
+    ``/metrics`` + ``/status`` + ``/alerts`` export on ``http_host`` and
+    registers the replica in ``registration_dir`` under ``replica_id``
+    (the JAX package's ``TPUFLOW_OBS_HTTP_PORT``, ``_HOST``,
+    ``TPUFLOW_FLEET_REGISTRATION_DIR`` and ``TPUFLOW_FLEET_REPLICA_ID``);
+    ``/alerts`` judges ``alert_engine`` (None: the process engine
+    ``obs/alerts.py::engine()``).
     ``gateway`` (``TPUFLOW_ROUTER_GATEWAY``) also starts the replica's
     ``/generate`` endpoint (``infer/frontdoor.py::ReplicaGateway``) on
     ``http_host``, sharing the step loop's lock, and advertises its URL as
@@ -1695,15 +1699,22 @@ def serve_forever(
     ``device_ledger`` on, the loop writes the engine's device program
     ledger (``collect_program_ledger``: the kernel libraries, the
     signatures run so far and a budget check) as it starts, and again as
-    it ends with the signatures serving ran. The JAX loop's run-registry
-    entry comes with ROADMAP item 15c.
+    it ends with the signatures serving ran.
+
+    ``registry_path`` (the JAX package's ``TPUFLOW_REGISTRY_PATH``; None:
+    no entry): whatever ends the loop (a drain, ``should_stop``, the
+    deadline or an exception on its way out), the replica's headline
+    (requests, TTFT/ITL percentiles from the mergeable buckets, the SLO
+    count) is appended to that run registry as one ``serve`` record
+    (``obs/registry.py::maybe_append_live``), after the gateway closed;
+    the append never masks an exception in flight.
     """
     from tpuflow_torch.utils import heartbeat, preempt
 
     if http_port is not None:
         obs.start_export(http_port, host=http_host,
                          registration_dir=registration_dir,
-                         replica_id=replica_id)
+                         replica_id=replica_id, alert_engine=alert_engine)
     step_lock = threading.RLock()
     gw = None
     if gateway:
@@ -1762,6 +1773,9 @@ def serve_forever(
             # address that can only refuse.
             obs.goodput_live().note_serve_generate_url(None)
             gw.close()
+        from tpuflow_torch.obs import registry
+
+        registry.maybe_append_live("serve", path=registry_path)
 
 
 def _serve_ledger(engine: ServeEngine) -> None:

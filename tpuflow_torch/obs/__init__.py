@@ -14,7 +14,13 @@ ledger of a run's stream (``compute_goodput``) and its summary
 card's memory gauges and the program ledger (``obs/device.py``:
 ``hbm_snapshot``, ``maybe_emit_hbm``, ``ProgramLedger``,
 ``device_summary``) and the anomaly-triggered ``torch.profiler``
-captures (``obs/profcap.py``: ``AnomalyCapturer``, ``CaptureConfig``).
+captures (``obs/profcap.py``: ``AnomalyCapturer``, ``CaptureConfig``);
+and the decision observatory: the run registry and its regression verdicts
+(``obs/registry.py``: ``append_record``, ``maybe_append_live``,
+``trend_rows``, ``compare_rows``), the declarative alert engine behind
+``/alerts`` (``obs/alerts.py``: ``AlertEngine``, ``ALERT_RULES``), the
+operator CLI (``python -m tpuflow_torch.obs``) and the live watch
+(``python -m tpuflow_torch.obs.watch``).
 
 Usage (emitters)::
 
@@ -70,14 +76,35 @@ from tpuflow_torch.obs.profcap import (  # noqa: E402
     AnomalyCapturer,
     CaptureConfig,
 )
+from tpuflow_torch.obs.alerts import (  # noqa: E402
+    RULES as ALERT_RULES,
+    AlertEngine,
+    burn_gate,
+    format_transition,
+)
+from tpuflow_torch.obs.alerts import engine as alert_engine  # noqa: E402
+from tpuflow_torch.obs.registry import (  # noqa: E402
+    append_record,
+    backfill_bench,
+    compare_rows,
+    make_record,
+    maybe_append_live,
+    read_registry,
+    registry_path,
+    trend_rows,
+    verdict_rows,
+)
 
 __all__ = [
-    "AnomalyCapturer", "CATALOG", "CaptureConfig", "GOODPUT_BUCKETS",
-    "ProcessLedger", "ProgramLedger", "Recorder", "compute_goodput",
-    "configure", "counter", "device_summary", "dump_flight", "enabled",
-    "event", "flight_path", "flush", "gauge", "goodput_live",
-    "hbm_snapshot", "histogram", "is_registered", "health_summary",
-    "kind_of", "load_run_events", "maybe_emit_hbm", "merge_run_events",
-    "read_events", "recorder", "span", "start_export", "summarize",
-    "timed_iter",
+    "ALERT_RULES", "AlertEngine", "AnomalyCapturer", "CATALOG",
+    "CaptureConfig", "GOODPUT_BUCKETS", "ProcessLedger", "ProgramLedger",
+    "Recorder", "alert_engine", "append_record", "backfill_bench",
+    "burn_gate", "compare_rows", "compute_goodput", "configure", "counter",
+    "device_summary", "dump_flight", "enabled", "event", "flight_path",
+    "flush", "format_transition", "gauge", "goodput_live", "hbm_snapshot",
+    "histogram", "is_registered", "health_summary", "kind_of",
+    "load_run_events", "make_record", "maybe_append_live",
+    "maybe_emit_hbm", "merge_run_events", "read_events", "read_registry",
+    "recorder", "registry_path", "span", "start_export", "summarize",
+    "timed_iter", "trend_rows", "verdict_rows",
 ]

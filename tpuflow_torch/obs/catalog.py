@@ -507,6 +507,29 @@ CATALOG: dict[str, tuple[str, str]] = {
         "text) + /status (JSON) on gang member 0 "
         "(start_export); carries the bound port",
     ),
+    # -------------------------------------------------------------- alerts
+    # Decision observatory: the run registry's append audit trail and the
+    # alert engine's deduplicated lifecycle (obs/registry.py,
+    # obs/alerts.py), read by the timeline card's Alerts section, the
+    # /alerts endpoint and the watch's ALERT lines.
+    "registry.append": (
+        "event",
+        "one schema-versioned headline record appended to a run "
+        "registry (path, run_id, kind, metric count): the cross-run "
+        "regression ledger's write audit",
+    ),
+    "alert.fired": (
+        "event",
+        "a declarative alert rule entered its firing condition (rule, "
+        "severity, runbook anchor, message, value), emitted ONCE per "
+        "activation; the condition persisting is deduplicated",
+    ),
+    "alert.resolved": (
+        "event",
+        "an active alert's condition cleared after at least the engine's "
+        "cooldown_s of activity (rule, severity, runbook, active_s); "
+        "flaps inside the cooldown never emit",
+    ),
     # ---------------------------------------------------------------- dist
     "dist.mesh_generation": (
         "gauge",

@@ -463,3 +463,21 @@ def device_summary(run_dir: str) -> dict[str, Any]:
     if captures:
         out["captures"] = captures
     return out
+
+
+def summarize_entry(e: dict) -> str:
+    """One human table line for a ``programs.json`` entry (the
+    ``device-summary`` command's)."""
+
+    def _fmt_bytes(v):
+        return "-" if v is None else f"{v / 2**20:9.2f}"
+
+    flops = e.get("flops")
+    return (
+        f"  {e.get('name', '?'):<16} "
+        f"{e.get('compile_s', '-')!s:>9}  "
+        f"{'-' if flops is None else f'{flops:.3g}':>10}  "
+        f"{_fmt_bytes(e.get('argument_bytes')):>9}  "
+        f"{_fmt_bytes(e.get('output_bytes')):>9}  "
+        f"{_fmt_bytes(e.get('temp_bytes')):>9}"
+    )

@@ -7,8 +7,10 @@ so far and, on a serving replica, the engine's ``serve_*`` view, whose
 keys a fleet observatory of either package reads; the training legs
 (``train_gpt(http_port=)``) feed it through ``train/step.py::StepClock``.
 ``/status`` adds the process id and the replica identity. ``/alerts``
-answers 404: the alert engine comes with ROADMAP item 15c (the JAX server
-does the same without one).
+judges an alert engine (``obs/alerts.py``; :func:`start_export`'s
+default is the process engine ``alerts.engine()``) against a fresh
+snapshot at every scrape and answers its active alerts and its rule
+table.
 
 The JAX package starts the server from ``TPUFLOW_OBS_HTTP_PORT`` and
 ``TPUFLOW_OBS_HTTP_HOST`` and registers the replica in
@@ -27,6 +29,7 @@ import socket
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from tpuflow_torch.obs import alerts as _alerts
 from tpuflow_torch.obs import fleet as _fleet
 from tpuflow_torch.obs import goodput as _goodput
 
@@ -172,8 +175,21 @@ class _Handler(BaseHTTPRequestHandler):
                 )
                 body = (json.dumps(snap) + "\n").encode()
                 ctype = "application/json"
+            elif route == "/alerts":
+                # Every scrape judges the rules against a fresh snapshot:
+                # the scraper is the sweep, no poller thread. Serialised:
+                # the handler threads share one engine.
+                eng = self.server._tpuflow_alerts
+                if eng is None:
+                    self.send_error(404)
+                    return
+                with self.server._tpuflow_alerts_lock:
+                    eng.observe(status=self._snapshot())
+                    payload = {"active": eng.active(),
+                               "rules": eng.describe()}
+                body = (json.dumps(payload) + "\n").encode()
+                ctype = "application/json"
             else:
-                # /alerts included: no alert engine is ported yet.
                 self.send_error(404)
                 return
             self.send_response(200)
@@ -192,15 +208,19 @@ class MetricsServer:
     """One daemon-threaded HTTP server over the live ledger (or, with
     ``snapshot_fn``, over any snapshot source: the fleet tests run several
     in-process replicas this way). ``replica_id`` names the replica in
-    ``/status`` (None: host and pid)."""
+    ``/status`` (None: host and pid). ``alert_engine`` (an
+    ``obs/alerts.py::AlertEngine``) answers ``/alerts``; None: that route
+    answers 404, as the JAX server's does without one."""
 
     def __init__(
         self, port: int = 0, host: str = "127.0.0.1", snapshot_fn=None,
-        replica_id: str | None = None,
+        replica_id: str | None = None, alert_engine=None,
     ):
         self._httpd = ThreadingHTTPServer((host, port), _Handler)
         self._httpd._tpuflow_snapshot = snapshot_fn
         self._httpd._tpuflow_replica_id = replica_id
+        self._httpd._tpuflow_alerts = alert_engine
+        self._httpd._tpuflow_alerts_lock = threading.Lock()
         self._httpd.daemon_threads = True
         self.host = host
         self.port = int(self._httpd.server_address[1])
@@ -231,6 +251,7 @@ def start_export(
     registration_dir: str | None = None,
     proc: int = 0,
     replica_id: str | None = None,
+    alert_engine=None,
 ) -> MetricsServer | None:
     """Start the export server on ``host``:``port`` (0: an ephemeral port,
     printed and recorded as an ``obs.export`` event) when this process is
@@ -240,7 +261,9 @@ def start_export(
     an int >= 0 raises ``ValueError``. Once ``/status``
     answers, the replica registers in ``registration_dir`` (when given)
     under ``replica_id`` (None: host and pid) so a fleet observatory
-    discovers it; a wildcard bind advertises the host's name."""
+    discovers it; a wildcard bind advertises the host's name.
+    ``alert_engine`` answers ``/alerts`` (None: the process engine
+    ``alerts.engine()``, so the route always answers)."""
     global _SERVER
     if isinstance(port, bool) or not isinstance(port, int) or port < 0:
         raise ValueError(f"export port must be an int >= 0, got {port!r}")
@@ -249,7 +272,10 @@ def start_export(
     if int(proc) != 0:
         return None  # one endpoint per gang: member 0 owns it
     try:
-        _SERVER = MetricsServer(port, host=host, replica_id=replica_id)
+        _SERVER = MetricsServer(
+            port, host=host, replica_id=replica_id,
+            alert_engine=(alert_engine if alert_engine is not None
+                          else _alerts.engine()))
     except OSError as e:
         print(
             f"[tpuflow] obs export failed to bind {host}:{port} "
